@@ -3,9 +3,18 @@
 of its inputs; this layer keeps the reference's calling contract."""
 from __future__ import annotations
 
+from repro_torch.kernels import page_hist as _ph
 from repro_torch.kernels import paged_attention as _pa
 
-__all__ = ["paged_attention"]
+__all__ = ["page_hist", "paged_attention"]
+
+
+def page_hist(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
+    """Per-period page-access counts, EMA hotness and hot mask
+    (``kernels.page_hist``): ids int32 [P] (pad -1), or [R, P] for R
+    periods in one call; hotness f32 [num_pages].  Returns (counts,
+    new_hotness, hot_mask)."""
+    return _ph.page_hist(ids, hotness, alpha=alpha, threshold=threshold)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *,

@@ -23,63 +23,24 @@ zero mass, so every active row's mass sums to 1.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
-__all__ = ["paged_attention", "paged_attention_plain", "build"]
+from repro_torch.kernels import _build
 
-_SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-_BUILD = pathlib.Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+__all__ = ["paged_attention", "paged_attention_plain"]
+
+NAME = "paged_attention"
+NVCC_FLAGS = _build.BASE_FLAGS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the paged-attention kernel is built "
-                       "from source with the CUDA toolkit")
-
-
-def build() -> pathlib.Path:
-    """Compile ``csrc/paged_attention.cu`` into a shared library (once per
-    source content) and return its path.  The compiler's ``-Xptxas -v``
-    report (registers, shared memory, spills) is kept beside it as
-    ``<name>.log``."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = _BUILD / f"libpaged_attention_{tag}.so"
-    if lib.exists():
-        return lib
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load(NAME, NVCC_FLAGS)
         fn = lib.paged_attention_launch
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                        + [ctypes.c_int] * 7

@@ -7,7 +7,21 @@ import math
 
 import torch
 
-__all__ = ["paged_attention_ref"]
+__all__ = ["page_hist_ref", "paged_attention_ref"]
+
+
+def page_hist_ref(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
+    """ids: int32[P] (pad -1); hotness: f32[num_pages].
+
+    As in the reference oracle, ids >= num_pages are clipped into the last
+    page and counted (the kernels ignore them; ROADMAP Queue 3)."""
+    num_pages = hotness.shape[0]
+    counts = torch.zeros((num_pages,), dtype=torch.float32,
+                         device=hotness.device).index_add_(
+        0, ids.clamp(0, num_pages - 1).long(),
+        torch.where(ids >= 0, 1.0, 0.0).float())
+    new_hot = alpha * counts + (1 - alpha) * hotness
+    return counts, new_hot, new_hot >= threshold
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,

@@ -21,6 +21,7 @@ pools carry the inert ``NULL_PLAN``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import cori, reuse
 from repro_torch.ft.inject import MigrationError, NULL_PLAN
 from repro_torch.obs import telemetry as _obs
 
@@ -332,12 +334,18 @@ class TieringManager:
 
     _obs_count = 0          # process-wide id counter for telemetry streams
 
-    def __init__(self, n_logical: int, cfg: TierConfig):
+    def __init__(self, n_logical: int, cfg: TierConfig,
+                 access_log_len: int = 65536):
         self.cfg = cfg
         self.n = n_logical
         self.hotness = np.zeros(n_logical, np.float64)
         self.last_access = np.full(n_logical, -1.0)
         self.step = 0
+        # accessed page ids per step, bounded: it feeds the offline
+        # `reuse_histogram`/`cori_candidates` flow (the online tuner keeps
+        # its own StreamingReuseCollector)
+        self.access_log: "collections.deque[np.ndarray]" = collections.deque(
+            maxlen=access_log_len)
         self.counts_since_tier = np.zeros(n_logical, np.float64)
         # live tiering period (what online Cori drives)
         self.period = max(1, int(cfg.period_steps))
@@ -369,6 +377,7 @@ class TieringManager:
         the sample spans (the macro length on the macro path): hotness
         counts and hit/miss costs scale by it."""
         accessed = page_mass >= self.cfg.access_threshold
+        self.access_log.append(np.nonzero(accessed)[0].astype(np.int32))
         self.counts_since_tier[accessed] += weight
         self.last_access[accessed] = self.step
         hits = accessed & resident
@@ -525,3 +534,22 @@ class TieringManager:
         resident[evict] = False
         resident[bring] = True
         return True
+
+    # -- Cori integration ----------------------------------------------------
+    def reuse_histogram(self, bin_width: int = 4) -> reuse.ReuseHistogram:
+        """Reuse distances in the decode-step domain from the access log."""
+        last = np.full(self.n, -1)
+        gaps: List[int] = []
+        for t, ids in enumerate(self.access_log):
+            prev = last[ids]
+            gaps.extend((t - prev[prev >= 0]).tolist())
+            last[ids] = t
+        h = reuse.loop_duration_histogram(np.asarray(gaps, np.int64),
+                                          bin_width=bin_width)
+        return reuse.prune_insignificant(h)
+
+    def cori_candidates(self, horizon_steps: int) -> np.ndarray:
+        hist = self.reuse_histogram()
+        dr = cori.dominant_reuse(hist)
+        return cori.candidate_periods(dr, float(horizon_steps),
+                                      min_period=1.0)
