@@ -9,7 +9,7 @@ own lines and its seconds; any failure raises and the script exits
 non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: ``nvcc`` compiles the three kernels for sm_90a from
+  2. build: ``nvcc`` compiles the four kernels for sm_90a from
      ``src/repro_torch/kernels/csrc``, one process per source, all at once
      (each -Xptxas -v report is printed);
   3. kernel vs plain version on the card: the main-path shape and a GQA /
@@ -42,7 +42,24 @@ non-zero):
   9. timing of the offline kernels at the main-path shapes: ``page_hist``
      at backprop's ``bin_trace`` shape and ``sim_scan`` over backprop's
      whole exhaustive sweep, beside their plain versions, a library
-     yardstick where one exists and their bounds.
+     yardstick where one exists and their bounds;
+ 10. the MLA kernel ``paged_attention_mla`` vs its plain version on the
+     card: the main-path shape (128 heads, kv_lora 512, rope 64) and a
+     grid over 16 and 128 heads, ragged -1 rows and a length-0 row,
+     float32 and bfloat16, with stated tolerances and each active row's
+     mass summing to 1;
+ 11. full-width deepseek-v3-671b (MLA + MoE; depth cut from 61 layers to
+     2, one dense-MLP and one MoE layer, float32 weights from a seeded
+     init) served by the macro-step batcher with phase 4's request mix,
+     after phase 4's qwen3-14b is freed.  The MLA kernel's launch count
+     must equal 2 x the decode steps run; one decode macro is profiled as
+     in phase 4;
+ 12. parity on the card: on reduced deepseek-v3-671b, the batcher's
+     greedy streams (macro and per-token) equal ``generate``'s (dense MLA
+     decode, no kernel);
+ 13. the MLA kernel's timing at the main-path shape beside its plain
+     version, one SDPA call over the gathered rows (the yardstick) and its
+     bound in bytes and in operations.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -52,6 +69,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -164,20 +182,12 @@ def _reset_counts(kernels) -> None:
         getattr(k, k.NAME).launches = 0
 
 
-def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
-    print("== phase 4: full-width qwen3-14b serving (macro-step batcher)",
-          flush=True)
-    cfg = C.get("qwen3-14b")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    params = mdl.init(cfg, seed=SEED)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    print(f"init: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {n_params / 1e9:.3f} B "
-          f"float32 params ({cfg.param_count() / 1e9:.3f} B without norms) "
-          f"in {time.monotonic() - t0:.1f} s", flush=True)
-
+def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels):
+    """Serve the smoke's request mix with the macro-step batcher over
+    ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner`` until
+    drained, with every kernel's launch count set to 0 just before.
+    Prints and checks what every served model shares; returns (batcher,
+    result, rng)."""
     n_logical, hbm_pages, page = 256, 128, 16
     pools = memtier.SharedPagedPools.create(n_logical, hbm_pages)
     mgr = memtier.TieringManager(n_logical, memtier.TierConfig(
@@ -186,12 +196,15 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
     mon = S.TrafficMonitor(pools, mgr, tuner)
     b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=4,
                             max_len=1024, page_size=page)
+    leaves = [k[:-4] for k in pools.kv_layers if k.endswith("_hbm")]
     pool_bytes = sum(t.numel() * t.element_size()
-                     for leaves in pools.kv_layers.values() for t in leaves)
+                     for ts in pools.kv_layers.values() for t in ts
+                     if t is not None)
     print(f"pools: {n_logical} logical pages, {hbm_pages} HBM slots, page "
-          f"{page}: {pool_bytes / 1e9:.2f} GB of float32 k/v over "
-          f"{len(pools.kv_layers['k_hbm'])} slot(s) x {pools.layer_meta[0]} "
-          "repeats", flush=True)
+          f"{page}: {pool_bytes / 1e9:.3f} GB of float32 {'/'.join(leaves)} "
+          f"rows over {len(pools.layer_meta)} slot(s) x repeats "
+          f"{pools.layer_meta}, {pools.move_planes} planes per migrated "
+          "page", flush=True)
 
     rng = np.random.default_rng(SEED)
     reqs = []
@@ -215,7 +228,6 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
     out = b.run()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = pa.paged_attention.launches
 
     n_tok = sum(len(v) for v in out.values())
     macros = rec.events("serve.macro")
@@ -236,11 +248,8 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
           f"{tuner.dominant_reuse}, candidates {tuner.candidates.tolist()}, "
           f"tried {tuner.tried}, history {tuner.history}", flush=True)
     print(f"macro lengths: {[e['n_steps'] for e in macros]}", flush=True)
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-          f" GB", flush=True)
-    print(f"paged_attention launches {launches} = {cfg.num_layers} layers x "
-          f"{b.decode_steps} decode steps -> "
-          f"{launches == cfg.num_layers * b.decode_steps}", flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"peak device memory {peak_gb:.2f} GB", flush=True)
 
     if sorted(out) != list(range(8)):
         _fail(f"not every request completed: {sorted(out)}")
@@ -250,8 +259,8 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
                 0 <= t < cfg.vocab_size for t in toks):
             _fail(f"request {r.rid}: {len(toks)} tokens, expected "
                   f"{r.max_new_tokens} in [0, {cfg.vocab_size})")
-    if b.decode_steps <= 0 or launches != cfg.num_layers * b.decode_steps:
-        _fail("the kernel's launches do not match 40 x the decode steps")
+    if b.decode_steps <= 0:
+        _fail("no decode step ran")
     if not all(math.isfinite(c) for c in tuner.cost_log):
         _fail("non-finite tuner cost")
     if pools.free_pages != n_logical:
@@ -259,10 +268,49 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
     telemetry.install(telemetry.Recorder())
     result = dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
                   macro_p50_ms=float(np.median(walls)), macros=len(macros),
-                  decode_steps=b.decode_steps, launches=launches)
-    _profile_macro(b, S, cfg, rng)
-    del b, mon, pools, params
+                  decode_steps=b.decode_steps, peak_gb=peak_gb)
+    return b, result, rng
+
+
+def _check_freed(held: int) -> None:
+    """After a served model's last reference is dropped: collect it,
+    return its memory to the card, and fail unless the allocated memory
+    fell from ``held`` to near zero."""
+    gc.collect()
     torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"freed: allocated {held / 1e9:.2f} GB -> {left / 1e9:.2f} GB",
+          flush=True)
+    if left > 2e9:
+        _fail("the served model was not freed")
+
+
+def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
+    print("== phase 4: full-width qwen3-14b serving (macro-step batcher)",
+          flush=True)
+    cfg = C.get("qwen3-14b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = mdl.init(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"init: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {n_params / 1e9:.3f} B "
+          f"float32 params ({cfg.param_count() / 1e9:.3f} B without norms) "
+          f"in {time.monotonic() - t0:.1f} s", flush=True)
+    b, result, rng = _serve_mix(params, cfg, S, memtier, cori, telemetry,
+                                kernels)
+    del params
+    launches = result["launches"] = pa.paged_attention.launches
+    print(f"paged_attention launches {launches} = {cfg.num_layers} layers x "
+          f"{b.decode_steps} decode steps -> "
+          f"{launches == cfg.num_layers * b.decode_steps}", flush=True)
+    if launches != cfg.num_layers * b.decode_steps:
+        _fail("the kernel's launches do not match 40 x the decode steps")
+    _profile_macro(b, S, cfg, rng)
+    held = torch.cuda.memory_allocated()
+    del b            # the deepseek phase needs the card
+    _check_freed(held)
     return result
 
 
@@ -315,11 +363,10 @@ def _profile_macro(b, S, cfg, rng) -> None:
     b.run()
 
 
-def phase_parity(C, mdl, S, memtier, cori, engine):
-    print("== phase 5: parity on the card (reduced GQA config, float32)",
-          flush=True)
-    cfg = dataclasses.replace(C.reduced("qwen3-14b"), num_kv_heads=2,
-                              segments=((("attn",), 2),), dtype="float32")
+def _parity(cfg, mdl, S, memtier, cori, engine) -> None:
+    """On a small float32 config: the batcher's greedy streams (macro and
+    per-token, staggered admission over two rows) equal ``generate``'s
+    (dense decode, no kernel)."""
     params = mdl.init(cfg, seed=SEED)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -350,9 +397,18 @@ def phase_parity(C, mdl, S, memtier, cori, engine):
         got = {r.rid: r.tokens for r in b.completed}
         same = got == ref
         print(f"{'macro' if macro else 'per-token'} batcher greedy streams "
-              f"== generate: {same}", flush=True)
+              f"== generate: {same} (migrations {mon.manager.migrations}, "
+              f"tuner history {mon.tuner.history})", flush=True)
         if not same:
             _fail(f"batcher streams {got} differ from generate {ref}")
+
+
+def phase_parity(C, mdl, S, memtier, cori, engine):
+    print("== phase 5: parity on the card (reduced GQA config, float32)",
+          flush=True)
+    _parity(dataclasses.replace(C.reduced("qwen3-14b"), num_kv_heads=2,
+                                segments=((("attn",), 2),), dtype="float32"),
+            mdl, S, memtier, cori, engine)
 
 
 def _time(fn, iters, flush_buf):
@@ -702,6 +758,181 @@ def phase_offline_timing(ph, ss, sim, traces, kernels) -> dict:
     return dict(page_hist=hist, sim_scan=scan)
 
 
+# ---------------------------------------------------------------------------
+# MLA + MoE: deepseek-v3-671b
+# ---------------------------------------------------------------------------
+
+# the MLA kernel's shape on the serving path at full width
+MLA_MAIN = dict(b=4, h=128, r=512, k=64, page=16, n=64, p_phys=256)
+
+
+def _mla_case(*, b, h, r, k, page, n, p_phys, lengths, dtype, seed=0):
+    """Random MLA operands on the card; rows padded with -1 past their
+    length.  ``scale`` is deepseek's 1/sqrt(128 + 64)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    f = lambda *shape: torch.randn(shape, generator=g, device=DEV).to(dtype)
+    table = torch.randperm(p_phys, generator=g, device=DEV)[: b * n] \
+        .reshape(b, n).to(torch.int32)
+    for row, length in enumerate(lengths):
+        table[row, -(-length // page):] = -1
+    return dict(q_abs=f(b, h, r), q_rope=f(b, h, k),
+                ckv_pages=f(p_phys, page, r), krope_pages=f(p_phys, page, k),
+                page_table=table,
+                lengths=torch.tensor(lengths, dtype=torch.int32, device=DEV),
+                scale=1.0 / math.sqrt(192))
+
+
+def phase_mla_check(pam) -> float:
+    """The MLA kernel vs its plain version; returns the largest float32
+    error seen."""
+    print("== phase 10: paged_attention_mla vs plain version on the card",
+          flush=True)
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-5)}
+    grid = [dict(MLA_MAIN, lengths=[1024, 777, 0, 301]),
+            dict(MLA_MAIN, h=16, lengths=[1024, 5, 513, 0]),
+            dict(b=3, h=128, r=512, k=64, page=16, n=6, p_phys=32,
+                 lengths=[96, 37, 1]),
+            dict(b=3, h=16, r=512, k=64, page=16, n=6, p_phys=32,
+                 lengths=[0, 17, 80])]
+    worst_f32 = 0.0
+    for i, case in enumerate(grid):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _mla_case(dtype=dtype, seed=100 + i, **case)
+            out, mass = pam.paged_attention_mla(**args)
+            torch.cuda.synchronize()
+            ref_o, ref_m = pam.paged_attention_mla_plain(**args)
+            err_o = float((out.float() - ref_o.float()).abs().max())
+            err_m = float((mass - ref_m).abs().max())
+            active = args["lengths"] > 0
+            err_sum = float((mass.sum(dim=1)[active] - 1).abs().max())
+            t_o, t_m = tol[dtype]
+            ok = (err_o <= t_o and err_m <= t_m and err_sum <= 1e-5
+                  and out.dtype == dtype)
+            print(f"case {i} {str(dtype)[6:]} B={case['b']} H={case['h']} "
+                  f"R={case['r']} K={case['k']} n={case['n']} lengths "
+                  f"{case['lengths']}: out err {err_o:.3g} (tol {t_o}), "
+                  f"mass err {err_m:.3g} (tol {t_m}), |row mass sum - 1| "
+                  f"{err_sum:.3g} (tol 1e-5) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                _fail(f"paged_attention_mla disagrees with its plain version "
+                      f"(case {i})")
+            if dtype == torch.float32:
+                worst_f32 = max(worst_f32, err_o, err_m)
+            if not bool(torch.all(mass[~active] == 0)) \
+                    or not bool(torch.all(out[~active] == 0)):
+                _fail("a length-0 row must give zeros")
+    return worst_f32
+
+
+def deepseek_cut(C):
+    """deepseek-v3-671b at full width, its depth cut from 61 layers to
+    one dense-MLP MLA layer and one MoE MLA layer."""
+    cfg = C.get("deepseek-v3-671b")
+    return dataclasses.replace(
+        cfg, segments=((("attn.mla",), 1), (("attn.mla.moe",), 1)))
+
+
+def phase_deepseek(C, mdl, pa, pam, S, memtier, cori, telemetry, kernels):
+    print("== phase 11: full-width deepseek-v3-671b serving (MLA + MoE, "
+          "macro-step batcher)", flush=True)
+    full = C.get("deepseek-v3-671b")
+    cfg = deepseek_cut(C)
+    mo, m = cfg.moe, cfg.mla
+    expert_gb = cfg.d_model * mo.d_expert * 3 * mo.num_experts * 4 / 1e9
+    print(f"reduced: depth {full.num_layers} -> {cfg.num_layers} layers "
+          f"(segments {cfg.segments}), widths unchanged: one MoE layer is "
+          f"{expert_gb:.1f} GB of float32 experts, so the 2 layers and the "
+          f"embeddings ({cfg.param_count() * 4 / 1e9:.1f} GB) are what "
+          f"fits one 80 GB card beside the pools", flush=True)
+    left = torch.cuda.memory_allocated()
+    if left > 2e9:
+        _fail(f"{left / 1e9:.2f} GB still allocated before deepseek's init")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = mdl.init(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"init: {cfg.name}, d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"MLA ranks q {m.q_lora_rank} / kv {m.kv_lora_rank} / rope "
+          f"{m.qk_rope_dim}, d_ff {cfg.d_ff}, {mo.num_experts} experts "
+          f"top-{mo.top_k} of {mo.d_expert} + {mo.num_shared} shared, vocab "
+          f"{cfg.vocab_size}: {n_params / 1e9:.3f} B float32 params in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    b, result, rng = _serve_mix(params, cfg, S, memtier, cori, telemetry,
+                                kernels)
+    del params
+    launches = result["launches"] = pam.paged_attention_mla.launches
+    kv_launches = pa.paged_attention.launches
+    print(f"paged_attention_mla launches {launches} = {cfg.num_layers} "
+          f"layers x {b.decode_steps} decode steps -> "
+          f"{launches == cfg.num_layers * b.decode_steps}; k/v "
+          f"paged_attention launches {kv_launches}", flush=True)
+    if launches != cfg.num_layers * b.decode_steps or kv_launches:
+        _fail("the MLA kernel's launches do not match 2 x the decode steps")
+    _profile_macro(b, S, cfg, rng)
+    held = torch.cuda.memory_allocated()
+    del b
+    _check_freed(held)
+    return result
+
+
+def phase_deepseek_parity(C, mdl, S, memtier, cori, engine):
+    print("== phase 12: parity on the card (reduced deepseek-v3-671b, "
+          "float32)", flush=True)
+    _parity(dataclasses.replace(C.reduced("deepseek-v3-671b"),
+                                dtype="float32"),
+            mdl, S, memtier, cori, engine)
+
+
+def phase_mla_timing(pam):
+    print("== phase 13: paged_attention_mla timing at the main-path shape",
+          flush=True)
+    import torch.nn.functional as F
+    c = MLA_MAIN
+    b, h, r, k, page, n = c["b"], c["h"], c["r"], c["k"], c["page"], c["n"]
+    lengths = [1024, 777, 513, 301]
+    args = _mla_case(lengths=lengths, dtype=torch.float32, **c)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    before = pam.paged_attention_mla.launches
+    ms = _time(lambda: pam.paged_attention_mla(**args), 50, flush)
+    plain_ms = _time(lambda: pam.paged_attention_mla_plain(**args), 20, flush)
+    pam.paged_attention_mla.launches = before  # timing launches not counted
+
+    # yardstick: one SDPA call over the same rows, gathered beforehand:
+    # q = q_abs ++ q_rope, k = ckv ++ krope (one KV head), v = ckv
+    t = n * page
+    idx = args["page_table"].clamp_min(0).long()
+    ckv = args["ckv_pages"][idx].reshape(b, 1, t, r)
+    kr = args["krope_pages"][idx].reshape(b, 1, t, k)
+    kk = torch.cat([ckv, kr], dim=-1).contiguous()
+    qq = torch.cat([args["q_abs"], args["q_rope"]], dim=-1)[:, :, None, :]
+    mask = (torch.arange(t, device=DEV)[None, :]
+            < args["lengths"][:, None].long())[:, None, None, :]
+    library_ms = _time(lambda: F.scaled_dot_product_attention(
+        qq, kk, ckv, attn_mask=mask, scale=args["scale"], enable_gqa=True),
+        50, flush)
+
+    tokens = sum(lengths)
+    row_bytes = tokens * (r + k) * 4
+    io_bytes = (b * h * (r + k) * 4 + b * h * r * 4      # q, out
+                + 2 * b * n * 4 + b * 4)                 # mass, table, lens
+    flops = 2 * (r + k + r) * h * tokens
+    t_bytes = (row_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"B={b} H={h} R={r} K={k} page={page} n={n} lengths {lengths} "
+          f"float32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over "
+          f"pre-gathered rows {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}): bytes {(row_bytes + io_bytes) / 1e6:.2f} MB -> "
+          f"{t_bytes:.4f} ms at 3.35 TB/s, operations {flops / 1e9:.3f} "
+          f"GFLOP -> {t_ops:.4f} ms at 67 TFLOP/s -> "
+          f"{bound_ms / ms * 100:.1f}% of the bound", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is visible", flush=True)
@@ -720,13 +951,14 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import page_hist as ph
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_mla as pam
     from repro_torch.kernels import sim_step as ss
     from repro_torch.models import model as mdl
     from repro_torch.obs import telemetry
     from repro_torch.serve import engine
     from repro_torch.serve import sched as S
 
-    kernels = (pa, ph, ss)
+    kernels = (pa, ph, ss, pam)
     secs = {}
 
     def timed(name, fn, *args):
@@ -750,8 +982,14 @@ def main() -> int:
                     pipeline, traces, kernels, ph, ss)
     off_timing = timed("offline timing", phase_offline_timing, ph, ss, sim,
                        traces, kernels)
-    print(f"card: {card}; serving {serve}; offline {offline}; phase seconds "
-          f"{secs}", flush=True)
+    mla_err = timed("paged_attention_mla check", phase_mla_check, pam)
+    deepseek = timed("deepseek serving", phase_deepseek, C, mdl, pa, pam, S,
+                     memtier, cori, telemetry, kernels)
+    timed("deepseek parity", phase_deepseek_parity, C, mdl, S, memtier, cori,
+          engine)
+    mla_timing = timed("paged_attention_mla timing", phase_mla_timing, pam)
+    print(f"card: {card}; serving {serve}; offline {offline}; deepseek "
+          f"{deepseek}; phase seconds {secs}", flush=True)
     print(json.dumps({"kernels": [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -766,7 +1004,12 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/sim_scan.cu",
              replaces="src/repro/kernels/sim_step.py:104",
              launches=offline["launches"]["sim_scan"],
-             max_abs_err=errs["sim_scan"], **off_timing["sim_scan"])]}),
+             max_abs_err=errs["sim_scan"], **off_timing["sim_scan"]),
+        dict(name="paged_attention_mla", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_attention_mla.cu",
+             replaces="src/repro/kernels/paged_attention.py:230",
+             launches=deepseek["launches"], max_abs_err=mla_err,
+             **mla_timing)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

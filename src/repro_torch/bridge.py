@@ -6,7 +6,11 @@ numpy arrays -- the caller does that conversion, so this module imports
 nothing of JAX -- and returns the port's ``Transformer`` holding the same
 numbers: segment leaves stay stacked ``[R, ...]``, and the attention
 projections are reshaped from the reference's ``wq/wk/wv [d, H, hd]`` and
-``wo [H, hd, d]`` to the port's matmul-ready ``[d, H*hd]`` / ``[H*hd, d]``.
+``wo [H, hd, d]`` to the port's matmul-ready ``[d, H*hd]`` / ``[H*hd, d]``
+(MLA's ``w_uq`` and ``wo`` likewise; ``w_uk``/``w_uv`` keep their heads).
+MLA leaves (``w_dq, q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv, wo``)
+and MoE leaves (``router, wi_gate, wi_up, wo, shared.*``) carry over as
+they are named in the reference.
 The tests use it so both packages compute the same function.
 """
 from __future__ import annotations
@@ -38,15 +42,26 @@ def from_reference(ref_params, cfg: ModelConfig, *,
         put(params.final_norm, ref_params["final_norm"])
         for seg, ref_seg in zip(params.segments, ref_params["segments"]):
             for slot, ref in zip(seg, ref_seg):
-                attn, mlp = ref["attn"], ref["mlp"]
                 put(slot.norm1, ref["norm1"])
                 put(slot.norm2, ref["norm2"])
-                for name in ("wq", "wk", "wv", "wo"):
+                attn = ref["attn"]
+                names = (("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm",
+                          "w_kr", "w_uk", "w_uv", "wo") if slot.kind.mla
+                         else ("wq", "wk", "wv", "wo")
+                         + (("q_norm", "k_norm") if cfg.qk_norm else ()))
+                for name in names:
                     put(getattr(slot, name), attn[name])
-                if cfg.qk_norm:
-                    put(slot.q_norm, attn["q_norm"])
-                    put(slot.k_norm, attn["k_norm"])
-                put(slot.wi_gate, mlp["wi_gate"])
-                put(slot.wi_up, mlp["wi_up"])
-                put(slot.w_down, mlp["wo"])
+                if slot.kind.moe:
+                    moe = ref["moe"]
+                    for name in ("router", "wi_gate", "wi_up", "wo"):
+                        put(getattr(slot.moe, name), moe[name])
+                    if cfg.moe.num_shared:
+                        for name in ("wi_gate", "wi_up", "wo"):
+                            put(getattr(slot.moe.shared, name),
+                                moe["shared"][name])
+                else:
+                    mlp = ref["mlp"]
+                    put(slot.wi_gate, mlp["wi_gate"])
+                    put(slot.wi_up, mlp["wi_up"])
+                    put(slot.w_down, mlp["wo"])
     return params

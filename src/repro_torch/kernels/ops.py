@@ -5,8 +5,9 @@ from __future__ import annotations
 
 from repro_torch.kernels import page_hist as _ph
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import paged_attention_mla as _pam
 
-__all__ = ["page_hist", "paged_attention"]
+__all__ = ["page_hist", "paged_attention", "paged_attention_mla"]
 
 
 def page_hist(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
@@ -31,6 +32,23 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
     out, mass = _pa.paged_attention(q, k_pages, v_pages,
                                     page_table.clamp_min(0), lengths,
                                     window=window, softcap=softcap)
+    if not return_mass:
+        return out
+    return out, mass
+
+
+def paged_attention_mla(q_abs, q_rope, ckv_pages, krope_pages, page_table,
+                        lengths, *, scale: float, return_mass: bool = False):
+    """MLA absorbed-matrix decode over compressed paged rows
+    (``kernels.paged_attention_mla``): ckv shared across heads plus roped
+    krope.  Same ragged-table clamp contract as ``paged_attention``;
+    ``scale`` = 1/sqrt(qk_nope_dim + qk_rope_dim), the uncompressed head
+    dim.  Returns the compressed-space context [B, H, R] (callers
+    up-project with W_uv) and, with ``return_mass``, the per-page mass
+    f32[B, n]."""
+    out, mass = _pam.paged_attention_mla(q_abs, q_rope, ckv_pages,
+                                         krope_pages, page_table.clamp_min(0),
+                                         lengths, scale=scale)
     if not return_mass:
         return out
     return out, mass

@@ -7,7 +7,7 @@ import math
 
 import torch
 
-__all__ = ["page_hist_ref", "paged_attention_ref"]
+__all__ = ["page_hist_ref", "paged_attention_mla_ref", "paged_attention_ref"]
 
 
 def page_hist_ref(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
@@ -60,6 +60,43 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
                          torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bht,bthd->bhd", w.to(vr.dtype), vr)
+    if not return_mass:
+        return out
+    mass = w.sum(dim=1).reshape(b, n, page).sum(dim=-1) / h   # [B, n]
+    return out, mass
+
+
+def paged_attention_mla_ref(q_abs, q_rope, ckv_pages, krope_pages,
+                            page_table, lengths, *, scale: float,
+                            return_mass: bool = False):
+    """MLA compressed-row paged decode (absorbed-matrix form).
+
+    q_abs: [B,H,R] (W_uk-absorbed no-pe queries); q_rope: [B,H,K];
+    ckv_pages: [P,page,R] (shared across heads, not roped); krope_pages:
+    [P,page,K]; page_table: [B,n] (valid physical pages); lengths: [B].
+    ``scale`` is 1/sqrt(qk_nope_dim + qk_rope_dim).
+
+    Returns the compressed-space context [B,H,R] in the ckv dtype, as
+    the reference oracle does (the Pallas kernel returns q_abs's dtype;
+    ROADMAP Queue 3), plus the head-normalised per-page mass f32[B,n]
+    with ``return_mass``.  Masked logits are -1e30, as in the reference
+    oracle, so a ``length == 0`` row gets uniform weights.
+    """
+    b, h, rdim = q_abs.shape
+    _, page, _ = ckv_pages.shape
+    n = page_table.shape[1]
+    idx = page_table.long()
+    ckv = ckv_pages[idx].reshape(b, n * page, rdim)
+    krope = krope_pages[idx].reshape(b, n * page, -1)
+    logits = (torch.einsum("bhr,btr->bht", q_abs.float(), ckv.float())
+              + torch.einsum("bhk,btk->bht", q_rope.float(),
+                             krope.float())) * scale
+    pos = torch.arange(n * page, device=q_abs.device)[None, :]
+    valid = pos < lengths.to(q_abs.device).long()[:, None]
+    logits = torch.where(valid[:, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bht,btr->bhr", w.to(ckv.dtype), ckv)
     if not return_mass:
         return out
     mass = w.sum(dim=1).reshape(b, n, page).sum(dim=-1) / h   # [B, n]

@@ -1,5 +1,5 @@
 """Cori-tuned KV-page tiering runtime (the counterpart of
-``repro/memtier/__init__.py`` for the k/v geometry).
+``repro/memtier/__init__.py`` for the k/v and MLA geometries).
 
 ``replay`` drives a ``TieringManager`` over a per-step page-mass sequence
 on symbolic residency; ``cori_tune_period`` runs the offline Cori loop

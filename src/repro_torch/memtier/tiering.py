@@ -1,5 +1,6 @@
-"""Cori-tuned HBM <-> host KV-page tiering for the k/v geometry (the
-counterpart of ``repro/memtier/tiering.py``).
+"""Cori-tuned HBM <-> host KV-page tiering for the attention geometries
+-- k/v token rows and MLA's compressed ckv/krope rows (the counterpart of
+``repro/memtier/tiering.py``).
 
 Mapping (the paper's hybrid memory onto the serving engine):
     DRAM            -> HBM working set      (hbm_pages physical slots)
@@ -79,10 +80,11 @@ class SharedPagedPools:
     HBM slot (-1 = host-only); ``table`` turns a request's page ids into
     the physical table the paged-attention kernel reads.
 
-    Symbolic until ``attach_layered`` gives it storage: one (k, v) leaf
-    pair per attention slot, host [R, n_logical, page, KV, D] and HBM
-    [R, hbm_pages, page, KV, D], all indirected by the single ``slot_of``
-    table -- a logical page is resident for every layer or for none."""
+    Symbolic until ``attach_layered`` gives it storage: one leaf pair per
+    attention slot -- (k, v) [.., page, KV, D] or MLA (ckv, krope)
+    [.., page, kv_lora|rope] -- host [R, n_logical, ...] and HBM
+    [R, hbm_pages, ...], all indirected by the single ``slot_of`` table:
+    a logical page is resident for every layer or for none."""
 
     def __init__(self, n_logical: int, hbm_pages: int):
         if hbm_pages > n_logical:
@@ -118,23 +120,25 @@ class SharedPagedPools:
                        device=None) -> None:
         """Allocate per-layer page storage from leaf specs: one
         ``(repeats, {leaf_name: trailing_shape})`` entry per layer slot
-        (``model.slot_leaf_specs``), zero-filled on ``device`` (default
-        cuda).  Host side [R, n_logical, *trailing], HBM side
-        [R, hbm_pages, *trailing]."""
+        (``model.slot_leaf_specs``: ``k``/``v`` for attention slots,
+        compressed ``ckv``/``krope`` for MLA slots), zero-filled on
+        ``device`` (default cuda).  Host side [R, n_logical, *trailing],
+        HBM side [R, hbm_pages, *trailing].  A layer lacking a leaf holds
+        ``None`` in that leaf's per-layer list, as the reference."""
         dev = resolve_device(device)
         names: List[str] = []
         for _, leaves in layer_specs:
             for name in leaves:
                 if name not in names:
                     names.append(name)
-        if set(names) - {"k", "v"}:
-            raise NotImplementedError(
-                f"leaves {sorted(set(names) - {'k', 'v'})}: the torch port "
-                "pages the k/v geometry only (Queue 1 item 8)")
-        kv: Dict[str, List[torch.Tensor]] = {
+        kv: Dict[str, List[Optional[torch.Tensor]]] = {
             f"{name}_{tier}": [] for name in names for tier in ("hbm", "host")}
         for r, leaves in layer_specs:
             for name in names:
+                if name not in leaves:
+                    kv[f"{name}_host"].append(None)
+                    kv[f"{name}_hbm"].append(None)
+                    continue
                 trail = tuple(int(x) for x in leaves[name])
                 kv[f"{name}_host"].append(torch.zeros(
                     (int(r), self.n_logical) + trail, dtype=dtype,
@@ -144,6 +148,8 @@ class SharedPagedPools:
                     device=dev))
         self.kv_layers = kv
         self.layer_meta = tuple(int(r) for r, _ in layer_specs)
+        # pages_moved accounting: the planes (leaves) one logical-page
+        # migration moves -- k + v, or ckv + krope for MLA
         self.move_planes = max((len(lv) for _, lv in layer_specs), default=2)
         if (r := _obs.RECORDER).enabled:
             r.emit("pool.attach", layers=len(self.layer_meta),
@@ -233,13 +239,15 @@ class SharedPagedPools:
                 f"injected migrate_slots failure ({len(slots)} pages)")
         if self.kv_layers is None:
             return
-        dev = self.kv_layers["k_hbm"][0].device
+        dev = next(t.device for leaves in self.kv_layers.values()
+                   for t in leaves if t is not None)
         sl = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
         lg = torch.as_tensor(np.asarray(logicals, np.int64), device=dev)
         for name in [k for k in self.kv_layers if k.endswith("_hbm")]:
             hosts = self.kv_layers[name[:-4] + "_host"]
             for hbm, host in zip(self.kv_layers[name], hosts):
-                hbm[:, sl] = host[:, lg]       # in place
+                if hbm is not None:
+                    hbm[:, sl] = host[:, lg]       # in place
 
     def _place(self, gids: np.ndarray) -> Tuple[List[int], np.ndarray]:
         """Give every non-resident page in ``gids`` an HBM slot (free slots

@@ -1,12 +1,15 @@
-"""Core layers of the attention-only transformer (the subset of
-``repro/models/layers.py`` this slice serves): norms, rotary, the SwiGLU
-MLP, GQA attention for prefill and dense decode, embeddings.
+"""Core layers of the attention transformer (the subset of
+``repro/models/layers.py`` the port serves): norms, rotary, the SwiGLU
+MLP, GQA attention and MLA (DeepSeek-V3 Multi-head Latent Attention) for
+prefill and dense decode, embeddings.
 
 Layouts follow the reference at every public function (activations
 [B, S, H, D], caches [B, T, KV, D]); projection weights are stored
 matmul-ready, ``wq [d, H*hd]`` and ``wo [H*hd, d]`` in place of the
 reference's ``[d, H, hd]`` / ``[H, hd, d]`` (``repro_torch.bridge``
-reshapes).  Numerics: the reference's embedding promotes the residual
+reshapes); MLA keeps ``w_uq [q_lora, H*(nope+rope)]`` and ``wo
+[H*v_head, d]`` flat the same way, and ``w_uk``/``w_uv`` per head
+``[kv_lora, H, k]`` as the reference.  Numerics: the reference's embedding promotes the residual
 stream to float32 (``embed`` below), so everything past it runs in
 float32 whatever ``cfg.dtype`` says.
 """
@@ -19,7 +22,8 @@ import torch
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["dense_init", "rms_norm", "rope", "mlp_apply", "causal_mask",
-           "sdpa", "attention_apply", "attention_decode", "embed", "unembed"]
+           "sdpa", "attention_apply", "attention_decode", "mla_apply",
+           "mla_decode", "mla_scale", "embed", "unembed"]
 
 NEG = -1e30     # masked logits, as the reference (not -inf)
 
@@ -64,9 +68,11 @@ def causal_mask(q_pos, k_pos):
 
 
 def sdpa(q, k, v, mask, softcap: float):
-    """Softmax attention.  q: [B,S,H,D], k/v: [B,T,KV,D], mask: bool
+    """Softmax attention.  q/k: [B,S,H,D] / [B,T,KV,D], v: [B,T,KV,Dv]
+    (MLA's value width differs from its key width), mask: bool
     broadcastable to [B,S,T].  The query heads of one KV head attend it as
-    a group (GQA without materialising repeated keys)."""
+    a group (GQA without materialising repeated keys).  Returns
+    [B,S,H,Dv]."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, d)
@@ -116,6 +122,82 @@ def attention_decode(p, r: int, cfg: ModelConfig, x, cache_k, cache_v,
     m = (pos_all <= cur_pos[:, None]) & (pos_all >= 0)
     out = sdpa(q, k_all, v_all, m[:, None, :], cfg.softcap)
     return out.reshape(x.shape[0], 1, -1) @ p.wo[r], k_new, v_new
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """1/sqrt(qk_nope + qk_rope): the uncompressed head dim's scale, which
+    the compressed shapes do not show."""
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+
+
+def _mla_q(p, r: int, cfg: ModelConfig, x, positions):
+    """(q_nope [B,S,H,nope], roped q_rope [B,S,H,rope])."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = rms_norm(x @ p.w_dq[r], p.q_norm[r])
+    q = (cq @ p.w_uq[r]).reshape(b, s, cfg.num_heads, -1)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_kv(p, r: int, cfg: ModelConfig, x, positions):
+    """The compressed cache rows of ``x``: (c_kv [B,S,kv_lora], roped
+    k_rope [B,S,rope], shared across heads)."""
+    c_kv = rms_norm(x @ p.w_dkv[r], p.kv_norm[r])
+    k_rope = rope((x @ p.w_kr[r])[:, :, None, :], positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def mla_apply(p, r: int, cfg: ModelConfig, x, positions, mask):
+    """Training/prefill MLA: materialise per-head K/V (K = k_nope ++
+    k_rope, width nope + rope; V width v_head).  Returns (out,
+    (c_kv, k_rope)) -- the compressed cache entries."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, r, cfg, x, positions)
+    c_kv, k_rope = _mla_kv(p, r, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk[r])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uv[r])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_dim)], dim=-1)
+    out = sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, mask, cfg.softcap)
+    return out.reshape(b, s, -1) @ p.wo[r], (c_kv, k_rope)
+
+
+def mla_decode(p, r: int, cfg: ModelConfig, x, cache_ckv, cache_krope,
+               cache_pos, cur_pos):
+    """Absorbed-matrix MLA decode over the compressed cache.  x: [B,1,d];
+    cache_ckv: [B,T,kv_lora]; cache_krope: [B,T,rope]; cache_pos: [B,T]
+    (-1 == empty); cur_pos: [B].  Returns (out, c_new, kr_new).
+
+    The logits are multiplied by the precomputed ``mla_scale`` (not
+    divided by a square root), as the reference, so this dense path and
+    the paged kernel, which takes ``scale`` as an operand, agree."""
+    b = x.shape[0]
+    q_nope, q_rope = _mla_q(p, r, cfg, x, cur_pos[:, None])
+    c_new, kr_new = _mla_kv(p, r, cfg, x, cur_pos[:, None])
+    ckv = torch.cat([cache_ckv, c_new], dim=1).to(x.dtype)
+    krope = torch.cat([cache_krope, kr_new], dim=1).to(x.dtype)
+    pos_all = torch.cat([cache_pos, cur_pos[:, None]], dim=1)
+    # absorb W_uk into q: q_abs[b,h,r] = sum_k q_nope[b,h,k] W_uk[r,h,k]
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk[r])
+    logits = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
+              + torch.einsum("bshk,btk->bhst", q_rope, krope))
+    logits = logits.float() * mla_scale(cfg)
+    mask = (pos_all <= cur_pos[:, None]) & (pos_all >= 0)
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.full_like(logits, NEG))
+    w = torch.softmax(logits, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w, ckv)
+    out = torch.einsum("bshr,rhk->bshk", ctx, p.w_uv[r])
+    return out.reshape(b, 1, -1) @ p.wo[r], c_new, kr_new
 
 
 def embed(tok_table, cfg: ModelConfig, tokens):

@@ -1,5 +1,5 @@
-"""Model assembly for attention-only segments: init, forward, prefill,
-dense decode and the fully-paged decode path (the counterpart of
+"""Model assembly for attention segments: init, forward, prefill, dense
+decode and the fully-paged decode path (the counterpart of
 ``repro/models/model.py``).
 
 Parameters live in a ``Transformer`` module whose layout mirrors the
@@ -12,9 +12,10 @@ same order as a Python loop over per-repeat views.
 The paged decode path updates the shared page pools in place
 (``index_put_``) where the reference returned a new, donated pytree.
 
-Only plain causal-attention layers with a SwiGLU MLP are ported here;
-configs that need another layer kind raise ``NotImplementedError`` naming
-the later slice (ROADMAP Queue 1 item 8).
+Ported layer kinds: causal GQA attention (k/v cache rows) and MLA
+(compressed ckv/krope rows), each followed by a SwiGLU MLP or a routed
+MoE (``models.moe``).  Configs that need another layer kind raise
+``NotImplementedError`` naming the later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -28,30 +29,32 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig, parse_kind
+from repro_torch.models.config import LayerKind, ModelConfig, parse_kind
+from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = ["Slot", "Transformer", "init", "forward", "prefill", "pad_cache",
            "init_cache", "decode_step", "prefill_batched", "state_slot_meta",
-           "slot_leaf_specs", "decode_step_paged", "decode_macro_step",
-           "sample"]
+           "slot_leaf_specs", "slot_leaf_names", "decode_step_paged",
+           "decode_macro_step", "sample"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for anything beyond plain causal
-    attention + SwiGLU, naming the slice of the port that brings it."""
+    """Raise ``NotImplementedError`` for anything beyond causal attention
+    or MLA with a SwiGLU MLP or MoE, naming the slice of the port that
+    brings it."""
     later = []
-    for kind in {parse_kind(s) for pat, _ in cfg.segments for s in pat}:
+    kinds = {parse_kind(s) for pat, _ in cfg.segments for s in pat}
+    for kind in kinds:
         if kind.base == "local":
             later.append("sliding-window/ring attention (Queue 1 item 8.1)")
         elif kind.base != "attn":
             later.append(f"recurrent {kind.base} cells (Queue 1 item 8.3)")
-        if kind.mla or kind.moe:
-            later.append("MLA and MoE (Queue 1 item 8.2)")
         if kind.xattn:
             later.append("cross-attention conditioning (Queue 1 item 8.4)")
     if cfg.prefix_len:
         later.append("shared prefix pages (Queue 1 item 8.5)")
-    if cfg.mlp_kind != "swiglu" or not cfg.d_ff:
+    if cfg.mlp_kind != "swiglu" \
+            or (not cfg.d_ff and not all(k.moe for k in kinds)):
         later.append(f"the {cfg.mlp_kind} MLP (Queue 1 item 8.6)")
     if later:
         raise NotImplementedError(
@@ -65,12 +68,25 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Slot(nn.Module):
-    """One attention + SwiGLU pattern slot, every leaf stacked over the
-    segment's ``repeats``: norms [R, d], projections [R, d, H*hd] /
-    [R, H*hd, d], MLP [R, d, ff] / [R, ff, d]."""
+    """One pattern slot, every leaf stacked over the segment's
+    ``repeats``: ``norm1`` [R, d], then the attention leaves of its
+    ``kind`` -- GQA ``wq`` [R, d, H*hd], ``wk``/``wv`` [R, d, KV*hd],
+    ``wo`` [R, H*hd, d] (+ ``q_norm``/``k_norm`` [R, hd] with qk-norm), or
+    MLA ``w_dq`` [R, d, q_lora], ``q_norm`` [R, q_lora], ``w_uq``
+    [R, q_lora, H*(nope+rope)], ``w_dkv`` [R, d, kv_lora], ``kv_norm``
+    [R, kv_lora], ``w_kr`` [R, d, rope], ``w_uk`` [R, kv_lora, H, nope],
+    ``w_uv`` [R, kv_lora, H, v_head], ``wo`` [R, H*v_head, d] -- then
+    ``norm2`` and either the MoE (``moe``) or the SwiGLU MLP
+    ``wi_gate``/``wi_up`` [R, d, ff], ``w_down`` [R, ff, d].
 
-    def __init__(self, cfg: ModelConfig, repeats: int, device):
+    ``fan_in`` maps each random leaf to the fan-in the reference's
+    ``_dense_init`` gives it: ``shape[0]`` of the unstacked reference
+    leaf, whatever its rank (``wo [H, hd, d]`` has fan-in H)."""
+
+    def __init__(self, cfg: ModelConfig, kind: LayerKind, repeats: int,
+                 device):
         super().__init__()
+        self.kind = kind
         d, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                             cfg.head_dim, cfg.d_ff)
 
@@ -80,14 +96,35 @@ class Slot(nn.Module):
                                 requires_grad=False)
 
         self.norm1 = leaf(d)
-        self.wq, self.wk, self.wv = leaf(d, h * hd), leaf(d, kv * hd), \
-            leaf(d, kv * hd)
-        self.wo = leaf(h * hd, d)
-        if cfg.qk_norm:
-            self.q_norm, self.k_norm = leaf(hd), leaf(hd)
+        if kind.mla:
+            m = cfg.mla
+            self.w_dq, self.q_norm = leaf(d, m.q_lora_rank), \
+                leaf(m.q_lora_rank)
+            self.w_uq = leaf(m.q_lora_rank,
+                             h * (m.qk_nope_dim + m.qk_rope_dim))
+            self.w_dkv, self.kv_norm = leaf(d, m.kv_lora_rank), \
+                leaf(m.kv_lora_rank)
+            self.w_kr = leaf(d, m.qk_rope_dim)
+            self.w_uk = leaf(m.kv_lora_rank, h, m.qk_nope_dim)
+            self.w_uv = leaf(m.kv_lora_rank, h, m.v_head_dim)
+            self.wo = leaf(h * m.v_head_dim, d)
+            self.fan_in = {"w_dq": d, "w_uq": m.q_lora_rank, "w_dkv": d,
+                           "w_kr": d, "w_uk": m.kv_lora_rank,
+                           "w_uv": m.kv_lora_rank, "wo": h}
+        else:
+            self.wq, self.wk, self.wv = leaf(d, h * hd), leaf(d, kv * hd), \
+                leaf(d, kv * hd)
+            self.wo = leaf(h * hd, d)
+            if cfg.qk_norm:
+                self.q_norm, self.k_norm = leaf(hd), leaf(hd)
+            self.fan_in = {"wq": d, "wk": d, "wv": d, "wo": h}
         self.norm2 = leaf(d)
-        self.wi_gate, self.wi_up, self.w_down = leaf(d, ff), leaf(d, ff), \
-            leaf(ff, d)
+        if kind.moe:
+            self.moe = MoE(cfg, repeats, device)
+        else:
+            self.wi_gate, self.wi_up, self.w_down = leaf(d, ff), \
+                leaf(d, ff), leaf(ff, d)
+            self.fan_in.update(wi_gate=d, wi_up=d, w_down=ff)
 
 
 class Transformer(nn.Module):
@@ -104,16 +141,18 @@ class Transformer(nn.Module):
             self.unembed = leaf(cfg.d_model, cfg.vocab_size)
         self.final_norm = leaf(cfg.d_model)
         self.segments = nn.ModuleList(
-            nn.ModuleList(Slot(cfg, repeats, device) for _ in pattern)
+            nn.ModuleList(Slot(cfg, parse_kind(k), repeats, device)
+                          for k in pattern)
             for pattern, repeats in cfg.segments)
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
     """Random float32 weights from a seeded ``torch.Generator`` on the
     target device, at the reference's init scales (``layers._dense_init``:
-    N(0, 1/fan_in); the token table N(0, 1/d); norms one).  The values
-    differ from the JAX init -- ``bridge.from_reference`` carries the
-    reference's own weights over when a test needs them."""
+    N(0, 1/fan_in) with each leaf's ``fan_in``; the token table N(0, 1/d);
+    norms one).  The values differ from the JAX init --
+    ``bridge.from_reference`` carries the reference's own weights over
+    when a test needs them."""
     dev = resolve_device(device)
     params = Transformer(cfg, dev)
     g = torch.Generator(device=dev).manual_seed(int(seed))
@@ -125,13 +164,13 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
         params.final_norm.fill_(1.0)
         for seg in params.segments:
             for slot in seg:
-                for name in ("wq", "wk", "wv", "wi_gate", "wi_up"):
-                    L.dense_init(getattr(slot, name), g, d)
-                L.dense_init(slot.wo, g, cfg.num_heads * cfg.head_dim)
-                L.dense_init(slot.w_down, g, cfg.d_ff)
-                for name in ("norm1", "norm2", "q_norm", "k_norm"):
-                    if hasattr(slot, name):
-                        getattr(slot, name).fill_(1.0)
+                for mod in slot.modules():
+                    fan = getattr(mod, "fan_in", {})
+                    for name, t in mod.named_parameters(recurse=False):
+                        if name in fan:
+                            L.dense_init(t, g, fan[name])
+                        else:            # norms
+                            t.fill_(1.0)
     return params
 
 
@@ -147,8 +186,13 @@ def _layers(params: Transformer, cfg: ModelConfig):
         li += len(pattern)
 
 
-def _block_tail(slot, r: int, x):
-    return x + L.mlp_apply(slot, r, L.rms_norm(x, slot.norm2[r]))
+def _block_tail(slot, r: int, cfg: ModelConfig, x):
+    """The residual MLP or MoE after a slot's attention: (x, aux)."""
+    h = L.rms_norm(x, slot.norm2[r])
+    if slot.kind.moe:
+        out, aux = moe_apply(slot.moe, r, cfg, h)
+        return x + out, aux
+    return x + L.mlp_apply(slot, r, h), None
 
 
 # ---------------------------------------------------------------------------
@@ -157,29 +201,35 @@ def _block_tail(slot, r: int, x):
 
 
 def _run_seq(params, cfg: ModelConfig, x, positions):
-    """All layers over a sequence; returns (x, per-slot lists of (k, v)
-    in repeat order)."""
+    """All layers over a sequence; returns (x, per-slot lists of cache
+    entries in repeat order -- {"k", "v"} or MLA {"ckv", "krope"} --,
+    the summed MoE aux loss)."""
     mask = L.causal_mask(positions, positions)
     entries: List[List] = [[] for _ in state_slot_meta(cfg)]
+    aux_total = torch.zeros((), device=x.device)
     for li, r, slot in _layers(params, cfg):
-        out, kv = L.attention_apply(slot, r, cfg,
-                                    L.rms_norm(x, slot.norm1[r]),
-                                    positions, mask)
-        x = _block_tail(slot, r, x + out)
-        entries[li].append(kv)
-    return x, entries
+        apply = L.mla_apply if slot.kind.mla else L.attention_apply
+        out, rows = apply(slot, r, cfg, L.rms_norm(x, slot.norm1[r]),
+                          positions, mask)
+        entries[li].append(dict(zip(slot_leaf_names(slot.kind), rows)))
+        x, aux = _block_tail(slot, r, cfg, x + out)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, entries, aux_total
 
 
 def _stack_cache(cfg: ModelConfig, entries, pos):
-    """Cache tree {"segments": [[{"k", "v": [R,B,T,KV,D], "pos": [R,B,T]}]]}
-    from per-slot entry lists."""
+    """Cache tree {"segments": [[{leaf: [R, B, T, ...], "pos": [R,B,T]}]]}
+    from per-slot entry lists: ``k``/``v`` [R,B,T,KV,D] or MLA ``ckv``
+    [R,B,T,kv_lora] / ``krope`` [R,B,T,rope]."""
     segs, li = [], 0
     for pattern, repeats in cfg.segments:
         slots = []
         for _ in pattern:
-            ks, vs = zip(*entries[li])
-            slots.append({"k": torch.stack(ks), "v": torch.stack(vs),
-                          "pos": pos.expand(repeats, *pos.shape).clone()})
+            c = {name: torch.stack([e[name] for e in entries[li]])
+                 for name in entries[li][0]}
+            c["pos"] = pos.expand(repeats, *pos.shape).clone()
+            slots.append(c)
             li += 1
         segs.append(slots)
     return {"segments": segs}
@@ -187,12 +237,15 @@ def _stack_cache(cfg: ModelConfig, entries, pos):
 
 def forward(params, cfg: ModelConfig, tokens):
     """Training-style forward.  tokens: [B, S].  Returns (logits [B,S,V],
-    aux_loss) -- aux is 0 (no MoE in this slice)."""
+    aux_loss): the MoE load-balance loss summed over the MoE layers (0
+    without MoE).  The reference's scan over repeats adds the aux of a
+    pattern's last slot only (``model.py:330``), which is the same sum for
+    every registered MoE config (single-slot patterns)."""
     x = L.embed(params.tok, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _ = _run_seq(params, cfg, x, positions)
+    x, _, aux = _run_seq(params, cfg, x, positions)
     x = L.rms_norm(x, params.final_norm)
-    return L.unembed(params, cfg, x), torch.zeros((), device=x.device)
+    return L.unembed(params, cfg, x), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens):
@@ -201,7 +254,7 @@ def prefill(params, cfg: ModelConfig, tokens):
     x = L.embed(params.tok, cfg, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
-    x, entries = _run_seq(params, cfg, x, positions)
+    x, entries, _ = _run_seq(params, cfg, x, positions)
     x = L.rms_norm(x, params.final_norm)
     logits = L.unembed(params, cfg, x[:, -1:])
     pos = positions.expand(b, s).to(torch.int64)
@@ -228,17 +281,27 @@ def pad_cache(cache, cfg: ModelConfig, max_len: int):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.float32, device=None):
-    """Empty dense decode cache mirroring the segment structure."""
+    """Empty dense decode cache mirroring the segment structure: k/v rows
+    for attention slots, compressed ckv/krope rows for MLA slots."""
     dev = resolve_device(device)
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
-    return {"segments": [[{
-        "k": torch.zeros((r, batch, max_len, kv, hd), dtype=dtype,
-                         device=dev),
-        "v": torch.zeros((r, batch, max_len, kv, hd), dtype=dtype,
-                         device=dev),
-        "pos": torch.full((r, batch, max_len), -1, dtype=torch.int64,
-                          device=dev)} for _ in pat]
-        for pat, r in cfg.segments]}
+    zeros = lambda r, *s: torch.zeros((r, batch, max_len) + s, dtype=dtype,
+                                      device=dev)
+    segs = []
+    for pat, r in cfg.segments:
+        slots = []
+        for kind_s in pat:
+            if parse_kind(kind_s).mla:
+                m = cfg.mla
+                c = {"ckv": zeros(r, m.kv_lora_rank),
+                     "krope": zeros(r, m.qk_rope_dim)}
+            else:
+                kv, hd = cfg.num_kv_heads, cfg.head_dim
+                c = {"k": zeros(r, kv, hd), "v": zeros(r, kv, hd)}
+            c["pos"] = torch.full((r, batch, max_len), -1, dtype=torch.int64,
+                                  device=dev)
+            slots.append(c)
+        segs.append(slots)
+    return {"segments": segs}
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos):
@@ -249,14 +312,16 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos):
     rows = torch.arange(x.shape[0], device=x.device)
     for li, r, slot in _layers(params, cfg):
         c = _slot_cache(cache, cfg, li)
-        k, v, pos = c["k"][r], c["v"][r], c["pos"][r]
-        out, k_new, v_new = L.attention_decode(
-            slot, r, cfg, L.rms_norm(x, slot.norm1[r]), k, v, pos, cur_pos)
-        wslot = cur_pos.clamp_max(k.shape[1] - 1)
-        k[rows, wslot] = k_new[:, 0].to(k.dtype)
-        v[rows, wslot] = v_new[:, 0].to(v.dtype)
+        pos = c["pos"][r]
+        names = slot_leaf_names(slot.kind)
+        decode = L.mla_decode if slot.kind.mla else L.attention_decode
+        out, *new = decode(slot, r, cfg, L.rms_norm(x, slot.norm1[r]),
+                           c[names[0]][r], c[names[1]][r], pos, cur_pos)
+        wslot = cur_pos.clamp_max(pos.shape[1] - 1)
+        for name, e in zip(names, new):
+            c[name][r][rows, wslot] = e[:, 0].to(c[name].dtype)
         pos[rows, wslot] = cur_pos.to(pos.dtype)
-        x = _block_tail(slot, r, x + out)
+        x, _ = _block_tail(slot, r, cfg, x + out)
     x = L.rms_norm(x, params.final_norm)
     return L.unembed(params, cfg, x), cache
 
@@ -279,7 +344,7 @@ def prefill_batched(params, cfg: ModelConfig, tokens, lengths):
     x = L.embed(params.tok, cfg, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
-    x, entries = _run_seq(params, cfg, x, positions)
+    x, entries, _ = _run_seq(params, cfg, x, positions)
     x = L.rms_norm(x, params.final_norm)
     ln = torch.as_tensor(lengths, device=x.device).long()
     last = x[torch.arange(b, device=x.device), ln - 1][:, None]
@@ -308,22 +373,41 @@ def state_slot_meta(cfg: ModelConfig):
 
 def slot_leaf_specs(cfg: ModelConfig, page_size: int):
     """Leaf specs for ``SharedPagedPools.attach_layered``: one
-    ``(repeats, {"k": (page, KV, D), "v": ...})`` entry per slot."""
+    ``(repeats, leaves)`` entry per slot.  Attention pages hold (k, v)
+    token rows ``{"k": (page, KV, D), "v": ...}``; MLA pages hold
+    compressed rows shared across heads ``{"ckv": (page, kv_lora),
+    "krope": (page, rope)}``."""
     check_supported(cfg)
-    trail = (page_size, cfg.num_kv_heads, cfg.head_dim)
-    return [(repeats, {"k": trail, "v": trail})
-            for (_, _, repeats, _, _) in state_slot_meta(cfg)]
+    specs = []
+    for (_, _, repeats, _, kind) in state_slot_meta(cfg):
+        if kind.mla:
+            m = cfg.mla
+            leaves = {"ckv": (page_size, m.kv_lora_rank),
+                      "krope": (page_size, m.qk_rope_dim)}
+        else:
+            trail = (page_size, cfg.num_kv_heads, cfg.head_dim)
+            leaves = {"k": trail, "v": trail}
+        specs.append((repeats, leaves))
+    return specs
+
+
+def slot_leaf_names(kind: LayerKind):
+    """The pool leaves of one slot: ``("ckv", "krope")`` for MLA, else
+    ``("k", "v")``."""
+    return ("ckv", "krope") if kind.mla else ("k", "v")
 
 
 def decode_step_paged(params, cfg: ModelConfig, kv, tables, gid_tables,
                       tokens, cur_pos, *, page_size: int):
     """One decode step with every attention layer reading and writing the
-    shared page pools (no dense cache exists).
+    shared page pools (no dense cache exists): attention slots through
+    ``ops.paged_attention``, MLA slots through ``ops.paged_attention_mla``.
 
     kv:         the pools' layered leaves (``SharedPagedPools.kv_layers``):
                 ``{"k_hbm"|"v_hbm": [per slot [R, hbm_pages, page, KV, D]],
-                "k_host"|"v_host": [per slot [R, n_logical, ...]]}``,
-                updated in place.
+                "k_host"|"v_host": [per slot [R, n_logical, ...]]}``, and
+                for MLA slots ``ckv_*`` [.., page, kv_lora] / ``krope_*``
+                [.., page, rope]; updated in place.
     tables:     int32[B, n] HBM slot per row page (-1 = padding/inactive).
     gid_tables: int32[B, n] logical page id per row page (-1 = padding).
     tokens: [B, 1]; cur_pos: [B] position being decoded (-1 = inactive).
@@ -359,22 +443,37 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
                            device=dev)
     n_layers = 0
     for li, r, slot in _layers(params, cfg):
-        kh, vh = kv["k_hbm"][li][r], kv["v_hbm"][li][r]
-        khost, vhost = kv["k_host"][li][r], kv["v_host"][li][r]
-        q, k_new, v_new = L._qkv(slot, r, cfg, L.rms_norm(x, slot.norm1[r]),
-                                 cur_pos[:, None])
-        # write-through: the decoding token's KV lands in its HBM slot page
-        # AND the host backing page before the gather, so the kernel
+        names = slot_leaf_names(slot.kind)
+        hbm = [kv[f"{n}_hbm"][li][r] for n in names]
+        host = [kv[f"{n}_host"][li][r] for n in names]
+        h = L.rms_norm(x, slot.norm1[r])
+        if slot.kind.mla:
+            q_nope, q_rope = L._mla_q(slot, r, cfg, h, cur_pos[:, None])
+            new = L._mla_kv(slot, r, cfg, h, cur_pos[:, None])
+        else:
+            q, *new = L._qkv(slot, r, cfg, h, cur_pos[:, None])
+        # write-through: the decoding token's rows land in its HBM slot
+        # page AND the host backing page before the gather, so the kernel
         # attends the current token too
-        k1, v1 = k_new[:, 0].to(kh.dtype), v_new[:, 0].to(vh.dtype)
-        kh.index_put_(hbm_at, k1[hbm_rows])
-        vh.index_put_(hbm_at, v1[hbm_rows])
-        khost.index_put_(host_at, k1[host_rows])
-        vhost.index_put_(host_at, v1[host_rows])
-        ctx, mass = ops.paged_attention(q[:, 0].contiguous(), kh, vh, tables,
-                                        lengths, softcap=cfg.softcap,
-                                        return_mass=True)
-        x = _block_tail(slot, r, x + ctx.reshape(b, 1, -1) @ slot.wo[r])
+        for pool_h, pool_host, e in zip(hbm, host, new):
+            e1 = e[:, 0].to(pool_h.dtype)
+            pool_h.index_put_(hbm_at, e1[hbm_rows])
+            pool_host.index_put_(host_at, e1[host_rows])
+        if slot.kind.mla:
+            # the paged analogue of layers.mla_decode: attend in the
+            # compressed space, then up-project with W_uv
+            q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], slot.w_uk[r])
+            ctx, mass = ops.paged_attention_mla(
+                q_abs.contiguous(), q_rope[:, 0].contiguous(), hbm[0], hbm[1],
+                tables, lengths, scale=L.mla_scale(cfg), return_mass=True)
+            ctx = torch.einsum("bhr,rhk->bhk", ctx, slot.w_uv[r])
+        else:
+            ctx, mass = ops.paged_attention(q[:, 0].contiguous(), hbm[0],
+                                            hbm[1], tables, lengths,
+                                            softcap=cfg.softcap,
+                                            return_mass=True)
+        x, _ = _block_tail(slot, r, cfg, x + ctx.reshape(b, 1, -1)
+                           @ slot.wo[r])
         mass_sum += mass
         n_layers += 1
     logits = L.unembed(params, cfg, L.rms_norm(x, params.final_norm))

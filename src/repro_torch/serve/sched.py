@@ -346,8 +346,12 @@ class ContinuousBatcher:
             gids_m[i, :n] = req.gids[:n]
             slots_m[i, :n] = slots_flat[o: o + n]
             o += n
-        leaves = {name: [c[name] for seg in cache_b["segments"] for c in seg]
-                  for name in ("k", "v")}
+        meta = mdl.state_slot_meta(self.cfg)
+        leaves: Dict[str, List] = {}
+        for li, (si, j, _, _, kind) in enumerate(meta):
+            e = cache_b["segments"][si][j]
+            for name in mdl.slot_leaf_names(kind):
+                leaves.setdefault(name, [None] * len(meta))[li] = e[name]
         write_pages_batched(pools.kv_layers, leaves, gids_m, slots_m)
 
     # -- the scheduler loop --------------------------------------------------

@@ -1,0 +1,434 @@
+"""The port's MLA and MoE geometries against the JAX reference.
+
+Reduced ``deepseek-v3-671b`` (every layer MLA; one dense-MLP segment and
+one MoE segment with a shared expert) and reduced ``olmoe-1b-7b`` (k/v
+attention with qk-norm, every layer MoE without a shared expert), both
+float32, with the reference's parameters carried over through
+``repro_torch.bridge``:
+
+  * the routed MoE against ``moe_apply_dense`` (outputs and aux loss) and
+    the routing's tie order against ``lax.top_k``;
+  * ``mla_apply``, ``mla_decode`` against the reference's layers;
+  * forward (logits and aux), batched prefill caches, prefill + dense
+    decode, and the fully-paged decode step (logits, page mass,
+    write-through into both tiers);
+  * the ``ContinuousBatcher``'s greedy streams (macro and per-token) equal
+    the reference batcher's rid for rid, with the same migrations and
+    tuner history, and equal the reference's ``generate``; sampled rows
+    agree across the port's own generate, per-token and macro paths;
+  * pools over k/v and MLA slots side by side, as the reference's.
+
+On the CPU the paged layers run the kernels' plain versions.  Tolerances:
+1e-4 absolute on logits, 1e-5 on page masses, MoE outputs and caches
+(float32, different reduction orders: the routed MoE sums a token's
+experts in expert order, the reference in top-k order)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax
+import jax.numpy as jnp
+
+import repro.configs as RC
+from repro.core.cori import OnlineTuner as RTuner
+from repro.memtier.tiering import SharedPagedPools as RPools
+from repro.memtier.tiering import TierConfig as RTierConfig
+from repro.memtier.tiering import TieringManager as RManager
+from repro.models import layers as RL
+from repro.models import model as RM
+from repro.models import moe as RMoE
+from repro.serve import sched as RS
+from repro.serve.engine import generate as r_generate
+
+import repro_torch.configs as TC
+from repro_torch import bridge
+from repro_torch.core.cori import OnlineTuner as TTuner
+from repro_torch.memtier.tiering import SharedPagedPools as TPools
+from repro_torch.memtier.tiering import TierConfig as TTierConfig
+from repro_torch.memtier.tiering import TieringManager as TManager
+from repro_torch.models import layers as TL
+from repro_torch.models import model as TM
+from repro_torch.models import moe as TMoE
+from repro_torch.serve import sched as TS
+from repro_torch.serve.engine import generate as t_generate
+
+ARCHS = ["deepseek-v3-671b", "olmoe-1b-7b"]
+LOGIT_TOL, TOL = 1e-4, 1e-5
+N_LOGICAL, HBM, PAGE = 48, 10, 4
+PROMPT_LENS = (6, 9, 5, 11)
+NEW = (6, 4, 9, 7)
+
+_CACHE = {}
+
+
+def _models(arch):
+    if arch not in _CACHE:
+        rcfg = dataclasses.replace(RC.reduced(arch), dtype="float32")
+        tcfg = dataclasses.replace(TC.reduced(arch), dtype="float32")
+        rp, _ = RM.init(jax.random.PRNGKey(0), rcfg)
+        tp = bridge.from_reference(jax.tree.map(np.asarray, rp), tcfg,
+                                   device="cpu")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, rcfg.vocab_size, n).astype(np.int32)
+                   for n in PROMPT_LENS]
+        _CACHE[arch] = dict(rcfg=rcfg, rp=rp, tcfg=tcfg, tp=tp,
+                            prompts=prompts)
+    return _CACHE[arch]
+
+
+def _close(t, r, tol):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(r), atol=tol,
+                               rtol=0)
+
+
+def _slot(m, si):
+    """(reference slot params at repeat 0, the port's slot)."""
+    ref = jax.tree.map(lambda a: a[0], m["rp"]["segments"][si][0])
+    return ref, m["tp"].segments[si][0]
+
+
+def _moe_segment(arch):
+    return 1 if arch == "deepseek-v3-671b" else 0
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_matches_dense_reference(arch):
+    """Routed MoE == the reference's dense oracle: outputs (shared expert
+    included for deepseek) and the load-balance aux loss."""
+    m = _models(arch)
+    ref, slot = _slot(m, _moe_segment(arch))
+    x = np.random.default_rng(1).standard_normal(
+        (3, 7, m["rcfg"].d_model)).astype(np.float32)
+    ry, raux = RMoE.moe_apply_dense(ref["moe"], m["rcfg"], jnp.asarray(x))
+    ty, taux = TMoE.moe_apply(slot.moe, 0, m["tcfg"], torch.from_numpy(x))
+    _close(ty, ry, TOL)
+    assert abs(float(taux) - float(raux)) < TOL
+
+
+def test_route_breaks_ties_like_lax_top_k():
+    """Tied router probabilities pick the lowest expert ids, as
+    ``lax.top_k`` does: a zero row ties every expert, a half-zero router
+    ties groups of experts."""
+    m = _models("deepseek-v3-671b")
+    cfg = m["rcfg"]
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((5, cfg.d_model)).astype(np.float32)
+    x[0] = 0.0
+    router = rng.standard_normal((cfg.d_model, cfg.moe.num_experts)) \
+        .astype(np.float32)
+    router[:, 4:] = router[:, :4]             # experts 4-7 tie with 0-3
+    rw, ri, rp = RMoE._route(jnp.asarray(x), jnp.asarray(router),
+                             cfg.moe.top_k)
+    tw, ti, tp = TMoE.route(torch.from_numpy(x), torch.from_numpy(router),
+                            cfg.moe.top_k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+    _close(tw, rw, TOL)
+    _close(tp, rp, TOL)
+
+
+# ---------------------------------------------------------------------------
+# MLA layers
+# ---------------------------------------------------------------------------
+
+
+def test_mla_layers_match_reference():
+    """``mla_apply`` (prefill: output and compressed cache rows) and
+    ``mla_decode`` (absorbed-matrix decode over a cache with an empty
+    slot) against the reference's layers."""
+    m = _models("deepseek-v3-671b")
+    rcfg, tcfg = m["rcfg"], m["tcfg"]
+    ref, slot = _slot(m, 0)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 6, rcfg.d_model)).astype(np.float32)
+    pos = np.arange(6)[None]
+    mask = np.tril(np.ones((6, 6), bool))[None]
+    ro, (rc, rk) = RL.mla_apply(ref["attn"], rcfg, jnp.asarray(x),
+                                jnp.asarray(pos), jnp.asarray(mask))
+    to, (tc, tk) = TL.mla_apply(slot, 0, tcfg, torch.from_numpy(x),
+                                torch.from_numpy(pos), torch.from_numpy(mask))
+    for t, r in ((to, ro), (tc, rc), (tk, rk)):
+        _close(t, r, TOL)
+
+    xd = rng.standard_normal((2, 1, rcfg.d_model)).astype(np.float32)
+    ckv = np.array(rc)
+    krope = np.array(rk)
+    cpos = np.tile(np.arange(6), (2, 1))
+    cpos[1, 4:] = -1                                   # empty slots
+    cur = np.asarray([6, 4], np.int32)
+    rd = RL.mla_decode(ref["attn"], rcfg, jnp.asarray(xd), jnp.asarray(ckv),
+                       jnp.asarray(krope), jnp.asarray(cpos),
+                       jnp.asarray(cur))
+    td = TL.mla_decode(slot, 0, tcfg, torch.from_numpy(xd),
+                       torch.from_numpy(ckv), torch.from_numpy(krope),
+                       torch.from_numpy(cpos), torch.from_numpy(cur).long())
+    for t, r in zip(td, rd):
+        _close(t, r, TOL)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_prefill_decode_match(arch):
+    m = _models(arch)
+    rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
+    toks = np.random.default_rng(0).integers(0, rcfg.vocab_size, (2, 11)) \
+        .astype(np.int32)
+    tt = torch.from_numpy(toks).long()
+    rl, raux = RM.forward(rp, rcfg, toks)
+    tl, taux = TM.forward(tp, tcfg, tt)
+    _close(tl, rl, LOGIT_TOL)
+    assert abs(float(taux) - float(raux)) < TOL and float(taux) > 0
+
+    lengths = np.asarray([11, 6], np.int32)
+    rl, rc = RM.prefill_batched(rp, rcfg, jnp.asarray(toks),
+                                jnp.asarray(lengths))
+    tl, tc = TM.prefill_batched(tp, tcfg, tt, torch.from_numpy(lengths))
+    _close(tl, rl, LOGIT_TOL)
+    for si, seg in enumerate(tc["segments"]):
+        for name, a in seg[0].items():
+            np.testing.assert_allclose(
+                a.numpy(), np.asarray(rc["segments"][si][0][name]),
+                atol=TOL, rtol=0)
+
+    rl, rcache = RM.prefill(rp, rcfg, jnp.asarray(toks))
+    tl, tcache = TM.prefill(tp, tcfg, tt)
+    _close(tl, rl, LOGIT_TOL)
+    rcache = RM.pad_cache(rcache, rcfg, 16)
+    tcache = TM.pad_cache(tcache, tcfg, 16)
+    pos = np.full((2,), 11, np.int32)
+    tok = toks[:, -1:]
+    for _ in range(3):
+        rl, rcache = RM.decode_step(rp, rcfg, rcache, jnp.asarray(tok),
+                                    jnp.asarray(pos))
+        tl, tcache = TM.decode_step(tp, tcfg, tcache,
+                                    torch.from_numpy(tok).long(),
+                                    torch.from_numpy(pos).long())
+        _close(tl, rl, LOGIT_TOL)
+        tok = np.asarray(rl).argmax(-1).astype(np.int32)
+        pos = pos + 1
+
+
+def test_decode_from_empty_cache_matches():
+    """Token-by-token ``decode_step`` from an empty MLA ``init_cache``."""
+    m = _models("deepseek-v3-671b")
+    rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
+    toks = np.random.default_rng(3).integers(0, rcfg.vocab_size, (2, 5)) \
+        .astype(np.int32)
+    rcache = RM.init_cache(rcfg, 2, 8, dtype=jnp.float32)
+    tcache = TM.init_cache(tcfg, 2, 8, device="cpu")
+    assert set(tcache["segments"][0][0]) == {"ckv", "krope", "pos"}
+    for i in range(toks.shape[1]):
+        pos = np.full((2,), i, np.int32)
+        rl, rcache = RM.decode_step(rp, rcfg, rcache,
+                                    jnp.asarray(toks[:, i:i + 1]),
+                                    jnp.asarray(pos))
+        tl, tcache = TM.decode_step(tp, tcfg, tcache,
+                                    torch.from_numpy(toks[:, i:i + 1]).long(),
+                                    torch.from_numpy(pos).long())
+        _close(tl, rl, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_paged_matches(arch):
+    """Identical pools and tables: logits, layer-averaged page mass and
+    the write-through into both tiers (ckv/krope for MLA) agree; an
+    inactive row writes nothing and carries no mass."""
+    m = _models(arch)
+    rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
+    page, hbm, n_logical = 4, 12, 20
+    rng = np.random.default_rng(1)
+    specs = TM.slot_leaf_specs(tcfg, page)
+    assert specs == [(r, {k: tuple(v) for k, v in lv.items()})
+                     for r, lv in RM.slot_leaf_specs(rcfg, page)]
+    pools = {}
+    for r, leaves in specs:
+        for name, trail in leaves.items():
+            for tier, n in (("hbm", hbm), ("host", n_logical)):
+                pools.setdefault(f"{name}_{tier}", []).append(
+                    rng.standard_normal((r, n) + trail).astype(np.float32))
+    tables = np.asarray([[3, 7, 1, -1, -1],
+                         [0, 2, 5, 9, 11],
+                         [-1, -1, -1, -1, -1],
+                         [4, 6, 8, 10, -1]], np.int32)
+    gid_tables = np.where(tables >= 0, tables + 5, -1).astype(np.int32)
+    cur_pos = np.asarray([9, 18, -1, 13], np.int32)
+    tokens = rng.integers(0, rcfg.vocab_size, (4, 1)).astype(np.int32)
+
+    rkv = {k: [jnp.asarray(a) for a in v] for k, v in pools.items()}
+    rl, rkv2, rmass = RM.decode_step_paged(
+        rp, rcfg, rkv, jnp.asarray(tables), jnp.asarray(gid_tables),
+        jnp.asarray(tokens), jnp.asarray(cur_pos), page_size=page,
+        impl="reference")
+    tkv = {k: [torch.from_numpy(a.copy()) for a in v]
+           for k, v in pools.items()}
+    tl, tmass = TM.decode_step_paged(
+        tp, tcfg, tkv, torch.from_numpy(tables), torch.from_numpy(gid_tables),
+        torch.from_numpy(tokens).long(), torch.from_numpy(cur_pos).long(),
+        page_size=page)
+    active = cur_pos >= 0
+    _close(tl[active], np.asarray(rl)[active], LOGIT_TOL)
+    _close(tmass, rmass, TOL)
+    assert torch.count_nonzero(tmass[2]) == 0
+    np.testing.assert_allclose(tmass.sum(dim=1).numpy()[active], 1.0,
+                               atol=TOL)
+    for k in pools:
+        for t, r in zip(tkv[k], rkv2[k]):
+            np.testing.assert_allclose(t.numpy(), np.asarray(r), atol=TOL,
+                                       rtol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_is_seeded_and_at_reference_scales(arch):
+    """Seeded init; each MLA / MoE leaf at N(0, 1/fan_in) with the
+    reference's fan-in (``shape[0]`` of the unstacked leaf)."""
+    cfg = TC.get(arch)
+    tcfg = dataclasses.replace(TC.reduced(arch), dtype="float32")
+    a = TM.init(tcfg, seed=3, device="cpu")
+    b = TM.init(tcfg, seed=3, device="cpu")
+    for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(x, y), n
+    moe_slot = a.segments[_moe_segment(arch)][0]
+    mo = tcfg.moe
+    assert moe_slot.moe.wi_gate.shape == (1, mo.num_experts, tcfg.d_model,
+                                          mo.d_expert)
+    checks = [(moe_slot.moe.wi_gate, mo.num_experts),
+              (moe_slot.moe.router, tcfg.d_model)]
+    if cfg.mla is not None:
+        mla = a.segments[0][0]
+        checks += [(mla.wo, tcfg.num_heads), (mla.w_uk, tcfg.mla.kv_lora_rank),
+                   (mla.w_dq, tcfg.d_model)]
+        assert torch.all(mla.kv_norm == 1) and torch.all(mla.q_norm == 1)
+        assert cfg.num_layers == 61
+    for t, fan in checks:
+        assert abs(float(t.std()) / fan ** -0.5 - 1) < 0.1, (t.shape, fan)
+
+
+# ---------------------------------------------------------------------------
+# the serving loop
+# ---------------------------------------------------------------------------
+
+
+def _stack(side):
+    tier = dict(page_size=PAGE, hbm_pages=HBM, period_steps=2)
+    tune = dict(default_period=2, profile_steps=8, trial_steps=4)
+    if side == "ref":
+        return RS.TrafficMonitor(RPools.create(N_LOGICAL, HBM),
+                                 RManager(N_LOGICAL, RTierConfig(**tier)),
+                                 RTuner(N_LOGICAL, **tune))
+    return TS.TrafficMonitor(TPools.create(N_LOGICAL, HBM),
+                             TManager(N_LOGICAL, TTierConfig(**tier)),
+                             TTuner(N_LOGICAL, **tune))
+
+
+def _serve(arch, side, macro, temps=(0.0, 0.0, 0.0, 0.0)):
+    """Serve the four requests with two rows: two submitted up front, the
+    others joining mid-flight (staggered, recycled rows)."""
+    m = _models(arch)
+    mon = _stack(side)
+    if side == "ref":
+        b = RS.ContinuousBatcher(m["rp"], m["rcfg"], max_active=2,
+                                 max_len=32, page_size=PAGE, monitor=mon,
+                                 paged_impl="reference", macro=macro)
+        mk = lambda i: RS.Request(rid=i, prompt=m["prompts"][i],
+                                  max_new_tokens=NEW[i],
+                                  key=jax.random.PRNGKey(0))
+    else:
+        b = TS.ContinuousBatcher(m["tp"], m["tcfg"], max_active=2,
+                                 max_len=32, page_size=PAGE, monitor=mon,
+                                 macro=macro, device="cpu")
+        mk = lambda i: TS.Request(rid=i, prompt=m["prompts"][i],
+                                  max_new_tokens=NEW[i],
+                                  temperature=temps[i], seed=100 + i)
+    b.submit(mk(0))
+    b.submit(mk(1))
+    for t in range(200):
+        if t in (1, 3):
+            b.submit(mk(2 if t == 1 else 3))
+        b.step()
+        if t > 3 and not b.queue and not b.active:
+            break
+    got = {r.rid: list(r.tokens) for r in b.completed}
+    assert sorted(got) == [0, 1, 2, 3]
+    assert mon.pools.free_pages == N_LOGICAL
+    return got, mon
+
+
+@pytest.mark.parametrize("macro", [True, False])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_batcher_greedy_streams_match_reference(arch, macro):
+    """Greedy streams rid for rid, migrations and the tuner's history
+    equal the reference batcher's; the pools carry the slot's own leaves
+    (two planes per migrated page either way)."""
+    ref, ref_mon = _serve(arch, "ref", macro)
+    port, port_mon = _serve(arch, "port", macro)
+    assert port == ref
+    assert port_mon.manager.migrations == ref_mon.manager.migrations
+    assert port_mon.manager.data_moved_pages \
+        == ref_mon.manager.data_moved_pages
+    assert port_mon.tuner.history == ref_mon.tuner.history
+    leaves = {k.rsplit("_", 1)[0] for k in port_mon.pools.kv_layers}
+    assert leaves == ({"ckv", "krope"} if arch == "deepseek-v3-671b"
+                      else {"k", "v"})
+    assert port_mon.pools.move_planes == ref_mon.pools.move_planes == 2
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_batcher_streams_match_generate(arch):
+    """Greedy rows equal the reference's ``generate``; a sampled row draws
+    the same tokens on the port's per-token path, macro path and
+    ``generate``."""
+    m = _models(arch)
+    temps = (0.0, 0.8, 0.0, 0.8)
+    per_token, _ = _serve(arch, "port", False, temps)
+    macro, _ = _serve(arch, "port", True, temps)
+    assert per_token == macro
+    for i, p in enumerate(m["prompts"]):
+        got = t_generate(m["tp"], m["tcfg"], p[None], steps=NEW[i],
+                         temperature=temps[i], seed=100 + i,
+                         device="cpu")[0].tolist()
+        assert macro[i] == got, i
+        if temps[i] == 0:
+            ref = np.asarray(r_generate(m["rp"], m["rcfg"],
+                                        jnp.asarray(p[None]),
+                                        steps=NEW[i]))[0].tolist()
+            assert got == ref, i
+
+
+def test_mixed_geometry_pools_hold_none_and_migrate():
+    """Pools over k/v and MLA slots side by side: a slot lacking a leaf
+    holds None there, as the reference's pools, and a migration copies
+    every present leaf of every layer."""
+    page = 4
+    specs = [(1, {"k": (page, 2, 8), "v": (page, 2, 8)}),
+             (2, {"ckv": (page, 16), "krope": (page, 8)})]
+    ref = RPools.create(12, 6)
+    ref.attach_layered(specs, dtype=jnp.float32)
+    pools = TPools.create(12, 6)
+    pools.attach_layered(specs, dtype=torch.float32, device="cpu")
+    assert sorted(pools.kv_layers) == sorted(ref.kv_layers)
+    for name, leaves in pools.kv_layers.items():
+        assert [t is None for t in leaves] \
+            == [t is None for t in ref.kv_layers[name]], name
+    assert pools.move_planes == ref.move_planes == 2
+    for leaves in pools.kv_layers.values():
+        for t in leaves:
+            if t is not None:
+                t.normal_()
+    pools.migrate_slots([4, 1], [7, 2])
+    for name in ("k", "v", "ckv", "krope"):
+        for hbm, host in zip(pools.kv_layers[f"{name}_hbm"],
+                             pools.kv_layers[f"{name}_host"]):
+            if hbm is not None:
+                assert torch.equal(hbm[:, [4, 1]], host[:, [7, 2]])

@@ -6,7 +6,8 @@ machine with a card and no JAX:
 
 Without a card each test skips (decided inside the test).  Tolerances:
 paged attention 1e-5 absolute in float32 (summation order), 2e-2 for
-bfloat16 outputs, page masses 1e-5; ``page_hist`` and ``sim_scan`` are
+bfloat16 outputs, page masses 1e-5 (the same for ``paged_attention_mla``);
+``page_hist`` and ``sim_scan`` are
 bit-equal to their plain versions (the kernels round where the plain
 versions round)."""
 import pytest
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels import page_hist as tph
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import paged_attention_mla as tpam
 from repro_torch.kernels import sim_step as tss
 
 
@@ -131,3 +133,67 @@ def test_sim_scan_kernel_rejects_what_it_does_not_take():
         tss.sim_scan(small, one, init[:8], **_sim_kw(8, False, capacity=9))
     with pytest.raises(TypeError):
         tss.sim_scan(small.double(), one, init[:8], **_sim_kw(8, False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,r,k,page", [(128, 512, 64, 16), (16, 512, 64, 16),
+                                        (12, 64, 16, 8), (4, 32, 8, 32)])
+def test_mla_kernel_matches_plain(dtype, h, r, k, page):
+    """The CUDA MLA kernel against its plain version on the card: a full-
+    width head group, a partial last head group (12 heads), pages longer
+    than a warp, ragged -1 rows and a length-0 row; the launch counter
+    moves by one."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(h * 10 + page)
+    b, n, p_phys = 4, 12, 64
+    f = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)
+    q, qr, ckv, kr = f(b, h, r), f(b, h, k), f(p_phys, page, r), \
+        f(p_phys, page, k)
+    pt = torch.randperm(p_phys, generator=g, device=dev)[: b * n] \
+        .reshape(b, n).to(torch.int32)
+    pt[1, 7:] = -1
+    ln = torch.tensor([n * page, 7 * page - 3, 0, page + 1],
+                      dtype=torch.int32, device=dev)
+    scale = 1.0 / (r ** 0.5)
+    before = tpam.paged_attention_mla.launches
+    out, mass = tpam.paged_attention_mla(q, qr, ckv, kr, pt, ln, scale=scale)
+    torch.cuda.synchronize()
+    assert tpam.paged_attention_mla.launches == before + 1
+    ref_o, ref_m = tpam.paged_attention_mla_plain(q, qr, ckv, kr, pt, ln,
+                                                  scale=scale)
+    assert out.dtype == dt
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref_o.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(mass, ref_m, atol=1e-5, rtol=0)
+    active = ln > 0
+    torch.testing.assert_close(mass.sum(dim=1)[active],
+                               torch.ones(int(active.sum()), device=dev),
+                               atol=1e-5, rtol=0)
+    assert torch.count_nonzero(out[~active]) == 0
+    assert torch.count_nonzero(mass[~active]) == 0
+
+
+@pytest.mark.gpu
+def test_mla_kernel_rejects_what_it_does_not_take():
+    dev = _card()
+    q = torch.zeros((1, 8, 16), device=dev)
+    qr = torch.zeros((1, 8, 8), device=dev)
+    ckv = torch.zeros((2, 4, 16), device=dev)
+    kr = torch.zeros((2, 4, 8), device=dev)
+    pt = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    ln = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        tpam.paged_attention_mla(q, qr, ckv[:, :, :8], kr, pt, ln, scale=1.0)
+    with pytest.raises(TypeError):
+        tpam.paged_attention_mla(q, qr.bfloat16(), ckv, kr, pt, ln,
+                                 scale=1.0)
+    with pytest.raises(TypeError):
+        tpam.paged_attention_mla(q, qr, ckv, kr, pt.long(), ln, scale=1.0)
+    # pages the 16-byte page copy cannot take: 3 rows of 3 float32 krope
+    with pytest.raises(ValueError, match="16-byte"):
+        tpam.paged_attention_mla(q, qr[:, :, :3].contiguous(),
+                                 ckv[:, :3].contiguous(),
+                                 torch.zeros((2, 3, 3), device=dev), pt, ln,
+                                 scale=1.0)

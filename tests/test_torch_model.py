@@ -180,10 +180,12 @@ def test_init_is_seeded_and_at_reference_scales():
     assert slot.wq.shape == (2, tcfg.d_model,
                              tcfg.num_heads * tcfg.head_dim)
     assert abs(float(slot.wi_gate.std()) - tcfg.d_model ** -0.5) < 0.01
+    # the reference's fan-in is shape[0] of ``wo [H, hd, d]``: H
+    assert abs(float(slot.wo.std()) / tcfg.num_heads ** -0.5 - 1) < 0.05
     assert torch.all(slot.norm1 == 1)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "deepseek-v3-671b",
+@pytest.mark.parametrize("arch", ["gemma3-12b", "recurrentgemma-2b",
                                   "xlstm-1.3b", "musicgen-large",
                                   "paligemma-3b", "nemotron-4-340b"])
 def test_other_geometries_raise_not_implemented(arch):

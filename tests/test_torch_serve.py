@@ -164,8 +164,8 @@ def test_batcher_retires_on_eos():
 
 
 def test_batcher_path_imports_neither_jax_nor_reference():
-    """A fresh interpreter running the port's serving path never loads
-    JAX or the reference package."""
+    """A fresh interpreter running the port's serving path (the k/v
+    geometry, and MLA + MoE) never loads JAX or the reference package."""
     code = (
         "import sys, dataclasses, numpy as np, torch\n"
         "import repro_torch.configs as C\n"
@@ -176,17 +176,19 @@ def test_batcher_path_imports_neither_jax_nor_reference():
         "from repro_torch.serve.sched import ContinuousBatcher, Request, "
         "TrafficMonitor\n"
         "from repro_torch.serve.engine import generate\n"
-        "cfg = C.reduced('qwen3-14b')\n"
-        "p = M.init(cfg, device='cpu')\n"
-        "mon = TrafficMonitor(SharedPagedPools.create(16, 8), "
+        "for arch in ('qwen3-14b', 'deepseek-v3-671b'):\n"
+        "    cfg = C.reduced(arch)\n"
+        "    p = M.init(cfg, device='cpu')\n"
+        "    mon = TrafficMonitor(SharedPagedPools.create(16, 8), "
         "TieringManager(16, TierConfig(page_size=4, hbm_pages=8)), "
         "OnlineTuner(16))\n"
-        "b = ContinuousBatcher(p, cfg, monitor=mon, max_active=2, "
+        "    b = ContinuousBatcher(p, cfg, monitor=mon, max_active=2, "
         "max_len=16, page_size=4, device='cpu')\n"
-        "b.submit(Request(0, np.arange(5, dtype=np.int32), 4))\n"
-        "out = b.run()\n"
-        "assert len(out[0]) == 4\n"
-        "generate(p, cfg, np.arange(5)[None], 3, device='cpu')\n"
+        "    b.submit(Request(0, np.arange(5, dtype=np.int32), 4))\n"
+        "    out = b.run()\n"
+        "    assert len(out[0]) == 4\n"
+        "    generate(p, cfg, np.arange(5)[None], 3, device='cpu')\n"
+        "assert 'ckv_hbm' in mon.pools.kv_layers\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")
