@@ -2,19 +2,21 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card -- the online-Cori paged serving
-loop and the paper's offline Cori pipeline -- and checks every kernel they
-run against the kernel's plain PyTorch version.  Phases (each prints its
+Drives the port's paths on the card -- the online-Cori paged serving loop
+(decode through the paged kernels, prefill through the flash kernel) and
+the paper's offline Cori pipeline -- and checks every kernel they run
+against the kernel's plain PyTorch version.  Phases (each prints its
 own lines and its seconds; any failure raises and the script exits
 non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: ``nvcc`` compiles the four kernels for sm_90a from
+  2. build: ``nvcc`` compiles the five kernels for sm_90a from
      ``src/repro_torch/kernels/csrc``, one process per source, all at once
      (each -Xptxas -v report is printed);
-  3. kernel vs plain version on the card: the main-path shape and a GQA /
-     window / softcap grid, float32 and bfloat16, with stated tolerances
-     and each active row's mass summing to 1;
+  3. kernel vs plain version on the card: the main-path shape, gemma3's
+     decode shape (16/8 heads, D 256, window 1024) and a GQA / window /
+     softcap grid, float32 and bfloat16, with stated tolerances and each
+     active row's mass summing to 1;
   4. full-width qwen3-14b (all 40 layers, float32 weights from a seeded
      init) served by the macro-step ``ContinuousBatcher`` over
      ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner``: 8
@@ -59,7 +61,25 @@ non-zero):
      decode, no kernel);
  13. the MLA kernel's timing at the main-path shape beside its plain
      version, one SDPA call over the gathered rows (the yardstick) and its
-     bound in bytes and in operations.
+     bound in bytes and in operations;
+ 14. the flash kernel ``flash_attention`` vs its plain version on the
+     card: float32 and bfloat16, GQA 4/4, 4/2, 8/1, 16/8 and 40/8, D 16,
+     64, 128 and 256, causal, window 64, window 1024 and non-causal, S = T
+     in {1, 37, 256, 2048}, with stated tolerances;
+ 15. full-width, full-depth gemma3-12b (48 layers, 40 of them sliding
+     window 1024; float32 weights from a seeded init) with
+     ``attention_impl="pallas"``, served by the macro-step batcher after
+     deepseek is freed: 6 requests with prompts of 1040-1600 tokens,
+     longer than the window.  The flash kernel's launches must equal 48 x
+     admissions and the paged kernel's 48 x decode steps;
+ 16. parity on the card: on reduced gemma3-12b (window 8) the batcher's
+     greedy streams equal ``generate``'s under both ``attention_impl``
+     settings, and the settings agree; at full width, phase 15's first
+     admission through ``prefill_batched`` under both settings gives the
+     same argmax in every row;
+ 17. the flash kernel's timing at the main-path shape (B=4, S=T=2048,
+     16/8 heads, D=256, float32), with window 1024 and causal only, beside
+     its plain version, one SDPA call (the yardstick) and its bound.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -141,7 +161,10 @@ def phase_kernel_check(pa) -> float:
     tol = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 1e-5)}
     main = dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
                 lengths=[1024, 777, 0, 301])
-    grid = [dict(main)]
+    # gemma3-12b's decode shape: the window path at D = 256
+    gemma = dict(b=4, h=16, kv=8, d=256, page=16, n=128, p_phys=512,
+                 lengths=[2048, 1500, 1025, 0], window=1024)
+    grid = [dict(main), gemma]
     for h, kv in ((4, 4), (8, 2), (8, 1)):
         for window, softcap in ((0, 0.0), (3, 0.0), (0, 5.0), (3, 5.0)):
             grid.append(dict(b=3, h=h, kv=kv, d=64, page=16, n=6, p_phys=32,
@@ -182,20 +205,24 @@ def _reset_counts(kernels) -> None:
         getattr(k, k.NAME).launches = 0
 
 
-def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels):
-    """Serve the smoke's request mix with the macro-step batcher over
+def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
+               n_logical=256, hbm_pages=128, max_len=1024, n_req=8,
+               prompt=(128, 513), new=(48, 97)):
+    """Serve a request mix with the macro-step batcher over
     ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner`` until
-    drained, with every kernel's launch count set to 0 just before.
-    Prints and checks what every served model shares; returns (batcher,
-    result, rng)."""
-    n_logical, hbm_pages, page = 256, 128, 16
+    drained, with every kernel's launch count set to 0 just before:
+    ``n_req`` requests with prompt and new-token counts drawn from the
+    half-open ranges ``prompt`` and ``new``, requests 2 and 5 sampled at
+    temperature 0.8.  Prints and checks what every served model shares;
+    returns (batcher, result, rng, requests)."""
+    page = 16
     pools = memtier.SharedPagedPools.create(n_logical, hbm_pages)
     mgr = memtier.TieringManager(n_logical, memtier.TierConfig(
         page_size=page, hbm_pages=hbm_pages, period_steps=8))
     tuner = cori.OnlineTuner(n_logical, default_period=8)
     mon = S.TrafficMonitor(pools, mgr, tuner)
     b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=4,
-                            max_len=1024, page_size=page)
+                            max_len=max_len, page_size=page)
     leaves = [k[:-4] for k in pools.kv_layers if k.endswith("_hbm")]
     pool_bytes = sum(t.numel() * t.element_size()
                      for ts in pools.kv_layers.values() for t in ts
@@ -208,12 +235,12 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels):
 
     rng = np.random.default_rng(SEED)
     reqs = []
-    for i in range(8):
-        plen = int(rng.integers(128, 513))
+    for i in range(n_req):
+        plen = int(rng.integers(*prompt))
         reqs.append(S.Request(
             rid=i, prompt=rng.integers(0, cfg.vocab_size, plen).astype(
                 np.int32),
-            max_new_tokens=int(rng.integers(48, 97)),
+            max_new_tokens=int(rng.integers(*new)),
             temperature=0.8 if i in (2, 5) else 0.0, seed=SEED + i))
     print("requests (prompt, new, temperature): "
           + ", ".join(f"({len(r.prompt)}, {r.max_new_tokens}, "
@@ -251,7 +278,7 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory {peak_gb:.2f} GB", flush=True)
 
-    if sorted(out) != list(range(8)):
+    if sorted(out) != list(range(n_req)):
         _fail(f"not every request completed: {sorted(out)}")
     for r in reqs:
         toks = out[r.rid]
@@ -268,8 +295,10 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels):
     telemetry.install(telemetry.Recorder())
     result = dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
                   macro_p50_ms=float(np.median(walls)), macros=len(macros),
-                  decode_steps=b.decode_steps, peak_gb=peak_gb)
-    return b, result, rng
+                  decode_steps=b.decode_steps, peak_gb=peak_gb,
+                  admissions=len(admits),
+                  first_joiners=admits[0]["joiners"] if admits else 0)
+    return b, result, rng, reqs
 
 
 def _check_freed(held: int) -> None:
@@ -298,8 +327,8 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {n_params / 1e9:.3f} B "
           f"float32 params ({cfg.param_count() / 1e9:.3f} B without norms) "
           f"in {time.monotonic() - t0:.1f} s", flush=True)
-    b, result, rng = _serve_mix(params, cfg, S, memtier, cori, telemetry,
-                                kernels)
+    b, result, rng, _ = _serve_mix(params, cfg, S, memtier, cori, telemetry,
+                                   kernels)
     del params
     launches = result["launches"] = pa.paged_attention.launches
     print(f"paged_attention launches {launches} = {cfg.num_layers} layers x "
@@ -363,10 +392,10 @@ def _profile_macro(b, S, cfg, rng) -> None:
     b.run()
 
 
-def _parity(cfg, mdl, S, memtier, cori, engine) -> None:
+def _parity(cfg, mdl, S, memtier, cori, engine) -> dict:
     """On a small float32 config: the batcher's greedy streams (macro and
     per-token, staggered admission over two rows) equal ``generate``'s
-    (dense decode, no kernel)."""
+    (dense decode, no kernel).  Returns ``generate``'s streams."""
     params = mdl.init(cfg, seed=SEED)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -401,6 +430,7 @@ def _parity(cfg, mdl, S, memtier, cori, engine) -> None:
               f"tuner history {mon.tuner.history})", flush=True)
         if not same:
             _fail(f"batcher streams {got} differ from generate {ref}")
+    return ref
 
 
 def phase_parity(C, mdl, S, memtier, cori, engine):
@@ -859,8 +889,8 @@ def phase_deepseek(C, mdl, pa, pam, S, memtier, cori, telemetry, kernels):
           f"top-{mo.top_k} of {mo.d_expert} + {mo.num_shared} shared, vocab "
           f"{cfg.vocab_size}: {n_params / 1e9:.3f} B float32 params in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    b, result, rng = _serve_mix(params, cfg, S, memtier, cori, telemetry,
-                                kernels)
+    b, result, rng, _ = _serve_mix(params, cfg, S, memtier, cori, telemetry,
+                                   kernels)
     del params
     launches = result["launches"] = pam.paged_attention_mla.launches
     kv_launches = pa.paged_attention.launches
@@ -933,6 +963,230 @@ def phase_mla_timing(pam):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# ---------------------------------------------------------------------------
+# flash prefill: gemma3-12b (sliding window)
+# ---------------------------------------------------------------------------
+
+# the flash kernel's shape on the serving path at full width: one packed
+# admission of four gemma3-12b prompts, bucketed to 2048 positions
+FLASH_MAIN = dict(b=4, s=2048, h=16, kv=8, d=256)
+
+
+def _flash_case(*, b, s, h, kv, d, dtype, seed=0):
+    """Random q [B, S, H, D] and k/v [B, S, KV, D] on the card."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    f = lambda *shape: torch.randn(shape, generator=g, device=DEV).to(dtype)
+    return f(b, s, h, d), f(b, s, kv, d), f(b, s, kv, d)
+
+
+def phase_flash_check(fa) -> float:
+    """The flash kernel vs its plain version over the grid; returns the
+    largest float32 error seen."""
+    print("== phase 14: flash_attention vs plain version on the card",
+          flush=True)
+    # float32: summation order only, longer sums drift further; bfloat16:
+    # p is rounded to bfloat16 against a running (kernel) or final (plain)
+    # row max
+    tol = lambda dtype, s: (2e-2 if dtype == torch.bfloat16
+                            else 2e-5 if s <= 512 else 1e-4)
+    worst, worst_f32, n_cases = {}, 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, kv in ((4, 4), (4, 2), (8, 1), (16, 8), (40, 8)):
+            for d in (16, 64, 128, 256):
+                for s in (1, 37, 256, 2048):
+                    args = _flash_case(b=2 if s < 2048 else 1, s=s, h=h,
+                                       kv=kv, d=d, dtype=dtype,
+                                       seed=s + h + kv + d)
+                    for causal, window in ((True, 0), (True, 64),
+                                           (True, 1024), (False, 0)):
+                        out = fa.flash_attention(*args, causal=causal,
+                                                 window=window)
+                        torch.cuda.synchronize()
+                        ref = fa.flash_attention_plain(*args, causal=causal,
+                                                       window=window)
+                        err = float((out.float() - ref.float()).abs().max())
+                        n_cases += 1
+                        key = (str(dtype)[6:], s)
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        if dtype == torch.float32:
+                            worst_f32 = max(worst_f32, err)
+                        if not (err <= tol(dtype, s)) or out.dtype != dtype:
+                            _fail(f"flash_attention disagrees with its plain "
+                                  f"version: {str(dtype)[6:]} H={h} KV={kv} "
+                                  f"D={d} S=T={s} causal={causal} window="
+                                  f"{window}: err {err:.3g} (tol "
+                                  f"{tol(dtype, s)})")
+    for (dt, s), err in worst.items():
+        print(f"{dt} S=T={s}: worst err {err:.3g} (tol "
+              f"{tol(getattr(torch, dt), s)}) ok", flush=True)
+    print(f"{n_cases} cases (GQA 4/4, 4/2, 8/1, 16/8, 40/8; D 16, 64, 128, "
+          f"256; causal, window 64, window 1024, non-causal): worst float32 "
+          f"error {worst_f32:.3g}", flush=True)
+    return worst_f32
+
+
+def _first_admission(memtier, reqs, joiners):
+    """The packed (tokens, lengths, joiners) of the first admission's
+    ``joiners`` requests, laid out as ``ContinuousBatcher._prefill`` packs
+    them: width and row count pow2-bucketed, pad rows of length 1."""
+    plens = [len(r.prompt) for r in reqs[:joiners]]
+    toks = np.zeros((memtier.bucket_pages(joiners),
+                     memtier.bucket_pages(max(plens))), np.int64)
+    lens = np.ones((toks.shape[0],), np.int64)
+    for i, r in enumerate(reqs[:joiners]):
+        toks[i, : plens[i]] = r.prompt
+        lens[i] = plens[i]
+    return (torch.as_tensor(toks, device=DEV),
+            torch.as_tensor(lens, device=DEV), joiners)
+
+
+def phase_gemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
+    """Serve full-width gemma3-12b with flash prefill; returns (result,
+    params, ``_first_admission``)."""
+    print("== phase 15: full-width gemma3-12b serving (sliding window, "
+          "flash prefill, macro-step batcher)", flush=True)
+    cfg = dataclasses.replace(C.get("gemma3-12b"), attention_impl="pallas")
+    left = torch.cuda.memory_allocated()
+    if left > 2e9:
+        _fail(f"{left / 1e9:.2f} GB still allocated before gemma3's init")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = mdl.init(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    windows = [w for *_, w, _ in mdl.state_slot_meta(cfg)]
+    print(f"init: {cfg.name}, {cfg.num_layers} layers (pattern windows "
+          f"{windows} x {cfg.segments[0][1]}), d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings: "
+          f"{n_params / 1e9:.3f} B float32 params ({n_params * 4 / 1e9:.2f} "
+          f"GB) in {time.monotonic() - t0:.1f} s; attention_impl "
+          f"{cfg.attention_impl}", flush=True)
+    b, result, rng, reqs = _serve_mix(
+        params, cfg, S, memtier, cori, telemetry, kernels, n_logical=512,
+        hbm_pages=384, max_len=2048, n_req=6, prompt=(1040, 1601),
+        new=(32, 65))
+    launches = result["launches"] = fa.flash_attention.launches
+    kv_launches = result["paged_launches"] = pa.paged_attention.launches
+    adm, steps = result["admissions"], b.decode_steps
+    print(f"flash_attention launches {launches} = {cfg.num_layers} layers x "
+          f"{adm} admissions -> {launches == cfg.num_layers * adm}; "
+          f"paged_attention launches {kv_launches} = {cfg.num_layers} layers "
+          f"x {steps} decode steps -> "
+          f"{kv_launches == cfg.num_layers * steps}", flush=True)
+    if launches != cfg.num_layers * adm or adm <= 0:
+        _fail("the flash kernel's launches do not match 48 x the admissions")
+    if kv_launches != cfg.num_layers * steps:
+        _fail("the paged kernel's launches do not match 48 x the decode "
+              "steps")
+    first = _first_admission(memtier, reqs, result["first_joiners"])
+    print(f"first admission: {first[2]} joiners packed as "
+          f"{tuple(first[0].shape)}, lengths {first[1].tolist()}",
+          flush=True)
+    _profile_macro(b, S, cfg, rng)
+    held = torch.cuda.memory_allocated()
+    del b            # the pools; the weights stay for phase 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"pools freed: allocated {held / 1e9:.2f} GB -> "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    return result, params, first
+
+
+def phase_gemma_parity(C, mdl, S, memtier, cori, engine, params, first):
+    print("== phase 16: parity on the card (gemma3-12b: reduced streams, "
+          "full-width prefill)", flush=True)
+    small = dataclasses.replace(C.reduced("gemma3-12b"), dtype="float32")
+    streams = {}
+    for impl in ("reference", "pallas"):
+        print(f"reduced gemma3-12b (window {small.window_size}), "
+              f"attention_impl {impl}:", flush=True)
+        streams[impl] = _parity(dataclasses.replace(
+            small, attention_impl=impl), mdl, S, memtier, cori, engine)
+    same = streams["pallas"] == streams["reference"]
+    print(f"generate's greedy streams, pallas == reference: {same}",
+          flush=True)
+    if not same:
+        _fail(f"the flash route's streams {streams['pallas']} differ from "
+              f"the reference route's {streams['reference']}")
+
+    cfg = C.get("gemma3-12b")
+    toks, lens, rows = first
+    last = {}
+    with torch.no_grad():
+        for impl in ("pallas", "reference"):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            logits = mdl.prefill_batched(
+                params, dataclasses.replace(cfg, attention_impl=impl), toks,
+                lens)[0]          # the cache rows go at once
+            torch.cuda.synchronize()
+            last[impl] = logits[:, 0].float()
+            print(f"full-width prefill_batched {tuple(toks.shape)}, "
+                  f"attention_impl {impl}: {time.monotonic() - t0:.2f} s",
+                  flush=True)
+    diff = float((last["pallas"] - last["reference"])[:rows].abs().max())
+    argmax_same = bool(torch.equal(last["pallas"][:rows].argmax(-1),
+                                   last["reference"][:rows].argmax(-1)))
+    print(f"full-width last-position logits over {rows} rows: largest "
+          f"|delta logit| {diff:.3g}, argmax equal in every row: "
+          f"{argmax_same}", flush=True)
+    if not argmax_same or not math.isfinite(diff):
+        _fail("the flash route's prefill argmax differs from the reference "
+              "route's")
+    return diff
+
+
+def phase_flash_timing(fa):
+    print("== phase 17: flash_attention timing at the main-path shape",
+          flush=True)
+    import torch.nn.functional as F
+    c = FLASH_MAIN
+    b, s, h, kv, d = c["b"], c["s"], c["h"], c["kv"], c["d"]
+    q, k, v = _flash_case(dtype=torch.float32, seed=7, **c)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pos = torch.arange(s, device=DEV)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    before = fa.flash_attention.launches
+    nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * 4   # q, out, k, v
+    out = {}
+    for window in (1024, 0):
+        ms = _time(lambda: fa.flash_attention(q, k, v, window=window), 20,
+                   flush)
+        plain_ms = _time(lambda: fa.flash_attention_plain(q, k, v,
+                                                          window=window),
+                         5, flush)
+        # yardstick: one SDPA call over the same q, k, v
+        if window:
+            mask = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
+            library_ms = _time(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 10, flush)
+        else:
+            library_ms = _time(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush)
+        # attended (query, key) pairs of these inputs
+        qi = pos.double()
+        pairs = int((torch.clamp(qi + 1, max=window) if window else qi + 1)
+                    .sum())
+        flops = 4 * b * h * d * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"B={b} S=T={s} H={h} KV={kv} D={d} float32 "
+              f"{'window ' + str(window) if window else 'causal'}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
+              f"ms; bound {bound_ms:.4f} ms ({bound_by}): {pairs} attended "
+              f"pairs, {flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms at 67 "
+              f"TFLOP/s, {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms at 3.35 "
+              f"TB/s -> {bound_ms / ms * 100:.1f}% of the bound", flush=True)
+        out[window] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+    fa.flash_attention.launches = before    # timing launches not counted
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is visible", flush=True)
@@ -949,6 +1203,7 @@ def main() -> int:
     from repro_torch.core import cori, pipeline, sim, traces
     from repro_torch import memtier
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import page_hist as ph
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_attention_mla as pam
@@ -958,7 +1213,7 @@ def main() -> int:
     from repro_torch.serve import engine
     from repro_torch.serve import sched as S
 
-    kernels = (pa, ph, ss, pam)
+    kernels = (pa, ph, ss, pam, fa)
     secs = {}
 
     def timed(name, fn, *args):
@@ -988,8 +1243,19 @@ def main() -> int:
     timed("deepseek parity", phase_deepseek_parity, C, mdl, S, memtier, cori,
           engine)
     mla_timing = timed("paged_attention_mla timing", phase_mla_timing, pam)
+    flash_err = timed("flash_attention check", phase_flash_check, fa)
+    gemma, params, first = timed("gemma3 serving", phase_gemma, C, mdl, pa,
+                                 fa, S, memtier, cori, telemetry, kernels)
+    gemma["full_width_logit_delta"] = timed(
+        "gemma3 parity", phase_gemma_parity, C, mdl, S, memtier, cori,
+        engine, params, first)
+    held = torch.cuda.memory_allocated()
+    del params
+    _check_freed(held)
+    flash_timing = timed("flash_attention timing", phase_flash_timing, fa)
     print(f"card: {card}; serving {serve}; offline {offline}; deepseek "
-          f"{deepseek}; phase seconds {secs}", flush=True)
+          f"{deepseek}; gemma3 {gemma}; flash timing (causal only) "
+          f"{flash_timing[0]}; phase seconds {secs}", flush=True)
     print(json.dumps({"kernels": [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1009,7 +1275,12 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/paged_attention_mla.cu",
              replaces="src/repro/kernels/paged_attention.py:230",
              launches=deepseek["launches"], max_abs_err=mla_err,
-             **mla_timing)]}),
+             **mla_timing),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:73",
+             launches=gemma["launches"], max_abs_err=flash_err,
+             **flash_timing[1024])]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

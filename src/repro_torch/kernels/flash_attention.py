@@ -1,0 +1,133 @@
+"""Blockwise (flash) attention forward for prefill.
+
+The port of the TPU kernel ``repro/kernels/flash_attention.py::
+flash_attention`` (Pallas body ``_kernel``): a hand-written CUDA kernel for
+Hopper (``csrc/flash_attention.cu``, built for ``sm_90a`` with ``nvcc`` at
+first use and bound through ``ctypes``), and beside it
+``flash_attention_plain``, a plain PyTorch version of the same function.
+
+``flash_attention`` dispatches on the device of its inputs: a CPU tensor
+goes to the plain version, a CUDA tensor goes to the kernel, and anything
+the kernel does not take raises -- there is no fallback.  Every kernel
+launch adds one to ``flash_attention.launches``.
+
+Semantics (shared by the kernel and the plain version, those of the TPU
+kernel): q [B, S, H, D]; k/v [B, T, KV, D] with KV dividing H (query head
+h reads KV head h // (H // KV)) and S <= T; D in {16, 32, 64, 128, 256}.
+Query i attends key j when ``j <= i`` (``causal``) and ``j > i - window``
+(``window > 0``), positions counted from 0 for both, so there is no query
+offset.  Logits are (q . k) * (1 / sqrt(D)), masked ones -1e30; p =
+exp(logit - row max) is cast to v's dtype before the PV product, and the
+sum is divided by max(sum p, 1e-30).  Returns [B, S, H, D] in q's dtype.
+No logit soft-capping (no ``softcap`` argument): the TPU kernel has
+none.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["flash_attention", "flash_attention_plain"]
+
+NAME = "flash_attention"
+NVCC_FLAGS = _build.BASE_FLAGS
+HEAD_DIMS = (16, 32, 64, 128, 256)
+NEG = -1e30     # masked logits, as the TPU kernel
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load(NAME, NVCC_FLAGS)
+        fn = lib.flash_attention_launch
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+    """Plain PyTorch version of the kernel's function (module docstring):
+    a masked softmax in float32 over the whole [S, T] logits of each head
+    group.  The CPU tests use it, and the smoke run compares the kernel
+    with it on the card."""
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, kvh, h // kvh, d)
+    logits = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) \
+        * (1.0 / math.sqrt(d))
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    k_pos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    logits = logits.masked_fill(~mask, NEG)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1).clamp_min(1e-30)                  # [B, KV, rep, S]
+    out = torch.einsum("bgrst,btgd->bsgrd", p.to(v.dtype).float(), v.float())
+    out = out / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Flash attention forward; returns [B, S, H, D] in q's dtype.  CPU
+    tensors take ``flash_attention_plain``; CUDA tensors launch the kernel
+    (module docstring).  Raises on every device for what the kernel does
+    not take (a head dim outside ``HEAD_DIMS``, S > T)."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("q must be [B, S, H, D] and k/v both [B, T, KV, D]: "
+                         f"{tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kvh == 0 or h % kvh:
+        raise ValueError("shape mismatch: q [B,S,H,D], k/v [B,T,KV,D] with "
+                         "H % KV == 0")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, not "
+                         f"{d}")
+    if s > t:
+        raise ValueError(f"flash_attention needs S <= T (got S={s}, T={t}): "
+                         "positions count from 0 for queries and keys")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, not {window}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype, float32 or "
+                        f"bfloat16 (got {q.dtype}, {k.dtype}, {v.dtype})")
+    if any(x.device != q.device for x in (k, v)):
+        raise ValueError("q, k and v must be on one CUDA device")
+    if not all(x.is_contiguous() for x in (q, k, v)):
+        raise ValueError("flash_attention needs contiguous q, k and v")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention needs 16-byte aligned q, k and v")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    err = _load().flash_attention_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, s, t, h, kvh, d, 1.0 / math.sqrt(d), int(causal),
+        int(window), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

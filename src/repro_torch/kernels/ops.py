@@ -3,11 +3,13 @@
 of its inputs; this layer keeps the reference's calling contract."""
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import page_hist as _ph
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_mla as _pam
 
-__all__ = ["page_hist", "paged_attention", "paged_attention_mla"]
+__all__ = ["flash_attention", "page_hist", "paged_attention",
+           "paged_attention_mla"]
 
 
 def page_hist(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
@@ -16,6 +18,14 @@ def page_hist(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
     periods in one call; hotness f32 [num_pages].  Returns (counts,
     new_hotness, hot_mask)."""
     return _ph.page_hist(ids, hotness, alpha=alpha, threshold=threshold)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Blockwise attention forward (``kernels.flash_attention``): q
+    [B, S, H, D], k/v [B, T, KV, D] with KV dividing H, S <= T; causal
+    and/or sliding-window (``window > 0``) masks over positions counted
+    from 0 for queries and keys.  Returns [B, S, H, D] in q's dtype."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *,

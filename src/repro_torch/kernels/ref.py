@@ -7,7 +7,8 @@ import math
 
 import torch
 
-__all__ = ["page_hist_ref", "paged_attention_mla_ref", "paged_attention_ref"]
+__all__ = ["flash_attention_ref", "page_hist_ref", "paged_attention_mla_ref",
+           "paged_attention_ref"]
 
 
 def page_hist_ref(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
@@ -22,6 +23,27 @@ def page_hist_ref(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
         torch.where(ids >= 0, 1.0, 0.0).float())
     new_hot = alpha * counts + (1 - alpha) * hotness
     return counts, new_hot, new_hot >= threshold
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: [B,S,H,D]; k/v: [B,T,KV,D].  Returns [B,S,H,D] in v's dtype, as
+    the reference oracle (the kernel returns q's dtype)."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    kr = k.repeat_interleave(h // kv, dim=2)
+    vr = v.repeat_interleave(h // kv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) \
+        / math.sqrt(d)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    k_pos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), vr)
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,

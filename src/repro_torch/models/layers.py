@@ -1,7 +1,8 @@
 """Core layers of the attention transformer (the subset of
 ``repro/models/layers.py`` the port serves): norms, rotary, the SwiGLU
-MLP, GQA attention and MLA (DeepSeek-V3 Multi-head Latent Attention) for
-prefill and dense decode, embeddings.
+MLP, GQA attention (causal or sliding-window; prefill through the flash
+kernel when ``cfg.attention_impl == "pallas"``) and MLA (DeepSeek-V3
+Multi-head Latent Attention) for prefill and dense decode, embeddings.
 
 Layouts follow the reference at every public function (activations
 [B, S, H, D], caches [B, T, KV, D]); projection weights are stored
@@ -19,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["dense_init", "rms_norm", "rope", "mlp_apply", "causal_mask",
@@ -62,9 +64,13 @@ def mlp_apply(p, r: int, x):
     return h @ p.w_down[r]
 
 
-def causal_mask(q_pos, k_pos):
-    """Boolean [.., Q, K] causal mask."""
-    return k_pos[..., None, :] <= q_pos[..., :, None]
+def causal_mask(q_pos, k_pos, window: int = 0):
+    """Boolean [.., Q, K] causal mask; ``window > 0`` -> sliding window
+    (key k visible from query q iff q - window < k <= q)."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window > 0:
+        m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return m
 
 
 def sdpa(q, k, v, mask, softcap: float):
@@ -102,24 +108,43 @@ def _qkv(p, r: int, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def attention_apply(p, r: int, cfg: ModelConfig, x, positions, mask):
-    """Full causal self-attention (prefill).  Returns (out, (k, v))."""
+def attention_apply(p, r: int, cfg: ModelConfig, x, positions, mask, *,
+                    window: int = 0):
+    """Causal self-attention (prefill).  Returns (out, (k, v)).
+
+    ``cfg.attention_impl == "pallas"`` routes the attention through
+    ``ops.flash_attention(causal=True, window=window)`` in place of
+    ``sdpa`` with ``mask`` (the reference's docstring puts its flash
+    kernel here; ``mask`` is then unused).  The kernel counts query and
+    key positions from 0 and takes no query offset, so that route serves
+    self-attention over ``positions`` 0..S-1 only: what forward, prefill
+    and prefill_batched pass (chunked prefill over a ``past`` is not
+    ported)."""
     q, k, v = _qkv(p, r, cfg, x, positions)
-    out = sdpa(q, k, v, mask, cfg.softcap)
     b, s = x.shape[:2]
+    if cfg.attention_impl == "pallas":
+        if tuple(positions.shape) != (1, s):
+            raise ValueError("the flash route takes positions [1, S] = "
+                             f"0..S-1, not {tuple(positions.shape)}")
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        out = sdpa(q, k, v, mask, cfg.softcap)
     return out.reshape(b, s, -1) @ p.wo[r], (k, v)
 
 
 def attention_decode(p, r: int, cfg: ModelConfig, x, cache_k, cache_v,
-                     cache_pos, cur_pos):
+                     cache_pos, cur_pos, *, window: int = 0):
     """One-token decode.  x: [B,1,d]; cache_k/v: [B,T,KV,D]; cache_pos:
-    [B,T] absolute positions (-1 == empty); cur_pos: [B].
+    [B,T] absolute positions (-1 == empty); cur_pos: [B]; ``window > 0``
+    attends only positions > cur_pos - window (a ring cache).
     Returns (out, new_k_entry, new_v_entry)."""
     q, k_new, v_new = _qkv(p, r, cfg, x, cur_pos[:, None])
     k_all = torch.cat([cache_k, k_new], dim=1).to(x.dtype)
     v_all = torch.cat([cache_v, v_new], dim=1).to(x.dtype)
     pos_all = torch.cat([cache_pos, cur_pos[:, None]], dim=1)
     m = (pos_all <= cur_pos[:, None]) & (pos_all >= 0)
+    if window > 0:
+        m &= pos_all > (cur_pos[:, None] - window)
     out = sdpa(q, k_all, v_all, m[:, None, :], cfg.softcap)
     return out.reshape(x.shape[0], 1, -1) @ p.wo[r], k_new, v_new
 

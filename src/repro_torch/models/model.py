@@ -12,10 +12,15 @@ same order as a Python loop over per-repeat views.
 The paged decode path updates the shared page pools in place
 (``index_put_``) where the reference returned a new, donated pytree.
 
-Ported layer kinds: causal GQA attention (k/v cache rows) and MLA
-(compressed ckv/krope rows), each followed by a SwiGLU MLP or a routed
-MoE (``models.moe``).  Configs that need another layer kind raise
-``NotImplementedError`` naming the later slice (ROADMAP Queue 1 item 8).
+Ported layer kinds: causal GQA attention and sliding-window ``local``
+attention (k/v cache rows; a local slot's dense cache is a ring of
+``min(window, max_len)`` rows, its pages hold the whole timeline and the
+paged kernel masks to the window) and MLA (compressed ckv/krope rows),
+each followed by a SwiGLU MLP or a routed MoE (``models.moe``).  With
+``cfg.attention_impl == "pallas"`` the sequence passes (forward, prefill,
+prefill_batched) run self-attention through the flash kernel.  Configs
+that need another layer kind raise ``NotImplementedError`` naming the
+later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -39,15 +44,14 @@ __all__ = ["Slot", "Transformer", "init", "forward", "prefill", "pad_cache",
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for anything beyond causal attention
-    or MLA with a SwiGLU MLP or MoE, naming the slice of the port that
-    brings it."""
+    """Raise ``NotImplementedError`` for anything beyond causal or
+    sliding-window attention or MLA with a SwiGLU MLP or MoE, naming the
+    slice of the port that brings it, and for what the flash kernel
+    cannot take under ``attention_impl == "pallas"``."""
     later = []
     kinds = {parse_kind(s) for pat, _ in cfg.segments for s in pat}
     for kind in kinds:
-        if kind.base == "local":
-            later.append("sliding-window/ring attention (Queue 1 item 8.1)")
-        elif kind.base != "attn":
+        if kind.base not in ("attn", "local"):
             later.append(f"recurrent {kind.base} cells (Queue 1 item 8.3)")
         if kind.xattn:
             later.append("cross-attention conditioning (Queue 1 item 8.4)")
@@ -60,6 +64,20 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the torch port does not serve "
             f"{'; '.join(sorted(set(later)))} yet")
+    if cfg.attention_impl not in ("reference", "pallas"):
+        raise ValueError(f"attention_impl is 'reference' or 'pallas', not "
+                         f"{cfg.attention_impl!r}")
+    if cfg.attention_impl == "pallas":
+        # the flash kernel takes one head dim for q, k and v and no
+        # soft-cap, as the TPU kernel
+        if any(k.mla for k in kinds):
+            raise NotImplementedError(
+                f"{cfg.name}: attention_impl='pallas' cannot take MLA "
+                "slots (the flash kernel needs d_qk == d_v)")
+        if cfg.softcap > 0:
+            raise NotImplementedError(
+                f"{cfg.name}: attention_impl='pallas' cannot take "
+                "softcap > 0 (the flash kernel has no soft-capping)")
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +204,11 @@ def _layers(params: Transformer, cfg: ModelConfig):
         li += len(pattern)
 
 
+def _window(cfg: ModelConfig, kind: LayerKind) -> int:
+    """A slot's attention window: ``cfg.window_size`` on local slots."""
+    return cfg.window_size if kind.base == "local" else 0
+
+
 def _block_tail(slot, r: int, cfg: ModelConfig, x):
     """The residual MLP or MoE after a slot's attention: (x, aux)."""
     h = L.rms_norm(x, slot.norm2[r])
@@ -203,14 +226,22 @@ def _block_tail(slot, r: int, cfg: ModelConfig, x):
 def _run_seq(params, cfg: ModelConfig, x, positions):
     """All layers over a sequence; returns (x, per-slot lists of cache
     entries in repeat order -- {"k", "v"} or MLA {"ckv", "krope"} --,
-    the summed MoE aux loss)."""
-    mask = L.causal_mask(positions, positions)
+    the summed MoE aux loss).  Local slots attend through a sliding
+    window, the others causally."""
+    masks = {}
     entries: List[List] = [[] for _ in state_slot_meta(cfg)]
     aux_total = torch.zeros((), device=x.device)
     for li, r, slot in _layers(params, cfg):
-        apply = L.mla_apply if slot.kind.mla else L.attention_apply
-        out, rows = apply(slot, r, cfg, L.rms_norm(x, slot.norm1[r]),
-                          positions, mask)
+        window = _window(cfg, slot.kind)
+        if window not in masks:
+            masks[window] = L.causal_mask(positions, positions, window)
+        h = L.rms_norm(x, slot.norm1[r])
+        if slot.kind.mla:
+            out, rows = L.mla_apply(slot, r, cfg, h, positions,
+                                    masks[window])
+        else:
+            out, rows = L.attention_apply(slot, r, cfg, h, positions,
+                                          masks[window], window=window)
         entries[li].append(dict(zip(slot_leaf_names(slot.kind), rows)))
         x, aux = _block_tail(slot, r, cfg, x + out)
         if aux is not None:
@@ -250,7 +281,13 @@ def forward(params, cfg: ModelConfig, tokens):
 
 def prefill(params, cfg: ModelConfig, tokens):
     """Forward pass that also returns the populated cache.
-    Returns (last_logits [B,1,V], cache)."""
+    Returns (last_logits [B,1,V], cache).
+
+    A local slot keeps only its last ``window`` positions when the prompt
+    is longer, rolled by ``s % window`` so that slot j holds the position
+    == j (mod window): decode overwrites slot ``pos % window``, so without
+    the roll it would clobber a position still inside the window (the
+    reference's ring alignment, ``model.py:509-526``)."""
     x = L.embed(params.tok, cfg, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
@@ -258,17 +295,28 @@ def prefill(params, cfg: ModelConfig, tokens):
     x = L.rms_norm(x, params.final_norm)
     logits = L.unembed(params, cfg, x[:, -1:])
     pos = positions.expand(b, s).to(torch.int64)
-    return logits, _stack_cache(cfg, entries, pos)
+    cache = _stack_cache(cfg, entries, pos)
+    for (si, j, _, window, _) in state_slot_meta(cfg):
+        if 0 < window < s:
+            c = cache["segments"][si][j]
+            cache["segments"][si][j] = {
+                name: torch.roll(a[:, :, -window:], s % window, dims=2)
+                for name, a in c.items()}
+    return logits, cache
 
 
 def pad_cache(cache, cfg: ModelConfig, max_len: int):
-    """Pad prefill-produced caches out to ``max_len`` positions (pos -1 ==
-    empty)."""
+    """Pad prefill-produced caches out to their capacity (pos -1 ==
+    empty): ``max_len`` positions, ``min(window, max_len)`` on local
+    slots."""
     segs = []
-    for seg in cache["segments"]:
+    for si, (pattern, _) in enumerate(cfg.segments):
         slots = []
-        for c in seg:
-            pad = max_len - c["pos"].shape[2]
+        for j, kind_s in enumerate(pattern):
+            c = cache["segments"][si][j]
+            window = _window(cfg, parse_kind(kind_s))
+            cap = min(window, max_len) if window > 0 else max_len
+            pad = cap - c["pos"].shape[2]
             if pad > 0:
                 c = {name: torch.nn.functional.pad(
                         a, (0, 0) * (a.dim() - 3) + (0, pad),
@@ -282,22 +330,27 @@ def pad_cache(cache, cfg: ModelConfig, max_len: int):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.float32, device=None):
     """Empty dense decode cache mirroring the segment structure: k/v rows
-    for attention slots, compressed ckv/krope rows for MLA slots."""
+    for attention slots, compressed ckv/krope rows for MLA slots;
+    ``max_len`` rows each, a ring of ``min(window, max_len)`` rows on
+    local slots."""
     dev = resolve_device(device)
-    zeros = lambda r, *s: torch.zeros((r, batch, max_len) + s, dtype=dtype,
-                                      device=dev)
     segs = []
     for pat, r in cfg.segments:
         slots = []
         for kind_s in pat:
-            if parse_kind(kind_s).mla:
+            kind = parse_kind(kind_s)
+            window = _window(cfg, kind)
+            t = min(window, max_len) if window > 0 else max_len
+            zeros = lambda *s: torch.zeros((r, batch, t) + s, dtype=dtype,
+                                           device=dev)
+            if kind.mla:
                 m = cfg.mla
-                c = {"ckv": zeros(r, m.kv_lora_rank),
-                     "krope": zeros(r, m.qk_rope_dim)}
+                c = {"ckv": zeros(m.kv_lora_rank),
+                     "krope": zeros(m.qk_rope_dim)}
             else:
                 kv, hd = cfg.num_kv_heads, cfg.head_dim
-                c = {"k": zeros(r, kv, hd), "v": zeros(r, kv, hd)}
-            c["pos"] = torch.full((r, batch, max_len), -1, dtype=torch.int64,
+                c = {"k": zeros(kv, hd), "v": zeros(kv, hd)}
+            c["pos"] = torch.full((r, batch, t), -1, dtype=torch.int64,
                                   device=dev)
             slots.append(c)
         segs.append(slots)
@@ -307,23 +360,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos):
     """One dense decode step.  tokens: [B,1]; cur_pos: [B] (current
     length).  Writes the new entries into ``cache`` in place (slot
-    ``min(cur_pos, T-1)``) and returns (logits [B,1,V], cache)."""
+    ``_write_slot``) and returns (logits [B,1,V], cache)."""
     x = L.embed(params.tok, cfg, tokens)
     rows = torch.arange(x.shape[0], device=x.device)
     for li, r, slot in _layers(params, cfg):
         c = _slot_cache(cache, cfg, li)
         pos = c["pos"][r]
         names = slot_leaf_names(slot.kind)
-        decode = L.mla_decode if slot.kind.mla else L.attention_decode
-        out, *new = decode(slot, r, cfg, L.rms_norm(x, slot.norm1[r]),
-                           c[names[0]][r], c[names[1]][r], pos, cur_pos)
-        wslot = cur_pos.clamp_max(pos.shape[1] - 1)
+        h = L.rms_norm(x, slot.norm1[r])
+        window = _window(cfg, slot.kind)
+        if slot.kind.mla:
+            out, *new = L.mla_decode(slot, r, cfg, h, c[names[0]][r],
+                                     c[names[1]][r], pos, cur_pos)
+        else:
+            out, *new = L.attention_decode(slot, r, cfg, h, c[names[0]][r],
+                                           c[names[1]][r], pos, cur_pos,
+                                           window=window)
+        wslot = _write_slot(pos, cur_pos, window)
         for name, e in zip(names, new):
             c[name][r][rows, wslot] = e[:, 0].to(c[name].dtype)
         pos[rows, wslot] = cur_pos.to(pos.dtype)
         x, _ = _block_tail(slot, r, cfg, x + out)
     x = L.rms_norm(x, params.final_norm)
     return L.unembed(params, cfg, x), cache
+
+
+def _write_slot(cache_pos, cur_pos, window: int):
+    """Cache slot to write: the position for full caches, the ring slot
+    ``cur_pos % window`` for a window-sized ring."""
+    t = cache_pos.shape[1]
+    if window > 0 and t == window:
+        return cur_pos % window
+    return cur_pos.clamp_max(t - 1)
 
 
 def _slot_cache(cache, cfg: ModelConfig, li: int):
@@ -366,8 +434,7 @@ def state_slot_meta(cfg: ModelConfig):
     for si, (pattern, repeats) in enumerate(cfg.segments):
         for j, kind_s in enumerate(pattern):
             kind = parse_kind(kind_s)
-            window = cfg.window_size if kind.base == "local" else 0
-            out.append((si, j, repeats, window, kind))
+            out.append((si, j, repeats, _window(cfg, kind), kind))
     return out
 
 
@@ -470,6 +537,7 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
         else:
             ctx, mass = ops.paged_attention(q[:, 0].contiguous(), hbm[0],
                                             hbm[1], tables, lengths,
+                                            window=_window(cfg, slot.kind),
                                             softcap=cfg.softcap,
                                             return_mass=True)
         x, _ = _block_tail(slot, r, cfg, x + ctx.reshape(b, 1, -1)

@@ -1,9 +1,13 @@
-"""The port's MLA and MoE geometries against the JAX reference.
+"""The port's MLA, MoE and sliding-window geometries against the JAX
+reference.
 
 Reduced ``deepseek-v3-671b`` (every layer MLA; one dense-MLP segment and
-one MoE segment with a shared expert) and reduced ``olmoe-1b-7b`` (k/v
-attention with qk-norm, every layer MoE without a shared expert), both
-float32, with the reference's parameters carried over through
+one MoE segment with a shared expert), reduced ``olmoe-1b-7b`` (k/v
+attention with qk-norm, every layer MoE without a shared expert) and
+reduced ``gemma3-12b`` (five sliding-window layers of window 8 and one
+global layer, qk-norm, SwiGLU, tied embeddings; the prompts of 9 and 11
+tokens are longer than the window and 11 % 8 = 3 exercises the ring's
+roll), all float32, with the reference's parameters carried over through
 ``repro_torch.bridge``:
 
   * the routed MoE against ``moe_apply_dense`` (outputs and aux loss) and
@@ -16,7 +20,11 @@ float32, with the reference's parameters carried over through
     the reference batcher's rid for rid, with the same migrations and
     tuner history, and equal the reference's ``generate``; sampled rows
     agree across the port's own generate, per-token and macro paths;
-  * pools over k/v and MLA slots side by side, as the reference's.
+  * pools over k/v and MLA slots side by side, as the reference's;
+  * gemma3 with ``attention_impl="pallas"`` (prefill self-attention
+    through ``ops.flash_attention``, its plain version on the CPU): the
+    reference's logits and caches, and the reference batcher's streams,
+    migrations and tuner history.
 
 On the CPU the paged layers run the kernels' plain versions.  Tolerances:
 1e-4 absolute on logits, 1e-5 on page masses, MoE outputs and caches
@@ -56,7 +64,8 @@ from repro_torch.models import moe as TMoE
 from repro_torch.serve import sched as TS
 from repro_torch.serve.engine import generate as t_generate
 
-ARCHS = ["deepseek-v3-671b", "olmoe-1b-7b"]
+MOE_ARCHS = ["deepseek-v3-671b", "olmoe-1b-7b"]
+ARCHS = MOE_ARCHS + ["gemma3-12b"]
 LOGIT_TOL, TOL = 1e-4, 1e-5
 N_LOGICAL, HBM, PAGE = 48, 10, 4
 PROMPT_LENS = (6, 9, 5, 11)
@@ -100,7 +109,7 @@ def _moe_segment(arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_matches_dense_reference(arch):
     """Routed MoE == the reference's dense oracle: outputs (shared expert
     included for deepseek) and the load-balance aux loss."""
@@ -189,7 +198,8 @@ def test_forward_prefill_decode_match(arch):
     rl, raux = RM.forward(rp, rcfg, toks)
     tl, taux = TM.forward(tp, tcfg, tt)
     _close(tl, rl, LOGIT_TOL)
-    assert abs(float(taux) - float(raux)) < TOL and float(taux) > 0
+    assert abs(float(taux) - float(raux)) < TOL
+    assert (float(taux) > 0) == (arch in MOE_ARCHS)   # aux of MoE layers
 
     lengths = np.asarray([11, 6], np.int32)
     rl, rc = RM.prefill_batched(rp, rcfg, jnp.asarray(toks),
@@ -289,7 +299,7 @@ def test_decode_step_paged_matches(arch):
                                        rtol=0)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_init_is_seeded_and_at_reference_scales(arch):
     """Seeded init; each MLA / MoE leaf at N(0, 1/fan_in) with the
     reference's fan-in (``shape[0]`` of the unstacked leaf)."""
@@ -332,10 +342,12 @@ def _stack(side):
                              TTuner(N_LOGICAL, **tune))
 
 
-def _serve(arch, side, macro, temps=(0.0, 0.0, 0.0, 0.0)):
+def _serve(arch, side, macro, temps=(0.0, 0.0, 0.0, 0.0),
+           attention_impl="reference"):
     """Serve the four requests with two rows: two submitted up front, the
     others joining mid-flight (staggered, recycled rows)."""
     m = _models(arch)
+    tcfg = dataclasses.replace(m["tcfg"], attention_impl=attention_impl)
     mon = _stack(side)
     if side == "ref":
         b = RS.ContinuousBatcher(m["rp"], m["rcfg"], max_active=2,
@@ -345,7 +357,7 @@ def _serve(arch, side, macro, temps=(0.0, 0.0, 0.0, 0.0)):
                                   max_new_tokens=NEW[i],
                                   key=jax.random.PRNGKey(0))
     else:
-        b = TS.ContinuousBatcher(m["tp"], m["tcfg"], max_active=2,
+        b = TS.ContinuousBatcher(m["tp"], tcfg, max_active=2,
                                  max_len=32, page_size=PAGE, monitor=mon,
                                  macro=macro, device="cpu")
         mk = lambda i: TS.Request(rid=i, prompt=m["prompts"][i],
@@ -432,3 +444,100 @@ def test_mixed_geometry_pools_hold_none_and_migrate():
                              pools.kv_layers[f"{name}_host"]):
             if hbm is not None:
                 assert torch.equal(hbm[:, [4, 1]], host[:, [7, 2]])
+
+
+# ---------------------------------------------------------------------------
+# sliding window (gemma3-12b)
+# ---------------------------------------------------------------------------
+
+
+def test_gemma_decode_from_empty_ring_cache_matches():
+    """Token-by-token ``decode_step`` from an empty ``init_cache``: local
+    slots are rings of ``window`` rows written at ``pos % window`` (10
+    tokens wrap the ring of 8), the global slot ``max_len`` rows."""
+    m = _models("gemma3-12b")
+    rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
+    toks = np.random.default_rng(4).integers(0, rcfg.vocab_size, (2, 10)) \
+        .astype(np.int32)
+    rcache = RM.init_cache(rcfg, 2, 16, dtype=jnp.float32)
+    tcache = TM.init_cache(tcfg, 2, 16, device="cpu")
+    slots = tcache["segments"][0]
+    assert [c["pos"].shape[2] for c in slots] == [8] * 5 + [16]
+    for i in range(toks.shape[1]):
+        pos = np.full((2,), i, np.int32)
+        rl, rcache = RM.decode_step(rp, rcfg, rcache,
+                                    jnp.asarray(toks[:, i:i + 1]),
+                                    jnp.asarray(pos))
+        tl, tcache = TM.decode_step(tp, tcfg, tcache,
+                                    torch.from_numpy(toks[:, i:i + 1]).long(),
+                                    torch.from_numpy(pos).long())
+        _close(tl, rl, LOGIT_TOL)
+    for t, r in zip(tcache["segments"][0], rcache["segments"][0]):
+        np.testing.assert_array_equal(t["pos"].numpy(), np.asarray(r["pos"]))
+
+
+def test_gemma_init_is_seeded_and_at_reference_scales():
+    """Seeded init; attention and MLP leaves at N(0, 1/fan_in) with the
+    reference's fan-in, norms one; the full config's geometry."""
+    cfg = TC.get("gemma3-12b")
+    assert (cfg.num_layers, cfg.window_size, cfg.head_dim) == (48, 1024, 256)
+    assert [w for *_, w, _ in TM.state_slot_meta(cfg)] == [1024] * 5 + [0]
+    tcfg = dataclasses.replace(TC.reduced("gemma3-12b"), dtype="float32")
+    a = TM.init(tcfg, seed=3, device="cpu")
+    b = TM.init(tcfg, seed=3, device="cpu")
+    for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(x, y), n
+    slot = a.segments[0][0]
+    for t, fan in ((slot.wq, tcfg.d_model), (slot.wo, tcfg.num_heads),
+                   (slot.wi_gate, tcfg.d_model), (slot.w_down, tcfg.d_ff)):
+        assert abs(float(t.std()) / fan ** -0.5 - 1) < 0.1, (t.shape, fan)
+    assert torch.all(slot.q_norm == 1) and torch.all(slot.k_norm == 1)
+    assert not hasattr(a, "unembed")                  # tied embeddings
+
+
+def test_gemma_flash_prefill_matches_reference():
+    """``attention_impl="pallas"``: forward logits, batched-prefill logits
+    and caches, and prefill + ring decode match the reference's."""
+    m = _models("gemma3-12b")
+    rcfg, rp, tp = m["rcfg"], m["rp"], m["tp"]
+    tcfg = dataclasses.replace(m["tcfg"], attention_impl="pallas")
+    toks = np.random.default_rng(5).integers(0, rcfg.vocab_size, (2, 11)) \
+        .astype(np.int32)
+    tt = torch.from_numpy(toks).long()
+    _close(TM.forward(tp, tcfg, tt)[0], RM.forward(rp, rcfg, toks)[0],
+           LOGIT_TOL)
+    lengths = np.asarray([11, 6], np.int32)
+    rl, rc = RM.prefill_batched(rp, rcfg, jnp.asarray(toks),
+                                jnp.asarray(lengths))
+    tl, tc = TM.prefill_batched(tp, tcfg, tt, torch.from_numpy(lengths))
+    _close(tl, rl, LOGIT_TOL)
+    for t, r in zip(tc["segments"][0], rc["segments"][0]):
+        for name, a in t.items():
+            np.testing.assert_allclose(a.numpy(), np.asarray(r[name]),
+                                       atol=TOL, rtol=0)
+    rl, rcache = RM.prefill(rp, rcfg, jnp.asarray(toks))
+    tl, tcache = TM.prefill(tp, tcfg, tt)
+    _close(tl, rl, LOGIT_TOL)
+    rcache = RM.pad_cache(rcache, rcfg, 16)
+    tcache = TM.pad_cache(tcache, tcfg, 16)
+    pos, tok = np.full((2,), 11, np.int32), toks[:, -1:]
+    for _ in range(3):
+        rl, rcache = RM.decode_step(rp, rcfg, rcache, jnp.asarray(tok),
+                                    jnp.asarray(pos))
+        tl, tcache = TM.decode_step(tp, tcfg, tcache,
+                                    torch.from_numpy(tok).long(),
+                                    torch.from_numpy(pos).long())
+        _close(tl, rl, LOGIT_TOL)
+        tok, pos = np.asarray(rl).argmax(-1).astype(np.int32), pos + 1
+
+
+@pytest.mark.parametrize("macro", [True, False])
+def test_gemma_flash_batcher_streams_match_reference(macro):
+    """``attention_impl="pallas"``: the batcher's greedy streams,
+    migrations and tuner history equal the reference batcher's."""
+    ref, ref_mon = _serve("gemma3-12b", "ref", macro)
+    port, port_mon = _serve("gemma3-12b", "port", macro,
+                            attention_impl="pallas")
+    assert port == ref
+    assert port_mon.manager.migrations == ref_mon.manager.migrations
+    assert port_mon.tuner.history == ref_mon.tuner.history

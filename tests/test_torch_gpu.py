@@ -7,12 +7,14 @@ machine with a card and no JAX:
 Without a card each test skips (decided inside the test).  Tolerances:
 paged attention 1e-5 absolute in float32 (summation order), 2e-2 for
 bfloat16 outputs, page masses 1e-5 (the same for ``paged_attention_mla``);
-``page_hist`` and ``sim_scan`` are
+``flash_attention`` 2e-5 in float32 up to 512 keys, 1e-4 beyond (longer
+sums in another order), 2e-2 in bfloat16; ``page_hist`` and ``sim_scan`` are
 bit-equal to their plain versions (the kernels round where the plain
 versions round)."""
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import page_hist as tph
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import paged_attention_mla as tpam
@@ -197,3 +199,46 @@ def test_mla_kernel_rejects_what_it_does_not_take():
                                  ckv[:, :3].contiguous(),
                                  torch.zeros((2, 3, 3), device=dev), pt, ln,
                                  scale=1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,kv,d,causal,window", [
+    (256, 16, 8, 256, True, 64), (37, 4, 2, 64, True, 0),
+    (1, 8, 1, 128, True, 0), (200, 4, 4, 16, False, 0),
+    (600, 40, 8, 128, True, 1024), (64, 4, 4, 32, True, 7),
+    (100, 4, 2, 256, False, 33)])
+def test_flash_kernel_matches_plain(dtype, s, h, kv, d, causal, window):
+    """The CUDA flash kernel against its plain version on the card: GQA,
+    every head dim it takes, lengths no tile divides (S = 1 included),
+    causal, sliding-window and non-causal masks; the launch counter moves
+    by one and the output has q's dtype."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(s + h + d)
+    f = lambda *shape: torch.randn(shape, generator=g, device=dev).to(dt)
+    q, k, v = f(2, s, h, d), f(2, s, kv, d), f(2, s, kv, d)
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    ref = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dt and out.shape == q.shape
+    tol = 2e-2 if dt == torch.bfloat16 else (2e-5 if s <= 512 else 1e-4)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_what_it_does_not_take():
+    dev = _card()
+    q = torch.zeros((1, 8, 4, 64), device=dev)
+    k = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, k)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q[..., :48], k[..., :48], k[..., :48])

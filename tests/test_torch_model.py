@@ -185,12 +185,30 @@ def test_init_is_seeded_and_at_reference_scales():
     assert torch.all(slot.norm1 == 1)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "recurrentgemma-2b",
-                                  "xlstm-1.3b", "musicgen-large",
-                                  "paligemma-3b", "nemotron-4-340b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b",
+                                  "musicgen-large", "paligemma-3b",
+                                  "nemotron-4-340b"])
 def test_other_geometries_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         TM.init(TC.reduced(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch,change,match", [
+    ("deepseek-v3-671b", {}, "MLA"),
+    ("qwen3-14b", {"softcap": 30.0}, "softcap")])
+def test_flash_route_refuses_what_its_kernel_cannot_take(arch, change,
+                                                         match):
+    """``attention_impl="pallas"`` raises for MLA slots (d_qk != d_v) and
+    a soft-cap, which the flash kernel cannot take; the same configs build
+    under ``"reference"``, and an unknown setting raises."""
+    cfg = dataclasses.replace(TC.reduced(arch), **change)
+    TM.init(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        TM.init(dataclasses.replace(cfg, attention_impl="pallas"),
+                device="cpu")
+    with pytest.raises(ValueError, match="attention_impl"):
+        TM.init(dataclasses.replace(cfg, attention_impl="flash"),
+                device="cpu")
 
 
 def test_cuda_default_raises_without_a_card(monkeypatch):
