@@ -108,27 +108,34 @@ def _qkv(p, r: int, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def attention_apply(p, r: int, cfg: ModelConfig, x, positions, mask, *,
+def attention_apply(p, r: int, cfg: ModelConfig, x, positions, *,
                     window: int = 0):
-    """Causal self-attention (prefill).  Returns (out, (k, v)).
+    """Causal (``window > 0``: sliding-window) self-attention for prefill.
+    Returns (out, (k, v)).
 
     ``cfg.attention_impl == "pallas"`` routes the attention through
-    ``ops.flash_attention(causal=True, window=window)`` in place of
-    ``sdpa`` with ``mask`` (the reference's docstring puts its flash
-    kernel here; ``mask`` is then unused).  The kernel counts query and
-    key positions from 0 and takes no query offset, so that route serves
-    self-attention over ``positions`` 0..S-1 only: what forward, prefill
-    and prefill_batched pass (chunked prefill over a ``past`` is not
+    ``ops.flash_attention(causal=True, window=window)`` (the reference's
+    docstring puts its flash kernel here); otherwise ``sdpa`` runs over
+    ``causal_mask(positions, positions, window)``.  The kernel counts
+    query and key positions from 0, takes no query offset and has no
+    soft-cap, so that route serves self-attention over ``positions``
+    0..S-1 without ``cfg.softcap``: what forward, prefill and
+    prefill_batched pass (chunked prefill over a ``past`` is not
     ported)."""
     q, k, v = _qkv(p, r, cfg, x, positions)
     b, s = x.shape[:2]
     if cfg.attention_impl == "pallas":
+        if cfg.softcap > 0:
+            raise NotImplementedError(
+                "the flash route has no soft-cap (cfg.softcap = "
+                f"{cfg.softcap}); use attention_impl='reference'")
         if tuple(positions.shape) != (1, s):
             raise ValueError("the flash route takes positions [1, S] = "
                              f"0..S-1, not {tuple(positions.shape)}")
         out = ops.flash_attention(q, k, v, causal=True, window=window)
     else:
-        out = sdpa(q, k, v, mask, cfg.softcap)
+        out = sdpa(q, k, v, causal_mask(positions, positions, window),
+                   cfg.softcap)
     return out.reshape(b, s, -1) @ p.wo[r], (k, v)
 
 

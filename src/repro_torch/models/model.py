@@ -228,20 +228,20 @@ def _run_seq(params, cfg: ModelConfig, x, positions):
     entries in repeat order -- {"k", "v"} or MLA {"ckv", "krope"} --,
     the summed MoE aux loss).  Local slots attend through a sliding
     window, the others causally."""
-    masks = {}
+    masks = {}          # MLA's, by window; attention_apply builds its own
     entries: List[List] = [[] for _ in state_slot_meta(cfg)]
     aux_total = torch.zeros((), device=x.device)
     for li, r, slot in _layers(params, cfg):
         window = _window(cfg, slot.kind)
-        if window not in masks:
-            masks[window] = L.causal_mask(positions, positions, window)
         h = L.rms_norm(x, slot.norm1[r])
         if slot.kind.mla:
+            if window not in masks:
+                masks[window] = L.causal_mask(positions, positions, window)
             out, rows = L.mla_apply(slot, r, cfg, h, positions,
                                     masks[window])
         else:
             out, rows = L.attention_apply(slot, r, cfg, h, positions,
-                                          masks[window], window=window)
+                                          window=window)
         entries[li].append(dict(zip(slot_leaf_names(slot.kind), rows)))
         x, aux = _block_tail(slot, r, cfg, x + out)
         if aux is not None:

@@ -41,7 +41,7 @@ from repro_torch.memtier.tiering import (PAGE_DROP, SharedPagedPools,
 from repro_torch.models import model as mdl
 from repro_torch.obs import telemetry as _obs
 
-__all__ = ["Request", "TrafficMonitor", "ContinuousBatcher"]
+__all__ = ["Request", "TrafficMonitor", "ContinuousBatcher", "pack_prompts"]
 
 
 class TrafficMonitor:
@@ -118,6 +118,22 @@ class TrafficMonitor:
         if self.tuner is not None:
             self.tuner.forget_pages(gids)
         self.pools.free(gids)
+
+
+def pack_prompts(prompts: Sequence[np.ndarray]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """An admission's prompts packed for one ``prefill_batched`` call:
+    (tokens int64[rows, width], lengths int64[rows]).  Both dims are
+    pow2-bucketed, as the reference: right-padding is inert under causal
+    attention, and the dummy rows (length 1) are never read."""
+    plens = [len(p) for p in prompts]
+    toks = np.zeros((bucket_pages(len(prompts)), bucket_pages(max(plens))),
+                    np.int64)
+    lens = np.ones((toks.shape[0],), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, : plens[i]] = p
+        lens[i] = plens[i]
+    return toks, lens
 
 
 @dataclasses.dataclass
@@ -299,16 +315,7 @@ class ContinuousBatcher:
         """Prefill a step's joiners as one packed forward pass, write their
         pages into the pool, and sample each first token."""
         plens = [len(r.prompt) for r in batch]
-        # pow2-bucket both packed dims (width and joiner count), as the
-        # reference: right-padding is inert under causal attention and
-        # dummy rows are never read
-        smax = bucket_pages(max(plens))
-        jp = bucket_pages(len(batch))
-        toks = np.zeros((jp, smax), np.int64)
-        plens_p = np.ones((jp,), np.int64)
-        for i, r in enumerate(batch):
-            toks[i, : plens[i]] = r.prompt
-            plens_p[i] = plens[i]
+        toks, plens_p = pack_prompts([r.prompt for r in batch])
         logits_b, cache_b = mdl.prefill_batched(
             self.params, self.cfg, torch.as_tensor(toks, device=self.device),
             torch.as_tensor(plens_p, device=self.device))

@@ -211,6 +211,21 @@ def test_flash_route_refuses_what_its_kernel_cannot_take(arch, change,
                 device="cpu")
 
 
+def test_flash_route_raises_on_softcap_after_init():
+    """A soft-capped config switched to the flash route after init
+    (``forward``, ``prefill`` and ``prefill_batched`` do not re-run
+    ``check_supported``) raises in the layer, not uncapped attention."""
+    cfg = dataclasses.replace(TC.reduced("qwen3-14b"), softcap=30.0)
+    params = TM.init(cfg, device="cpu")
+    flash = dataclasses.replace(cfg, attention_impl="pallas")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    TM.forward(params, cfg, toks)
+    with pytest.raises(NotImplementedError, match="soft-cap"):
+        TM.forward(params, flash, toks)
+    with pytest.raises(NotImplementedError, match="soft-cap"):
+        TM.prefill(params, flash, toks)
+
+
 def test_cuda_default_raises_without_a_card(monkeypatch):
     """Entry points run on cuda unless asked otherwise, and raise when no
     card is visible instead of carrying on on the CPU."""
