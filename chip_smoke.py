@@ -14,9 +14,11 @@ non-zero):
      ``src/repro_torch/kernels/csrc``, one process per source, all at once
      (each -Xptxas -v report is printed);
   3. kernel vs plain version on the card: the main-path shape, gemma3's
-     decode shape (16/8 heads, D 256, window 1024) and a GQA / window /
-     softcap grid, float32 and bfloat16, with stated tolerances and each
-     active row's mass summing to 1;
+     decode shape (16/8 heads, D 256, window 1024), the edges of the
+     kernel's split over pages (``SPLIT_EDGES``) and a GQA / window /
+     softcap grid, float32 and bfloat16, with stated tolerances, each
+     active row's mass summing to 1, and two calls on the same inputs
+     bit-identical;
   4. full-width qwen3-14b (all 40 layers, float32 weights from a seeded
      init) served by the macro-step ``ContinuousBatcher`` over
      ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner``: 8
@@ -25,9 +27,11 @@ non-zero):
   5. parity on the card: on a reduced GQA config, the batcher's greedy
      streams (macro and per-token) equal ``generate``'s (dense attention,
      no kernel);
-  6. kernel timing at the main-path shape (CUDA events, L2 flushed
-     between launches) beside its plain version, a library yardstick and
-     the bandwidth bound;
+  6. paged kernel timing at the two served decode shapes (qwen3-14b's,
+     and gemma3-12b's with window 1024): per call (CUDA events) and on
+     the device alone (profiler kernel durations), L2 flushed before each
+     call, beside its plain version, one SDPA call (the yardstick, which
+     the kernel must beat) and the bandwidth bound;
   7. the offline path's kernels vs their plain versions on the card:
      ``page_hist`` over an alpha/threshold grid with -1 padding, odd
      footprints and out-of-range ids (bit-equal); ``bin_trace`` of all
@@ -100,6 +104,7 @@ import gc
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -144,9 +149,30 @@ def phase_build(build, kernels) -> None:
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
 
+# where the kernel's split over pages can go wrong (``split_plan`` gives
+# 4 pages a split at B=4, KV=8, n=64 or window 1000; 3 at n=50): spans that
+# end inside the first split or on a split boundary (64 = 4 pages, 320 = 5
+# splits) beside a row that fills every split; -1 slots inside a split and
+# a split whose slots are all -1; windows whose span starts past page 0 or
+# at it, so the splits past a short span are empty; n not a multiple of
+# the split (50 = 16 x 3 + 2); a length-0 row
+SPLIT_EDGES = [
+    dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
+         lengths=[1024, 20, 64, 320], holes=[(0, 5), (3, 2)]),
+    dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
+         lengths=[1024, 777, 0, 301], holes=[(0, 8), (0, 9), (0, 10),
+                                             (0, 11)]),
+    dict(b=4, h=16, kv=8, d=256, page=16, n=128, p_phys=512,
+         lengths=[2048, 1030, 700, 1], window=1000, holes=[(1, 40)]),
+    dict(b=4, h=40, kv=8, d=128, page=16, n=50, p_phys=256,
+         lengths=[800, 799, 48, 0], softcap=5.0),
+]
+
+
 def _kernel_case(pa, *, b, h, kv, d, page, n, p_phys, lengths, dtype,
-                 window=0, softcap=0.0, ragged=True, seed=0):
-    """Random q / pools / table on the card; returns the inputs."""
+                 window=0, softcap=0.0, ragged=True, holes=(), seed=0):
+    """Random q / pools / table on the card; returns the inputs.  ``holes``
+    lists (row, page) table entries set to -1 inside a row's span."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
@@ -158,6 +184,8 @@ def _kernel_case(pa, *, b, h, kv, d, page, n, p_phys, lengths, dtype,
     if ragged:   # rows shorter than the table are padded with -1
         for row, length in enumerate(lengths):
             table[row, -(-length // page):] = -1
+    for row, pg in holes:
+        table[row, pg] = -1
     return dict(q=q, k_pages=kp, v_pages=vp, page_table=table, lengths=ln,
                 window=window, softcap=softcap)
 
@@ -171,7 +199,7 @@ def phase_kernel_check(pa) -> float:
     # gemma3-12b's decode shape: the window path at D = 256
     gemma = dict(b=4, h=16, kv=8, d=256, page=16, n=128, p_phys=512,
                  lengths=[2048, 1500, 1025, 0], window=1024)
-    grid = [dict(main), gemma]
+    grid = [dict(main), gemma] + SPLIT_EDGES
     for h, kv in ((4, 4), (8, 2), (8, 1)):
         for window, softcap in ((0, 0.0), (3, 0.0), (0, 5.0), (3, 5.0)):
             grid.append(dict(b=3, h=h, kv=kv, d=64, page=16, n=6, p_phys=32,
@@ -182,7 +210,11 @@ def phase_kernel_check(pa) -> float:
         for dtype in (torch.float32, torch.bfloat16):
             args = _kernel_case(pa, dtype=dtype, seed=i, **case)
             out, mass = pa.paged_attention(**args)
+            again = pa.paged_attention(**args)
             torch.cuda.synchronize()
+            if not (torch.equal(out, again[0])
+                    and torch.equal(mass, again[1])):
+                _fail(f"two calls on the same inputs differ (case {i})")
             ref_o, ref_m = pa.paged_attention_plain(**args)
             err_o = float((out.float() - ref_o.float()).abs().max())
             err_m = float((mass - ref_m).abs().max())
@@ -190,8 +222,12 @@ def phase_kernel_check(pa) -> float:
             err_sum = float((mass.sum(dim=1)[active] - 1).abs().max())
             t_o, t_m = tol[dtype]
             ok = err_o <= t_o and err_m <= t_m and err_sum <= 1e-5
+            plan = pa.split_plan(case["n"], case.get("window", 0),
+                                 case["page"], case["b"], case["kv"])
             print(f"case {i} {str(dtype)[6:]} H={case['h']} KV={case['kv']} "
-                  f"D={case['d']} n={case['n']} "
+                  f"D={case['d']} n={case['n']} lengths {case['lengths']} "
+                  f"holes {list(case.get('holes', ()))} (pages a split, "
+                  f"splits) {plan} "
                   f"window={case.get('window', 0)} "
                   f"softcap={case.get('softcap', 0.0)}: out err {err_o:.3g} "
                   f"(tol {t_o}), mass err {err_m:.3g} (tol {t_m}), "
@@ -471,47 +507,160 @@ def _time(fn, iters, flush_buf):
     return float(np.mean(times))
 
 
+def _device_ms(fn, iters, flush_buf):
+    """Device-only ms per call: the durations of the kernels ``fn``
+    launches, from ``torch.profiler``, over ``iters`` calls each after the
+    same L2 flush as ``_time`` (the flush's own kernels, found by
+    profiling it alone, are left out).  Each kernel counts at its mean
+    duration times its launches per call (its count over ``iters``,
+    rounded: a profiler that drops some events still gives the right
+    sum).  Where the profiler sees no device time, CUDA events around
+    ``iters`` back-to-back (flush, call) pairs less the flushes' own event
+    time.  Returns (ms, how, {kernel: ms a call})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(body):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return {e.key: (e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count}
+
+    def flushes():
+        for _ in range(iters):
+            flush_buf.zero_()
+
+    def pairs():
+        for _ in range(iters):
+            flush_buf.zero_()
+            fn()
+
+    for _ in range(3):
+        fn()
+    flush_names = set(kernels(flushes))
+    split, partial = {}, 0
+    for k, (us, count) in sorted(kernels(pairs).items()):
+        if k in flush_names:
+            continue
+        partial += count % iters != 0
+        found = re.search(r"(\w+)\s*[<(]",
+                          k.replace("(anonymous namespace)", ""))
+        name = found.group(1) if found else k[:40]
+        per_call = us / count * max(1, round(count / iters)) / 1e3
+        split[name] = split.get(name, 0.0) + per_call
+    if sum(split.values()) > 0:
+        how = "profiler" + (f", {partial} kernel(s) with events lost"
+                            if partial else "")
+        return sum(split.values()), how, split
+    walls = []
+    for body in (flushes, pairs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        body()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end))
+    return (walls[1] - walls[0]) / iters, "events less flush", {}
+
+
+def _ms_list(named):
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in named.items())
+
+
+# the paged kernel's two served decode shapes (float32): qwen3-14b's (phase
+# 4) and gemma3-12b's sliding-window layers (phase 15, 40 of its 48
+# launches a step)
+PAGED_SHAPES = {
+    "qwen3-14b": dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
+                      lengths=[1024, 777, 513, 301]),
+    "gemma3-12b": dict(b=4, h=16, kv=8, d=256, page=16, n=128, p_phys=512,
+                       lengths=[1664, 1500, 1200, 1040], window=1024),
+}
+
+
 def phase_timing(pa):
-    print("== phase 6: kernel timing at the main-path shape", flush=True)
+    print("== phase 6: paged_attention timing at the served decode shapes",
+          flush=True)
     import torch.nn.functional as F
-    b, h, kv, d, page, n = 4, 40, 8, 128, 16, 64
-    lengths = [1024, 777, 513, 301]
-    args = _kernel_case(pa, b=b, h=h, kv=kv, d=d, page=page, n=n,
-                        p_phys=256, lengths=lengths, dtype=torch.float32)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     before = pa.paged_attention.launches
-    ms = _time(lambda: pa.paged_attention(**args), 50, flush)
-    plain_ms = _time(lambda: pa.paged_attention_plain(**args), 20, flush)
+    res = {}
+    for model, case in PAGED_SHAPES.items():
+        b, h, kv, d, page, n = (case[k] for k in ("b", "h", "kv", "d",
+                                                  "page", "n"))
+        window, lengths = case.get("window", 0), case["lengths"]
+        args = _kernel_case(pa, dtype=torch.float32, seed=11, **case)
+        out, mass = pa.paged_attention(**args)
+        ref_o, ref_m = pa.paged_attention_plain(**args)
+        err = max(float((out - ref_o).abs().max()),
+                  float((mass - ref_m).abs().max()))
+        if not err <= 1e-5:
+            _fail(f"paged_attention at the {model} timed shape: err "
+                  f"{err:.3g} against its plain version (tol 1e-5)")
+        kernel = lambda: pa.paged_attention(**args)
+        ms = _time(kernel, 50, flush)
+        dev_ms, how, names = _device_ms(kernel, 50, flush)
+        plain_ms = _time(lambda: pa.paged_attention_plain(**args), 20,
+                         flush)
+
+        # yardstick: one SDPA call over the same K/V, gathered beforehand,
+        # with the row's span as its mask
+        t = n * page
+        idx = args["page_table"].clamp_min(0).long()
+        k = args["k_pages"][idx].reshape(b, t, kv, d).transpose(1, 2) \
+            .contiguous()
+        v = args["v_pages"][idx].reshape(b, t, kv, d).transpose(1, 2) \
+            .contiguous()
+        qs = args["q"][:, :, None, :]
+        pos = torch.arange(t, device="cuda")[None, :]
+        ln = args["lengths"][:, None].long()
+        span = pos < ln
+        if window:
+            span &= pos >= ln - window
+        mask = span[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, enable_gqa=True)
+        library_ms = _time(sdpa, 50, flush)
+        lib_dev_ms, lib_how, lib_names = _device_ms(sdpa, 50, flush)
+
+        rows = sum(min(x, window) if window else x for x in lengths)
+        kv_bytes = 2 * rows * kv * d * 4
+        io_bytes = (b * h * d * 4 * 2 + b * n * 4        # q + out, mass
+                    + b * n * 4 + b * 4)                 # table, lengths
+        flops = 4 * rows * h * d
+        t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        pps, splits = pa.split_plan(n, window, page, b, kv)
+        print(f"{model}: B={b} H={h} KV={kv} D={d} page={page} n={n} "
+              f"window={window} lengths {lengths} float32, {pps} pages a "
+              f"split x {splits} splits = {b * kv * splits} blocks (err "
+              f"{err:.3g} vs plain): kernel {ms:.4f} ms a call (events), "
+              f"{dev_ms:.4f} ms on the device ({how}: {_ms_list(names)}); "
+              f"plain "
+              f"{plain_ms:.4f} ms; SDPA over pre-gathered K/V "
+              f"{library_ms:.4f} ms a call, {lib_dev_ms:.4f} ms on the "
+              f"device ({lib_how}: {_ms_list(lib_names)}); bound "
+              f"{bound_ms:.4f} ms "
+              f"({bound_by}: {rows} attended rows, "
+              f"{(kv_bytes + io_bytes) / 1e6:.2f} MB at 3.35 TB/s; "
+              f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s) -> "
+              f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
+              f"{bound_ms / ms * 100:.1f}% a call", flush=True)
+        if not ms < library_ms:
+            _fail(f"paged_attention ({ms:.4f} ms) is not below its SDPA "
+                  f"yardstick ({library_ms:.4f} ms) at the {model} shape")
+        res[model] = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+                          plain_ms=plain_ms,
+                          library_ms=library_ms,
+                          library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=err)
     pa.paged_attention.launches = before      # timing launches not counted
-
-    # yardstick: one SDPA call over the same K/V, gathered beforehand
-    t = n * page
-    idx = args["page_table"].clamp_min(0).long()
-    k = args["k_pages"][idx].reshape(b, t, kv, d).transpose(1, 2).contiguous()
-    v = args["v_pages"][idx].reshape(b, t, kv, d).transpose(1, 2).contiguous()
-    qs = args["q"][:, :, None, :]
-    mask = (torch.arange(t, device="cuda")[None, :]
-            < args["lengths"][:, None].long())[:, None, None, :]
-    library_ms = _time(lambda: F.scaled_dot_product_attention(
-        qs, k, v, attn_mask=mask, enable_gqa=True), 50, flush)
-
-    tokens = sum(lengths)
-    kv_bytes = 2 * tokens * kv * d * 4
-    io_bytes = (b * h * d * 4 * 2 + b * n * 4        # q + out, mass
-                + b * n * 4 + b * 4)                 # table, lengths
-    flops = 4 * tokens * h * d
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"B={b} H={h} KV={kv} D={d} page={page} n={n} lengths {lengths} "
-          f"float32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over "
-          f"pre-gathered K/V {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {(kv_bytes + io_bytes) / 1e6:.2f} MB at 3.35 TB/s; "
-          f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s) -> "
-          f"{bound_ms / ms * 100:.1f}% of the bound", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return res
 
 
 def _scan_kw(sim, cfg, num_pages, scheduler):
@@ -1299,7 +1448,13 @@ def main() -> int:
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:121",
-             launches=serve["launches"], max_abs_err=err, **timing),
+             launches=serve["launches"],
+             max_abs_err=max(err, timing["qwen3-14b"]["max_abs_err"]),
+             **{k: v for k, v in timing["qwen3-14b"].items()
+                if k != "max_abs_err"},
+             shape="qwen3-14b decode (phase 4)",
+             also={"gemma3-12b decode (phase 15)": dict(
+                 timing["gemma3-12b"], launches=gemma["paged_launches"])}),
         dict(name="page_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/page_hist.cu",
              replaces="src/repro/kernels/page_hist.py:45",

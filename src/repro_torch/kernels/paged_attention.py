@@ -9,7 +9,9 @@ for Hopper (``csrc/paged_attention.cu``, built for ``sm_90a`` with
 ``paged_attention`` dispatches on the device of its inputs: a CPU tensor
 goes to the plain version, a CUDA tensor goes to the kernel, and anything
 the kernel does not take raises -- there is no fallback.  Every kernel
-launch adds one to ``paged_attention.launches``.
+call (a split launch and its combine) adds one to
+``paged_attention.launches``.  ``split_plan`` is the host's choice of how
+the kernel splits a row's pages over blocks.
 
 Semantics (shared by the kernel and the plain version): q [B, H, D];
 k_pages/v_pages [P, page, KV, D] (float32 or bfloat16, one dtype with q);
@@ -29,12 +31,22 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["paged_attention", "paged_attention_plain"]
+__all__ = ["paged_attention", "paged_attention_plain", "split_plan"]
 
 NAME = "paged_attention"
 NVCC_FLAGS = _build.BASE_FLAGS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# blocks the split aims for (about 4 per SM of an H100), and the longest
+# run of pages one block takes (its per-page statistics sit in shared
+# memory)
+TARGET_BLOCKS = 512
+MAX_PAGES_PER_SPLIT = 32
+MAX_HEAD_DIM = 512
 _lib = None
+# the kernel's float32 scratch, kept between calls: one buffer per (device,
+# stream), so a call reuses it only after the previous call on that stream
+# (stream order) -- an allocation costs host time on every decode layer
+_scratch = {}
 
 
 def _load():
@@ -45,10 +57,25 @@ def _load():
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                        + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def split_plan(n: int, window: int, page: int, b: int, kv: int):
+    """(pages per split, splits) of the kernel's grid for a page table of
+    ``n`` pages a row, from the shapes alone (never from the lengths, whose
+    read would sync the device).  Split s of a row covers its logical pages
+    [lo + s * pps, lo + (s + 1) * pps), lo = max(0, len - window) // page,
+    so the splits need only cover the longest span a row can visit:
+    ``n`` pages, or ceil(window / page) + 1 under a window.  Runs are as
+    short as keeps the grid near ``TARGET_BLOCKS`` blocks of (row, KV
+    head, split)."""
+    span = n if window <= 0 else min(n, -(-window // page) + 1)
+    pps = max(1, min(span, MAX_PAGES_PER_SPLIT,
+                     span * b * kv // TARGET_BLOCKS))
+    return pps, -(-span // pps)
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
@@ -118,23 +145,35 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
         raise ValueError("all inputs must be on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention needs contiguous inputs")
+    if d * k_pages.element_size() % 16 or d > MAX_HEAD_DIM \
+            or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the kernel copies 16-byte pieces: it takes head "
+                         f"dims up to {MAX_HEAD_DIM} whose rows are a "
+                         "multiple of 16 bytes, in 16-byte aligned pools "
+                         f"(got D={d} in {k_pages.dtype})")
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    mass = torch.empty((b, n), dtype=torch.float32, device=q.device)
     if b == 0 or n == 0:
-        mass.zero_()
-        return out, mass
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_page = torch.empty((b, h, n), **f32)
-    s_page = torch.empty((b, h, n), **f32)
-    m_final = torch.empty((b, h), **f32)
-    l_final = torch.empty((b, h), **f32)
+        return out, torch.zeros((b, n), dtype=torch.float32, device=q.device)
+    mass = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    pps, splits = split_plan(n, int(window), page, b, kvh)
+    # scratch: part_acc [B, H, splits, D], part_m and part_l [B, H,
+    # splits], s_page [B, H, n]
+    parts = b * h * splits
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    need = parts * (d + 2) + b * h * n
+    key = (q.device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _scratch[key] = torch.empty(need, dtype=torch.float32,
+                                          device=q.device)
+    at = buf.data_ptr()
     err = _load().paged_attention_launch(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), mass.data_ptr(), m_page.data_ptr(),
-        s_page.data_ptr(), m_final.data_ptr(), l_final.data_ptr(),
+        out.data_ptr(), mass.data_ptr(), at, at + 4 * parts * d,
+        at + 4 * parts * (d + 1), at + 4 * parts * (d + 2),
         b, h, kvh, d, page, n, n_phys, 1.0 / math.sqrt(d), int(window),
-        float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
+        float(softcap), pps, splits, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

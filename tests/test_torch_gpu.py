@@ -6,7 +6,8 @@ machine with a card and no JAX:
 
 Without a card each test skips (decided inside the test).  Tolerances:
 paged attention 1e-5 absolute in float32 (summation order), 2e-2 for
-bfloat16 outputs, page masses 1e-5 (the same for ``paged_attention_mla``);
+bfloat16 outputs, page masses 1e-5 (the same for ``paged_attention_mla``),
+at the kernel's usual shapes and at the edges of its split over pages;
 ``flash_attention`` 2e-5 in float32 up to 512 keys, 1e-4 beyond (longer
 sums in another order), 2e-2 in bfloat16; ``page_hist`` and ``sim_scan`` are
 bit-equal to their plain versions (the kernels round where the plain
@@ -58,6 +59,74 @@ def test_cuda_kernel_matches_plain(dtype, h, kv, window, softcap):
     torch.testing.assert_close(mass.sum(dim=1)[active],
                                torch.ones(int(active.sum()), device=dev),
                                atol=1e-5, rtol=0)
+
+
+# the edges of the kernel's split over pages (``split_plan``: 4 pages a
+# split at B=4, KV=8, n=64 or window 1000, 3 at n=50), as chip_smoke.py's
+# phase 3: spans ending inside the first split or on a split boundary
+# beside a full row, -1 slots inside a split and a split of -1 slots only,
+# a window whose short spans leave the later splits empty, n not a
+# multiple of the split, a length-0 row
+SPLIT_EDGES = [
+    (64, 0, 0.0, [1024, 20, 64, 320], [(0, 5), (3, 2), (0, 8), (0, 9),
+                                       (0, 10), (0, 11)]),
+    (128, 1000, 0.0, [2048, 1030, 700, 1], [(1, 40)]),
+    (50, 0, 5.0, [800, 799, 48, 0], []),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,window,softcap,lengths,holes", SPLIT_EDGES)
+def test_cuda_kernel_split_edges(dtype, n, window, softcap, lengths, holes):
+    """The kernel against its plain version where its split over pages can
+    go wrong; zeros for a length-0 row; two calls bit-identical (the
+    combine has no atomics)."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    h, kv, d = (16, 8, 256) if window else (40, 8, 128)
+    b, page, p_phys = 4, 16, 4 * n
+    g = torch.Generator(device=dev).manual_seed(n + window)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+    kp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dt)
+    vp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dt)
+    pt = torch.randperm(p_phys, generator=g, device=dev)[: b * n] \
+        .reshape(b, n).to(torch.int32)
+    for row, length in enumerate(lengths):
+        pt[row, -(-length // page):] = -1
+    for row, pg in holes:
+        pt[row, pg] = -1
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kw = dict(window=window, softcap=softcap)
+    out, mass = tpa.paged_attention(q, kp, vp, pt, ln, **kw)
+    out2, mass2 = tpa.paged_attention(q, kp, vp, pt, ln, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(mass, mass2)
+    ref_o, ref_m = tpa.paged_attention_plain(q, kp, vp, pt, ln, **kw)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref_o.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(mass, ref_m, atol=1e-5, rtol=0)
+    active = ln > 0
+    torch.testing.assert_close(mass.sum(dim=1)[active],
+                               torch.ones(int(active.sum()), device=dev),
+                               atol=1e-5, rtol=0)
+    assert torch.count_nonzero(out[~active]) == 0
+    assert torch.count_nonzero(mass[~active]) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_what_it_does_not_take():
+    """The split kernel copies 16-byte pieces of head dims up to 512: rows
+    of another size raise instead of launching."""
+    dev = _card()
+    pt = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    ln = torch.ones((1,), dtype=torch.int32, device=dev)
+    for d, dtype in ((6, torch.float32), (12, torch.bfloat16),
+                     (1024, torch.float32)):
+        q = torch.zeros((1, 4, d), device=dev, dtype=dtype)
+        kp = torch.zeros((2, 4, 2, d), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="16-byte"):
+            tpa.paged_attention(q, kp, kp, pt, ln)
 
 
 def _card():

@@ -8,6 +8,9 @@ kernel itself is held against the plain version on the card by
 Tolerances: 1e-5 absolute in float32 (the three implementations reduce in
 different orders); 3e-2 for bfloat16 inputs, as the reference's own kernel
 test allows."""
+import inspect
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -144,3 +147,164 @@ def test_wrapper_refuses_other_devices():
             torch.ones((1,), dtype=torch.int32, device="meta")]
     with pytest.raises(ValueError, match="cpu or cuda"):
         tpa.paged_attention(*args)
+
+
+# --- the CUDA kernel's split over pages, emulated (the kernel itself runs
+# only on the card; tests/test_torch_gpu.py holds it to the plain version)
+
+def _visited(length, window, page, n):
+    """Logical pages [lo, hi) a row visits, as the kernel computes them."""
+    if length <= 0:
+        return 0, 0
+    start = max(0, length - window) if window > 0 else 0
+    return start // page, min(n, -(-length // page))
+
+
+def _runs(length, window, page, n, pps, splits):
+    """Each split's run of logical pages [p0, p1) of a row (empty runs
+    included), as the kernel's blocks take them."""
+    lo, hi = _visited(length, window, page, n)
+    return [(lo + s * pps, min(hi, lo + (s + 1) * pps))
+            for s in range(splits)]
+
+
+def _split_emulation(q, kp, vp, pt, ln, *, window, softcap, pps, splits):
+    """The kernel's arithmetic in torch: per split its (m, l, acc) and
+    per page its exp-sum s_page under the split's max m_page = m; then the
+    combine: m_f = max_s m_s, l_f = sum_s l_s exp(m_s - m_f), out =
+    sum_s acc_s exp(m_s - m_f) / max(l_f, 1e-30), mass = sum_h s_page
+    exp(m_page - m_f) / l_f / H -- empty splits (m = -inf) weigh 0."""
+    b, h, d = q.shape
+    n_phys, page, kvh, _ = kp.shape
+    n = pt.shape[1]
+    rep = h // kvh
+    out = torch.zeros((b, h, d))
+    mass = torch.zeros((b, n))
+    for row in range(b):
+        length = int(ln[row])
+        span_lo = length - window if window > 0 else 0
+        qg = q[row].float().reshape(kvh, rep, d)
+        m = torch.full((h, splits), -math.inf)
+        l = torch.zeros((h, splits))
+        acc = torch.zeros((h, splits, d))
+        s_page = torch.zeros((h, n))
+        page_split = {}
+        for s, (p0, p1) in enumerate(_runs(length, window, page, n, pps,
+                                           splits)):
+            pages = [pi for pi in range(p0, p1)
+                     if 0 <= int(pt[row, pi]) < n_phys]
+            if not pages:
+                continue
+            for pi in range(p0, p1):
+                page_split[pi] = s
+            slots = torch.tensor([int(pt[row, pi]) for pi in pages])
+            k = kp[slots].float().reshape(-1, kvh, d)
+            v = vp[slots].float().reshape(-1, kvh, d)
+            lg = torch.einsum("grd,tgd->grt", qg, k) / math.sqrt(d)
+            if softcap > 0:
+                lg = torch.tanh(lg / softcap) * softcap
+            pos = (torch.tensor(pages)[:, None] * page
+                   + torch.arange(page)[None, :]).reshape(-1)
+            valid = (pos < length) & (pos >= span_lo)
+            lg = lg.masked_fill(~valid, -math.inf).reshape(h, -1)
+            ms = lg.amax(dim=1)
+            p = torch.where(torch.isfinite(lg), torch.exp(lg - ms[:, None]),
+                            torch.zeros_like(lg))
+            m[:, s], l[:, s] = ms, p.sum(dim=1)
+            vr = v.permute(1, 0, 2).repeat_interleave(rep, dim=0)
+            acc[:, s] = torch.einsum("ht,htd->hd", p, vr)
+            s_page[:, pages] = p.reshape(h, len(pages), page).sum(dim=2)
+        mf = m.amax(dim=1, keepdim=True)
+        live = torch.isfinite(m)
+        e = torch.where(live, torch.exp(m - mf), torch.zeros_like(m))
+        lf = (l * e).sum(dim=1, keepdim=True)
+        w = e / lf.clamp_min(1e-30)
+        out[row] = (acc * w[:, :, None]).sum(dim=1)
+        for pi, s in page_split.items():
+            if 0 <= int(pt[row, pi]) < n_phys:
+                mass[row, pi] = (s_page[:, pi] * w[:, s]).sum() / h
+    return out, mass
+
+
+# (h, kv, window, softcap, lengths, holes) over 7 pages of 4: spans ending
+# in the first page, on a page boundary and at the table's end; -1 slots
+# inside a span; a window whose span starts past page 0; a length-0 row
+SPLIT_CASES = [
+    (8, 2, 0, 0.0, [28, 3, 8, 0], [(0, 2)]),
+    (8, 2, 6, 0.0, [28, 13, 5, 0], []),
+    (4, 1, 0, 5.0, [27, 16, 12, 1], [(1, 1), (1, 2)]),
+    (4, 4, 9, 5.0, [25, 20, 9, 0], [(0, 4)]),
+]
+
+
+@pytest.mark.parametrize("h,kv,window,softcap,lengths,holes", SPLIT_CASES)
+def test_split_combine_matches_plain_and_jax(h, kv, window, softcap,
+                                             lengths, holes):
+    """The split kernel's per-split partials merged by the combine's
+    formulas equal the plain version for every split size 1..n (and the
+    JAX oracle on the rows it defines: active, no -1 inside the span);
+    empty splits give no NaN and a length-0 row gives zeros."""
+    n, page, d, p_phys = 7, 4, 16, 40
+    rng = np.random.default_rng(h * 10 + window)
+    q = rng.standard_normal((4, h, d)).astype(np.float32)
+    kp = rng.standard_normal((p_phys, page, kv, d)).astype(np.float32)
+    vp = rng.standard_normal((p_phys, page, kv, d)).astype(np.float32)
+    pt = rng.permutation(p_phys)[: 4 * n].reshape(4, n).astype(np.int32)
+    for row, length in enumerate(lengths):
+        pt[row, -(-length // page):] = -1
+    for row, pg in holes:
+        pt[row, pg] = -1
+    ln = np.asarray(lengths, np.int32)
+    tq, tk, tv, tt, tl = _t(q, kp, vp, pt, ln)
+    kw = dict(window=window, softcap=softcap)
+    ref_o, ref_m = tpa.paged_attention_plain(tq, tk, tv, tt, tl, **kw)
+    jo, jm = rref.paged_attention_ref(*_j(q, kp, vp, np.maximum(pt, 0), ln),
+                                      return_mass=True, **kw)
+    rows = [r for r, length in enumerate(lengths)
+            if length > 0 and all(hr != r for hr, _ in holes)]
+    span = n if window <= 0 else min(n, -(-window // page) + 1)
+    for pps in range(1, n + 1):
+        out, mass = _split_emulation(tq, tk, tv, tt, tl, pps=pps,
+                                     splits=-(-span // pps), **kw)
+        assert torch.isfinite(out).all() and torch.isfinite(mass).all()
+        torch.testing.assert_close(out, ref_o, atol=1e-5, rtol=0)
+        torch.testing.assert_close(mass, ref_m, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out.numpy()[rows], np.asarray(jo)[rows],
+                                   atol=1e-5)
+        np.testing.assert_allclose(mass.numpy()[rows], np.asarray(jm)[rows],
+                                   atol=1e-5)
+        dead = [r for r, length in enumerate(lengths) if length == 0]
+        assert torch.count_nonzero(out[dead]) == 0
+        assert torch.count_nonzero(mass[dead]) == 0
+
+
+@pytest.mark.parametrize("n,window,page,b,kv", [
+    (64, 0, 16, 4, 8), (128, 1024, 16, 4, 8), (50, 0, 16, 4, 8),
+    (128, 1000, 16, 4, 8), (7, 6, 4, 4, 2), (12, 3, 4, 3, 4),
+    (300, 0, 16, 1, 1), (2048, 0, 16, 64, 8)])
+def test_split_plan_covers_each_visited_page_once(n, window, page, b, kv):
+    """One plan, made from the shapes alone, serves every length: the
+    splits' runs cover each row's visited pages [lo, hi) exactly once and
+    no run holds a page past them or more than MAX_PAGES_PER_SPLIT."""
+    assert "lengths" not in inspect.signature(tpa.split_plan).parameters
+    pps, splits = tpa.split_plan(n, window, page, b, kv)
+    assert 1 <= pps <= tpa.MAX_PAGES_PER_SPLIT
+    for length in range(0, n * page + 1, max(1, page // 3)):
+        lo, hi = _visited(length, window, page, n)
+        covered = []
+        for p0, p1 in _runs(length, window, page, n, pps, splits):
+            assert p1 - p0 <= pps
+            covered += range(p0, p1)
+        assert covered == list(range(lo, hi)), (length, pps, splits)
+
+
+@pytest.mark.parametrize("model,n,window", [("qwen3-14b", 64, 0),
+                                            ("gemma3-12b", 128, 1024)])
+def test_split_plan_fills_the_card_at_served_shapes(model, n, window):
+    """At both served decode shapes (B=4, KV=8, page 16) the grid holds at
+    least 2 x 132 blocks, and a windowed layer launches no more splits
+    than its span (ceil(1024 / 16) + 1 = 65 pages) can fill."""
+    pps, splits = tpa.split_plan(n, window, 16, 4, 8)
+    assert 4 * 8 * splits >= 2 * 132
+    span = n if not window else -(-window // 16) + 1
+    assert splits == -(-span // pps)
