@@ -44,11 +44,17 @@ non-zero):
      ``baseline_trials_all`` for backprop, lud and kmeans under both
      schedulers, held to the bars of tests/test_claims.py, with the
      kernels' launch counts (one ``page_hist`` per study, one ``sim_scan``
-     per ``simulate`` and per candidate chunk of each ``sweep``);
+     per ``simulate`` and per ``sweep_launches`` entry of each ``sweep``:
+     one launch a sweep at these sizes);
   9. timing of the offline kernels at the main-path shapes: ``page_hist``
-     at backprop's ``bin_trace`` shape and ``sim_scan`` over backprop's
-     whole exhaustive sweep, beside their plain versions, a library
-     yardstick where one exists and their bounds;
+     at backprop's ``bin_trace`` shape, beside its plain version,
+     ``torch.bincount`` and its bound; ``sim_scan`` over backprop's whole
+     exhaustive sweep (reactive) as ``sweep`` launches it (one
+     ``sim_scan_rows`` launch of 75 candidates), beside the per-chunk loop
+     of ``sim_scan`` launches (11), the longest candidate alone (us per
+     serial period), the plain sweep, the bytes bound and the serial
+     path's length in periods; the one-launch results bit-equal to the
+     plain sweep's and the loop's;
  10. the MLA kernel ``paged_attention_mla`` vs its plain version on the
      card: the main-path shape (128 heads, kv_lora 512, rope 64) and a
      grid over 16 and 128 heads, ragged -1 rows and a length-0 row,
@@ -773,7 +779,7 @@ def phase_offline_pipeline(sim, pipeline, traces, kernels, ph, ss) -> dict:
     print("== phase 8: the paper's offline Cori pipeline at full size",
           flush=True)
     apps, scheds = ("backprop", "lud", "kmeans"), ("reactive", "predictive")
-    calls = {"simulate": 0, "chunks": 0}
+    calls = {"simulate": 0, "sweep": 0}
     simulate, sweep = sim.simulate, sim.sweep
 
     def counting_simulate(*args, **kw):
@@ -781,7 +787,7 @@ def phase_offline_pipeline(sim, pipeline, traces, kernels, ph, ss) -> dict:
         return simulate(*args, **kw)
 
     def counting_sweep(bins, periods, *args, **kw):
-        calls["chunks"] += len(sim.sweep_plan(bins, periods))
+        calls["sweep"] += len(sim.sweep_launches(bins, periods))
         return sweep(bins, periods, *args, **kw)
 
     sim.simulate, sim.sweep = counting_simulate, counting_sweep
@@ -791,18 +797,18 @@ def phase_offline_pipeline(sim, pipeline, traces, kernels, ph, ss) -> dict:
         for app in apps:
             for sched in scheds:
                 _reset_counts(kernels)
-                calls.update(simulate=0, chunks=0)
+                calls.update(simulate=0, sweep=0)
                 torch.cuda.synchronize()
                 t0 = time.monotonic()
                 st = pipeline.study(app, sched)
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
                 n_ph, n_ss = ph.page_hist.launches, ss.sim_scan.launches
-                expect = calls["simulate"] + calls["chunks"]
+                expect = calls["simulate"] + calls["sweep"]
                 if n_ph != 1 or n_ss != expect:
                     _fail(f"{app}/{sched}: launches page_hist {n_ph} (want "
                           f"1), sim_scan {n_ss} (want {calls['simulate']} "
-                          f"simulate + {calls['chunks']} sweep chunks)")
+                          f"simulate + {calls['sweep']} sweep launches)")
                 total["page_hist"] += n_ph
                 total["sim_scan"] += n_ss
                 studies[(app, sched)] = st
@@ -818,7 +824,7 @@ def phase_offline_pipeline(sim, pipeline, traces, kernels, ph, ss) -> dict:
                       f"worst Table-I gap {gaps[worst] * 100:.1f}% ({worst}); "
                       f"study wall {wall:.2f} s; launches page_hist {n_ph}, "
                       f"sim_scan {n_ss} = {calls['simulate']} simulate + "
-                      f"{calls['chunks']} sweep chunks", flush=True)
+                      f"{calls['sweep']} sweep launch(es)", flush=True)
             bins = sim.bin_trace(traces.generate(app))
             for sched in scheds:
                 t0 = time.monotonic()
@@ -909,41 +915,81 @@ def phase_offline_timing(ph, ss, sim, traces, kernels) -> dict:
     cfg = sim.SimConfig()
     kw = _scan_kw(sim, cfg, n, "reactive")
     init = torch.from_numpy(sim._interleaved_init(n, kw["capacity"])).to(DEV)
-    stacks = _sweep_stacks(sim, bins, sim.exhaustive_periods(bins, 96))
+    periods = sim.exhaustive_periods(bins, 96)
+    stacks = _sweep_stacks(sim, bins, periods)
+    groups = list(sim.sweep_groups(bins, periods))
+    longest = min(stacks, key=lambda st: min(st[0]))
+    one = longest[1][:1].contiguous()              # its candidate alone
+    one_nr = longest[2][:1].contiguous()
 
-    def kernel_sweep():
-        for _, stack, nreals in stacks:
-            ss.sim_scan(stack, nreals, init, **kw)
+    def one_launch():                  # the sweep as ``sim.sweep`` runs it
+        return [ss.sim_scan_rows(rows, starts, nreals, init, **kw)
+                for _, rows, starts, nreals in groups]
+
+    def loop_sweep():                  # one launch per ``sweep_plan`` chunk
+        return [ss.sim_scan(stack, nreals, init, **kw)
+                for _, stack, nreals in stacks]
 
     def plain_sweep():
-        for _, stack, nreals in stacks:
-            ss.sim_scan_plain(stack, nreals, init, **kw)
+        return [ss.sim_scan_plain(stack, nreals, init, **kw)
+                for _, stack, nreals in stacks]
 
-    kernel_sweep()
-    sweep_ms = [_time_once(kernel_sweep, flush) for _ in range(3)]
-    plain_sweep_ms = _time_once(plain_sweep, flush)
-    real = sum(int(nr.sum()) for _, _, nr in stacks)
-    cands = sum(len(ks) for ks, _, _ in stacks)
-    serial = max(int(nr.max()) for _, _, nr in stacks)
-    serial_sum = sum(int(nr.max()) for _, _, nr in stacks)
-    nbytes = real * n * 4 + n + cands * (4 + 3 * 4)
+    def by_k(out, ks_of):
+        res = {}
+        for ks, (rt, sw, fh) in zip(ks_of, out):
+            for j, k in enumerate(ks):
+                res[k] = (rt[j].item(), sw[j].item(), fh[j].item())
+        return res
+
+    got = by_k(one_launch(), [g[0] for g in groups])
+    loop = by_k(loop_sweep(), [st[0] for st in stacks])
+    plain_out = []
+    plain_sweep_ms = _time_once(lambda: plain_out.append(plain_sweep()),
+                                flush)
+    plain = by_k(plain_out[0], [st[0] for st in stacks])
+    same_plain = bool(got) and got == plain
+    same_loop = got == loop
+    one_ms = [_time_once(one_launch, flush) for _ in range(3)]
+    loop_ms = [_time_once(loop_sweep, flush) for _ in range(3)]
+    alone_ms = [_time_once(lambda: ss.sim_scan(one, one_nr, init, **kw),
+                           flush) for _ in range(3)]
+    real = sum(sum(g[3]) for g in groups)
+    cands = sum(len(g[0]) for g in groups)
+    serial = max(max(g[3]) for g in groups)      # one launch: the longest
+    serial_loop = sum(int(nr.max()) for _, _, nr in stacks)
+    nbytes = real * n * 4 + n + cands * (4 + 8 + 3 * 4)
     flops = 10 * real * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
-    scan = dict(ms=float(np.mean(sweep_ms)), plain_ms=plain_sweep_ms,
-                library_ms=None, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"sim_scan over backprop's exhaustive sweep (reactive): "
-          f"{len(stacks)} launches, {cands} candidates, {real} real period "
-          f"rows of {n} pages; longest candidate {serial} periods, "
-          f"{serial_sum} periods on the launches' serial paths: kernel "
-          f"{scan['ms']:.3f} ms (runs {[round(t, 3) for t in sweep_ms]}; "
-          f"{scan['ms'] * 1e3 / serial_sum:.2f} us per serial period), "
-          f"plain {plain_sweep_ms:.1f} ms, library none, bound "
+    ms = float(np.mean(one_ms))
+    scan = dict(ms=ms, plain_ms=plain_sweep_ms, library_ms=None,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                launches_per_sweep=len(groups),
+                loop_ms=float(np.mean(loop_ms)), loop_launches=len(stacks),
+                longest_ms=float(np.mean(alone_ms)), serial_periods=serial,
+                loop_serial_periods=serial_loop,
+                us_per_period=float(np.mean(alone_ms)) * 1e3 / serial)
+    print(f"sim_scan over backprop's exhaustive sweep (reactive): {cands} "
+          f"candidates, {real} real period rows of {n} pages.  One launch "
+          f"as sim.sweep runs it ({len(groups)} launch(es), serial path "
+          f"{serial} periods): {ms:.3f} ms (runs "
+          f"{[round(t, 3) for t in one_ms]}); the {len(stacks)}-launch "
+          f"per-chunk loop (serial path {serial_loop} periods): "
+          f"{scan['loop_ms']:.3f} ms (runs "
+          f"{[round(t, 3) for t in loop_ms]}); the longest candidate alone "
+          f"({serial} periods): {scan['longest_ms']:.3f} ms = "
+          f"{scan['us_per_period']:.3f} us per serial period; plain "
+          f"{plain_sweep_ms:.1f} ms; library none; bound "
           f"{scan['bound_ms']:.4f} ms ({scan['bound_by']}: "
           f"{nbytes / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e9:.2f} GFLOP at "
-          f"67 TFLOP/s) -> {scan['bound_ms'] / scan['ms'] * 100:.2f}% of "
-          f"the bound", flush=True)
+          f"67 TFLOP/s) -> {scan['bound_ms'] / ms * 100:.2f}% of the bound "
+          f"in one launch, {scan['bound_ms'] / scan['loop_ms'] * 100:.2f}% "
+          f"in the loop; one launch bit-equal to the plain sweep "
+          f"{same_plain}, to the per-chunk loop {same_loop}", flush=True)
+    if not (same_plain and same_loop):
+        _fail("the one-launch sweep differs from the plain sweep or the "
+              "per-chunk loop")
     for k in kernels:                          # timing launches not counted
         getattr(k, k.NAME).launches = before[k.NAME]
     return dict(page_hist=hist, sim_scan=scan)

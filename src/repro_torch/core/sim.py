@@ -15,12 +15,14 @@ The trace is binned once into fixed-size blocks (``bin_trace``, one
 the device.  ``simulate`` and ``sweep`` run on the device of
 ``bins.block_hist``: each candidate period's histogram is aggregated there
 and scanned by the ``sim_scan`` kernel (its plain version on the CPU) --
-``simulate`` is one launch with one candidate, ``sweep`` one launch per
-chunk of candidates that share a pow2-padded period count.
+``simulate`` is one launch with one candidate; ``sweep`` hands all its
+candidates' period rows to one launch (``sweep_groups``: more only where
+they exceed ``SWEEP_CHUNK_ELEMS``) and reads the results back once.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import weakref
 from typing import Dict, List, Tuple
 
@@ -30,7 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.traces import Trace
 from repro_torch.kernels import ops
-from repro_torch.kernels.sim_step import sim_scan
+from repro_torch.kernels.sim_step import sim_scan, sim_scan_rows
 
 __all__ = [
     "SimConfig",
@@ -42,6 +44,8 @@ __all__ = [
     "sweep_loop",
     "sweep_plan",
     "sweep_stacks",
+    "sweep_launches",
+    "sweep_groups",
     "exhaustive_periods",
     "simulate_reference",
     "interleaved_indices",
@@ -59,8 +63,9 @@ DEFAULT_BLOCK = 100
 # aggregates each candidate by a reshape-sum instead.
 EXACT_CUMSUM_LIMIT = 2 ** 24
 
-# Candidate stacks are chunked so a single [C, P, num_pages] stack never
-# exceeds this many float32 elements (~256 MB).
+# The period rows alive at once for one ``sweep`` launch (and one
+# ``sweep_stacks`` chunk) stay within this many float32 elements (~256 MB),
+# unless one candidate alone needs more.
 SWEEP_CHUNK_ELEMS = 64 * 1024 * 1024
 
 
@@ -181,20 +186,25 @@ def _interleaved_init(num_pages: int, capacity: int) -> np.ndarray:
 
 
 def _scan(bins: TraceBins, stack: torch.Tensor, nreals: List[int],
-          scheduler: str, cfg: SimConfig) -> List[List[float]]:
-    """One ``sim_scan`` launch over a [C, P, n] stack; returns the
-    (runtimes, swaps, hits) lists, read back together."""
+          scheduler: str, cfg: SimConfig, starts=None) -> List[List[float]]:
+    """One ``sim_scan`` launch over a [C, P, n] stack, or with ``starts``
+    one ``sim_scan_rows`` launch over [R, n] rows; returns the (runtimes,
+    swaps, hits) lists, read back together."""
     dev = stack.device
     capacity = cfg.fast_capacity(bins.num_pages)
     init_fast = torch.from_numpy(_interleaved_init(bins.num_pages,
                                                    capacity)).to(dev)
-    out = sim_scan(stack, torch.tensor(nreals, dtype=torch.int32, device=dev),
-                   init_fast, predictive=(scheduler == "predictive"),
-                   capacity=capacity, lat_fast=cfg.lat_fast,
-                   lat_slow=cfg.lat_slow, bw_slow=cfg.bw_slow,
-                   bw_penalty=cfg.bw_penalty, mig_cost=cfg.mig_cost,
-                   period_overhead=cfg.period_overhead(bins.num_pages),
-                   ema_alpha=cfg.ema_alpha)
+    kw = dict(predictive=(scheduler == "predictive"), capacity=capacity,
+              lat_fast=cfg.lat_fast, lat_slow=cfg.lat_slow,
+              bw_slow=cfg.bw_slow, bw_penalty=cfg.bw_penalty,
+              mig_cost=cfg.mig_cost,
+              period_overhead=cfg.period_overhead(bins.num_pages),
+              ema_alpha=cfg.ema_alpha)
+    if starts is None:
+        out = sim_scan(stack, torch.tensor(nreals, dtype=torch.int32,
+                                           device=dev), init_fast, **kw)
+    else:
+        out = sim_scan_rows(stack, starts, nreals, init_fast, **kw)
     return torch.stack(out).tolist()
 
 
@@ -276,10 +286,12 @@ def _device_period_hists(bins: TraceBins, ks
 
 
 def sweep_plan(bins: TraceBins, periods) -> List[Tuple[int, List[int]]]:
-    """How ``sweep`` batches ``periods``: a list of ``(p2, ks)`` chunks, one
-    ``sim_scan`` launch each.  Candidates (block counts ``ks``) whose
-    pow2-padded period counts coincide share a stack; a stack holds at most
-    ``SWEEP_CHUNK_ELEMS`` float32 elements."""
+    """A batching of ``periods`` into stacks that ``sim_scan`` takes: a
+    list of ``(p2, ks)`` chunks, one launch each.  Candidates (block counts
+    ``ks``) whose pow2-padded period counts coincide share a stack; a stack
+    holds at most ``SWEEP_CHUNK_ELEMS`` float32 elements.  ``sweep`` itself
+    launches ``sweep_groups``; the chunks are the per-chunk route it is
+    held to."""
     ks = sorted({max(1, int(round(int(p) / bins.block))) for p in periods})
     groups: Dict[int, List[int]] = {}
     for k in ks:
@@ -293,7 +305,7 @@ def sweep_plan(bins: TraceBins, periods) -> List[Tuple[int, List[int]]]:
 
 
 def sweep_stacks(bins: TraceBins, periods):
-    """The candidate stacks ``sweep`` scans, one per ``sweep_plan`` chunk:
+    """The candidate stacks of the ``sweep_plan`` chunks, one per chunk:
     yields ``(ks, stack, nreals)`` with ``stack`` a float32 [C, p2,
     num_pages] tensor on the bins' device (each candidate's period rows,
     aggregated there by `_device_period_hists`, zero-padded to the chunk's
@@ -309,18 +321,54 @@ def sweep_stacks(bins: TraceBins, periods):
         yield ks, stack, [hists[k][1] for k in ks]
 
 
+def sweep_launches(bins: TraceBins, periods) -> List[List[int]]:
+    """How ``sweep`` launches ``periods``: the candidates (block counts)
+    of each ``sim_scan_rows`` launch, longest first.  One launch takes
+    candidates while their real period rows stay within
+    ``SWEEP_CHUNK_ELEMS`` elements, so a sweep at realistic sizes is one
+    launch (a candidate that alone needs more gets a launch of its own)."""
+    ks = sorted({max(1, int(round(int(p) / bins.block))) for p in periods})
+    launches: List[List[int]] = []
+    used = 0
+    for k in ks:
+        elems = -(-bins.num_blocks // k) * bins.num_pages
+        if not launches or used + elems > SWEEP_CHUNK_ELEMS:
+            launches.append([])
+            used = 0
+        launches[-1].append(k)
+        used += elems
+    return launches
+
+
+def sweep_groups(bins: TraceBins, periods):
+    """The rows ``sweep`` scans, one group per ``sweep_launches`` entry:
+    yields ``(ks, rows, starts, nreals)`` with ``rows`` a float32 [R,
+    num_pages] tensor on the bins' device holding each candidate's real
+    period rows back to back (aggregated there by `_device_period_hists`;
+    no padding), candidate j's at ``rows[starts[j]: starts[j] +
+    nreals[j]]``."""
+    for ks in sweep_launches(bins, periods):
+        hists = _device_period_hists(bins, ks)
+        nreals = [hists[k][1] for k in ks]
+        starts = list(itertools.accumulate([0] + nreals[:-1]))
+        rows = torch.cat([hists[k][0] for k in ks])
+        del hists
+        yield ks, rows, starts, nreals
+
+
 def sweep(bins: TraceBins, periods, scheduler: str = "reactive",
           cfg: SimConfig = SimConfig()) -> Dict[int, SimResult]:
     """Simulate a set of candidate periods (requests) in one batched pass:
-    each of ``sweep_stacks``' chunks is driven through one ``sim_scan``
-    launch.  Results match `sweep_loop` exactly -- same per-period math,
-    padded periods skipped by each candidate's real count."""
+    each of ``sweep_groups``' groups -- at realistic sizes the whole set --
+    is driven through one ``sim_scan_rows`` launch and read back once.
+    Results match `sweep_loop` exactly -- same per-period math, each
+    candidate scanning its own real periods."""
     if scheduler not in SCHEDULERS:
         raise ValueError(f"scheduler must be one of {SCHEDULERS}")
     out: Dict[int, SimResult] = {}
-    for chunk, stack, nreals in sweep_stacks(bins, periods):
-        rts, swaps, hits = _scan(bins, stack, nreals, scheduler, cfg)
-        for i, k in enumerate(chunk):
+    for ks, rows, starts, nreals in sweep_groups(bins, periods):
+        rts, swaps, hits = _scan(bins, rows, nreals, scheduler, cfg, starts)
+        for i, k in enumerate(ks):
             out[k * bins.block] = SimResult(
                 runtime=rts[i], data_moved_pages=swaps[i] * 2.0,
                 migrations=swaps[i], fast_hits=hits[i],

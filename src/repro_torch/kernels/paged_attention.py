@@ -87,6 +87,9 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, lengths, *,
     b, h, d = q.shape
     n_phys, page, kvh, _ = k_pages.shape
     n = page_table.shape[1]
+    if n == 0:        # nothing to attend to: zeros, as the reference oracle
+        return (torch.zeros_like(q),
+                torch.zeros((b, 0), dtype=torch.float32, device=q.device))
     rep = h // kvh
     table = page_table.long()
     mapped = (table >= 0) & (table < n_phys)
@@ -151,9 +154,10 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
                          f"dims up to {MAX_HEAD_DIM} whose rows are a "
                          "multiple of 16 bytes, in 16-byte aligned pools "
                          f"(got D={d} in {k_pages.dtype})")
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or n == 0:
-        return out, torch.zeros((b, n), dtype=torch.float32, device=q.device)
+        return (torch.zeros((b, h, d), dtype=q.dtype, device=q.device),
+                torch.zeros((b, n), dtype=torch.float32, device=q.device))
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     mass = torch.empty((b, n), dtype=torch.float32, device=q.device)
     pps, splits = split_plan(n, int(window), page, b, kvh)
     # scratch: part_acc [B, H, splits, D], part_m and part_l [B, H,

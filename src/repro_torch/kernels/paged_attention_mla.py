@@ -64,6 +64,10 @@ def paged_attention_mla_plain(q_abs, q_rope, ckv_pages, krope_pages,
     b, h, rdim = q_abs.shape
     n_phys, page, _ = ckv_pages.shape
     n = page_table.shape[1]
+    if n == 0:        # nothing to attend to: zeros, as the k/v kernel
+        return (torch.zeros_like(q_abs),
+                torch.zeros((b, 0), dtype=torch.float32,
+                            device=q_abs.device))
     table = page_table.long()
     mapped = (table >= 0) & (table < n_phys)
     idx = table.clamp(0, n_phys - 1)
@@ -132,11 +136,13 @@ def paged_attention_mla(q_abs, q_rope, ckv_pages, krope_pages, page_table,
         raise ValueError("paged_attention_mla needs 16-byte aligned pools "
                          "whose pages span a multiple of 16 bytes (page * R "
                          "and page * K elements)")
+    if b == 0 or n == 0 or h == 0:
+        return (torch.zeros((b, h, rdim), dtype=q_abs.dtype,
+                            device=q_abs.device),
+                torch.zeros((b, n), dtype=torch.float32,
+                            device=q_abs.device))
     out = torch.empty((b, h, rdim), dtype=q_abs.dtype, device=q_abs.device)
     mass = torch.empty((b, n), dtype=torch.float32, device=q_abs.device)
-    if b == 0 or n == 0 or h == 0:
-        mass.zero_()
-        return out, mass
     f32 = dict(dtype=torch.float32, device=q_abs.device)
     m_page = torch.empty((b, h, n), **f32)
     s_page = torch.empty((b, h, n), **f32)

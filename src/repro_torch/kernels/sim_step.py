@@ -1,17 +1,23 @@
-"""The hybrid-memory simulator's period scan over a candidate stack.
+"""The hybrid-memory simulator's period scan over a candidate set.
 
 The port of the TPU kernel ``repro/kernels/sim_step.py::sim_scan``
 (Pallas body ``_kernel``): a hand-written CUDA kernel for Hopper
-(``csrc/sim_scan.cu``: one CTA per candidate, the scan carry in shared
-memory, top-``capacity`` placement by a shared-memory radix select; built
-for ``sm_90a`` with ``nvcc -fmad=false`` at first use and bound through
-``ctypes``), and beside it ``sim_scan_plain``, a plain PyTorch version of
-the same function.
+(``csrc/sim_scan.cu``: one CTA per candidate, each thread holding a run
+of pages' carry and the next period's counts in registers, top-
+``capacity`` placement by a radix select with one barrier a pass that
+usually needs two passes; built for ``sm_90a`` with ``nvcc -fmad=false``
+at first use and bound through ``ctypes``), and beside it
+``sim_scan_plain``, a plain PyTorch version of the same function.
 
-``sim_scan`` dispatches on the device of its inputs: a CPU tensor goes to
-the plain version, a CUDA tensor goes to the kernel, and anything the
-kernel does not take raises -- there is no fallback.  Every kernel launch
-adds one to ``sim_scan.launches``.
+Two entry points launch the kernel.  ``sim_scan`` scans a stack [C, P, n]
+(candidate c's rows zero-padded past ``num_reals[c]``); ``sim_scan_rows``
+scans candidates of different lengths in one launch, candidate c taking
+rows ``[starts[c], starts[c] + num_reals[c])`` of one [R, n] array (how
+``core.sim.sweep`` hands a whole sweep to one launch).  Both dispatch on
+the device of their inputs: a CPU tensor goes to the plain version, a
+CUDA tensor goes to the kernel, and anything the kernel does not take
+raises -- there is no fallback.  Every kernel launch adds one to
+``sim_scan.launches``.
 
 Semantics (``repro/core/sim.py::_scan_one``, vmapped): period_hists
 float32 [C, P, n] (candidate c's per-period page counts, zero-padded past
@@ -51,14 +57,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["sim_scan", "sim_scan_plain", "MAX_PAGES"]
+__all__ = ["sim_scan", "sim_scan_plain", "sim_scan_rows",
+           "sim_scan_rows_plain", "MAX_PAGES"]
 
 NAME = "sim_scan"
 # -fmad=false: no multiply-add contraction, the bits must match the plain
 # version's separate multiplies and adds (the source also uses __f*_rn).
 NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",)
-# 13 bytes of shared memory per page (placement, hotness, last access,
-# selection key): 208 KB of the 227 KB a block may use.
+# 512 threads x runs of at most 32 pages (the kernel's largest instance
+# keeps hotness, last access and keys in 192 KB of shared memory).
 MAX_PAGES = 16 * 1024
 _lib = None
 
@@ -68,7 +75,8 @@ def _load():
     if _lib is None:
         lib = _build.load(NAME, NVCC_FLAGS)
         fn = lib.sim_scan_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_float] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -159,6 +167,57 @@ def sim_scan_plain(period_hists, num_reals, init_fast, *, predictive: bool,
     return acc[0], acc[1], acc[2]
 
 
+def sim_scan_rows_plain(rows, starts, num_reals, init_fast, **kw):
+    """Plain version of ``sim_scan_rows``: each candidate's rows gathered
+    into a zero-padded [C, max(num_reals), n] stack for
+    ``sim_scan_plain``."""
+    c, n = len(starts), rows.shape[1]
+    p = max(num_reals, default=0)
+    stack = rows.new_zeros((c, p, n))
+    for j, (s, r) in enumerate(zip(starts, num_reals)):
+        stack[j, :r] = rows[s: s + r]
+    return sim_scan_plain(stack, torch.tensor(list(num_reals),
+                                              dtype=torch.int32),
+                          init_fast, **kw)
+
+
+def _check(hists, init_fast, n, capacity):
+    """The checks both entry points make before a launch."""
+    if hists.dtype != torch.float32 or init_fast.dtype != torch.bool:
+        raise TypeError(f"period rows float32 and init_fast bool (got "
+                        f"{hists.dtype}, {init_fast.dtype})")
+    if tuple(init_fast.shape) != (n,):
+        raise ValueError(f"init_fast must be [{n}]")
+    if init_fast.device != hists.device:
+        raise ValueError("all inputs must be on one CUDA device")
+    if not (hists.is_contiguous() and init_fast.is_contiguous()):
+        raise ValueError("sim_scan needs contiguous inputs")
+    if n > MAX_PAGES:
+        raise ValueError(f"sim_scan holds at most {MAX_PAGES} pages a "
+                         f"candidate, got {n}")
+    if not 1 <= capacity <= n:
+        raise ValueError(f"capacity must be in [1, {n}], got {capacity}")
+
+
+def _launch(hists, row_start, num_reals, max_periods, init_fast, c, n, kw):
+    """One kernel launch over ``c`` candidates; returns (runtime, swaps,
+    fast_hits)."""
+    out = torch.zeros((3, c), dtype=torch.float32, device=hists.device)
+    err = _load().sim_scan_launch(
+        hists.data_ptr(), row_start, num_reals.data_ptr(), max_periods,
+        init_fast.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), c, n, int(kw["capacity"]),
+        int(bool(kw["predictive"])),
+        *_costs(kw["lat_fast"], kw["lat_slow"], kw["bw_slow"],
+                kw["bw_penalty"], kw["mig_cost"], kw["period_overhead"],
+                kw["ema_alpha"]),
+        torch.cuda.current_stream(hists.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sim_scan kernel launch failed: CUDA error {err}")
+    sim_scan.launches += 1
+    return out[0], out[1], out[2]
+
+
 def sim_scan(period_hists, num_reals, init_fast, *, predictive: bool,
              capacity: int, lat_fast, lat_slow, bw_slow, bw_penalty,
              mig_cost, period_overhead, ema_alpha):
@@ -178,39 +237,60 @@ def sim_scan(period_hists, num_reals, init_fast, *, predictive: bool,
         raise ValueError("period_hists must be [C, P, n]: "
                          f"{tuple(period_hists.shape)}")
     c, p, n = period_hists.shape
-    if tuple(num_reals.shape) != (c,) or tuple(init_fast.shape) != (n,):
+    if tuple(num_reals.shape) != (c,):
         raise ValueError("num_reals must be [C] and init_fast [n]")
-    if period_hists.dtype != torch.float32 or num_reals.dtype != torch.int32 \
-            or init_fast.dtype != torch.bool:
-        raise TypeError("period_hists float32, num_reals int32 and init_fast "
-                        f"bool (got {period_hists.dtype}, {num_reals.dtype}, "
-                        f"{init_fast.dtype})")
-    tensors = (period_hists, num_reals, init_fast)
-    if any(t.device != period_hists.device for t in tensors):
-        raise ValueError("all inputs must be on one CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("sim_scan needs contiguous inputs")
-    if n > MAX_PAGES:
-        raise ValueError(f"sim_scan holds at most {MAX_PAGES} pages in "
-                         f"shared memory, got {n}")
-    if not 1 <= capacity <= n:
-        raise ValueError(f"capacity must be in [1, {n}], got {capacity}")
+    if num_reals.dtype != torch.int32:
+        raise TypeError(f"num_reals must be int32, got {num_reals.dtype}")
+    if num_reals.device != period_hists.device \
+            or not num_reals.is_contiguous():
+        raise ValueError("all inputs must be contiguous, on one CUDA device")
+    _check(period_hists, init_fast, n, capacity)
     if p >= 2 ** 24:
         raise ValueError(f"{p} periods overflow the float32 period index")
-    out = torch.zeros((3, c), dtype=torch.float32, device=period_hists.device)
-    if c and p:
-        err = _load().sim_scan_launch(
-            period_hists.data_ptr(), num_reals.data_ptr(),
-            init_fast.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), c, p, n, int(capacity), int(bool(predictive)),
-            *_costs(lat_fast, lat_slow, bw_slow, bw_penalty, mig_cost,
-                    period_overhead, ema_alpha),
-            torch.cuda.current_stream(period_hists.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"sim_scan kernel launch failed: CUDA error "
-                               f"{err}")
-        sim_scan.launches += 1
-    return out[0], out[1], out[2]
+    if not (c and p):
+        return tuple(torch.zeros((3, c), dtype=torch.float32,
+                                 device=period_hists.device))
+    return _launch(period_hists, None, num_reals, p, init_fast, c, n, kw)
+
+
+def sim_scan_rows(rows, starts, num_reals, init_fast, *, predictive: bool,
+                  capacity: int, lat_fast, lat_slow, bw_slow, bw_penalty,
+                  mig_cost, period_overhead, ema_alpha):
+    """Candidates of different lengths in one launch: candidate c scans
+    ``rows[starts[c]: starts[c] + num_reals[c]]`` of ``rows`` float32
+    [R, n] (``starts`` and ``num_reals`` are sequences of ints).  Returns
+    (runtime, swaps, fast_hits) float32 [C].  CPU tensors take
+    ``sim_scan_rows_plain``; CUDA tensors launch the kernel once."""
+    kw = dict(predictive=predictive, capacity=capacity, lat_fast=lat_fast,
+              lat_slow=lat_slow, bw_slow=bw_slow, bw_penalty=bw_penalty,
+              mig_cost=mig_cost, period_overhead=period_overhead,
+              ema_alpha=ema_alpha)
+    starts, num_reals = [int(s) for s in starts], [int(r) for r in num_reals]
+    if len(starts) != len(num_reals):
+        raise ValueError("starts and num_reals must have one entry a "
+                         "candidate")
+    if rows.dim() != 2:
+        raise ValueError(f"rows must be [R, n]: {tuple(rows.shape)}")
+    r_all, n = rows.shape
+    if any(s < 0 or r < 0 or s + r > r_all for s, r in zip(starts,
+                                                            num_reals)):
+        raise ValueError(f"candidate rows outside the {r_all} rows given")
+    if any(r >= 2 ** 24 for r in num_reals):
+        raise ValueError("2**24 periods overflow the float32 period index")
+    if rows.device.type == "cpu":
+        return sim_scan_rows_plain(rows, starts, num_reals, init_fast, **kw)
+    if rows.device.type != "cuda":
+        raise ValueError(f"sim_scan runs on cpu or cuda, not {rows.device}")
+    _check(rows, init_fast, n, capacity)
+    c = len(starts)
+    if not (c and max(num_reals)):
+        return tuple(torch.zeros((3, c), dtype=torch.float32,
+                                 device=rows.device))
+    meta = torch.tensor(starts + num_reals, dtype=torch.int64) \
+        .to(rows.device, non_blocking=True)
+    nreals = meta[c:].to(torch.int32)
+    return _launch(rows, meta.data_ptr(), nreals, 2 ** 31 - 1, init_fast, c,
+                   n, kw)
 
 
 sim_scan.launches = 0

@@ -33,6 +33,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers as L
 from repro_torch.models.config import LayerKind, ModelConfig, parse_kind
 from repro_torch.models.moe import MoE, moe_apply
@@ -78,6 +79,11 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: attention_impl='pallas' cannot take "
                 "softcap > 0 (the flash kernel has no soft-capping)")
+        if cfg.head_dim not in HEAD_DIMS:
+            raise NotImplementedError(
+                f"{cfg.name}: attention_impl='pallas' cannot take head dim "
+                f"{cfg.head_dim} (the flash kernel takes HEAD_DIMS "
+                f"{HEAD_DIMS})")
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ at the kernel's usual shapes and at the edges of its split over pages;
 ``flash_attention`` 2e-5 in float32 up to 512 keys, 1e-4 beyond (longer
 sums in another order), 2e-2 in bfloat16; ``page_hist`` and ``sim_scan`` are
 bit-equal to their plain versions (the kernels round where the plain
-versions round)."""
+versions round), ``sim_scan`` at every run length of pages a thread it
+instantiates and in one launch over candidates of different lengths."""
 import pytest
 import torch
 
@@ -191,6 +192,79 @@ def test_sim_scan_kernel_matches_plain(predictive, c, p, n, hi):
         assert torch.equal(a, b), (a, b)
 
 
+def _interleaved(n, capacity, dev):
+    init = torch.zeros((n,), dtype=torch.bool, device=dev)
+    init[(torch.arange(capacity, device=dev) * n) // capacity] = True
+    return init
+
+
+# (n, capacity, counts in [0, hi)): 16 pages a thread; runs of 8 with one
+# page in the last; one page short of a full block at a page a thread;
+# capacity 1 and n; all-zero counts (every key ties but the 0.5 bonus)
+SIM_EDGES = [(16384, None, 4), (4097, None, 3), (1023, None, 5),
+             (4096, 1, 3), (4096, 4096, 3), (4096, None, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("predictive", [False, True])
+@pytest.mark.parametrize("n,capacity,hi", SIM_EDGES)
+def test_sim_scan_kernel_edges(predictive, n, capacity, hi):
+    """Bit-equal to the plain version at every run length the kernel
+    instantiates, at capacity 1 and n, over all-zero period rows, and two
+    calls on the same inputs bit-identical."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(n + (capacity or 0) + hi)
+    c, p = 3, 24
+    hists = torch.randint(0, max(hi, 1), (c, p, n), generator=g,
+                          device=dev).float()
+    hists[:, 5] = 0
+    nreals = torch.tensor([p, p - 5, 1], dtype=torch.int32, device=dev)
+    kw = _sim_kw(n, predictive, capacity)
+    init = _interleaved(n, kw["capacity"], dev)
+    got = tss.sim_scan(hists, nreals, init, **kw)
+    again = tss.sim_scan(hists, nreals, init, **kw)
+    torch.cuda.synchronize()
+    ref = tss.sim_scan_plain(hists, nreals, init, **kw)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b), (a, b)
+        assert torch.equal(a, r), (a, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("predictive", [False, True])
+def test_sim_scan_rows_one_launch_equals_per_chunk_launches(predictive):
+    """Candidates of different lengths in one ``sim_scan_rows`` launch
+    equal their per-chunk ``sim_scan`` launches (zero-padded pow2 stacks,
+    as ``core.sim.sweep_plan`` groups them) and the plain version."""
+    dev = _card()
+    n, lens = 4096, [40, 17, 33, 1, 64, 5]
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows = torch.randint(0, 4, (sum(lens), n), generator=g,
+                         device=dev).float()
+    starts = [sum(lens[:j]) for j in range(len(lens))]
+    kw = _sim_kw(n, predictive)
+    init = _interleaved(n, kw["capacity"], dev)
+    before = tss.sim_scan.launches
+    got = tss.sim_scan_rows(rows, starts, lens, init, **kw)
+    torch.cuda.synchronize()
+    assert tss.sim_scan.launches == before + 1
+    chunks = {}
+    for j, length in enumerate(lens):
+        chunks.setdefault(1 << (length - 1).bit_length(), []).append(j)
+    for p2, js in chunks.items():
+        stack = torch.zeros((len(js), p2, n), device=dev)
+        for i, j in enumerate(js):
+            stack[i, : lens[j]] = rows[starts[j]: starts[j] + lens[j]]
+        nr = torch.tensor([lens[j] for j in js], dtype=torch.int32,
+                          device=dev)
+        part = tss.sim_scan(stack, nr, init, **kw)
+        for a, b in zip(got, part):
+            assert torch.equal(a[js], b), (a[js], b)
+    ref = tss.sim_scan_rows_plain(rows, starts, lens, init, **kw)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r), (a, r)
+
+
 @pytest.mark.gpu
 def test_sim_scan_kernel_rejects_what_it_does_not_take():
     dev = _card()
@@ -204,6 +278,32 @@ def test_sim_scan_kernel_rejects_what_it_does_not_take():
         tss.sim_scan(small, one, init[:8], **_sim_kw(8, False, capacity=9))
     with pytest.raises(TypeError):
         tss.sim_scan(small.double(), one, init[:8], **_sim_kw(8, False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["paged_attention", "paged_attention_mla"])
+def test_paged_kernels_on_a_zero_page_table(kernel):
+    """A table of zero pages attends to nothing: both CUDA wrappers return
+    written zeros (a freed block of NaNs is offered to the allocator
+    first, so an output left unwritten would show) and an empty mass."""
+    dev = _card()
+    b, h, d = 3, 8, 128
+    torch.full((b, h, d), float("nan"), device=dev)
+    pt = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+    ln = torch.tensor([0, 5, 0], dtype=torch.int32, device=dev)
+    q = torch.randn((b, h, d), device=dev)
+    if kernel == "paged_attention":
+        kp = torch.randn((4, 16, 2, d), device=dev)
+        out, mass = tpa.paged_attention(q, kp, kp, pt, ln)
+    else:
+        qr = torch.randn((b, h, 64), device=dev)
+        out, mass = tpam.paged_attention_mla(
+            q, qr, torch.randn((4, 16, d), device=dev),
+            torch.randn((4, 16, 64), device=dev), pt, ln, scale=0.1)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert torch.count_nonzero(out) == 0 and not out.isnan().any()
+    assert mass.shape == (b, 0) and mass.dtype == torch.float32
 
 
 @pytest.mark.gpu

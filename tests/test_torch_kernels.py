@@ -137,6 +137,25 @@ def test_plain_empty_rows_and_unmapped_pages():
     np.testing.assert_allclose(mass[0].numpy(), np.asarray(rm)[0], atol=1e-5)
 
 
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (3, 5.0)])
+def test_zero_page_table_gives_the_oracles_zeros(window, softcap):
+    """A table of zero pages attends to nothing: the plain version (the
+    wrapper's CPU route) returns the JAX oracle's zeros and its empty
+    [B, 0] mass, whatever the lengths say."""
+    q, kp, vp, _, _ = _inputs(5, 8, 2)
+    pt = np.zeros((3, 0), np.int32)
+    ln = np.asarray([0, 5, 0], np.int32)
+    kw = dict(window=window, softcap=softcap)
+    ro, rm = rref.paged_attention_ref(*_j(q, kp, vp, pt, ln),
+                                      return_mass=True, **kw)
+    for fn in (tpa.paged_attention, tpa.paged_attention_plain):
+        out, mass = fn(*_t(q, kp, vp, pt, ln), **kw)
+        assert out.dtype == torch.float32 and mass.dtype == torch.float32
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ro))
+        assert mass.shape == np.asarray(rm).shape == (3, 0)
+        assert torch.count_nonzero(out) == 0
+
+
 def test_wrapper_refuses_other_devices():
     """Only CPU tensors take the plain version; a tensor elsewhere that is
     not on a CUDA card raises instead of falling back."""

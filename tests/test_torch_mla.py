@@ -150,6 +150,27 @@ def test_plain_unmapped_page_carries_no_mass():
     assert torch.isfinite(out).all()
 
 
+def test_zero_page_table_gives_zeros():
+    """A table of zero pages attends to nothing: the wrapper's CPU route
+    and the plain version return zeros of q_abs's shape and dtype and an
+    empty [B, 0] mass, as the k/v kernel does.  There is no oracle to pin
+    this to: the JAX ``paged_attention_mla_ref`` raises at n == 0
+    (ZeroDivisionError in its reshape), as does the port's copy."""
+    q, qr, ckv, kr, _, _ = _inputs(3, 8, 32, 4)
+    pt = np.zeros((q.shape[0], 0), np.int32)
+    ln = np.zeros((q.shape[0],), np.int32)
+    with pytest.raises(ZeroDivisionError):
+        rref.paged_attention_mla_ref(*(jnp.asarray(a) for a in
+                                       (q, qr, ckv, kr, pt, ln)),
+                                     scale=0.25, return_mass=True)
+    for fn in (tpam.paged_attention_mla, tpam.paged_attention_mla_plain):
+        out, mass = fn(*(_t(a) for a in (q, qr, ckv, kr, pt, ln)),
+                       scale=0.25)
+        assert out.shape == q.shape and out.dtype == torch.float32
+        assert torch.count_nonzero(out) == 0
+        assert mass.shape == (q.shape[0], 0) and mass.dtype == torch.float32
+
+
 def test_wrapper_refuses_other_devices():
     """Only CPU tensors take the plain version; a tensor elsewhere that is
     not on a CUDA card raises instead of falling back."""

@@ -195,12 +195,15 @@ def test_other_geometries_raise_not_implemented(arch):
 
 @pytest.mark.parametrize("arch,change,match", [
     ("deepseek-v3-671b", {}, "MLA"),
-    ("qwen3-14b", {"softcap": 30.0}, "softcap")])
+    ("qwen3-14b", {"softcap": 30.0}, "softcap"),
+    ("qwen3-14b", {"head_dim": 160}, "head dim"),
+    ("qwen3-14b", {"head_dim": 192}, "head dim")])
 def test_flash_route_refuses_what_its_kernel_cannot_take(arch, change,
                                                          match):
-    """``attention_impl="pallas"`` raises for MLA slots (d_qk != d_v) and
-    a soft-cap, which the flash kernel cannot take; the same configs build
-    under ``"reference"``, and an unknown setting raises."""
+    """``attention_impl="pallas"`` raises for MLA slots (d_qk != d_v), a
+    soft-cap and head dims outside ``HEAD_DIMS`` (stablelm-12b's 160,
+    nemotron-4-340b's 192), which the flash kernel cannot take; the same
+    configs build under ``"reference"``, and an unknown setting raises."""
     cfg = dataclasses.replace(TC.reduced(arch), **change)
     TM.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):

@@ -305,6 +305,246 @@ def test_fast_set_follows_lax_top_k_where_torch_topk_does_not():
 
 
 # --------------------------------------------------------------------------
+# the CUDA sim_scan kernel's select and division, emulated here as built
+# (the kernel itself runs only on the card: tests/test_torch_gpu.py)
+# --------------------------------------------------------------------------
+
+def _kernel_layout(n):
+    """(threads, pages a thread) of the kernel's instance for n pages
+    (``sim_scan_launch`` in csrc/sim_scan.cu)."""
+    if n <= 256:
+        return 32, 1 << (-(-n // 32) - 1).bit_length()
+    if n <= 4096:
+        return 1 << (-(-n // 8) - 1).bit_length(), 8
+    return 512, 16 if n <= 8192 else 32
+
+
+def _order_keys(score):
+    """The kernel's order-preserving float -> uint32 map, -0 folded to +0."""
+    s = np.where(score == 0, np.float32(0), score).astype(np.float32)
+    b = s.view(np.uint32).astype(np.int64)
+    return np.where(b & 0x80000000, ~b & 0xffffffff, b | 0x80000000)
+
+
+def _radix_pass(keys, shift, prefix, known, want, above):
+    """One radix pass as every warp of the kernel scans it: 8-bit digits,
+    lane l holding bins 255-8l..248-8l; with ``above`` the keys whose known
+    bits exceed ``prefix`` are counted first.  Returns (digit, rest,
+    in_bin), or None where the want-th key is not in the histogram."""
+    mk = keys & known
+    hist = np.bincount((keys[mk == prefix] >> shift) & 255, minlength=256)
+    if above:
+        want -= int((mk > prefix).sum())
+    cnt = hist[::-1].reshape(32, 8)
+    incl = np.cumsum(cnt.sum(axis=1))
+    excl = incl - cnt.sum(axis=1)
+    lanes = np.nonzero((want > 0) & (excl < want) & (want <= incl))[0]
+    if not len(lanes):
+        return None
+    lane, seen = lanes[0], excl[lanes[0]]
+    for b in range(8):
+        if seen + cnt[lane, b] >= want:
+            return 255 - 8 * lane - b, want - seen, cnt[lane, b]
+        seen += cnt[lane, b]
+
+
+def _kernel_select(score, capacity, guess):
+    """The kernel's fast set for one period's scores: the guess pass over
+    the keys sharing ``guess`` (the previous threshold's top 16 bits), one
+    more pass when it holds, else four passes from the top byte, each
+    stopping early once the threshold's bin holds exactly the keys still
+    to take; then the ties ranked as the kernel ranks them (ballots a run
+    position inside a warp, the last-byte pass's per-warp counts across
+    warps, over the (thread, run position) page order).  Returns (members,
+    next guess, the known bits, guess held, passes)."""
+    n = len(score)
+    keys = _order_keys(score)
+    g = _radix_pass(keys, 8, guess, 0xffff0000, capacity, True)
+    passes, all_in = 1, False
+    if g is not None:
+        digit, remaining, in_bin = g
+        prefix, known = guess | digit << 8, 0xffffff00
+        all_in = in_bin == remaining
+        if not all_in:
+            digit, remaining, in_bin = _radix_pass(keys, 0, prefix, known,
+                                                   remaining, False)
+            prefix, known, passes = prefix | digit, 0xffffffff, 2
+            all_in = in_bin == remaining
+    else:
+        prefix, known, remaining = 0, 0, capacity
+        for shift in (24, 16, 8, 0):
+            digit, remaining, in_bin = _radix_pass(keys, shift, prefix,
+                                                   known, remaining, False)
+            prefix |= digit << shift
+            known |= 255 << shift
+            passes += 1
+            if in_bin == remaining:
+                all_in = True
+                break
+    mk = keys & known
+    members = mk > prefix
+    tie = mk == prefix
+    if all_in:
+        members |= tie
+    else:
+        threads, per = _kernel_layout(n)
+        t = np.zeros(threads * per, bool)
+        t[:n] = tie
+        t = t.reshape(threads // 32, 32, per)     # [warp, lane, position]
+        lane_ties, warp_ties = t.sum(axis=2), t.sum(axis=(1, 2))
+        rank = ((np.cumsum(warp_ties) - warp_ties)[:, None, None]
+                + (np.cumsum(lane_ties, axis=1) - lane_ties)[:, :, None]
+                + np.cumsum(t, axis=2) - t).reshape(-1)[:n]
+        members |= tie & (rank < remaining)
+    return members, prefix & 0xffff0000, known, g is not None, passes
+
+
+def _scores(kind, n, rng):
+    if kind == "random":
+        return (rng.standard_normal(n) * 10).astype(np.float32)
+    if kind == "ties":
+        return rng.integers(0, 6, n).astype(np.float32) * np.float32(0.5)
+    if kind == "equal":
+        return np.full(n, 1.25, np.float32)
+    if kind == "recency":
+        # the simulator's cold pages: (last + 1) / (i + 2) over a few
+        # hundred last accesses, plus 0.5 in fast memory -- runs of equal
+        # scores a few to a few dozen long
+        last = rng.choice(rng.integers(-1, 999, 300), n).astype(np.float32)
+        return ((last + 1) / np.float32(1001)
+                + np.float32(0.5) * (rng.random(n) < 0.2)).astype(np.float32)
+    # +0 and -0 (equal to the reference), a few positives between them
+    s = np.where(rng.random(n) < 0.5, np.float32(-0.0), np.float32(0.0))
+    s[rng.random(n) < 0.1] = 1.0
+    return s.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "equal", "signed_zeros",
+                                  "recency"])
+@pytest.mark.parametrize("n", [20, 1023, 4096, 4097, 16384])
+def test_kernel_select_is_lax_top_k_membership(kind, n):
+    """The kernel's select, emulated as built, picks ``_fast_set``'s and
+    ``jax.lax.top_k``'s members (-0 folded into +0 for the latter, as the
+    plain version and the kernel rank them) at capacity 1, ~20% and n,
+    whether the
+    guess pass holds (the threshold's own top 16 bits), misses (0) or
+    misses by one (the next group up); the guess it passes on agrees with
+    the threshold's top 16 bits wherever it knows them; the guess pass
+    holds exactly when the guess is right, and then takes at most two
+    passes; at capacity n the first pass over all keys ends it."""
+    rng = np.random.default_rng(n + len(kind))
+    score = _scores(kind, n, rng)
+    keys = _order_keys(score)
+    # lax.top_k ranks +0 above -0 where the plain version's stable sort and
+    # the kernel tie them; the simulator's scores are never -0 (every term
+    # is >= +0), so lax.top_k is asked about the scores with -0 folded
+    folded = np.where(score == 0, np.float32(0), score).astype(np.float32)
+    for cap in sorted({1, max(1, round(0.2 * n)), n}):
+        ref = np.zeros(n, bool)
+        ref[np.asarray(jax.lax.top_k(jnp.asarray(folded), cap)[1])] = True
+        plain = t_sim_step._fast_set(torch.from_numpy(score)[None], cap)[0]
+        np.testing.assert_array_equal(plain.numpy(), ref)
+        top16 = int(np.sort(keys)[::-1][cap - 1]) & 0xffff0000
+        for guess in (top16, 0, (top16 + 0x10000) & 0xffffffff):
+            got, nxt, known, held, passes = _kernel_select(score, cap, guess)
+            np.testing.assert_array_equal(got, ref)
+            assert (nxt ^ top16) & known & 0xffff0000 == 0
+            assert held == (guess == top16)
+            if cap == n:                     # the first full pass stops
+                assert passes == (1 if held else 2)
+        assert _kernel_select(score, cap, top16)[4] <= 2
+
+
+def _div_by(a, d):
+    """The kernel's branch-free a / d (``div_by`` in csrc/sim_scan.cu):
+    y = RN(1/d), q0 = RN(a*y), then two corrections by the exact residual,
+    with exactly rounded fused multiply-adds."""
+    y = torch.ones_like(d) / d
+    q0 = (a.double() * y.double()).float()
+    q1 = t_sim_step._fma32(t_sim_step._fma32(-d, q0, a), y, q0)
+    return t_sim_step._fma32(t_sim_step._fma32(-d, q1, a), y, q1)
+
+
+def test_kernel_division_is_ieee_division():
+    """The recency's division as the kernel computes it equals IEEE float32
+    division for every numerator last + 1 <= i at every period i < 4096
+    (denominator i + 2) and for 2**21 random pairs with denominators up to
+    2**24."""
+    for lo in range(0, 4096, 1024):
+        i = torch.arange(lo, lo + 1024)
+        a = torch.cat([torch.arange(k + 1) for k in i.tolist()]).float()
+        d = (torch.repeat_interleave(i, i + 1) + 2).float()
+        assert torch.equal(_div_by(a, d).view(torch.int32),
+                           (a / d).view(torch.int32))
+    g = torch.Generator().manual_seed(0)
+    d = torch.randint(2, 2 ** 24 + 1, (2 ** 21,), generator=g)
+    a = (torch.rand(2 ** 21, generator=g, dtype=torch.float64)
+         * d).floor().long()
+    a, d = a.float(), d.float()
+    keep = a < d
+    assert torch.equal(_div_by(a[keep], d[keep]).view(torch.int32),
+                       (a[keep] / d[keep]).view(torch.int32))
+
+
+@pytest.mark.parametrize("scheduler", SCHEDS)
+def test_one_launch_grouping_matches_per_chunk_route(scheduler,
+                                                     monkeypatch):
+    """``sweep_groups`` -- what ``sweep`` launches -- covers every candidate
+    exactly once with its own real period rows, keeps each launch within
+    ``SWEEP_CHUNK_ELEMS`` (one launch at the default), and through
+    ``sim_scan_rows`` gives results bit-equal to ``sim_scan_plain`` over
+    the per-chunk stacks of ``sweep_stacks``."""
+    _, tb = _bins("backprop")
+    periods = tsim.exhaustive_periods(tb, 24)
+    ks = sorted({max(1, round(int(p) / tb.block)) for p in periods})
+    kw = _scan_kw(tsim.SimConfig(), tb.num_pages, scheduler)
+    init = torch.from_numpy(tsim._interleaved_init(tb.num_pages,
+                                                   kw["capacity"]))
+    chunked = {}
+    for cks, stack, nreals in tsim.sweep_stacks(tb, periods):
+        out = t_sim_step.sim_scan_plain(
+            stack, torch.tensor(nreals, dtype=torch.int32), init, **kw)
+        for j, k in enumerate(cks):
+            chunked[k] = tuple(o[j].item() for o in out)
+    default = tsim.SWEEP_CHUNK_ELEMS
+    for limit in (default, tb.num_blocks * tb.num_pages, 1):
+        monkeypatch.setattr(tsim, "SWEEP_CHUNK_ELEMS", limit)
+        launches = tsim.sweep_launches(tb, periods)
+        assert sorted(k for ks_ in launches for k in ks_) == ks
+        if limit == default:
+            assert len(launches) == 1
+        got = {}
+        groups = list(tsim.sweep_groups(tb, periods))
+        assert [g[0] for g in groups] == launches
+        for gks, rows, starts, nreals in groups:
+            assert rows.numel() <= limit or len(gks) == 1
+            assert starts == [sum(nreals[:j]) for j in range(len(gks))]
+            for j, k in enumerate(gks):
+                ph, nr = tsim._aggregate_periods(tb, k)
+                assert nreals[j] == nr
+                assert torch.equal(rows[starts[j]: starts[j] + nr], ph[:nr])
+            out = t_sim_step.sim_scan_rows(rows, starts, nreals, init, **kw)
+            for j, k in enumerate(gks):
+                got[k] = tuple(o[j].item() for o in out)
+        assert got == chunked
+    assert len(tsim.sweep_launches(tb, periods)) == len(ks)
+
+
+def test_sim_scan_rows_checks_its_rows():
+    """Candidates whose rows lie outside the array raise on either route;
+    an empty candidate set gives empty results."""
+    rows = torch.zeros((5, 8))
+    init = torch.zeros(8, dtype=torch.bool)
+    kw = _scan_kw(tsim.SimConfig(), 8, "reactive")
+    for starts, nreals in (([0, 3], [3, 3]), ([-1], [1]), ([0], [-1]),
+                           ([0, 1], [1])):
+        with pytest.raises(ValueError):
+            t_sim_step.sim_scan_rows(rows, starts, nreals, init, **kw)
+    out = t_sim_step.sim_scan_rows(rows, [], [], init, **kw)
+    assert all(o.shape == (0,) for o in out)
+
+
+# --------------------------------------------------------------------------
 # simulate / sweep / sweep_loop / exhaustive_periods
 # --------------------------------------------------------------------------
 
