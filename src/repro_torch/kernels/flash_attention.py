@@ -9,7 +9,11 @@ first use and bound through ``ctypes``), and beside it
 ``flash_attention`` dispatches on the device of its inputs: a CPU tensor
 goes to the plain version, a CUDA tensor goes to the kernel, and anything
 the kernel does not take raises -- there is no fallback.  Every kernel
-launch adds one to ``flash_attention.launches``.
+launch adds one to ``flash_attention.launches``.  ``block_plan`` mirrors
+the kernel's grid: which query rows each block owns and which kv tiles it
+visits.  The kernel runs both products on the tensor cores: float32 as
+3xTF32 (each operand split as hi = x rounded to TF32, lo = x - hi rounded
+to TF32; lo*hi + hi*lo + hi*hi), bfloat16 in one pass.
 
 Semantics (shared by the kernel and the plain version, those of the TPU
 kernel): q [B, S, H, D]; k/v [B, T, KV, D] with KV dividing H (query head
@@ -37,6 +41,8 @@ NAME = "flash_attention"
 NVCC_FLAGS = _build.BASE_FLAGS
 HEAD_DIMS = (16, 32, 64, 128, 256)
 NEG = -1e30     # masked logits, as the TPU kernel
+BLOCK_ROWS = 128    # query rows a block owns: 8 warps x 16
+KV_TILE = 32        # keys a kv tile holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -53,6 +59,31 @@ def _load():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def block_plan(b: int, s: int, t: int, h: int, kv: int, *,
+               causal: bool = True, window: int = 0):
+    """The kernel's blocks in launch order, as
+    ``(batch row, query positions, query heads, kv tiles)`` ranges.  A
+    block owns ``BLOCK_ROWS`` query rows that share one KV head: where rep
+    = h // kv divides ``BLOCK_ROWS``, ``BLOCK_ROWS // rep`` positions x the
+    group's rep heads (each k/v tile is staged once for all of them),
+    otherwise ``BLOCK_ROWS`` positions of one head.  It visits the kv tiles
+    of ``KV_TILE`` keys from the first key its first position attends to
+    the last key its last position attends.  Query tiles run heaviest first
+    over every head group and batch row."""
+    rep = h // kv
+    hb = rep if BLOCK_ROWS % rep == 0 else 1
+    p = BLOCK_ROWS // hb
+    blocks = []
+    for q0 in reversed(range(0, s, p)):
+        q_end = min(q0 + p, s)
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        k_end = min(t, q_end) if causal else t
+        tiles = range(k_lo // KV_TILE, -(-k_end // KV_TILE))
+        blocks += [(row, range(q0, q_end), range(h0, h0 + hb), tiles)
+                   for row in range(b) for h0 in range(0, h, hb)]
+    return blocks
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):

@@ -10,7 +10,13 @@ Inputs come from a numpy seed.  The Pallas kernel needs tiles that divide
 S and T, so lengths that no tile divides (S = 1, 37, 200) and D = 256 are
 held to the oracles only.  Tolerances: 2e-5 absolute in float32 (the
 implementations reduce in different orders) and 2e-2 for bfloat16 inputs,
-those of ``tests/test_kernels.py``'s flash tests."""
+those of ``tests/test_kernels.py``'s flash tests.
+
+The CUDA kernel's own arithmetic is checked here where it can be: its
+3xTF32 products, emulated in torch, meet the float32 tolerances it is
+held to on the card (2e-5 up to 512 keys, 1e-4 at 2048) while one TF32
+pass misses them, and its grid (``block_plan``) visits every attended
+(query, key) pair exactly once."""
 import numpy as np
 import pytest
 import torch
@@ -138,3 +144,161 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="cpu or cuda"):
         tfa.flash_attention(meta(1, 8, 2, 16), meta(1, 8, 2, 16),
                             meta(1, 8, 2, 16))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, emulated in torch.  float32 runs both
+# products on the tensor cores as 3xTF32: each operand x is split as hi =
+# rna(x), lo = rna(x - hi), where rna is cvt.rna.tf32.f32 (round to nearest,
+# ties away from zero, to a 10-bit mantissa), and a product is lo*hi +
+# hi*lo, then + hi*hi, in float32.
+
+
+def _rna(x):
+    """cvt.rna.tf32.f32 on the int32 view: add half of the 13 dropped bits'
+    range to the magnitude, then clear them."""
+    bits = (x.float().contiguous().view(torch.int32) + 0x1000) & -0x2000
+    return bits.view(torch.float32)
+
+
+def _split(x):
+    hi = _rna(x)
+    return hi, _rna(x.float() - hi)
+
+
+def _product(a, b, eq, passes):
+    """einsum ``eq`` of a and b as the kernel's TF32 passes compute it: 3
+    (lo*hi + hi*lo + hi*hi) or 1 (hi*hi)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    if passes == 1:
+        return torch.einsum(eq, ah, bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) \
+        + torch.einsum(eq, ah, bh)
+
+
+def _emulated(q, k, v, *, causal, window, passes):
+    """``flash_attention_plain`` with q.k and p.v taken in TF32 passes."""
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d)
+    logits = _product(qg, k, "bsgrd,btgd->bgrst", passes) \
+        * (1.0 / np.sqrt(d))
+    i = torch.arange(s)[:, None]
+    j = torch.arange(t)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool)
+    if causal:
+        mask &= j <= i
+    if window > 0:
+        mask &= j > i - window
+    logits = logits.masked_fill(~mask, tfa.NEG)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1).clamp_min(1e-30)
+    out = _product(p, v, "bgrst,btgd->bsgrd", passes)
+    out = out / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, h, d)
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """The emulation rounds to nearest with ties away from zero, keeps 10
+    mantissa bits, and hi + lo recovers x to ~2^-22 relative."""
+    one = 1.0 + 2.0 ** -11          # a tie between 1 and 1 + 2^-10
+    x = torch.tensor([one, -one, 1.0 + 3 * 2.0 ** -12, 1.0 + 2.0 ** -12,
+                      2.0 - 2.0 ** -23, 0.0, -0.0, 1e-30])
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                         1.0 + 2.0 ** -10, 1.0, 2.0, 0.0, -0.0, 1e-30])
+    got = _rna(x)
+    np.testing.assert_array_equal(got[:7].numpy(), want[:7].numpy())
+    assert abs(float(got[7]) - 1e-30) <= 1e-30 * 2.0 ** -11
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32)) * 100
+    hi, lo = _split(r)
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert (lo.view(torch.int32) & 0x1FFF == 0).all()
+    rel = ((hi.double() + lo.double() - r.double()).abs()
+           / r.double().abs()).max()
+    assert rel <= 2.0 ** -21
+
+
+_SPLIT_CASES = [(2, 1, 16, 8, True, 0), (2, 37, 16, 8, True, 0),
+                (2, 256, 16, 8, True, 64), (1, 512, 16, 8, True, 0),
+                (2, 200, 16, 8, False, 0), (1, 2048, 2, 1, True, 1024)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,window", _SPLIT_CASES)
+def test_3xtf32_products_meet_the_float32_tolerances(b, s, h, kv, causal,
+                                                     window):
+    """q.k and p.v in 3xTF32 at D = 256 against ``flash_attention_plain``
+    and the JAX oracle: 2e-5 up to 512 keys, 1e-4 at 2048 (the kernel's
+    tolerances on the card)."""
+    q, k, v = _inputs(s + h, b, s, h, kv, 256)
+    kw = dict(causal=causal, window=window)
+    ours = _emulated(*(_t(a) for a in (q, k, v)), passes=3, **kw)
+    tol = 2e-5 if s <= 512 else 1e-4
+    plain = tfa.flash_attention_plain(*(_t(a) for a in (q, k, v)), **kw)
+    oracle = rref.flash_attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                      **kw)
+    for r in (plain, oracle):
+        np.testing.assert_allclose(_np(ours), _np(r), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,window", _SPLIT_CASES)
+def test_one_tf32_pass_misses_the_float32_tolerances(b, s, h, kv, causal,
+                                                     window):
+    """Why the kernel splits: one TF32 pass (hi*hi) misses the same bars
+    on the same inputs.  At S = 1 the output is v itself, rounded by
+    ~2^-11 relative."""
+    q, k, v = _inputs(s + h, b, s, h, kv, 256)
+    kw = dict(causal=causal, window=window)
+    one = _emulated(*(_t(a) for a in (q, k, v)), passes=1, **kw)
+    plain = tfa.flash_attention_plain(*(_t(a) for a in (q, k, v)), **kw)
+    tol = 2e-5 if s <= 512 else 1e-4
+    assert float((one - plain).abs().max()) > tol
+
+
+_PLAN_MASKS = [(300, 300, True, 0), (300, 300, True, 64),
+               (300, 300, True, 1024), (300, 300, False, 0),
+               (300, 300, False, 64), (70, 300, True, 0), (1, 40, True, 0)]
+
+
+@pytest.mark.parametrize("h,kv,s,t,causal,window", [
+    (h, kv) + m for h, kv in ((4, 4), (4, 2), (10, 2), (16, 2), (128, 1))
+    for m in _PLAN_MASKS] + [(4, 4, 1100, 1100, True, 1024),
+                             (4, 2, 1100, 1100, True, 1024)])
+def test_block_plan_visits_each_attended_pair_once(h, kv, s, t, causal,
+                                                   window):
+    """``block_plan`` (the kernel's grid): every (query, head) row in one
+    block of at most ``BLOCK_ROWS`` rows, every attended (row, key) pair in
+    exactly one visited tile of it, no visited tile without an attended
+    pair, and the last query tile first (the heaviest under a plain causal
+    mask).  GQA rep 1, 2, 5 (one head a block), 8 and 128."""
+    i = np.arange(s)[:, None]
+    j = np.arange(t)[None, :]
+    attended = np.ones((s, t), bool)
+    if causal:
+        attended &= j <= i
+    if window > 0:
+        attended &= j > i - window
+    seen = np.zeros((2, h, s, t), np.int32)
+    owner = np.zeros((2, h, s), np.int32)
+    plan = tfa.block_plan(2, s, t, h, kv, causal=causal, window=window)
+    rep = h // kv
+    for row, pos, heads, tiles in plan:
+        assert len(heads) in (1, rep)
+        assert len(heads) * len(pos) <= tfa.BLOCK_ROWS
+        assert pos.start % (tfa.BLOCK_ROWS // len(heads)) == 0
+        assert heads.start // rep == (heads.stop - 1) // rep  # one KV head
+        owner[row, heads.start:heads.stop, pos.start:pos.stop] += 1
+        for kt in tiles:
+            keys = slice(kt * tfa.KV_TILE, min((kt + 1) * tfa.KV_TILE, t))
+            sub = attended[pos.start:pos.stop, keys]
+            assert sub.any(), (pos, kt)
+            seen[row, heads.start:heads.stop, pos.start:pos.stop, keys] \
+                += sub
+    assert (owner == 1).all()
+    np.testing.assert_array_equal(seen, np.broadcast_to(attended, seen.shape))
+    starts = [pos.start for _, pos, _, _ in plan]
+    assert starts == sorted(starts, reverse=True)
+    if causal and not window:
+        sizes = [len(tiles) for *_, tiles in plan]
+        assert sizes == sorted(sizes, reverse=True)

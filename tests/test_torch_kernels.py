@@ -327,3 +327,22 @@ def test_split_plan_fills_the_card_at_served_shapes(model, n, window):
     assert 4 * 8 * splits >= 2 * 132
     span = n if not window else -(-window // 16) + 1
     assert splits == -(-span // pps)
+
+
+def test_build_cache_key_covers_source_and_flags(tmp_path, monkeypatch):
+    """A kernel's library is named after its source and its flags: editing
+    either names a new library, so a stale one is never loaded, and the
+    same source and flags name the same one."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    (tmp_path / "k.cu").write_text('extern "C" int f() { return 1; }\n')
+    flags = ("-O3",)
+    first = _build._lib_path("k", flags)
+    assert first.parent == tmp_path / "build"
+    assert first.name.startswith("libk_") and first.suffix == ".so"
+    assert _build._lib_path("k", flags) == first
+    (tmp_path / "k.cu").write_text('extern "C" int f() { return 2; }\n')
+    second = _build._lib_path("k", flags)
+    assert second != first
+    assert _build._lib_path("k", ("-O2",)) != second
