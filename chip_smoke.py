@@ -47,7 +47,8 @@ non-zero):
      per ``simulate`` and per ``sweep_launches`` entry of each ``sweep``:
      one launch a sweep at these sizes);
   9. timing of the offline kernels at the main-path shapes: ``page_hist``
-     at backprop's ``bin_trace`` shape, beside its plain version,
+     at backprop's ``bin_trace`` shape, a call and on the device, beside
+     its plain version,
      ``torch.bincount`` and its bound; ``sim_scan`` over backprop's whole
      exhaustive sweep (reactive) as ``sweep`` launches it (one
      ``sim_scan_rows`` launch of 75 candidates), beside the per-chunk loop
@@ -56,10 +57,12 @@ non-zero):
      path's length in periods; the one-launch results bit-equal to the
      plain sweep's and the loop's;
  10. the MLA kernel ``paged_attention_mla`` vs its plain version on the
-     card: the main-path shape (128 heads, kv_lora 512, rope 64) and a
-     grid over 16 and 128 heads, ragged -1 rows and a length-0 row,
-     float32 and bfloat16, with stated tolerances and each active row's
-     mass summing to 1;
+     card: the main-path shape (128 heads, kv_lora 512, rope 64), a grid
+     over 16 and 128 heads, ragged -1 rows and a length-0 row, and the
+     edges of the kernel's split over pages (``MLA_SPLIT_EDGES``), float32
+     and bfloat16, with stated tolerances (bfloat16 also each output row
+     within ``BF16_ROW_TOL`` of its norm), each active row's mass summing
+     to 1 and a second call on the same inputs bit-identical;
  11. full-width deepseek-v3-671b (MLA + MoE; depth cut from 61 layers to
      2, one dense-MLP and one MoE layer, float32 weights from a seeded
      init) served by the macro-step batcher with phase 4's request mix,
@@ -69,9 +72,11 @@ non-zero):
  12. parity on the card: on reduced deepseek-v3-671b, the batcher's
      greedy streams (macro and per-token) equal ``generate``'s (dense MLA
      decode, no kernel);
- 13. the MLA kernel's timing at the main-path shape beside its plain
-     version, one SDPA call over the gathered rows (the yardstick) and its
-     bound in bytes and in operations;
+ 13. the MLA kernel's timing at the main-path shape, per call (CUDA
+     events) and on the device (profiler), beside its plain version, one
+     SDPA call over the gathered rows (the yardstick, which the kernel must
+     beat a call) and its bound: operations as 3xTF32 at 495 TFLOP/s, with
+     the ``mma.sync`` floor and the 67 TFLOP/s CUDA-core figure beside it;
  14. the flash kernel ``flash_attention`` vs its plain version on the
      card: float32 and bfloat16, GQA 4/4, 4/2, 8/1, 16/8 and 40/8, D 16,
      32, 64, 128 and 256, causal, window 64, window 1024 and non-causal,
@@ -130,6 +135,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
+# the TF32 rate mma.sync reached on an H100 80GB HBM3 at 700 W with 8 warps
+# an SM (PERF.md, the flash kernel's throughput probe): the floor of a
+# kernel whose products run on it
+MMA_SYNC_TF32_FLOPS_PER_S = 278.5e12
 SEED = 0
 DEV = torch.device("cuda")
 
@@ -899,6 +908,7 @@ def phase_offline_timing(ph, ss, sim, traces, kernels) -> dict:
     ids = torch.from_numpy(ids).to(DEV).reshape(rows, block)
     zeros = torch.zeros((n,), device=DEV)
     ms = _time(lambda: ph.page_hist(ids, zeros), 20, flush)
+    dev_ms, how, _ = _device_ms(lambda: ph.page_hist(ids, zeros), 20, flush)
     plain_ms = _time(lambda: ph.page_hist_plain(ids, zeros), 20, flush)
     flat = (torch.arange(rows, device=DEV)[:, None] * n
             + ids.long())[ids >= 0]
@@ -908,15 +918,17 @@ def phase_offline_timing(ph, ss, sim, traces, kernels) -> dict:
     flops = 3 * rows * n + rows * block
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
-    hist = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_bytes, t_ops),
+    hist = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
     print(f"page_hist ids [{rows}, {block}] over {n} pages (backprop's "
-          f"bin_trace): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one "
-          f"torch.bincount (counts only) {library_ms:.4f} ms, bound "
+          f"bin_trace): kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
+          f"device ({how}), plain {plain_ms:.4f} ms, one torch.bincount "
+          f"(counts only) {library_ms:.4f} ms, bound "
           f"{hist['bound_ms']:.4f} ms ({hist['bound_by']}: "
           f"{nbytes / 1e6:.2f} MB at 3.35 TB/s; {flops / 1e6:.1f} MFLOP at "
-          f"67 TFLOP/s) -> {hist['bound_ms'] / ms * 100:.1f}% of the bound",
+          f"67 TFLOP/s) -> {hist['bound_ms'] / dev_ms * 100:.1f}% of the "
+          f"bound on the device, {hist['bound_ms'] / ms * 100:.1f}% a call",
           flush=True)
 
     bins = sim.bin_trace(tr)
@@ -1011,15 +1023,19 @@ def phase_offline_timing(ph, ss, sim, traces, kernels) -> dict:
 MLA_MAIN = dict(b=4, h=128, r=512, k=64, page=16, n=64, p_phys=256)
 
 
-def _mla_case(*, b, h, r, k, page, n, p_phys, lengths, dtype, seed=0):
+def _mla_case(*, b, h, r, k, page, n, p_phys, lengths, dtype, holes=(),
+              seed=0):
     """Random MLA operands on the card; rows padded with -1 past their
-    length.  ``scale`` is deepseek's 1/sqrt(128 + 64)."""
+    length, and -1 at each (row, first page, last page) of ``holes``.
+    ``scale`` is deepseek's 1/sqrt(128 + 64)."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     f = lambda *shape: torch.randn(shape, generator=g, device=DEV).to(dtype)
     table = torch.randperm(p_phys, generator=g, device=DEV)[: b * n] \
         .reshape(b, n).to(torch.int32)
     for row, length in enumerate(lengths):
         table[row, -(-length // page):] = -1
+    for row, lo, hi in holes:
+        table[row, lo:hi] = -1
     return dict(q_abs=f(b, h, r), q_rope=f(b, h, k),
                 ckv_pages=f(p_phys, page, r), krope_pages=f(p_phys, page, k),
                 page_table=table,
@@ -1027,8 +1043,30 @@ def _mla_case(*, b, h, r, k, page, n, p_phys, lengths, dtype, seed=0):
                 scale=1.0 / math.sqrt(192))
 
 
+# where the kernel's split over pages can go wrong, at the served widths
+# (``mla_split_plan``: 8 pages a split at n=64, 7 at n=50, whose last split
+# holds one page): spans ending on a split boundary (128 tokens), one past
+# it, inside the first tile and inside a page; -1 slots inside a split, a
+# split of -1 slots only, a row whose splits are all empty but one; n not a
+# multiple of the split; a length-0 row; pages of 48 tokens that straddle
+# the kernel's 32-token tiles, with a partial last head group (40 heads)
+MLA_SPLIT_EDGES = [
+    dict(MLA_MAIN, lengths=[128, 129, 1, 1024],
+         holes=[(0, 3, 4), (3, 8, 16)]),
+    dict(MLA_MAIN, lengths=[1024, 777, 1000, 16],
+         holes=[(2, 0, 16), (2, 24, 64)]),
+    dict(MLA_MAIN, n=50, lengths=[800, 112, 113, 0], holes=[(0, 48, 49)]),
+    dict(MLA_MAIN, n=50, lengths=[799, 17, 785, 33], holes=[(2, 0, 49)]),
+    dict(b=4, h=40, r=256, k=64, page=48, n=12, p_phys=64,
+         lengths=[576, 333, 0, 49], holes=[(1, 2, 3)]),
+]
+
+
 def phase_mla_check(pam) -> float:
-    """The MLA kernel vs its plain version; returns the largest float32
+    """The MLA kernel vs its plain version: the main-path shape, a grid,
+    the edges of the split over pages (``MLA_SPLIT_EDGES``), float32 and
+    bfloat16 (each output row also within ``BF16_ROW_TOL`` of its norm),
+    and a repeat of every call bit-identical; returns the largest float32
     error seen."""
     print("== phase 10: paged_attention_mla vs plain version on the card",
           flush=True)
@@ -1038,30 +1076,36 @@ def phase_mla_check(pam) -> float:
             dict(b=3, h=128, r=512, k=64, page=16, n=6, p_phys=32,
                  lengths=[96, 37, 1]),
             dict(b=3, h=16, r=512, k=64, page=16, n=6, p_phys=32,
-                 lengths=[0, 17, 80])]
+                 lengths=[0, 17, 80])] + MLA_SPLIT_EDGES
     worst_f32 = 0.0
     for i, case in enumerate(grid):
         for dtype in (torch.float32, torch.bfloat16):
             args = _mla_case(dtype=dtype, seed=100 + i, **case)
             out, mass = pam.paged_attention_mla(**args)
+            again = pam.paged_attention_mla(**args)
             torch.cuda.synchronize()
+            same = torch.equal(out, again[0]) and torch.equal(mass, again[1])
             ref_o, ref_m = pam.paged_attention_mla_plain(**args)
             err_o = float((out.float() - ref_o.float()).abs().max())
             err_m = float((mass - ref_m).abs().max())
+            row = 0.0 if dtype == torch.float32 else _row_err(out, ref_o)
             active = args["lengths"] > 0
             err_sum = float((mass.sum(dim=1)[active] - 1).abs().max())
             t_o, t_m = tol[dtype]
             ok = (err_o <= t_o and err_m <= t_m and err_sum <= 1e-5
-                  and out.dtype == dtype)
+                  and row <= BF16_ROW_TOL and same and out.dtype == dtype)
             print(f"case {i} {str(dtype)[6:]} B={case['b']} H={case['h']} "
-                  f"R={case['r']} K={case['k']} n={case['n']} lengths "
-                  f"{case['lengths']}: out err {err_o:.3g} (tol {t_o}), "
-                  f"mass err {err_m:.3g} (tol {t_m}), |row mass sum - 1| "
-                  f"{err_sum:.3g} (tol 1e-5) {'ok' if ok else 'FAIL'}",
-                  flush=True)
+                  f"R={case['r']} K={case['k']} page={case['page']} "
+                  f"n={case['n']} lengths {case['lengths']} holes "
+                  f"{case.get('holes', [])}: out err {err_o:.3g} (tol "
+                  f"{t_o}), row err {row:.3g} of its norm (tol "
+                  f"{BF16_ROW_TOL:.4g} in bfloat16), mass err {err_m:.3g} "
+                  f"(tol {t_m}), |row mass sum - 1| {err_sum:.3g} (tol "
+                  f"1e-5), repeat bit-identical {same} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 _fail(f"paged_attention_mla disagrees with its plain version "
-                      f"(case {i})")
+                      f"or with itself (case {i})")
             if dtype == torch.float32:
                 worst_f32 = max(worst_f32, err_o, err_m)
             if not bool(torch.all(mass[~active] == 0)) \
@@ -1131,6 +1175,12 @@ def phase_deepseek_parity(C, mdl, S, memtier, cori, engine):
 
 
 def phase_mla_timing(pam):
+    """The MLA kernel at the main-path shape (float32): per call (CUDA
+    events) and on the device (profiler), beside its plain version, one
+    SDPA call over the gathered rows (the yardstick, which the kernel must
+    beat a call) and its bound: operations as 3xTF32 (three TF32 passes at
+    495 TFLOP/s), with the floor at ``mma.sync``'s measured TF32 rate and
+    the 67 TFLOP/s CUDA-core figure beside it."""
     print("== phase 13: paged_attention_mla timing at the main-path shape",
           flush=True)
     import torch.nn.functional as F
@@ -1140,7 +1190,16 @@ def phase_mla_timing(pam):
     args = _mla_case(lengths=lengths, dtype=torch.float32, **c)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
     before = pam.paged_attention_mla.launches
-    ms = _time(lambda: pam.paged_attention_mla(**args), 50, flush)
+    out, mass = pam.paged_attention_mla(**args)
+    ref_o, ref_m = pam.paged_attention_mla_plain(**args)
+    err = max(float((out - ref_o).abs().max()),
+              float((mass - ref_m).abs().max()))
+    if not err <= 1e-5:
+        _fail(f"paged_attention_mla at the timed shape: err {err:.3g} "
+              f"against its plain version (tol 1e-5)")
+    kernel = lambda: pam.paged_attention_mla(**args)
+    ms = _time(kernel, 50, flush)
+    dev_ms, how, names = _device_ms(kernel, 50, flush)
     plain_ms = _time(lambda: pam.paged_attention_mla_plain(**args), 20, flush)
     pam.paged_attention_mla.launches = before  # timing launches not counted
 
@@ -1154,9 +1213,10 @@ def phase_mla_timing(pam):
     qq = torch.cat([args["q_abs"], args["q_rope"]], dim=-1)[:, :, None, :]
     mask = (torch.arange(t, device=DEV)[None, :]
             < args["lengths"][:, None].long())[:, None, None, :]
-    library_ms = _time(lambda: F.scaled_dot_product_attention(
-        qq, kk, ckv, attn_mask=mask, scale=args["scale"], enable_gqa=True),
-        50, flush)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qq, kk, ckv, attn_mask=mask, scale=args["scale"], enable_gqa=True)
+    library_ms = _time(sdpa, 50, flush)
+    lib_dev_ms, lib_how, _ = _device_ms(sdpa, 20, flush)
 
     tokens = sum(lengths)
     row_bytes = tokens * (r + k) * 4
@@ -1164,18 +1224,35 @@ def phase_mla_timing(pam):
                 + 2 * b * n * 4 + b * 4)                 # mass, table, lens
     flops = 2 * (r + k + r) * h * tokens
     t_bytes = (row_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    mma_ms = 3 * flops / MMA_SYNC_TF32_FLOPS_PER_S * 1e3
+    cuda_core_ms = flops / F32_FLOPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    hb = pam.HEADS_PER_BLOCK
+    pps, splits = pam.mla_split_plan(n, page, b, h)
     print(f"B={b} H={h} R={r} K={k} page={page} n={n} lengths {lengths} "
-          f"float32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over "
-          f"pre-gathered rows {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by}): bytes {(row_bytes + io_bytes) / 1e6:.2f} MB -> "
-          f"{t_bytes:.4f} ms at 3.35 TB/s, operations {flops / 1e9:.3f} "
-          f"GFLOP -> {t_ops:.4f} ms at 67 TFLOP/s -> "
-          f"{bound_ms / ms * 100:.1f}% of the bound", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+          f"float32, {hb} heads a block, {pps} pages a split x {splits} "
+          f"splits = {b * -(-h // hb) * splits} blocks (err {err:.3g} vs "
+          f"plain): kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on the "
+          f"device ({how}: {_ms_list(names)}); plain {plain_ms:.4f} ms; "
+          f"SDPA over pre-gathered rows {library_ms:.4f} ms a call, "
+          f"{lib_dev_ms:.4f} ms on the device ({lib_how}); bound "
+          f"{bound_ms:.4f} ms ({bound_by}; 3xTF32: 3 x {flops / 1e9:.3f} "
+          f"GFLOP at 495 TFLOP/s -> {t_ops:.4f} ms; bytes "
+          f"{(row_bytes + io_bytes) / 1e6:.2f} MB -> {t_bytes:.4f} ms at "
+          f"3.35 TB/s) -> {bound_ms / dev_ms * 100:.1f}% of the bound on "
+          f"the device, {bound_ms / ms * 100:.1f}% a call; mma.sync floor "
+          f"(TF32 at {MMA_SYNC_TF32_FLOPS_PER_S / 1e12:.1f} TFLOP/s) "
+          f"{mma_ms:.4f} ms; CUDA-core float32 figure (67 TFLOP/s) "
+          f"{cuda_core_ms:.4f} ms", flush=True)
+    if not ms < library_ms:
+        _fail(f"paged_attention_mla ({ms:.4f} ms) is not below its SDPA "
+              f"yardstick ({library_ms:.4f} ms) a call")
+    return dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -1576,7 +1653,8 @@ def main() -> int:
         dict(name="paged_attention_mla", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention_mla.cu",
              replaces="src/repro/kernels/paged_attention.py:230",
-             launches=deepseek["launches"], max_abs_err=mla_err,
+             launches=deepseek["launches"],
+             max_abs_err=max(mla_err, mla_timing.pop("max_abs_err")),
              **mla_timing),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",

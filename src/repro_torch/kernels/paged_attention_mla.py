@@ -11,7 +11,10 @@ function.
 ``paged_attention_mla`` dispatches on the device of its inputs: a CPU
 tensor goes to the plain version, a CUDA tensor goes to the kernel, and
 anything the kernel does not take raises -- there is no fallback.  Every
-kernel launch adds one to ``paged_attention_mla.launches``.
+kernel call (a split launch and its combine) adds one to
+``paged_attention_mla.launches``.  ``mla_split_plan`` is the host's choice
+of how the kernel splits a row's pages over blocks, each block taking
+``HEADS_PER_BLOCK`` heads.
 
 Semantics (shared by the kernel and the plain version): q_abs [B, H, R]
 (the no-pe queries with W_uk absorbed), q_rope [B, H, K]; ckv_pages
@@ -34,12 +37,30 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["paged_attention_mla", "paged_attention_mla_plain"]
+__all__ = ["HEADS_PER_BLOCK", "mla_split_plan", "paged_attention_mla",
+           "paged_attention_mla_plain"]
 
 NAME = "paged_attention_mla"
 NVCC_FLAGS = _build.BASE_FLAGS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# blocks the split aims for: one an SM of an H100 (a block's shared memory
+# leaves room for no second); the heads a block; the longest run of pages
+# one block takes (its slots sit in shared memory); the tokens of one tile
+# of the kernel
+TARGET_BLOCKS = 132
+HEADS_PER_BLOCK = 32
+MAX_PAGES_PER_SPLIT = 32
+TILE = 32
+# the widths the kernel takes: value columns in 4 warps' quarters of at
+# most 128, and (q_abs ++ q_rope) rows that fit shared memory beside the
+# tile ring at 32 heads a block in float32
+MAX_R = 512
+MAX_R_PLUS_K = 576
 _lib = None
+# the kernel's float32 scratch, kept between calls: one buffer per (device,
+# stream), so a call reuses it only after the previous call on that stream
+# (stream order) -- an allocation costs host time on every decode layer
+_scratch = {}
 
 
 def _load():
@@ -47,12 +68,28 @@ def _load():
     if _lib is None:
         lib = _build.load(NAME, NVCC_FLAGS)
         fn = lib.paged_attention_mla_launch
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
-                       + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
+                       + [ctypes.c_int] * 7 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def mla_split_plan(n: int, page: int, b: int, h: int):
+    """(pages a split, splits) of the kernel's grid for ``b`` rows of ``h``
+    heads over a page table of ``n`` pages of ``page`` tokens, from the
+    shapes alone (never from the lengths, whose read would sync the
+    device).  A block takes ``HEADS_PER_BLOCK`` heads and split s of a row
+    its logical pages [s * pps, (s + 1) * pps); the runs are as short as
+    keeps the grid (splits, head groups, rows) near ``TARGET_BLOCKS``
+    blocks, and hold at least one tile of tokens where the table does."""
+    groups = -(-h // HEADS_PER_BLOCK)
+    want = max(1, TARGET_BLOCKS // max(1, b * groups))
+    pps = -(-n // want)
+    pps = max(pps, min(n, -(-TILE // page)))
+    pps = max(1, min(pps, MAX_PAGES_PER_SPLIT))
+    return pps, -(-n // pps)
 
 
 def paged_attention_mla_plain(q_abs, q_rope, ckv_pages, krope_pages,
@@ -129,13 +166,18 @@ def paged_attention_mla(q_abs, q_rope, ckv_pages, krope_pages, page_table,
         raise ValueError("all inputs must be on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_mla needs contiguous inputs")
-    # the kernel copies whole pages with 16-byte cp.async
+    # the kernel copies each token's ckv and krope rows, and each query's,
+    # as whole-row bulk copies: 16-byte aligned, a multiple of 16 bytes
     size = q_abs.element_size()
-    if (page * rdim * size) % 16 or (page * kdim * size) % 16 \
-            or ckv_pages.data_ptr() % 16 or krope_pages.data_ptr() % 16:
-        raise ValueError("paged_attention_mla needs 16-byte aligned pools "
-                         "whose pages span a multiple of 16 bytes (page * R "
-                         "and page * K elements)")
+    if (rdim * size) % 16 or (kdim * size) % 16 \
+            or any(t.data_ptr() % 16 for t in tensors[:4]):
+        raise ValueError("paged_attention_mla needs 16-byte aligned inputs "
+                         "whose rows span a multiple of 16 bytes (R and K "
+                         f"elements; got R={rdim}, K={kdim} in "
+                         f"{q_abs.dtype})")
+    if rdim > MAX_R or rdim + kdim > MAX_R_PLUS_K:
+        raise ValueError(f"paged_attention_mla takes R <= {MAX_R} and R + K "
+                         f"<= {MAX_R_PLUS_K} (got R={rdim}, K={kdim})")
     if b == 0 or n == 0 or h == 0:
         return (torch.zeros((b, h, rdim), dtype=q_abs.dtype,
                             device=q_abs.device),
@@ -143,18 +185,26 @@ def paged_attention_mla(q_abs, q_rope, ckv_pages, krope_pages, page_table,
                             device=q_abs.device))
     out = torch.empty((b, h, rdim), dtype=q_abs.dtype, device=q_abs.device)
     mass = torch.empty((b, n), dtype=torch.float32, device=q_abs.device)
-    f32 = dict(dtype=torch.float32, device=q_abs.device)
-    m_page = torch.empty((b, h, n), **f32)
-    s_page = torch.empty((b, h, n), **f32)
-    m_final = torch.empty((b, h), **f32)
-    l_final = torch.empty((b, h), **f32)
+    pps, splits = mla_split_plan(n, page, b, h)
+    # scratch: part_acc [B, H, splits, R], part_m and part_l [B, H,
+    # splits], m_page and s_page [B, H, n]
+    parts = b * h * splits
+    stream = torch.cuda.current_stream(q_abs.device).cuda_stream
+    need = parts * (rdim + 2) + 2 * b * h * n
+    key = (q_abs.device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _scratch[key] = torch.empty(need, dtype=torch.float32,
+                                          device=q_abs.device)
+    at = buf.data_ptr()
+    part_m = at + 4 * parts * rdim
+    m_page = part_m + 8 * parts
     err = _load().paged_attention_mla_launch(
         _DTYPES[q_abs.dtype], q_abs.data_ptr(), q_rope.data_ptr(),
         ckv_pages.data_ptr(), krope_pages.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), mass.data_ptr(),
-        m_page.data_ptr(), s_page.data_ptr(), m_final.data_ptr(),
-        l_final.data_ptr(), b, h, rdim, kdim, page, n, n_phys, float(scale),
-        torch.cuda.current_stream(q_abs.device).cuda_stream)
+        lengths.data_ptr(), out.data_ptr(), mass.data_ptr(), at, part_m,
+        part_m + 4 * parts, m_page, m_page + 4 * b * h * n, b, h, rdim,
+        kdim, page, n, n_phys, float(scale), pps, splits, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_mla kernel launch failed: CUDA "
                            f"error {err}")
