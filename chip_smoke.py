@@ -22,8 +22,16 @@ non-zero):
   4. full-width qwen3-14b (all 40 layers, float32 weights from a seeded
      init) served by the macro-step ``ContinuousBatcher`` over
      ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner``: 8
-     requests until drained.  The kernel's launch count must equal
-     40 x the decode steps run;
+     requests until drained, first by the graph route (one captured decode
+     step replayed ``n_steps`` times a macro, one host sync a macro: the
+     main path), then by the eager route (the same step body from Python)
+     over fresh pools.  The kernel's launch count must equal 40 x the
+     steps the device ran (every replayed step; on the eager route those
+     must be the decode steps), the two routes' streams (greedy and
+     sampled), migrations, hits, misses and tuner history must be
+     identical, and each route prints its tokens/s, macro wall p50,
+     device vs decode steps and one profiled macro (ms/step, busy and
+     idle share);
   5. parity on the card: on a reduced GQA config, the batcher's greedy
      streams (macro and per-token) equal ``generate``'s (dense attention,
      no kernel);
@@ -66,9 +74,11 @@ non-zero):
  11. full-width deepseek-v3-671b (MLA + MoE; depth cut from 61 layers to
      2, one dense-MLP and one MoE layer, float32 weights from a seeded
      init) served by the macro-step batcher with phase 4's request mix,
-     after phase 4's qwen3-14b is freed.  The MLA kernel's launch count
-     must equal 2 x the decode steps run; one decode macro is profiled as
-     in phase 4;
+     after phase 4's qwen3-14b is freed, by the eager route (a routed MoE
+     layer reads its expert counts back to the host, so it has no
+     graph).  The MLA kernel's launch count must equal 2 x the device
+     steps, which must be the decode steps; one decode macro is profiled
+     as in phase 4;
  12. parity on the card: on reduced deepseek-v3-671b, the batcher's
      greedy streams (macro and per-token) equal ``generate``'s (dense MLA
      decode, no kernel);
@@ -88,11 +98,12 @@ non-zero):
      window 1024; float32 weights from a seeded init) with
      ``attention_impl="pallas"``, served by the macro-step batcher after
      deepseek is freed: 6 requests with prompts of 1040-1600 tokens,
-     longer than the window.  The flash kernel's launches must equal 48 x
-     admissions and the paged kernel's 48 x decode steps, and the Cori
-     loop must act: hits counted and the tuner out of its profile window
-     (a page counts as accessed while inside the window,
-     ``GEMMA_ACCESS_THRESHOLD``);
+     longer than the window, by the graph route and then by the eager
+     route, as phase 4 (both serve the whole mix).  The flash kernel's
+     launches must equal 48 x admissions and the paged kernel's 48 x the
+     device steps, and the Cori loop must act: hits counted and the tuner
+     out of its profile window (a page counts as accessed while inside
+     the window, ``GEMMA_ACCESS_THRESHOLD``);
  16. parity on the card: on reduced gemma3-12b (window 8) the batcher's
      greedy streams equal ``generate``'s under both ``attention_impl``
      settings, and the settings agree; at full width, phase 15's first
@@ -273,7 +284,8 @@ def _reset_counts(kernels) -> None:
 
 def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
                n_logical=256, hbm_pages=128, max_len=1024, n_req=8,
-               prompt=(128, 513), new=(48, 97), access_threshold=0.05):
+               prompt=(128, 513), new=(48, 97), access_threshold=0.05,
+               eager=False):
     """Serve a request mix with the macro-step batcher over
     ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner`` until
     drained, with every kernel's launch count set to 0 just before:
@@ -281,8 +293,11 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     half-open ranges ``prompt`` and ``new``, requests 2 and 5 sampled at
     temperature 0.8.  A page counts as accessed in a step when its
     layer-averaged attention mass reaches ``access_threshold`` (the
-    manager's hits and the tuner's reuse gaps).  Prints and checks what
-    every served model shares; returns (batcher, result, rng, requests)."""
+    manager's hits and the tuner's reuse gaps).  ``eager`` asks the
+    batcher for the eager route; otherwise it takes the route its config
+    and the card give it (printed).  Prints and checks what every served
+    model shares; returns (batcher, result, rng, requests), the result
+    with the route's streams, tiering counts and tuner history."""
     page = 16
     pools = memtier.SharedPagedPools.create(n_logical, hbm_pages)
     mgr = memtier.TieringManager(n_logical, memtier.TierConfig(
@@ -291,8 +306,12 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     tuner = cori.OnlineTuner(n_logical, default_period=8,
                              access_threshold=access_threshold)
     mon = S.TrafficMonitor(pools, mgr, tuner)
+    t0 = time.monotonic()
     b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=4,
-                            max_len=max_len, page_size=page)
+                            max_len=max_len, page_size=page, eager=eager)
+    torch.cuda.synchronize()
+    print(f"route {b.route} (eager asked: {eager}; graph capture included: "
+          f"batcher built in {time.monotonic() - t0:.2f} s)", flush=True)
     leaves = [k[:-4] for k in pools.kv_layers if k.endswith("_hbm")]
     pool_bytes = sum(t.numel() * t.element_size()
                      for ts in pools.kv_layers.values() for t in ts
@@ -333,8 +352,9 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     print(f"served {len(out)} requests, {n_tok} tokens in {wall:.2f} s: "
           f"{n_tok / wall:.2f} tokens/s end to end (prefill included)",
           flush=True)
-    print(f"macros {len(macros)}, decode steps {b.decode_steps}, macro wall "
-          f"p50 {float(np.median(walls)):.1f} ms (min {walls[0]:.1f}, max "
+    print(f"macros {len(macros)}, decode steps {b.decode_steps}, device "
+          f"steps {b.device_steps}, macro wall p50 "
+          f"{float(np.median(walls)):.1f} ms (min {walls[0]:.1f}, max "
           f"{walls[-1]:.1f}), admissions {len(admits)} taking "
           f"{sum(e['wall_ms'] for e in admits) / 1e3:.2f} s", flush=True)
     print(f"tiering (access threshold {access_threshold}): migrations "
@@ -364,12 +384,77 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     if pools.free_pages != n_logical:
         _fail("pages leaked after the drain")
     telemetry.install(telemetry.Recorder())
-    result = dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+    result = dict(route=b.route, tokens=n_tok, wall_s=wall,
+                  tokens_per_s=n_tok / wall,
                   macro_p50_ms=float(np.median(walls)), macros=len(macros),
-                  decode_steps=b.decode_steps, peak_gb=peak_gb,
-                  admissions=len(admits),
+                  decode_steps=b.decode_steps, device_steps=b.device_steps,
+                  peak_gb=peak_gb, admissions=len(admits),
                   first_joiners=admits[0]["joiners"] if admits else 0)
-    return b, result, rng, reqs
+    same = dict(streams=out, migrations=mgr.migrations, hits=mgr.hits,
+                misses=mgr.misses, tuner_history=list(tuner.history))
+    return b, result, same, rng, reqs
+
+
+def _check_launches(name, launches, layers, b, eager) -> None:
+    """A decode kernel's launches in a served mix: layers x the steps the
+    device ran (every replayed step of a graphed macro), and on the eager
+    route those steps are the decode steps (no step without a live
+    row)."""
+    ok = launches == layers * b.device_steps
+    print(f"{name} launches {launches} = {layers} layers x "
+          f"{b.device_steps} device steps -> {ok} ({b.route} route; "
+          f"decode steps {b.decode_steps})", flush=True)
+    if not ok:
+        _fail(f"{name}'s launches do not match {layers} x the device steps")
+    if eager and b.device_steps != b.decode_steps:
+        _fail(f"the eager route ran {b.device_steps} device steps for "
+              f"{b.decode_steps} decode steps")
+    if b.device_steps < b.decode_steps:
+        _fail("fewer device steps than decode steps")
+
+
+def _serve_routes(params, cfg, S, memtier, cori, telemetry, kernels, check,
+                  **mix):
+    """Serve the mix by the graph route (the main path), then by the eager
+    route over fresh pools; ``check(b, result, eager)`` checks each
+    route's launches before one macro is profiled (``_profile_macro``)
+    and the batcher is freed.  Fails unless the two routes' streams,
+    migrations, hits, misses and tuner history are identical.  Returns
+    ({route: result}, requests)."""
+    results, same = {}, {}
+    for eager in (False, True):
+        print(f"-- the {'eager' if eager else 'graph'} route", flush=True)
+        b, res, same[eager], rng, reqs = _serve_mix(
+            params, cfg, S, memtier, cori, telemetry, kernels, eager=eager,
+            **mix)
+        if b.route != ("eager" if eager else "graph"):
+            _fail(f"{cfg.name}: the batcher took the {b.route} route")
+        check(b, res, eager)
+        res["profile"] = _profile_macro(b, S, cfg, rng)
+        results[b.route] = res
+        held = torch.cuda.memory_allocated()
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"batcher freed: allocated {held / 1e9:.2f} GB -> "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    for key in same[False]:
+        ok = same[False][key] == same[True][key]
+        print(f"graph == eager: {key} {ok}", flush=True)
+        if not ok:
+            _fail(f"{cfg.name}: the graph and eager routes differ in {key}")
+    results["graph"].update((k, v) for k, v in same[False].items()
+                            if k != "streams")
+    for route, res in results.items():
+        prof = res["profile"]
+        busy = ("busy/idle not measured" if prof["busy_pct"] is None else
+                f"busy {prof['busy_pct']:.1f}% / idle {prof['idle_pct']:.1f}%")
+        print(f"{cfg.name} {route} route: {res['tokens_per_s']:.2f} tokens/s, "
+              f"macro wall p50 {res['macro_p50_ms']:.1f} ms, profiled "
+              f"{prof['ms_per_step']:.1f} ms/step, {busy}, device steps "
+              f"{res['device_steps']} vs decode steps {res['decode_steps']}",
+              flush=True)
+    return results, reqs
 
 
 def _check_freed(held: int) -> None:
@@ -398,28 +483,28 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {n_params / 1e9:.3f} B "
           f"float32 params ({cfg.param_count() / 1e9:.3f} B without norms) "
           f"in {time.monotonic() - t0:.1f} s", flush=True)
-    b, result, rng, _ = _serve_mix(params, cfg, S, memtier, cori, telemetry,
-                                   kernels)
-    del params
-    launches = result["launches"] = pa.paged_attention.launches
-    print(f"paged_attention launches {launches} = {cfg.num_layers} layers x "
-          f"{b.decode_steps} decode steps -> "
-          f"{launches == cfg.num_layers * b.decode_steps}", flush=True)
-    if launches != cfg.num_layers * b.decode_steps:
-        _fail("the kernel's launches do not match 40 x the decode steps")
-    _profile_macro(b, S, cfg, rng)
+
+    def check(b, result, eager):
+        result["launches"] = pa.paged_attention.launches
+        _check_launches("paged_attention", result["launches"],
+                        cfg.num_layers, b, eager)
+
+    results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
+                               kernels, check)
     held = torch.cuda.memory_allocated()
-    del b            # the deepseek phase needs the card
+    del params       # the deepseek phase needs the card
     _check_freed(held)
-    return result
+    return results
 
 
-def _profile_macro(b, S, cfg, rng) -> None:
+def _profile_macro(b, S, cfg, rng) -> dict:
     """Where one full-width decode macro's time goes: four fresh requests
     are admitted (unprofiled step), then one decode macro runs under
     ``torch.profiler``.  Prints the macro's wall time, the device time the
     profiler attributes to kernels (busy share = device time / wall) and
-    the kernels that take the most of it."""
+    the kernels that take the most of it; then drains the batcher.
+    Returns ms/step (wall, per decode step), busy and idle percent (None
+    when the profiler saw no device time) and each group's ms/step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(4):
@@ -427,14 +512,14 @@ def _profile_macro(b, S, cfg, rng) -> None:
             0, cfg.vocab_size, 256).astype(np.int32), max_new_tokens=40))
     b.step()                                   # admission + first macro
     torch.cuda.synchronize()
-    steps0 = b.decode_steps
+    steps0, dsteps0 = b.decode_steps, b.device_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         b.step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    steps = b.decode_steps - steps0
+    steps, dsteps = b.decode_steps - steps0, b.device_steps - dsteps0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -447,7 +532,8 @@ def _profile_macro(b, S, cfg, rng) -> None:
                else "matmul (cuBLAS)" if "gemm" in name or "gemv" in name
                else "other")
         groups[key] += e.self_device_time_total / 1e3
-    print(f"profiled decode macro: {steps} steps in {wall_ms:.1f} ms wall "
+    print(f"profiled decode macro ({b.route} route): {steps} steps ({dsteps} "
+          f"on the device) in {wall_ms:.1f} ms wall "
           f"({wall_ms / max(1, steps):.1f} ms/step); device time "
           f"{dev_ms:.1f} ms -> busy {dev_ms / wall_ms * 100:.1f}%, idle "
           f"{100 - dev_ms / wall_ms * 100:.1f}%"
@@ -461,6 +547,12 @@ def _profile_macro(b, S, cfg, rng) -> None:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
     b.run()
+    busy = dev_ms / wall_ms * 100 if dev_ms > 0 else None
+    return dict(ms_per_step=wall_ms / max(1, steps), steps=steps,
+                device_steps=dsteps,
+                busy_pct=busy, idle_pct=None if busy is None else 100 - busy,
+                **{f"{k.split()[0]}_ms_per_step": ms / max(1, steps)
+                   for k, ms in groups.items()})
 
 
 def _parity(cfg, mdl, S, memtier, cori, engine) -> dict:
@@ -1148,18 +1240,21 @@ def phase_deepseek(C, mdl, pa, pam, S, memtier, cori, telemetry, kernels):
           f"top-{mo.top_k} of {mo.d_expert} + {mo.num_shared} shared, vocab "
           f"{cfg.vocab_size}: {n_params / 1e9:.3f} B float32 params in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    b, result, rng, _ = _serve_mix(params, cfg, S, memtier, cori, telemetry,
-                                   kernels)
+    b, result, _, rng, _ = _serve_mix(params, cfg, S, memtier, cori,
+                                      telemetry, kernels)
     del params
+    print(f"route {b.route}: routed MoE reads its expert counts back to the "
+          "host (moe_apply), so the batcher takes the eager route",
+          flush=True)
+    if b.route != "eager":
+        _fail("a routed MoE config must take the eager route")
     launches = result["launches"] = pam.paged_attention_mla.launches
     kv_launches = pa.paged_attention.launches
-    print(f"paged_attention_mla launches {launches} = {cfg.num_layers} "
-          f"layers x {b.decode_steps} decode steps -> "
-          f"{launches == cfg.num_layers * b.decode_steps}; k/v "
-          f"paged_attention launches {kv_launches}", flush=True)
-    if launches != cfg.num_layers * b.decode_steps or kv_launches:
-        _fail("the MLA kernel's launches do not match 2 x the decode steps")
-    _profile_macro(b, S, cfg, rng)
+    _check_launches("paged_attention_mla", launches, cfg.num_layers, b, True)
+    print(f"k/v paged_attention launches {kv_launches}", flush=True)
+    if kv_launches:
+        _fail("the k/v kernel ran in an MLA model")
+    result["profile"] = _profile_macro(b, S, cfg, rng)
     held = torch.cuda.memory_allocated()
     del b
     _check_freed(held)
@@ -1388,41 +1483,35 @@ def phase_gemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
           f"{n_params / 1e9:.3f} B float32 params ({n_params * 4 / 1e9:.2f} "
           f"GB) in {time.monotonic() - t0:.1f} s; attention_impl "
           f"{cfg.attention_impl}", flush=True)
-    b, result, rng, reqs = _serve_mix(
-        params, cfg, S, memtier, cori, telemetry, kernels, n_logical=512,
-        hbm_pages=384, max_len=2048, n_req=6, prompt=(1040, 1601),
-        new=(32, 65), access_threshold=GEMMA_ACCESS_THRESHOLD)
-    launches = result["launches"] = fa.flash_attention.launches
-    kv_launches = result["paged_launches"] = pa.paged_attention.launches
-    adm, steps = result["admissions"], b.decode_steps
-    print(f"flash_attention launches {launches} = {cfg.num_layers} layers x "
-          f"{adm} admissions -> {launches == cfg.num_layers * adm}; "
-          f"paged_attention launches {kv_launches} = {cfg.num_layers} layers "
-          f"x {steps} decode steps -> "
-          f"{kv_launches == cfg.num_layers * steps}", flush=True)
-    if launches != cfg.num_layers * adm or adm <= 0:
-        _fail("the flash kernel's launches do not match 48 x the admissions")
-    if kv_launches != cfg.num_layers * steps:
-        _fail("the paged kernel's launches do not match 48 x the decode "
-              "steps")
-    mgr, tuner = b.monitor.manager, b.monitor.tuner
-    if mgr.hits <= 0 or tuner.dominant_reuse is None:
-        _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant reuse "
-              f"{tuner.dominant_reuse} (the tuner never left profile)")
-    result.update(hits=mgr.hits, migrations=mgr.migrations,
-                  tuner_history=list(tuner.history))
-    first = _first_admission(S, reqs, result["first_joiners"])
+
+    def check(b, result, eager):
+        launches = result["launches"] = fa.flash_attention.launches
+        adm = result["admissions"]
+        print(f"flash_attention launches {launches} = {cfg.num_layers} "
+              f"layers x {adm} admissions -> "
+              f"{launches == cfg.num_layers * adm}", flush=True)
+        if launches != cfg.num_layers * adm or adm <= 0:
+            _fail("the flash kernel's launches do not match 48 x the "
+                  "admissions")
+        result["paged_launches"] = pa.paged_attention.launches
+        _check_launches("paged_attention", result["paged_launches"],
+                        cfg.num_layers, b, eager)
+        mgr, tuner = b.monitor.manager, b.monitor.tuner
+        if mgr.hits <= 0 or tuner.dominant_reuse is None:
+            _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
+                  f"reuse {tuner.dominant_reuse} (the tuner never left "
+                  "profile)")
+
+    results, reqs = _serve_routes(
+        params, cfg, S, memtier, cori, telemetry, kernels, check,
+        n_logical=512, hbm_pages=384, max_len=2048, n_req=6,
+        prompt=(1040, 1601), new=(32, 65),
+        access_threshold=GEMMA_ACCESS_THRESHOLD)
+    first = _first_admission(S, reqs, results["graph"]["first_joiners"])
     print(f"first admission: {first[2]} joiners packed as "
           f"{tuple(first[0].shape)}, lengths {first[1].tolist()}",
           flush=True)
-    _profile_macro(b, S, cfg, rng)
-    held = torch.cuda.memory_allocated()
-    del b            # the pools; the weights stay for phase 16
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"pools freed: allocated {held / 1e9:.2f} GB -> "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
-    return result, params, first
+    return results, params, first
 
 
 def phase_gemma_parity(C, mdl, S, memtier, cori, engine, params, first):
@@ -1618,7 +1707,7 @@ def main() -> int:
     flash_err = timed("flash_attention check", phase_flash_check, fa)
     gemma, params, first = timed("gemma3 serving", phase_gemma, C, mdl, pa,
                                  fa, S, memtier, cori, telemetry, kernels)
-    gemma["full_width_logit_delta"] = timed(
+    gemma["graph"]["full_width_logit_delta"] = timed(
         "gemma3 parity", phase_gemma_parity, C, mdl, S, memtier, cori,
         engine, params, first)
     held = torch.cuda.memory_allocated()
@@ -1633,13 +1722,14 @@ def main() -> int:
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:121",
-             launches=serve["launches"],
+             launches=serve["graph"]["launches"],
              max_abs_err=max(err, timing["qwen3-14b"]["max_abs_err"]),
              **{k: v for k, v in timing["qwen3-14b"].items()
                 if k != "max_abs_err"},
              shape="qwen3-14b decode (phase 4)",
              also={"gemma3-12b decode (phase 15)": dict(
-                 timing["gemma3-12b"], launches=gemma["paged_launches"])}),
+                 timing["gemma3-12b"],
+                 launches=gemma["graph"]["paged_launches"])}),
         dict(name="page_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/page_hist.cu",
              replaces="src/repro/kernels/page_hist.py:45",
@@ -1659,7 +1749,7 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:73",
-             launches=gemma["launches"],
+             launches=gemma["graph"]["launches"],
              max_abs_err=max(flash_err, main_case.pop("max_abs_err")),
              **main_case, shape="B=4 S=T=2048 16/8 heads D=256 float32 "
              "window 1024 (phase 17)", also=flash_timing)]}),

@@ -6,6 +6,11 @@ source and flags: the library is named after a hash of both and kept in
 ``build/`` beside this file (gitignored), with the compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) as ``<lib>.log``.
 ``build_many`` starts one ``nvcc`` per source at once and waits for all.
+
+Beside the build, the wrappers' launch bookkeeping: ``scratch`` (a
+wrapper's float32 scratch, cached per stream, or the capturing graph's)
+and ``count_launch`` (the launch counters, which a CUDA graph's capture
+does not move).
 """
 from __future__ import annotations
 
@@ -18,7 +23,9 @@ import subprocess
 import tempfile
 from typing import Dict, List, Sequence, Tuple
 
-__all__ = ["BASE_FLAGS", "build_many", "load"]
+import torch
+
+__all__ = ["BASE_FLAGS", "build_many", "count_launch", "load", "scratch"]
 
 _DIR = pathlib.Path(__file__).resolve().parent
 CSRC = _DIR / "csrc"
@@ -84,3 +91,32 @@ def load(name: str, flags: Sequence[str]) -> ctypes.CDLL:
     if lib not in _loaded:
         _loaded[lib] = ctypes.CDLL(str(lib))
     return _loaded[lib]
+
+
+def scratch(cache: Dict, need: int, device) -> torch.Tensor:
+    """A kernel's float32 scratch of at least ``need`` elements on
+    ``device``.  Eager calls reuse one buffer per (device, stream) from
+    ``cache``: a call reuses it only after the previous call on that
+    stream (stream order), and an allocation costs host time on every
+    decode layer.  Under CUDA graph capture every call allocates its own
+    from the graph's private pool, so the graph owns it for as long as it
+    replays, and no other graph or eager call can regrow or free it."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(need, dtype=torch.float32, device=device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = cache.get(key)
+    if buf is None or buf.numel() < need:
+        buf = cache[key] = torch.empty(need, dtype=torch.float32,
+                                       device=device)
+    return buf
+
+
+def count_launch(fn) -> None:
+    """One kernel launch by the wrapper ``fn``: ``fn.launches += 1``.
+    Under CUDA graph capture nothing runs, so the call counts in
+    ``fn.captured`` instead, and each replay of the graph adds its
+    captured launches to ``fn.launches`` (``models.graphs``)."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1

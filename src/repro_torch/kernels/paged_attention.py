@@ -10,8 +10,10 @@ for Hopper (``csrc/paged_attention.cu``, built for ``sm_90a`` with
 goes to the plain version, a CUDA tensor goes to the kernel, and anything
 the kernel does not take raises -- there is no fallback.  Every kernel
 call (a split launch and its combine) adds one to
-``paged_attention.launches``.  ``split_plan`` is the host's choice of how
-the kernel splits a row's pages over blocks.
+``paged_attention.launches`` (a call captured into a CUDA graph adds one
+to ``paged_attention.captured`` instead, and each replay adds its
+captures to ``launches``: ``_build.count_launch``).  ``split_plan`` is the
+host's choice of how the kernel splits a row's pages over blocks.
 
 Semantics (shared by the kernel and the plain version): q [B, H, D];
 k_pages/v_pages [P, page, KV, D] (float32 or bfloat16, one dtype with q);
@@ -43,9 +45,8 @@ TARGET_BLOCKS = 512
 MAX_PAGES_PER_SPLIT = 32
 MAX_HEAD_DIM = 512
 _lib = None
-# the kernel's float32 scratch, kept between calls: one buffer per (device,
-# stream), so a call reuses it only after the previous call on that stream
-# (stream order) -- an allocation costs host time on every decode layer
+# the kernel's float32 scratch between eager calls, one buffer per (device,
+# stream); a graph capture allocates its own (``_build.scratch``)
 _scratch = {}
 
 
@@ -164,12 +165,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
     # splits], s_page [B, H, n]
     parts = b * h * splits
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    need = parts * (d + 2) + b * h * n
-    key = (q.device.index, stream)
-    buf = _scratch.get(key)
-    if buf is None or buf.numel() < need:
-        buf = _scratch[key] = torch.empty(need, dtype=torch.float32,
-                                          device=q.device)
+    buf = _build.scratch(_scratch, parts * (d + 2) + b * h * n, q.device)
     at = buf.data_ptr()
     err = _load().paged_attention_launch(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
@@ -181,8 +177,9 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention.launches += 1
+    _build.count_launch(paged_attention)
     return out, mass
 
 
 paged_attention.launches = 0
+paged_attention.captured = 0

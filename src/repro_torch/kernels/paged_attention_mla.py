@@ -12,9 +12,10 @@ function.
 tensor goes to the plain version, a CUDA tensor goes to the kernel, and
 anything the kernel does not take raises -- there is no fallback.  Every
 kernel call (a split launch and its combine) adds one to
-``paged_attention_mla.launches``.  ``mla_split_plan`` is the host's choice
-of how the kernel splits a row's pages over blocks, each block taking
-``HEADS_PER_BLOCK`` heads.
+``paged_attention_mla.launches`` (under CUDA graph capture to
+``.captured``: ``_build.count_launch``).  ``mla_split_plan`` is the
+host's choice of how the kernel splits a row's pages over blocks, each
+block taking ``HEADS_PER_BLOCK`` heads.
 
 Semantics (shared by the kernel and the plain version): q_abs [B, H, R]
 (the no-pe queries with W_uk absorbed), q_rope [B, H, K]; ckv_pages
@@ -57,9 +58,8 @@ TILE = 32
 MAX_R = 512
 MAX_R_PLUS_K = 576
 _lib = None
-# the kernel's float32 scratch, kept between calls: one buffer per (device,
-# stream), so a call reuses it only after the previous call on that stream
-# (stream order) -- an allocation costs host time on every decode layer
+# the kernel's float32 scratch between eager calls, one buffer per (device,
+# stream); a graph capture allocates its own (``_build.scratch``)
 _scratch = {}
 
 
@@ -190,12 +190,8 @@ def paged_attention_mla(q_abs, q_rope, ckv_pages, krope_pages, page_table,
     # splits], m_page and s_page [B, H, n]
     parts = b * h * splits
     stream = torch.cuda.current_stream(q_abs.device).cuda_stream
-    need = parts * (rdim + 2) + 2 * b * h * n
-    key = (q_abs.device.index, stream)
-    buf = _scratch.get(key)
-    if buf is None or buf.numel() < need:
-        buf = _scratch[key] = torch.empty(need, dtype=torch.float32,
-                                          device=q_abs.device)
+    buf = _build.scratch(_scratch, parts * (rdim + 2) + 2 * b * h * n,
+                         q_abs.device)
     at = buf.data_ptr()
     part_m = at + 4 * parts * rdim
     m_page = part_m + 8 * parts
@@ -208,8 +204,9 @@ def paged_attention_mla(q_abs, q_rope, ckv_pages, krope_pages, page_table,
     if err != 0:
         raise RuntimeError(f"paged_attention_mla kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention_mla.launches += 1
+    _build.count_launch(paged_attention_mla)
     return out, mass
 
 
 paged_attention_mla.launches = 0
+paged_attention_mla.captured = 0

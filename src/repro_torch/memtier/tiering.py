@@ -92,6 +92,8 @@ class SharedPagedPools:
         self.n_logical = int(n_logical)
         self.hbm_pages = int(hbm_pages)
         self.kv_layers: Optional[Dict[str, List[torch.Tensor]]] = None
+        #: the same leaves with their sink page (``attach_layered``)
+        self.kv_with_sink: Optional[Dict[str, List[torch.Tensor]]] = None
         self.layer_meta: Tuple = ()
         #: leaves moved per page migration (tier.move accounting)
         self.move_planes = 2
@@ -124,7 +126,14 @@ class SharedPagedPools:
         compressed ``ckv``/``krope`` for MLA slots), zero-filled on
         ``device`` (default cuda).  Host side [R, n_logical, *trailing],
         HBM side [R, hbm_pages, *trailing].  A layer lacking a leaf holds
-        ``None`` in that leaf's per-layer list, as the reference."""
+        ``None`` in that leaf's per-layer list, as the reference.
+
+        Each leaf is allocated with one more page, the *sink*: no table
+        ever names it, and the decode's write-through sends the rows that
+        must not write (dead rows, unmapped write pages) there, where the
+        reference dropped them as out-of-range scatter indices
+        (``PAGE_DROP``).  ``kv_layers`` holds views without the sink;
+        ``kv_with_sink`` the same storage with it, for the decode."""
         dev = resolve_device(device)
         names: List[str] = []
         for _, leaves in layer_specs:
@@ -133,20 +142,23 @@ class SharedPagedPools:
                     names.append(name)
         kv: Dict[str, List[Optional[torch.Tensor]]] = {
             f"{name}_{tier}": [] for name in names for tier in ("hbm", "host")}
+        sunk = {key: [] for key in kv}
         for r, leaves in layer_specs:
             for name in names:
-                if name not in leaves:
-                    kv[f"{name}_host"].append(None)
-                    kv[f"{name}_hbm"].append(None)
-                    continue
-                trail = tuple(int(x) for x in leaves[name])
-                kv[f"{name}_host"].append(torch.zeros(
-                    (int(r), self.n_logical) + trail, dtype=dtype,
-                    device=dev))
-                kv[f"{name}_hbm"].append(torch.zeros(
-                    (int(r), self.hbm_pages) + trail, dtype=dtype,
-                    device=dev))
+                for tier, n in (("host", self.n_logical),
+                                ("hbm", self.hbm_pages)):
+                    key = f"{name}_{tier}"
+                    if name not in leaves:
+                        kv[key].append(None)
+                        sunk[key].append(None)
+                        continue
+                    trail = tuple(int(x) for x in leaves[name])
+                    full = torch.zeros((int(r), n + 1) + trail, dtype=dtype,
+                                       device=dev)
+                    sunk[key].append(full)
+                    kv[key].append(full[:, :n])
         self.kv_layers = kv
+        self.kv_with_sink = sunk
         self.layer_meta = tuple(int(r) for r, _ in layer_specs)
         # pages_moved accounting: the planes (leaves) one logical-page
         # migration moves -- k + v, or ckv + krope for MLA

@@ -10,7 +10,12 @@ outer).  The reference traces ``lax.scan`` over repeats; PyTorch runs the
 same order as a Python loop over per-repeat views.
 
 The paged decode path updates the shared page pools in place
-(``index_put_``) where the reference returned a new, donated pytree.
+(``index_put_``) where the reference returned a new, donated pytree; the
+rows that must not write go to each leaf's sink page, where the
+reference dropped out-of-range indices.  Its step body (``decode_body``
+over a ``MacroCarry``) reads nothing back to the host, so a CUDA graph
+can capture it (``models.graphs``); ``decode_macro_step`` runs it from
+Python (the eager route).
 
 Ported layer kinds: causal GQA attention and sliding-window ``local``
 attention (k/v cache rows; a local slot's dense cache is a ring of
@@ -24,10 +29,10 @@ later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import List, Sequence
+from typing import List
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -41,7 +46,8 @@ from repro_torch.models.moe import MoE, moe_apply
 __all__ = ["Slot", "Transformer", "init", "forward", "prefill", "pad_cache",
            "init_cache", "decode_step", "prefill_batched", "state_slot_meta",
            "slot_leaf_specs", "slot_leaf_names", "decode_step_paged",
-           "decode_macro_step", "sample"]
+           "decode_macro_step", "decode_body", "MacroCarry", "macro_state",
+           "sample", "uniform"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -476,20 +482,29 @@ def decode_step_paged(params, cfg: ModelConfig, kv, tables, gid_tables,
     shared page pools (no dense cache exists): attention slots through
     ``ops.paged_attention``, MLA slots through ``ops.paged_attention_mla``.
 
-    kv:         the pools' layered leaves (``SharedPagedPools.kv_layers``):
-                ``{"k_hbm"|"v_hbm": [per slot [R, hbm_pages, page, KV, D]],
-                "k_host"|"v_host": [per slot [R, n_logical, ...]]}``, and
-                for MLA slots ``ckv_*`` [.., page, kv_lora] / ``krope_*``
-                [.., page, rope]; updated in place.
+    kv:         the pools' layered leaves with their sink page
+                (``SharedPagedPools.kv_with_sink``): ``{"k_hbm"|"v_hbm":
+                [per slot [R, hbm_pages + 1, page, KV, D]], "k_host"|
+                "v_host": [per slot [R, n_logical + 1, ...]]}``, and for
+                MLA slots ``ckv_*`` [.., page, kv_lora] / ``krope_*``
+                [.., page, rope]; updated in place.  The last page of
+                every leaf is the sink, which no table names.
     tables:     int32[B, n] HBM slot per row page (-1 = padding/inactive).
     gid_tables: int32[B, n] logical page id per row page (-1 = padding).
     tokens: [B, 1]; cur_pos: [B] position being decoded (-1 = inactive).
 
     Returns (logits [B,1,V], page_mass f32[B, n]): the head-normalised
     attention mass per row page, averaged over every attention layer and
-    zero for inactive rows."""
+    zero for inactive rows.  Reads nothing back to the host (routed MoE
+    layers aside: ``moe.moe_apply`` reads its expert counts)."""
     return _paged_decode_core(params, cfg, kv, tables, gid_tables, tokens,
                               cur_pos, page_size=page_size)
+
+
+def _sink_page(kv, tier: str) -> int:
+    """The sink page of one tier's leaves: their last page."""
+    return next(t.shape[1] for key, leaves in kv.items()
+                if key.endswith(tier) for t in leaves if t is not None) - 1
 
 
 def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
@@ -504,12 +519,14 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
     wslot = tables[rows, pg].long()
     wgid = gid_tables[rows, pg].long()
     # the reference's drop-mode scatter (`.at[...].set(mode="drop")` with
-    # an out-of-range sentinel) as an explicit mask: only active rows
-    # whose write page is mapped write, on each tier
-    hbm_rows = torch.nonzero(active & (wslot >= 0)).squeeze(1)
-    host_rows = torch.nonzero(active & (wgid >= 0)).squeeze(1)
-    hbm_at = (wslot[hbm_rows], off[hbm_rows])
-    host_at = (wgid[host_rows], off[host_rows])
+    # PAGE_DROP) as a fixed-shape masked write: every row writes, and the
+    # rows that must not (inactive, or their write page unmapped on that
+    # tier) write into the tier's sink page, which no table names -- so no
+    # live row's index is ever duplicated and nothing is read back
+    hbm_at = (torch.where(active & (wslot >= 0), wslot,
+                          _sink_page(kv, "_hbm")), off)
+    host_at = (torch.where(active & (wgid >= 0), wgid,
+                           _sink_page(kv, "_host")), off)
 
     x = L.embed(params.tok, cfg, tokens)
     mass_sum = torch.zeros((b, tables.shape[1]), dtype=torch.float32,
@@ -530,8 +547,8 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
         # attends the current token too
         for pool_h, pool_host, e in zip(hbm, host, new):
             e1 = e[:, 0].to(pool_h.dtype)
-            pool_h.index_put_(hbm_at, e1[hbm_rows])
-            pool_host.index_put_(host_at, e1[host_rows])
+            pool_h.index_put_(hbm_at, e1)
+            pool_host.index_put_(host_at, e1)
         if slot.kind.mla:
             # the paged analogue of layers.mla_decode: attend in the
             # compressed space, then up-project with W_uv
@@ -556,38 +573,156 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
     return logits, page_mass
 
 
-def _uniform(seed: int, it: int) -> float:
-    """The uniform draw of a sampled token: a CPU ``torch.Generator``
-    seeded from (request seed, iteration), so ``generate``, the per-token
-    paged path and the macro path draw the same number for the same
-    token.  (JAX's threefry ``fold_in`` schedule cannot be reproduced in
-    torch; sampled streams match the port's own paths, greedy streams
-    match the reference.)"""
-    g = torch.Generator().manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
-                                      | (int(it) & 0xFFFFFFFF))
-    return float(torch.rand((), generator=g))
+# ---------------------------------------------------------------------------
+# sampling: a counter-based uniform per (seed, iteration), on the device
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
 
 
-def sample(logits, temps: Sequence[float], seeds: Sequence[int],
-           iters: Sequence[int]):
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for int64 lanes x in [0, 2**32): ``c`` is split
+    into 16-bit halves so that no product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer hash (Wellons' "lowbias32") on int64 lanes in
+    [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def uniform(seeds, iters):
+    """The uniform draw of a sampled token, float32 [B] in [0, 1): the top
+    24 bits of ``mix32(mix32(seed + golden) ^ iter)`` (low 32 bits of
+    each), from int64 tensors ``seeds`` and ``iters`` [B].  Integer tensor
+    ops only, so the bits are the same on the CPU and the card, and no
+    generator state is kept: ``generate``, the per-token paged path and
+    the macro path draw the same number for the same token.  (JAX's
+    threefry ``fold_in`` schedule cannot be reproduced in torch; sampled
+    streams match the port's own paths, greedy streams the reference.)"""
+    h = _mix32(_mix32((seeds + _GOLDEN) & _M32) ^ (iters & _M32))
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def sample(logits, temps, seeds, iters):
     """Next token per row of ``logits`` [B, V]: argmax where the row's
     temperature is 0, otherwise an inverse-CDF draw from
-    softmax(logits / temperature) at the row's ``_uniform(seed, iter)``.
-    Returns int64 [B] on the logits' device."""
+    softmax(logits / temperature) at the row's ``uniform(seed, iter)``.
+    ``temps`` f32 [B], ``seeds`` and ``iters`` int64 [B] lie on the
+    logits' device; nothing is read back to the host.  Returns int64
+    [B]."""
     greedy = logits.argmax(dim=-1)
-    if not any(t > 0 for t in temps):
-        return greedy
-    dev = logits.device
-    t = torch.tensor([t if t > 0 else 1.0 for t in temps],
-                     dtype=torch.float32, device=dev)
-    u = torch.tensor([_uniform(s, i) if tt > 0 else 0.0
-                      for s, i, tt in zip(seeds, iters, temps)],
-                     dtype=torch.float32, device=dev)
+    hot = temps > 0
+    t = torch.where(hot, temps, torch.ones_like(temps))
     cdf = torch.softmax(logits.float() / t[:, None], dim=-1).cumsum(dim=-1)
+    u = uniform(seeds, iters)
     drawn = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None]).squeeze(1)
     drawn = drawn.clamp_max(logits.shape[-1] - 1)
-    hot = torch.tensor([tt > 0 for tt in temps], device=dev)
     return torch.where(hot, drawn, greedy)
+
+
+# ---------------------------------------------------------------------------
+# the decode macro: a sync-free step body over a device carry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MacroCarry:
+    """A decode macro's per-row state, all on one device, updated in place
+    by ``decode_body`` (so a CUDA graph can be captured over it).
+
+    Inputs, read only in the body: ``temps`` f32[B], ``seeds`` int64[B],
+    ``max_new`` int64[B] (token budget), ``eos`` int64[B] (-1 = none).
+    Carried: ``tok`` int64[B, 1] (the last token), ``pos`` int64[B] (-1 =
+    no request in the row), ``stopped`` bool[B], ``em`` int64[B] (tokens
+    emitted, prefill sample included), ``it`` int64[B] (decode iterations
+    done), ``mass_sum`` f32[B, n], ``alive_steps`` int64[B], ``toks_out``
+    int64[S, B] (-1 = row not alive) and ``step`` int64[1], the row of
+    ``toks_out`` the next step writes."""
+
+    temps: torch.Tensor
+    seeds: torch.Tensor
+    max_new: torch.Tensor
+    eos: torch.Tensor
+    tok: torch.Tensor
+    pos: torch.Tensor
+    stopped: torch.Tensor
+    em: torch.Tensor
+    it: torch.Tensor
+    mass_sum: torch.Tensor
+    alive_steps: torch.Tensor
+    toks_out: torch.Tensor
+    step: torch.Tensor
+
+    @classmethod
+    def empty(cls, b: int, n_row_pages: int, max_steps: int, device):
+        i64 = lambda *s: torch.zeros(s, dtype=torch.int64, device=device)
+        return cls(temps=torch.zeros((b,), device=device), seeds=i64(b),
+                   max_new=i64(b), eos=i64(b), tok=i64(b, 1), pos=i64(b),
+                   stopped=torch.zeros((b,), dtype=torch.bool,
+                                       device=device),
+                   em=i64(b), it=i64(b),
+                   mass_sum=torch.zeros((b, n_row_pages), device=device),
+                   alive_steps=i64(b), toks_out=i64(max_steps, b),
+                   step=i64(1))
+
+    def load(self, tokens, cur_pos, seeds, iters, emitted, max_new, eos_ids,
+             temps) -> None:
+        """Copy a macro's inputs (device tensors, rows as ``empty``) in and
+        reset the sums.  A row may enter with its stop condition already
+        met (the incoming token hits EOS or the budget): it freezes before
+        its first step, as the reference's entry check."""
+        for dst, src in ((self.tok, tokens), (self.pos, cur_pos),
+                         (self.seeds, seeds), (self.it, iters),
+                         (self.em, emitted), (self.max_new, max_new),
+                         (self.eos, eos_ids), (self.temps, temps)):
+            dst.copy_(src)
+        self.stopped.copy_(_stop(self.pos >= 0, self))
+        self.mass_sum.zero_()
+        self.alive_steps.zero_()
+        self.step.zero_()
+
+    def alive(self):
+        return (self.pos >= 0) & ~self.stopped
+
+
+def _stop(rows, c: MacroCarry):
+    """Rows (of the mask ``rows``) whose budget is spent or whose last
+    token is their EOS."""
+    return rows & ((c.em >= c.max_new)
+                   | ((c.eos >= 0) & (c.tok[:, 0] == c.eos)))
+
+
+def decode_body(params, cfg: ModelConfig, kv, tables, gid_tables,
+                c: MacroCarry, *, page_size: int) -> None:
+    """One step of the decode macro over the carry ``c``, in place, with
+    no read back to the host (routed MoE aside): decode every alive row
+    off the pools, add its page mass, sample its next token at iteration
+    ``it + 1`` and apply the stop conditions.  Dead rows freeze: no KV
+    writes (their position goes in as -1, so the write-through sends them
+    to the sink), no mass, no emission.  Every row writes
+    ``toks_out[step]`` (-1 when not alive)."""
+    alive = c.alive()
+    cur = torch.where(alive, c.pos, -1)
+    logits, mass = _paged_decode_core(params, cfg, kv, tables, gid_tables,
+                                      c.tok, cur, page_size=page_size)
+    c.mass_sum += mass                 # the core zeroes dead rows
+    c.alive_steps += alive
+    new_tok = sample(logits[:, 0], c.temps, c.seeds, c.it + 1)
+    c.it += alive
+    c.em += alive
+    c.tok.copy_(torch.where(alive[:, None], new_tok[:, None], c.tok))
+    c.stopped |= _stop(alive, c)
+    c.pos += alive
+    c.toks_out.index_put_((c.step,),
+                          torch.where(alive, c.tok[:, 0], -1)[None])
+    c.step += 1
 
 
 def decode_macro_step(params, cfg: ModelConfig, kv, tables, gid_tables,
@@ -596,63 +731,42 @@ def decode_macro_step(params, cfg: ModelConfig, kv, tables, gid_tables,
     """Up to ``n_steps`` fully-paged decode steps for the whole request
     set, with on-device sampling, mass accumulation and EOS / length
     masking, so the host hands over page tables once per movement period
-    and reads back (tokens, summed mass, finished flags) once.
+    and reads back (tokens, summed mass, finished flags) once: the eager
+    route.  ``graphs.DecodeGraph`` replays the same ``decode_body`` as a
+    CUDA graph.
 
     The reference runs this as one ``lax.scan`` whose ``lax.cond`` skips
-    the model once every row is done; here it is a Python loop over the
-    eager decode core that reads back one alive mask per step (the
-    any-row-alive check, and each sampled row's iteration number).
+    the model once every row is done; here it is a Python loop over
+    ``decode_body`` that reads back one any-row-alive flag a step and
+    stops there.
 
-    tokens int64[B,1] / cur_pos int64[B] on the device (cur_pos -1 = no
-    request in the row); per-row host sequences: ``seeds`` (request seed),
-    ``iters`` (decode iterations done), ``emitted`` (tokens emitted so
-    far incl. the prefill sample), ``max_new`` (token budget), ``eos_ids``
-    (-1 = none), ``temps``.
+    tokens int64[B,1] / cur_pos int64[B] (-1 = no request in the row) and
+    the per-row int64 [B] ``seeds`` (request seed), ``iters`` (decode
+    iterations done), ``emitted`` (tokens emitted so far incl. the
+    prefill sample), ``max_new`` (token budget), ``eos_ids`` (-1 = none)
+    and f32 [B] ``temps``, all on the device.
 
     A row is alive while ``cur_pos >= 0`` and no stop condition has
-    fired; dead rows freeze (no KV writes, no mass, no emission), so the
-    stream matches the per-token path, which retires on the host before
-    the next launch.  Returns (tokens_out int64[n_steps, B] (-1 = row not
-    alive), state) with state = {mass_sum f32[B, n], alive_steps int64[B],
-    pos, iters (host list), emitted, stopped bool[B], last_tok [B,1]}.
-    """
-    b = tokens.shape[0]
-    dev = tokens.device
-    as_dev = lambda a: torch.as_tensor(np.asarray(a), device=dev)
-    max_new, eos_ids = as_dev(max_new), as_dev(eos_ids)
-    em = as_dev(emitted)
-    tok, pos = tokens.clone(), cur_pos.clone()
-    it = [int(i) for i in iters]
-    # a row may enter with its stop condition already met (the incoming
-    # token hits EOS or the budget): it freezes before its first step
-    stopped = (pos >= 0) & ((em >= max_new)
-                            | ((eos_ids >= 0) & (tok[:, 0] == eos_ids)))
-    mass_sum = torch.zeros((b, tables.shape[1]), dtype=torch.float32,
-                           device=dev)
-    alive_steps = torch.zeros((b,), dtype=torch.int64, device=dev)
-    toks_out = torch.full((n_steps, b), -1, dtype=torch.int64, device=dev)
-    for s in range(n_steps):
-        alive = (pos >= 0) & ~stopped
-        alive_h = alive.tolist()
-        if not any(alive_h):
-            break                      # every row done: skip the model
-        cur = torch.where(alive, pos, torch.full_like(pos, -1))
-        logits, mass = _paged_decode_core(params, cfg, kv, tables,
-                                          gid_tables, tok, cur,
-                                          page_size=page_size)
-        mass_sum += mass               # the core zeroes dead rows
-        alive_steps += alive
-        new_tok = sample(logits[:, 0], temps, seeds,
-                         [i + 1 for i in it])
-        it = [i + 1 if a else i for i, a in zip(it, alive_h)]
-        em = torch.where(alive, em + 1, em)
-        tok = torch.where(alive[:, None], new_tok[:, None], tok)
-        stopped |= alive & ((em >= max_new)
-                            | ((eos_ids >= 0) & (tok[:, 0] == eos_ids)))
-        pos = torch.where(alive, pos + 1, pos)
-        toks_out[s] = torch.where(alive, tok[:, 0],
-                                  torch.full_like(tok[:, 0], -1))
-    state = {"mass_sum": mass_sum, "alive_steps": alive_steps, "pos": pos,
-             "iters": it, "emitted": em, "stopped": stopped,
-             "last_tok": tok}
-    return toks_out, state
+    fired; dead rows freeze (``decode_body``), so the stream matches the
+    per-token path, which retires on the host before the next launch.
+    Returns (tokens_out int64[n_steps, B] (-1 = row not alive), state)
+    with state = {mass_sum f32[B, n], alive_steps int64[B], pos, iters,
+    emitted, stopped bool[B], last_tok [B,1]} on the device, and
+    ``steps``, the steps run (an int)."""
+    c = MacroCarry.empty(tokens.shape[0], tables.shape[1], n_steps,
+                         tokens.device)
+    c.toks_out.fill_(-1)
+    c.load(tokens, cur_pos, seeds, iters, emitted, max_new, eos_ids, temps)
+    steps = 0
+    while steps < n_steps and bool(c.alive().any()):
+        decode_body(params, cfg, kv, tables, gid_tables, c,
+                    page_size=page_size)
+        steps += 1
+    return c.toks_out, macro_state(c, steps)
+
+
+def macro_state(c: MacroCarry, steps: int) -> dict:
+    """What the scheduler reads back after a macro of ``steps`` steps."""
+    return {"mass_sum": c.mass_sum, "alive_steps": c.alive_steps,
+            "pos": c.pos, "iters": c.it, "emitted": c.em,
+            "stopped": c.stopped, "last_tok": c.tok, "steps": steps}

@@ -23,9 +23,9 @@ def generate(params, cfg: ModelConfig, prompt_tokens, steps: int, *,
     """Greedy/temperature generation.  prompt_tokens: [B, P_len] ints
     (array or tensor).  Returns int64 tokens [B, steps] on the device.
 
-    Token ``i`` (0 = the prefill's) is drawn with
-    ``model.sample(..., seeds=[seed], iters=[i])``, the schedule the
-    batcher follows per request."""
+    Token ``i`` (0 = the prefill's) is drawn by ``model.sample`` at
+    (``seed``, iteration ``i``) on the device, the schedule the batcher
+    follows per request."""
     dev = resolve_device(device)
     if params.tok.device != dev:
         raise ValueError(f"params live on {params.tok.device}, not {dev}")
@@ -33,15 +33,17 @@ def generate(params, cfg: ModelConfig, prompt_tokens, steps: int, *,
                              device=dev)
     b, plen = prompt.shape
     max_len = max_len or (plen + steps)
-    temps, seeds = [temperature] * b, [seed] * b
+    temps = torch.full((b,), float(temperature), device=dev)
+    seeds = torch.full((b,), int(seed), dtype=torch.int64, device=dev)
+    its = lambda i: torch.full((b,), i, dtype=torch.int64, device=dev)
     logits, cache = mdl.prefill(params, cfg, prompt)
     cache = mdl.pad_cache(cache, cfg, max_len)
     pos = torch.full((b,), plen, dtype=torch.int64, device=dev)
-    tok = mdl.sample(logits[:, 0], temps, seeds, [0] * b)[:, None]
+    tok = mdl.sample(logits[:, 0], temps, seeds, its(0))[:, None]
     out = [tok]
     for i in range(steps - 1):
         logits, cache = mdl.decode_step(params, cfg, cache, tok, pos)
-        tok = mdl.sample(logits[:, 0], temps, seeds, [i + 1] * b)[:, None]
+        tok = mdl.sample(logits[:, 0], temps, seeds, its(i + 1))[:, None]
         out.append(tok)
         pos = pos + 1
     return torch.cat(out, dim=1)

@@ -11,9 +11,15 @@ loop).
     straight into the pool), decodes the request set with every attention
     layer reading the pool through the paged-attention kernel, and
     retires requests on EOS or length, returning their pages.  By default
-    it runs macro steps: one ``model.decode_macro_step`` per movement
-    period, with one monitor feed and one tiering boundary per macro, and
-    the period the tuner derives is the length of the next macro.
+    it runs macro steps: one macro per movement period, with one monitor
+    feed and one tiering boundary per macro, and the period the tuner
+    derives is the length of the next macro.  A macro runs by one of two
+    routes, chosen at construction from the config and the device: the
+    *graph* route (on a card, for every config without routed MoE)
+    replays one captured decode step ``n_steps`` times
+    (``models.graphs.DecodeGraph``) and syncs with the host once per
+    macro; the *eager* route (on the CPU, for routed MoE, or when asked)
+    runs the same step body from Python (``model.decode_macro_step``).
 
 Invariants kept from the reference: page ids are released everywhere
 (pool, manager, tuner) before they can recycle; tiering ranks only
@@ -38,6 +44,7 @@ from repro_torch.ft.monitor import StepTimer
 from repro_torch.memtier.tiering import (PAGE_DROP, SharedPagedPools,
                                          TieringManager, bucket_pages,
                                          write_pages_batched)
+from repro_torch.models import graphs
 from repro_torch.models import model as mdl
 from repro_torch.obs import telemetry as _obs
 
@@ -120,6 +127,32 @@ class TrafficMonitor:
         self.pools.free(gids)
 
 
+def _upload(device, *arrays) -> List[torch.Tensor]:
+    """numpy arrays as tensors on ``device``.  On a card the host does
+    not wait: each array is staged in pinned memory and copied
+    non-blocking (the caching host allocator keeps a staging buffer until
+    its copy is done)."""
+    if device.type != "cuda":
+        return [torch.as_tensor(a) for a in arrays]
+    return [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+            .to(device, non_blocking=True) for a in arrays]
+
+
+def _read_back(*tensors) -> List[np.ndarray]:
+    """Tensors as numpy arrays, with one host sync for all of them on a
+    card: non-blocking copies into pinned buffers, then one event wait."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return [t.numpy().copy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return [h.numpy() for h in host]
+
+
 def pack_prompts(prompts: Sequence[np.ndarray]
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """An admission's prompts packed for one ``prefill_batched`` call:
@@ -168,19 +201,24 @@ class ContinuousBatcher:
 
     Each request's token pages occupy a bucket-rounded run of global pages
     (``bucket_pages``); every attention layer decodes through the pool's
-    ``slot_of`` tables (``model.decode_step_paged`` per token, or
-    ``model.decode_macro_step`` per movement period with ``macro=True``,
-    the default), and the per-page masses the tuner reads come from every
-    attention layer of the decode itself.  Before each launch every page
-    the decode can touch is demand-fetched into HBM (charged as misses);
-    admission is gated so the in-flight exact footprint fits the HBM slot
-    pool.  Runs on ``device`` (default cuda), where the parameters must
-    already live.
+    ``slot_of`` tables (``model.decode_step_paged`` per token, or a macro
+    per movement period with ``macro=True``, the default), and the
+    per-page masses the tuner reads come from every attention layer of
+    the decode itself.  Before each launch every page the decode can
+    touch is demand-fetched into HBM (charged as misses); admission is
+    gated so the in-flight exact footprint fits the HBM slot pool.  Runs
+    on ``device`` (default cuda), where the parameters must already live.
+
+    ``route`` is the macro's route, fixed at construction: ``"graph"``
+    on a CUDA device for a config ``graphs.supports`` (no routed MoE),
+    unless ``eager=True``; ``"eager"`` otherwise (and for the per-token
+    path, which syncs once a token and has no graph).
     """
 
     def __init__(self, params, cfg, *, monitor: TrafficMonitor,
                  max_active: int = 4, max_len: int = 128,
-                 page_size: int = 16, macro: bool = True, device=None):
+                 page_size: int = 16, macro: bool = True, eager: bool = False,
+                 device=None):
         mdl.check_supported(cfg)
         self.device = resolve_device(device)
         if params.tok.device != self.device:
@@ -204,8 +242,12 @@ class ContinuousBatcher:
         self.active: Dict[int, Request] = {}
         self.queue: "collections.deque[Request]" = collections.deque()
         self.step_idx = 0
-        #: decode steps run (one pass of every layer over the request set)
+        #: decode steps run (one pass of every layer over the request set
+        #: with a live row)
         self.decode_steps = 0
+        #: decode steps the device ran: ``n_steps`` per graphed macro (dead
+        #: rows freeze inside the graph), ``decode_steps`` on the eager route
+        self.device_steps = 0
         self.completed: List[Request] = []
 
         pools = monitor.pools
@@ -215,11 +257,22 @@ class ContinuousBatcher:
         self._hbm_need = 0     # exact pages the in-flight set can touch
         self._gid_tables = np.full((max_active, self.n_row_pages), -1,
                                    np.int32)
-        # device page tables, rebuilt only when a page re-slotted
-        # (pools.slot_epoch) or the row mapping changed (_rows_epoch)
+        # static device page tables (the graph is captured over them),
+        # rewritten only when a page re-slotted (pools.slot_epoch) or the
+        # row mapping changed (_rows_epoch)
         self._rows_epoch = 0
         self._tables_key = None
-        self._tables_dev = None
+        self._tables_dev = tuple(
+            torch.full((max_active, self.n_row_pages), -1, dtype=torch.int32,
+                       device=self.device) for _ in range(2))
+        self.route = ("graph" if self.macro and not eager
+                      and self.device.type == "cuda" and graphs.supports(cfg)
+                      else "eager")
+        self._graph = None
+        if self.route == "graph":
+            self._graph = graphs.DecodeGraph(
+                params, cfg, pools.kv_with_sink, *self._tables_dev,
+                max_steps=bucket_pages(self.max_len), page_size=page_size)
 
     # -- admission -----------------------------------------------------------
     def _pages_exact(self, req: Request) -> int:
@@ -288,17 +341,19 @@ class ContinuousBatcher:
         self._rows_epoch += 1
 
     def _tables_for(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Device (slot table, gid table) for a decode launch, cached
-        until a page re-slots or the row mapping changes."""
+        """The static device (slot table, gid table) for a decode launch,
+        rewritten in place when a page re-slots or the row mapping
+        changes."""
         pools = self.monitor.pools
         key = (pools.slot_epoch, self._rows_epoch)
         if self._tables_key != key:
             slots = np.full_like(self._gid_tables, -1)
             m = self._gid_tables >= 0
             slots[m] = pools.table(self._gid_tables[m])
-            self._tables_dev = (
-                torch.as_tensor(slots, device=self.device),
-                torch.as_tensor(self._gid_tables, device=self.device))
+            for dst, src in zip(self._tables_dev,
+                                _upload(self.device, slots,
+                                        self._gid_tables)):
+                dst.copy_(src)
             self._tables_key = key
         return self._tables_dev
 
@@ -320,11 +375,14 @@ class ContinuousBatcher:
             self.params, self.cfg, torch.as_tensor(toks, device=self.device),
             torch.as_tensor(plens_p, device=self.device))
         self._write_prefill_pages(cache_b, batch, plens)
-        first = mdl.sample(logits_b[: len(batch), 0],
-                           [r.temperature for r in batch],
-                           [r.seed for r in batch], [0] * len(batch))
+        first = mdl.sample(logits_b[: len(batch), 0], *_upload(
+            self.device, np.asarray([r.temperature for r in batch],
+                                    np.float32),
+            np.asarray([r.seed for r in batch], np.int64),
+            np.zeros((len(batch),), np.int64)))
         emitted: List[Tuple[int, int]] = []
-        for req, tok, plen in zip(batch, first.tolist(), plens):
+        for req, tok, plen in zip(batch, _read_back(first)[0].tolist(),
+                                  plens):
             req.tokens.append(tok)
             emitted.append((req.rid, tok))
             self.tok[req.row, 0] = tok
@@ -378,36 +436,52 @@ class ContinuousBatcher:
             r.observe("serve.step_s", time.monotonic() - t0)
         return emitted
 
+    def _row_inputs(self, rows) -> Dict[str, np.ndarray]:
+        """The per-row inputs of a decode launch, rows without a request
+        inert: position (-1), seed, decode iterations done, tokens
+        emitted, budget, EOS (-1 = none) and temperature."""
+        b = self.max_active
+        cur = np.full((b,), -1, np.int64)
+        seeds, iters, emitted, max_new = (np.zeros((b,), np.int64)
+                                          for _ in range(4))
+        eos = np.full((b,), -1, np.int64)
+        temps = np.zeros((b,), np.float32)
+        for row, req in rows:
+            cur[row] = self.pos[row]
+            seeds[row], iters[row] = req.seed, req._i
+            emitted[row] = len(req.tokens)
+            max_new[row] = req.max_new_tokens
+            eos[row] = -1 if req.eos_id is None else req.eos_id
+            temps[row] = req.temperature
+        return dict(cur=cur, seeds=seeds, iters=iters, emitted=emitted,
+                    max_new=max_new, eos=eos, temps=temps)
+
     def _step_paged(self) -> List[Tuple[int, int]]:
         """One paged decode step: demand-fetch the in-flight working set,
-        decode every row off the pool, feed the monitor, sample, retire."""
+        decode every row off the pool, sample on the device, read the
+        masses and tokens back once, feed the monitor, retire."""
         pools = self.monitor.pools
         fetched = pools.ensure_resident(
             self._need({row: 1 for row in self.active}))
         tables, gid_tables = self._tables_for()
-        cur = np.full((self.max_active,), -1, np.int64)
-        for row in self.active:
-            cur[row] = self.pos[row]
-        logits, masses = mdl.decode_step_paged(
-            self.params, self.cfg, pools.kv_layers, tables, gid_tables,
-            self.tok, torch.as_tensor(cur, device=self.device),
-            page_size=self.page_size)
-        self.decode_steps += 1
-        masses = masses.cpu().numpy()
         rows = list(self.active.items())
+        inp = self._row_inputs(rows)
+        cur, temps, seeds, iters = _upload(
+            self.device, inp["cur"], inp["temps"], inp["seeds"],
+            inp["iters"] + 1)
+        logits, masses = mdl.decode_step_paged(
+            self.params, self.cfg, pools.kv_with_sink, tables, gid_tables,
+            self.tok, cur, page_size=self.page_size)
+        new_tok = mdl.sample(logits[:, 0], temps, seeds, iters)
+        masses, toks = _read_back(masses, new_tok)
+        self.decode_steps += 1
+        self.device_steps += 1
         merged = self.monitor.merge(
             [(r.gids[: r.n_pages], masses[row, : r.n_pages])
              for row, r in rows])
         self.monitor.on_step(merged, n_active=len(rows), fetched=fetched)
 
-        temps = [0.0] * self.max_active
-        seeds = [0] * self.max_active
-        iters = [0] * self.max_active
-        for row, req in rows:
-            temps[row], seeds[row], iters[row] = (req.temperature, req.seed,
-                                                  req._i + 1)
-        new_tok = mdl.sample(logits[:, 0], temps, seeds, iters)
-        toks = new_tok.tolist()
+        toks = toks.tolist()
         emitted: List[Tuple[int, int]] = []
         for row, req in rows:
             self.pos[row] += 1
@@ -422,10 +496,12 @@ class ContinuousBatcher:
 
     def _step_paged_macro(self) -> List[Tuple[int, int]]:
         """Macro-step decode: up to a movement period's worth of tokens for
-        the whole request set in one ``model.decode_macro_step``; the host
-        hands over page tables once and reads back (tokens, summed mass,
-        finished flags) once, then runs one merged monitor feed -- one
-        tiering boundary and one tuner update per period."""
+        the whole request set by the batcher's route (a graph replayed
+        ``n_steps`` times, or ``model.decode_macro_step``); the host hands
+        over page tables once and reads back (tokens, summed mass,
+        finished flags, positions, iterations) once, then runs one merged
+        monitor feed -- one tiering boundary and one tuner update per
+        period."""
         pools = self.monitor.pools
         rows = list(self.active.items())
         period = self.monitor.manager.period
@@ -440,31 +516,25 @@ class ContinuousBatcher:
         # re-fetches are charged inside the tuner's cost window below
         fetched = pools.ensure_resident(self._need(horizons))
         tables, gid_tables = self._tables_for()
-        cur = np.full((self.max_active,), -1, np.int64)
-        seeds = [0] * self.max_active
-        iters = [0] * self.max_active
-        emitted_ct = [0] * self.max_active
-        max_new = [0] * self.max_active
-        eos = [-1] * self.max_active
-        temps = [0.0] * self.max_active
-        for row, req in rows:
-            cur[row] = self.pos[row]
-            seeds[row], iters[row] = req.seed, req._i
-            emitted_ct[row] = len(req.tokens)
-            max_new[row] = req.max_new_tokens
-            eos[row] = -1 if req.eos_id is None else req.eos_id
-            temps[row] = req.temperature
+        inp = self._row_inputs(rows)
+        dev_in = _upload(self.device, inp["cur"], inp["seeds"],
+                         inp["iters"], inp["emitted"], inp["max_new"],
+                         inp["eos"], inp["temps"])
 
         self.macro_timer.start()
-        toks, st = mdl.decode_macro_step(
-            self.params, self.cfg, pools.kv_layers, tables, gid_tables,
-            self.tok, torch.as_tensor(cur, device=self.device), seeds, iters,
-            emitted_ct, max_new, eos, temps, n_steps=n_steps,
-            page_size=self.page_size)
-        toks_np = toks.cpu().numpy()
-        mass_sum = st["mass_sum"].cpu().numpy()
-        alive_steps = st["alive_steps"].cpu().numpy()
-        stopped = st["stopped"].cpu().numpy()
+        if self.route == "graph":
+            toks, st = self._graph.launch(self.tok, *dev_in, n_steps=n_steps)
+        else:
+            toks, st = mdl.decode_macro_step(
+                self.params, self.cfg, pools.kv_with_sink, tables,
+                gid_tables, self.tok, *dev_in, n_steps=n_steps,
+                page_size=self.page_size)
+        # the next macro's input token; a clone, since the graph's carry
+        # is overwritten by the next replay
+        self.tok = st["last_tok"].clone()
+        toks_np, mass_sum, alive_steps, stopped, pos, iters = _read_back(
+            toks, st["mass_sum"], st["alive_steps"], st["stopped"],
+            st["pos"], st["iters"])
         macro_wall = self.macro_timer.stop(self.step_idx)
 
         # one merge + monitor feed per movement period: the mean mass over
@@ -475,13 +545,13 @@ class ContinuousBatcher:
               mass_sum[row, : r.n_pages] / max(1, int(alive_steps[row])))
              for row, r in rows])
         self.decode_steps += int(alive_steps.max())
+        self.device_steps += st["steps"]
         dt = max(1, int(alive_steps.max()))
         n_active = float(alive_steps.sum()) / dt
         self.monitor.on_macro_step(merged, n_active=n_active, n_tokens=dt,
                                    fetched=fetched)
 
-        self.pos = st["pos"].cpu().numpy()
-        self.tok = st["last_tok"]
+        self.pos = pos
         emitted: List[Tuple[int, int]] = []
         for t in range(toks_np.shape[0]):
             for row, req in rows:
@@ -490,7 +560,7 @@ class ContinuousBatcher:
                     req.tokens.append(tk)
                     emitted.append((req.rid, tk))
         for row, req in rows:
-            req._i = st["iters"][row]
+            req._i = int(iters[row])
             if stopped[row]:
                 self._retire(req)
         if (r := _obs.RECORDER).enabled:

@@ -281,7 +281,10 @@ def test_decode_step_paged_matches(arch):
         rp, rcfg, rkv, jnp.asarray(tables), jnp.asarray(gid_tables),
         jnp.asarray(tokens), jnp.asarray(cur_pos), page_size=page,
         impl="reference")
-    tkv = {k: [torch.from_numpy(a.copy()) for a in v]
+    # one sink page past the pages the tables name, as
+    # ``SharedPagedPools.kv_with_sink``
+    tkv = {k: [torch.from_numpy(np.concatenate([a, np.zeros_like(a[:, :1])],
+                                               axis=1)) for a in v]
            for k, v in pools.items()}
     tl, tmass = TM.decode_step_paged(
         tp, tcfg, tkv, torch.from_numpy(tables), torch.from_numpy(gid_tables),
@@ -295,8 +298,8 @@ def test_decode_step_paged_matches(arch):
                                atol=TOL)
     for k in pools:
         for t, r in zip(tkv[k], rkv2[k]):
-            np.testing.assert_allclose(t.numpy(), np.asarray(r), atol=TOL,
-                                       rtol=0)
+            np.testing.assert_allclose(t[:, :-1].numpy(), np.asarray(r),
+                                       atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)

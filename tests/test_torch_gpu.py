@@ -535,3 +535,194 @@ def test_flash_kernel_rejects_what_it_does_not_take():
                             k, k)
     with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention(q[..., :48], k[..., :48], k[..., :48])
+
+
+# ---------------------------------------------------------------------------
+# the decode macro as a CUDA graph (``models.graphs``) against the eager
+# route: reduced GQA and sliding-window configs, float32, two rows, four
+# requests admitted in turn, two of them sampled
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = {"gqa": "qwen3-14b", "window": "gemma3-12b"}
+_GRAPH_MODELS = {}
+
+
+def _graph_model(kind):
+    import dataclasses
+    import repro_torch.configs as TC
+    from repro_torch.models import model as TM
+    if kind not in _GRAPH_MODELS:
+        cfg = dataclasses.replace(TC.reduced(GRAPH_ARCHS[kind]),
+                                  dtype="float32")
+        _GRAPH_MODELS[kind] = (cfg, TM.init(cfg, seed=0, device="cuda"))
+    return _GRAPH_MODELS[kind]
+
+
+def _graph_batcher(kind, eager, max_active=2, max_len=32):
+    """(batcher, recorded merges, submit) of one route; the monitor feeds
+    every merged mass into ``merges``."""
+    import numpy as np
+    from repro_torch.core.cori import OnlineTuner
+    from repro_torch.memtier.tiering import (SharedPagedPools, TierConfig,
+                                             TieringManager)
+    from repro_torch.serve import sched as TS
+    cfg, params = _graph_model(kind)
+    mon = TS.TrafficMonitor(
+        SharedPagedPools.create(48, 10),
+        TieringManager(48, TierConfig(page_size=4, hbm_pages=10,
+                                      period_steps=2)),
+        OnlineTuner(48, default_period=2, profile_steps=8, trial_steps=4))
+    merges = []
+    merge = mon.merge
+    mon.merge = lambda c: merges.append(merge(c)) or merges[-1]
+    b = TS.ContinuousBatcher(params, cfg, monitor=mon, max_active=max_active,
+                             max_len=max_len, page_size=4, eager=eager,
+                             device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (6, 9, 5, 11)]
+    new, temps = (6, 4, 9, 7), (0.0, 0.8, 0.0, 0.8)
+
+    def submit(i):
+        b.submit(TS.Request(rid=i, prompt=prompts[i], max_new_tokens=new[i],
+                            temperature=temps[i], seed=100 + i))
+    return b, merges, submit
+
+
+def _drive(batchers):
+    """Step the (batcher, merges, submit) triples in turn, two requests
+    up front and two joining mid-flight, until all drain; return each
+    one's (streams, merges, tiering, tuner history, pools)."""
+    for _, _, submit in batchers:
+        submit(0)
+        submit(1)
+    t = 0
+    while any(not b.idle for b, _, _ in batchers) or t < 4:
+        for b, _, submit in batchers:
+            if t in (1, 3):
+                submit(2 if t == 1 else 3)
+            b.step()
+        t += 1
+    torch.cuda.synchronize()
+    out = []
+    for b, merges, _ in batchers:
+        mgr, pools = b.monitor.manager, b.monitor.pools
+        out.append(dict(
+            streams={r.rid: r.tokens for r in b.completed},
+            merges=merges, tiering=(mgr.migrations, mgr.hits, mgr.misses),
+            history=list(b.monitor.tuner.history),
+            pools={k: [t.clone() for t in v if t is not None]
+                   for k, v in pools.kv_layers.items()}))
+    return out
+
+
+def _same(a, b):
+    assert a["streams"] == b["streams"]
+    assert len(a["merges"]) == len(b["merges"])
+    for x, y in zip(a["merges"], b["merges"]):
+        assert (x == y).all()
+    assert a["tiering"] == b["tiering"]
+    assert a["history"] == b["history"]
+    for k in a["pools"]:
+        for x, y in zip(a["pools"][k], b["pools"][k]):
+            assert torch.equal(x, y), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(GRAPH_ARCHS))
+def test_graph_route_equals_eager_route(kind):
+    """Greedy and sampled streams, every merged mass, the tiering counts,
+    the tuner history and the pools' bytes are identical by both
+    routes."""
+    _card()
+    graph, eager = _graph_batcher(kind, False), _graph_batcher(kind, True)
+    assert graph[0].route == "graph" and eager[0].route == "eager"
+    (g,), (e,) = _drive([graph]), _drive([eager])
+    assert sorted(g["streams"]) == [0, 1, 2, 3]
+    _same(g, e)
+
+
+@pytest.mark.gpu
+def test_two_graphs_captured_and_replayed_in_turn():
+    """Two batchers of different shapes, captured one after the other and
+    stepped in turn (their replays interleaved), each equal to its eager
+    run: neither graph's scratch is another's."""
+    _card()
+    first = _graph_batcher("gqa", False)
+    second = _graph_batcher("window", False, max_active=3, max_len=48)
+    both = _drive([first, second])
+    alone = [_drive([_graph_batcher("gqa", True)])[0],
+             _drive([_graph_batcher("window", True, max_active=3,
+                                    max_len=48)])[0]]
+    for got, want in zip(both, alone):
+        _same(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eager", [False, True])
+def test_launches_are_layers_times_device_steps(eager):
+    """Under replay each graph launch counts the kernel launches captured
+    in one step; the graph runs every step of a macro, the eager route
+    only the live ones."""
+    _card()
+    b, _, submit = _graph_batcher("window", eager)
+    cfg = b.cfg
+    tpa.paged_attention.launches = 0
+    _drive([(b, [], submit)])
+    assert b.decode_steps > 0
+    assert tpa.paged_attention.launches == cfg.num_layers * b.device_steps
+    if eager:
+        assert b.device_steps == b.decode_steps
+    else:
+        assert b.device_steps >= b.decode_steps
+
+
+@pytest.mark.gpu
+def test_graph_capture_and_replay_make_no_host_sync():
+    """``DecodeGraph`` captures and replays under
+    ``torch.cuda.set_sync_debug_mode("error")`` (which does raise on a
+    read back), and its macro equals the eager ``decode_macro_step`` on
+    the same pools."""
+    from repro_torch.memtier.tiering import SharedPagedPools
+    from repro_torch.models import graphs
+    from repro_torch.models import model as TM
+    dev = _card()
+    cfg, params = _graph_model("window")
+    tables = torch.tensor([[3, 7, 1, -1, -1], [0, 2, 5, 9, 11]],
+                          dtype=torch.int32, device=dev)
+    gids = torch.where(tables >= 0, tables + 5, -1).to(torch.int32)
+    pools = []
+    for _ in range(2):
+        p = SharedPagedPools.create(20, 12)
+        p.attach_layered(TM.slot_leaf_specs(cfg, 4), device=dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        for leaves in p.kv_with_sink.values():
+            for t in leaves:
+                if t is not None:
+                    t.normal_(generator=g)
+        pools.append(p)
+    i64 = lambda *v: torch.tensor(v, dtype=torch.int64, device=dev)
+    inputs = (i64([5], [9]), i64(9, 6), i64(1, 2), i64(0, 3), i64(1, 4),
+              i64(20, 20), i64(-1, 7),
+              torch.tensor([0.0, 0.8], device=dev))
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with pytest.raises(RuntimeError):
+            torch.zeros(1, device=dev).item()
+        dg = graphs.DecodeGraph(params, cfg, pools[0].kv_with_sink, tables,
+                                gids, max_steps=8, page_size=4)
+        toks, st = dg.launch(*inputs, n_steps=6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref_toks, ref_st = TM.decode_macro_step(
+        params, cfg, pools[1].kv_with_sink, tables, gids, *inputs,
+        n_steps=6, page_size=4)
+    assert torch.equal(toks, ref_toks)
+    for k in ("mass_sum", "alive_steps", "pos", "iters", "emitted",
+              "stopped", "last_tok"):
+        assert torch.equal(st[k], ref_st[k]), k
+    for k, leaves in pools[0].kv_with_sink.items():
+        for a, b in zip(leaves, pools[1].kv_with_sink[k]):
+            assert torch.equal(a[:, :-1], b[:, :-1]), k
+    assert st["alive_steps"].tolist()[0] == 6
