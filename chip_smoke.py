@@ -14,11 +14,13 @@ non-zero):
      ``src/repro_torch/kernels/csrc``, one process per source, all at once
      (each -Xptxas -v report is printed);
   3. kernel vs plain version on the card: the main-path shape, gemma3's
-     decode shape (16/8 heads, D 256, window 1024), the edges of the
-     kernel's split over pages (``SPLIT_EDGES``) and a GQA / window /
-     softcap grid, float32 and bfloat16, with stated tolerances, each
-     active row's mass summing to 1, and two calls on the same inputs
-     bit-identical;
+     decode shape (16/8 heads, D 256, window 1024), recurrentgemma's (10/1
+     heads, D 256, window 2048, rows past the window, a row without a
+     request and a state page in the tables' last column, past every
+     length), the edges of the kernel's split over pages
+     (``SPLIT_EDGES``) and a GQA / window / softcap grid, float32 and
+     bfloat16, with stated tolerances, each active row's mass summing to
+     1, and two calls on the same inputs bit-identical;
   4. full-width qwen3-14b (all 40 layers, float32 weights from a seeded
      init) served by the macro-step ``ContinuousBatcher`` over
      ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner``: 8
@@ -35,8 +37,9 @@ non-zero):
   5. parity on the card: on a reduced GQA config, the batcher's greedy
      streams (macro and per-token) equal ``generate``'s (dense attention,
      no kernel);
-  6. paged kernel timing at the two served decode shapes (qwen3-14b's,
-     and gemma3-12b's with window 1024): per call (CUDA events) and on
+  6. paged kernel timing at the three served decode shapes (qwen3-14b's,
+     gemma3-12b's with window 1024 and recurrentgemma-2b's with 10/1
+     heads and window 2048): per call (CUDA events) and on
      the device alone (profiler kernel durations), L2 flushed before each
      call, beside its plain version, one SDPA call (the yardstick, which
      the kernel must beat) and the bandwidth bound;
@@ -118,7 +121,30 @@ non-zero):
      3 x TF32's 495 TFLOP/s in float32 (3xTF32; the 67 TFLOP/s CUDA-core
      figure printed beside it), at 989 TFLOP/s in bfloat16.  The float32
      kernel must beat SDPA a call (the yardstick); in bfloat16 the two are
-     recorded side by side.
+     recorded side by side;
+ 18. full-width, full-depth recurrentgemma-2b (26 layers: 18 RG-LRU, 8
+     local attention of window 2048 with 10 query heads over 1 KV head of
+     256; float32 weights from a seeded init, every conv tap drawn from
+     N(0, 0.5) since the reference's zero taps make each cell an
+     identity), served after gemma3-12b is freed: 6 requests with prompts
+     of 2100-2600 tokens, longer than the window, one prefill per request
+     (a recurrent cell cannot take a padded batch), by the graph route
+     and then the eager route, as phase 4.  The paged kernel's launches
+     must equal 8 x the device steps, and the Cori loop must act (hits
+     counted, the tuner out of its profile window; a page counts as
+     accessed while inside the window, ``RGEMMA_ACCESS_THRESHOLD``);
+ 19. full-width, full-depth xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM, no
+     MLP sublayer; conv taps as phase 18): 8 requests with prompts of
+     64-256 tokens over pools of 8 logical / 6 HBM pages, each page one
+     request's packed cell states (~707 MB), by both routes.  No paged
+     kernel runs.  Under the admission gate a pool of state pages alone
+     never runs out of HBM slots, so every few steps the oldest active
+     request's page is demoted (what a preemption does) and the next
+     macro fetches it back from the host tier: the fetched bytes must
+     equal those resident before, and both routes must agree;
+ 20. parity on the card: on reduced recurrentgemma-2b and xlstm-1.3b with
+     non-zero conv taps, the batcher's greedy streams (macro and
+     per-token) equal ``generate``'s (dense decode, no kernel).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -183,6 +209,13 @@ def phase_build(build, kernels) -> None:
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
 
+# recurrentgemma-2b's local layers at phase 18's serving shape: B 4, 10
+# query heads over 1 KV head of 256, window 2048, tables of max_len 3072 /
+# 16 = 192 token pages plus the state page's column
+RGEMMA_DECODE = dict(b=4, h=10, kv=1, d=256, page=16, n=193, p_phys=800,
+                     window=2048, state_col=True)
+
+
 # where the kernel's split over pages can go wrong (``split_plan`` gives
 # 4 pages a split at B=4, KV=8, n=64 or window 1000; 3 at n=50): spans that
 # end inside the first split or on a split boundary (64 = 4 pages, 320 = 5
@@ -204,22 +237,29 @@ SPLIT_EDGES = [
 
 
 def _kernel_case(pa, *, b, h, kv, d, page, n, p_phys, lengths, dtype,
-                 window=0, softcap=0.0, ragged=True, holes=(), seed=0):
+                 window=0, softcap=0.0, ragged=True, holes=(),
+                 state_col=False, seed=0):
     """Random q / pools / table on the card; returns the inputs.  ``holes``
-    lists (row, page) table entries set to -1 inside a row's span."""
+    lists (row, page) table entries set to -1 inside a row's span;
+    ``state_col`` puts a real page in the last column of every row with a
+    request, as the served tables of a recurrent config hold its state
+    page there, past every length."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
     kp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dtype)
     vp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dtype)
-    table = torch.randperm(p_phys, generator=g, device=dev)[: b * n] \
-        .reshape(b, n).to(torch.int32)
+    perm = torch.randperm(p_phys, generator=g, device=dev).to(torch.int32)
+    table = perm[: b * n].reshape(b, n).clone()
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     if ragged:   # rows shorter than the table are padded with -1
         for row, length in enumerate(lengths):
             table[row, -(-length // page):] = -1
     for row, pg in holes:
         table[row, pg] = -1
+    if state_col:
+        live = ln > 0
+        table[live, -1] = perm[b * n: b * n + int(live.sum())]
     return dict(q=q, k_pages=kp, v_pages=vp, page_table=table, lengths=ln,
                 window=window, softcap=softcap)
 
@@ -233,7 +273,11 @@ def phase_kernel_check(pa) -> float:
     # gemma3-12b's decode shape: the window path at D = 256
     gemma = dict(b=4, h=16, kv=8, d=256, page=16, n=128, p_phys=512,
                  lengths=[2048, 1500, 1025, 0], window=1024)
-    grid = [dict(main), gemma] + SPLIT_EDGES
+    # recurrentgemma-2b's: 10 query heads over 1 KV head (five groups of
+    # two at D 256), window 2048, rows past the window, a row without a
+    # request, and its tables' 193rd column holding the state page
+    rgemma = dict(RGEMMA_DECODE, lengths=[3000, 2100, 2049, 0])
+    grid = [dict(main), gemma, rgemma] + SPLIT_EDGES
     for h, kv in ((4, 4), (8, 2), (8, 1)):
         for window, softcap in ((0, 0.0), (3, 0.0), (0, 5.0), (3, 5.0)):
             grid.append(dict(b=3, h=h, kv=kv, d=64, page=16, n=6, p_phys=32,
@@ -256,6 +300,8 @@ def phase_kernel_check(pa) -> float:
             err_sum = float((mass.sum(dim=1)[active] - 1).abs().max())
             t_o, t_m = tol[dtype]
             ok = err_o <= t_o and err_m <= t_m and err_sum <= 1e-5
+            if case.get("state_col"):     # the state page is never read
+                ok = ok and not bool(mass[:, -1].any())
             plan = pa.split_plan(case["n"], case.get("window", 0),
                                  case["page"], case["b"], case["kv"])
             print(f"case {i} {str(dtype)[6:]} H={case['h']} KV={case['kv']} "
@@ -285,7 +331,7 @@ def _reset_counts(kernels) -> None:
 def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
                n_logical=256, hbm_pages=128, max_len=1024, n_req=8,
                prompt=(128, 513), new=(48, 97), access_threshold=0.05,
-               eager=False):
+               eager=False, between=None):
     """Serve a request mix with the macro-step batcher over
     ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner`` until
     drained, with every kernel's launch count set to 0 just before:
@@ -295,9 +341,13 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     layer-averaged attention mass reaches ``access_threshold`` (the
     manager's hits and the tuner's reuse gaps).  ``eager`` asks the
     batcher for the eager route; otherwise it takes the route its config
-    and the card give it (printed).  Prints and checks what every served
-    model shares; returns (batcher, result, rng, requests), the result
-    with the route's streams, tiering counts and tuner history."""
+    and the card give it (printed).  ``between``, if given, takes the
+    batcher and returns a callable that is called with it after every
+    scheduler step.
+    Prints and checks what every served model shares, and the merged
+    page masses the monitor saw (the access threshold is set from them);
+    returns (batcher, result, rng, requests), the result with the route's
+    streams, tiering counts and tuner history."""
     page = 16
     pools = memtier.SharedPagedPools.create(n_logical, hbm_pages)
     mgr = memtier.TieringManager(n_logical, memtier.TierConfig(
@@ -306,6 +356,9 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     tuner = cori.OnlineTuner(n_logical, default_period=8,
                              access_threshold=access_threshold)
     mon = S.TrafficMonitor(pools, mgr, tuner)
+    merged = []
+    merge = mon.merge
+    mon.merge = lambda c: merged.append(merge(c)) or merged[-1]
     t0 = time.monotonic()
     b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=4,
                             max_len=max_len, page_size=page, eager=eager)
@@ -338,10 +391,17 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     rec = telemetry.install(telemetry.Recorder())
     for r in reqs:
         b.submit(r)
+    hook = between(b) if between else None
     _reset_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    out = b.run()
+    if hook is None:
+        out = b.run()
+    else:
+        while not b.idle:
+            b.step()
+            hook(b)
+        out = {r.rid: list(r.tokens) for r in b.completed}
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
 
@@ -366,6 +426,13 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
           f"{tuner.dominant_reuse}, candidates {tuner.candidates.tolist()}, "
           f"tried {tuner.tried}, history {tuner.history}", flush=True)
     print(f"macro lengths: {[e['n_steps'] for e in macros]}", flush=True)
+    pos = np.concatenate([m[m > 0] for m in merged])
+    q = np.quantile(pos, [0.0, 0.01, 0.1, 0.5, 0.9, 1.0])
+    print(f"merged page mass over {len(merged)} feeds, {pos.size} positive "
+          f"entries: min {q[0]:.3g}, p1 {q[1]:.3g}, p10 {q[2]:.3g}, p50 "
+          f"{q[3]:.3g}, p90 {q[4]:.3g}, max {q[5]:.3g}; "
+          f"{float((pos >= access_threshold).mean()) * 100:.1f}% at or "
+          f"above the access threshold {access_threshold}", flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory {peak_gb:.2f} GB", flush=True)
 
@@ -560,6 +627,7 @@ def _parity(cfg, mdl, S, memtier, cori, engine) -> dict:
     per-token, staggered admission over two rows) equal ``generate``'s
     (dense decode, no kernel).  Returns ``generate``'s streams."""
     params = mdl.init(cfg, seed=SEED)
+    _perturb_conv(params)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (6, 9, 5, 11)]
@@ -685,14 +753,16 @@ def _ms_list(named):
     return ", ".join(f"{k} {v:.4f} ms" for k, v in named.items())
 
 
-# the paged kernel's two served decode shapes (float32): qwen3-14b's (phase
-# 4) and gemma3-12b's sliding-window layers (phase 15, 40 of its 48
-# launches a step)
+# the paged kernel's three served decode shapes (float32): qwen3-14b's
+# (phase 4), gemma3-12b's sliding-window layers (phase 15, 40 of its 48
+# launches a step) and recurrentgemma-2b's local layers (phase 18)
 PAGED_SHAPES = {
     "qwen3-14b": dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
                       lengths=[1024, 777, 513, 301]),
     "gemma3-12b": dict(b=4, h=16, kv=8, d=256, page=16, n=128, p_phys=512,
                        lengths=[1664, 1500, 1200, 1040], window=1024),
+    "recurrentgemma-2b": dict(RGEMMA_DECODE,
+                              lengths=[2600, 2400, 2200, 2100]),
 }
 
 
@@ -1648,6 +1718,177 @@ def phase_flash_timing(fa):
     return out
 
 
+# ---------------------------------------------------------------------------
+
+CONV_STD = 0.5
+# recurrentgemma-2b's access threshold: a row's layer-averaged mass puts
+# 18/26 ~ 0.69 on its state page (each RG-LRU layer a unit touch) and
+# spreads the 8 local layers' 8/26 over the ~129 pages inside the window:
+# ~0.0024 a page under near-uniform attention (random weights), 0 outside
+# the window.  0.001 sits between, so a page counts as accessed while it
+# is inside the window (phase 18 prints the merged masses it saw).
+RGEMMA_ACCESS_THRESHOLD = 0.001
+# xlstm-1.3b: demote the oldest active request's state page every this many
+# scheduler steps (phase 19)
+XLSTM_DEMOTE_EVERY = 3
+
+
+def _perturb_conv(params, seed=SEED) -> None:
+    """Draw every recurrent cell's conv taps from N(0, ``CONV_STD``) (a
+    no-op without recurrent cells): the reference initialises them to
+    zero, and with zero taps each cell outputs exactly zero and keeps a
+    zero state, so a served model would never run the cells' arithmetic."""
+    g = torch.Generator(device=params.tok.device).manual_seed(seed + 17)
+    with torch.no_grad():
+        for seg in params.segments:
+            for slot in seg:
+                if slot.kind.is_recurrent:
+                    slot.cell.conv.normal_(generator=g).mul_(CONV_STD)
+
+
+def _init_full(C, mdl, name):
+    """A full-width config's seeded float32 weights on a card that holds
+    nothing else, conv taps perturbed; prints what was built."""
+    left = torch.cuda.memory_allocated()
+    if left > 2e9:
+        _fail(f"{left / 1e9:.2f} GB still allocated before {name}'s init")
+    cfg = C.get(name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = mdl.init(cfg, seed=SEED)
+    _perturb_conv(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    kinds = [k.base for *_, k in mdl.state_slot_meta(cfg)]
+    print(f"init: {cfg.name}, {cfg.num_layers} layers (pattern {kinds}, "
+          f"repeats {[r for _, r in cfg.segments]}), d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
+          f"float32 params ({n_params * 4 / 1e9:.2f} GB) in "
+          f"{time.monotonic() - t0:.1f} s; conv taps N(0, {CONV_STD})",
+          flush=True)
+    return cfg, params
+
+
+def phase_rgemma(C, mdl, pa, S, memtier, cori, telemetry, kernels):
+    print("== phase 18: full-width recurrentgemma-2b serving (RG-LRU state "
+          "pages, local attention, macro-step batcher)", flush=True)
+    cfg, params = _init_full(C, mdl, "recurrentgemma-2b")
+    local = sum(r for _, _, r, w, _ in mdl.state_slot_meta(cfg) if w > 0)
+
+    def check(b, result, eager):
+        result["launches"] = pa.paged_attention.launches
+        _check_launches("paged_attention", result["launches"], local, b,
+                        eager)
+        mgr, tuner = b.monitor.manager, b.monitor.tuner
+        if mgr.hits <= 0 or tuner.dominant_reuse is None:
+            _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
+                  f"reuse {tuner.dominant_reuse} (the tuner never left "
+                  "profile)")
+
+    results, _ = _serve_routes(
+        params, cfg, S, memtier, cori, telemetry, kernels, check,
+        n_logical=1024, hbm_pages=640, max_len=3072, n_req=6,
+        prompt=(2100, 2601), new=(32, 65),
+        access_threshold=RGEMMA_ACCESS_THRESHOLD)
+    held = torch.cuda.memory_allocated()
+    del params
+    _check_freed(held)
+    return results
+
+
+class _Demoter:
+    """Every ``every`` scheduler steps, demote the state page of the
+    oldest active request (``SharedPagedPools.demote``, the step a
+    preemption takes) after keeping its HBM bytes; the pool's
+    ``migrate_slots`` is wrapped so that when the next macro fetches the
+    page back from the host tier, the fetched bytes are held to the kept
+    ones (they must be equal: the host copy is written through every
+    step)."""
+
+    def __init__(self, b, every: int):
+        self.pools, self.every, self.steps = b.monitor.pools, every, 0
+        self.kept, self.demoted, self.fetched = {}, 0, 0
+        migrate = self.pools.migrate_slots
+
+        def checked(slots, logicals):
+            migrate(slots, logicals)
+            for slot, gid in zip(np.asarray(slots).tolist(),
+                                 np.asarray(logicals).tolist()):
+                if gid not in self.kept:
+                    continue
+                for leaf, kept in zip(self._leaves(), self.kept.pop(gid)):
+                    if not torch.equal(leaf[:, slot], kept):
+                        _fail(f"state page {gid} came back from the host "
+                              "tier with other bytes")
+                self.fetched += 1
+        self.pools.migrate_slots = checked
+
+    def _leaves(self):
+        return [t for t in self.pools.kv_layers["state_hbm"]
+                if t is not None]
+
+    def __call__(self, b) -> None:
+        self.steps += 1
+        if self.steps % self.every or not b.active:
+            return
+        req = min(b.active.values(), key=lambda r: r.rid)
+        gid = int(req.gids[-1])
+        slot = int(self.pools.slot_of[gid])
+        self.kept[gid] = [t[:, slot].clone() for t in self._leaves()]
+        self.demoted += self.pools.demote(req.gids[-1:])
+
+
+def phase_xlstm(C, mdl, pa, S, memtier, cori, telemetry, kernels):
+    print("== phase 19: full-width xlstm-1.3b serving (mLSTM / sLSTM state "
+          "pages only, macro-step batcher)", flush=True)
+    cfg, params = _init_full(C, mdl, "xlstm-1.3b")
+    page_mb = sum(r * lv["state"][0] * 4
+                  for r, lv in mdl.slot_leaf_specs(cfg, 16)) / 1e6
+    print(f"one request's state page over {cfg.num_layers} layers: "
+          f"{page_mb:.1f} MB", flush=True)
+    demoters = []
+
+    def between(b):
+        demoters.append(_Demoter(b, XLSTM_DEMOTE_EVERY))
+        return demoters[-1]
+
+    def check(b, result, eager):
+        d = demoters.pop()        # it holds the pools: let them go with b
+        result.update(launches=pa.paged_attention.launches,
+                      demoted=d.demoted, fetched_back=d.fetched,
+                      misses=b.monitor.manager.misses)
+        print(f"state pages demoted {d.demoted}, fetched back from the host "
+              f"tier and equal to the bytes kept {d.fetched}; paged_attention "
+              f"launches {result['launches']} (no attention layer)",
+              flush=True)
+        if d.demoted <= 0 or d.fetched != d.demoted or d.kept:
+            _fail("a demoted state page was not fetched back")
+        if result["launches"]:
+            _fail("xlstm-1.3b launched the paged kernel")
+        if eager and b.device_steps != b.decode_steps:
+            _fail(f"the eager route ran {b.device_steps} device steps for "
+                  f"{b.decode_steps} decode steps")
+
+    results, _ = _serve_routes(
+        params, cfg, S, memtier, cori, telemetry, kernels, check,
+        n_logical=8, hbm_pages=6, max_len=512, n_req=8, prompt=(64, 257),
+        new=(32, 65), between=between)
+    held = torch.cuda.memory_allocated()
+    del params
+    _check_freed(held)
+    return results
+
+
+def phase_recurrent_parity(C, mdl, S, memtier, cori, engine):
+    print("== phase 20: parity on the card (reduced recurrentgemma-2b and "
+          "xlstm-1.3b, conv taps N(0, 0.5), float32)", flush=True)
+    for name in ("recurrentgemma-2b", "xlstm-1.3b"):
+        print(f"reduced {name}:", flush=True)
+        _parity(dataclasses.replace(C.reduced(name), dtype="float32"), mdl,
+                S, memtier, cori, engine)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is visible", flush=True)
@@ -1714,10 +1955,17 @@ def main() -> int:
     del params
     _check_freed(held)
     flash_timing = timed("flash_attention timing", phase_flash_timing, fa)
+    rgemma = timed("recurrentgemma serving", phase_rgemma, C, mdl, pa, S,
+                   memtier, cori, telemetry, kernels)
+    xlstm = timed("xlstm serving", phase_xlstm, C, mdl, pa, S, memtier, cori,
+                  telemetry, kernels)
+    timed("recurrent parity", phase_recurrent_parity, C, mdl, S, memtier,
+          cori, engine)
     main_case = flash_timing.pop("float32 window 1024")
     print(f"card: {card}; serving {serve}; offline {offline}; deepseek "
-          f"{deepseek}; gemma3 {gemma}; flash timing beside float32 window "
-          f"1024: {flash_timing}; phase seconds {secs}", flush=True)
+          f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
+          f"{xlstm}; flash timing beside float32 window 1024: "
+          f"{flash_timing}; phase seconds {secs}", flush=True)
     print(json.dumps({"kernels": [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1729,7 +1977,10 @@ def main() -> int:
              shape="qwen3-14b decode (phase 4)",
              also={"gemma3-12b decode (phase 15)": dict(
                  timing["gemma3-12b"],
-                 launches=gemma["graph"]["paged_launches"])}),
+                 launches=gemma["graph"]["paged_launches"]),
+                 "recurrentgemma-2b decode (phase 18)": dict(
+                 timing["recurrentgemma-2b"],
+                 launches=rgemma["graph"]["launches"])}),
         dict(name="page_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/page_hist.cu",
              replaces="src/repro/kernels/page_hist.py:45",

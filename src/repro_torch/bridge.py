@@ -8,9 +8,9 @@ numbers: segment leaves stay stacked ``[R, ...]``, and the attention
 projections are reshaped from the reference's ``wq/wk/wv [d, H, hd]`` and
 ``wo [H, hd, d]`` to the port's matmul-ready ``[d, H*hd]`` / ``[H*hd, d]``
 (MLA's ``w_uq`` and ``wo`` likewise; ``w_uk``/``w_uv`` keep their heads).
-MLA leaves (``w_dq, q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv, wo``)
-and MoE leaves (``router, wi_gate, wi_up, wo, shared.*``) carry over as
-they are named in the reference.
+MLA leaves (``w_dq, q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv, wo``),
+MoE leaves (``router, wi_gate, wi_up, wo, shared.*``) and a recurrent
+slot's ``cell`` leaves carry over as they are named in the reference.
 The tests use it so both packages compute the same function.
 """
 from __future__ import annotations
@@ -43,14 +43,19 @@ def from_reference(ref_params, cfg: ModelConfig, *,
         for seg, ref_seg in zip(params.segments, ref_params["segments"]):
             for slot, ref in zip(seg, ref_seg):
                 put(slot.norm1, ref["norm1"])
-                put(slot.norm2, ref["norm2"])
-                attn = ref["attn"]
-                names = (("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm",
-                          "w_kr", "w_uk", "w_uv", "wo") if slot.kind.mla
-                         else ("wq", "wk", "wv", "wo")
-                         + (("q_norm", "k_norm") if cfg.qk_norm else ()))
-                for name in names:
-                    put(getattr(slot, name), attn[name])
+                if slot.kind.is_recurrent:
+                    for name, t in slot.cell.named_parameters():
+                        put(t, ref["cell"][name])
+                else:
+                    names = (("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm",
+                              "w_kr", "w_uk", "w_uv", "wo") if slot.kind.mla
+                             else ("wq", "wk", "wv", "wo")
+                             + (("q_norm", "k_norm") if cfg.qk_norm
+                                else ()))
+                    for name in names:
+                        put(getattr(slot, name), ref["attn"][name])
+                if "norm2" in ref:
+                    put(slot.norm2, ref["norm2"])
                 if slot.kind.moe:
                     moe = ref["moe"]
                     for name in ("router", "wi_gate", "wi_up", "wo"):
@@ -59,7 +64,7 @@ def from_reference(ref_params, cfg: ModelConfig, *,
                         for name in ("wi_gate", "wi_up", "wo"):
                             put(getattr(slot.moe.shared, name),
                                 moe["shared"][name])
-                else:
+                elif "mlp" in ref:
                     mlp = ref["mlp"]
                     put(slot.wi_gate, mlp["wi_gate"])
                     put(slot.wi_up, mlp["wi_up"])

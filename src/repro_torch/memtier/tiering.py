@@ -1,6 +1,6 @@
-"""Cori-tuned HBM <-> host KV-page tiering for the attention geometries
--- k/v token rows and MLA's compressed ckv/krope rows (the counterpart of
-``repro/memtier/tiering.py``).
+"""Cori-tuned HBM <-> host page tiering for every served geometry -- k/v
+token rows, MLA's compressed ckv/krope rows and recurrent cells' packed
+state pages (the counterpart of ``repro/memtier/tiering.py``).
 
 Mapping (the paper's hybrid memory onto the serving engine):
     DRAM            -> HBM working set      (hbm_pages physical slots)
@@ -35,7 +35,8 @@ from repro_torch.ft.inject import MigrationError, NULL_PLAN
 from repro_torch.obs import telemetry as _obs
 
 __all__ = ["TierConfig", "TieringManager", "SharedPagedPools",
-           "bucket_pages", "write_pages_batched", "PAGE_DROP"]
+           "bucket_pages", "write_pages_batched", "write_state_pages",
+           "PAGE_DROP"]
 
 
 def bucket_pages(n_pages: int, cap: Optional[int] = None) -> int:
@@ -80,11 +81,12 @@ class SharedPagedPools:
     HBM slot (-1 = host-only); ``table`` turns a request's page ids into
     the physical table the paged-attention kernel reads.
 
-    Symbolic until ``attach_layered`` gives it storage: one leaf pair per
-    attention slot -- (k, v) [.., page, KV, D] or MLA (ckv, krope)
-    [.., page, kv_lora|rope] -- host [R, n_logical, ...] and HBM
-    [R, hbm_pages, ...], all indirected by the single ``slot_of`` table:
-    a logical page is resident for every layer or for none."""
+    Symbolic until ``attach_layered`` gives it storage: one leaf set per
+    slot -- (k, v) [.., page, KV, D], MLA (ckv, krope) [.., page,
+    kv_lora|rope] or a recurrent cell's ``state`` [.., state_dim] --
+    host [R, n_logical, ...] and HBM [R, hbm_pages, ...], all indirected
+    by the single ``slot_of`` table: a logical page is resident for every
+    layer or for none."""
 
     def __init__(self, n_logical: int, hbm_pages: int):
         if hbm_pages > n_logical:
@@ -123,7 +125,8 @@ class SharedPagedPools:
         """Allocate per-layer page storage from leaf specs: one
         ``(repeats, {leaf_name: trailing_shape})`` entry per layer slot
         (``model.slot_leaf_specs``: ``k``/``v`` for attention slots,
-        compressed ``ckv``/``krope`` for MLA slots), zero-filled on
+        compressed ``ckv``/``krope`` for MLA slots, ``state`` for
+        recurrent cells: one page per request), zero-filled on
         ``device`` (default cuda).  Host side [R, n_logical, *trailing],
         HBM side [R, hbm_pages, *trailing].  A layer lacking a leaf holds
         ``None`` in that leaf's per-layer list, as the reference.
@@ -161,7 +164,8 @@ class SharedPagedPools:
         self.kv_with_sink = sunk
         self.layer_meta = tuple(int(r) for r, _ in layer_specs)
         # pages_moved accounting: the planes (leaves) one logical-page
-        # migration moves -- k + v, or ckv + krope for MLA
+        # migration moves -- k + v, ckv + krope for MLA, 1 for state-only
+        # pools
         self.move_planes = max((len(lv) for _, lv in layer_specs), default=2)
         if (r := _obs.RECORDER).enabled:
             r.emit("pool.attach", layers=len(self.layer_meta),
@@ -346,6 +350,31 @@ def write_pages_batched(kv, new_leaves, gids: np.ndarray,
                 pick = torch.as_tensor(np.nonzero(keep)[0],
                                        device=pool.device)
                 pool[:, at] = pages[:, pick].to(pool.dtype)
+
+
+def write_state_pages(kv, states, gids: np.ndarray,
+                      slots: np.ndarray) -> None:
+    """Write recurrent state pages into the layered pools, host and HBM
+    tiers together, in place.
+
+    kv:         the pools' layered leaves (``SharedPagedPools.kv_layers``).
+    states:     one [R, J, state_dim] tensor (or None) per layer slot: the
+                J joiners' packed states (``model.pack_state``).
+    gids/slots: int[J], each joiner's single state page on each tier;
+                ``PAGE_DROP`` entries are masked out -- the reference
+                dropped them as out-of-range scatter indices.
+    """
+    gids, slots = np.asarray(gids), np.asarray(slots)
+    for li, st in enumerate(states):
+        if st is None:
+            continue
+        for pool, idx in ((kv["state_host"][li], gids),
+                          (kv["state_hbm"][li], slots)):
+            keep = idx < pool.shape[1]
+            at = torch.as_tensor(idx[keep].astype(np.int64),
+                                 device=pool.device)
+            pick = torch.as_tensor(np.nonzero(keep)[0], device=pool.device)
+            pool[:, at] = st[:, pick].to(pool.dtype)
 
 
 class TieringManager:

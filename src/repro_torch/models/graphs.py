@@ -54,10 +54,12 @@ class DecodeGraph:
     pools' leaves with their sinks (``SharedPagedPools.kv_with_sink``);
     tables / gid_tables: the caller's static int32 [B, n] page tables,
     which it updates in place between macros; ``max_steps``: the longest
-    macro (rows of ``toks_out``)."""
+    macro (rows of ``toks_out``); ``state_cols``: the static [B] column
+    of each row's state page (configs with recurrent slots, as
+    ``model.decode_step_paged``)."""
 
     def __init__(self, params, cfg: ModelConfig, kv, tables, gid_tables, *,
-                 max_steps: int, page_size: int):
+                 max_steps: int, page_size: int, state_cols=None):
         if not supports(cfg):
             raise ValueError(f"{cfg.name}: a routed MoE step reads its "
                              "expert counts back to the host and cannot "
@@ -69,7 +71,8 @@ class DecodeGraph:
         self.carry = mdl.MacroCarry.empty(b, n, max_steps, dev)
         self.carry.pos.fill_(-1)    # the warm-up writes only into the sinks
         body = functools.partial(mdl.decode_body, params, cfg, kv, tables,
-                                 gid_tables, self.carry, page_size=page_size)
+                                 gid_tables, self.carry, page_size=page_size,
+                                 state_cols=state_cols)
         # warm up on a side stream, as torch.cuda.graphs asks, then capture
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))

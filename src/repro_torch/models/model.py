@@ -1,6 +1,5 @@
-"""Model assembly for attention segments: init, forward, prefill, dense
-decode and the fully-paged decode path (the counterpart of
-``repro/models/model.py``).
+"""Model assembly: init, forward, prefill, dense decode and the
+fully-paged decode path (the counterpart of ``repro/models/model.py``).
 
 Parameters live in a ``Transformer`` module whose layout mirrors the
 reference's parameter tree: each segment holds one ``Slot`` per pattern
@@ -20,12 +19,14 @@ Python (the eager route).
 Ported layer kinds: causal GQA attention and sliding-window ``local``
 attention (k/v cache rows; a local slot's dense cache is a ring of
 ``min(window, max_len)`` rows, its pages hold the whole timeline and the
-paged kernel masks to the window) and MLA (compressed ckv/krope rows),
-each followed by a SwiGLU MLP or a routed MoE (``models.moe``).  With
-``cfg.attention_impl == "pallas"`` the sequence passes (forward, prefill,
-prefill_batched) run self-attention through the flash kernel.  Configs
-that need another layer kind raise ``NotImplementedError`` naming the
-later slice (ROADMAP Queue 1 item 8).
+paged kernel masks to the window), MLA (compressed ckv/krope rows) and
+the recurrent cells mLSTM, sLSTM and RG-LRU (``models.recurrent``; one
+packed state page per request, ``pack_state``), each followed by a
+SwiGLU MLP, a routed MoE (``models.moe``) or, with ``d_ff == 0`` and no
+MoE, nothing.  With ``cfg.attention_impl == "pallas"`` the sequence
+passes (forward, prefill, prefill_batched) run self-attention through
+the flash kernel.  Configs that need another layer feature raise
+``NotImplementedError`` naming the later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -40,11 +41,14 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models.config import LayerKind, ModelConfig, parse_kind
 from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = ["Slot", "Transformer", "init", "forward", "prefill", "pad_cache",
-           "init_cache", "decode_step", "prefill_batched", "state_slot_meta",
+           "init_cache", "decode_step", "prefill_batched",
+           "batched_prefill_supported", "state_slot_meta", "state_dim",
+           "pack_state", "unpack_state", "has_state_pages", "has_attention",
            "slot_leaf_specs", "slot_leaf_names", "decode_step_paged",
            "decode_macro_step", "decode_body", "MacroCarry", "macro_state",
            "sample", "uniform"]
@@ -52,20 +56,17 @@ __all__ = ["Slot", "Transformer", "init", "forward", "prefill", "pad_cache",
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for anything beyond causal or
-    sliding-window attention or MLA with a SwiGLU MLP or MoE, naming the
-    slice of the port that brings it, and for what the flash kernel
-    cannot take under ``attention_impl == "pallas"``."""
+    sliding-window attention, MLA or a recurrent cell, each with a SwiGLU
+    MLP, MoE or no MLP (``d_ff == 0``, as xLSTM), naming the slice of the
+    port that brings it, and for what the flash kernel cannot take under
+    ``attention_impl == "pallas"``."""
     later = []
     kinds = {parse_kind(s) for pat, _ in cfg.segments for s in pat}
-    for kind in kinds:
-        if kind.base not in ("attn", "local"):
-            later.append(f"recurrent {kind.base} cells (Queue 1 item 8.3)")
-        if kind.xattn:
-            later.append("cross-attention conditioning (Queue 1 item 8.4)")
+    if any(k.xattn for k in kinds):
+        later.append("cross-attention conditioning (Queue 1 item 8.4)")
     if cfg.prefix_len:
         later.append("shared prefix pages (Queue 1 item 8.5)")
-    if cfg.mlp_kind != "swiglu" \
-            or (not cfg.d_ff and not all(k.moe for k in kinds)):
+    if cfg.mlp_kind != "swiglu":
         later.append(f"the {cfg.mlp_kind} MLP (Queue 1 item 8.6)")
     if later:
         raise NotImplementedError(
@@ -105,9 +106,11 @@ class Slot(nn.Module):
     MLA ``w_dq`` [R, d, q_lora], ``q_norm`` [R, q_lora], ``w_uq``
     [R, q_lora, H*(nope+rope)], ``w_dkv`` [R, d, kv_lora], ``kv_norm``
     [R, kv_lora], ``w_kr`` [R, d, rope], ``w_uk`` [R, kv_lora, H, nope],
-    ``w_uv`` [R, kv_lora, H, v_head], ``wo`` [R, H*v_head, d] -- then
-    ``norm2`` and either the MoE (``moe``) or the SwiGLU MLP
-    ``wi_gate``/``wi_up`` [R, d, ff], ``w_down`` [R, ff, d].
+    ``w_uv`` [R, kv_lora, H, v_head], ``wo`` [R, H*v_head, d] -- or a
+    recurrent ``cell`` (``recurrent.Cell``); then ``norm2`` and either the
+    MoE (``moe``) or the SwiGLU MLP ``wi_gate``/``wi_up`` [R, d, ff],
+    ``w_down`` [R, ff, d] -- neither, and no ``norm2``, with ``d_ff == 0``
+    and no MoE (the reference's ``_slot_init``).
 
     ``fan_in`` maps each random leaf to the fan-in the reference's
     ``_dense_init`` gives it: ``shape[0]`` of the unstacked reference
@@ -126,7 +129,10 @@ class Slot(nn.Module):
                                 requires_grad=False)
 
         self.norm1 = leaf(d)
-        if kind.mla:
+        self.fan_in = {}
+        if kind.is_recurrent:
+            self.cell = R.Cell(cfg, kind, repeats, device)
+        elif kind.mla:
             m = cfg.mla
             self.w_dq, self.q_norm = leaf(d, m.q_lora_rank), \
                 leaf(m.q_lora_rank)
@@ -138,20 +144,21 @@ class Slot(nn.Module):
             self.w_uk = leaf(m.kv_lora_rank, h, m.qk_nope_dim)
             self.w_uv = leaf(m.kv_lora_rank, h, m.v_head_dim)
             self.wo = leaf(h * m.v_head_dim, d)
-            self.fan_in = {"w_dq": d, "w_uq": m.q_lora_rank, "w_dkv": d,
-                           "w_kr": d, "w_uk": m.kv_lora_rank,
-                           "w_uv": m.kv_lora_rank, "wo": h}
+            self.fan_in.update(w_dq=d, w_uq=m.q_lora_rank, w_dkv=d,
+                               w_kr=d, w_uk=m.kv_lora_rank,
+                               w_uv=m.kv_lora_rank, wo=h)
         else:
             self.wq, self.wk, self.wv = leaf(d, h * hd), leaf(d, kv * hd), \
                 leaf(d, kv * hd)
             self.wo = leaf(h * hd, d)
             if cfg.qk_norm:
                 self.q_norm, self.k_norm = leaf(hd), leaf(hd)
-            self.fan_in = {"wq": d, "wk": d, "wv": d, "wo": h}
-        self.norm2 = leaf(d)
+            self.fan_in.update(wq=d, wk=d, wv=d, wo=h)
         if kind.moe:
+            self.norm2 = leaf(d)
             self.moe = MoE(cfg, repeats, device)
-        else:
+        elif ff > 0:
+            self.norm2 = leaf(d)
             self.wi_gate, self.wi_up, self.w_down = leaf(d, ff), \
                 leaf(d, ff), leaf(ff, d)
             self.fan_in.update(wi_gate=d, wi_up=d, w_down=ff)
@@ -180,7 +187,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
     """Random float32 weights from a seeded ``torch.Generator`` on the
     target device, at the reference's init scales (``layers._dense_init``:
     N(0, 1/fan_in) with each leaf's ``fan_in``; the token table N(0, 1/d);
-    norms one).  The values differ from the JAX init --
+    norms one; a recurrent cell's conv taps zero and its RG-LRU lambda
+    from ``recurrent.rglru_lambda``).  The values differ from the JAX
+    init --
     ``bridge.from_reference`` carries the reference's own weights over
     when a test needs them."""
     dev = resolve_device(device)
@@ -199,6 +208,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
                     for name, t in mod.named_parameters(recurse=False):
                         if name in fan:
                             L.dense_init(t, g, fan[name])
+                        elif name == "conv":
+                            t.zero_()
+                        elif name == "lam":
+                            R.rglru_lambda(t, g)
                         else:            # norms
                             t.fill_(1.0)
     return params
@@ -222,12 +235,14 @@ def _window(cfg: ModelConfig, kind: LayerKind) -> int:
 
 
 def _block_tail(slot, r: int, cfg: ModelConfig, x):
-    """The residual MLP or MoE after a slot's attention: (x, aux)."""
-    h = L.rms_norm(x, slot.norm2[r])
+    """The residual MLP or MoE after a slot's attention or cell, if the
+    slot has one: (x, aux)."""
     if slot.kind.moe:
-        out, aux = moe_apply(slot.moe, r, cfg, h)
+        out, aux = moe_apply(slot.moe, r, cfg, L.rms_norm(x, slot.norm2[r]))
         return x + out, aux
-    return x + L.mlp_apply(slot, r, h), None
+    if cfg.d_ff > 0:
+        return x + L.mlp_apply(slot, r, L.rms_norm(x, slot.norm2[r])), None
+    return x, None
 
 
 # ---------------------------------------------------------------------------
@@ -237,24 +252,29 @@ def _block_tail(slot, r: int, cfg: ModelConfig, x):
 
 def _run_seq(params, cfg: ModelConfig, x, positions):
     """All layers over a sequence; returns (x, per-slot lists of cache
-    entries in repeat order -- {"k", "v"} or MLA {"ckv", "krope"} --,
-    the summed MoE aux loss).  Local slots attend through a sliding
-    window, the others causally."""
+    entries in repeat order -- {"k", "v"}, MLA {"ckv", "krope"} or a
+    recurrent cell's final state --, the summed MoE aux loss).  Local
+    slots attend through a sliding window, the others causally."""
     masks = {}          # MLA's, by window; attention_apply builds its own
     entries: List[List] = [[] for _ in state_slot_meta(cfg)]
     aux_total = torch.zeros((), device=x.device)
     for li, r, slot in _layers(params, cfg):
         window = _window(cfg, slot.kind)
         h = L.rms_norm(x, slot.norm1[r])
-        if slot.kind.mla:
-            if window not in masks:
-                masks[window] = L.causal_mask(positions, positions, window)
-            out, rows = L.mla_apply(slot, r, cfg, h, positions,
-                                    masks[window])
+        if slot.kind.is_recurrent:
+            out, entry = R.apply(slot.cell, r, cfg, h)
         else:
-            out, rows = L.attention_apply(slot, r, cfg, h, positions,
-                                          window=window)
-        entries[li].append(dict(zip(slot_leaf_names(slot.kind), rows)))
+            if slot.kind.mla:
+                if window not in masks:
+                    masks[window] = L.causal_mask(positions, positions,
+                                                  window)
+                out, rows = L.mla_apply(slot, r, cfg, h, positions,
+                                        masks[window])
+            else:
+                out, rows = L.attention_apply(slot, r, cfg, h, positions,
+                                              window=window)
+            entry = dict(zip(slot_leaf_names(slot.kind), rows))
+        entries[li].append(entry)
         x, aux = _block_tail(slot, r, cfg, x + out)
         if aux is not None:
             aux_total = aux_total + aux
@@ -264,14 +284,16 @@ def _run_seq(params, cfg: ModelConfig, x, positions):
 def _stack_cache(cfg: ModelConfig, entries, pos):
     """Cache tree {"segments": [[{leaf: [R, B, T, ...], "pos": [R,B,T]}]]}
     from per-slot entry lists: ``k``/``v`` [R,B,T,KV,D] or MLA ``ckv``
-    [R,B,T,kv_lora] / ``krope`` [R,B,T,rope]."""
+    [R,B,T,kv_lora] / ``krope`` [R,B,T,rope]; a recurrent slot's entry is
+    its final state, each leaf stacked [R, B, ...], with no ``pos``."""
     segs, li = [], 0
     for pattern, repeats in cfg.segments:
         slots = []
-        for _ in pattern:
+        for kind_s in pattern:
             c = {name: torch.stack([e[name] for e in entries[li]])
                  for name in entries[li][0]}
-            c["pos"] = pos.expand(repeats, *pos.shape).clone()
+            if not parse_kind(kind_s).is_recurrent:
+                c["pos"] = pos.expand(repeats, *pos.shape).clone()
             slots.append(c)
             li += 1
         segs.append(slots)
@@ -292,8 +314,9 @@ def forward(params, cfg: ModelConfig, tokens):
 
 
 def prefill(params, cfg: ModelConfig, tokens):
-    """Forward pass that also returns the populated cache.
-    Returns (last_logits [B,1,V], cache).
+    """Forward pass that also returns the populated cache (a recurrent
+    slot's entry holds its cell's final state).  Returns (last_logits
+    [B,1,V], cache).
 
     A local slot keeps only its last ``window`` positions when the prompt
     is longer, rolled by ``s % window`` so that slot j holds the position
@@ -320,13 +343,17 @@ def prefill(params, cfg: ModelConfig, tokens):
 def pad_cache(cache, cfg: ModelConfig, max_len: int):
     """Pad prefill-produced caches out to their capacity (pos -1 ==
     empty): ``max_len`` positions, ``min(window, max_len)`` on local
-    slots."""
+    slots.  Recurrent states pass through."""
     segs = []
     for si, (pattern, _) in enumerate(cfg.segments):
         slots = []
         for j, kind_s in enumerate(pattern):
             c = cache["segments"][si][j]
-            window = _window(cfg, parse_kind(kind_s))
+            kind = parse_kind(kind_s)
+            if kind.is_recurrent:
+                slots.append(c)
+                continue
+            window = _window(cfg, kind)
             cap = min(window, max_len) if window > 0 else max_len
             pad = cap - c["pos"].shape[2]
             if pad > 0:
@@ -344,13 +371,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Empty dense decode cache mirroring the segment structure: k/v rows
     for attention slots, compressed ckv/krope rows for MLA slots;
     ``max_len`` rows each, a ring of ``min(window, max_len)`` rows on
-    local slots."""
+    local slots; a recurrent slot's zero state (``recurrent.zero_state``,
+    float32 whatever ``dtype``) stacked over its repeats."""
     dev = resolve_device(device)
     segs = []
     for pat, r in cfg.segments:
         slots = []
         for kind_s in pat:
             kind = parse_kind(kind_s)
+            if kind.is_recurrent:
+                slots.append({k: v.expand(r, *v.shape).clone() for k, v in
+                              R.zero_state(cfg, kind, batch, dev).items()})
+                continue
             window = _window(cfg, kind)
             t = min(window, max_len) if window > 0 else max_len
             zeros = lambda *s: torch.zeros((r, batch, t) + s, dtype=dtype,
@@ -371,15 +403,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos):
     """One dense decode step.  tokens: [B,1]; cur_pos: [B] (current
-    length).  Writes the new entries into ``cache`` in place (slot
-    ``_write_slot``) and returns (logits [B,1,V], cache)."""
+    length).  Writes the new entries (a recurrent slot's new state) into
+    ``cache`` in place (slot ``_write_slot``) and returns (logits
+    [B,1,V], cache)."""
     x = L.embed(params.tok, cfg, tokens)
     rows = torch.arange(x.shape[0], device=x.device)
     for li, r, slot in _layers(params, cfg):
         c = _slot_cache(cache, cfg, li)
+        h = L.rms_norm(x, slot.norm1[r])
+        if slot.kind.is_recurrent:
+            out, new = R.step(slot.cell, r, cfg, h,
+                              {k: v[r] for k, v in c.items()})
+            for k, v in new.items():
+                c[k][r].copy_(v)
+            x, _ = _block_tail(slot, r, cfg, x + out)
+            continue
         pos = c["pos"][r]
         names = slot_leaf_names(slot.kind)
-        h = L.rms_norm(x, slot.norm1[r])
         window = _window(cfg, slot.kind)
         if slot.kind.mla:
             out, *new = L.mla_decode(slot, r, cfg, h, c[names[0]][r],
@@ -414,13 +454,26 @@ def _slot_cache(cache, cfg: ModelConfig, li: int):
     raise IndexError(li)
 
 
+def batched_prefill_supported(cfg: ModelConfig) -> bool:
+    """Whether right-padded batched prefill is exact: only when no layer
+    carries sequential state across positions (a recurrent cell would
+    consume the padding of short rows)."""
+    return not any(parse_kind(s).is_recurrent for pat, _ in cfg.segments
+                   for s in pat)
+
+
 def prefill_batched(params, cfg: ModelConfig, tokens, lengths):
     """Batched-admission prefill: one packed forward over right-padded
     prompts.  tokens: [B, Smax]; lengths: [B] true row lengths.
     Returns (last_logits [B,1,V], cache) where ``last_logits[b]`` is taken
     at position ``lengths[b] - 1`` and the cache keeps the full padded
     timeline with ``pos`` -1 beyond each row's length.  Causality makes
-    each row's valid prefix independent of its padding."""
+    each row's valid prefix independent of its padding; a recurrent cell
+    would fold the padding into its state, so recurrent configs raise
+    (``batched_prefill_supported``)."""
+    if not batched_prefill_supported(cfg):
+        raise ValueError(f"{cfg.name}: batched prefill needs all-attention "
+                         "layers (recurrent state would fold in padding)")
     x = L.embed(params.tok, cfg, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
@@ -450,16 +503,60 @@ def state_slot_meta(cfg: ModelConfig):
     return out
 
 
+def state_dim(cfg: ModelConfig, kind: LayerKind) -> int:
+    """The floats of one request's packed state of a ``kind`` cell: the
+    trailing dim of its pool leaf (one logical page per request)."""
+    return sum(math.prod(a.shape[1:])
+               for a in R.zero_state(cfg, kind, 1, "meta").values())
+
+
+def pack_state(state) -> torch.Tensor:
+    """A cell's state dict as f32 [B, state_dim], its leaves in sorted key
+    order -- the order of ``jax.tree.leaves`` over the reference's dict,
+    so a page holds the reference's bytes (mLSTM ``C, conv, m, n``; sLSTM
+    ``c, conv, h, m, n``; RG-LRU ``conv, h``).  Reshapes and one concat:
+    the round trip through ``unpack_state`` is exact."""
+    b = next(iter(state.values())).shape[0]
+    return torch.cat([state[k].reshape(b, -1).float()
+                      for k in sorted(state)], dim=1)
+
+
+def unpack_state(flat, proto):
+    """The inverse of ``pack_state`` against a prototype state dict of the
+    same keys and per-row shapes (e.g. ``recurrent.zero_state`` on the
+    meta device): views of ``flat`` [B, state_dim]."""
+    b, out, o = flat.shape[0], {}, 0
+    for k in sorted(proto):
+        shape = tuple(proto[k].shape[1:])
+        n = math.prod(shape)
+        out[k] = flat[:, o:o + n].reshape((b,) + shape)
+        o += n
+    return out
+
+
+def has_state_pages(cfg: ModelConfig) -> bool:
+    """Whether any slot is a recurrent cell: each request then holds one
+    state page after its token pages."""
+    return any(k.is_recurrent for *_, k in state_slot_meta(cfg))
+
+
+def has_attention(cfg: ModelConfig) -> bool:
+    return any(k.is_attention for *_, k in state_slot_meta(cfg))
+
+
 def slot_leaf_specs(cfg: ModelConfig, page_size: int):
     """Leaf specs for ``SharedPagedPools.attach_layered``: one
     ``(repeats, leaves)`` entry per slot.  Attention pages hold (k, v)
     token rows ``{"k": (page, KV, D), "v": ...}``; MLA pages hold
     compressed rows shared across heads ``{"ckv": (page, kv_lora),
-    "krope": (page, rope)}``."""
+    "krope": (page, rope)}``; a recurrent cell holds one packed state per
+    request ``{"state": (state_dim,)}``."""
     check_supported(cfg)
     specs = []
     for (_, _, repeats, _, kind) in state_slot_meta(cfg):
-        if kind.mla:
+        if kind.is_recurrent:
+            leaves = {"state": (state_dim(cfg, kind),)}
+        elif kind.mla:
             m = cfg.mla
             leaves = {"ckv": (page_size, m.kv_lora_rank),
                       "krope": (page_size, m.qk_rope_dim)}
@@ -471,34 +568,44 @@ def slot_leaf_specs(cfg: ModelConfig, page_size: int):
 
 
 def slot_leaf_names(kind: LayerKind):
-    """The pool leaves of one slot: ``("ckv", "krope")`` for MLA, else
-    ``("k", "v")``."""
+    """The pool leaves of one slot: ``("state",)`` for a recurrent cell,
+    ``("ckv", "krope")`` for MLA, else ``("k", "v")``."""
+    if kind.is_recurrent:
+        return ("state",)
     return ("ckv", "krope") if kind.mla else ("k", "v")
 
 
 def decode_step_paged(params, cfg: ModelConfig, kv, tables, gid_tables,
-                      tokens, cur_pos, *, page_size: int):
-    """One decode step with every attention layer reading and writing the
-    shared page pools (no dense cache exists): attention slots through
-    ``ops.paged_attention``, MLA slots through ``ops.paged_attention_mla``.
+                      tokens, cur_pos, *, page_size: int, state_cols=None):
+    """One decode step with every state-bearing layer reading and writing
+    the shared page pools (no dense cache exists): attention slots
+    through ``ops.paged_attention``, MLA slots through
+    ``ops.paged_attention_mla``, recurrent cells through one packed state
+    page per request.
 
     kv:         the pools' layered leaves with their sink page
                 (``SharedPagedPools.kv_with_sink``): ``{"k_hbm"|"v_hbm":
                 [per slot [R, hbm_pages + 1, page, KV, D]], "k_host"|
-                "v_host": [per slot [R, n_logical + 1, ...]]}``, and for
-                MLA slots ``ckv_*`` [.., page, kv_lora] / ``krope_*``
-                [.., page, rope]; updated in place.  The last page of
+                "v_host": [per slot [R, n_logical + 1, ...]]}``, for MLA
+                slots ``ckv_*`` [.., page, kv_lora] / ``krope_*``
+                [.., page, rope], for recurrent slots ``state_*``
+                [.., state_dim]; updated in place.  The last page of
                 every leaf is the sink, which no table names.
     tables:     int32[B, n] HBM slot per row page (-1 = padding/inactive).
     gid_tables: int32[B, n] logical page id per row page (-1 = padding).
     tokens: [B, 1]; cur_pos: [B] position being decoded (-1 = inactive).
+    state_cols: int [B] column of each row's state page in its tables
+                (-1 = none); required iff the config has recurrent slots.
 
-    Returns (logits [B,1,V], page_mass f32[B, n]): the head-normalised
-    attention mass per row page, averaged over every attention layer and
-    zero for inactive rows.  Reads nothing back to the host (routed MoE
-    layers aside: ``moe.moe_apply`` reads its expert counts)."""
+    Returns (logits [B,1,V], page_mass f32[B, n]): the access mass per
+    row page averaged over every state-bearing layer -- an attention
+    layer's head-normalised mass, a recurrent layer's unit touch on the
+    state column -- and zero for inactive rows.  Reads nothing back to
+    the host (routed MoE layers aside: ``moe.moe_apply`` reads its expert
+    counts)."""
     return _paged_decode_core(params, cfg, kv, tables, gid_tables, tokens,
-                              cur_pos, page_size=page_size)
+                              cur_pos, page_size=page_size,
+                              state_cols=state_cols)
 
 
 def _sink_page(kv, tier: str) -> int:
@@ -507,8 +614,42 @@ def _sink_page(kv, tier: str) -> int:
                 if key.endswith(tier) for t in leaves if t is not None) - 1
 
 
+def _paged_attention(slot, r: int, cfg: ModelConfig, h, hbm, host, cur_pos,
+                     hbm_at, host_at, tables, lengths):
+    """One attention or MLA slot of the paged decode: write the token's
+    rows through both tiers (at ``hbm_at`` / ``host_at``), then attend
+    the pages through the kernel.  Returns (out [B, 1, d], mass)."""
+    if slot.kind.mla:
+        q_nope, q_rope = L._mla_q(slot, r, cfg, h, cur_pos[:, None])
+        new = L._mla_kv(slot, r, cfg, h, cur_pos[:, None])
+    else:
+        q, *new = L._qkv(slot, r, cfg, h, cur_pos[:, None])
+    # write-through: the decoding token's rows land in its HBM slot page
+    # AND the host backing page before the gather, so the kernel attends
+    # the current token too
+    for pool_h, pool_host, e in zip(hbm, host, new):
+        e1 = e[:, 0].to(pool_h.dtype)
+        pool_h.index_put_(hbm_at, e1)
+        pool_host.index_put_(host_at, e1)
+    if slot.kind.mla:
+        # the paged analogue of layers.mla_decode: attend in the
+        # compressed space, then up-project with W_uv
+        q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], slot.w_uk[r])
+        ctx, mass = ops.paged_attention_mla(
+            q_abs.contiguous(), q_rope[:, 0].contiguous(), hbm[0], hbm[1],
+            tables, lengths, scale=L.mla_scale(cfg), return_mass=True)
+        ctx = torch.einsum("bhr,rhk->bhk", ctx, slot.w_uv[r])
+    else:
+        ctx, mass = ops.paged_attention(q[:, 0].contiguous(), hbm[0], hbm[1],
+                                        tables, lengths,
+                                        window=_window(cfg, slot.kind),
+                                        softcap=cfg.softcap,
+                                        return_mass=True)
+    return ctx.reshape(h.shape[0], 1, -1) @ slot.wo[r], mass
+
+
 def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
-                       tokens, cur_pos, *, page_size: int):
+                       tokens, cur_pos, *, page_size: int, state_cols=None):
     b = tokens.shape[0]
     dev = tokens.device
     rows = torch.arange(b, device=dev)
@@ -518,15 +659,34 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
     pg, off = safe_pos // page_size, safe_pos % page_size
     wslot = tables[rows, pg].long()
     wgid = gid_tables[rows, pg].long()
+    sink_hbm, sink_host = _sink_page(kv, "_hbm"), _sink_page(kv, "_host")
     # the reference's drop-mode scatter (`.at[...].set(mode="drop")` with
     # PAGE_DROP) as a fixed-shape masked write: every row writes, and the
     # rows that must not (inactive, or their write page unmapped on that
     # tier) write into the tier's sink page, which no table names -- so no
     # live row's index is ever duplicated and nothing is read back
-    hbm_at = (torch.where(active & (wslot >= 0), wslot,
-                          _sink_page(kv, "_hbm")), off)
-    host_at = (torch.where(active & (wgid >= 0), wgid,
-                           _sink_page(kv, "_host")), off)
+    hbm_at = (torch.where(active & (wslot >= 0), wslot, sink_hbm), off)
+    host_at = (torch.where(active & (wgid >= 0), wgid, sink_host), off)
+    if state_cols is None and has_state_pages(cfg):
+        raise ValueError(f"{cfg.name}: paged decode over recurrent slots "
+                         "needs state_cols (the column of each row's state "
+                         "page in `tables`)")
+    if state_cols is not None:
+        # each row's state page: read from its HBM slot (clamped, as the
+        # reference, for rows that have none), written through both tiers
+        # (the sink for rows that must not write)
+        scol = state_cols.long().clamp_min(0)
+        sslot = tables[rows, scol].long()
+        sgid = gid_tables[rows, scol].long()
+        svalid = active & (state_cols >= 0) & (sslot >= 0)
+        s_read = sslot.clamp_min(0)
+        s_hbm = torch.where(svalid, sslot, sink_hbm)
+        s_host = torch.where(svalid, sgid, sink_host)
+        # a recurrent layer touches its state page once a step: a unit of
+        # access mass at the state column, the scale of an attention
+        # layer's head-normalised row
+        cols = torch.arange(tables.shape[1], device=dev)
+        smass = (svalid[:, None] & (cols[None] == scol[:, None])).float()
 
     x = L.embed(params.tok, cfg, tokens)
     mass_sum = torch.zeros((b, tables.shape[1]), dtype=torch.float32,
@@ -537,34 +697,20 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
         hbm = [kv[f"{n}_hbm"][li][r] for n in names]
         host = [kv[f"{n}_host"][li][r] for n in names]
         h = L.rms_norm(x, slot.norm1[r])
-        if slot.kind.mla:
-            q_nope, q_rope = L._mla_q(slot, r, cfg, h, cur_pos[:, None])
-            new = L._mla_kv(slot, r, cfg, h, cur_pos[:, None])
+        if slot.kind.is_recurrent:
+            # the cell's state page: read from its HBM slot, stepped, and
+            # written back through both tiers
+            state = unpack_state(hbm[0][s_read],
+                                 R.zero_state(cfg, slot.kind, 1, "meta"))
+            out, new = R.step(slot.cell, r, cfg, h, state)
+            flat = pack_state(new).to(hbm[0].dtype)
+            hbm[0].index_put_((s_hbm,), flat)
+            host[0].index_put_((s_host,), flat)
+            mass = smass
         else:
-            q, *new = L._qkv(slot, r, cfg, h, cur_pos[:, None])
-        # write-through: the decoding token's rows land in its HBM slot
-        # page AND the host backing page before the gather, so the kernel
-        # attends the current token too
-        for pool_h, pool_host, e in zip(hbm, host, new):
-            e1 = e[:, 0].to(pool_h.dtype)
-            pool_h.index_put_(hbm_at, e1)
-            pool_host.index_put_(host_at, e1)
-        if slot.kind.mla:
-            # the paged analogue of layers.mla_decode: attend in the
-            # compressed space, then up-project with W_uv
-            q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], slot.w_uk[r])
-            ctx, mass = ops.paged_attention_mla(
-                q_abs.contiguous(), q_rope[:, 0].contiguous(), hbm[0], hbm[1],
-                tables, lengths, scale=L.mla_scale(cfg), return_mass=True)
-            ctx = torch.einsum("bhr,rhk->bhk", ctx, slot.w_uv[r])
-        else:
-            ctx, mass = ops.paged_attention(q[:, 0].contiguous(), hbm[0],
-                                            hbm[1], tables, lengths,
-                                            window=_window(cfg, slot.kind),
-                                            softcap=cfg.softcap,
-                                            return_mass=True)
-        x, _ = _block_tail(slot, r, cfg, x + ctx.reshape(b, 1, -1)
-                           @ slot.wo[r])
+            out, mass = _paged_attention(slot, r, cfg, h, hbm, host, cur_pos,
+                                         hbm_at, host_at, tables, lengths)
+        x, _ = _block_tail(slot, r, cfg, x + out)
         mass_sum += mass
         n_layers += 1
     logits = L.unembed(params, cfg, L.rms_norm(x, params.final_norm))
@@ -700,18 +846,20 @@ def _stop(rows, c: MacroCarry):
 
 
 def decode_body(params, cfg: ModelConfig, kv, tables, gid_tables,
-                c: MacroCarry, *, page_size: int) -> None:
+                c: MacroCarry, *, page_size: int, state_cols=None) -> None:
     """One step of the decode macro over the carry ``c``, in place, with
     no read back to the host (routed MoE aside): decode every alive row
     off the pools, add its page mass, sample its next token at iteration
     ``it + 1`` and apply the stop conditions.  Dead rows freeze: no KV
     writes (their position goes in as -1, so the write-through sends them
     to the sink), no mass, no emission.  Every row writes
-    ``toks_out[step]`` (-1 when not alive)."""
+    ``toks_out[step]`` (-1 when not alive).  ``state_cols`` as
+    ``decode_step_paged``'s."""
     alive = c.alive()
     cur = torch.where(alive, c.pos, -1)
     logits, mass = _paged_decode_core(params, cfg, kv, tables, gid_tables,
-                                      c.tok, cur, page_size=page_size)
+                                      c.tok, cur, page_size=page_size,
+                                      state_cols=state_cols)
     c.mass_sum += mass                 # the core zeroes dead rows
     c.alive_steps += alive
     new_tok = sample(logits[:, 0], c.temps, c.seeds, c.it + 1)
@@ -727,7 +875,8 @@ def decode_body(params, cfg: ModelConfig, kv, tables, gid_tables,
 
 def decode_macro_step(params, cfg: ModelConfig, kv, tables, gid_tables,
                       tokens, cur_pos, seeds, iters, emitted, max_new,
-                      eos_ids, temps, *, n_steps: int, page_size: int):
+                      eos_ids, temps, *, n_steps: int, page_size: int,
+                      state_cols=None):
     """Up to ``n_steps`` fully-paged decode steps for the whole request
     set, with on-device sampling, mass accumulation and EOS / length
     masking, so the host hands over page tables once per movement period
@@ -744,7 +893,8 @@ def decode_macro_step(params, cfg: ModelConfig, kv, tables, gid_tables,
     the per-row int64 [B] ``seeds`` (request seed), ``iters`` (decode
     iterations done), ``emitted`` (tokens emitted so far incl. the
     prefill sample), ``max_new`` (token budget), ``eos_ids`` (-1 = none)
-    and f32 [B] ``temps``, all on the device.
+    and f32 [B] ``temps``, all on the device; ``state_cols`` as
+    ``decode_step_paged``'s.
 
     A row is alive while ``cur_pos >= 0`` and no stop condition has
     fired; dead rows freeze (``decode_body``), so the stream matches the
@@ -760,7 +910,7 @@ def decode_macro_step(params, cfg: ModelConfig, kv, tables, gid_tables,
     steps = 0
     while steps < n_steps and bool(c.alive().any()):
         decode_body(params, cfg, kv, tables, gid_tables, c,
-                    page_size=page_size)
+                    page_size=page_size, state_cols=state_cols)
         steps += 1
     return c.toks_out, macro_state(c, steps)
 

@@ -1,0 +1,370 @@
+"""Recurrent cells: xLSTM's mLSTM and sLSTM, and RecurrentGemma's RG-LRU
+(the counterpart of ``repro/models/recurrent.py``).
+
+Each cell has a sequence form (``*_apply``: prefill and forward) and a
+one-token form (``*_step``: decode), both returning the cell's new state,
+a dict of float32 tensors under the reference's names; ``*_zero_state``
+builds the empty one.  The reference runs the mLSTM and sLSTM sequences
+as ``lax.scan`` and the RG-LRU's linear recurrence as a log-depth
+``lax.associative_scan``: none of them is a Pallas kernel, so plain torch
+does them here -- a Python loop over positions for the two LSTMs, and a
+log-depth (Hillis-Steele) scan over [B, S, w] for the RG-LRU, whose sums
+run in another order than JAX's tree, so its states agree to float32
+rounding.
+
+Parameters live in a ``Cell`` module per pattern slot, stacked ``[R, ...]``
+over the segment's repeats like every other leaf, under the reference's
+leaf names; the functions take the cell and a repeat index ``r``, as
+``layers.mlp_apply`` does.  The port's residual stream is float32
+(``layers.embed``), so the reference's casts to the activation dtype are
+identities here and are left out.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import LayerKind, ModelConfig
+from repro_torch.models.layers import rms_norm
+
+__all__ = ["Cell", "causal_conv1d", "conv_step", "zero_state",
+           "mlstm_zero_state", "mlstm_apply", "mlstm_step",
+           "slstm_zero_state", "slstm_apply", "slstm_step",
+           "rglru_zero_state", "rglru_apply", "rglru_step", "rglru_lambda",
+           "apply", "step"]
+
+#: RG-LRU's gate constant c in a = exp(-c softplus(lambda) r)
+RGLRU_C = 8.0
+#: m's start value (the max-stabiliser of both LSTMs), as the reference
+M_INIT = -1e30
+
+
+def _heads(cfg: ModelConfig) -> int:
+    """xLSTM's heads ride the config's ``num_kv_heads`` field."""
+    return max(1, cfg.num_kv_heads)
+
+
+class Cell(nn.Module):
+    """One recurrent slot's cell leaves, stacked ``[R, ...]`` and named as
+    the reference's (``recurrent.py`` ``*_init``):
+
+    * mLSTM (dm = 2 d, nh heads): ``w_up``/``w_gate`` [d, dm], ``conv``
+      [4, dm], ``wq``/``wk``/``wv`` [dm, dm], ``w_if`` [dm, 2 nh],
+      ``out_norm`` [dm], ``w_down`` [dm, d];
+    * sLSTM (hd = d / nh, ff = int(4 d / 3)): ``conv`` [4, d], ``w_gates``
+      [d, 4 d], ``r_gates`` [nh, hd, 4 hd], ``out_norm`` [d], ``w_up``
+      [d, ff], ``w_down`` [ff, d];
+    * RG-LRU (w = lru_width or d): ``w_x``/``w_gate`` [d, w], ``conv``
+      [4, w], ``lam`` [w], ``w_a``/``w_i`` [w, w / 8], ``w_a2``/``w_i2``
+      [w / 8, w], ``w_out`` [w, d].
+
+    ``fan_in`` maps each random leaf to the reference's ``_dense_init``
+    fan-in (``shape[0]`` of the unstacked leaf); ``conv`` starts at zero
+    and ``lam`` from ``rglru_lambda``, as the reference."""
+
+    def __init__(self, cfg: ModelConfig, kind: LayerKind, repeats: int,
+                 device):
+        super().__init__()
+        self.base = kind.base
+        d = cfg.d_model
+
+        def leaf(*shape):
+            return nn.Parameter(torch.empty((repeats,) + shape,
+                                            device=device),
+                                requires_grad=False)
+
+        if kind.base == "mlstm":
+            dm, nh = 2 * d, _heads(cfg)
+            self.w_up, self.w_gate = leaf(d, dm), leaf(d, dm)
+            self.conv = leaf(4, dm)
+            self.wq, self.wk, self.wv = leaf(dm, dm), leaf(dm, dm), \
+                leaf(dm, dm)
+            self.w_if = leaf(dm, 2 * nh)
+            self.out_norm = leaf(dm)
+            self.w_down = leaf(dm, d)
+            self.fan_in = {"w_up": d, "w_gate": d, "wq": dm, "wk": dm,
+                           "wv": dm, "w_if": dm, "w_down": dm}
+        elif kind.base == "slstm":
+            nh = _heads(cfg)
+            hd, ff = d // nh, int(d * 4 / 3)
+            self.conv = leaf(4, d)
+            self.w_gates = leaf(d, 4 * d)
+            self.r_gates = leaf(nh, hd, 4 * hd)
+            self.out_norm = leaf(d)
+            self.w_up, self.w_down = leaf(d, ff), leaf(ff, d)
+            self.fan_in = {"w_gates": d, "r_gates": nh, "w_up": d,
+                           "w_down": ff}
+        elif kind.base == "rglru":
+            w = cfg.lru_width or d
+            self.w_x, self.w_gate = leaf(d, w), leaf(d, w)
+            self.conv = leaf(4, w)
+            self.lam = leaf(w)
+            self.w_a, self.w_a2 = leaf(w, w // 8), leaf(w // 8, w)
+            self.w_i, self.w_i2 = leaf(w, w // 8), leaf(w // 8, w)
+            self.w_out = leaf(w, d)
+            self.fan_in = {"w_x": d, "w_gate": d, "w_a": w, "w_a2": w // 8,
+                           "w_i": w, "w_i2": w // 8, "w_out": w}
+        else:
+            raise ValueError(f"{kind.base} is not a recurrent cell")
+
+
+def rglru_lambda(t: torch.Tensor, generator: torch.Generator) -> None:
+    """The reference's RG-LRU lambda init, in place: u ~ U[0.9, 0.999],
+    lambda = log(expm1(-log(u) / c)), so that a = exp(-c softplus(lambda))
+    starts in [0.9, 0.999]."""
+    u = torch.rand(t.shape, generator=generator, device=t.device) \
+        * (0.999 - 0.9) + 0.9
+    t.copy_(torch.log(torch.expm1(-torch.log(u) / RGLRU_C)))
+
+
+# ---------------------------------------------------------------------------
+# the causal conv front of every cell
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x, w):
+    """Depthwise causal conv.  x: [B, S, D], w: [K, D]; the reference's
+    shift-and-add order."""
+    k = w.shape[0]
+    out = torch.zeros_like(x)
+    for j in range(k):
+        xs = x if j == 0 else F.pad(x, (0, 0, j, 0))[:, :-j]
+        out = out + xs * w[k - 1 - j]
+    return out
+
+
+def conv_step(state, x_t, w):
+    """One token of the conv.  state: [B, K-1, D] (the previous inputs),
+    x_t: [B, D].  Returns (new state, y [B, D])."""
+    window = torch.cat([state, x_t[:, None]], dim=1)           # [B, K, D]
+    y = torch.einsum("bkd,kd->bd", window, w)
+    return window[:, 1:], y
+
+
+def _conv_seq(state_conv, u, w):
+    """The sequence form's conv over ``state_conv ++ u``: (conv output
+    [B, S, D], the new conv state [B, K-1, D])."""
+    conv_in = torch.cat([state_conv, u], dim=1)
+    return causal_conv1d(conv_in, w)[:, 3:], conv_in[:, -3:]
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_zero_state(cfg: ModelConfig, batch: int, device=None):
+    """{C [B,nh,hd,hd], n [B,nh,hd], m [B,nh] (-1e30), conv [B,3,dm]}:
+    dm = 2 d_model, hd = dm / nh (not ``cfg.head_dim``)."""
+    dm, nh = 2 * cfg.d_model, _heads(cfg)
+    hd = dm // nh
+    z = lambda *s: torch.zeros((batch,) + s, device=device)
+    return {"C": z(nh, hd, hd), "n": z(nh, hd),
+            "m": torch.full((batch, nh), M_INIT, device=device),
+            "conv": z(3, dm)}
+
+
+def _mlstm_cell(C, n, m, q, k, v, i, f):
+    """One timestep.  q, k, v: [B, nh, hd]; i, f: [B, nh]."""
+    k = k / math.sqrt(q.shape[-1])
+    m_new = torch.maximum(f + m, i)
+    i_p = torch.exp(i - m_new)[..., None]
+    f_p = torch.exp(f + m - m_new)[..., None]
+    n_new = f_p * n + i_p * k
+    C_new = f_p[..., None] * C + i_p[..., None] * (k[..., :, None]
+                                                   * v[..., None, :])
+    num = torch.einsum("bhkv,bhk->bhv", C_new, q)
+    den = torch.clamp_min(torch.einsum("bhk,bhk->bh", n_new, q).abs(), 1.0)
+    return C_new, n_new, m_new, num / den[..., None]
+
+
+def _mlstm_inputs(p, r: int, x_in, nh: int):
+    """q, k, v [B, S, nh, hd] and the gates i, log f [B, S, nh] of the
+    post-conv input [B, S, dm]."""
+    b, s, dm = x_in.shape
+    hd = dm // nh
+    q = (x_in @ p.wq[r]).reshape(b, s, nh, hd)
+    k = (x_in @ p.wk[r]).reshape(b, s, nh, hd)
+    v = (x_in @ p.wv[r]).reshape(b, s, nh, hd)
+    gf = x_in @ p.w_if[r]
+    return q, k, v, gf[..., :nh], F.logsigmoid(gf[..., nh:])
+
+
+def _mlstm_out(p, r: int, h, gate):
+    return (rms_norm(h, p.out_norm[r]) * F.silu(gate)) @ p.w_down[r]
+
+
+def mlstm_apply(p, r: int, cfg: ModelConfig, x, state=None):
+    """Sequence form.  x: [B, S, d] -> (y [B, S, d], final state)."""
+    b, s, _ = x.shape
+    up, gate = x @ p.w_up[r], x @ p.w_gate[r]
+    if state is None:
+        state = mlstm_zero_state(cfg, b, x.device)
+    xc, conv = _conv_seq(state["conv"], up, p.conv[r])
+    q, k, v, i, f = _mlstm_inputs(p, r, F.silu(xc), _heads(cfg))
+    C, n, m = state["C"], state["n"], state["m"]
+    hs = []
+    for t in range(s):
+        C, n, m, h = _mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t],
+                                 i[:, t], f[:, t])
+        hs.append(h)
+    h = torch.stack(hs, dim=1).reshape(b, s, -1)
+    return _mlstm_out(p, r, h, gate), {"C": C, "n": n, "m": m, "conv": conv}
+
+
+def mlstm_step(p, r: int, cfg: ModelConfig, x, state):
+    """Decode step.  x: [B, 1, d] -> (y [B, 1, d], new state)."""
+    up, gate = (x @ p.w_up[r])[:, 0], (x @ p.w_gate[r])[:, 0]
+    conv, xc = conv_step(state["conv"], up, p.conv[r])
+    q, k, v, i, f = _mlstm_inputs(p, r, F.silu(xc)[:, None], _heads(cfg))
+    C, n, m, h = _mlstm_cell(state["C"], state["n"], state["m"], q[:, 0],
+                             k[:, 0], v[:, 0], i[:, 0], f[:, 0])
+    y = _mlstm_out(p, r, h.reshape(h.shape[0], -1), gate)
+    return y[:, None], {"C": C, "n": n, "m": m, "conv": conv}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_zero_state(cfg: ModelConfig, batch: int, device=None):
+    """{c, n (1e-6), m (-1e30), h: [B, nh, hd], conv [B, 3, d]}."""
+    d, nh = cfg.d_model, _heads(cfg)
+    hd = d // nh
+    full = lambda v, *s: torch.full((batch,) + s, v, device=device)
+    return {"c": full(0.0, nh, hd), "n": full(1e-6, nh, hd),
+            "m": full(M_INIT, nh, hd), "h": full(0.0, nh, hd),
+            "conv": full(0.0, 3, d)}
+
+
+def _slstm_cell(st, wx, r_gates):
+    """wx: [B, 4d], the input part of the gates; the recurrent part comes
+    from st["h"]."""
+    c, n, m, h = st["c"], st["n"], st["m"], st["h"]
+    b, nh, hd = h.shape
+    gates = wx.reshape(b, nh, 4 * hd) \
+        + torch.einsum("bhk,hkg->bhg", h, r_gates)
+    z, i, f, o = gates.split(hd, dim=-1)
+    z, o, f = torch.tanh(z), torch.sigmoid(o), F.logsigmoid(f)
+    m_new = torch.maximum(f + m, i)
+    i_p = torch.exp(i - m_new)
+    f_p = torch.exp(f + m - m_new)
+    c_new = f_p * c + i_p * z
+    n_new = f_p * n + i_p
+    h_new = o * c_new / torch.clamp_min(n_new, 1e-6)
+    return {"c": c_new, "n": n_new, "m": m_new, "h": h_new}
+
+
+def _slstm_out(p, r: int, h):
+    h = rms_norm(h, p.out_norm[r])
+    return F.gelu(h @ p.w_up[r], approximate="tanh") @ p.w_down[r]
+
+
+def slstm_apply(p, r: int, cfg: ModelConfig, x, state=None):
+    b, s, d = x.shape
+    if state is None:
+        state = slstm_zero_state(cfg, b, x.device)
+    xc, conv = _conv_seq(state["conv"], x, p.conv[r])
+    wx = F.silu(xc) @ p.w_gates[r]
+    st = {k: state[k] for k in ("c", "n", "m", "h")}
+    hs = []
+    for t in range(s):
+        st = _slstm_cell(st, wx[:, t], p.r_gates[r])
+        hs.append(st["h"])
+    h = torch.stack(hs, dim=1).reshape(b, s, d)
+    return _slstm_out(p, r, h), dict(st, conv=conv)
+
+
+def slstm_step(p, r: int, cfg: ModelConfig, x, state):
+    conv, xc = conv_step(state["conv"], x[:, 0], p.conv[r])
+    st = _slstm_cell({k: state[k] for k in ("c", "n", "m", "h")},
+                     F.silu(xc) @ p.w_gates[r], p.r_gates[r])
+    y = _slstm_out(p, r, st["h"].reshape(x.shape[0], -1))
+    return y[:, None], dict(st, conv=conv)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+
+def rglru_zero_state(cfg: ModelConfig, batch: int, device=None):
+    """{h [B, w], conv [B, 3, w]}."""
+    w = cfg.lru_width or cfg.d_model
+    return {"h": torch.zeros((batch, w), device=device),
+            "conv": torch.zeros((batch, 3, w), device=device)}
+
+
+def _rglru_gates(p, r: int, xc):
+    """a and the gated input b of each position.  xc: [..., w]."""
+    rg = torch.sigmoid((xc @ p.w_a[r]) @ p.w_a2[r])
+    ig = torch.sigmoid((xc @ p.w_i[r]) @ p.w_i2[r])
+    log_a = -RGLRU_C * F.softplus(p.lam[r]) * rg
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
+    return torch.exp(log_a), beta * (ig * xc)
+
+
+def _linear_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t over dim 1 (h_{-1} = 0) in log2(S) steps:
+    each step folds in the prefix ``off`` positions back with the
+    reference's combine (a_l, b_l), (a_r, b_r) -> (a_r a_l, a_r b_l +
+    b_r)."""
+    off = 1
+    while off < a.shape[1]:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
+def rglru_apply(p, r: int, cfg: ModelConfig, x, state=None):
+    """x: [B, S, d] -> (y, state); the previous state's h is folded into
+    the first step, as the reference."""
+    if state is None:
+        state = rglru_zero_state(cfg, x.shape[0], x.device)
+    gate = F.gelu(x @ p.w_gate[r], approximate="tanh")
+    xc, conv = _conv_seq(state["conv"], x @ p.w_x[r], p.conv[r])
+    a, b = _rglru_gates(p, r, xc)
+    b = torch.cat([b[:, :1] + a[:, :1] * state["h"][:, None], b[:, 1:]],
+                  dim=1)
+    h = _linear_scan(a, b)
+    return (h * gate) @ p.w_out[r], {"h": h[:, -1], "conv": conv}
+
+
+def rglru_step(p, r: int, cfg: ModelConfig, x, state):
+    gate = F.gelu(x[:, 0] @ p.w_gate[r], approximate="tanh")
+    conv, xc = conv_step(state["conv"], x[:, 0] @ p.w_x[r], p.conv[r])
+    a, b = _rglru_gates(p, r, xc)
+    h = a * state["h"] + b
+    return ((h * gate) @ p.w_out[r])[:, None], {"h": h, "conv": conv}
+
+
+# ---------------------------------------------------------------------------
+# by kind
+# ---------------------------------------------------------------------------
+
+_ZERO = {"mlstm": mlstm_zero_state, "slstm": slstm_zero_state,
+         "rglru": rglru_zero_state}
+_APPLY = {"mlstm": mlstm_apply, "slstm": slstm_apply, "rglru": rglru_apply}
+_STEP = {"mlstm": mlstm_step, "slstm": slstm_step, "rglru": rglru_step}
+
+
+def zero_state(cfg: ModelConfig, kind: LayerKind, batch: int, device=None):
+    """The empty state of a ``kind`` cell (``device="meta"`` for its
+    shapes alone)."""
+    return _ZERO[kind.base](cfg, batch, device)
+
+
+def apply(p, r: int, cfg: ModelConfig, x, state=None):
+    """The sequence form of cell ``p`` (``Cell``)."""
+    return _APPLY[p.base](p, r, cfg, x, state)
+
+
+def step(p, r: int, cfg: ModelConfig, x, state):
+    """The one-token form of cell ``p``."""
+    return _STEP[p.base](p, r, cfg, x, state)

@@ -8,9 +8,12 @@ loop).
     Cori.
   * ``ContinuousBatcher`` admits requests between decode steps (a step's
     joiners prefill as one packed forward pass and write their pages
-    straight into the pool), decodes the request set with every attention
-    layer reading the pool through the paged-attention kernel, and
-    retires requests on EOS or length, returning their pages.  By default
+    straight into the pool; with recurrent cells, one prefill per request,
+    its final cell states packed into the request's state page), decodes
+    the request set with every attention layer reading the pool through
+    the paged-attention kernel and every recurrent cell reading and
+    writing its state page, and retires requests on EOS or length,
+    returning their pages.  By default
     it runs macro steps: one macro per movement period, with one monitor
     feed and one tiering boundary per macro, and the period the tuner
     derives is the length of the next macro.  A macro runs by one of two
@@ -43,7 +46,8 @@ from repro_torch.core import cori
 from repro_torch.ft.monitor import StepTimer
 from repro_torch.memtier.tiering import (PAGE_DROP, SharedPagedPools,
                                          TieringManager, bucket_pages,
-                                         write_pages_batched)
+                                         write_pages_batched,
+                                         write_state_pages)
 from repro_torch.models import graphs
 from repro_torch.models import model as mdl
 from repro_torch.obs import telemetry as _obs
@@ -187,6 +191,10 @@ class Request:
     gids: Optional[np.ndarray] = None  # pages the request owns
     n_pages: int = 0                   # exact page footprint
     n_alloc: int = 0                   # bucket-rounded pages actually held
+    # the pages the monitor merge reads and their columns in the row's
+    # tables: the exact token pages, then the state page
+    table_gids: Optional[np.ndarray] = None
+    mass_cols: Optional[np.ndarray] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
     _i: int = 0                        # decode iterations done
     _t_submit: float = 0.0
@@ -200,13 +208,17 @@ class ContinuousBatcher:
     """Continuous batching of ``max_active`` rows, fully paged.
 
     Each request's token pages occupy a bucket-rounded run of global pages
-    (``bucket_pages``); every attention layer decodes through the pool's
-    ``slot_of`` tables (``model.decode_step_paged`` per token, or a macro
-    per movement period with ``macro=True``, the default), and the
-    per-page masses the tuner reads come from every attention layer of
-    the decode itself.  Before each launch every page the decode can
-    touch is demand-fetched into HBM (charged as misses); admission is
-    gated so the in-flight exact footprint fits the HBM slot pool.  Runs
+    (``bucket_pages``), and with recurrent cells one more page holds its
+    packed cell states, at the last column of its tables, past every
+    token position (pure-recurrent configs keep no token pages); every
+    layer decodes through the pool's ``slot_of`` tables
+    (``model.decode_step_paged`` per token, or a macro per movement
+    period with ``macro=True``, the default), and the per-page masses the
+    tuner reads come from every layer of the decode itself (a recurrent
+    cell's is a unit touch on its state page).  Before each launch every
+    page the decode can touch is demand-fetched into HBM (charged as
+    misses); admission is gated so the in-flight exact footprint fits the
+    HBM slot pool.  Runs
     on ``device`` (default cuda), where the parameters must already live.
 
     ``route`` is the macro's route, fixed at construction: ``"graph"``
@@ -230,7 +242,16 @@ class ContinuousBatcher:
         self.max_active = max_active
         self.monitor = monitor
         self.macro = bool(macro)
-        self.n_row_pages = self.max_len // page_size
+        self._has_state = mdl.has_state_pages(cfg)
+        self._has_attn = mdl.has_attention(cfg)
+        self._state_extra = 1 if self._has_state else 0
+        # one more table column holds the state page, past every token
+        # position (column x page_size >= any length), so the attention
+        # kernels never gather it
+        self.n_row_pages = self.max_len // page_size + self._state_extra
+        # a recurrent cell would fold a short row's padding into its
+        # state: such configs prefill one request at a time
+        self._batched_prefill = mdl.batched_prefill_supported(cfg)
         self.macro_timer = StepTimer(name="serve.macro")
 
         # the last sampled token per row lives on the device (the next
@@ -265,6 +286,10 @@ class ContinuousBatcher:
         self._tables_dev = tuple(
             torch.full((max_active, self.n_row_pages), -1, dtype=torch.int32,
                        device=self.device) for _ in range(2))
+        # every row's state page sits at the fixed last table column
+        self._state_cols = (torch.full((max_active,), self.n_row_pages - 1,
+                                       dtype=torch.int64, device=self.device)
+                            if self._has_state else None)
         self.route = ("graph" if self.macro and not eager
                       and self.device.type == "cuda" and graphs.supports(cfg)
                       else "eager")
@@ -272,17 +297,29 @@ class ContinuousBatcher:
         if self.route == "graph":
             self._graph = graphs.DecodeGraph(
                 params, cfg, pools.kv_with_sink, *self._tables_dev,
-                max_steps=bucket_pages(self.max_len), page_size=page_size)
+                max_steps=bucket_pages(self.max_len), page_size=page_size,
+                state_cols=self._state_cols)
 
     # -- admission -----------------------------------------------------------
-    def _pages_exact(self, req: Request) -> int:
-        """Exact token pages the request's positions span."""
+    def _pages_kv_exact(self, req: Request) -> int:
+        """Exact token pages the request's positions span (none without
+        attention layers)."""
+        if not self._has_attn:
+            return 0
         return -(-req.total_len // self.page_size)
 
+    def _pages_exact(self, req: Request) -> int:
+        """Exact own-page footprint: token pages plus the state page."""
+        return self._pages_kv_exact(req) + self._state_extra
+
     def _pages_alloc(self, req: Request) -> int:
-        """Bucket-rounded allocation size (power of two, capped at one
-        row): what the request actually holds in the shared pool."""
-        return bucket_pages(self._pages_exact(req), cap=self.n_row_pages)
+        """Bucket-rounded allocation size (power-of-two token pages, capped
+        at one row, plus the un-bucketed state page): what the request
+        actually holds in the shared pool."""
+        kv_exact = self._pages_kv_exact(req)
+        kv_alloc = (bucket_pages(kv_exact, cap=self.max_len // self.page_size)
+                    if kv_exact else 0)
+        return kv_alloc + self._state_extra
 
     def submit(self, req: Request) -> None:
         req._t_submit = time.monotonic()
@@ -332,12 +369,23 @@ class ContinuousBatcher:
         return emitted
 
     def _map_row(self, req: Request) -> None:
-        """The request's logical page-table row: its own run, bucket tail
-        included.  (The monitor merge reads the exact pages only, so
-        bucket-tail slack never accrues mass.)"""
+        """The request's logical page-table row: its own token-page run,
+        bucket tail included, and the state page at the last column.  Also
+        records the (pages, columns) the monitor merge reads -- the exact
+        pages only, so bucket-tail slack never accrues mass."""
+        kv_alloc = req.n_alloc - self._state_extra
+        kv_exact = self._pages_kv_exact(req)
         row = np.full(self.n_row_pages, -1, np.int32)
-        row[: req.n_alloc] = req.gids
+        row[:kv_alloc] = req.gids[:kv_alloc]
+        gids = [np.asarray(req.gids[:kv_exact], np.int64)]
+        cols = [np.arange(kv_exact)]
+        if self._state_extra:
+            row[-1] = req.gids[-1]
+            gids.append(np.asarray(req.gids[-1:], np.int64))
+            cols.append(np.asarray([self.n_row_pages - 1]))
         self._gid_tables[req.row] = row
+        req.table_gids = np.concatenate(gids)
+        req.mass_cols = np.concatenate(cols).astype(np.int64)
         self._rows_epoch += 1
 
     def _tables_for(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -360,21 +408,39 @@ class ContinuousBatcher:
     def _need(self, horizon: Dict[int, int]) -> np.ndarray:
         """Every page the next decode steps can touch: each active row's
         token pages through its ``horizon[row]`` steps (write pages
-        included)."""
-        need = [np.asarray(req.gids[: -(-(int(self.pos[row]) + horizon[row])
-                                        // self.page_size)], np.int64)
-                for row, req in self.active.items()]
+        included), then its state page."""
+        need: List[np.ndarray] = []
+        for row, req in self.active.items():
+            if self._has_attn:
+                n_cols = -(-(int(self.pos[row]) + horizon[row])
+                           // self.page_size)
+                need.append(np.asarray(req.gids[:n_cols], np.int64))
+            if self._state_extra:
+                need.append(np.asarray(req.gids[-1:], np.int64))
         return np.concatenate(need) if need else np.asarray([], np.int64)
 
     def _prefill(self, batch: List[Request]) -> List[Tuple[int, int]]:
-        """Prefill a step's joiners as one packed forward pass, write their
-        pages into the pool, and sample each first token."""
+        """Prefill a step's joiners -- as one packed forward pass, or one
+        request at a time for recurrent configs --, write their pages into
+        the pool, and sample each first token."""
         plens = [len(r.prompt) for r in batch]
-        toks, plens_p = pack_prompts([r.prompt for r in batch])
-        logits_b, cache_b = mdl.prefill_batched(
-            self.params, self.cfg, torch.as_tensor(toks, device=self.device),
-            torch.as_tensor(plens_p, device=self.device))
-        self._write_prefill_pages(cache_b, batch, plens)
+        if self._batched_prefill:
+            toks, plens_p = pack_prompts([r.prompt for r in batch])
+            logits_b, cache_b = mdl.prefill_batched(
+                self.params, self.cfg,
+                torch.as_tensor(toks, device=self.device),
+                torch.as_tensor(plens_p, device=self.device))
+            self._write_prefill_pages(cache_b, batch, plens)
+        else:
+            rows = []
+            for req in batch:
+                logits, cache1 = mdl.prefill(
+                    self.params, self.cfg,
+                    torch.as_tensor(req.prompt, dtype=torch.int64,
+                                    device=self.device)[None])
+                self._write_prefill_pages_row(cache1, req)
+                rows.append(logits)
+            logits_b = torch.cat(rows)
         first = mdl.sample(logits_b[: len(batch), 0], *_upload(
             self.device, np.asarray([r.temperature for r in batch],
                                     np.float32),
@@ -418,6 +484,43 @@ class ContinuousBatcher:
             for name in mdl.slot_leaf_names(kind):
                 leaves.setdefault(name, [None] * len(meta))[li] = e[name]
         write_pages_batched(pools.kv_layers, leaves, gids_m, slots_m)
+
+    def _write_prefill_pages_row(self, cache1, req: Request) -> None:
+        """Write one request's prefill into the pool, both tiers: the
+        admission path of recurrent configs.  Token rows scatter by
+        position (page = pos // page_size, offset = pos % page_size), which
+        lands a window ring's rows -- each tagged with its absolute
+        position -- where the paged kernel reads them; each recurrent slot
+        packs its cells' final states into the request's state page.
+        Slots are assigned bookkeeping-only, as ``_write_prefill_pages``."""
+        pools = self.monitor.pools
+        kv = pools.kv_layers
+        ps = self.page_size
+        kv_exact = self._pages_kv_exact(req)
+        own = np.asarray(req.gids[: req.n_alloc - self._state_extra][
+            :kv_exact], np.int64)
+        slots = pools.assign_slots(np.concatenate(
+            [own, np.asarray(req.gids[-1:], np.int64)]))
+        meta = mdl.state_slot_meta(self.cfg)
+        states: List = [None] * len(meta)
+        for li, (si, j, r, _, kind) in enumerate(meta):
+            e = cache1["segments"][si][j]
+            if kind.is_recurrent:
+                states[li] = torch.stack([mdl.pack_state(
+                    {k: v[rr] for k, v in e.items()}) for rr in range(r)])
+                continue
+            pos = e["pos"][0, 0]                 # the same over repeats
+            valid = pos >= 0
+            pos = pos[valid]
+            page = pos // ps
+            at_slot = torch.as_tensor(slots[:kv_exact],
+                                      device=pos.device)[page]
+            at_gid = torch.as_tensor(own, device=pos.device)[page]
+            for name in mdl.slot_leaf_names(kind):
+                rows = e[name][:, 0][:, valid]
+                kv[f"{name}_hbm"][li][:, at_slot, pos % ps] = rows
+                kv[f"{name}_host"][li][:, at_gid, pos % ps] = rows
+        write_state_pages(kv, states, req.gids[-1:], slots[-1:])
 
     # -- the scheduler loop --------------------------------------------------
     @torch.no_grad()
@@ -471,14 +574,14 @@ class ContinuousBatcher:
             inp["iters"] + 1)
         logits, masses = mdl.decode_step_paged(
             self.params, self.cfg, pools.kv_with_sink, tables, gid_tables,
-            self.tok, cur, page_size=self.page_size)
+            self.tok, cur, page_size=self.page_size,
+            state_cols=self._state_cols)
         new_tok = mdl.sample(logits[:, 0], temps, seeds, iters)
         masses, toks = _read_back(masses, new_tok)
         self.decode_steps += 1
         self.device_steps += 1
         merged = self.monitor.merge(
-            [(r.gids[: r.n_pages], masses[row, : r.n_pages])
-             for row, r in rows])
+            [(r.table_gids, masses[row, r.mass_cols]) for row, r in rows])
         self.monitor.on_step(merged, n_active=len(rows), fetched=fetched)
 
         toks = toks.tolist()
@@ -528,7 +631,7 @@ class ContinuousBatcher:
             toks, st = mdl.decode_macro_step(
                 self.params, self.cfg, pools.kv_with_sink, tables,
                 gid_tables, self.tok, *dev_in, n_steps=n_steps,
-                page_size=self.page_size)
+                page_size=self.page_size, state_cols=self._state_cols)
         # the next macro's input token; a clone, since the graph's carry
         # is overwritten by the next replay
         self.tok = st["last_tok"].clone()
@@ -541,8 +644,8 @@ class ContinuousBatcher:
         # the steps each row ran keeps the per-step scale the access
         # threshold expects; dt = the macro's span in token-steps
         merged = self.monitor.merge(
-            [(r.gids[: r.n_pages],
-              mass_sum[row, : r.n_pages] / max(1, int(alive_steps[row])))
+            [(r.table_gids,
+              mass_sum[row, r.mass_cols] / max(1, int(alive_steps[row])))
              for row, r in rows])
         self.decode_steps += int(alive_steps.max())
         self.device_steps += st["steps"]

@@ -1,5 +1,5 @@
-"""The port's MLA, MoE and sliding-window geometries against the JAX
-reference.
+"""The port's MLA, MoE, sliding-window and recurrent geometries against
+the JAX reference.
 
 Reduced ``deepseek-v3-671b`` (every layer MLA; one dense-MLP segment and
 one MoE segment with a shared expert), reduced ``olmoe-1b-7b`` (k/v
@@ -7,8 +7,16 @@ attention with qk-norm, every layer MoE without a shared expert) and
 reduced ``gemma3-12b`` (five sliding-window layers of window 8 and one
 global layer, qk-norm, SwiGLU, tied embeddings; the prompts of 9 and 11
 tokens are longer than the window and 11 % 8 = 3 exercises the ring's
-roll), all float32, with the reference's parameters carried over through
-``repro_torch.bridge``:
+roll), reduced ``recurrentgemma-2b`` (RG-LRU, RG-LRU, local attention
+of window 8, then two RG-LRU: the prompts pass the window too) and
+reduced ``xlstm-1.3b`` (seven mLSTM and one sLSTM, no MLP sublayer, no
+token pages), all float32, with the reference's parameters carried over
+through ``repro_torch.bridge``.  The reference initialises every
+recurrent cell's conv taps to zero, and with them all three cells output
+exactly zero and keep zero states (``tests/test_torch_recurrent.py``
+shows it): these tests draw the taps from N(0, 0.5) in numpy from the
+seed and set them in the reference's parameters before the bridge, so
+the cells' arithmetic is what they compare.
 
   * the routed MoE against ``moe_apply_dense`` (outputs and aux loss) and
     the routing's tie order against ``lax.top_k``;
@@ -24,7 +32,11 @@ roll), all float32, with the reference's parameters carried over through
   * gemma3 with ``attention_impl="pallas"`` (prefill self-attention
     through ``ops.flash_attention``, its plain version on the CPU): the
     reference's logits and caches, and the reference batcher's streams,
-    migrations and tuner history.
+    migrations and tuner history;
+  * the recurrent configs: prefill's final cell states, dense decode,
+    the paged step over state pages (``state_cols``), and the batcher
+    (state page at the last table column, one prefill per request) with
+    the reference batcher's hits and misses too.
 
 On the CPU the paged layers run the kernels' plain versions.  Tolerances:
 1e-4 absolute on logits, 1e-5 on page masses, MoE outputs and caches
@@ -66,6 +78,9 @@ from repro_torch.serve.engine import generate as t_generate
 
 MOE_ARCHS = ["deepseek-v3-671b", "olmoe-1b-7b"]
 ARCHS = MOE_ARCHS + ["gemma3-12b"]
+RECURRENT_ARCHS = ["recurrentgemma-2b", "xlstm-1.3b"]
+SERVED = ARCHS + RECURRENT_ARCHS
+CONV_STD = 0.5
 LOGIT_TOL, TOL = 1e-4, 1e-5
 N_LOGICAL, HBM, PAGE = 48, 10, 4
 PROMPT_LENS = (6, 9, 5, 11)
@@ -79,6 +94,10 @@ def _models(arch):
         rcfg = dataclasses.replace(RC.reduced(arch), dtype="float32")
         tcfg = dataclasses.replace(TC.reduced(arch), dtype="float32")
         rp, _ = RM.init(jax.random.PRNGKey(0), rcfg)
+        if arch in RECURRENT_ARCHS:
+            rp = jax.tree.map(np.asarray, rp)
+            _perturb_conv(rp, np.random.default_rng(7))
+            rp = jax.tree.map(jnp.asarray, rp)
         tp = bridge.from_reference(jax.tree.map(np.asarray, rp), tcfg,
                                    device="cpu")
         rng = np.random.default_rng(0)
@@ -87,6 +106,18 @@ def _models(arch):
         _CACHE[arch] = dict(rcfg=rcfg, rp=rp, tcfg=tcfg, tp=tp,
                             prompts=prompts)
     return _CACHE[arch]
+
+
+def _perturb_conv(ref_params, rng) -> None:
+    """Non-zero conv taps, N(0, CONV_STD), in every recurrent cell of the
+    reference's (numpy) parameters: the reference's zero init would make
+    every cell an identity on the residual stream."""
+    for seg in ref_params["segments"]:
+        for slot in seg:
+            if "cell" in slot:
+                conv = slot["cell"]["conv"]
+                slot["cell"]["conv"] = rng.normal(
+                    0.0, CONV_STD, conv.shape).astype(np.float32)
 
 
 def _close(t, r, tol):
@@ -188,7 +219,7 @@ def test_mla_layers_match_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_forward_prefill_decode_match(arch):
     m = _models(arch)
     rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
@@ -202,19 +233,36 @@ def test_forward_prefill_decode_match(arch):
     assert (float(taux) > 0) == (arch in MOE_ARCHS)   # aux of MoE layers
 
     lengths = np.asarray([11, 6], np.int32)
-    rl, rc = RM.prefill_batched(rp, rcfg, jnp.asarray(toks),
-                                jnp.asarray(lengths))
-    tl, tc = TM.prefill_batched(tp, tcfg, tt, torch.from_numpy(lengths))
-    _close(tl, rl, LOGIT_TOL)
-    for si, seg in enumerate(tc["segments"]):
-        for name, a in seg[0].items():
-            np.testing.assert_allclose(
-                a.numpy(), np.asarray(rc["segments"][si][0][name]),
-                atol=TOL, rtol=0)
+    if arch in RECURRENT_ARCHS:
+        # a recurrent cell would fold the padding into its state
+        assert not TM.batched_prefill_supported(tcfg)
+        for fn, p, c, t, ln in ((RM.prefill_batched, rp, rcfg, toks, lengths),
+                                (TM.prefill_batched, tp, tcfg, tt,
+                                 torch.from_numpy(lengths))):
+            with pytest.raises(ValueError, match="batched prefill"):
+                fn(p, c, t, ln)
+    else:
+        rl, rc = RM.prefill_batched(rp, rcfg, jnp.asarray(toks),
+                                    jnp.asarray(lengths))
+        tl, tc = TM.prefill_batched(tp, tcfg, tt, torch.from_numpy(lengths))
+        _close(tl, rl, LOGIT_TOL)
+        for si, seg in enumerate(tc["segments"]):
+            for name, a in seg[0].items():
+                np.testing.assert_allclose(
+                    a.numpy(), np.asarray(rc["segments"][si][0][name]),
+                    atol=TOL, rtol=0)
 
     rl, rcache = RM.prefill(rp, rcfg, jnp.asarray(toks))
     tl, tcache = TM.prefill(tp, tcfg, tt)
     _close(tl, rl, LOGIT_TOL)
+    if arch in RECURRENT_ARCHS:
+        # every slot's cache: a local ring's rows, or a cell's final state
+        for tseg, rseg in zip(tcache["segments"], rcache["segments"]):
+            for t, r in zip(tseg, rseg):
+                assert sorted(t) == sorted(r)
+                for name, a in t.items():
+                    np.testing.assert_allclose(a.numpy(), np.asarray(r[name]),
+                                               atol=TOL, rtol=0)
     rcache = RM.pad_cache(rcache, rcfg, 16)
     tcache = TM.pad_cache(tcache, tcfg, 16)
     pos = np.full((2,), 11, np.int32)
@@ -250,46 +298,68 @@ def test_decode_from_empty_cache_matches():
         _close(tl, rl, LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_decode_step_paged_matches(arch):
     """Identical pools and tables: logits, layer-averaged page mass and
-    the write-through into both tiers (ckv/krope for MLA) agree; an
-    inactive row writes nothing and carries no mass."""
+    the write-through into both tiers (ckv/krope for MLA, the packed
+    state page for a recurrent cell, at its ``state_cols`` column) agree;
+    an inactive row writes nothing and carries no mass."""
     m = _models(arch)
     rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
     page, hbm, n_logical = 4, 12, 20
-    rng = np.random.default_rng(1)
-    specs = TM.slot_leaf_specs(tcfg, page)
-    assert specs == [(r, {k: tuple(v) for k, v in lv.items()})
-                     for r, lv in RM.slot_leaf_specs(rcfg, page)]
-    pools = {}
-    for r, leaves in specs:
-        for name, trail in leaves.items():
-            for tier, n in (("hbm", hbm), ("host", n_logical)):
-                pools.setdefault(f"{name}_{tier}", []).append(
-                    rng.standard_normal((r, n) + trail).astype(np.float32))
     tables = np.asarray([[3, 7, 1, -1, -1],
                          [0, 2, 5, 9, 11],
                          [-1, -1, -1, -1, -1],
                          [4, 6, 8, 10, -1]], np.int32)
+    state_cols = None
+    if arch in RECURRENT_ARCHS:
+        # a sixth column holds each live row's state page
+        hbm, n_logical = 16, 24
+        tables = np.concatenate([tables, [[12], [13], [-1], [14]]], axis=1) \
+            .astype(np.int32)
+        state_cols = np.full((4,), tables.shape[1] - 1, np.int32)
+    rng = np.random.default_rng(1)
+    specs = TM.slot_leaf_specs(tcfg, page)
+    assert specs == [(r, {k: tuple(v) for k, v in lv.items()})
+                     for r, lv in RM.slot_leaf_specs(rcfg, page)]
+    # one leaf list per name over every slot, None where a slot lacks the
+    # leaf (recurrentgemma mixes k/v and state slots), as the pools hold
+    names = list(dict.fromkeys(n for _, lv in specs for n in lv))
+    pools = {f"{n}_{t}": [] for n in names for t in ("hbm", "host")}
+    for r, leaves in specs:
+        for name in names:
+            for tier, n in (("hbm", hbm), ("host", n_logical)):
+                if name not in leaves:
+                    pools[f"{name}_{tier}"].append(None)
+                    continue
+                shape = (r, n) + leaves[name]
+                # packed states in [0.5, 1.5): the sLSTM's normaliser n
+                # stays clear of its 1e-6 floor
+                draw = (rng.uniform(0.5, 1.5, shape) if name == "state"
+                        else rng.standard_normal(shape))
+                pools[f"{name}_{tier}"].append(draw.astype(np.float32))
     gid_tables = np.where(tables >= 0, tables + 5, -1).astype(np.int32)
     cur_pos = np.asarray([9, 18, -1, 13], np.int32)
     tokens = rng.integers(0, rcfg.vocab_size, (4, 1)).astype(np.int32)
 
-    rkv = {k: [jnp.asarray(a) for a in v] for k, v in pools.items()}
+    rkv = {k: [None if a is None else jnp.asarray(a) for a in v]
+           for k, v in pools.items()}
     rl, rkv2, rmass = RM.decode_step_paged(
         rp, rcfg, rkv, jnp.asarray(tables), jnp.asarray(gid_tables),
         jnp.asarray(tokens), jnp.asarray(cur_pos), page_size=page,
-        impl="reference")
+        impl="reference", state_cols=(None if state_cols is None
+                                      else jnp.asarray(state_cols)))
     # one sink page past the pages the tables name, as
     # ``SharedPagedPools.kv_with_sink``
-    tkv = {k: [torch.from_numpy(np.concatenate([a, np.zeros_like(a[:, :1])],
-                                               axis=1)) for a in v]
+    tkv = {k: [None if a is None else torch.from_numpy(
+                   np.concatenate([a, np.zeros_like(a[:, :1])], axis=1))
+               for a in v]
            for k, v in pools.items()}
     tl, tmass = TM.decode_step_paged(
         tp, tcfg, tkv, torch.from_numpy(tables), torch.from_numpy(gid_tables),
         torch.from_numpy(tokens).long(), torch.from_numpy(cur_pos).long(),
-        page_size=page)
+        page_size=page, state_cols=(None if state_cols is None
+                                    else torch.from_numpy(state_cols)))
     active = cur_pos >= 0
     _close(tl[active], np.asarray(rl)[active], LOGIT_TOL)
     _close(tmass, rmass, TOL)
@@ -298,8 +368,9 @@ def test_decode_step_paged_matches(arch):
                                atol=TOL)
     for k in pools:
         for t, r in zip(tkv[k], rkv2[k]):
-            np.testing.assert_allclose(t[:, :-1].numpy(), np.asarray(r),
-                                       atol=TOL, rtol=0)
+            if t is not None:
+                np.testing.assert_allclose(t[:, :-1].numpy(), np.asarray(r),
+                                           atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
@@ -380,26 +451,31 @@ def _serve(arch, side, macro, temps=(0.0, 0.0, 0.0, 0.0),
     return got, mon
 
 
+LEAVES = {"deepseek-v3-671b": {"ckv", "krope"},
+          "recurrentgemma-2b": {"k", "v", "state"}, "xlstm-1.3b": {"state"}}
+
+
 @pytest.mark.parametrize("macro", [True, False])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_batcher_greedy_streams_match_reference(arch, macro):
-    """Greedy streams rid for rid, migrations and the tuner's history
-    equal the reference batcher's; the pools carry the slot's own leaves
-    (two planes per migrated page either way)."""
+    """Greedy streams rid for rid, migrations, hits, misses and the
+    tuner's history equal the reference batcher's; the pools carry the
+    slots' own leaves (two planes per migrated page with k/v or ckv/krope
+    leaves, one for state pages alone)."""
     ref, ref_mon = _serve(arch, "ref", macro)
     port, port_mon = _serve(arch, "port", macro)
     assert port == ref
-    assert port_mon.manager.migrations == ref_mon.manager.migrations
-    assert port_mon.manager.data_moved_pages \
-        == ref_mon.manager.data_moved_pages
+    for key in ("migrations", "data_moved_pages", "hits", "misses"):
+        assert getattr(port_mon.manager, key) \
+            == getattr(ref_mon.manager, key), key
     assert port_mon.tuner.history == ref_mon.tuner.history
     leaves = {k.rsplit("_", 1)[0] for k in port_mon.pools.kv_layers}
-    assert leaves == ({"ckv", "krope"} if arch == "deepseek-v3-671b"
-                      else {"k", "v"})
-    assert port_mon.pools.move_planes == ref_mon.pools.move_planes == 2
+    assert leaves == LEAVES.get(arch, {"k", "v"})
+    assert port_mon.pools.move_planes == ref_mon.pools.move_planes \
+        == (1 if arch == "xlstm-1.3b" else 2)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_batcher_streams_match_generate(arch):
     """Greedy rows equal the reference's ``generate``; a sampled row draws
     the same tokens on the port's per-token path, macro path and

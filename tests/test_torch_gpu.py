@@ -119,6 +119,43 @@ def test_cuda_kernel_split_edges(dtype, n, window, softcap, lengths, holes):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_at_recurrentgemma_decode_shape(dtype):
+    """recurrentgemma-2b's local layers: 10 query heads over 1 KV head
+    (five groups of two at D 256), window 2048, rows past the window, a
+    row without a request, and the served tables' last column -- the state
+    page, past every length -- which the kernel must not read: it holds
+    to its plain version, the masses sum to 1 with none at that column,
+    and two calls are bit-identical."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    b, h, kv, d, page, n, p_phys = 4, 10, 1, 256, 16, 193, 800
+    lengths = [3000, 2100, 2049, 0]
+    g = torch.Generator(device=dev).manual_seed(10)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+    kp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dt)
+    vp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dt)
+    perm = torch.randperm(p_phys, generator=g, device=dev).to(torch.int32)
+    pt = perm[: b * n].reshape(b, n).clone()
+    for row, length in enumerate(lengths):
+        pt[row, -(-length // page):] = -1
+    pt[:3, -1] = perm[b * n: b * n + 3]            # the state pages
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out, mass = tpa.paged_attention(q, kp, vp, pt, ln, window=2048)
+    out2, mass2 = tpa.paged_attention(q, kp, vp, pt, ln, window=2048)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(mass, mass2)
+    ref_o, ref_m = tpa.paged_attention_plain(q, kp, vp, pt, ln, window=2048)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref_o.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(mass, ref_m, atol=1e-5, rtol=0)
+    torch.testing.assert_close(mass.sum(dim=1)[:3],
+                               torch.ones(3, device=dev), atol=1e-5, rtol=0)
+    assert torch.count_nonzero(mass[:, -1]) == 0
+    assert torch.count_nonzero(out[3]) == 0
+
+
+@pytest.mark.gpu
 def test_cuda_kernel_rejects_what_it_does_not_take():
     """The split kernel copies 16-byte pieces of head dims up to 512: rows
     of another size raise instead of launching."""
@@ -539,11 +576,14 @@ def test_flash_kernel_rejects_what_it_does_not_take():
 
 # ---------------------------------------------------------------------------
 # the decode macro as a CUDA graph (``models.graphs``) against the eager
-# route: reduced GQA and sliding-window configs, float32, two rows, four
-# requests admitted in turn, two of them sampled
+# route: reduced GQA, sliding-window and recurrent configs (the recurrent
+# cells' conv taps drawn from N(0, 0.5): the reference's zero taps make
+# every cell an identity), float32, two rows, four requests admitted in
+# turn, two of them sampled
 # ---------------------------------------------------------------------------
 
-GRAPH_ARCHS = {"gqa": "qwen3-14b", "window": "gemma3-12b"}
+GRAPH_ARCHS = {"gqa": "qwen3-14b", "window": "gemma3-12b",
+               "rglru": "recurrentgemma-2b", "xlstm": "xlstm-1.3b"}
 _GRAPH_MODELS = {}
 
 
@@ -554,7 +594,13 @@ def _graph_model(kind):
     if kind not in _GRAPH_MODELS:
         cfg = dataclasses.replace(TC.reduced(GRAPH_ARCHS[kind]),
                                   dtype="float32")
-        _GRAPH_MODELS[kind] = (cfg, TM.init(cfg, seed=0, device="cuda"))
+        params = TM.init(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(5)
+        for seg in params.segments:
+            for slot in seg:
+                if slot.kind.is_recurrent:
+                    slot.cell.conv.normal_(generator=g).mul_(0.5)
+        _GRAPH_MODELS[kind] = (cfg, params)
     return _GRAPH_MODELS[kind]
 
 
@@ -726,3 +772,72 @@ def test_graph_capture_and_replay_make_no_host_sync():
         for a, b in zip(leaves, pools[1].kv_with_sink[k]):
             assert torch.equal(a[:, :-1], b[:, :-1]), k
     assert st["alive_steps"].tolist()[0] == 6
+
+
+@pytest.mark.gpu
+def test_recurrentgemma_launches_are_local_layers_times_device_steps():
+    """recurrentgemma's paged kernel runs in its local layers only (one of
+    the reduced config's five), once per replayed step."""
+    from repro_torch.models import model as TM
+    _card()
+    b, _, submit = _graph_batcher("rglru", False)
+    local = sum(r for _, _, r, w, _ in TM.state_slot_meta(b.cfg) if w > 0)
+    tpa.paged_attention.launches = 0
+    _drive([(b, [], submit)])
+    assert b.decode_steps > 0 and local == 1
+    assert tpa.paged_attention.launches == local * b.device_steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rglru", "xlstm"])
+def test_recurrent_graph_capture_makes_no_host_sync(kind):
+    """A recurrent config's ``DecodeGraph`` (state pages at a static
+    ``state_cols`` column) captures and replays under
+    ``torch.cuda.set_sync_debug_mode("error")``, and its macro equals the
+    eager ``decode_macro_step`` on the same pools: tokens, carry and both
+    tiers of every leaf."""
+    from repro_torch.memtier.tiering import SharedPagedPools
+    from repro_torch.models import graphs
+    from repro_torch.models import model as TM
+    dev = _card()
+    cfg, params = _graph_model(kind)
+    tables = torch.tensor([[3, 7, 1, -1, -1, 12], [0, 2, 5, 9, 11, 13]],
+                          dtype=torch.int32, device=dev)
+    gids = torch.where(tables >= 0, tables + 5, -1).to(torch.int32)
+    state_cols = torch.full((2,), 5, dtype=torch.int64, device=dev)
+    pools = []
+    for _ in range(2):
+        p = SharedPagedPools.create(20, 16)
+        p.attach_layered(TM.slot_leaf_specs(cfg, 4), device=dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        for key, leaves in p.kv_with_sink.items():
+            for t in leaves:
+                if t is not None:
+                    t.uniform_(0.5, 1.5, generator=g) \
+                        if key.startswith("state") else t.normal_(generator=g)
+        pools.append(p)
+    i64 = lambda *v: torch.tensor(v, dtype=torch.int64, device=dev)
+    inputs = (i64([5], [9]), i64(9, 6), i64(1, 2), i64(0, 3), i64(1, 4),
+              i64(20, 20), i64(-1, 7),
+              torch.tensor([0.0, 0.8], device=dev))
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        dg = graphs.DecodeGraph(params, cfg, pools[0].kv_with_sink, tables,
+                                gids, max_steps=8, page_size=4,
+                                state_cols=state_cols)
+        toks, st = dg.launch(*inputs, n_steps=6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref_toks, ref_st = TM.decode_macro_step(
+        params, cfg, pools[1].kv_with_sink, tables, gids, *inputs,
+        n_steps=6, page_size=4, state_cols=state_cols)
+    assert torch.equal(toks, ref_toks)
+    for k in ("mass_sum", "alive_steps", "pos", "iters", "emitted",
+              "stopped", "last_tok"):
+        assert torch.equal(st[k], ref_st[k]), k
+    for k, leaves in pools[0].kv_with_sink.items():
+        for a, b in zip(leaves, pools[1].kv_with_sink[k]):
+            if a is not None:
+                assert torch.equal(a[:, :-1], b[:, :-1]), k
+    assert float(st["mass_sum"][0, 5]) > 0

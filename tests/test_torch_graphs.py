@@ -7,8 +7,11 @@ the port's earlier decode core).  Also the route rule: which configs
 and devices take the graph, and that nothing falls back to the eager
 route.
 
-Reduced configs (GQA, sliding window, MLA + MoE), float32, on the CPU
-(the kernels' plain versions).  Pools compare with ``torch.equal``."""
+Reduced configs (GQA, sliding window, MLA + MoE, and the recurrent
+recurrentgemma-2b and xlstm-1.3b with their conv taps drawn from
+N(0, 0.5), since the reference's zero taps make every cell an identity),
+float32, on the CPU (the kernels' plain versions).  Pools compare with
+``torch.equal``."""
 import dataclasses
 
 import numpy as np
@@ -29,27 +32,38 @@ from repro_torch.models import model as TM
 from repro_torch.serve import sched as TS
 
 PAGE, N_ROW, HBM, N_LOGICAL = 4, 5, 12, 20
-ARCHS = {"gqa": "qwen3-14b", "window": "gemma3-12b", "mla": "deepseek-v3-671b"}
+ARCHS = {"gqa": "qwen3-14b", "window": "gemma3-12b", "mla": "deepseek-v3-671b",
+         "rglru": "recurrentgemma-2b", "xlstm": "xlstm-1.3b"}
 _CACHE = {}
 
 
 def _model(kind):
     if kind not in _CACHE:
         cfg = dataclasses.replace(TC.reduced(ARCHS[kind]), dtype="float32")
-        _CACHE[kind] = (cfg, TM.init(cfg, seed=3, device="cpu"))
+        params = TM.init(cfg, seed=3, device="cpu")
+        g = torch.Generator().manual_seed(5)
+        for seg in params.segments:
+            for slot in seg:
+                if slot.kind.is_recurrent:
+                    conv = slot.cell.conv
+                    conv.copy_(0.5 * torch.randn(conv.shape, generator=g))
+        _CACHE[kind] = (cfg, params)
     return _CACHE[kind]
 
 
-def _pools(cfg, seed=1):
+def _pools(cfg, seed=1, hbm=HBM):
     """Sinked pools (``SharedPagedPools.attach_layered``) filled with
-    seeded values, the sinks included."""
-    pools = SharedPagedPools.create(N_LOGICAL, HBM)
+    seeded values, the sinks included (state pages in [0.5, 1.5), which
+    keeps the sLSTM's normaliser clear of its floor)."""
+    pools = SharedPagedPools.create(N_LOGICAL, hbm)
     pools.attach_layered(TM.slot_leaf_specs(cfg, PAGE), device="cpu")
     g = torch.Generator().manual_seed(seed)
-    for leaves in pools.kv_with_sink.values():
+    for key, leaves in pools.kv_with_sink.items():
         for t in leaves:
             if t is not None:
-                t.copy_(torch.randn(t.shape, generator=g))
+                draw = torch.randn(t.shape, generator=g)
+                t.copy_(1.0 + draw.clamp(-0.5, 0.49)
+                        if key.startswith("state") else draw)
     return pools
 
 
@@ -206,10 +220,10 @@ def _no_host_reads(monkeypatch):
     return _NoHostReads()
 
 
-def _carry(cfg):
+def _carry(cfg, n_row=N_ROW):
     """A carry over four rows: two greedy, one sampled, one without a
     request."""
-    c = TM.MacroCarry.empty(4, N_ROW, 8, "cpu")
+    c = TM.MacroCarry.empty(4, n_row, 8, "cpu")
     c.load(tokens=torch.tensor([[5], [9], [0], [17]]),
            cur_pos=torch.tensor([9, 14, -1, 13]),
            seeds=torch.tensor([1, 2, 0, 3]), iters=torch.tensor([4, 0, 0, 7]),
@@ -241,6 +255,51 @@ def test_step_body_reads_nothing_back(kind, monkeypatch):
     assert c.step.tolist() == [3]
     assert c.alive_steps[[0, 2, 3]].tolist() == [3, 0, 3]
     assert c.toks_out[:3, 2].tolist() == [-1, -1, -1]
+
+
+@pytest.mark.parametrize("kind", ["rglru", "xlstm"])
+def test_recurrent_step_body_reads_nothing_back(kind, monkeypatch):
+    """``decode_body`` of a recurrent config makes no host read either:
+    each row's state page is read from its HBM slot and written through
+    both tiers at its ``state_cols`` column (a sixth column, past the
+    token pages), the empty row's into the sinks.  Live rows' state pages
+    change on both tiers, alike; the mass at each live row's state column
+    counts one per recurrent layer a step."""
+    cfg, params = _model(kind)
+    pools = _pools(cfg, hbm=HBM + 4)
+    tables_np = np.concatenate([TABLES, [[12], [13], [-1], [14]]], axis=1) \
+        .astype(np.int32)
+    tables = torch.from_numpy(tables_np)
+    gids = torch.from_numpy(np.where(tables_np >= 0, tables_np + 5, -1)
+                            .astype(np.int32))
+    state_cols = torch.full((4,), N_ROW, dtype=torch.int64)
+    before = {k: [None if t is None else t.clone() for t in v]
+              for k, v in pools.kv_layers.items()}
+    c = _carry(cfg, N_ROW + 1)
+    mode = _no_host_reads(monkeypatch)
+    with mode:
+        for _ in range(3):
+            TM.decode_body(params, cfg, pools.kv_with_sink, tables, gids, c,
+                           page_size=PAGE, state_cols=state_cols)
+    monkeypatch.undo()
+    assert c.alive_steps[[0, 2, 3]].tolist() == [3, 0, 3]
+    recurrent = sum(r for _, _, r, _, k in TM.state_slot_meta(cfg)
+                    if k.is_recurrent)
+    n_layers = cfg.num_layers
+    for row in (0, 3):
+        assert abs(float(c.mass_sum[row, N_ROW]) - 3 * recurrent / n_layers) \
+            < 1e-5
+    assert float(c.mass_sum[2].abs().sum()) == 0.0
+    for li, leaf in enumerate(pools.kv_layers["state_hbm"]):
+        if leaf is None:
+            continue
+        host = pools.kv_layers["state_host"][li]
+        for slot, gid in ((12, 17), (14, 19)):
+            assert not torch.equal(leaf[:, slot],
+                                   before["state_hbm"][li][:, slot])
+            assert torch.equal(leaf[:, slot], host[:, gid])
+        # slot 15, which no table names, keeps its bytes
+        assert torch.equal(leaf[:, 15], before["state_hbm"][li][:, 15])
 
 
 def test_routed_moe_step_reads_its_expert_counts(monkeypatch):
@@ -348,7 +407,8 @@ def test_cpu_batchers_take_the_eager_route(kind, macro, eager):
 
 
 @pytest.mark.parametrize("kind,takes", [("gqa", True), ("window", True),
-                                        ("mla", False)])
+                                        ("mla", False), ("rglru", True),
+                                        ("xlstm", True)])
 def test_graph_route_supports_configs_without_routed_moe(kind, takes):
     cfg, _ = _model(kind)
     assert graphs.supports(cfg) is takes
