@@ -5,15 +5,18 @@
 Drives the port's paths on the card -- the online-Cori paged serving loop
 (decode through the paged kernels, prefill through the flash kernel) and
 the paper's offline Cori pipeline -- and checks every kernel they run
-against the kernel's plain PyTorch version.  Phases (each prints its
+against the kernel's plain PyTorch version (the five ports of the
+reference's Pallas kernels and the port's own routed-expert kernel).
+Phases (each prints its
 own lines and its seconds; any failure raises and the script exits
 non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: ``nvcc`` compiles the five kernels for sm_90a from
+  2. build: ``nvcc`` compiles the six kernels for sm_90a from
      ``src/repro_torch/kernels/csrc``, one process per source, all at once
      (each -Xptxas -v report is printed);
-  3. kernel vs plain version on the card: the main-path shape, gemma3's
+  3. kernel vs plain version on the card: the main-path shape, olmoe's
+     decode shape (16/16 heads of 128: a GQA group of one), gemma3's
      decode shape (16/8 heads, D 256, window 1024), recurrentgemma's (10/1
      heads, D 256, window 2048, rows past the window, a row without a
      request and a state page in the tables' last column, past every
@@ -37,9 +40,10 @@ non-zero):
   5. parity on the card: on a reduced GQA config, the batcher's greedy
      streams (macro and per-token) equal ``generate``'s (dense attention,
      no kernel);
-  6. paged kernel timing at the three served decode shapes (qwen3-14b's,
-     gemma3-12b's with window 1024 and recurrentgemma-2b's with 10/1
-     heads and window 2048): per call (CUDA events) and on
+  6. paged kernel timing at the four served decode shapes (qwen3-14b's,
+     gemma3-12b's with window 1024, recurrentgemma-2b's with 10/1
+     heads and window 2048, and olmoe-1b-7b's with 16/16 heads): per call
+     (CUDA events) and on
      the device alone (profiler kernel durations), L2 flushed before each
      call, beside its plain version, one SDPA call (the yardstick, which
      the kernel must beat) and the bandwidth bound;
@@ -77,14 +81,15 @@ non-zero):
  11. full-width deepseek-v3-671b (MLA + MoE; depth cut from 61 layers to
      2, one dense-MLP and one MoE layer, float32 weights from a seeded
      init) served by the macro-step batcher with phase 4's request mix,
-     after phase 4's qwen3-14b is freed, by the eager route (a routed MoE
-     layer reads its expert counts back to the host, so it has no
-     graph).  The MLA kernel's launch count must equal 2 x the device
-     steps, which must be the decode steps; one decode macro is profiled
-     as in phase 4;
- 12. parity on the card: on reduced deepseek-v3-671b, the batcher's
-     greedy streams (macro and per-token) equal ``generate``'s (dense MLA
-     decode, no kernel);
+     after phase 4's qwen3-14b is freed, by the graph route and then the
+     eager route, as phase 4 (the routed MoE groups its tokens by expert
+     on the device, so its step is captured).  The MLA kernel's launch
+     count must equal 2 x the device steps and the routed-expert kernel's
+     1 x the device steps; one decode macro a route is profiled as in
+     phase 4;
+ 12. parity on the card: on reduced deepseek-v3-671b and olmoe-1b-7b, the
+     batcher's greedy streams (macro and per-token) equal ``generate``'s
+     (dense decode, no paged kernel);
  13. the MLA kernel's timing at the main-path shape, per call (CUDA
      events) and on the device (profiler), beside its plain version, one
      SDPA call over the gathered rows (the yardstick, which the kernel must
@@ -144,7 +149,28 @@ non-zero):
      equal those resident before, and both routes must agree;
  20. parity on the card: on reduced recurrentgemma-2b and xlstm-1.3b with
      non-zero conv taps, the batcher's greedy streams (macro and
-     per-token) equal ``generate``'s (dense decode, no kernel).
+     per-token) equal ``generate``'s (dense decode, no kernel);
+ 21. the routed-expert kernel ``routed_experts`` vs its plain version on
+     the card, after xlstm-1.3b is freed: olmoe-1b-7b's and
+     deepseek-v3-671b's decode widths (all 64 / 256 experts), 4 tokens
+     and 1, all four tokens on the same experts, and tied router
+     probabilities (the route's stable sort must pick the experts
+     ``lax.top_k`` would: a stable descending argsort of the same
+     probabilities), each within ``ROUTED_TOL`` of the largest output
+     magnitude and a second call bit-identical;
+ 22. the routed-expert kernel's timing at both decode shapes (4 tokens,
+     top-8): per call (CUDA events) and on the device (profiler), beside
+     its plain version, the number of distinct experts, its bound (the
+     distinct experts' bytes plus the tokens' in and out, at 3.35 TB/s)
+     and the yardstick, the expert loop a sequence takes
+     (``moe._expert_loop``: a host read of the counts, then
+     ``torch.matmul``s over the chosen experts) on the same inputs;
+ 23. full-width, full-depth olmoe-1b-7b (16 layers, every one GQA 16/16
+     heads of 128 + 64 experts top-8; float32 weights from a seeded init,
+     27.7 GB) served with phase 4's pools and request mix by the graph
+     route and then the eager route, as phase 4.  The paged kernel's
+     launches must equal 16 x the device steps, and the routed-expert
+     kernel's too.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -162,6 +188,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -270,6 +297,8 @@ def phase_kernel_check(pa) -> float:
     tol = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (2e-2, 1e-5)}
     main = dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
                 lengths=[1024, 777, 0, 301])
+    # olmoe-1b-7b's: 16 query heads over 16 KV heads of 128 (a group of one)
+    olmoe = dict(PAGED_SHAPES["olmoe-1b-7b"], lengths=[1024, 600, 0, 129])
     # gemma3-12b's decode shape: the window path at D = 256
     gemma = dict(b=4, h=16, kv=8, d=256, page=16, n=128, p_phys=512,
                  lengths=[2048, 1500, 1025, 0], window=1024)
@@ -277,7 +306,7 @@ def phase_kernel_check(pa) -> float:
     # two at D 256), window 2048, rows past the window, a row without a
     # request, and its tables' 193rd column holding the state page
     rgemma = dict(RGEMMA_DECODE, lengths=[3000, 2100, 2049, 0])
-    grid = [dict(main), gemma, rgemma] + SPLIT_EDGES
+    grid = [dict(main), olmoe, gemma, rgemma] + SPLIT_EDGES
     for h, kv in ((4, 4), (8, 2), (8, 1)):
         for window, softcap in ((0, 0.0), (3, 0.0), (0, 5.0), (3, 5.0)):
             grid.append(dict(b=3, h=h, kv=kv, d=64, page=16, n=6, p_phys=32,
@@ -591,11 +620,12 @@ def _profile_macro(b, S, cfg, rng) -> dict:
                if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = {"matmul (cuBLAS)": 0.0, "paged_attention (this repo)": 0.0,
-              "other": 0.0}
+              "routed_experts (this repo)": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         key = ("paged_attention (this repo)"
                if "paged_attention" in name or "page_mass" in name
+               else "routed_experts (this repo)" if "routed_" in name
                else "matmul (cuBLAS)" if "gemm" in name or "gemv" in name
                else "other")
         groups[key] += e.self_device_time_total / 1e3
@@ -753,9 +783,10 @@ def _ms_list(named):
     return ", ".join(f"{k} {v:.4f} ms" for k, v in named.items())
 
 
-# the paged kernel's three served decode shapes (float32): qwen3-14b's
+# the paged kernel's four served decode shapes (float32): qwen3-14b's
 # (phase 4), gemma3-12b's sliding-window layers (phase 15, 40 of its 48
-# launches a step) and recurrentgemma-2b's local layers (phase 18)
+# launches a step), recurrentgemma-2b's local layers (phase 18) and
+# olmoe-1b-7b's (phase 23)
 PAGED_SHAPES = {
     "qwen3-14b": dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
                       lengths=[1024, 777, 513, 301]),
@@ -763,6 +794,8 @@ PAGED_SHAPES = {
                        lengths=[1664, 1500, 1200, 1040], window=1024),
     "recurrentgemma-2b": dict(RGEMMA_DECODE,
                               lengths=[2600, 2400, 2200, 2100]),
+    "olmoe-1b-7b": dict(b=4, h=16, kv=16, d=128, page=16, n=64, p_phys=256,
+                        lengths=[1024, 777, 513, 301]),
 }
 
 
@@ -1284,7 +1317,8 @@ def deepseek_cut(C):
         cfg, segments=((("attn.mla",), 1), (("attn.mla.moe",), 1)))
 
 
-def phase_deepseek(C, mdl, pa, pam, S, memtier, cori, telemetry, kernels):
+def phase_deepseek(C, mdl, pa, pam, re_, S, memtier, cori, telemetry,
+                   kernels):
     print("== phase 11: full-width deepseek-v3-671b serving (MLA + MoE, "
           "macro-step batcher)", flush=True)
     full = C.get("deepseek-v3-671b")
@@ -1310,33 +1344,38 @@ def phase_deepseek(C, mdl, pa, pam, S, memtier, cori, telemetry, kernels):
           f"top-{mo.top_k} of {mo.d_expert} + {mo.num_shared} shared, vocab "
           f"{cfg.vocab_size}: {n_params / 1e9:.3f} B float32 params in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    b, result, _, rng, _ = _serve_mix(params, cfg, S, memtier, cori,
-                                      telemetry, kernels)
-    del params
-    print(f"route {b.route}: routed MoE reads its expert counts back to the "
-          "host (moe_apply), so the batcher takes the eager route",
-          flush=True)
-    if b.route != "eager":
-        _fail("a routed MoE config must take the eager route")
-    launches = result["launches"] = pam.paged_attention_mla.launches
-    kv_launches = pa.paged_attention.launches
-    _check_launches("paged_attention_mla", launches, cfg.num_layers, b, True)
-    print(f"k/v paged_attention launches {kv_launches}", flush=True)
-    if kv_launches:
-        _fail("the k/v kernel ran in an MLA model")
-    result["profile"] = _profile_macro(b, S, cfg, rng)
+
+    def check(b, result, eager):
+        result["launches"] = pam.paged_attention_mla.launches
+        result["routed_launches"] = re_.routed_experts.launches
+        _check_launches("paged_attention_mla", result["launches"],
+                        cfg.num_layers, b, eager)
+        _check_launches("routed_experts", result["routed_launches"],
+                        _moe_layers(mdl, cfg), b, eager)
+        kv_launches = pa.paged_attention.launches
+        print(f"k/v paged_attention launches {kv_launches}", flush=True)
+        if kv_launches:
+            _fail("the k/v kernel ran in an MLA model")
+
+    results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
+                               kernels, check)
     held = torch.cuda.memory_allocated()
-    del b
+    del params
     _check_freed(held)
-    return result
+    return results
+
+
+def _moe_layers(mdl, cfg) -> int:
+    return sum(r for *_, r, _, k in mdl.state_slot_meta(cfg) if k.moe)
 
 
 def phase_deepseek_parity(C, mdl, S, memtier, cori, engine):
-    print("== phase 12: parity on the card (reduced deepseek-v3-671b, "
-          "float32)", flush=True)
-    _parity(dataclasses.replace(C.reduced("deepseek-v3-671b"),
-                                dtype="float32"),
-            mdl, S, memtier, cori, engine)
+    print("== phase 12: parity on the card (reduced deepseek-v3-671b and "
+          "olmoe-1b-7b, float32)", flush=True)
+    for name in ("deepseek-v3-671b", "olmoe-1b-7b"):
+        print(f"reduced {name}:", flush=True)
+        _parity(dataclasses.replace(C.reduced(name), dtype="float32"), mdl,
+                S, memtier, cori, engine)
 
 
 def phase_mla_timing(pam):
@@ -1765,8 +1804,9 @@ def _init_full(C, mdl, name):
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B "
           f"float32 params ({n_params * 4 / 1e9:.2f} GB) in "
-          f"{time.monotonic() - t0:.1f} s; conv taps N(0, {CONV_STD})",
-          flush=True)
+          f"{time.monotonic() - t0:.1f} s"
+          + (f"; conv taps N(0, {CONV_STD})" if mdl.has_state_pages(cfg)
+             else ""), flush=True)
     return cfg, params
 
 
@@ -1889,6 +1929,187 @@ def phase_recurrent_parity(C, mdl, S, memtier, cori, engine):
                 S, memtier, cori, engine)
 
 
+# ---------------------------------------------------------------------------
+# routed MoE: the routed-expert kernel, olmoe-1b-7b
+# ---------------------------------------------------------------------------
+
+# the routed-expert kernel's decode shapes on the served paths: (tokens,
+# top-k, experts, d_model, d_expert) of a 4-row batch
+ROUTED_SHAPES = {"olmoe-1b-7b": (4, 8, 64, 2048, 1024),
+                 "deepseek-v3-671b": (4, 8, 256, 7168, 2048)}
+# the kernel against its plain version: max |y - y_plain| within this share
+# of max |y_plain| (float32 sums of up to 7168 products, in other orders)
+ROUTED_TOL = 1e-5
+
+
+def _routed_weights(shape, seed):
+    """One repeat's router and experts at ``shape``, N(0, 1/fan-in), so
+    outputs are O(1); and the generator that drew them."""
+    _, _, e, d, f = shape
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    mat = lambda fan, *dims: torch.randn(dims, generator=g,
+                                         device=DEV).div_(fan ** 0.5)
+    return dict(router=mat(d, d, e), wi_gate=mat(d, e, d, f),
+                wi_up=mat(d, e, d, f), wo=mat(f, e, f, d)), g
+
+
+def _routed_inputs(moe, weights, shape, t, case, g):
+    """(x, idx, w, probs) of ``t`` tokens routed by ``moe.route``:
+    ``random`` tokens; ``same``, where the router makes experts 0..k-1
+    lead for every token by far; ``tied``, where the second half of the
+    experts ties with the first and a zero token ties all of them."""
+    _, k, e, d, _ = shape
+    x = torch.randn((t, d), generator=g, device=DEV)
+    router = weights["router"]
+    if case == "same":
+        u = torch.full((d,), d ** -0.5, device=DEV)
+        x = x + 3.0 * d ** 0.5 * u
+        router = router.clone()
+        for j in range(k):
+            router[:, j] = 50.0 * (j + 1) * u
+    elif case == "tied":
+        router = torch.cat([router[:, : e // 2], router[:, : e // 2]], dim=1)
+        x[0] = 0.0
+    w, idx, probs = moe.route(x, router, k)
+    return x, idx.contiguous(), w.contiguous(), probs
+
+
+def phase_routed_check(moe, re_, weights):
+    """The routed-expert kernel vs its plain version at both decode
+    widths; returns the largest absolute error seen."""
+    print("== phase 21: routed_experts vs plain version on the card",
+          flush=True)
+    worst = 0.0
+    for model, shape in ROUTED_SHAPES.items():
+        wts, g = weights[model]
+        k = shape[1]
+        for t, case in ((4, "random"), (1, "random"), (4, "same"),
+                        (4, "tied")):
+            x, idx, w, probs = _routed_inputs(moe, wts, shape, t, case, g)
+            args = (x, idx, w, wts["wi_gate"], wts["wi_up"], wts["wo"])
+            y = re_.routed_experts(*args)
+            again = re_.routed_experts(*args)
+            ref = re_.routed_experts_plain(*args)
+            torch.cuda.synchronize()
+            same = torch.equal(y, again)
+            err = float((y - ref).abs().max())
+            scale = float(ref.abs().max())
+            picked = idx.cpu().numpy()
+            ok = same and err <= ROUTED_TOL * scale and scale > 0
+            note = ""
+            if case == "tied":
+                # lax.top_k's order: a stable descending sort of the probs
+                want = np.argsort(-probs.cpu().numpy(), axis=1,
+                                  kind="stable")[:, :k]
+                ties = (np.array_equal(picked, want)
+                        and np.array_equal(picked[0], np.arange(k)))
+                ok = ok and ties
+                note = f", experts as lax.top_k's {ties}"
+            elif case == "same":
+                same_e = bool((np.sort(picked, axis=1)
+                               == np.arange(k)).all())
+                ok = ok and same_e
+                note = f", every token on experts 0..{k - 1} {same_e}"
+            distinct = len(np.unique(picked))
+            print(f"{model} T={t} {case}: {distinct} distinct experts, err "
+                  f"{err:.3g} of max |y| {scale:.3g} (tol {ROUTED_TOL} of "
+                  f"it), repeat bit-identical {same}{note} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                _fail(f"routed_experts disagrees with its plain version or "
+                      f"with itself ({model} T={t} {case})")
+            worst = max(worst, err)
+    return worst
+
+
+def phase_routed_timing(moe, re_, weights):
+    """The routed-expert kernel at both decode shapes (4 tokens): per call
+    and on the device, beside its plain version, its bound and the expert
+    loop a sequence takes (the yardstick)."""
+    print("== phase 22: routed_experts timing at the served decode shapes",
+          flush=True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    before = re_.routed_experts.launches
+    res = {}
+    for model, shape in ROUTED_SHAPES.items():
+        wts, g = weights[model]
+        t, k, e, d, f = shape
+        x, idx, w, _ = _routed_inputs(moe, wts, shape, t, "random", g)
+        args = (x, idx, w, wts["wi_gate"], wts["wi_up"], wts["wo"])
+        y = re_.routed_experts(*args)
+        ref = re_.routed_experts_plain(*args)
+        err = float((y - ref).abs().max())
+        if not err <= ROUTED_TOL * float(ref.abs().max()):
+            _fail(f"routed_experts at the {model} timed shape: err {err:.3g}")
+        kernel = lambda: re_.routed_experts(*args)
+        ms = _time(kernel, 30, flush)
+        dev_ms, how, names = _device_ms(kernel, 30, flush)
+        plain_ms = _time(lambda: re_.routed_experts_plain(*args), 5, flush)
+        # yardstick: the expert loop a sequence takes, on the same inputs
+        # (its host read of the counts included)
+        p = types.SimpleNamespace(wi_gate=wts["wi_gate"][None],
+                                  wi_up=wts["wi_up"][None],
+                                  wo=wts["wo"][None])
+        loop = lambda: moe._expert_loop(p, 0, x, w, idx, e)
+        loop_err = float((loop() - ref).abs().max())
+        loop_ms = _time(loop, 20, flush)
+        loop_dev_ms, loop_how, _ = _device_ms(loop, 20, flush)
+        distinct = len(np.unique(idx.cpu().numpy()))
+        w_bytes = distinct * 3 * d * f * 4
+        io_bytes = 2 * t * d * 4 + t * k * (8 + 4)   # x, y; idx, w
+        flops = 6 * d * f * t * k
+        t_bytes = (w_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{model}: T={t} k={k} E={e} d={d} f={f} float32, {distinct} "
+              f"distinct experts (err {err:.3g} vs plain): kernel {ms:.4f} "
+              f"ms a call (events), {dev_ms:.4f} ms on the device ({how}: "
+              f"{_ms_list(names)}); plain {plain_ms:.4f} ms; the expert loop "
+              f"(host read + torch.matmul) {loop_ms:.4f} ms a call, "
+              f"{loop_dev_ms:.4f} ms on the device ({loop_how}; err "
+              f"{loop_err:.3g} vs plain); bound {bound_ms:.4f} ms "
+              f"({bound_by}: {(w_bytes + io_bytes) / 1e9:.4f} GB at 3.35 "
+              f"TB/s; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s) -> "
+              f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
+              f"{bound_ms / ms * 100:.1f}% a call; faster than the loop a "
+              f"call: {ms < loop_ms}", flush=True)
+        res[model] = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+                          plain_ms=plain_ms, library_ms=None,
+                          loop_ms=loop_ms, loop_device_ms=loop_dev_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          distinct_experts=distinct, max_abs_err=err)
+    re_.routed_experts.launches = before     # timing launches not counted
+    return res
+
+
+def phase_olmoe(C, mdl, pa, re_, S, memtier, cori, telemetry, kernels):
+    print("== phase 23: full-width olmoe-1b-7b serving (GQA + routed MoE, "
+          "macro-step batcher)", flush=True)
+    cfg, params = _init_full(C, mdl, "olmoe-1b-7b")
+    mo = cfg.moe
+    moe_layers = _moe_layers(mdl, cfg)
+    print(f"{mo.num_experts} experts top-{mo.top_k} of {mo.d_expert} in "
+          f"{moe_layers} MoE layers: "
+          f"{cfg.d_model * mo.d_expert * 3 * 4 / 1e6:.1f} MB an expert",
+          flush=True)
+
+    def check(b, result, eager):
+        result["launches"] = pa.paged_attention.launches
+        result["routed_launches"] = re_.routed_experts.launches
+        _check_launches("paged_attention", result["launches"],
+                        cfg.num_layers, b, eager)
+        _check_launches("routed_experts", result["routed_launches"],
+                        moe_layers, b, eager)
+
+    results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
+                               kernels, check)
+    held = torch.cuda.memory_allocated()
+    del params
+    _check_freed(held)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is visible", flush=True)
@@ -1909,13 +2130,15 @@ def main() -> int:
     from repro_torch.kernels import page_hist as ph
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_attention_mla as pam
+    from repro_torch.kernels import routed_experts as re_
     from repro_torch.kernels import sim_step as ss
     from repro_torch.models import model as mdl
+    from repro_torch.models import moe
     from repro_torch.obs import telemetry
     from repro_torch.serve import engine
     from repro_torch.serve import sched as S
 
-    kernels = (pa, ph, ss, pam, fa)
+    kernels = (pa, ph, ss, pam, fa, re_)
     secs = {}
 
     def timed(name, fn, *args):
@@ -1940,8 +2163,8 @@ def main() -> int:
     off_timing = timed("offline timing", phase_offline_timing, ph, ss, sim,
                        traces, kernels)
     mla_err = timed("paged_attention_mla check", phase_mla_check, pam)
-    deepseek = timed("deepseek serving", phase_deepseek, C, mdl, pa, pam, S,
-                     memtier, cori, telemetry, kernels)
+    deepseek = timed("deepseek serving", phase_deepseek, C, mdl, pa, pam,
+                     re_, S, memtier, cori, telemetry, kernels)
     timed("deepseek parity", phase_deepseek_parity, C, mdl, S, memtier, cori,
           engine)
     mla_timing = timed("paged_attention_mla timing", phase_mla_timing, pam)
@@ -1961,11 +2184,22 @@ def main() -> int:
                   telemetry, kernels)
     timed("recurrent parity", phase_recurrent_parity, C, mdl, S, memtier,
           cori, engine)
+    weights = {model: _routed_weights(shape, SEED + i)
+               for i, (model, shape) in enumerate(ROUTED_SHAPES.items())}
+    routed_err = timed("routed_experts check", phase_routed_check, moe, re_,
+                       weights)
+    routed = timed("routed_experts timing", phase_routed_timing, moe, re_,
+                   weights)
+    del weights
+    _check_freed(torch.cuda.memory_allocated())
+    olmoe = timed("olmoe serving", phase_olmoe, C, mdl, pa, re_, S, memtier,
+                  cori, telemetry, kernels)
     main_case = flash_timing.pop("float32 window 1024")
+    main_routed = routed.pop("deepseek-v3-671b")
     print(f"card: {card}; serving {serve}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
-          f"{xlstm}; flash timing beside float32 window 1024: "
-          f"{flash_timing}; phase seconds {secs}", flush=True)
+          f"{xlstm}; olmoe {olmoe}; flash timing beside float32 window "
+          f"1024: {flash_timing}; phase seconds {secs}", flush=True)
     print(json.dumps({"kernels": [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1980,7 +2214,10 @@ def main() -> int:
                  launches=gemma["graph"]["paged_launches"]),
                  "recurrentgemma-2b decode (phase 18)": dict(
                  timing["recurrentgemma-2b"],
-                 launches=rgemma["graph"]["launches"])}),
+                 launches=rgemma["graph"]["launches"]),
+                 "olmoe-1b-7b decode (phase 23)": dict(
+                 timing["olmoe-1b-7b"],
+                 launches=olmoe["graph"]["launches"])}),
         dict(name="page_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/page_hist.cu",
              replaces="src/repro/kernels/page_hist.py:45",
@@ -1994,7 +2231,7 @@ def main() -> int:
         dict(name="paged_attention_mla", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_attention_mla.cu",
              replaces="src/repro/kernels/paged_attention.py:230",
-             launches=deepseek["launches"],
+             launches=deepseek["graph"]["launches"],
              max_abs_err=max(mla_err, mla_timing.pop("max_abs_err")),
              **mla_timing),
         dict(name="flash_attention", route="cuda",
@@ -2003,7 +2240,18 @@ def main() -> int:
              launches=gemma["graph"]["launches"],
              max_abs_err=max(flash_err, main_case.pop("max_abs_err")),
              **main_case, shape="B=4 S=T=2048 16/8 heads D=256 float32 "
-             "window 1024 (phase 17)", also=flash_timing)]}),
+             "window 1024 (phase 17)", also=flash_timing),
+        dict(name="routed_experts", route="cuda",
+             source="src/repro_torch/kernels/csrc/routed_experts.cu",
+             replaces="src/repro/models/moe.py:85",
+             note="no Pallas kernel: moe_apply_dense's einsums",
+             launches=deepseek["graph"]["routed_launches"],
+             max_abs_err=max(routed_err, main_routed.pop("max_abs_err")),
+             **main_routed, shape="deepseek-v3-671b decode: T=4 top-8 of "
+             "256 experts, d 7168, f 2048 (phases 11, 22)",
+             also={"olmoe-1b-7b decode (phases 22, 23)": dict(
+                 routed["olmoe-1b-7b"],
+                 launches=olmoe["graph"]["routed_launches"])})]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

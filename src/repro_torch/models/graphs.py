@@ -16,9 +16,12 @@ of a finished macro is a cost here, never a change in results.  One graph
 of one step serves every macro length: no graph per power-of-2 length,
 so capture time and the graph pool stay those of one step.
 
-A capture or replay that fails raises: nothing falls back to the eager
-route.  The kernels' launch counters count Python calls, which a replay
-does not make: at capture each wrapper counts its call in ``.captured``
+Every config the port serves is captured: the step body makes no host
+read, routed MoE layers included (their tokens are grouped by expert on
+the device, ``kernels.routed_experts``).  A capture or replay that fails
+raises: nothing falls back to the eager route.  The kernels' launch
+counters count Python calls, which a replay does not make: at capture
+each wrapper counts its call in ``.captured``
 (``kernels._build.count_launch``), and ``launch`` adds those counts x
 the replays to ``.launches``.
 """
@@ -30,27 +33,21 @@ import torch
 
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_mla as _pam
+from repro_torch.kernels import routed_experts as _re
 from repro_torch.models import model as mdl
-from repro_torch.models.config import ModelConfig, parse_kind
+from repro_torch.models.config import ModelConfig
 
-__all__ = ["DecodeGraph", "supports"]
+__all__ = ["DecodeGraph"]
 
 #: the kernel wrappers a decode step can call, whose launches a replay adds
-_COUNTED = (_pa.paged_attention, _pam.paged_attention_mla)
-
-
-def supports(cfg: ModelConfig) -> bool:
-    """Whether a decode step of ``cfg`` can be captured: not with routed
-    MoE layers, whose ``moe.moe_apply`` reads its expert counts back to
-    the host to group tokens by expert."""
-    return not any(parse_kind(s).moe for pat, _ in cfg.segments
-                   for s in pat)
+_COUNTED = (_pa.paged_attention, _pam.paged_attention_mla,
+            _re.routed_experts)
 
 
 class DecodeGraph:
     """One captured decode step over static buffers (module docstring).
 
-    params, cfg: the served model (a config ``supports`` takes); kv: the
+    params, cfg: the served model (any config the port serves); kv: the
     pools' leaves with their sinks (``SharedPagedPools.kv_with_sink``);
     tables / gid_tables: the caller's static int32 [B, n] page tables,
     which it updates in place between macros; ``max_steps``: the longest
@@ -60,10 +57,6 @@ class DecodeGraph:
 
     def __init__(self, params, cfg: ModelConfig, kv, tables, gid_tables, *,
                  max_steps: int, page_size: int, state_cols=None):
-        if not supports(cfg):
-            raise ValueError(f"{cfg.name}: a routed MoE step reads its "
-                             "expert counts back to the host and cannot "
-                             "be captured")
         dev = tables.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tables, not {dev}")

@@ -59,7 +59,8 @@ def check_supported(cfg: ModelConfig) -> None:
     sliding-window attention, MLA or a recurrent cell, each with a SwiGLU
     MLP, MoE or no MLP (``d_ff == 0``, as xLSTM), naming the slice of the
     port that brings it, and for what the flash kernel cannot take under
-    ``attention_impl == "pallas"``."""
+    ``attention_impl == "pallas"`` (checked only for configs with
+    attention slots: the setting routes nothing in the others)."""
     later = []
     kinds = {parse_kind(s) for pat, _ in cfg.segments for s in pat}
     if any(k.xattn for k in kinds):
@@ -75,7 +76,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attention_impl not in ("reference", "pallas"):
         raise ValueError(f"attention_impl is 'reference' or 'pallas', not "
                          f"{cfg.attention_impl!r}")
-    if cfg.attention_impl == "pallas":
+    if cfg.attention_impl == "pallas" and any(k.is_attention for k in kinds):
         # the flash kernel takes one head dim for q, k and v and no
         # soft-cap, as the TPU kernel
         if any(k.mla for k in kinds):
@@ -234,11 +235,13 @@ def _window(cfg: ModelConfig, kind: LayerKind) -> int:
     return cfg.window_size if kind.base == "local" else 0
 
 
-def _block_tail(slot, r: int, cfg: ModelConfig, x):
+def _block_tail(slot, r: int, cfg: ModelConfig, x, *, with_aux=False):
     """The residual MLP or MoE after a slot's attention or cell, if the
-    slot has one: (x, aux)."""
+    slot has one: (x, aux), aux the MoE's load-balance loss when
+    ``with_aux`` (sequence mode) and None otherwise (decode drops it)."""
     if slot.kind.moe:
-        out, aux = moe_apply(slot.moe, r, cfg, L.rms_norm(x, slot.norm2[r]))
+        out, aux = moe_apply(slot.moe, r, cfg, L.rms_norm(x, slot.norm2[r]),
+                             with_aux=with_aux)
         return x + out, aux
     if cfg.d_ff > 0:
         return x + L.mlp_apply(slot, r, L.rms_norm(x, slot.norm2[r])), None
@@ -275,7 +278,7 @@ def _run_seq(params, cfg: ModelConfig, x, positions):
                                               window=window)
             entry = dict(zip(slot_leaf_names(slot.kind), rows))
         entries[li].append(entry)
-        x, aux = _block_tail(slot, r, cfg, x + out)
+        x, aux = _block_tail(slot, r, cfg, x + out, with_aux=True)
         if aux is not None:
             aux_total = aux_total + aux
     return x, entries, aux_total
@@ -601,8 +604,8 @@ def decode_step_paged(params, cfg: ModelConfig, kv, tables, gid_tables,
     row page averaged over every state-bearing layer -- an attention
     layer's head-normalised mass, a recurrent layer's unit touch on the
     state column -- and zero for inactive rows.  Reads nothing back to
-    the host (routed MoE layers aside: ``moe.moe_apply`` reads its expert
-    counts)."""
+    the host (a routed MoE layer groups its tokens by expert on the
+    device: ``kernels.routed_experts``)."""
     return _paged_decode_core(params, cfg, kv, tables, gid_tables, tokens,
                               cur_pos, page_size=page_size,
                               state_cols=state_cols)
@@ -848,7 +851,7 @@ def _stop(rows, c: MacroCarry):
 def decode_body(params, cfg: ModelConfig, kv, tables, gid_tables,
                 c: MacroCarry, *, page_size: int, state_cols=None) -> None:
     """One step of the decode macro over the carry ``c``, in place, with
-    no read back to the host (routed MoE aside): decode every alive row
+    no read back to the host (routed MoE included): decode every alive row
     off the pools, add its page mass, sample its next token at iteration
     ``it + 1`` and apply the stop conditions.  Dead rows freeze: no KV
     writes (their position goes in as -1, so the write-through sends them

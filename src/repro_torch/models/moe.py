@@ -5,12 +5,23 @@ Routing is the reference's (``_route``): softmax over the router logits
 in float32, the top-k experts per token, their probabilities
 renormalised.  The reference's oracle computes every expert for every
 token ([T, E, d]) and picks the chosen ones; at full width that tensor is
-7.3 MB per token, so here each expert runs only on the tokens that chose
-it (one gather, three ``torch.matmul``s, one ``index_add_`` back into the
-output).  The function is the same: no capacity, nothing dropped, as the
+7.3 MB per token, so here each chosen expert runs only on the tokens that
+chose it.  The function is the same: no capacity, nothing dropped, as the
 reference's dense path (a single device takes it whatever ``moe_impl``
-says).  Sums over a token's experts run in expert order instead of the
-reference's top-k order, so outputs agree to float32 rounding.
+says).  Two routes to it:
+
+  * a decode step (one position a row, S == 1) groups the (token, expert)
+    pairs by expert on the device, with fixed shapes, and runs the
+    routed-expert kernel (``kernels.routed_experts``; its plain version
+    on the CPU): nothing is read back to the host, so a CUDA graph
+    captures the step, and a token's k outputs are summed in the
+    reference's top-k order;
+  * a sequence (prefill, ``forward``) reads the expert counts back to the
+    host and loops over the chosen experts (one gather, three
+    ``torch.matmul``s and one ``index_add_`` each), summing a token's
+    experts in expert order, so outputs agree with the reference to
+    float32 rounding.  Its T*k pairs would want a grouped GEMM on the
+    tensor cores (ROADMAP).
 
 Expert parallelism (``moe_apply_shard_map``) is a later slice (ROADMAP
 Queue 1 item 11).
@@ -20,6 +31,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.kernels.routed_experts import routed_experts
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["MoE", "SharedExpert", "route", "aux_loss", "moe_apply"]
@@ -90,17 +102,15 @@ def _swiglu(x, wi_gate, wi_up, wo):
     return (torch.nn.functional.silu(x @ wi_gate) * (x @ wi_up)) @ wo
 
 
-def moe_apply(p: MoE, r: int, cfg: ModelConfig, x):
-    """x: [B, S, d] -> (y [B, S, d], aux_loss) at repeat ``r``."""
-    mo = cfg.moe
-    b, s, d = x.shape
-    xt = x.reshape(b * s, d)
-    w, idx, probs = route(xt, p.router[r], mo.top_k)
-    # token-expert pairs grouped by expert (stable: token order inside)
+def _expert_loop(p: MoE, r: int, xt, w, idx, num_experts: int):
+    """The routed experts over a sequence's tokens: grouped by expert
+    through a host read of the counts, one ``_swiglu`` per chosen
+    expert."""
+    top_k = idx.shape[1]
     flat = idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=mo.num_experts).tolist()
-    tok = order // mo.top_k
+    counts = torch.bincount(flat, minlength=num_experts).tolist()
+    tok = order // top_k
     wts = w.reshape(-1)[order]
     y = torch.zeros_like(xt)
     start = 0
@@ -111,7 +121,25 @@ def moe_apply(p: MoE, r: int, cfg: ModelConfig, x):
         ye = _swiglu(xt[t], p.wi_gate[r, e], p.wi_up[r, e], p.wo[r, e])
         y.index_add_(0, t, ye * wts[start: start + cnt, None])
         start += cnt
+    return y
+
+
+def moe_apply(p: MoE, r: int, cfg: ModelConfig, x, *, with_aux: bool = True):
+    """x: [B, S, d] -> (y [B, S, d], aux_loss) at repeat ``r``; a decode
+    step (S == 1) takes the routed-expert kernel, a sequence the expert
+    loop (module docstring).  ``with_aux=False`` skips the aux loss
+    (None), which no decode caller reads."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    w, idx, probs = route(xt, p.router[r], mo.top_k)
+    if s == 1:
+        y = routed_experts(xt.contiguous(), idx.contiguous(), w.contiguous(),
+                           p.wi_gate[r], p.wi_up[r], p.wo[r])
+    else:
+        y = _expert_loop(p, r, xt, w, idx, mo.num_experts)
     if mo.num_shared:
         sh = p.shared
         y = y + _swiglu(xt, sh.wi_gate[r], sh.wi_up[r], sh.wo[r])
-    return y.reshape(b, s, d), aux_loss(probs, idx, mo.num_experts)
+    aux = aux_loss(probs, idx, mo.num_experts) if with_aux else None
+    return y.reshape(b, s, d), aux

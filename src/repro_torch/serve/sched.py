@@ -17,12 +17,12 @@ loop).
     it runs macro steps: one macro per movement period, with one monitor
     feed and one tiering boundary per macro, and the period the tuner
     derives is the length of the next macro.  A macro runs by one of two
-    routes, chosen at construction from the config and the device: the
-    *graph* route (on a card, for every config without routed MoE)
-    replays one captured decode step ``n_steps`` times
-    (``models.graphs.DecodeGraph``) and syncs with the host once per
-    macro; the *eager* route (on the CPU, for routed MoE, or when asked)
-    runs the same step body from Python (``model.decode_macro_step``).
+    routes, chosen at construction from the device (``decode_route``):
+    the *graph* route (on a card, for every config) replays one captured
+    decode step ``n_steps`` times (``models.graphs.DecodeGraph``) and
+    syncs with the host once per macro; the *eager* route (on the CPU,
+    or when asked) runs the same step body from Python
+    (``model.decode_macro_step``).
 
 Invariants kept from the reference: page ids are released everywhere
 (pool, manager, tuner) before they can recycle; tiering ranks only
@@ -52,7 +52,8 @@ from repro_torch.models import graphs
 from repro_torch.models import model as mdl
 from repro_torch.obs import telemetry as _obs
 
-__all__ = ["Request", "TrafficMonitor", "ContinuousBatcher", "pack_prompts"]
+__all__ = ["Request", "TrafficMonitor", "ContinuousBatcher", "decode_route",
+           "pack_prompts"]
 
 
 class TrafficMonitor:
@@ -173,6 +174,15 @@ def pack_prompts(prompts: Sequence[np.ndarray]
     return toks, lens
 
 
+def decode_route(device, *, macro: bool, eager: bool) -> str:
+    """The macro route of a batcher on ``device``: ``"graph"`` for macro
+    steps on a CUDA device unless ``eager`` is asked, else ``"eager"``.
+    Every config the port serves is captured, routed MoE included
+    (``kernels.routed_experts`` groups its tokens on the device)."""
+    return ("graph" if macro and not eager and torch.device(device).type
+            == "cuda" else "eager")
+
+
 @dataclasses.dataclass
 class Request:
     """One serving request and its in-flight state.  ``seed`` seeds the
@@ -221,10 +231,10 @@ class ContinuousBatcher:
     HBM slot pool.  Runs
     on ``device`` (default cuda), where the parameters must already live.
 
-    ``route`` is the macro's route, fixed at construction: ``"graph"``
-    on a CUDA device for a config ``graphs.supports`` (no routed MoE),
-    unless ``eager=True``; ``"eager"`` otherwise (and for the per-token
-    path, which syncs once a token and has no graph).
+    ``route`` is the macro's route, fixed at construction
+    (``decode_route``): ``"graph"`` on a CUDA device unless
+    ``eager=True``; ``"eager"`` otherwise (and for the per-token path,
+    which syncs once a token and has no graph).
     """
 
     def __init__(self, params, cfg, *, monitor: TrafficMonitor,
@@ -290,9 +300,8 @@ class ContinuousBatcher:
         self._state_cols = (torch.full((max_active,), self.n_row_pages - 1,
                                        dtype=torch.int64, device=self.device)
                             if self._has_state else None)
-        self.route = ("graph" if self.macro and not eager
-                      and self.device.type == "cuda" and graphs.supports(cfg)
-                      else "eager")
+        self.route = decode_route(self.device, macro=self.macro,
+                                  eager=eager)
         self._graph = None
         if self.route == "graph":
             self._graph = graphs.DecodeGraph(

@@ -40,8 +40,9 @@ the cells' arithmetic is what they compare.
 
 On the CPU the paged layers run the kernels' plain versions.  Tolerances:
 1e-4 absolute on logits, 1e-5 on page masses, MoE outputs and caches
-(float32, different reduction orders: the routed MoE sums a token's
-experts in expert order, the reference in top-k order)."""
+(float32, different reduction orders: over a sequence the routed MoE
+sums a token's experts in expert order, the reference in top-k order; a
+decode step sums them in top-k order, ``tests/test_torch_moe.py``)."""
 import dataclasses
 
 import numpy as np

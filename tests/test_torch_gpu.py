@@ -12,7 +12,9 @@ kernels' usual shapes and at the edges of their splits over pages;
 ``flash_attention`` 2e-5 in float32 up to 512 keys, 1e-4 beyond (longer
 sums in another order), 2e-2 in bfloat16 with each output row within 2^-6
 of its norm (one bfloat16 ulp of the output is <= 2^-7 of it), and repeats
-bit-identical; ``page_hist`` and ``sim_scan`` are
+bit-identical; ``routed_experts`` within 1e-5 of the largest output
+magnitude (float32 sums of up to 7168 products in another order) and
+repeats bit-identical; ``page_hist`` and ``sim_scan`` are
 bit-equal to their plain versions (the kernels round where the plain
 versions round), ``sim_scan`` at every run length of pages a thread it
 instantiates and in one launch over candidates of different lengths."""
@@ -23,12 +25,14 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import page_hist as tph
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import paged_attention_mla as tpam
+from repro_torch.kernels import routed_experts as tre
 from repro_torch.kernels import sim_step as tss
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h,kv,window,softcap", [(40, 8, 0, 0.0),
+                                                 (16, 16, 0, 0.0),
                                                  (4, 4, 3, 0.0),
                                                  (8, 2, 0, 5.0),
                                                  (8, 1, 8, 5.0)])
@@ -574,16 +578,86 @@ def test_flash_kernel_rejects_what_it_does_not_take():
         tfa.flash_attention(q[..., :48], k[..., :48], k[..., :48])
 
 
+# the routed-expert kernel's cases: (T, k, E, d, f, case) -- olmoe-1b-7b's
+# and deepseek-v3-671b's decode widths (deepseek with 16 of its 256
+# experts, so its 32 pairs share experts four tokens a group), one token,
+# every token on the same experts, a group of more than the 8 tokens a
+# pass, and widths that leave column tiles and shared-memory chunks
+# partial
+ROUTED_CASES = [(4, 8, 64, 2048, 1024, "random"),
+                (4, 8, 16, 7168, 2048, "random"),
+                (1, 8, 64, 2048, 1024, "random"),
+                (4, 8, 64, 2048, 1024, "same"),
+                (11, 2, 3, 600, 100, "random"),
+                (3, 3, 5, 516, 36, "same")]
+
+
+def _routed_case(t, k, e, d, f, case, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((t, d), generator=g, device=dev)
+    if case == "same":
+        idx = torch.randperm(e, generator=g, device=dev)[:k].repeat(t, 1)
+    else:
+        idx = torch.stack([torch.randperm(e, generator=g, device=dev)[:k]
+                           for _ in range(t)])
+    w = torch.rand((t, k), generator=g, device=dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    mat = lambda fan, *shape: torch.randn(shape, generator=g, device=dev) \
+        / fan ** 0.5
+    return (x, idx.contiguous(), w, mat(d, e, d, f), mat(d, e, d, f),
+            mat(f, e, f, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,k,e,d,f,case", ROUTED_CASES)
+def test_routed_experts_kernel_matches_plain(t, k, e, d, f, case):
+    """The routed-expert kernel against its plain version on the card,
+    within 1e-5 of the largest output magnitude; a second call
+    bit-identical; one launch counted a call."""
+    dev = _card()
+    args = _routed_case(t, k, e, d, f, case, dev)
+    before = tre.routed_experts.launches
+    y = tre.routed_experts(*args)
+    again = tre.routed_experts(*args)
+    torch.cuda.synchronize()
+    assert tre.routed_experts.launches == before + 2
+    assert torch.equal(y, again)
+    ref = tre.routed_experts_plain(*args)
+    scale = float(ref.abs().max())
+    assert scale > 0 and float((y - ref).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_routed_experts_kernel_rejects_what_it_does_not_take():
+    dev = _card()
+    x, idx, w, wg, wu, wo = _routed_case(2, 2, 4, 64, 32, "random", dev)
+    with pytest.raises(TypeError):
+        tre.routed_experts(x.bfloat16(), idx, w, wg.bfloat16(),
+                           wu.bfloat16(), wo.bfloat16())
+    with pytest.raises(TypeError):
+        tre.routed_experts(x, idx.int(), w, wg, wu, wo)
+    with pytest.raises(ValueError, match="contiguous"):
+        tre.routed_experts(x, idx.t().contiguous().t(), w, wg, wu, wo)
+    with pytest.raises(ValueError, match="16-byte"):
+        tre.routed_experts(x[:, :62].contiguous(), idx, w,
+                           wg[:, :62].contiguous(), wu[:, :62].contiguous(),
+                           wo[..., :62].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        tre.routed_experts(x, idx, w, wg, wu, wo[:, :16].contiguous())
+
+
 # ---------------------------------------------------------------------------
 # the decode macro as a CUDA graph (``models.graphs``) against the eager
-# route: reduced GQA, sliding-window and recurrent configs (the recurrent
+# route: reduced GQA, sliding-window, MLA + MoE, GQA + MoE and recurrent
+# configs (the recurrent
 # cells' conv taps drawn from N(0, 0.5): the reference's zero taps make
 # every cell an identity), float32, two rows, four requests admitted in
 # turn, two of them sampled
 # ---------------------------------------------------------------------------
 
 GRAPH_ARCHS = {"gqa": "qwen3-14b", "window": "gemma3-12b",
-               "rglru": "recurrentgemma-2b", "xlstm": "xlstm-1.3b"}
+               "rglru": "recurrentgemma-2b", "xlstm": "xlstm-1.3b",
+               "mla": "deepseek-v3-671b", "olmoe": "olmoe-1b-7b"}
 _GRAPH_MODELS = {}
 
 
@@ -841,3 +915,60 @@ def test_recurrent_graph_capture_makes_no_host_sync(kind):
             if a is not None:
                 assert torch.equal(a[:, :-1], b[:, :-1]), k
     assert float(st["mass_sum"][0, 5]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mla", "olmoe"])
+def test_moe_graph_capture_makes_no_host_sync(kind):
+    """A routed MoE config's ``DecodeGraph`` captures and replays under
+    ``torch.cuda.set_sync_debug_mode("error")`` (its tokens are grouped by
+    expert on the device), one routed-expert launch a MoE layer a step,
+    and its macro equals the eager ``decode_macro_step`` on the same
+    pools: tokens, carry and both tiers of every leaf."""
+    from repro_torch.memtier.tiering import SharedPagedPools
+    from repro_torch.models import graphs
+    from repro_torch.models import model as TM
+    dev = _card()
+    cfg, params = _graph_model(kind)
+    moe_layers = sum(r for _, _, r, _, k in TM.state_slot_meta(cfg)
+                     if k.moe)
+    tables = torch.tensor([[3, 7, 1, -1, -1], [0, 2, 5, 9, 11]],
+                          dtype=torch.int32, device=dev)
+    gids = torch.where(tables >= 0, tables + 5, -1).to(torch.int32)
+    pools = []
+    for _ in range(2):
+        p = SharedPagedPools.create(20, 12)
+        p.attach_layered(TM.slot_leaf_specs(cfg, 4), device=dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        for leaves in p.kv_with_sink.values():
+            for t in leaves:
+                if t is not None:
+                    t.normal_(generator=g)
+        pools.append(p)
+    i64 = lambda *v: torch.tensor(v, dtype=torch.int64, device=dev)
+    inputs = (i64([5], [9]), i64(9, 6), i64(1, 2), i64(0, 3), i64(1, 4),
+              i64(20, 20), i64(-1, 7),
+              torch.tensor([0.0, 0.8], device=dev))
+    torch.cuda.synchronize()
+    before = tre.routed_experts.launches
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        dg = graphs.DecodeGraph(params, cfg, pools[0].kv_with_sink, tables,
+                                gids, max_steps=8, page_size=4)
+        toks, st = dg.launch(*inputs, n_steps=6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the warm-up's eager call, then 6 replays of the captured step
+    assert moe_layers >= 1
+    assert tre.routed_experts.launches - before == moe_layers * 7
+    ref_toks, ref_st = TM.decode_macro_step(
+        params, cfg, pools[1].kv_with_sink, tables, gids, *inputs,
+        n_steps=6, page_size=4)
+    assert torch.equal(toks, ref_toks)
+    for k in ("mass_sum", "alive_steps", "pos", "iters", "emitted",
+              "stopped", "last_tok"):
+        assert torch.equal(st[k], ref_st[k]), k
+    for k, leaves in pools[0].kv_with_sink.items():
+        for a, b in zip(leaves, pools[1].kv_with_sink[k]):
+            if a is not None:
+                assert torch.equal(a[:, :-1], b[:, :-1]), k

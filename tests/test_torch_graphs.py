@@ -7,7 +7,8 @@ the port's earlier decode core).  Also the route rule: which configs
 and devices take the graph, and that nothing falls back to the eager
 route.
 
-Reduced configs (GQA, sliding window, MLA + MoE, and the recurrent
+Reduced configs (GQA, sliding window, MLA + MoE, GQA + MoE, and the
+recurrent
 recurrentgemma-2b and xlstm-1.3b with their conv taps drawn from
 N(0, 0.5), since the reference's zero taps make every cell an identity),
 float32, on the CPU (the kernels' plain versions).  Pools compare with
@@ -33,7 +34,8 @@ from repro_torch.serve import sched as TS
 
 PAGE, N_ROW, HBM, N_LOGICAL = 4, 5, 12, 20
 ARCHS = {"gqa": "qwen3-14b", "window": "gemma3-12b", "mla": "deepseek-v3-671b",
-         "rglru": "recurrentgemma-2b", "xlstm": "xlstm-1.3b"}
+         "rglru": "recurrentgemma-2b", "xlstm": "xlstm-1.3b",
+         "olmoe": "olmoe-1b-7b"}
 _CACHE = {}
 
 
@@ -303,20 +305,34 @@ def test_recurrent_step_body_reads_nothing_back(kind, monkeypatch):
 
 
 def test_routed_moe_step_reads_its_expert_counts(monkeypatch):
-    """The detector above sees the host read a routed MoE layer makes (its
-    expert counts), which is why MoE configs keep the eager route."""
-    cfg, params = _model("mla")
-    assert not graphs.supports(cfg)
-    pools = _pools(cfg)
+    """A routed MoE layer groups its tokens by expert on the device
+    (``kernels.routed_experts``; its plain version here): ``decode_body``
+    of an MLA + MoE config (deepseek-v3-671b, with a shared expert) and a
+    GQA + MoE one (olmoe-1b-7b) makes no host read over three steps,
+    under the detector above, and equals the per-step
+    ``decode_step_paged`` it wraps."""
     tables = torch.from_numpy(TABLES)
     gids = torch.from_numpy(np.where(TABLES >= 0, TABLES + 5, -1)
                             .astype(np.int32))
-    c = _carry(cfg)
-    mode = _no_host_reads(monkeypatch)
-    with pytest.raises(AssertionError, match="host read"):
+    for kind in ("mla", "olmoe"):
+        cfg, params = _model(kind)
+        pools, again = _pools(cfg), _pools(cfg)
+        c = _carry(cfg)
+        tok, pos = c.tok.clone(), torch.where(c.alive(), c.pos, -1)
+        mode = _no_host_reads(monkeypatch)
         with mode:
-            TM.decode_body(params, cfg, pools.kv_with_sink, tables, gids, c,
-                           page_size=PAGE)
+            for step in range(3):
+                TM.decode_body(params, cfg, pools.kv_with_sink, tables, gids,
+                               c, page_size=PAGE)
+                if step == 0:
+                    first = c.mass_sum.clone()
+        monkeypatch.undo()
+        assert c.step.tolist() == [3], kind
+        assert c.alive_steps[[0, 2, 3]].tolist() == [3, 0, 3], kind
+        _, mass = TM.decode_step_paged(params, cfg, again.kv_with_sink,
+                                       tables, gids, tok, pos,
+                                       page_size=PAGE)
+        assert torch.equal(first, mass) and float(mass.sum()) > 0, kind
 
 
 _M = np.uint64(0xFFFFFFFF)
@@ -391,7 +407,8 @@ def _monitor():
                                               ("window", True, False),
                                               ("gqa", False, False),
                                               ("gqa", True, True),
-                                              ("mla", True, False)])
+                                              ("mla", True, False),
+                                              ("olmoe", True, False)])
 def test_cpu_batchers_take_the_eager_route(kind, macro, eager):
     """On the CPU every batcher is eager, whatever the config; its device
     steps equal its decode steps."""
@@ -407,21 +424,31 @@ def test_cpu_batchers_take_the_eager_route(kind, macro, eager):
 
 
 @pytest.mark.parametrize("kind,takes", [("gqa", True), ("window", True),
-                                        ("mla", False), ("rglru", True),
-                                        ("xlstm", True)])
+                                        ("mla", True), ("rglru", True),
+                                        ("xlstm", True), ("olmoe", True)])
 def test_graph_route_supports_configs_without_routed_moe(kind, takes):
+    """Every served config, reduced and at full width, routed MoE
+    included, takes the graph route on a card for macro steps
+    (``sched.decode_route``); the CPU, per-token steps and ``eager=True``
+    take the eager route."""
     cfg, _ = _model(kind)
-    assert graphs.supports(cfg) is takes
-    assert graphs.supports(TC.get(ARCHS[kind])) is takes
+    for c in (cfg, TC.get(ARCHS[kind])):
+        TM.check_supported(c)
+    assert (TS.decode_route(torch.device("cuda"), macro=True, eager=False)
+            == "graph") is takes
+    for device, macro, eager in (("cpu", True, False), ("cuda", False, False),
+                                 ("cuda", True, True)):
+        assert TS.decode_route(device, macro=macro, eager=eager) == "eager"
 
 
 def test_decode_graph_refuses_what_it_cannot_capture():
-    """No fallback: a routed MoE config or CPU tables raise."""
+    """No fallback: CPU tables raise, for a routed MoE config as for any
+    other (no config is refused)."""
     for kind in ("mla", "gqa"):
         cfg, params = _model(kind)
         pools = _pools(cfg)
         t = torch.full((2, N_ROW), -1, dtype=torch.int32)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="CUDA tables"):
             graphs.DecodeGraph(params, cfg, pools.kv_with_sink, t, t.clone(),
                                max_steps=8, page_size=PAGE)
 

@@ -201,13 +201,29 @@ def test_other_geometries_raise_not_implemented(arch):
     ("deepseek-v3-671b", {}, "MLA"),
     ("qwen3-14b", {"softcap": 30.0}, "softcap"),
     ("qwen3-14b", {"head_dim": 160}, "head dim"),
-    ("qwen3-14b", {"head_dim": 192}, "head dim")])
+    ("qwen3-14b", {"head_dim": 192}, "head dim"),
+    ("xlstm-1.3b", {}, None)])
 def test_flash_route_refuses_what_its_kernel_cannot_take(arch, change,
                                                          match):
     """``attention_impl="pallas"`` raises for MLA slots (d_qk != d_v), a
     soft-cap and head dims outside ``HEAD_DIMS`` (stablelm-12b's 160,
     nemotron-4-340b's 192), which the flash kernel cannot take; the same
-    configs build under ``"reference"``, and an unknown setting raises."""
+    configs build under ``"reference"``, and an unknown setting raises.
+    A config without attention slots takes either setting (``match``
+    None): full-width xlstm-1.3b, whose head dim of 512 no flash launch
+    would see, is checked and gets the same pool leaves under both (its
+    weights are not built: 13.9 GB)."""
+    if match is None:
+        full = TC.get(arch)
+        pallas = dataclasses.replace(full, attention_impl="pallas")
+        assert not TM.has_attention(full) and full.head_dim not in \
+            TM.HEAD_DIMS
+        TM.check_supported(pallas)
+        assert TM.slot_leaf_specs(pallas, 16) == TM.slot_leaf_specs(full, 16)
+        with pytest.raises(ValueError, match="attention_impl"):
+            TM.check_supported(dataclasses.replace(full,
+                                                   attention_impl="flash"))
+        return
     cfg = dataclasses.replace(TC.reduced(arch), **change)
     TM.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
