@@ -7,10 +7,14 @@ nothing of JAX -- and returns the port's ``Transformer`` holding the same
 numbers: segment leaves stay stacked ``[R, ...]``, and the attention
 projections are reshaped from the reference's ``wq/wk/wv [d, H, hd]`` and
 ``wo [H, hd, d]`` to the port's matmul-ready ``[d, H*hd]`` / ``[H*hd, d]``
-(MLA's ``w_uq`` and ``wo`` likewise; ``w_uk``/``w_uv`` keep their heads).
-MLA leaves (``w_dq, q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv, wo``),
-MoE leaves (``router, wi_gate, wi_up, wo, shared.*``) and a recurrent
-slot's ``cell`` leaves carry over as they are named in the reference.
+(MLA's ``w_uq`` and ``wo`` likewise, and the cross-attention leaves
+``xattn.{wq, wk, wv, wo}``, whose ``wk``/``wv`` take ``cond_dim`` rows;
+``w_uk``/``w_uv`` keep their heads).  MLA leaves (``w_dq, q_norm, w_uq,
+w_dkv, kv_norm, w_kr, w_uk, w_uv, wo``), MoE leaves (``router, wi_gate,
+wi_up, wo, shared.*``), ``norm_x`` and a recurrent slot's ``cell`` leaves
+carry over as they are named in the reference; the MLP's ``wo`` becomes
+``w_down`` (SwiGLU's ``wi_gate``/``wi_up`` and the GELU / squared-ReLU
+``wi`` keep their names).
 The tests use it so both packages compute the same function.
 """
 from __future__ import annotations
@@ -54,6 +58,10 @@ def from_reference(ref_params, cfg: ModelConfig, *,
                                 else ()))
                     for name in names:
                         put(getattr(slot, name), ref["attn"][name])
+                if slot.kind.xattn:
+                    put(slot.norm_x, ref["norm_x"])
+                    for name, t in slot.xattn.named_parameters():
+                        put(t, ref["xattn"][name])
                 if "norm2" in ref:
                     put(slot.norm2, ref["norm2"])
                 if slot.kind.moe:
@@ -65,8 +73,7 @@ def from_reference(ref_params, cfg: ModelConfig, *,
                             put(getattr(slot.moe.shared, name),
                                 moe["shared"][name])
                 elif "mlp" in ref:
-                    mlp = ref["mlp"]
-                    put(slot.wi_gate, mlp["wi_gate"])
-                    put(slot.wi_up, mlp["wi_up"])
-                    put(slot.w_down, mlp["wo"])
+                    for name, src in ref["mlp"].items():
+                        put(getattr(slot, "w_down" if name == "wo"
+                                    else name), src)
     return params

@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["paged_attention", "paged_attention_plain", "split_plan"]
+__all__ = ["head_groups", "paged_attention", "paged_attention_plain",
+           "split_plan"]
 
 NAME = "paged_attention"
 NVCC_FLAGS = _build.BASE_FLAGS
@@ -64,7 +65,22 @@ def _load():
     return _lib
 
 
-def split_plan(n: int, window: int, page: int, b: int, kv: int):
+def head_groups(h: int, kv: int, d: int) -> int:
+    """The blocks the kernel gives each KV head's group of ``h // kv``
+    query heads, as its launcher (``launch_all`` in
+    ``csrc/paged_attention.cu``) chooses them: a block holds at most 5, 2
+    or 1 heads at D <= 128, 256 or 512, and the groups are the fewest that
+    split the GQA group evenly."""
+    rep = h // kv
+    per_block = {1: 5, 2: 2}.get(-(-d // 128), 1)
+    groups = -(-rep // per_block)
+    while rep % groups:
+        groups += 1
+    return groups
+
+
+def split_plan(n: int, window: int, page: int, b: int, kv: int,
+               groups: int):
     """(pages per split, splits) of the kernel's grid for a page table of
     ``n`` pages a row, from the shapes alone (never from the lengths, whose
     read would sync the device).  Split s of a row covers its logical pages
@@ -72,10 +88,10 @@ def split_plan(n: int, window: int, page: int, b: int, kv: int):
     so the splits need only cover the longest span a row can visit:
     ``n`` pages, or ceil(window / page) + 1 under a window.  Runs are as
     short as keeps the grid near ``TARGET_BLOCKS`` blocks of (row, KV
-    head, split)."""
+    head, head group, split); ``groups`` is ``head_groups(h, kv, d)``."""
     span = n if window <= 0 else min(n, -(-window // page) + 1)
     pps = max(1, min(span, MAX_PAGES_PER_SPLIT,
-                     span * b * kv // TARGET_BLOCKS))
+                     span * b * kv * groups // TARGET_BLOCKS))
     return pps, -(-span // pps)
 
 
@@ -160,7 +176,8 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
                 torch.zeros((b, n), dtype=torch.float32, device=q.device))
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     mass = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    pps, splits = split_plan(n, int(window), page, b, kvh)
+    pps, splits = split_plan(n, int(window), page, b, kvh,
+                             head_groups(h, kvh, d))
     # scratch: part_acc [B, H, splits, D], part_m and part_l [B, H,
     # splits], s_page [B, H, n]
     parts = b * h * splits

@@ -53,10 +53,12 @@ class DecodeGraph:
     which it updates in place between macros; ``max_steps``: the longest
     macro (rows of ``toks_out``); ``state_cols``: the static [B] column
     of each row's state page (configs with recurrent slots, as
-    ``model.decode_step_paged``)."""
+    ``model.decode_step_paged``); ``cond``: the static [B, T, cond_dim]
+    conditioning rows of ``.xattn`` configs, which every replay reads
+    (the caller never reallocates them)."""
 
     def __init__(self, params, cfg: ModelConfig, kv, tables, gid_tables, *,
-                 max_steps: int, page_size: int, state_cols=None):
+                 max_steps: int, page_size: int, state_cols=None, cond=None):
         dev = tables.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tables, not {dev}")
@@ -65,7 +67,7 @@ class DecodeGraph:
         self.carry.pos.fill_(-1)    # the warm-up writes only into the sinks
         body = functools.partial(mdl.decode_body, params, cfg, kv, tables,
                                  gid_tables, self.carry, page_size=page_size,
-                                 state_cols=state_cols)
+                                 state_cols=state_cols, cond=cond)
         # warm up on a side stream, as torch.cuda.graphs asks, then capture
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))

@@ -1,8 +1,10 @@
 """Core layers of the attention transformer (the subset of
-``repro/models/layers.py`` the port serves): norms, rotary, the SwiGLU
-MLP, GQA attention (causal or sliding-window; prefill through the flash
-kernel when ``cfg.attention_impl == "pallas"``) and MLA (DeepSeek-V3
-Multi-head Latent Attention) for prefill and dense decode, embeddings.
+``repro/models/layers.py`` the port serves): norms, rotary, the SwiGLU,
+GELU and squared-ReLU MLPs, GQA attention (causal or sliding-window;
+prefill through the flash kernel when ``cfg.attention_impl ==
+"pallas"``), cross-attention to a conditioning sequence, and MLA
+(DeepSeek-V3 Multi-head Latent Attention) for prefill and dense decode,
+embeddings.
 
 Layouts follow the reference at every public function (activations
 [B, S, H, D], caches [B, T, KV, D]); projection weights are stored
@@ -24,8 +26,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["dense_init", "rms_norm", "rope", "mlp_apply", "causal_mask",
-           "sdpa", "attention_apply", "attention_decode", "mla_apply",
-           "mla_decode", "mla_scale", "embed", "unembed"]
+           "sdpa", "attention_apply", "attention_decode", "cross_attention",
+           "mla_apply", "mla_decode", "mla_scale", "embed", "unembed"]
 
 NEG = -1e30     # masked logits, as the reference (not -inf)
 
@@ -58,9 +60,16 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def mlp_apply(p, r: int, x):
-    """SwiGLU MLP of slot ``p`` at repeat ``r``."""
-    h = torch.nn.functional.silu(x @ p.wi_gate[r]) * (x @ p.wi_up[r])
+def mlp_apply(p, r: int, cfg: ModelConfig, x):
+    """The ``cfg.mlp_kind`` MLP of slot ``p`` at repeat ``r``: SwiGLU over
+    ``wi_gate``/``wi_up``, or ``wi`` then squared ReLU or GELU.  GELU is
+    the tanh form, ``jax.nn.gelu``'s default, which the reference calls."""
+    if cfg.mlp_kind == "swiglu":
+        h = torch.nn.functional.silu(x @ p.wi_gate[r]) * (x @ p.wi_up[r])
+    elif cfg.mlp_kind == "squared_relu":
+        h = torch.square(torch.relu(x @ p.wi[r]))
+    else:
+        h = torch.nn.functional.gelu(x @ p.wi[r], approximate="tanh")
     return h @ p.w_down[r]
 
 
@@ -154,6 +163,27 @@ def attention_decode(p, r: int, cfg: ModelConfig, x, cache_k, cache_v,
         m &= pos_all > (cur_pos[:, None] - window)
     out = sdpa(q, k_all, v_all, m[:, None, :], cfg.softcap)
     return out.reshape(x.shape[0], 1, -1) @ p.wo[r], k_new, v_new
+
+
+def cross_attention(p, r: int, cfg: ModelConfig, x, cond):
+    """Attention from ``x`` [B, S, d] to the conditioning ``cond`` [B, T,
+    cond_dim] through the cross-attention leaves ``p`` (``wq`` [R, d,
+    H*hd], ``wk``/``wv`` [R, cond_dim, KV*hd], ``wo``; qk-norm as
+    self-attention's): no rotary and every key visible, as the reference's
+    ``attention_apply(..., use_rope=False)`` with an all-true mask.  One
+    function for a sequence and a decode step (S = 1).  Returns [B, S,
+    d]."""
+    b, s, _ = x.shape
+    t, hd = cond.shape[1], cfg.head_dim
+    q = (x @ p.wq[r]).reshape(b, s, cfg.num_heads, hd)
+    k = (cond @ p.wk[r]).reshape(b, t, cfg.num_kv_heads, hd)
+    v = (cond @ p.wv[r]).reshape(b, t, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm[r])
+        k = rms_norm(k, p.k_norm[r])
+    mask = torch.ones((1, s, t), dtype=torch.bool, device=x.device)
+    out = sdpa(q, k, v, mask, cfg.softcap)
+    return out.reshape(b, s, -1) @ p.wo[r]
 
 
 # ---------------------------------------------------------------------------

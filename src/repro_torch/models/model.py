@@ -21,12 +21,15 @@ attention (k/v cache rows; a local slot's dense cache is a ring of
 ``min(window, max_len)`` rows, its pages hold the whole timeline and the
 paged kernel masks to the window), MLA (compressed ckv/krope rows) and
 the recurrent cells mLSTM, sLSTM and RG-LRU (``models.recurrent``; one
-packed state page per request, ``pack_state``), each followed by a
-SwiGLU MLP, a routed MoE (``models.moe``) or, with ``d_ff == 0`` and no
-MoE, nothing.  With ``cfg.attention_impl == "pallas"`` the sequence
-passes (forward, prefill, prefill_batched) run self-attention through
-the flash kernel.  Configs that need another layer feature raise
-``NotImplementedError`` naming the later slice (ROADMAP Queue 1 item 8).
+packed state page per request, ``pack_state``), each optionally followed
+by cross-attention to a conditioning sequence (``.xattn`` slots: every
+entry point takes ``cond`` [B, T, cond_dim]; it is not paged, so it adds
+nothing to the page mass), then a SwiGLU, GELU or squared-ReLU MLP, a
+routed MoE (``models.moe``) or, with ``d_ff == 0`` and no MoE, nothing.
+With ``cfg.attention_impl == "pallas"`` the sequence passes (forward,
+prefill, prefill_batched) run self-attention through the flash kernel.
+Configs that need another layer feature raise ``NotImplementedError``
+naming the later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -45,8 +48,9 @@ from repro_torch.models import recurrent as R
 from repro_torch.models.config import LayerKind, ModelConfig, parse_kind
 from repro_torch.models.moe import MoE, moe_apply
 
-__all__ = ["Slot", "Transformer", "init", "forward", "prefill", "pad_cache",
-           "init_cache", "decode_step", "prefill_batched",
+__all__ = ["Slot", "CrossAttention", "Transformer", "init", "forward",
+           "prefill", "pad_cache", "init_cache", "decode_step",
+           "prefill_batched",
            "batched_prefill_supported", "state_slot_meta", "state_dim",
            "pack_state", "unpack_state", "has_state_pages", "has_attention",
            "slot_leaf_specs", "slot_leaf_names", "decode_step_paged",
@@ -55,24 +59,16 @@ __all__ = ["Slot", "Transformer", "init", "forward", "prefill", "pad_cache",
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for anything beyond causal or
-    sliding-window attention, MLA or a recurrent cell, each with a SwiGLU
-    MLP, MoE or no MLP (``d_ff == 0``, as xLSTM), naming the slice of the
-    port that brings it, and for what the flash kernel cannot take under
-    ``attention_impl == "pallas"`` (checked only for configs with
-    attention slots: the setting routes nothing in the others)."""
-    later = []
+    """Raise ``NotImplementedError`` for a shared prefix (``prefix_len``),
+    naming the slice of the port that brings it, and for what the flash
+    kernel cannot take under ``attention_impl == "pallas"`` (checked only
+    for configs with attention slots: the setting routes nothing in the
+    others)."""
     kinds = {parse_kind(s) for pat, _ in cfg.segments for s in pat}
-    if any(k.xattn for k in kinds):
-        later.append("cross-attention conditioning (Queue 1 item 8.4)")
     if cfg.prefix_len:
-        later.append("shared prefix pages (Queue 1 item 8.5)")
-    if cfg.mlp_kind != "swiglu":
-        later.append(f"the {cfg.mlp_kind} MLP (Queue 1 item 8.6)")
-    if later:
         raise NotImplementedError(
-            f"{cfg.name}: the torch port does not serve "
-            f"{'; '.join(sorted(set(later)))} yet")
+            f"{cfg.name}: the torch port does not serve shared prefix pages "
+            "(Queue 1 item 8.5) yet")
     if cfg.attention_impl not in ("reference", "pallas"):
         raise ValueError(f"attention_impl is 'reference' or 'pallas', not "
                          f"{cfg.attention_impl!r}")
@@ -99,6 +95,14 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _stacked(repeats: int, device):
+    """A maker of uninitialised, frozen leaves stacked over ``repeats``."""
+    def leaf(*shape):
+        return nn.Parameter(torch.empty((repeats,) + shape, device=device),
+                            requires_grad=False)
+    return leaf
+
+
 class Slot(nn.Module):
     """One pattern slot, every leaf stacked over the segment's
     ``repeats``: ``norm1`` [R, d], then the attention leaves of its
@@ -108,10 +112,13 @@ class Slot(nn.Module):
     [R, q_lora, H*(nope+rope)], ``w_dkv`` [R, d, kv_lora], ``kv_norm``
     [R, kv_lora], ``w_kr`` [R, d, rope], ``w_uk`` [R, kv_lora, H, nope],
     ``w_uv`` [R, kv_lora, H, v_head], ``wo`` [R, H*v_head, d] -- or a
-    recurrent ``cell`` (``recurrent.Cell``); then ``norm2`` and either the
-    MoE (``moe``) or the SwiGLU MLP ``wi_gate``/``wi_up`` [R, d, ff],
-    ``w_down`` [R, ff, d] -- neither, and no ``norm2``, with ``d_ff == 0``
-    and no MoE (the reference's ``_slot_init``).
+    recurrent ``cell`` (``recurrent.Cell``); for an ``.xattn`` kind
+    ``norm_x`` [R, d] and the cross-attention leaves ``xattn``
+    (``CrossAttention``); then ``norm2`` and either the MoE (``moe``) or
+    the MLP: SwiGLU ``wi_gate``/``wi_up`` [R, d, ff], or GELU / squared
+    ReLU ``wi`` [R, d, ff], and ``w_down`` [R, ff, d] -- neither, and no
+    ``norm2``, with ``d_ff == 0`` and no MoE (the reference's
+    ``_slot_init``).
 
     ``fan_in`` maps each random leaf to the fan-in the reference's
     ``_dense_init`` gives it: ``shape[0]`` of the unstacked reference
@@ -123,12 +130,7 @@ class Slot(nn.Module):
         self.kind = kind
         d, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                             cfg.head_dim, cfg.d_ff)
-
-        def leaf(*shape):
-            return nn.Parameter(torch.empty((repeats,) + shape,
-                                            device=device),
-                                requires_grad=False)
-
+        leaf = _stacked(repeats, device)
         self.norm1 = leaf(d)
         self.fan_in = {}
         if kind.is_recurrent:
@@ -155,14 +157,43 @@ class Slot(nn.Module):
             if cfg.qk_norm:
                 self.q_norm, self.k_norm = leaf(hd), leaf(hd)
             self.fan_in.update(wq=d, wk=d, wv=d, wo=h)
+        if kind.xattn:
+            self.norm_x = leaf(d)
+            self.xattn = CrossAttention(cfg, repeats, device)
         if kind.moe:
             self.norm2 = leaf(d)
             self.moe = MoE(cfg, repeats, device)
         elif ff > 0:
             self.norm2 = leaf(d)
-            self.wi_gate, self.wi_up, self.w_down = leaf(d, ff), \
-                leaf(d, ff), leaf(ff, d)
-            self.fan_in.update(wi_gate=d, wi_up=d, w_down=ff)
+            if cfg.mlp_kind == "swiglu":
+                self.wi_gate, self.wi_up = leaf(d, ff), leaf(d, ff)
+                self.fan_in.update(wi_gate=d, wi_up=d)
+            else:
+                self.wi = leaf(d, ff)
+                self.fan_in.update(wi=d)
+            self.w_down = leaf(ff, d)
+            self.fan_in.update(w_down=ff)
+
+
+class CrossAttention(nn.Module):
+    """A slot's cross-attention leaves, stacked over ``repeats``: ``wq``
+    [R, d, H*hd], ``wk``/``wv`` [R, cond_dim, KV*hd] (``cond_dim`` 0 means
+    d_model), ``wo`` [R, H*hd, d], and ``q_norm``/``k_norm`` [R, hd] with
+    qk-norm; ``fan_in`` as ``Slot``'s (the reference's
+    ``attention_init(..., cross=True)``: ``wk``'s fan-in is cond_dim)."""
+
+    def __init__(self, cfg: ModelConfig, repeats: int, device):
+        super().__init__()
+        d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim)
+        cd = cfg.cond_dim or d
+        leaf = _stacked(repeats, device)
+        self.wq, self.wk, self.wv = leaf(d, h * hd), leaf(cd, kv * hd), \
+            leaf(cd, kv * hd)
+        self.wo = leaf(h * hd, d)
+        if cfg.qk_norm:
+            self.q_norm, self.k_norm = leaf(hd), leaf(hd)
+        self.fan_in = dict(wq=d, wk=cd, wv=cd, wo=h)
 
 
 class Transformer(nn.Module):
@@ -235,17 +266,30 @@ def _window(cfg: ModelConfig, kind: LayerKind) -> int:
     return cfg.window_size if kind.base == "local" else 0
 
 
-def _block_tail(slot, r: int, cfg: ModelConfig, x, *, with_aux=False):
-    """The residual MLP or MoE after a slot's attention or cell, if the
-    slot has one: (x, aux), aux the MoE's load-balance loss when
-    ``with_aux`` (sequence mode) and None otherwise (decode drops it)."""
+def _block_tail(slot, r: int, cfg: ModelConfig, x, cond=None, *,
+                with_aux=False):
+    """What follows a slot's attention or cell, in the reference's order:
+    cross-attention to ``cond`` (``.xattn`` slots, when ``cond`` is
+    given), then the residual MLP or MoE if the slot has one.  Returns (x,
+    aux), aux the MoE's load-balance loss when ``with_aux`` (sequence
+    mode) and None otherwise (decode drops it)."""
+    if slot.kind.xattn and cond is not None:
+        x = x + L.cross_attention(slot.xattn, r, cfg,
+                                  L.rms_norm(x, slot.norm_x[r]), cond)
     if slot.kind.moe:
         out, aux = moe_apply(slot.moe, r, cfg, L.rms_norm(x, slot.norm2[r]),
                              with_aux=with_aux)
         return x + out, aux
     if cfg.d_ff > 0:
-        return x + L.mlp_apply(slot, r, L.rms_norm(x, slot.norm2[r])), None
+        return x + L.mlp_apply(slot, r, cfg,
+                               L.rms_norm(x, slot.norm2[r])), None
     return x, None
+
+
+def _cond(cond, x):
+    """The conditioning in the residual stream's dtype (the reference casts
+    it so), or None."""
+    return None if cond is None else cond.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -253,11 +297,13 @@ def _block_tail(slot, r: int, cfg: ModelConfig, x, *, with_aux=False):
 # ---------------------------------------------------------------------------
 
 
-def _run_seq(params, cfg: ModelConfig, x, positions):
+def _run_seq(params, cfg: ModelConfig, x, positions, cond=None):
     """All layers over a sequence; returns (x, per-slot lists of cache
     entries in repeat order -- {"k", "v"}, MLA {"ckv", "krope"} or a
     recurrent cell's final state --, the summed MoE aux loss).  Local
-    slots attend through a sliding window, the others causally."""
+    slots attend through a sliding window, the others causally; ``.xattn``
+    slots attend ``cond`` [B, T, cond_dim] too."""
+    cond = _cond(cond, x)
     masks = {}          # MLA's, by window; attention_apply builds its own
     entries: List[List] = [[] for _ in state_slot_meta(cfg)]
     aux_total = torch.zeros((), device=x.device)
@@ -278,7 +324,7 @@ def _run_seq(params, cfg: ModelConfig, x, positions):
                                               window=window)
             entry = dict(zip(slot_leaf_names(slot.kind), rows))
         entries[li].append(entry)
-        x, aux = _block_tail(slot, r, cfg, x + out, with_aux=True)
+        x, aux = _block_tail(slot, r, cfg, x + out, cond, with_aux=True)
         if aux is not None:
             aux_total = aux_total + aux
     return x, entries, aux_total
@@ -303,23 +349,24 @@ def _stack_cache(cfg: ModelConfig, entries, pos):
     return {"segments": segs}
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """Training-style forward.  tokens: [B, S].  Returns (logits [B,S,V],
+def forward(params, cfg: ModelConfig, tokens, *, cond=None):
+    """Training-style forward.  tokens: [B, S]; cond: [B, T, cond_dim]
+    conditioning for ``.xattn`` slots.  Returns (logits [B,S,V],
     aux_loss): the MoE load-balance loss summed over the MoE layers (0
     without MoE).  The reference's scan over repeats adds the aux of a
     pattern's last slot only (``model.py:330``), which is the same sum for
     every registered MoE config (single-slot patterns)."""
     x = L.embed(params.tok, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _, aux = _run_seq(params, cfg, x, positions)
+    x, _, aux = _run_seq(params, cfg, x, positions, cond)
     x = L.rms_norm(x, params.final_norm)
     return L.unembed(params, cfg, x), aux
 
 
-def prefill(params, cfg: ModelConfig, tokens):
+def prefill(params, cfg: ModelConfig, tokens, *, cond=None):
     """Forward pass that also returns the populated cache (a recurrent
-    slot's entry holds its cell's final state).  Returns (last_logits
-    [B,1,V], cache).
+    slot's entry holds its cell's final state); ``cond`` as ``forward``'s.
+    Returns (last_logits [B,1,V], cache).
 
     A local slot keeps only its last ``window`` positions when the prompt
     is longer, rolled by ``s % window`` so that slot j holds the position
@@ -329,7 +376,7 @@ def prefill(params, cfg: ModelConfig, tokens):
     x = L.embed(params.tok, cfg, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
-    x, entries, _ = _run_seq(params, cfg, x, positions)
+    x, entries, _ = _run_seq(params, cfg, x, positions, cond)
     x = L.rms_norm(x, params.final_norm)
     logits = L.unembed(params, cfg, x[:, -1:])
     pos = positions.expand(b, s).to(torch.int64)
@@ -404,12 +451,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return {"segments": segs}
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos):
+def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos, *,
+                cond=None):
     """One dense decode step.  tokens: [B,1]; cur_pos: [B] (current
-    length).  Writes the new entries (a recurrent slot's new state) into
-    ``cache`` in place (slot ``_write_slot``) and returns (logits
-    [B,1,V], cache)."""
+    length); cond: [B, T, cond_dim] for ``.xattn`` slots.  Writes the new
+    entries (a recurrent slot's new state) into ``cache`` in place (slot
+    ``_write_slot``) and returns (logits [B,1,V], cache)."""
     x = L.embed(params.tok, cfg, tokens)
+    cond = _cond(cond, x)
     rows = torch.arange(x.shape[0], device=x.device)
     for li, r, slot in _layers(params, cfg):
         c = _slot_cache(cache, cfg, li)
@@ -419,7 +468,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos):
                               {k: v[r] for k, v in c.items()})
             for k, v in new.items():
                 c[k][r].copy_(v)
-            x, _ = _block_tail(slot, r, cfg, x + out)
+            x, _ = _block_tail(slot, r, cfg, x + out, cond)
             continue
         pos = c["pos"][r]
         names = slot_leaf_names(slot.kind)
@@ -435,7 +484,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos):
         for name, e in zip(names, new):
             c[name][r][rows, wslot] = e[:, 0].to(c[name].dtype)
         pos[rows, wslot] = cur_pos.to(pos.dtype)
-        x, _ = _block_tail(slot, r, cfg, x + out)
+        x, _ = _block_tail(slot, r, cfg, x + out, cond)
     x = L.rms_norm(x, params.final_norm)
     return L.unembed(params, cfg, x), cache
 
@@ -465,9 +514,11 @@ def batched_prefill_supported(cfg: ModelConfig) -> bool:
                    for s in pat)
 
 
-def prefill_batched(params, cfg: ModelConfig, tokens, lengths):
+def prefill_batched(params, cfg: ModelConfig, tokens, lengths, *,
+                    cond=None):
     """Batched-admission prefill: one packed forward over right-padded
-    prompts.  tokens: [B, Smax]; lengths: [B] true row lengths.
+    prompts.  tokens: [B, Smax]; lengths: [B] true row lengths; cond: [B,
+    T, cond_dim] for ``.xattn`` slots.
     Returns (last_logits [B,1,V], cache) where ``last_logits[b]`` is taken
     at position ``lengths[b] - 1`` and the cache keeps the full padded
     timeline with ``pos`` -1 beyond each row's length.  Causality makes
@@ -480,7 +531,7 @@ def prefill_batched(params, cfg: ModelConfig, tokens, lengths):
     x = L.embed(params.tok, cfg, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
-    x, entries, _ = _run_seq(params, cfg, x, positions)
+    x, entries, _ = _run_seq(params, cfg, x, positions, cond)
     x = L.rms_norm(x, params.final_norm)
     ln = torch.as_tensor(lengths, device=x.device).long()
     last = x[torch.arange(b, device=x.device), ln - 1][:, None]
@@ -579,7 +630,8 @@ def slot_leaf_names(kind: LayerKind):
 
 
 def decode_step_paged(params, cfg: ModelConfig, kv, tables, gid_tables,
-                      tokens, cur_pos, *, page_size: int, state_cols=None):
+                      tokens, cur_pos, *, page_size: int, state_cols=None,
+                      cond=None):
     """One decode step with every state-bearing layer reading and writing
     the shared page pools (no dense cache exists): attention slots
     through ``ops.paged_attention``, MLA slots through
@@ -599,6 +651,8 @@ def decode_step_paged(params, cfg: ModelConfig, kv, tables, gid_tables,
     tokens: [B, 1]; cur_pos: [B] position being decoded (-1 = inactive).
     state_cols: int [B] column of each row's state page in its tables
                 (-1 = none); required iff the config has recurrent slots.
+    cond:       [B, T, cond_dim] conditioning for ``.xattn`` slots: not
+                paged, and it adds nothing to the page mass.
 
     Returns (logits [B,1,V], page_mass f32[B, n]): the access mass per
     row page averaged over every state-bearing layer -- an attention
@@ -608,7 +662,7 @@ def decode_step_paged(params, cfg: ModelConfig, kv, tables, gid_tables,
     device: ``kernels.routed_experts``)."""
     return _paged_decode_core(params, cfg, kv, tables, gid_tables, tokens,
                               cur_pos, page_size=page_size,
-                              state_cols=state_cols)
+                              state_cols=state_cols, cond=cond)
 
 
 def _sink_page(kv, tier: str) -> int:
@@ -652,7 +706,8 @@ def _paged_attention(slot, r: int, cfg: ModelConfig, h, hbm, host, cur_pos,
 
 
 def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
-                       tokens, cur_pos, *, page_size: int, state_cols=None):
+                       tokens, cur_pos, *, page_size: int, state_cols=None,
+                       cond=None):
     b = tokens.shape[0]
     dev = tokens.device
     rows = torch.arange(b, device=dev)
@@ -692,6 +747,7 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
         smass = (svalid[:, None] & (cols[None] == scol[:, None])).float()
 
     x = L.embed(params.tok, cfg, tokens)
+    cond = _cond(cond, x)
     mass_sum = torch.zeros((b, tables.shape[1]), dtype=torch.float32,
                            device=dev)
     n_layers = 0
@@ -713,7 +769,7 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
         else:
             out, mass = _paged_attention(slot, r, cfg, h, hbm, host, cur_pos,
                                          hbm_at, host_at, tables, lengths)
-        x, _ = _block_tail(slot, r, cfg, x + out)
+        x, _ = _block_tail(slot, r, cfg, x + out, cond)
         mass_sum += mass
         n_layers += 1
     logits = L.unembed(params, cfg, L.rms_norm(x, params.final_norm))
@@ -849,20 +905,21 @@ def _stop(rows, c: MacroCarry):
 
 
 def decode_body(params, cfg: ModelConfig, kv, tables, gid_tables,
-                c: MacroCarry, *, page_size: int, state_cols=None) -> None:
+                c: MacroCarry, *, page_size: int, state_cols=None,
+                cond=None) -> None:
     """One step of the decode macro over the carry ``c``, in place, with
     no read back to the host (routed MoE included): decode every alive row
     off the pools, add its page mass, sample its next token at iteration
     ``it + 1`` and apply the stop conditions.  Dead rows freeze: no KV
     writes (their position goes in as -1, so the write-through sends them
     to the sink), no mass, no emission.  Every row writes
-    ``toks_out[step]`` (-1 when not alive).  ``state_cols`` as
-    ``decode_step_paged``'s."""
+    ``toks_out[step]`` (-1 when not alive).  ``state_cols`` and ``cond``
+    as ``decode_step_paged``'s."""
     alive = c.alive()
     cur = torch.where(alive, c.pos, -1)
     logits, mass = _paged_decode_core(params, cfg, kv, tables, gid_tables,
                                       c.tok, cur, page_size=page_size,
-                                      state_cols=state_cols)
+                                      state_cols=state_cols, cond=cond)
     c.mass_sum += mass                 # the core zeroes dead rows
     c.alive_steps += alive
     new_tok = sample(logits[:, 0], c.temps, c.seeds, c.it + 1)
@@ -879,7 +936,7 @@ def decode_body(params, cfg: ModelConfig, kv, tables, gid_tables,
 def decode_macro_step(params, cfg: ModelConfig, kv, tables, gid_tables,
                       tokens, cur_pos, seeds, iters, emitted, max_new,
                       eos_ids, temps, *, n_steps: int, page_size: int,
-                      state_cols=None):
+                      state_cols=None, cond=None):
     """Up to ``n_steps`` fully-paged decode steps for the whole request
     set, with on-device sampling, mass accumulation and EOS / length
     masking, so the host hands over page tables once per movement period
@@ -896,8 +953,8 @@ def decode_macro_step(params, cfg: ModelConfig, kv, tables, gid_tables,
     the per-row int64 [B] ``seeds`` (request seed), ``iters`` (decode
     iterations done), ``emitted`` (tokens emitted so far incl. the
     prefill sample), ``max_new`` (token budget), ``eos_ids`` (-1 = none)
-    and f32 [B] ``temps``, all on the device; ``state_cols`` as
-    ``decode_step_paged``'s.
+    and f32 [B] ``temps``, all on the device; ``state_cols`` and ``cond``
+    as ``decode_step_paged``'s.
 
     A row is alive while ``cur_pos >= 0`` and no stop condition has
     fired; dead rows freeze (``decode_body``), so the stream matches the
@@ -913,7 +970,7 @@ def decode_macro_step(params, cfg: ModelConfig, kv, tables, gid_tables,
     steps = 0
     while steps < n_steps and bool(c.alive().any()):
         decode_body(params, cfg, kv, tables, gid_tables, c,
-                    page_size=page_size, state_cols=state_cols)
+                    page_size=page_size, state_cols=state_cols, cond=cond)
         steps += 1
     return c.toks_out, macro_state(c, steps)
 

@@ -235,12 +235,18 @@ class ContinuousBatcher:
     (``decode_route``): ``"graph"`` on a CUDA device unless
     ``eager=True``; ``"eager"`` otherwise (and for the per-token path,
     which syncs once a token and has no graph).
+
+    ``cond`` ([T, d] or [1, T, d]) is the serving session's shared
+    cross-attention conditioning (``.xattn`` configs, musicgen-style): it
+    is broadcast to every prefill's rows, and its rows for the decode
+    (``[max_active, T, d]``) are made on the device once, so a captured
+    graph reads the same buffer on every replay.
     """
 
     def __init__(self, params, cfg, *, monitor: TrafficMonitor,
                  max_active: int = 4, max_len: int = 128,
                  page_size: int = 16, macro: bool = True, eager: bool = False,
-                 device=None):
+                 cond=None, device=None):
         mdl.check_supported(cfg)
         self.device = resolve_device(device)
         if params.tok.device != self.device:
@@ -263,6 +269,13 @@ class ContinuousBatcher:
         # state: such configs prefill one request at a time
         self._batched_prefill = mdl.batched_prefill_supported(cfg)
         self.macro_timer = StepTimer(name="serve.macro")
+        self._cond = self._cond_rows = None
+        if cond is not None:
+            c = torch.as_tensor(cond, dtype=torch.float32,
+                                device=self.device)
+            self._cond = c[None] if c.dim() == 2 else c
+            self._cond_rows = self._cond.expand(
+                (max_active,) + self._cond.shape[1:]).contiguous()
 
         # the last sampled token per row lives on the device (the next
         # step's input); positions are host ints (the host plans fetches)
@@ -307,7 +320,7 @@ class ContinuousBatcher:
             self._graph = graphs.DecodeGraph(
                 params, cfg, pools.kv_with_sink, *self._tables_dev,
                 max_steps=bucket_pages(self.max_len), page_size=page_size,
-                state_cols=self._state_cols)
+                state_cols=self._state_cols, cond=self._cond_rows)
 
     # -- admission -----------------------------------------------------------
     def _pages_kv_exact(self, req: Request) -> int:
@@ -438,7 +451,9 @@ class ContinuousBatcher:
             logits_b, cache_b = mdl.prefill_batched(
                 self.params, self.cfg,
                 torch.as_tensor(toks, device=self.device),
-                torch.as_tensor(plens_p, device=self.device))
+                torch.as_tensor(plens_p, device=self.device),
+                cond=None if self._cond is None else self._cond.expand(
+                    (toks.shape[0],) + self._cond.shape[1:]))
             self._write_prefill_pages(cache_b, batch, plens)
         else:
             rows = []
@@ -446,7 +461,8 @@ class ContinuousBatcher:
                 logits, cache1 = mdl.prefill(
                     self.params, self.cfg,
                     torch.as_tensor(req.prompt, dtype=torch.int64,
-                                    device=self.device)[None])
+                                    device=self.device)[None],
+                    cond=self._cond)
                 self._write_prefill_pages_row(cache1, req)
                 rows.append(logits)
             logits_b = torch.cat(rows)
@@ -584,7 +600,7 @@ class ContinuousBatcher:
         logits, masses = mdl.decode_step_paged(
             self.params, self.cfg, pools.kv_with_sink, tables, gid_tables,
             self.tok, cur, page_size=self.page_size,
-            state_cols=self._state_cols)
+            state_cols=self._state_cols, cond=self._cond_rows)
         new_tok = mdl.sample(logits[:, 0], temps, seeds, iters)
         masses, toks = _read_back(masses, new_tok)
         self.decode_steps += 1
@@ -640,7 +656,8 @@ class ContinuousBatcher:
             toks, st = mdl.decode_macro_step(
                 self.params, self.cfg, pools.kv_with_sink, tables,
                 gid_tables, self.tok, *dev_in, n_steps=n_steps,
-                page_size=self.page_size, state_cols=self._state_cols)
+                page_size=self.page_size, state_cols=self._state_cols,
+                cond=self._cond_rows)
         # the next macro's input token; a clone, since the graph's carry
         # is overwritten by the next replay
         self.tok = st["last_tok"].clone()

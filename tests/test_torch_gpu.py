@@ -159,6 +159,54 @@ def test_cuda_kernel_at_recurrentgemma_decode_shape(dtype):
     assert torch.count_nonzero(out[3]) == 0
 
 
+# (h, kv, d, lengths) of the decode shapes of musicgen-large (32/32 heads of
+# 64: a GQA group of one), nemotron-4-340b (96/8 heads of 192: six blocks
+# of two heads a KV head, the rows filling half of the second 128-column
+# chunk) and stablelm-12b (32/8 heads of 160), B=4 over 64 pages of 16
+DECODE_SHAPES = {
+    "musicgen-large": (32, 32, 64, [1024, 777, 0, 129]),
+    "nemotron-4-340b": (96, 8, 192, [1024, 600, 301, 0]),
+    "stablelm-12b": (32, 8, 160, [1000, 1024, 0, 17]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", list(DECODE_SHAPES))
+def test_cuda_kernel_at_more_decode_shapes(model, dtype):
+    """The kernel at musicgen's, nemotron's and stablelm's decode shapes,
+    split as the wrapper plans it (head groups counted): it holds to its
+    plain version, each active row's masses sum to 1, a length-0 row gives
+    zeros, and two calls are bit-identical."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    h, kv, d, lengths = DECODE_SHAPES[model]
+    b, page, n, p_phys = 4, 16, 64, 300
+    g = torch.Generator(device=dev).manual_seed(h + d)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+    kp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dt)
+    vp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dt)
+    pt = torch.randperm(p_phys, generator=g, device=dev)[: b * n] \
+        .reshape(b, n).to(torch.int32)
+    for row, length in enumerate(lengths):
+        pt[row, -(-length // page):] = -1
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out, mass = tpa.paged_attention(q, kp, vp, pt, ln)
+    out2, mass2 = tpa.paged_attention(q, kp, vp, pt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(mass, mass2)
+    ref_o, ref_m = tpa.paged_attention_plain(q, kp, vp, pt, ln)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref_o.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(mass, ref_m, atol=1e-5, rtol=0)
+    active = ln > 0
+    torch.testing.assert_close(mass.sum(dim=1)[active],
+                               torch.ones(int(active.sum()), device=dev),
+                               atol=1e-5, rtol=0)
+    assert torch.count_nonzero(out[~active]) == 0
+    assert torch.count_nonzero(mass[~active]) == 0
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_rejects_what_it_does_not_take():
     """The split kernel copies 16-byte pieces of head dims up to 512: rows

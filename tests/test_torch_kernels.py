@@ -306,7 +306,7 @@ def test_split_plan_covers_each_visited_page_once(n, window, page, b, kv):
     splits' runs cover each row's visited pages [lo, hi) exactly once and
     no run holds a page past them or more than MAX_PAGES_PER_SPLIT."""
     assert "lengths" not in inspect.signature(tpa.split_plan).parameters
-    pps, splits = tpa.split_plan(n, window, page, b, kv)
+    pps, splits = tpa.split_plan(n, window, page, b, kv, 1)
     assert 1 <= pps <= tpa.MAX_PAGES_PER_SPLIT
     for length in range(0, n * page + 1, max(1, page // 3)):
         lo, hi = _visited(length, window, page, n)
@@ -323,10 +323,74 @@ def test_split_plan_fills_the_card_at_served_shapes(model, n, window):
     """At both served decode shapes (B=4, KV=8, page 16) the grid holds at
     least 2 x 132 blocks, and a windowed layer launches no more splits
     than its span (ceil(1024 / 16) + 1 = 65 pages) can fill."""
-    pps, splits = tpa.split_plan(n, window, 16, 4, 8)
+    pps, splits = tpa.split_plan(n, window, 16, 4, 8, 1)
     assert 4 * 8 * splits >= 2 * 132
     span = n if not window else -(-window // 16) + 1
     assert splits == -(-span // pps)
+
+
+# (h, kv, d, n, window, lengths) of the decode shapes whose GQA group the
+# launcher splits into several blocks: nemotron-4-340b's 96/8 heads of 192
+# (six blocks of two heads) over 64 pages, and recurrentgemma-2b's 10/1
+# heads of 256 (five of two) with window 2048 over 192 token pages and the
+# state page's column
+GROUPED_SHAPES = {
+    "nemotron-4-340b": (96, 8, 192, 64, 0, [1024, 777, 0, 301]),
+    "recurrentgemma-2b": (10, 1, 256, 193, 2048, [3000, 2100, 2049, 0]),
+}
+
+
+@pytest.mark.parametrize("model", list(GROUPED_SHAPES))
+def test_split_plan_counts_head_groups(model):
+    """At B=4, page 16: ``head_groups`` is the launcher's rule (6 and 5
+    groups), and counting them keeps the grid within 2x of
+    ``TARGET_BLOCKS`` where the plan without them made 3072 and 2580
+    blocks; the plan's runs still cover each visited page once, and its
+    split and combine emulated in torch equal the plain version."""
+    h, kv, d, n, window, lengths = GROUPED_SHAPES[model]
+    b, page = 4, 16
+    groups = tpa.head_groups(h, kv, d)
+    assert groups == {"nemotron-4-340b": 6, "recurrentgemma-2b": 5}[model]
+    blocks = lambda plan: b * kv * groups * plan[1]
+    assert blocks(tpa.split_plan(n, window, page, b, kv, 1)) \
+        == {"nemotron-4-340b": 3072, "recurrentgemma-2b": 2580}[model]
+    pps, splits = tpa.split_plan(n, window, page, b, kv, groups)
+    assert tpa.TARGET_BLOCKS / 2 <= blocks((pps, splits)) \
+        <= 2 * tpa.TARGET_BLOCKS
+    for length in range(0, n * page + 1, 5):
+        covered = []
+        for p0, p1 in _runs(length, window, page, n, pps, splits):
+            assert p1 - p0 <= pps
+            covered += range(p0, p1)
+        assert covered == list(range(*_visited(length, window, page, n)))
+    g = torch.Generator().manual_seed(h)
+    p_phys = b * n + 8
+    q = torch.randn((b, h, d), generator=g)
+    kp = torch.randn((p_phys, page, kv, d), generator=g)
+    vp = torch.randn((p_phys, page, kv, d), generator=g)
+    pt = torch.randperm(p_phys, generator=g)[: b * n].reshape(b, n) \
+        .to(torch.int32)
+    for row, length in enumerate(lengths):
+        pt[row, -(-length // page):] = -1
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    out, mass = _split_emulation(q, kp, vp, pt, ln, window=window,
+                                 softcap=0.0, pps=pps, splits=splits)
+    ref_o, ref_m = tpa.paged_attention_plain(q, kp, vp, pt, ln,
+                                             window=window)
+    torch.testing.assert_close(out, ref_o, atol=1e-5, rtol=0)
+    torch.testing.assert_close(mass, ref_m, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("model,h,kv,d,n,window,plan", [
+    ("qwen3-14b", 40, 8, 128, 64, 0, (4, 16)),
+    ("gemma3-12b", 16, 8, 256, 128, 1024, (4, 17)),
+    ("olmoe-1b-7b", 16, 16, 128, 64, 0, (8, 8)),
+    ("musicgen-large", 32, 32, 64, 64, 0, (16, 4))])
+def test_split_plan_keeps_one_group_shapes(model, h, kv, d, n, window, plan):
+    """Shapes whose GQA group fits one block (one head group) keep the
+    plan they had before head groups were counted (pinned)."""
+    assert tpa.head_groups(h, kv, d) == 1
+    assert tpa.split_plan(n, window, 16, 4, kv, 1) == plan
 
 
 def test_build_cache_key_covers_source_and_flags(tmp_path, monkeypatch):
