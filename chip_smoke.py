@@ -21,8 +21,11 @@ non-zero):
      heads, D 256, window 2048, rows past the window, a row without a
      request and a state page in the tables' last column, past every
      length), musicgen's (32/32 heads of 64), nemotron's (96/8 heads of
-     192: six head groups a KV head) and stablelm's (32/8 heads of 160),
-     the edges of the kernel's split over pages
+     192: six head groups a KV head), stablelm's (32/8 heads of 160) and
+     paligemma's (8/1 heads of 256: four head groups of two, every row's
+     first 16 columns the same shared prefix pages, whose mass must be
+     positive in every live row), the edges of the kernel's split over
+     pages
      (``SPLIT_EDGES``) and a GQA / window / softcap grid, float32 and
      bfloat16, with stated tolerances, each active row's mass summing to
      1, and two calls on the same inputs bit-identical;
@@ -42,11 +45,13 @@ non-zero):
   5. parity on the card: on a reduced GQA config, the batcher's greedy
      streams (macro and per-token) equal ``generate``'s (dense attention,
      no kernel);
-  6. paged kernel timing at the six served decode shapes (qwen3-14b's,
+  6. paged kernel timing at the seven served decode shapes (qwen3-14b's,
      gemma3-12b's with window 1024, recurrentgemma-2b's with 10/1
      heads and window 2048, olmoe-1b-7b's with 16/16 heads,
-     musicgen-large's with 32/32 heads of 64 and nemotron-4-340b's with
-     96/8 heads of 192), split as the wrapper plans it (head groups
+     musicgen-large's with 32/32 heads of 64, nemotron-4-340b's with
+     96/8 heads of 192 and paligemma-3b's with 8/1 heads of 256 and 16
+     shared columns, read once in its bound), split as the wrapper
+     plans it (head groups
      counted): per call (CUDA events) and on
      the device alone (profiler kernel durations), L2 flushed before each
      call, beside its plain version, one SDPA call (the yardstick, which
@@ -198,7 +203,34 @@ non-zero):
  26. parity on the card: on reduced musicgen-large (its conditioning
      given to both, ``attention_impl="pallas"``) and nemotron-4-340b, the
      batcher's greedy streams (macro and per-token) equal ``generate``'s
-     (dense decode, no paged kernel).
+     (dense decode, no paged kernel);
+ 27. full-width, full-depth paligemma-3b (18 layers, 8/1 heads of 256, a
+     SwiGLU MLP of 16384, a tied vocabulary of 257216; float32 weights
+     from a seeded init, 10.0 GB; its 256-position image prefix [1, 256,
+     2048] drawn N(0, 1) from the seed: the SigLIP tower is a stub),
+     served after nemotron is freed over pools of 512 logical / 128 HBM
+     pages with phase 4's mix, by the graph route and then the eager
+     route, as phase 4.  The prefix is prefilled once into 16 shared
+     read-only pages that every row's table maps; the paged kernel's
+     launches must equal 18 x the device steps, no flash launch, the
+     Cori loop must act (``PALIGEMMA_ACCESS_THRESHOLD``), and the
+     demand fetches of prefix pages are counted;
+ 28. the single-stream tiered path (``examples/serve_tiered.py``'s loop)
+     at full width on phase 27's parameters: ``monitored_generate`` (4
+     prompts of 16 tokens after the prefix, 48 steps, pages of 16, masses
+     held to probability-like bounds), ``cori_tune_period`` (DR, period,
+     trials, the modeled time at fixed periods 1, 4 and 16), physical
+     passes over ``PagedPools`` made of the monitor layer's own k/v (row
+     0's timeline cut into pages) at Cori's period and under a drifting
+     ``workload.attention_sink`` pattern that must move pages (accounting
+     equal to the symbolic ``replay``, every resident HBM page bit-equal
+     to its host page), the paged kernel over the HBM tier through
+     ``slot_of`` against its plain version over the host pages through
+     the logical ids, and the online tuner in the loop through
+     ``on_mass`` (the same tokens and masses);
+ 29. parity on the card: on reduced paligemma-3b with its prefix, the
+     batcher's greedy streams (macro and per-token) equal ``generate``'s,
+     and ``monitored_generate``'s tokens equal ``generate``'s.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -293,12 +325,14 @@ SPLIT_EDGES = [
 
 def _kernel_case(pa, *, b, h, kv, d, page, n, p_phys, lengths, dtype,
                  window=0, softcap=0.0, ragged=True, holes=(),
-                 state_col=False, seed=0):
+                 state_col=False, shared=0, seed=0):
     """Random q / pools / table on the card; returns the inputs.  ``holes``
     lists (row, page) table entries set to -1 inside a row's span;
     ``state_col`` puts a real page in the last column of every row with a
     request, as the served tables of a recurrent config hold its state
-    page there, past every length."""
+    page there, past every length; ``shared`` makes every row's first
+    ``shared`` columns row 0's pages, as the served tables of a prefix
+    config map the shared prefix pages there."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
@@ -306,6 +340,7 @@ def _kernel_case(pa, *, b, h, kv, d, page, n, p_phys, lengths, dtype,
     vp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dtype)
     perm = torch.randperm(p_phys, generator=g, device=dev).to(torch.int32)
     table = perm[: b * n].reshape(b, n).clone()
+    table[:, :shared] = table[0, :shared].clone()
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     if ragged:   # rows shorter than the table are padded with -1
         for row, length in enumerate(lengths):
@@ -343,8 +378,12 @@ def phase_kernel_check(pa) -> float:
                     lengths=[1024, 600, 301, 0])
     stablelm = dict(b=4, h=32, kv=8, d=160, page=16, n=64, p_phys=256,
                     lengths=[1000, 1024, 0, 17])
+    # paligemma-3b's: 8 query heads over 1 KV head of 256 (four head
+    # groups of two), every row's first 16 columns the shared prefix pages
+    paligemma = dict(PAGED_SHAPES["paligemma-3b"],
+                     lengths=[1024, 640, 257, 0])
     grid = [dict(main), olmoe, gemma, rgemma, musicgen, nemotron,
-            stablelm] + SPLIT_EDGES
+            stablelm, paligemma] + SPLIT_EDGES
     for h, kv in ((4, 4), (8, 2), (8, 1)):
         for window, softcap in ((0, 0.0), (3, 0.0), (0, 5.0), (3, 5.0)):
             grid.append(dict(b=3, h=h, kv=kv, d=64, page=16, n=6, p_phys=32,
@@ -369,10 +408,13 @@ def phase_kernel_check(pa) -> float:
             ok = err_o <= t_o and err_m <= t_m and err_sum <= 1e-5
             if case.get("state_col"):     # the state page is never read
                 ok = ok and not bool(mass[:, -1].any())
+            if case.get("shared"):        # every live row reads the prefix
+                ok = ok and bool((mass[active, : case["shared"]] > 0).all())
             plan = _plan(pa, case)
             print(f"case {i} {str(dtype)[6:]} H={case['h']} KV={case['kv']} "
                   f"D={case['d']} n={case['n']} lengths {case['lengths']} "
-                  f"holes {list(case.get('holes', ()))} (pages a split, "
+                  f"holes {list(case.get('holes', ()))} shared columns "
+                  f"{case.get('shared', 0)} (pages a split, "
                   f"splits, head groups) {plan} "
                   f"window={case.get('window', 0)} "
                   f"softcap={case.get('softcap', 0.0)}: out err {err_o:.3g} "
@@ -405,7 +447,7 @@ def _reset_counts(kernels) -> None:
 def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
                n_logical=256, hbm_pages=128, max_len=1024, n_req=8,
                prompt=(128, 513), new=(48, 97), access_threshold=0.05,
-               eager=False, between=None, cond=None):
+               eager=False, between=None, cond=None, extra_embeds=None):
     """Serve a request mix with the macro-step batcher over
     ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner`` until
     drained, with every kernel's launch count set to 0 just before:
@@ -418,7 +460,8 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     and the card give it (printed).  ``between``, if given, takes the
     batcher and returns a callable that is called with it after every
     scheduler step.  ``cond`` is the session's conditioning (``.xattn``
-    configs).
+    configs), ``extra_embeds`` its shared prefix (``prefix_len``
+    configs: the demand fetches of the prefix pages are counted).
     Prints and checks what every served model shares, and the merged
     page masses the monitor saw (the access threshold is set from them);
     returns (batcher, result, rng, requests), the result with the route's
@@ -437,7 +480,20 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     t0 = time.monotonic()
     b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=4,
                             max_len=max_len, page_size=page, eager=eager,
-                            cond=cond)
+                            cond=cond, extra_embeds=extra_embeds)
+    prefix_pages = (cfg.prefix_len or 0) // page
+    fetches = {"all": 0, "prefix": 0}
+    if prefix_pages:
+        ensure = pools.ensure_resident
+
+        def counted(gids):
+            gids = np.asarray(gids)
+            fetches["prefix"] += int(
+                (pools.slot_of[gids[gids < prefix_pages]] < 0).sum())
+            n = ensure(gids)
+            fetches["all"] += n
+            return n
+        pools.ensure_resident = counted
     torch.cuda.synchronize()
     print(f"route {b.route} (eager asked: {eager}; graph capture included: "
           f"batcher built in {time.monotonic() - t0:.2f} s)", flush=True)
@@ -511,6 +567,12 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
           f"above the access threshold {access_threshold}", flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory {peak_gb:.2f} GB", flush=True)
+    if prefix_pages:
+        print(f"shared prefix: {prefix_pages} pages (owner -1, never ranked "
+              f"into the desired set): {fetches['prefix']} of the "
+              f"{fetches['all']} demand-fetched pages (misses "
+              f"{mgr.misses}) were prefix pages evicted by a tier and "
+              "fetched back", flush=True)
 
     if sorted(out) != list(range(n_req)):
         _fail(f"not every request completed: {sorted(out)}")
@@ -524,7 +586,7 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
         _fail("no decode step ran")
     if not all(math.isfinite(c) for c in tuner.cost_log):
         _fail("non-finite tuner cost")
-    if pools.free_pages != n_logical:
+    if pools.free_pages != n_logical - prefix_pages:
         _fail("pages leaked after the drain")
     telemetry.install(telemetry.Recorder())
     result = dict(route=b.route, tokens=n_tok, wall_s=wall,
@@ -535,6 +597,10 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
                   first_joiners=admits[0]["joiners"] if admits else 0)
     same = dict(streams=out, migrations=mgr.migrations, hits=mgr.hits,
                 misses=mgr.misses, tuner_history=list(tuner.history))
+    if prefix_pages:
+        result.update(prefix_fetched=fetches["prefix"],
+                      fetched=fetches["all"])
+        same["prefix_fetched"] = fetches["prefix"]
     return b, result, same, rng, reqs
 
 
@@ -703,17 +769,18 @@ def _parity(cfg, mdl, S, memtier, cori, engine) -> dict:
     """On a small float32 config: the batcher's greedy streams (macro and
     per-token, staggered admission over two rows) equal ``generate``'s
     (dense decode, no kernel), both given the same conditioning
-    (``_session_cond``) when the config has one.  Returns ``generate``'s
-    streams."""
+    (``_session_cond``) and shared prefix (``_session_prefix``) when the
+    config has one.  Returns ``generate``'s streams."""
     params = mdl.init(cfg, seed=SEED)
     _perturb_conv(params)
     cond = _session_cond(cfg)
+    ex = _session_prefix(cfg)
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (6, 9, 5, 11)]
     new = (6, 4, 9, 7)
     ref = {i: engine.generate(params, cfg, p[None], steps=new[i],
-                              cond=cond)[0].tolist()
+                              cond=cond, extra_embeds=ex)[0].tolist()
            for i, p in enumerate(prompts)}
     for macro in (True, False):
         mon = S.TrafficMonitor(
@@ -724,7 +791,7 @@ def _parity(cfg, mdl, S, memtier, cori, engine) -> dict:
                              trial_steps=4))
         b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=2,
                                 max_len=32, page_size=4, macro=macro,
-                                cond=cond)
+                                cond=cond, extra_embeds=ex)
         for i in (0, 1):
             b.submit(S.Request(rid=i, prompt=prompts[i],
                                max_new_tokens=new[i]))
@@ -838,7 +905,9 @@ def _ms_list(named):
 # the paged kernel's served decode shapes (float32): qwen3-14b's (phase 4),
 # gemma3-12b's sliding-window layers (phase 15, 40 of its 48 launches a
 # step), recurrentgemma-2b's local layers (phase 18), olmoe-1b-7b's (phase
-# 23), musicgen-large's (phase 24) and nemotron-4-340b's (phase 25)
+# 23), musicgen-large's (phase 24), nemotron-4-340b's (phase 25) and
+# paligemma-3b's (phase 27: 8/1 heads of 256, the first 16 columns of
+# every row the shared prefix pages; full rows, 8.4 MB of k/v)
 PAGED_SHAPES = {
     "qwen3-14b": dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
                       lengths=[1024, 777, 513, 301]),
@@ -852,6 +921,8 @@ PAGED_SHAPES = {
                            p_phys=256, lengths=[1024, 777, 513, 301]),
     "nemotron-4-340b": dict(b=4, h=96, kv=8, d=192, page=16, n=64,
                             p_phys=256, lengths=[1024, 777, 513, 301]),
+    "paligemma-3b": dict(b=4, h=8, kv=1, d=256, page=16, n=64, p_phys=256,
+                         shared=16, lengths=[1024, 1024, 1024, 1024]),
 }
 
 
@@ -901,7 +972,10 @@ def phase_timing(pa):
         lib_dev_ms, lib_how, lib_names = _device_ms(sdpa, 50, flush)
 
         rows = sum(min(x, window) if window else x for x in lengths)
-        kv_bytes = 2 * rows * kv * d * 4
+        # a shared page is an input read once, however many rows map it
+        span = [min(x, case.get("shared", 0) * page) for x in lengths]
+        read = rows - sum(span) + max(span)
+        kv_bytes = 2 * read * kv * d * 4
         io_bytes = (b * h * d * 4 * 2 + b * n * 4        # q + out, mass
                     + b * n * 4 + b * 4)                 # table, lengths
         flops = 4 * rows * h * d
@@ -921,7 +995,7 @@ def phase_timing(pa):
               f"{library_ms:.4f} ms a call, {lib_dev_ms:.4f} ms on the "
               f"device ({lib_how}: {_ms_list(lib_names)}); bound "
               f"{bound_ms:.4f} ms "
-              f"({bound_by}: {rows} attended rows, "
+              f"({bound_by}: {rows} attended rows, {read} distinct, "
               f"{(kv_bytes + io_bytes) / 1e6:.2f} MB at 3.35 TB/s; "
               f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s) -> "
               f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
@@ -2213,6 +2287,18 @@ def _session_cond(cfg):
                        generator=g, device=DEV)
 
 
+def _session_prefix(cfg):
+    """A serving session's shared prefix [1, prefix_len, d_model] drawn
+    N(0, 1) from the seed on the card (the SigLIP tower that would make
+    it is a stub in the reference too), or None for a config without
+    one."""
+    if not cfg.prefix_len:
+        return None
+    g = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    return torch.randn((1, cfg.prefix_len, cfg.d_model), generator=g,
+                       device=DEV)
+
+
 def _cross_kv_ms(params, cond, rows, step_ms) -> dict:
     """One decode step's cross-attention K/V projections alone on the
     device: every ``.xattn`` layer's conditioning rows [rows, T, cond_dim]
@@ -2310,6 +2396,243 @@ def phase_cond_parity(C, mdl, S, memtier, cori, engine):
                 cori, engine)
 
 
+# ---------------------------------------------------------------------------
+# shared prefix pages and the single-stream tiered path: paligemma-3b
+# ---------------------------------------------------------------------------
+
+# paligemma-3b's access threshold: under near-uniform attention (random
+# weights) a row spreads its layer-averaged mass over the 16 prefix pages
+# and its 8-40 own pages, ~0.02-0.04 a page (merged: 0.005-0.038, p50
+# 0.024 on an H100 at full width), below the default of 0.05, where no
+# page would count as accessed and the tuner would never leave its
+# profile window.  0.01 counts a page as accessed while its row attends
+# it (phase 27 prints the merged masses it saw)
+PALIGEMMA_ACCESS_THRESHOLD = 0.01
+# the single-stream path (phase 28): 4 prompts of 16 tokens after the
+# prefix, 48 decode steps, pages of 16 (examples/serve_tiered.py's loop)
+STREAM_BATCH, STREAM_PROMPT, STREAM_STEPS, STREAM_PAGE = 4, 16, 48, 16
+
+
+def phase_paligemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
+    print("== phase 27: full-width paligemma-3b serving (shared prefix "
+          "pages, bidirectional prefix, macro-step batcher)", flush=True)
+    cfg, params = _init_full(C, mdl, "paligemma-3b")
+    ex = _session_prefix(cfg)
+    page_bytes = 2 * cfg.num_layers * 16 * cfg.num_kv_heads * cfg.head_dim * 4
+    print(f"prefix {tuple(ex.shape)} drawn N(0, 1) from the seed (the "
+          f"SigLIP tower is a stub): {cfg.prefix_len // 16} shared pages of "
+          f"16, each {page_bytes / 2 ** 10:.0f} KiB of k and v over "
+          f"{cfg.num_layers} layers; tied embedding "
+          f"{cfg.vocab_size * cfg.d_model * 4 / 1e9:.2f} GB", flush=True)
+
+    def check(b, result, eager):
+        result["launches"] = pa.paged_attention.launches
+        _check_launches("paged_attention", result["launches"],
+                        cfg.num_layers, b, eager)
+        if fa.flash_attention.launches:
+            _fail("paligemma-3b (attention_impl 'reference': the flash "
+                  "kernel has no prefix-LM mask) launched the flash kernel")
+        mgr, tuner = b.monitor.manager, b.monitor.tuner
+        if mgr.hits <= 0 or tuner.dominant_reuse is None:
+            _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
+                  f"reuse {tuner.dominant_reuse} (the tuner never left "
+                  "profile)")
+
+    results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
+                               kernels, check, n_logical=512,
+                               access_threshold=PALIGEMMA_ACCESS_THRESHOLD,
+                               extra_embeds=ex)
+    return cfg, params, ex, results
+
+
+def phase_single_stream(mdl, pa, memtier, engine, cfg, params, ex) -> dict:
+    """The port's counterpart of examples/serve_tiered.py at full width,
+    on phase 27's parameters and prefix."""
+    print("== phase 28: the single-stream tiered path at full width "
+          "(paligemma-3b: monitored_generate, cori_tune_period, a physical "
+          "pass over PagedPools, the online tuner in the loop)", flush=True)
+    import torch.nn.functional as F
+    from repro_torch.memtier import workload as TW
+    page, steps = STREAM_PAGE, STREAM_STEPS
+    rng = np.random.default_rng(SEED + 3)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (STREAM_BATCH, STREAM_PROMPT)).astype(np.int32)
+    rows = ex.expand((STREAM_BATCH,) + tuple(ex.shape[1:]))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    toks, mass = engine.monitored_generate(params, cfg, prompts, steps,
+                                           page_size=page, extra_embeds=rows)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n_pages = mass.shape[1]
+    sums = mass.sum(axis=1)
+    print(f"monitored_generate: {STREAM_BATCH} x {steps} tokens in "
+          f"{wall:.2f} s ({STREAM_BATCH * steps / wall:.1f} tokens/s, prefill "
+          f"and the monitor included), masses {mass.shape[0]} steps x "
+          f"{n_pages} pages, per-step sums {sums.min():.3f}-{sums.max():.3f} "
+          f"(bounds (0.5, {2 * cfg.num_heads}])", flush=True)
+    if tuple(toks.shape) != (STREAM_BATCH, steps) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        _fail(f"monitored_generate gave tokens {tuple(toks.shape)}")
+    if mass.shape != (steps - 1, -(-(cfg.prefix_len + STREAM_PROMPT + steps)
+                                   // page)):
+        _fail(f"monitored_generate gave masses {mass.shape}")
+    if not (np.isfinite(mass).all() and (mass >= 0).all()
+            and (sums <= 2 * cfg.num_heads + 1e-3).all()
+            and (sums > 0.5).all()):
+        _fail("the monitor's masses are not probability-like")
+
+    tc = memtier.TierConfig(page_size=page, hbm_pages=max(2, n_pages // 4),
+                            period_steps=4)
+    res, dr = memtier.cori_tune_period(mass, tc)
+    fixed = {p: memtier.replay(mass, dataclasses.replace(
+        tc, period_steps=p)).modeled_time for p in (1, 4, 16)}
+    print(f"Cori: dominant reuse {dr:.1f} decode steps, chose period "
+          f"{res.chosen_period:.0f} in {res.trials} trials (modeled time "
+          f"{res.chosen_runtime:.0f}); fixed periods 1 / 4 / 16: "
+          + " / ".join(f"{t:.0f}" for t in fixed.values())
+          + f" ({tc.hbm_pages} of {n_pages} pages in HBM)", flush=True)
+
+    # the monitor layer's own k/v (its last repeat), row 0's timeline cut
+    # into pages: the host tier of the physical pass
+    si, sj = engine.monitor_slot(cfg)
+    full = torch.cat([torch.as_tensor(prompts[:1], dtype=torch.int64,
+                                      device=DEV), toks[:1, :-1]], dim=1)
+    _, cache = mdl.prefill(params, cfg, full, extra_embeds=ex)
+    c = cache["segments"][si][sj]
+    pad = n_pages * page - c["k"].shape[2]
+    host = [F.pad(c[n][-1, 0], (0, 0, 0, 0, 0, pad)).reshape(
+        (n_pages, page) + tuple(c[n].shape[3:])).contiguous()
+        for n in ("k", "v")]
+    del cache, c
+
+    def physical(name, seq, period):
+        """A physical pass over fresh pools of those pages; fails unless
+        its accounting equals the symbolic replay's and every resident
+        HBM page equals its host page bit for bit."""
+        cfg_p = dataclasses.replace(tc, period_steps=period)
+        pools = memtier.PagedPools.create(host[0].clone(), host[1].clone(),
+                                          tc.hbm_pages)
+        mgr = memtier.TieringManager(n_pages, cfg_p)
+        t0 = time.monotonic()
+        for t in range(seq.shape[0]):
+            mgr.on_step(seq[t], memtier.resident_mask(mgr, pools))
+            pools = mgr.maybe_tier(pools)
+        torch.cuda.synchronize()
+        pass_s = time.monotonic() - t0
+        sym = memtier.replay(seq, cfg_p)
+        same = all(getattr(mgr, k) == getattr(sym, k) for k in (
+            "migrations", "modeled_time", "data_moved_pages", "hits",
+            "misses"))
+        resident = np.nonzero(pools.slot_of >= 0)[0]
+        slot = torch.as_tensor(pools.slot_of[resident].astype(np.int64),
+                               device=DEV)
+        gid = torch.as_tensor(resident, device=DEV)
+        bit_equal = (torch.equal(pools.k_hbm[slot], pools.k_host[gid])
+                     and torch.equal(pools.v_hbm[slot], pools.v_host[gid]))
+        print(f"physical pass ({name}) at period {period}: "
+              f"{mgr.migrations} page swaps, {mgr.data_moved_pages} pages "
+              f"moved, resident {resident.tolist()} at slots "
+              f"{pools.slot_of[resident].tolist()}, in {pass_s * 1e3:.1f} "
+              f"ms; accounting == the symbolic replay: {same}; every "
+              f"resident HBM page bit-equal to its host page: {bit_equal}",
+              flush=True)
+        if not (same and bit_equal):
+            _fail(f"the physical pass ({name}) disagrees with the symbolic "
+                  "replay, or an HBM page differs from its host page")
+        return mgr, pools, resident, slot, gid
+
+    period = max(1, int(res.chosen_period))
+    physical("the monitor's masses, Cori's period", mass, period)
+    # a drifting sink-and-window pattern over the same pages, which must
+    # move some of them (under near-uniform attention the monitor's
+    # masses may rank every page alike and move none)
+    sink = TW.attention_sink(steps - 1, n_pages, drift_every=1,
+                             seed=SEED)
+    mgr, pools, resident, slot, gid = physical(
+        "workload.attention_sink", sink, 1)
+    if mgr.migrations <= 0:
+        _fail("the attention_sink pass moved no page")
+
+    # kernel 1 over the HBM tier through slot_of == its plain version over
+    # the host tier through the logical ids, on the resident pages
+    g = torch.Generator(device=DEV).manual_seed(SEED + 37)
+    q = torch.randn((1, cfg.num_heads, cfg.head_dim), generator=g,
+                    device=DEV)
+    ln = torch.tensor([len(resident) * page], dtype=torch.int32, device=DEV)
+    out, m = pa.paged_attention(q, pools.k_hbm, pools.v_hbm,
+                                slot.to(torch.int32)[None], ln)
+    ref_o, ref_m = pa.paged_attention_plain(q, pools.k_host, pools.v_host,
+                                            gid.to(torch.int32)[None], ln)
+    err = max(float((out - ref_o).abs().max()),
+              float((m - ref_m).abs().max()))
+    print(f"paged_attention over the HBM tier after the attention_sink "
+          f"pass (slots "
+          f"{pools.slot_of[resident].tolist()}) vs its plain version over "
+          f"the host pages (ids {resident.tolist()}): err {err:.3g} (tol "
+          "1e-5)", flush=True)
+    if not err <= 1e-5:
+        _fail("the kernel over the tiered pool disagrees with its plain "
+              "version over the host pages")
+
+    # examples/serve_tiered.py --online: the tiering and an online tuner
+    # in the decode loop, through on_mass
+    from repro_torch.core.cori import OnlineTuner
+    pools = memtier.PagedPools.create(host[0].clone(), host[1].clone(),
+                                      tc.hbm_pages)
+    mgr = memtier.TieringManager(n_pages, tc)
+    tuner = OnlineTuner(n_pages, default_period=tc.period_steps,
+                        profile_steps=max(8, steps // 4),
+                        trial_steps=max(4, steps // 8),
+                        access_threshold=tc.access_threshold)
+
+    def on_mass(i, mass_i):
+        nonlocal pools
+        before = mgr.modeled_time
+        mgr.on_step(mass_i, pools.slot_of >= 0)
+        pools = mgr.maybe_tier(pools)
+        mgr.set_period(tuner.on_step(mass_i, cost=mgr.modeled_time - before))
+
+    toks2, mass2 = engine.monitored_generate(
+        params, cfg, prompts, steps, page_size=page, extra_embeds=rows,
+        on_mass=on_mass)
+    online_same = bool(torch.equal(toks2, toks)) and bool(
+        np.abs(mass2 - mass).max() <= 1e-5)
+    print(f"online: state {tuner.state}, period {tuner.period}, dominant "
+          f"reuse {tuner.dominant_reuse}, {len(tuner.tried)} live trials, "
+          f"{tuner.retunes} tune cycles, history {tuner.history}; tiering "
+          f"{mgr.migrations} swaps, {mgr.data_moved_pages} pages moved, "
+          f"modeled time {mgr.modeled_time:.0f}; tokens equal and masses "
+          f"within 1e-5 of the offline run: {online_same}", flush=True)
+    if not online_same:
+        _fail("the online run's tokens or masses differ from the offline "
+              "run's")
+    return dict(tokens_per_s=STREAM_BATCH * steps / wall, n_pages=n_pages,
+                dominant_reuse=float(dr), period=float(res.chosen_period),
+                trials=res.trials, chosen_time=float(res.chosen_runtime),
+                fixed_time=fixed, online_migrations=mgr.migrations,
+                kernel_err=err)
+
+
+def phase_prefix_parity(C, mdl, S, memtier, cori, engine):
+    print("== phase 29: parity on the card (reduced paligemma-3b with its "
+          "prefix, float32)", flush=True)
+    cfg = dataclasses.replace(C.reduced("paligemma-3b"), dtype="float32")
+    _parity(cfg, mdl, S, memtier, cori, engine)
+    params = mdl.init(cfg, seed=SEED)
+    ex = _session_prefix(cfg).expand(2, -1, -1)
+    prompts = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    toks, mass = engine.monitored_generate(params, cfg, prompts, 8,
+                                           page_size=4, extra_embeds=ex)
+    want = engine.generate(params, cfg, prompts, 8, extra_embeds=ex)
+    same = bool(torch.equal(toks, want))
+    print(f"monitored_generate's tokens == generate's: {same} (masses "
+          f"{mass.shape})", flush=True)
+    if not same:
+        _fail("monitored_generate's tokens differ from generate's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is visible", flush=True)
@@ -2400,13 +2723,25 @@ def main() -> int:
                      memtier, cori, telemetry, kernels)
     timed("conditioning parity", phase_cond_parity, C, mdl, S, memtier, cori,
           engine)
+    pcfg, params, ex, paligemma = timed(
+        "paligemma serving", phase_paligemma, C, mdl, pa, fa, S, memtier,
+        cori, telemetry, kernels)
+    paligemma["graph"]["single_stream"] = timed(
+        "single-stream tiered path", phase_single_stream, mdl, pa, memtier,
+        engine, pcfg, params, ex)
+    held = torch.cuda.memory_allocated()
+    del params, ex
+    _check_freed(held)
+    timed("prefix parity", phase_prefix_parity, C, mdl, S, memtier, cori,
+          engine)
     main_case = flash_timing.pop("float32 window 1024")
     musicgen_flash = flash_timing.pop("musicgen-large prefill float32 causal")
     main_routed = routed.pop("deepseek-v3-671b")
     print(f"card: {card}; serving {serve}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
           f"{xlstm}; olmoe {olmoe}; musicgen {musicgen}; nemotron "
-          f"{nemotron}; flash timing beside float32 window "
+          f"{nemotron}; paligemma {paligemma}; flash timing beside float32 "
+          f"window "
           f"1024: {flash_timing}; phase seconds {secs}", flush=True)
     print(json.dumps({"kernels": [
         dict(name="paged_attention", route="cuda",
@@ -2431,7 +2766,10 @@ def main() -> int:
                  launches=musicgen["graph"]["launches"]),
                  "nemotron-4-340b decode (phase 25)": dict(
                  timing["nemotron-4-340b"],
-                 launches=nemotron["graph"]["launches"])}),
+                 launches=nemotron["graph"]["launches"]),
+                 "paligemma-3b decode (phase 27)": dict(
+                 timing["paligemma-3b"],
+                 launches=paligemma["graph"]["launches"])}),
         dict(name="page_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/page_hist.cu",
              replaces="src/repro/kernels/page_hist.py:45",

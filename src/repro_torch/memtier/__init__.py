@@ -2,11 +2,13 @@
 ``repro/memtier/__init__.py`` for the k/v and MLA geometries).
 
 ``replay`` drives a ``TieringManager`` over a per-step page-mass sequence
-on symbolic residency; ``cori_tune_period`` runs the offline Cori loop
-(profile -> DR -> candidate ladder -> trial replays) against it and
-``AdaptiveTuner`` re-runs that loop when the hit rate drifts;
-``online_replay`` puts an ``OnlineTuner`` in the loop instead.  The
-reference's physical replay path (``PagedPools``) is not ported."""
+(the masses ``serve.engine.monitored_generate`` returns, or a synthetic
+pattern from ``workload``), on symbolic residency or, given
+``PagedPools``, moving one layer's k/v pages between the tiers;
+``cori_tune_period`` runs the offline Cori loop (profile -> DR ->
+candidate ladder -> trial replays) against it and ``AdaptiveTuner``
+re-runs that loop when the hit rate drifts; ``online_replay`` puts an
+``OnlineTuner`` in the loop instead."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,13 +18,15 @@ import numpy as np
 
 from repro_torch.core import cori
 from repro_torch.core.sim import interleaved_indices
-from repro_torch.memtier.tiering import (PAGE_DROP, SharedPagedPools,
-                                         TierConfig, TieringManager,
-                                         bucket_pages, write_pages_batched)
+from repro_torch.memtier.tiering import (PAGE_DROP, PagedPools,
+                                         SharedPagedPools, TierConfig,
+                                         TieringManager, bucket_pages,
+                                         write_pages_batched)
 
-__all__ = ["PAGE_DROP", "SharedPagedPools", "TierConfig", "TieringManager",
-           "bucket_pages", "write_pages_batched", "replay", "online_replay",
-           "cori_tune_period", "AdaptiveTuner", "interleaved_resident"]
+__all__ = ["PAGE_DROP", "PagedPools", "SharedPagedPools", "TierConfig",
+           "TieringManager", "bucket_pages", "write_pages_batched", "replay",
+           "online_replay", "cori_tune_period", "AdaptiveTuner",
+           "interleaved_resident", "resident_mask"]
 
 
 def interleaved_resident(n: int, hbm_pages: int) -> np.ndarray:
@@ -32,16 +36,33 @@ def interleaved_resident(n: int, hbm_pages: int) -> np.ndarray:
     return resident
 
 
-def replay(page_mass_seq: np.ndarray, cfg: TierConfig) -> TieringManager:
+def resident_mask(mgr: TieringManager,
+                  pools: Optional[PagedPools]) -> np.ndarray:
+    """The pages resident in HBM: ``pools.slot_of >= 0``, none without
+    pools."""
+    if pools is None:
+        return np.zeros(mgr.n, bool)
+    return pools.slot_of >= 0
+
+
+def replay(page_mass_seq: np.ndarray, cfg: TierConfig,
+           pools: Optional[PagedPools] = None) -> TieringManager:
     """Run the tiering loop over a [steps, n_logical] attention-mass
-    sequence, tracking residency symbolically (no physical copies) -- the
-    fast period trials of ``cori_tune_period``."""
+    sequence.  Without ``pools`` residency is tracked symbolically (no
+    copies: the fast period trials of ``cori_tune_period``); with them
+    every tier migrates the pages' bytes (``TieringManager.maybe_tier``),
+    under the same swap rule and accounting."""
     steps, n = page_mass_seq.shape
     mgr = TieringManager(n, cfg)
-    resident = interleaved_resident(n, cfg.hbm_pages)
+    if pools is None:
+        resident = interleaved_resident(n, cfg.hbm_pages)
     for t in range(steps):
-        mgr.on_step(page_mass_seq[t], resident)
-        mgr.maybe_tier_symbolic(resident)
+        if pools is None:
+            mgr.on_step(page_mass_seq[t], resident)
+            mgr.maybe_tier_symbolic(resident)
+        else:
+            mgr.on_step(page_mass_seq[t], resident_mask(mgr, pools))
+            pools = mgr.maybe_tier(pools)
     return mgr
 
 

@@ -7,7 +7,9 @@ Mapping (the paper's hybrid memory onto the serving engine):
     PMEM            -> host backing store   (all logical pages)
     page scheduler  -> ``TieringManager.maybe_tier`` every ``period`` steps
     accessed bits   -> per-page attention mass from the decode step
-    move_pages()    -> ``SharedPagedPools.migrate_slots``
+    move_pages()    -> ``SharedPagedPools.migrate_slots`` (the serving
+                       pools) / ``PagedPools.migrate_slots`` (one layer's
+                       k/v pages, the single-stream physical replay)
     Cori            -> ``core.cori.OnlineTuner`` tuning ``period``
 
 The bookkeeping (slot tables, allocator, EMA ranking, swap plans, modeled
@@ -24,17 +26,18 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import ClassVar, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import cori, reuse
+from repro_torch.core.sim import interleaved_indices
 from repro_torch.ft.inject import MigrationError, NULL_PLAN
 from repro_torch.obs import telemetry as _obs
 
-__all__ = ["TierConfig", "TieringManager", "SharedPagedPools",
+__all__ = ["TierConfig", "TieringManager", "PagedPools", "SharedPagedPools",
            "bucket_pages", "write_pages_batched", "write_state_pages",
            "PAGE_DROP"]
 
@@ -70,6 +73,52 @@ class TierConfig:
 
 #: padding entry of a page-index matrix: rows holding it are not written
 PAGE_DROP = np.int32(2 ** 30)
+
+
+@dataclasses.dataclass
+class PagedPools:
+    """Physical k/v page pools of one layer for a single stream: the host
+    tier holds every logical page, the HBM tier the resident working set,
+    both on the tensors' device.  ``slot_of[logical] == -1`` means
+    host-only."""
+    k_host: torch.Tensor           # [n_logical, page, kv, d]
+    v_host: torch.Tensor
+    k_hbm: torch.Tensor            # [hbm_pages, page, kv, d]
+    v_hbm: torch.Tensor
+    slot_of: np.ndarray            # int32[n_logical] -> hbm slot | -1
+    page_of_slot: np.ndarray       # int32[hbm_pages] -> logical | -1
+    #: bumped whenever slot_of changes (page-table caches key on it)
+    slot_epoch: int = 0
+    #: leaves moved per page migration (tier.move accounting): k and v
+    move_planes: ClassVar[int] = 2
+
+    @classmethod
+    def create(cls, k_pages, v_pages, hbm_pages: int) -> "PagedPools":
+        """Interleaved initial residency (paper SII-B initial placement):
+        the HBM tier starts as copies of the interleaved pages."""
+        n = k_pages.shape[0]
+        init = interleaved_indices(n, hbm_pages).astype(np.int32)
+        slot_of = np.full((n,), -1, np.int32)
+        slot_of[init] = np.arange(hbm_pages)
+        at = torch.as_tensor(init.astype(np.int64), device=k_pages.device)
+        return cls(k_host=k_pages, v_host=v_pages, k_hbm=k_pages[at],
+                   v_hbm=v_pages[at], slot_of=slot_of,
+                   page_of_slot=init.copy())
+
+    def touch_slots(self, slots: np.ndarray) -> None:
+        """No-op: a single stream's pool has no demand-fetch path, so slot
+        recency is not kept (``SharedPagedPools`` keeps it)."""
+
+    def migrate_slots(self, slots, logicals) -> None:
+        """Copy host pages ``logicals`` into HBM ``slots`` (k and v), in
+        place."""
+        if len(slots) == 0:
+            return
+        dev = self.k_hbm.device
+        sl = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
+        lg = torch.as_tensor(np.asarray(logicals, np.int64), device=dev)
+        self.k_hbm.index_copy_(0, sl, self.k_host.index_select(0, lg))
+        self.v_hbm.index_copy_(0, sl, self.v_host.index_select(0, lg))
 
 
 class SharedPagedPools:
@@ -505,7 +554,8 @@ class TieringManager:
             r.count("tier.pages_moved", planes * int(n_mig))
         return bring, evict
 
-    def apply_plan(self, pools: SharedPagedPools, bring: np.ndarray,
+    def apply_plan(self, pools: SharedPagedPools | PagedPools,
+                   bring: np.ndarray,
                    evict: np.ndarray) -> None:
         """Actuate a ``plan_tier`` decision on the live pools: pages a
         demand fetch already made resident, or evictions already gone, are
@@ -547,9 +597,9 @@ class TieringManager:
                        detail=str(e))
                 r.count("tier.moves_failed")
 
-    def maybe_tier(self, pools: SharedPagedPools,
+    def maybe_tier(self, pools: SharedPagedPools | PagedPools,
                    active: Optional[np.ndarray] = None,
-                   force: bool = False) -> SharedPagedPools:
+                   force: bool = False) -> SharedPagedPools | PagedPools:
         """Tier if a boundary is due (``force=True``: the macro loop wakes
         the host once per period, so every wakeup is a boundary)."""
         n_free = int((pools.page_of_slot < 0).sum())

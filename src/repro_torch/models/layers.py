@@ -73,12 +73,16 @@ def mlp_apply(p, r: int, cfg: ModelConfig, x):
     return h @ p.w_down[r]
 
 
-def causal_mask(q_pos, k_pos, window: int = 0):
+def causal_mask(q_pos, k_pos, window: int = 0, prefix_len: int = 0):
     """Boolean [.., Q, K] causal mask; ``window > 0`` -> sliding window
-    (key k visible from query q iff q - window < k <= q)."""
+    (key k visible from query q iff q - window < k <= q); ``prefix_len >
+    0`` -> a bidirectional prefix (PaliGemma's image tokens): every query,
+    a prefix query included, sees every key below ``prefix_len``."""
     m = k_pos[..., None, :] <= q_pos[..., :, None]
     if window > 0:
         m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    if prefix_len > 0:
+        m |= k_pos[..., None, :] < prefix_len
     return m
 
 
@@ -125,12 +129,13 @@ def attention_apply(p, r: int, cfg: ModelConfig, x, positions, *,
     ``cfg.attention_impl == "pallas"`` routes the attention through
     ``ops.flash_attention(causal=True, window=window)`` (the reference's
     docstring puts its flash kernel here); otherwise ``sdpa`` runs over
-    ``causal_mask(positions, positions, window)``.  The kernel counts
-    query and key positions from 0, takes no query offset and has no
-    soft-cap, so that route serves self-attention over ``positions``
-    0..S-1 without ``cfg.softcap``: what forward, prefill and
-    prefill_batched pass (chunked prefill over a ``past`` is not
-    ported)."""
+    ``causal_mask(positions, positions, window, cfg.prefix_len)``.  The
+    kernel counts query and key positions from 0, takes no query offset
+    and has no soft-cap and no prefix-LM mask, so that route serves
+    self-attention over ``positions`` 0..S-1 without ``cfg.softcap`` or
+    ``cfg.prefix_len`` (``model.check_supported`` refuses both): what
+    forward, prefill and prefill_batched pass (chunked prefill over a
+    ``past`` is not ported)."""
     q, k, v = _qkv(p, r, cfg, x, positions)
     b, s = x.shape[:2]
     if cfg.attention_impl == "pallas":
@@ -143,8 +148,8 @@ def attention_apply(p, r: int, cfg: ModelConfig, x, positions, *,
                              f"0..S-1, not {tuple(positions.shape)}")
         out = ops.flash_attention(q, k, v, causal=True, window=window)
     else:
-        out = sdpa(q, k, v, causal_mask(positions, positions, window),
-                   cfg.softcap)
+        out = sdpa(q, k, v, causal_mask(positions, positions, window,
+                                        cfg.prefix_len), cfg.softcap)
     return out.reshape(b, s, -1) @ p.wo[r], (k, v)
 
 

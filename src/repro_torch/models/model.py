@@ -28,8 +28,10 @@ nothing to the page mass), then a SwiGLU, GELU or squared-ReLU MLP, a
 routed MoE (``models.moe``) or, with ``d_ff == 0`` and no MoE, nothing.
 With ``cfg.attention_impl == "pallas"`` the sequence passes (forward,
 prefill, prefill_batched) run self-attention through the flash kernel.
-Configs that need another layer feature raise ``NotImplementedError``
-naming the later slice (ROADMAP Queue 1 item 8).
+A ``prefix_len`` config (PaliGemma) takes its prefix embeddings as
+``extra_embeds`` [B, P, d] at the sequence passes, prepended unscaled to
+the token embeddings and attended bidirectionally (``causal_mask``); the
+decode paths see it only as cache rows or pages.
 """
 from __future__ import annotations
 
@@ -59,16 +61,16 @@ __all__ = ["Slot", "CrossAttention", "Transformer", "init", "forward",
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a shared prefix (``prefix_len``),
-    naming the slice of the port that brings it, and for what the flash
-    kernel cannot take under ``attention_impl == "pallas"`` (checked only
-    for configs with attention slots: the setting routes nothing in the
-    others)."""
+    """Raise ``NotImplementedError`` for a shared prefix (``prefix_len``)
+    beside recurrent cells (its pages cannot seed a cell's state, and no
+    registered config has both; the reference batcher refuses it too) and
+    for what the flash kernel cannot take under ``attention_impl ==
+    "pallas"`` (checked only for configs with attention slots: the
+    setting routes nothing in the others)."""
     kinds = {parse_kind(s) for pat, _ in cfg.segments for s in pat}
-    if cfg.prefix_len:
+    if cfg.prefix_len and any(k.is_recurrent for k in kinds):
         raise NotImplementedError(
-            f"{cfg.name}: the torch port does not serve shared prefix pages "
-            "(Queue 1 item 8.5) yet")
+            f"{cfg.name}: a shared prefix cannot seed recurrent state")
     if cfg.attention_impl not in ("reference", "pallas"):
         raise ValueError(f"attention_impl is 'reference' or 'pallas', not "
                          f"{cfg.attention_impl!r}")
@@ -83,6 +85,11 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: attention_impl='pallas' cannot take "
                 "softcap > 0 (the flash kernel has no soft-capping)")
+        if cfg.prefix_len:
+            raise NotImplementedError(
+                f"{cfg.name}: attention_impl='pallas' cannot take a "
+                f"prefix (prefix_len {cfg.prefix_len}: the flash kernel has "
+                "no prefix-LM mask)")
         if cfg.head_dim not in HEAD_DIMS:
             raise NotImplementedError(
                 f"{cfg.name}: attention_impl='pallas' cannot take head dim "
@@ -301,8 +308,9 @@ def _run_seq(params, cfg: ModelConfig, x, positions, cond=None):
     """All layers over a sequence; returns (x, per-slot lists of cache
     entries in repeat order -- {"k", "v"}, MLA {"ckv", "krope"} or a
     recurrent cell's final state --, the summed MoE aux loss).  Local
-    slots attend through a sliding window, the others causally; ``.xattn``
-    slots attend ``cond`` [B, T, cond_dim] too."""
+    slots attend through a sliding window, the others causally, every
+    attention kind with ``cfg.prefix_len``'s bidirectional prefix;
+    ``.xattn`` slots attend ``cond`` [B, T, cond_dim] too."""
     cond = _cond(cond, x)
     masks = {}          # MLA's, by window; attention_apply builds its own
     entries: List[List] = [[] for _ in state_slot_meta(cfg)]
@@ -316,7 +324,7 @@ def _run_seq(params, cfg: ModelConfig, x, positions, cond=None):
             if slot.kind.mla:
                 if window not in masks:
                     masks[window] = L.causal_mask(positions, positions,
-                                                  window)
+                                                  window, cfg.prefix_len)
                 out, rows = L.mla_apply(slot, r, cfg, h, positions,
                                         masks[window])
             else:
@@ -349,23 +357,38 @@ def _stack_cache(cfg: ModelConfig, entries, pos):
     return {"segments": segs}
 
 
-def forward(params, cfg: ModelConfig, tokens, *, cond=None):
-    """Training-style forward.  tokens: [B, S]; cond: [B, T, cond_dim]
-    conditioning for ``.xattn`` slots.  Returns (logits [B,S,V],
-    aux_loss): the MoE load-balance loss summed over the MoE layers (0
-    without MoE).  The reference's scan over repeats adds the aux of a
-    pattern's last slot only (``model.py:330``), which is the same sum for
-    every registered MoE config (single-slot patterns)."""
+def _embed(params, cfg: ModelConfig, tokens, extra_embeds):
+    """The residual stream's input: the token embeddings, after
+    ``extra_embeds`` [B, P, d] (a VLM's image prefix, cast to the stream's
+    dtype and not scaled) when given."""
     x = L.embed(params.tok, cfg, tokens)
+    if extra_embeds is None:
+        return x
+    return torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
+            cond=None):
+    """Training-style forward.  tokens: [B, S]; extra_embeds: [B, P, d]
+    prepended before the token embeddings (logits over all P + S
+    positions, as the reference's); cond: [B, T, cond_dim] conditioning
+    for ``.xattn`` slots.  Returns (logits [B,P+S,V], aux_loss): the MoE
+    load-balance loss summed over the MoE layers (0 without MoE).  The
+    reference's scan over repeats adds the aux of a pattern's last slot
+    only (``model.py:330``), which is the same sum for every registered
+    MoE config (single-slot patterns)."""
+    x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     x, _, aux = _run_seq(params, cfg, x, positions, cond)
     x = L.rms_norm(x, params.final_norm)
     return L.unembed(params, cfg, x), aux
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, cond=None):
+def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
+            cond=None):
     """Forward pass that also returns the populated cache (a recurrent
-    slot's entry holds its cell's final state); ``cond`` as ``forward``'s.
+    slot's entry holds its cell's final state); ``extra_embeds`` and
+    ``cond`` as ``forward``'s (the cache timeline starts at the prefix).
     Returns (last_logits [B,1,V], cache).
 
     A local slot keeps only its last ``window`` positions when the prompt
@@ -373,7 +396,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, cond=None):
     == j (mod window): decode overwrites slot ``pos % window``, so without
     the roll it would clobber a position still inside the window (the
     reference's ring alignment, ``model.py:509-526``)."""
-    x = L.embed(params.tok, cfg, tokens)
+    x = _embed(params, cfg, tokens, extra_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
     x, entries, _ = _run_seq(params, cfg, x, positions, cond)
@@ -515,10 +538,12 @@ def batched_prefill_supported(cfg: ModelConfig) -> bool:
 
 
 def prefill_batched(params, cfg: ModelConfig, tokens, lengths, *,
-                    cond=None):
+                    extra_embeds=None, cond=None):
     """Batched-admission prefill: one packed forward over right-padded
-    prompts.  tokens: [B, Smax]; lengths: [B] true row lengths; cond: [B,
-    T, cond_dim] for ``.xattn`` slots.
+    prompts.  tokens: [B, Smax]; lengths: [B] true row lengths, the
+    prefix included; extra_embeds: [B, P, d] prepended as ``prefill``'s
+    (the cache timeline starts at the prefix); cond: [B, T, cond_dim] for
+    ``.xattn`` slots.
     Returns (last_logits [B,1,V], cache) where ``last_logits[b]`` is taken
     at position ``lengths[b] - 1`` and the cache keeps the full padded
     timeline with ``pos`` -1 beyond each row's length.  Causality makes
@@ -528,7 +553,7 @@ def prefill_batched(params, cfg: ModelConfig, tokens, lengths, *,
     if not batched_prefill_supported(cfg):
         raise ValueError(f"{cfg.name}: batched prefill needs all-attention "
                          "layers (recurrent state would fold in padding)")
-    x = L.embed(params.tok, cfg, tokens)
+    x = _embed(params, cfg, tokens, extra_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
     x, entries, _ = _run_seq(params, cfg, x, positions, cond)

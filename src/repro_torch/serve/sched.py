@@ -13,7 +13,9 @@ loop).
     the request set with every attention layer reading the pool through
     the paged-attention kernel and every recurrent cell reading and
     writing its state page, and retires requests on EOS or length,
-    returning their pages.  By default
+    returning their pages.  A ``prefix_len`` config's shared prefix
+    (PaliGemma's image tokens) is prefilled once into read-only pages
+    that every row's table maps ahead of its own pages.  By default
     it runs macro steps: one macro per movement period, with one monitor
     feed and one tiering boundary per macro, and the period the tuner
     derives is the length of the next macro.  A macro runs by one of two
@@ -158,19 +160,21 @@ def _read_back(*tensors) -> List[np.ndarray]:
     return [h.numpy() for h in host]
 
 
-def pack_prompts(prompts: Sequence[np.ndarray]
+def pack_prompts(prompts: Sequence[np.ndarray], prefix: int = 0
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """An admission's prompts packed for one ``prefill_batched`` call:
-    (tokens int64[rows, width], lengths int64[rows]).  Both dims are
+    (tokens int64[rows, width], lengths int64[rows]), a row's length
+    counting the ``prefix`` positions its forward prepends.  Both dims are
     pow2-bucketed, as the reference: right-padding is inert under causal
-    attention, and the dummy rows (length 1) are never read."""
+    attention (a prefix opens only keys below it), and the dummy rows
+    (length 1, inside the prefix when there is one) are never read."""
     plens = [len(p) for p in prompts]
     toks = np.zeros((bucket_pages(len(prompts)), bucket_pages(max(plens))),
                     np.int64)
     lens = np.ones((toks.shape[0],), np.int64)
     for i, p in enumerate(prompts):
         toks[i, : plens[i]] = p
-        lens[i] = plens[i]
+        lens[i] = prefix + plens[i]
     return toks, lens
 
 
@@ -241,12 +245,21 @@ class ContinuousBatcher:
     is broadcast to every prefill's rows, and its rows for the decode
     (``[max_active, T, d]``) are made on the device once, so a captured
     graph reads the same buffer on every replay.
+
+    ``extra_embeds`` ([P, d] or [1, P, d]) is the shared prefix, required
+    when ``cfg.prefix_len`` is P > 0 (a multiple of ``page_size``).  Its
+    P / page_size pages are allocated (owner -1) and prefilled once here;
+    every row's table maps them at its first columns, its own pages
+    follow, and a request's positions count from P.  Each admission's
+    packed forward still runs over the prefix (the reference's; its
+    cache rows for the prefix are dropped), and the prefix pages, owned
+    by no request, are never ranked into the tiering's desired set.
     """
 
     def __init__(self, params, cfg, *, monitor: TrafficMonitor,
                  max_active: int = 4, max_len: int = 128,
                  page_size: int = 16, macro: bool = True, eager: bool = False,
-                 cond=None, device=None):
+                 cond=None, extra_embeds=None, device=None):
         mdl.check_supported(cfg)
         self.device = resolve_device(device)
         if params.tok.device != self.device:
@@ -268,6 +281,21 @@ class ContinuousBatcher:
         # a recurrent cell would fold a short row's padding into its
         # state: such configs prefill one request at a time
         self._batched_prefill = mdl.batched_prefill_supported(cfg)
+        self.prefix = cfg.prefix_len or 0
+        if self.prefix % page_size:
+            raise ValueError(f"prefix_len {self.prefix} must be page-"
+                             f"aligned (page_size {page_size}) so request "
+                             "pages start on a page boundary")
+        if self.prefix and extra_embeds is None:
+            raise ValueError(f"{cfg.name}: serving needs the shared prefix "
+                             "embeddings (extra_embeds [prefix_len, "
+                             "d_model])")
+        self._prefix_pages = self.prefix // page_size
+        self._ex = None
+        if extra_embeds is not None:
+            ex = torch.as_tensor(extra_embeds, dtype=torch.float32,
+                                 device=self.device)
+            self._ex = ex[None] if ex.dim() == 2 else ex
         self.macro_timer = StepTimer(name="serve.macro")
         self._cond = self._cond_rows = None
         if cond is not None:
@@ -301,6 +329,18 @@ class ContinuousBatcher:
         self._hbm_need = 0     # exact pages the in-flight set can touch
         self._gid_tables = np.full((max_active, self.n_row_pages), -1,
                                    np.int32)
+        # the shared read-only prefix: allocated and prefilled once; every
+        # row's table maps these pages
+        self._prefix_gids: Optional[np.ndarray] = None
+        if self._prefix_pages:
+            g = pools.alloc(self._prefix_pages, -1)
+            if g is None:
+                raise ValueError(
+                    f"the logical space ({pools.n_logical}) cannot hold "
+                    f"the {self._prefix_pages} shared prefix pages")
+            self._prefix_gids = g
+            self._hbm_need += self._prefix_pages
+            self._prefill_prefix_pages()
         # static device page tables (the graph is captured over them),
         # rewritten only when a page re-slotted (pools.slot_epoch) or the
         # row mapping changed (_rows_epoch)
@@ -336,27 +376,30 @@ class ContinuousBatcher:
 
     def _pages_alloc(self, req: Request) -> int:
         """Bucket-rounded allocation size (power-of-two token pages, capped
-        at one row, plus the un-bucketed state page): what the request
-        actually holds in the shared pool."""
+        at one row less the shared prefix pages, plus the un-bucketed
+        state page): what the request actually holds in the shared
+        pool."""
         kv_exact = self._pages_kv_exact(req)
-        kv_alloc = (bucket_pages(kv_exact, cap=self.max_len // self.page_size)
-                    if kv_exact else 0)
+        cap = self.max_len // self.page_size - self._prefix_pages
+        kv_alloc = bucket_pages(kv_exact, cap=cap) if kv_exact else 0
         return kv_alloc + self._state_extra
 
     def submit(self, req: Request) -> None:
         req._t_submit = time.monotonic()
-        if req.total_len > self.max_len:
-            raise ValueError(f"request {req.rid} needs {req.total_len} "
-                             f"positions, cache rows hold {self.max_len}")
+        if self.prefix + req.total_len > self.max_len:
+            raise ValueError(f"request {req.rid} needs "
+                             f"{self.prefix + req.total_len} positions, "
+                             f"cache rows hold {self.max_len}")
         pools = self.monitor.pools
-        if self._pages_alloc(req) > pools.n_logical:
+        avail = pools.n_logical - self._prefix_pages
+        if self._pages_alloc(req) > avail:
             raise ValueError(f"request {req.rid} needs "
                              f"{self._pages_alloc(req)} pages, the logical "
-                             f"space holds {pools.n_logical}")
-        if self._pages_exact(req) > pools.hbm_pages:
-            raise ValueError(f"request {req.rid} touches "
-                             f"{self._pages_exact(req)} pages, the HBM slot "
-                             f"pool holds {pools.hbm_pages}")
+                             f"space holds {avail} beyond the shared prefix")
+        touched = self._prefix_pages + self._pages_exact(req)
+        if touched > pools.hbm_pages:
+            raise ValueError(f"request {req.rid} touches {touched} pages, "
+                             f"the HBM slot pool holds {pools.hbm_pages}")
         self.queue.append(req)
 
     def _admit(self) -> List[Tuple[int, int]]:
@@ -391,16 +434,23 @@ class ContinuousBatcher:
         return emitted
 
     def _map_row(self, req: Request) -> None:
-        """The request's logical page-table row: its own token-page run,
-        bucket tail included, and the state page at the last column.  Also
-        records the (pages, columns) the monitor merge reads -- the exact
-        pages only, so bucket-tail slack never accrues mass."""
+        """The request's logical page-table row: the shared prefix pages
+        at columns [0, pp), its own token-page run from column pp (bucket
+        tail included), and the state page at the last column.  Also
+        records the (pages, columns) the monitor merge reads -- the prefix
+        pages and the exact own pages, so bucket-tail slack never accrues
+        mass."""
+        pp = self._prefix_pages
         kv_alloc = req.n_alloc - self._state_extra
         kv_exact = self._pages_kv_exact(req)
         row = np.full(self.n_row_pages, -1, np.int32)
-        row[:kv_alloc] = req.gids[:kv_alloc]
+        row[pp: pp + kv_alloc] = req.gids[:kv_alloc]
         gids = [np.asarray(req.gids[:kv_exact], np.int64)]
-        cols = [np.arange(kv_exact)]
+        cols = [pp + np.arange(kv_exact)]
+        if pp:
+            row[:pp] = self._prefix_gids
+            gids.insert(0, np.asarray(self._prefix_gids, np.int64))
+            cols.insert(0, np.arange(pp))
         if self._state_extra:
             row[-1] = req.gids[-1]
             gids.append(np.asarray(req.gids[-1:], np.int64))
@@ -428,15 +478,20 @@ class ContinuousBatcher:
         return self._tables_dev
 
     def _need(self, horizon: Dict[int, int]) -> np.ndarray:
-        """Every page the next decode steps can touch: each active row's
-        token pages through its ``horizon[row]`` steps (write pages
-        included), then its state page."""
+        """Every page the next decode steps can touch: the shared prefix
+        pages, then each active row's own token pages through its
+        ``horizon[row]`` steps (write pages included) and its state
+        page."""
         need: List[np.ndarray] = []
+        if self._prefix_gids is not None:
+            need.append(np.asarray(self._prefix_gids, np.int64))
         for row, req in self.active.items():
             if self._has_attn:
                 n_cols = -(-(int(self.pos[row]) + horizon[row])
                            // self.page_size)
-                need.append(np.asarray(req.gids[:n_cols], np.int64))
+                need.append(np.asarray(
+                    req.gids[: max(0, n_cols - self._prefix_pages)],
+                    np.int64))
             if self._state_extra:
                 need.append(np.asarray(req.gids[-1:], np.int64))
         return np.concatenate(need) if need else np.asarray([], np.int64)
@@ -447,13 +502,15 @@ class ContinuousBatcher:
         the pool, and sample each first token."""
         plens = [len(r.prompt) for r in batch]
         if self._batched_prefill:
-            toks, plens_p = pack_prompts([r.prompt for r in batch])
+            toks, plens_p = pack_prompts([r.prompt for r in batch],
+                                         self.prefix)
+            rows = lambda t: None if t is None else t.expand(
+                (toks.shape[0],) + t.shape[1:])
             logits_b, cache_b = mdl.prefill_batched(
                 self.params, self.cfg,
                 torch.as_tensor(toks, device=self.device),
                 torch.as_tensor(plens_p, device=self.device),
-                cond=None if self._cond is None else self._cond.expand(
-                    (toks.shape[0],) + self._cond.shape[1:]))
+                cond=rows(self._cond), extra_embeds=rows(self._ex))
             self._write_prefill_pages(cache_b, batch, plens)
         else:
             rows = []
@@ -462,7 +519,7 @@ class ContinuousBatcher:
                     self.params, self.cfg,
                     torch.as_tensor(req.prompt, dtype=torch.int64,
                                     device=self.device)[None],
-                    cond=self._cond)
+                    cond=self._cond, extra_embeds=self._ex)
                 self._write_prefill_pages_row(cache1, req)
                 rows.append(logits)
             logits_b = torch.cat(rows)
@@ -477,7 +534,7 @@ class ContinuousBatcher:
             req.tokens.append(tok)
             emitted.append((req.rid, tok))
             self.tok[req.row, 0] = tok
-            self.pos[req.row] = plen
+            self.pos[req.row] = self.prefix + plen
             self.active[req.row] = req
             if req.max_new_tokens <= 1 or tok == req.eos_id:
                 self._retire(req)
@@ -486,9 +543,11 @@ class ContinuousBatcher:
     def _write_prefill_pages(self, cache_b, batch: List[Request],
                              plens: List[int]) -> None:
         """Scatter an admission's prefilled cache (every joiner, every
-        layer, host + HBM tiers) into the pool.  Slots are assigned
-        bookkeeping-only (initial placement, not charged as misses) since
-        the scatter overwrites both tiers."""
+        layer, host + HBM tiers) into the pool: each joiner's own pages,
+        from cache position ``prefix`` (the prefix is page-aligned; its
+        rows, already in the shared pages, are dropped).  Slots are
+        assigned bookkeeping-only (initial placement, not charged as
+        misses) since the scatter overwrites both tiers."""
         pools = self.monitor.pools
         ns = [-(-p // self.page_size) for p in plens]
         jp = cache_b["segments"][0][0]["pos"].shape[1]
@@ -502,13 +561,39 @@ class ContinuousBatcher:
             gids_m[i, :n] = req.gids[:n]
             slots_m[i, :n] = slots_flat[o: o + n]
             o += n
+        write_pages_batched(pools.kv_layers,
+                            self._cache_leaves(cache_b, self.prefix, None),
+                            gids_m, slots_m)
+
+    def _cache_leaves(self, cache, start: int, stop: Optional[int]):
+        """{leaf name: per-slot cache rows [R, J, start:stop, ...]} for
+        ``write_pages_batched``."""
         meta = mdl.state_slot_meta(self.cfg)
         leaves: Dict[str, List] = {}
         for li, (si, j, _, _, kind) in enumerate(meta):
-            e = cache_b["segments"][si][j]
+            e = cache["segments"][si][j]
             for name in mdl.slot_leaf_names(kind):
-                leaves.setdefault(name, [None] * len(meta))[li] = e[name]
-        write_pages_batched(pools.kv_layers, leaves, gids_m, slots_m)
+                leaves.setdefault(name, [None] * len(meta))[li] = \
+                    e[name][:, :, start:stop]
+        return leaves
+
+    def _prefill_prefix_pages(self) -> None:
+        """Prefill the shared prefix once and write its rows into the
+        shared pages: one forward of a dummy token after the prefix, whose
+        first ``prefix`` cache positions are exact for every prompt (the
+        prefix attends only itself; a text token is never a key below
+        ``prefix_len``).  Slots are assigned bookkeeping-only, as an
+        admission's."""
+        pools = self.monitor.pools
+        _, cache1 = mdl.prefill(
+            self.params, self.cfg,
+            torch.zeros((1, 1), dtype=torch.int64, device=self.device),
+            extra_embeds=self._ex, cond=self._cond)
+        slots = pools.assign_slots(self._prefix_gids)
+        write_pages_batched(pools.kv_layers,
+                            self._cache_leaves(cache1, 0, self.prefix),
+                            np.asarray(self._prefix_gids, np.int32)[None],
+                            np.asarray(slots, np.int32)[None])
 
     def _write_prefill_pages_row(self, cache1, req: Request) -> None:
         """Write one request's prefill into the pool, both tiers: the

@@ -223,12 +223,13 @@ def test_init_is_seeded_and_at_reference_scales():
 
 def test_check_supported_accepts_the_new_archs():
     """``check_supported`` takes musicgen-large, nemotron-4-340b and
-    stablelm-12b as registered, and still refuses paligemma-3b's shared
-    prefix, naming Queue 1 item 8.5."""
+    stablelm-12b as registered, and every other registered config too,
+    paligemma-3b's shared prefix included."""
     for arch in ARCHS:
         TM.check_supported(TC.get(arch))
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        TM.check_supported(TC.get("paligemma-3b"))
+    for arch in TC.ARCHS:
+        TM.check_supported(TC.get(arch))
+    assert TC.get("paligemma-3b").prefix_len == 256
 
 
 # ---------------------------------------------------------------------------

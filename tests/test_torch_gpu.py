@@ -208,6 +208,79 @@ def test_cuda_kernel_at_more_decode_shapes(model, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_at_paligemma_decode_shape(dtype):
+    """paligemma-3b's decode shape: 8 query heads over 1 KV head of 256
+    (four head groups of two), B=4 over 64 pages of 16, every row's first
+    16 columns the same shared prefix pages (its 256 image positions), a
+    length-0 row: the kernel holds to its plain version, the prefix
+    columns carry mass in every active row, and two calls are
+    bit-identical."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    b, h, kv, d, page, n, p_phys, pp = 4, 8, 1, 256, 16, 64, 300, 16
+    lengths = [1024, 640, 257, 0]
+    g = torch.Generator(device=dev).manual_seed(23)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dt)
+    kp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dt)
+    vp = torch.randn((p_phys, page, kv, d), generator=g, device=dev).to(dt)
+    perm = torch.randperm(p_phys, generator=g, device=dev).to(torch.int32)
+    pt = torch.cat([perm[:pp].expand(b, pp),
+                    perm[pp: pp + b * (n - pp)].reshape(b, n - pp)], dim=1)
+    for row, length in enumerate(lengths):
+        pt[row, -(-length // page):] = -1
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out, mass = tpa.paged_attention(q, kp, vp, pt, ln)
+    out2, mass2 = tpa.paged_attention(q, kp, vp, pt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(mass, mass2)
+    assert tpa.head_groups(h, kv, d) == 4
+    ref_o, ref_m = tpa.paged_attention_plain(q, kp, vp, pt, ln)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref_o.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(mass, ref_m, atol=1e-5, rtol=0)
+    active = ln > 0
+    assert bool((mass[active, :pp] > 0).all())
+    assert torch.count_nonzero(out[~active]) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_over_paged_pools_hbm_tier():
+    """The single-stream tiered pool on the card: after tiering brings a
+    hot run of pages into HBM, the kernel over ``k_hbm``/``v_hbm`` through
+    ``slot_of`` equals its plain version over the host pages through the
+    logical ids, and each resident slot holds its page's bytes."""
+    import numpy as np
+    from repro_torch.memtier import PagedPools, TierConfig, TieringManager
+    dev = _card()
+    n, page, kv, d, h, hbm = 64, 16, 1, 256, 8, 16
+    g = torch.Generator(device=dev).manual_seed(29)
+    k_host = torch.randn((n, page, kv, d), generator=g, device=dev)
+    v_host = torch.randn((n, page, kv, d), generator=g, device=dev)
+    pools = PagedPools.create(k_host, v_host, hbm_pages=hbm)
+    mgr = TieringManager(n, TierConfig(hbm_pages=hbm, period_steps=1))
+    hot = np.arange(3, 3 + 12)
+    mass = np.zeros(n, np.float32)
+    mass[hot] = 1.0
+    for _ in range(4):
+        mgr.on_step(mass, pools.slot_of >= 0)
+        pools = mgr.maybe_tier(pools)
+    assert (pools.slot_of[hot] >= 0).all() and mgr.migrations > 0
+    slots = torch.as_tensor(pools.slot_of[hot].astype(np.int64), device=dev)
+    assert torch.equal(pools.k_hbm[slots], k_host[hot])
+    assert torch.equal(pools.v_hbm[slots], v_host[hot])
+    q = torch.randn((1, h, d), generator=g, device=dev)
+    ln = torch.tensor([len(hot) * page - 5], dtype=torch.int32, device=dev)
+    out, m = tpa.paged_attention(q, pools.k_hbm, pools.v_hbm,
+                                 slots.to(torch.int32)[None], ln)
+    ref_o, ref_m = tpa.paged_attention_plain(
+        q, k_host, v_host,
+        torch.as_tensor(hot, dtype=torch.int32, device=dev)[None], ln)
+    torch.testing.assert_close(out, ref_o, atol=1e-5, rtol=0)
+    torch.testing.assert_close(m, ref_m, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
 def test_cuda_kernel_rejects_what_it_does_not_take():
     """The split kernel copies 16-byte pieces of head dims up to 512: rows
     of another size raise instead of launching."""
@@ -705,7 +778,8 @@ def test_routed_experts_kernel_rejects_what_it_does_not_take():
 
 GRAPH_ARCHS = {"gqa": "qwen3-14b", "window": "gemma3-12b",
                "rglru": "recurrentgemma-2b", "xlstm": "xlstm-1.3b",
-               "mla": "deepseek-v3-671b", "olmoe": "olmoe-1b-7b"}
+               "mla": "deepseek-v3-671b", "olmoe": "olmoe-1b-7b",
+               "prefix": "paligemma-3b"}
 _GRAPH_MODELS = {}
 
 
@@ -743,9 +817,14 @@ def _graph_batcher(kind, eager, max_active=2, max_len=32):
     merges = []
     merge = mon.merge
     mon.merge = lambda c: merges.append(merge(c)) or merges[-1]
+    ex = None
+    if cfg.prefix_len:      # the shared prefix, drawn N(0, 1) from a seed
+        ex = torch.randn((1, cfg.prefix_len, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(7))
     b = TS.ContinuousBatcher(params, cfg, monitor=mon, max_active=max_active,
                              max_len=max_len, page_size=4, eager=eager,
-                             device="cuda")
+                             extra_embeds=ex, device="cuda")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (6, 9, 5, 11)]
