@@ -230,7 +230,32 @@ non-zero):
      ``on_mass`` (the same tokens and masses);
  29. parity on the card: on reduced paligemma-3b with its prefix, the
      batcher's greedy streams (macro and per-token) equal ``generate``'s,
-     and ``monitored_generate``'s tokens equal ``generate``'s.
+     and ``monitored_generate``'s tokens equal ``generate``'s;
+ 30. (run right after phase 4, on its parameters) the dense batcher:
+     phase 4's mix through ``ContinuousBatcher(paged=False,
+     mirror_pages=True)`` with phase 4's tiering and tuner over a legacy
+     single-layer pool of 256 logical / 128 HBM pages
+     (``SharedPagedPools.create(..., page_size=16, kv_heads=8,
+     head_dim=128)``), eagerly; its greedy streams equal phase 4's graph
+     route's and its sampled streams too, or part from them only where
+     the draw lies on a boundary (``_compare_streams``); the run drains
+     and every page returns; at four points ``paged_context`` of every
+     in-flight request on a seeded q [1, 40, 128] is within 1e-5 of the
+     plain kernel over the host pages through the request's ids, each
+     probe one kernel launch, the launches of the run = the probes; then
+     the same probes at three points of a short fully-paged batcher
+     (graph route, the mix's first 4 requests) over the layered host
+     leaf, its launches = 40 x device steps + probes.  Prints tokens/s,
+     step wall p50, the monitor's share of the steps, peak memory, the
+     tiering and the tuner history, and kernel 1's time a probe beside
+     its plain version, SDPA and its bound;
+ 31. (host only: no kernel, no device) the model-free ``TrafficScheduler``
+     at the traffic benchmark's full size (``benchmarks/traffic.py``
+     ``run``: SHORT + LONG, 2 x 700 steps, online and the fixed ladder
+     1-200; ``hostile``: four phases of 600 steps, online and its fixed
+     ladder), held to the benchmark's bars: online steady <= 1.05 x the
+     best fixed, peak cache pages >= 25% below the dense provisioning,
+     each hostile phase's regret <= 1.15.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -444,6 +469,24 @@ def _reset_counts(kernels) -> None:
         getattr(k, k.NAME).launches = 0
 
 
+def _mix_requests(S, cfg, rng, n_req, prompt, new):
+    """``n_req`` requests drawn from ``rng``: prompt and new-token counts
+    from the half-open ranges ``prompt`` and ``new``, requests 2 and 5
+    sampled at temperature 0.8 (printed)."""
+    reqs = []
+    for i in range(n_req):
+        plen = int(rng.integers(*prompt))
+        reqs.append(S.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, plen).astype(
+                np.int32),
+            max_new_tokens=int(rng.integers(*new)),
+            temperature=0.8 if i in (2, 5) else 0.0, seed=SEED + i))
+    print("requests (prompt, new, temperature): "
+          + ", ".join(f"({len(r.prompt)}, {r.max_new_tokens}, "
+                      f"{r.temperature})" for r in reqs), flush=True)
+    return reqs
+
+
 def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
                n_logical=256, hbm_pages=128, max_len=1024, n_req=8,
                prompt=(128, 513), new=(48, 97), access_threshold=0.05,
@@ -508,17 +551,7 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
           "page", flush=True)
 
     rng = np.random.default_rng(SEED)
-    reqs = []
-    for i in range(n_req):
-        plen = int(rng.integers(*prompt))
-        reqs.append(S.Request(
-            rid=i, prompt=rng.integers(0, cfg.vocab_size, plen).astype(
-                np.int32),
-            max_new_tokens=int(rng.integers(*new)),
-            temperature=0.8 if i in (2, 5) else 0.0, seed=SEED + i))
-    print("requests (prompt, new, temperature): "
-          + ", ".join(f"({len(r.prompt)}, {r.max_new_tokens}, "
-                      f"{r.temperature})" for r in reqs), flush=True)
+    reqs = _mix_requests(S, cfg, rng, n_req, prompt, new)
 
     rec = telemetry.install(telemetry.Recorder())
     for r in reqs:
@@ -693,17 +726,19 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
           f"float32 params ({cfg.param_count() / 1e9:.3f} B without norms) "
           f"in {time.monotonic() - t0:.1f} s", flush=True)
 
+    streams = {}
+
     def check(b, result, eager):
         result["launches"] = pa.paged_attention.launches
         _check_launches("paged_attention", result["launches"],
                         cfg.num_layers, b, eager)
+        if not eager:
+            streams.update((r.rid, list(r.tokens)) for r in b.completed)
 
     results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
                                kernels, check)
-    held = torch.cuda.memory_allocated()
-    del params       # the deepseek phase needs the card
-    _check_freed(held)
-    return results
+    # phase 30 serves the same mix densely on these parameters
+    return results, cfg, params, streams
 
 
 def _profile_macro(b, S, cfg, rng) -> dict:
@@ -926,10 +961,71 @@ PAGED_SHAPES = {
 }
 
 
+def _paged_timing(pa, args, flush, *, window=0, shared=0):
+    """The paged kernel (float32) on one call's inputs ``args``: a call
+    (CUDA events) and on the device (profiler), its plain version, one
+    SDPA call over the same K/V gathered beforehand with the row's span as
+    its mask (the yardstick), and the bound (``shared`` leading pages that
+    every row maps are read once).  Returns (times, detail text)."""
+    import torch.nn.functional as F
+    b, h, d = args["q"].shape
+    page, kv = args["k_pages"].shape[1:3]
+    n = args["page_table"].shape[1]
+    lengths = args["lengths"].tolist()
+    kernel = lambda: pa.paged_attention(**args)
+    ms = _time(kernel, 50, flush)
+    dev_ms, how, names = _device_ms(kernel, 50, flush)
+    plain_ms = _time(lambda: pa.paged_attention_plain(**args), 20, flush)
+
+    t = n * page
+    idx = args["page_table"].clamp_min(0).long()
+    k = args["k_pages"][idx].reshape(b, t, kv, d).transpose(1, 2) \
+        .contiguous()
+    v = args["v_pages"][idx].reshape(b, t, kv, d).transpose(1, 2) \
+        .contiguous()
+    qs = args["q"][:, :, None, :]
+    pos = torch.arange(t, device="cuda")[None, :]
+    ln = args["lengths"][:, None].long()
+    span = pos < ln
+    if window:
+        span &= pos >= ln - window
+    mask = span[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask, enable_gqa=True)
+    library_ms = _time(sdpa, 50, flush)
+    lib_dev_ms, lib_how, lib_names = _device_ms(sdpa, 50, flush)
+
+    rows = sum(min(x, window) if window else x for x in lengths)
+    # a shared page is an input read once, however many rows map it
+    spans = [min(x, shared * page) for x in lengths]
+    read = rows - sum(spans) + max(spans)
+    kv_bytes = 2 * read * kv * d * 4
+    io_bytes = (b * h * d * 4 * 2 + b * n * 4        # q + out, mass
+                + b * n * 4 + b * 4)                 # table, lengths
+    flops = 4 * rows * h * d
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    text = (f"kernel {ms:.4f} ms a call (events), {dev_ms:.4f} ms on the "
+            f"device ({how}: {_ms_list(names)}); plain {plain_ms:.4f} ms; "
+            f"SDPA over pre-gathered K/V {library_ms:.4f} ms a call, "
+            f"{lib_dev_ms:.4f} ms on the device ({lib_how}: "
+            f"{_ms_list(lib_names)}); bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{rows} attended rows, {read} distinct, "
+            f"{(kv_bytes + io_bytes) / 1e6:.2f} MB at 3.35 TB/s; "
+            f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s) -> "
+            f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
+            f"{bound_ms / ms * 100:.1f}% a call")
+    return dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                bound_by=bound_by), text
+
+
 def phase_timing(pa):
     print("== phase 6: paged_attention timing at the served decode shapes",
           flush=True)
-    import torch.nn.functional as F
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     before = pa.paged_attention.launches
     res = {}
@@ -945,69 +1041,19 @@ def phase_timing(pa):
         if not err <= 1e-5:
             _fail(f"paged_attention at the {model} timed shape: err "
                   f"{err:.3g} against its plain version (tol 1e-5)")
-        kernel = lambda: pa.paged_attention(**args)
-        ms = _time(kernel, 50, flush)
-        dev_ms, how, names = _device_ms(kernel, 50, flush)
-        plain_ms = _time(lambda: pa.paged_attention_plain(**args), 20,
-                         flush)
-
-        # yardstick: one SDPA call over the same K/V, gathered beforehand,
-        # with the row's span as its mask
-        t = n * page
-        idx = args["page_table"].clamp_min(0).long()
-        k = args["k_pages"][idx].reshape(b, t, kv, d).transpose(1, 2) \
-            .contiguous()
-        v = args["v_pages"][idx].reshape(b, t, kv, d).transpose(1, 2) \
-            .contiguous()
-        qs = args["q"][:, :, None, :]
-        pos = torch.arange(t, device="cuda")[None, :]
-        ln = args["lengths"][:, None].long()
-        span = pos < ln
-        if window:
-            span &= pos >= ln - window
-        mask = span[:, None, None, :]
-        sdpa = lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=mask, enable_gqa=True)
-        library_ms = _time(sdpa, 50, flush)
-        lib_dev_ms, lib_how, lib_names = _device_ms(sdpa, 50, flush)
-
-        rows = sum(min(x, window) if window else x for x in lengths)
-        # a shared page is an input read once, however many rows map it
-        span = [min(x, case.get("shared", 0) * page) for x in lengths]
-        read = rows - sum(span) + max(span)
-        kv_bytes = 2 * read * kv * d * 4
-        io_bytes = (b * h * d * 4 * 2 + b * n * 4        # q + out, mass
-                    + b * n * 4 + b * 4)                 # table, lengths
-        flops = 4 * rows * h * d
-        t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS_PER_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        times, text = _paged_timing(pa, args, flush, window=window,
+                                    shared=case.get("shared", 0))
         pps, splits, groups = _plan(pa, case)
         print(f"{model}: B={b} H={h} KV={kv} D={d} page={page} n={n} "
               f"window={window} lengths {lengths} float32, {pps} pages a "
               f"split x {splits} splits x {groups} head group(s) = "
               f"{b * kv * groups * splits} blocks (err "
-              f"{err:.3g} vs plain): kernel {ms:.4f} ms a call (events), "
-              f"{dev_ms:.4f} ms on the device ({how}: {_ms_list(names)}); "
-              f"plain "
-              f"{plain_ms:.4f} ms; SDPA over pre-gathered K/V "
-              f"{library_ms:.4f} ms a call, {lib_dev_ms:.4f} ms on the "
-              f"device ({lib_how}: {_ms_list(lib_names)}); bound "
-              f"{bound_ms:.4f} ms "
-              f"({bound_by}: {rows} attended rows, {read} distinct, "
-              f"{(kv_bytes + io_bytes) / 1e6:.2f} MB at 3.35 TB/s; "
-              f"{flops / 1e9:.3f} GFLOP at 67 TFLOP/s) -> "
-              f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
-              f"{bound_ms / ms * 100:.1f}% a call", flush=True)
-        if not ms < library_ms:
-            _fail(f"paged_attention ({ms:.4f} ms) is not below its SDPA "
-                  f"yardstick ({library_ms:.4f} ms) at the {model} shape")
-        res[model] = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
-                          plain_ms=plain_ms,
-                          library_ms=library_ms,
-                          library_device_ms=lib_dev_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, max_abs_err=err)
+              f"{err:.3g} vs plain): {text}", flush=True)
+        if not times["ms"] < times["library_ms"]:
+            _fail(f"paged_attention ({times['ms']:.4f} ms) is not below its "
+                  f"SDPA yardstick ({times['library_ms']:.4f} ms) at the "
+                  f"{model} shape")
+        res[model] = dict(times, max_abs_err=err)
     pa.paged_attention.launches = before      # timing launches not counted
     return res
 
@@ -2633,6 +2679,344 @@ def phase_prefix_parity(C, mdl, S, memtier, cori, engine):
         _fail("monitored_generate's tokens differ from generate's")
 
 
+# the scheduler steps after which phase 30 probes every in-flight request
+# with ``paged_context`` (a run of 8 requests on 4 rows takes ~150 steps)
+DENSE_PROBE_STEPS = (2, 40, 80, 120)
+PROBE_TOL = 1e-5
+
+
+def _probe_contexts(b, pa, mdl, engine, g) -> list:
+    """``paged_context`` of every in-flight request of ``b`` on a seeded q
+    [1, H, D], held within ``PROBE_TOL`` of ``paged_attention_plain`` over
+    the host tier through the request's logical page ids (the legacy pair
+    on the dense path, the monitor slot's layered host leaf, last repeat,
+    on the paged one); each probe must launch kernel 1 once and charge its
+    demand fetches as misses.  Returns one record a probe, with the
+    kernel's inputs."""
+    cfg, pools, mgr = b.cfg, b.monitor.pools, b.monitor.manager
+    page = b.page_size
+    out = []
+    for req in sorted(b.active.values(), key=lambda r: r.rid):
+        q = torch.randn((1, cfg.num_heads, cfg.head_dim), generator=g,
+                        device=DEV)
+        before, misses = pa.paged_attention.launches, mgr.misses
+        ctx, fetched = b.paged_context(req.rid, q)
+        torch.cuda.synchronize()
+        launched = pa.paged_attention.launches - before
+        length = int(b.pos[req.row])
+        n = -(-length // page)
+        if b.paged:
+            li = mdl.attn_slot_index(cfg, *engine.monitor_slot(cfg))
+            k_host, v_host = (pools.kv_layers[f"{x}_host"][li][-1]
+                              for x in ("k", "v"))
+            k_hbm, v_hbm = (pools.kv_layers[f"{x}_hbm"][li][-1]
+                            for x in ("k", "v"))
+            gids = req.table_gids[:n]
+        else:
+            k_host, v_host, k_hbm, v_hbm = (pools.k_host, pools.v_host,
+                                            pools.k_hbm, pools.v_hbm)
+            gids = req.gids[:n]
+        as_table = lambda a: torch.as_tensor(
+            np.asarray(a, np.int32)[None], device=DEV)
+        lengths = torch.tensor([length], dtype=torch.int32, device=DEV)
+        ref, _ = pa.paged_attention_plain(q, k_host, v_host, as_table(gids),
+                                          lengths)
+        err = float((ctx - ref).abs().max())
+        rec = dict(step=b.step_idx, rid=req.rid, length=length, pages=n,
+                   fetched=fetched, err=err,
+                   args=dict(q=q, k_pages=k_hbm, v_pages=v_hbm,
+                             page_table=as_table(pools.table(gids)),
+                             lengths=lengths, window=0, softcap=0.0))
+        out.append(rec)
+        if launched != 1:
+            _fail(f"paged_context launched kernel 1 {launched} times")
+        if not err <= PROBE_TOL:
+            _fail(f"paged_context of request {req.rid} at step "
+                  f"{b.step_idx}: err {err:.3g} against the plain version "
+                  f"over the host pages (tol {PROBE_TOL})")
+        if mgr.misses - misses != fetched:
+            _fail("paged_context did not charge its demand fetches")
+    return out
+
+
+# how far (as a share of the distribution's mass) a sampled token's CDF
+# interval may lie from the draw where two paths' sampled streams part:
+# a few times the flip measured on the card (2.98e-07) and well under one
+# token's interval of a near-uniform 151936-way draw (6.6e-06)
+SAMPLED_FLIP_TOL = 1e-6
+
+
+def _compare_streams(mdl, cfg, params, reqs, got, want, what) -> None:
+    """Fail unless ``got`` equals ``want`` request for request, but for at
+    most one sampled stream that parts from ``want`` where the draw lands
+    on a boundary: at the first token t where they differ, the next-token
+    distribution after their common prefix (one ``prefill`` over prompt
+    + prefix, softmax at the request's temperature, as ``model.sample``)
+    must put the draw ``uniform(seed, t)`` within ``SAMPLED_FLIP_TOL`` of
+    the mass of both tokens' CDF intervals.  Two float32 paths that
+    compute attention in another order give logits that differ by
+    rounding, and a near-uniform 151936-way draw then lands on the other
+    side of a boundary; past that token the two streams are different
+    samples, so only their lengths are held.  Greedy streams are held
+    exactly, and a second parted stream fails."""
+    parted = []
+    for r in reqs:
+        a, b = got[r.rid], want[r.rid]
+        if a == b:
+            continue
+        if r.temperature == 0 or len(a) != len(b):
+            _fail(f"{what}: request {r.rid}'s stream differs from phase "
+                  f"4's (temperature {r.temperature})")
+        parted.append(r.rid)
+        if len(parted) > 1:
+            _fail(f"{what}: sampled requests {parted} all part from phase "
+                  "4's streams; one rounding flip a run is allowed")
+        t = next(i for i in range(len(a)) if a[i] != b[i])
+        toks = np.concatenate([r.prompt, np.asarray(a[:t], np.int32)])
+        logits, _ = mdl.prefill(params, cfg,
+                                torch.as_tensor(toks, device=DEV)[None])
+        cdf = torch.softmax(logits[0, 0].float() / r.temperature, dim=-1) \
+            .cumsum(dim=-1)
+        u = mdl.uniform(torch.tensor([r.seed], device=DEV),
+                        torch.tensor([t], device=DEV))
+        x = float(u[0] * cdf[-1])
+        cdf = cdf.double().cpu().numpy()
+
+        def off(k):
+            lo = cdf[k - 1] if k else 0.0
+            return max(0.0, lo - x, x - cdf[k]) / cdf[-1]
+
+        print(f"{what}: sampled request {r.rid} parts from phase 4's at "
+              f"token {t} of {len(a)} ({a[t]} vs {b[t]}; the first {t} "
+              f"equal): the draw {x / cdf[-1]:.7f} of the mass lies "
+              f"{off(a[t]):.2e} and {off(b[t]):.2e} from the two tokens' "
+              f"intervals (tol {SAMPLED_FLIP_TOL})", flush=True)
+        if max(off(a[t]), off(b[t])) > SAMPLED_FLIP_TOL:
+            _fail(f"{what}: request {r.rid} parts at token {t} away from "
+                  "the draw's boundary")
+
+
+def _print_probes(probes) -> None:
+    print(f"paged_context: {len(probes)} probes at steps "
+          f"{sorted({p['step'] for p in probes})}: (step, rid, length, "
+          f"pages, fetched, max abs err) "
+          + ", ".join(f"({p['step']}, {p['rid']}, {p['length']}, "
+                      f"{p['pages']}, {p['fetched']}, {p['err']:.3g})"
+                      for p in probes), flush=True)
+
+
+def phase_dense(mdl, pa, S, memtier, cori, engine, telemetry, kernels, cfg,
+                params, want):
+    """Phase 4's mix served by the dense batcher on phase 4's parameters,
+    with the monitor and ``mirror_pages`` over physical single-layer
+    pools; ``paged_context`` probes on it and on a short fully-paged
+    batcher.  ``want`` is phase 4's graph-route streams."""
+    print("== phase 30: the dense batcher at full width (qwen3-14b, "
+          "paged=False, mirror_pages over the legacy single-layer pools)",
+          flush=True)
+    page, n_logical, hbm_pages = 16, 256, 128
+    torch.cuda.reset_peak_memory_stats()
+
+    def stack(pools):
+        mgr = memtier.TieringManager(n_logical, memtier.TierConfig(
+            page_size=page, hbm_pages=hbm_pages, period_steps=8,
+            access_threshold=0.05))
+        tuner = cori.OnlineTuner(n_logical, default_period=8,
+                                 access_threshold=0.05)
+        return S.TrafficMonitor(pools, mgr, tuner)
+
+    pools = memtier.SharedPagedPools.create(
+        n_logical, hbm_pages, page_size=page, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim)
+    mon = stack(pools)
+    b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=4,
+                            max_len=1024, page_size=page, paged=False,
+                            mirror_pages=True)
+    if b.paged or not b.mirror_pages or b.route != "eager":
+        _fail(f"the dense batcher is paged={b.paged}, mirror_pages="
+              f"{b.mirror_pages}, route {b.route}")
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    cache_gb = nbytes([a for seg in b.cache["segments"] for e in seg
+                       for a in e.values()]) / 1e9
+    print(f"packed cache {cache_gb:.3f} GB (4 rows x 1024 positions x "
+          f"{cfg.num_layers} layers, k/v float32 + int64 positions); pools: "
+          f"{n_logical} logical pages, {hbm_pages} HBM slots, page {page}: "
+          f"{nbytes([pools.k_host, pools.v_host, pools.k_hbm, pools.v_hbm]) / 1e6:.1f}"
+          " MB of float32 k/v of the monitor layer", flush=True)
+    reqs = _mix_requests(S, cfg, np.random.default_rng(SEED), 8, (128, 513),
+                         (48, 97))
+    rec = telemetry.install(telemetry.Recorder())
+    for r in reqs:
+        b.submit(r)
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    probes, walls = [], []
+    _reset_counts(kernels)
+    torch.cuda.synchronize()
+    while not b.idle:
+        t0 = time.monotonic()
+        b.step()
+        walls.append(time.monotonic() - t0)
+        if b.step_idx in DENSE_PROBE_STEPS:
+            probes += _probe_contexts(b, pa, mdl, engine, g)
+    launches = pa.paged_attention.launches
+    counts = {k.NAME: getattr(k, k.NAME).launches for k in kernels}
+    out = {r.rid: list(r.tokens) for r in b.completed}
+    n_tok = sum(len(v) for v in out.values())
+    wall = float(sum(walls))
+    mon_s = rec.hists["serve.monitor_s"].total
+    step_s = rec.hists["serve.step_s"].total
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mgr, tuner = mon.manager, mon.tuner
+    print(f"served {len(out)} requests, {n_tok} tokens in {wall:.2f} s of "
+          f"scheduler steps: {n_tok / wall:.2f} tokens/s (prefill "
+          f"included); {len(walls)} steps, {b.decode_steps} decode steps, "
+          f"step wall p50 {float(np.median(walls)) * 1e3:.1f} ms (max "
+          f"{max(walls) * 1e3:.1f}); the monitor (its masses, one host read, "
+          f"the merge and the tiering feed) {mon_s:.3f} s of {step_s:.3f} "
+          f"s: {mon_s / step_s * 100:.1f}% of the steps", flush=True)
+    print(f"tiering: migrations {mgr.migrations}, hits {mgr.hits}, misses "
+          f"{mgr.misses}, modeled time {mgr.modeled_time:.0f}; tuner: state "
+          f"{tuner.state}, period {tuner.period}, history {tuner.history}; "
+          f"peak device memory {peak_gb:.2f} GB (the weights included)",
+          flush=True)
+    _print_probes(probes)
+    print(f"kernel launches in the run: {counts}", flush=True)
+    telemetry.install(telemetry.Recorder())
+    if sorted(out) != sorted(want):
+        _fail(f"the dense run completed requests {sorted(out)}")
+    _compare_streams(mdl, cfg, params, reqs, out, want, "dense")
+    same = sorted(r for r in want if out[r] == want[r])
+    print(f"dense streams == phase 4's graph-route streams: requests "
+          f"{same} of {sorted(want)}", flush=True)
+    if pools.free_pages != n_logical or pools.allocated_pages:
+        _fail("pages leaked after the dense drain")
+    if len({p["step"] for p in probes}) < 3:
+        _fail("fewer than three probe points in the dense run")
+    if launches != len(probes) or any(
+            v for k, v in counts.items() if k != "paged_attention"):
+        _fail(f"kernel launches {counts} in the dense run, expected "
+              f"paged_attention = {len(probes)} probes and nothing else")
+    print(f"paged_attention launches {launches} = {len(probes)} probes -> "
+          "True", flush=True)
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    longest = max(probes, key=lambda p: p["length"])
+    times, text = _paged_timing(pa, longest["args"], flush)
+    print(f"kernel 1 a probe (B=1, H={cfg.num_heads}, KV="
+          f"{cfg.num_kv_heads}, D={cfg.head_dim}, {longest['pages']} pages "
+          f"of the {hbm_pages}-slot single-layer pool, length "
+          f"{longest['length']}): {text}", flush=True)
+    pa.paged_attention.launches = launches    # timing launches not counted
+    result = dict(tokens=n_tok, tokens_per_s=n_tok / wall,
+                  step_p50_ms=float(np.median(walls)) * 1e3,
+                  monitor_share=mon_s / step_s, peak_gb=peak_gb,
+                  migrations=mgr.migrations, hits=mgr.hits,
+                  misses=mgr.misses, tuner_history=list(tuner.history),
+                  probe=dict(times, launches=launches,
+                             max_abs_err=max(p["err"] for p in probes)))
+    del b, probes, longest
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("-- paged_context on a fully-paged batcher (graph route, the "
+          "first 4 requests of the mix, fresh pools)", flush=True)
+    mon = stack(memtier.SharedPagedPools.create(n_logical, hbm_pages))
+    b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=4,
+                            max_len=1024, page_size=page)
+    if b.route != "graph":
+        _fail(f"the paged batcher took the {b.route} route")
+    reqs = _mix_requests(S, cfg, np.random.default_rng(SEED), 8,
+                         (128, 513), (48, 97))[:4]
+    for r in reqs:
+        b.submit(r)
+    _reset_counts(kernels)
+    probes = []
+    while not b.idle:
+        b.step()
+        if b.step_idx <= 3 and b.active:
+            probes += _probe_contexts(b, pa, mdl, engine, g)
+    _print_probes(probes)
+    launches = pa.paged_attention.launches
+    expect = cfg.num_layers * b.device_steps + len(probes)
+    print(f"paged_attention launches {launches} = {cfg.num_layers} layers x "
+          f"{b.device_steps} device steps + {len(probes)} probes -> "
+          f"{launches == expect}", flush=True)
+    if launches != expect:
+        _fail("paged_context's launches on the paged batcher")
+    if len({p["step"] for p in probes}) < 3:
+        _fail("fewer than three probe points on the paged batcher")
+    _compare_streams(mdl, cfg, params, reqs,
+                     {r.rid: list(r.tokens) for r in b.completed}, want,
+                     "paged")
+    result["paged_probes"] = len(probes)
+    result["paged_probe_err"] = max(p["err"] for p in probes)
+    del b, probes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_traffic(TR) -> dict:
+    """The traffic benchmark's replays at full size (host only), from
+    ``repro_torch.serve.traffic_replay``, against the benchmark's bars."""
+    print("== phase 31: the model-free traffic replay at the benchmark's "
+          "full size (host only: TrafficScheduler over symbolic pools, no "
+          "kernel and no device)", flush=True)
+    t0 = time.monotonic()
+    r = TR.run()
+    run_s = time.monotonic() - t0
+    sched, tuner, mgr = r["sched"], r["tuner"], r["sched"].monitor.manager
+    online = TR.window_cost(r["online"])
+    steady = {p: TR.window_cost(tr) for p, tr in r["fixed"].items()}
+    best = min(steady.values())
+    reduction = 1.0 - sched.peak_cache_pages / sched.dense_cache_pages
+    print(f"stream: {len(r['specs'])} requests over {len(r['online']) - 1} "
+          f"steps; admitted {sched.admitted}, completed {sched.completed}; "
+          f"online + {len(steady)} fixed replays {run_s:.2f} s", flush=True)
+    print(f"online: total {mgr.modeled_time:.2f}, steady {online:.4f} a "
+          f"step (last {TR.STEADY} steps); migrations {mgr.migrations}, "
+          f"hits {mgr.hits}, misses {mgr.misses}; tuner {tuner.state}, "
+          f"period {tuner.period}, history {tuner.history}", flush=True)
+    print("fixed (period: total, steady): " + ", ".join(
+        f"{p}: {tr[-1]:.2f}, {steady[p]:.4f}" for p, tr in
+        r["fixed"].items()), flush=True)
+    print(f"online steady / best fixed steady = {online / best:.4f} "
+          f"(bar 1.05); peak cache pages {sched.peak_cache_pages} vs dense "
+          f"{sched.dense_cache_pages}: {reduction * 100:.1f}% reduction "
+          "(bar 25%)", flush=True)
+
+    h = TR.hostile()
+    hsched, htuner = h["sched"], h["tuner"]
+    regrets = {}
+    for i, name in enumerate(TR.HOSTILE_PHASES):
+        e = (i + 1) * TR.HOSTILE_PHASE_STEPS
+        cost = {p: TR.window_cost(tr, e) for p, tr in h["fixed"].items()}
+        best_p = min(cost.values())
+        regrets[name] = TR.window_cost(h["online"], e) / best_p
+        print(f"hostile {name}: online {TR.window_cost(h['online'], e):.4f}"
+              f" a step vs best fixed {best_p:.4f} (" + ", ".join(
+                  f"{p}: {c:.4f}" for p, c in cost.items())
+              + f"): regret {regrets[name]:.4f}", flush=True)
+    print(f"hostile: {len(h['specs'])} requests, admitted "
+          f"{hsched.admitted}, completed {hsched.completed}; tuner "
+          f"{htuner.state}, period {htuner.period}, {htuner.retunes} tune "
+          f"cycles, {htuner.guard_trips} guard trips, history "
+          f"{htuner.history}; max regret {max(regrets.values()):.4f} "
+          "(bar 1.15)", flush=True)
+    if not online <= 1.05 * best:
+        _fail(f"online steady {online:.4f} above 1.05 x the best fixed "
+              f"{best:.4f}")
+    if not reduction >= 0.25:
+        _fail(f"cache reduction {reduction:.3f} below 25%")
+    if not max(regrets.values()) <= 1.15:
+        _fail(f"hostile regret {max(regrets.values()):.4f} above 1.15")
+    return dict(online_steady=online, best_fixed_steady=best,
+                history=list(tuner.history),
+                peak_pages=sched.peak_cache_pages,
+                dense_pages=sched.dense_cache_pages,
+                hostile_max_regret=max(regrets.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is visible", flush=True)
@@ -2660,6 +3044,7 @@ def main() -> int:
     from repro_torch.obs import telemetry
     from repro_torch.serve import engine
     from repro_torch.serve import sched as S
+    from repro_torch.serve import traffic_replay as TR
 
     kernels = (pa, ph, ss, pam, fa, re_)
     secs = {}
@@ -2675,8 +3060,14 @@ def main() -> int:
     card = timed("device", phase_device)
     timed("build", phase_build, _build, kernels)
     err = timed("paged_attention check", phase_kernel_check, pa)
-    serve = timed("serving", phase_serve, C, mdl, pa, S, memtier, cori,
-                  telemetry, kernels)
+    serve, qcfg, params, streams = timed(
+        "serving", phase_serve, C, mdl, pa, S, memtier, cori, telemetry,
+        kernels)
+    dense = timed("dense batcher", phase_dense, mdl, pa, S, memtier, cori,
+                  engine, telemetry, kernels, qcfg, params, streams)
+    held = torch.cuda.memory_allocated()
+    del params       # the deepseek phase needs the card
+    _check_freed(held)
     timed("parity", phase_parity, C, mdl, S, memtier, cori, engine)
     timing = timed("paged_attention timing", phase_timing, pa)
     errs = timed("offline kernels check", phase_offline_kernels, ph, ss,
@@ -2734,10 +3125,12 @@ def main() -> int:
     _check_freed(held)
     timed("prefix parity", phase_prefix_parity, C, mdl, S, memtier, cori,
           engine)
+    traffic = timed("traffic replay", phase_traffic, TR)
     main_case = flash_timing.pop("float32 window 1024")
     musicgen_flash = flash_timing.pop("musicgen-large prefill float32 causal")
     main_routed = routed.pop("deepseek-v3-671b")
-    print(f"card: {card}; serving {serve}; offline {offline}; deepseek "
+    print(f"card: {card}; serving {serve}; dense {dense}; traffic "
+          f"{traffic}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
           f"{xlstm}; olmoe {olmoe}; musicgen {musicgen}; nemotron "
           f"{nemotron}; paligemma {paligemma}; flash timing beside float32 "
@@ -2769,7 +3162,9 @@ def main() -> int:
                  launches=nemotron["graph"]["launches"]),
                  "paligemma-3b decode (phase 27)": dict(
                  timing["paligemma-3b"],
-                 launches=paligemma["graph"]["launches"])}),
+                 launches=paligemma["graph"]["launches"]),
+                 "qwen3-14b paged_context over the mirrored single-layer "
+                 "pool, B=1 (phase 30)": dense["probe"]}),
         dict(name="page_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/page_hist.cu",
              replaces="src/repro/kernels/page_hist.py:45",

@@ -2,8 +2,9 @@
 frequency generation + tuning (``cori``), the trace-driven hybrid-memory
 simulator (``sim``, on the ``page_hist`` and ``sim_scan`` kernels),
 application trace generators (``traces``), prior-work baselines
-(``baselines``) and the end-to-end pipeline (``pipeline``).  The
-reference's ``traffic`` module comes with its own slice."""
+(``baselines``), the end-to-end pipeline (``pipeline``) and the serving
+traffic streams the model-free ``serve.sched.TrafficScheduler`` replays
+(``traffic``: Poisson arrivals, mix shifts and the hostile shapes)."""
 from repro_torch.core.baselines import (BASELINE_ORDERS, TABLE_I_PERIODS,
                                         base_candidates, ordered_candidates,
                                         table_i_periods_for)
@@ -22,14 +23,24 @@ from repro_torch.core.sim import (SCHEDULERS, SimConfig, SimResult, TraceBins,
                                   simulate_reference, sweep, sweep_loop)
 from repro_torch.core.traces import (TRACE_GENERATORS, Trace,
                                      available_traces, generate)
+from repro_torch.core.traffic import (RequestSpec, correlated_burst_stream,
+                                      diurnal_stream, flash_crowd_stream,
+                                      invert_kinds, mix_inversion_stream,
+                                      modulated_request_stream,
+                                      poisson_request_stream,
+                                      shifting_mix_stream)
 
 __all__ = [
-    "AppStudy", "BASELINE_ORDERS", "CoriRun", "OnlineTuner", "ReuseHistogram",
+    "AppStudy", "BASELINE_ORDERS", "CoriRun", "OnlineTuner", "RequestSpec",
+    "ReuseHistogram",
     "SCHEDULERS", "SimConfig", "SimResult", "StreamingReuseCollector",
     "TRACE_GENERATORS", "Trace", "TraceBins", "Tuner", "TuneResult",
     "available_traces", "base_candidates", "baseline_trials",
     "baseline_trials_all", "bin_trace", "candidate_periods",
-    "dominant_reuse", "exhaustive_periods", "generate",
+    "correlated_burst_stream", "diurnal_stream", "dominant_reuse",
+    "flash_crowd_stream", "invert_kinds", "mix_inversion_stream",
+    "modulated_request_stream", "poisson_request_stream",
+    "shifting_mix_stream", "exhaustive_periods", "generate",
     "loop_duration_histogram", "optimal_runtime", "ordered_candidates",
     "prune_insignificant", "reuse_distance_histogram", "reuse_distances",
     "run_cori", "simulate", "simulate_reference", "study", "sweep",

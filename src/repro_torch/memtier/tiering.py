@@ -130,18 +130,30 @@ class SharedPagedPools:
     HBM slot (-1 = host-only); ``table`` turns a request's page ids into
     the physical table the paged-attention kernel reads.
 
-    Symbolic until ``attach_layered`` gives it storage: one leaf set per
-    slot -- (k, v) [.., page, KV, D], MLA (ckv, krope) [.., page,
-    kv_lora|rope] or a recurrent cell's ``state`` [.., state_dim] --
-    host [R, n_logical, ...] and HBM [R, hbm_pages, ...], all indirected
-    by the single ``slot_of`` table: a logical page is resident for every
-    layer or for none."""
+    Storage comes in two forms, both indirected by the single ``slot_of``
+    table (a logical page is resident for every leaf or for none):
 
-    def __init__(self, n_logical: int, hbm_pages: int):
+      * the *legacy single-layer* pair (``create`` with a page geometry):
+        ``k_host``/``v_host`` [n_logical, page, KV, D] and
+        ``k_hbm``/``v_hbm`` [hbm_pages, page, KV, D], which the dense
+        batcher's ``mirror_pages`` fills page by page (``write_page``);
+      * the *layered* leaves ``attach_layered`` adds for the fully-paged
+        decode: one leaf set per slot -- (k, v) [.., page, KV, D], MLA
+        (ckv, krope) [.., page, kv_lora|rope] or a recurrent cell's
+        ``state`` [.., state_dim] --, host [R, n_logical, ...] and HBM
+        [R, hbm_pages, ...].
+
+    With neither the pools are symbolic: only the residency and
+    allocation bookkeeping runs (the model-free ``TrafficScheduler``)."""
+
+    def __init__(self, n_logical: int, hbm_pages: int, *, k_host=None,
+                 v_host=None, k_hbm=None, v_hbm=None):
         if hbm_pages > n_logical:
             raise ValueError("HBM slot pool larger than the logical space")
         self.n_logical = int(n_logical)
         self.hbm_pages = int(hbm_pages)
+        self.k_host, self.v_host = k_host, v_host
+        self.k_hbm, self.v_hbm = k_hbm, v_hbm
         self.kv_layers: Optional[Dict[str, List[torch.Tensor]]] = None
         #: the same leaves with their sink page (``attach_layered``)
         self.kv_with_sink: Optional[Dict[str, List[torch.Tensor]]] = None
@@ -161,12 +173,26 @@ class SharedPagedPools:
         self._slot_tick = np.zeros((hbm_pages,), np.int64)
         self._tick = 0
         self.allocated_pages = 0
+        #: the most pages ever allocated at once (bucket-rounded rows: what
+        #: the traffic replay compares with the dense provisioning)
+        self.peak_allocated = 0
 
     @classmethod
-    def create(cls, n_logical: int, hbm_pages: int) -> "SharedPagedPools":
-        """Symbolic pools (bookkeeping only); ``attach_layered`` adds the
-        page storage."""
-        return cls(n_logical, hbm_pages)
+    def create(cls, n_logical: int, hbm_pages: int, *,
+               page_size: Optional[int] = None, kv_heads: int = 0,
+               head_dim: int = 0, device=None) -> "SharedPagedPools":
+        """The legacy single-layer pair, float32 and zero-filled on
+        ``device`` (default cuda), when a page geometry is given; symbolic
+        pools otherwise (``attach_layered`` may add layered storage to
+        either)."""
+        if page_size is None:
+            return cls(n_logical, hbm_pages)
+        dev = resolve_device(device)
+        zeros = lambda n: torch.zeros((n, page_size, kv_heads, head_dim),
+                                      dtype=torch.float32, device=dev)
+        return cls(n_logical, hbm_pages, k_host=zeros(n_logical),
+                   v_host=zeros(n_logical), k_hbm=zeros(hbm_pages),
+                   v_hbm=zeros(hbm_pages))
 
     def attach_layered(self, layer_specs: Sequence[Tuple[int, Dict[str,
                        Tuple[int, ...]]]], *, dtype=torch.float32,
@@ -222,6 +248,10 @@ class SharedPagedPools:
 
     # -- views ---------------------------------------------------------------
     @property
+    def physical(self) -> bool:
+        return self.k_host is not None or self.kv_layers is not None
+
+    @property
     def resident_mask(self) -> np.ndarray:
         return self.slot_of >= 0
 
@@ -247,6 +277,7 @@ class SharedPagedPools:
                           np.int64)
         self.owner_of[gids] = owner
         self.allocated_pages += n_pages
+        self.peak_allocated = max(self.peak_allocated, self.allocated_pages)
         if (r := _obs.RECORDER).enabled:
             r.count("pool.alloc_pages", n_pages)
             r.gauge("pool.allocated_frac",
@@ -287,27 +318,48 @@ class SharedPagedPools:
         return int(held.size)
 
     # -- physical data path --------------------------------------------------
+    def write_page(self, gid: int, k_page, v_page) -> None:
+        """Write one logical page's k/v rows [page, KV, D] into the legacy
+        pair in place: the host copy, and the HBM slot when the page is
+        resident (the write-through of a dense decode step's append).  A
+        no-op without the legacy pair; the layered leaves are written by
+        the paged decode itself."""
+        if self.k_host is None:
+            return
+        self.k_host[gid] = k_page
+        self.v_host[gid] = v_page
+        slot = int(self.slot_of[gid])
+        if slot >= 0:
+            self.k_hbm[slot] = k_page
+            self.v_hbm[slot] = v_page
+
     def touch_slots(self, slots: np.ndarray) -> None:
         """Mark slots recently used for the demand-fetch victim choice."""
         self._tick += 1
         self._slot_tick[np.asarray(slots, np.int64)] = self._tick
 
     def migrate_slots(self, slots, logicals) -> None:
-        """Copy host pages ``logicals`` into HBM ``slots`` for every leaf of
-        every layer: the page, not the (page, layer) pair, is the
-        migration unit."""
+        """Copy host pages ``logicals`` into HBM ``slots`` on every physical
+        pool: the legacy pair and every leaf of every layer (the page, not
+        the (page, layer) pair, is the migration unit)."""
         if len(slots) == 0:
             return
         if (plan := self.fault_plan).enabled \
                 and plan.fires("pool.migrate_fail") is not None:
             raise MigrationError(
                 f"injected migrate_slots failure ({len(slots)} pages)")
+        idx = lambda dev, a: torch.as_tensor(np.asarray(a, np.int64),
+                                             device=dev)
+        if self.k_host is not None:
+            dev = self.k_host.device
+            sl, lg = idx(dev, slots), idx(dev, logicals)
+            self.k_hbm[sl] = self.k_host[lg]       # in place
+            self.v_hbm[sl] = self.v_host[lg]
         if self.kv_layers is None:
             return
         dev = next(t.device for leaves in self.kv_layers.values()
                    for t in leaves if t is not None)
-        sl = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
-        lg = torch.as_tensor(np.asarray(logicals, np.int64), device=dev)
+        sl, lg = idx(dev, slots), idx(dev, logicals)
         for name in [k for k in self.kv_layers if k.endswith("_hbm")]:
             hosts = self.kv_layers[name[:-4] + "_host"]
             for hbm, host in zip(self.kv_layers[name], hosts):

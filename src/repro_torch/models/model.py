@@ -52,11 +52,12 @@ from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = ["Slot", "CrossAttention", "Transformer", "init", "forward",
            "prefill", "pad_cache", "init_cache", "decode_step",
-           "prefill_batched",
-           "batched_prefill_supported", "state_slot_meta", "state_dim",
-           "pack_state", "unpack_state", "has_state_pages", "has_attention",
-           "slot_leaf_specs", "slot_leaf_names", "decode_step_paged",
-           "decode_macro_step", "decode_body", "MacroCarry", "macro_state",
+           "prefill_batched", "row_cache_from_batched",
+           "batched_prefill_supported", "state_slot_meta", "attn_slot_meta",
+           "attn_slot_index", "state_dim", "pack_state", "unpack_state",
+           "has_state_pages", "has_attention", "slot_leaf_specs",
+           "slot_leaf_names", "decode_step_paged", "decode_macro_step",
+           "decode_body", "MacroCarry", "macro_state",
            "sample", "uniform"]
 
 
@@ -566,6 +567,42 @@ def prefill_batched(params, cfg: ModelConfig, tokens, lengths, *,
     return logits, _stack_cache(cfg, entries, pos)
 
 
+def row_cache_from_batched(cache, cfg: ModelConfig, bi: int, length: int,
+                           max_len: int):
+    """Request ``bi`` of a ``prefill_batched`` cache as one row of the
+    packed dense cache (``init_cache``): every leaf ``[R, cap, ...]`` with
+    ``cap`` = ``max_len``, or ``min(window, max_len)`` on local slots,
+    whose ring keeps slot == pos % cap (the last ``cap`` positions when
+    ``length`` passes it), and ``pos`` -1 past ``length``.  Equal to
+    per-request ``prefill`` + ``pad_cache`` at every position attention
+    reads; the rows at ``pos`` -1 hold whatever the padded timeline had
+    there, as the reference's."""
+    segs = []
+    for si, (pattern, repeats) in enumerate(cfg.segments):
+        slots = []
+        for j, kind_s in enumerate(pattern):
+            e = cache["segments"][si][j]
+            window = _window(cfg, parse_kind(kind_s))
+            cap = min(window, max_len) if window > 0 else max_len
+            dev = e["pos"].device
+            col = torch.arange(cap, device=dev)
+            if length > cap:
+                # the window ring: slot i holds the one in-window position
+                # == i (mod cap), which decode's ring overwrite keeps
+                lo = length - cap
+                idx = lo + (col - lo) % cap
+                pos = idx
+            else:
+                idx = col.clamp_max(e["pos"].shape[2] - 1)
+                pos = torch.where(col < length, col, torch.full_like(col, -1))
+            row = {name: a[:, bi, idx] for name, a in e.items()
+                   if name != "pos"}
+            row["pos"] = pos.expand(repeats, cap).to(e["pos"].dtype)
+            slots.append(row)
+        segs.append(slots)
+    return {"segments": segs}
+
+
 # ---------------------------------------------------------------------------
 # fully-paged decode over the shared page pools
 # ---------------------------------------------------------------------------
@@ -580,6 +617,23 @@ def state_slot_meta(cfg: ModelConfig):
             kind = parse_kind(kind_s)
             out.append((si, j, repeats, _window(cfg, kind), kind))
     return out
+
+
+def attn_slot_meta(cfg: ModelConfig):
+    """The attention subset of ``state_slot_meta`` (same tuple layout)."""
+    return [m for m in state_slot_meta(cfg) if m[4].is_attention]
+
+
+def attn_slot_index(cfg: ModelConfig, si: int, j: int) -> int:
+    """Index of segment ``si`` slot ``j`` in the ``state_slot_meta`` order
+    (its leaf index in the shared pools' layered storage).  Raises
+    ``ValueError`` unless that slot is an attention slot."""
+    for i, (si_, j_, _, _, kind) in enumerate(state_slot_meta(cfg)):
+        if (si_, j_) == (si, j):
+            if not kind.is_attention:
+                break
+            return i
+    raise ValueError(f"({si}, {j}) is not an attention slot of {cfg.name}")
 
 
 def state_dim(cfg: ModelConfig, kind: LayerKind) -> int:

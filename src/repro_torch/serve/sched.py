@@ -1,51 +1,70 @@
 """Continuous-batching serving scheduler over one shared KV page pool (the
-counterpart of ``repro/serve/sched.py`` for the fully-paged, synchronous
-loop).
+counterpart of ``repro/serve/sched.py`` for its synchronous loop).
 
   * ``TrafficMonitor`` merges per-request page masses into the global
     logical-page space and feeds one ``TieringManager`` + ``OnlineTuner``
     for the whole mix -- the aggregation point between the scheduler and
     Cori.
   * ``ContinuousBatcher`` admits requests between decode steps (a step's
-    joiners prefill as one packed forward pass and write their pages
-    straight into the pool; with recurrent cells, one prefill per request,
-    its final cell states packed into the request's state page), decodes
-    the request set with every attention layer reading the pool through
-    the paged-attention kernel and every recurrent cell reading and
-    writing its state page, and retires requests on EOS or length,
-    returning their pages.  A ``prefix_len`` config's shared prefix
-    (PaliGemma's image tokens) is prefilled once into read-only pages
-    that every row's table maps ahead of its own pages.  By default
-    it runs macro steps: one macro per movement period, with one monitor
-    feed and one tiering boundary per macro, and the period the tuner
-    derives is the length of the next macro.  A macro runs by one of two
-    routes, chosen at construction from the device (``decode_route``):
-    the *graph* route (on a card, for every config) replays one captured
-    decode step ``n_steps`` times (``models.graphs.DecodeGraph``) and
-    syncs with the host once per macro; the *eager* route (on the CPU,
-    or when asked) runs the same step body from Python
-    (``model.decode_macro_step``).
+    joiners prefill as one packed forward pass; with recurrent cells, one
+    prefill per request), decodes the request set and retires requests
+    on EOS or length, returning their pages.  Two data paths:
+
+      - *fully paged* (the default whenever a monitor is attached): the
+        pool is the only state store.  A joiner's pages are written
+        straight into it, every attention layer reads it through the
+        paged-attention kernel and every recurrent cell reads and writes
+        its state page; a ``prefix_len`` config's shared prefix
+        (PaliGemma's image tokens) is prefilled once into read-only pages
+        that every row's table maps ahead of its own pages.  By default
+        it runs macro steps: one macro per movement period, with one
+        monitor feed and one tiering boundary per macro, and the period
+        the tuner derives is the length of the next macro.  A macro runs
+        by one of two routes, chosen at construction from the device
+        (``decode_route``): the *graph* route (on a card, for every
+        config) replays one captured decode step ``n_steps`` times
+        (``models.graphs.DecodeGraph``) and syncs with the host once per
+        macro; the *eager* route (on the CPU, or when asked) runs the
+        same step body from Python (``model.decode_macro_step``).
+      - *dense* (``paged=False``, the baseline the paged path is measured
+        against): ``max_active`` rows share one packed cache of
+        ``max_len`` positions (``model.init_cache``) and decode one token
+        a step (``model.decode_step``), eagerly on every device.  With a
+        monitor, the monitor layer's page masses are recomputed each step
+        (``engine.make_monitor``) and feed the tiering; with
+        ``mirror_pages`` that layer's pages are written through into the
+        pools' legacy single-layer pair, so ``paged_context`` can check
+        the paged-attention kernel's gather from the shared HBM pool.
+
+  * ``TrafficScheduler``, the model-free twin: each request is a
+    synthetic per-step page-mass pattern (``memtier.workload``, by the
+    kind ``core.traffic`` draws), so thousands of scheduler steps replay
+    without touching KV bytes, with the batcher's admission, bucket-
+    rounded allocation, merge and retirement.
 
 Invariants kept from the reference: page ids are released everywhere
 (pool, manager, tuner) before they can recycle; tiering ranks only
-allocated pages; every page a macro can touch is HBM-resident before it
-launches; greedy streams equal ``engine.generate``'s.  The pipelined
-loop, chunked admission, preemption, shedding, the dense path and the
-model-free ``TrafficScheduler`` are later slices of the port.
+allocated pages; every page a paged decode can touch is HBM-resident
+before it launches; greedy and sampled streams equal
+``engine.generate``'s on every path.  The pipelined loop, chunked
+admission, preemption and the fault ladder are later slices of the port.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import cori
+from repro_torch.core.traffic import RequestSpec
 from repro_torch.ft.monitor import StepTimer
+from repro_torch.kernels import ops
+from repro_torch.memtier import workload as W
 from repro_torch.memtier.tiering import (PAGE_DROP, SharedPagedPools,
                                          TieringManager, bucket_pages,
                                          write_pages_batched,
@@ -53,8 +72,10 @@ from repro_torch.memtier.tiering import (PAGE_DROP, SharedPagedPools,
 from repro_torch.models import graphs
 from repro_torch.models import model as mdl
 from repro_torch.obs import telemetry as _obs
+from repro_torch.serve import engine
 
-__all__ = ["Request", "TrafficMonitor", "ContinuousBatcher", "decode_route",
+__all__ = ["Request", "TrafficMonitor", "ContinuousBatcher",
+           "TrafficScheduler", "WORKLOAD_KINDS", "decode_route",
            "pack_prompts"]
 
 
@@ -219,26 +240,42 @@ class Request:
 
 
 class ContinuousBatcher:
-    """Continuous batching of ``max_active`` rows, fully paged.
+    """Continuous batching of ``max_active`` rows.
 
-    Each request's token pages occupy a bucket-rounded run of global pages
-    (``bucket_pages``), and with recurrent cells one more page holds its
-    packed cell states, at the last column of its tables, past every
-    token position (pure-recurrent configs keep no token pages); every
-    layer decodes through the pool's ``slot_of`` tables
+    *Fully paged* (``paged=True``, the default whenever a monitor is
+    attached): each request's token pages occupy a bucket-rounded run of
+    global pages (``bucket_pages``), and with recurrent cells one more
+    page holds its packed cell states, at the last column of its tables,
+    past every token position (pure-recurrent configs keep no token
+    pages); every layer decodes through the pool's ``slot_of`` tables
     (``model.decode_step_paged`` per token, or a macro per movement
-    period with ``macro=True``, the default), and the per-page masses the
-    tuner reads come from every layer of the decode itself (a recurrent
-    cell's is a unit touch on its state page).  Before each launch every
-    page the decode can touch is demand-fetched into HBM (charged as
-    misses); admission is gated so the in-flight exact footprint fits the
-    HBM slot pool.  Runs
-    on ``device`` (default cuda), where the parameters must already live.
+    period with ``macro=True``, the paged default), and the per-page
+    masses the tuner reads come from every layer of the decode itself (a
+    recurrent cell's is a unit touch on its state page).  Before each
+    launch every page the decode can touch is demand-fetched into HBM
+    (charged as misses); admission is gated so the in-flight exact
+    footprint fits the HBM slot pool.
 
-    ``route`` is the macro's route, fixed at construction
-    (``decode_route``): ``"graph"`` on a CUDA device unless
-    ``eager=True``; ``"eager"`` otherwise (and for the per-token path,
-    which syncs once a token and has no graph).
+    *Dense* (``paged=False``, or no monitor): one packed float32 cache of
+    ``max_active`` x ``max_len`` positions, one ``model.decode_step`` a
+    step for the whole row set, run eagerly on every device (the graph
+    route is the paged macro's).  A request holds
+    ``bucket_pages(ceil((prefix + total_len) / page_size))`` pages of its
+    own when a monitor is attached; each step the monitor layer's masses
+    over the current cache (``engine.make_monitor``, one host read) are
+    merged over each request's exact pages and fed to the monitor before
+    the decode.  ``mirror_pages=True`` arms only on the dense path, with
+    a monitor whose pools hold the legacy single-layer pair
+    (``SharedPagedPools.create`` with a page geometry): the monitor
+    layer's pages are then written through into that pair -- the prompt's
+    pages at admission, the page just written after each step -- for
+    ``paged_context``.
+
+    Runs on ``device`` (default cuda), where the parameters must already
+    live.  ``route`` is fixed at construction (``decode_route``):
+    ``"graph"`` for paged macro steps on a CUDA device unless
+    ``eager=True``; ``"eager"`` otherwise (the per-token paged path and
+    the dense path).
 
     ``cond`` ([T, d] or [1, T, d]) is the serving session's shared
     cross-attention conditioning (``.xattn`` configs, musicgen-style): it
@@ -247,19 +284,23 @@ class ContinuousBatcher:
     graph reads the same buffer on every replay.
 
     ``extra_embeds`` ([P, d] or [1, P, d]) is the shared prefix, required
-    when ``cfg.prefix_len`` is P > 0 (a multiple of ``page_size``).  Its
-    P / page_size pages are allocated (owner -1) and prefilled once here;
-    every row's table maps them at its first columns, its own pages
-    follow, and a request's positions count from P.  Each admission's
-    packed forward still runs over the prefix (the reference's; its
-    cache rows for the prefix are dropped), and the prefix pages, owned
-    by no request, are never ranked into the tiering's desired set.
+    when ``cfg.prefix_len`` is P > 0 (a multiple of ``page_size``).  On
+    the paged path its P / page_size pages are allocated (owner -1) and
+    prefilled once here; every row's table maps them at its first
+    columns, its own pages follow, and a request's positions count from
+    P.  Each admission's packed forward still runs over the prefix (the
+    reference's; its cache rows for the prefix are dropped), and the
+    prefix pages, owned by no request, are never ranked into the
+    tiering's desired set.  On the dense path the prefix is part of every
+    row's cache and of its own pages.
     """
 
-    def __init__(self, params, cfg, *, monitor: TrafficMonitor,
-                 max_active: int = 4, max_len: int = 128,
-                 page_size: int = 16, macro: bool = True, eager: bool = False,
-                 cond=None, extra_embeds=None, device=None):
+    def __init__(self, params, cfg, *, monitor: Optional[TrafficMonitor]
+                 = None, max_active: int = 4, max_len: int = 128,
+                 page_size: int = 16, paged: Optional[bool] = None,
+                 mirror_pages: bool = False, macro: Optional[bool] = None,
+                 eager: bool = False, cond=None, extra_embeds=None,
+                 device=None):
         mdl.check_supported(cfg)
         self.device = resolve_device(device)
         if params.tok.device != self.device:
@@ -270,7 +311,19 @@ class ContinuousBatcher:
         self.max_len = -(-max_len // page_size) * page_size
         self.max_active = max_active
         self.monitor = monitor
-        self.macro = bool(macro)
+        self.paged = monitor is not None if paged is None else bool(paged)
+        if self.paged and monitor is None:
+            raise ValueError("fully-paged decode needs a TrafficMonitor "
+                             f"({cfg.name})")
+        self.macro = self.paged if macro is None else bool(macro)
+        if self.macro and not self.paged:
+            raise ValueError("macro-step decode runs on the fully-paged "
+                             "path only")
+        # the write-through mirror needs the legacy single-layer pair; a
+        # layered-only pool is physical but has none
+        self.mirror_pages = (not self.paged and mirror_pages
+                             and monitor is not None
+                             and monitor.pools.k_host is not None)
         self._has_state = mdl.has_state_pages(cfg)
         self._has_attn = mdl.has_attention(cfg)
         self._state_extra = 1 if self._has_state else 0
@@ -321,13 +374,41 @@ class ContinuousBatcher:
         #: rows freeze inside the graph), ``decode_steps`` on the eager route
         self.device_steps = 0
         self.completed: List[Request] = []
+        self.route = decode_route(self.device, macro=self.macro,
+                                  eager=eager)
+        self._graph = None
+        self.cache = None
+        if self.paged:
+            self._init_paged()
+        else:
+            # prefill produces float32 caches: the packed cache matches
+            self.cache = mdl.init_cache(cfg, max_active, self.max_len,
+                                        dtype=torch.float32,
+                                        device=self.device)
+        self._mon_fn = (engine.make_monitor(params, cfg, page_size,
+                                            self.n_row_pages)
+                        if monitor is not None and not self.paged else None)
+        # the monitor slot exists only for configs with a full-attention
+        # layer; the paged path needs it only for ``paged_context``
+        try:
+            self._si, self._sj = engine.monitor_slot(cfg)
+        except ValueError:
+            self._si = self._sj = None
+        if self.mirror_pages and self._si is None:
+            raise ValueError(f"{cfg.name}: mirror_pages needs a "
+                             "full-attention monitor layer")
 
-        pools = monitor.pools
+    def _init_paged(self) -> None:
+        """The paged path's state: layered pool leaves, the shared prefix
+        pages, the static device page tables and, on the graph route, the
+        captured decode step."""
+        pools = self.monitor.pools
         if pools.kv_layers is None:
-            pools.attach_layered(mdl.slot_leaf_specs(cfg, page_size),
+            pools.attach_layered(mdl.slot_leaf_specs(self.cfg,
+                                                     self.page_size),
                                  dtype=torch.float32, device=self.device)
         self._hbm_need = 0     # exact pages the in-flight set can touch
-        self._gid_tables = np.full((max_active, self.n_row_pages), -1,
+        self._gid_tables = np.full((self.max_active, self.n_row_pages), -1,
                                    np.int32)
         # the shared read-only prefix: allocated and prefilled once; every
         # row's table maps these pages
@@ -347,38 +428,48 @@ class ContinuousBatcher:
         self._rows_epoch = 0
         self._tables_key = None
         self._tables_dev = tuple(
-            torch.full((max_active, self.n_row_pages), -1, dtype=torch.int32,
-                       device=self.device) for _ in range(2))
+            torch.full((self.max_active, self.n_row_pages), -1,
+                       dtype=torch.int32, device=self.device)
+            for _ in range(2))
         # every row's state page sits at the fixed last table column
-        self._state_cols = (torch.full((max_active,), self.n_row_pages - 1,
+        self._state_cols = (torch.full((self.max_active,),
+                                       self.n_row_pages - 1,
                                        dtype=torch.int64, device=self.device)
                             if self._has_state else None)
-        self.route = decode_route(self.device, macro=self.macro,
-                                  eager=eager)
-        self._graph = None
         if self.route == "graph":
             self._graph = graphs.DecodeGraph(
-                params, cfg, pools.kv_with_sink, *self._tables_dev,
-                max_steps=bucket_pages(self.max_len), page_size=page_size,
-                state_cols=self._state_cols, cond=self._cond_rows)
+                self.params, self.cfg, pools.kv_with_sink,
+                *self._tables_dev, max_steps=bucket_pages(self.max_len),
+                page_size=self.page_size, state_cols=self._state_cols,
+                cond=self._cond_rows)
 
     # -- admission -----------------------------------------------------------
     def _pages_kv_exact(self, req: Request) -> int:
-        """Exact token pages the request's positions span (none without
-        attention layers)."""
+        """Exact token pages the request's own positions span: on the
+        paged path none without attention layers, and the shared prefix
+        pages are mapped, not owned; on the dense path the prefix counts
+        (it is part of the row)."""
+        if not self.paged:
+            return -(-(self.prefix + req.total_len) // self.page_size)
         if not self._has_attn:
             return 0
         return -(-req.total_len // self.page_size)
 
     def _pages_exact(self, req: Request) -> int:
-        """Exact own-page footprint: token pages plus the state page."""
-        return self._pages_kv_exact(req) + self._state_extra
+        """Exact own-page footprint: token pages plus, paged, the state
+        page."""
+        return self._pages_kv_exact(req) + (self._state_extra if self.paged
+                                            else 0)
 
     def _pages_alloc(self, req: Request) -> int:
         """Bucket-rounded allocation size (power-of-two token pages, capped
         at one row less the shared prefix pages, plus the un-bucketed
-        state page): what the request actually holds in the shared
-        pool."""
+        state page; dense, capped at one row): what the request actually
+        holds in the shared pool (none without a monitor)."""
+        if self.monitor is None:
+            return 0
+        if not self.paged:
+            return bucket_pages(self._pages_exact(req), cap=self.n_row_pages)
         kv_exact = self._pages_kv_exact(req)
         cap = self.max_len // self.page_size - self._prefix_pages
         kv_alloc = bucket_pages(kv_exact, cap=cap) if kv_exact else 0
@@ -390,35 +481,43 @@ class ContinuousBatcher:
             raise ValueError(f"request {req.rid} needs "
                              f"{self.prefix + req.total_len} positions, "
                              f"cache rows hold {self.max_len}")
-        pools = self.monitor.pools
-        avail = pools.n_logical - self._prefix_pages
-        if self._pages_alloc(req) > avail:
-            raise ValueError(f"request {req.rid} needs "
-                             f"{self._pages_alloc(req)} pages, the logical "
-                             f"space holds {avail} beyond the shared prefix")
-        touched = self._prefix_pages + self._pages_exact(req)
-        if touched > pools.hbm_pages:
-            raise ValueError(f"request {req.rid} touches {touched} pages, "
-                             f"the HBM slot pool holds {pools.hbm_pages}")
+        if self.monitor is not None:
+            pools = self.monitor.pools
+            avail = pools.n_logical - self._prefix_pages
+            if self._pages_alloc(req) > avail:
+                # it could never admit, not even with the pool drained
+                raise ValueError(
+                    f"request {req.rid} needs {self._pages_alloc(req)} "
+                    f"pages, the logical space holds {avail} beyond the "
+                    "shared prefix")
+            touched = self._prefix_pages + self._pages_exact(req)
+            if self.paged and touched > pools.hbm_pages:
+                raise ValueError(f"request {req.rid} touches {touched} "
+                                 "pages, the HBM slot pool holds "
+                                 f"{pools.hbm_pages}")
         self.queue.append(req)
 
     def _admit(self) -> List[Tuple[int, int]]:
         batch: List[Request] = []
-        pools = self.monitor.pools
         while self.queue and self.rows_free:
             req = self.queue[0]
             n_exact = self._pages_exact(req)
-            if self._hbm_need + n_exact > pools.hbm_pages:
-                break                  # head-of-line: keep arrival order
-            gids = pools.alloc(self._pages_alloc(req), req.rid)
-            if gids is None:
-                break
+            gids = None
+            if self.monitor is not None:
+                pools = self.monitor.pools
+                if self.paged and (self._hbm_need + n_exact
+                                   > pools.hbm_pages):
+                    break              # head-of-line: keep arrival order
+                gids = pools.alloc(self._pages_alloc(req), req.rid)
+                if gids is None:
+                    break
             self.queue.popleft()
             req.row, req.gids, req.n_pages = self.rows_free.pop(), gids, \
                 n_exact
-            req.n_alloc = len(gids)
-            self._hbm_need += n_exact
-            self._map_row(req)
+            req.n_alloc = 0 if gids is None else len(gids)
+            if self.paged:
+                self._hbm_need += n_exact
+                self._map_row(req)
             batch.append(req)
         if not batch:
             return []
@@ -499,7 +598,8 @@ class ContinuousBatcher:
     def _prefill(self, batch: List[Request]) -> List[Tuple[int, int]]:
         """Prefill a step's joiners -- as one packed forward pass, or one
         request at a time for recurrent configs --, write their pages into
-        the pool, and sample each first token."""
+        the pool (paged) or their rows into the packed cache (dense), and
+        sample each first token."""
         plens = [len(r.prompt) for r in batch]
         if self._batched_prefill:
             toks, plens_p = pack_prompts([r.prompt for r in batch],
@@ -511,7 +611,13 @@ class ContinuousBatcher:
                 torch.as_tensor(toks, device=self.device),
                 torch.as_tensor(plens_p, device=self.device),
                 cond=rows(self._cond), extra_embeds=rows(self._ex))
-            self._write_prefill_pages(cache_b, batch, plens)
+            if self.paged:
+                self._write_prefill_pages(cache_b, batch, plens)
+            else:
+                for bi, req in enumerate(batch):
+                    self._write_row(req.row, mdl.row_cache_from_batched(
+                        cache_b, self.cfg, bi, self.prefix + plens[bi],
+                        self.max_len))
         else:
             rows = []
             for req in batch:
@@ -520,7 +626,13 @@ class ContinuousBatcher:
                     torch.as_tensor(req.prompt, dtype=torch.int64,
                                     device=self.device)[None],
                     cond=self._cond, extra_embeds=self._ex)
-                self._write_prefill_pages_row(cache1, req)
+                if self.paged:
+                    self._write_prefill_pages_row(cache1, req)
+                else:
+                    one = mdl.pad_cache(cache1, self.cfg, self.max_len)
+                    self._write_row(req.row, {"segments": [
+                        [{k: v[:, 0] for k, v in e.items()} for e in seg]
+                        for seg in one["segments"]]})
                 rows.append(logits)
             logits_b = torch.cat(rows)
         first = mdl.sample(logits_b[: len(batch), 0], *_upload(
@@ -536,9 +648,20 @@ class ContinuousBatcher:
             self.tok[req.row, 0] = tok
             self.pos[req.row] = self.prefix + plen
             self.active[req.row] = req
+            if self.mirror_pages:
+                self._mirror(req, range(-(-(self.prefix + plen)
+                                          // self.page_size)))
             if req.max_new_tokens <= 1 or tok == req.eos_id:
                 self._retire(req)
         return emitted
+
+    def _write_row(self, row: int, one) -> None:
+        """Install one request's cache (leaves [R, cap, ...], a recurrent
+        slot's state [R, ...]) as row ``row`` of the packed dense cache."""
+        for seg, seg1 in zip(self.cache["segments"], one["segments"]):
+            for e, e1 in zip(seg, seg1):
+                for name, a in e1.items():
+                    e[name][:, row] = a.to(e[name].dtype)
 
     def _write_prefill_pages(self, cache_b, batch: List[Request],
                              plens: List[int]) -> None:
@@ -643,8 +766,12 @@ class ContinuousBatcher:
         emitted = self._admit()
         self.step_idx += 1
         if self.active:
-            emitted += (self._step_paged_macro() if self.macro
-                        else self._step_paged())
+            if not self.paged:
+                emitted += self._step_dense()
+            elif self.macro:
+                emitted += self._step_paged_macro()
+            else:
+                emitted += self._step_paged()
         if track:
             r.observe("serve.step_s", time.monotonic() - t0)
         return emitted
@@ -668,6 +795,52 @@ class ContinuousBatcher:
             temps[row] = req.temperature
         return dict(cur=cur, seeds=seeds, iters=iters, emitted=emitted,
                     max_new=max_new, eos=eos, temps=temps)
+
+    def _step_dense(self) -> List[Tuple[int, int]]:
+        """One dense decode step: with a monitor, the monitor layer's
+        masses over the current cache (one host read), merged over each
+        request's exact pages and fed to the monitor; then one
+        ``decode_step`` for the whole row set, sampling on the device at
+        each row's (seed, iteration), one host read of the tokens, the
+        mirror of the page each row just wrote, retirement."""
+        rows = list(self.active.items())
+        track = (r := _obs.RECORDER).enabled
+        pos = _upload(self.device, self.pos)[0]
+        if self.monitor is not None:
+            t0 = time.monotonic() if track else 0.0
+            masses = _read_back(self._mon_fn(self.cache, self.tok, pos))[0]
+            merged = self.monitor.merge(
+                [(req.gids[: req.n_pages], masses[row, : req.n_pages])
+                 for row, req in rows])
+            self.monitor.on_step(merged, n_active=len(rows))
+            if track:
+                r.observe("serve.monitor_s", time.monotonic() - t0)
+        inp = self._row_inputs(rows)
+        temps, seeds, iters = _upload(self.device, inp["temps"],
+                                      inp["seeds"], inp["iters"] + 1)
+        logits, self.cache = mdl.decode_step(self.params, self.cfg,
+                                             self.cache, self.tok, pos,
+                                             cond=self._cond_rows)
+        new_tok = mdl.sample(logits[:, 0], temps, seeds, iters)
+        toks = _read_back(new_tok)[0].tolist()
+        # rows without a request decode too (their rows are rewritten at
+        # admission); their token is never read
+        self.tok = new_tok[:, None]
+        self.decode_steps += 1
+        self.device_steps += 1
+        emitted: List[Tuple[int, int]] = []
+        for row, req in rows:
+            written = int(self.pos[row])
+            self.pos[row] += 1
+            req._i += 1
+            req.tokens.append(toks[row])
+            emitted.append((req.rid, toks[row]))
+            if self.mirror_pages:
+                self._mirror(req, [written // self.page_size])
+            if (len(req.tokens) >= req.max_new_tokens
+                    or toks[row] == req.eos_id):
+                self._retire(req)
+        return emitted
 
     def _step_paged(self) -> List[Tuple[int, int]]:
         """One paged decode step: demand-fetch the in-flight working set,
@@ -805,12 +978,244 @@ class ContinuousBatcher:
         del self.active[req.row]
         self.rows_free.append(req.row)
         self.completed.append(req)
-        self._hbm_need -= req.n_pages
-        self._gid_tables[req.row, :] = -1
-        self._rows_epoch += 1
-        self.monitor.release(req.gids)
+        if self.paged:
+            self._hbm_need -= req.n_pages
+            self._gid_tables[req.row, :] = -1
+            self._rows_epoch += 1
+        if self.monitor is not None:
+            self.monitor.release(req.gids)
         if (r := _obs.RECORDER).enabled:
             r.emit("serve.retire", step=self.step_idx, rid=req.rid,
                    tokens=len(req.tokens), status=req.status,
                    deadline_ms=(time.monotonic() - req._t_submit) * 1e3)
             r.count("serve.retired")
+
+    # -- the shared pool's data path -----------------------------------------
+    def _mirror(self, req: Request, pages) -> None:
+        """Write the monitor layer's k/v rows of the request's ``pages``
+        (indices into its own pages; those past its exact footprint are
+        skipped) from the packed cache through into the pools' legacy
+        pair: only the touched pages cross, on the device."""
+        c = self.cache["segments"][self._si][self._sj]
+        ps = self.page_size
+        for p in pages:
+            if 0 <= p < req.n_pages:
+                rows = slice(p * ps, (p + 1) * ps)
+                self.monitor.pools.write_page(
+                    int(req.gids[p]), c["k"][-1, req.row, rows],
+                    c["v"][-1, req.row, rows])
+
+    @torch.no_grad()
+    def paged_context(self, rid: int, q) -> Tuple[torch.Tensor, int]:
+        """The monitor layer's attention context for in-flight request
+        ``rid`` and query ``q`` [1, H, D], gathered by
+        ``ops.paged_attention`` from the shared HBM pool through the
+        request's pages' ``slot_of`` slots.  The pages covering its
+        positions are demand-fetched first and charged to the manager as
+        misses at ``miss_penalty``.  On the paged path it reads the
+        monitor slot's layered HBM leaf (last repeat); on the dense path
+        the legacy pair ``mirror_pages`` fills.  On a CUDA pool this
+        launches the paged-attention kernel, on the CPU its plain version.
+        Returns (context [1, H, D], pages fetched)."""
+        if not (self.paged or self.mirror_pages):
+            raise ValueError("paged_context needs fully-paged decode or "
+                             "mirror_pages=True over physical pools: "
+                             "otherwise the shared pool holds no KV data")
+        if self._si is None:
+            raise ValueError(f"{self.cfg.name}: no full-attention layer "
+                             "to probe with paged_context")
+        req = next((r for r in self.active.values() if r.rid == rid), None)
+        if req is None:
+            raise KeyError(f"request {rid} is not in flight")
+        length = int(self.pos[req.row])
+        n = -(-length // self.page_size)
+        # paged: the pages covering [0, length) in table order (shared
+        # prefix first); dense: the request's own run
+        gids = req.table_gids[:n] if self.paged else req.gids[:n]
+        pools = self.monitor.pools
+        fetched = pools.ensure_resident(gids)
+        mgr = self.monitor.manager
+        mgr.misses += fetched
+        mgr.modeled_time += fetched * mgr.cfg.miss_penalty
+        if self.paged:
+            li = mdl.attn_slot_index(self.cfg, self._si, self._sj)
+            k_hbm = pools.kv_layers["k_hbm"][li][-1]
+            v_hbm = pools.kv_layers["v_hbm"][li][-1]
+        else:
+            k_hbm, v_hbm = pools.k_hbm, pools.v_hbm
+        table, lengths = _upload(
+            k_hbm.device, pools.table(gids).astype(np.int32)[None],
+            np.asarray([length], np.int32))
+        q = torch.as_tensor(q, dtype=k_hbm.dtype, device=k_hbm.device)
+        return ops.paged_attention(q, k_hbm, v_hbm, table, lengths), fetched
+
+
+# ---------------------------------------------------------------------------
+# model-free traffic replay (the same scheduling core, synthetic masses)
+# ---------------------------------------------------------------------------
+
+
+def _sink_pattern(spec: RequestSpec, n_pages: int) -> np.ndarray:
+    return W.attention_sink(spec.new_tokens, n_pages,
+                            sink_pages=min(2, n_pages),
+                            window_pages=min(4, n_pages),
+                            seed=spec.seed, drift_every=1)
+
+
+def _periodic_pattern(spec: RequestSpec, n_pages: int) -> np.ndarray:
+    span = max(1, min(8, n_pages - n_pages // 4))
+    return W.periodic_context(spec.new_tokens, n_pages, span_pages=span,
+                              period=16, seed=spec.seed)
+
+
+def _random_pattern(spec: RequestSpec, n_pages: int) -> np.ndarray:
+    return W.random_lookup(spec.new_tokens, n_pages,
+                           touches=min(3, n_pages), seed=spec.seed)
+
+
+#: a ``RequestSpec.kind`` -> its per-step page-mass pattern
+#: f32[new_tokens, n_pages]
+WORKLOAD_KINDS: Dict[str, Callable[[RequestSpec, int], np.ndarray]] = {
+    "sink": _sink_pattern,
+    "periodic": _periodic_pattern,
+    "random": _random_pattern,
+}
+
+
+@dataclasses.dataclass
+class _SynthActive:
+    spec: RequestSpec
+    gids: np.ndarray
+    pattern: np.ndarray                # [lifetime, n_pages]
+    t: int = 0
+
+
+class TrafficScheduler:
+    """Model-free continuous batching over a ``core.traffic`` request
+    stream: FIFO head-of-line admission of arrived requests into
+    ``max_active`` rows, bucket-rounded page-aligned allocation from the
+    shared pool, one merged mass feed through the ``TrafficMonitor`` a
+    step, retirement on length.  Deterministic given the stream, and
+    admission depends on neither residency nor period, so fixed-period
+    replays of one stream are directly comparable (the brute-force sweep
+    the online tuner is ranked against).
+
+    A request holds ``bucket_pages(exact, cap=row_pages)`` pages
+    (``bucket=False``: exactly its footprint); its mass pattern touches
+    only the exact footprint, the bucket tail is slack.  ``row_pages`` is
+    the longest request's page count, the row a packed dense cache would
+    provision, so ``dense_cache_pages`` is the baseline
+    ``peak_cache_pages`` is compared with.  A request that can never fit
+    the logical space is rejected instead of blocking the queue; with
+    ``ttl_steps``, one still queued ``ttl_steps`` after its arrival is
+    shed (status "expired")."""
+
+    def __init__(self, specs: Sequence[RequestSpec], monitor: TrafficMonitor,
+                 *, page_size: int = 16, max_active: int = 8,
+                 bucket: bool = True, ttl_steps: Optional[int] = None):
+        self.pending = collections.deque(
+            sorted(specs, key=lambda s: (s.arrival, s.rid)))
+        self.monitor = monitor
+        self.page_size = page_size
+        self.max_active = max_active
+        self.bucket = bucket
+        self.row_pages = max((s.n_pages(page_size) for s in specs),
+                             default=1)
+        self.ttl_steps = ttl_steps
+        self.active: List[_SynthActive] = []
+        self.now = 0
+        self.admitted = 0
+        self.completed = 0
+        self.rejected = 0
+        self.shed = 0
+
+    @property
+    def peak_cache_pages(self) -> int:
+        """The most pages allocated at once (bucket-rounded rows)."""
+        return self.monitor.pools.peak_allocated
+
+    @property
+    def dense_cache_pages(self) -> int:
+        """What a packed dense cache provisions up front: ``max_active``
+        rows of ``row_pages``, held for the whole run."""
+        return self.max_active * self.row_pages
+
+    def _pages_alloc(self, n_exact: int) -> int:
+        if not self.bucket:
+            return n_exact
+        return bucket_pages(n_exact, cap=max(self.row_pages, n_exact))
+
+    def step(self) -> None:
+        if self.ttl_steps is not None:
+            # the queue is arrival-sorted and the TTL uniform, so the
+            # expired requests are a prefix of it
+            while (self.pending
+                   and self.now > self.pending[0].arrival + self.ttl_steps):
+                spec = self.pending.popleft()
+                self.rejected += 1
+                self.shed += 1
+                if (r := _obs.RECORDER).enabled:
+                    r.emit("serve.shed", step=self.now, rid=spec.rid,
+                           reason="deadline", queue_depth=len(self.pending))
+                    r.emit("serve.retire", step=self.now, rid=spec.rid,
+                           tokens=0, status="expired", deadline_ms=0.0)
+                    r.count("serve.shed_total")
+                    r.count("serve.retired")
+        joiners = pages = 0
+        while (self.pending and self.pending[0].arrival <= self.now
+               and len(self.active) < self.max_active):
+            spec = self.pending[0]
+            n_pages = spec.n_pages(self.page_size)
+            n_alloc = self._pages_alloc(n_pages)
+            if n_alloc > self.monitor.pools.n_logical:
+                # it could never admit, not even with the pool drained
+                self.pending.popleft()
+                self.rejected += 1
+                continue
+            gids = self.monitor.pools.alloc(n_alloc, spec.rid)
+            if gids is None:           # head-of-line: keep arrival order
+                break
+            self.pending.popleft()
+            pattern = WORKLOAD_KINDS[spec.kind](spec, n_pages)
+            self.admitted += 1
+            joiners += 1
+            pages += n_alloc
+            if pattern.shape[0] == 0:      # no decode step: retire at once
+                self.monitor.release(gids)
+                self.completed += 1
+                continue
+            self.active.append(_SynthActive(spec, gids, pattern))
+        if joiners and (r := _obs.RECORDER).enabled:
+            r.emit("serve.admit", step=self.now, joiners=joiners,
+                   pages=pages, queue_depth=len(self.pending), wall_ms=0.0)
+            r.count("serve.admitted", joiners)
+            r.gauge("serve.queue_depth", len(self.pending))
+
+        # idle steps are not fed (as the batcher): a lull's near-zero cost
+        # would read as a phase change to the tuner
+        if self.active:
+            merged = self.monitor.merge(
+                [(a.gids[: a.pattern.shape[1]], a.pattern[a.t])
+                 for a in self.active])
+            self.monitor.on_step(merged, n_active=len(self.active))
+        self.now += 1
+
+        still: List[_SynthActive] = []
+        for a in self.active:
+            a.t += 1
+            if a.t >= a.pattern.shape[0]:
+                self.monitor.release(a.gids)
+                self.completed += 1
+                if (r := _obs.RECORDER).enabled:
+                    r.emit("serve.retire", step=self.now, rid=a.spec.rid,
+                           tokens=int(a.pattern.shape[0]),
+                           status="completed", deadline_ms=0.0)
+                    r.count("serve.retired")
+            else:
+                still.append(a)
+        self.active = still
+
+    def run(self, steps: int) -> "TrafficScheduler":
+        for _ in range(steps):
+            self.step()
+        return self

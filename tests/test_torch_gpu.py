@@ -1099,3 +1099,86 @@ def test_moe_graph_capture_makes_no_host_sync(kind):
         for a, b in zip(leaves, pools[1].kv_with_sink[k]):
             if a is not None:
                 assert torch.equal(a[:, :-1], b[:, :-1]), k
+
+
+# ---------------------------------------------------------------------------
+# ``paged_context``: kernel 1 over the pools' legacy single-layer pair (the
+# dense batcher's mirror) and over the layered monitor leaf (paged)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gqa", "prefix"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_paged_context_launches_kernel(kind, paged):
+    """Reduced qwen3-14b and paligemma-3b, float32, the dense batcher with
+    ``mirror_pages`` over physical pools and the fully-paged batcher:
+    every ``paged_context`` probe of an in-flight request launches the
+    paged kernel once and is within 1e-5 of the plain version over the
+    host pages through the request's logical ids; the dense streams equal
+    the graph route's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python -m pytest -m gpu)")
+    import numpy as np
+    from repro_torch.core.cori import OnlineTuner
+    from repro_torch.memtier.tiering import (SharedPagedPools, TierConfig,
+                                             TieringManager)
+    from repro_torch.models import model as TM
+    from repro_torch.serve import sched as TS
+    cfg, params = _graph_model(kind)
+    mon = TS.TrafficMonitor(
+        SharedPagedPools.create(48, 10, page_size=4,
+                                kv_heads=cfg.num_kv_heads,
+                                head_dim=cfg.head_dim, device="cuda"),
+        TieringManager(48, TierConfig(page_size=4, hbm_pages=10,
+                                      period_steps=2)),
+        OnlineTuner(48, default_period=2, profile_steps=8, trial_steps=4))
+    ex = None
+    if cfg.prefix_len:
+        ex = torch.randn((1, cfg.prefix_len, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(7))
+    b = TS.ContinuousBatcher(params, cfg, monitor=mon, max_active=2,
+                             max_len=32, page_size=4, paged=paged,
+                             mirror_pages=True, extra_embeds=ex,
+                             device="cuda")
+    assert b.mirror_pages != paged and b.route == ("graph" if paged
+                                                   else "eager")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (6, 9, 5, 11)]
+    new, temps = (6, 4, 9, 7), (0.0, 0.8, 0.0, 0.8)
+    for i in range(4):
+        b.submit(TS.Request(rid=i, prompt=prompts[i], max_new_tokens=new[i],
+                            temperature=temps[i], seed=100 + i))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    probes = 0
+    while not b.idle:
+        b.step()
+        for req in list(b.active.values()):
+            q = torch.randn((1, cfg.num_heads, cfg.head_dim), device="cuda",
+                            generator=g)
+            before = tpa.paged_attention.launches
+            out, _ = b.paged_context(req.rid, q)
+            torch.cuda.synchronize()
+            assert tpa.paged_attention.launches == before + 1
+            probes += 1
+            length = int(b.pos[req.row])
+            n = -(-length // 4)
+            if paged:
+                li = TM.attn_slot_index(cfg, b._si, b._sj)
+                k, v = (mon.pools.kv_layers[f"{x}_host"][li][-1]
+                        for x in ("k", "v"))
+                gids = req.table_gids[:n]
+            else:
+                k, v, gids = mon.pools.k_host, mon.pools.v_host, req.gids[:n]
+            ref, _ = tpa.paged_attention_plain(
+                q, k, v, torch.as_tensor(np.asarray(gids, np.int32)[None],
+                                         device="cuda"),
+                torch.tensor([length], dtype=torch.int32, device="cuda"))
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert probes > 0
+    streams = {r.rid: r.tokens for r in b.completed}
+    graph, _, submit = _graph_batcher(kind, eager=False)
+    _drive([(graph, [], submit)])
+    assert streams == {r.rid: r.tokens for r in graph.completed}
