@@ -490,7 +490,8 @@ def _mix_requests(S, cfg, rng, n_req, prompt, new):
 def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
                n_logical=256, hbm_pages=128, max_len=1024, n_req=8,
                prompt=(128, 513), new=(48, 97), access_threshold=0.05,
-               eager=False, between=None, cond=None, extra_embeds=None):
+               eager=False, between=None, cond=None, extra_embeds=None,
+               keep=None, **batcher_kw):
     """Serve a request mix with the macro-step batcher over
     ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner`` until
     drained, with every kernel's launch count set to 0 just before:
@@ -505,6 +506,9 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     scheduler step.  ``cond`` is the session's conditioning (``.xattn``
     configs), ``extra_embeds`` its shared prefix (``prefix_len``
     configs: the demand fetches of the prefix pages are counted).
+    ``batcher_kw`` goes to the batcher (``pipeline``,
+    ``admit_chunk_tokens``); ``keep``, a dict, receives the run's flight
+    recorder as ``keep["recorder"]``.
     Prints and checks what every served model shares, and the merged
     page masses the monitor saw (the access threshold is set from them);
     returns (batcher, result, rng, requests), the result with the route's
@@ -523,7 +527,8 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     t0 = time.monotonic()
     b = S.ContinuousBatcher(params, cfg, monitor=mon, max_active=4,
                             max_len=max_len, page_size=page, eager=eager,
-                            cond=cond, extra_embeds=extra_embeds)
+                            cond=cond, extra_embeds=extra_embeds,
+                            **batcher_kw)
     prefix_pages = (cfg.prefix_len or 0) // page
     fetches = {"all": 0, "prefix": 0}
     if prefix_pages:
@@ -539,7 +544,8 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
         pools.ensure_resident = counted
     torch.cuda.synchronize()
     print(f"route {b.route} (eager asked: {eager}; graph capture included: "
-          f"batcher built in {time.monotonic() - t0:.2f} s)", flush=True)
+          f"batcher built in {time.monotonic() - t0:.2f} s)"
+          + (f"; {batcher_kw}" if batcher_kw else ""), flush=True)
     leaves = [k[:-4] for k in pools.kv_layers if k.endswith("_hbm")]
     pool_bytes = sum(t.numel() * t.element_size()
                      for ts in pools.kv_layers.values() for t in ts
@@ -622,11 +628,14 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     if pools.free_pages != n_logical - prefix_pages:
         _fail("pages leaked after the drain")
     telemetry.install(telemetry.Recorder())
+    if keep is not None:
+        keep["recorder"] = rec
     result = dict(route=b.route, tokens=n_tok, wall_s=wall,
                   tokens_per_s=n_tok / wall,
                   macro_p50_ms=float(np.median(walls)), macros=len(macros),
                   decode_steps=b.decode_steps, device_steps=b.device_steps,
                   peak_gb=peak_gb, admissions=len(admits),
+                  admit_wall_ms=[e["wall_ms"] for e in admits],
                   first_joiners=admits[0]["joiners"] if admits else 0)
     same = dict(streams=out, migrations=mgr.migrations, hits=mgr.hits,
                 misses=mgr.misses, tuner_history=list(tuner.history))
@@ -1673,6 +1682,20 @@ def _flash_case(*, b, s, h, kv, d, dtype, seed=0):
     return f(b, s, h, d), f(b, s, kv, d), f(b, s, kv, d)
 
 
+# an admission chunk of phase 33 (gemma3-12b, admit_chunk_tokens=512): B=1,
+# S=512 queries over the keys so far, 16/8 heads of 256, at the starts the
+# served prompts (1040-1600 tokens) reach
+FLASH_CHUNK = dict(b=1, s=512, h=16, kv=8, d=256)
+FLASH_CHUNK_STARTS = (0, 512, 1024, 1536)
+
+
+def _flash_offset_case(*, b, s, t, h, kv, d, dtype, seed=0):
+    """Random q [B, S, H, D] and k/v [B, T, KV, D] on the card."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    f = lambda *shape: torch.randn(shape, generator=g, device=DEV).to(dtype)
+    return f(b, s, h, d), f(b, t, kv, d), f(b, t, kv, d)
+
+
 def _row_err(out, ref) -> float:
     """The largest ||out - ref|| / ||ref|| over the rows of the last dim."""
     e = (out.float() - ref.float()).norm(dim=-1)
@@ -1736,12 +1759,47 @@ def phase_flash_check(fa) -> float:
                f"{BF16_ROW_TOL})" if dt == "bfloat16" else "")
         print(f"{dt} S=T={s}: worst err {err:.3g} (tol "
               f"{tol(getattr(torch, dt), s)}){row} ok", flush=True)
+    # the query offset (phase 33's chunks): S=512 at each served start and
+    # at 496 (no multiple of the kernel's 32-key tile), and S=1 at the last
+    # position, causal and window 1024; the tolerance of T keys
+    c = FLASH_CHUNK
+    offsets = [(c["s"], st) for st in FLASH_CHUNK_STARTS + (496,)] \
+        + [(1, 2047)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for s, start in offsets:
+            t = start + s
+            args = _flash_offset_case(b=c["b"], s=s, t=t, h=c["h"],
+                                      kv=c["kv"], d=c["d"], dtype=dtype,
+                                      seed=start + s)
+            for window in (0, 1024):
+                out = fa.flash_attention(*args, window=window,
+                                         q_offset=start)
+                torch.cuda.synchronize()
+                ref = fa.flash_attention_plain(*args, window=window,
+                                               q_offset=start)
+                err = float((out.float() - ref.float()).abs().max())
+                row = _row_err(out, ref) if dtype == torch.bfloat16 else 0.0
+                n_cases += 1
+                if dtype == torch.float32:
+                    worst_f32 = max(worst_f32, err)
+                print(f"{str(dtype)[6:]} B=1 S={s} q_offset={start} T={t} "
+                      f"16/8 heads D=256 "
+                      f"{'window 1024' if window else 'causal'}: err "
+                      f"{err:.3g} (tol {tol(dtype, t)})"
+                      + (f", row err {row:.3g}" if row else ""), flush=True)
+                if not (err <= tol(dtype, t) and row <= BF16_ROW_TOL) \
+                        or out.dtype != dtype:
+                    _fail(f"flash_attention with q_offset={start} disagrees "
+                          f"with its plain version: {str(dtype)[6:]} S={s} "
+                          f"T={t} window={window}: err {err:.3g} (tol "
+                          f"{tol(dtype, t)}), row err {row:.3g}")
     print(f"{n_cases} cases (GQA 4/4, 4/2, 8/1, 16/8, 40/8; D 16, 32, 64, "
           f"128, 256; causal, window 64, window 1024, non-causal; and the "
           f"served shapes B=4 and 2, S=T=2048, 16/8 heads, D=256, float32 "
           f"and bfloat16, causal and window 1024, and B=4, 2 and 1, "
-          f"S=T=512, 32/32 heads, D=64, causal): worst float32 error "
-          f"{worst_f32:.3g}", flush=True)
+          f"S=T=512, 32/32 heads, D=64, causal; and the chunk shapes with "
+          f"a query offset): worst float32 error {worst_f32:.3g}",
+          flush=True)
     return worst_f32
 
 
@@ -1771,7 +1829,7 @@ def _first_admission(S, reqs, joiners):
 
 def phase_gemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
     """Serve full-width gemma3-12b with flash prefill; returns (result,
-    params, ``_first_admission``)."""
+    params, ``_first_admission``, the graph route's streams)."""
     print("== phase 15: full-width gemma3-12b serving (sliding window, "
           "flash prefill, macro-step batcher)", flush=True)
     cfg = dataclasses.replace(C.get("gemma3-12b"), attention_impl="pallas")
@@ -1792,11 +1850,15 @@ def phase_gemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
           f"GB) in {time.monotonic() - t0:.1f} s; attention_impl "
           f"{cfg.attention_impl}", flush=True)
 
+    streams = {}
+
     def check(b, result, eager):
         result["launches"] = _check_flash_launches(fa, cfg, result)
         result["paged_launches"] = pa.paged_attention.launches
         _check_launches("paged_attention", result["paged_launches"],
                         cfg.num_layers, b, eager)
+        if not eager:
+            streams.update((r.rid, list(r.tokens)) for r in b.completed)
         mgr, tuner = b.monitor.manager, b.monitor.tuner
         if mgr.hits <= 0 or tuner.dominant_reuse is None:
             _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
@@ -1812,7 +1874,7 @@ def phase_gemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
     print(f"first admission: {first[2]} joiners packed as "
           f"{tuple(first[0].shape)}, lengths {first[1].tolist()}",
           flush=True)
-    return results, params, first
+    return results, params, first, streams
 
 
 def phase_gemma_parity(C, mdl, S, memtier, cori, engine, params, first):
@@ -1969,6 +2031,10 @@ RGEMMA_ACCESS_THRESHOLD = 0.001
 # xlstm-1.3b: demote the oldest active request's state page every this many
 # scheduler steps (phase 19)
 XLSTM_DEMOTE_EVERY = 3
+# phase 19's depth: 2 of the 6 repeats of its 7 mLSTM : 1 sLSTM block, 16
+# of 48 layers (the full-width cells, their state pages and both routes
+# are what it checks; the per-position prefill loop scales with depth)
+XLSTM_REPEATS = 2
 
 
 def _perturb_conv(params, seed=SEED) -> None:
@@ -2082,8 +2148,11 @@ class _Demoter:
 
 def phase_xlstm(C, mdl, pa, S, memtier, cori, telemetry, kernels):
     print("== phase 19: full-width xlstm-1.3b serving (mLSTM / sLSTM state "
-          "pages only, macro-step batcher)", flush=True)
-    cfg, params = _init_full(C, mdl, "xlstm-1.3b")
+          f"pages only, macro-step batcher; depth cut to {XLSTM_REPEATS} "
+          "of its 6 blocks)", flush=True)
+    pattern = C.get("xlstm-1.3b").segments[0][0]
+    cfg, params = _init_full(C, mdl, "xlstm-1.3b",
+                             segments=((pattern, XLSTM_REPEATS),))
     page_mb = sum(r * lv["state"][0] * 4
                   for r, lv in mdl.slot_leaf_specs(cfg, 16)) / 1e6
     print(f"one request's state page over {cfg.num_layers} layers: "
@@ -2746,7 +2815,8 @@ def _probe_contexts(b, pa, mdl, engine, g) -> list:
 SAMPLED_FLIP_TOL = 1e-6
 
 
-def _compare_streams(mdl, cfg, params, reqs, got, want, what) -> None:
+def _compare_streams(mdl, cfg, params, reqs, got, want, what,
+                     ref="phase 4's") -> None:
     """Fail unless ``got`` equals ``want`` request for request, but for at
     most one sampled stream that parts from ``want`` where the draw lands
     on a boundary: at the first token t where they differ, the next-token
@@ -2765,12 +2835,12 @@ def _compare_streams(mdl, cfg, params, reqs, got, want, what) -> None:
         if a == b:
             continue
         if r.temperature == 0 or len(a) != len(b):
-            _fail(f"{what}: request {r.rid}'s stream differs from phase "
-                  f"4's (temperature {r.temperature})")
+            _fail(f"{what}: request {r.rid}'s stream differs from {ref} "
+                  f"(temperature {r.temperature})")
         parted.append(r.rid)
         if len(parted) > 1:
-            _fail(f"{what}: sampled requests {parted} all part from phase "
-                  "4's streams; one rounding flip a run is allowed")
+            _fail(f"{what}: sampled requests {parted} all part from {ref} "
+                  "streams; one rounding flip a run is allowed")
         t = next(i for i in range(len(a)) if a[i] != b[i])
         toks = np.concatenate([r.prompt, np.asarray(a[:t], np.int32)])
         logits, _ = mdl.prefill(params, cfg,
@@ -2786,7 +2856,7 @@ def _compare_streams(mdl, cfg, params, reqs, got, want, what) -> None:
             lo = cdf[k - 1] if k else 0.0
             return max(0.0, lo - x, x - cdf[k]) / cdf[-1]
 
-        print(f"{what}: sampled request {r.rid} parts from phase 4's at "
+        print(f"{what}: sampled request {r.rid} parts from {ref} at "
               f"token {t} of {len(a)} ({a[t]} vs {b[t]}; the first {t} "
               f"equal): the draw {x / cdf[-1]:.7f} of the mass lies "
               f"{off(a[t]):.2e} and {off(b[t]):.2e} from the two tokens' "
@@ -3017,6 +3087,235 @@ def phase_traffic(TR) -> dict:
                 hostile_max_regret=max(regrets.values()))
 
 
+def _pipeline_stats(rec) -> dict:
+    """The pipelined loop's records in a run: table uploads performed and
+    skipped, decisions, completed macros, each stage's wall p50 and the
+    decisions' wait p50 (ms)."""
+    counters = rec.summary()["counters"]
+    stages = {}
+    for e in rec.events("serve.pipeline.stage"):
+        stages.setdefault(e["stage"], []).append(e["wall_ms"])
+    decisions = rec.events("serve.pipeline.decision")
+    return dict(
+        uploads=int(counters.get("pool.table_upload.performed", 0)),
+        skipped=int(counters.get("pool.table_upload.skipped", 0)),
+        decisions=len(decisions), macros=len(rec.events("serve.macro")),
+        stage_p50_ms={k: float(np.median(v)) for k, v in stages.items()},
+        decision_wait_p50_ms=float(np.median([e["wait_ms"]
+                                              for e in decisions])))
+
+
+def _check_pipeline(name, b, st) -> None:
+    """What every pipelined run must show: the graph route, one decision
+    a completed macro (the boundaries less the first, which has nothing
+    to decide), a table upload skipped at a quiet boundary, and the
+    closed set of stages."""
+    boundaries = st["macros"] + 1
+    print(f"{name}: route {b.route}; decisions {st['decisions']} = "
+          f"{boundaries} macro boundaries - 1 -> "
+          f"{st['decisions'] == boundaries - 1}; table uploads "
+          f"{st['uploads']} performed, {st['skipped']} skipped; stage wall "
+          f"p50 (ms) {st['stage_p50_ms']}; decision wait p50 "
+          f"{st['decision_wait_p50_ms']:.3f} ms", flush=True)
+    if b.route != "graph":
+        _fail(f"{name}: the pipelined batcher took the {b.route} route")
+    if st["decisions"] != boundaries - 1:
+        _fail(f"{name}: {st['decisions']} decisions for {st['macros']} "
+              "macros")
+    if st["skipped"] < 1:
+        _fail(f"{name}: no boundary reused the staged tables")
+    if not {"decision_wait", "prefetch", "tables"} <= set(
+            st["stage_p50_ms"]):
+        _fail(f"{name}: stages {sorted(st['stage_p50_ms'])}")
+
+
+def phase_pipelined(mdl, pa, S, memtier, cori, telemetry, kernels, cfg,
+                    params, want, serve):
+    """Phase 4's mix through ``ContinuousBatcher(pipeline=True)`` on phase
+    4's parameters, pools, tiering and tuner (the graph route): streams
+    held to phase 4's graph route's (``_compare_streams``), the drain,
+    kernel 1's launches, the pipeline's records, and tokens/s beside phase
+    4's in this run; one pipelined macro profiled."""
+    print("== phase 32: the pipelined macro loop at full width (qwen3-14b, "
+          "pipeline=True, graph route)", flush=True)
+    keep = {}
+    b, res, same, rng, reqs = _serve_mix(params, cfg, S, memtier, cori,
+                                         telemetry, kernels, keep=keep,
+                                         pipeline=True)
+    res["launches"] = pa.paged_attention.launches
+    _check_launches("paged_attention", res["launches"], cfg.num_layers, b,
+                    False)
+    _compare_streams(mdl, cfg, params, reqs, same["streams"], want,
+                     "pipelined")
+    print(f"pipelined streams == phase 4's graph-route streams: requests "
+          f"{sorted(r for r in want if same['streams'][r] == want[r])} of "
+          f"{sorted(want)}", flush=True)
+    st = _pipeline_stats(keep.pop("recorder"))
+    _check_pipeline("pipelined", b, st)
+    res.update(st, migrations=same["migrations"], hits=same["hits"],
+               misses=same["misses"], tuner_history=same["tuner_history"])
+    res["profile"] = _profile_macro(b, S, cfg, rng)
+    b.close()
+    prof = res["profile"]
+    busy = ("busy/idle not measured" if prof["busy_pct"] is None else
+            f"busy {prof['busy_pct']:.1f}% / idle {prof['idle_pct']:.1f}%")
+    print(f"qwen3-14b pipelined: {res['tokens_per_s']:.2f} tokens/s "
+          f"(phase 4's graph route in this run: "
+          f"{serve['graph']['tokens_per_s']:.2f}), macro wall p50 "
+          f"{res['macro_p50_ms']:.1f} ms (phase 4: "
+          f"{serve['graph']['macro_p50_ms']:.1f}), decision wait p50 "
+          f"{st['decision_wait_p50_ms']:.3f} ms, one profiled pipelined "
+          f"macro {prof['ms_per_step']:.1f} ms/step, {busy}; tiering "
+          f"{same['migrations']} migrations, {same['hits']} hits, "
+          f"{same['misses']} misses (phase 4: "
+          f"{serve['graph']['migrations']}, {serve['graph']['hits']}, "
+          f"{serve['graph']['misses']}); tuner history "
+          f"{same['tuner_history']}", flush=True)
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _flash_chunk_timing(fa, start, window, flush) -> dict:
+    """The flash kernel at one admission chunk of phase 33 (float32, B=1,
+    S=512 at ``q_offset`` = ``start`` over T = start + 512 keys, 16/8
+    heads of 256): per call (CUDA events) and on the device (profiler),
+    beside its plain version, one SDPA call over the same mask and the
+    3xTF32 bound."""
+    import torch.nn.functional as F
+    c = FLASH_CHUNK
+    b, s, h, kv, d = c["b"], c["s"], c["h"], c["kv"], c["d"]
+    t = start + s
+    q, k, v = _flash_offset_case(b=b, s=s, t=t, h=h, kv=kv, d=d,
+                                 dtype=torch.float32, seed=11)
+    call = lambda: fa.flash_attention(q, k, v, window=window,
+                                      q_offset=start)
+    err = float((call() - fa.flash_attention_plain(
+        q, k, v, window=window, q_offset=start)).abs().max())
+    tol = 1e-4 if t > 512 else 2e-5
+    if not err <= tol:
+        _fail(f"flash_attention at the chunk shape q_offset={start}: err "
+              f"{err:.3g} (tol {tol})")
+    ms = _time(call, 20, flush)
+    device_ms, how, _ = _device_ms(call, 10, flush)
+    plain_ms = _time(lambda: fa.flash_attention_plain(
+        q, k, v, window=window, q_offset=start), 5, flush)
+    qp = start + torch.arange(s, device=DEV)[:, None]
+    kp = torch.arange(t, device=DEV)[None, :]
+    mask = (kp <= qp) & ((kp > qp - window) if window else True)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = _time(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 10, flush)
+    pairs = int(mask.sum())
+    flops = 4 * b * h * d * pairs
+    nbytes = (2 * b * s * h * d + 2 * b * t * kv * d) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"admission chunk B=1 S={s} q_offset={start} T={t} 16/8 heads "
+          f"D=256 float32 {'window ' + str(window) if window else 'causal'}"
+          f" (err {err:.3g}, tol {tol}): kernel {ms:.4f} ms a call, "
+          f"{device_ms:.4f} ms on the device ({how}); plain {plain_ms:.4f} "
+          f"ms, SDPA {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}; 3xTF32): {pairs} attended pairs, "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB -> "
+          f"{bound_ms / device_ms * 100:.1f}% of the bound on the device",
+          flush=True)
+    return dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err)
+
+
+def phase_gemma_pipelined(C, mdl, pa, fa, S, memtier, cori, telemetry,
+                          kernels, params, want, sync):
+    """Phase 15's mix through ``pipeline=True, admit_chunk_tokens=512`` on
+    phase 15's parameters (the flash route, the graph route): every
+    admission in chunks, each chunk one flash launch a layer with its
+    start as the query offset; streams held to phase 15's graph route's;
+    the admission stall beside phase 15's synchronous admission wall; the
+    flash kernel a chunk call at start 0 and 1536."""
+    print("== phase 33: the pipelined loop with chunked admission at full "
+          "width (gemma3-12b, pipeline=True, admit_chunk_tokens=512, flash "
+          "prefill with a query offset)", flush=True)
+    cfg = dataclasses.replace(C.get("gemma3-12b"), attention_impl="pallas")
+    keep = {}
+    retries = torch.cuda.memory_stats()["num_alloc_retries"]
+    b, res, same, rng, reqs = _serve_mix(
+        params, cfg, S, memtier, cori, telemetry, kernels, keep=keep,
+        n_logical=512, hbm_pages=384, max_len=2048, n_req=6,
+        prompt=(1040, 1601), new=(32, 65),
+        access_threshold=GEMMA_ACCESS_THRESHOLD, pipeline=True,
+        admit_chunk_tokens=FLASH_CHUNK["s"])
+    rec = keep.pop("recorder")
+    chunk_events = rec.events("serve.pipeline.admit_chunk")
+    want_chunks = sum(-(-len(r.prompt) // FLASH_CHUNK["s"]) for r in reqs)
+    starts = sorted({e["chunk"] * FLASH_CHUNK["s"] for e in chunk_events})
+    res.update(launches=fa.flash_attention.launches,
+               paged_launches=pa.paged_attention.launches,
+               chunks=len(chunk_events))
+    ok = (len(chunk_events) == want_chunks
+          and res["launches"] == cfg.num_layers * want_chunks)
+    print(f"admission chunks {len(chunk_events)} (prompts "
+          f"{[len(r.prompt) for r in reqs]} in chunks of "
+          f"{FLASH_CHUNK['s']}: {want_chunks}; starts {starts}); "
+          f"flash_attention launches {res['launches']} = {cfg.num_layers} "
+          f"layers x {want_chunks} chunks -> {ok}", flush=True)
+    if not ok:
+        _fail("the flash kernel's launches do not match 48 x the chunks")
+    _check_launches("paged_attention", res["paged_launches"],
+                    cfg.num_layers, b, False)
+    _compare_streams(mdl, cfg, params, reqs, same["streams"], want,
+                     "pipelined chunked", ref="phase 15's")
+    print(f"pipelined chunked streams == phase 15's graph-route streams: "
+          f"requests "
+          f"{sorted(r for r in want if same['streams'][r] == want[r])} of "
+          f"{sorted(want)}", flush=True)
+    st = _pipeline_stats(rec)
+    _check_pipeline("pipelined chunked", b, st)
+    if "admit" not in st["stage_p50_ms"]:
+        _fail("no overlap window ran an admission chunk")
+    stall = [e["stall_ms"] for e in rec.events("serve.admit")]
+    # a chunk's host dispatch: ~2000 launches queued behind the macro in
+    # flight (nothing reads back: tests/test_torch_gpu.py); the allocator's
+    # retries (cudaFree of cached blocks, a device sync) counted beside it
+    chunk_ms = [e["wall_ms"] for e in chunk_events]
+    retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries
+    print(f"chunk dispatch host wall p50 {float(np.median(chunk_ms)):.1f} ms "
+          f"(min {min(chunk_ms):.1f}, max {max(chunk_ms):.1f}) over "
+          f"{len(chunk_ms)} chunks; allocator retries in the run "
+          f"{retries}", flush=True)
+    res.update(st, stall_ms=stall, chunk_dispatch_p50_ms=float(
+                   np.median(chunk_ms)), alloc_retries=retries,
+               migrations=same["migrations"],
+               hits=same["hits"], misses=same["misses"],
+               tuner_history=same["tuner_history"])
+    print(f"gemma3-12b pipelined chunked: {res['tokens_per_s']:.2f} tokens/s "
+          f"(phase 15's graph route: {sync['tokens_per_s']:.2f}); admission "
+          f"stall (reservation to activation) p50 "
+          f"{float(np.median(stall)):.1f} ms, max {max(stall):.1f} ms over "
+          f"{len(stall)} activations, beside phase 15's synchronous "
+          f"admission wall p50 {float(np.median(sync['admit_wall_ms'])):.1f}"
+          f" ms, max {max(sync['admit_wall_ms']):.1f} ms over "
+          f"{len(sync['admit_wall_ms'])} admissions; macro wall p50 "
+          f"{res['macro_p50_ms']:.1f} ms (phase 15: "
+          f"{sync['macro_p50_ms']:.1f}); tiering {same['migrations']} "
+          f"migrations, {same['hits']} hits, {same['misses']} misses; tuner "
+          f"history {same['tuner_history']}", flush=True)
+    b.close()
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    before = fa.flash_attention.launches
+    res["chunk_timing"] = {
+        f"start {start}": _flash_chunk_timing(fa, start, 1024, flush)
+        for start in (0, 1536)}
+    fa.flash_attention.launches = before    # timing launches not counted
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is visible", flush=True)
@@ -3065,6 +3364,8 @@ def main() -> int:
         kernels)
     dense = timed("dense batcher", phase_dense, mdl, pa, S, memtier, cori,
                   engine, telemetry, kernels, qcfg, params, streams)
+    piped = timed("pipelined loop", phase_pipelined, mdl, pa, S, memtier,
+                  cori, telemetry, kernels, qcfg, params, streams, serve)
     held = torch.cuda.memory_allocated()
     del params       # the deepseek phase needs the card
     _check_freed(held)
@@ -3083,11 +3384,15 @@ def main() -> int:
           engine)
     mla_timing = timed("paged_attention_mla timing", phase_mla_timing, pam)
     flash_err = timed("flash_attention check", phase_flash_check, fa)
-    gemma, params, first = timed("gemma3 serving", phase_gemma, C, mdl, pa,
-                                 fa, S, memtier, cori, telemetry, kernels)
+    gemma, params, first, gstreams = timed(
+        "gemma3 serving", phase_gemma, C, mdl, pa, fa, S, memtier, cori,
+        telemetry, kernels)
     gemma["graph"]["full_width_logit_delta"] = timed(
         "gemma3 parity", phase_gemma_parity, C, mdl, S, memtier, cori,
         engine, params, first)
+    gpiped = timed("gemma3 pipelined chunked", phase_gemma_pipelined, C,
+                   mdl, pa, fa, S, memtier, cori, telemetry, kernels,
+                   params, gstreams, gemma["graph"])
     held = torch.cuda.memory_allocated()
     del params
     _check_freed(held)
@@ -3129,7 +3434,9 @@ def main() -> int:
     main_case = flash_timing.pop("float32 window 1024")
     musicgen_flash = flash_timing.pop("musicgen-large prefill float32 causal")
     main_routed = routed.pop("deepseek-v3-671b")
-    print(f"card: {card}; serving {serve}; dense {dense}; traffic "
+    chunk_timing = gpiped.pop("chunk_timing")
+    print(f"card: {card}; serving {serve}; dense {dense}; pipelined "
+          f"{piped}; gemma3 pipelined chunked {gpiped}; traffic "
           f"{traffic}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
           f"{xlstm}; olmoe {olmoe}; musicgen {musicgen}; nemotron "
@@ -3192,7 +3499,12 @@ def main() -> int:
                  "musicgen-large prefill B=4 S=T=512 32/32 heads D=64 "
                  "float32 causal (phases 17, 24)": dict(
                      musicgen_flash,
-                     launches=musicgen["graph"]["flash_launches"])})),
+                     launches=musicgen["graph"]["flash_launches"])}, **{
+                 f"gemma3-12b admission chunk B=1 S=512 q_offset={k[6:]} "
+                 "16/8 heads D=256 float32 window 1024 (phase 33; launches: "
+                 "every chunk of the run)": dict(
+                     v, launches=gpiped["launches"])
+                 for k, v in chunk_timing.items()})),
         dict(name="routed_experts", route="cuda",
              source="src/repro_torch/kernels/csrc/routed_experts.cu",
              replaces="src/repro/models/moe.py:85",

@@ -1,6 +1,11 @@
-"""``StepTimer``: EMA step-time tracker with straggler detection (a copy of
-the reference's ``repro/ft/monitor.py::StepTimer``; the serving macro loop
-times its launches with it)."""
+"""Copies of two of the reference's ``repro/ft/monitor.py`` pieces:
+
+``StepTimer`` -- EMA step-time tracker with straggler detection (the
+                 serving macro loop times its launches with it);
+``Pulse``     -- an in-memory heartbeat between two threads of one
+                 process: a worker thread touches it around units of work
+                 and a watcher reads ``age()`` (``serve.pipeline``'s
+                 ``DecisionWorker`` touches it around every decision)."""
 from __future__ import annotations
 
 import time
@@ -8,7 +13,7 @@ from typing import Callable, List, Optional
 
 from repro_torch.obs import telemetry as _obs
 
-__all__ = ["StepTimer"]
+__all__ = ["StepTimer", "Pulse"]
 
 
 class StepTimer:
@@ -59,3 +64,24 @@ class StepTimer:
                        dt_s=dt, ema_s=float(ema_ref))
                 r.count("ft.stragglers")
         return dt
+
+
+class Pulse:
+    """In-memory heartbeat between two threads of one process.
+
+    The worked thread calls ``touch()`` around each unit of work (the
+    DecisionWorker touches before and after every ``fn`` call); a watcher
+    reads ``age()`` -- seconds since the last touch, ``inf`` before the
+    first -- so a watcher with a timeout tells *hung* (age keeps growing
+    past the deadline) from *slow but alive*.  Writes and reads of a float
+    are atomic under the GIL, so there is no lock."""
+
+    def __init__(self):
+        self._last: Optional[float] = None
+
+    def touch(self) -> None:
+        self._last = time.monotonic()
+
+    def age(self) -> float:
+        last = self._last
+        return float("inf") if last is None else time.monotonic() - last

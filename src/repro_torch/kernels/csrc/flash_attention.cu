@@ -3,11 +3,13 @@
 // `_kernel`, defined at :73).
 //
 // What it computes: q [B, S, H, D], k/v [B, T, KV, D] (KV divides H; query
-// head h reads KV head h / (H / KV)), S <= T.  For query i of head h
+// head h reads KV head h / (H / KV)), q_off + S <= T.  For query i of head h
 //   out[b, i, h] = sum_j p_j v[b, j, h / rep] / max(sum_j p_j, 1e-30),
 //   p_j = exp(s_j - max s),  s_j = (q[b, i, h] . k[b, j, h / rep]) * scale,
-// over the keys j it attends: j <= i when causal, and j > i - window when
-// window > 0 (positions counted from 0 for both queries and keys).  A
+// over the keys j it attends: j <= q_off + i when causal, and
+// j > q_off + i - window when window > 0 (query i sits at position q_off + i
+// and key j at j: q_off is a prefill chunk's start, its keys the earlier
+// chunks' and its own; q_off = 0 is the TPU kernel's semantics).  A
 // masked key's p is 0 (the TPU kernel's masked logits are -1e30, and every
 // query attends its own position); the scale 1/sqrt(D) is multiplied, as
 // in the TPU kernel; in bfloat16, p is rounded to bfloat16 before the PV
@@ -411,7 +413,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int B, int S, int T_len,
-    int H, int KV, int hb, int n_qt, float scale2, int causal, int window) {
+    int H, int KV, int hb, int n_qt, float scale2, int causal, int window,
+    int q_off) {
   using L = Layout<T, D>;
   constexpr bool kF32 = L::kF32;
   constexpr int LDQ = L::kLDQ;
@@ -440,10 +443,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
   T* k_s = q_s + L::kQ;                      // [kBufs][hi, lo][kBKV][LDQ]
   T* v_s = k_s + kBufs * L::kK;              // [kBufs][kBKV][LDV]
 
-  // the kv tiles holding an attended key of this block
+  // the kv tiles holding an attended key of this block (its queries sit at
+  // positions q_off + q0 .. q_off + q_last)
   const int q_last = min(q0 + P, S) - 1;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(T_len, q_last + 1) : T_len;
+  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(T_len, q_off + q_last + 1) : T_len;
   const int kt_lo = k_lo / kBKV;
   const int kt_hi = (k_end + kBKV - 1) / kBKV;
 
@@ -481,8 +485,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
 
   // this thread's rows (g and g + 8 of the warp)
   const int r0 = warp * 16 + g, r1 = r0 + 8;
-  // the warp's first and last positions
+  // the warp's first and last query rows, and their positions
   const int w_lo = q0 + warp * 16 / hb, w_hi = q0 + (warp * 16 + 15) / hb;
+  const int p_lo = q_off + w_lo, p_hi = q_off + w_hi;
 
   // fragment bases in buffer 0
   const T* qa = q_s + r0 * LDQ + (kF32 ? 4 : (D >= 32 ? 8 : 4)) * t;
@@ -508,11 +513,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     const int k0 = kt * kBKV;
     // does any row of the warp attend a key of this tile, and does any
     // (row, key) pair of it fall outside the mask
-    const bool active = w_lo < S && k0 < T_len && (!causal || k0 <= w_hi) &&
-                        (window <= 0 || k0 + kBKV - 1 > w_lo - window);
+    const bool active = w_lo < S && k0 < T_len && (!causal || k0 <= p_hi) &&
+                        (window <= 0 || k0 + kBKV - 1 > p_lo - window);
     const bool edge = k0 + kBKV > T_len ||
-                      (causal && k0 + kBKV - 1 > w_lo) ||
-                      (window > 0 && k0 <= w_hi - window);
+                      (causal && k0 + kBKV - 1 > p_lo) ||
+                      (window > 0 && k0 <= p_hi - window);
 
     // this tile's k (and v, with a ring) landed, and every warp is done
     // with the last tile's buffers: refill them
@@ -554,7 +559,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] *= scale2;
       if (edge) {
-        const int i0 = q0 + r0 / hb, i1 = q0 + r1 / hb;
+        const int i0 = q_off + q0 + r0 / hb, i1 = q_off + q0 + r1 / hb;
 #pragma unroll
         for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -654,7 +659,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int T_len, int H, int KV, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   int causal, int window, int q_off, cudaStream_t stream) {
   constexpr size_t smem = Layout<T, D>::kSmem;
   static unsigned attr_set = 0;            // one bit per device
   int dev = 0;
@@ -677,31 +682,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, D><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), B, S, T_len, H, KV, hb,
-      n_qt, scale * 1.4426950408889634f, causal, window);
+      n_qt, scale * 1.4426950408889634f, causal, window, q_off);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      void* out, int B, int S, int T_len, int H, int KV,
-                     float scale, int causal, int window,
+                     float scale, int causal, int window, int q_off,
                      cudaStream_t stream) {
   switch (D) {
     case 16:
       return launch<T, 16>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                           window, stream);
+                           window, q_off, stream);
     case 32:
       return launch<T, 32>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                           window, stream);
+                           window, q_off, stream);
     case 64:
       return launch<T, 64>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                           window, stream);
+                           window, q_off, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                            window, stream);
+                            window, q_off, stream);
     case 256:
       return launch<T, 256>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                            window, stream);
+                            window, q_off, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -713,13 +718,13 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 extern "C" cudaError_t flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* out, int B,
     int S, int T, int H, int KV, int D, float scale, int causal, int window,
-    void* stream) {
+    int q_off, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_d<float>(D, q, k, v, out, B, S, T, H, KV, scale, causal,
-                           window, st);
+                           window, q_off, st);
   if (dtype == 1)
     return launch_d<__nv_bfloat16>(D, q, k, v, out, B, S, T, H, KV, scale,
-                                   causal, window, st);
+                                   causal, window, q_off, st);
   return cudaErrorInvalidValue;
 }

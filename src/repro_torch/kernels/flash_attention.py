@@ -16,11 +16,15 @@ visits.  The kernel runs both products on the tensor cores: float32 as
 to TF32; lo*hi + hi*lo + hi*hi), bfloat16 in one pass.
 
 Semantics (shared by the kernel and the plain version, those of the TPU
-kernel): q [B, S, H, D]; k/v [B, T, KV, D] with KV dividing H (query head
-h reads KV head h // (H // KV)) and S <= T; D in {16, 32, 64, 128, 256}.
-Query i attends key j when ``j <= i`` (``causal``) and ``j > i - window``
-(``window > 0``), positions counted from 0 for both, so there is no query
-offset.  Logits are (q . k) * (1 / sqrt(D)), masked ones -1e30; p =
+kernel with its query positions shifted by ``q_offset``): q [B, S, H, D];
+k/v [B, T, KV, D] with KV dividing H (query head h reads KV head
+h // (H // KV)) and ``q_offset + S <= T``; D in {16, 32, 64, 128, 256}.
+Query i sits at position ``q_offset + i`` and key j at j: query i attends
+key j when ``j <= q_offset + i`` (``causal``) and ``j > q_offset + i -
+window`` (``window > 0``).  ``q_offset`` is a prefill chunk's start (its
+keys are the earlier chunks' and its own, ``model.prefill_chunk``); with
+``q_offset = 0`` the kernel is the TPU kernel's, positions counted from 0
+for both.  Logits are (q . k) * (1 / sqrt(D)), masked ones -1e30; p =
 exp(logit - row max) is cast to v's dtype before the PV product, and the
 sum is divided by max(sum p, 1e-30).  Returns [B, S, H, D] in q's dtype.
 No logit soft-capping (no ``softcap`` argument): the TPU kernel has
@@ -54,23 +58,24 @@ def _load():
         fn = lib.flash_attention_launch
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def block_plan(b: int, s: int, t: int, h: int, kv: int, *,
-               causal: bool = True, window: int = 0):
+               causal: bool = True, window: int = 0, q_offset: int = 0):
     """The kernel's blocks in launch order, as
     ``(batch row, query positions, query heads, kv tiles)`` ranges.  A
     block owns ``BLOCK_ROWS`` query rows that share one KV head: where rep
     = h // kv divides ``BLOCK_ROWS``, ``BLOCK_ROWS // rep`` positions x the
     group's rep heads (each k/v tile is staged once for all of them),
     otherwise ``BLOCK_ROWS`` positions of one head.  It visits the kv tiles
-    of ``KV_TILE`` keys from the first key its first position attends to
-    the last key its last position attends.  Query tiles run heaviest first
+    of ``KV_TILE`` keys from the first key its first query (at position
+    ``q_offset + q0``) attends to the last key its last query attends.
+    Query tiles run heaviest first
     over every head group and batch row."""
     rep = h // kv
     hb = rep if BLOCK_ROWS % rep == 0 else 1
@@ -78,15 +83,16 @@ def block_plan(b: int, s: int, t: int, h: int, kv: int, *,
     blocks = []
     for q0 in reversed(range(0, s, p)):
         q_end = min(q0 + p, s)
-        k_lo = max(0, q0 - window + 1) if window > 0 else 0
-        k_end = min(t, q_end) if causal else t
+        k_lo = max(0, q_offset + q0 - window + 1) if window > 0 else 0
+        k_end = min(t, q_offset + q_end) if causal else t
         tiles = range(k_lo // KV_TILE, -(-k_end // KV_TILE))
         blocks += [(row, range(q0, q_end), range(h0, h0 + hb), tiles)
                    for row in range(b) for h0 in range(0, h, hb)]
     return blocks
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0):
     """Plain PyTorch version of the kernel's function (module docstring):
     a masked softmax in float32 over the whole [S, T] logits of each head
     group.  The CPU tests use it, and the smoke run compares the kernel
@@ -96,7 +102,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     qg = q.float().reshape(b, s, kvh, h // kvh, d)
     logits = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) \
         * (1.0 / math.sqrt(d))
-    q_pos = torch.arange(s, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(s, device=q.device)[:, None]
     k_pos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:
@@ -111,11 +117,13 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
     """Flash attention forward; returns [B, S, H, D] in q's dtype.  CPU
     tensors take ``flash_attention_plain``; CUDA tensors launch the kernel
     (module docstring).  Raises on every device for what the kernel does
-    not take (a head dim outside ``HEAD_DIMS``, S > T)."""
+    not take (a head dim outside ``HEAD_DIMS``, a negative ``q_offset``,
+    ``q_offset + S > T``)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("q must be [B, S, H, D] and k/v both [B, T, KV, D]: "
                          f"{tuple(q.shape)} / {tuple(k.shape)} / "
@@ -128,13 +136,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, not "
                          f"{d}")
-    if s > t:
-        raise ValueError(f"flash_attention needs S <= T (got S={s}, T={t}): "
-                         "positions count from 0 for queries and keys")
+    if q_offset < 0 or q_offset + s > t:
+        raise ValueError(f"flash_attention needs 0 <= q_offset and q_offset "
+                         f"+ S <= T (got q_offset={q_offset}, S={s}, T={t}): "
+                         "query i sits at position q_offset + i, key j at j")
     if window < 0:
         raise ValueError(f"window must be >= 0, not {window}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
@@ -153,7 +163,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     err = _load().flash_attention_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, s, t, h, kvh, d, 1.0 / math.sqrt(d), int(causal),
-        int(window), torch.cuda.current_stream(q.device).cuda_stream)
+        int(window), int(q_offset),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

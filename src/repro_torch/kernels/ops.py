@@ -20,12 +20,16 @@ def page_hist(ids, hotness, *, alpha: float = 0.5, threshold: float = 1.0):
     return _ph.page_hist(ids, hotness, alpha=alpha, threshold=threshold)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
     """Blockwise attention forward (``kernels.flash_attention``): q
-    [B, S, H, D], k/v [B, T, KV, D] with KV dividing H, S <= T; causal
-    and/or sliding-window (``window > 0``) masks over positions counted
-    from 0 for queries and keys.  Returns [B, S, H, D] in q's dtype."""
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    [B, S, H, D], k/v [B, T, KV, D] with KV dividing H, ``q_offset + S <=
+    T``; causal and/or sliding-window (``window > 0``) masks with query i
+    at position ``q_offset + i`` and key j at j (``q_offset`` 0: the
+    reference's kernel, positions counted from 0 for both).  Returns
+    [B, S, H, D] in q's dtype."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *,

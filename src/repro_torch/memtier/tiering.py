@@ -17,8 +17,11 @@ costs) is the reference's numpy code unchanged, so the same mass stream
 gives the same histories.  The device data path differs in idiom only:
 the reference returned new, donated pytrees from jitted scatters; here
 the pool tensors are updated in place (``index_put_``), and the
-reference's out-of-range "drop" sentinel becomes an explicit mask.  The
-"host" tier is a device tensor, as in the reference.  The fault ladder
+reference's out-of-range "drop" sentinel becomes an explicit mask, and
+the index arrays reach a card through pinned memory without the host
+waiting (``_index``), so pool writes queue behind an in-flight decode
+macro as the reference's lazy arrays do.  The "host" tier is a device
+tensor, as in the reference.  The fault ladder
 (migration retry, pin-to-host, capacity squeeze) is a later slice: the
 pools carry the inert ``NULL_PLAN``.
 """
@@ -40,6 +43,17 @@ from repro_torch.obs import telemetry as _obs
 __all__ = ["TierConfig", "TieringManager", "PagedPools", "SharedPagedPools",
            "bucket_pages", "write_pages_batched", "write_state_pages",
            "PAGE_DROP"]
+
+
+def _index(a, device) -> torch.Tensor:
+    """An int64 index tensor on ``device`` from array-like ``a``.  On a
+    card the host does not wait for the stream: the array is staged in
+    pinned memory and copied non-blocking (the caching host allocator
+    keeps the staging buffer until its copy is done)."""
+    a = np.ascontiguousarray(np.asarray(a, np.int64))
+    if torch.device(device).type != "cuda":
+        return torch.as_tensor(a, device=device)
+    return torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
 
 
 def bucket_pages(n_pages: int, cap: Optional[int] = None) -> int:
@@ -348,18 +362,16 @@ class SharedPagedPools:
                 and plan.fires("pool.migrate_fail") is not None:
             raise MigrationError(
                 f"injected migrate_slots failure ({len(slots)} pages)")
-        idx = lambda dev, a: torch.as_tensor(np.asarray(a, np.int64),
-                                             device=dev)
         if self.k_host is not None:
             dev = self.k_host.device
-            sl, lg = idx(dev, slots), idx(dev, logicals)
+            sl, lg = _index(slots, dev), _index(logicals, dev)
             self.k_hbm[sl] = self.k_host[lg]       # in place
             self.v_hbm[sl] = self.v_host[lg]
         if self.kv_layers is None:
             return
         dev = next(t.device for leaves in self.kv_layers.values()
                    for t in leaves if t is not None)
-        sl, lg = idx(dev, slots), idx(dev, logicals)
+        sl, lg = _index(slots, dev), _index(logicals, dev)
         for name in [k for k in self.kv_layers if k.endswith("_hbm")]:
             hosts = self.kv_layers[name[:-4] + "_host"]
             for hbm, host in zip(self.kv_layers[name], hosts):
@@ -446,10 +458,8 @@ def write_pages_batched(kv, new_leaves, gids: np.ndarray,
             pages = new[:, :, : n_max * ps].reshape((r, j * n_max, ps) + rest)
             for pool, idx in ((host, gidf), (hbm, slotf)):
                 keep = idx < pool.shape[1]
-                at = torch.as_tensor(idx[keep].astype(np.int64),
-                                     device=pool.device)
-                pick = torch.as_tensor(np.nonzero(keep)[0],
-                                       device=pool.device)
+                at = _index(idx[keep], pool.device)
+                pick = _index(np.nonzero(keep)[0], pool.device)
                 pool[:, at] = pages[:, pick].to(pool.dtype)
 
 
@@ -472,9 +482,8 @@ def write_state_pages(kv, states, gids: np.ndarray,
         for pool, idx in ((kv["state_host"][li], gids),
                           (kv["state_hbm"][li], slots)):
             keep = idx < pool.shape[1]
-            at = torch.as_tensor(idx[keep].astype(np.int64),
-                                 device=pool.device)
-            pick = torch.as_tensor(np.nonzero(keep)[0], device=pool.device)
+            at = _index(idx[keep], pool.device)
+            pick = _index(np.nonzero(keep)[0], pool.device)
             pool[:, at] = st[:, pick].to(pool.dtype)
 
 

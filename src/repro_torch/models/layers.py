@@ -2,7 +2,8 @@
 ``repro/models/layers.py`` the port serves): norms, rotary, the SwiGLU,
 GELU and squared-ReLU MLPs, GQA attention (causal or sliding-window;
 prefill through the flash kernel when ``cfg.attention_impl ==
-"pallas"``), cross-attention to a conditioning sequence, and MLA
+"pallas"``, a prefill chunk over the earlier chunks' ``past`` too),
+cross-attention to a conditioning sequence, and MLA
 (DeepSeek-V3 Multi-head Latent Attention) for prefill and dense decode,
 embeddings.
 
@@ -122,34 +123,51 @@ def _qkv(p, r: int, cfg: ModelConfig, x, positions):
 
 
 def attention_apply(p, r: int, cfg: ModelConfig, x, positions, *,
-                    window: int = 0):
+                    window: int = 0, past=None, k_positions=None):
     """Causal (``window > 0``: sliding-window) self-attention for prefill.
-    Returns (out, (k, v)).
+    Returns (out, (k, v)), the cache rows of ``x``'s own positions.
+
+    ``past`` -- optional ``(past_k, past_v)`` [B, P, KV, D] of the
+    positions before ``x`` (post-qk-norm, post-rope: the cache rows an
+    earlier chunk returned): the queries attend ``past ++ own`` keys at
+    ``k_positions`` [1, P + S], as the reference's ``attention_apply``.
 
     ``cfg.attention_impl == "pallas"`` routes the attention through
-    ``ops.flash_attention(causal=True, window=window)`` (the reference's
-    docstring puts its flash kernel here); otherwise ``sdpa`` runs over
-    ``causal_mask(positions, positions, window, cfg.prefix_len)``.  The
-    kernel counts query and key positions from 0, takes no query offset
-    and has no soft-cap and no prefix-LM mask, so that route serves
-    self-attention over ``positions`` 0..S-1 without ``cfg.softcap`` or
+    ``ops.flash_attention(causal=True, window=window, q_offset=P)`` over
+    the concatenated keys (the reference's docstring puts its flash
+    kernel here); otherwise ``sdpa`` runs over ``causal_mask(positions,
+    k_positions, window, cfg.prefix_len)``.  The kernel puts query i at
+    position q_offset + i and key j at j, and has no soft-cap and no
+    prefix-LM mask, so that route serves positions ``[1, S]`` = P +
+    arange(S) over keys at arange(P + S) without ``cfg.softcap`` or
     ``cfg.prefix_len`` (``model.check_supported`` refuses both): what
-    forward, prefill and prefill_batched pass (chunked prefill over a
-    ``past`` is not ported)."""
+    forward, prefill, prefill_batched and prefill_chunk pass.  It checks
+    the shapes only (the values would need a host read)."""
     q, k, v = _qkv(p, r, cfg, x, positions)
     b, s = x.shape[:2]
+    k_all, v_all = k, v
+    if past is not None:
+        k_all = torch.cat([past[0].to(k.dtype), k], dim=1)
+        v_all = torch.cat([past[1].to(v.dtype), v], dim=1)
+    k_pos = positions if k_positions is None else k_positions
     if cfg.attention_impl == "pallas":
         if cfg.softcap > 0:
             raise NotImplementedError(
                 "the flash route has no soft-cap (cfg.softcap = "
                 f"{cfg.softcap}); use attention_impl='reference'")
-        if tuple(positions.shape) != (1, s):
-            raise ValueError("the flash route takes positions [1, S] = "
-                             f"0..S-1, not {tuple(positions.shape)}")
-        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        t = k_all.shape[1]
+        if tuple(positions.shape) != (1, s) or \
+                tuple(k_pos.shape) != (1, t):
+            raise ValueError(
+                "the flash route takes positions [1, S] = start + "
+                "arange(S) and key positions [1, start + S] = arange(start "
+                f"+ S), start the past's length {t - s}, not "
+                f"{tuple(positions.shape)} / {tuple(k_pos.shape)}")
+        out = ops.flash_attention(q, k_all, v_all, causal=True,
+                                  window=window, q_offset=t - s)
     else:
-        out = sdpa(q, k, v, causal_mask(positions, positions, window,
-                                        cfg.prefix_len), cfg.softcap)
+        out = sdpa(q, k_all, v_all, causal_mask(positions, k_pos, window,
+                                                cfg.prefix_len), cfg.softcap)
     return out.reshape(b, s, -1) @ p.wo[r], (k, v)
 
 
@@ -221,19 +239,29 @@ def _mla_kv(p, r: int, cfg: ModelConfig, x, positions):
     return c_kv, k_rope[:, :, 0, :]
 
 
-def mla_apply(p, r: int, cfg: ModelConfig, x, positions, mask):
+def mla_apply(p, r: int, cfg: ModelConfig, x, positions, mask, *,
+              past=None):
     """Training/prefill MLA: materialise per-head K/V (K = k_nope ++
     k_rope, width nope + rope; V width v_head).  Returns (out,
-    (c_kv, k_rope)) -- the compressed cache entries."""
+    (c_kv, k_rope)) -- the compressed cache entries of ``x``'s own
+    positions.  ``past`` -- optional ``(past_ckv, past_krope)`` [B, P,
+    kv_lora] / [B, P, rope], an earlier chunk's compressed rows: the
+    queries attend ``past ++ own`` (``mask`` [.., S, P + S]), as the
+    reference's ``mla_apply``."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.num_heads
     q_nope, q_rope = _mla_q(p, r, cfg, x, positions)
     c_kv, k_rope = _mla_kv(p, r, cfg, x, positions)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk[r])
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uv[r])
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, h, m.qk_rope_dim)], dim=-1)
+    c_all, kr_all = c_kv, k_rope
+    if past is not None:
+        c_all = torch.cat([past[0].to(c_kv.dtype), c_kv], dim=1)
+        kr_all = torch.cat([past[1].to(c_kv.dtype), k_rope], dim=1)
+    t = c_all.shape[1]
+    k_nope = torch.einsum("bsr,rhk->bshk", c_all, p.w_uk[r])
+    v = torch.einsum("bsr,rhk->bshk", c_all, p.w_uv[r])
+    k = torch.cat([k_nope, kr_all[:, :, None, :].expand(
+        b, t, h, m.qk_rope_dim)], dim=-1)
     out = sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, mask, cfg.softcap)
     return out.reshape(b, s, -1) @ p.wo[r], (c_kv, k_rope)
 

@@ -27,7 +27,8 @@ entry point takes ``cond`` [B, T, cond_dim]; it is not paged, so it adds
 nothing to the page mass), then a SwiGLU, GELU or squared-ReLU MLP, a
 routed MoE (``models.moe``) or, with ``d_ff == 0`` and no MoE, nothing.
 With ``cfg.attention_impl == "pallas"`` the sequence passes (forward,
-prefill, prefill_batched) run self-attention through the flash kernel.
+prefill, prefill_batched, prefill_chunk) run self-attention through the
+flash kernel (a chunk with its start as the kernel's query offset).
 A ``prefix_len`` config (PaliGemma) takes its prefix embeddings as
 ``extra_embeds`` [B, P, d] at the sequence passes, prepended unscaled to
 the token embeddings and attended bidirectionally (``causal_mask``); the
@@ -52,7 +53,8 @@ from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = ["Slot", "CrossAttention", "Transformer", "init", "forward",
            "prefill", "pad_cache", "init_cache", "decode_step",
-           "prefill_batched", "row_cache_from_batched",
+           "prefill_batched", "prefill_chunk", "chunk_past_extend",
+           "row_cache_from_batched",
            "batched_prefill_supported", "state_slot_meta", "attn_slot_meta",
            "attn_slot_index", "state_dim", "pack_state", "unpack_state",
            "has_state_pages", "has_attention", "slot_leaf_specs",
@@ -305,14 +307,21 @@ def _cond(cond, x):
 # ---------------------------------------------------------------------------
 
 
-def _run_seq(params, cfg: ModelConfig, x, positions, cond=None):
+def _run_seq(params, cfg: ModelConfig, x, positions, cond=None, *,
+             pasts=None, k_positions=None):
     """All layers over a sequence; returns (x, per-slot lists of cache
     entries in repeat order -- {"k", "v"}, MLA {"ckv", "krope"} or a
     recurrent cell's final state --, the summed MoE aux loss).  Local
     slots attend through a sliding window, the others causally, every
     attention kind with ``cfg.prefix_len``'s bidirectional prefix;
-    ``.xattn`` slots attend ``cond`` [B, T, cond_dim] too."""
+    ``.xattn`` slots attend ``cond`` [B, T, cond_dim] too.
+
+    ``pasts`` (chunked prefill, the reference's ``_run_segments_seq``)
+    mirrors the cache's segment/slot structure with the earlier chunks'
+    attention rows stacked [R, B, P, ...] (no ``pos``): each attention
+    slot attends ``past ++ own`` keys at ``k_positions`` [1, P + S]."""
     cond = _cond(cond, x)
+    k_pos = positions if k_positions is None else k_positions
     masks = {}          # MLA's, by window; attention_apply builds its own
     entries: List[List] = [[] for _ in state_slot_meta(cfg)]
     aux_total = torch.zeros((), device=x.device)
@@ -322,16 +331,22 @@ def _run_seq(params, cfg: ModelConfig, x, positions, cond=None):
         if slot.kind.is_recurrent:
             out, entry = R.apply(slot.cell, r, cfg, h)
         else:
+            names = slot_leaf_names(slot.kind)
+            past = None
+            if pasts is not None:
+                e = _slot_cache(pasts, cfg, li)
+                past = tuple(e[name][r] for name in names)
             if slot.kind.mla:
                 if window not in masks:
-                    masks[window] = L.causal_mask(positions, positions,
+                    masks[window] = L.causal_mask(positions, k_pos,
                                                   window, cfg.prefix_len)
                 out, rows = L.mla_apply(slot, r, cfg, h, positions,
-                                        masks[window])
+                                        masks[window], past=past)
             else:
                 out, rows = L.attention_apply(slot, r, cfg, h, positions,
-                                              window=window)
-            entry = dict(zip(slot_leaf_names(slot.kind), rows))
+                                              window=window, past=past,
+                                              k_positions=k_positions)
+            entry = dict(zip(names, rows))
         entries[li].append(entry)
         x, aux = _block_tail(slot, r, cfg, x + out, cond, with_aux=True)
         if aux is not None:
@@ -565,6 +580,68 @@ def prefill_batched(params, cfg: ModelConfig, tokens, lengths, *,
     pos = torch.where(positions < ln[:, None], positions,
                       torch.full_like(positions, -1))
     return logits, _stack_cache(cfg, entries, pos)
+
+
+def prefill_chunk(params, cfg: ModelConfig, tokens, lengths, past=None, *,
+                  start: int, cond=None):
+    """One width-bounded chunk of a batched-admission prefill (the
+    reference's ``prefill_chunk``): ``prefill_batched``'s packed forward
+    split over absolute positions, so a long prompt's admission can run
+    in pieces behind decode macros.  ``tokens`` [B, C]: the slice of the
+    right-padded prompts at positions ``[start, start + C)``; ``lengths``
+    [B]: the rows' full true lengths; ``past``: every earlier chunk's
+    cache (leaves [R, B, start, ...], built by ``chunk_past_extend`` from
+    this function's returns); ``cond`` [B, T, cond_dim] for ``.xattn``
+    slots.  The chunk's keys are ``past ++ own`` at positions
+    ``arange(start + C)``, so each valid row reduces over the same keys
+    as the packed pass (in another order: logits agree to float32
+    rounding).  On the flash route each attention layer is one kernel
+    launch with ``q_offset = start``.
+
+    Returns (logits [B, 1, V], cache_chunk): ``logits[b]`` at the row's
+    last position clamped into this chunk (meaningful only when ``start
+    <= lengths[b] - 1 < start + C``), and the chunk's cache rows as the
+    positions ``[start, start + C)`` of a ``prefill_batched`` cache
+    (``pos`` -1 past each row's length).  Raises for configs without
+    batched prefill; takes no ``extra_embeds`` (a prefix config's
+    admissions keep the packed path)."""
+    if not batched_prefill_supported(cfg):
+        raise ValueError(f"{cfg.name}: chunked prefill needs all-attention "
+                         "layers (recurrent state would fold in padding)")
+    x = L.embed(params.tok, cfg, tokens)
+    b, c = x.shape[:2]
+    start = int(start)
+    positions = start + torch.arange(c, device=x.device)[None]
+    k_positions = torch.arange(start + c, device=x.device)[None]
+    x, entries, _ = _run_seq(params, cfg, x, positions, cond, pasts=past,
+                             k_positions=k_positions)
+    x = L.rms_norm(x, params.final_norm)
+    ln = torch.as_tensor(lengths, device=x.device).long()
+    take = (ln - 1 - start).clamp(0, c - 1)
+    logits = L.unembed(params, cfg,
+                       x[torch.arange(b, device=x.device), take][:, None])
+    pos = torch.where(positions < ln[:, None], positions,
+                      torch.full_like(positions, -1))
+    return logits, _stack_cache(cfg, entries, pos)
+
+
+def chunk_past_extend(past, cache_chunk):
+    """The chunked-prefill past with ``cache_chunk`` (a ``prefill_chunk``
+    cache) appended on the time axis, its ``pos`` dropped (the next chunk
+    rebuilds the key positions as ``arange``); ``past=None`` starts the
+    accumulation (the reference's ``chunk_past_extend``)."""
+    segs = []
+    for si, slots in enumerate(cache_chunk["segments"]):
+        new = []
+        for j, e in enumerate(slots):
+            ent = {k: v for k, v in e.items() if k != "pos"}
+            if past is not None:
+                old = past["segments"][si][j]
+                ent = {k: torch.cat([old[k], v], dim=2)
+                       for k, v in ent.items()}
+            new.append(ent)
+        segs.append(new)
+    return {"segments": segs}
 
 
 def row_cache_from_batched(cache, cfg: ModelConfig, bi: int, length: int,

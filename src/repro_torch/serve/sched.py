@@ -1,10 +1,12 @@
 """Continuous-batching serving scheduler over one shared KV page pool (the
-counterpart of ``repro/serve/sched.py`` for its synchronous loop).
+counterpart of ``repro/serve/sched.py``).
 
   * ``TrafficMonitor`` merges per-request page masses into the global
     logical-page space and feeds one ``TieringManager`` + ``OnlineTuner``
     for the whole mix -- the aggregation point between the scheduler and
-    Cori.
+    Cori.  ``on_macro_step`` feeds, tiers and tunes in one call;
+    ``plan_step`` (host numpy only) and ``apply_decision`` split the same
+    boundary into the pipelined loop's worker half and dispatch half.
   * ``ContinuousBatcher`` admits requests between decode steps (a step's
     joiners prefill as one packed forward pass; with recurrent cells, one
     prefill per request), decodes the request set and retires requests
@@ -25,7 +27,17 @@ counterpart of ``repro/serve/sched.py`` for its synchronous loop).
         config) replays one captured decode step ``n_steps`` times
         (``models.graphs.DecodeGraph``) and syncs with the host once per
         macro; the *eager* route (on the CPU, or when asked) runs the
-        same step body from Python (``model.decode_macro_step``).
+        same step body from Python (``model.decode_macro_step``).  A
+        macro is two halves, ``_macro_launch`` (demand fetch, tables,
+        launch, the read-back queued into pinned buffers) and
+        ``_macro_complete`` (one event wait, merge, tokens, retire): the
+        synchronous loop runs them back to back; with ``pipeline=True``
+        each step completes the previous macro, activates admissions
+        lazily, launches the next macro and does the boundary's host work
+        behind it -- the tiering decision from a background
+        ``serve.pipeline.DecisionWorker`` (landing one boundary late), an
+        admission chunk (``admit_chunk_tokens``, ``model.prefill_chunk``),
+        the prefetch and the table staging.
       - *dense* (``paged=False``, the baseline the paged path is measured
         against): ``max_active`` rows share one packed cache of
         ``max_len`` positions (``model.init_cache``) and decode one token
@@ -46,8 +58,11 @@ Invariants kept from the reference: page ids are released everywhere
 (pool, manager, tuner) before they can recycle; tiering ranks only
 allocated pages; every page a paged decode can touch is HBM-resident
 before it launches; greedy and sampled streams equal
-``engine.generate``'s on every path.  The pipelined loop, chunked
-admission, preemption and the fault ladder are later slices of the port.
+``engine.generate``'s on every path, pipelined and chunked included
+(overlap changes when work runs, never what it computes).  Preemption,
+the bounded queue and the fault ladder (the worker's watchdog and
+restarts) are a later slice of the port: a worker exception re-raises
+from ``step()``.
 """
 from __future__ import annotations
 
@@ -73,10 +88,11 @@ from repro_torch.models import graphs
 from repro_torch.models import model as mdl
 from repro_torch.obs import telemetry as _obs
 from repro_torch.serve import engine
+from repro_torch.serve.pipeline import DecisionWorker
 
 __all__ = ["Request", "TrafficMonitor", "ContinuousBatcher",
-           "TrafficScheduler", "WORKLOAD_KINDS", "decode_route",
-           "pack_prompts"]
+           "TrafficScheduler", "WORKLOAD_KINDS", "DecisionWorker",
+           "decode_route", "pack_prompts"]
 
 
 class TrafficMonitor:
@@ -118,6 +134,19 @@ class TrafficMonitor:
         tiers regardless of the step cadence.  A non-finite merged mass is
         clamped to zero first."""
         mgr = self.manager
+        global_mass, before = self._charge(global_mass, fetched)
+        mgr.on_step(global_mass, self.pools.resident_mask,
+                    weight=float(n_tokens or 1))
+        mgr.maybe_tier(self.pools, active=self.pools.allocated_mask,
+                       force=force_tier)
+        self._tune(global_mass, before, n_active, n_tokens)
+        return mgr.period
+
+    def _charge(self, global_mass: np.ndarray, fetched: int):
+        """A boundary's accounting before the manager's feed: a non-finite
+        merged mass clamped to zero, the demand fetches charged as misses
+        at ``fetch_cost``.  Returns (mass, the modeled time before)."""
+        mgr = self.manager
         if not np.all(np.isfinite(global_mass)):
             global_mass = np.nan_to_num(global_mass, nan=0.0,
                                         posinf=0.0, neginf=0.0)
@@ -125,17 +154,19 @@ class TrafficMonitor:
         if fetched:
             mgr.misses += fetched
             mgr.modeled_time += fetched * mgr.cfg.fetch_cost
-        mgr.on_step(global_mass, self.pools.resident_mask,
-                    weight=float(n_tokens or 1))
-        mgr.maybe_tier(self.pools, active=self.pools.allocated_mask,
-                       force=force_tier)
+        return global_mass, before
+
+    def _tune(self, global_mass: np.ndarray, before: float,
+              n_active: Optional[float], n_tokens: Optional[int]) -> None:
+        """The tuner's update from the boundary's cost (per in-flight
+        request with ``n_active``), which sets the manager's period."""
         if self.tuner is not None:
+            mgr = self.manager
             cost = mgr.modeled_time - before
             if n_active is not None:
                 cost /= max(1, n_active)
             mgr.set_period(self.tuner.on_step(global_mass, cost=cost,
                                               dt=n_tokens or 1))
-        return mgr.period
 
     def on_macro_step(self, global_mass: np.ndarray,
                       n_active: Optional[float] = None,
@@ -145,6 +176,35 @@ class TrafficMonitor:
         token-steps."""
         return self.on_step(global_mass, n_active, n_tokens=n_tokens,
                             force_tier=True, fetched=fetched)
+
+    def plan_step(self, global_mass: np.ndarray,
+                  n_active: Optional[float] = None, *, n_tokens: int = 1,
+                  fetched: int = 0, resident: Optional[np.ndarray] = None,
+                  n_free: int = 0, active: Optional[np.ndarray] = None,
+                  planes: int = 2):
+        """The worker half of a pipelined macro boundary: the accounting of
+        ``on_macro_step`` (clamp, fetch charge, manager feed, tuner update)
+        with the tier stopped at ``plan_tier``, so no pool changes and the
+        call can run on the ``DecisionWorker`` thread.  ``resident``,
+        ``n_free`` and ``active`` are numpy snapshots the dispatch thread
+        took at the boundary (``apply_decision`` revalidates the plan
+        against the live pools); nothing here touches a tensor.  The
+        worker's strict alternation, not a lock, keeps the manager and
+        tuner to one thread at a time.  Returns (period, plan), plan the
+        ``(bring, evict)`` pair or None."""
+        mgr = self.manager
+        global_mass, before = self._charge(global_mass, fetched)
+        mgr.on_step(global_mass, resident, weight=float(n_tokens or 1))
+        plan = mgr.plan_tier(resident, n_free, active=active,
+                             planes=planes, force=True)
+        self._tune(global_mass, before, n_active, n_tokens)
+        return mgr.period, plan
+
+    def apply_decision(self, plan) -> None:
+        """The dispatch half: actuate a worker-planned tier on the live
+        pools (``apply_plan`` revalidates each page first)."""
+        if plan is not None:
+            self.manager.apply_plan(self.pools, *plan)
 
     def release(self, gids: np.ndarray) -> None:
         """Retire a request's pages everywhere: manager hotness cleared,
@@ -166,19 +226,35 @@ def _upload(device, *arrays) -> List[torch.Tensor]:
             .to(device, non_blocking=True) for a in arrays]
 
 
-def _read_back(*tensors) -> List[np.ndarray]:
-    """Tensors as numpy arrays, with one host sync for all of them on a
-    card: non-blocking copies into pinned buffers, then one event wait."""
+def _copy_back(*tensors):
+    """Queue the copy of ``tensors`` to the host without waiting: on a
+    card, non-blocking copies into pinned buffers and one event recorded
+    after them, so a later ``_wait_back`` waits for the work queued up to
+    here and for nothing queued after.  Returns (buffers, event or
+    None)."""
     if all(t.device.type == "cpu" for t in tensors):
-        return [t.numpy().copy() for t in tensors]
+        return [t.numpy().copy() for t in tensors], None
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             for t in tensors]
     for h, t in zip(host, tensors):
         h.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
+    return host, done
+
+
+def _wait_back(host, done) -> List[np.ndarray]:
+    """The numpy arrays of a ``_copy_back``, after its one event wait."""
+    if done is None:
+        return host
     done.synchronize()
     return [h.numpy() for h in host]
+
+
+def _read_back(*tensors) -> List[np.ndarray]:
+    """Tensors as numpy arrays, with one host sync for all of them on a
+    card: non-blocking copies into pinned buffers, then one event wait."""
+    return _wait_back(*_copy_back(*tensors))
 
 
 def pack_prompts(prompts: Sequence[np.ndarray], prefix: int = 0
@@ -232,11 +308,34 @@ class Request:
     mass_cols: Optional[np.ndarray] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
     _i: int = 0                        # decode iterations done
+    # pipelined admission: the lazily sampled first token ([1], on the
+    # device, behind the prefill); it is in the row's input of the macro
+    # the request joins and reaches ``tokens`` when that macro completes
+    _first_tok: Optional[torch.Tensor] = None
     _t_submit: float = 0.0
 
     @property
     def total_len(self) -> int:
         return len(self.prompt) + self.max_new_tokens
+
+
+@dataclasses.dataclass
+class _PendingAdmit:
+    """A reserved admission of the pipelined loop: its row and pages are
+    held (the HBM admission gate counts them) and its prefill is queued --
+    packed at the boundary it was reserved, or one chunk an overlap window
+    for a long prompt -- after which the row activates at a boundary, its
+    first token sampled on the device behind the prefill."""
+
+    req: Request
+    plen: int
+    chunked: bool = False
+    past: object = None          # the earlier chunks' cache (chunked only)
+    next_start: int = 0          # absolute position of the next chunk
+    chunk_idx: int = 0
+    logits: Optional[torch.Tensor] = None   # [1, 1, V] first-token logits
+    ready: bool = False
+    t_submit: float = 0.0
 
 
 class ContinuousBatcher:
@@ -293,12 +392,36 @@ class ContinuousBatcher:
     prefix pages, owned by no request, are never ranked into the
     tiering's desired set.  On the dense path the prefix is part of every
     row's cache and of its own pages.
+
+    ``pipeline=True`` (macro steps only; on a card, the graph route only)
+    runs the pipelined loop: each scheduler step completes the *previous*
+    macro, reserves admissions and activates the ready ones lazily (a
+    joiner rides the macro launched at the boundary its reservation
+    preceded; its first token is sampled on the device), launches the
+    next macro, and then does the boundary's host work behind it -- the
+    tiering and tuner decision, which a ``serve.pipeline.DecisionWorker``
+    thread computes and which lands one boundary late, an admission
+    chunk, the prefetch of the next horizon and the table staging.  On
+    a card every stage queues on the one stream behind the macro in
+    flight, and the host waits only for that macro's read-back (copied
+    at its launch, one event).  Periods land a boundary later, so macro
+    lengths differ from the synchronous loop's; the streams do not.
+    ``admit_chunk_tokens`` (rounded up to whole pages) prefills a longer
+    prompt of a batched-prefill, prefix-free config in chunks of that
+    many positions, one an overlap window (``model.prefill_chunk``; on
+    the flash route each chunk is one kernel launch a layer with the
+    chunk's start as its query offset); ``None`` keeps whole-prompt
+    packed admission.  ``close()`` stops the worker thread; the manager
+    and tuner are safe to read between steps.  A worker exception
+    re-raises from ``step()``.
     """
 
     def __init__(self, params, cfg, *, monitor: Optional[TrafficMonitor]
                  = None, max_active: int = 4, max_len: int = 128,
                  page_size: int = 16, paged: Optional[bool] = None,
                  mirror_pages: bool = False, macro: Optional[bool] = None,
+                 pipeline: bool = False,
+                 admit_chunk_tokens: Optional[int] = None,
                  eager: bool = False, cond=None, extra_embeds=None,
                  device=None):
         mdl.check_supported(cfg)
@@ -319,6 +442,17 @@ class ContinuousBatcher:
         if self.macro and not self.paged:
             raise ValueError("macro-step decode runs on the fully-paged "
                              "path only")
+        self.pipeline = bool(pipeline)
+        if self.pipeline and not self.macro:
+            raise ValueError("pipeline=True needs macro-step decode (the "
+                             "overlap window is the macro's flight time)")
+        self._chunk_width = None
+        if admit_chunk_tokens is not None:
+            if admit_chunk_tokens < 1:
+                raise ValueError("admit_chunk_tokens must be >= 1")
+            # page-aligned chunks: each page is written by one chunk
+            self._chunk_width = -(-admit_chunk_tokens // page_size) \
+                * page_size
         # the write-through mirror needs the legacy single-layer pair; a
         # layered-only pool is physical but has none
         self.mirror_pages = (not self.paged and mirror_pages
@@ -376,6 +510,19 @@ class ContinuousBatcher:
         self.completed: List[Request] = []
         self.route = decode_route(self.device, macro=self.macro,
                                   eager=eager)
+        if (self.pipeline and self.device.type == "cuda"
+                and self.route != "graph"):
+            raise ValueError("the pipelined loop runs by the graph route "
+                             "on a card (eager=True was asked)")
+        # the pipelined loop's state (inert without pipeline)
+        self._inflight: Optional[Dict] = None
+        self._pending_admits: List[_PendingAdmit] = []
+        self._prefetched_next = 0
+        self._decision_gen: Optional[int] = None
+        # the worker's function: one boundary's plan (host numpy only)
+        self._decision_worker = (
+            DecisionWorker(lambda payload: self.monitor.plan_step(**payload))
+            if self.pipeline else None)
         self._graph = None
         self.cache = None
         if self.paged:
@@ -497,7 +644,11 @@ class ContinuousBatcher:
                                  f"{pools.hbm_pages}")
         self.queue.append(req)
 
-    def _admit(self) -> List[Tuple[int, int]]:
+    def _reserve(self) -> List[Request]:
+        """Take the queue's head into free rows while it fits (head-of-
+        line: arrival order kept): its row, its pages (with a monitor;
+        on the paged path within the HBM gate) and, paged, its table
+        row.  Returns the requests taken."""
         batch: List[Request] = []
         while self.queue and self.rows_free:
             req = self.queue[0]
@@ -519,6 +670,10 @@ class ContinuousBatcher:
                 self._hbm_need += n_exact
                 self._map_row(req)
             batch.append(req)
+        return batch
+
+    def _admit(self) -> List[Tuple[int, int]]:
+        batch = self._reserve()
         if not batch:
             return []
         t0 = time.monotonic()
@@ -562,18 +717,25 @@ class ContinuousBatcher:
     def _tables_for(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The static device (slot table, gid table) for a decode launch,
         rewritten in place when a page re-slots or the row mapping
-        changes."""
+        changes; the ``pool.table_upload.performed`` / ``.skipped``
+        counters measure the split.  The rewrite is a stream-ordered copy,
+        so in the pipelined loop it queues behind the macro in flight."""
         pools = self.monitor.pools
         key = (pools.slot_epoch, self._rows_epoch)
-        if self._tables_key != key:
-            slots = np.full_like(self._gid_tables, -1)
-            m = self._gid_tables >= 0
-            slots[m] = pools.table(self._gid_tables[m])
-            for dst, src in zip(self._tables_dev,
-                                _upload(self.device, slots,
-                                        self._gid_tables)):
-                dst.copy_(src)
-            self._tables_key = key
+        track = (r := _obs.RECORDER).enabled
+        if self._tables_key == key:
+            if track:
+                r.count("pool.table_upload.skipped")
+            return self._tables_dev
+        slots = np.full_like(self._gid_tables, -1)
+        m = self._gid_tables >= 0
+        slots[m] = pools.table(self._gid_tables[m])
+        for dst, src in zip(self._tables_dev,
+                            _upload(self.device, slots, self._gid_tables)):
+            dst.copy_(src)
+        self._tables_key = key
+        if track:
+            r.count("pool.table_upload.performed")
         return self._tables_dev
 
     def _need(self, horizon: Dict[int, int]) -> np.ndarray:
@@ -602,15 +764,7 @@ class ContinuousBatcher:
         sample each first token."""
         plens = [len(r.prompt) for r in batch]
         if self._batched_prefill:
-            toks, plens_p = pack_prompts([r.prompt for r in batch],
-                                         self.prefix)
-            rows = lambda t: None if t is None else t.expand(
-                (toks.shape[0],) + t.shape[1:])
-            logits_b, cache_b = mdl.prefill_batched(
-                self.params, self.cfg,
-                torch.as_tensor(toks, device=self.device),
-                torch.as_tensor(plens_p, device=self.device),
-                cond=rows(self._cond), extra_embeds=rows(self._ex))
+            logits_b, cache_b = self._prefill_packed(batch)
             if self.paged:
                 self._write_prefill_pages(cache_b, batch, plens)
             else:
@@ -621,11 +775,7 @@ class ContinuousBatcher:
         else:
             rows = []
             for req in batch:
-                logits, cache1 = mdl.prefill(
-                    self.params, self.cfg,
-                    torch.as_tensor(req.prompt, dtype=torch.int64,
-                                    device=self.device)[None],
-                    cond=self._cond, extra_embeds=self._ex)
+                logits, cache1 = self._prefill_one(req)
                 if self.paged:
                     self._write_prefill_pages_row(cache1, req)
                 else:
@@ -654,6 +804,25 @@ class ContinuousBatcher:
             if req.max_new_tokens <= 1 or tok == req.eos_id:
                 self._retire(req)
         return emitted
+
+    def _prefill_packed(self, batch: List[Request]):
+        """One ``prefill_batched`` over ``batch``'s prompts, packed by
+        ``pack_prompts``, the session's conditioning and prefix broadcast
+        to its rows.  Returns (logits, cache)."""
+        toks, lens = pack_prompts([r.prompt for r in batch], self.prefix)
+        rows = lambda t: None if t is None else t.expand(
+            (toks.shape[0],) + t.shape[1:])
+        return mdl.prefill_batched(
+            self.params, self.cfg, *_upload(self.device, toks, lens),
+            cond=rows(self._cond), extra_embeds=rows(self._ex))
+
+    def _prefill_one(self, req: Request):
+        """``prefill`` of one request's prompt (the admission of recurrent
+        configs).  Returns (logits, cache)."""
+        prompt = np.asarray(req.prompt, np.int64)[None]
+        return mdl.prefill(self.params, self.cfg,
+                           _upload(self.device, prompt)[0], cond=self._cond,
+                           extra_embeds=self._ex)
 
     def _write_row(self, row: int, one) -> None:
         """Install one request's cache (leaves [R, cap, ...], a recurrent
@@ -760,18 +929,25 @@ class ContinuousBatcher:
     def step(self) -> List[Tuple[int, int]]:
         """One scheduler step: admit (one packed prefill), then one decode
         launch (a macro step or a single token) over the request set.
-        Returns the (rid, token) pairs emitted, prefill samples included."""
+        Returns the (rid, token) pairs emitted, prefill samples included.
+        In the pipelined loop a step completes the previous macro,
+        launches the next and fills the window behind it
+        (``_step_pipelined``): tokens surface one step after their macro
+        launched."""
         track = (r := _obs.RECORDER).enabled
         t0 = time.monotonic() if track else 0.0
-        emitted = self._admit()
-        self.step_idx += 1
-        if self.active:
-            if not self.paged:
-                emitted += self._step_dense()
-            elif self.macro:
-                emitted += self._step_paged_macro()
-            else:
-                emitted += self._step_paged()
+        if self.pipeline:
+            emitted = self._step_pipelined()
+        else:
+            emitted = self._admit()
+            self.step_idx += 1
+            if self.active:
+                if not self.paged:
+                    emitted += self._step_dense()
+                elif self.macro:
+                    emitted += self._step_paged_macro()
+                else:
+                    emitted += self._step_paged()
         if track:
             r.observe("serve.step_s", time.monotonic() - t0)
         return emitted
@@ -779,7 +955,8 @@ class ContinuousBatcher:
     def _row_inputs(self, rows) -> Dict[str, np.ndarray]:
         """The per-row inputs of a decode launch, rows without a request
         inert: position (-1), seed, decode iterations done, tokens
-        emitted, budget, EOS (-1 = none) and temperature."""
+        emitted (a lazily admitted row's first token, still on the device,
+        counted), budget, EOS (-1 = none) and temperature."""
         b = self.max_active
         cur = np.full((b,), -1, np.int64)
         seeds, iters, emitted, max_new = (np.zeros((b,), np.int64)
@@ -789,7 +966,7 @@ class ContinuousBatcher:
         for row, req in rows:
             cur[row] = self.pos[row]
             seeds[row], iters[row] = req.seed, req._i
-            emitted[row] = len(req.tokens)
+            emitted[row] = len(req.tokens) + (req._first_tok is not None)
             max_new[row] = req.max_new_tokens
             eos[row] = -1 if req.eos_id is None else req.eos_id
             temps[row] = req.temperature
@@ -887,41 +1064,75 @@ class ContinuousBatcher:
         over page tables once and reads back (tokens, summed mass,
         finished flags, positions, iterations) once, then runs one merged
         monitor feed -- one tiering boundary and one tuner update per
-        period."""
+        period.  The pipelined loop runs the same two halves a scheduler
+        step apart."""
+        emitted, _ = self._macro_complete(self._macro_launch(), sync=True)
+        return emitted
+
+    def _macro_launch(self) -> Dict:
+        """Queue one macro over the current request set and its read-back,
+        without waiting: the demand fetch of every page the macro can
+        touch, the tables, the launch, the next input token (a clone: the
+        graph's carry is overwritten by the next launch) and the
+        non-blocking copies of the outputs into pinned buffers, with one
+        event after them.  Work queued later (a pipelined overlap window)
+        runs behind the macro on the stream, and ``_macro_complete`` waits
+        for that event only.  Returns the in-flight record."""
         pools = self.monitor.pools
         rows = list(self.active.items())
         period = self.monitor.manager.period
-        max_rem = max(req.max_new_tokens - len(req.tokens) for _, req in rows)
+        inp = self._row_inputs(rows)
+        rem = {row: req.max_new_tokens - int(inp["emitted"][row])
+               for row, req in rows}
         # the reference's bucketing: the pow2 floor of the live period,
         # capped by the pow2 ceiling of the remaining work
         n_steps = max(1, min(1 << max(0, int(period).bit_length() - 1),
-                             bucket_pages(max_rem)))
-        horizons = {row: min(n_steps, req.max_new_tokens - len(req.tokens))
-                    for row, req in rows}
+                             bucket_pages(max(rem.values()))))
+        horizons = {row: min(n_steps, rem[row]) for row, _ in rows}
         # every page the macro can touch is resident before it launches;
-        # re-fetches are charged inside the tuner's cost window below
+        # re-fetches (and those an overlap window prefetched for this
+        # macro) are charged inside the tuner's cost window
         fetched = pools.ensure_resident(self._need(horizons))
+        fetched += self._prefetched_next
+        self._prefetched_next = 0
         tables, gid_tables = self._tables_for()
-        inp = self._row_inputs(rows)
         dev_in = _upload(self.device, inp["cur"], inp["seeds"],
                          inp["iters"], inp["emitted"], inp["max_new"],
                          inp["eos"], inp["temps"])
 
         self.macro_timer.start()
+        tok_in = self.tok
         if self.route == "graph":
-            toks, st = self._graph.launch(self.tok, *dev_in, n_steps=n_steps)
+            toks, st = self._graph.launch(tok_in, *dev_in, n_steps=n_steps)
         else:
             toks, st = mdl.decode_macro_step(
                 self.params, self.cfg, pools.kv_with_sink, tables,
-                gid_tables, self.tok, *dev_in, n_steps=n_steps,
+                gid_tables, tok_in, *dev_in, n_steps=n_steps,
                 page_size=self.page_size, state_cols=self._state_cols,
                 cond=self._cond_rows)
-        # the next macro's input token; a clone, since the graph's carry
-        # is overwritten by the next replay
         self.tok = st["last_tok"].clone()
-        toks_np, mass_sum, alive_steps, stopped, pos, iters = _read_back(
-            toks, st["mass_sum"], st["alive_steps"], st["stopped"],
-            st["pos"], st["iters"])
+        outs = [toks, st["mass_sum"], st["alive_steps"], st["stopped"],
+                st["pos"], st["iters"]]
+        if any(req._first_tok is not None for _, req in rows):
+            outs.append(tok_in)       # the lazily admitted first tokens
+        host, done = _copy_back(*outs)
+        return dict(rows=rows, n_steps=n_steps, steps=st["steps"],
+                    fetched=fetched, horizons=horizons, host=host,
+                    done=done)
+
+    def _macro_complete(self, fl: Dict, sync: bool
+                        ) -> Tuple[List[Tuple[int, int]], Optional[Dict]]:
+        """Wait for an in-flight macro's read-back and run its boundary:
+        merge the masses, append and emit the tokens (a lazily admitted
+        row's first token ahead of its macro tokens), retire.  ``sync``
+        (the synchronous loop) feeds the monitor here -- tier and tune
+        before the next launch; otherwise (the pipelined loop) the feed
+        becomes a payload for the ``DecisionWorker``, with the numpy
+        snapshots ``plan_step`` takes, built before the retirements as the
+        reference's.  Returns (emitted, payload or None)."""
+        rows, n_steps = fl["rows"], fl["n_steps"]
+        toks_np, mass_sum, alive_steps, stopped, pos, iters, *first = \
+            _wait_back(fl["host"], fl["done"])
         macro_wall = self.macro_timer.stop(self.step_idx)
 
         # one merge + monitor feed per movement period: the mean mass over
@@ -932,14 +1143,30 @@ class ContinuousBatcher:
               mass_sum[row, r.mass_cols] / max(1, int(alive_steps[row])))
              for row, r in rows])
         self.decode_steps += int(alive_steps.max())
-        self.device_steps += st["steps"]
+        self.device_steps += fl["steps"]
         dt = max(1, int(alive_steps.max()))
         n_active = float(alive_steps.sum()) / dt
-        self.monitor.on_macro_step(merged, n_active=n_active, n_tokens=dt,
-                                   fetched=fetched)
+        payload = None
+        if sync:
+            self.monitor.on_macro_step(merged, n_active=n_active,
+                                       n_tokens=dt, fetched=fl["fetched"])
+        else:
+            pools = self.monitor.pools
+            payload = dict(global_mass=merged, n_active=n_active,
+                           n_tokens=dt, fetched=fl["fetched"],
+                           resident=pools.slot_of >= 0,
+                           n_free=int((pools.page_of_slot < 0).sum()),
+                           active=pools.allocated_mask,
+                           planes=int(pools.move_planes))
 
         self.pos = pos
         emitted: List[Tuple[int, int]] = []
+        for row, req in rows:
+            if req._first_tok is not None:
+                req._first_tok = None
+                tk = int(first[0][row, 0])
+                req.tokens.append(tk)
+                emitted.append((req.rid, tk))
         for t in range(toks_np.shape[0]):
             for row, req in rows:
                 tk = int(toks_np[t, row])
@@ -953,25 +1180,267 @@ class ContinuousBatcher:
         if (r := _obs.RECORDER).enabled:
             r.emit("serve.macro", step=self.step_idx, n_steps=int(n_steps),
                    tokens=len(emitted), active=n_active,
-                   fetched=int(fetched), wall_ms=macro_wall * 1e3,
+                   fetched=int(fl["fetched"]), wall_ms=macro_wall * 1e3,
                    straggler=bool(self.macro_timer.stragglers
                                   and self.macro_timer.stragglers[-1]
                                   == self.step_idx))
             r.count("serve.tokens", len(emitted))
+        return emitted, payload
+
+    # -- the pipelined macro loop --------------------------------------------
+    def _step_pipelined(self) -> List[Tuple[int, int]]:
+        """One pipelined scheduler step, in the reference's fixed order:
+
+        1. complete the previous macro (wait for its read-back, append the
+           tokens, deferred first tokens included, retire) -- the worker
+           is idle, so the retirements may touch the manager and tuner;
+        2. reserve admissions off the queue (rows and pages held, the
+           synchronous loop's HBM gate);
+        3. queue the packed prefill of the fresh non-chunked reservations;
+        4. activate every ready admission lazily: its first token is
+           sampled on the device behind its prefill and written into the
+           row's input, so the request rides the macro launched next;
+        5. launch the next macro (placement and period from the decision
+           applied at the last boundary: stale-by-one);
+        6. submit the completed macro's payload to the worker;
+        7. the overlap window behind the macro (``_pipeline_overlap``)."""
+        fl, self._inflight = self._inflight, None
+        emitted: List[Tuple[int, int]] = []
+        payload = None
+        if fl is not None:
+            emitted, payload = self._macro_complete(fl, sync=False)
+        self.step_idx += 1
+        self._admit_reserve()
+        self._admit_prefill_fresh()
+        emitted += self._admit_activate()
+        if self.active:
+            self._inflight = self._macro_launch()
+        if payload is not None:
+            self._decision_gen = self._decision_worker.submit(payload)
+        self._pipeline_overlap()
+        return emitted
+
+    def _pipeline_overlap(self) -> None:
+        """The overlap window: the boundary's host work, queued behind the
+        macro just launched.  Fixed stage order: wait for the decision and
+        apply it (it moves placement), advance chunked admissions, prefetch
+        the next horizon (it re-fetches what the earlier stages evicted),
+        stage the tables.  Each stage emits ``serve.pipeline.stage``."""
+        track = (r := _obs.RECORDER).enabled
+        if self._decision_gen is not None:
+            gen, self._decision_gen = self._decision_gen, None
+            t0 = time.monotonic()
+            (period, plan), waited = self._decision_worker.wait(gen)
+            self.monitor.apply_decision(plan)
+            if track:
+                r.emit("serve.pipeline.decision", step=self.step_idx,
+                       generation=gen, period=int(period),
+                       bring=0 if plan is None else int(len(plan[0])),
+                       evict=0 if plan is None else int(len(plan[1])),
+                       wait_ms=waited * 1e3)
+                r.emit("serve.pipeline.stage", step=self.step_idx,
+                       stage="decision_wait",
+                       wall_ms=(time.monotonic() - t0) * 1e3)
+        if any(p.chunked and not p.ready for p in self._pending_admits):
+            t0 = time.monotonic()
+            for p in self._pending_admits:
+                if p.chunked and not p.ready:
+                    self._dispatch_chunk(p)
+            if track:
+                r.emit("serve.pipeline.stage", step=self.step_idx,
+                       stage="admit",
+                       wall_ms=(time.monotonic() - t0) * 1e3)
+        fl = self._inflight
+        if fl is None:
+            return
+        # opportunistic prefetch for the next macro: this macro's horizon
+        # plus one more of its length, capped by each row's budget (the
+        # next launch's demand fetch still backstops)
+        t0 = time.monotonic()
+        per_row = {row: min(fl["horizons"][row] + fl["n_steps"],
+                            req.max_new_tokens - len(req.tokens))
+                   for row, req in fl["rows"]}
+        self._prefetched_next += self.monitor.pools.ensure_resident(
+            self._need(per_row))
+        if track:
+            r.emit("serve.pipeline.stage", step=self.step_idx,
+                   stage="prefetch", wall_ms=(time.monotonic() - t0) * 1e3)
+        t0 = time.monotonic()
+        self._tables_for()
+        if track:
+            r.emit("serve.pipeline.stage", step=self.step_idx,
+                   stage="tables", wall_ms=(time.monotonic() - t0) * 1e3)
+
+    def _admit_reserve(self) -> None:
+        """Move admittable requests (``_reserve``: rows, pages and table
+        rows held, the synchronous loop's gate) into the pending set; the
+        prefill is queued later and the row activates at a boundary."""
+        for req in self._reserve():
+            plen = len(req.prompt)
+            # chunks need prefill_chunk's contract: batched prefill, no
+            # shared prefix (chunk positions are cache positions)
+            chunked = (self._chunk_width is not None
+                       and self._batched_prefill and self.prefix == 0
+                       and plen > self._chunk_width)
+            self._pending_admits.append(_PendingAdmit(
+                req=req, plen=plen, chunked=chunked,
+                t_submit=time.monotonic()))
+        if (r := _obs.RECORDER).enabled:
+            r.gauge("serve.queue_depth", len(self.queue))
+
+    def _admit_prefill_fresh(self) -> None:
+        """Queue the prefill of every fresh non-chunked reservation -- one
+        packed forward, or one prefill a request for recurrent configs --
+        and write their pages, without reading anything back; the logits
+        wait for the lazy first-token sample."""
+        fresh = [p for p in self._pending_admits
+                 if not p.ready and not p.chunked and p.logits is None]
+        if not fresh:
+            return
+        if self._batched_prefill:
+            reqs = [p.req for p in fresh]
+            logits_b, cache_b = self._prefill_packed(reqs)
+            self._write_prefill_pages(cache_b, reqs, [p.plen for p in fresh])
+            for i, p in enumerate(fresh):
+                p.logits = logits_b[i: i + 1]
+        else:
+            for p in fresh:
+                p.logits, cache1 = self._prefill_one(p.req)
+                self._write_prefill_pages_row(cache1, p.req)
+        for p in fresh:
+            p.ready = True
+
+    def _dispatch_chunk(self, p: _PendingAdmit) -> None:
+        """Queue one chunk of a long prompt's admission: a
+        ``_chunk_width`` slice of the prompt forward-passed over the
+        earlier chunks' past (``model.prefill_chunk``), its pages written
+        into the pool, the past extended.  The chunk holding the prompt's
+        last position gives the first-token logits; the last chunk makes
+        the admission ready."""
+        t0 = time.monotonic()
+        c = self._chunk_width
+        lo = p.next_start
+        w = min(c, p.plen - lo)
+        toks = np.zeros((1, c), np.int64)
+        toks[0, :w] = p.req.prompt[lo: lo + w]
+        logits, cc = mdl.prefill_chunk(
+            self.params, self.cfg,
+            *_upload(self.device, toks, np.asarray([p.plen], np.int64)),
+            p.past, start=lo, cond=self._cond)
+        self._write_chunk_pages(p.req, cc, lo, p.plen)
+        if lo <= p.plen - 1 < lo + c:
+            p.logits = logits
+        p.next_start = lo + c
+        p.chunk_idx += 1
+        done = p.next_start >= p.plen
+        p.past = None if done else mdl.chunk_past_extend(p.past, cc)
+        p.ready = done
+        if (r := _obs.RECORDER).enabled:
+            r.emit("serve.pipeline.admit_chunk", step=self.step_idx,
+                   rid=p.req.rid, chunk=p.chunk_idx - 1, tokens=int(w),
+                   total=p.plen, wall_ms=(time.monotonic() - t0) * 1e3,
+                   done=done)
+
+    def _write_chunk_pages(self, req: Request, cache_chunk, lo: int,
+                           plen: int) -> None:
+        """Scatter one admission chunk's cache rows into the request's
+        pages, both tiers.  Chunk starts and widths are page-aligned, so
+        every page is written by one chunk; the last page's tail past
+        ``plen`` holds padding rows that attention never reads (as the
+        packed scatter's).  Slots are assigned bookkeeping-only, as an
+        admission's."""
+        pools = self.monitor.pools
+        ps = self.page_size
+        npg = self._chunk_width // ps
+        p0 = lo // ps
+        n_valid = min(npg, -(-(plen - lo) // ps))
+        gids_m = np.full((1, npg), PAGE_DROP, np.int32)
+        slots_m = np.full((1, npg), PAGE_DROP, np.int32)
+        gids_m[0, :n_valid] = req.gids[p0: p0 + n_valid]
+        slots_m[0, :n_valid] = pools.assign_slots(
+            req.gids[p0: p0 + n_valid])
+        write_pages_batched(pools.kv_layers,
+                            self._cache_leaves(cache_chunk, 0, None),
+                            gids_m, slots_m)
+
+    def _admit_activate(self) -> List[Tuple[int, int]]:
+        """The boundary half of a pipelined admission: every ready
+        reservation joins the active set.  Its first token is sampled on
+        the device at iteration 0 (``_prefill``'s draw) behind its
+        prefill and written into ``self.tok`` -- after
+        ``_macro_complete`` replaced it, or it would be overwritten -- so
+        the row rides the macro launched next; the token reaches the
+        stream when that macro completes (``Request._first_tok``), and
+        the macro's entry check freezes a row whose first token is its
+        EOS.  A one-token request reads its token back here and retires,
+        as the synchronous admission does."""
+        ready = [p for p in self._pending_admits if p.ready]
+        if not ready:
+            return []
+        self._pending_admits = [p for p in self._pending_admits
+                                if not p.ready]
+        t0 = time.monotonic()
+        reqs = [p.req for p in ready]
+        first = mdl.sample(
+            torch.cat([p.logits for p in ready])[:, 0], *_upload(
+                self.device,
+                np.asarray([r.temperature for r in reqs], np.float32),
+                np.asarray([r.seed for r in reqs], np.int64),
+                np.zeros((len(reqs),), np.int64)))
+        rows = _upload(self.device,
+                       np.asarray([r.row for r in reqs], np.int64))[0]
+        self.tok[rows, 0] = first
+        emitted: List[Tuple[int, int]] = []
+        for i, p in enumerate(ready):
+            req = p.req
+            p.logits = p.past = None
+            self.pos[req.row] = self.prefix + p.plen
+            self.active[req.row] = req
+            self._rows_epoch += 1
+            if req.max_new_tokens <= 1:
+                req.tokens.append(int(first[i]))
+                emitted.append((req.rid, req.tokens[-1]))
+                self._retire(req)
+            else:
+                req._first_tok = first[i: i + 1]
+        if (r := _obs.RECORDER).enabled:
+            now = time.monotonic()
+            r.emit("serve.admit", step=self.step_idx, joiners=len(ready),
+                   pages=int(sum(q.n_alloc for q in reqs)),
+                   queue_depth=len(self.queue), wall_ms=(now - t0) * 1e3,
+                   # the batch's longest reservation-to-activation wait
+                   stall_ms=(now - min(p.t_submit for p in ready)) * 1e3)
+            r.count("serve.admitted", len(ready))
+            r.gauge("serve.queue_depth", len(self.queue))
         return emitted
 
     @property
     def idle(self) -> bool:
-        return not (self.queue or self.active)
+        """No work left: nothing queued, active, reserved or in flight (the
+        pipelined loop holds admissions and a macro past the last queue
+        and active set)."""
+        return not (self.queue or self.active or self._pending_admits
+                    or self._inflight is not None)
 
     def run(self, max_steps: int = 10 ** 6) -> Dict[int, List[int]]:
         """Step until every submitted request completed (or the step
-        budget runs out).  Returns rid -> emitted tokens."""
+        budget runs out).  Returns rid -> emitted tokens.  The pipelined
+        loop drains its macro in flight and its reservations too, and
+        every step ends with the decision worker idle."""
         steps = 0
         while not self.idle and steps < max_steps:
             self.step()
             steps += 1
         return {r.rid: list(r.tokens) for r in self.completed}
+
+    def close(self) -> None:
+        """Stop the pipelined loop's decision worker (a no-op for the
+        synchronous loop).  Safe after a worker error: a pending decision
+        is dropped, never waited on."""
+        self._decision_gen = None
+        if self._decision_worker is not None:
+            self._decision_worker.close()
+            self._decision_worker = None
 
     def _retire(self, req: Request) -> None:
         req.status = "completed"

@@ -63,6 +63,8 @@ from repro_torch.serve.engine import generate as t_generate
 
 ARCHS = ["musicgen-large", "nemotron-4-340b", "stablelm-12b"]
 LOGIT_TOL, TOL = 1e-4, 1e-5
+# float32 relative term: two frameworks' summation orders on different CPUs
+F32_RTOL = 4e-6
 N_LOGICAL, HBM, PAGE = 48, 10, 4
 PROMPT_LENS = (6, 9, 5, 11)
 NEW = (6, 4, 9, 7)
@@ -90,9 +92,9 @@ def _models(arch):
     return _CACHE[arch]
 
 
-def _close(t, r, tol):
+def _close(t, r, tol, rtol=F32_RTOL):
     np.testing.assert_allclose(t.detach().numpy(), np.asarray(r), atol=tol,
-                               rtol=0)
+                               rtol=rtol)
 
 
 def _cond_rows(m, b):
@@ -258,7 +260,7 @@ def test_forward_prefill_decode_match(arch):
         assert sorted(t) == sorted(r)
         for name, a in t.items():
             np.testing.assert_allclose(a.numpy(), np.asarray(r[name]),
-                                       atol=TOL, rtol=0)
+                                       atol=TOL, rtol=F32_RTOL)
 
     rl, rcache = RM.prefill(rp, rcfg, jnp.asarray(toks), cond=rc)
     tl, tcache = TM.prefill(tp, tcfg, tt, cond=tc)
@@ -339,14 +341,14 @@ def test_decode_step_paged_matches(arch):
         page_size=page, cond=tc)
     active = cur_pos >= 0
     _close(tl[active], np.asarray(rl)[active], LOGIT_TOL)
-    _close(tmass, rmass, TOL)
+    _close(tmass, rmass, TOL, rtol=0)
     assert torch.count_nonzero(tmass[2]) == 0
     np.testing.assert_allclose(tmass.sum(dim=1).numpy()[active], 1.0,
                                atol=TOL)
     for k in pools:
         for t, r in zip(tkv[k], rkv2[k]):
             np.testing.assert_allclose(t[:, :-1].numpy(), np.asarray(r),
-                                       atol=TOL, rtol=0)
+                                       atol=TOL, rtol=F32_RTOL)
 
 
 class _NoHostReads(TorchDispatchMode):
@@ -506,7 +508,7 @@ def test_musicgen_flash_prefill_matches_reference():
     for name, a in tcache["segments"][0][0].items():
         np.testing.assert_allclose(
             a.numpy(), np.asarray(rcache["segments"][0][0][name]), atol=TOL,
-            rtol=0)
+            rtol=F32_RTOL)
     rl, rcache = RM.prefill(rp, rcfg, jnp.asarray(toks), cond=rc)
     tl, tcache = TM.prefill(tp, tcfg, tt, cond=tc)
     _close(tl, rl, LOGIT_TOL)

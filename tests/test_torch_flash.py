@@ -302,3 +302,114 @@ def test_block_plan_visits_each_attended_pair_once(h, kv, s, t, causal,
     if causal and not window:
         sizes = [len(tiles) for *_, tiles in plan]
         assert sizes == sorted(sizes, reverse=True)
+
+
+# ---------------------------------------------------------------------------
+# The query offset: a prefill chunk's queries sit at positions q_offset + i
+# over the keys of the earlier chunks and its own.  The TPU kernel counts
+# query positions from 0, so the reference for a chunk is the JAX oracle
+# (and the Pallas kernel, where its tiles divide) over the queries padded
+# at the front to position 0, its last S rows.
+
+
+def _shifted_reference(args, q_offset, *, pallas_tiles=None, **kw):
+    q, k, v = args
+    pad = np.zeros((q.shape[0], q_offset) + q.shape[2:], q.dtype)
+    jargs = [jnp.asarray(np.concatenate([pad, q], axis=1)), jnp.asarray(k),
+             jnp.asarray(v)]
+    outs = [rref.flash_attention_ref(*jargs, **kw)]
+    if pallas_tiles is not None:
+        outs.append(rops.flash_attention(*jargs, bq=pallas_tiles,
+                                         bkv=pallas_tiles,
+                                         impl="interpret", **kw))
+    return [np.asarray(o, np.float32)[:, q_offset:] for o in outs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,q_offset,causal,window,tiles", [
+    (64, 64, True, 0, 32), (64, 128, True, 48, 32), (64, 32, False, 0, 32),
+    (32, 96, True, 0, 32), (37, 59, True, 0, None), (37, 59, True, 24, None),
+    (1, 95, True, 0, None), (1, 95, True, 16, None),
+    (48, 0, True, 16, None)])
+def test_query_offset_matches_the_shifted_reference(s, q_offset, causal,
+                                                    window, tiles, dtype):
+    """q_offset 32-128 with S = 64 or 32 (the Pallas kernel too, where
+    its tiles divide the padded lengths), an offset that is no multiple of
+    the kernel's 32-key tile (59) with S = 37, S = 1 at the last
+    position, and offset 0: the port's wrapper (the plain version on the
+    CPU) and the plain version itself against the JAX oracle over the
+    padded queries."""
+    t = q_offset + s
+    args = _inputs(q_offset + 7 * s, 1, s, 4, 2, 64, dtype=dtype, t=t)
+    kw = dict(causal=causal, window=window)
+    targets = _shifted_reference(args, q_offset, pallas_tiles=tiles, **kw)
+    targs = [_t(a) for a in args]
+    for o in (tops.flash_attention(*targs, q_offset=q_offset, **kw),
+              tfa.flash_attention_plain(*targs, q_offset=q_offset, **kw)):
+        assert o.shape == targs[0].shape and o.dtype == targs[0].dtype
+        for r in targets:
+            np.testing.assert_allclose(_np(o), r, atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_query_offset_chunks_equal_one_pass(window):
+    """A 100-query pass cut into chunks of 32 (starts 0, 32, 64, 96), each
+    over its keys so far with q_offset = its start, equals the one pass
+    row for row; q_offset 0 is the one pass itself, bit for bit."""
+    q, k, v = (_t(a) for a in _inputs(5, 2, 100, 4, 4, 32))
+    full = tfa.flash_attention(q, k, v, window=window)
+    assert torch.equal(tfa.flash_attention(q, k, v, window=window,
+                                           q_offset=0), full)
+    for lo in range(0, 100, 32):
+        hi = min(lo + 32, 100)
+        part = tfa.flash_attention(q[:, lo:hi].contiguous(),
+                                   k[:, :hi].contiguous(),
+                                   v[:, :hi].contiguous(), window=window,
+                                   q_offset=lo)
+        np.testing.assert_allclose(_np(part), _np(full[:, lo:hi]),
+                                   atol=TOL["float32"], rtol=0)
+
+
+def test_wrapper_refuses_a_bad_query_offset():
+    """A negative offset and q_offset + S > T raise on every device."""
+    q, k, v = (_t(a) for a in _inputs(0, 1, 8, 2, 2, 16, t=12))
+    tfa.flash_attention(q, k, v, q_offset=4)
+    for off in (-1, 5):
+        with pytest.raises(ValueError, match="q_offset"):
+            tfa.flash_attention(q, k, v, q_offset=off)
+
+
+@pytest.mark.parametrize("h,kv,s,q_offset,causal,window", [
+    (h, kv) + m for h, kv in ((4, 4), (16, 8), (10, 2))
+    for m in ((512, 512, True, 0), (512, 1536, True, 1024),
+              (512, 496, True, 1024), (512, 496, True, 0), (1, 2047, True, 0),
+              (1, 2047, True, 1024), (70, 33, True, 16), (70, 33, False, 0),
+              (300, 5, True, 64))])
+def test_block_plan_with_query_offset_visits_each_attended_pair_once(
+        h, kv, s, q_offset, causal, window):
+    """``block_plan`` with a query offset (the served chunk shapes: S =
+    512 at starts 512, 1536 and 496 -- no multiple of the 32-key tile --,
+    window 1024; S = 1 at the last position): every attended (row, key)
+    pair of the shifted mask in exactly one visited tile, no visited tile
+    without one, so no block skips a tile its first rows need."""
+    t = q_offset + s
+    i = q_offset + np.arange(s)[:, None]
+    j = np.arange(t)[None, :]
+    attended = np.ones((s, t), bool)
+    if causal:
+        attended &= j <= i
+    if window > 0:
+        attended &= j > i - window
+    seen = np.zeros((1, h, s, t), np.int32)
+    owner = np.zeros((1, h, s), np.int32)
+    for row, pos, heads, tiles in tfa.block_plan(
+            1, s, t, h, kv, causal=causal, window=window, q_offset=q_offset):
+        owner[row, heads.start:heads.stop, pos.start:pos.stop] += 1
+        for kt in tiles:
+            keys = slice(kt * tfa.KV_TILE, min((kt + 1) * tfa.KV_TILE, t))
+            sub = attended[pos.start:pos.stop, keys]
+            assert sub.any(), (pos, kt)
+            seen[row, heads.start:heads.stop, pos.start:pos.stop, keys] \
+                += sub
+    assert (owner == 1).all()
+    np.testing.assert_array_equal(seen, np.broadcast_to(attended, seen.shape))

@@ -684,6 +684,59 @@ def test_flash_kernel_repeats_are_bit_identical(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,q_offset,h,kv,d,window", [
+    # a gemma3-12b admission chunk of 512 positions at each start the
+    # served prompts reach, causal and window 1024
+    (1, 512, 0, 16, 8, 256, 1024), (1, 512, 512, 16, 8, 256, 1024),
+    (1, 512, 1024, 16, 8, 256, 1024), (1, 512, 1536, 16, 8, 256, 1024),
+    (1, 512, 1536, 16, 8, 256, 0),
+    # a start that is no multiple of the kernel's 32-key tile, S = 1 at
+    # the last position, and smaller head dims
+    (1, 512, 496, 16, 8, 256, 1024), (1, 512, 496, 16, 8, 256, 0),
+    (1, 1, 2047, 16, 8, 256, 1024), (1, 1, 2047, 16, 8, 256, 0),
+    (2, 70, 33, 10, 2, 64, 16), (2, 130, 300, 4, 4, 32, 0)])
+def test_flash_kernel_query_offset_matches_plain(dtype, b, s, q_offset, h,
+                                                 kv, d, window):
+    """The kernel with a query offset (query i at position q_offset + i
+    over keys 0..q_offset + S - 1) against its plain version on the
+    card, with the phase's tolerances."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    t = q_offset + s
+    q, k, v = _flash_inputs(dev, dt, b, s, t, h, kv, d, q_offset + s + d)
+    out = tfa.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_plain(q, k, v, window=window,
+                                    q_offset=q_offset)
+    tol = 2e-2 if dt == torch.bfloat16 else (2e-5 if t <= 512 else 1e-4)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    if dt == torch.bfloat16:
+        err = (out.float() - ref.float()).norm(dim=-1)
+        assert bool((err <= 2.0 ** -6 * ref.float().norm(dim=-1)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_query_offset_zero_is_the_kernel_without_one(dtype):
+    """q_offset = 0 passed explicitly gives the bits of a call without it,
+    and a chunk's rows equal the one pass's rows within the float32 bar
+    (the same keys, the same tiles)."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_inputs(dev, dt, 1, 2048, 2048, 16, 8, 256, 3)
+    one = tfa.flash_attention(q, k, v, window=1024)
+    zero = tfa.flash_attention(q, k, v, window=1024, q_offset=0)
+    part = tfa.flash_attention(q[:, 1536:].contiguous(), k, v, window=1024,
+                               q_offset=1536)
+    torch.cuda.synchronize()
+    assert torch.equal(one, zero)
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(part.float(), one[:, 1536:].float(),
+                               atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
 def test_flash_kernel_rejects_what_it_does_not_take():
     dev = _card()
     q = torch.zeros((1, 8, 4, 64), device=dev)
@@ -697,6 +750,8 @@ def test_flash_kernel_rejects_what_it_does_not_take():
                             k, k)
     with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention(q[..., :48], k[..., :48], k[..., :48])
+    with pytest.raises(ValueError, match="q_offset"):
+        tfa.flash_attention(q, k, k, q_offset=1)
 
 
 # the routed-expert kernel's cases: (T, k, E, d, f, case) -- olmoe-1b-7b's
@@ -1182,3 +1237,125 @@ def test_paged_context_launches_kernel(kind, paged):
     graph, _, submit = _graph_batcher(kind, eager=False)
     _drive([(graph, [], submit)])
     assert streams == {r.rid: r.tokens for r in graph.completed}
+
+
+# ---------------------------------------------------------------------------
+# the pipelined loop on the card: reduced GQA and sliding-window configs
+# (the latter with its prefill on the flash route, in chunks of 4
+# positions), the graph route, against the synchronous loop
+# ---------------------------------------------------------------------------
+
+
+def _pipelined_batcher(kind, *, pipeline, chunk=None, impl="reference"):
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.cori import OnlineTuner
+    from repro_torch.memtier.tiering import (SharedPagedPools, TierConfig,
+                                             TieringManager)
+    from repro_torch.serve import sched as TS
+    cfg, params = _graph_model(kind)
+    cfg = dataclasses.replace(cfg, attention_impl=impl)
+    mon = TS.TrafficMonitor(
+        SharedPagedPools.create(48, 16),
+        TieringManager(48, TierConfig(page_size=4, hbm_pages=16,
+                                      period_steps=2)),
+        OnlineTuner(48, default_period=2, profile_steps=8, trial_steps=4))
+    b = TS.ContinuousBatcher(params, cfg, monitor=mon, max_active=2,
+                             max_len=32, page_size=4, pipeline=pipeline,
+                             admit_chunk_tokens=chunk, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (6, 9, 5, 14)]
+    new, temps = (6, 4, 7, 5), (0.0, 0.7, 0.7, 0.0)
+
+    def submit(i):
+        b.submit(TS.Request(rid=i, prompt=prompts[i], max_new_tokens=new[i],
+                            temperature=temps[i], seed=100 + i))
+    return b, submit
+
+
+def _run_pipelined(b, submit):
+    submit(0)
+    submit(1)
+    t = 0
+    while not b.idle or t < 3:
+        if t == 2:
+            submit(2)
+            submit(3)
+        b.step()
+        t += 1
+    b.close()
+    torch.cuda.synchronize()
+    assert b.monitor.pools.free_pages == 48
+    return {r.rid: r.tokens for r in b.completed}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,chunk,impl", [
+    ("gqa", None, "reference"), ("gqa", 4, "reference"),
+    ("window", None, "pallas"), ("window", 4, "pallas")])
+def test_pipelined_batcher_equals_synchronous(kind, chunk, impl):
+    """The pipelined loop (graph route; with ``chunk`` each prompt in
+    chunks of 4 positions, on the flash route one kernel launch a layer a
+    chunk) emits the synchronous graph route's streams, greedy and
+    sampled, returns every page, and launches the paged kernel layers x
+    device steps."""
+    _card()
+    sync, s_submit = _pipelined_batcher(kind, pipeline=False, impl=impl)
+    want = _run_pipelined(sync, s_submit)
+    b, submit = _pipelined_batcher(kind, pipeline=True, chunk=chunk,
+                                   impl=impl)
+    assert b.route == "graph"
+    tpa.paged_attention.launches = 0
+    tfa.flash_attention.launches = 0
+    got = _run_pipelined(b, submit)
+    assert sorted(got) == [0, 1, 2, 3]
+    assert got == want
+    assert tpa.paged_attention.launches == b.cfg.num_layers * b.device_steps
+    if impl == "pallas" and chunk:
+        chunks = sum(-(-n // 4) for n in (6, 9, 5, 14))
+        assert tfa.flash_attention.launches == b.cfg.num_layers * chunks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,chunk,impl", [
+    ("gqa", None, "reference"), ("window", 4, "pallas")])
+def test_pipelined_step_waits_only_for_the_macro_read_back(kind, chunk,
+                                                          impl):
+    """After a warm-up, pipelined steps run under
+    ``torch.cuda.set_sync_debug_mode("error")``: no read back and no
+    blocking copy anywhere in a step -- packed or chunked admission,
+    flash route included -- but for the completion's one event wait on
+    the macro's pinned copies."""
+    from repro_torch.serve import sched as TS
+    _card()
+    b, submit = _pipelined_batcher(kind, pipeline=True, chunk=chunk,
+                                   impl=impl)
+    submit(0)
+    submit(1)
+    b.step()
+    b.step()
+    submit(2)
+    submit(3)
+    waits = []
+    real = TS._wait_back
+
+    def wait(host, done):
+        waits.append(done is not None)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(host, done)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    TS._wait_back = wait
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        while not b.idle:
+            b.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        TS._wait_back = real
+        b.close()
+    assert waits and all(waits)
+    assert sorted(r.rid for r in b.completed) == [0, 1, 2, 3]

@@ -59,6 +59,8 @@ from repro_torch.serve.engine import generate as t_generate
 
 ARCH = "paligemma-3b"
 LOGIT_TOL, TOL = 1e-4, 1e-5
+# float32 relative term: two frameworks' summation orders on different CPUs
+F32_RTOL = 4e-6
 N_LOGICAL, HBM, PAGE = 48, 10, 4
 PROMPT_LENS = (6, 9, 5, 11)
 NEW = (6, 4, 9, 7)
@@ -83,9 +85,9 @@ def _models():
     return _CACHE
 
 
-def _close(t, r, tol):
+def _close(t, r, tol, rtol=F32_RTOL):
     np.testing.assert_allclose(t.detach().numpy(), np.asarray(r), atol=tol,
-                               rtol=0)
+                               rtol=rtol)
 
 
 def _ex_rows(b, ex=None):
@@ -100,7 +102,7 @@ def _caches_close(tcache, rcache):
         assert sorted(t) == sorted(r)
         for name, a in t.items():
             np.testing.assert_allclose(a.numpy(), np.asarray(r[name]),
-                                       atol=TOL, rtol=0)
+                                       atol=TOL, rtol=F32_RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -257,14 +259,14 @@ def test_decode_step_paged_shares_prefix_pages():
         page_size=page)
     active = cur_pos >= 0
     _close(tl[active], np.asarray(rl)[active], LOGIT_TOL)
-    _close(tmass, rmass, TOL)
+    _close(tmass, rmass, TOL, rtol=0)
     assert bool((tmass[:2, :2] > 0).all())
     np.testing.assert_allclose(tmass.sum(dim=1).numpy()[active], 1.0,
                                atol=TOL)
     for k in pools:
         for t, r in zip(tkv[k], rkv2[k]):
             np.testing.assert_allclose(t[:, :-1].numpy(), np.asarray(r),
-                                       atol=TOL, rtol=0)
+                                       atol=TOL, rtol=F32_RTOL)
 
 
 # ---------------------------------------------------------------------------
