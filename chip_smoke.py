@@ -255,7 +255,35 @@ non-zero):
      1-200; ``hostile``: four phases of 600 steps, online and its fixed
      ladder), held to the benchmark's bars: online steady <= 1.05 x the
      best fixed, peak cache pages >= 25% below the dense provisioning,
-     each hostile phase's regret <= 1.15.
+     each hostile phase's regret <= 1.15;
+ 32. (right after phase 30, on phase 4's parameters) phase 4's mix
+     through the pipelined loop (``pipeline=True``, graph route): streams
+     held to phase 4's (``_compare_streams``), one decision a completed
+     macro, a quiet boundary's tables reused, tokens/s beside phase 4's;
+ 33. (right after phase 16, on phase 15's parameters) phase 15's mix
+     pipelined with ``admit_chunk_tokens=512``: every admission in
+     chunks, the flash kernel's launches 48 x the chunks, streams held to
+     phase 15's, the admission stall beside phase 15's admission wall;
+ 34. (right after phase 32, on phase 4's parameters) the degradation
+     ladder: phase 4's mix plus three sacrificial submissions through the
+     pipelined graph route under a seeded plan that fires every fault
+     kind (``_chaos_plan``: a squeeze to ``CHAOS_SQUEEZE`` HBM pages,
+     failing and slow migrations, a hung then crashed decision worker,
+     corrupted masses, an admission flood), with ``max_queue``, a
+     watchdog far above phase 32's longest decision wait and three
+     restarts.  Fails unless every kind fired, the run drained with
+     every page and the batcher's memory back, every submission has a
+     typed status (the mix completed, one expired, two shed), the
+     streams are phase 4's, the watchdog restarted for a hang and a
+     crash and then decided in line for good, and kernel 1 launched 40 x
+     the device steps;
+ 35. phase 4's mix by phase 4's synchronous graph route under a squeeze
+     alone: at least one preemption, every frozen request thawed, one
+     admission a request, streams held to phase 4's;
+ 36. (right after phase 23, on its parameters) olmoe-1b-7b's mix through
+     the pipelined loop, packed and then chunked (``OLMOE_CHUNK``):
+     streams held to phase 23's graph route's, both kernels' launches,
+     the "admit" stage's wall (a MoE chunk reads the host).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -272,6 +300,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -507,8 +536,10 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     configs), ``extra_embeds`` its shared prefix (``prefix_len``
     configs: the demand fetches of the prefix pages are counted).
     ``batcher_kw`` goes to the batcher (``pipeline``,
-    ``admit_chunk_tokens``); ``keep``, a dict, receives the run's flight
-    recorder as ``keep["recorder"]``.
+    ``admit_chunk_tokens``, ``fault_plan``, ``max_queue``, ``watchdog_s``,
+    ``max_worker_restarts``); ``keep``, a dict, receives the run's flight
+    recorder as ``keep["recorder"]``.  The streams are those of the
+    requests that completed (a shed or expired submission has none).
     Prints and checks what every served model shares, and the merged
     page masses the monitor saw (the access threshold is set from them);
     returns (batcher, result, rng, requests), the result with the route's
@@ -567,14 +598,17 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     torch.cuda.synchronize()
     t0 = time.monotonic()
     if hook is None:
-        out = b.run()
+        b.run()
     else:
         while not b.idle:
             b.step()
             hook(b)
-        out = {r.rid: list(r.tokens) for r in b.completed}
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    # the streams of the requests served (a fault plan's shed and expired
+    # submissions end with no tokens; the phase checks their statuses)
+    out = {r.rid: list(r.tokens) for r in b.completed
+           if r.status == "completed"}
 
     n_tok = sum(len(v) for v in out.values())
     macros = rec.events("serve.macro")
@@ -597,13 +631,18 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
           f"{tuner.dominant_reuse}, candidates {tuner.candidates.tolist()}, "
           f"tried {tuner.tried}, history {tuner.history}", flush=True)
     print(f"macro lengths: {[e['n_steps'] for e in macros]}", flush=True)
-    pos = np.concatenate([m[m > 0] for m in merged])
+    # a fault plan's ``mass.nonfinite`` corrupts feeds in place: those
+    # entries are counted and left out
+    bad = sum(int((~np.isfinite(m)).sum()) for m in merged)
+    pos = np.concatenate([m[np.isfinite(m) & (m > 0)] for m in merged])
     q = np.quantile(pos, [0.0, 0.01, 0.1, 0.5, 0.9, 1.0])
     print(f"merged page mass over {len(merged)} feeds, {pos.size} positive "
           f"entries: min {q[0]:.3g}, p1 {q[1]:.3g}, p10 {q[2]:.3g}, p50 "
           f"{q[3]:.3g}, p90 {q[4]:.3g}, max {q[5]:.3g}; "
           f"{float((pos >= access_threshold).mean()) * 100:.1f}% at or "
-          f"above the access threshold {access_threshold}", flush=True)
+          f"above the access threshold {access_threshold}"
+          + (f"; {bad} non-finite entries left out" if bad else ""),
+          flush=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory {peak_gb:.2f} GB", flush=True)
     if prefix_pages:
@@ -708,16 +747,17 @@ def _serve_routes(params, cfg, S, memtier, cori, telemetry, kernels, check,
     return results, reqs
 
 
-def _check_freed(held: int) -> None:
-    """After a served model's last reference is dropped: collect it,
-    return its memory to the card, and fail unless the allocated memory
-    fell from ``held`` to near zero."""
+def _check_freed(held: int, kept: int = 0) -> None:
+    """After a served model's (or a batcher's) last reference is
+    dropped: collect it, return its memory to the card, and fail unless
+    the allocated memory fell from ``held`` to near ``kept`` (what stays:
+    0 for a model, the parameters for a batcher on them)."""
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated()
-    print(f"freed: allocated {held / 1e9:.2f} GB -> {left / 1e9:.2f} GB",
-          flush=True)
-    if left > 2e9:
+    print(f"freed: allocated {held / 1e9:.2f} GB -> {left / 1e9:.2f} GB "
+          f"(kept {kept / 1e9:.2f} GB)", flush=True)
+    if left > kept + 2e9:
         _fail("the served model was not freed")
 
 
@@ -2364,6 +2404,8 @@ def phase_olmoe(C, mdl, pa, re_, S, memtier, cori, telemetry, kernels):
           f"{cfg.d_model * mo.d_expert * 3 * 4 / 1e6:.1f} MB an expert",
           flush=True)
 
+    streams = {}
+
     def check(b, result, eager):
         result["launches"] = pa.paged_attention.launches
         result["routed_launches"] = re_.routed_experts.launches
@@ -2371,13 +2413,85 @@ def phase_olmoe(C, mdl, pa, re_, S, memtier, cori, telemetry, kernels):
                         cfg.num_layers, b, eager)
         _check_launches("routed_experts", result["routed_launches"],
                         moe_layers, b, eager)
+        if not eager:
+            streams.update((r.rid, list(r.tokens)) for r in b.completed)
 
     results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
                                kernels, check)
+    results["pipelined"] = _olmoe_pipelined(mdl, pa, re_, S, memtier, cori,
+                                            telemetry, kernels, cfg, params,
+                                            streams, results["graph"],
+                                            moe_layers)
     held = torch.cuda.memory_allocated()
     del params
     _check_freed(held)
     return results
+
+
+# phase 36's chunk: prompts of 128-512 positions take 1-2 chunks
+OLMOE_CHUNK = 256
+
+
+def _olmoe_pipelined(mdl, pa, re_, S, memtier, cori, telemetry, kernels,
+                     cfg, params, want, sync, moe_layers) -> dict:
+    """Phase 36: phase 23's mix on its parameters through the pipelined
+    loop (graph route), with packed admission and then with
+    ``admit_chunk_tokens=OLMOE_CHUNK``: streams held to phase 23's graph
+    route's (``_compare_streams``), both kernels' launches, the
+    pipeline's records.  A MoE admission chunk reads the host
+    (``moe._expert_loop``'s counts), so the "admit" stage's wall shows
+    what that read costs in an overlap window; nothing here makes it
+    faster."""
+    print("== phase 36: olmoe-1b-7b pipelined at full width (packed, then "
+          f"chunked admission of {OLMOE_CHUNK})", flush=True)
+    out = {}
+    for name, chunk in (("packed", None), ("chunked", OLMOE_CHUNK)):
+        keep = {}
+        b, res, same, _, reqs = _serve_mix(
+            params, cfg, S, memtier, cori, telemetry, kernels, keep=keep,
+            pipeline=True, admit_chunk_tokens=chunk)
+        res.update(launches=pa.paged_attention.launches,
+                   routed_launches=re_.routed_experts.launches)
+        _check_launches("paged_attention", res["launches"], cfg.num_layers,
+                        b, False)
+        _check_launches("routed_experts", res["routed_launches"],
+                        moe_layers, b, False)
+        _compare_streams(mdl, cfg, params, reqs, same["streams"], want,
+                         f"olmoe pipelined {name}", ref="phase 23's")
+        rec = keep.pop("recorder")
+        st = _pipeline_stats(rec)
+        _check_pipeline(f"olmoe pipelined {name}", b, st)
+        admit = [e["wall_ms"] for e in rec.events("serve.pipeline.stage")
+                 if e["stage"] == "admit"]
+        chunks = rec.events("serve.pipeline.admit_chunk")
+        # a prompt longer than a chunk is admitted in chunks, a shorter
+        # one packed
+        want_chunks = sum(-(-len(r.prompt) // chunk) for r in reqs
+                          if len(r.prompt) > chunk) if chunk else 0
+        if len(chunks) != want_chunks:
+            _fail(f"{len(chunks)} admission chunks, expected {want_chunks}")
+        res.update(st, chunks=len(chunks), admit_stage_ms=admit,
+                   stall_ms=[e["stall_ms"] for e in rec.events(
+                       "serve.admit")])
+        print(f"olmoe-1b-7b pipelined {name}: {res['tokens_per_s']:.2f} "
+              f"tokens/s (phase 23's graph route: "
+              f"{sync['tokens_per_s']:.2f}), macro wall p50 "
+              f"{res['macro_p50_ms']:.1f} ms (phase 23: "
+              f"{sync['macro_p50_ms']:.1f}); admission chunks {len(chunks)}"
+              + (f", the \"admit\" stage wall p50 "
+                 f"{float(np.median(admit)):.1f} ms (max "
+                 f"{max(admit):.1f}) over {len(admit)} windows"
+                 if admit else "")
+              + f"; admission stall p50 "
+              f"{float(np.median(res['stall_ms'])):.1f} ms; tiering "
+              f"{same['migrations']} migrations, {same['hits']} hits, "
+              f"{same['misses']} misses", flush=True)
+        b.close()
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = res
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3095,14 +3209,14 @@ def _pipeline_stats(rec) -> dict:
     stages = {}
     for e in rec.events("serve.pipeline.stage"):
         stages.setdefault(e["stage"], []).append(e["wall_ms"])
-    decisions = rec.events("serve.pipeline.decision")
+    waits = [e["wait_ms"] for e in rec.events("serve.pipeline.decision")]
     return dict(
         uploads=int(counters.get("pool.table_upload.performed", 0)),
         skipped=int(counters.get("pool.table_upload.skipped", 0)),
-        decisions=len(decisions), macros=len(rec.events("serve.macro")),
+        decisions=len(waits), macros=len(rec.events("serve.macro")),
         stage_p50_ms={k: float(np.median(v)) for k, v in stages.items()},
-        decision_wait_p50_ms=float(np.median([e["wait_ms"]
-                                              for e in decisions])))
+        decision_wait_p50_ms=float(np.median(waits)),
+        decision_wait_max_ms=float(max(waits)))
 
 
 def _check_pipeline(name, b, st) -> None:
@@ -3116,7 +3230,8 @@ def _check_pipeline(name, b, st) -> None:
           f"{st['decisions'] == boundaries - 1}; table uploads "
           f"{st['uploads']} performed, {st['skipped']} skipped; stage wall "
           f"p50 (ms) {st['stage_p50_ms']}; decision wait p50 "
-          f"{st['decision_wait_p50_ms']:.3f} ms", flush=True)
+          f"{st['decision_wait_p50_ms']:.3f} ms (max "
+          f"{st['decision_wait_max_ms']:.3f})", flush=True)
     if b.route != "graph":
         _fail(f"{name}: the pipelined batcher took the {b.route} route")
     if st["decisions"] != boundaries - 1:
@@ -3174,6 +3289,225 @@ def phase_pipelined(mdl, pa, S, memtier, cori, telemetry, kernels, cfg,
     del b
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# the degradation ladder at full width (phases 34-35): windows in
+# scheduler steps (phase 4's mix takes ~20), as tests/test_faults.py's
+# chaos plan counts them.  The squeeze holds 48 of the 128 HBM pages,
+# below four rows of 8-38 pages each.  The watchdog's deadline sits far
+# above every decision wait of phase 32 (checked), and the injected delay
+# far above the deadline, so only the delay trips it.
+CHAOS_SQUEEZE = 48
+CHAOS_WATCHDOG_S = 1.0
+CHAOS_DELAY_S = 4.0
+CHAOS_MAX_QUEUE = 2
+CHAOS_RESTARTS = 3
+CHAOS_MAX_STEPS = 400
+
+
+def _chaos_plan(inject):
+    """A plan that fires every kind in ``inject.FAULT_KINDS``: the flood
+    over the submissions made before the first step, a squeeze, failing
+    and slow migrations, a hung worker for three decisions and a crashed
+    one for two (restarts 4 > 3: degraded for good), corrupted masses."""
+    P = inject.FaultPoint
+    return inject.FaultPlan([
+        P("pool.squeeze", start=4, stop=8, value=CHAOS_SQUEEZE),
+        P("pool.migrate_fail", start=2, stop=20, prob=0.7),
+        P("pool.migrate_slow", start=2, stop=20, prob=0.3, value=0.002),
+        P("worker.delay", start=3, stop=6, prob=1.0, value=CHAOS_DELAY_S),
+        P("worker.crash", start=8, stop=10, prob=1.0),
+        P("mass.nonfinite", start=2, stop=30, prob=0.5),
+        P("admit.flood", start=0, stop=2, prob=1.0),
+    ], seed=SEED + 7)
+
+
+def _sacrificial(S, cfg, rng):
+    """The reference test's sacrificial submissions: rid 100 (ttl 1)
+    floods past the queue bound before the first step and expires
+    queued; rids 101 and 102 arrive after step 4, the queue over its
+    bound, and are shed.  Returns (at step, request) pairs."""
+    return [(at, S.Request(
+        rid=rid, prompt=rng.integers(0, cfg.vocab_size, 5).astype(np.int32),
+        max_new_tokens=4, ttl_steps=ttl, seed=SEED + rid))
+        for rid, at, ttl in ((100, 0, 1), (101, 4, None), (102, 4, None))]
+
+
+def _arrivals(subs, counts):
+    """A ``_serve_mix`` ``between`` hook: submits the (step, request)
+    pairs due at step 0 before the first step and the others after that
+    many steps, counts the steps in ``counts["steps"]`` and fails past
+    ``CHAOS_MAX_STEPS`` (a hang)."""
+    def between(b):
+        counts["steps"] = 0
+        for at, req in subs:
+            if at == 0:
+                b.submit(req)
+
+        def hook(b):
+            counts["steps"] += 1
+            for at, req in subs:
+                if at == counts["steps"]:
+                    b.submit(req)
+            if counts["steps"] > CHAOS_MAX_STEPS:
+                _fail(f"no drain after {CHAOS_MAX_STEPS} steps")
+        return hook
+    return between
+
+
+def _wait_workers(timeout: float = 10.0) -> int:
+    """Wait for abandoned decision-worker threads (a hung worker sleeps
+    out its injected delay, then exits); returns how many were left."""
+    end = time.monotonic() + timeout
+    while True:
+        alive = [t for t in threading.enumerate()
+                 if t.name == "decision-worker" and t.is_alive()]
+        if not alive or time.monotonic() > end:
+            return len(alive)
+        time.sleep(0.05)
+
+
+def phase_chaos(mdl, pa, S, memtier, cori, telemetry, kernels, inject,
+                cfg, params, want, piped):
+    """Phase 4's mix plus the sacrificial submissions through the
+    pipelined graph route under ``_chaos_plan``, with a bounded queue, a
+    watchdog and three restarts, on phase 4's parameters (pools, tiering
+    and tuner as phase 4's).  Fails unless every fault kind fired, the
+    run drained with every page back and the batcher's memory returned,
+    every submission has a typed status (the mix completed, rid 100
+    expired, 101-102 shed), the mix's streams are phase 4's graph
+    route's (``_compare_streams``), the watchdog restarted for a hang and
+    a crash and then decided in line for good, and kernel 1 launched 40
+    x the device steps."""
+    print("== phase 34: the degradation ladder under a chaos plan at full "
+          "width (qwen3-14b, pipeline=True, graph route)", flush=True)
+    longest = piped["decision_wait_max_ms"]
+    print(f"watchdog {CHAOS_WATCHDOG_S * 1e3:.0f} ms against phase 32's "
+          f"longest decision wait {longest:.3f} ms (p50 "
+          f"{piped['decision_wait_p50_ms']:.3f}); injected delay "
+          f"{CHAOS_DELAY_S * 1e3:.0f} ms", flush=True)
+    if CHAOS_WATCHDOG_S * 1e3 < 5 * longest:
+        _fail("the watchdog's deadline is not far above phase 32's waits")
+    plan = _chaos_plan(inject)
+    rng = np.random.default_rng(SEED + 34)
+    subs = _sacrificial(S, cfg, rng)
+    counts, keep = {}, {}
+    kept = torch.cuda.memory_allocated()
+    b, res, same, _, reqs = _serve_mix(
+        params, cfg, S, memtier, cori, telemetry, kernels, keep=keep,
+        between=_arrivals(subs, counts), pipeline=True, fault_plan=plan,
+        max_queue=CHAOS_MAX_QUEUE, watchdog_s=CHAOS_WATCHDOG_S,
+        max_worker_restarts=CHAOS_RESTARTS)
+    rec = keep.pop("recorder")
+    counters = rec.summary()["counters"]
+    res["launches"] = pa.paged_attention.launches
+    if b.route != "graph":
+        _fail(f"the chaos run took the {b.route} route")
+    _check_launches("paged_attention", res["launches"], cfg.num_layers, b,
+                    False)
+    fired = dict(sorted(plan.fired.items()))
+    print(f"fault kinds fired (times): {fired}; scheduler steps "
+          f"{counts['steps']}", flush=True)
+    if set(fired) != set(inject.FAULT_KINDS):
+        _fail(f"kinds that never fired: "
+              f"{sorted(set(inject.FAULT_KINDS) - set(fired))}")
+    statuses = {r.rid: r.status for r in b.completed}
+    print(f"statuses {statuses}; shed {b.shed}, expired {b.expired}",
+          flush=True)
+    expect = {r.rid: "completed" for r in reqs}
+    expect.update({100: "expired", 101: "shed", 102: "shed"})
+    if statuses != expect:
+        _fail(f"statuses {statuses}, expected {expect}")
+    _compare_streams(mdl, cfg, params, reqs, same["streams"], want,
+                     "chaos")
+    restarts = rec.events("serve.worker_restart")
+    reasons = [e["reason"] for e in restarts]
+    print(f"worker restarts {b._worker_restarts} ({reasons}); degraded for "
+          f"good {b._worker_degraded}; preemptions {b.preemptions} (thawed "
+          f"{int(counters.get('serve.thawed', 0))}); migrate fails "
+          f"{fired['pool.migrate_fail']}, degraded fetches "
+          f"{int(counters.get('pool.degraded_fetches', 0))}, tier moves "
+          f"failed {int(counters.get('tier.moves_failed', 0))}; "
+          f"nan'd feeds {fired['mass.nonfinite']}", flush=True)
+    if not {"hang", "crash"} <= set(reasons):
+        _fail(f"the watchdog's restarts {reasons} lack a hang or a crash")
+    if not b._worker_degraded or b._decision_worker is not None:
+        _fail("the spent restarts did not leave the loop deciding in line")
+    if b.preemptions < 1 or counters.get("serve.thawed") != b.preemptions:
+        _fail(f"{b.preemptions} preemptions, "
+              f"{counters.get('serve.thawed')} thawed")
+    if not all(math.isfinite(c) for c in b.monitor.tuner.cost_log):
+        _fail("a non-finite cost reached the tuner")
+    res.update(fired=fired, steps=counts["steps"], shed=b.shed,
+               expired=b.expired, preemptions=b.preemptions,
+               restarts=b._worker_restarts, reasons=reasons,
+               degraded_fetches=int(counters.get("pool.degraded_fetches",
+                                                 0)),
+               migrations=same["migrations"], hits=same["hits"],
+               misses=same["misses"], tuner_history=same["tuner_history"])
+    print(f"qwen3-14b under chaos: {res['tokens_per_s']:.2f} tokens/s "
+          f"(phase 32 pipelined in this run: {piped['tokens_per_s']:.2f}), "
+          f"wall {res['wall_s']:.2f} s, macro wall p50 "
+          f"{res['macro_p50_ms']:.1f} ms; tiering {same['migrations']} "
+          f"migrations, {same['hits']} hits, {same['misses']} misses; "
+          f"tuner history {same['tuner_history']}", flush=True)
+    b.close()
+    held = torch.cuda.memory_allocated()
+    del b
+    left = _wait_workers(2 * CHAOS_DELAY_S + 5)
+    if left:
+        _fail(f"{left} decision-worker threads still alive")
+    _check_freed(held, kept)
+    return res
+
+
+def phase_squeeze(mdl, pa, S, memtier, cori, telemetry, kernels, inject,
+                  cfg, params, want):
+    """Phase 4's mix by phase 4's route (synchronous, graph) under a
+    ``pool.squeeze`` to ``CHAOS_SQUEEZE`` HBM pages from step 4 to step
+    10: at least one preemption, every frozen request thawed, one
+    admission a request (a thaw never prefills), streams held to phase
+    4's, kernel 1's launches 40 x the device steps."""
+    print("== phase 35: a capacity squeeze on the synchronous graph route "
+          "(qwen3-14b, preempt and thaw)", flush=True)
+    plan = inject.FaultPlan([inject.FaultPoint(
+        "pool.squeeze", start=4, stop=10, value=CHAOS_SQUEEZE)], seed=SEED)
+    keep = {}
+    kept = torch.cuda.memory_allocated()
+    b, res, same, _, reqs = _serve_mix(params, cfg, S, memtier, cori,
+                                       telemetry, kernels, keep=keep,
+                                       fault_plan=plan)
+    rec = keep.pop("recorder")
+    counters = rec.summary()["counters"]
+    res["launches"] = pa.paged_attention.launches
+    if b.route != "graph":
+        _fail(f"the squeezed run took the {b.route} route")
+    _check_launches("paged_attention", res["launches"], cfg.num_layers, b,
+                    False)
+    preempts = [(e["step"], e["rid"], e["pages"], e["hbm_need"])
+                for e in rec.events("serve.preempt")]
+    thawed = int(counters.get("serve.thawed", 0))
+    admitted = int(counters.get("serve.admitted", 0))
+    print(f"preemptions {b.preemptions} (step, rid, pages released, "
+          f"need after): {preempts}; thawed {thawed}; admitted {admitted} "
+          f"of {len(reqs)}", flush=True)
+    if b.preemptions < 1 or thawed != b.preemptions:
+        _fail(f"{b.preemptions} preemptions, {thawed} thawed")
+    if admitted != len(reqs):
+        _fail(f"{admitted} admissions for {len(reqs)} requests")
+    _compare_streams(mdl, cfg, params, reqs, same["streams"], want,
+                     "squeezed")
+    res.update(preemptions=b.preemptions, preempts=preempts,
+               migrations=same["migrations"], hits=same["hits"],
+               misses=same["misses"], tuner_history=same["tuner_history"])
+    print(f"qwen3-14b squeezed: {res['tokens_per_s']:.2f} tokens/s, wall "
+          f"{res['wall_s']:.2f} s, macro wall p50 {res['macro_p50_ms']:.1f} "
+          f"ms; tiering {same['migrations']} migrations, {same['hits']} "
+          f"hits, {same['misses']} misses", flush=True)
+    held = torch.cuda.memory_allocated()
+    del b
+    _check_freed(held, kept)
     return res
 
 
@@ -3330,6 +3664,7 @@ def main() -> int:
     import repro_torch.configs as C
     from repro_torch import resolve_device
     from repro_torch.core import cori, pipeline, sim, traces
+    from repro_torch.ft import inject
     from repro_torch import memtier
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -3366,6 +3701,10 @@ def main() -> int:
                   engine, telemetry, kernels, qcfg, params, streams)
     piped = timed("pipelined loop", phase_pipelined, mdl, pa, S, memtier,
                   cori, telemetry, kernels, qcfg, params, streams, serve)
+    chaos = timed("chaos", phase_chaos, mdl, pa, S, memtier, cori,
+                  telemetry, kernels, inject, qcfg, params, streams, piped)
+    squeeze = timed("squeeze", phase_squeeze, mdl, pa, S, memtier, cori,
+                    telemetry, kernels, inject, qcfg, params, streams)
     held = torch.cuda.memory_allocated()
     del params       # the deepseek phase needs the card
     _check_freed(held)
@@ -3436,7 +3775,8 @@ def main() -> int:
     main_routed = routed.pop("deepseek-v3-671b")
     chunk_timing = gpiped.pop("chunk_timing")
     print(f"card: {card}; serving {serve}; dense {dense}; pipelined "
-          f"{piped}; gemma3 pipelined chunked {gpiped}; traffic "
+          f"{piped}; chaos {chaos}; squeeze {squeeze}; gemma3 pipelined "
+          f"chunked {gpiped}; traffic "
           f"{traffic}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
           f"{xlstm}; olmoe {olmoe}; musicgen {musicgen}; nemotron "
@@ -3471,7 +3811,15 @@ def main() -> int:
                  timing["paligemma-3b"],
                  launches=paligemma["graph"]["launches"]),
                  "qwen3-14b paged_context over the mirrored single-layer "
-                 "pool, B=1 (phase 30)": dense["probe"]}),
+                 "pool, B=1 (phase 30)": dense["probe"],
+                 "qwen3-14b decode, pipelined under the chaos plan "
+                 "(phase 34)": dict(launches=chaos["launches"]),
+                 "qwen3-14b decode under a capacity squeeze (phase 35)":
+                 dict(launches=squeeze["launches"]),
+                 "olmoe-1b-7b decode, pipelined, packed and chunked "
+                 "admission (phase 36)": dict(launches=[
+                     olmoe["pipelined"][k]["launches"]
+                     for k in ("packed", "chunked")])}),
         dict(name="page_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/page_hist.cu",
              replaces="src/repro/kernels/page_hist.py:45",
@@ -3515,7 +3863,11 @@ def main() -> int:
              "256 experts, d 7168, f 2048 (phases 11, 22)",
              also={"olmoe-1b-7b decode (phases 22, 23)": dict(
                  routed["olmoe-1b-7b"],
-                 launches=olmoe["graph"]["routed_launches"])})]}),
+                 launches=olmoe["graph"]["routed_launches"]),
+                 "olmoe-1b-7b decode, pipelined, packed and chunked "
+                 "admission (phase 36)": dict(launches=[
+                     olmoe["pipelined"][k]["routed_launches"]
+                     for k in ("packed", "chunked")])})]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,14 +21,25 @@ reference's out-of-range "drop" sentinel becomes an explicit mask, and
 the index arrays reach a card through pinned memory without the host
 waiting (``_index``), so pool writes queue behind an in-flight decode
 macro as the reference's lazy arrays do.  The "host" tier is a device
-tensor, as in the reference.  The fault ladder
-(migration retry, pin-to-host, capacity squeeze) is a later slice: the
-pools carry the inert ``NULL_PLAN``.
+tensor, as in the reference.
+
+The degradation ladder is the reference's (``docs/robustness.md``), run
+under the pools' ``fault_plan`` (the inert ``NULL_PLAN`` unless a batcher
+passes one): a failing migration is retried with backoff, then copied by
+the degraded path that cannot fail, and its pages pin to the host for a
+cooldown (``apply_plan`` skips them; their fetches are counted in
+``degraded_fetches``, which the serving loop re-prices); a failed
+promotion batch rolls the slot bookkeeping back; and a capacity squeeze
+lowers ``effective_hbm``, against which placement, the tiering budget
+and the batcher's admission gate and preemption all count.  An injected
+failure raises before any copy is queued, and the rollback restores the
+tables before a later upload reads them.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import ClassVar, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -177,8 +188,23 @@ class SharedPagedPools:
         self.slot_of = np.full((n_logical,), -1, np.int32)
         self.page_of_slot = np.full((hbm_pages,), -1, np.int32)
         self.owner_of = np.full((n_logical,), -1, np.int64)
-        #: fault-injection plan; inert in this slice
+        #: fault-injection plan (the chaos harness); inert by default
         self.fault_plan = NULL_PLAN
+        #: live capacity in pages: ``hbm_pages``, lower under an injected
+        #: ``pool.squeeze`` (placement, the tiering budget and the
+        #: batcher's gate and preemption count against it)
+        self.effective_hbm = int(hbm_pages)
+        #: the ladder's first rung: migration retries with backoff
+        self.migrate_retries = 2
+        self.retry_backoff_s = 0.001
+        #: pages whose migration exhausted its retries serve pinned to the
+        #: host until this placement tick: ``apply_plan`` skips them and
+        #: their fetches take the degraded path
+        self._pin_until = np.zeros((n_logical,), np.int64)
+        self.pin_cooldown = 64
+        #: degraded fetches since the caller last drained this (the
+        #: batcher charges them at ``miss_penalty`` in the tuner's window)
+        self.degraded_fetches = 0
         #: bumped on every ``slot_of`` mutation (page-table caches key on it)
         self.slot_epoch = 0
         # free logical ids, popped lowest-first so reuse is deterministic
@@ -277,6 +303,15 @@ class SharedPagedPools:
     def free_pages(self) -> int:
         return len(self._free_ids)
 
+    @property
+    def hbm_occupied(self) -> int:
+        return int((self.page_of_slot >= 0).sum())
+
+    def host_pinned(self, gids: np.ndarray) -> np.ndarray:
+        """bool per gid: pinned to the host by a retry-exhausted migration
+        (the cooldown counts placement ticks)."""
+        return self._pin_until[np.asarray(gids, np.int64)] > self._tick
+
     def table(self, gids: np.ndarray) -> np.ndarray:
         """Physical HBM slot per global page ID (-1 = host-only)."""
         return self.slot_of[np.asarray(gids, np.int64)]
@@ -329,6 +364,10 @@ class SharedPagedPools:
         self.slot_of[gids] = -1
         if held.size:
             self.slot_epoch += 1
+            if (r := _obs.RECORDER).enabled:
+                r.gauge("pool.hbm_resident_frac",
+                        float((self.page_of_slot >= 0).sum())
+                        / self.hbm_pages)
         return int(held.size)
 
     # -- physical data path --------------------------------------------------
@@ -352,16 +391,26 @@ class SharedPagedPools:
         self._tick += 1
         self._slot_tick[np.asarray(slots, np.int64)] = self._tick
 
-    def migrate_slots(self, slots, logicals) -> None:
+    def migrate_slots(self, slots, logicals, *, degraded: bool = False
+                      ) -> None:
         """Copy host pages ``logicals`` into HBM ``slots`` on every physical
         pool: the legacy pair and every leaf of every layer (the page, not
-        the (page, layer) pair, is the migration unit)."""
+        the (page, layer) pair, is the migration unit).
+
+        The plan's transport faults (``pool.migrate_slow`` sleeps,
+        ``pool.migrate_fail`` raises ``MigrationError``) act before any
+        index is uploaded or copy queued.  ``degraded=True`` is the
+        retry-exhausted path: the same device copy, which the plan does
+        not touch (only its modeled price differs, charged by the
+        caller)."""
         if len(slots) == 0:
             return
-        if (plan := self.fault_plan).enabled \
-                and plan.fires("pool.migrate_fail") is not None:
-            raise MigrationError(
-                f"injected migrate_slots failure ({len(slots)} pages)")
+        if not degraded and (plan := self.fault_plan).enabled:
+            if (p := plan.fires("pool.migrate_slow")) is not None:
+                time.sleep(float(p.value))
+            if plan.fires("pool.migrate_fail") is not None:
+                raise MigrationError(
+                    f"injected migrate_slots failure ({len(slots)} pages)")
         if self.k_host is not None:
             dev = self.k_host.device
             sl, lg = _index(slots, dev), _index(logicals, dev)
@@ -379,9 +428,12 @@ class SharedPagedPools:
                     hbm[:, sl] = host[:, lg]       # in place
 
     def _place(self, gids: np.ndarray) -> Tuple[List[int], np.ndarray]:
-        """Give every non-resident page in ``gids`` an HBM slot (free slots
-        first, then evict the least-recently-ensured resident outside
-        ``gids``).  Returns (slots, missing)."""
+        """Give every non-resident page in ``gids`` an HBM slot: a free
+        slot while the occupancy is under ``effective_hbm``, else the
+        least-recently-ensured resident outside ``gids`` is evicted; when
+        every occupied slot is protected (a squeeze below the working
+        set), a free slot is taken all the same.  Returns (slots,
+        missing)."""
         gids = np.asarray(gids, np.int64)
         if gids.size > self.hbm_pages:
             raise ValueError(f"{gids.size} pages cannot fit the "
@@ -391,14 +443,18 @@ class SharedPagedPools:
         slots: List[int] = []
         for gid in missing.tolist():
             free = np.nonzero(self.page_of_slot < 0)[0]
-            if free.size:
+            occupied = self.hbm_pages - free.size
+            if free.size and occupied < self.effective_hbm:
                 slot = int(free[0])
             else:
                 prot = np.zeros(self.hbm_pages, bool)
                 prot[self.slot_of[gids[self.slot_of[gids] >= 0]]] = True
                 victims = np.nonzero(~prot & (self.page_of_slot >= 0))[0]
-                slot = int(victims[np.argmin(self._slot_tick[victims])])
-                self.slot_of[self.page_of_slot[slot]] = -1
+                if victims.size:
+                    slot = int(victims[np.argmin(self._slot_tick[victims])])
+                    self.slot_of[self.page_of_slot[slot]] = -1
+                else:
+                    slot = int(free[0])
             self.slot_of[gid] = slot
             self.page_of_slot[slot] = gid
             slots.append(slot)
@@ -410,16 +466,39 @@ class SharedPagedPools:
     def ensure_resident(self, gids: np.ndarray) -> int:
         """Demand-fetch: make every page in `gids` HBM-resident in one
         gathered copy.  Returns the number of pages fetched -- the caller
-        charges them as misses."""
+        charges them as misses.  A failing copy is retried with backoff;
+        once the retries are spent the degraded path moves the same bytes
+        (the streams never change), pins the pages to the host for
+        ``pin_cooldown`` ticks and counts them in ``degraded_fetches``."""
         slots, missing = self._place(gids)
         if missing.size:
-            self.migrate_slots(slots, missing)
+            self._migrate_with_retry(slots, missing)
             if (r := _obs.RECORDER).enabled:
                 r.count("pool.fetch_misses", int(missing.size))
                 r.gauge("pool.hbm_resident_frac",
                         float((self.page_of_slot >= 0).sum())
                         / self.hbm_pages)
         return int(missing.size)
+
+    def _migrate_with_retry(self, slots, logicals) -> None:
+        """``migrate_slots`` with ``migrate_retries`` retries, the backoff
+        doubling from ``retry_backoff_s``, then the degraded copy and the
+        pin to host (see ``ensure_resident``)."""
+        delay = self.retry_backoff_s
+        for attempt in range(self.migrate_retries + 1):
+            try:
+                self.migrate_slots(slots, logicals)
+                return
+            except MigrationError:
+                if attempt < self.migrate_retries and delay > 0:
+                    time.sleep(delay)
+                    delay *= 2
+        self.migrate_slots(slots, logicals, degraded=True)
+        lg = np.asarray(logicals, np.int64)
+        self._pin_until[lg] = self._tick + self.pin_cooldown
+        self.degraded_fetches += int(lg.size)
+        if (r := _obs.RECORDER).enabled:
+            r.count("pool.degraded_fetches", int(lg.size))
 
     def assign_slots(self, gids: np.ndarray) -> np.ndarray:
         """``ensure_resident`` without the byte copy: the caller is about
@@ -485,6 +564,16 @@ def write_state_pages(kv, states, gids: np.ndarray,
             at = _index(idx[keep], pool.device)
             pick = _index(np.nonzero(keep)[0], pool.device)
             pool[:, at] = st[:, pick].to(pool.dtype)
+
+
+def squeezed_free(pools, n_free: int) -> int:
+    """The free slots a tier may fill: ``n_free``, clamped to what a
+    squeeze leaves of the capacity (``effective_hbm`` less the occupied
+    slots) on shared pools."""
+    if not hasattr(pools, "effective_hbm"):
+        return n_free
+    occupied = pools.page_of_slot.size - n_free
+    return min(n_free, max(0, pools.effective_hbm - occupied))
 
 
 class TieringManager:
@@ -619,16 +708,23 @@ class TieringManager:
                    bring: np.ndarray,
                    evict: np.ndarray) -> None:
         """Actuate a ``plan_tier`` decision on the live pools: pages a
-        demand fetch already made resident, or evictions already gone, are
-        dropped, and the free-slot arithmetic is redone on the live pool.
-        A failing migration rolls the slot bookkeeping back."""
+        demand fetch already made resident, evictions already gone and
+        (shared pools) pages pinned to the host are dropped, and the
+        free-slot arithmetic is redone on the live pool, clamped to the
+        squeezed capacity (swaps against evictions stay allowed).  A
+        failing migration rolls the slot bookkeeping back and emits
+        ``tier.move_failed``: the promoted pages stay on the host (a later
+        demand fetch retries them) and the evicted residents keep their
+        slots."""
         resident = pools.slot_of >= 0
         bring = np.asarray(bring, np.int64)
         evict = np.asarray(evict, np.int64)
         bring = bring[~resident[bring]]
         evict = evict[resident[evict]]
+        if hasattr(pools, "host_pinned"):
+            bring = bring[~pools.host_pinned(bring)]
         free_slots = np.nonzero(pools.page_of_slot < 0)[0]
-        n_free = len(free_slots)
+        n_free = squeezed_free(pools, len(free_slots))
         n_bring = min(len(bring), n_free + len(evict))
         n_evict = max(0, n_bring - n_free)
         bring, evict = bring[:n_bring], evict[:n_evict]
@@ -663,7 +759,7 @@ class TieringManager:
                    force: bool = False) -> SharedPagedPools | PagedPools:
         """Tier if a boundary is due (``force=True``: the macro loop wakes
         the host once per period, so every wakeup is a boundary)."""
-        n_free = int((pools.page_of_slot < 0).sum())
+        n_free = squeezed_free(pools, int((pools.page_of_slot < 0).sum()))
         plan = self.plan_tier(pools.slot_of >= 0, n_free, active,
                               planes=int(pools.move_planes), force=force)
         if plan is not None:

@@ -59,10 +59,23 @@ Invariants kept from the reference: page ids are released everywhere
 allocated pages; every page a paged decode can touch is HBM-resident
 before it launches; greedy and sampled streams equal
 ``engine.generate``'s on every path, pipelined and chunked included
-(overlap changes when work runs, never what it computes).  Preemption,
-the bounded queue and the fault ladder (the worker's watchdog and
-restarts) are a later slice of the port: a worker exception re-raises
-from ``step()``.
+(overlap changes when work runs, never what it computes).
+
+The degradation ladder is the reference's (``docs/robustness.md``), run
+under the batcher's ``fault_plan`` (inert by default, handed on to the
+pools): a capacity squeeze lowers the pools' ``effective_hbm``, against
+which admission is gated and the coldest active rows are preempted
+(their pages demoted, their rows freed) and thawed FIFO when the budget
+allows, resuming bit for bit with no second prefill; a bounded queue
+(``max_queue``) sheds at submit and a request's ``ttl_steps`` expires it
+while it queues, so every submission ends ``completed``, ``shed`` or
+``expired``; retry-exhausted fetches are re-priced at ``miss_penalty``
+inside the tuner's window; a non-finite merged mass is clamped; and the
+pipelined loop's decision worker runs under a watchdog (``watchdog_s``):
+a hang or a crash recomputes the boundary's decision synchronously,
+reverts the tuner to its last good period and restarts the worker, and
+after ``max_worker_restarts`` the loop decides synchronously for good.
+Without a watchdog a worker exception re-raises from ``step()``.
 """
 from __future__ import annotations
 
@@ -77,12 +90,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import cori
 from repro_torch.core.traffic import RequestSpec
+from repro_torch.ft.inject import NULL_PLAN
 from repro_torch.ft.monitor import StepTimer
 from repro_torch.kernels import ops
 from repro_torch.memtier import workload as W
 from repro_torch.memtier.tiering import (PAGE_DROP, SharedPagedPools,
                                          TieringManager, bucket_pages,
-                                         write_pages_batched,
+                                         squeezed_free, write_pages_batched,
                                          write_state_pages)
 from repro_torch.models import graphs
 from repro_torch.models import model as mdl
@@ -122,7 +136,8 @@ class TrafficMonitor:
     def on_step(self, global_mass: np.ndarray,
                 n_active: Optional[float] = None, *,
                 n_tokens: Optional[int] = None,
-                force_tier: bool = False, fetched: int = 0) -> int:
+                force_tier: bool = False, fetched: int = 0,
+                degraded: int = 0) -> int:
         """Feed one scheduler step's merged masses: accounting, periodic
         tiering over the shared pool and the tuning loop.  Returns the
         tiering period now in force.
@@ -130,11 +145,12 @@ class TrafficMonitor:
         ``n_active`` normalises the tuner's cost per in-flight request;
         ``n_tokens`` is how many token-steps the feed spans (the macro
         length); ``fetched`` demand-fetch misses are charged at
-        ``fetch_cost`` inside the tuner's cost window; ``force_tier``
-        tiers regardless of the step cadence.  A non-finite merged mass is
-        clamped to zero first."""
+        ``fetch_cost`` inside the tuner's cost window, and ``degraded``
+        (retry-exhausted) fetches are topped up to ``miss_penalty`` there;
+        ``force_tier`` tiers regardless of the step cadence.  A non-finite
+        merged mass is clamped to zero first."""
         mgr = self.manager
-        global_mass, before = self._charge(global_mass, fetched)
+        global_mass, before = self._charge(global_mass, fetched, degraded)
         mgr.on_step(global_mass, self.pools.resident_mask,
                     weight=float(n_tokens or 1))
         mgr.maybe_tier(self.pools, active=self.pools.allocated_mask,
@@ -142,10 +158,14 @@ class TrafficMonitor:
         self._tune(global_mass, before, n_active, n_tokens)
         return mgr.period
 
-    def _charge(self, global_mass: np.ndarray, fetched: int):
+    def _charge(self, global_mass: np.ndarray, fetched: int,
+                degraded: int):
         """A boundary's accounting before the manager's feed: a non-finite
         merged mass clamped to zero, the demand fetches charged as misses
-        at ``fetch_cost``.  Returns (mass, the modeled time before)."""
+        at ``fetch_cost``, and the degraded ones topped up from
+        ``fetch_cost`` to ``miss_penalty`` (they lost the batched copy's
+        discount), so the tuner re-plans around failing pages.  Returns
+        (mass, the modeled time before)."""
         mgr = self.manager
         if not np.all(np.isfinite(global_mass)):
             global_mass = np.nan_to_num(global_mass, nan=0.0,
@@ -154,6 +174,9 @@ class TrafficMonitor:
         if fetched:
             mgr.misses += fetched
             mgr.modeled_time += fetched * mgr.cfg.fetch_cost
+        if degraded:
+            mgr.modeled_time += degraded * max(
+                0.0, mgr.cfg.miss_penalty - mgr.cfg.fetch_cost)
         return global_mass, before
 
     def _tune(self, global_mass: np.ndarray, before: float,
@@ -170,20 +193,23 @@ class TrafficMonitor:
 
     def on_macro_step(self, global_mass: np.ndarray,
                       n_active: Optional[float] = None,
-                      n_tokens: int = 1, fetched: int = 0) -> int:
+                      n_tokens: int = 1, fetched: int = 0,
+                      degraded: int = 0) -> int:
         """Feed one macro step (one movement period): one accounting step,
         a forced tier, and one tuner update spanning ``n_tokens``
         token-steps."""
         return self.on_step(global_mass, n_active, n_tokens=n_tokens,
-                            force_tier=True, fetched=fetched)
+                            force_tier=True, fetched=fetched,
+                            degraded=degraded)
 
     def plan_step(self, global_mass: np.ndarray,
                   n_active: Optional[float] = None, *, n_tokens: int = 1,
-                  fetched: int = 0, resident: Optional[np.ndarray] = None,
+                  fetched: int = 0, degraded: int = 0,
+                  resident: Optional[np.ndarray] = None,
                   n_free: int = 0, active: Optional[np.ndarray] = None,
                   planes: int = 2):
         """The worker half of a pipelined macro boundary: the accounting of
-        ``on_macro_step`` (clamp, fetch charge, manager feed, tuner update)
+        ``on_macro_step`` (clamp, fetch charges, manager feed, tuner update)
         with the tier stopped at ``plan_tier``, so no pool changes and the
         call can run on the ``DecisionWorker`` thread.  ``resident``,
         ``n_free`` and ``active`` are numpy snapshots the dispatch thread
@@ -193,7 +219,7 @@ class TrafficMonitor:
         tuner to one thread at a time.  Returns (period, plan), plan the
         ``(bring, evict)`` pair or None."""
         mgr = self.manager
-        global_mass, before = self._charge(global_mass, fetched)
+        global_mass, before = self._charge(global_mass, fetched, degraded)
         mgr.on_step(global_mass, resident, weight=float(n_tokens or 1))
         plan = mgr.plan_tier(resident, n_free, active=active,
                              planes=planes, force=True)
@@ -296,8 +322,14 @@ class Request:
     eos_id: Optional[int] = None
     temperature: float = 0.0
     seed: int = 0
+    #: deadline in scheduler steps from submission (None: none).  A request
+    #: still queued when it passes expires; an admitted one always runs to
+    #: completion (aborting it would break the streams' parity)
+    ttl_steps: Optional[int] = None
     # -- runtime state (owned by the batcher) --
+    #: the typed terminal status: "completed", "shed" or "expired"
     status: str = ""
+    deadline_step: int = -1            # the absolute step the ttl resolves to
     row: int = -1
     gids: Optional[np.ndarray] = None  # pages the request owns
     n_pages: int = 0                   # exact page footprint
@@ -313,6 +345,11 @@ class Request:
     # the request joins and reaches ``tokens`` when that macro completes
     _first_tok: Optional[torch.Tensor] = None
     _t_submit: float = 0.0
+    # a preempted request's row state (position, next input token): its
+    # pages stay allocated and ``seed``/``_i`` stay on it, so a thaw is a
+    # row re-install
+    _frozen_pos: int = 0
+    _frozen_tok: int = 0
 
     @property
     def total_len(self) -> int:
@@ -412,8 +449,23 @@ class ContinuousBatcher:
     the flash route each chunk is one kernel launch a layer with the
     chunk's start as its query offset); ``None`` keeps whole-prompt
     packed admission.  ``close()`` stops the worker thread; the manager
-    and tuner are safe to read between steps.  A worker exception
-    re-raises from ``step()``.
+    and tuner are safe to read between steps.
+
+    Overload safety (the reference's ladder): ``fault_plan`` (a
+    ``ft.inject.FaultPlan``; inert by default) ticks once a scheduler
+    step and is handed on to the pools; a ``pool.squeeze`` lowers their
+    ``effective_hbm`` while it fires.  At each boundary (``_rebalance``)
+    frozen requests thaw FIFO while they fit, one regardless when nothing
+    else is in flight, and while the in-flight footprint exceeds the
+    capacity the coldest active row (least manager hotness; ties to the
+    newest rid) is preempted, down to one row.  ``max_queue`` sheds a
+    submission past that depth; ``ttl_steps`` expires a queued request.
+    ``watchdog_s`` bounds the wait for the worker's decision: a timeout
+    (hang) or an exception (crash) is recovered synchronously and the
+    worker restarted, at most ``max_worker_restarts`` times, after which
+    the loop decides synchronously; with no watchdog a worker exception
+    re-raises from ``step()``.  Counters: ``shed``, ``expired``,
+    ``preemptions``.
     """
 
     def __init__(self, params, cfg, *, monitor: Optional[TrafficMonitor]
@@ -423,7 +475,9 @@ class ContinuousBatcher:
                  pipeline: bool = False,
                  admit_chunk_tokens: Optional[int] = None,
                  eager: bool = False, cond=None, extra_embeds=None,
-                 device=None):
+                 fault_plan=None, max_queue: Optional[int] = None,
+                 watchdog_s: Optional[float] = None,
+                 max_worker_restarts: int = 3, device=None):
         mdl.check_supported(cfg)
         self.device = resolve_device(device)
         if params.tok.device != self.device:
@@ -514,15 +568,31 @@ class ContinuousBatcher:
                 and self.route != "graph"):
             raise ValueError("the pipelined loop runs by the graph route "
                              "on a card (eager=True was asked)")
+        # overload safety (docs/robustness.md in the reference)
+        self.fault_plan = fault_plan if fault_plan is not None else NULL_PLAN
+        if monitor is not None and fault_plan is not None:
+            monitor.pools.fault_plan = self.fault_plan
+        self.max_queue = max_queue
+        self.watchdog_s = watchdog_s
+        self.max_worker_restarts = max_worker_restarts
+        self._worker_restarts = 0
+        self._worker_degraded = False   # restarts spent: decide in line
+        #: bumped on every worker restart: a zombie worker that wakes with
+        #: an older epoch in its payload touches neither manager nor tuner
+        self._live_epoch = 0
+        self._last_payload: Optional[Dict] = None
+        #: preempted requests, oldest first (they thaw FIFO)
+        self._frozen: List[Request] = []
+        self.preemptions = 0
+        self.shed = 0                   # shed at submit (queue full)
+        self.expired = 0                # deadline passed while queued
         # the pipelined loop's state (inert without pipeline)
         self._inflight: Optional[Dict] = None
         self._pending_admits: List[_PendingAdmit] = []
         self._prefetched_next = 0
         self._decision_gen: Optional[int] = None
-        # the worker's function: one boundary's plan (host numpy only)
-        self._decision_worker = (
-            DecisionWorker(lambda payload: self.monitor.plan_step(**payload))
-            if self.pipeline else None)
+        self._decision_worker = (DecisionWorker(self._plan_decision)
+                                 if self.pipeline else None)
         self._graph = None
         self.cache = None
         if self.paged:
@@ -624,6 +694,8 @@ class ContinuousBatcher:
 
     def submit(self, req: Request) -> None:
         req._t_submit = time.monotonic()
+        req.deadline_step = (self.step_idx + req.ttl_steps
+                             if req.ttl_steps is not None else -1)
         if self.prefix + req.total_len > self.max_len:
             raise ValueError(f"request {req.rid} needs "
                              f"{self.prefix + req.total_len} positions, "
@@ -642,13 +714,57 @@ class ContinuousBatcher:
                 raise ValueError(f"request {req.rid} touches {touched} "
                                  "pages, the HBM slot pool holds "
                                  f"{pools.hbm_pages}")
+        if (self.max_queue is not None and len(self.queue) >= self.max_queue
+                and self.fault_plan.fires("admit.flood") is None):
+            # the bounded queue sheds with a typed status; an armed
+            # ``admit.flood`` forces the queue past its bound (the chaos
+            # harness's test that later stages shed rather than stall)
+            self._retire_unadmitted(req, "shed", "queue-full")
+            return
         self.queue.append(req)
 
+    def _retire_unadmitted(self, req: Request, status: str,
+                           reason: str) -> None:
+        """End a request that never reached a row -- shed at submit
+        (``"shed"``) or expired while queued (``"expired"``) -- with an
+        empty stream in ``completed``: every submission ends with a typed
+        status."""
+        req.status = status
+        self.completed.append(req)
+        if status == "shed":
+            self.shed += 1
+        else:
+            self.expired += 1
+        if (r := _obs.RECORDER).enabled:
+            r.emit("serve.shed", step=self.step_idx, rid=req.rid,
+                   reason=reason, queue_depth=len(self.queue))
+            r.emit("serve.retire", step=self.step_idx, rid=req.rid,
+                   tokens=0, status=status,
+                   deadline_ms=(time.monotonic() - req._t_submit) * 1e3
+                   if req._t_submit else 0.0)
+            r.count("serve.shed_total")
+            r.count("serve.retired")
+
+    def _expire_queue(self) -> None:
+        """Retire the queued requests whose deadline has passed (admitted
+        ones are never aborted)."""
+        if not any(req.deadline_step >= 0 for req in self.queue):
+            return
+        keep: List[Request] = []
+        for req in self.queue:
+            if 0 <= req.deadline_step < self.step_idx:
+                self._retire_unadmitted(req, "expired", "deadline")
+            else:
+                keep.append(req)
+        self.queue = collections.deque(keep)
+
     def _reserve(self) -> List[Request]:
-        """Take the queue's head into free rows while it fits (head-of-
-        line: arrival order kept): its row, its pages (with a monitor;
-        on the paged path within the HBM gate) and, paged, its table
-        row.  Returns the requests taken."""
+        """Expire the queue's overdue requests, then take its head into
+        free rows while it fits (head-of-line: arrival order kept): its
+        row, its pages (with a monitor; on the paged path within the HBM
+        gate, against the squeezed capacity) and, paged, its table row.
+        Returns the requests taken."""
+        self._expire_queue()
         batch: List[Request] = []
         while self.queue and self.rows_free:
             req = self.queue[0]
@@ -657,7 +773,7 @@ class ContinuousBatcher:
             if self.monitor is not None:
                 pools = self.monitor.pools
                 if self.paged and (self._hbm_need + n_exact
-                                   > pools.hbm_pages):
+                                   > pools.effective_hbm):
                     break              # head-of-line: keep arrival order
                 gids = pools.alloc(self._pages_alloc(req), req.rid)
                 if gids is None:
@@ -924,21 +1040,110 @@ class ContinuousBatcher:
                 kv[f"{name}_host"][li][:, at_gid, pos % ps] = rows
         write_state_pages(kv, states, req.gids[-1:], slots[-1:])
 
+    # -- overload safety: the fault clock, preemption, thaw -------------------
+    def _fault_tick(self) -> None:
+        """Advance the fault plan's clock once a scheduler step and actuate
+        the squeeze: while ``pool.squeeze`` fires, the pools'
+        ``effective_hbm`` is its value (at least 1); the full capacity
+        returns when its window closes."""
+        plan = self.fault_plan
+        if not plan.enabled:
+            return
+        plan.tick()
+        if self.monitor is not None and self.paged:
+            pools = self.monitor.pools
+            p = plan.fires("pool.squeeze")
+            pools.effective_hbm = (max(1, int(p.value)) if p is not None
+                                   else pools.hbm_pages)
+
+    def _rebalance(self) -> None:
+        """The pressure response at a boundary: first thaw frozen requests
+        FIFO while their footprint fits the effective capacity (one thaws
+        regardless when nothing else is active or pending, so a squeeze
+        below every footprint still drains); then, while the in-flight
+        footprint exceeds it, preempt the coldest active row -- the least
+        manager hotness over its pages, ties to the newest rid -- among
+        rows whose first token has been read, never the last one."""
+        if not self.paged or self.monitor is None:
+            return
+        pools = self.monitor.pools
+        while self._frozen and self.rows_free:
+            req = self._frozen[0]
+            fits = self._hbm_need + req.n_pages <= pools.effective_hbm
+            if not fits and (self.active or self._pending_admits):
+                break
+            self._thaw(self._frozen.pop(0))
+        while self._hbm_need > pools.effective_hbm and len(self.active) > 1:
+            hot = self.monitor.manager.hotness
+            victims = [req for req in self.active.values()
+                       if req._first_tok is None]
+            if len(victims) <= 1:
+                break
+            self._preempt(min(victims, key=lambda q: (
+                float(hot[q.gids].sum()), -q.rid)))
+
+    def _preempt(self, req: Request) -> None:
+        """Freeze one active request: demote its pages (the host copy is
+        written through, so no byte moves), free its row and park it with
+        its position and next input token.  That token is the last one it
+        emitted (``tokens[-1]``, equal to ``tok[row, 0]`` on the device),
+        so the boundary reads nothing back.  Its pages stay allocated: a
+        thaw re-installs the row, never prefills again."""
+        pools = self.monitor.pools
+        row = req.row
+        req._frozen_pos = int(self.pos[row])
+        req._frozen_tok = int(req.tokens[-1])
+        hot = float(self.monitor.manager.hotness[req.gids].sum())
+        released = pools.demote(req.gids)
+        del self.active[row]
+        self.rows_free.append(row)
+        self._hbm_need -= req.n_pages
+        self._gid_tables[row, :] = -1
+        self._rows_epoch += 1
+        req.row = -1
+        self._frozen.append(req)
+        self.preemptions += 1
+        if (r := _obs.RECORDER).enabled:
+            r.emit("serve.preempt", step=self.step_idx, rid=req.rid,
+                   pages=int(released), mass=hot,
+                   hbm_need=int(self._hbm_need),
+                   hbm_cap=int(pools.effective_hbm))
+            r.count("serve.preempted")
+
+    def _thaw(self, req: Request) -> None:
+        """Reactivate a frozen request into a free row: its table row, its
+        position and its next input token (written on the device, no
+        read).  ``seed`` and ``_i`` never left it, so its stream resumes
+        bit for bit; its pages come back through the next launch's demand
+        fetch (the preemption's price, charged to the tuner)."""
+        row = self.rows_free.pop()
+        req.row = row
+        self._map_row(req)
+        self._hbm_need += req.n_pages
+        self.pos[row] = req._frozen_pos
+        self.tok[row].fill_(req._frozen_tok)       # no host sync
+        self.active[row] = req
+        if (r := _obs.RECORDER).enabled:
+            r.count("serve.thawed")
+
     # -- the scheduler loop --------------------------------------------------
     @torch.no_grad()
     def step(self) -> List[Tuple[int, int]]:
-        """One scheduler step: admit (one packed prefill), then one decode
+        """One scheduler step: the fault clock, the pressure response
+        (``_rebalance``), admit (one packed prefill), then one decode
         launch (a macro step or a single token) over the request set.
         Returns the (rid, token) pairs emitted, prefill samples included.
         In the pipelined loop a step completes the previous macro,
-        launches the next and fills the window behind it
+        rebalances, launches the next and fills the window behind it
         (``_step_pipelined``): tokens surface one step after their macro
         launched."""
         track = (r := _obs.RECORDER).enabled
         t0 = time.monotonic() if track else 0.0
+        self._fault_tick()
         if self.pipeline:
             emitted = self._step_pipelined()
         else:
+            self._rebalance()
             emitted = self._admit()
             self.step_idx += 1
             if self.active:
@@ -1026,6 +1231,7 @@ class ContinuousBatcher:
         pools = self.monitor.pools
         fetched = pools.ensure_resident(
             self._need({row: 1 for row in self.active}))
+        degraded, pools.degraded_fetches = pools.degraded_fetches, 0
         tables, gid_tables = self._tables_for()
         rows = list(self.active.items())
         inp = self._row_inputs(rows)
@@ -1042,7 +1248,8 @@ class ContinuousBatcher:
         self.device_steps += 1
         merged = self.monitor.merge(
             [(r.table_gids, masses[row, r.mass_cols]) for row, r in rows])
-        self.monitor.on_step(merged, n_active=len(rows), fetched=fetched)
+        self.monitor.on_step(merged, n_active=len(rows), fetched=fetched,
+                             degraded=degraded)
 
         toks = toks.tolist()
         emitted: List[Tuple[int, int]] = []
@@ -1095,6 +1302,9 @@ class ContinuousBatcher:
         fetched = pools.ensure_resident(self._need(horizons))
         fetched += self._prefetched_next
         self._prefetched_next = 0
+        # the degraded fetches since the last launch (the overlap window's
+        # prefetch included) go on this macro's bill
+        degraded, pools.degraded_fetches = pools.degraded_fetches, 0
         tables, gid_tables = self._tables_for()
         dev_in = _upload(self.device, inp["cur"], inp["seeds"],
                          inp["iters"], inp["emitted"], inp["max_new"],
@@ -1117,8 +1327,8 @@ class ContinuousBatcher:
             outs.append(tok_in)       # the lazily admitted first tokens
         host, done = _copy_back(*outs)
         return dict(rows=rows, n_steps=n_steps, steps=st["steps"],
-                    fetched=fetched, horizons=horizons, host=host,
-                    done=done)
+                    fetched=fetched, degraded=degraded, horizons=horizons,
+                    host=host, done=done)
 
     def _macro_complete(self, fl: Dict, sync: bool
                         ) -> Tuple[List[Tuple[int, int]], Optional[Dict]]:
@@ -1146,16 +1356,27 @@ class ContinuousBatcher:
         self.device_steps += fl["steps"]
         dt = max(1, int(alive_steps.max()))
         n_active = float(alive_steps.sum()) / dt
+        if (plan := self.fault_plan).enabled \
+                and plan.fires("mass.nonfinite") is not None:
+            # corrupt the merged telemetry: the monitor's clamp must
+            # neutralise it before the tuner sees it
+            merged[::3] = np.nan
+            merged[1::5] = np.inf
         payload = None
         if sync:
             self.monitor.on_macro_step(merged, n_active=n_active,
-                                       n_tokens=dt, fetched=fl["fetched"])
+                                       n_tokens=dt, fetched=fl["fetched"],
+                                       degraded=fl["degraded"])
         else:
+            # the worker's snapshots; the free slots are clamped to the
+            # squeezed capacity, so a planned bring never overfills it
             pools = self.monitor.pools
             payload = dict(global_mass=merged, n_active=n_active,
                            n_tokens=dt, fetched=fl["fetched"],
+                           degraded=fl["degraded"],
                            resident=pools.slot_of >= 0,
-                           n_free=int((pools.page_of_slot < 0).sum()),
+                           n_free=squeezed_free(
+                               pools, int((pools.page_of_slot < 0).sum())),
                            active=pools.allocated_mask,
                            planes=int(pools.move_planes))
 
@@ -1188,12 +1409,63 @@ class ContinuousBatcher:
         return emitted, payload
 
     # -- the pipelined macro loop --------------------------------------------
+    def _plan_decision(self, payload: Dict):
+        """The worker's function: one boundary's plan (host numpy only).
+        The worker faults (``worker.delay`` sleeps, ``worker.crash``
+        raises) fire before the manager or tuner is touched, so a
+        recovery can recompute the boundary without feeding the tuner
+        twice; a payload from an older epoch (a zombie waking after a
+        restart) returns an inert result."""
+        plan = self.fault_plan
+        if plan.enabled:
+            if (p := plan.fires("worker.delay")) is not None:
+                time.sleep(p.value)
+            if plan.fires("worker.crash") is not None:
+                raise RuntimeError("injected decision-worker crash")
+        if payload.get("_epoch", self._live_epoch) != self._live_epoch:
+            return self.monitor.manager.period, None
+        return self.monitor.plan_step(
+            **{k: v for k, v in payload.items() if k != "_epoch"})
+
+    def _worker_recover(self, reason: str):
+        """The watchdog's recovery from a hung (``"hang"``) or crashed
+        (``"crash"``) worker: walk away from its thread (``abandon`` a
+        hang, ``close`` a crash), bump the live epoch so the zombie
+        touches nothing, restart the worker (none once
+        ``max_worker_restarts`` is spent: the loop then decides in line
+        for good), revert the tuner to its last good period, and
+        recompute this boundary's decision from the stashed payload.
+        Returns (period, plan)."""
+        self._live_epoch += 1
+        w = self._decision_worker
+        if reason == "hang":
+            w.abandon()
+        else:
+            w.close(timeout=1.0)
+        self._worker_restarts += 1
+        self._worker_degraded = (self._worker_restarts
+                                 > self.max_worker_restarts)
+        self._decision_worker = (None if self._worker_degraded
+                                 else DecisionWorker(self._plan_decision))
+        if self.monitor.tuner is not None:
+            self.monitor.tuner.revert_last_good(
+                reason=f"decision-worker-{reason}")
+        period, plan = self.monitor.plan_step(
+            **{k: v for k, v in self._last_payload.items() if k != "_epoch"})
+        if (r := _obs.RECORDER).enabled:
+            r.emit("serve.worker_restart", step=self.step_idx,
+                   reason=reason, restarts=self._worker_restarts,
+                   degraded=self._worker_degraded)
+            r.count("serve.worker_restarts")
+        return period, plan
+
     def _step_pipelined(self) -> List[Tuple[int, int]]:
         """One pipelined scheduler step, in the reference's fixed order:
 
         1. complete the previous macro (wait for its read-back, append the
            tokens, deferred first tokens included, retire) -- the worker
-           is idle, so the retirements may touch the manager and tuner;
+           is idle, so the retirements may touch the manager and tuner --
+           and rebalance (thaw, preempt);
         2. reserve admissions off the queue (rows and pages held, the
            synchronous loop's HBM gate);
         3. queue the packed prefill of the fresh non-chunked reservations;
@@ -1202,7 +1474,9 @@ class ContinuousBatcher:
            row's input, so the request rides the macro launched next;
         5. launch the next macro (placement and period from the decision
            applied at the last boundary: stale-by-one);
-        6. submit the completed macro's payload to the worker;
+        6. submit the completed macro's payload to the worker (with the
+           live epoch, and stashed for a recovery), or decide it in line
+           once the restarts are spent;
         7. the overlap window behind the macro (``_pipeline_overlap``)."""
         fl, self._inflight = self._inflight, None
         emitted: List[Tuple[int, int]] = []
@@ -1210,13 +1484,20 @@ class ContinuousBatcher:
         if fl is not None:
             emitted, payload = self._macro_complete(fl, sync=False)
         self.step_idx += 1
+        self._rebalance()
         self._admit_reserve()
         self._admit_prefill_fresh()
         emitted += self._admit_activate()
         if self.active:
             self._inflight = self._macro_launch()
         if payload is not None:
-            self._decision_gen = self._decision_worker.submit(payload)
+            if self._decision_worker is not None:
+                payload["_epoch"] = self._live_epoch
+                self._last_payload = payload
+                self._decision_gen = self._decision_worker.submit(payload)
+            else:
+                _, plan = self.monitor.plan_step(**payload)
+                self.monitor.apply_decision(plan)
         self._pipeline_overlap()
         return emitted
 
@@ -1225,12 +1506,25 @@ class ContinuousBatcher:
         macro just launched.  Fixed stage order: wait for the decision and
         apply it (it moves placement), advance chunked admissions, prefetch
         the next horizon (it re-fetches what the earlier stages evicted),
-        stage the tables.  Each stage emits ``serve.pipeline.stage``."""
+        stage the tables.  Each stage emits ``serve.pipeline.stage``.  With
+        a watchdog, a wait past ``watchdog_s`` is a hang and a decision
+        that raised a crash (``_worker_recover``); without one the
+        exception re-raises."""
         track = (r := _obs.RECORDER).enabled
         if self._decision_gen is not None:
             gen, self._decision_gen = self._decision_gen, None
             t0 = time.monotonic()
-            (period, plan), waited = self._decision_worker.wait(gen)
+            try:
+                (period, plan), waited = self._decision_worker.wait(
+                    gen, timeout=self.watchdog_s)
+            except TimeoutError:
+                period, plan = self._worker_recover("hang")
+                waited = time.monotonic() - t0
+            except Exception:
+                if self.watchdog_s is None:
+                    raise
+                period, plan = self._worker_recover("crash")
+                waited = time.monotonic() - t0
             self.monitor.apply_decision(plan)
             if track:
                 r.emit("serve.pipeline.decision", step=self.step_idx,
@@ -1416,11 +1710,11 @@ class ContinuousBatcher:
 
     @property
     def idle(self) -> bool:
-        """No work left: nothing queued, active, reserved or in flight (the
-        pipelined loop holds admissions and a macro past the last queue
-        and active set)."""
+        """No work left: nothing queued, active, frozen, reserved or in
+        flight (the pipelined loop holds admissions and a macro past the
+        last queue and active set)."""
         return not (self.queue or self.active or self._pending_admits
-                    or self._inflight is not None)
+                    or self._frozen or self._inflight is not None)
 
     def run(self, max_steps: int = 10 ** 6) -> Dict[int, List[int]]:
         """Step until every submitted request completed (or the step
@@ -1435,8 +1729,9 @@ class ContinuousBatcher:
 
     def close(self) -> None:
         """Stop the pipelined loop's decision worker (a no-op for the
-        synchronous loop).  Safe after a worker error: a pending decision
-        is dropped, never waited on."""
+        synchronous loop and once the restarts are spent).  Safe mid-macro
+        and after a worker error: a pending decision is dropped, never
+        waited on, and the error stays with the dead worker."""
         self._decision_gen = None
         if self._decision_worker is not None:
             self._decision_worker.close()

@@ -1246,7 +1246,8 @@ def test_paged_context_launches_kernel(kind, paged):
 # ---------------------------------------------------------------------------
 
 
-def _pipelined_batcher(kind, *, pipeline, chunk=None, impl="reference"):
+def _pipelined_batcher(kind, *, pipeline, chunk=None, impl="reference",
+                       fault_plan=None):
     import dataclasses
     import numpy as np
     from repro_torch.core.cori import OnlineTuner
@@ -1262,7 +1263,8 @@ def _pipelined_batcher(kind, *, pipeline, chunk=None, impl="reference"):
         OnlineTuner(48, default_period=2, profile_steps=8, trial_steps=4))
     b = TS.ContinuousBatcher(params, cfg, monitor=mon, max_active=2,
                              max_len=32, page_size=4, pipeline=pipeline,
-                             admit_chunk_tokens=chunk, device="cuda")
+                             admit_chunk_tokens=chunk, fault_plan=fault_plan,
+                             device="cuda")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (6, 9, 5, 14)]
@@ -1359,3 +1361,76 @@ def test_pipelined_step_waits_only_for_the_macro_read_back(kind, chunk,
         b.close()
     assert waits and all(waits)
     assert sorted(r.rid for r in b.completed) == [0, 1, 2, 3]
+
+
+# ---------------------------------------------------------------------------
+# the degradation ladder on the card: a capacity squeeze preempts and thaws
+# rows of the graph route (reduced qwen3-14b, float32, the requests above:
+# 3-5 pages each, two rows; a squeeze to 4 of the 16 HBM pages from step 2
+# to step 6 holds one row)
+# ---------------------------------------------------------------------------
+
+
+def _squeeze():
+    from repro_torch.ft.inject import FaultPlan, FaultPoint
+    return FaultPlan([FaultPoint("pool.squeeze", start=2, stop=6, value=4)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_squeezed_graph_route_streams_equal_unsqueezed(pipeline):
+    """Under the squeeze a row is preempted (its pages demoted) and thawed
+    later, on the synchronous and the pipelined graph route; the streams,
+    greedy and sampled, are the unsqueezed run's and no admission runs
+    twice."""
+    _card()
+    free, f_submit = _pipelined_batcher("gqa", pipeline=pipeline)
+    want = _run_pipelined(free, f_submit)
+    b, submit = _pipelined_batcher("gqa", pipeline=pipeline,
+                                   fault_plan=_squeeze())
+    assert b.route == "graph"
+    tpa.paged_attention.launches = 0
+    got = _run_pipelined(b, submit)
+    assert b.preemptions >= 1 and not b._frozen
+    assert got == want
+    assert tpa.paged_attention.launches == b.cfg.num_layers * b.device_steps
+
+
+@pytest.mark.gpu
+def test_rebalance_reads_nothing_back():
+    """Every ``_rebalance`` of a squeezed pipelined run -- a preemption
+    and a thaw among them -- runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: the frozen row's next
+    input is ``tokens[-1]`` (held equal to ``tok[row, 0]``, read outside
+    the guard) and the thaw writes it on the device."""
+    _card()
+    b, submit = _pipelined_batcher("gqa", pipeline=True,
+                                   fault_plan=_squeeze())
+    calls = {"preempt": 0, "thaw": 0}
+    rebalance, preempt, thaw = b._rebalance, b._preempt, b._thaw
+
+    def guarded():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rebalance()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def checked_preempt(req):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            assert req.tokens[-1] == int(b.tok[req.row, 0])
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+        calls["preempt"] += 1
+        preempt(req)
+
+    def counted_thaw(req):
+        calls["thaw"] += 1
+        thaw(req)
+
+    b._rebalance, b._preempt, b._thaw = guarded, checked_preempt, \
+        counted_thaw
+    got = _run_pipelined(b, submit)
+    assert sorted(got) == [0, 1, 2, 3]
+    assert calls["preempt"] >= 1 and calls["thaw"] == calls["preempt"]

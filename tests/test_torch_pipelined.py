@@ -512,8 +512,8 @@ def test_pipelined_table_counters_and_stages():
 
 
 def test_worker_exception_surfaces_from_step():
-    """Without a watchdog (a later slice) a decision that raises
-    re-raises from ``step()``; ``close()`` still tears down."""
+    """Without a watchdog a decision that raises re-raises from
+    ``step()``; ``close()`` still tears down."""
     m = _models("qwen3-14b")
     mon = _stack("port")
     b = TS.ContinuousBatcher(m["tp"], m["tcfg"], max_active=2, max_len=32,
