@@ -283,7 +283,34 @@ non-zero):
  36. (right after phase 23, on its parameters) olmoe-1b-7b's mix through
      the pipelined loop, packed and then chunked (``OLMOE_CHUNK``):
      streams held to phase 23's graph route's, both kernels' launches,
-     the "admit" stage's wall (a MoE chunk reads the host).
+     the "admit" stage's wall (a MoE chunk reads the host);
+ 37. full-width, full-depth paligemma-3b trained through
+     ``train.step.make_train_step`` (remat, float32 AdamW state; 10.0 GB of
+     float32 weights from a seeded init): ``DataConfig(global_batch=4,
+     seq_len=256)`` with the seeded 256-position image prefix, 512
+     positions a row.  Two steps on batch 0 (the second's loss must be
+     below the first's), then batches 1-4; every loss and gradient norm
+     finite; the step wall p50, positions/s, one more step's
+     forward+backward and optimizer on CUDA events, peak memory and the
+     share of 67 TFLOP/s float32 that 8 N T reaches (remat: the forward
+     twice; TF32 off);
+ 38. olmoe-1b-7b at full width, depth cut 16 -> 4 (7.5 GB): int8 AdamW
+     state, ``accum_steps=2``, the MoE backward through the expert loop;
+     4 steps with phase 37's checks and numbers (8 N_active T);
+ 39. the train step on the card against the CPU on every registered
+     architecture's reduced config (the same seeded weights and batch):
+     loss, gradient norm and every parameter after one step within the
+     stated bars (``PARITY_*``), float32 state, plus int8 state on
+     olmoe-1b-7b (its codes too);
+ 40. the restart drill (``tests/test_substrate.py``'s): ``ft.supervisor``
+     relaunches ``python -m repro_torch.launch.train --arch olmoe-1b-7b
+     --reduced --steps 12 --batch 2 --seq 16 --ckpt-every 4`` on the card
+     after ``REPRO_FAIL_AT_STEP=8``; exit 0, one restart, the resume at
+     step 8 with 4 steps run, and the resumed losses within
+     ``DRILL_RTOL`` of an uninterrupted run's (in this process); the
+     checkpoint directory is a temporary one, removed afterwards.
+     None of phases 37-40 launches a hand-written kernel (the reference's
+     training path reaches no ``pallas_call``): their counts must stay 0.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -296,10 +323,13 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -3650,6 +3680,234 @@ def phase_gemma_pipelined(C, mdl, pa, fa, S, memtier, cori, telemetry,
     return res
 
 
+# ---------------------------------------------------------------------------
+# training: paligemma-3b, olmoe-1b-7b, reduced parity, the restart drill
+# ---------------------------------------------------------------------------
+
+# phases 37-38's batches: 4 rows of 256 tokens (paligemma-3b's rows carry
+# its 256-position image prefix too, whose targets are IGNORE)
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+# a step small enough that the second step on the first batch must lower
+# its loss at full width (the reference's test takes 1e-3 on its reduced
+# configs)
+FULL_OPT = dict(lr=1e-4, warmup_steps=1, decay_steps=8)
+OLMOE_TRAIN_LAYERS = 4
+# phase 39: the reference test's optimizer, one step on 4 x 16 tokens; the
+# card against the CPU: float32 sums in other orders (TF32 off), the token
+# table's gradient summed in bfloat16 in another order; AdamW's first step
+# ~ sign(g), so an element whose gradient is float32 noise can move its
+# step by a large part of it: every parameter within 0.1 of a step, at most
+# 0.1% of them beyond 1e-3 of a step
+PARITY_OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=10)
+PARITY_LOSS_RTOL, PARITY_GNORM_RTOL = 1e-5, 1e-4
+PARITY_STEP_TOL, PARITY_STEP_FINE, PARITY_FINE_SHARE = 0.1, 1e-3, 1e-3
+# phase 40: the resumed steps against the uninterrupted run's on one card
+# (the expert loop's index_add_ sums with atomics, in any order)
+DRILL_RTOL = 1e-5
+
+
+def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
+                moe_active=1.0):
+    """Train ``cfg`` from a seeded init through ``make_train_step`` on
+    ``batches`` (indices of ``batch_at``): every loss and gradient norm
+    finite, the second step's loss (the first batch again) below the
+    first's, then one more step split into ``_grads`` and
+    ``optim.update`` timed on CUDA events.  Returns the cell's numbers."""
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_state(cfg, ocfg, seed=SEED, device=DEV)
+    params = state["params"]
+    n = sum(p.numel() for p in params.parameters())
+    n_expert = sum(p.numel() for nm, p in params.named_parameters()
+                   if nm.split(".")[-1] in ("wi_gate", "wi_up", "wo")
+                   and ".moe." in nm and ".shared." not in nm)
+    n_active = n - n_expert * (1 - moe_active)
+    step = TS.make_train_step(cfg, ocfg, accum_steps=accum)
+    dcfg = data.DataConfig(seed=SEED, global_batch=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ)
+    positions = TRAIN_BATCH * ((cfg.prefix_len or 0) + TRAIN_SEQ)
+    losses, gnorms, walls = [], [], []
+    for index in batches:
+        batch = data.batch_at(dcfg, cfg, index)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        print(f"{name} step {len(losses)} (batch {index}): loss {loss:.5f} "
+              f"grad norm {gnorm:.4f} lr {float(m['lr']):.2e} wall "
+              f"{walls[-1]:.3f} s", flush=True)
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        _fail(f"{name}: a loss or gradient norm is not finite")
+    if not losses[1] < losses[0]:
+        _fail(f"{name}: the second step on batch {batches[0]} did not "
+              f"lower its loss ({losses[0]} -> {losses[1]})")
+    batch = TS.to_device(data.batch_at(dcfg, cfg, max(batches) + 1), DEV)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    grads, _ = TS._grads(params, cfg, batch, accum, False)
+    ev[1].record()
+    TO.update(grads, state["opt"], params, ocfg)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    p50 = float(np.median(walls[1:]))
+    flops = (8 if cfg.remat else 6) * n_active * positions
+    out = dict(params=n, active_params=int(n_active), remat=cfg.remat,
+               accum_steps=accum, state_dtype=ocfg.state_dtype,
+               positions_per_step=positions, losses=losses,
+               grad_norms=gnorms, step_walls_s=walls, step_wall_p50_s=p50,
+               positions_per_s=positions / p50,
+               fwd_bwd_ms=ev[0].elapsed_time(ev[1]),
+               optimizer_ms=ev[1].elapsed_time(ev[2]),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               f32_share=flops / p50 / F32_FLOPS_PER_S)
+    print(f"{name}: {out}", flush=True)
+    held = torch.cuda.memory_allocated()
+    del state, params, step
+    _check_freed(held)
+    return out
+
+
+def phase_train_paligemma(C, TS, TO, data):
+    print("== phase 37: full-width, full-depth paligemma-3b training "
+          "(remat, float32 AdamW state)", flush=True)
+    cfg = C.get("paligemma-3b")
+    return _train_cell(TS, TO, data, "paligemma-3b", cfg,
+                       TO.OptConfig(**FULL_OPT), accum=1,
+                       batches=[0, 0, 1, 2, 3, 4])
+
+
+def phase_train_olmoe(C, TS, TO, data):
+    print(f"== phase 38: olmoe-1b-7b training at full width, "
+          f"{OLMOE_TRAIN_LAYERS} of 16 layers (int8 AdamW state, "
+          f"accum_steps=2)", flush=True)
+    full = C.get("olmoe-1b-7b")
+    (pattern, _), = full.segments
+    cfg = dataclasses.replace(full, segments=((pattern,
+                                               OLMOE_TRAIN_LAYERS),))
+    return _train_cell(TS, TO, data, "olmoe-1b-7b", cfg,
+                       TO.OptConfig(**FULL_OPT, state_dtype="int8"),
+                       accum=2, batches=[0, 0, 1, 2],
+                       moe_active=cfg.moe.top_k / cfg.moe.num_experts)
+
+
+def _params_on_card(mdl, params, cfg):
+    """A copy of the CPU parameters ``params`` on the card."""
+    card = mdl.Transformer(cfg, DEV)
+    with torch.no_grad():
+        for n, p in card.named_parameters():
+            p.copy_(params.get_parameter(n))
+    return card
+
+
+def phase_train_parity(C, mdl, TS, TO, data):
+    print("== phase 39: the train step on the card vs the CPU (every "
+          "reduced architecture; int8 state on olmoe-1b-7b)", flush=True)
+    out = {}
+    cases = [(name, "float32") for name in C.ARCHS] + \
+        [("olmoe-1b-7b", "int8")]
+    for name, dtype in cases:
+        cfg = C.reduced(name)
+        ocfg = TO.OptConfig(**PARITY_OPT, state_dtype=dtype)
+        cpu = TS.init_state(cfg, ocfg, seed=SEED, device="cpu")
+        params = TS.trainable(_params_on_card(mdl, cpu["params"], cfg))
+        card = {"params": params, "opt": TO.init(params, ocfg),
+                "step": torch.zeros((), dtype=torch.int32, device=DEV)}
+        batch = data.batch_at(data.DataConfig(seed=SEED, global_batch=4,
+                                              seq_len=16), cfg, 0)
+        step = TS.make_train_step(cfg, ocfg)
+        cpu, mc = step(cpu, batch)
+        card, mg = step(card, batch)
+        lr = float(mc["lr"])
+        loss_d = abs(float(mg["loss"]) - float(mc["loss"]))
+        gn_d = abs(float(mg["grad_norm"]) - float(mc["grad_norm"]))
+        if loss_d > PARITY_LOSS_RTOL * abs(float(mc["loss"])) or \
+                gn_d > PARITY_GNORM_RTOL * float(mc["grad_norm"]):
+            _fail(f"{name} ({dtype}): loss or gradient norm parted: "
+                  f"{float(mg['loss'])} / {float(mc['loss'])}, "
+                  f"{float(mg['grad_norm'])} / {float(mc['grad_norm'])}")
+        worst, far, total = 0.0, 0, 0
+        same = {"m": 0, "v": 0}
+        for n, p in card["params"].named_parameters():
+            d = (p.detach().cpu() -
+                 cpu["params"].get_parameter(n).detach()).abs()
+            worst = max(worst, float(d.max()) / lr)
+            far += int((d > PARITY_STEP_FINE * lr).sum())
+            total += d.numel()
+            if dtype == "int8":
+                for key in ("m", "v"):
+                    a = card["opt"][key][n].q.cpu().int()
+                    b = cpu["opt"][key][n].q.int()
+                    same[key] += int((a == b).sum())
+                    if key == "m" and int((a - b).abs().max()) > 1:
+                        _fail(f"{name}: an int8 m code moved by more "
+                              "than one")
+        if worst > PARITY_STEP_TOL or far > PARITY_FINE_SHARE * total:
+            _fail(f"{name} ({dtype}): parameters parted after the step "
+                  f"(worst {worst} of a step, {far} of {total} beyond "
+                  f"{PARITY_STEP_FINE})")
+        n_codes = sum(q.q.numel() for q in card["opt"]["m"].values()) \
+            if dtype == "int8" else 0
+        if dtype == "int8" and (same["m"] < 0.999 * n_codes
+                                or same["v"] < 0.995 * n_codes):
+            _fail(f"{name}: int8 codes parted: {same} of {n_codes}")
+        out[f"{name} {dtype}"] = dict(
+            loss=float(mg["loss"]), loss_delta=loss_d, grad_norm_delta=gn_d,
+            worst_param_delta_of_step=worst, beyond_fine=far,
+            **({"codes_equal": {k: v / n_codes for k, v in same.items()}}
+               if dtype == "int8" else {}))
+        print(f"{name} ({dtype}): {out[f'{name} {dtype}']}", flush=True)
+        del card, params, cpu
+    _check_freed(torch.cuda.memory_allocated())
+    return out
+
+
+def phase_restart_drill(src, launch_train, supervisor):
+    print("== phase 40: the supervised restart drill on the card "
+          "(olmoe-1b-7b reduced, a crash injected at step 8)", flush=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="repro_drill_"))
+    try:
+        args = ["--arch", "olmoe-1b-7b", "--reduced", "--steps", "12",
+                "--batch", "2", "--seq", "16", "--ckpt-every", "4"]
+        env = dict(os.environ, PYTHONPATH=str(src),
+                   REPRO_FAIL_AT_STEP="8")
+        t0 = time.monotonic()
+        rep = supervisor.supervise(
+            [sys.executable, "-m", "repro_torch.launch.train", *args,
+             "--ckpt-dir", str(tmp / "run"), "--metrics-out",
+             str(tmp / "m.json")], workdir=tmp / "run",
+            cfg=supervisor.SupervisorConfig(max_restarts=2), env=env)
+        drill_s = time.monotonic() - t0
+        if rep.exit_code != 0 or rep.restarts != 1:
+            _fail(f"the drill: exit {rep.exit_code}, {rep.restarts} "
+                  f"restarts (history {rep.history})")
+        rpt = json.loads((tmp / "m.json").read_text())
+        if rpt["start"] != 8 or rpt["steps_run"] != 4 or \
+                not rpt["device"].startswith("cuda"):
+            _fail(f"the drill resumed wrongly: {rpt}")
+        whole = launch_train.main(args + ["--ckpt-dir", str(tmp / "whole"),
+                                          "--metrics-out",
+                                          str(tmp / "w.json")])
+        want = json.loads((tmp / "w.json").read_text())["losses"][8:]
+        got = rpt["losses"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if worst > DRILL_RTOL:
+            _fail(f"resumed losses {got} part from the uninterrupted "
+                  f"run's {want}")
+        out = dict(exit_code=rep.exit_code, restarts=rep.restarts,
+                   history=rep.history, start=rpt["start"],
+                   steps_run=rpt["steps_run"], resumed_losses=got,
+                   uninterrupted_losses=want, worst_rel_delta=worst,
+                   bit_equal=got == want, drill_s=drill_s,
+                   uninterrupted_device=whole["device"])
+        print(f"drill: {out}", flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is visible", flush=True)
@@ -3679,6 +3937,11 @@ def main() -> int:
     from repro_torch.serve import engine
     from repro_torch.serve import sched as S
     from repro_torch.serve import traffic_replay as TR
+    from repro_torch.data import pipeline as data
+    from repro_torch.ft import supervisor
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optim as TO
+    from repro_torch.train import step as TS
 
     kernels = (pa, ph, ss, pam, fa, re_)
     secs = {}
@@ -3770,6 +4033,21 @@ def main() -> int:
     timed("prefix parity", phase_prefix_parity, C, mdl, S, memtier, cori,
           engine)
     traffic = timed("traffic replay", phase_traffic, TR)
+    # training runs none of the hand-written kernels (the reference's
+    # training path reaches no pallas_call): the counts stay 0
+    _reset_counts(kernels)
+    train = {
+        "paligemma-3b": timed("paligemma training", phase_train_paligemma,
+                              C, TS, TO, data),
+        "olmoe-1b-7b": timed("olmoe training", phase_train_olmoe, C, TS, TO,
+                             data),
+        "parity": timed("train parity", phase_train_parity, C, mdl, TS, TO,
+                        data),
+        "drill": timed("restart drill", phase_restart_drill, src,
+                       launch_train, supervisor)}
+    launched = {k.NAME: getattr(k, k.NAME).launches for k in kernels}
+    if any(launched.values()):
+        _fail(f"the training phases launched a kernel: {launched}")
     main_case = flash_timing.pop("float32 window 1024")
     musicgen_flash = flash_timing.pop("musicgen-large prefill float32 causal")
     main_routed = routed.pop("deepseek-v3-671b")
@@ -3780,7 +4058,8 @@ def main() -> int:
           f"{traffic}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
           f"{xlstm}; olmoe {olmoe}; musicgen {musicgen}; nemotron "
-          f"{nemotron}; paligemma {paligemma}; flash timing beside float32 "
+          f"{nemotron}; paligemma {paligemma}; training {train}; flash "
+          f"timing beside float32 "
           f"window "
           f"1024: {flash_timing}; phase seconds {secs}", flush=True)
     print(json.dumps({"kernels": [

@@ -2,16 +2,19 @@
 
 ``repro_torch`` mirrors the JAX package's module layout (``core``,
 ``obs``, ``ft``, ``models``, ``configs``, ``kernels``, ``memtier``,
-``serve``) so each module's counterpart is easy to find.  It imports
-``torch`` and never JAX or the JAX package: the host-only modules it needs
-(configs, the Cori tuner, the reuse collector, the flight recorder, the
-fault plan) are copies kept behaviourally identical to the reference.
+``serve``, and for training ``train``, ``ckpt``, ``data``,
+``distributed`` and ``launch``) so each module's counterpart is easy to
+find.  It imports ``torch`` and never JAX or the JAX package: the
+host-only modules it needs (configs, the Cori tuner, the reuse collector,
+the flight recorder, the fault plan, the data pipeline) are copies kept
+behaviourally identical to the reference.
 
 Every entry point (``models.model.init``, ``bridge.from_reference``,
-``memtier.SharedPagedPools.attach_layered``,
-``serve.sched.ContinuousBatcher``, ``serve.engine.generate``) runs on the
-CUDA card unless the caller passes ``device="cpu"``; with no card visible
-it raises instead of carrying on on the CPU.
+``bridge.state_from_reference``, ``memtier.SharedPagedPools.attach_layered``,
+``serve.sched.ContinuousBatcher``, ``serve.engine.generate``,
+``train.step.init_state``, ``python -m repro_torch.launch.train``) runs on
+the CUDA card unless the caller passes ``device="cpu"`` (``--device
+cpu``); with no card visible it raises instead of carrying on on the CPU.
 """
 from __future__ import annotations
 

@@ -300,10 +300,17 @@ def embed(tok_table, cfg: ModelConfig, tokens):
     sqrt(d_model).  The reference multiplies by a strong float64 scalar,
     which promotes the result to float32 (``layers.py:366-380``,
     ``RESID_WEAK_SCALE = False``): the port keeps that float32 residual
-    stream.  Rows are gathered before the cast, so the full table is
-    never converted."""
-    e = tok_table[tokens].to(getattr(torch, cfg.dtype)).float()
-    return e * math.sqrt(cfg.d_model)
+    stream.  Without gradients rows are gathered before the cast, so the
+    full table is never converted; when the table takes gradients it is
+    cast first and then gathered, as the reference, so the backward sums a
+    token's rows in ``cfg.dtype`` as the reference's does (the same
+    forward values either way)."""
+    dt = getattr(torch, cfg.dtype)
+    if torch.is_grad_enabled() and tok_table.requires_grad:
+        e = tok_table.to(dt)[tokens]
+    else:
+        e = tok_table[tokens].to(dt)
+    return e.float() * math.sqrt(cfg.d_model)
 
 
 def unembed(params, cfg: ModelConfig, x):

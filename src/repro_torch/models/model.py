@@ -41,6 +41,7 @@ import math
 from typing import List
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -224,6 +225,12 @@ class Transformer(nn.Module):
                           for k in pattern)
             for pattern, repeats in cfg.segments)
 
+    def forward(self, cfg: ModelConfig, tokens, **kw):
+        """The module-level ``forward`` over these leaves, so that
+        ``torch.func.functional_call`` can substitute them (the train
+        step's ``cast_params``)."""
+        return forward(self, cfg, tokens, **kw)
+
 
 def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
     """Random float32 weights from a seeded ``torch.Generator`` on the
@@ -319,39 +326,85 @@ def _run_seq(params, cfg: ModelConfig, x, positions, cond=None, *,
     ``pasts`` (chunked prefill, the reference's ``_run_segments_seq``)
     mirrors the cache's segment/slot structure with the earlier chunks'
     attention rows stacked [R, B, P, ...] (no ``pos``): each attention
-    slot attends ``past ++ own`` keys at ``k_positions`` [1, P + S]."""
+    slot attends ``past ++ own`` keys at ``k_positions`` [1, P + S].
+
+    With ``cfg.remat`` and gradients enabled, each repeat of a segment's
+    pattern runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of one repeat): its activations are recomputed in
+    the backward pass, a MoE slot's host read of its expert counts
+    included (the same counts: the recompute sees the same inputs).  With
+    gradients enabled the slots are read through ``RepeatView``s."""
     cond = _cond(cond, x)
     k_pos = positions if k_positions is None else k_positions
     masks = {}          # MLA's, by window; attention_apply builds its own
     entries: List[List] = [[] for _ in state_slot_meta(cfg)]
     aux_total = torch.zeros((), device=x.device)
-    for li, r, slot in _layers(params, cfg):
-        window = _window(cfg, slot.kind)
-        h = L.rms_norm(x, slot.norm1[r])
-        if slot.kind.is_recurrent:
-            out, entry = R.apply(slot.cell, r, cfg, h)
-        else:
-            names = slot_leaf_names(slot.kind)
-            past = None
-            if pasts is not None:
-                e = _slot_cache(pasts, cfg, li)
-                past = tuple(e[name][r] for name in names)
-            if slot.kind.mla:
-                if window not in masks:
-                    masks[window] = L.causal_mask(positions, k_pos,
-                                                  window, cfg.prefix_len)
-                out, rows = L.mla_apply(slot, r, cfg, h, positions,
-                                        masks[window], past=past)
+
+    def one_repeat(x, aux_total, li0, r, slots):
+        out_entries = []
+        for j, slot in enumerate(slots):
+            window = _window(cfg, slot.kind)
+            h = L.rms_norm(x, slot.norm1[r])
+            if slot.kind.is_recurrent:
+                out, entry = R.apply(slot.cell, r, cfg, h)
             else:
-                out, rows = L.attention_apply(slot, r, cfg, h, positions,
-                                              window=window, past=past,
-                                              k_positions=k_positions)
-            entry = dict(zip(names, rows))
-        entries[li].append(entry)
-        x, aux = _block_tail(slot, r, cfg, x + out, cond, with_aux=True)
-        if aux is not None:
-            aux_total = aux_total + aux
+                names = slot_leaf_names(slot.kind)
+                past = None
+                if pasts is not None:
+                    e = _slot_cache(pasts, cfg, li0 + j)
+                    past = tuple(e[name][r] for name in names)
+                if slot.kind.mla:
+                    if window not in masks:
+                        masks[window] = L.causal_mask(
+                            positions, k_pos, window, cfg.prefix_len)
+                    out, rows = L.mla_apply(slot, r, cfg, h, positions,
+                                            masks[window], past=past)
+                else:
+                    out, rows = L.attention_apply(
+                        slot, r, cfg, h, positions, window=window,
+                        past=past, k_positions=k_positions)
+                entry = dict(zip(names, rows))
+            out_entries.append(entry)
+            x, aux = _block_tail(slot, r, cfg, x + out, cond, with_aux=True)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total, out_entries
+
+    grad = torch.is_grad_enabled()
+    remat = cfg.remat and grad
+    li0 = 0
+    for si, (pattern, repeats) in enumerate(cfg.segments):
+        slots = [RepeatView(s) if grad else s for s in params.segments[si]]
+        for r in range(repeats):
+            if remat:
+                x, aux_total, rep = torch.utils.checkpoint.checkpoint(
+                    one_repeat, x, aux_total, li0, r, slots,
+                    use_reentrant=False)
+            else:
+                x, aux_total, rep = one_repeat(x, aux_total, li0, r, slots)
+            for j, entry in enumerate(rep):
+                entries[li0 + j].append(entry)
+        li0 += len(pattern)
     return x, entries, aux_total
+
+
+class RepeatView:
+    """A module's stacked leaves split over their repeats once
+    (``unbind``): attribute ``name`` is the tuple of per-repeat views, so
+    ``view.name[r]`` reads as ``module.name[r]`` does, child modules are
+    views too, and plain attributes (``kind``, ``base``) are the module's.
+    Under autograd the unbind's backward writes each leaf's gradient once
+    (a stack), where indexing a repeat at a time writes a zero-filled
+    leaf-sized gradient per use: 18 of them a leaf for paligemma-3b."""
+
+    def __init__(self, mod: nn.Module):
+        for name, value in vars(mod).items():
+            if not name.startswith("_"):
+                setattr(self, name, value)
+        for name, t in mod.named_parameters(recurse=False):
+            setattr(self, name, t.unbind(0))
+        for name, child in mod.named_children():
+            setattr(self, name, RepeatView(child))
 
 
 def _stack_cache(cfg: ModelConfig, entries, pos):

@@ -1434,3 +1434,91 @@ def test_rebalance_reads_nothing_back():
     got = _run_pipelined(b, submit)
     assert sorted(got) == [0, 1, 2, 3]
     assert calls["preempt"] >= 1 and calls["thaw"] == calls["preempt"]
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the train step against the CPU's, and checkpoints
+# across devices.  Bars as chip_smoke.py's phase 39: loss 1e-5 and
+# gradient norm 1e-4 relative (float32 sums in other orders, TF32 off; the
+# token table's gradient summed in bfloat16 in another order), every
+# parameter within 0.1 of a step of the CPU's and at most 0.1% of them
+# beyond 1e-3 of a step (AdamW's first step is about sign(g)); int8 codes:
+# m's within one and 99.9% equal, v's 99.5% equal.
+# ---------------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=10)
+
+
+def _card_and_cpu_states(name, dtype):
+    import repro_torch.configs as TC
+    from repro_torch.models import model as TM
+    from repro_torch.train import optim as TO
+    from repro_torch.train import step as TS
+    dev = torch.device("cuda")
+    cfg = TC.reduced(name)
+    ocfg = TO.OptConfig(**TRAIN_OPT, state_dtype=dtype)
+    cpu = TS.init_state(cfg, ocfg, seed=0, device="cpu")
+    params = TM.Transformer(cfg, dev)
+    with torch.no_grad():
+        for n, p in params.named_parameters():
+            p.copy_(cpu["params"].get_parameter(n))
+    TS.trainable(params)
+    card = {"params": params, "opt": TO.init(params, ocfg),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    return cfg, ocfg, cpu, card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype", [("qwen3-14b", "float32"),
+                                        ("deepseek-v3-671b", "float32"),
+                                        ("olmoe-1b-7b", "int8")])
+def test_train_step_on_card_matches_cpu(name, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python -m pytest -m gpu)")
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.train import step as TS
+    cfg, ocfg, cpu, card = _card_and_cpu_states(name, dtype)
+    batch = batch_at(DataConfig(seed=0, global_batch=4, seq_len=16), cfg, 0)
+    step = TS.make_train_step(cfg, ocfg)
+    cpu, mc = step(cpu, batch)
+    card, mg = step(card, batch)
+    assert card["params"].tok.is_cuda
+    lr = float(mc["lr"])
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+        1e-5 * abs(float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) <= \
+        1e-4 * float(mc["grad_norm"])
+    far, total = 0, 0
+    for n, p in card["params"].named_parameters():
+        d = (p.detach().cpu() - cpu["params"].get_parameter(n).detach()).abs()
+        assert float(d.max()) <= 0.1 * lr, n
+        far += int((d > 1e-3 * lr).sum())
+        total += d.numel()
+        if dtype == "int8":
+            for key, share in (("m", 0.999), ("v", 0.995)):
+                a = card["opt"][key][n].q.cpu().int()
+                b = cpu["opt"][key][n].q.int()
+                assert int((a == b).sum()) >= share * a.numel() - 1, (n, key)
+                if key == "m":
+                    assert int((a - b).abs().max()) <= 1, n
+    assert far <= 1e-3 * total
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_checkpoint_saved_on_card_restores_on_cpu(tmp_path, dtype):
+    """A state stepped on the card, saved, and restored into a CPU
+    template: every leaf bit-equal to the card's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python -m pytest -m gpu)")
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.train import step as TS
+    cfg, ocfg, cpu, card = _card_and_cpu_states("stablelm-12b", dtype)
+    batch = batch_at(DataConfig(seed=0, global_batch=2, seq_len=8), cfg, 0)
+    card, _ = TS.make_train_step(cfg, ocfg)(card, batch)
+    ckpt.save(tmp_path, 1, card)
+    restored = ckpt.restore(tmp_path, 1, cpu)
+    for a, b in zip(ckpt._leaves(card), ckpt._leaves(restored)):
+        assert b.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a.detach().cpu(), b.detach())
