@@ -310,7 +310,27 @@ non-zero):
      ``DRILL_RTOL`` of an uninterrupted run's (in this process); the
      checkpoint directory is a temporary one, removed afterwards.
      None of phases 37-40 launches a hand-written kernel (the reference's
-     training path reaches no ``pallas_call``): their counts must stay 0.
+     training path reaches no ``pallas_call``): their counts must stay 0;
+ 41. phase 37's cell through the mesh step (``train.step.make_train_step``
+     with a ``DeviceMesh``): a one-rank NCCL process group, the (1, 1)
+     ("data", "model") mesh of ``launch.mesh.make_host_mesh``, the state
+     as DTensors; its losses within ``MESH_LOSS_RTOL`` of phase 37's, its
+     parameters' per-leaf float64 sums within ``MESH_SUM_RTOL`` (and
+     whether every leaf's bit sum is phase 37's), the step wall p50, the
+     split step's forward+backward and optimizer, the peak memory; no
+     kernel launched (the mesh path reaches no ``pallas_call``);
+ 42. the dry-run (``launch.dryrun``), traced in a process of its own on
+     the CPU beside phases 37-41 (meta tensors over a fake process
+     group): phase 37's cell on (1, 1), whose predicted peak must lie
+     within ``DRYRUN_PEAK_BAR`` of phase 41's measured
+     ``max_memory_allocated``, and ``DRYRUN_CELLS`` at full size on the
+     production (16, 16) mesh (per-device bytes against 80 GB, FLOPs,
+     collective bytes by kind, trace seconds); the card must be the
+     records' 80 GB H100;
+ 43. (right after phase 35, on phase 4's parameters) the batcher's
+     ``macro_steps=4`` on phase 4's mix: streams held to phase 4's, every
+     macro 4 steps but where the remaining work caps it, kernel 1 a layer
+     a device step.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -3706,22 +3726,43 @@ PARITY_STEP_TOL, PARITY_STEP_FINE, PARITY_FINE_SHARE = 0.1, 1e-3, 1e-3
 DRILL_RTOL = 1e-5
 
 
+def _leaf_sums(params) -> dict:
+    """{leaf: (float64 sum, int64 sum of the float32 bit patterns)} of
+    every parameter, gathered whole (a DTensor's ``full_tensor``) and
+    kept on the host: equal bit sums on every leaf are near-proof of
+    bit-equal parameters."""
+    out = {}
+    for n, p in params.named_parameters():
+        t = p.detach()
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        out[n] = (float(t.double().sum()),
+                  int(t.contiguous().view(torch.int32).long().sum()))
+    return out
+
+
 def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
-                moe_active=1.0):
+                moe_active=1.0, mesh=None, mesh_fwd=None):
     """Train ``cfg`` from a seeded init through ``make_train_step`` on
     ``batches`` (indices of ``batch_at``): every loss and gradient norm
     finite, the second step's loss (the first batch again) below the
-    first's, then one more step split into ``_grads`` and
-    ``optim.update`` timed on CUDA events.  Returns the cell's numbers."""
+    first's, the parameters' per-leaf sums (``_leaf_sums``) after those
+    steps, then one more step split into ``_grads`` and ``optim.update``
+    timed on CUDA events.  With a ``mesh`` the state and the step are the
+    mesh step's (DTensors; ``mesh_fwd`` maps the parameters to
+    ``forward``'s mesh arguments for the split step).  Returns the
+    cell's numbers."""
     torch.cuda.reset_peak_memory_stats()
-    state = TS.init_state(cfg, ocfg, seed=SEED, device=DEV)
+    state = TS.init_state(cfg, ocfg, seed=SEED, device=DEV, mesh=mesh)
     params = state["params"]
     n = sum(p.numel() for p in params.parameters())
     n_expert = sum(p.numel() for nm, p in params.named_parameters()
                    if nm.split(".")[-1] in ("wi_gate", "wi_up", "wo")
                    and ".moe." in nm and ".shared." not in nm)
     n_active = n - n_expert * (1 - moe_active)
-    step = TS.make_train_step(cfg, ocfg, accum_steps=accum)
+    fwd = mesh_fwd(params) if mesh is not None else None
+    step = TS.make_train_step(
+        cfg, ocfg, mesh, fwd and fwd["shard"], accum_steps=accum,
+        param_specs=fwd and fwd["param_specs"])
     dcfg = data.DataConfig(seed=SEED, global_batch=TRAIN_BATCH,
                            seq_len=TRAIN_SEQ)
     positions = TRAIN_BATCH * ((cfg.prefix_len or 0) + TRAIN_SEQ)
@@ -3743,13 +3784,30 @@ def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
     if not losses[1] < losses[0]:
         _fail(f"{name}: the second step on batch {batches[0]} did not "
               f"lower its loss ({losses[0]} -> {losses[1]})")
+    sums = _leaf_sums(params)
     batch = TS.to_device(data.batch_at(dcfg, cfg, max(batches) + 1), DEV)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    grads, _ = TS._grads(params, cfg, batch, accum, False)
-    ev[1].record()
-    TO.update(grads, state["opt"], params, ocfg)
-    ev[2].record()
+    if mesh is None:
+        ev[0].record()
+        grads, _ = TS._grads(params, cfg, batch, accum, False)
+        ev[1].record()
+        TO.update(grads, state["opt"], params, ocfg)
+        ev[2].record()
+    else:
+        # the mesh step's two halves, as ``train.step._mesh_step`` runs them
+        from repro_torch.distributed.compat import implicit_replication
+        named = dict(params.named_parameters())
+        with implicit_replication():
+            micro = [TS.shard_batch(mb, mesh) for mb in
+                     TS._micro(batch, accum)]
+            ev[0].record()
+            grads, _ = TS._grads(params, cfg, micro, accum, False, fwd=fwd)
+            grads = {k: g.redistribute(mesh, named[k].placements)
+                     for k, g in grads.items()}
+            ev[1].record()
+            TO.update(grads, state["opt"], params, ocfg)
+            ev[2].record()
+        del named, micro
     torch.cuda.synchronize()
     del grads
     p50 = float(np.median(walls[1:]))
@@ -3762,8 +3820,10 @@ def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
                fwd_bwd_ms=ev[0].elapsed_time(ev[1]),
                optimizer_ms=ev[1].elapsed_time(ev[2]),
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_bytes=torch.cuda.max_memory_allocated(),
                f32_share=flops / p50 / F32_FLOPS_PER_S)
     print(f"{name}: {out}", flush=True)
+    out["leaf_sums"] = sums
     held = torch.cuda.memory_allocated()
     del state, params, step
     _check_freed(held)
@@ -3864,6 +3924,206 @@ def phase_train_parity(C, mdl, TS, TO, data):
     return out
 
 
+# phase 41: the mesh step's losses against phase 37's, relative; its
+# parameters' per-leaf float64 sums against phase 37's, relative to the
+# leaf's float64 sum of magnitudes
+MESH_LOSS_RTOL, MESH_SUM_RTOL = 1e-6, 1e-6
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def phase_train_mesh(C, mdl, TS, TO, SH, LM, data, card, want):
+    """Phase 37's cell through the mesh step on a one-rank NCCL
+    ``DeviceMesh`` (1, 1) ("data", "model"), the state as DTensors:
+    losses within ``MESH_LOSS_RTOL`` of phase 37's, the parameters' leaf
+    sums within ``MESH_SUM_RTOL`` (and whether every leaf's bit sum is
+    phase 37's), the step wall p50, the split step's halves and the peak
+    memory.  Phase 37 freed its state before (both do not fit)."""
+    import torch.distributed as dist
+    print("== phase 41: the mesh step at full width (paligemma-3b, full "
+          "depth, phase 37's cell on a one-rank NCCL (1, 1) DeviceMesh)",
+          flush=True)
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = LM.make_host_mesh(1, 1)
+        fwd = lambda params: dict(
+            mesh=mesh, shard=SH.make_shard_fn(mesh),
+            param_specs=mdl.param_specs(params),
+            pshard=SH.make_param_shard_fn(mesh, gather=("data",)))
+        out = _train_cell(TS, TO, data, "paligemma-3b mesh (1, 1)",
+                          C.get("paligemma-3b"), TO.OptConfig(**FULL_OPT),
+                          accum=1, batches=[0, 0, 1, 2, 3, 4], mesh=mesh,
+                          mesh_fwd=fwd)
+    finally:
+        dist.destroy_process_group()
+    loss_d = max(abs(a - b) / abs(b) for a, b in zip(out["losses"],
+                                                      want["losses"]))
+    got, ref = out.pop("leaf_sums"), want["leaf_sums"]
+    if sorted(got) != sorted(ref):
+        _fail("the mesh step's parameters are not phase 37's leaves")
+    sum_d = max(abs(got[n][0] - ref[n][0]) / max(abs(ref[n][0]), 1e-30)
+                for n in ref)
+    bit_equal = all(got[n][1] == ref[n][1] for n in ref)
+    out.update(loss_max_rel_delta=loss_d, leaf_sum_max_rel_delta=sum_d,
+               leaf_bit_sums_equal=bit_equal,
+               phase37=dict(step_wall_p50_s=want["step_wall_p50_s"],
+                            fwd_bwd_ms=want["fwd_bwd_ms"],
+                            optimizer_ms=want["optimizer_ms"],
+                            peak_gb=want["peak_gb"]))
+    print(f"mesh step vs phase 37 ({card}): losses {out['losses']} (max "
+          f"relative delta {loss_d:.3g}, bar {MESH_LOSS_RTOL}); leaf sums "
+          f"max relative delta {sum_d:.3g} (bar {MESH_SUM_RTOL}); every "
+          f"leaf's bit sum equal: {bit_equal}; step wall p50 "
+          f"{out['step_wall_p50_s']:.3f} s (phase 37 "
+          f"{want['step_wall_p50_s']:.3f}), forward+backward "
+          f"{out['fwd_bwd_ms']:.1f} ms (phase 37 {want['fwd_bwd_ms']:.1f}), "
+          f"optimizer {out['optimizer_ms']:.1f} ms (phase 37 "
+          f"{want['optimizer_ms']:.1f}), max_memory_allocated "
+          f"{out['peak_gb']:.2f} GB (phase 37 {want['peak_gb']:.2f})",
+          flush=True)
+    if loss_d > MESH_LOSS_RTOL:
+        _fail(f"the mesh step's losses part from phase 37's by {loss_d}")
+    if sum_d > MESH_SUM_RTOL:
+        _fail(f"the mesh step's parameters part from phase 37's: leaf sums "
+              f"by {sum_d}")
+    return out
+
+
+# phase 42: the dry-run's traces, one process on the CPU (meta tensors
+# over a fake process group) started before the training phases; the
+# (1, 1) cell is phase 37's (accum 1, no cast, float32 state), the
+# (16, 16) cells are registered ones.  Its peak is held to phase 41's
+# measured max_memory_allocated within DRYRUN_PEAK_BAR (relative).
+DRYRUN_PEAK_BAR = 0.25
+DRYRUN_CELLS = (("qwen3-14b", "train_4k"), ("olmoe-1b-7b", "train_4k"))
+DRYRUN_TIMEOUT_S = 420
+_DRYRUN = """
+import json, sys
+sys.path.insert(0, {src!r})
+import repro_torch.configs as C
+from repro_torch.launch import dryrun as D, specs as SP
+cfg = C.get("paligemma-3b")
+c = SP.Cell("paligemma-3b", "phase 37", cfg, "train",
+            cfg.prefix_len + {seq}, {batch})
+print("RECORD " + json.dumps(D.lower_cell(
+    "paligemma-3b", "phase 37", cell=c, verbose=False,
+    mesh_shape=((1, 1), ("data", "model")),
+    overrides=dict(accum=1, cast_params=False))), flush=True)
+for arch, shape in {cells!r}:
+    print("RECORD " + json.dumps(D.lower_cell(arch, shape, verbose=False)),
+          flush=True)
+"""
+
+
+def start_dryrun(src) -> subprocess.Popen:
+    """Start the dry-run traces (``_DRYRUN``) in a process of their own,
+    with no card visible (meta tensors need none)."""
+    code = _DRYRUN.format(src=str(src), seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                          cells=DRYRUN_CELLS)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def phase_dryrun(proc, D, card, mesh41):
+    """The dry-run against the card: the (1, 1) trace's predicted peak
+    beside phase 41's measured ``max_memory_allocated`` (within
+    ``DRYRUN_PEAK_BAR``), each (16, 16) cell's per-device bytes against
+    the 80 GB the records name, FLOPs, collective bytes by kind and trace
+    seconds; the card's memory must be the records' 80 GB card."""
+    print("== phase 42: the dry-run against the card (meta tensors over a "
+          "fake process group, one CPU process)", flush=True)
+    props = torch.cuda.get_device_properties(0)
+    name = torch.cuda.get_device_name(0)
+    print(f"card memory {props.total_memory} bytes "
+          f"({props.total_memory / 1e9:.2f} GB); the records name "
+          f"{D.TARGET_DEVICE} with {D.TARGET_HBM_BYTES / 1e9:.0f} GB",
+          flush=True)
+    if name != D.TARGET_DEVICE or not (
+            D.TARGET_HBM_BYTES <= props.total_memory
+            < 1.1 * D.TARGET_HBM_BYTES):
+        _fail(f"the card ({name}, {props.total_memory} bytes) is not the "
+              f"records' {D.TARGET_DEVICE} of {D.TARGET_HBM_BYTES} bytes")
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        _fail(f"the dry-run traces outlasted {DRYRUN_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        _fail(f"the dry-run failed:\n{err[-4000:]}")
+    recs = [json.loads(line[7:]) for line in out.splitlines()
+            if line.startswith("RECORD ")]
+    if len(recs) != 1 + len(DRYRUN_CELLS):
+        _fail(f"the dry-run printed {len(recs)} records:\n{err[-4000:]}")
+    one, cells = recs[0], recs[1:]
+    measured = mesh41["peak_bytes"]
+    ratio = one["peak_bytes_per_device"] / measured
+    print(f"paligemma-3b phase 37 cell on (1, 1) ({card}): predicted peak "
+          f"{one['peak_bytes_per_device'] / 1e9:.2f} GB (arguments "
+          f"{one['argument_bytes'] / 1e9:.2f}, temporaries "
+          f"{one['temp_bytes'] / 1e9:.2f}), phase 41 measured "
+          f"max_memory_allocated {measured / 1e9:.2f} GB: ratio "
+          f"{ratio:.4f} (bar +-{DRYRUN_PEAK_BAR}); predicted FLOPs "
+          f"{one['flops']:.4g} a step; traced in {one['trace_s']} s",
+          flush=True)
+    if abs(ratio - 1) > DRYRUN_PEAK_BAR:
+        _fail(f"the dry-run's peak is {ratio:.3f}x the measured one")
+    for r in cells:
+        print(f"{r['arch']} x {r['shape']} on {r['mesh']}: per device "
+              f"{r['peak_bytes_per_device'] / 1e9:.2f} GB of "
+              f"{r['target_hbm_bytes'] / 1e9:.0f} GB (fits: {r['fits']}; "
+              f"arguments {r['argument_bytes'] / 1e9:.2f} GB), FLOPs "
+              f"{r['flops']:.4g} a device, collectives "
+              f"{ {k: round(v / 1e9, 3) for k, v in r['collective_bytes'].items()} } "
+              f"GB (total {r['collective_bytes_total'] / 1e9:.2f}), traced "
+              f"in {r['trace_s']} s; torch {r['torch']}", flush=True)
+    return dict(one=one, ratio=ratio, cells=cells)
+
+
+def phase_batcher_options(mdl, pa, S, memtier, cori, telemetry, kernels,
+                          cfg, params, want, serve, card):
+    """Phase 4's mix on phase 4's parameters with the batcher's
+    ``macro_steps=4``: greedy streams equal phase 4's, every macro (the
+    flight recorder's ``serve.macro`` events) 4 steps but where the
+    remaining work caps it, kernel 1 a layer a device step."""
+    print("== phase 43: the batcher's macro_steps option (qwen3-14b, phase "
+          "4's mix)", flush=True)
+    tag, keep = "macro_steps=4", {}
+    b, res, same, _, reqs = _serve_mix(params, cfg, S, memtier, cori,
+                                       telemetry, kernels, keep=keep,
+                                       macro_steps=4)
+    res["launches"] = pa.paged_attention.launches
+    _compare_streams(mdl, cfg, params, reqs, same["streams"], want, tag)
+    lens = [e["n_steps"] for e in keep["recorder"].events("serve.macro")]
+    if any(n > 4 for n in lens) or lens.count(4) < len(lens) // 2:
+        _fail(f"{tag}: macro lengths {lens}")
+    _check_launches("paged_attention", res["launches"], cfg.num_layers, b,
+                    False)
+    res.update(macro_lens=lens, migrations=same["migrations"],
+               hits=same["hits"], misses=same["misses"])
+    print(f"{tag} ({card}): {res['tokens_per_s']:.2f} tokens/s (phase 4's "
+          f"graph route {serve['graph']['tokens_per_s']:.2f}), macro wall "
+          f"p50 {res['macro_p50_ms']:.1f} ms (phase 4 "
+          f"{serve['graph']['macro_p50_ms']:.1f}), paged_attention launches "
+          f"{res['launches']} (phase 4's default: "
+          f"{serve['graph']['launches']}), streams equal phase 4's: "
+          f"{sorted(r for r in want if same['streams'][r] == want[r])} of "
+          f"{sorted(want)}", flush=True)
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {tag: res}
+
+
 def phase_restart_drill(src, launch_train, supervisor):
     print("== phase 40: the supervised restart drill on the card "
           "(olmoe-1b-7b reduced, a crash injected at step 8)", flush=True)
@@ -3942,6 +4202,9 @@ def main() -> int:
     from repro_torch.launch import train as launch_train
     from repro_torch.train import optim as TO
     from repro_torch.train import step as TS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as LM
 
     kernels = (pa, ph, ss, pam, fa, re_)
     secs = {}
@@ -3968,6 +4231,9 @@ def main() -> int:
                   telemetry, kernels, inject, qcfg, params, streams, piped)
     squeeze = timed("squeeze", phase_squeeze, mdl, pa, S, memtier, cori,
                     telemetry, kernels, inject, qcfg, params, streams)
+    options = timed("batcher options", phase_batcher_options, mdl, pa, S,
+                    memtier, cori, telemetry, kernels, qcfg, params, streams,
+                    serve, card)
     held = torch.cuda.memory_allocated()
     del params       # the deepseek phase needs the card
     _check_freed(held)
@@ -4033,21 +4299,34 @@ def main() -> int:
     timed("prefix parity", phase_prefix_parity, C, mdl, S, memtier, cori,
           engine)
     traffic = timed("traffic replay", phase_traffic, TR)
-    # training runs none of the hand-written kernels (the reference's
-    # training path reaches no pallas_call): the counts stay 0
-    _reset_counts(kernels)
-    train = {
-        "paligemma-3b": timed("paligemma training", phase_train_paligemma,
-                              C, TS, TO, data),
-        "olmoe-1b-7b": timed("olmoe training", phase_train_olmoe, C, TS, TO,
-                             data),
-        "parity": timed("train parity", phase_train_parity, C, mdl, TS, TO,
-                        data),
-        "drill": timed("restart drill", phase_restart_drill, src,
-                       launch_train, supervisor)}
-    launched = {k.NAME: getattr(k, k.NAME).launches for k in kernels}
-    if any(launched.values()):
-        _fail(f"the training phases launched a kernel: {launched}")
+    # the dry-run traces on the CPU beside the training phases (phase 42)
+    dryrun_proc = start_dryrun(src)
+    try:
+        # training runs none of the hand-written kernels (the reference's
+        # training path reaches no pallas_call): the counts stay 0
+        _reset_counts(kernels)
+        train = {
+            "paligemma-3b": timed("paligemma training",
+                                  phase_train_paligemma, C, TS, TO, data),
+            "olmoe-1b-7b": timed("olmoe training", phase_train_olmoe, C, TS,
+                                 TO, data),
+            "parity": timed("train parity", phase_train_parity, C, mdl, TS,
+                            TO, data),
+            "drill": timed("restart drill", phase_restart_drill, src,
+                           launch_train, supervisor)}
+        train["mesh"] = timed("mesh step", phase_train_mesh, C, mdl, TS, TO,
+                              SH, LM, data, card, train["paligemma-3b"])
+        train["paligemma-3b"].pop("leaf_sums")
+        train["olmoe-1b-7b"].pop("leaf_sums")
+        launched = {k.NAME: getattr(k, k.NAME).launches for k in kernels}
+        if any(launched.values()):
+            _fail(f"the training phases launched a kernel: {launched}")
+        dry = timed("dry-run", phase_dryrun, dryrun_proc, D, card,
+                    train["mesh"])
+    finally:
+        if dryrun_proc.poll() is None:     # a phase failed: stop it
+            dryrun_proc.kill()
+            dryrun_proc.communicate()
     main_case = flash_timing.pop("float32 window 1024")
     musicgen_flash = flash_timing.pop("musicgen-large prefill float32 causal")
     main_routed = routed.pop("deepseek-v3-671b")
@@ -4058,7 +4337,8 @@ def main() -> int:
           f"{traffic}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
           f"{xlstm}; olmoe {olmoe}; musicgen {musicgen}; nemotron "
-          f"{nemotron}; paligemma {paligemma}; training {train}; flash "
+          f"{nemotron}; paligemma {paligemma}; training {train}; batcher "
+          f"options {options}; dry-run {dry}; flash "
           f"timing beside float32 "
           f"window "
           f"1024: {flash_timing}; phase seconds {secs}", flush=True)

@@ -23,14 +23,95 @@ import math
 
 import torch
 
+from repro_torch.distributed.compat import DTensor, Replicate, Shard
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["dense_init", "rms_norm", "rope", "mlp_apply", "causal_mask",
+__all__ = ["gather_rows", "rows_gathered", "dense", "reshape", "dense_init", "rms_norm", "rope", "mlp_apply", "causal_mask",
            "sdpa", "attention_apply", "attention_decode", "cross_attention",
            "mla_apply", "mla_decode", "mla_scale", "embed", "unembed"]
 
 NEG = -1e30     # masked logits, as the reference (not -inf)
+
+
+def _even_reshape(t, shape):
+    """A DTensor's reshape, gathering the dims it changes first when its
+    placements cannot follow (``reshape``)."""
+    try:
+        return t.reshape(shape)
+    except RuntimeError:
+        first = next((i for i, (a, b) in enumerate(zip(t.shape, shape))
+                      if a != b), min(t.ndim, len(shape)))
+        pl = [Replicate() if isinstance(q, Shard) and q.dim >= first else q
+              for q in t.placements]
+        return t.redistribute(t.device_mesh, pl).reshape(shape)
+
+
+class _Reshape(torch.autograd.Function):
+    """``_even_reshape`` both ways: the gradient of a merge is a split
+    that may be just as uneven."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.shape = tuple(t.shape)
+        return _even_reshape(t, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _even_reshape(g, ctx.shape), None
+
+
+def gather_rows(x):
+    """A DTensor ``x`` [B, ..., d] with its dims between the first and the
+    last gathered (``Replicate``), so that they fold into the rows: the
+    sequence, which the reference's sequence parallelism shards between
+    blocks.  Older DTensor releases refuse to fold a sharded inner dim
+    (newer ones gather the same way by themselves).  Anything else is
+    returned as it is."""
+    if isinstance(x, DTensor) and x.ndim > 2:
+        pl = [Replicate() if isinstance(q, Shard) and 0 < q.dim < x.ndim - 1
+              else q for q in x.placements]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x
+
+
+class _RowsGathered(torch.autograd.Function):
+    """The identity whose backward hands on the gradient ``gather_rows``d:
+    a product's output gradient folds its rows too."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_rows(g)
+
+
+def rows_gathered(y):
+    """``y``, whose gradient is handed on ``gather_rows``d (a DTensor
+    [B, ..., d] that was folded from rows; anything else as it is)."""
+    if isinstance(y, DTensor) and y.ndim > 2:
+        return _RowsGathered.apply(y)
+    return y
+
+
+def dense(x, w):
+    """``x @ w`` for activations ``x`` [..., d], ``gather_rows`` first (and
+    on the output's gradient)."""
+    return rows_gathered(gather_rows(x) @ w)
+
+
+def reshape(t, *shape):
+    """``t.reshape(shape)``.  A DTensor whose sharding the reshape cannot
+    carry (a fused projection split into heads unevenly over the mesh,
+    or heads merged from a sharded head dim; DTensor has no rule for an
+    uneven split) is gathered (``Replicate``) over the dims the reshape
+    changes first, in the forward and in the backward."""
+    if not isinstance(t, DTensor):
+        return t.reshape(shape)
+    return _Reshape.apply(t, shape)
 
 
 def dense_init(t: torch.Tensor, generator: torch.Generator, fan_in: int,
@@ -66,12 +147,13 @@ def mlp_apply(p, r: int, cfg: ModelConfig, x):
     ``wi_gate``/``wi_up``, or ``wi`` then squared ReLU or GELU.  GELU is
     the tanh form, ``jax.nn.gelu``'s default, which the reference calls."""
     if cfg.mlp_kind == "swiglu":
-        h = torch.nn.functional.silu(x @ p.wi_gate[r]) * (x @ p.wi_up[r])
+        h = torch.nn.functional.silu(dense(x, p.wi_gate[r])) \
+            * dense(x, p.wi_up[r])
     elif cfg.mlp_kind == "squared_relu":
-        h = torch.square(torch.relu(x @ p.wi[r]))
+        h = torch.square(torch.relu(dense(x, p.wi[r])))
     else:
-        h = torch.nn.functional.gelu(x @ p.wi[r], approximate="tanh")
-    return h @ p.w_down[r]
+        h = torch.nn.functional.gelu(dense(x, p.wi[r]), approximate="tanh")
+    return dense(h, p.w_down[r])
 
 
 def causal_mask(q_pos, k_pos, window: int = 0, prefix_len: int = 0):
@@ -92,10 +174,13 @@ def sdpa(q, k, v, mask, softcap: float):
     (MLA's value width differs from its key width), mask: bool
     broadcastable to [B,S,T].  The query heads of one KV head attend it as
     a group (GQA without materialising repeated keys).  Returns
-    [B,S,H,Dv]."""
+    [B,S,H,Dv].  DTensor inputs (the mesh step) attend shard by shard
+    (``_sdpa_sharded``)."""
+    if isinstance(q, DTensor):
+        return _sdpa_sharded(q, k, v, mask, softcap)
     b, s, h, d = q.shape
     kvh = k.shape[2]
-    qg = q.reshape(b, s, kvh, h // kvh, d)
+    qg = reshape(q, b, s, kvh, h // kvh, d)
     logits = torch.einsum("bsgrd,btgd->bgrst", qg.float(), k.float()) \
         * (1.0 / math.sqrt(d))
     if softcap > 0:
@@ -104,16 +189,43 @@ def sdpa(q, k, v, mask, softcap: float):
     logits = torch.where(m, logits, torch.full_like(logits, NEG))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bgrst,btgd->bsgrd", w, v.to(q.dtype))
-    return out.reshape(b, s, h, v.shape[-1])
+    return reshape(out, b, s, h, v.shape[-1])
+
+
+def _sdpa_sharded(q, k, v, mask, softcap: float):
+    """``sdpa`` of DTensors on each rank's own rows and heads: attention is
+    independent a (row, head), so a mesh dim keeps a batch shard, or a
+    head shard that the KV heads follow (KV divisible by its size), and
+    gathers the rest; the local ``sdpa`` runs on the shards (DTensor's
+    rules for its einsums fold a sharded batch into the heads, which
+    older releases refuse)."""
+    mesh = q.device_mesh
+    kvh = k.shape[2]
+    pl = []
+    for i, pq in enumerate(q.placements):
+        if isinstance(pq, Shard) and (pq.dim == 0 or (
+                pq.dim == 2 and kvh % mesh.size(i) == 0)):
+            pl.append(Shard(pq.dim))
+        else:
+            pl.append(Replicate())
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    if isinstance(mask, DTensor):
+        mpl = [pp if pp == Shard(0) else Replicate() for pp in pl]
+        mask = mask.redistribute(mesh, mpl).to_local()
+    elif mask.dim() == 3 and mask.shape[0] > 1 and any(
+            pp == Shard(0) for pp in pl):
+        raise ValueError("a plain mask with a batch dim over sharded rows")
+    out = sdpa(q.to_local(), k.to_local(), v.to_local(), mask, softcap)
+    return DTensor.from_local(out, mesh, pl)
 
 
 def _qkv(p, r: int, cfg: ModelConfig, x, positions):
     """Projected, qk-normed, roped q [B,S,H,D] and k/v [B,S,KV,D]."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p.wq[r]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p.wk[r]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p.wv[r]).reshape(b, s, cfg.num_kv_heads, hd)
+    q = reshape(dense(x, p.wq[r]), b, s, cfg.num_heads, hd)
+    k = reshape(dense(x, p.wk[r]), b, s, cfg.num_kv_heads, hd)
+    v = reshape(dense(x, p.wv[r]), b, s, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm[r])
         k = rms_norm(k, p.k_norm[r])
@@ -168,7 +280,7 @@ def attention_apply(p, r: int, cfg: ModelConfig, x, positions, *,
     else:
         out = sdpa(q, k_all, v_all, causal_mask(positions, k_pos, window,
                                                 cfg.prefix_len), cfg.softcap)
-    return out.reshape(b, s, -1) @ p.wo[r], (k, v)
+    return dense(reshape(out, b, s, -1), p.wo[r]), (k, v)
 
 
 def attention_decode(p, r: int, cfg: ModelConfig, x, cache_k, cache_v,
@@ -185,7 +297,7 @@ def attention_decode(p, r: int, cfg: ModelConfig, x, cache_k, cache_v,
     if window > 0:
         m &= pos_all > (cur_pos[:, None] - window)
     out = sdpa(q, k_all, v_all, m[:, None, :], cfg.softcap)
-    return out.reshape(x.shape[0], 1, -1) @ p.wo[r], k_new, v_new
+    return reshape(out, x.shape[0], 1, -1) @ p.wo[r], k_new, v_new
 
 
 def cross_attention(p, r: int, cfg: ModelConfig, x, cond):
@@ -198,15 +310,15 @@ def cross_attention(p, r: int, cfg: ModelConfig, x, cond):
     d]."""
     b, s, _ = x.shape
     t, hd = cond.shape[1], cfg.head_dim
-    q = (x @ p.wq[r]).reshape(b, s, cfg.num_heads, hd)
-    k = (cond @ p.wk[r]).reshape(b, t, cfg.num_kv_heads, hd)
-    v = (cond @ p.wv[r]).reshape(b, t, cfg.num_kv_heads, hd)
+    q = reshape(dense(x, p.wq[r]), b, s, cfg.num_heads, hd)
+    k = reshape(dense(cond, p.wk[r]), b, t, cfg.num_kv_heads, hd)
+    v = reshape(dense(cond, p.wv[r]), b, t, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm[r])
         k = rms_norm(k, p.k_norm[r])
     mask = torch.ones((1, s, t), dtype=torch.bool, device=x.device)
     out = sdpa(q, k, v, mask, cfg.softcap)
-    return out.reshape(b, s, -1) @ p.wo[r]
+    return dense(reshape(out, b, s, -1), p.wo[r])
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +337,8 @@ def _mla_q(p, r: int, cfg: ModelConfig, x, positions):
     """(q_nope [B,S,H,nope], roped q_rope [B,S,H,rope])."""
     m = cfg.mla
     b, s, _ = x.shape
-    cq = rms_norm(x @ p.w_dq[r], p.q_norm[r])
-    q = (cq @ p.w_uq[r]).reshape(b, s, cfg.num_heads, -1)
+    cq = rms_norm(dense(x, p.w_dq[r]), p.q_norm[r])
+    q = reshape(dense(cq, p.w_uq[r]), b, s, cfg.num_heads, -1)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, rope(q_rope, positions, cfg.rope_theta)
 
@@ -234,8 +346,9 @@ def _mla_q(p, r: int, cfg: ModelConfig, x, positions):
 def _mla_kv(p, r: int, cfg: ModelConfig, x, positions):
     """The compressed cache rows of ``x``: (c_kv [B,S,kv_lora], roped
     k_rope [B,S,rope], shared across heads)."""
-    c_kv = rms_norm(x @ p.w_dkv[r], p.kv_norm[r])
-    k_rope = rope((x @ p.w_kr[r])[:, :, None, :], positions, cfg.rope_theta)
+    c_kv = rms_norm(dense(x, p.w_dkv[r]), p.kv_norm[r])
+    k_rope = rope(dense(x, p.w_kr[r])[:, :, None, :], positions,
+                  cfg.rope_theta)
     return c_kv, k_rope[:, :, 0, :]
 
 
@@ -263,7 +376,7 @@ def mla_apply(p, r: int, cfg: ModelConfig, x, positions, mask, *,
     k = torch.cat([k_nope, kr_all[:, :, None, :].expand(
         b, t, h, m.qk_rope_dim)], dim=-1)
     out = sdpa(torch.cat([q_nope, q_rope], dim=-1), k, v, mask, cfg.softcap)
-    return out.reshape(b, s, -1) @ p.wo[r], (c_kv, k_rope)
+    return dense(reshape(out, b, s, -1), p.wo[r]), (c_kv, k_rope)
 
 
 def mla_decode(p, r: int, cfg: ModelConfig, x, cache_ckv, cache_krope,
@@ -292,7 +405,7 @@ def mla_decode(p, r: int, cfg: ModelConfig, x, cache_ckv, cache_krope,
     w = torch.softmax(logits, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhst,btr->bshr", w, ckv)
     out = torch.einsum("bshr,rhk->bshk", ctx, p.w_uv[r])
-    return out.reshape(b, 1, -1) @ p.wo[r], c_new, kr_new
+    return reshape(out, b, 1, -1) @ p.wo[r], c_new, kr_new
 
 
 def embed(tok_table, cfg: ModelConfig, tokens):
@@ -304,15 +417,25 @@ def embed(tok_table, cfg: ModelConfig, tokens):
     full table is never converted; when the table takes gradients it is
     cast first and then gathered, as the reference, so the backward sums a
     token's rows in ``cfg.dtype`` as the reference's does (the same
-    forward values either way)."""
+    forward values either way).  A sharded DTensor table or batch (the
+    mesh step) takes ``F.embedding`` of the cast table, whose DTensor
+    rules sum each shard's rows and reduce them: an indexed read's
+    backward has no rule for sharded indices in every release."""
     dt = getattr(torch, cfg.dtype)
-    if torch.is_grad_enabled() and tok_table.requires_grad:
+    if _sharded(tok_table) or _sharded(tokens):
+        e = torch.nn.functional.embedding(tokens, tok_table.to(dt))
+    elif torch.is_grad_enabled() and tok_table.requires_grad:
         e = tok_table.to(dt)[tokens]
     else:
         e = tok_table[tokens].to(dt)
     return e.float() * math.sqrt(cfg.d_model)
 
 
+def _sharded(t) -> bool:
+    return isinstance(t, DTensor) and any(isinstance(q, Shard)
+                                          for q in t.placements)
+
+
 def unembed(params, cfg: ModelConfig, x):
     w = params.tok.T if cfg.tie_embeddings else params.unembed
-    return x @ w
+    return dense(x, w)

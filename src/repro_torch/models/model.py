@@ -45,6 +45,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.compat import DTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers as L
@@ -53,6 +54,8 @@ from repro_torch.models.config import LayerKind, ModelConfig, parse_kind
 from repro_torch.models.moe import MoE, moe_apply
 
 __all__ = ["Slot", "CrossAttention", "Transformer", "init", "forward",
+           "param_specs", "param_ref_shapes", "init_specs_only",
+           "cache_specs",
            "prefill", "pad_cache", "init_cache", "decode_step",
            "prefill_batched", "prefill_chunk", "chunk_past_extend",
            "row_cache_from_batched",
@@ -106,6 +109,12 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+#: a stacked leaf's leading logical axis (the repeats)
+_L = ("layers",)
+#: the residual stream's logical axes (the ``shard`` points)
+_RESID = ("batch", "seq", "embed")
+
+
 def _stacked(repeats: int, device):
     """A maker of uninitialised, frozen leaves stacked over ``repeats``."""
     def leaf(*shape):
@@ -133,7 +142,10 @@ class Slot(nn.Module):
 
     ``fan_in`` maps each random leaf to the fan-in the reference's
     ``_dense_init`` gives it: ``shape[0]`` of the unstacked reference
-    leaf, whatever its rank (``wo [H, hd, d]`` has fan-in H)."""
+    leaf, whatever its rank (``wo [H, hd, d]`` has fan-in H).  ``axes``
+    gives each leaf's logical axes, the reference's spec tree, and
+    ``ref_shape`` a fused leaf's unfused per-repeat shape (``wq`` [d, H,
+    hd]): the axes describe that shape (``distributed.sharding.fold``)."""
 
     def __init__(self, cfg: ModelConfig, kind: LayerKind, repeats: int,
                  device):
@@ -144,6 +156,8 @@ class Slot(nn.Module):
         leaf = _stacked(repeats, device)
         self.norm1 = leaf(d)
         self.fan_in = {}
+        self.axes = {"norm1": _L + ("embed",)}
+        self.ref_shape = {}
         if kind.is_recurrent:
             self.cell = R.Cell(cfg, kind, repeats, device)
         elif kind.mla:
@@ -161,6 +175,17 @@ class Slot(nn.Module):
             self.fan_in.update(w_dq=d, w_uq=m.q_lora_rank, w_dkv=d,
                                w_kr=d, w_uk=m.kv_lora_rank,
                                w_uv=m.kv_lora_rank, wo=h)
+            self.axes.update(
+                w_dq=_L + ("embed", "q_lora"), q_norm=_L + ("q_lora",),
+                w_uq=_L + ("q_lora", "heads", "head_dim"),
+                w_dkv=_L + ("embed", "kv_lora"), kv_norm=_L + ("kv_lora",),
+                w_kr=_L + ("embed", None),
+                w_uk=_L + ("kv_lora", "heads", "head_dim"),
+                w_uv=_L + ("kv_lora", "heads", "head_dim"),
+                wo=_L + ("heads", "head_dim", "embed"))
+            self.ref_shape.update(
+                w_uq=(m.q_lora_rank, h, m.qk_nope_dim + m.qk_rope_dim),
+                wo=(h, m.v_head_dim, d))
         else:
             self.wq, self.wk, self.wv = leaf(d, h * hd), leaf(d, kv * hd), \
                 leaf(d, kv * hd)
@@ -168,9 +193,13 @@ class Slot(nn.Module):
             if cfg.qk_norm:
                 self.q_norm, self.k_norm = leaf(hd), leaf(hd)
             self.fan_in.update(wq=d, wk=d, wv=d, wo=h)
+            _attn_axes(self, cfg, d)
         if kind.xattn:
             self.norm_x = leaf(d)
+            self.axes["norm_x"] = _L + ("embed",)
             self.xattn = CrossAttention(cfg, repeats, device)
+        if kind.moe or ff > 0:
+            self.axes["norm2"] = _L + ("embed",)
         if kind.moe:
             self.norm2 = leaf(d)
             self.moe = MoE(cfg, repeats, device)
@@ -179,11 +208,31 @@ class Slot(nn.Module):
             if cfg.mlp_kind == "swiglu":
                 self.wi_gate, self.wi_up = leaf(d, ff), leaf(d, ff)
                 self.fan_in.update(wi_gate=d, wi_up=d)
+                self.axes.update(wi_gate=_L + ("embed", "mlp"),
+                                 wi_up=_L + ("embed", "mlp"))
             else:
                 self.wi = leaf(d, ff)
                 self.fan_in.update(wi=d)
+                self.axes.update(wi=_L + ("embed", "mlp"))
             self.w_down = leaf(ff, d)
             self.fan_in.update(w_down=ff)
+            self.axes.update(w_down=_L + ("mlp", "embed"))
+
+
+def _attn_axes(mod, cfg: ModelConfig, rows: int) -> None:
+    """The logical axes and unfused shapes of a GQA attention's leaves
+    (self- or cross-attention; ``rows`` is ``wk``/``wv``'s input width):
+    the reference's ``[d, H, hd]`` / ``[H, hd, d]``."""
+    d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim)
+    mod.axes.update(wq=_L + ("embed", "heads", "head_dim"),
+                    wk=_L + ("embed", "kv_heads", "head_dim"),
+                    wv=_L + ("embed", "kv_heads", "head_dim"),
+                    wo=_L + ("heads", "head_dim", "embed"))
+    mod.ref_shape.update(wq=(d, h, hd), wk=(rows, kv, hd), wv=(rows, kv, hd),
+                         wo=(h, hd, d))
+    if cfg.qk_norm:
+        mod.axes.update(q_norm=_L + ("head_dim",), k_norm=_L + ("head_dim",))
 
 
 class CrossAttention(nn.Module):
@@ -205,6 +254,8 @@ class CrossAttention(nn.Module):
         if cfg.qk_norm:
             self.q_norm, self.k_norm = leaf(hd), leaf(hd)
         self.fan_in = dict(wq=d, wk=cd, wv=cd, wo=h)
+        self.axes, self.ref_shape = {}, {}
+        _attn_axes(self, cfg, cd)
 
 
 class Transformer(nn.Module):
@@ -220,6 +271,9 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = leaf(cfg.d_model, cfg.vocab_size)
         self.final_norm = leaf(cfg.d_model)
+        self.axes = {"tok": ("vocab", "embed"), "final_norm": ("embed",)}
+        if not cfg.tie_embeddings:
+            self.axes["unembed"] = ("embed", "vocab")
         self.segments = nn.ModuleList(
             nn.ModuleList(Slot(cfg, parse_kind(k), repeats, device)
                           for k in pattern)
@@ -266,6 +320,62 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> Transformer:
     return params
 
 
+def _leaf_table(params: Transformer, attr: str):
+    """{parameter name: the owning module's ``attr`` entry} over every
+    module that declares ``attr`` (``axes`` / ``ref_shape``)."""
+    out = {}
+    for prefix, mod in params.named_modules():
+        table = getattr(mod, attr, None)
+        if table is None:
+            continue
+        for name, value in table.items():
+            out[f"{prefix}.{name}" if prefix else name] = value
+    return out
+
+
+def param_specs(params: Transformer):
+    """{parameter name: logical axes} of ``params``' leaves (the reference's
+    ``init`` spec tree; a fused leaf's axes describe its unfused shape,
+    ``param_ref_shapes``)."""
+    axes = _leaf_table(params, "axes")
+    return {n: axes[n] for n, _ in params.named_parameters()}
+
+
+def param_ref_shapes(params: Transformer):
+    """{parameter name: the reference's shape of the leaf}: a fused
+    projection's unfused ``[R, d, H, hd]``, every other leaf its own."""
+    ref = _leaf_table(params, "ref_shape")
+    return {n: ((t.shape[0],) + tuple(ref[n]) if n in ref
+                else tuple(t.shape)) for n, t in params.named_parameters()}
+
+
+def init_specs_only(cfg: ModelConfig):
+    """{parameter name: logical axes} without allocating: the leaves of a
+    ``Transformer`` on the meta device."""
+    return param_specs(Transformer(cfg, torch.device("meta")))
+
+
+def cache_specs(cfg: ModelConfig, shape_kind: str = "decode"):
+    """Logical-axis spec tree matching ``init_cache``'s structure."""
+    segs = []
+    for pattern, _ in cfg.segments:
+        slots = []
+        for kind_s in pattern:
+            kind = parse_kind(kind_s)
+            if kind.is_attention:
+                names = ("ckv", "krope") if kind.mla else ("k", "v")
+                tail = (None,) if kind.mla else (None, None)
+                c = {n: ("layers", "batch", "kv_seq") + tail for n in names}
+                c["pos"] = ("layers", "batch", "kv_seq")
+            else:
+                proto = R.zero_state(cfg, kind, 1, torch.device("meta"))
+                c = {k: ("layers", "batch") + (None,) * (v.ndim - 1)
+                     for k, v in proto.items()}
+            slots.append(c)
+        segs.append(slots)
+    return {"segments": segs}
+
+
 def _layers(params: Transformer, cfg: ModelConfig):
     """(slot index li, repeat r, slot) in execution order: per segment,
     the whole pattern once per repeat.  ``li`` indexes
@@ -284,23 +394,29 @@ def _window(cfg: ModelConfig, kind: LayerKind) -> int:
 
 
 def _block_tail(slot, r: int, cfg: ModelConfig, x, cond=None, *,
-                with_aux=False):
+                with_aux=False, mesh=None, shard=None):
     """What follows a slot's attention or cell, in the reference's order:
     cross-attention to ``cond`` (``.xattn`` slots, when ``cond`` is
     given), then the residual MLP or MoE if the slot has one.  Returns (x,
     aux), aux the MoE's load-balance loss when ``with_aux`` (sequence
-    mode) and None otherwise (decode drops it)."""
+    mode) and None otherwise (decode drops it).  On a mesh the residual
+    stream is laid out by ``shard`` after the sub-block, as the
+    reference's, and the MoE takes the ``mesh`` (``moe.moe_apply``)."""
     if slot.kind.xattn and cond is not None:
         x = x + L.cross_attention(slot.xattn, r, cfg,
                                   L.rms_norm(x, slot.norm_x[r]), cond)
     if slot.kind.moe:
         out, aux = moe_apply(slot.moe, r, cfg, L.rms_norm(x, slot.norm2[r]),
-                             with_aux=with_aux)
-        return x + out, aux
-    if cfg.d_ff > 0:
-        return x + L.mlp_apply(slot, r, cfg,
-                               L.rms_norm(x, slot.norm2[r])), None
-    return x, None
+                             with_aux=with_aux, mesh=mesh)
+        x = x + out
+    elif cfg.d_ff > 0:
+        x, aux = x + L.mlp_apply(slot, r, cfg,
+                                 L.rms_norm(x, slot.norm2[r])), None
+    else:
+        aux = None
+    if shard is not None:
+        x = shard(x, _RESID)
+    return x, aux
 
 
 def _cond(cond, x):
@@ -315,7 +431,8 @@ def _cond(cond, x):
 
 
 def _run_seq(params, cfg: ModelConfig, x, positions, cond=None, *,
-             pasts=None, k_positions=None):
+             pasts=None, k_positions=None, mesh=None, shard=None,
+             pshard=None):
     """All layers over a sequence; returns (x, per-slot lists of cache
     entries in repeat order -- {"k", "v"}, MLA {"ckv", "krope"} or a
     recurrent cell's final state --, the summed MoE aux loss).  Local
@@ -333,7 +450,12 @@ def _run_seq(params, cfg: ModelConfig, x, positions, cond=None, *,
     ``jax.checkpoint`` of one repeat): its activations are recomputed in
     the backward pass, a MoE slot's host read of its expert counts
     included (the same counts: the recompute sees the same inputs).  With
-    gradients enabled the slots are read through ``RepeatView``s."""
+    gradients enabled the slots are read through ``RepeatView``s.
+
+    On a mesh (the parameters DTensors), ``shard`` lays the residual
+    stream out after each sub-block, ``pshard`` (``param_specs`` given)
+    lays each repeat's slot leaves out by their specs (the reference's
+    ``_constrain_slots``), and ``mesh`` goes to the MoE."""
     cond = _cond(cond, x)
     k_pos = positions if k_positions is None else k_positions
     masks = {}          # MLA's, by window; attention_apply builds its own
@@ -365,7 +487,11 @@ def _run_seq(params, cfg: ModelConfig, x, positions, cond=None, *,
                         past=past, k_positions=k_positions)
                 entry = dict(zip(names, rows))
             out_entries.append(entry)
-            x, aux = _block_tail(slot, r, cfg, x + out, cond, with_aux=True)
+            x = x + out
+            if shard is not None:
+                x = shard(x, _RESID)
+            x, aux = _block_tail(slot, r, cfg, x, cond, with_aux=True,
+                                 mesh=mesh, shard=shard)
             if aux is not None:
                 aux_total = aux_total + aux
         return x, aux_total, out_entries
@@ -374,7 +500,11 @@ def _run_seq(params, cfg: ModelConfig, x, positions, cond=None, *,
     remat = cfg.remat and grad
     li0 = 0
     for si, (pattern, repeats) in enumerate(cfg.segments):
-        slots = [RepeatView(s) if grad else s for s in params.segments[si]]
+        slots = list(params.segments[si])
+        if pshard is not None:
+            slots = [RepeatView(s, pshard) for s in slots]
+        elif grad:
+            slots = [RepeatView(s) for s in slots]
         for r in range(repeats):
             if remat:
                 x, aux_total, rep = torch.utils.checkpoint.checkpoint(
@@ -395,16 +525,24 @@ class RepeatView:
     views too, and plain attributes (``kind``, ``base``) are the module's.
     Under autograd the unbind's backward writes each leaf's gradient once
     (a stack), where indexing a repeat at a time writes a zero-filled
-    leaf-sized gradient per use: 18 of them a leaf for paligemma-3b."""
+    leaf-sized gradient per use: 18 of them a leaf for paligemma-3b.
+    ``pshard`` (``sharding.make_param_shard_fn``) lays each view out by
+    its leaf's axes without the repeats."""
 
-    def __init__(self, mod: nn.Module):
+    def __init__(self, mod: nn.Module, pshard=None):
         for name, value in vars(mod).items():
             if not name.startswith("_"):
                 setattr(self, name, value)
+        axes = getattr(mod, "axes", {})
+        ref = getattr(mod, "ref_shape", {})
         for name, t in mod.named_parameters(recurse=False):
-            setattr(self, name, t.unbind(0))
+            views = t.unbind(0)
+            if pshard is not None and name in axes:
+                views = tuple(pshard(v, axes[name][1:], ref.get(name))
+                              for v in views)
+            setattr(self, name, views)
         for name, child in mod.named_children():
-            setattr(self, name, RepeatView(child))
+            setattr(self, name, RepeatView(child, pshard))
 
 
 def _stack_cache(cfg: ModelConfig, entries, pos):
@@ -437,7 +575,8 @@ def _embed(params, cfg: ModelConfig, tokens, extra_embeds):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
-            cond=None):
+            cond=None, mesh=None, shard=None, param_specs=None,
+            pshard=None):
     """Training-style forward.  tokens: [B, S]; extra_embeds: [B, P, d]
     prepended before the token embeddings (logits over all P + S
     positions, as the reference's); cond: [B, T, cond_dim] conditioning
@@ -445,16 +584,30 @@ def forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     load-balance loss summed over the MoE layers (0 without MoE).  The
     reference's scan over repeats adds the aux of a pattern's last slot
     only (``model.py:330``), which is the same sum for every registered
-    MoE config (single-slot patterns)."""
+    MoE config (single-slot patterns).
+
+    The mesh path (the parameters DTensors, ``train.step``'s mesh step):
+    ``shard`` (``sharding.make_shard_fn``) lays the residual stream out
+    after the embedding and after each sub-block and the logits at the
+    end; ``param_specs`` with ``pshard`` lays each repeat's slot leaves
+    out; ``mesh`` takes a ``moe_impl="shard_map"`` MoE expert-parallel."""
     x = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _, aux = _run_seq(params, cfg, x, positions, cond)
+    if shard is not None:
+        x = shard(x, _RESID)
+    x, _, aux = _run_seq(params, cfg, x, positions, cond, mesh=mesh,
+                         shard=shard,
+                         pshard=pshard if param_specs is not None else None)
     x = L.rms_norm(x, params.final_norm)
-    return L.unembed(params, cfg, x), aux
+    logits = L.unembed(params, cfg, x)
+    if shard is not None:
+        logits = shard(logits, ("batch", "seq", "vocab"))
+    return logits, aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
-            cond=None):
+            cond=None, mesh=None, shard=None, param_specs=None,
+            pshard=None):
     """Forward pass that also returns the populated cache (a recurrent
     slot's entry holds its cell's final state); ``extra_embeds`` and
     ``cond`` as ``forward``'s (the cache timeline starts at the prefix).
@@ -464,11 +617,16 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     is longer, rolled by ``s % window`` so that slot j holds the position
     == j (mod window): decode overwrites slot ``pos % window``, so without
     the roll it would clobber a position still inside the window (the
-    reference's ring alignment, ``model.py:509-526``)."""
+    reference's ring alignment, ``model.py:509-526``).  ``mesh``,
+    ``shard``, ``param_specs`` and ``pshard`` as ``forward``'s."""
     x = _embed(params, cfg, tokens, extra_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
-    x, entries, _ = _run_seq(params, cfg, x, positions, cond)
+    if shard is not None:
+        x = shard(x, _RESID)
+    x, entries, _ = _run_seq(
+        params, cfg, x, positions, cond, mesh=mesh, shard=shard,
+        pshard=pshard if param_specs is not None else None)
     x = L.rms_norm(x, params.final_norm)
     logits = L.unembed(params, cfg, x[:, -1:])
     pos = positions.expand(b, s).to(torch.int64)
@@ -544,12 +702,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos, *,
-                cond=None):
+                cond=None, mesh=None, shard=None):
     """One dense decode step.  tokens: [B,1]; cur_pos: [B] (current
     length); cond: [B, T, cond_dim] for ``.xattn`` slots.  Writes the new
     entries (a recurrent slot's new state) into ``cache`` in place (slot
-    ``_write_slot``) and returns (logits [B,1,V], cache)."""
+    ``_write_slot``) and returns (logits [B,1,V], cache).  ``shard`` and
+    ``mesh`` as ``forward``'s."""
     x = L.embed(params.tok, cfg, tokens)
+    if shard is not None:
+        x = shard(x, _RESID)
     cond = _cond(cond, x)
     rows = torch.arange(x.shape[0], device=x.device)
     for li, r, slot in _layers(params, cfg):
@@ -560,7 +721,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos, *,
                               {k: v[r] for k, v in c.items()})
             for k, v in new.items():
                 c[k][r].copy_(v)
-            x, _ = _block_tail(slot, r, cfg, x + out, cond)
+            x, _ = _block_tail(slot, r, cfg, x + out, cond, mesh=mesh,
+                               shard=shard)
             continue
         pos = c["pos"][r]
         names = slot_leaf_names(slot.kind)
@@ -574,11 +736,27 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, cur_pos, *,
                                            window=window)
         wslot = _write_slot(pos, cur_pos, window)
         for name, e in zip(names, new):
-            c[name][r][rows, wslot] = e[:, 0].to(c[name].dtype)
-        pos[rows, wslot] = cur_pos.to(pos.dtype)
-        x, _ = _block_tail(slot, r, cfg, x + out, cond)
+            _write_rows(c[name][r], rows, wslot, e[:, 0])
+        _write_rows(pos, rows, wslot, cur_pos)
+        x, _ = _block_tail(slot, r, cfg, x + out, cond, mesh=mesh,
+                           shard=shard)
     x = L.rms_norm(x, params.final_norm)
     return L.unembed(params, cfg, x), cache
+
+
+def _write_rows(leaf, rows, slots, val):
+    """``leaf[rows, slots[rows]] = val`` in place.  A DTensor cache leaf
+    (sharded over its batch and time dims on a mesh) takes the write as a
+    masked select over the whole leaf, which each rank does on its own
+    shard (an indexed write would gather it)."""
+    if not isinstance(leaf, DTensor):
+        leaf[rows, slots] = val.to(leaf.dtype)
+        return
+    hit = torch.arange(leaf.shape[1], device=slots.device)[None] \
+        == slots[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (leaf.ndim - 2))
+    val = val.to(leaf.dtype).reshape(val.shape[:1] + (1,) + val.shape[1:])
+    leaf.copy_(torch.where(hit, val, leaf))
 
 
 def _write_slot(cache_pos, cur_pos, window: int):
@@ -607,7 +785,7 @@ def batched_prefill_supported(cfg: ModelConfig) -> bool:
 
 
 def prefill_batched(params, cfg: ModelConfig, tokens, lengths, *,
-                    extra_embeds=None, cond=None):
+                    extra_embeds=None, cond=None, shard=None):
     """Batched-admission prefill: one packed forward over right-padded
     prompts.  tokens: [B, Smax]; lengths: [B] true row lengths, the
     prefix included; extra_embeds: [B, P, d] prepended as ``prefill``'s
@@ -625,7 +803,9 @@ def prefill_batched(params, cfg: ModelConfig, tokens, lengths, *,
     x = _embed(params, cfg, tokens, extra_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None]
-    x, entries, _ = _run_seq(params, cfg, x, positions, cond)
+    if shard is not None:
+        x = shard(x, _RESID)
+    x, entries, _ = _run_seq(params, cfg, x, positions, cond, shard=shard)
     x = L.rms_norm(x, params.final_norm)
     ln = torch.as_tensor(lengths, device=x.device).long()
     last = x[torch.arange(b, device=x.device), ln - 1][:, None]
@@ -636,7 +816,7 @@ def prefill_batched(params, cfg: ModelConfig, tokens, lengths, *,
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens, lengths, past=None, *,
-                  start: int, cond=None):
+                  start: int, cond=None, shard=None):
     """One width-bounded chunk of a batched-admission prefill (the
     reference's ``prefill_chunk``): ``prefill_batched``'s packed forward
     split over absolute positions, so a long prompt's admission can run
@@ -666,8 +846,10 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, lengths, past=None, *,
     start = int(start)
     positions = start + torch.arange(c, device=x.device)[None]
     k_positions = torch.arange(start + c, device=x.device)[None]
+    if shard is not None:
+        x = shard(x, _RESID)
     x, entries, _ = _run_seq(params, cfg, x, positions, cond, pasts=past,
-                             k_positions=k_positions)
+                             k_positions=k_positions, shard=shard)
     x = L.rms_norm(x, params.final_norm)
     ln = torch.as_tensor(lengths, device=x.device).long()
     take = (ln - 1 - start).clamp(0, c - 1)

@@ -24,25 +24,28 @@ says).  Two routes to it:
     tensor cores (ROADMAP).
 
 Expert parallelism (``moe_apply_shard_map``, the reference's production
-path) runs over a ``torch.distributed`` model-axis group: the tokens are
-replicated over the group, each rank computes its ``num_experts / n``
-experts on the (token, expert) pairs routed to them under the reference's
-capacity bound (pairs past it are dropped), and the partial outputs are
-all-reduced -- one all-reduce a MoE layer, no all-to-all.  ``moe_apply``
-takes it when ``cfg.moe_impl == "shard_map"`` and a group of more than
-one rank is given; on one device it takes the dense semantics above
-whatever ``moe_impl`` says, as the reference does.
+path) runs on a ``DeviceMesh`` with DTensor inputs: the tokens are split
+over the batch axes and replicated over the model axis, each model rank
+computes its ``num_experts / n`` experts on the (token, expert) pairs of
+its tokens routed to them under the reference's capacity bound (pairs
+past it are dropped), and the partial outputs are summed over the model
+axis -- one all-reduce a MoE layer, no all-to-all.  ``moe_apply`` takes
+it when ``cfg.moe_impl == "shard_map"`` and a mesh is given; on one
+device it takes the dense semantics above whatever ``moe_impl`` says, as
+the reference does.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
+from repro_torch.distributed.compat import (DTensor, Partial, Replicate,
+                                            Shard)
 from repro_torch.kernels.routed_experts import routed_experts
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import gather_rows, rows_gathered
 
 __all__ = ["MoE", "SharedExpert", "route", "aux_loss", "moe_apply",
            "moe_apply_shard_map"]
@@ -64,6 +67,10 @@ class SharedExpert(nn.Module):
             leaf(fs, d)
         #: the reference's ``_dense_init`` fan-in of each leaf
         self.fan_in = {"wi_gate": d, "wi_up": d, "wo": fs}
+        #: each leaf's logical axes (the reference's spec tree)
+        self.axes = {"wi_gate": ("layers", "embed", "mlp"),
+                     "wi_up": ("layers", "embed", "mlp"),
+                     "wo": ("layers", "mlp", "embed")}
 
 
 class MoE(nn.Module):
@@ -83,6 +90,10 @@ class MoE(nn.Module):
         self.wi_gate, self.wi_up, self.wo = leaf(e, d, f), leaf(e, d, f), \
             leaf(e, f, d)
         self.fan_in = {"router": d, "wi_gate": e, "wi_up": e, "wo": e}
+        self.axes = {"router": ("layers", "embed", None),
+                     "wi_gate": ("layers", "expert", "embed", "mlp"),
+                     "wi_up": ("layers", "expert", "embed", "mlp"),
+                     "wo": ("layers", "expert", "mlp", "embed")}
         if mo.num_shared:
             self.shared = SharedExpert(cfg, repeats, device)
 
@@ -140,16 +151,19 @@ def _expert_loop(p: MoE, r: int, xt, w, idx, num_experts: int):
 
 
 def moe_apply(p: MoE, r: int, cfg: ModelConfig, x, *, with_aux: bool = True,
-              group=None):
+              mesh=None):
     """x: [B, S, d] -> (y [B, S, d], aux_loss) at repeat ``r``; a decode
     step (S == 1) takes the routed-expert kernel, a sequence the expert
     loop (module docstring).  ``with_aux=False`` skips the aux loss
-    (None), which no decode caller reads.  With ``cfg.moe_impl ==
-    "shard_map"`` and a model-axis ``group`` of more than one rank, the
-    experts run expert-parallel (``moe_apply_shard_map``)."""
-    if (cfg.moe_impl == "shard_map" and group is not None
-            and dist.get_world_size(group) > 1):
-        return moe_apply_shard_map(p, r, cfg, x, group)
+    (None), which no decode caller reads.  On a ``mesh`` (x a DTensor) a
+    ``"shard_map"`` MoE runs expert-parallel over the model axis with the
+    tokens split over the others (``moe_apply_shard_map``); any other
+    runs the dense semantics on every rank over replicated inputs."""
+    if mesh is not None and isinstance(x, DTensor):
+        if cfg.moe_impl == "shard_map":
+            return moe_apply_shard_map(p, r, cfg, x, mesh,
+                                       with_aux=with_aux)
+        return _replicated(p, r, cfg, x, mesh, with_aux)
     mo = cfg.moe
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
@@ -167,7 +181,7 @@ def moe_apply(p: MoE, r: int, cfg: ModelConfig, x, *, with_aux: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# expert parallelism over a model-axis process group
+# expert parallelism on a mesh
 # ---------------------------------------------------------------------------
 
 
@@ -204,79 +218,103 @@ def _local_combine(y_buf, meta, t: int, d: int):
                        device=y_buf.device).index_add(0, pairs_t, contrib)
 
 
-class _SumOverGroup(torch.autograd.Function):
-    """all_reduce(SUM) whose backward is the identity: every rank of the
-    group goes on from the same sum, so each partial's gradient is the
-    sum's."""
+class _Leaves:
+    """Plain stand-ins for a MoE's leaves at repeat 0: ``name[0]`` reads
+    as ``p.name[r]`` does (``moe_apply``'s routes index a repeat)."""
 
-    @staticmethod
-    def forward(ctx, y, group):
-        y = y.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+    def __init__(self, **leaves):
+        for k, v in leaves.items():
+            setattr(self, k, v[None])
 
 
-class _FromGroup(torch.autograd.Function):
-    """The identity whose backward sums the gradient over the group: a
-    replicated input that each rank uses for its own experts only gets
-    the sum of the ranks' partial gradients."""
+def _replicated(p, r: int, cfg: ModelConfig, x, mesh, with_aux: bool):
+    """``moe_apply``'s single-device semantics on a mesh: the tokens and
+    leaves gathered whole on every rank (``Replicate``), the routed
+    experts run on the local copies, the output a replicated DTensor.
+    Every rank computes the same function of the same inputs, so the
+    local gradients are the replicated ones."""
+    rep = [Replicate()] * mesh.ndim
+    loc = lambda t: t.redistribute(mesh, rep).to_local()
+    names = ("router", "wi_gate", "wi_up", "wo")
+    lp = _Leaves(**{n: loc(getattr(p, n)[r]) for n in names})
+    if cfg.moe.num_shared:
+        lp.shared = _Leaves(**{n: loc(getattr(p.shared, n)[r])
+                               for n in names[1:]})
+    y, aux = moe_apply(lp, 0, cfg, loc(x), with_aux=with_aux)
+    y = DTensor.from_local(y, mesh, rep)
+    if aux is not None:
+        aux = DTensor.from_local(aux, mesh, rep)
+    return y, aux
 
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
 
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+def moe_apply_shard_map(p, r: int, cfg: ModelConfig, x, mesh, *,
+                        model_axis: str = "model", with_aux: bool = True):
+    """Expert parallelism on a ``DeviceMesh`` (the reference's
+    ``moe_apply_shard_map``; a model-axis group alone is a (1, n) mesh):
+    x [B, S, d] a DTensor; its B*S tokens are
+    split over every mesh axis but ``model_axis`` and replicated over it;
+    model rank i computes experts [i E/n, (i + 1) E/n) on the (token,
+    expert) pairs of its tokens routed to them, under a capacity of
+    ceil(T_local k / E * capacity_factor) pairs an expert (T_local the
+    local token count), and the partial outputs are summed over the model
+    axis (a ``Partial`` placement).  The load-balance means are averaged
+    over the batch axes before their product, as the reference's
+    ``pmean``s.  The shared experts run outside, as a tensor-parallel MLP
+    over the DTensors.
 
-
-def moe_apply_shard_map(p: MoE, r: int, cfg: ModelConfig, x, group):
-    """Expert-parallel MoE over the model-axis process ``group`` of n
-    ranks (the reference's ``moe_apply_shard_map`` over its model mesh
-    axis).  x: [B, S, d], the same on every rank of the group.  Rank i
-    computes experts [i E/n, (i + 1) E/n) of ``p``'s stacked leaves.  The
-    capacity is ceil(T k / E * capacity_factor) pairs an expert; the
-    partial outputs are summed over the group; the shared experts run
-    outside the expert-parallel part (summing them over the group would
-    count them n times).  The aux loss comes from this rank's means,
-    which are the group's (its tokens are the group's); a batch split
-    over a data axis beside the model axis is the mesh step's (ROADMAP
-    Queue 1 item 12).  Differentiable: an expert leaf's gradient is its
-    rank's, a replicated input's (x, the router) the same on every
-    rank."""
+    Gradients: the routed part reads the tokens and the router as
+    ``Partial`` over the model axis (each model rank holds its experts'
+    share), the aux loss reads them replicated (every model rank computes
+    it whole), and the local expert leaves are ``Partial`` over the
+    batch axes (each batch rank holds its tokens' share)."""
     mo = cfg.moe
-    b, s, d = x.shape
-    n = dist.get_world_size(group)
+    names = list(mesh.mesh_dim_names)
+    mi = names.index(model_axis)
+    n = mesh.size(mi)
     if mo.num_experts % n:
         raise ValueError(f"{mo.num_experts} experts do not split over "
                          f"{n} ranks")
     e_local = mo.num_experts // n
-    e0 = dist.get_rank(group) * e_local
-    xt = x.reshape(b * s, d)
-    t = xt.shape[0]
-    # the routed part's inputs through _FromGroup, so their gradients sum
-    # the ranks' partials; the aux loss and the shared experts, which
-    # every rank computes whole, route from the inputs themselves
-    xc = _FromGroup.apply(xt, group)
-    w, idx, _ = route(xc, _FromGroup.apply(p.router[r], group), mo.top_k)
+    e0 = mesh.get_local_rank(mi) * e_local
+    b, s, d = x.shape
+    tok_pl = [Shard(0)] * mesh.ndim
+    tok_pl[mi] = Replicate()
+    xt = gather_rows(x).reshape(b * s, d).redistribute(mesh, tok_pl)
+    part_m = list(tok_pl)
+    part_m[mi] = Partial()
+    x_routed = xt.to_local(grad_placements=part_m)
+    rw = p.router[r].redistribute(mesh, [Replicate()] * mesh.ndim)
+    router = rw.to_local(grad_placements=[Partial()] * mesh.ndim)
+    exp_pl = [Replicate()] * mesh.ndim
+    exp_pl[mi] = Shard(0)
+    exp_grad = [Partial()] * mesh.ndim
+    exp_grad[mi] = Shard(0)
+    wg, wu, wo = (getattr(p, nm)[r].redistribute(mesh, exp_pl)
+                  .to_local(grad_placements=exp_grad)
+                  for nm in ("wi_gate", "wi_up", "wo"))
+    t = x_routed.shape[0]
+    w, idx, _ = route(x_routed, router, mo.top_k)
     capacity = max(1, math.ceil(t * mo.top_k / mo.num_experts
                                 * mo.capacity_factor))
-    buf, meta = _local_dispatch(xc, w, idx, e0, e_local, capacity)
-    sl = slice(e0, e0 + e_local)
-    h = torch.einsum("ecd,edf->ecf", buf, p.wi_gate[r, sl])
-    u = torch.einsum("ecd,edf->ecf", buf, p.wi_up[r, sl])
-    y_buf = torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(h) * u,
-                         p.wo[r, sl])
-    y = _SumOverGroup.apply(_local_combine(y_buf, meta, t, d), group)
+    buf, meta = _local_dispatch(x_routed, w, idx, e0, e_local, capacity)
+    h = torch.einsum("ecd,edf->ecf", buf, wg)
+    u = torch.einsum("ecd,edf->ecf", buf, wu)
+    y_buf = torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(h) * u, wo)
+    y = DTensor.from_local(_local_combine(y_buf, meta, t, d), mesh, part_m)
+    y = rows_gathered(y.redistribute(mesh, tok_pl).reshape(b, s, d))
     if mo.num_shared:
         sh = p.shared
-        y = y + _swiglu(xt, sh.wi_gate[r], sh.wi_up[r], sh.wo[r])
-    _, idx, probs = route(xt, p.router[r], mo.top_k)
-    return y.reshape(b, s, d), aux_loss(probs, idx, mo.num_experts)
+        y = y + _swiglu(x, sh.wi_gate[r], sh.wi_up[r], sh.wo[r])
+    if not with_aux:
+        return y, None
+    rep_b = [Partial()] * mesh.ndim
+    rep_b[mi] = Replicate()
+    _, idx_a, probs = route(xt.to_local(), rw.to_local(grad_placements=rep_b),
+                            mo.top_k)
+    mean_pl = [Shard(0)] * mesh.ndim
+    mean_pl[mi] = Replicate()
+    me = DTensor.from_local(probs.mean(dim=0)[None], mesh, mean_pl).mean(0)
+    ce = DTensor.from_local(torch.nn.functional.one_hot(
+        idx_a[:, 0], mo.num_experts).float().mean(dim=0)[None], mesh,
+        mean_pl).mean(0)
+    return y, mo.num_experts * torch.sum(me * ce)

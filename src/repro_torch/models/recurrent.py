@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import LayerKind, ModelConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import reshape, rms_norm
 
 __all__ = ["Cell", "causal_conv1d", "conv_step", "zero_state",
            "mlstm_zero_state", "mlstm_apply", "mlstm_step",
@@ -40,6 +40,10 @@ __all__ = ["Cell", "causal_conv1d", "conv_step", "zero_state",
 RGLRU_C = 8.0
 #: m's start value (the max-stabiliser of both LSTMs), as the reference
 M_INIT = -1e30
+
+
+#: a stacked leaf's leading logical axis
+_L = ("layers",)
 
 
 def _heads(cfg: ModelConfig) -> int:
@@ -63,7 +67,8 @@ class Cell(nn.Module):
 
     ``fan_in`` maps each random leaf to the reference's ``_dense_init``
     fan-in (``shape[0]`` of the unstacked leaf); ``conv`` starts at zero
-    and ``lam`` from ``rglru_lambda``, as the reference."""
+    and ``lam`` from ``rglru_lambda``, as the reference.  ``axes`` gives
+    each leaf's logical axes (the reference's spec tree)."""
 
     def __init__(self, cfg: ModelConfig, kind: LayerKind, repeats: int,
                  device):
@@ -87,6 +92,14 @@ class Cell(nn.Module):
             self.w_down = leaf(dm, d)
             self.fan_in = {"w_up": d, "w_gate": d, "wq": dm, "wk": dm,
                            "wv": dm, "w_if": dm, "w_down": dm}
+            self.axes = {"w_up": _L + ("embed", "mlp"),
+                         "w_gate": _L + ("embed", "mlp"),
+                         "conv": _L + (None, "mlp"),
+                         "wq": _L + ("mlp", "mlp"), "wk": _L + ("mlp", "mlp"),
+                         "wv": _L + ("mlp", "mlp"),
+                         "w_if": _L + ("mlp", None),
+                         "out_norm": _L + ("mlp",),
+                         "w_down": _L + ("mlp", "embed")}
         elif kind.base == "slstm":
             nh = _heads(cfg)
             hd, ff = d // nh, int(d * 4 / 3)
@@ -97,6 +110,12 @@ class Cell(nn.Module):
             self.w_up, self.w_down = leaf(d, ff), leaf(ff, d)
             self.fan_in = {"w_gates": d, "r_gates": nh, "w_up": d,
                            "w_down": ff}
+            self.axes = {"conv": _L + (None, "embed"),
+                         "w_gates": _L + ("embed", "mlp"),
+                         "r_gates": _L + ("kv_heads", None, None),
+                         "out_norm": _L + ("embed",),
+                         "w_up": _L + ("embed", "mlp"),
+                         "w_down": _L + ("mlp", "embed")}
         elif kind.base == "rglru":
             w = cfg.lru_width or d
             self.w_x, self.w_gate = leaf(d, w), leaf(d, w)
@@ -107,6 +126,12 @@ class Cell(nn.Module):
             self.w_out = leaf(w, d)
             self.fan_in = {"w_x": d, "w_gate": d, "w_a": w, "w_a2": w // 8,
                            "w_i": w, "w_i2": w // 8, "w_out": w}
+            self.axes = {"w_x": _L + ("embed", "lru"),
+                         "w_gate": _L + ("embed", "lru"),
+                         "conv": _L + (None, "lru"), "lam": _L + ("lru",),
+                         "w_a": _L + ("lru", None), "w_a2": _L + (None, "lru"),
+                         "w_i": _L + ("lru", None), "w_i2": _L + (None, "lru"),
+                         "w_out": _L + ("lru", "embed")}
         else:
             raise ValueError(f"{kind.base} is not a recurrent cell")
 
@@ -186,9 +211,9 @@ def _mlstm_inputs(p, r: int, x_in, nh: int):
     post-conv input [B, S, dm]."""
     b, s, dm = x_in.shape
     hd = dm // nh
-    q = (x_in @ p.wq[r]).reshape(b, s, nh, hd)
-    k = (x_in @ p.wk[r]).reshape(b, s, nh, hd)
-    v = (x_in @ p.wv[r]).reshape(b, s, nh, hd)
+    q = reshape(x_in @ p.wq[r], b, s, nh, hd)
+    k = reshape(x_in @ p.wk[r], b, s, nh, hd)
+    v = reshape(x_in @ p.wv[r], b, s, nh, hd)
     gf = x_in @ p.w_if[r]
     return q, k, v, gf[..., :nh], F.logsigmoid(gf[..., nh:])
 
@@ -211,7 +236,7 @@ def mlstm_apply(p, r: int, cfg: ModelConfig, x, state=None):
         C, n, m, h = _mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t],
                                  i[:, t], f[:, t])
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(b, s, -1)
+    h = reshape(torch.stack(hs, dim=1), b, s, -1)
     return _mlstm_out(p, r, h, gate), {"C": C, "n": n, "m": m, "conv": conv}
 
 
@@ -222,7 +247,7 @@ def mlstm_step(p, r: int, cfg: ModelConfig, x, state):
     q, k, v, i, f = _mlstm_inputs(p, r, F.silu(xc)[:, None], _heads(cfg))
     C, n, m, h = _mlstm_cell(state["C"], state["n"], state["m"], q[:, 0],
                              k[:, 0], v[:, 0], i[:, 0], f[:, 0])
-    y = _mlstm_out(p, r, h.reshape(h.shape[0], -1), gate)
+    y = _mlstm_out(p, r, reshape(h, h.shape[0], -1), gate)
     return y[:, None], {"C": C, "n": n, "m": m, "conv": conv}
 
 
@@ -246,7 +271,7 @@ def _slstm_cell(st, wx, r_gates):
     from st["h"]."""
     c, n, m, h = st["c"], st["n"], st["m"], st["h"]
     b, nh, hd = h.shape
-    gates = wx.reshape(b, nh, 4 * hd) \
+    gates = reshape(wx, b, nh, 4 * hd) \
         + torch.einsum("bhk,hkg->bhg", h, r_gates)
     z, i, f, o = gates.split(hd, dim=-1)
     z, o, f = torch.tanh(z), torch.sigmoid(o), F.logsigmoid(f)
@@ -275,7 +300,7 @@ def slstm_apply(p, r: int, cfg: ModelConfig, x, state=None):
     for t in range(s):
         st = _slstm_cell(st, wx[:, t], p.r_gates[r])
         hs.append(st["h"])
-    h = torch.stack(hs, dim=1).reshape(b, s, d)
+    h = reshape(torch.stack(hs, dim=1), b, s, d)
     return _slstm_out(p, r, h), dict(st, conv=conv)
 
 
@@ -283,7 +308,7 @@ def slstm_step(p, r: int, cfg: ModelConfig, x, state):
     conv, xc = conv_step(state["conv"], x[:, 0], p.conv[r])
     st = _slstm_cell({k: state[k] for k in ("c", "n", "m", "h")},
                      F.silu(xc) @ p.w_gates[r], p.r_gates[r])
-    y = _slstm_out(p, r, st["h"].reshape(x.shape[0], -1))
+    y = _slstm_out(p, r, reshape(st["h"], x.shape[0], -1))
     return y[:, None], dict(st, conv=conv)
 
 

@@ -407,6 +407,10 @@ class ContinuousBatcher:
     pages at admission, the page just written after each step -- for
     ``paged_context``.
 
+    ``macro_steps`` pins the macro length in place of the manager's live
+    period (the same pow2 bucketing, capped by the remaining work; on the
+    graph route the number of replays of the one captured step).
+
     Runs on ``device`` (default cuda), where the parameters must already
     live.  ``route`` is fixed at construction (``decode_route``):
     ``"graph"`` for paged macro steps on a CUDA device unless
@@ -472,7 +476,7 @@ class ContinuousBatcher:
                  = None, max_active: int = 4, max_len: int = 128,
                  page_size: int = 16, paged: Optional[bool] = None,
                  mirror_pages: bool = False, macro: Optional[bool] = None,
-                 pipeline: bool = False,
+                 macro_steps: Optional[int] = None, pipeline: bool = False,
                  admit_chunk_tokens: Optional[int] = None,
                  eager: bool = False, cond=None, extra_embeds=None,
                  fault_plan=None, max_queue: Optional[int] = None,
@@ -496,6 +500,7 @@ class ContinuousBatcher:
         if self.macro and not self.paged:
             raise ValueError("macro-step decode runs on the fully-paged "
                              "path only")
+        self.macro_steps = macro_steps
         self.pipeline = bool(pipeline)
         if self.pipeline and not self.macro:
             raise ValueError("pipeline=True needs macro-step decode (the "
@@ -1287,7 +1292,7 @@ class ContinuousBatcher:
         for that event only.  Returns the in-flight record."""
         pools = self.monitor.pools
         rows = list(self.active.items())
-        period = self.monitor.manager.period
+        period = self.macro_steps or self.monitor.manager.period
         inp = self._row_inputs(rows)
         rem = {row: req.max_new_tokens - int(inp["emitted"][row])
                for row, req in rows}

@@ -15,6 +15,12 @@ reference returns new trees) and returns them.  Every element-wise
 operation is the reference's, in its order, in float32: ``torch.round``
 rounds half to even as ``jnp.round`` does, so the int8 codes of one input
 equal the reference's.
+
+On a mesh the parameters, gradients and float moments are DTensors with
+the parameters' placements and every operation is the same; an int8
+moment's ``QLeaf`` arrays are DTensors laid out by ``("qblocks", None)``
+(``state_specs``), quantised over the whole leaf as the reference's (the
+blocks run over the leaf's flat order, which no shard holds whole).
 """
 from __future__ import annotations
 
@@ -25,8 +31,11 @@ from typing import Dict, NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.compat import DTensor, distribute_local
+
 __all__ = ["OptConfig", "QLeaf", "QBLOCK", "schedule", "init", "update",
-           "global_norm"]
+           "global_norm", "state_specs"]
 
 QBLOCK = 128
 
@@ -88,11 +97,23 @@ def _quantize_log(x) -> QLeaf:
 
 def _pack(x, dtype: str, mode: str = "linear"):
     if dtype == "int8":
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            q = _pack(x.full_tensor(), dtype, mode)
+            return QLeaf(*(distribute_local(a, mesh, SH.leaf_placements(
+                ("qblocks", None), a.shape, a.shape, mesh)) for a in q))
         return _quantize_log(x) if mode == "log" else _quantize_linear(x)
     return x.to(getattr(torch, dtype))
 
 
-def _unpack(leaf, shape, dtype: str, mode: str = "linear"):
+def _unpack(leaf, shape, dtype: str, mode: str = "linear", like=None):
+    """A moment as a float32 leaf of ``shape``; an int8 moment of a
+    DTensor parameter ``like`` is dequantised whole and laid out as
+    ``like``."""
+    if dtype == "int8" and isinstance(leaf.q, DTensor):
+        whole = _unpack(QLeaf(*(a.full_tensor() for a in leaf)), shape,
+                        dtype, mode)
+        return distribute_local(whole, like.device_mesh, like.placements)
     if dtype == "int8":
         n = math.prod(shape)
         if mode == "log":
@@ -139,8 +160,9 @@ def init(params, cfg: OptConfig) -> dict:
     """{"m", "v": {name: packed zeros}, "count": int32 0} on the
     parameters' device."""
     leaves = _leaves(params)
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    # zeros_like keeps a DTensor parameter's placements
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                       requires_grad=False)
     dev = next(iter(leaves.values())).device
     return {"m": {n: _pack(zeros(p), cfg.state_dtype, "linear")
                   for n, p in leaves.items()},
@@ -150,7 +172,10 @@ def init(params, cfg: OptConfig) -> dict:
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf; a plain scalar, a
+    DTensor leaf's square sum reduced over its shards."""
     sq = [torch.sum(torch.square(x.float())) for x in tree.values()]
+    sq = [x.full_tensor() if isinstance(x, DTensor) else x for x in sq]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -174,8 +199,8 @@ def update(grads: Dict[str, torch.Tensor], state: dict, params,
     b2c = 1 - torch.pow(_f32(cfg.b2, cf), cf)
     for name, p in leaves.items():
         g = grads[name].float() * clip
-        m = _unpack(state["m"][name], p.shape, cfg.state_dtype, "linear")
-        v = _unpack(state["v"][name], p.shape, cfg.state_dtype, "log")
+        m = _unpack(state["m"][name], p.shape, cfg.state_dtype, "linear", p)
+        v = _unpack(state["v"][name], p.shape, cfg.state_dtype, "log", p)
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
         upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
@@ -188,3 +213,17 @@ def update(grads: Dict[str, torch.Tensor], state: dict, params,
         del g, m, v, upd, pf
     state["count"] = count
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def state_specs(param_specs, cfg: OptConfig):
+    """Logical-axis spec tree of the optimizer state (the reference's):
+    float32/bfloat16 moments mirror the parameter specs; an int8 moment
+    is blockwise-flat [nblocks, 128] and shards its block dim over
+    "data" when divisible ("qblocks")."""
+    if cfg.state_dtype == "int8":
+        wrap = lambda ax: QLeaf(("qblocks", None), ("qblocks", None),
+                                ("qblocks", None))
+    else:
+        wrap = lambda ax: ax
+    m = {n: wrap(ax) for n, ax in param_specs.items()}
+    return {"m": m, "v": dict(m), "count": None}

@@ -278,15 +278,18 @@ def test_supervised_restart_resumes_training(tmp_path):
     assert json.loads(whole.read_text())["losses"][8:] == rpt["losses"]
 
 
-def test_launch_needs_a_card_or_the_cpu():
+def test_launch_needs_a_card_or_the_cpu(monkeypatch):
     """Without ``--device cpu`` the driver runs on the card, and raises
-    with none visible; a mesh above 1 is refused."""
+    with none visible; a mesh above 1 (one process a rank) is refused
+    without the process group's environment."""
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the default device is fine")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "qwen3-14b", "--reduced", "--steps",
                            "1"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         launch_train.main(["--arch", "qwen3-14b", "--reduced", "--device",
                            "cpu", "--data-mesh", "2"])
 

@@ -2,8 +2,9 @@
 ``compressed_psum_ef`` against the collective's numpy definition (the
 reference's own tests of them, ``tests/test_distributed.py``, fail on this
 JAX version since the repo began: its shim targets jax 0.4), and the pod
-step (int8-compressed gradients across 2 ranks) against the single-device
-step, as ``test_pod_grad_compression_step_runs`` does.
+step (int8-compressed gradients across 2 ranks, on a (2, 1, 1) ("pod",
+"data", "model") mesh) against the single-device step, as
+``test_pod_grad_compression_step_runs`` does.
 
 Each rank is a process of its own (``_spawn``: ``torch.distributed`` over
 gloo, a ``file://`` rendezvous in the test's directory), waited for with a
@@ -14,7 +15,8 @@ same float32 operations; an exact int32 sum), and the reference's bounds
 hold (the mean within max|x| / 127, the residual too).  The pod step's
 compressed gradients equal the numpy definition over the two halves'
 gradients bit for bit, its parameters equal an ``optim.update`` with
-those gradients bit for bit, and against the single-device step on the
+those gradients bit for bit, its gradient norm is theirs within 1e-6
+relative, and against the single-device step on the
 whole batch the loss agrees within 1e-6 relative and the parameters
 within the reference's 5e-3."""
 import json
@@ -162,11 +164,16 @@ def _pod_worker(rank, world, tmp):
     grads, _ = TS._grads(state["params"], cfg, half, 1, False)
     out = {f"cg.{n}": compressed_psum(g, dist.group.WORLD).numpy()
            for n, g in grads.items()}
-    step = TS.make_train_step(cfg, TO.OptConfig(lr=1e-3),
-                              grad_compression=True, group=dist.group.WORLD)
+    # the pod group is a (pod, 1, 1) mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 1, world, device_type="cpu")
+    state = TS.init_state(cfg, TO.OptConfig(lr=1e-3), device="cpu",
+                          mesh=mesh)
+    step = TS.make_train_step(cfg, TO.OptConfig(lr=1e-3), mesh,
+                              grad_compression=True)
     state, m = step(state, batch)
-    out.update({f"p.{n}": p.detach().numpy()
-                for n, p in state["params"].named_parameters()})
+    out.update({f"p.{n}": p.numpy()
+                for n, p in TS.gather_state(state)["params"].items()})
     out.update(loss=m["loss"].numpy(), grad_norm=m["grad_norm"].numpy())
     return out
 
@@ -191,6 +198,11 @@ def test_pod_step_matches_single_device(tmp_path):
     for n, p in replay["params"].named_parameters():
         for o in outs:
             np.testing.assert_array_equal(o[f"p.{n}"], p.detach().numpy())
+    # the step's gradient norm is the compressed gradients'
+    norm = float(TO.global_norm({n: torch.from_numpy(want[n])
+                                 for n in names}))
+    for o in outs:
+        np.testing.assert_allclose(float(o["grad_norm"]), norm, rtol=1e-6)
     # against the single-device step on the whole batch
     single, m = TS.make_train_step(cfg, TO.OptConfig(lr=1e-3))(
         state, batch_at(DataConfig(**POD_DATA), cfg, 0))

@@ -1,17 +1,18 @@
 """The port's expert-parallel MoE (``models.moe.moe_apply_shard_map``) on
-2 and 4 gloo ranks on the CPU, against the reference: with
-``capacity_factor=8`` nothing is dropped and it must equal the
-reference's ``moe_apply_dense`` (as ``tests/test_distributed.py``'s
+2 and 4 gloo ranks on the CPU, on a (1, n) ("data", "model") mesh (a
+model-axis group), against the reference: with ``capacity_factor=8``
+nothing is dropped and it must equal the reference's ``moe_apply_dense``
+(as ``tests/test_distributed.py``'s
 ``test_moe_shard_map_matches_dense_oracle``); with a capacity of one
 expert's fair share (``capacity_factor=1``) pairs are dropped and it must
-equal the reference's ``moe_apply_shard_map`` on a (1, n) ("data",
-"model") mesh, run in a subprocess with n forced host devices.  Both on
-the reference's weights (``moe_init``), olmoe-1b-7b's reduced MoE and
-deepseek-v3-671b's (a shared expert).
+equal the reference's ``moe_apply_shard_map`` on the same (1, n) mesh,
+run in a subprocess with n forced host devices.  Both on the reference's
+weights (``moe_init``), olmoe-1b-7b's reduced MoE and deepseek-v3-671b's
+(a shared expert).
 
-The backward without drops: each rank's expert leaves get the dense
-gradients of its experts, and the replicated inputs (x, the router, the
-shared expert) the dense gradients on every rank.
+The backward without drops: each rank's local shard of an expert leaf
+holds the dense gradients of its experts, and the whole gradients
+(gathered) of every leaf and of x are the dense ones on every rank.
 
 Tolerances: outputs 2e-5 absolute and the aux loss 1e-5 relative (the
 reference test's); gradients 1e-5 of each leaf's largest magnitude
@@ -83,23 +84,35 @@ def _grads(m, x, y, aux, ct):
 
 
 def _ep_worker(rank, world, tmp, name, cf):
-    import torch.distributed as dist
+    from repro_torch.distributed import compat as CP
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import step as TS
     z = np.load(tmp / "in.npz")
     w = {k[2:]: z[k] for k in z.files if k.startswith("w.")}
     cfg = _cfg(TC, name, cf)
-    m = _moe(cfg, w)
-    x = torch.from_numpy(z["x"]).requires_grad_(True)
-    y, aux = TMoE.moe_apply_shard_map(m, 0, cfg, x, dist.group.WORLD)
-    y2, _ = TMoE.moe_apply(m, 0, cfg, x.detach(), group=dist.group.WORLD)
-    out = {"y": y.detach().numpy(), "aux": aux.detach().numpy(),
-           "y_via_apply": y2.detach().numpy()}
-    out.update(_grads(m, x, y, aux, torch.from_numpy(z["ct"])))
+    mesh = make_host_mesh(1, world, device_type="cpu")
+    m = TS.shard_params(_moe(cfg, w), mesh)     # the experts over "model"
+    tok = [CP.Shard(0), CP.Replicate()]
+    with CP.implicit_replication():
+        x = CP.distribute_local(torch.from_numpy(z["x"]), mesh, tok)
+        x.requires_grad_(True)
+        y, aux = TMoE.moe_apply_shard_map(m, 0, cfg, x, mesh)
+        y2, _ = TMoE.moe_apply(m, 0, cfg, x.detach(), mesh=mesh)
+        ct = CP.distribute_local(torch.from_numpy(z["ct"]), mesh, tok)
+        (y * ct).sum().add(aux).backward()
+        out = {"y": y.full_tensor().detach().numpy(),
+               "aux": aux.full_tensor().detach().numpy(),
+               "y_via_apply": y2.full_tensor().detach().numpy(),
+               "g.x": x.grad.full_tensor().numpy()}
+        for n, t in m.named_parameters():
+            out[f"g.{n}"] = t.grad.full_tensor()[0].numpy()
+            out[f"local.{n}"] = t.grad.to_local()[0].numpy()
     return out
 
 
-def _reference_shard_map(tmp, name, cf, world):
-    """The reference's ``moe_apply_shard_map`` on a (1, world) mesh of
-    forced host devices, in a subprocess."""
+def _reference_shard_map(tmp, name, cf, world, data=1):
+    """The reference's ``moe_apply_shard_map`` on a (data, world / data)
+    ("data", "model") mesh of forced host devices, in a subprocess."""
     code = textwrap.dedent(f"""
         import dataclasses, jax, numpy as np
         import repro.configs as C
@@ -113,7 +126,7 @@ def _reference_shard_map(tmp, name, cf, world):
         sh = {{k[9:]: z[k] for k in z.files if k.startswith("w.shared.")}}
         if sh:
             p["shared"] = sh
-        mesh = jax.make_mesh((1, {world}), ("data", "model"))
+        mesh = jax.make_mesh(({data}, {world // data}), ("data", "model"))
         with jax.set_mesh(mesh):
             y, aux = M.moe_apply_shard_map(p, cfg, z["x"], mesh)
         np.savez({str(tmp / "ref.npz")!r}, y=np.asarray(y),
@@ -167,12 +180,9 @@ def test_expert_parallel_matches_reference(tmp_path, name, world, cf):
     e_local = tcfg.moe.num_experts // world
     for rank, o in enumerate(outs):
         for k, g in want.items():
-            if k[2:] in LEAVES[1:]:           # this rank's experts only
-                mine = slice(rank * e_local, (rank + 1) * e_local)
-                g, got = g[mine], o[k][mine]
-                assert not np.delete(o[k], np.arange(mine.start, mine.stop),
-                                     axis=0).any()
-            else:
-                got = o[k]
             bar = GRAD_TOL * np.abs(g).max()
-            assert np.abs(got - g).max() <= bar, (rank, k)
+            assert np.abs(o[k] - g).max() <= bar, (rank, k)
+            if k[2:] in LEAVES[1:]:           # this rank's experts only
+                mine = g[rank * e_local:(rank + 1) * e_local]
+                assert np.abs(o[f"local.{k[2:]}"] - mine).max() <= bar, \
+                    (rank, k)

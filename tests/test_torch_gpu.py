@@ -855,9 +855,9 @@ def _graph_model(kind):
     return _GRAPH_MODELS[kind]
 
 
-def _graph_batcher(kind, eager, max_active=2, max_len=32):
+def _graph_batcher(kind, eager, max_active=2, max_len=32, **opts):
     """(batcher, recorded merges, submit) of one route; the monitor feeds
-    every merged mass into ``merges``."""
+    every merged mass into ``merges``; ``opts`` go to the batcher."""
     import numpy as np
     from repro_torch.core.cori import OnlineTuner
     from repro_torch.memtier.tiering import (SharedPagedPools, TierConfig,
@@ -879,7 +879,7 @@ def _graph_batcher(kind, eager, max_active=2, max_len=32):
                          .manual_seed(7))
     b = TS.ContinuousBatcher(params, cfg, monitor=mon, max_active=max_active,
                              max_len=max_len, page_size=4, eager=eager,
-                             extra_embeds=ex, device="cuda")
+                             extra_embeds=ex, device="cuda", **opts)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (6, 9, 5, 11)]
@@ -1522,3 +1522,74 @@ def test_checkpoint_saved_on_card_restores_on_cpu(tmp_path, dtype):
     for a, b in zip(ckpt._leaves(card), ckpt._leaves(restored)):
         assert b.device.type == "cpu" and a.dtype == b.dtype
         assert torch.equal(a.detach().cpu(), b.detach())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gqa", "mla"])
+def test_batcher_macro_steps_on_the_card(kind):
+    """``macro_steps=4`` on the graph route: the streams equal the
+    default's, the paged kernel (MLA's for "mla") launches on every
+    decode step, and no macro (the flight recorder's ``serve.macro``
+    events) is longer than 4 steps, most of them 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python -m pytest -m gpu)")
+    from repro_torch.obs import telemetry as T_obs
+    wrapper = tpam.paged_attention_mla if kind == "mla" \
+        else tpa.paged_attention
+    want = _drive([_graph_batcher(kind, False)])[0]
+    prev = T_obs.RECORDER
+    rec = T_obs.install(T_obs.Recorder(enabled=True))
+    try:
+        before = wrapper.launches
+        b = _graph_batcher(kind, False, macro_steps=4)
+        got = _drive([b])[0]
+        launched = wrapper.launches - before
+    finally:
+        T_obs.install(prev)
+    assert got["streams"] == want["streams"]
+    assert launched >= b[0].device_steps > 0
+    lens = [e["n_steps"] for e in rec.events("serve.macro")]
+    assert max(lens) == 4 and all(n == 4 for n in lens[:-2]), lens
+
+
+@pytest.mark.gpu
+def test_mesh_step_on_a_one_rank_nccl_mesh():
+    """The mesh step on a (1, 1) NCCL mesh equals the single-device step
+    on the card (reduced qwen3-14b): loss within 1e-6 relative,
+    parameters within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run: python -m pytest -m gpu)")
+    import socket
+
+    import torch.distributed as dist
+
+    import repro_torch.configs as TC
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.train import optim as TO
+    from repro_torch.train import step as TS
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        cfg, ocfg = TC.reduced("qwen3-14b"), TO.OptConfig(lr=1e-3)
+        batch = batch_at(DataConfig(seed=0, global_batch=4, seq_len=32),
+                         cfg, 0)
+        mesh = make_host_mesh(1, 1)
+        st = TS.init_state(cfg, ocfg, device="cuda", mesh=mesh)
+        st, m = TS.make_train_step(cfg, ocfg, mesh, param_specs=TM.param_specs(
+            st["params"]))(st, batch)
+        whole = TS.gather_state(st)["params"]
+        one, m1 = TS.make_train_step(cfg, ocfg)(
+            TS.init_state(cfg, ocfg, device="cuda"), batch)
+        torch.testing.assert_close(m["loss"].cpu(), m1["loss"].cpu(),
+                                   rtol=1e-6, atol=0)
+        for n, p in one["params"].named_parameters():
+            torch.testing.assert_close(whole[n], p.detach(), rtol=0,
+                                       atol=1e-6)
+    finally:
+        dist.destroy_process_group()

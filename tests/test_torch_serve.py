@@ -28,6 +28,7 @@ from repro.memtier.tiering import TierConfig as RTierConfig
 from repro.memtier.tiering import TieringManager as RManager
 from repro.core.cori import OnlineTuner as RTuner
 from repro.models import model as RM
+from repro.obs import telemetry as R_obs
 from repro.serve import sched as RS
 
 import repro_torch.configs as TC
@@ -36,6 +37,7 @@ from repro_torch.core.cori import OnlineTuner as TTuner
 from repro_torch.memtier.tiering import SharedPagedPools as TPools
 from repro_torch.memtier.tiering import TierConfig as TTierConfig
 from repro_torch.memtier.tiering import TieringManager as TManager
+from repro_torch.obs import telemetry as T_obs
 from repro_torch.serve import sched as TS
 from repro_torch.serve.engine import generate as t_generate
 
@@ -87,23 +89,24 @@ def _record_merges(mon):
     return seen
 
 
-def _serve(side, macro, temps=(0.0, 0.0, 0.0, 0.0)):
+def _serve(side, macro, temps=(0.0, 0.0, 0.0, 0.0), **opts):
     """Serve the four requests with two rows: two submitted up front,
-    the others joining mid-flight (staggered, recycled rows)."""
+    the others joining mid-flight (staggered, recycled rows).  ``opts``
+    go to both batchers (``macro_steps``)."""
     m = _models()
     mon = _stack(side)
     merges = _record_merges(mon)
     if side == "ref":
         b = RS.ContinuousBatcher(m["rp"], m["rcfg"], max_active=2,
                                  max_len=32, page_size=PAGE, monitor=mon,
-                                 paged_impl="reference", macro=macro)
+                                 paged_impl="reference", macro=macro, **opts)
         mk = lambda i: RS.Request(rid=i, prompt=m["prompts"][i],
                                   max_new_tokens=NEW[i],
                                   key=jax.random.PRNGKey(0))
     else:
         b = TS.ContinuousBatcher(m["tp"], m["tcfg"], max_active=2,
                                  max_len=32, page_size=PAGE, monitor=mon,
-                                 macro=macro, device="cpu")
+                                 macro=macro, device="cpu", **opts)
         mk = lambda i: TS.Request(rid=i, prompt=m["prompts"][i],
                                   max_new_tokens=NEW[i],
                                   temperature=temps[i], seed=100 + i)
@@ -131,6 +134,36 @@ def test_batcher_greedy_streams_match_reference(macro):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
     assert port_mon.manager.migrations == ref_mon.manager.migrations
     assert port_mon.tuner.history == ref_mon.tuner.history
+
+
+@pytest.mark.parametrize("macro_steps", [1, 4, 8])
+def test_batcher_macro_steps_match_reference(macro_steps):
+    """``macro_steps`` (the reference's batcher option) pins the macro
+    length in place of the tuner's period: greedy streams, every merged
+    mass (1e-5), migrations, tuner history and each macro's length (the
+    flight recorder's ``serve.macro`` events) equal to the reference
+    batcher's with the same ``macro_steps``; no macro is longer, and one
+    runs for each monitor feed."""
+    res, lens = {}, {}
+    for side, obs in (("ref", R_obs), ("port", T_obs)):
+        prev = obs.RECORDER
+        rec = obs.install(obs.Recorder(enabled=True))
+        try:
+            res[side] = _serve(side, True, macro_steps=macro_steps)
+        finally:
+            obs.install(prev)
+        lens[side] = [e["n_steps"] for e in rec.events("serve.macro")]
+    (ref, ref_m, ref_mon), (port, port_m, port_mon) = res["ref"], \
+        res["port"]
+    assert port == ref
+    assert len(port_m) == len(ref_m)
+    for a, b in zip(port_m, ref_m):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    assert port_mon.manager.migrations == ref_mon.manager.migrations
+    assert port_mon.tuner.history == ref_mon.tuner.history
+    assert lens["port"] == lens["ref"]
+    assert len(lens["port"]) == len(port_m)
+    assert max(lens["port"]) == macro_steps, lens
 
 
 def test_batcher_streams_match_generate():
