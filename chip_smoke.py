@@ -6,13 +6,14 @@ Drives the port's paths on the card -- the online-Cori paged serving loop
 (decode through the paged kernels, prefill through the flash kernel) and
 the paper's offline Cori pipeline -- and checks every kernel they run
 against the kernel's plain PyTorch version (the five ports of the
-reference's Pallas kernels and the port's own routed-expert kernel).
+reference's Pallas kernels and the port's own routed-expert and mLSTM
+recurrence kernels).
 Phases (each prints its
 own lines and its seconds; any failure raises and the script exits
 non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: ``nvcc`` compiles the six kernels for sm_90a from
+  2. build: ``nvcc`` compiles the seven kernels for sm_90a from
      ``src/repro_torch/kernels/csrc``, one process per source, all at once
      (each -Xptxas -v report is printed);
   3. kernel vs plain version on the card: the main-path shape, olmoe's
@@ -157,10 +158,16 @@ non-zero):
      never runs out of HBM slots, so every few steps the oldest active
      request's page is demoted (what a preemption does) and the next
      macro fetches it back from the host tier: the fetched bytes must
-     equal those resident before, and both routes must agree;
+     equal those resident before, and both routes must agree.  Every
+     mLSTM layer runs ``mlstm_scan`` once a prefill (from the zero state)
+     and once a device step (in place on the state pages): its launches
+     must equal 42 x (device steps + prefills) on each route.  Prints the
+     admissions' wall a request and one 256-token prefill timed cell by
+     cell (mLSTM, sLSTM, the rest: the sLSTM's share);
  20. parity on the card: on reduced recurrentgemma-2b and xlstm-1.3b with
      non-zero conv taps, the batcher's greedy streams (macro and
-     per-token) equal ``generate``'s (dense decode, no kernel);
+     per-token) equal ``generate``'s (dense decode; xlstm's mLSTM
+     through ``mlstm_scan`` on both sides);
  21. the routed-expert kernel ``routed_experts`` vs its plain version on
      the card, after xlstm-1.3b is freed: olmoe-1b-7b's and
      deepseek-v3-671b's decode widths (all 64 / 256 experts), 4 tokens
@@ -309,6 +316,8 @@ non-zero):
      step 8 with 4 steps run, and the resumed losses within
      ``DRILL_RTOL`` of an uninterrupted run's (in this process); the
      checkpoint directory is a temporary one, removed afterwards.
+     (Under autograd the mLSTM recurrence takes its plain loop, so phase
+     39's xlstm-1.3b step launches no ``mlstm_scan``.)
      None of phases 37-40 launches a hand-written kernel (the reference's
      training path reaches no ``pallas_call``): their counts must stay 0;
  41. phase 37's cell through the mesh step (``train.step.make_train_step``
@@ -330,7 +339,19 @@ non-zero):
  43. (right after phase 35, on phase 4's parameters) the batcher's
      ``macro_steps=4`` on phase 4's mix: streams held to phase 4's, every
      macro 4 steps but where the remaining work caps it, kernel 1 a layer
-     a device step.
+     a device step;
+ 44. (right before phase 19) the mLSTM recurrence kernel ``mlstm_scan``
+     vs its plain version at xlstm-1.3b's full width (4 heads of 1024):
+     a 256-position prefill from the zero state and from the state it
+     leaves, B = 2 at S = 1 and 3 from a carried state, and a decode step
+     of B = 4 in place over pool pages of both tiers (one row dropped to
+     the sinks, each HBM slot another host page).  C, n and m bit-equal to
+     the plain version (every byte of the state buffers), h within
+     ``h_tolerance``, the rows no destination names untouched, a second
+     call bit-identical.  Then its time at the decode and prefill shapes,
+     a call and on the device, beside its plain version and its bound
+     (bytes at 3.35 TB/s, operations at 67 TFLOP/s float32); no PyTorch
+     call computes it (``library_ms`` null).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -725,6 +746,7 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
                   decode_steps=b.decode_steps, device_steps=b.device_steps,
                   peak_gb=peak_gb, admissions=len(admits),
                   admit_wall_ms=[e["wall_ms"] for e in admits],
+                  prefills=sum(e["joiners"] for e in admits),
                   first_joiners=admits[0]["joiners"] if admits else 0)
     same = dict(streams=out, migrations=mgr.migrations, hits=mgr.hits,
                 misses=mgr.misses, tuner_history=list(tuner.history))
@@ -867,12 +889,14 @@ def _profile_macro(b, S, cfg, rng) -> dict:
                if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = {"matmul (cuBLAS)": 0.0, "paged_attention (this repo)": 0.0,
-              "routed_experts (this repo)": 0.0, "other": 0.0}
+              "routed_experts (this repo)": 0.0,
+              "mlstm_scan (this repo)": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         key = ("paged_attention (this repo)"
                if "paged_attention" in name or "page_mass" in name
                else "routed_experts (this repo)" if "routed_" in name
+               else "mlstm_scan (this repo)" if "mlstm_scan" in name
                else "matmul (cuBLAS)" if "gemm" in name or "gemv" in name
                else "other")
         groups[key] += e.self_device_time_total / 1e3
@@ -2121,10 +2145,10 @@ RGEMMA_ACCESS_THRESHOLD = 0.001
 # xlstm-1.3b: demote the oldest active request's state page every this many
 # scheduler steps (phase 19)
 XLSTM_DEMOTE_EVERY = 3
-# phase 19's depth: 2 of the 6 repeats of its 7 mLSTM : 1 sLSTM block, 16
-# of 48 layers (the full-width cells, their state pages and both routes
-# are what it checks; the per-position prefill loop scales with depth)
-XLSTM_REPEATS = 2
+# phase 19's depth: all 6 repeats of its 7 mLSTM : 1 sLSTM block, 48
+# layers (the mLSTM recurrence runs through mlstm_scan, in place on the
+# state pages)
+XLSTM_REPEATS = 6
 
 
 def _perturb_conv(params, seed=SEED) -> None:
@@ -2236,10 +2260,58 @@ class _Demoter:
         self.demoted += self.pools.demote(req.gids[-1:])
 
 
-def phase_xlstm(C, mdl, pa, S, memtier, cori, telemetry, kernels):
+def _prefill_split(mdl, params, cfg, rng, plen=256) -> dict:
+    """One request's prefill at full depth (``plen`` tokens, after a warm
+    call): its wall, then the same prefill with each cell's sequence form
+    (``recurrent._APPLY``) timed between two synchronizes -- the mLSTM
+    cells, the sLSTM cells and the rest (projections outside the cells,
+    norms, the unembedding).  Returns the walls in ms and the sLSTM's
+    share."""
+    from repro_torch.models import recurrent as R
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, plen))) \
+        .to(DEV)
+    mdl.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mdl.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    spent = {"mlstm": 0.0, "slstm": 0.0}
+    orig = dict(R._APPLY)
+
+    def timed(kind):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[kind](*args, **kw)
+            torch.cuda.synchronize()
+            spent[kind] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+    R._APPLY.update(mlstm=timed("mlstm"), slstm=timed("slstm"))
+    try:
+        t0 = time.perf_counter()
+        mdl.prefill(params, cfg, tokens)
+        torch.cuda.synchronize()
+        split_wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        R._APPLY.update(orig)
+    out = dict(prefill_ms=wall, split_wall_ms=split_wall,
+               mlstm_ms=spent["mlstm"], slstm_ms=spent["slstm"],
+               rest_ms=split_wall - spent["mlstm"] - spent["slstm"],
+               slstm_share=spent["slstm"] / split_wall)
+    print(f"one {plen}-token prefill at {cfg.num_layers} layers: {wall:.1f} "
+          f"ms wall; timed cell by cell ({split_wall:.1f} ms): mLSTM cells "
+          f"{out['mlstm_ms']:.1f} ms, sLSTM cells {out['slstm_ms']:.1f} ms "
+          f"({out['slstm_share'] * 100:.1f}%), the rest "
+          f"{out['rest_ms']:.1f} ms", flush=True)
+    return out
+
+
+def phase_xlstm(C, mdl, pa, ms_, S, memtier, cori, telemetry, kernels):
     print("== phase 19: full-width xlstm-1.3b serving (mLSTM / sLSTM state "
-          f"pages only, macro-step batcher; depth cut to {XLSTM_REPEATS} "
-          "of its 6 blocks)", flush=True)
+          f"pages only, macro-step batcher; {XLSTM_REPEATS} of its 6 "
+          "blocks)", flush=True)
     pattern = C.get("xlstm-1.3b").segments[0][0]
     cfg, params = _init_full(C, mdl, "xlstm-1.3b",
                              segments=((pattern, XLSTM_REPEATS),))
@@ -2247,6 +2319,8 @@ def phase_xlstm(C, mdl, pa, S, memtier, cori, telemetry, kernels):
                   for r, lv in mdl.slot_leaf_specs(cfg, 16)) / 1e6
     print(f"one request's state page over {cfg.num_layers} layers: "
           f"{page_mb:.1f} MB", flush=True)
+    n_mlstm = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
+                  if k.base == "mlstm")
     demoters = []
 
     def between(b):
@@ -2256,6 +2330,7 @@ def phase_xlstm(C, mdl, pa, S, memtier, cori, telemetry, kernels):
     def check(b, result, eager):
         d = demoters.pop()        # it holds the pools: let them go with b
         result.update(launches=pa.paged_attention.launches,
+                      mlstm_launches=ms_.mlstm_scan.launches,
                       demoted=d.demoted, fetched_back=d.fetched,
                       misses=b.monitor.manager.misses)
         print(f"state pages demoted {d.demoted}, fetched back from the host "
@@ -2266,6 +2341,15 @@ def phase_xlstm(C, mdl, pa, S, memtier, cori, telemetry, kernels):
             _fail("a demoted state page was not fetched back")
         if result["launches"]:
             _fail("xlstm-1.3b launched the paged kernel")
+        want = n_mlstm * (b.device_steps + result["prefills"])
+        ok = result["mlstm_launches"] == want
+        print(f"mlstm_scan launches {result['mlstm_launches']} = {n_mlstm} "
+              f"mLSTM layers x ({b.device_steps} device steps + "
+              f"{result['prefills']} prefills) -> {ok} ({b.route} route)",
+              flush=True)
+        if not ok:
+            _fail("mlstm_scan's launches do not match the mLSTM layers x "
+                  "(device steps + prefills)")
         if eager and b.device_steps != b.decode_steps:
             _fail(f"the eager route ran {b.device_steps} device steps for "
                   f"{b.decode_steps} decode steps")
@@ -2274,6 +2358,15 @@ def phase_xlstm(C, mdl, pa, S, memtier, cori, telemetry, kernels):
         params, cfg, S, memtier, cori, telemetry, kernels, check,
         n_logical=8, hbm_pages=6, max_len=512, n_req=8, prompt=(64, 257),
         new=(32, 65), between=between)
+    for res in results.values():
+        res["prefill_ms_per_request"] = sum(res["admit_wall_ms"]) \
+            / max(1, res["prefills"])
+        print(f"{res['route']} route: admissions "
+              f"{sum(res['admit_wall_ms']):.1f} ms for {res['prefills']} "
+              f"prefills, {res['prefill_ms_per_request']:.1f} ms a request",
+              flush=True)
+    results["prefill_split"] = _prefill_split(
+        mdl, params, cfg, np.random.default_rng(SEED + 19))
     held = torch.cuda.memory_allocated()
     del params
     _check_freed(held)
@@ -2287,6 +2380,177 @@ def phase_recurrent_parity(C, mdl, S, memtier, cori, engine):
         print(f"reduced {name}:", flush=True)
         _parity(dataclasses.replace(C.reduced(name), dtype="float32"), mdl,
                 S, memtier, cori, engine)
+
+
+# ---------------------------------------------------------------------------
+# the mLSTM recurrence: the kernel at xlstm-1.3b's full width
+# ---------------------------------------------------------------------------
+
+# xlstm-1.3b's mLSTM at full width: 4 heads of 1024 (dm 4096; C 16.8 MB a
+# row); phase 19's prefills run up to 256 positions from the zero state,
+# its decode steps B = 4, S = 1 over the state pages
+MLSTM_NH, MLSTM_HD = 4, 1024
+MLSTM_PREFILL_S = 256
+# a state page of xlstm-1.3b's mLSTM: C, conv [3, 4096], m [4], n [4, 1024]
+MLSTM_PAGE = MLSTM_NH * MLSTM_HD * MLSTM_HD + 3 * 4096 + MLSTM_NH \
+    + MLSTM_NH * MLSTM_HD
+
+
+def _mlstm_data(b, s, seed):
+    """Seeded q, k, v [B, S, 4, 1024] ~ N(0, 1), input gates ~ N(0, 1),
+    log forget gates logsigmoid(N(2, 1)), and a carried n ~ N(0, 0.3^2),
+    m ~ N(0, 1)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    nh, hd = MLSTM_NH, MLSTM_HD
+    q, k, v, i = r(b, s, nh, hd), r(b, s, nh, hd), r(b, s, nh, hd), \
+        r(b, s, nh)
+    f = torch.nn.functional.logsigmoid(r(b, s, nh) + 2.0)
+    return (q, k, v, i, f, r(b, nh, hd).mul_(0.3), r(b, nh))
+
+
+def _mlstm_case(ms_, name, data, src, src_rows, dsts) -> float:
+    """The kernel against its plain version on one case: the plain version
+    runs on copies of the state buffers, the kernel twice from their
+    starting bytes.  Fails unless C (every byte of every buffer), n and
+    m are bit-equal to the plain version's, h is within ``h_tolerance``,
+    the rows no destination names kept their bytes, and the second call
+    is bit-identical to the first.  Returns h's largest error."""
+    bufs = list({id(t): t for t in [src] + [b for b, _ in dsts]}.values())
+    start = [t.clone() for t in bufs]
+    twin = {id(t): c.clone() for t, c in zip(bufs, start)}
+    h_p, n_p, m_p = ms_.mlstm_scan_plain(
+        *data, twin[id(src)], src_rows, [(twin[id(b)], r) for b, r in dsts])
+    runs = []
+    for _ in range(2):
+        for t, c in zip(bufs, start):
+            t.copy_(c)
+        out = ms_.mlstm_scan(*data, src, src_rows, dsts)
+        torch.cuda.synchronize()
+        runs.append([x.clone() for x in out] + [t.clone() for t in bufs])
+    bits = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
+    h, n, m, *after = runs[0]
+    same = bits(n, n_p) and bits(m, m_p) and all(
+        bits(a, twin[id(t)]) for a, t in zip(after, bufs))
+    tol = ms_.h_tolerance(*data, start[0], src_rows)
+    err = float((h - h_p).abs().max())
+    within = bool(((h - h_p).abs() <= tol).all())
+    untouched = True
+    for t, a, c in zip(bufs, after, start):
+        written = torch.zeros(t.shape[0], dtype=torch.bool, device=DEV)
+        for b, r in dsts:
+            if b is t:
+                written[r] = True
+        untouched &= torch.equal(a[~written], c[~written])
+    again = all(bits(a, b) for a, b in zip(runs[0], runs[1]))
+    ok = same and within and untouched and again
+    print(f"{name}: C, n, m bit-equal {same}; h max err {err:.3g} (tolerance "
+          f"{float(tol.min()):.3g}-{float(tol.max()):.3g}, within {within}); "
+          f"other rows untouched {untouched}; repeat bit-identical {again} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail(f"mlstm_scan disagrees with its plain version or with itself "
+              f"({name})")
+    return err
+
+
+def _mlstm_bound(b, s, c_read, c_writes):
+    """(bound ms, bound_by, GB, GFLOP) of one call: C read ``c_read`` times
+    and written ``c_writes`` times, q, k, v and h, the gates, n and m in
+    and out; 6 float32 operations an element of C a position (k*v, i_p *,
+    f_p * C, +, and C^T q's multiply-add) and 7 an element of n (k / sqrt,
+    f_p * n, i_p * k, +, n . q's multiply-add)."""
+    nh, hd = MLSTM_NH, MLSTM_HD
+    c_bytes = b * nh * hd * hd * 4
+    io = 4 * b * s * nh * hd * 4 + 2 * b * s * nh * 4 + 2 * 2 * b * nh * \
+        (hd + 1) * 4
+    gb = (c_bytes * (c_read + c_writes) + io) / 1e9
+    flops = b * s * nh * (6 * hd * hd + 7 * hd)
+    t_bytes = gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", gb, flops / 1e9)
+
+
+def phase_mlstm(ms_) -> dict:
+    """Phase 44: the mLSTM kernel against its plain version at
+    xlstm-1.3b's full width, then its timing at phase 19's two shapes."""
+    print("== phase 44: mlstm_scan vs plain version on the card, and its "
+          "timing (xlstm-1.3b's full width: 4 heads of 1024)", flush=True)
+    nh, hd = MLSTM_NH, MLSTM_HD
+    cols = nh * hd * hd
+    before = ms_.mlstm_scan.launches
+    one = torch.arange(1, device=DEV)
+    two = torch.arange(2, device=DEV)
+    worst = 0.0
+    # prefill from the zero state (as mlstm_apply gives it: a zero C), then
+    # from the state it leaves
+    q, k, v, i, f, _, _ = _mlstm_data(1, MLSTM_PREFILL_S, SEED + 40)
+    zero = torch.zeros((1, cols), device=DEV)
+    n0 = torch.zeros((1, nh, hd), device=DEV)
+    m0 = torch.full((1, nh), -1e30, device=DEV)
+    carried = torch.zeros((1, cols), device=DEV)
+    worst = max(worst, _mlstm_case(
+        ms_, f"prefill B=1 S={MLSTM_PREFILL_S} from the zero state",
+        (q, k, v, i, f, n0, m0), zero, one, [(carried, one)]))
+    _, n1, m1 = ms_.mlstm_scan(q, k, v, i, f, n0, m0, zero, one,
+                               [(carried, one)])
+    prefill = _mlstm_data(1, MLSTM_PREFILL_S, SEED + 41)[:5] + (n1, m1)
+    out = torch.zeros((1, cols), device=DEV)
+    worst = max(worst, _mlstm_case(
+        ms_, f"prefill B=1 S={MLSTM_PREFILL_S} from a carried state", prefill,
+        carried, one, [(out, one)]))
+    # short sequences from a random carried state
+    for s in (1, 3):
+        data = _mlstm_data(2, s, SEED + 42 + s)
+        src = torch.randn((2, cols), generator=torch.Generator(
+            device=DEV).manual_seed(s), device=DEV).mul_(0.3)
+        worst = max(worst, _mlstm_case(
+            ms_, f"B=2 S={s} from a carried state", data, src, two,
+            [(torch.zeros_like(src), two)]))
+    # decode over pool pages: 6 HBM slots and 8 host pages of xlstm-1.3b's
+    # state page, each tier's sink last; row 2 dropped (no source, the
+    # sinks), the others in place, each HBM slot another host page
+    g = torch.Generator(device=DEV).manual_seed(SEED + 45)
+    hbm = torch.randn((7, MLSTM_PAGE), generator=g, device=DEV).mul_(0.3)
+    host = torch.randn((9, MLSTM_PAGE), generator=g, device=DEV).mul_(0.3)
+    i64 = lambda *xs: torch.tensor(xs, dtype=torch.int64, device=DEV)
+    src, at_hbm, at_host = i64(2, 0, -1, 4), i64(2, 0, 6, 4), i64(5, 3, 8, 1)
+    decode = _mlstm_data(4, 1, SEED + 46)
+    dsts = [(hbm, at_hbm), (host, at_host)]
+    worst = max(worst, _mlstm_case(
+        ms_, "decode B=4 S=1 over state pages (row 2 dropped to the sinks)",
+        decode, hbm, src, dsts))
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    res = {}
+    shapes = {
+        "decode": ("B=4 S=1 over state pages, C read once and written to "
+                   "both tiers", decode, hbm, src, dsts, 4, 1, 1, 2),
+        "prefill": (f"B=1 S={MLSTM_PREFILL_S} from a carried state",
+                    prefill, carried, one, [(out, one)], 1, MLSTM_PREFILL_S,
+                    1, 1)}
+    for key, (label, data, src_, rows, dsts_, b, s, reads, writes) \
+            in shapes.items():
+        kernel = lambda: ms_.mlstm_scan(*data, src_, rows, dsts_)
+        ms = _time(kernel, 30, flush)
+        dev_ms, how, names = _device_ms(kernel, 30, flush)
+        plain_ms = _time(lambda: ms_.mlstm_scan_plain(*data, src_, rows,
+                                                      dsts_), 3, flush)
+        bound_ms, bound_by, gb, gflop = _mlstm_bound(b, s, reads, writes)
+        print(f"{key} ({label}): kernel {ms:.4f} ms a call (events), "
+              f"{dev_ms:.4f} ms on the device ({how}: {_ms_list(names)}); "
+              f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by}: {gb:.4f} GB at 3.35 TB/s; {gflop:.3f} GFLOP at "
+              f"67 TFLOP/s) -> {bound_ms / dev_ms * 100:.1f}% of the bound "
+              f"on the device, {bound_ms / ms * 100:.1f}% a call; no single "
+              "PyTorch call computes it (library_ms null)", flush=True)
+        res[key] = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+                        plain_ms=plain_ms, library_ms=None,
+                        bound_ms=bound_ms, bound_by=bound_by)
+    ms_.mlstm_scan.launches = before     # checks and timing not counted
+    res["max_abs_err"] = worst
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4186,6 +4450,7 @@ def main() -> int:
     from repro_torch import memtier
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ms_
     from repro_torch.kernels import page_hist as ph
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_attention_mla as pam
@@ -4206,7 +4471,7 @@ def main() -> int:
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import mesh as LM
 
-    kernels = (pa, ph, ss, pam, fa, re_)
+    kernels = (pa, ph, ss, pam, fa, re_, ms_)
     secs = {}
 
     def timed(name, fn, *args):
@@ -4267,8 +4532,9 @@ def main() -> int:
     flash_timing = timed("flash_attention timing", phase_flash_timing, fa)
     rgemma = timed("recurrentgemma serving", phase_rgemma, C, mdl, pa, S,
                    memtier, cori, telemetry, kernels)
-    xlstm = timed("xlstm serving", phase_xlstm, C, mdl, pa, S, memtier, cori,
-                  telemetry, kernels)
+    mlstm = timed("mlstm_scan check and timing", phase_mlstm, ms_)
+    xlstm = timed("xlstm serving", phase_xlstm, C, mdl, pa, ms_, S, memtier,
+                  cori, telemetry, kernels)
     timed("recurrent parity", phase_recurrent_parity, C, mdl, S, memtier,
           cori, engine)
     weights = {model: _routed_weights(shape, SEED + i)
@@ -4336,7 +4602,8 @@ def main() -> int:
           f"chunked {gpiped}; traffic "
           f"{traffic}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
-          f"{xlstm}; olmoe {olmoe}; musicgen {musicgen}; nemotron "
+          f"{xlstm}; mlstm_scan {mlstm}; olmoe {olmoe}; musicgen "
+          f"{musicgen}; nemotron "
           f"{nemotron}; paligemma {paligemma}; training {train}; batcher "
           f"options {options}; dry-run {dry}; flash "
           f"timing beside float32 "
@@ -4426,7 +4693,21 @@ def main() -> int:
                  "olmoe-1b-7b decode, pipelined, packed and chunked "
                  "admission (phase 36)": dict(launches=[
                      olmoe["pipelined"][k]["routed_launches"]
-                     for k in ("packed", "chunked")])})]}),
+                     for k in ("packed", "chunked")])}),
+        dict(name="mlstm_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+             replaces="src/repro/models/recurrent.py:140",
+             note="no Pallas kernel: mlstm_apply's lax.scan (:116-140) and "
+             "mlstm_step's cell (:149)",
+             launches=xlstm["graph"]["mlstm_launches"],
+             max_abs_err=mlstm["max_abs_err"], **mlstm["decode"],
+             shape="xlstm-1.3b decode: B=4, S=1, 4 heads of 1024, in place "
+             "over the state pages of both tiers (phases 19, 44; launches: "
+             "42 a device step and 42 a prefill)",
+             also={f"xlstm-1.3b prefill B=1 S={MLSTM_PREFILL_S} from a "
+                   "carried state (phase 44)": mlstm["prefill"],
+                   "xlstm-1.3b eager route (phase 19)": dict(
+                       launches=xlstm["eager"]["mlstm_launches"])})]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

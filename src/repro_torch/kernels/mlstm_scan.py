@@ -1,0 +1,237 @@
+"""The mLSTM recurrence over a sequence, on the state rows where it lives.
+
+No Pallas kernel stands behind this one: the reference runs the mLSTM
+recurrence as a ``lax.scan`` (``repro/models/recurrent.py::mlstm_apply``,
+:116-140) and one cell a decode token (``::mlstm_step``, :149), which XLA
+compiles to one loop on the chip.  The port's plain loop over positions
+rewrites the whole matrix state C with every op (16.8 MB a row at
+xlstm-1.3b's 4 heads of 1024), so the port needs a kernel that keeps C on
+the chip across positions and reads and writes it in place: a
+hand-written CUDA kernel for Hopper (``csrc/mlstm_scan.cu``, built for
+``sm_90a`` with ``nvcc`` at first use and bound through ``ctypes``), and
+beside it ``mlstm_scan_plain``, the plain PyTorch version: the per-
+position cell loop the port ran before (``mlstm_loop``) between a gather
+of the source rows and a write of the destination rows.
+
+``mlstm_scan`` dispatches on the device of its inputs: a CPU tensor goes
+to the plain version, a CUDA tensor goes to the kernel, and anything the
+kernel does not take raises -- there is no fallback.  Every kernel
+launch adds one to ``mlstm_scan.launches`` (under CUDA graph capture to
+``.captured``: ``_build.count_launch``).  The wrapper reads nothing back
+to the host, so a CUDA graph captures it.
+
+Semantics.  q, k, v f32 [B, S, nh, hd] and the gates i, log f f32
+[B, S, nh] (as ``recurrent._mlstm_inputs`` returns them, contiguous); the
+starting n f32 [B, nh, hd] and m f32 [B, nh]; the starting C of row b is
+columns ``[0, nh*hd*hd)`` of row ``src_rows[b]`` of the 2-D float32
+buffer ``src`` [P, state_dim] (its leading leaf: a packed state page
+holds C first, its leaves in sorted key order), or zero where
+``src_rows[b]`` is -1.  The final C of row b is written to row
+``rows[b]`` of each ``(buf, rows)`` in ``dsts`` (one or two), the same
+columns; rows must lie in ``[0, P)``.  Returns h f32 [B, S, nh, hd] and
+the final n and m.  A dense state [B, nh, hd, hd] is the case where the
+buffer is the state viewed [B, nh*hd*hd] and the rows are ``arange(B)``.
+
+In place: ``src`` may be a destination buffer.  Each row's C is read
+once and written at the end, so a launch is safe as long as no row it
+writes is another row's source; a row the paged step drops reads no page
+(source -1) and writes only the sink.
+
+Numerics.  C, n and m come out bit-equal to the plain version on the
+same device: the kernel rounds every product and sum of the state on its
+own (``__fmul_rn`` / ``__fadd_rn``, so no multiply-add contraction), in
+the plain version's order (``f_p*C``, ``k*v``, ``i_p*(k*v)``, then the
+sum), divides k by sqrt(hd) (the plain version divides by a tensor of
+sqrt(hd), so the card's PyTorch does not turn it into a multiply by the
+reciprocal, as it does for a Python scalar; on the CPU that is the same
+division as before), and takes ``expf``.  h = (C^T q) / max(|n . q|, 1)
+sums both dot products in another order (fused multiply-adds a thread,
+then across warps), so it is held to ``h_tolerance``: twice the float32
+summation bound gamma_hd = hd u / (1 - hd u) (u = 2^-24; any order of
+hd terms, fused or not, lies within gamma_hd of the exact sum times the
+sum of the terms' magnitudes) on both dot products, carried through the
+division, plus four ulps of h.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["h_tolerance", "mlstm_cell", "mlstm_loop", "mlstm_scan",
+           "mlstm_scan_plain"]
+
+NAME = "mlstm_scan"
+NVCC_FLAGS = _build.BASE_FLAGS
+# the kernel keeps a thread's rows of its 32-column strip in registers:
+# hd / 8 of them, at most 128
+MAX_HD = 1024
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load(NAME, NVCC_FLAGS)
+        fn = lib.mlstm_scan_launch
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def mlstm_cell(C, n, m, q, k, v, i, f):
+    """One timestep.  C [B, nh, hd, hd], n / q / k / v [B, nh, hd], m / i /
+    f [B, nh].  Returns (C, n, m, h [B, nh, hd])."""
+    k = k / torch.full_like(k, math.sqrt(q.shape[-1]))
+    m_new = torch.maximum(f + m, i)
+    i_p = torch.exp(i - m_new)[..., None]
+    f_p = torch.exp(f + m - m_new)[..., None]
+    n_new = f_p * n + i_p * k
+    C_new = f_p[..., None] * C + i_p[..., None] * (k[..., :, None]
+                                                   * v[..., None, :])
+    num = torch.einsum("bhkv,bhk->bhv", C_new, q)
+    den = torch.clamp_min(torch.einsum("bhk,bhk->bh", n_new, q).abs(), 1.0)
+    return C_new, n_new, m_new, num / den[..., None]
+
+
+def mlstm_loop(C, n, m, q, k, v, i, f):
+    """The recurrence over dense tensors, a cell a position (the
+    reference's ``lax.scan``): q, k, v [B, S, nh, hd], i, f [B, S, nh].
+    Returns (C, n, m, h [B, S, nh, hd]).  Differentiable."""
+    hs = []
+    for t in range(q.shape[1]):
+        C, n, m, h = mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t], i[:, t],
+                                f[:, t])
+        hs.append(h)
+    return C, n, m, torch.stack(hs, dim=1)
+
+
+def _c_cols(q) -> int:
+    return q.shape[2] * q.shape[3] * q.shape[3]
+
+
+def mlstm_scan_plain(q, k, v, i, f, n, m, src, src_rows, dsts):
+    """Plain PyTorch version of the kernel's function (module docstring):
+    gather each row's C (zero for source -1), ``mlstm_loop``, write the
+    final C to every destination.  The CPU tests use it, and the smoke run
+    compares the kernel with it on the card."""
+    b, _, nh, hd = q.shape
+    cols = _c_cols(q)
+    C = src[src_rows.clamp_min(0), :cols]
+    C = torch.where((src_rows >= 0)[:, None], C, torch.zeros_like(C))
+    C, n, m, h = mlstm_loop(C.reshape(b, nh, hd, hd), n, m, q, k, v, i, f)
+    for buf, rows in dsts:
+        buf[:, :cols].index_put_((rows,), C.reshape(b, cols))
+    return h, n, m
+
+
+def _check(q, k, v, i, f, n, m, src, src_rows, dsts) -> None:
+    """Raise on what the kernel does not take."""
+    rows_all = [src_rows] + [r for _, r in dsts]
+    bufs = [src] + [buf for buf, _ in dsts]
+    floats = (q, k, v, i, f, n, m, *bufs)
+    if any(t.device != q.device for t in floats + tuple(rows_all)):
+        raise ValueError("all inputs must be on one CUDA device")
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError("mlstm_scan takes float32 inputs and state buffers "
+                        f"(got {[str(t.dtype) for t in floats]})")
+    if any(r.dtype != torch.int64 for r in rows_all):
+        raise TypeError("the row indices must be int64")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, S, nh, hd], not {tuple(q.shape)}")
+    b, s, nh, hd = q.shape
+    if (k.shape != q.shape or v.shape != q.shape
+            or tuple(i.shape) != (b, s, nh) or i.shape != f.shape
+            or tuple(n.shape) != (b, nh, hd) or tuple(m.shape) != (b, nh)):
+        raise ValueError("shape mismatch: q / k / v [B, S, nh, hd], i / f "
+                         "[B, S, nh], n [B, nh, hd], m [B, nh] (got "
+                         f"{[tuple(t.shape) for t in (q, k, v, i, f, n, m)]}"
+                         ")")
+    if not all(t.is_contiguous() for t in (q, k, v, i, f, n, m, *rows_all)):
+        raise ValueError("mlstm_scan needs contiguous inputs and rows")
+    if any(buf.dim() != 2 or buf.stride(1) != 1 or buf.shape[1] < nh * hd
+           * hd for buf in bufs):
+        raise ValueError("state buffers must be 2-D [P, >= nh*hd*hd] with "
+                         "unit column stride (got "
+                         f"{[(tuple(t.shape), t.stride()) for t in bufs]})")
+    if any(tuple(r.shape) != (b,) for r in rows_all):
+        raise ValueError("each row index must be [B]")
+    if hd % 32 or hd > MAX_HD:
+        raise ValueError(f"the kernel takes head dims that are multiples of "
+                         f"32 up to {MAX_HD} (got {hd})")
+    if s == 0:
+        raise ValueError("mlstm_scan needs at least one position")
+
+
+def mlstm_scan(q, k, v, i, f, n, m, src, src_rows, dsts):
+    """h [B, S, nh, hd] and the final n, m; the final C written to every
+    ``(buf, rows)`` of ``dsts`` (module docstring).  CPU tensors take
+    ``mlstm_scan_plain``; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return mlstm_scan_plain(q, k, v, i, f, n, m, src, src_rows, dsts)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_scan runs on cpu or cuda, not {q.device}")
+    if not 1 <= len(dsts) <= 2:
+        raise ValueError(f"one or two destinations, not {len(dsts)}")
+    _check(q, k, v, i, f, n, m, src, src_rows, dsts)
+    b, s, nh, hd = q.shape
+    h = torch.empty_like(q)
+    n_out, m_out = torch.empty_like(n), torch.empty_like(m)
+    if b == 0:
+        return h, n_out, m_out
+    (d1, r1), (d2, r2) = dsts[0], (dsts[1] if len(dsts) == 2
+                                   else (None, None))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stride = lambda t: 0 if t is None else t.stride(0)
+    err = _load().mlstm_scan_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), i.data_ptr(), f.data_ptr(),
+        n.data_ptr(), m.data_ptr(), src.data_ptr(), src_rows.data_ptr(),
+        src.stride(0), d1.data_ptr(), r1.data_ptr(), d1.stride(0), ptr(d2),
+        ptr(r2), stride(d2), h.data_ptr(), n_out.data_ptr(),
+        m_out.data_ptr(), b, s, nh, hd, math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mlstm_scan kernel launch failed: CUDA error "
+                           f"{err}")
+    _build.count_launch(mlstm_scan)
+    return h, n_out, m_out
+
+
+mlstm_scan.launches = 0
+mlstm_scan.captured = 0
+
+
+def h_tolerance(q, k, v, i, f, n, m, src, src_rows):
+    """The bound ``mlstm_scan``'s h is held to against the plain version's
+    (module docstring), [B, S, nh, hd]: replays the recurrence with the
+    plain cell and takes, a position, A = sum_k |C[k, :]| |q[k]| and
+    B = sum_k |n[k] q[k]|; then 2.02 gamma_hd (A + |h| B) / den + 4 u |h|
+    (the 1.01 covers the second-order terms and A, B being float32
+    sums themselves)."""
+    b, s, nh, hd = q.shape
+    u = 2.0 ** -24
+    gamma = hd * u / (1 - hd * u)
+    cols = _c_cols(q)
+    C = src[src_rows.clamp_min(0), :cols]
+    C = torch.where((src_rows >= 0)[:, None], C, torch.zeros_like(C)) \
+        .reshape(b, nh, hd, hd)
+    out = []
+    for t in range(s):
+        C, n, m, h = mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t], i[:, t],
+                                f[:, t])
+        qa = q[:, t].abs()
+        big_a = torch.einsum("bhkv,bhk->bhv", C.abs(), qa)
+        big_b = torch.einsum("bhk,bhk->bh", n.abs(), qa)[..., None]
+        den = torch.clamp_min(torch.einsum("bhk,bhk->bh", n, q[:, t]).abs(),
+                              1.0)[..., None]
+        out.append(2.02 * gamma * (big_a + h.abs() * big_b) / den
+                   + 4 * u * h.abs())
+    return torch.stack(out, dim=1)

@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import mlstm_scan as _ms
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_mla as _pam
 from repro_torch.kernels import routed_experts as _re
@@ -41,7 +42,7 @@ __all__ = ["DecodeGraph"]
 
 #: the kernel wrappers a decode step can call, whose launches a replay adds
 _COUNTED = (_pa.paged_attention, _pam.paged_attention_mla,
-            _re.routed_experts)
+            _re.routed_experts, _ms.mlstm_scan)
 
 
 class DecodeGraph:

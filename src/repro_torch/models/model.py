@@ -1027,7 +1027,7 @@ def decode_step_paged(params, cfg: ModelConfig, kv, tables, gid_tables,
     the shared page pools (no dense cache exists): attention slots
     through ``ops.paged_attention``, MLA slots through
     ``ops.paged_attention_mla``, recurrent cells through one packed state
-    page per request.
+    page per request (mLSTM slots in place on it: ``_mlstm_paged``).
 
     kv:         the pools' layered leaves with their sink page
                 (``SharedPagedPools.kv_with_sink``): ``{"k_hbm"|"v_hbm":
@@ -1096,6 +1096,27 @@ def _paged_attention(slot, r: int, cfg: ModelConfig, h, hbm, host, cur_pos,
     return ctx.reshape(h.shape[0], 1, -1) @ slot.wo[r], mass
 
 
+def _mlstm_paged(slot, r: int, cfg: ModelConfig, h, hbm, host, s_read,
+                 s_src, s_hbm, s_host):
+    """One mLSTM slot of the paged decode, in place on its state pages:
+    ``kernels.mlstm_scan`` reads each row's C (the page's leading
+    columns) from its HBM slot ``s_src`` and writes the new C at
+    ``s_hbm`` and ``s_host``; only the small tail (conv, m, n) is gathered
+    from ``s_read`` and written back through a column slice of each tier.
+    A dropped row (``s_src`` -1) steps from a zero C and its clamped
+    page's tail into the sinks, and its output is never used.  Returns
+    the slot's out [B, 1, d]."""
+    proto = R.zero_state(cfg, slot.kind, 1, "meta")
+    cols = proto.pop("C")[0].numel()
+    tail = unpack_state(hbm[s_read, cols:], proto)
+    out, new = R.mlstm_step(slot.cell, r, cfg, h, tail,
+                            pages=(hbm, s_src, ((hbm, s_hbm), (host, s_host))))
+    flat = pack_state(new).to(hbm.dtype)
+    hbm[:, cols:].index_put_((s_hbm,), flat)
+    host[:, cols:].index_put_((s_host,), flat)
+    return out
+
+
 def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
                        tokens, cur_pos, *, page_size: int, state_cols=None,
                        cond=None):
@@ -1129,6 +1150,9 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
         sgid = gid_tables[rows, scol].long()
         svalid = active & (state_cols >= 0) & (sslot >= 0)
         s_read = sslot.clamp_min(0)
+        # an mLSTM slot's C source: the HBM slot, or none (a zero C) for a
+        # dropped row, which reads no page a live row writes in place
+        s_src = sslot.masked_fill(~svalid, -1)
         s_hbm = torch.where(svalid, sslot, sink_hbm)
         s_host = torch.where(svalid, sgid, sink_host)
         # a recurrent layer touches its state page once a step: a unit of
@@ -1147,7 +1171,11 @@ def _paged_decode_core(params, cfg: ModelConfig, kv, tables, gid_tables,
         hbm = [kv[f"{n}_hbm"][li][r] for n in names]
         host = [kv[f"{n}_host"][li][r] for n in names]
         h = L.rms_norm(x, slot.norm1[r])
-        if slot.kind.is_recurrent:
+        if slot.kind.base == "mlstm":
+            out = _mlstm_paged(slot, r, cfg, h, hbm[0], host[0], s_read,
+                               s_src, s_hbm, s_host)
+            mass = smass
+        elif slot.kind.is_recurrent:
             # the cell's state page: read from its HBM slot, stepped, and
             # written back through both tiers
             state = unpack_state(hbm[0][s_read],

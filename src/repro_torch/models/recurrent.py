@@ -6,10 +6,14 @@ one-token form (``*_step``: decode), both returning the cell's new state,
 a dict of float32 tensors under the reference's names; ``*_zero_state``
 builds the empty one.  The reference runs the mLSTM and sLSTM sequences
 as ``lax.scan`` and the RG-LRU's linear recurrence as a log-depth
-``lax.associative_scan``: none of them is a Pallas kernel, so plain torch
-does them here -- a Python loop over positions for the two LSTMs, and a
-log-depth (Hillis-Steele) scan over [B, S, w] for the RG-LRU, whose sums
-run in another order than JAX's tree, so its states agree to float32
+``lax.associative_scan``: none of them is a Pallas kernel.  The mLSTM's
+recurrence runs through the hand-written kernel ``kernels.mlstm_scan``
+(its plain version on the CPU and under autograd:
+``mlstm_plain_route``), which keeps the matrix state on the chip across
+positions and, in a paged decode step, reads and writes it in place on
+the state page; the sLSTM's is a Python loop over positions, and the
+RG-LRU's a log-depth (Hillis-Steele) scan over [B, S, w], whose sums run
+in another order than JAX's tree, so its states agree to float32
 rounding.
 
 Parameters live in a ``Cell`` module per pattern slot, stacked ``[R, ...]``
@@ -21,17 +25,18 @@ identities here and are left out.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.mlstm_scan import (mlstm_loop, mlstm_scan,
+                                             mlstm_scan_plain)
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.layers import reshape, rms_norm
 
 __all__ = ["Cell", "causal_conv1d", "conv_step", "zero_state",
            "mlstm_zero_state", "mlstm_apply", "mlstm_step",
+           "mlstm_plain_route",
            "slstm_zero_state", "slstm_apply", "slstm_step",
            "rglru_zero_state", "rglru_apply", "rglru_step", "rglru_lambda",
            "apply", "step"]
@@ -192,20 +197,6 @@ def mlstm_zero_state(cfg: ModelConfig, batch: int, device=None):
             "conv": z(3, dm)}
 
 
-def _mlstm_cell(C, n, m, q, k, v, i, f):
-    """One timestep.  q, k, v: [B, nh, hd]; i, f: [B, nh]."""
-    k = k / math.sqrt(q.shape[-1])
-    m_new = torch.maximum(f + m, i)
-    i_p = torch.exp(i - m_new)[..., None]
-    f_p = torch.exp(f + m - m_new)[..., None]
-    n_new = f_p * n + i_p * k
-    C_new = f_p[..., None] * C + i_p[..., None] * (k[..., :, None]
-                                                   * v[..., None, :])
-    num = torch.einsum("bhkv,bhk->bhv", C_new, q)
-    den = torch.clamp_min(torch.einsum("bhk,bhk->bh", n_new, q).abs(), 1.0)
-    return C_new, n_new, m_new, num / den[..., None]
-
-
 def _mlstm_inputs(p, r: int, x_in, nh: int):
     """q, k, v [B, S, nh, hd] and the gates i, log f [B, S, nh] of the
     post-conv input [B, S, dm]."""
@@ -222,6 +213,43 @@ def _mlstm_out(p, r: int, h, gate):
     return (rms_norm(h, p.out_norm[r]) * F.silu(gate)) @ p.w_down[r]
 
 
+def mlstm_plain_route(*tensors) -> bool:
+    """The mLSTM recurrence's route rule: under autograd -- gradients
+    enabled and any input requiring grad -- it runs as the plain loop
+    (``kernels.mlstm_scan.mlstm_loop``), which autograd differentiates:
+    training takes this route on every device (the kernel has no
+    backward); so does a trace on the meta device (``launch.dryrun``),
+    where nothing runs.  Otherwise it runs through ``kernels.mlstm_scan``:
+    the kernel on a card, its plain version on the CPU."""
+    return any(t.is_meta for t in tensors) or (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+def _mlstm_scan(q, k, v, i, f, state, pages=None):
+    """The recurrence over q, k, v [B, S, nh, hd] and i, f [B, S, nh]
+    from ``state``'s n and m.  Dense (``pages`` None): from its C;
+    returns (h [B, S, nh, hd], {C, n, m}).  ``pages`` = (src, src_rows,
+    dsts): C is read from and written to the rows of 2-D state buffers
+    (``mlstm_scan``'s arguments); returns (h, {n, m})."""
+    i, f = i.contiguous(), f.contiguous()
+    n, m = state["n"].contiguous(), state["m"].contiguous()
+    if pages is not None:
+        scan = mlstm_scan_plain if mlstm_plain_route(q, k, v, i, f, n, m) \
+            else mlstm_scan
+        h, n, m = scan(q, k, v, i, f, n, m, *pages)
+        return h, {"n": n, "m": m}
+    b, _, nh, hd = q.shape
+    C = state["C"]
+    if mlstm_plain_route(q, k, v, i, f, C, n, m):
+        C, n, m, h = mlstm_loop(C, n, m, q, k, v, i, f)
+        return h, {"C": C, "n": n, "m": m}
+    rows = torch.arange(b, device=q.device)
+    out = torch.empty((b, nh * hd * hd), device=q.device)
+    h, n, m = mlstm_scan(q, k, v, i, f, n, m, C.reshape(b, -1).contiguous(),
+                         rows, [(out, rows)])
+    return h, {"C": out.view(b, nh, hd, hd), "n": n, "m": m}
+
+
 def mlstm_apply(p, r: int, cfg: ModelConfig, x, state=None):
     """Sequence form.  x: [B, S, d] -> (y [B, S, d], final state)."""
     b, s, _ = x.shape
@@ -230,25 +258,20 @@ def mlstm_apply(p, r: int, cfg: ModelConfig, x, state=None):
         state = mlstm_zero_state(cfg, b, x.device)
     xc, conv = _conv_seq(state["conv"], up, p.conv[r])
     q, k, v, i, f = _mlstm_inputs(p, r, F.silu(xc), _heads(cfg))
-    C, n, m = state["C"], state["n"], state["m"]
-    hs = []
-    for t in range(s):
-        C, n, m, h = _mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t],
-                                 i[:, t], f[:, t])
-        hs.append(h)
-    h = reshape(torch.stack(hs, dim=1), b, s, -1)
-    return _mlstm_out(p, r, h, gate), {"C": C, "n": n, "m": m, "conv": conv}
+    h, new = _mlstm_scan(q, k, v, i, f, state)
+    return _mlstm_out(p, r, reshape(h, b, s, -1), gate), dict(new, conv=conv)
 
 
-def mlstm_step(p, r: int, cfg: ModelConfig, x, state):
-    """Decode step.  x: [B, 1, d] -> (y [B, 1, d], new state)."""
+def mlstm_step(p, r: int, cfg: ModelConfig, x, state, pages=None):
+    """Decode step.  x: [B, 1, d] -> (y [B, 1, d], new state).  With
+    ``pages`` (``_mlstm_scan``'s), ``state`` holds conv, n and m, C lives
+    in the state rows, and the new state holds conv, n and m."""
     up, gate = (x @ p.w_up[r])[:, 0], (x @ p.w_gate[r])[:, 0]
     conv, xc = conv_step(state["conv"], up, p.conv[r])
     q, k, v, i, f = _mlstm_inputs(p, r, F.silu(xc)[:, None], _heads(cfg))
-    C, n, m, h = _mlstm_cell(state["C"], state["n"], state["m"], q[:, 0],
-                             k[:, 0], v[:, 0], i[:, 0], f[:, 0])
+    h, new = _mlstm_scan(q, k, v, i, f, state, pages)
     y = _mlstm_out(p, r, reshape(h, h.shape[0], -1), gate)
-    return y[:, None], {"C": C, "n": n, "m": m, "conv": conv}
+    return y[:, None], dict(new, conv=conv)
 
 
 # ---------------------------------------------------------------------------

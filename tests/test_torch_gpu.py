@@ -12,7 +12,9 @@ kernels' usual shapes and at the edges of their splits over pages;
 ``flash_attention`` 2e-5 in float32 up to 512 keys, 1e-4 beyond (longer
 sums in another order), 2e-2 in bfloat16 with each output row within 2^-6
 of its norm (one bfloat16 ulp of the output is <= 2^-7 of it), and repeats
-bit-identical; ``routed_experts`` within 1e-5 of the largest output
+bit-identical; ``mlstm_scan``'s C, n and m bit-equal to its plain
+version (it rounds where the plain version rounds) and h within
+``h_tolerance``; ``routed_experts`` within 1e-5 of the largest output
 magnitude (float32 sums of up to 7168 products in another order) and
 repeats bit-identical; ``page_hist`` and ``sim_scan`` are
 bit-equal to their plain versions (the kernels round where the plain
@@ -820,6 +822,82 @@ def test_routed_experts_kernel_rejects_what_it_does_not_take():
                            wo[..., :62].contiguous())
     with pytest.raises(ValueError, match="shape"):
         tre.routed_experts(x, idx, w, wg, wu, wo[:, :16].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nh,hd,b,s", [(4, 32, 3, 5), (4, 32, 4, 1),
+                                       (4, 1024, 1, 3), (4, 1024, 4, 1)])
+def test_mlstm_scan_kernel_matches_plain(nh, hd, b, s):
+    """The mLSTM recurrence kernel against its plain version on the card,
+    at reduced xlstm-1.3b's width (4 heads of 32) and its full one (4 of
+    1024), in place over page rows of two tiers, one row with no source
+    (a zero C) writing a sink: C (every byte of both tiers), n and m
+    bit-equal, h within ``h_tolerance``, one launch counted a call, a
+    second call from the same bytes bit-identical."""
+    from repro_torch.kernels import mlstm_scan as tms
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(hd + s)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    q, k, v, i = r(b, s, nh, hd), r(b, s, nh, hd), r(b, s, nh, hd), \
+        r(b, s, nh)
+    f = torch.nn.functional.logsigmoid(r(b, s, nh) + 2.0)
+    n, m = r(b, nh, hd).mul_(0.3), r(b, nh)
+    width = nh * hd * hd + 11
+    hbm, host = r(b + 2, width).mul_(0.3), r(b + 3, width).mul_(0.3)
+    src = torch.arange(b, device=dev)
+    src[-1] = -1
+    at_hbm = src.clone()
+    at_hbm[-1] = b + 1
+    at_host = torch.arange(b, device=dev).flip(0) + 2
+    runs = []
+    for _ in range(2):
+        tiers = (hbm.clone(), host.clone())
+        before = tms.mlstm_scan.launches
+        out = tms.mlstm_scan(q, k, v, i, f, n, m, tiers[0], src,
+                             [(tiers[0], at_hbm), (tiers[1], at_host)])
+        torch.cuda.synchronize()
+        assert tms.mlstm_scan.launches == before + 1
+        runs.append(out + tiers)
+    plain = (hbm.clone(), host.clone())
+    want = tms.mlstm_scan_plain(q, k, v, i, f, n, m, plain[0], src,
+                                [(plain[0], at_hbm), (plain[1], at_host)])
+    bits = lambda t: t.view(torch.int32)
+    h, n_k, m_k, hbm_k, host_k = runs[0]
+    for got, ref in ((n_k, want[1]), (m_k, want[2]), (hbm_k, plain[0]),
+                     (host_k, plain[1])):
+        assert torch.equal(bits(got), bits(ref))
+    tol = tms.h_tolerance(q, k, v, i, f, n, m, hbm, src)
+    assert bool(((h - want[0]).abs() <= tol).all())
+    assert all(torch.equal(bits(x), bits(y)) for x, y in zip(*runs))
+    assert torch.equal(hbm_k[b], hbm[b])      # a row no destination names
+
+
+@pytest.mark.gpu
+def test_mlstm_scan_kernel_rejects_what_it_does_not_take():
+    from repro_torch.kernels import mlstm_scan as tms
+    dev = _card()
+    q = torch.zeros((1, 2, 4, 32), device=dev)
+    g = torch.zeros((1, 2, 4), device=dev)
+    n, m = torch.zeros((1, 4, 32), device=dev), torch.zeros((1, 4),
+                                                             device=dev)
+    buf = torch.zeros((2, 4 * 32 * 32), device=dev)
+    rows = torch.zeros((1,), dtype=torch.int64, device=dev)
+    ok = (q, q, q, g, g, n, m, buf, rows, [(buf, rows)])
+    tms.mlstm_scan(*ok)
+    with pytest.raises(TypeError):
+        tms.mlstm_scan(*ok[:7], buf, rows.int(), [(buf, rows)])
+    with pytest.raises(ValueError, match="contiguous"):
+        tms.mlstm_scan(q.transpose(1, 2).contiguous().transpose(1, 2),
+                       *ok[1:])
+    with pytest.raises(ValueError, match="multiples of 32"):
+        q2 = torch.zeros((1, 2, 4, 48), device=dev)
+        tms.mlstm_scan(q2, q2, q2, g, g, torch.zeros((1, 4, 48), device=dev),
+                       m, torch.zeros((2, 4 * 48 * 48), device=dev), rows,
+                       [(torch.zeros((2, 4 * 48 * 48), device=dev), rows)])
+    with pytest.raises(ValueError, match="2-D"):
+        tms.mlstm_scan(*ok[:7], buf[:, :100], rows, [(buf, rows)])
+    with pytest.raises(ValueError, match="one or two"):
+        tms.mlstm_scan(*ok[:9], [(buf, rows)] * 3)
 
 
 # ---------------------------------------------------------------------------
