@@ -6,14 +6,14 @@ Drives the port's paths on the card -- the online-Cori paged serving loop
 (decode through the paged kernels, prefill through the flash kernel) and
 the paper's offline Cori pipeline -- and checks every kernel they run
 against the kernel's plain PyTorch version (the five ports of the
-reference's Pallas kernels and the port's own routed-expert and mLSTM
-recurrence kernels).
+reference's Pallas kernels and the port's own routed-expert kernel and
+mLSTM, sLSTM and RG-LRU recurrence kernels).
 Phases (each prints its
 own lines and its seconds; any failure raises and the script exits
 non-zero):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: ``nvcc`` compiles the seven kernels for sm_90a from
+  2. build: ``nvcc`` compiles the nine kernels for sm_90a from
      ``src/repro_torch/kernels/csrc``, one process per source, all at once
      (each -Xptxas -v report is printed);
   3. kernel vs plain version on the card: the main-path shape, olmoe's
@@ -147,9 +147,13 @@ non-zero):
      of 2100-2600 tokens, longer than the window, one prefill per request
      (a recurrent cell cannot take a padded batch), by the graph route
      and then the eager route, as phase 4.  The paged kernel's launches
-     must equal 8 x the device steps, and the Cori loop must act (hits
-     counted, the tuner out of its profile window; a page counts as
-     accessed while inside the window, ``RGEMMA_ACCESS_THRESHOLD``);
+     must equal 8 x the device steps, the RG-LRU kernel's
+     (``rglru_scan``) 18 x (device steps + prefills), and the Cori loop
+     must act (hits counted, the tuner out of its profile window; a page
+     counts as accessed while inside the window,
+     ``RGEMMA_ACCESS_THRESHOLD``).  Prints one 2600-token prefill timed
+     cell by cell (RG-LRU cells and the rest), and again with the RG-LRU
+     recurrence through its plain version (the before);
  19. full-width, full-depth xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM, no
      MLP sublayer; conv taps as phase 18): 8 requests with prompts of
      64-256 tokens over pools of 8 logical / 6 HBM pages, each page one
@@ -161,13 +165,16 @@ non-zero):
      equal those resident before, and both routes must agree.  Every
      mLSTM layer runs ``mlstm_scan`` once a prefill (from the zero state)
      and once a device step (in place on the state pages): its launches
-     must equal 42 x (device steps + prefills) on each route.  Prints the
-     admissions' wall a request and one 256-token prefill timed cell by
-     cell (mLSTM, sLSTM, the rest: the sLSTM's share);
+     must equal 42 x (device steps + prefills) on each route, and the
+     sLSTM kernel's (``slstm_scan``) 6 x (device steps + prefills).
+     Prints the admissions' wall a request and one 256-token prefill
+     timed cell by cell (mLSTM, sLSTM, the rest: the sLSTM's share), and
+     again with the sLSTM recurrence through its plain version (the
+     before);
  20. parity on the card: on reduced recurrentgemma-2b and xlstm-1.3b with
      non-zero conv taps, the batcher's greedy streams (macro and
-     per-token) equal ``generate``'s (dense decode; xlstm's mLSTM
-     through ``mlstm_scan`` on both sides);
+     per-token) equal ``generate``'s (dense decode; every recurrence
+     through its kernel on both sides);
  21. the routed-expert kernel ``routed_experts`` vs its plain version on
      the card, after xlstm-1.3b is freed: olmoe-1b-7b's and
      deepseek-v3-671b's decode widths (all 64 / 256 experts), 4 tokens
@@ -316,8 +323,9 @@ non-zero):
      step 8 with 4 steps run, and the resumed losses within
      ``DRILL_RTOL`` of an uninterrupted run's (in this process); the
      checkpoint directory is a temporary one, removed afterwards.
-     (Under autograd the mLSTM recurrence takes its plain loop, so phase
-     39's xlstm-1.3b step launches no ``mlstm_scan``.)
+     (Under autograd every recurrence takes its plain version, so phase
+     39's xlstm-1.3b and recurrentgemma-2b steps launch no recurrence
+     kernel.)
      None of phases 37-40 launches a hand-written kernel (the reference's
      training path reaches no ``pallas_call``): their counts must stay 0;
  41. phase 37's cell through the mesh step (``train.step.make_train_step``
@@ -351,7 +359,29 @@ non-zero):
      call bit-identical.  Then its time at the decode and prefill shapes,
      a call and on the device, beside its plain version and its bound
      (bytes at 3.35 TB/s, operations at 67 TFLOP/s float32); no PyTorch
-     call computes it (``library_ms`` null).
+     call computes it (``library_ms`` null);
+ 45. (right after phase 44) the sLSTM recurrence kernel ``slstm_scan`` vs
+     its plain version at xlstm-1.3b's full width (4 heads of 512): a
+     256-position prefill from the zero state and from the state it
+     leaves, a decode step of B = 4 from a carried state, and a grid of
+     reduced shapes (4 heads of 16, 64 and 128; S 1, 7 and 256).  Each
+     case: every position run as one position from the plain version's
+     state (teacher-forced; at S = 1 the one step) and from the kernel's
+     own, within the one-step bound (``slstm_scan.tolerance``: the
+     float32 dot-product bound carried through the cell); the sequence
+     launch bit-identical to one-position launches chained on its own
+     state and to a second call; the whole sequence's deviation printed
+     and held to the carried bound (the recurrence is chaotic at the
+     model's initialisation).  Then its time at the prefill and decode
+     shapes, a call and on the device (us a position of the serial
+     chain), beside its plain version and its bound; no PyTorch call
+     computes it (``library_ms`` null);
+ 46. (right before phase 18) the RG-LRU kernel ``rglru_scan`` vs its
+     plain version at recurrentgemma-2b's width (2560): B = 1, S = 2600
+     from a carried h, B = 4 at S = 1, and a grid around the kernel's
+     chunk of 64 positions; h within ``h_tolerance``, a second call
+     bit-identical.  Then its time at both shapes beside its plain
+     version and its bytes bound; ``library_ms`` null.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -890,13 +920,16 @@ def _profile_macro(b, S, cfg, rng) -> dict:
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = {"matmul (cuBLAS)": 0.0, "paged_attention (this repo)": 0.0,
               "routed_experts (this repo)": 0.0,
-              "mlstm_scan (this repo)": 0.0, "other": 0.0}
+              "mlstm_scan (this repo)": 0.0, "slstm_scan (this repo)": 0.0,
+              "rglru_scan (this repo)": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         key = ("paged_attention (this repo)"
                if "paged_attention" in name or "page_mass" in name
                else "routed_experts (this repo)" if "routed_" in name
                else "mlstm_scan (this repo)" if "mlstm_scan" in name
+               else "slstm_scan (this repo)" if "slstm_scan" in name
+               else "rglru_scan (this repo)" if "rglru_" in name
                else "matmul (cuBLAS)" if "gemm" in name or "gemv" in name
                else "other")
         groups[key] += e.self_device_time_total / 1e3
@@ -1001,10 +1034,10 @@ def _device_ms(fn, iters, flush_buf):
     """Device-only ms per call: the durations of the kernels ``fn``
     launches, from ``torch.profiler``, over ``iters`` calls each after the
     same L2 flush as ``_time`` (the flush's own kernels, found by
-    profiling it alone, are left out).  Each kernel counts at its mean
-    duration times its launches per call (its count over ``iters``,
-    rounded: a profiler that drops some events still gives the right
-    sum).  Where the profiler sees no device time, CUDA events around
+    profiling it alone and by the uint8 fill's name, are left out).  Each
+    kernel counts at its mean duration times its launches per call (its
+    count over ``iters``, rounded: a profiler that drops some events
+    still gives the right sum).  Where the profiler sees no device time, CUDA events around
     ``iters`` back-to-back (flush, call) pairs less the flushes' own event
     time.  Returns (ms, how, {kernel: ms a call})."""
     from torch.autograd import DeviceType
@@ -1032,7 +1065,9 @@ def _device_ms(fn, iters, flush_buf):
     flush_names = set(kernels(flushes))
     split, partial = {}, 0
     for k, (us, count) in sorted(kernels(pairs).items()):
-        if k in flush_names:
+        # the flush's own fill also where the profiler lost its events
+        # when it profiled the flushes alone
+        if k in flush_names or "FillFunctor<unsigned char>" in k:
             continue
         partial += count % iters != 0
         found = re.search(r"(\w+)\s*[<(]",
@@ -2142,6 +2177,8 @@ CONV_STD = 0.5
 # the window.  0.001 sits between, so a page counts as accessed while it
 # is inside the window (phase 18 prints the merged masses it saw).
 RGEMMA_ACCESS_THRESHOLD = 0.001
+# the prefill phase 18 times cell by cell: its longest prompt
+RGEMMA_SPLIT_PLEN = 2600
 # xlstm-1.3b: demote the oldest active request's state page every this many
 # scheduler steps (phase 19)
 XLSTM_DEMOTE_EVERY = 3
@@ -2191,16 +2228,34 @@ def _init_full(C, mdl, name, **change):
     return cfg, params
 
 
-def phase_rgemma(C, mdl, pa, S, memtier, cori, telemetry, kernels):
+def _check_cell_launches(name, launches, layers, b, result) -> None:
+    """A recurrence kernel's launches in a served mix: one a layer of its
+    cell a device step and one a prefill."""
+    want = layers * (b.device_steps + result["prefills"])
+    ok = launches == want
+    print(f"{name} launches {launches} = {layers} layers x "
+          f"({b.device_steps} device steps + {result['prefills']} prefills) "
+          f"-> {ok} ({b.route} route)", flush=True)
+    if not ok:
+        _fail(f"{name}'s launches do not match the layers x (device steps "
+              "+ prefills)")
+
+
+def phase_rgemma(C, mdl, pa, rg_, S, memtier, cori, telemetry, kernels):
     print("== phase 18: full-width recurrentgemma-2b serving (RG-LRU state "
           "pages, local attention, macro-step batcher)", flush=True)
     cfg, params = _init_full(C, mdl, "recurrentgemma-2b")
     local = sum(r for _, _, r, w, _ in mdl.state_slot_meta(cfg) if w > 0)
+    n_rglru = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
+                  if k.base == "rglru")
 
     def check(b, result, eager):
         result["launches"] = pa.paged_attention.launches
+        result["rglru_launches"] = rg_.rglru_scan.launches
         _check_launches("paged_attention", result["launches"], local, b,
                         eager)
+        _check_cell_launches("rglru_scan", result["rglru_launches"], n_rglru,
+                             b, result)
         mgr, tuner = b.monitor.manager, b.monitor.tuner
         if mgr.hits <= 0 or tuner.dominant_reuse is None:
             _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
@@ -2212,6 +2267,9 @@ def phase_rgemma(C, mdl, pa, S, memtier, cori, telemetry, kernels):
         n_logical=1024, hbm_pages=640, max_len=3072, n_req=6,
         prompt=(2100, 2601), new=(32, 65),
         access_threshold=RGEMMA_ACCESS_THRESHOLD)
+    results["prefill_split"] = _prefill_split(
+        mdl, params, cfg, np.random.default_rng(SEED + 18),
+        plen=RGEMMA_SPLIT_PLEN, plain=("rglru",))
     held = torch.cuda.memory_allocated()
     del params
     _check_freed(held)
@@ -2260,14 +2318,19 @@ class _Demoter:
         self.demoted += self.pools.demote(req.gids[-1:])
 
 
-def _prefill_split(mdl, params, cfg, rng, plen=256) -> dict:
+def _prefill_split(mdl, params, cfg, rng, plen=256, plain=()) -> dict:
     """One request's prefill at full depth (``plen`` tokens, after a warm
-    call): its wall, then the same prefill with each cell's sequence form
-    (``recurrent._APPLY``) timed between two synchronizes -- the mLSTM
-    cells, the sLSTM cells and the rest (projections outside the cells,
-    norms, the unembedding).  Returns the walls in ms and the sLSTM's
+    call): its wall, then the same prefill with each recurrent kind's
+    sequence form (``recurrent._APPLY``) timed between two synchronizes
+    -- the cells of each kind and the rest (projections outside the
+    cells, norms, attention layers, the unembedding).  For each kind in
+    ``plain`` the split is taken once more with that cell's recurrence
+    through its plain version (the port's code before its kernel), for
+    the before and after.  Returns the walls in ms and each kind's
     share."""
     from repro_torch.models import recurrent as R
+    kinds = sorted({k.base for *_, k in mdl.state_slot_meta(cfg)
+                    if k.is_recurrent})
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, plen))) \
         .to(DEV)
     mdl.prefill(params, cfg, tokens)
@@ -2276,39 +2339,62 @@ def _prefill_split(mdl, params, cfg, rng, plen=256) -> dict:
     mdl.prefill(params, cfg, tokens)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    spent = {"mlstm": 0.0, "slstm": 0.0}
     orig = dict(R._APPLY)
 
-    def timed(kind):
-        def run(*args, **kw):
+    def split():
+        spent = dict.fromkeys(kinds, 0.0)
+
+        def timed(kind):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = orig[kind](*args, **kw)
+                torch.cuda.synchronize()
+                spent[kind] += (time.perf_counter() - t) * 1e3
+                return out
+            return run
+        R._APPLY.update((k, timed(k)) for k in kinds)
+        try:
+            t0 = time.perf_counter()
+            mdl.prefill(params, cfg, tokens)
             torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = orig[kind](*args, **kw)
-            torch.cuda.synchronize()
-            spent[kind] += (time.perf_counter() - t) * 1e3
-            return out
-        return run
-    R._APPLY.update(mlstm=timed("mlstm"), slstm=timed("slstm"))
-    try:
-        t0 = time.perf_counter()
-        mdl.prefill(params, cfg, tokens)
-        torch.cuda.synchronize()
-        split_wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        R._APPLY.update(orig)
+            total = (time.perf_counter() - t0) * 1e3
+        finally:
+            R._APPLY.update(orig)
+        return total, spent
+
+    split_wall, spent = split()
     out = dict(prefill_ms=wall, split_wall_ms=split_wall,
-               mlstm_ms=spent["mlstm"], slstm_ms=spent["slstm"],
-               rest_ms=split_wall - spent["mlstm"] - spent["slstm"],
-               slstm_share=spent["slstm"] / split_wall)
+               rest_ms=split_wall - sum(spent.values()))
+    for k in kinds:
+        out[f"{k}_ms"] = spent[k]
+        out[f"{k}_share"] = spent[k] / split_wall
     print(f"one {plen}-token prefill at {cfg.num_layers} layers: {wall:.1f} "
-          f"ms wall; timed cell by cell ({split_wall:.1f} ms): mLSTM cells "
-          f"{out['mlstm_ms']:.1f} ms, sLSTM cells {out['slstm_ms']:.1f} ms "
-          f"({out['slstm_share'] * 100:.1f}%), the rest "
-          f"{out['rest_ms']:.1f} ms", flush=True)
+          f"ms wall; timed cell by cell ({split_wall:.1f} ms): "
+          + ", ".join(f"{k} cells {spent[k]:.1f} ms "
+                      f"({out[f'{k}_share'] * 100:.1f}%)" for k in kinds)
+          + f", the rest {out['rest_ms']:.1f} ms", flush=True)
+    scans = {"slstm": ("slstm_scan", "slstm_scan_plain"),
+             "rglru": ("rglru_scan", "rglru_scan_plain")}
+    for kind in plain:
+        name, plain_name = scans[kind]
+        kernel = getattr(R, name)
+        setattr(R, name, getattr(R, plain_name))
+        try:
+            total, before = split()
+        finally:
+            setattr(R, name, kernel)
+        out[f"{kind}_plain_ms"] = before[kind]
+        out[f"{kind}_plain_share"] = before[kind] / total
+        print(f"  the same split with the {kind} recurrence through its "
+              f"plain version ({name}'s before): {kind} cells "
+              f"{before[kind]:.1f} ms of {total:.1f} ms "
+              f"({before[kind] / total * 100:.1f}%)", flush=True)
     return out
 
 
-def phase_xlstm(C, mdl, pa, ms_, S, memtier, cori, telemetry, kernels):
+def phase_xlstm(C, mdl, pa, ms_, ss_, S, memtier, cori, telemetry,
+                kernels):
     print("== phase 19: full-width xlstm-1.3b serving (mLSTM / sLSTM state "
           f"pages only, macro-step batcher; {XLSTM_REPEATS} of its 6 "
           "blocks)", flush=True)
@@ -2321,6 +2407,8 @@ def phase_xlstm(C, mdl, pa, ms_, S, memtier, cori, telemetry, kernels):
           f"{page_mb:.1f} MB", flush=True)
     n_mlstm = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
                   if k.base == "mlstm")
+    n_slstm = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
+                  if k.base == "slstm")
     demoters = []
 
     def between(b):
@@ -2331,6 +2419,7 @@ def phase_xlstm(C, mdl, pa, ms_, S, memtier, cori, telemetry, kernels):
         d = demoters.pop()        # it holds the pools: let them go with b
         result.update(launches=pa.paged_attention.launches,
                       mlstm_launches=ms_.mlstm_scan.launches,
+                      slstm_launches=ss_.slstm_scan.launches,
                       demoted=d.demoted, fetched_back=d.fetched,
                       misses=b.monitor.manager.misses)
         print(f"state pages demoted {d.demoted}, fetched back from the host "
@@ -2341,15 +2430,10 @@ def phase_xlstm(C, mdl, pa, ms_, S, memtier, cori, telemetry, kernels):
             _fail("a demoted state page was not fetched back")
         if result["launches"]:
             _fail("xlstm-1.3b launched the paged kernel")
-        want = n_mlstm * (b.device_steps + result["prefills"])
-        ok = result["mlstm_launches"] == want
-        print(f"mlstm_scan launches {result['mlstm_launches']} = {n_mlstm} "
-              f"mLSTM layers x ({b.device_steps} device steps + "
-              f"{result['prefills']} prefills) -> {ok} ({b.route} route)",
-              flush=True)
-        if not ok:
-            _fail("mlstm_scan's launches do not match the mLSTM layers x "
-                  "(device steps + prefills)")
+        _check_cell_launches("mlstm_scan", result["mlstm_launches"],
+                             n_mlstm, b, result)
+        _check_cell_launches("slstm_scan", result["slstm_launches"],
+                             n_slstm, b, result)
         if eager and b.device_steps != b.decode_steps:
             _fail(f"the eager route ran {b.device_steps} device steps for "
                   f"{b.decode_steps} decode steps")
@@ -2366,7 +2450,8 @@ def phase_xlstm(C, mdl, pa, ms_, S, memtier, cori, telemetry, kernels):
               f"prefills, {res['prefill_ms_per_request']:.1f} ms a request",
               flush=True)
     results["prefill_split"] = _prefill_split(
-        mdl, params, cfg, np.random.default_rng(SEED + 19))
+        mdl, params, cfg, np.random.default_rng(SEED + 19),
+        plain=("slstm",))
     held = torch.cuda.memory_allocated()
     del params
     _check_freed(held)
@@ -2549,6 +2634,269 @@ def phase_mlstm(ms_) -> dict:
                         plain_ms=plain_ms, library_ms=None,
                         bound_ms=bound_ms, bound_by=bound_by)
     ms_.mlstm_scan.launches = before     # checks and timing not counted
+    res["max_abs_err"] = worst
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM recurrence: the kernel at xlstm-1.3b's full width
+# ---------------------------------------------------------------------------
+
+# xlstm-1.3b's sLSTM at full width: 4 heads of 512 (d 2048; r_gates 16.8 MB
+# a layer); phase 19's prefills run up to 256 positions, its decode steps
+# B = 4, S = 1
+SLSTM_NH, SLSTM_HD = 4, 512
+SLSTM_PREFILL_S = 256
+# the reduced shapes' grid (4 heads, B = 2, from a carried state)
+SLSTM_GRID_HD = (16, 64, 128)
+SLSTM_GRID_S = (1, 7, 256)
+
+
+def _slstm_data(b, s, nh, hd, seed):
+    """Seeded wx [B, S, nh, 4 hd] ~ N(0, 1) and r_gates [nh, hd, 4 hd] ~
+    N(0, 1/nh), the model's init."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    wx = torch.randn((b, s, nh, 4 * hd), generator=g, device=DEV)
+    r = torch.randn((nh, hd, 4 * hd), generator=g, device=DEV) \
+        .mul_(nh ** -0.5)
+    return wx, r
+
+
+def _slstm_start(ss_, b, nh, hd, r, seed, carried):
+    """The zero state, or the state the plain version reaches from it over
+    8 positions of other seeded data (a carried state)."""
+    full = lambda v: torch.full((b, nh, hd), v, device=DEV)
+    st = (full(0.0), full(1e-6), full(-1e30), full(0.0))
+    if carried:
+        wx = _slstm_data(b, 8, nh, hd, seed)[0]
+        st = ss_.slstm_scan_plain(wx, r, *st)[1:]
+    return st
+
+
+def _slstm_forced(ss_, wx, r, starts):
+    """Every position run as one position from ``starts[t]`` (a state a
+    position), all in one launch of B S rows, against the plain cell from
+    the same states: (largest |h| error, within the one-step bound)."""
+    b, s = wx.shape[:2]
+    rows = tuple(torch.cat([st[i] for st in starts]) for i in range(4))
+    wx_rows = wx.transpose(0, 1).reshape(s * b, 1, *wx.shape[2:])
+    got = ss_.slstm_scan(wx_rows, r, *rows)
+    want = ss_.slstm_scan_plain(wx_rows, r, *rows)
+    tol_h, tol_st = ss_.tolerance(wx_rows, r, *rows)
+    within = bool(((got[0] - want[0]).abs() <= tol_h).all()) and all(
+        bool(((got[i] - want[i]).abs() <= tol_st[k]).all())
+        for i, k in ((1, "c"), (2, "n"), (3, "m")))
+    return float((got[0] - want[0]).abs().max()), within
+
+
+def _slstm_case(ss_, name, wx, r, start) -> dict:
+    """The kernel against its plain version on one case (module
+    docstring of ``kernels/slstm_scan.py``): teacher-forced (every
+    position from the plain version's state; at S = 1 the one step) and
+    kernel-forced (from the kernel's own states) within the one-step
+    bound; the sequence launch bit-identical to one-position launches
+    chained on its own state, and to a second call; the whole sequence's
+    deviation from the plain version printed and held to the carried
+    bound.  Returns the errors."""
+    s = wx.shape[1]
+    bits = lambda x, y: torch.equal(x.view(torch.int32), y.view(torch.int32))
+    want = ss_.slstm_scan_plain(wx, r, *start)
+    runs = [ss_.slstm_scan(wx, r, *start) for _ in range(2)]
+    torch.cuda.synchronize()
+    again = all(bits(x, y) for x, y in zip(*runs))
+    got = runs[0]
+    plain_starts, kernel_starts, hs = [start], [start], []
+    p_st = k_st = start
+    for t in range(s):
+        out = ss_.slstm_scan(wx[:, t:t + 1].contiguous(), r, *k_st)
+        hs.append(out[0])
+        k_st = out[1:]
+        if t + 1 < s:
+            p_st = ss_.slstm_scan_plain(wx[:, t:t + 1], r, *p_st)[1:]
+            plain_starts.append(p_st)
+            kernel_starts.append(k_st)
+    chained = bits(torch.cat(hs, dim=1), got[0]) and all(
+        bits(x, y) for x, y in zip(k_st, got[1:]))
+    teacher, teacher_ok = _slstm_forced(ss_, wx, r, plain_starts)
+    own, own_ok = _slstm_forced(ss_, wx, r, kernel_starts)
+    dev = (got[0] - want[0]).abs()
+    tol = ss_.tolerance(wx, r, *start, carry=True)[0]
+    seq_ok = bool((dev <= tol).all())
+    per_pos = dev.amax(dim=(0, 2, 3))
+    apart = (per_pos > 1e-3).nonzero()
+    first = int(apart[0]) if apart.numel() else None
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    ok = again and chained and teacher_ok and own_ok and seq_ok and finite
+    print(f"{name}: teacher-forced h max err {teacher:.3g} within the "
+          f"one-step bound {teacher_ok}; kernel-forced {own:.3g} within "
+          f"{own_ok}; sequence launch == chained one-position launches "
+          f"{chained}; repeat bit-identical {again}; whole sequence: h max "
+          f"deviation {float(dev.max()):.3g} (first position past 1e-3: "
+          f"{first}), within the carried bound {seq_ok} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail(f"slstm_scan disagrees with its plain version or with itself "
+              f"({name})")
+    return dict(forced=max(teacher, own), sequence=float(dev.max()),
+                first_apart=first)
+
+
+def _slstm_bound(b, s, nh, hd):
+    """(bound ms, bound_by, GB, GFLOP) of one call: r_gates read once, wx
+    read, h written, the state in and out; 2 B S nh hd 4hd operations of
+    the recurrent dot products (the cell's few dozen a unit aside)."""
+    d = nh * hd
+    gb = (nh * hd * 4 * hd + b * s * 4 * d + b * s * d + 8 * b * d) * 4 / 1e9
+    flops = 2 * b * s * nh * hd * 4 * hd
+    t_bytes = gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", gb, flops / 1e9)
+
+
+def phase_slstm(ss_) -> dict:
+    """Phase 45: the sLSTM kernel against its plain version at
+    xlstm-1.3b's full width and over a grid of reduced shapes, then its
+    timing at phase 19's two shapes."""
+    print("== phase 45: slstm_scan vs plain version on the card, and its "
+          "timing (xlstm-1.3b's full width: 4 heads of 512)", flush=True)
+    nh, hd = SLSTM_NH, SLSTM_HD
+    before = ss_.slstm_scan.launches
+    errs = []
+    wx, r = _slstm_data(1, SLSTM_PREFILL_S, nh, hd, SEED + 50)
+    zero = _slstm_start(ss_, 1, nh, hd, r, 0, carried=False)
+    errs.append(_slstm_case(ss_, f"prefill B=1 S={SLSTM_PREFILL_S} from the "
+                            "zero state", wx, r, zero))
+    carried = ss_.slstm_scan_plain(wx, r, *zero)[1:]
+    wx2 = _slstm_data(1, SLSTM_PREFILL_S, nh, hd, SEED + 51)[0]
+    errs.append(_slstm_case(ss_, f"prefill B=1 S={SLSTM_PREFILL_S} from a "
+                            "carried state", wx2, r, carried))
+    wx4 = _slstm_data(4, 1, nh, hd, SEED + 52)[0]
+    start4 = _slstm_start(ss_, 4, nh, hd, r, SEED + 53, carried=True)
+    errs.append(_slstm_case(ss_, "decode B=4 S=1 from a carried state", wx4,
+                            r, start4))
+    for g_hd in SLSTM_GRID_HD:
+        for g_s in SLSTM_GRID_S:
+            gwx, gr = _slstm_data(2, g_s, 4, g_hd, SEED + g_hd + g_s)
+            gst = _slstm_start(ss_, 2, 4, g_hd, gr, SEED + 7, carried=True)
+            errs.append(_slstm_case(ss_, f"B=2 S={g_s} 4 heads of {g_hd} "
+                                    "from a carried state", gwx, gr, gst))
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    res = {}
+    shapes = {"prefill": (f"B=1 S={SLSTM_PREFILL_S} from the zero state",
+                          wx, zero),
+              "decode": ("B=4 S=1 from a carried state", wx4, start4)}
+    for key, (label, x, st) in shapes.items():
+        b, s = x.shape[:2]
+        kernel = lambda: ss_.slstm_scan(x, r, *st)
+        ms = _time(kernel, 20, flush)
+        dev_ms, how, names = _device_ms(kernel, 20, flush)
+        plain_ms = _time(lambda: ss_.slstm_scan_plain(x, r, *st), 3, flush)
+        bound_ms, bound_by, gb, gflop = _slstm_bound(b, s, nh, hd)
+        print(f"{key} ({label}): kernel {ms:.4f} ms a call (events), "
+              f"{dev_ms:.4f} ms on the device ({how}: {_ms_list(names)}), "
+              f"{dev_ms * 1e3 / s:.3f} us a position of the serial chain; "
+              f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by}: {gb:.4f} GB at 3.35 TB/s; {gflop:.3f} GFLOP at "
+              f"67 TFLOP/s) -> {bound_ms / dev_ms * 100:.1f}% of the bound "
+              f"on the device, {bound_ms / ms * 100:.1f}% a call; no single "
+              "PyTorch call computes it (library_ms null)", flush=True)
+        res[key] = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+                        us_per_position=dev_ms * 1e3 / s, plain_ms=plain_ms,
+                        library_ms=None, bound_ms=bound_ms,
+                        bound_by=bound_by)
+    ss_.slstm_scan.launches = before     # checks and timing not counted
+    res["max_abs_err"] = max(e["forced"] for e in errs)
+    res["sequence_max_dev"] = max(e["sequence"] for e in errs)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU recurrence: the kernel at recurrentgemma-2b's width
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-2b's RG-LRU: lru_width 2560; phase 18's prefills run
+# 2100-2600 positions, its decode steps B = 4, S = 1
+RGLRU_W = 2560
+RGLRU_PREFILL_S = 2600
+# (B, S, w): one position, a full chunk and one past it, several chunks
+RGLRU_GRID = ((1, 1, 64), (3, 64, 64), (2, 65, 64), (2, 300, 64),
+              (2, 7, RGLRU_W), (1, 700, RGLRU_W))
+
+
+def _rglru_data(b, s, w, seed):
+    """Seeded gate products ra, ia ~ N(0, 1), xc ~ N(0, 1), lam as the
+    model's init (a = exp(-8 softplus(lam)) in [0.9, 0.999]) and a
+    carried h0 ~ N(0, 1)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    u = torch.rand((w,), generator=g, device=DEV) * (0.999 - 0.9) + 0.9
+    lam = torch.log(torch.expm1(-torch.log(u) / 8.0))
+    return r(b, s, w), r(b, s, w), r(b, s, w), lam, r(b, w)
+
+
+def _rglru_case(rg_, name, args) -> float:
+    """The kernel against its plain version on one case: h within
+    ``h_tolerance``, a second call bit-identical.  Returns the largest
+    error."""
+    want = rg_.rglru_scan_plain(*args)
+    runs = [rg_.rglru_scan(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    again = torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+    tol = rg_.h_tolerance(*args)
+    err = (runs[0] - want).abs()
+    within = bool((err <= tol).all())
+    ratio = float((err.double() / tol).max())
+    ok = within and again
+    print(f"{name}: h max err {float(err.max()):.3g} (at most {ratio:.3g} "
+          f"of h_tolerance, {float(tol.min()):.3g}-{float(tol.max()):.3g}; "
+          f"within {within}); repeat bit-identical {again} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail(f"rglru_scan disagrees with its plain version or with itself "
+              f"({name})")
+    return float(err.max())
+
+
+def phase_rglru(rg_) -> dict:
+    """Phase 46: the RG-LRU kernel against its plain version at
+    recurrentgemma-2b's shapes and over a grid, then its timing at phase
+    18's two shapes."""
+    print("== phase 46: rglru_scan vs plain version on the card, and its "
+          "timing (recurrentgemma-2b's lru_width 2560)", flush=True)
+    before = rg_.rglru_scan.launches
+    w = RGLRU_W
+    prefill = _rglru_data(1, RGLRU_PREFILL_S, w, SEED + 60)
+    decode = _rglru_data(4, 1, w, SEED + 61)
+    worst = max(_rglru_case(rg_, f"prefill B=1 S={RGLRU_PREFILL_S} w={w} "
+                            "from a carried h", prefill),
+                _rglru_case(rg_, f"decode B=4 S=1 w={w}", decode))
+    for i, (b, s, gw) in enumerate(RGLRU_GRID):
+        worst = max(worst, _rglru_case(rg_, f"B={b} S={s} w={gw}",
+                                       _rglru_data(b, s, gw, SEED + 62 + i)))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    res = {}
+    for key, args in (("prefill", prefill), ("decode", decode)):
+        b, s, _ = args[0].shape
+        kernel = lambda: rg_.rglru_scan(*args)
+        ms = _time(kernel, 30, flush)
+        dev_ms, how, names = _device_ms(kernel, 30, flush)
+        plain_ms = _time(lambda: rg_.rglru_scan_plain(*args), 5, flush)
+        # ra, ia, xc read and h written once; lam and h0 read
+        gb = (4 * b * s * w + w + b * w) * 4 / 1e9
+        bound_ms = gb * 1e9 / HBM_BYTES_PER_S * 1e3
+        print(f"{key} (B={b} S={s} w={w}): kernel {ms:.4f} ms a call "
+              f"(events), {dev_ms:.4f} ms on the device ({how}: "
+              f"{_ms_list(names)}); plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms (bytes: {gb:.4f} GB at 3.35 TB/s) -> "
+              f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
+              f"{bound_ms / ms * 100:.1f}% a call; no single PyTorch call "
+              "computes it (library_ms null)", flush=True)
+        res[key] = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+                        plain_ms=plain_ms, library_ms=None,
+                        bound_ms=bound_ms, bound_by="bytes")
+    rg_.rglru_scan.launches = before     # checks and timing not counted
     res["max_abs_err"] = worst
     return res
 
@@ -4454,8 +4802,10 @@ def main() -> int:
     from repro_torch.kernels import page_hist as ph
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_attention_mla as pam
+    from repro_torch.kernels import rglru_scan as rg_
     from repro_torch.kernels import routed_experts as re_
     from repro_torch.kernels import sim_step as ss
+    from repro_torch.kernels import slstm_scan as ss_
     from repro_torch.models import model as mdl
     from repro_torch.models import moe
     from repro_torch.obs import telemetry
@@ -4471,7 +4821,7 @@ def main() -> int:
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import mesh as LM
 
-    kernels = (pa, ph, ss, pam, fa, re_, ms_)
+    kernels = (pa, ph, ss, pam, fa, re_, ms_, ss_, rg_)
     secs = {}
 
     def timed(name, fn, *args):
@@ -4530,11 +4880,13 @@ def main() -> int:
     del params
     _check_freed(held)
     flash_timing = timed("flash_attention timing", phase_flash_timing, fa)
-    rgemma = timed("recurrentgemma serving", phase_rgemma, C, mdl, pa, S,
-                   memtier, cori, telemetry, kernels)
+    rglru = timed("rglru_scan check and timing", phase_rglru, rg_)
+    rgemma = timed("recurrentgemma serving", phase_rgemma, C, mdl, pa, rg_,
+                   S, memtier, cori, telemetry, kernels)
     mlstm = timed("mlstm_scan check and timing", phase_mlstm, ms_)
-    xlstm = timed("xlstm serving", phase_xlstm, C, mdl, pa, ms_, S, memtier,
-                  cori, telemetry, kernels)
+    slstm = timed("slstm_scan check and timing", phase_slstm, ss_)
+    xlstm = timed("xlstm serving", phase_xlstm, C, mdl, pa, ms_, ss_, S,
+                  memtier, cori, telemetry, kernels)
     timed("recurrent parity", phase_recurrent_parity, C, mdl, S, memtier,
           cori, engine)
     weights = {model: _routed_weights(shape, SEED + i)
@@ -4602,7 +4954,8 @@ def main() -> int:
           f"chunked {gpiped}; traffic "
           f"{traffic}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
-          f"{xlstm}; mlstm_scan {mlstm}; olmoe {olmoe}; musicgen "
+          f"{xlstm}; mlstm_scan {mlstm}; slstm_scan {slstm}; rglru_scan "
+          f"{rglru}; olmoe {olmoe}; musicgen "
           f"{musicgen}; nemotron "
           f"{nemotron}; paligemma {paligemma}; training {train}; batcher "
           f"options {options}; dry-run {dry}; flash "
@@ -4707,7 +5060,37 @@ def main() -> int:
              also={f"xlstm-1.3b prefill B=1 S={MLSTM_PREFILL_S} from a "
                    "carried state (phase 44)": mlstm["prefill"],
                    "xlstm-1.3b eager route (phase 19)": dict(
-                       launches=xlstm["eager"]["mlstm_launches"])})]}),
+                       launches=xlstm["eager"]["mlstm_launches"])}),
+        dict(name="slstm_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+             replaces="src/repro/models/recurrent.py:237",
+             note="no Pallas kernel: slstm_apply's lax.scan over "
+             "_slstm_cell (:204) and slstm_step's cell (:245-251)",
+             launches=xlstm["graph"]["slstm_launches"],
+             max_abs_err=slstm["max_abs_err"],
+             sequence_max_dev=slstm["sequence_max_dev"], **slstm["prefill"],
+             shape=f"xlstm-1.3b prefill: B=1, S={SLSTM_PREFILL_S}, 4 heads "
+             "of 512, from the zero state (phases 19, 45; launches: 6 a "
+             "device step and 6 a prefill; max_abs_err: each position from "
+             "the plain version's state and from the kernel's own; "
+             "sequence_max_dev: the whole sequence, a chaotic recurrence)",
+             also={"xlstm-1.3b decode B=4 S=1 (phase 45)": slstm["decode"],
+                   "xlstm-1.3b eager route (phase 19)": dict(
+                       launches=xlstm["eager"]["slstm_launches"])}),
+        dict(name="rglru_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+             replaces="src/repro/models/recurrent.py:326",
+             note="no Pallas kernel: rglru_apply's lax.associative_scan and "
+             "rglru_step's update (:337-338)",
+             launches=rgemma["graph"]["rglru_launches"],
+             max_abs_err=rglru["max_abs_err"], **rglru["prefill"],
+             shape=f"recurrentgemma-2b prefill: B=1, S={RGLRU_PREFILL_S}, "
+             "w=2560, from a carried h (phases 18, 46; launches: 18 a "
+             "device step and 18 a prefill)",
+             also={"recurrentgemma-2b decode B=4 S=1 (phase 46)":
+                   rglru["decode"],
+                   "recurrentgemma-2b eager route (phase 18)": dict(
+                       launches=rgemma["eager"]["rglru_launches"])})]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,258 @@
+// The sLSTM recurrence over a sequence, for Hopper.
+//
+// No Pallas kernel stands behind it: the reference runs the recurrence as
+// a lax.scan over positions (repro/models/recurrent.py::slstm_apply, :237,
+// over _slstm_cell, :204) and one cell for a decode token (::slstm_step,
+// :245-251).  The port's plain version is a Python loop over positions of
+// some fifteen ops each, whose einsum reads the whole recurrent weight
+// [nh, hd, 4 hd] (16.8 MB a layer at xlstm-1.3b's 4 heads of 512) at every
+// position.  This kernel splits that weight over the SMs once and keeps it
+// in shared memory for all S positions.
+//
+// Per row b, head, unit u and position t (slstm_scan.py, ``slstm_cell``):
+//
+//   g_j   = wx[b, t, head, j] + sum_k h_{t-1}[b, head, k] r[head, k, j]
+//           for the unit's four gate columns j = u, hd+u, 2hd+u, 3hd+u
+//   z = tanh(g_z);  o = sigmoid(g_o);  f = log-sigmoid(g_f)
+//   m' = max(f + m, g_i);  i' = exp(g_i - m');  f' = exp((f + m) - m')
+//   c' = f' c + i' z;  n' = f' n + i';  h' = (o c') / max(n', 1e-6)
+//
+// (the products and sums of c, n and h rounded on their own, in the plain
+// version's order: __fmul_rn / __fadd_rn; the dot products are fused
+// multiply-adds, which the caller's tolerance bounds).
+//
+// Grid: nh x (hd / 16) blocks of 256 threads.  A block owns 16 hidden
+// units of one head: it copies their 64 gate columns of r[head] (hd x 64
+// floats, 128 KB at hd = 512: dynamic shared memory) once, 16 bytes a
+// load.  At each position it reads the head's h_{t-1} (rows of 8 at a
+// time) into shared memory; each thread sums four neighbouring columns
+// over a sixteenth of the hd rows (four independent chains of fused
+// multiply-adds), the sixteen slices are added in order, and 16 threads
+// a row run the cell for the block's units (c, n, m live in the output
+// buffers, each element read and written by one thread only).  h_{t-1} is
+// read from the *output* h at position t-1 (or the starting h at t = 0),
+// so no block overwrites what a slower block still reads.  Then the head's blocks meet at a barrier:
+// one arrival counter a head (zeroed before the launch), each block's
+// h_t stores fenced before its arrival, h read back through L2 (__ldcg).
+// A barrier needs every block resident, so S > 1 is a cooperative launch
+// (it fails, and the wrapper raises, if the card cannot hold the grid);
+// S = 1, every decode step, needs no barrier and is a plain launch, which
+// a CUDA graph captures.
+//
+// What bounds it on an H100.  A decode step (S = 1) is bytes: the weights
+// once, 16.8 MB at 3.35 TB/s = 5.0 us at xlstm-1.3b's width, in 128
+// blocks, one an SM.  A prefill (S = 256, B = 1) does 2 B S nh hd 4hd =
+// 2.15 GFLOP (32 us at 67 TFLOP/s), but its positions are a serial chain:
+// each waits for the barrier, so a position's latency (a read of h from
+// L2, 32 rows of four multiply-adds a thread, the cell, the barrier) sets
+// the time.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kUnits = 16;                   // hidden units a block
+constexpr int kCols = 4 * kUnits;            // gate columns a block
+constexpr int kThreads = 256;
+constexpr int kGroups = kCols / 4;           // 4-column groups a block
+constexpr int kSlices = kThreads / kGroups;  // slices of the hd rows
+constexpr int kRows = 8;                     // batch rows a pass
+constexpr int kMaxHd = 512;
+
+constexpr size_t smem_bytes(int hd) {
+  return sizeof(float) * (static_cast<size_t>(hd) * kCols +
+                          static_cast<size_t>(kRows) * hd +
+                          kSlices * kRows * kCols);
+}
+
+// every block of the head arrives, then waits for all of them
+__device__ __forceinline__ void head_barrier(unsigned* counter,
+                                             unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    while (*reinterpret_cast<volatile unsigned*>(counter) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
+                  const float* __restrict__ c0, const float* __restrict__ n0,
+                  const float* __restrict__ m0, const float* __restrict__ h0,
+                  float* h, float* c_out, float* n_out, float* m_out,
+                  float* h_out, unsigned* counters, int batch, int seq,
+                  int nh, int hd) {
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                                   // [hd][kCols]
+  float* h_s = w_s + static_cast<size_t>(hd) * kCols;  // [kRows][hd]
+  float* part = h_s + static_cast<size_t>(kRows) * hd;  // [kSlices][kRows]
+                                                        // [kCols]
+
+  const int per_head = hd / kUnits;
+  const int head = blockIdx.x / per_head;
+  const int unit0 = (blockIdx.x % per_head) * kUnits;
+  const int tid = threadIdx.x;
+  const int gw = 4 * hd;                    // gate columns of a head
+  const size_t d4 = static_cast<size_t>(nh) * gw;
+
+  // this block's 64 columns of r[head], 4 at a time: column j is gate
+  // j / 16 of unit unit0 + j % 16
+  const float* rh = r + static_cast<size_t>(head) * hd * gw;
+#pragma unroll 8
+  for (int e = tid; e < hd * kGroups; e += kThreads) {
+    const int k = e / kGroups, j = (e % kGroups) * 4;
+    reinterpret_cast<float4*>(w_s)[e] = *reinterpret_cast<const float4*>(
+        rh + static_cast<size_t>(k) * gw + (j / kUnits) * hd + unit0 +
+        j % kUnits);
+  }
+
+  const int grp = tid % kGroups, slice = tid / kGroups;
+  const int span = hd / kSlices;
+  const int k0 = slice * span;
+
+  for (int t = 0; t < seq; ++t) {
+    for (int b0 = 0; b0 < batch; b0 += kRows) {
+      const int nb = min(kRows, batch - b0);
+      __syncthreads();               // w_s loaded; h_s / part free again
+      for (int e = tid; e < nb * hd; e += kThreads) {
+        const int rb = e / hd, k = e % hd;
+        const size_t bh = static_cast<size_t>(b0 + rb) * nh + head;
+        h_s[e] = t == 0 ? h0[bh * hd + k]
+                        : __ldcg(h + ((static_cast<size_t>(b0 + rb) * seq +
+                                       t - 1) * nh + head) * hd + k);
+      }
+      __syncthreads();
+
+      float4 acc[kRows];
+#pragma unroll
+      for (int rb = 0; rb < kRows; ++rb) acc[rb] = make_float4(0, 0, 0, 0);
+#pragma unroll 4
+      for (int k = k0; k < k0 + span; ++k) {
+        const float4 w = reinterpret_cast<const float4*>(w_s)[k * kGroups +
+                                                               grp];
+#pragma unroll
+        for (int rb = 0; rb < kRows; ++rb) {
+          if (rb < nb) {
+            const float x = h_s[rb * hd + k];
+            acc[rb].x = __fmaf_rn(x, w.x, acc[rb].x);
+            acc[rb].y = __fmaf_rn(x, w.y, acc[rb].y);
+            acc[rb].z = __fmaf_rn(x, w.z, acc[rb].z);
+            acc[rb].w = __fmaf_rn(x, w.w, acc[rb].w);
+          }
+        }
+      }
+#pragma unroll
+      for (int rb = 0; rb < kRows; ++rb) {
+        if (rb < nb)
+          reinterpret_cast<float4*>(part)[(slice * kRows + rb) * kGroups +
+                                          grp] = acc[rb];
+      }
+      __syncthreads();
+
+      if (tid < nb * kUnits) {
+        const int rb = tid / kUnits, u = tid % kUnits;
+        const int b = b0 + rb;
+        const size_t bt = static_cast<size_t>(b) * seq + t;
+        float g[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float dot = 0.f;
+#pragma unroll
+          for (int s = 0; s < kSlices; ++s)
+            dot = __fadd_rn(dot, part[(s * kRows + rb) * kCols +
+                                      q * kUnits + u]);
+          g[q] = __fadd_rn(wx[bt * d4 + static_cast<size_t>(head) * gw +
+                              q * hd + unit0 + u], dot);
+        }
+        const size_t at = (static_cast<size_t>(b) * nh + head) * hd +
+                          unit0 + u;
+        const float c = t == 0 ? c0[at] : c_out[at];
+        const float n = t == 0 ? n0[at] : n_out[at];
+        const float m = t == 0 ? m0[at] : m_out[at];
+        const float z = tanhf(g[0]);
+        const float o = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[3])));
+        const float fl = __fsub_rn(fminf(g[2], 0.f),
+                                   log1pf(expf(-fabsf(g[2]))));
+        const float fm = __fadd_rn(fl, m);
+        const float m_new = fmaxf(fm, g[1]);
+        const float i_p = expf(__fsub_rn(g[1], m_new));
+        const float f_p = expf(__fsub_rn(fm, m_new));
+        const float c_new = __fadd_rn(__fmul_rn(f_p, c), __fmul_rn(i_p, z));
+        const float n_new = __fadd_rn(__fmul_rn(f_p, n), i_p);
+        const float h_new = __fdiv_rn(__fmul_rn(o, c_new),
+                                      fmaxf(n_new, 1e-6f));
+        c_out[at] = c_new;
+        n_out[at] = n_new;
+        m_out[at] = m_new;
+        h[(bt * nh + head) * hd + unit0 + u] = h_new;
+        if (t == seq - 1) h_out[at] = h_new;
+      }
+    }
+    if (t + 1 < seq)
+      head_barrier(counters + head, static_cast<unsigned>(t + 1) * per_head);
+  }
+}
+
+}  // namespace
+
+// wx f32 [B, S, nh, 4hd]; r f32 [nh, hd, 4hd]; c0, n0, m0, h0 f32
+// [B, nh, hd]; h f32 [B, S, nh, hd]; c_out, n_out, m_out, h_out as c0;
+// counters: nh unsigned ints (zeroed here), used only for S > 1.  hd a
+// multiple of 16, at most 512.  Returns the launch's CUDA error, or 0.
+extern "C" int slstm_scan_launch(const void* wx, const void* r,
+                                 const void* c0, const void* n0,
+                                 const void* m0, const void* h0, void* h,
+                                 void* c_out, void* n_out, void* m_out,
+                                 void* h_out, void* counters, int batch,
+                                 int seq, int nh, int hd, void* stream_ptr) {
+  if (hd % kUnits != 0 || hd > kMaxHd || hd <= 0 || nh <= 0 || seq <= 0 ||
+      batch <= 0 || (seq > 1 && counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  // the opt-in above 48 KB of shared memory, once a device, for the
+  // largest head dim (so every launch, captured ones included, may use it)
+  static bool opted[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 64 && !opted[device]) {
+    err = cudaFuncSetAttribute(slstm_scan_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes(kMaxHd)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted[device] = true;
+  }
+  const dim3 grid(nh * (hd / kUnits));
+  const size_t smem = smem_bytes(hd);
+  auto* wx_ = static_cast<const float*>(wx);
+  auto* r_ = static_cast<const float*>(r);
+  auto* c0_ = static_cast<const float*>(c0);
+  auto* n0_ = static_cast<const float*>(n0);
+  auto* m0_ = static_cast<const float*>(m0);
+  auto* h0_ = static_cast<const float*>(h0);
+  auto* h_ = static_cast<float*>(h);
+  auto* c_ = static_cast<float*>(c_out);
+  auto* n_ = static_cast<float*>(n_out);
+  auto* m_ = static_cast<float*>(m_out);
+  auto* ho_ = static_cast<float*>(h_out);
+  auto* cnt = static_cast<unsigned*>(counters);
+  if (seq == 1) {
+    slstm_scan_kernel<<<grid, kThreads, smem, stream>>>(
+        wx_, r_, c0_, n0_, m0_, h0_, h_, c_, n_, m_, ho_, nullptr, batch,
+        seq, nh, hd);
+    return static_cast<int>(cudaGetLastError());
+  }
+  err = cudaMemsetAsync(cnt, 0, sizeof(unsigned) * nh, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&wx_, &r_, &c0_, &n0_, &m0_, &h0_, &h_, &c_, &n_, &m_,
+                  &ho_, &cnt, &batch, &seq, &nh, &hd};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(slstm_scan_kernel), grid,
+      dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}

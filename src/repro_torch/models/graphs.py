@@ -34,7 +34,9 @@ import torch
 from repro_torch.kernels import mlstm_scan as _ms
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_mla as _pam
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import routed_experts as _re
+from repro_torch.kernels import slstm_scan as _ss
 from repro_torch.models import model as mdl
 from repro_torch.models.config import ModelConfig
 
@@ -42,7 +44,8 @@ __all__ = ["DecodeGraph"]
 
 #: the kernel wrappers a decode step can call, whose launches a replay adds
 _COUNTED = (_pa.paged_attention, _pam.paged_attention_mla,
-            _re.routed_experts, _ms.mlstm_scan)
+            _re.routed_experts, _ms.mlstm_scan, _ss.slstm_scan,
+            _rg.rglru_scan)
 
 
 class DecodeGraph:

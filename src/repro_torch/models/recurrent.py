@@ -6,15 +6,18 @@ one-token form (``*_step``: decode), both returning the cell's new state,
 a dict of float32 tensors under the reference's names; ``*_zero_state``
 builds the empty one.  The reference runs the mLSTM and sLSTM sequences
 as ``lax.scan`` and the RG-LRU's linear recurrence as a log-depth
-``lax.associative_scan``: none of them is a Pallas kernel.  The mLSTM's
-recurrence runs through the hand-written kernel ``kernels.mlstm_scan``
-(its plain version on the CPU and under autograd:
-``mlstm_plain_route``), which keeps the matrix state on the chip across
+``lax.associative_scan``: none of them is a Pallas kernel.  In the port
+each recurrence runs through a hand-written kernel, in both forms:
+``kernels.mlstm_scan`` keeps the matrix state on the chip across
 positions and, in a paged decode step, reads and writes it in place on
-the state page; the sLSTM's is a Python loop over positions, and the
-RG-LRU's a log-depth (Hillis-Steele) scan over [B, S, w], whose sums run
-in another order than JAX's tree, so its states agree to float32
-rounding.
+the state page; ``kernels.slstm_scan`` keeps its share of the recurrent
+weights in shared memory across positions; ``kernels.rglru_scan`` fuses
+the RG-LRU's gates into a chunked linear scan.  On the CPU each wrapper
+takes its plain version (the per-position loops, and the RG-LRU's
+log-depth (Hillis-Steele) scan, whose sums run in another order than
+JAX's tree, so its states agree to float32 rounding); under autograd and
+on the meta device every cell takes its plain version on any device
+(``plain_route``).
 
 Parameters live in a ``Cell`` module per pattern slot, stacked ``[R, ...]``
 over the segment's repeats like every other leaf, under the reference's
@@ -31,18 +34,19 @@ from torch import nn
 
 from repro_torch.kernels.mlstm_scan import (mlstm_loop, mlstm_scan,
                                              mlstm_scan_plain)
+from repro_torch.kernels.rglru_scan import (RGLRU_C, rglru_scan,
+                                             rglru_scan_plain)
+from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.layers import reshape, rms_norm
 
 __all__ = ["Cell", "causal_conv1d", "conv_step", "zero_state",
            "mlstm_zero_state", "mlstm_apply", "mlstm_step",
-           "mlstm_plain_route",
+           "plain_route",
            "slstm_zero_state", "slstm_apply", "slstm_step",
            "rglru_zero_state", "rglru_apply", "rglru_step", "rglru_lambda",
            "apply", "step"]
 
-#: RG-LRU's gate constant c in a = exp(-c softplus(lambda) r)
-RGLRU_C = 8.0
 #: m's start value (the max-stabiliser of both LSTMs), as the reference
 M_INIT = -1e30
 
@@ -213,14 +217,15 @@ def _mlstm_out(p, r: int, h, gate):
     return (rms_norm(h, p.out_norm[r]) * F.silu(gate)) @ p.w_down[r]
 
 
-def mlstm_plain_route(*tensors) -> bool:
-    """The mLSTM recurrence's route rule: under autograd -- gradients
-    enabled and any input requiring grad -- it runs as the plain loop
-    (``kernels.mlstm_scan.mlstm_loop``), which autograd differentiates:
-    training takes this route on every device (the kernel has no
-    backward); so does a trace on the meta device (``launch.dryrun``),
-    where nothing runs.  Otherwise it runs through ``kernels.mlstm_scan``:
-    the kernel on a card, its plain version on the CPU."""
+def plain_route(*tensors) -> bool:
+    """The recurrences' route rule: under autograd -- gradients enabled
+    and any input requiring grad -- each runs as its plain version
+    (``mlstm_loop``, ``slstm_scan_plain``, ``rglru_scan_plain``), which
+    autograd differentiates: training takes this route on every device
+    (the kernels have no backward); so does a trace on the meta device
+    (``launch.dryrun``), where nothing runs.  Otherwise each runs through
+    its kernel's wrapper: the kernel on a card, its plain version on the
+    CPU."""
     return any(t.is_meta for t in tensors) or (
         torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
 
@@ -234,13 +239,13 @@ def _mlstm_scan(q, k, v, i, f, state, pages=None):
     i, f = i.contiguous(), f.contiguous()
     n, m = state["n"].contiguous(), state["m"].contiguous()
     if pages is not None:
-        scan = mlstm_scan_plain if mlstm_plain_route(q, k, v, i, f, n, m) \
+        scan = mlstm_scan_plain if plain_route(q, k, v, i, f, n, m) \
             else mlstm_scan
         h, n, m = scan(q, k, v, i, f, n, m, *pages)
         return h, {"n": n, "m": m}
     b, _, nh, hd = q.shape
     C = state["C"]
-    if mlstm_plain_route(q, k, v, i, f, C, n, m):
+    if plain_route(q, k, v, i, f, C, n, m):
         C, n, m, h = mlstm_loop(C, n, m, q, k, v, i, f)
         return h, {"C": C, "n": n, "m": m}
     rows = torch.arange(b, device=q.device)
@@ -289,22 +294,16 @@ def slstm_zero_state(cfg: ModelConfig, batch: int, device=None):
             "conv": full(0.0, 3, d)}
 
 
-def _slstm_cell(st, wx, r_gates):
-    """wx: [B, 4d], the input part of the gates; the recurrent part comes
-    from st["h"]."""
-    c, n, m, h = st["c"], st["n"], st["m"], st["h"]
-    b, nh, hd = h.shape
-    gates = reshape(wx, b, nh, 4 * hd) \
-        + torch.einsum("bhk,hkg->bhg", h, r_gates)
-    z, i, f, o = gates.split(hd, dim=-1)
-    z, o, f = torch.tanh(z), torch.sigmoid(o), F.logsigmoid(f)
-    m_new = torch.maximum(f + m, i)
-    i_p = torch.exp(i - m_new)
-    f_p = torch.exp(f + m - m_new)
-    c_new = f_p * c + i_p * z
-    n_new = f_p * n + i_p
-    h_new = o * c_new / torch.clamp_min(n_new, 1e-6)
-    return {"c": c_new, "n": n_new, "m": m_new, "h": h_new}
+def _slstm_scan(wx, r_gates, state):
+    """The recurrence over wx [B, S, 4 d] from ``state``'s c, n, m, h:
+    (h [B, S, nh, hd], {c, n, m, h})."""
+    nh, hd, _ = r_gates.shape
+    wx = reshape(wx, wx.shape[0], wx.shape[1], nh, 4 * hd)
+    args = (wx.contiguous(), r_gates) + tuple(
+        state[k].contiguous() for k in ("c", "n", "m", "h"))
+    scan = slstm_scan_plain if plain_route(*args) else slstm_scan
+    hs, *st = scan(*args)
+    return hs, dict(zip(("c", "n", "m", "h"), st))
 
 
 def _slstm_out(p, r: int, h):
@@ -317,20 +316,15 @@ def slstm_apply(p, r: int, cfg: ModelConfig, x, state=None):
     if state is None:
         state = slstm_zero_state(cfg, b, x.device)
     xc, conv = _conv_seq(state["conv"], x, p.conv[r])
-    wx = F.silu(xc) @ p.w_gates[r]
-    st = {k: state[k] for k in ("c", "n", "m", "h")}
-    hs = []
-    for t in range(s):
-        st = _slstm_cell(st, wx[:, t], p.r_gates[r])
-        hs.append(st["h"])
-    h = reshape(torch.stack(hs, dim=1), b, s, d)
+    hs, st = _slstm_scan(F.silu(xc) @ p.w_gates[r], p.r_gates[r], state)
+    h = reshape(hs, b, s, d)
     return _slstm_out(p, r, h), dict(st, conv=conv)
 
 
 def slstm_step(p, r: int, cfg: ModelConfig, x, state):
     conv, xc = conv_step(state["conv"], x[:, 0], p.conv[r])
-    st = _slstm_cell({k: state[k] for k in ("c", "n", "m", "h")},
-                     F.silu(xc) @ p.w_gates[r], p.r_gates[r])
+    _, st = _slstm_scan((F.silu(xc) @ p.w_gates[r])[:, None],
+                        p.r_gates[r], state)
     y = _slstm_out(p, r, reshape(st["h"], x.shape[0], -1))
     return y[:, None], dict(st, conv=conv)
 
@@ -347,27 +341,14 @@ def rglru_zero_state(cfg: ModelConfig, batch: int, device=None):
             "conv": torch.zeros((batch, 3, w), device=device)}
 
 
-def _rglru_gates(p, r: int, xc):
-    """a and the gated input b of each position.  xc: [..., w]."""
-    rg = torch.sigmoid((xc @ p.w_a[r]) @ p.w_a2[r])
-    ig = torch.sigmoid((xc @ p.w_i[r]) @ p.w_i2[r])
-    log_a = -RGLRU_C * F.softplus(p.lam[r]) * rg
-    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
-    return torch.exp(log_a), beta * (ig * xc)
-
-
-def _linear_scan(a, b):
-    """h_t = a_t h_{t-1} + b_t over dim 1 (h_{-1} = 0) in log2(S) steps:
-    each step folds in the prefix ``off`` positions back with the
-    reference's combine (a_l, b_l), (a_r, b_r) -> (a_r a_l, a_r b_l +
-    b_r)."""
-    off = 1
-    while off < a.shape[1]:
-        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
-                      dim=1)
-        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
-        off *= 2
-    return b
+def _rglru_scan(p, r: int, xc, h0):
+    """The RG-LRU's gates and recurrence over xc [B, S, w] from h0 [B, w]:
+    h [B, S, w].  The two low-rank gate products stay matmuls."""
+    ra = (xc @ p.w_a[r]) @ p.w_a2[r]
+    ia = (xc @ p.w_i[r]) @ p.w_i2[r]
+    args = (ra, ia, xc.contiguous(), p.lam[r], h0.contiguous())
+    scan = rglru_scan_plain if plain_route(*args) else rglru_scan
+    return scan(*args)
 
 
 def rglru_apply(p, r: int, cfg: ModelConfig, x, state=None):
@@ -377,18 +358,14 @@ def rglru_apply(p, r: int, cfg: ModelConfig, x, state=None):
         state = rglru_zero_state(cfg, x.shape[0], x.device)
     gate = F.gelu(x @ p.w_gate[r], approximate="tanh")
     xc, conv = _conv_seq(state["conv"], x @ p.w_x[r], p.conv[r])
-    a, b = _rglru_gates(p, r, xc)
-    b = torch.cat([b[:, :1] + a[:, :1] * state["h"][:, None], b[:, 1:]],
-                  dim=1)
-    h = _linear_scan(a, b)
+    h = _rglru_scan(p, r, xc, state["h"])
     return (h * gate) @ p.w_out[r], {"h": h[:, -1], "conv": conv}
 
 
 def rglru_step(p, r: int, cfg: ModelConfig, x, state):
     gate = F.gelu(x[:, 0] @ p.w_gate[r], approximate="tanh")
     conv, xc = conv_step(state["conv"], x[:, 0] @ p.w_x[r], p.conv[r])
-    a, b = _rglru_gates(p, r, xc)
-    h = a * state["h"] + b
+    h = _rglru_scan(p, r, xc[:, None], state["h"])[:, 0]
     return ((h * gate) @ p.w_out[r])[:, None], {"h": h, "conv": conv}
 
 

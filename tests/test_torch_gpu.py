@@ -14,6 +14,9 @@ sums in another order), 2e-2 in bfloat16 with each output row within 2^-6
 of its norm (one bfloat16 ulp of the output is <= 2^-7 of it), and repeats
 bit-identical; ``mlstm_scan``'s C, n and m bit-equal to its plain
 version (it rounds where the plain version rounds) and h within
+``h_tolerance``; ``slstm_scan`` each position within the one-step
+bound of its plain cell (``tolerance``) and its sequence launch
+bit-identical to chained one-position launches; ``rglru_scan`` within
 ``h_tolerance``; ``routed_experts`` within 1e-5 of the largest output
 magnitude (float32 sums of up to 7168 products in another order) and
 repeats bit-identical; ``page_hist`` and ``sim_scan`` are
@@ -1671,3 +1674,119 @@ def test_mesh_step_on_a_one_rank_nccl_mesh():
                                        atol=1e-6)
     finally:
         dist.destroy_process_group()
+
+
+def _slstm_inputs(dev, b, s, nh, hd, seed):
+    """Seeded wx ~ N(0, 1), r_gates ~ N(0, 1/nh) and the state the plain
+    version reaches from the zero state over 5 positions."""
+    from repro_torch.kernels import slstm_scan as tsl
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    wx, rg = r(b, s, nh, 4 * hd), r(nh, hd, 4 * hd).mul_(nh ** -0.5)
+    full = lambda v: torch.full((b, nh, hd), v, device=dev)
+    st = tsl.slstm_scan_plain(r(b, 5, nh, 4 * hd), rg, full(0.0),
+                              full(1e-6), full(-1e30), full(0.0))[1:]
+    return wx, rg, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nh,hd,b,s", [(4, 16, 3, 1), (4, 16, 2, 9),
+                                       (4, 64, 1, 5), (4, 512, 2, 3),
+                                       (2, 128, 9, 4)])
+def test_slstm_scan_kernel_matches_plain(nh, hd, b, s):
+    """The sLSTM kernel on the card: each position from the plain
+    version's state, run as one launch of B S one-position rows, within
+    the one-step bound (``tolerance``) of the plain cell; the sequence
+    launch bit-identical to one-position launches chained on its own
+    state and to a second call; one launch counted a call."""
+    from repro_torch.kernels import slstm_scan as tsl
+    dev = _card()
+    wx, r, st = _slstm_inputs(dev, b, s, nh, hd, seed=hd + s)
+    before = tsl.slstm_scan.launches
+    runs = [tsl.slstm_scan(wx, r, *st) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tsl.slstm_scan.launches == before + 2
+    bits = lambda t: t.view(torch.int32)
+    assert all(torch.equal(bits(x), bits(y)) for x, y in zip(*runs))
+    hs, k_st, starts = [], st, []
+    p_st = st
+    for t in range(s):
+        out = tsl.slstm_scan(wx[:, t:t + 1].contiguous(), r, *k_st)
+        hs.append(out[0])
+        k_st = out[1:]
+        starts.append(p_st)
+        p_st = tsl.slstm_scan_plain(wx[:, t:t + 1], r, *p_st)[1:]
+    assert torch.equal(bits(torch.cat(hs, dim=1)), bits(runs[0][0]))
+    assert all(torch.equal(bits(x), bits(y))
+               for x, y in zip(k_st, runs[0][1:]))
+    rows = tuple(torch.cat([x[i] for x in starts]) for i in range(4))
+    wx_rows = wx.transpose(0, 1).reshape(s * b, 1, nh, 4 * hd)
+    got = tsl.slstm_scan(wx_rows, r, *rows)
+    want = tsl.slstm_scan_plain(wx_rows, r, *rows)
+    tol_h, tol_st = tsl.tolerance(wx_rows, r, *rows)
+    assert bool(((got[0] - want[0]).abs() <= tol_h).all())
+    for i, k in ((1, "c"), (2, "n"), (3, "m")):
+        assert bool(((got[i] - want[i]).abs() <= tol_st[k]).all())
+
+
+@pytest.mark.gpu
+def test_slstm_scan_kernel_rejects_what_it_does_not_take():
+    from repro_torch.kernels import slstm_scan as tsl
+    dev = _card()
+    wx, r, st = _slstm_inputs(dev, 2, 3, 4, 16, seed=0)
+    tsl.slstm_scan(wx, r, *st)
+    with pytest.raises(TypeError):
+        tsl.slstm_scan(wx.double(), r, *st)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsl.slstm_scan(wx.transpose(0, 1).contiguous().transpose(0, 1), r,
+                       *st)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        wx2, r2, st2 = _slstm_inputs(dev, 1, 2, 4, 24, seed=0)
+        tsl.slstm_scan(wx2, r2, *st2)
+    with pytest.raises(ValueError, match="16-byte"):
+        r_off = torch.empty(r.numel() + 1, device=dev)[1:].view_as(r)
+        r_off.copy_(r)
+        tsl.slstm_scan(wx, r_off, *st)
+    with pytest.raises(ValueError, match="shape"):
+        tsl.slstm_scan(wx[..., :-16].contiguous(), r, *st)
+
+
+def _rglru_inputs(dev, b, s, w, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    u = torch.rand((w,), generator=g, device=dev) * (0.999 - 0.9) + 0.9
+    lam = torch.log(torch.expm1(-torch.log(u) / 8.0))
+    return r(b, s, w), r(b, s, w), r(b, s, w), lam, r(b, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,w", [(4, 1, 64), (1, 64, 130), (2, 65, 64),
+                                   (1, 1000, 2560), (3, 129, 256)])
+def test_rglru_scan_kernel_matches_plain(b, s, w):
+    """The RG-LRU kernel on the card within ``h_tolerance`` of its plain
+    version, one launch counted a call, a second call bit-identical."""
+    from repro_torch.kernels import rglru_scan as trg
+    dev = _card()
+    args = _rglru_inputs(dev, b, s, w, seed=s + w)
+    before = trg.rglru_scan.launches
+    runs = [trg.rglru_scan(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert trg.rglru_scan.launches == before + 2
+    assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+    want = trg.rglru_scan_plain(*args)
+    assert bool(((runs[0] - want).abs() <= trg.h_tolerance(*args)).all())
+
+
+@pytest.mark.gpu
+def test_rglru_scan_kernel_rejects_what_it_does_not_take():
+    from repro_torch.kernels import rglru_scan as trg
+    dev = _card()
+    ra, ia, xc, lam, h0 = _rglru_inputs(dev, 2, 3, 16, seed=0)
+    trg.rglru_scan(ra, ia, xc, lam, h0)
+    with pytest.raises(TypeError):
+        trg.rglru_scan(ra, ia, xc.double(), lam, h0)
+    with pytest.raises(ValueError, match="shape"):
+        trg.rglru_scan(ra, ia, xc, lam[:8], h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        trg.rglru_scan(ra.transpose(0, 1).contiguous().transpose(0, 1), ia,
+                       xc, lam, h0)

@@ -21,7 +21,7 @@ what the CUDA kernel is compared with on the card, and what surrounds it:
     sinks; dropped rows (a dead row, a live row whose state page is
     unmapped, a dead row whose clamped page is a live row's) write only
     the sinks;
-  * the route rule (``recurrent.mlstm_plain_route``): under autograd the
+  * the route rule (``recurrent.plain_route``): under autograd the
     plain loop, which autograd differentiates; otherwise the wrapper.
 
 Inputs are drawn with numpy from seeds."""
@@ -412,10 +412,10 @@ def test_route_rule(monkeypatch):
     TR.mlstm_apply(cell, 0, cfg, x)
     assert calls == [1, 1]
     xg = x.clone().requires_grad_(True)
-    assert TR.mlstm_plain_route(xg)
-    assert not TR.mlstm_plain_route(x)
+    assert TR.plain_route(xg)
+    assert not TR.plain_route(x)
     with torch.no_grad():
-        assert not TR.mlstm_plain_route(xg)
+        assert not TR.plain_route(xg)
     yg, stg = TR.mlstm_apply(cell, 0, cfg, xg)
     assert calls == [1, 1]
     assert torch.equal(yg.detach(), y)
