@@ -163,14 +163,16 @@ non-zero):
      request's page is demoted (what a preemption does) and the next
      macro fetches it back from the host tier: the fetched bytes must
      equal those resident before, and both routes must agree.  Every
-     mLSTM layer runs ``mlstm_scan`` once a prefill (from the zero state)
-     and once a device step (in place on the state pages): its launches
-     must equal 42 x (device steps + prefills) on each route, and the
+     mLSTM layer runs ``mlstm_scan`` once a prefill (from the zero state:
+     the pre-pass and the chunkwise kernel) and once a device step (in
+     place on the state pages: the strip kernel): its kernel launches
+     must equal 42 x (device steps + 2 x prefills) on each route, and the
      sLSTM kernel's (``slstm_scan``) 6 x (device steps + prefills).
      Prints the admissions' wall a request and one 256-token prefill
-     timed cell by cell (mLSTM, sLSTM, the rest: the sLSTM's share), and
-     again with the sLSTM recurrence through its plain version (the
-     before);
+     timed cell by cell (mLSTM, sLSTM, the rest: the sLSTM's share), one
+     mLSTM cell of it profiled alone (the kernel, the matrix products,
+     the rest on the device, beside its wall), and the split again with
+     the sLSTM recurrence through its plain version (the before);
  20. parity on the card: on reduced recurrentgemma-2b and xlstm-1.3b with
      non-zero conv taps, the batcher's greedy streams (macro and
      per-token) equal ``generate``'s (dense decode; every recurrence
@@ -351,15 +353,22 @@ non-zero):
  44. (right before phase 19) the mLSTM recurrence kernel ``mlstm_scan``
      vs its plain version at xlstm-1.3b's full width (4 heads of 1024):
      a 256-position prefill from the zero state and from the state it
-     leaves, B = 2 at S = 1 and 3 from a carried state, and a decode step
-     of B = 4 in place over pool pages of both tiers (one row dropped to
-     the sinks, each HBM slot another host page).  C, n and m bit-equal to
-     the plain version (every byte of the state buffers), h within
-     ``h_tolerance``, the rows no destination names untouched, a second
-     call bit-identical.  Then its time at the decode and prefill shapes,
-     a call and on the device, beside its plain version and its bound
-     (bytes at 3.35 TB/s, operations at 67 TFLOP/s float32); no PyTorch
-     call computes it (``library_ms`` null);
+     leaves, B = 2 at S = 1, 3 and 17 from a carried state, and a decode
+     step of B = 4 in place over pool pages of both tiers (one row
+     dropped to the sinks, each HBM slot another host page).  S = 1 (the
+     strip kernel): C, n and m bit-equal to the plain version (every byte
+     of the state buffers); S > 1 (the chunkwise form): m bit-equal, each
+     destination row's C and n within their bounds (``tolerances``),
+     every other byte the plain version's, h within its bound
+     (``tolerances``; S = 1 ``h_tolerance``), each call two kernel
+     launches (S = 1: one), the rows no destination names untouched, a
+     second call bit-identical.  Then its
+     time at the decode and prefill shapes, a call and on the device,
+     beside its plain version and its bound (the decode's bytes at 3.35
+     TB/s; the prefill's chunkwise products as 3xTF32 at 495 TFLOP/s,
+     with the recurrent form's 6 float32 operations an element of C a
+     position at 67 TFLOP/s beside it), the prefill also through the
+     strip kernel; no PyTorch call computes it (``library_ms`` null);
  45. (right after phase 44) the sLSTM recurrence kernel ``slstm_scan`` vs
      its plain version at xlstm-1.3b's full width (4 heads of 512): a
      256-position prefill from the zero state and from the state it
@@ -2228,17 +2237,19 @@ def _init_full(C, mdl, name, **change):
     return cfg, params
 
 
-def _check_cell_launches(name, launches, layers, b, result) -> None:
+def _check_cell_launches(name, launches, layers, b, result,
+                         per_prefill=1) -> None:
     """A recurrence kernel's launches in a served mix: one a layer of its
-    cell a device step and one a prefill."""
-    want = layers * (b.device_steps + result["prefills"])
+    cell a device step and ``per_prefill`` a prefill."""
+    want = layers * (b.device_steps + per_prefill * result["prefills"])
     ok = launches == want
+    times = f"{per_prefill} x " if per_prefill != 1 else ""
     print(f"{name} launches {launches} = {layers} layers x "
-          f"({b.device_steps} device steps + {result['prefills']} prefills) "
-          f"-> {ok} ({b.route} route)", flush=True)
+          f"({b.device_steps} device steps + {times}{result['prefills']} "
+          f"prefills) -> {ok} ({b.route} route)", flush=True)
     if not ok:
         _fail(f"{name}'s launches do not match the layers x (device steps "
-              "+ prefills)")
+              f"+ {times}prefills)")
 
 
 def phase_rgemma(C, mdl, pa, rg_, S, memtier, cori, telemetry, kernels):
@@ -2318,6 +2329,53 @@ class _Demoter:
         self.demoted += self.pools.demote(req.gids[-1:])
 
 
+def _profile_cell(R, apply, mdl, params, cfg, tokens) -> dict:
+    """One mLSTM cell of a prefill, profiled: its arguments are kept from
+    the first mLSTM cell the prefill runs, then the cell runs alone
+    (after two warm calls) under ``torch.profiler`` and its device time is
+    split into the recurrence kernel (``mlstm_scan``), the matrix products
+    (cuBLAS) and the rest.  Returns ms: wall (host clock around the
+    synchronized call) and each part's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kept = []
+
+    def keep(*args, **kw):
+        if not kept:
+            kept.append((args, kw))
+        return apply(*args, **kw)
+    R._APPLY["mlstm"] = keep
+    try:
+        mdl.prefill(params, cfg, tokens)
+    finally:
+        R._APPLY["mlstm"] = apply
+    args, kw = kept[0]
+    for _ in range(2):
+        apply(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apply(*args, **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        apply(*args, **kw)
+        torch.cuda.synchronize()
+    parts = {"kernel": 0.0, "matmuls": 0.0, "rest": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.count:
+            continue
+        name = e.key.lower()
+        key = ("kernel" if "mlstm_scan" in name else "matmuls"
+               if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass"))
+               else "rest")
+        parts[key] += e.self_device_time_total / 1e3
+    print(f"  one mLSTM cell of it, profiled alone: {wall:.2f} ms wall; on "
+          f"the device the kernel {parts['kernel']:.3f} ms, the matrix "
+          f"products {parts['matmuls']:.3f} ms, the rest {parts['rest']:.3f} "
+          f"ms ({sum(parts.values()):.3f} ms)", flush=True)
+    return dict(wall_ms=wall, **{f"{k}_ms": v for k, v in parts.items()})
+
+
 def _prefill_split(mdl, params, cfg, rng, plen=256, plain=()) -> dict:
     """One request's prefill at full depth (``plen`` tokens, after a warm
     call): its wall, then the same prefill with each recurrent kind's
@@ -2374,6 +2432,9 @@ def _prefill_split(mdl, params, cfg, rng, plen=256, plain=()) -> dict:
           + ", ".join(f"{k} cells {spent[k]:.1f} ms "
                       f"({out[f'{k}_share'] * 100:.1f}%)" for k in kinds)
           + f", the rest {out['rest_ms']:.1f} ms", flush=True)
+    if "mlstm" in kinds:
+        out["mlstm_cell"] = _profile_cell(R, orig["mlstm"], mdl, params, cfg,
+                                          tokens)
     scans = {"slstm": ("slstm_scan", "slstm_scan_plain"),
              "rglru": ("rglru_scan", "rglru_scan_plain")}
     for kind in plain:
@@ -2430,8 +2491,9 @@ def phase_xlstm(C, mdl, pa, ms_, ss_, S, memtier, cori, telemetry,
             _fail("a demoted state page was not fetched back")
         if result["launches"]:
             _fail("xlstm-1.3b launched the paged kernel")
+        # a prefill: the pre-pass and the chunkwise kernel
         _check_cell_launches("mlstm_scan", result["mlstm_launches"],
-                             n_mlstm, b, result)
+                             n_mlstm, b, result, per_prefill=2)
         _check_cell_launches("slstm_scan", result["slstm_launches"],
                              n_slstm, b, result)
         if eager and b.device_steps != b.decode_steps:
@@ -2497,27 +2559,61 @@ def _mlstm_data(b, s, seed):
 def _mlstm_case(ms_, name, data, src, src_rows, dsts) -> float:
     """The kernel against its plain version on one case: the plain version
     runs on copies of the state buffers, the kernel twice from their
-    starting bytes.  Fails unless C (every byte of every buffer), n and
-    m are bit-equal to the plain version's, h is within ``h_tolerance``,
-    the rows no destination names kept their bytes, and the second call
-    is bit-identical to the first.  Returns h's largest error."""
+    starting bytes.  S = 1 (the strip kernel): fails unless C (every byte
+    of every buffer), n and m are bit-equal to the plain version's and h
+    is within ``h_tolerance``.  S > 1 (the chunkwise form): fails unless
+    m is bit-equal, the C each destination row gets, n and h are within
+    their bounds (``tolerances``: one replay), and every other byte of
+    every buffer is the plain version's.  Either way each call launches
+    its kernels once each (the pre-pass and the chunkwise kernel, or the
+    strip kernel), the rows no destination names keep their bytes and
+    the second call is bit-identical to the first.  Returns h's largest
+    error."""
     bufs = list({id(t): t for t in [src] + [b for b, _ in dsts]}.values())
     start = [t.clone() for t in bufs]
     twin = {id(t): c.clone() for t, c in zip(bufs, start)}
     h_p, n_p, m_p = ms_.mlstm_scan_plain(
         *data, twin[id(src)], src_rows, [(twin[id(b)], r) for b, r in dsts])
-    runs = []
+    seq = data[0].shape[1]
+    runs, counted = [], []
     for _ in range(2):
         for t, c in zip(bufs, start):
             t.copy_(c)
+        launched = ms_.mlstm_scan.launches
         out = ms_.mlstm_scan(*data, src, src_rows, dsts)
         torch.cuda.synchronize()
+        counted.append(ms_.mlstm_scan.launches - launched)
         runs.append([x.clone() for x in out] + [t.clone() for t in bufs])
     bits = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
     h, n, m, *after = runs[0]
-    same = bits(n, n_p) and bits(m, m_p) and all(
-        bits(a, twin[id(t)]) for a, t in zip(after, bufs))
-    tol = ms_.h_tolerance(*data, start[0], src_rows)
+    if seq == 1:
+        tol = ms_.h_tolerance(*data, start[0], src_rows)
+        same = bits(n, n_p) and bits(m, m_p) and all(
+            bits(a, twin[id(t)]) for a, t in zip(after, bufs))
+        state = f"C, n, m bit-equal {same}"
+    else:
+        tol, tol_c, tol_n = ms_.tolerances(*data, start[0], src_rows)
+        cols = tol_c[0].numel()
+        tol_c = tol_c.reshape(tol_c.shape[0], cols)
+        c_ratio, c_ok, rest = 0.0, True, True
+        for t, a in zip(bufs, after):
+            want = twin[id(t)]
+            written = torch.zeros(t.shape[0], dtype=torch.bool, device=DEV)
+            for b, r in dsts:
+                if b is t:
+                    dc = (a[r, :cols] - want[r, :cols]).abs()
+                    c_ok &= bool((dc <= tol_c).all())
+                    c_ratio = max(c_ratio, float((dc.double() / tol_c).max()))
+                    written[r] = True
+            rest &= bits(a[:, cols:], want[:, cols:]) and bits(
+                a[~written], want[~written])
+        dn = (n - n_p).abs()
+        n_ok = bool((dn <= tol_n).all())
+        same = bits(m, m_p) and c_ok and n_ok and rest
+        state = (f"m bit-equal {bits(m, m_p)}; C within its bound {c_ok} "
+                 f"(at most {c_ratio:.3g} of it), n within {n_ok} (at most "
+                 f"{float((dn.double() / tol_n).max()):.3g}); every other "
+                 f"byte the plain version's {rest}")
     err = float((h - h_p).abs().max())
     within = bool(((h - h_p).abs() <= tol).all())
     untouched = True
@@ -2528,38 +2624,60 @@ def _mlstm_case(ms_, name, data, src, src_rows, dsts) -> float:
                 written[r] = True
         untouched &= torch.equal(a[~written], c[~written])
     again = all(bits(a, b) for a, b in zip(runs[0], runs[1]))
-    ok = same and within and untouched and again
-    print(f"{name}: C, n, m bit-equal {same}; h max err {err:.3g} (tolerance "
-          f"{float(tol.min()):.3g}-{float(tol.max()):.3g}, within {within}); "
-          f"other rows untouched {untouched}; repeat bit-identical {again} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+    kernels = 1 if seq == 1 else 2
+    launches = counted == [kernels, kernels]
+    ok = same and within and untouched and again and launches
+    print(f"{name}: {state}; h max err {err:.3g} (tolerance "
+          f"{float(tol.min()):.3g}-{float(tol.max()):.3g}, at most "
+          f"{float(((h - h_p).abs().double() / tol).max()):.3g} of it, "
+          f"within {within}); other rows untouched {untouched}; repeat "
+          f"bit-identical {again}; kernel launches a call {counted} "
+          f"(want {kernels}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         _fail(f"mlstm_scan disagrees with its plain version or with itself "
               f"({name})")
     return err
 
 
-def _mlstm_bound(b, s, c_read, c_writes):
-    """(bound ms, bound_by, GB, GFLOP) of one call: C read ``c_read`` times
-    and written ``c_writes`` times, q, k, v and h, the gates, n and m in
-    and out; 6 float32 operations an element of C a position (k*v, i_p *,
-    f_p * C, +, and C^T q's multiply-add) and 7 an element of n (k / sqrt,
-    f_p * n, i_p * k, +, n . q's multiply-add)."""
+def _mlstm_bound(b, s, c_read, c_writes, chunk):
+    """The bounds of one call, each (bound ms, bound_by, GB, GFLOP): its
+    bytes (C read ``c_read`` times and written ``c_writes`` times, q, k, v
+    and h, the gates, n and m in and out) at 3.35 TB/s against
+
+    * "recurrent": the position-by-position form's operations, 6 float32
+      operations an element of C a position (k*v, i_p *, f_p * C, +, and
+      C^T q's multiply-add) and 7 an element of n, at 67 TFLOP/s (the
+      strip kernel's form; the bound of the S > 1 rows before the
+      chunkwise kernel);
+    * "chunkwise": the chunkwise form's matrix products at ``chunk``
+      positions a chunk, C^T q and the update (2 hd hd each a position and
+      head) and, within a chunk, q . k~ and its product with v (2 hd each
+      an attended pair j <= t), times 3 for 3xTF32 at 495 TFLOP/s."""
     nh, hd = MLSTM_NH, MLSTM_HD
     c_bytes = b * nh * hd * hd * 4
     io = 4 * b * s * nh * hd * 4 + 2 * b * s * nh * 4 + 2 * 2 * b * nh * \
         (hd + 1) * 4
     gb = (c_bytes * (c_read + c_writes) + io) / 1e9
-    flops = b * s * nh * (6 * hd * hd + 7 * hd)
     t_bytes = gb * 1e9 / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", gb, flops / 1e9)
+    pairs = sum(min(chunk, s - c) * (min(chunk, s - c) + 1) // 2
+                for c in range(0, s, chunk))
+    forms = {"recurrent": (b * s * nh * (6 * hd * hd + 7 * hd),
+                           F32_FLOPS_PER_S),
+             "chunkwise": (3 * b * nh * (4 * s * hd * hd + 4 * pairs * hd),
+                           TF32_FLOPS_PER_S)}
+    out = {}
+    for key, (flops, rate) in forms.items():
+        t_ops = flops / rate * 1e3
+        out[key] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+                    else "operations", gb, flops / 1e9)
+    return out
 
 
 def phase_mlstm(ms_) -> dict:
-    """Phase 44: the mLSTM kernel against its plain version at
-    xlstm-1.3b's full width, then its timing at phase 19's two shapes."""
+    """Phase 44: the mLSTM kernels against their plain version at
+    xlstm-1.3b's full width, then their timing at phase 19's two shapes,
+    the prefill also through the strip kernel (the route before the
+    chunkwise kernel) for a same-run comparison."""
     print("== phase 44: mlstm_scan vs plain version on the card, and its "
           "timing (xlstm-1.3b's full width: 4 heads of 1024)", flush=True)
     nh, hd = MLSTM_NH, MLSTM_HD
@@ -2585,8 +2703,9 @@ def phase_mlstm(ms_) -> dict:
     worst = max(worst, _mlstm_case(
         ms_, f"prefill B=1 S={MLSTM_PREFILL_S} from a carried state", prefill,
         carried, one, [(out, one)]))
-    # short sequences from a random carried state
-    for s in (1, 3):
+    # short sequences from a random carried state: one position, a part of
+    # a chunk, one past a chunk
+    for s in (1, 3, ms_.CHUNK + 1):
         data = _mlstm_data(2, s, SEED + 42 + s)
         src = torch.randn((2, cols), generator=torch.Generator(
             device=DEV).manual_seed(s), device=DEV).mul_(0.3)
@@ -2622,17 +2741,33 @@ def phase_mlstm(ms_) -> dict:
         dev_ms, how, names = _device_ms(kernel, 30, flush)
         plain_ms = _time(lambda: ms_.mlstm_scan_plain(*data, src_, rows,
                                                       dsts_), 3, flush)
-        bound_ms, bound_by, gb, gflop = _mlstm_bound(b, s, reads, writes)
+        bounds = _mlstm_bound(b, s, reads, writes, ms_.CHUNK)
+        form = "chunkwise" if s > 1 else "recurrent"
+        bound_ms, bound_by, gb, gflop = bounds[form]
         print(f"{key} ({label}): kernel {ms:.4f} ms a call (events), "
               f"{dev_ms:.4f} ms on the device ({how}: {_ms_list(names)}); "
-              f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"({bound_by}: {gb:.4f} GB at 3.35 TB/s; {gflop:.3f} GFLOP at "
-              f"67 TFLOP/s) -> {bound_ms / dev_ms * 100:.1f}% of the bound "
-              f"on the device, {bound_ms / ms * 100:.1f}% a call; no single "
-              "PyTorch call computes it (library_ms null)", flush=True)
+              f"plain {plain_ms:.4f} ms; bound ({form} form) {bound_ms:.4f} "
+              f"ms ({bound_by}: {gb:.4f} GB at 3.35 TB/s; {gflop:.3f} GFLOP "
+              f"at {'3 x 495 TFLOP/s' if s > 1 else '67 TFLOP/s'}) -> "
+              f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
+              f"{bound_ms / ms * 100:.1f}% a call; no single PyTorch call "
+              "computes it (library_ms null)", flush=True)
         res[key] = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
                         plain_ms=plain_ms, library_ms=None,
                         bound_ms=bound_ms, bound_by=bound_by)
+        if s > 1:
+            old_ms, old_by, _, old_gflop = bounds["recurrent"]
+            strip = lambda: ms_._launch(*data, src_, rows, dsts_,
+                                        chunked=False)
+            strip_ms, _, strip_names = _device_ms(strip, 10, flush)
+            print(f"  the same call through the strip kernel (the S > 1 "
+                  f"route before the chunkwise kernel): {strip_ms:.4f} ms "
+                  f"on the device ({_ms_list(strip_names)}), against its "
+                  f"recurrent-form bound {old_ms:.4f} ms ({old_by}: "
+                  f"{old_gflop:.3f} GFLOP at 67 TFLOP/s) -> chunkwise "
+                  f"{strip_ms / dev_ms:.2f}x faster", flush=True)
+            res[key].update(strip_device_ms=strip_ms,
+                            recurrent_bound_ms=old_ms)
     ms_.mlstm_scan.launches = before     # checks and timing not counted
     res["max_abs_err"] = worst
     return res
@@ -5055,10 +5190,13 @@ def main() -> int:
              launches=xlstm["graph"]["mlstm_launches"],
              max_abs_err=mlstm["max_abs_err"], **mlstm["decode"],
              shape="xlstm-1.3b decode: B=4, S=1, 4 heads of 1024, in place "
-             "over the state pages of both tiers (phases 19, 44; launches: "
-             "42 a device step and 42 a prefill)",
+             "over the state pages of both tiers (phases 19, 44; kernel "
+             "launches: 42 a device step, the strip kernel, and 84 a "
+             "prefill, the pre-pass and the chunkwise kernel)",
              also={f"xlstm-1.3b prefill B=1 S={MLSTM_PREFILL_S} from a "
-                   "carried state (phase 44)": mlstm["prefill"],
+                   "carried state (phase 44; the chunkwise kernel, "
+                   "strip_device_ms the strip kernel on the same call)":
+                   mlstm["prefill"],
                    "xlstm-1.3b eager route (phase 19)": dict(
                        launches=xlstm["eager"]["mlstm_launches"])}),
         dict(name="slstm_scan", route="cuda",

@@ -1,20 +1,19 @@
 // The mLSTM recurrence over a sequence, for Hopper, in place on the state
-// rows it reads and writes.
+// rows it reads and writes.  Two kernels: a strip kernel for one position
+// (S = 1, every decode step) and a chunkwise kernel on the tensor cores for
+// a sequence (S > 1, a prefill).  The wrapper picks by S alone.
 //
-// No Pallas kernel stands behind it: the reference runs the recurrence as
-// a lax.scan over positions (repro/models/recurrent.py::mlstm_apply,
+// No Pallas kernel stands behind them: the reference runs the recurrence
+// as a lax.scan over positions (repro/models/recurrent.py::mlstm_apply,
 // :116-140) and one cell for a decode token (::mlstm_step, :149), which
 // XLA compiles to one loop on the chip.  The port's plain version is a
 // Python loop over positions whose every op rewrites the whole matrix
 // state C (nh x hd x hd float32: 16.8 MB a row at xlstm-1.3b's 4 heads of
 // 1024), and a paged decode step gathered, unpacked, packed and scattered
-// the whole state page around it.  This kernel keeps C on the chip for
-// all S positions and reads and writes it where it lives.
+// the whole state page around it.  Both kernels keep C on the chip for all
+// S positions and read and write it where it lives.
 //
-// Per row b, head h and position t, in the plain version's order (every
-// product and sum of the state rounded on its own: __fmul_rn / __fadd_rn,
-// so no multiply-add contraction changes a bit; k / sqrt(hd) a division;
-// expf, not __expf):
+// Per row b, head h and position t, in the plain version's order:
 //
 //   k_t    = k_t / sqrt(hd)
 //   m_new  = max(f_t + m, i_t);  i_p = exp(i_t - m_new)
@@ -23,31 +22,33 @@
 //   C      = f_p * C + i_p * (k_t v_t^T)      (f_p*C, k*v, i_p*(k*v), sum)
 //   h_t    = (C^T q_t) / max(|n . q_t|, 1)
 //
-// C, n and m come out bit-equal to the plain version; h sums its two dot
-// products in another order (fused multiply-adds, per warp then across
-// warps) and is held to a bound on that difference (mlstm_scan.py).
+// The strip kernel (S = 1) rounds every product and sum of the state on
+// its own (__fmul_rn / __fadd_rn, so no multiply-add contraction changes a
+// bit; k / sqrt(hd) a division; expf, not __expf): C, n and m come out
+// bit-equal to the plain version; h sums its two dot products in another
+// order (fused multiply-adds, per warp then across warps) and is held to a
+// bound on that difference (mlstm_scan.py).
 //
-// Grid (hd / 32 strips, nh, B): a block owns one strip of 32 columns of
-// one head's C, [hd, 32] (8 warps, each 32 lanes x hd / 8 rows), reads it
-// once from the source row (zeros for row -1), keeps it in registers for
-// all S positions (128 floats a thread at hd = 1024, one block an SM),
-// and writes it once to each destination row.  The scalars, n (hd floats)
-// and the denominator are recomputed by every strip of a head: no block
-// needs another's data, so nothing crosses blocks.  q and the scaled k of
-// a position sit in shared memory (double-buffered: two barriers a
-// position), and the next position's inputs are loaded into registers
-// while the current one runs.
+// Strip kernel grid (hd / 32 strips, nh, B): a block owns one strip of 32
+// columns of one head's C, [hd, 32] (8 warps, each 32 lanes x hd / 8 rows),
+// reads it once from the source row (zeros for row -1), keeps it in
+// registers for all S positions (128 floats a thread at hd = 1024, one
+// block an SM), and writes it once to each destination row.  The scalars,
+// n (hd floats) and the denominator are recomputed by every strip of a
+// head: no block needs another's data, so nothing crosses blocks.  q and
+// the scaled k of a position sit in shared memory (double-buffered: two
+// barriers a position), and the next position's inputs are loaded into
+// registers while the current one runs.
 //
-// What bounds it on an H100.  A decode step (S = 1) is bytes: C read once
-// and written once to each tier, 16.8 MB x 3 a row, 0.06 ms at B = 4 and
-// 3.35 TB/s; a warp moves one 128-byte row of its strip a load or store,
-// with all of a thread's rows in flight at once.  (A form that streamed
-// the strip 16 rows at a time, two blocks an SM, measured slower on an
-// H100.)
-// A prefill (S = 256, B = 1) is operations: 6 float32 operations an
-// element of C a position, 6.4 GFLOP, 0.1 ms at 67 TFLOP/s; 128 blocks
-// for 132 SMs, each bound by its own instruction issue (the multiplies
-// and adds of the state may not fuse).
+// What bounds the strip kernel on an H100.  A decode step (S = 1) is
+// bytes: C read once and written once to each tier, 16.8 MB x 3 a row,
+// 0.06 ms at B = 4 and 3.35 TB/s; a warp moves one 128-byte row of its
+// strip a load or store, with all of a thread's rows in flight at once.
+// (A form that streamed the strip 16 rows at a time, two blocks an SM,
+// measured slower on an H100.)  Over a sequence it does 6 float32
+// operations an element of C a position, unfused, with two barriers a
+// position: issue-bound (0.56 ms for S = 256, B = 1 on an H100), which is
+// why a sequence takes the chunkwise kernel below.
 //
 // In place: a block reads only its own strip of its source row and writes
 // only that strip of its destination rows.  The caller keeps every row a
@@ -258,5 +259,763 @@ extern "C" int mlstm_scan_launch(
       static_cast<const int64_t*>(dst2_rows), dst2_stride,
       static_cast<float*>(h), static_cast<float*>(n_out),
       static_cast<float*>(m_out), seq, nh, hd, sqrt_hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// S > 1: the chunkwise form on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// The mLSTM has no nonlinearity on its recurrent path, so a chunk of L
+// positions can be done as matrix products.  Per (row, head) and a chunk
+// of positions c..c+L-1, with the state C, n before it:
+//
+//   m       the plain version's own serial chain, fm = f + m, m = max(fm,
+//           i), in its order and rounding: m comes out bit-equal.  With it
+//           a_p = fm - m_new and b_p = i - m_new, the plain version's own
+//           arguments of f_p = exp(a_p) and i_p = exp(b_p);
+//   A_t     = sum_{p=c..t} a_p in double (each a_p clamped at -1e4: such
+//           a step zeroes everything it carries in either version);
+//   D_tj    = exp(b_j + A_t - A_j), j <= t: the weight the plain version's
+//           products f_p and i_j give term j at position t (telescoped);
+//   g_t     = exp(A_t): the weight of the state before the chunk;
+//   h_t     = (g_t C^T q_t + sum_j D_tj (q_t . k~_j) v_j)
+//             / max(|g_t n . q_t + sum_j D_tj (q_t . k~_j)|, 1);
+//   C       <- g_{c+L-1} C + sum_j D_{c+L-1,j} k~_j v_j^T, n likewise,
+//
+// with k~ = k / sqrt(hd) (here 1 / sqrt(hd) is taken with D, not with k).
+// The exponents are taken from the double sums rounded to float once, so
+// D and g are within expf's ulps and one rounding of their argument of
+// the plain version's products.  The products over hd or
+// over positions run on the tensor cores as 3xTF32 (each operand split
+// into hi = rna(x) and lo = rna(x - hi) to TF32, lo*hi + hi*lo + hi*hi
+// into one float32 accumulator, as csrc/flash_attention.cu does): C^T q
+// [32, L] and q . k~ [L, L] a chunk, the chunk's h [L, 32] and its update
+// of C [hd, 32].  C, n and h are held to bounds derived from the plain
+// replay's magnitudes (mlstm_scan.py: tolerances).
+//
+// Grid (hd / 32 strips, nh, B), as the strip kernel: a block owns one
+// strip of 32 columns of one head's C and keeps it, transposed [32, hd],
+// as mma accumulators in registers for all chunks (warp w owns hd rows
+// 8 nks w .. 8 nks (w + 1) - 1, nks = ceil(hd / 64); 128 floats a thread
+// at hd = 1024).  That accumulator layout is also the A operand of C^T q
+// once the 8 rows of a k-step are read in the order 2t, 2t + 1 (the order
+// of a k-step's sum is free), so C never leaves the registers.  Each
+// chunk's q . k comes from a pre-pass kernel (one block a chunk and head,
+// the same split of the hd rows over warps); every strip of a head
+// recomputes n and the denominators: no block of the chunkwise kernel
+// needs another's data, and every sum runs in a fixed order, so repeats
+// are bit-identical.  While warps 0-3 take this chunk's h, warp 4 runs the
+// next chunk's m chain and warps 5-7 issue the next chunk's copies.  Shared memory: the chunk's q and k rows (k
+// double-buffered; rows padded to 8 words mod 32 so both fragment
+// patterns are free of bank conflicts), v's strip (double-buffered), the
+// per-warp partials and their sums, D q . k~ -- 224,160 bytes at hd =
+// 1024.  The bulk copy engine brings each row (one cp.async.bulk a lane,
+// completing on an mbarrier): the next chunk's k, q and v during this
+// chunk's h and update, a warp each (a bulk copy holds its lane ~100
+// cycles; issued from warp 0 at the chunk's start they held it back: 10%
+// slower on an H100).
+//
+// What bounds it on an H100: operations on the tensor cores.  A chunk of L
+// positions does 2 L hd hd (C^T q) + 2 L hd hd (update) + 4 L L hd (q . k~
+// and D v) flops a head; at S = 256, B = 1, 4 heads of 1024 and L = 16
+// that is 4.36 GFLOP, times 3 for 3xTF32 at 495 TFLOP/s: 0.026 ms; its
+// bytes (C in and out, q, k, v, h) are 50 MB, 0.015 ms at 3.35 TB/s.
+// Each strip block reads the chunk's q and k from L2 (q . k in every
+// strip block was a third of its products; the pre-pass does it once).
+// Measured on an H100 (PERF.md): ~0.15 ms at that shape (the pre-pass
+// 0.008 of it), 3.7x faster than the strip kernel; 8 warps an SM, two to
+// a scheduler, issue the 3xTF32 splits and fragment loads beside the
+// tensor-core products and are bound by both (sharing q and k across a
+// cluster of 2 strips by multicast moved it by 1-2%: not kept).
+namespace {
+
+// Positions a chunk, L = 16.  Shared memory sets it: the chunk's q and k
+// rows (k double-buffered) take 3 L (hd + 8) floats, 198 KB of the 224 KB
+// at hd = 1024, so L = 32 (396 KB) does not fit the 227 KB a block may
+// have.  The m chain's warp also holds a chunk's i and log f in its 32
+// lanes (2 L <= 32), and L is the n of C^T q's two m16n8 tiles and the k
+// of the update's two k-steps.  A smaller L passes over C more often (a
+// chunk's update reads and writes every accumulator); no other L was
+// measured on an H100.
+constexpr int kL = 16;
+constexpr int kMaxSteps = kMaxHd / 64;      // k-steps (8 rows) a warp owns
+constexpr int kVld = 40;                    // row stride of v's tiles
+constexpr int kPld = 20;                    // row stride of D q . k~
+constexpr int kChainWarp = 4;               // the warp that runs the m chain
+constexpr double kClampA = -1e4;            // a_p below it zeroes its terms
+constexpr int kLoadWarp = 5;                // warps 5-7 issue the copies
+
+// q and k rows padded to 8 words mod 32: the float2 loads at (row g,
+// column 2t) and the loads at (row t, column g) are free of bank conflicts
+__host__ __device__ constexpr int ldq(int hd) { return hd + 8; }
+
+constexpr size_t chunk_smem_bytes(int hd) {
+  return 4 * sizeof(uint64_t) + 2 * kL * sizeof(double) +
+         sizeof(float) * (static_cast<size_t>(3) * kL * ldq(hd) +
+                          2 * kL * kVld + (kWarps + 1) * kTv * kL +
+                          kWarps * kL + kL * kPld +
+                          2 * kL + 4 * kL);
+}
+static_assert(chunk_smem_bytes(kMaxHd) <= 232448,
+              "the chunkwise kernel's shared memory at hd = 1024");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one contiguous row global -> shared by the bulk copy engine, completing
+// on the mbarrier `bar`
+__device__ __forceinline__ void bulk_row(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// TF32 rounding as cvt.rna.tf32.f32 on the bit pattern, and the 3xTF32
+// split hi = rna(x), lo = rna(x - hi) (lo handed over with the half-range
+// added: the tensor core reads its top 19 bits), as flash_attention.cu
+// (cvt.rna.tf32.f32 itself measured slower here on an H100)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: the two small terms first, then hi * hi, into one accumulator
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// one step of reducing a lane's kL sums across the warp: lanes whose bit
+// 2 H is set keep sums H .. 2 H - 1, the others 0 .. H - 1, each added to
+// its partner's
+template <int H>
+__device__ __forceinline__ void halve(float (&pq)[kL], int lane) {
+  const bool up = lane & (2 * H);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? pq[i] : pq[i + H];
+    const float keep = up ? pq[i + H] : pq[i];
+    pq[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 2 * H));
+  }
+}
+
+// D_tj / sqrt(hd): the argument summed in double, rounded to float once
+__device__ __forceinline__ float decay(const double* a_s, const float* b_s,
+                                       int t, int j, float sqrt_hd) {
+  const float arg = static_cast<float>(static_cast<double>(b_s[j]) +
+                                       (a_s[t] - a_s[j]));
+  return __fdiv_rn(expf(arg), sqrt_hd);
+}
+
+// The m chain of one chunk (lc positions), run by every lane of one warp
+// alike from the gates it holds (lane t < kL: i_t, lane kL + t: log f_t):
+// lane t keeps position t's b_t, A_t (the double sum of the a_p, each
+// clamped) and g_t = exp(A_t) in b_s, a_s and g_s.  Returns the new m.
+// (Each lane picks its position's values by a select and takes its exp
+// after the chain: a store and an exp under `lane == t` a step made the
+// warp run them one lane at a time, 3.8k cycles a chunk on an H100.)
+__device__ __forceinline__ float chain(float m, float gate, int lc, int lane,
+                                       double* a_s, float* b_s, float* g_s) {
+  float it[kL], ft[kL];
+#pragma unroll
+  for (int t = 0; t < kL; ++t) {
+    it[t] = __shfl_sync(0xffffffffu, gate, t);
+    ft[t] = __shfl_sync(0xffffffffu, gate, kL + t);
+  }
+  double acc = 0.0, my_a = 0.0;
+  float my_b = 0.f;
+#pragma unroll
+  for (int t = 0; t < kL; ++t) {
+    if (t < lc) {
+      const float fm = __fadd_rn(ft[t], m);
+      const float mn = fmaxf(fm, it[t]);
+      acc += fmax(static_cast<double>(__fsub_rn(fm, mn)), kClampA);
+      const float bt = __fsub_rn(it[t], mn);
+      my_a = lane == t ? acc : my_a;
+      my_b = lane == t ? bt : my_b;
+      m = mn;
+    }
+  }
+  if (lane < lc) {
+    b_s[lane] = my_b;
+    a_s[lane] = my_a;
+    g_s[lane] = expf(static_cast<float>(my_a));
+  }
+  return m;
+}
+
+// q . k [L, L] of every chunk, before the chunkwise kernel: grid (chunks,
+// nh, B), 8 warps, warp w the same hd rows as in the chunkwise kernel, its
+// partial on the tensor cores as 3xTF32, the warps' partials summed in
+// order into qk[b][head][chunk] (rows past S zero).  Every strip of a head
+// reads it instead of computing it again.
+__global__ void __launch_bounds__(kThreads)
+mlstm_scan_qk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     float* __restrict__ qk, int seq, int nh, int hd) {
+  __shared__ float sp_s[kWarps][kL][kL];
+  const int ch = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int nks = (hd + 63) / 64, ks0 = warp * nks;
+  const int steps = min(max(hd / 8 - ks0, 0), nks);
+  const size_t pos_stride = static_cast<size_t>(nh) * hd;
+  // rows gq and gq + 8 of the chunk (zero past S)
+  const int p0 = ch * kL + gq, p1 = p0 + 8;
+  const bool ok0 = p0 < seq, ok1 = p1 < seq;
+  const size_t base = (static_cast<size_t>(b) * seq * nh + head) * hd;
+  const float* q0 = q + base + (ok0 ? p0 : 0) * pos_stride;
+  const float* q1 = q + base + (ok1 ? p1 : 0) * pos_stride;
+  const float* k0 = k + base + (ok0 ? p0 : 0) * pos_stride;
+  const float* k1 = k + base + (ok1 ? p1 : 0) * pos_stride;
+  // every step's fragments loaded first (all in flight at once), then the
+  // products in step order
+  float2 x[kMaxSteps][4];
+  const float2 zero = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s) {
+    const int col = 8 * (ks0 + s) + 2 * tq;
+    const bool in = s < steps;
+    x[s][0] = in && ok0 ? *reinterpret_cast<const float2*>(q0 + col) : zero;
+    x[s][1] = in && ok1 ? *reinterpret_cast<const float2*>(q1 + col) : zero;
+    x[s][2] = in && ok0 ? *reinterpret_cast<const float2*>(k0 + col) : zero;
+    x[s][3] = in && ok1 ? *reinterpret_cast<const float2*>(k1 + col) : zero;
+  }
+  float sa[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s) {
+    if (s >= steps) break;
+    const float2 x0 = x[s][0], x1 = x[s][1], y0 = x[s][2], y1 = x[s][3];
+    uint32_t qh[4], ql[4], kh[4], kl[4];
+    split(x0.x, qh[0], ql[0]);
+    split(x1.x, qh[1], ql[1]);
+    split(x0.y, qh[2], ql[2]);
+    split(x1.y, qh[3], ql[3]);
+    split(y0.x, kh[0], kl[0]);
+    split(y1.x, kh[1], kl[1]);
+    split(y0.y, kh[2], kl[2]);
+    split(y1.y, kh[3], kl[3]);
+    mma3(sa[0], qh, ql, kh[0], kh[2], kl[0], kl[2]);
+    mma3(sa[1], qh, ql, kh[1], kh[3], kl[1], kl[3]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int j = 8 * nt + 2 * tq;
+    sp_s[warp][gq][j] = sa[nt][0];
+    sp_s[warp][gq][j + 1] = sa[nt][1];
+    sp_s[warp][gq + 8][j] = sa[nt][2];
+    sp_s[warp][gq + 8][j + 1] = sa[nt][3];
+  }
+  __syncthreads();
+  const int t = tid >> 4, j = tid & 15;
+  float sv = sp_s[0][t][j];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) sv = __fadd_rn(sv, sp_s[w][t][j]);
+  const int nch = (seq + kL - 1) / kL;
+  qk[((static_cast<size_t>(b) * nh + head) * nch + ch) * kL * kL + tid] = sv;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+mlstm_scan_chunk_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ ig,
+    const float* __restrict__ fg, const float* __restrict__ n0,
+    const float* __restrict__ m0, const float* src,
+    const int64_t* __restrict__ src_rows, int64_t src_stride, float* dst1,
+    const int64_t* __restrict__ dst1_rows, int64_t dst1_stride, float* dst2,
+    const int64_t* __restrict__ dst2_rows, int64_t dst2_stride,
+    float* __restrict__ h, float* __restrict__ n_out,
+    float* __restrict__ m_out, const float* __restrict__ qk, int seq, int nh,
+    int hd, float sqrt_hd) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem_raw);  // q and v in
+  uint64_t* full_k = full_q + 1;                      // [2]: k in
+  double* a_s = reinterpret_cast<double*>(full_q + 4);  // [2][kL] A_t
+  const int lq = ldq(hd);
+  float* q_s = reinterpret_cast<float*>(a_s + 2 * kL);  // [kL][lq]
+  float* k_s = q_s + kL * lq;                          // [2][kL][lq]
+  float* v_s = k_s + 2 * kL * lq;                      // [2][kL][kVld]
+  float* cq_s = v_s + 2 * kL * kVld;                   // [kWarps][kTv][kL]
+  float* cqr_s = cq_s + kWarps * kTv * kL;             // [kTv][kL] summed
+  float* nq_s = cqr_s + kTv * kL;                      // [kWarps][kL]
+  float* p_s = nq_s + kWarps * kL;                     // [kL][kPld]
+  float* wt_s = p_s + kL * kPld;                       // [kL]
+  float* den_s = wt_s + kL;                            // [kL]
+  float* b_s = den_s + kL;                             // [2][kL]
+  float* g_s = b_s + 2 * kL;                           // [2][kL]
+
+  const int strip = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // the mma fragments' group, thread
+  const int nks = (hd + 63) / 64;
+  const int ks0 = warp * nks;               // this warp's first k-step
+  const int steps = min(max(hd / 8 - ks0, 0), nks);
+  const int r0 = 8 * ks0, r1 = 8 * (ks0 + steps);  // its hd rows
+  const int col0 = strip * kTv;
+  const int nch = (seq + kL - 1) / kL;
+  const size_t bh = static_cast<size_t>(b) * nh + head;
+  const size_t mat = static_cast<size_t>(hd) * hd;
+
+  // the offset of row (b, pos, head) of q, k, v or h
+  auto row_off = [&](int pos) {
+    return ((static_cast<size_t>(b) * seq + pos) * nh + head) * hd;
+  };
+  auto rows_in = [&](int ch) { return min(kL, seq - ch * kL); };
+  // chunk ch's rows, issued by one warp (a lane a row): k to k_s[buf], q
+  // to q_s (its expected bytes count v's too), this strip of v to v_s[buf]
+  auto load_k = [&](int ch, int buf) {
+    const int lc = rows_in(ch);
+    if (lane == 0) mbar_expect_tx(full_k + buf, lc * hd * 4);
+    if (lane < lc)
+      bulk_row(k_s + (buf * kL + lane) * lq, k + row_off(ch * kL + lane),
+               hd * 4, full_k + buf);
+  };
+  auto load_q = [&](int ch) {
+    const int lc = rows_in(ch);
+    if (lane == 0) mbar_expect_tx(full_q, lc * (hd + kTv) * 4);
+    if (lane < lc)
+      bulk_row(q_s + lane * lq, q + row_off(ch * kL + lane), hd * 4, full_q);
+  };
+  auto load_v = [&](int ch, int buf) {
+    if (lane < rows_in(ch))
+      bulk_row(v_s + (buf * kL + lane) * kVld,
+               v + row_off(ch * kL + lane) + col0, kTv * 4, full_q);
+  };
+  // the chain warp's gates of chunk ch: lane t < kL i_t, lane kL + t f_t
+  auto gate_of = [&](int ch) {
+    const int t = lane % kL, pos = ch * kL + t;
+    const float* gp = lane < kL ? ig : fg;
+    return pos < seq ? gp[(static_cast<size_t>(b) * seq + pos) * nh + head]
+                     : 0.f;
+  };
+
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(full_k, 1);
+    mbar_init(full_k + 1, 1);
+    // the barriers' initialisation visible to the bulk copy engine
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {
+    load_q(0);
+    load_v(0, 0);
+    load_k(0, 0);
+  }
+
+  // the strip of C^T as accumulators: c[s][mt] is the m16n8 tile of columns
+  // 16 mt .. 16 mt + 15 and hd rows 8 (ks0 + s) ..; element e is column
+  // 16 mt + gq + 8 (e >> 1), row 8 (ks0 + s) + 2 tq + (e & 1)
+  const int64_t srow = src_rows[b];
+  const float* cs = src + (srow >= 0 ? srow : 0) * src_stride +
+                    head * mat + col0;
+  float c[kMaxSteps][2][4];
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * (ks0 + s) + 2 * tq + (e & 1);
+        const int cc = 16 * mt + gq + 8 * (e >> 1);
+        c[s][mt][e] = (s < steps && srow >= 0)
+                          ? cs[static_cast<size_t>(r) * hd + cc]
+                          : 0.f;
+      }
+    }
+  }
+  // n: this lane's rows r0 + lane + 32 j of the warp's
+  float nr[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = r0 + lane + 32 * j;
+    nr[j] = r < r1 ? n0[bh * hd + r] : 0.f;
+  }
+  // the chain warp's m (every lane alike) and chunk 0's scalars
+  float m = m0[bh];
+  if (warp == kChainWarp)
+    m = chain(m, gate_of(0), rows_in(0), lane, a_s, b_s, g_s);
+
+  for (int ch = 0; ch < nch; ++ch) {
+    const int cur = ch & 1;
+    const int lc = rows_in(ch);
+    const double* ac = a_s + cur * kL;
+    const float* bc = b_s + cur * kL;
+    const float* gc = g_s + cur * kL;
+    // the next chunk's gates, for the chain during this chunk's h
+    const float gate = warp == kChainWarp && ch + 1 < nch ? gate_of(ch + 1)
+                                                          : 0.f;
+    // no block barrier here: a warp that is done with the last chunk goes
+    // on as soon as this chunk's rows are in, while warps 0-3 may still
+    // take its h (this chunk's partials go to the warps' own slots; the
+    // barrier after them orders everything shared)
+    mbar_wait(full_q, ch & 1);
+    mbar_wait(full_k + cur, (ch >> 1) & 1);
+    if (lc < kL) {                // rows past S: zeros, not stale bytes
+      __syncthreads();
+      for (int e = tid; e < (kL - lc) * lq; e += kThreads) {
+        q_s[lc * lq + e] = 0.f;
+        k_s[(cur * kL + lc) * lq + e] = 0.f;
+      }
+      for (int e = tid; e < (kL - lc) * kVld; e += kThreads)
+        v_s[(cur * kL + lc) * kVld + e] = 0.f;
+      __syncthreads();
+    }
+    const float* kc = k_s + cur * kL * lq;
+    const float* vc = v_s + cur * kL * kVld;
+
+    // this chunk's q . k (the pre-pass's), for the sums after the loop
+    const float qk_tj =
+        qk[((static_cast<size_t>(b) * nh + head) * nch + ch) * kL * kL + tid];
+    // this warp's rows of C^T q [32, L]
+    float cqa[2][2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cqa[0][0][e] = cqa[0][1][e] = cqa[1][0][e] = cqa[1][1][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSteps; ++s) {
+      if (s < steps) {
+        const int col = 8 * (ks0 + s) + 2 * tq;
+        const float2 x0 =
+            *reinterpret_cast<const float2*>(q_s + gq * lq + col);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(q_s + (gq + 8) * lq + col);
+        // q as the B operand of C^T q: positions gq (x0) and gq + 8 (x1),
+        // the k-step's rows tq, tq + 4 being hd rows 2 tq, 2 tq + 1
+        uint32_t qh[4], ql[4];
+        split(x0.x, qh[0], ql[0]);
+        split(x1.x, qh[1], ql[1]);
+        split(x0.y, qh[2], ql[2]);
+        split(x1.y, qh[3], ql[3]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          uint32_t ah[4], al[4];
+          split(c[s][mt][0], ah[0], al[0]);
+          split(c[s][mt][2], ah[1], al[1]);
+          split(c[s][mt][1], ah[2], al[2]);
+          split(c[s][mt][3], ah[3], al[3]);
+          mma3(cqa[mt][0], ah, al, qh[0], qh[2], ql[0], ql[2]);
+          mma3(cqa[mt][1], ah, al, qh[1], qh[3], ql[1], ql[3]);
+        }
+      }
+    }
+    // this warp's rows of n . q_t, fused multiply-adds a lane over its rows,
+    // then halved across lanes down to one position a lane pair
+    float pq[kL];
+#pragma unroll
+    for (int t = 0; t < kL; ++t) pq[t] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + lane + 32 * j;
+      if (r < r1) {
+#pragma unroll
+        for (int t = 0; t < kL; ++t)
+          pq[t] = __fmaf_rn(nr[j], q_s[t * lq + r], pq[t]);
+      }
+    }
+    halve<8>(pq, lane);
+    halve<4>(pq, lane);
+    halve<2>(pq, lane);
+    halve<1>(pq, lane);
+    pq[0] = __fadd_rn(pq[0], __shfl_xor_sync(0xffffffffu, pq[0], 1));
+    if ((lane & 1) == 0) {
+      const int t = ((lane >> 4) & 1) * 8 + ((lane >> 3) & 1) * 4 +
+                    ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
+      nq_s[warp * kL + t] = pq[0];
+    }
+    {
+      float* cqw = cq_s + warp * kTv * kL;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int cl = 16 * mt + gq, t = 8 * nt + 2 * tq;
+          *reinterpret_cast<float2*>(cqw + cl * kL + t) =
+              make_float2(cqa[mt][nt][0], cqa[mt][nt][1]);
+          *reinterpret_cast<float2*>(cqw + (cl + 8) * kL + t) =
+              make_float2(cqa[mt][nt][2], cqa[mt][nt][3]);
+        }
+      }
+    }
+    __syncthreads();  // partials in; q_s free
+
+    // the warps' partials summed in order: D q . k~ (and its row sums, the
+    // denominators), C^T q, n . q; the update's weights
+    {
+      const int t = tid >> 4, j = tid & 15;
+      const float sv = qk_tj;
+      const float dt = (j <= t && t < lc) ? decay(ac, bc, t, j, sqrt_hd)
+                                          : 0.f;
+      const float p = __fmul_rn(dt, sv);
+      p_s[t * kPld + j] = p;
+      if (t == lc - 1) wt_s[j] = dt;
+      float d = p;
+#pragma unroll
+      for (int o = 8; o >= 1; o >>= 1)
+        d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, o));
+      if (j == 0) {
+        float nq = nq_s[t];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w)
+          nq = __fadd_rn(nq, nq_s[w * kL + t]);
+        den_s[t] = fmaxf(fabsf(__fadd_rn(d, __fmul_rn(gc[t], nq))), 1.f);
+      }
+    }
+    for (int e = tid; e < kTv * kL; e += kThreads) {
+      float sv = cq_s[e];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w)
+        sv = __fadd_rn(sv, cq_s[w * kTv * kL + e]);
+      cqr_s[e] = sv;
+    }
+    __syncthreads();  // D q . k~, C^T q, the denominators and weights in
+
+    if (warp < 4) {
+      // h: warp w the 16 columns 16 (w & 1) .. and 8 positions 8 (w >> 1)
+      // .. of (D q . k~) v on the tensor cores, then the carried part
+      const int mt = warp & 1, nt = warp >> 1;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int js = 0; js < 2; ++js) {
+        const int j0 = 8 * js + tq;
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        split(vc[j0 * kVld + 16 * mt + gq], ah[0], al[0]);
+        split(vc[j0 * kVld + 16 * mt + gq + 8], ah[1], al[1]);
+        split(vc[(j0 + 4) * kVld + 16 * mt + gq], ah[2], al[2]);
+        split(vc[(j0 + 4) * kVld + 16 * mt + gq + 8], ah[3], al[3]);
+        split(p_s[(8 * nt + gq) * kPld + j0], bh[0], bl[0]);
+        split(p_s[(8 * nt + gq) * kPld + j0 + 4], bh[1], bl[1]);
+        mma3(acc, ah, al, bh[0], bh[1], bl[0], bl[1]);
+      }
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int t = 8 * nt + 2 * tq + e2;
+        if (t < lc) {
+          float* ht = h + row_off(ch * kL + t) + col0;
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int cl = 16 * mt + gq + 8 * e1;
+            const float num = __fadd_rn(__fmul_rn(gc[t], cqr_s[cl * kL + t]),
+                                        acc[2 * e1 + e2]);
+            ht[cl] = __fdiv_rn(num, den_s[t]);
+          }
+        }
+      }
+    } else if (warp == kChainWarp && ch + 1 < nch) {
+      // the next chunk's m chain, while the first four warps take h
+      const int nx = (ch + 1) & 1;
+      m = chain(m, gate, rows_in(ch + 1), lane, a_s + nx * kL,
+                b_s + nx * kL, g_s + nx * kL);
+    }
+    // the next chunk's rows, a warp each for k, q and v, while the first
+    // four warps take h: k_s[cur ^ 1] and v_s[cur ^ 1] are free since the
+    // last chunk's update, q_s since this chunk's partials
+    if (ch + 1 < nch && warp >= kLoadWarp) {
+      if (warp == kLoadWarp)
+        load_k(ch + 1, cur ^ 1);
+      else if (warp == kLoadWarp + 1)
+        load_q(ch + 1);
+      else
+        load_v(ch + 1, cur ^ 1);
+    }
+
+    // the state: C <- g C + k (w v)^T, the chunk's products accumulated on
+    // the tensor cores onto g C; n <- g n + sum_j w_j k_j
+    {
+      const float g_last = gc[lc - 1];
+      uint32_t vh[2][2][4], vl[2][2][4];
+#pragma unroll
+      for (int js = 0; js < 2; ++js) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int j0 = 8 * js + tq, cl = 16 * mt + gq;
+          const float w0 = wt_s[j0], w4 = wt_s[j0 + 4];
+          split(__fmul_rn(w0, vc[j0 * kVld + cl]), vh[js][mt][0],
+                vl[js][mt][0]);
+          split(__fmul_rn(w0, vc[j0 * kVld + cl + 8]), vh[js][mt][1],
+                vl[js][mt][1]);
+          split(__fmul_rn(w4, vc[(j0 + 4) * kVld + cl]), vh[js][mt][2],
+                vl[js][mt][2]);
+          split(__fmul_rn(w4, vc[(j0 + 4) * kVld + cl + 8]), vh[js][mt][3],
+                vl[js][mt][3]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kMaxSteps; ++s) {
+        if (s < steps) {
+          const int r = 8 * (ks0 + s) + gq;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              c[s][mt][e] = __fmul_rn(g_last, c[s][mt][e]);
+          }
+#pragma unroll
+          for (int js = 0; js < 2; ++js) {
+            const int j0 = 8 * js + tq;
+            uint32_t bh0, bl0, bh1, bl1;
+            split(kc[j0 * lq + r], bh0, bl0);
+            split(kc[(j0 + 4) * lq + r], bh1, bl1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              mma3(c[s][mt], vh[js][mt], vl[js][mt], bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = r0 + lane + 32 * j;
+        if (r < r1) {
+          float tn = 0.f;
+#pragma unroll
+          for (int p = 0; p < kL; ++p)
+            tn = __fmaf_rn(wt_s[p], kc[p * lq + r], tn);
+          nr[j] = __fadd_rn(__fmul_rn(g_last, nr[j]), tn);
+        }
+      }
+    }
+  }
+
+  // the strip to each destination row (a destination row -1 is not
+  // written), n and m once a head
+  const int64_t drow[2] = {dst1 != nullptr ? dst1_rows[b] : -1,
+                           dst2 != nullptr ? dst2_rows[b] : -1};
+  float* dbase[2] = {dst1, dst2};
+  const int64_t dstride[2] = {dst1_stride, dst2_stride};
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    if (drow[d] < 0) continue;
+    float* cd = dbase[d] + drow[d] * dstride[d] + head * mat + col0;
+#pragma unroll
+    for (int s = 0; s < kMaxSteps; ++s) {
+      if (s < steps) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 8 * (ks0 + s) + 2 * tq + (e & 1);
+            const int cc = 16 * mt + gq + 8 * (e >> 1);
+            cd[static_cast<size_t>(r) * hd + cc] = c[s][mt][e];
+          }
+        }
+      }
+    }
+  }
+  if (strip == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + lane + 32 * j;
+      if (r < r1) n_out[bh * hd + r] = nr[j];
+    }
+    if (tid == kChainWarp * 32) m_out[bh] = m;
+  }
+}
+
+cudaError_t opt_in_smem() {
+  // the opt-in above 48 KB of shared memory, once a device, for the
+  // largest head dim
+  static bool opted[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && !opted[device]) {
+    err = cudaFuncSetAttribute(mlstm_scan_chunk_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(chunk_smem_bytes(kMaxHd)));
+    if (err != cudaSuccess) return err;
+    opted[device] = true;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The chunkwise form, for S > 1: the same arguments as mlstm_scan_launch,
+// and qk, float32 scratch of B nh ceil(S / 16) 256 floats; two launches
+// (q . k a chunk, then the chunkwise kernel).  Returns the first launch
+// error, or 0.
+extern "C" int mlstm_scan_chunk_launch(
+    const void* q, const void* k, const void* v, const void* ig,
+    const void* fg, const void* n0, const void* m0, const void* src,
+    const void* src_rows, int64_t src_stride, void* dst1,
+    const void* dst1_rows, int64_t dst1_stride, void* dst2,
+    const void* dst2_rows, int64_t dst2_stride, void* h, void* n_out,
+    void* m_out, int batch, int seq, int nh, int hd, float sqrt_hd,
+    void* qk, void* stream_ptr) {
+  if (hd % kTv != 0 || hd > kMaxHd || hd <= 0 || seq <= 0 || batch <= 0 ||
+      qk == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = opt_in_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int nch = (seq + kL - 1) / kL;
+  mlstm_scan_qk_kernel<<<dim3(nch, nh, batch), kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<float*>(qk), seq, nh, hd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlstm_scan_chunk_kernel<<<dim3(hd / kTv, nh, batch), kThreads,
+                            chunk_smem_bytes(hd), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(ig),
+      static_cast<const float*>(fg), static_cast<const float*>(n0),
+      static_cast<const float*>(m0), static_cast<const float*>(src),
+      static_cast<const int64_t*>(src_rows), src_stride,
+      static_cast<float*>(dst1), static_cast<const int64_t*>(dst1_rows),
+      dst1_stride, static_cast<float*>(dst2),
+      static_cast<const int64_t*>(dst2_rows), dst2_stride,
+      static_cast<float*>(h), static_cast<float*>(n_out),
+      static_cast<float*>(m_out), static_cast<const float*>(qk), seq, nh, hd,
+      sqrt_hd);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,23 +29,32 @@
 // over a sixteenth of the hd rows (four independent chains of fused
 // multiply-adds), the sixteen slices are added in order, and 16 threads
 // a row run the cell for the block's units (c, n, m live in the output
-// buffers, each element read and written by one thread only).  h_{t-1} is
-// read from the *output* h at position t-1 (or the starting h at t = 0),
-// so no block overwrites what a slower block still reads.  Then the head's blocks meet at a barrier:
-// one arrival counter a head (zeroed before the launch), each block's
-// h_t stores fenced before its arrival, h read back through L2 (__ldcg).
-// A barrier needs every block resident, so S > 1 is a cooperative launch
-// (it fails, and the wrapper raises, if the card cannot hold the grid);
-// S = 1, every decode step, needs no barrier and is a plain launch, which
-// a CUDA graph captures.
+// buffers, each element read and written by one thread only).
+//
+// No barrier between positions: each block publishes its units' h_t as
+// 64-bit words of (float value, position tag t + 1) in a ring of two
+// positions ([2][B][nh][hd], zeroed before the launch, so no tag of an
+// earlier launch matches), and a block reads the head's h_{t-1} by
+// loading each word through L2 (ld.relaxed.gpu) until its tag is t.  Value
+// and tag travel in one store, so no fence is needed; and two slots
+// suffice, because no block can write h_{t+1} into h_{t-1}'s slot before
+// every block of the head has published h_t, which each does only after
+// it has read all of h_{t-1}.  The cell's wx is loaded before the wait.
+// Blocks that wait on each other must all be resident, so S > 1 is a
+// cooperative launch (it fails, and the wrapper raises, if the card cannot
+// hold the grid); S = 1, every decode step, reads the starting h and needs
+// no ring: a plain launch, which a CUDA graph captures.
 //
 // What bounds it on an H100.  A decode step (S = 1) is bytes: the weights
 // once, 16.8 MB at 3.35 TB/s = 5.0 us at xlstm-1.3b's width, in 128
 // blocks, one an SM.  A prefill (S = 256, B = 1) does 2 B S nh hd 4hd =
 // 2.15 GFLOP (32 us at 67 TFLOP/s), but its positions are a serial chain:
-// each waits for the barrier, so a position's latency (a read of h from
-// L2, 32 rows of four multiply-adds a thread, the cell, the barrier) sets
-// the time.
+// each waits for the head's h_{t-1}, so a position's latency (h's words
+// from L2 once they are there, 32 rows of four multiply-adds a thread,
+// the cell, the store) sets the time: 2.4 us a position at S = 256 on an
+// H100, against 4.84 us with the barrier the ring replaced (an arrival
+// counter a head, a fence on either side) and the dot products issuing a
+// pass's absent rows as predicated-off instructions (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,27 +74,59 @@ constexpr size_t smem_bytes(int hd) {
                           kSlices * kRows * kCols);
 }
 
-// every block of the head arrives, then waits for all of them
-__device__ __forceinline__ void head_barrier(unsigned* counter,
-                                             unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    while (*reinterpret_cast<volatile unsigned*>(counter) < target) {
+// a ring word: the value in the low half, its position tag in the high
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
+               : "=l"(w)
+               : "l"(p)
+               : "memory");
+  return w;
+}
+
+__device__ __forceinline__ void store_word(unsigned long long* p,
+                                           unsigned long long w) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(w)
+               : "memory");
+}
+
+// this thread's four columns (group grp) of NB rows' dot products over
+// its slice of the hd rows, four independent chains of fused multiply-adds
+// a row, into part[slice][rb][.] (NB a template argument: rows past the
+// pass's own would otherwise issue as predicated-off instructions)
+template <int NB>
+__device__ __forceinline__ void dots(const float* w_s, const float* h_s,
+                                     float* part, int hd, int k0, int span,
+                                     int grp, int slice) {
+  float4 acc[NB];
+#pragma unroll
+  for (int rb = 0; rb < NB; ++rb) acc[rb] = make_float4(0, 0, 0, 0);
+#pragma unroll 4
+  for (int k = k0; k < k0 + span; ++k) {
+    const float4 w = reinterpret_cast<const float4*>(w_s)[k * kGroups + grp];
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb) {
+      const float x = h_s[rb * hd + k];
+      acc[rb].x = __fmaf_rn(x, w.x, acc[rb].x);
+      acc[rb].y = __fmaf_rn(x, w.y, acc[rb].y);
+      acc[rb].z = __fmaf_rn(x, w.z, acc[rb].z);
+      acc[rb].w = __fmaf_rn(x, w.w, acc[rb].w);
     }
-    __threadfence();
   }
-  __syncthreads();
+#pragma unroll
+  for (int rb = 0; rb < NB; ++rb)
+    reinterpret_cast<float4*>(part)[(slice * kRows + rb) * kGroups + grp] =
+        acc[rb];
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
                   const float* __restrict__ c0, const float* __restrict__ n0,
                   const float* __restrict__ m0, const float* __restrict__ h0,
-                  float* h, float* c_out, float* n_out, float* m_out,
-                  float* h_out, unsigned* counters, int batch, int seq,
-                  int nh, int hd) {
+                  float* __restrict__ h, float* c_out, float* n_out,
+                  float* m_out, float* h_out, unsigned long long* ring,
+                  int batch, int seq, int nh, int hd) {
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                                   // [hd][kCols]
   float* h_s = w_s + static_cast<size_t>(hd) * kCols;  // [kRows][hd]
@@ -114,49 +155,57 @@ slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
   const int span = hd / kSlices;
   const int k0 = slice * span;
 
+  const size_t slot = static_cast<size_t>(batch) * nh * hd;  // ring slot
   for (int t = 0; t < seq; ++t) {
     for (int b0 = 0; b0 < batch; b0 += kRows) {
       const int nb = min(kRows, batch - b0);
-      __syncthreads();               // w_s loaded; h_s / part free again
-      for (int e = tid; e < nb * hd; e += kThreads) {
-        const int rb = e / hd, k = e % hd;
-        const size_t bh = static_cast<size_t>(b0 + rb) * nh + head;
-        h_s[e] = t == 0 ? h0[bh * hd + k]
-                        : __ldcg(h + ((static_cast<size_t>(b0 + rb) * seq +
-                                       t - 1) * nh + head) * hd + k);
+      // the cell's input part of the gates and its state (each element
+      // read and written by this thread only), loaded before the wait
+      const bool cell = tid < nb * kUnits;
+      const size_t at_cell = (static_cast<size_t>(b0 + tid / kUnits) * nh +
+                              head) * hd + unit0 + tid % kUnits;
+      float gx[4] = {0.f, 0.f, 0.f, 0.f}, cnm[3] = {0.f, 0.f, 0.f};
+      if (cell) {
+        const size_t bt = static_cast<size_t>(b0 + tid / kUnits) * seq + t;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          gx[q] = wx[bt * d4 + static_cast<size_t>(head) * gw + q * hd +
+                     unit0 + tid % kUnits];
+        cnm[0] = t == 0 ? c0[at_cell] : c_out[at_cell];
+        cnm[1] = t == 0 ? n0[at_cell] : n_out[at_cell];
+        cnm[2] = t == 0 ? m0[at_cell] : m_out[at_cell];
       }
-      __syncthreads();
-
-      float4 acc[kRows];
-#pragma unroll
-      for (int rb = 0; rb < kRows; ++rb) acc[rb] = make_float4(0, 0, 0, 0);
-#pragma unroll 4
-      for (int k = k0; k < k0 + span; ++k) {
-        const float4 w = reinterpret_cast<const float4*>(w_s)[k * kGroups +
-                                                               grp];
-#pragma unroll
-        for (int rb = 0; rb < kRows; ++rb) {
-          if (rb < nb) {
-            const float x = h_s[rb * hd + k];
-            acc[rb].x = __fmaf_rn(x, w.x, acc[rb].x);
-            acc[rb].y = __fmaf_rn(x, w.y, acc[rb].y);
-            acc[rb].z = __fmaf_rn(x, w.z, acc[rb].z);
-            acc[rb].w = __fmaf_rn(x, w.w, acc[rb].w);
-          }
+      __syncthreads();               // w_s loaded; h_s / part free again
+      const unsigned long long* prev = ring + ((t + 1) & 1) * slot;
+      for (int e = tid; e < nb * hd; e += kThreads) {
+        const int rb = e / hd, k = e - rb * hd;
+        const size_t at = (static_cast<size_t>(b0 + rb) * nh + head) * hd + k;
+        if (t == 0) {
+          h_s[e] = h0[at];
+        } else {
+          unsigned long long w = load_word(prev + at);
+          while (static_cast<unsigned>(w >> 32) != static_cast<unsigned>(t))
+            w = load_word(prev + at);
+          h_s[e] = __uint_as_float(static_cast<unsigned>(w));
         }
       }
-#pragma unroll
-      for (int rb = 0; rb < kRows; ++rb) {
-        if (rb < nb)
-          reinterpret_cast<float4*>(part)[(slice * kRows + rb) * kGroups +
-                                          grp] = acc[rb];
+      __syncthreads();
+
+      switch (nb) {
+        case 1: dots<1>(w_s, h_s, part, hd, k0, span, grp, slice); break;
+        case 2: dots<2>(w_s, h_s, part, hd, k0, span, grp, slice); break;
+        case 3: dots<3>(w_s, h_s, part, hd, k0, span, grp, slice); break;
+        case 4: dots<4>(w_s, h_s, part, hd, k0, span, grp, slice); break;
+        case 5: dots<5>(w_s, h_s, part, hd, k0, span, grp, slice); break;
+        case 6: dots<6>(w_s, h_s, part, hd, k0, span, grp, slice); break;
+        case 7: dots<7>(w_s, h_s, part, hd, k0, span, grp, slice); break;
+        default: dots<8>(w_s, h_s, part, hd, k0, span, grp, slice); break;
       }
       __syncthreads();
 
-      if (tid < nb * kUnits) {
+      if (cell) {
         const int rb = tid / kUnits, u = tid % kUnits;
-        const int b = b0 + rb;
-        const size_t bt = static_cast<size_t>(b) * seq + t;
+        const size_t bt = static_cast<size_t>(b0 + rb) * seq + t;
         float g[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -165,14 +214,10 @@ slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
           for (int s = 0; s < kSlices; ++s)
             dot = __fadd_rn(dot, part[(s * kRows + rb) * kCols +
                                       q * kUnits + u]);
-          g[q] = __fadd_rn(wx[bt * d4 + static_cast<size_t>(head) * gw +
-                              q * hd + unit0 + u], dot);
+          g[q] = __fadd_rn(gx[q], dot);
         }
-        const size_t at = (static_cast<size_t>(b) * nh + head) * hd +
-                          unit0 + u;
-        const float c = t == 0 ? c0[at] : c_out[at];
-        const float n = t == 0 ? n0[at] : n_out[at];
-        const float m = t == 0 ? m0[at] : m_out[at];
+        const size_t at = at_cell;
+        const float c = cnm[0], n = cnm[1], m = cnm[2];
         const float z = tanhf(g[0]);
         const float o = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[3])));
         const float fl = __fsub_rn(fminf(g[2], 0.f),
@@ -189,11 +234,14 @@ slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
         n_out[at] = n_new;
         m_out[at] = m_new;
         h[(bt * nh + head) * hd + unit0 + u] = h_new;
-        if (t == seq - 1) h_out[at] = h_new;
+        if (t + 1 < seq)
+          store_word(ring + (t & 1) * slot + at,
+                     (static_cast<unsigned long long>(t + 1) << 32) |
+                         __float_as_uint(h_new));
+        else
+          h_out[at] = h_new;
       }
     }
-    if (t + 1 < seq)
-      head_barrier(counters + head, static_cast<unsigned>(t + 1) * per_head);
   }
 }
 
@@ -201,16 +249,16 @@ slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
 
 // wx f32 [B, S, nh, 4hd]; r f32 [nh, hd, 4hd]; c0, n0, m0, h0 f32
 // [B, nh, hd]; h f32 [B, S, nh, hd]; c_out, n_out, m_out, h_out as c0;
-// counters: nh unsigned ints (zeroed here), used only for S > 1.  hd a
+// ring: 2 B nh hd 64-bit words (zeroed here), used only for S > 1.  hd a
 // multiple of 16, at most 512.  Returns the launch's CUDA error, or 0.
 extern "C" int slstm_scan_launch(const void* wx, const void* r,
                                  const void* c0, const void* n0,
                                  const void* m0, const void* h0, void* h,
                                  void* c_out, void* n_out, void* m_out,
-                                 void* h_out, void* counters, int batch,
+                                 void* h_out, void* ring, int batch,
                                  int seq, int nh, int hd, void* stream_ptr) {
   if (hd % kUnits != 0 || hd > kMaxHd || hd <= 0 || nh <= 0 || seq <= 0 ||
-      batch <= 0 || (seq > 1 && counters == nullptr))
+      batch <= 0 || (seq > 1 && ring == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   // the opt-in above 48 KB of shared memory, once a device, for the
@@ -239,17 +287,19 @@ extern "C" int slstm_scan_launch(const void* wx, const void* r,
   auto* n_ = static_cast<float*>(n_out);
   auto* m_ = static_cast<float*>(m_out);
   auto* ho_ = static_cast<float*>(h_out);
-  auto* cnt = static_cast<unsigned*>(counters);
+  auto* rg = static_cast<unsigned long long*>(ring);
   if (seq == 1) {
     slstm_scan_kernel<<<grid, kThreads, smem, stream>>>(
         wx_, r_, c0_, n0_, m0_, h0_, h_, c_, n_, m_, ho_, nullptr, batch,
         seq, nh, hd);
     return static_cast<int>(cudaGetLastError());
   }
-  err = cudaMemsetAsync(cnt, 0, sizeof(unsigned) * nh, stream);
+  err = cudaMemsetAsync(rg, 0,
+                        sizeof(unsigned long long) * 2 * batch * nh * hd,
+                        stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&wx_, &r_, &c0_, &n0_, &m0_, &h0_, &h_, &c_, &n_, &m_,
-                  &ho_, &cnt, &batch, &seq, &nh, &hd};
+                  &ho_, &rg, &batch, &seq, &nh, &hd};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(slstm_scan_kernel), grid,
       dim3(kThreads), args, smem, stream);

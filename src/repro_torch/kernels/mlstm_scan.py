@@ -6,19 +6,21 @@ recurrence as a ``lax.scan`` (``repro/models/recurrent.py::mlstm_apply``,
 compiles to one loop on the chip.  The port's plain loop over positions
 rewrites the whole matrix state C with every op (16.8 MB a row at
 xlstm-1.3b's 4 heads of 1024), so the port needs a kernel that keeps C on
-the chip across positions and reads and writes it in place: a
-hand-written CUDA kernel for Hopper (``csrc/mlstm_scan.cu``, built for
-``sm_90a`` with ``nvcc`` at first use and bound through ``ctypes``), and
+the chip across positions and reads and writes it in place: two
+hand-written CUDA kernels for Hopper in ``csrc/mlstm_scan.cu`` (a strip
+kernel for one position, a chunkwise kernel on the tensor cores for a
+sequence; built for ``sm_90a`` with ``nvcc`` at first use and bound
+through ``ctypes``), and
 beside it ``mlstm_scan_plain``, the plain PyTorch version: the per-
 position cell loop the port ran before (``mlstm_loop``) between a gather
 of the source rows and a write of the destination rows.
 
 ``mlstm_scan`` dispatches on the device of its inputs: a CPU tensor goes
-to the plain version, a CUDA tensor goes to the kernel, and anything the
-kernel does not take raises -- there is no fallback.  Every kernel
-launch adds one to ``mlstm_scan.launches`` (under CUDA graph capture to
-``.captured``: ``_build.count_launch``).  The wrapper reads nothing back
-to the host, so a CUDA graph captures it.
+to the plain version, a CUDA tensor goes to a kernel (by the route rule
+below), and anything the kernels do not take raises -- there is no
+fallback.  Every kernel launch adds one to ``mlstm_scan.launches``
+(under CUDA graph capture to ``.captured``: ``_build.count_launch``).  The
+wrapper reads nothing back to the host, so a CUDA graph captures it.
 
 Semantics.  q, k, v f32 [B, S, nh, hd] and the gates i, log f f32
 [B, S, nh] (as ``recurrent._mlstm_inputs`` returns them, contiguous); the
@@ -37,20 +39,78 @@ once and written at the end, so a launch is safe as long as no row it
 writes is another row's source; a row the paged step drops reads no page
 (source -1) and writes only the sink.
 
-Numerics.  C, n and m come out bit-equal to the plain version on the
-same device: the kernel rounds every product and sum of the state on its
-own (``__fmul_rn`` / ``__fadd_rn``, so no multiply-add contraction), in
-the plain version's order (``f_p*C``, ``k*v``, ``i_p*(k*v)``, then the
-sum), divides k by sqrt(hd) (the plain version divides by a tensor of
-sqrt(hd), so the card's PyTorch does not turn it into a multiply by the
-reciprocal, as it does for a Python scalar; on the CPU that is the same
-division as before), and takes ``expf``.  h = (C^T q) / max(|n . q|, 1)
-sums both dot products in another order (fused multiply-adds a thread,
-then across warps), so it is held to ``h_tolerance``: twice the float32
-summation bound gamma_hd = hd u / (1 - hd u) (u = 2^-24; any order of
-hd terms, fused or not, lies within gamma_hd of the exact sum times the
-sum of the terms' magnitudes) on both dot products, carried through the
-division, plus four ulps of h.
+The route rule.  S = 1 (every decode step) launches the strip kernel;
+S > 1 (a prefill) the chunkwise form (chunks of ``CHUNK`` positions, on
+the tensor cores): a pre-pass of every chunk's q . k, then the chunkwise
+kernel, two launches, each counted.  The rule depends on S alone.
+
+Numerics, S = 1.  C, n and m come out bit-equal to the plain version on
+the same device: the strip kernel rounds every product and sum of the
+state on its own (``__fmul_rn`` / ``__fadd_rn``, so no multiply-add
+contraction), in the plain version's order (``f_p*C``, ``k*v``,
+``i_p*(k*v)``, then the sum), divides k by sqrt(hd) (the plain version
+divides by a tensor of sqrt(hd), so the card's PyTorch does not turn it
+into a multiply by the reciprocal, as it does for a Python scalar; on
+the CPU that is the same division as before), and takes ``expf``.
+h = (C^T q) / max(|n . q|, 1) sums both dot products in another order
+(fused multiply-adds a thread, then across warps), so it is held to
+``h_tolerance``: twice the float32 summation bound gamma_hd = hd u /
+(1 - hd u) (u = 2^-24; any order of hd terms, fused or not, lies within
+gamma_hd of the exact sum times the sum of the terms' magnitudes) on both
+dot products, carried through the division, plus four ulps of h.
+
+Numerics, S > 1.  m is bit-equal (the chunkwise kernel runs the plain
+version's serial chain ``fm = f + m; m = max(fm, i)``); C, n and h are
+held to bounds derived from the magnitudes the plain replay gives
+(``tolerances``, which returns all three).
+Both versions approximate one exact recurrence X: real arithmetic on the
+same float inputs, with the plain version's own float arguments a_p =
+fl(fl(f_p + m) - m_new) and b_p = fl(i_p - m_new) (bit-equal in both),
+so X's C_t = sum_j D_tj k~_j v_j^T + G_t C_0 with D_tj = exp(b_j +
+a_{j+1} + .. + a_t), G_t = exp(a_1 + .. + a_t).  With A_t = sum_j D_tj
+|k~_j| |v_j|^T + G_t |C_0| (and N_t likewise for n) and the arg-weighted
+Ab_t = sum_j D_tj |arg_tj| |k~_j| |v_j|^T + ... (|arg| = -(b_j + sum a),
+every a_p <= 0), each replayed as a recurrence beside the plain one, and
+u = 2^-24:
+
+* the plain version rounds each term at most (7 + 6 t) times over t
+  positions (an exp within 2 ulps = 4 u, a product, a sum each step; a
+  new term's exp, k v, i_p (k v), the sum): |C^P - C^X| <= (7 + 6 t) u
+  A_t, |n^P - n^X| <= (6 + 6 t) u N_t, and each of its dot products over
+  hd adds gamma_hd;
+* the kernel's exp of a double sum rounded once to float is within 5 u
+  + u |arg| of its D or g; a 3xTF32 product drops at most 12 u |x y|
+  (|x - hi - lo| <= 2^-22 |x|); a tensor-core m16n8k8 step is taken to
+  add its 8 products and its accumulator within 24 u of the sum of their
+  magnitudes (each addend truncated to the largest one's precision, no
+  guard bits, in halves of 4, then rounded: a model of the hardware's
+  unspecified accumulation that holds for either rounding), so a sum of
+  K products over 3 K / 8 steps is within 12 u + 9 K u of the
+  magnitudes.  The chunk's update gives a new term 20 u + 9.02 L u and
+  every later chunk 6 u + 9.02 L u more (the carry's exp and product,
+  then the chunk's products accumulated onto it); C^T q over a warp's 8
+  nks rows (nks = ceil(hd / 64)) adds 12 u + 72.2 nks u and its 7 sums
+  across warps; q . k~ (the pre-pass's) the same, D q . k~ and its
+  product with v over L positions 12 u + 9.02 L u more; n . q (fused
+  multiply-adds, then across lanes and warps) at most 16 u; the n
+  update's L fused multiply-adds L u.  So, with n_S = ceil(S / L)
+  chunks, and at position t (1-based) n_c = (t - 1) // L chunks before
+  t's:
+
+  |C^K - C^P| <= 1.01 u ((14 + (6 + 9.02 L) n_S + 7 + 6 S) A_S + Ab_S),
+  |n^K - n^P| <= 1.01 u ((8 + L + 7 n_S + 6 + 6 S) N_S + Nb_S),
+  |num^K - num^P| <= u ((40 + 9.02 L + 72.2 nks + (6 + 9.02 L) n_c + 7
+      + 6 t + 1.001 hd) |q_t|^T A_t + |q_t|^T Ab_t),
+  |den^K - den^P| <= u ((31 + L + 72.2 nks + 7 n_c + 6 + 6 t
+      + 1.001 hd) |q_t| . N_t + |q_t| . Nb_t),
+
+  and h = num / max(|den|, 1) moves by 1.01 (dnum + |h| dden) /
+  max(|den^P| - dden, 1) + 3 u |h| (max(|x|, 1) is 1-Lipschitz; each
+  side's division rounds once).  The 1.01 covers the second-order terms
+  and the replayed magnitudes being float32 sums themselves.  A step
+  whose argument a_p is below -1e4 (a zero state's m = -1e30) zeroes
+  every term it carries in both versions (exp underflows), and the
+  kernel clamps it there so its double sums keep their precision.
 """
 from __future__ import annotations
 
@@ -61,28 +121,33 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["h_tolerance", "mlstm_cell", "mlstm_loop", "mlstm_scan",
-           "mlstm_scan_plain"]
+__all__ = ["CHUNK", "h_tolerance", "mlstm_cell", "mlstm_loop",
+           "mlstm_scan", "mlstm_scan_plain", "tolerances"]
 
 NAME = "mlstm_scan"
 NVCC_FLAGS = _build.BASE_FLAGS
-# the kernel keeps a thread's rows of its 32-column strip in registers:
-# hd / 8 of them, at most 128
+# both kernels keep a thread's rows of its 32-column strip in registers:
+# at most 128
 MAX_HD = 1024
+#: positions a chunk of the chunkwise kernel (S > 1)
+CHUNK = 16
 _lib = None
+_QK: dict = {}
 
 
 def _load():
     global _lib
     if _lib is None:
         lib = _build.load(NAME, NVCC_FLAGS)
-        fn = lib.mlstm_scan_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        args = ([ctypes.c_void_p] * 9 + [ctypes.c_int64]
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                + [ctypes.c_float])
+        lib.mlstm_scan_launch.argtypes = args + [ctypes.c_void_p]
+        lib.mlstm_scan_chunk_launch.argtypes = args + [ctypes.c_void_p] * 2
+        for fn in (lib.mlstm_scan_launch, lib.mlstm_scan_chunk_launch):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -171,14 +236,12 @@ def _check(q, k, v, i, f, n, m, src, src_rows, dsts) -> None:
         raise ValueError("mlstm_scan needs at least one position")
 
 
-def mlstm_scan(q, k, v, i, f, n, m, src, src_rows, dsts):
-    """h [B, S, nh, hd] and the final n, m; the final C written to every
-    ``(buf, rows)`` of ``dsts`` (module docstring).  CPU tensors take
-    ``mlstm_scan_plain``; CUDA tensors launch the kernel."""
-    if q.device.type == "cpu":
-        return mlstm_scan_plain(q, k, v, i, f, n, m, src, src_rows, dsts)
-    if q.device.type != "cuda":
-        raise ValueError(f"mlstm_scan runs on cpu or cuda, not {q.device}")
+def _launch(q, k, v, i, f, n, m, src, src_rows, dsts, chunked: bool):
+    """The chunkwise form (``chunked``: the pre-pass, then the chunkwise
+    kernel) or the strip kernel on checked inputs, each kernel launch
+    counted: (h, n, m).  ``mlstm_scan`` picks the form by the route rule;
+    the strip kernel over S > 1 is reachable only here, for a same-run
+    comparison."""
     if not 1 <= len(dsts) <= 2:
         raise ValueError(f"one or two destinations, not {len(dsts)}")
     _check(q, k, v, i, f, n, m, src, src_rows, dsts)
@@ -191,38 +254,114 @@ def mlstm_scan(q, k, v, i, f, n, m, src, src_rows, dsts):
                                    else (None, None))
     ptr = lambda t: None if t is None else t.data_ptr()
     stride = lambda t: 0 if t is None else t.stride(0)
-    err = _load().mlstm_scan_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), i.data_ptr(), f.data_ptr(),
-        n.data_ptr(), m.data_ptr(), src.data_ptr(), src_rows.data_ptr(),
-        src.stride(0), d1.data_ptr(), r1.data_ptr(), d1.stride(0), ptr(d2),
-        ptr(r2), stride(d2), h.data_ptr(), n_out.data_ptr(),
-        m_out.data_ptr(), b, s, nh, hd, math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _load()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), i.data_ptr(),
+            f.data_ptr(), n.data_ptr(), m.data_ptr(), src.data_ptr(),
+            src_rows.data_ptr(), src.stride(0), d1.data_ptr(),
+            r1.data_ptr(), d1.stride(0), ptr(d2), ptr(r2), stride(d2),
+            h.data_ptr(), n_out.data_ptr(), m_out.data_ptr(), b, s, nh, hd,
+            math.sqrt(hd))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if chunked:
+        # each chunk's q . k [CHUNK, CHUNK], from the first of two launches
+        qk = _build.scratch(_QK, b * nh * -(-s // CHUNK) * CHUNK * CHUNK,
+                            q.device)
+        err = lib.mlstm_scan_chunk_launch(*args, qk.data_ptr(), stream)
+    else:
+        err = lib.mlstm_scan_launch(*args, stream)
     if err != 0:
         raise RuntimeError(f"mlstm_scan kernel launch failed: CUDA error "
                            f"{err}")
-    _build.count_launch(mlstm_scan)
+    for _ in range(2 if chunked else 1):     # the pre-pass, then the chunks
+        _build.count_launch(mlstm_scan)
     return h, n_out, m_out
+
+
+def mlstm_scan(q, k, v, i, f, n, m, src, src_rows, dsts):
+    """h [B, S, nh, hd] and the final n, m; the final C written to every
+    ``(buf, rows)`` of ``dsts`` (module docstring).  CPU tensors take
+    ``mlstm_scan_plain``; CUDA tensors launch the strip kernel for S = 1
+    and the chunkwise kernel for S > 1 (the route rule)."""
+    if q.device.type == "cpu":
+        return mlstm_scan_plain(q, k, v, i, f, n, m, src, src_rows, dsts)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_scan runs on cpu or cuda, not {q.device}")
+    return _launch(q, k, v, i, f, n, m, src, src_rows, dsts,
+                   chunked=q.dim() == 4 and q.shape[1] > 1)
 
 
 mlstm_scan.launches = 0
 mlstm_scan.captured = 0
 
 
+def _gather(q, src, src_rows):
+    """Each row's starting C [B, nh, hd, hd] (zero for source -1)."""
+    b, _, nh, hd = q.shape
+    C = src[src_rows.clamp_min(0), :_c_cols(q)]
+    return torch.where((src_rows >= 0)[:, None], C, torch.zeros_like(C)) \
+        .reshape(b, nh, hd, hd)
+
+
+def tolerances(q, k, v, i, f, n, m, src, src_rows, chunk=CHUNK):
+    """The chunkwise kernel's bounds against the plain version (module
+    docstring, S > 1): (h [B, S, nh, hd], final C [B, nh, hd, hd], final
+    n [B, nh, hd]).  Replays the plain cell beside the magnitudes A, N and
+    their arg-weighted Ab, Nb, in float32 on the inputs' device."""
+    b, s, nh, hd = q.shape
+    u = 2.0 ** -24
+    nks = -(-hd // 64)
+    C = _gather(q, src, src_rows)
+    A, Ab = C.abs(), torch.zeros_like(C)
+    N, Nb = n.abs(), torch.zeros_like(n)
+    sq = torch.full_like(k[:, 0], math.sqrt(hd))
+    hs = []
+    for t in range(s):
+        ka, va = (k[:, t] / sq).abs(), v[:, t].abs()
+        fm = f[:, t] + m
+        m_new = torch.maximum(fm, i[:, t])
+        a, bb = fm - m_new, i[:, t] - m_new
+        f_p, i_p = torch.exp(a)[..., None], torch.exp(bb)[..., None]
+        a, bb = a.abs()[..., None], bb.abs()[..., None]
+        kv = ka[..., :, None] * va[..., None, :]
+        # a step that zeroes its carry (f_p = 0) carries no |a| weight
+        carry = torch.where(f_p > 0, a, torch.zeros_like(a))
+        Ab = f_p[..., None] * (Ab + carry[..., None] * A) \
+            + (i_p * bb)[..., None] * kv
+        A = f_p[..., None] * A + i_p[..., None] * kv
+        Nb = f_p * (Nb + carry * N) + i_p * bb * ka
+        N = f_p * N + i_p * ka
+        C, n, m, h = mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t], i[:, t],
+                                f[:, t])
+        qa = q[:, t].abs()
+        n_c = t // chunk
+        kap_h = 40 + 9.02 * chunk + 72.2 * nks + (6 + 9.02 * chunk) * n_c \
+            + 7 + 6 * (t + 1) + 1.001 * hd
+        kap_d = 31 + chunk + 72.2 * nks + 7 * n_c + 6 + 6 * (t + 1) \
+            + 1.001 * hd
+        dnum = u * (kap_h * torch.einsum("bhkv,bhk->bhv", A, qa)
+                    + torch.einsum("bhkv,bhk->bhv", Ab, qa))
+        dden = u * (kap_d * (N * qa).sum(-1) + (Nb * qa).sum(-1))[..., None]
+        den = torch.einsum("bhk,bhk->bh", n, q[:, t]).abs()[..., None]
+        lower = torch.clamp_min(den - dden, 1.0)
+        hs.append(1.01 * (dnum + h.abs() * dden) / lower + 3 * u * h.abs())
+    n_s = -(-s // chunk)
+    c_tol = 1.01 * u * ((14 + (6 + 9.02 * chunk) * n_s + 7 + 6 * s) * A
+                        + Ab)
+    n_tol = 1.01 * u * ((8 + chunk + 7 * n_s + 6 + 6 * s) * N + Nb)
+    return torch.stack(hs, dim=1), c_tol, n_tol
+
+
 def h_tolerance(q, k, v, i, f, n, m, src, src_rows):
-    """The bound ``mlstm_scan``'s h is held to against the plain version's
-    (module docstring), [B, S, nh, hd]: replays the recurrence with the
-    plain cell and takes, a position, A = sum_k |C[k, :]| |q[k]| and
-    B = sum_k |n[k] q[k]|; then 2.02 gamma_hd (A + |h| B) / den + 4 u |h|
-    (the 1.01 covers the second-order terms and A, B being float32
+    """The bound the strip kernel's h (S = 1) is held to against the plain
+    version's (module docstring), [B, S, nh, hd]: replays the recurrence
+    with the plain cell and takes, a position, A = sum_k |C[k, :]| |q[k]|
+    and B = sum_k |n[k] q[k]|; then 2.02 gamma_hd (A + |h| B) / den + 4 u
+    |h| (the 1.01 covers the second-order terms and A, B being float32
     sums themselves)."""
     b, s, nh, hd = q.shape
     u = 2.0 ** -24
     gamma = hd * u / (1 - hd * u)
-    cols = _c_cols(q)
-    C = src[src_rows.clamp_min(0), :cols]
-    C = torch.where((src_rows >= 0)[:, None], C, torch.zeros_like(C)) \
-        .reshape(b, nh, hd, hd)
+    C = _gather(q, src, src_rows)
     out = []
     for t in range(s):
         C, n, m, h = mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t], i[:, t],

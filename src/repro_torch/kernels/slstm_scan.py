@@ -94,7 +94,7 @@ SLICES = 16
 #: 128 KB of shared memory
 MAX_HD = 512
 _lib = None
-_COUNTERS: dict = {}
+_RINGS: dict = {}
 
 
 def _load():
@@ -172,8 +172,9 @@ def _check(wx, r_gates, c, n, m, h) -> None:
 def slstm_scan(wx, r_gates, c, n, m, h):
     """h [B, S, nh, hd] and the final c, n, m, h (module docstring).  CPU
     tensors take ``slstm_scan_plain``; CUDA tensors launch the kernel (a
-    cooperative launch for S > 1, whose blocks meet at a barrier a
-    position: it raises if they cannot all be resident)."""
+    cooperative launch for S > 1, whose blocks wait on each other's
+    tagged h words a position: it raises if they cannot all be
+    resident)."""
     if wx.device.type == "cpu":
         return slstm_scan_plain(wx, r_gates, c, n, m, h)
     if wx.device.type != "cuda":
@@ -185,13 +186,15 @@ def slstm_scan(wx, r_gates, c, n, m, h):
     outs = [torch.empty_like(c) for _ in range(4)]
     if b == 0:
         return (hs, *outs)
-    # one arrival counter a head for the barrier between positions
-    counters = _build.scratch(_COUNTERS, nh, wx.device) if s > 1 else None
+    # the ring of tagged h words between positions: 2 B nh hd 64-bit
+    # words, as float32 scratch (four floats a (row, unit))
+    ring = _build.scratch(_RINGS, 4 * b * nh * hd, wx.device) \
+        if s > 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _load().slstm_scan_launch(
         wx.data_ptr(), r_gates.data_ptr(), c.data_ptr(), n.data_ptr(),
         m.data_ptr(), h.data_ptr(), hs.data_ptr(),
-        *(t.data_ptr() for t in outs), ptr(counters), b, s, nh, hd,
+        *(t.data_ptr() for t in outs), ptr(ring), b, s, nh, hd,
         torch.cuda.current_stream(wx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error "

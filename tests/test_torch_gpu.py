@@ -13,8 +13,10 @@ kernels' usual shapes and at the edges of their splits over pages;
 sums in another order), 2e-2 in bfloat16 with each output row within 2^-6
 of its norm (one bfloat16 ulp of the output is <= 2^-7 of it), and repeats
 bit-identical; ``mlstm_scan``'s C, n and m bit-equal to its plain
-version (it rounds where the plain version rounds) and h within
-``h_tolerance``; ``slstm_scan`` each position within the one-step
+version for one position (the strip kernel rounds where the plain
+version rounds; h within ``h_tolerance``) and, over a sequence (the
+chunkwise kernel), m bit-equal, C, n and h within ``tolerances``;
+``slstm_scan`` each position within the one-step
 bound of its plain cell (``tolerance``) and its sequence launch
 bit-identical to chained one-position launches; ``rglru_scan`` within
 ``h_tolerance``; ``routed_experts`` within 1e-5 of the largest output
@@ -829,14 +831,21 @@ def test_routed_experts_kernel_rejects_what_it_does_not_take():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nh,hd,b,s", [(4, 32, 3, 5), (4, 32, 4, 1),
-                                       (4, 1024, 1, 3), (4, 1024, 4, 1)])
+                                       (4, 1024, 1, 3), (4, 1024, 4, 1),
+                                       (4, 64, 2, 35), (4, 1024, 1, 17),
+                                       (4, 1024, 1, 40)])
 def test_mlstm_scan_kernel_matches_plain(nh, hd, b, s):
-    """The mLSTM recurrence kernel against its plain version on the card,
-    at reduced xlstm-1.3b's width (4 heads of 32) and its full one (4 of
-    1024), in place over page rows of two tiers, one row with no source
-    (a zero C) writing a sink: C (every byte of both tiers), n and m
-    bit-equal, h within ``h_tolerance``, one launch counted a call, a
-    second call from the same bytes bit-identical."""
+    """The mLSTM recurrence kernels against their plain version on the
+    card, at reduced xlstm-1.3b's width (4 heads of 32, and 64) and its
+    full one (4 of 1024), S = 1 (the strip kernel) and S > 1 (the
+    chunkwise kernel, over chunk boundaries), in place over page rows of
+    two tiers, one row with no source (a zero C) writing a sink.  S = 1:
+    C (every byte of both tiers), n and m bit-equal, h within
+    ``h_tolerance``, one kernel launch counted a call; S > 1: m bit-equal,
+    each destination row's C, n and h within ``tolerances``, every other
+    byte of both tiers bit-equal, two kernel launches counted a call (the
+    pre-pass and the chunkwise kernel).  A second call from the same
+    bytes bit-identical."""
     from repro_torch.kernels import mlstm_scan as tms
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(hd + s)
@@ -845,7 +854,8 @@ def test_mlstm_scan_kernel_matches_plain(nh, hd, b, s):
         r(b, s, nh)
     f = torch.nn.functional.logsigmoid(r(b, s, nh) + 2.0)
     n, m = r(b, nh, hd).mul_(0.3), r(b, nh)
-    width = nh * hd * hd + 11
+    cols = nh * hd * hd
+    width = cols + 11
     hbm, host = r(b + 2, width).mul_(0.3), r(b + 3, width).mul_(0.3)
     src = torch.arange(b, device=dev)
     src[-1] = -1
@@ -859,17 +869,30 @@ def test_mlstm_scan_kernel_matches_plain(nh, hd, b, s):
         out = tms.mlstm_scan(q, k, v, i, f, n, m, tiers[0], src,
                              [(tiers[0], at_hbm), (tiers[1], at_host)])
         torch.cuda.synchronize()
-        assert tms.mlstm_scan.launches == before + 1
+        assert tms.mlstm_scan.launches == before + (1 if s == 1 else 2)
         runs.append(out + tiers)
     plain = (hbm.clone(), host.clone())
     want = tms.mlstm_scan_plain(q, k, v, i, f, n, m, plain[0], src,
                                 [(plain[0], at_hbm), (plain[1], at_host)])
     bits = lambda t: t.view(torch.int32)
     h, n_k, m_k, hbm_k, host_k = runs[0]
-    for got, ref in ((n_k, want[1]), (m_k, want[2]), (hbm_k, plain[0]),
-                     (host_k, plain[1])):
-        assert torch.equal(bits(got), bits(ref))
-    tol = tms.h_tolerance(q, k, v, i, f, n, m, hbm, src)
+    assert torch.equal(bits(m_k), bits(want[2]))
+    if s == 1:
+        tol = tms.h_tolerance(q, k, v, i, f, n, m, hbm, src)
+        for got, ref in ((n_k, want[1]), (hbm_k, plain[0]),
+                         (host_k, plain[1])):
+            assert torch.equal(bits(got), bits(ref))
+    else:
+        tol, tol_c, tol_n = tms.tolerances(q, k, v, i, f, n, m, hbm, src)
+        assert bool(((n_k - want[1]).abs() <= tol_n).all())
+        for got, ref, at in ((hbm_k, plain[0], at_hbm),
+                             (host_k, plain[1], at_host)):
+            assert bool(((got[at, :cols] - ref[at, :cols]).abs()
+                         <= tol_c.reshape(b, cols)).all())
+            rest = torch.ones(got.shape[0], dtype=torch.bool, device=dev)
+            rest[at] = False
+            assert torch.equal(bits(got[rest]), bits(ref[rest]))
+            assert torch.equal(bits(got[:, cols:]), bits(ref[:, cols:]))
     assert bool(((h - want[0]).abs() <= tol).all())
     assert all(torch.equal(bits(x), bits(y)) for x, y in zip(*runs))
     assert torch.equal(hbm_k[b], hbm[b])      # a row no destination names

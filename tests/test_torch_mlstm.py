@@ -9,11 +9,19 @@ what the CUDA kernel is compared with on the card, and what surrounds it:
     heads of 32) with conv taps drawn from N(0, 0.5) (the reference's
     zero taps make the cell an identity), within the 1e-5 bar of
     ``tests/test_torch_recurrent.py``;
-  * the kernel's decomposition emulated in torch -- each strip of 32
-    columns of C on its own, the scalars, n and the denominator
+  * the strip kernel's decomposition emulated in torch -- each strip of
+    32 columns of C on its own, the scalars, n and the denominator
     recomputed per strip, C^T q summed per warp's rows then across warps
     -- at hd 32, 64 and 1024 (S <= 3): C, n and m bit-equal to the plain
-    version, h within ``h_tolerance``;
+    version, h within the strip kernel's ``h_tolerance``;
+  * the chunkwise kernel's decomposition (S > 1) emulated in torch --
+    the plain version's m chain, the chunk's decay matrix from double
+    sums, 3xTF32 products with operands split as the kernel splits them,
+    C carried chunk to chunk -- at hd 32, 64 and 1024 over chunk
+    boundaries from the zero and a carried state: m bit-equal, C, n and
+    h within ``tolerances``; with one position's k v^T left out it fails
+    them, and with one TF32 pass a product (no split) it misses the
+    bound on C;
   * the paged decode's mLSTM branch, in place on the state pages
     (``model._mlstm_paged``), bit-equal to the unpack / step / pack /
     ``index_put_`` branch it replaced (``_old_core`` below, with the old
@@ -219,6 +227,134 @@ def test_emulated_decomposition_is_bit_equal_to_plain(b, s, nh, hd):
     assert bool(((h_e - h).abs() <= tol).all())
     h_bad = _emulated_kernel(q, k, v, i, f, C0, n0, m0, skip_row=True)[3]
     assert not bool(((h_bad - h).abs() <= tol).all())
+
+
+def _tf32(x):
+    """Round to TF32 (10-bit mantissa, to nearest, ties away from zero) on
+    the bit pattern, as the kernel's ``tf32``."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    return ((bits + 0x1000) & 0xFFFFE000).to(torch.int32).view(torch.float32)
+
+
+def _mm3(a, b):
+    """The kernel's 3xTF32 product a @ b: lo*hi + hi*lo + hi*hi, each
+    operand split as hi = tf32(x), lo = tf32(x - hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _emulated_chunks(q, k, v, i, f, C0, n0, m0, chunk=MS.CHUNK,
+                     drop=None, mm=_mm3):
+    """The chunkwise kernel's decomposition in torch: the plain version's
+    m chain, the chunk's log-forget summed in float64 (each step clamped
+    at -1e4) and its exponents rounded to float once, D q . k~ and the
+    carried C^T q as 3xTF32 products, the state updated once a chunk.
+    ``drop`` leaves that position's k v^T out of everything, ``mm`` takes
+    the products (faults the bounds must catch).  Returns (C, n, m, h)."""
+    b, s, nh, hd = q.shape
+    sq = torch.full((), math.sqrt(hd))
+    C, n, m = C0.clone(), n0.clone(), m0.clone()
+    h = torch.empty_like(q)
+    for c0 in range(0, s, chunk):
+        lc = min(chunk, s - c0)
+        a, bb = [], []
+        for t in range(c0, c0 + lc):
+            fm = f[:, t] + m
+            m_new = torch.maximum(fm, i[:, t])
+            a.append(fm - m_new)
+            bb.append(i[:, t] - m_new)
+            m = m_new
+        cum = torch.cumsum(torch.stack(a, -1).double().clamp_min(-1e4), -1)
+        g = torch.exp(cum.float())                         # [b, nh, lc]
+        arg = torch.stack(bb, -1).double()[..., None, :] \
+            + (cum[..., :, None] - cum[..., None, :])
+        keep = torch.ones(lc, lc).tril().bool()
+        if drop is not None and c0 <= drop < c0 + lc:
+            keep[:, drop - c0] = False
+        dt = torch.where(keep, torch.exp(arg.float()) / sq,
+                         torch.zeros(()))                  # D / sqrt(hd)
+        qc, kc, vc = (x[:, c0:c0 + lc].transpose(1, 2) for x in (q, k, v))
+        P = dt * mm(qc, kc.transpose(-1, -2))
+        nq = (qc.double() * n.double()[..., None, :]).sum(-1).float()
+        den = torch.clamp_min((P.double().sum(-1).float() + g * nq).abs(),
+                              1.0)
+        num = g[..., None] * mm(qc, C) + mm(P, vc)
+        h[:, c0:c0 + lc] = (num / den[..., None]).transpose(1, 2)
+        wt = dt[..., lc - 1, :]
+        C = g[..., -1, None, None] * C \
+            + mm(kc.transpose(-1, -2), wt[..., None] * vc)
+        n = g[..., -1, None] * n \
+            + (wt.double()[..., None] * kc.double()).sum(-2).float()
+    return C, n, m, h
+
+
+def _chunk_case(b, nh, hd, s, carried, seed):
+    """Seeded inputs (``_inputs``) from a carried state, or from the zero
+    state (source row -1, n 0, m -1e30)."""
+    q, k, v, i, f, C0, n0, m0 = _inputs(b, s, nh, hd, seed)
+    if not carried:
+        C0, n0 = torch.zeros_like(C0), torch.zeros_like(n0)
+        m0 = torch.full_like(m0, -1e30)
+    rows = torch.arange(b) if carried else torch.full((b,), -1)
+    return (q, k, v, i, f, n0, m0), C0, rows
+
+
+def _within_bounds(data, C0, rows, emulated):
+    """(m bit-equal, C and n within their bounds, h within its bound;
+    ``tolerances``) of ``emulated`` (C, n, m, h) against the plain
+    version."""
+    b, _, nh, hd = data[0].shape
+    src = C0.reshape(b, -1)
+    out = torch.empty((b, nh * hd * hd))
+    h, n, m = MS.mlstm_scan_plain(*data, src, rows, [(out, torch.arange(b))])
+    tol_h, tol_c, tol_n = MS.tolerances(*data, src, rows)
+    C_e, n_e, m_e, h_e = emulated
+    return (torch.equal(_bits(m_e), _bits(m)),
+            bool(((C_e.reshape(b, -1) - out).abs()
+                  <= tol_c.reshape(b, -1)).all())
+            and bool(((n_e - n).abs() <= tol_n).all()),
+            bool(((h_e - h).abs() <= tol_h).all()))
+
+
+@pytest.mark.parametrize("b,nh,hd,s,carried", [
+    (2, 2, 32, MS.CHUNK - 1, False), (2, 2, 32, MS.CHUNK, True),
+    (2, 2, 32, MS.CHUNK + 1, False), (2, 2, 32, 2 * MS.CHUNK + 3, True),
+    (1, 4, 64, MS.CHUNK - 1, True), (1, 4, 64, MS.CHUNK, False),
+    (1, 4, 64, MS.CHUNK + 1, True), (1, 4, 64, 2 * MS.CHUNK + 3, False),
+    (1, 1, 1024, MS.CHUNK - 1, False), (1, 1, 1024, MS.CHUNK, True),
+    (1, 1, 1024, MS.CHUNK + 1, True)])
+def test_chunked_decomposition_is_within_the_bounds(b, nh, hd, s, carried):
+    """The chunkwise kernel's decomposition (``_emulated_chunks``) against
+    the plain version, from the zero and from a carried state, over
+    chunk boundaries: m bit-equal, C, n and h within ``tolerances`` (the
+    bounds the card holds the kernel to)."""
+    data, C0, rows = _chunk_case(b, nh, hd, s, carried, seed=hd + s)
+    emulated = _emulated_chunks(*data[:5], C0, *data[5:])
+    assert _within_bounds(data, C0, rows, emulated) == (True, True, True)
+
+
+@pytest.mark.parametrize("hd,s,drop", [(32, MS.CHUNK + 1, MS.CHUNK - 1),
+                                       (64, 2 * MS.CHUNK + 3, 5)])
+def test_chunked_decomposition_without_one_position_fails_the_bounds(
+        hd, s, drop):
+    """The bounds are tight enough to see one position's k v^T left out:
+    the state and the outputs from it on fail them."""
+    data, C0, rows = _chunk_case(2, 2, hd, s, True, seed=hd)
+    emulated = _emulated_chunks(*data[:5], C0, *data[5:], drop=drop)
+    m_ok, c_ok, h_ok = _within_bounds(data, C0, rows, emulated)
+    assert m_ok and not c_ok and not h_ok
+
+
+def test_chunked_decomposition_with_one_tf32_pass_fails_the_c_bound():
+    """The bounds see the 3xTF32 split: the same decomposition with one
+    TF32 pass a product (operands rounded to TF32, as a kernel without
+    the split would give them to the tensor cores) misses the C bound."""
+    data, C0, rows = _chunk_case(2, 2, 32, MS.CHUNK + 1, True, seed=32)
+    emulated = _emulated_chunks(*data[:5], C0, *data[5:],
+                                mm=lambda a, b: _tf32(a) @ _tf32(b))
+    m_ok, c_ok, _ = _within_bounds(data, C0, rows, emulated)
+    assert m_ok and not c_ok
 
 
 def test_plain_writes_each_destination_and_reads_source_rows():
