@@ -387,10 +387,15 @@ non-zero):
      computes it (``library_ms`` null);
  46. (right before phase 18) the RG-LRU kernel ``rglru_scan`` vs its
      plain version at recurrentgemma-2b's width (2560): B = 1, S = 2600
-     from a carried h, B = 4 at S = 1, and a grid around the kernel's
-     chunk of 64 positions; h within ``h_tolerance``, a second call
-     bit-identical.  Then its time at both shapes beside its plain
-     version and its bytes bound; ``library_ms`` null.
+     from a carried h, B = 4 at S = 1, a grid around the kernel's chunk
+     of 64 positions and B = 4 at S = 4096 (more tiles than the card
+     holds at once); h within ``h_tolerance``, a second call
+     bit-identical, also after a call on other data, and three CUDA
+     graph replays of the call (on its data, on other data, on its data)
+     each bit-identical to the eager call on the same data.  Then its
+     time at both shapes beside its plain version and its bytes bound,
+     and an empty kernel's device time beside the decode's (the floor a
+     standalone launch cannot go under); ``library_ms`` null.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -2955,9 +2960,10 @@ def phase_slstm(ss_) -> dict:
 # 2100-2600 positions, its decode steps B = 4, S = 1
 RGLRU_W = 2560
 RGLRU_PREFILL_S = 2600
-# (B, S, w): one position, a full chunk and one past it, several chunks
+# (B, S, w): one position, a full chunk and one past it, several chunks,
+# and B = 4 at S = 4096, more tiles than the card holds at once (671 MB)
 RGLRU_GRID = ((1, 1, 64), (3, 64, 64), (2, 65, 64), (2, 300, 64),
-              (2, 7, RGLRU_W), (1, 700, RGLRU_W))
+              (2, 7, RGLRU_W), (1, 700, RGLRU_W), (4, 4096, RGLRU_W))
 
 
 def _rglru_data(b, s, w, seed):
@@ -2971,22 +2977,46 @@ def _rglru_data(b, s, w, seed):
     return r(b, s, w), r(b, s, w), r(b, s, w), lam, r(b, w)
 
 
-def _rglru_case(rg_, name, args) -> float:
+def _rglru_case(rg_, name, args, other) -> float:
     """The kernel against its plain version on one case: h within
-    ``h_tolerance``, a second call bit-identical.  Returns the largest
-    error."""
+    ``h_tolerance``, a second call bit-identical.  Then a call on
+    ``other`` (other data of the same shape) and one on ``args`` again,
+    and the call captured in a CUDA graph and replayed three times: on
+    ``args``, on ``other`` copied into its inputs, on ``args`` again; each
+    bit-identical to the eager call on the same data (a word left by an
+    earlier call or replay would show).  Returns the largest error."""
+    bits = lambda x, y: torch.equal(x.view(torch.int32), y.view(torch.int32))
     want = rg_.rglru_scan_plain(*args)
     runs = [rg_.rglru_scan(*args) for _ in range(2)]
     torch.cuda.synchronize()
-    again = torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+    again = bits(runs[0], runs[1])
     tol = rg_.h_tolerance(*args)
     err = (runs[0] - want).abs()
     within = bool((err <= tol).all())
     ratio = float((err.double() / tol).max())
-    ok = within and again
+    eager_other = rg_.rglru_scan(*other)
+    again = again and bits(rg_.rglru_scan(*args), runs[0])
+    saved = [t.clone() for t in args]
+    captured = rg_.rglru_scan.captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rg_.rglru_scan(*args)
+    rg_.rglru_scan.captured = captured
+    replays = []
+    for data, ref in ((saved, runs[0]), (other, eager_other),
+                      (saved, runs[0])):
+        for dst, src in zip(args, data):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(bits(out, ref))
+    del graph
+    ok = within and again and all(replays)
     print(f"{name}: h max err {float(err.max()):.3g} (at most {ratio:.3g} "
           f"of h_tolerance, {float(tol.min()):.3g}-{float(tol.max()):.3g}; "
-          f"within {within}); repeat bit-identical {again} "
+          f"within {within}); repeat bit-identical, also after a call on "
+          f"other data, {again}; graph replays on this data, other data, "
+          f"this data bit-identical to the eager calls {replays} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         _fail(f"rglru_scan disagrees with its plain version or with itself "
@@ -3005,12 +3035,20 @@ def phase_rglru(rg_) -> dict:
     prefill = _rglru_data(1, RGLRU_PREFILL_S, w, SEED + 60)
     decode = _rglru_data(4, 1, w, SEED + 61)
     worst = max(_rglru_case(rg_, f"prefill B=1 S={RGLRU_PREFILL_S} w={w} "
-                            "from a carried h", prefill),
-                _rglru_case(rg_, f"decode B=4 S=1 w={w}", decode))
+                            "from a carried h", prefill,
+                            _rglru_data(1, RGLRU_PREFILL_S, w, SEED + 90)),
+                _rglru_case(rg_, f"decode B=4 S=1 w={w}", decode,
+                            _rglru_data(4, 1, w, SEED + 91)))
     for i, (b, s, gw) in enumerate(RGLRU_GRID):
         worst = max(worst, _rglru_case(rg_, f"B={b} S={s} w={gw}",
-                                       _rglru_data(b, s, gw, SEED + 62 + i)))
+                                       _rglru_data(b, s, gw, SEED + 62 + i),
+                                       _rglru_data(b, s, gw, SEED + 92 + i)))
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    # the floor a standalone launch cannot go under: an empty kernel
+    # (torch.cuda._sleep of 0 cycles) on the same stream
+    empty_ms, how, _ = _device_ms(lambda: torch.cuda._sleep(0), 30, flush)
+    print(f"an empty kernel on the same stream: {empty_ms:.4f} ms on the "
+          f"device ({how})", flush=True)
     res = {}
     for key, args in (("prefill", prefill), ("decode", decode)):
         b, s, _ = args[0].shape
@@ -3028,9 +3066,13 @@ def phase_rglru(rg_) -> dict:
               f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
               f"{bound_ms / ms * 100:.1f}% a call; no single PyTorch call "
               "computes it (library_ms null)", flush=True)
+        if key == "decode":
+            print(f"  the decode's device time is {dev_ms / empty_ms:.2f} x "
+                  f"an empty kernel's ({empty_ms:.4f} ms)", flush=True)
         res[key] = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
                         plain_ms=plain_ms, library_ms=None,
                         bound_ms=bound_ms, bound_by="bytes")
+    res["decode"]["empty_kernel_ms"] = empty_ms
     rg_.rglru_scan.launches = before     # checks and timing not counted
     res["max_abs_err"] = worst
     return res

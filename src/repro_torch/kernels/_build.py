@@ -93,21 +93,25 @@ def load(name: str, flags: Sequence[str]) -> ctypes.CDLL:
     return _loaded[lib]
 
 
-def scratch(cache: Dict, need: int, device) -> torch.Tensor:
+def scratch(cache: Dict, need: int, device, zero: bool = False
+            ) -> torch.Tensor:
     """A kernel's float32 scratch of at least ``need`` elements on
     ``device``.  Eager calls reuse one buffer per (device, stream) from
     ``cache``: a call reuses it only after the previous call on that
     stream (stream order), and an allocation costs host time on every
     decode layer.  Under CUDA graph capture every call allocates its own
     from the graph's private pool, so the graph owns it for as long as it
-    replays, and no other graph or eager call can regrow or free it."""
+    replays, and no other graph or eager call can regrow or free it.
+    ``zero``: a new buffer starts zeroed (under capture, by a fill the
+    graph replays before each of its launches); a reused one holds what
+    the last call on the stream left."""
+    make = torch.zeros if zero else torch.empty
     if torch.cuda.is_current_stream_capturing():
-        return torch.empty(need, dtype=torch.float32, device=device)
+        return make(need, dtype=torch.float32, device=device)
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = cache.get(key)
     if buf is None or buf.numel() < need:
-        buf = cache[key] = torch.empty(need, dtype=torch.float32,
-                                       device=device)
+        buf = cache[key] = make(need, dtype=torch.float32, device=device)
     return buf
 
 

@@ -6,7 +6,7 @@
 // decode token (::rglru_step, :337-338).  The port's plain version is a
 // Hillis-Steele scan, log2(S) rounds of torch.cat over [B, S, w], after
 // some eight full passes of elementwise gates.  This kernel fuses the
-// gates into a chunked scan that reads each input once a pass.
+// gates into a chunked scan that reads each input once.
 //
 // Per row b, channel c and position t (rglru_scan.py, ``rglru_gates``):
 //
@@ -16,27 +16,59 @@
 //
 // (products and sums rounded on their own: __fmul_rn / __fadd_rn).
 //
-// Two passes over chunks of kChunk positions; a thread a (row, channel,
-// chunk), so B = 1 at w = 2560 and S = 2600 gives 20 x 41 blocks of 128.
-//   1. summary (every chunk but the last): the chunk's product of a and
-//      its scan from h = 0, to a scratch [2, B, chunks - 1, w];
-//   2. apply: the carry into the chunk, from h0 through the summaries of
-//      the chunks before it in order, then the chunk's scan from it,
-//      writing h.
-// S <= kChunk (every decode step) is the apply pass alone.  Within a
-// thread the inputs of the coming positions are loaded while the serial
-// multiply-add chain runs (the loop is unrolled).
+// One launch a call.  S <= kChunk (every decode step): rglru_short_kernel,
+// a thread a (row, channel) runs the positions from h0.  S > kChunk:
+// rglru_scan_kernel, one pass, a block of 128 threads a tile of (row,
+// kStrip = 64 channels, chunk of kChunk = 64 positions):
+//   1. gates: the block loads the tile's ra, ia and xc once (neighbouring
+//      threads on neighbouring channels, four channels a thread when w and
+//      the pointers allow), the next position's inputs loading while a
+//      position's gates compute, and keeps a and b in shared memory (32 KB:
+//      six blocks an SM);
+//   2. warps 0-1, a thread a channel: the chunk's scan from h = 0 to its
+//      (prod a, local h), published at once for the later chunks of its
+//      (row, strip) as two tagged 64-bit words;
+//   3. warps 2-3 meanwhile: the carry into the chunk, from h0 through the
+//      pairs of every earlier chunk of the (row, strip) in chunk order
+//      (kBatch words loaded at once, each polled through L2 until its tag
+//      is this call's), then the chunk's scan from it over the kept a and
+//      b, writing h.
+// The arithmetic is that of the two-pass kernel this one replaced (a
+// summary pass, then an apply pass that computed every gate again), step
+// for step, so h is bit-identical to it.
 //
-// What bounds it on an H100: bytes.  ra, ia and xc read and h written once
+// Forward progress: a block takes its tile from an atomic ticket in the
+// order blocks start, chunk-major, so each chunk it waits for belongs to a
+// block that is already running, and publishing waits for nothing.  Calls
+// never see each other's words: a word carries the tag 2 e + 1 of the
+// call's epoch e (a control word beside the ticket), and the last block to
+// take its ticket resets the ticket and advances the epoch for the next
+// launch on the stream.  The scratch is zeroed when it is allocated (under
+// CUDA graph capture by a fill the graph replays before the launch), so
+// an odd tag never matches a word no call wrote.
+//
+// What bounds it on an H100: bytes, ra, ia and xc read and h written once
 // (4 x 26.6 MB at recurrentgemma-2b's B = 1, S = 2600, w = 2560: 32 us at
-// 3.35 TB/s); the two passes read the inputs twice (186 MB).
+// 3.35 TB/s; the two-pass kernel moved 186 MB in 158 us).  The gates take
+// some 90 instructions an element (four expf, two IEEE divisions, a
+// sqrtf: seven MUFU operations), about half the bytes' time at full
+// issue.  Clock stamps of each tile (PERF.md) put the kernel's 60 us in
+// the gates' phase of each wave of tiles, below the card's rate of loads,
+// each tile's serial tail after it (the scans, and the carry's rounds of
+// L2 loads), and the 2.07 waves that B = 1, S = 2600 makes: the last
+// tiles run almost alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kChunk = 64;
-constexpr int kThreads = 128;
+constexpr int kStrip = 64;                   // channels a tile
+constexpr int kThreads = 2 * kStrip;         // two scan groups of kStrip
+constexpr int kShortThreads = 128;
+constexpr int kBatch = 8;                    // earlier chunks' words at once
+constexpr int kSmem = 2 * kChunk * kStrip * sizeof(float);   // a and b
+constexpr int kBlocksPerSm = 232448 / (kSmem + 1024);
 
 struct Gates {
   float a, b;
@@ -59,59 +91,74 @@ __device__ __forceinline__ Gates gates(float ra, float ia, float xc,
   return {expf(log_a), __fmul_rn(beta, __fmul_rn(ig, xc))};
 }
 
-__global__ void __launch_bounds__(kThreads)
-rglru_summary_kernel(const float* __restrict__ ra,
-                     const float* __restrict__ ia,
-                     const float* __restrict__ xc,
-                     const float* __restrict__ lam,
-                     float* __restrict__ summary, int seq, int w) {
-  const int ch = blockIdx.x * kThreads + threadIdx.x;
-  if (ch >= w) return;
-  const int chunk = blockIdx.y, b = blockIdx.z;
-  const int chunks1 = gridDim.y;             // the chunks but the last
-  const float ncs = neg_c_softplus(lam[ch]);
-  const size_t base = (static_cast<size_t>(b) * seq + chunk * kChunk) * w +
-                      ch;
-  float prod = 1.f, h = 0.f;
-#pragma unroll 8
-  for (int t = 0; t < kChunk; ++t) {
-    const size_t at = base + static_cast<size_t>(t) * w;
-    const Gates g = gates(ra[at], ia[at], xc[at], ncs);
-    h = __fadd_rn(__fmul_rn(g.a, h), g.b);
-    prod = __fmul_rn(prod, g.a);
-  }
-  const size_t out = (static_cast<size_t>(b) * chunks1 + chunk) * w + ch;
-  const size_t half = static_cast<size_t>(gridDim.z) * chunks1 * w;
-  summary[out] = prod;
-  summary[half + out] = h;
+// a published word: the value in the low half, the call's tag in the high
+__device__ __forceinline__ unsigned long long tagged(float v, unsigned tag) {
+  return (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(v);
 }
 
-__global__ void __launch_bounds__(kThreads)
-rglru_apply_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
+__device__ __forceinline__ void store_pair(unsigned long long* p,
+                                           unsigned long long x,
+                                           unsigned long long y) {
+  asm volatile("st.relaxed.gpu.global.v2.b64 [%0], {%1, %2};\n" ::"l"(p),
+               "l"(x), "l"(y)
+               : "memory");
+}
+
+__device__ __forceinline__ ulonglong2 load_pair(const unsigned long long* p) {
+  ulonglong2 v;
+  asm volatile("ld.relaxed.gpu.global.v2.b64 {%0, %1}, [%2];\n"
+               : "=l"(v.x), "=l"(v.y)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ bool ready(ulonglong2 v, unsigned tag) {
+  return static_cast<unsigned>(v.x >> 32) == tag &&
+         static_cast<unsigned>(v.y >> 32) == tag;
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    out[0] = q.x, out[1] = q.y, out[2] = q.z, out[3] = q.w;
+  } else {
+    out[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_inputs(const float* ra, const float* ia,
+                                            const float* xc, size_t at,
+                                            float* r, float* i, float* x) {
+  load_vec<V>(ra + at, r);
+  load_vec<V>(ia + at, i);
+  load_vec<V>(xc + at, x);
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
+}
+
+__global__ void __launch_bounds__(kShortThreads)
+rglru_short_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
                    const float* __restrict__ xc,
                    const float* __restrict__ lam,
-                   const float* __restrict__ h0,
-                   const float* __restrict__ summary, float* __restrict__ hs,
+                   const float* __restrict__ h0, float* __restrict__ hs,
                    int seq, int w) {
-  const int ch = blockIdx.x * kThreads + threadIdx.x;
+  const int ch = blockIdx.x * kShortThreads + threadIdx.x;
   if (ch >= w) return;
-  const int chunk = blockIdx.y, b = blockIdx.z;
-  const int chunks1 = gridDim.y - 1;
+  const int b = blockIdx.y;
   float h = h0[static_cast<size_t>(b) * w + ch];
-  if (chunk > 0) {
-    const size_t half = static_cast<size_t>(gridDim.z) * chunks1 * w;
-#pragma unroll 8
-    for (int c = 0; c < chunk; ++c) {
-      const size_t at = (static_cast<size_t>(b) * chunks1 + c) * w + ch;
-      h = __fadd_rn(__fmul_rn(summary[at], h), summary[half + at]);
-    }
-  }
   const float ncs = neg_c_softplus(lam[ch]);
-  const int t0 = chunk * kChunk;
-  const int len = min(kChunk, seq - t0);
-  const size_t base = (static_cast<size_t>(b) * seq + t0) * w + ch;
+  const size_t base = static_cast<size_t>(b) * seq * w + ch;
 #pragma unroll 8
-  for (int t = 0; t < len; ++t) {
+  for (int t = 0; t < seq; ++t) {
     const size_t at = base + static_cast<size_t>(t) * w;
     const Gates g = gates(ra[at], ia[at], xc[at], ncs);
     h = __fadd_rn(__fmul_rn(g.a, h), g.b);
@@ -119,35 +166,179 @@ rglru_apply_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
   }
 }
 
+// ctrl: [0] the ticket, [1] the blocks that took one, [2] the epoch.
+// words: a pair (prod a, local h) a (row, chunk but the last, channel).
+template <int V>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+rglru_scan_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
+                  const float* __restrict__ xc, const float* __restrict__ lam,
+                  const float* __restrict__ h0, float* __restrict__ hs,
+                  unsigned* __restrict__ ctrl,
+                  unsigned long long* __restrict__ words, int batch, int seq,
+                  int w) {
+  extern __shared__ float smem[];
+  float* s_a = smem;
+  float* s_b = smem + kChunk * kStrip;
+  __shared__ unsigned s_tile, s_tag;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    const unsigned tile = atomicAdd(&ctrl[0], 1u);
+    const unsigned epoch = *reinterpret_cast<volatile unsigned*>(&ctrl[2]);
+    __threadfence();
+    if (atomicAdd(&ctrl[1], 1u) == gridDim.x - 1) {
+      // every block has its ticket and the epoch: ready the next launch
+      __threadfence();
+      ctrl[0] = 0;
+      ctrl[1] = 0;
+      ctrl[2] = epoch + 1;
+    }
+    s_tile = tile;
+    s_tag = 2u * epoch + 1u;
+  }
+  __syncthreads();
+  const int strips = (w + kStrip - 1) / kStrip;
+  const int chunks = (seq + kChunk - 1) / kChunk;
+  const int per_chunk = batch * strips;
+  const int tile = static_cast<int>(s_tile);
+  const unsigned tag = s_tag;
+  const int chunk = tile / per_chunk;
+  const int b = (tile - chunk * per_chunk) / strips;
+  const int c0 = (tile - chunk * per_chunk - b * strips) * kStrip;
+  const int t0 = chunk * kChunk;
+  const int len = min(kChunk, seq - t0);
+  const size_t row0 = (static_cast<size_t>(b) * seq + t0) * w;
+
+  // 1. the tile's gates, once
+  constexpr int kCols = kStrip / V;
+  constexpr int kRows = kThreads / kCols;
+  const int col = tid % kCols;
+  const int ch = c0 + col * V;
+  if (ch < w) {
+    float ncs[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) ncs[v] = neg_c_softplus(lam[ch + v]);
+    // the inputs of a thread's next position load while its present
+    // position's gates compute
+    float r[V], i[V], x[V];
+    int t = tid / kCols;
+    if (t < len)
+      load_inputs<V>(ra, ia, xc, row0 + static_cast<size_t>(t) * w + ch, r,
+                     i, x);
+    for (; t < len; t += kRows) {
+      float rn[V], in[V], xn[V], a[V], g[V];
+      if (t + kRows < len)
+        load_inputs<V>(ra, ia, xc,
+                       row0 + static_cast<size_t>(t + kRows) * w + ch, rn,
+                       in, xn);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const Gates q = gates(r[v], i[v], x[v], ncs[v]);
+        a[v] = q.a;
+        g[v] = q.b;
+        r[v] = rn[v], i[v] = in[v], x[v] = xn[v];
+      }
+      store_vec<V>(s_a + t * kStrip + col * V, a);
+      store_vec<V>(s_b + t * kStrip + col * V, g);
+    }
+  }
+  __syncthreads();
+
+  const int lane = tid % kStrip;
+  const int c = c0 + lane;
+  if (c >= w) return;
+  const float* a_col = s_a + lane;
+  const float* b_col = s_b + lane;
+  unsigned long long* col_words =
+      words + 2 * (static_cast<size_t>(b) * (chunks - 1) * w + c);
+  const size_t chunk_words = 2 * static_cast<size_t>(w);
+  if (tid < kStrip) {
+    // 2. the chunk's (prod a, local h) from h = 0; the last chunk's is
+    // never read
+    if (chunk + 1 == chunks) return;
+    float prod = 1.f, h = 0.f;
+#pragma unroll 16
+    for (int t = 0; t < kChunk; ++t) {
+      const float a = a_col[t * kStrip];
+      h = __fadd_rn(__fmul_rn(a, h), b_col[t * kStrip]);
+      prod = __fmul_rn(prod, a);
+    }
+    store_pair(col_words + chunk * chunk_words, tagged(prod, tag),
+               tagged(h, tag));
+    return;
+  }
+  // 3. the carry from h0 through every earlier chunk in order, then h
+  float h = h0[static_cast<size_t>(b) * w + c];
+  for (int j0 = 0; j0 < chunk; j0 += kBatch) {
+    ulonglong2 p[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (j0 + k < chunk) p[k] = load_pair(col_words + (j0 + k) * chunk_words);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (j0 + k < chunk) {
+        while (!ready(p[k], tag))
+          p[k] = load_pair(col_words + (j0 + k) * chunk_words);
+        h = __fadd_rn(
+            __fmul_rn(__uint_as_float(static_cast<unsigned>(p[k].x)), h),
+            __uint_as_float(static_cast<unsigned>(p[k].y)));
+      }
+    }
+  }
+  float* out = hs + row0 + c;
+#pragma unroll 16
+  for (int t = 0; t < len; ++t) {
+    h = __fadd_rn(__fmul_rn(a_col[t * kStrip], h), b_col[t * kStrip]);
+    out[static_cast<size_t>(t) * w] = h;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 // ra, ia, xc f32 [B, S, w]; lam f32 [w]; h0 f32 [B, w]; hs f32 [B, S, w];
-// summary: scratch of 2 x B x (ceil(S / 64) - 1) x w floats, null when S
-// <= 64.  Returns the launches' CUDA error, or 0.
+// scratch: null when S <= 64, else 16 bytes of control words and a pair of
+// 64-bit words a (row, chunk but the last, channel): 4 + 4 B (ceil(S / 64)
+// - 1) w floats, zeroed when allocated and kept between calls on one
+// stream.  Returns the launch's CUDA error, or 0.
 extern "C" int rglru_scan_launch(const void* ra, const void* ia,
                                  const void* xc, const void* lam,
-                                 const void* h0, void* hs, void* summary,
+                                 const void* h0, void* hs, void* scratch,
                                  int batch, int seq, int w,
                                  void* stream_ptr) {
   const int chunks = (seq + kChunk - 1) / kChunk;
-  if (batch <= 0 || seq <= 0 || w <= 0 || batch > 65535 ||
-      (chunks > 1 && summary == nullptr))
+  if (batch <= 0 || seq <= 0 || w <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int blocks = (w + kThreads - 1) / kThreads;
   auto* ra_ = static_cast<const float*>(ra);
   auto* ia_ = static_cast<const float*>(ia);
   auto* xc_ = static_cast<const float*>(xc);
   auto* lam_ = static_cast<const float*>(lam);
-  auto* sum_ = static_cast<float*>(summary);
-  if (chunks > 1) {
-    rglru_summary_kernel<<<dim3(blocks, chunks - 1, batch), kThreads, 0,
-                           stream>>>(ra_, ia_, xc_, lam_, sum_, seq, w);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  auto* h0_ = static_cast<const float*>(h0);
+  auto* hs_ = static_cast<float*>(hs);
+  if (chunks == 1) {
+    if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    rglru_short_kernel<<<dim3((w + kShortThreads - 1) / kShortThreads,
+                              batch),
+                         kShortThreads, 0, stream>>>(ra_, ia_, xc_, lam_, h0_,
+                                                     hs_, seq, w);
+    return static_cast<int>(cudaGetLastError());
   }
-  rglru_apply_kernel<<<dim3(blocks, chunks, batch), kThreads, 0, stream>>>(
-      ra_, ia_, xc_, lam_, static_cast<const float*>(h0), sum_,
-      static_cast<float*>(hs), seq, w);
+  const long long tiles = static_cast<long long>(batch) *
+                          ((w + kStrip - 1) / kStrip) * chunks;
+  if (scratch == nullptr || tiles >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* ctrl = static_cast<unsigned*>(scratch);
+  auto* words = reinterpret_cast<unsigned long long*>(ctrl + 4);
+  const bool vec = w % 4 == 0 && aligned16(ra) && aligned16(ia) &&
+                   aligned16(xc);
+  auto kernel = vec ? rglru_scan_kernel<4> : rglru_scan_kernel<1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(tiles), kThreads, kSmem, stream>>>(
+      ra_, ia_, xc_, lam_, h0_, hs_, ctrl, words, batch, seq, w);
   return static_cast<int>(cudaGetLastError());
 }

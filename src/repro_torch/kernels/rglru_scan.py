@@ -10,18 +10,22 @@ log2(S) rounds of ``torch.cat`` over [B, S, w] after some eight full
 passes of elementwise gates.  So the port has a hand-written CUDA kernel
 for Hopper (``csrc/rglru_scan.cu``, built for ``sm_90a`` with ``nvcc`` at
 first use and bound through ``ctypes``) that fuses the gates into a
-chunked linear scan, and beside it ``rglru_scan_plain``, the plain PyTorch
-version: the gates the port computed before (``rglru_gates``), the
-state's h folded into the first step as the reference folds it
-(``repro/models/recurrent.py:321``), then ``linear_scan``.
+chunked linear scan in one pass over its inputs, and beside it
+``rglru_scan_plain``, the plain PyTorch version: the gates the port
+computed before (``rglru_gates``), the state's h folded into the first
+step as the reference folds it (``repro/models/recurrent.py:321``), then
+``linear_scan``.
 
 ``rglru_scan`` dispatches on the device of its inputs: a CPU tensor goes
 to the plain version, a CUDA tensor goes to the kernel, and anything the
-kernel does not take raises -- there is no fallback.  Every call that
-launches the kernel adds one to ``rglru_scan.launches`` (under CUDA graph
-capture to ``.captured``: ``_build.count_launch``): one launch for S <=
-``CHUNK`` (every decode step), two above.  The wrapper reads nothing
-back to the host, so a CUDA graph captures it.
+kernel does not take raises -- there is no fallback.  Every call is one
+kernel launch and adds one to ``rglru_scan.launches`` (under CUDA graph
+capture to ``.captured``: ``_build.count_launch``): for S <= ``CHUNK``
+(every decode step) a plain scan from h0, above it the one-pass kernel,
+whose blocks hand each chunk's (prod a, local h) on through tagged words
+in a scratch the wrapper sizes (``launch_plan``) and keeps per stream.
+The wrapper reads nothing back to the host, so a CUDA graph captures
+it.
 
 Semantics.  ``ra`` and ``ia`` f32 [B, S, w] are the two low-rank gate
 products before their sigmoid, ``(xc @ w_a) @ w_a2`` and
@@ -32,12 +36,12 @@ b = sqrt(max(1 - exp(2 log a), 1e-6)) (sigmoid(ia) xc): h_t = a_t h_{t-1}
 + b_t from h_{-1} = h0.  Returns h [B, S, w].
 
 Numerics (``h_tolerance``).  The kernel scans each chunk of ``CHUNK``
-positions in order and carries across chunks through each chunk's
-(prod a, local h); the plain version runs a Hillis-Steele scan.  Both
-compute h_t = sum_j (prod_{j<k<=t} a_k) b_j (the term j = -1 being h0, with
-its product from 0) as products and sums, so each term carries a relative
-error of at most gamma_n = n u / (1 - n u) (u = 2^-24) on each side, n the
-roundings on its path: the kernel's (t - j) multiplies and at most
+positions in order and carries into a chunk from h0 through every earlier
+chunk's (prod a, local h) in order; the plain version runs a
+Hillis-Steele scan.  Both compute h_t = sum_j (prod_{j<k<=t} a_k) b_j
+(the term j = -1 being h0, with its product from 0) as products and
+sums, so each term carries a relative error of at most gamma_n = n u /
+(1 - n u) (u = 2^-24) on each side, n the roundings on its path: the kernel's (t - j) multiplies and at most
 (t - j + 1) + ceil(S / CHUNK) adds (the carry's multiply by a chunk's
 product counts among the former: the product of L factors takes L - 1);
 the plain version's (t - j) multiplies and ceil(log2 S) + 1 adds.  With
@@ -62,8 +66,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-__all__ = ["CHUNK", "RGLRU_C", "h_tolerance", "linear_scan", "rglru_gates",
-           "rglru_scan", "rglru_scan_plain"]
+__all__ = ["CHUNK", "RGLRU_C", "STRIP", "h_tolerance", "launch_plan",
+           "linear_scan", "rglru_gates", "rglru_scan", "rglru_scan_plain"]
 
 NAME = "rglru_scan"
 NVCC_FLAGS = _build.BASE_FLAGS
@@ -71,6 +75,10 @@ NVCC_FLAGS = _build.BASE_FLAGS
 RGLRU_C = 8.0
 #: positions a chunk of the kernel's scan (csrc/rglru_scan.cu's kChunk)
 CHUNK = 64
+#: channels a tile of the one-pass kernel (csrc/rglru_scan.cu's kStrip)
+STRIP = 64
+#: the scratch's control words (ticket, blocks that took one, epoch, pad)
+_CTRL = 4
 _lib = None
 _SCRATCH: dict = {}
 
@@ -140,6 +148,30 @@ def _check(ra, ia, xc, lam, h0) -> None:
         raise ValueError("rglru_scan needs at least one position")
 
 
+def launch_plan(b: int, s: int, w: int) -> dict:
+    """What the wrapper computes on the host for a launch at [B, S, w]:
+    ``chunks`` of ``CHUNK`` positions; ``tiles``, the one-pass kernel's
+    blocks, each of which takes the next value of its ticket (0 for S <=
+    ``CHUNK``: the plain scan, which takes no scratch); ``words``, the
+    tagged 64-bit words the blocks publish, a (prod a, local h) pair a
+    (row, chunk but the last, channel); ``scratch``, the float32 elements
+    of the scratch: the four control words, then the words.  A word's tag
+    is 32 bits, odd, from a 32-bit epoch the kernel advances each call:
+    2^31 calls on a scratch before a tag recurs.  Raises where the ticket
+    would pass the grid's 2^31 - 1 blocks."""
+    chunks = -(-s // CHUNK)
+    if chunks <= 1:
+        return dict(chunks=chunks, tiles=0, words=0, scratch=0)
+    tiles = b * -(-w // STRIP) * chunks
+    if tiles >= 2 ** 31:
+        raise ValueError(f"rglru_scan takes fewer than 2^31 tiles of "
+                         f"({STRIP} channels, {CHUNK} positions) (got "
+                         f"{tiles})")
+    words = 2 * b * (chunks - 1) * w
+    return dict(chunks=chunks, tiles=tiles, words=words,
+                scratch=_CTRL + 2 * words)
+
+
 def rglru_scan(ra, ia, xc, lam, h0):
     """h [B, S, w] (module docstring).  CPU tensors take
     ``rglru_scan_plain``; CUDA tensors launch the kernel."""
@@ -152,14 +184,14 @@ def rglru_scan(ra, ia, xc, lam, h0):
     h = torch.empty_like(ra)
     if b == 0 or w == 0:
         return h
-    chunks = -(-s // CHUNK)
-    # each chunk's (prod a, local h) but the last's, for the carries
-    summary = (_build.scratch(_SCRATCH, 2 * b * (chunks - 1) * w, ra.device)
-               if chunks > 1 else None)
+    need = launch_plan(b, s, w)["scratch"]
+    # zeroed when allocated; the kernel leaves it ready for the next call
+    scratch = (_build.scratch(_SCRATCH, need, ra.device, zero=True)
+               if need else None)
     err = _load().rglru_scan_launch(
         ra.data_ptr(), ia.data_ptr(), xc.data_ptr(), lam.data_ptr(),
         h0.data_ptr(), h.data_ptr(),
-        None if summary is None else summary.data_ptr(), b, s, w,
+        None if scratch is None else scratch.data_ptr(), b, s, w,
         torch.cuda.current_stream(ra.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "

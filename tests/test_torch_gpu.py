@@ -1784,7 +1784,8 @@ def _rglru_inputs(dev, b, s, w, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,w", [(4, 1, 64), (1, 64, 130), (2, 65, 64),
-                                   (1, 1000, 2560), (3, 129, 256)])
+                                   (1, 1000, 2560), (3, 129, 256),
+                                   (2, 200, 130)])
 def test_rglru_scan_kernel_matches_plain(b, s, w):
     """The RG-LRU kernel on the card within ``h_tolerance`` of its plain
     version, one launch counted a call, a second call bit-identical."""

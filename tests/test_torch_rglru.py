@@ -11,14 +11,17 @@ what the CUDA kernel is compared with on the card, and what surrounds it:
   * ``recurrent.rglru_apply`` / ``rglru_step`` bit-equal to the gates and
     scan the port ran before this kernel (``_old_apply`` / ``_old_step``
     below);
-  * the kernel's two passes emulated in torch -- each chunk of
-    ``CHUNK`` positions' (prod a, local h) from h = 0, the carry into a
-    chunk from h0 through the chunks before it in order, the chunk's
-    scan from it, the gates in the kernel's forms -- within
+  * the kernel's one pass emulated in torch -- each chunk of ``CHUNK``
+    positions' (prod a, local h) from h = 0, the carry into a chunk from
+    h0 through every chunk before it in order, the chunk's scan from it
+    over the same a and b, the gates in the kernel's forms -- within
     ``h_tolerance`` of the plain version, one chunk and several, at S = 1
     and on both sides of a chunk's edge, with forget gates near 1; a carry
     that skips a chunk fails; the plain version in float64 lies within
     the same bound;
+  * the launch's host side (``launch_plan``): chunks, tiles (the
+    ticket's range), published words and scratch at S = 1, 64, 65 and
+    2600, B = 1 and 4;
   * the route rule (``recurrent.plain_route``): under autograd and on
     the meta device the plain version; otherwise the wrapper;
   * the wrapper's refusals (``_check``, and a device it does not run on).
@@ -180,7 +183,7 @@ def test_apply_and_step_are_bit_equal_to_the_old_scan():
 
 
 # ---------------------------------------------------------------------------
-# the kernel's two passes, and the bound they are held to
+# the kernel's pass, and the bound it is held to
 # ---------------------------------------------------------------------------
 
 
@@ -202,11 +205,12 @@ def _inputs(b, s, w, seed, near_one=False):
 
 
 def _emulated_kernel(ra, ia, xc, lam, h0, skip=None):
-    """The CUDA kernel's two passes in torch, over every (row, channel)
-    at once: the gates in the kernel's forms; each chunk but the last's
-    (prod a, local h) from h = 0; a chunk's carry from h0 through those
-    summaries in order (``skip``: leaving chunk ``skip``'s out), then its
-    scan from it.  Returns h [B, S, w]."""
+    """The CUDA kernel in torch, over every (row, channel) at once: the
+    gates in the kernel's forms, computed once; each chunk but the last's
+    (prod a, local h) from h = 0, as a tile publishes it; a chunk's carry
+    from h0 through the pairs of every earlier chunk in order (``skip``:
+    leaving chunk ``skip``'s out), then its scan from it over the same a
+    and b.  Returns h [B, S, w]."""
     sig = lambda x: 1.0 / (1.0 + torch.exp(-x))
     sp = torch.where(lam > 20.0, lam, torch.log1p(torch.exp(lam)))
     log_a = (-8.0 * sp) * sig(ra)
@@ -255,6 +259,31 @@ def test_emulated_passes_within_the_bound(b, s, w, near_one):
     assert _within(exact, want, tol)
     if s > RS.CHUNK:
         assert not _within(_emulated_kernel(*args, skip=0), want, tol)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("s", [1, 64, 65, 2600])
+def test_launch_plan(b, s):
+    """One chunk takes the plain scan and no scratch; past it a tile a
+    (row, ``STRIP`` channels, chunk), a pair of words a (row, chunk but
+    the last, channel), four control floats before them."""
+    w = 2560
+    plan = RS.launch_plan(b, s, w)
+    chunks = {1: 1, 64: 1, 65: 2, 2600: 41}[s]
+    assert plan["chunks"] == chunks
+    if chunks == 1:
+        assert plan == dict(chunks=1, tiles=0, words=0, scratch=0)
+        return
+    assert plan["tiles"] == b * (w // RS.STRIP) * chunks
+    assert plan["words"] == 2 * b * (chunks - 1) * w
+    # the 64-bit words start 16 bytes in: each pair is 16-byte aligned
+    assert plan["scratch"] == 4 + 2 * plan["words"]
+
+
+def test_launch_plan_refuses_a_ticket_past_the_grid():
+    assert RS.launch_plan(1, 65, 2560)["tiles"] == 2 * 2560 // RS.STRIP
+    with pytest.raises(ValueError, match="2\\^31"):
+        RS.launch_plan(2 ** 14, 2 ** 20, 2 ** 12)
 
 
 # ---------------------------------------------------------------------------
