@@ -325,11 +325,13 @@ non-zero):
      step 8 with 4 steps run, and the resumed losses within
      ``DRILL_RTOL`` of an uninterrupted run's (in this process); the
      checkpoint directory is a temporary one, removed afterwards.
-     (Under autograd every recurrence takes its plain version, so phase
-     39's xlstm-1.3b and recurrentgemma-2b steps launch no recurrence
-     kernel.)
-     None of phases 37-40 launches a hand-written kernel (the reference's
-     training path reaches no ``pallas_call``): their counts must stay 0;
+     Under autograd the mLSTM's dense form and the sLSTM run their
+     forward kernels with the saves and their backward kernels, so phase
+     39's xlstm-1.3b step launches all four (its counts printed); the
+     RG-LRU and the mLSTM's paged branch take their plain versions.
+     Phases 37, 38, 40 and 41 launch no hand-written kernel (the
+     reference's training path reaches no ``pallas_call``): their counts
+     must stay 0, as must every other config's recurrence counts in 39;
  41. phase 37's cell through the mesh step (``train.step.make_train_step``
      with a ``DeviceMesh``): a one-rank NCCL process group, the (1, 1)
      ("data", "model") mesh of ``launch.mesh.make_host_mesh``, the state
@@ -395,7 +397,34 @@ non-zero):
      each bit-identical to the eager call on the same data.  Then its
      time at both shapes beside its plain version and its bytes bound,
      and an empty kernel's device time beside the decode's (the floor a
-     standalone launch cannot go under); ``library_ms`` null.
+     standalone launch cannot go under); ``library_ms`` null;
+ 47. (right after phase 45) the mLSTM and sLSTM backward kernels
+     (``mlstm_scan_backward``, ``slstm_scan_backward``) vs their plain
+     versions at phase 48's shape (B = 4, S = 256: the mLSTM's 4 heads of
+     1024 from the zero state and a carried one, the sLSTM's 4 heads of
+     512 from both with r_gates at fan-in hd) and at reduced
+     xlstm-1.3b's (4 heads of 32 and of 16, S = 16, r_gates at the
+     reference's fan-in nh): each forward with its saves bit-identical
+     to the forward without, each gradient within ``grad_check``'s bar
+     (the distance from float64 runs of the plain forward and backward
+     at most ``GRAD_MULT`` times the float32 plain run's), the backward's
+     launches counted (4 and 1 a call) and a second call bit-identical;
+     the sLSTM at the reference's init and full width (chaotic: its
+     gradient leaves float32's range over the sequence) one position at
+     a time, B (S - 1) rows of two positions from the saved states with
+     seeded incoming gradients.  Then each backward's time a call and on
+     the device beside its plain version and its bound (float32 products
+     at 67 TFLOP/s; bytes at 3.35 TB/s), the mLSTM's forward with and
+     without the saves, and autograd of the per-position mLSTM loop (the
+     route training took before) at S = ``MLSTM_LOOP_S``; ``library_ms``
+     null;
+ 48. (after phase 41) full-width, full-depth xlstm-1.3b (48 layers,
+     3.47 B parameters) trained as phase 37: remat, ``XLSTM_TRAIN_STATE``
+     (float32) AdamW state, B = 4, S = 256, six steps, the second on
+     batch 0 again, every sLSTM's r_gates redrawn at fan-in hd
+     (``SLSTM_FAN_IN_REF``: at the reference's the backward overflows
+     float32); phase 37's bars and numbers, and each recurrence kernel's
+     launches over its seven steps (each must be > 0).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -608,9 +637,20 @@ def _plan(pa, case):
                          case["b"], case["kv"], groups) + (groups,)
 
 
-def _reset_counts(kernels) -> None:
+def _wrappers(kernels) -> dict:
+    """{name: wrapper} of every counted wrapper: each kernel module's, and
+    its backward's where it has one."""
+    out = {}
     for k in kernels:
-        getattr(k, k.NAME).launches = 0
+        for name in (k.NAME, k.NAME + "_backward"):
+            if hasattr(k, name):
+                out[name] = getattr(k, name)
+    return out
+
+
+def _reset_counts(kernels) -> None:
+    for fn in _wrappers(kernels).values():
+        fn.launches = 0
 
 
 def _mix_requests(S, cfg, rng, n_req, prompt, new):
@@ -3079,6 +3119,373 @@ def phase_rglru(rg_) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the recurrences' backward kernels, at xlstm-1.3b's training shape
+# ---------------------------------------------------------------------------
+
+# phase 48's batch (TRAIN_BATCH x TRAIN_SEQ); reduced xlstm-1.3b's cells
+# (d 64: the mLSTM's 4 heads of 32, the sLSTM's 4 heads of 16) at phase
+# 39's 16 positions
+BWD_REDUCED_S = 16
+MLSTM_REDUCED_HD, SLSTM_REDUCED_HD = 32, 16
+# the sLSTM's r_gates: the reference's init draws them with fan-in nh
+# (std 0.5 at 4 heads of 512), where the recurrence is chaotic and its
+# backward leaves float32's range within some 100 positions (gradients
+# NaN over 256 positions, from wx = 0 too: measured on the CPU in
+# float32); phase 48 draws them with fan-in hd (std 0.044), where a
+# float32 forward stays within 5e-7 of float64 over 256 positions and the
+# gradients stay O(1).  At the reference's scale the backward is held one
+# position at a time (``_slstm_windows``), at phase 48's over a sequence
+SLSTM_FAN_IN_REF = SLSTM_NH
+# autograd of the mLSTM's per-position loop (the route training took
+# before the backward kernel) is timed at this S: at S = 256 its tape is
+# 2 x 16.8 MB a row and position, 34 GB a call at B = 4
+MLSTM_LOOP_S = 64
+
+
+def _bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _counters(ms_, ss_) -> dict:
+    """The four wrappers the recurrences' training path counts in."""
+    return {"mlstm_scan": ms_.mlstm_scan,
+            "mlstm_scan_backward": ms_.mlstm_scan_backward,
+            "slstm_scan": ss_.slstm_scan,
+            "slstm_scan_backward": ss_.slstm_scan_backward}
+
+
+def _mlstm_bwd_data(b, s, hd, seed, carried):
+    """Seeded q, k, v [B, S, 4, hd] ~ N(0, 1), input gates ~ N(0, 1), log
+    forget gates logsigmoid(N(2, 1)) (``_mlstm_data``'s draws), the zero
+    state or a carried one (C, n ~ N(0, 0.3^2), m ~ N(0, 1)), and the
+    output gradient dh ~ N(0, 1)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    nh = MLSTM_NH
+    q, k, v, i = r(b, s, nh, hd), r(b, s, nh, hd), r(b, s, nh, hd), \
+        r(b, s, nh)
+    f = torch.nn.functional.logsigmoid(r(b, s, nh) + 2.0)
+    if carried:
+        st = (r(b, nh, hd, hd).mul_(0.3), r(b, nh, hd).mul_(0.3), r(b, nh))
+    else:
+        st = (torch.zeros((b, nh, hd, hd), device=DEV),
+              torch.zeros((b, nh, hd), device=DEV),
+              torch.full((b, nh), -1e30, device=DEV))
+    return (q, k, v, i, f) + st, r(b, s, nh, hd)
+
+
+def _mlstm_forward_saved(ms_, args, save):
+    """The chunkwise forward on a dense state, with or without the
+    backward's saves: (h, C, n, m, saves)."""
+    q, k, v, i, f, C, n, m = args
+    b, _, nh, hd = q.shape
+    rows = torch.arange(b, device=DEV)
+    out = torch.empty((b, nh * hd * hd), device=DEV)
+    saves = ms_._saves(q) if save else None
+    h, n1, m1 = ms_._launch(q, k, v, i, f, n, m,
+                            C.reshape(b, -1).contiguous(), rows,
+                            [(out, rows)], chunked=True, save=saves)
+    return h, out, n1, m1, saves
+
+
+def _grad_line(chk) -> tuple:
+    """(text, all within, largest distance, largest share of the bar)."""
+    ok = all(d <= bar for d, bar in chk.values())
+    text = ", ".join(f"{k} {d:.3g} (bar {bar:.3g})" for k, (d, bar)
+                     in chk.items())
+    return (text, ok, max(d for d, _ in chk.values()),
+            max(d / bar for d, bar in chk.values()))
+
+
+def _mlstm_bwd_case(ms_, name, b, s, hd, seed, carried) -> dict:
+    """The mLSTM backward kernel on one case: the forward with its saves
+    bit-identical to the forward without; the backward's four launches,
+    a second call bit-identical; each gradient within ``grad_check``'s bar
+    against float32 and float64 runs of the plain forward and backward
+    (``mlstm_save_plain``, ``mlstm_backward_plain``)."""
+    args, dh = _mlstm_bwd_data(b, s, hd, seed, carried)
+    plain_fwd = _mlstm_forward_saved(ms_, args, False)
+    h, C1, n1, m1, saves = _mlstm_forward_saved(ms_, args, True)
+    same = all(_bits(x, y) for x, y in zip(plain_fwd[:4], (h, C1, n1, m1)))
+    before = ms_.mlstm_scan_backward.launches
+    q, k, v, i, f, _, _, m0 = args
+    runs = [ms_.mlstm_scan_backward(q, k, v, i, f, m0, h, dh, saves)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = ms_.mlstm_scan_backward.launches - before
+    again = all(_bits(x, y) for x, y in zip(*runs))
+
+    def plain(dt):
+        x = [t.to(dt) for t in args]
+        _, _, _, hp, sv = ms_.mlstm_save_plain(*x)
+        return ms_.mlstm_backward_plain(*x[:5], x[7], hp, dh.to(dt), sv)
+
+    chk = ms_.grad_check(runs[0], plain(torch.float32), plain(torch.float64))
+    text, within, err, share = _grad_line(chk)
+    binds = float((saves[2].abs() < 1).float().mean())
+    ok = same and launches == 8 and again and within
+    print(f"mlstm {name}: forward with saves bit-identical {same}; "
+          f"|n . q| < 1 (the clamp binds) at {binds:.3f} of the positions; "
+          f"{text}; within {within} (at most {share:.3g} of a bar); "
+          f"repeat bit-identical {again}; launches {launches} (want 8) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail(f"the mLSTM backward kernel disagrees ({name})")
+    return dict(err=err, share=share, clamp_binds=binds, args=args, dh=dh,
+                h=h, saves=saves)
+
+
+def _slstm_fwd_saved(ss_, wx, r, st, save):
+    saves = ss_._saves(wx) if save else None
+    return ss_._launch(wx, r, *st, save=saves), saves
+
+
+def _slstm_r(nh, hd, fan_in, seed):
+    """Seeded r_gates [nh, hd, 4 hd] ~ N(0, 1 / fan_in): the reference's
+    init takes fan-in nh (``SLSTM_FAN_IN_REF``), phase 48 hd."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn((nh, hd, 4 * hd), generator=g, device=DEV) \
+        .mul_(fan_in ** -0.5)
+
+
+def _slstm_bwd_case(ss_, name, b, s, hd, seed, fan_in, carried) -> dict:
+    """The sLSTM backward kernel over a whole sequence: the forward with
+    its saves bit-identical to the forward without; one launch a call, a
+    second call bit-identical; dwx and dr within ``grad_check``'s bar
+    against float32 and float64 runs of the plain forward and backward."""
+    nh = SLSTM_NH
+    wx = _slstm_data(b, s, nh, hd, seed)[0]
+    r = _slstm_r(nh, hd, fan_in, seed + 1)
+    st = _slstm_start(ss_, b, nh, hd, r, seed + 2, carried)
+    dh = torch.randn((b, s, nh, hd), generator=torch.Generator(
+        device=DEV).manual_seed(seed + 3), device=DEV)
+    out0, _ = _slstm_fwd_saved(ss_, wx, r, st, False)
+    out1, saves = _slstm_fwd_saved(ss_, wx, r, st, True)
+    same = all(_bits(x, y) for x, y in zip(out0, out1))
+    before = ss_.slstm_scan_backward.launches
+    runs = [ss_.slstm_scan_backward(wx, r, *st, out1[0], saves, dh)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = ss_.slstm_scan_backward.launches - before
+    again = all(_bits(x, y) for x, y in zip(runs[0][:2], runs[1][:2]))
+
+    def plain(dt):
+        x = [t.to(dt) for t in (wx, r) + tuple(st)]
+        hs, *_, sv = ss_.slstm_save_plain(*x)
+        return ss_.slstm_backward_plain(*x, hs, sv, dh.to(dt))[:2]
+
+    chk = ss_.grad_check(runs[0][:2], plain(torch.float32),
+                         plain(torch.float64))
+    text, within, err, share = _grad_line(chk)
+    ok = same and launches == 2 and again and within
+    print(f"slstm {name}: forward with saves bit-identical {same}; {text}; "
+          f"within {within} (at most {share:.3g} of a bar); repeat "
+          f"bit-identical {again}; launches {launches} (want 2) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail(f"the sLSTM backward kernel disagrees ({name})")
+    return dict(err=err, share=share, wx=wx, r=r, st=st, h=out1[0],
+                saves=saves, dh=dh)
+
+
+def _slstm_windows(ss_, name, b, s, hd, seed) -> dict:
+    """The sLSTM backward one position at a time from the same saved
+    states, at the reference's init (r_gates fan-in nh), where the
+    recurrence is chaotic and its gradient over a long sequence leaves
+    float32's range: the kernel's forward saves a sequence; then every
+    pair of positions (t, t + 1) is a row of one launch of B (S - 1) rows
+    of two positions, from the saved state before t, with seeded incoming
+    gradients (the output's at t and t + 1, the carried dc, dn, dm), so
+    t's gate gradients take one recurrent product of the kernel's own;
+    dwx is held to ``grad_check``'s bar against the plain backward on the
+    same rows in float32 and float64."""
+    nh = SLSTM_NH
+    wx = _slstm_data(b, s, nh, hd, seed)[0]
+    r = _slstm_r(nh, hd, SLSTM_FAN_IN_REF, seed + 1)
+    st = _slstm_start(ss_, b, nh, hd, r, seed + 2, False)
+    (hs, *_), saves = _slstm_fwd_saved(ss_, wx, r, st, True)
+    win = lambda x: torch.stack([x[:, t:t + 2] for t in range(s - 1)]) \
+        .reshape(-1, 2, *x.shape[2:])
+    before = lambda x, x0: torch.stack(
+        [x0] + [x[:, t - 1] for t in range(1, s - 1)]).reshape(
+            -1, *x0.shape[1:])
+    sv = [win(x) for x in saves]
+    c0, n0, m0 = (before(saves[j + 1], st[j]) for j in (0, 1, 2))
+    h0 = before(hs, st[3])
+    g = torch.Generator(device=DEV).manual_seed(seed + 3)
+    rows = c0.shape[0]
+    dh_w = torch.randn((rows, 2) + c0.shape[1:], generator=g, device=DEV)
+    carries = tuple(torch.randn(c0.shape, generator=g, device=DEV)
+                    for _ in range(3))
+    args = (win(wx), r, c0, n0, m0, h0, win(hs))
+    got = ss_.slstm_scan_backward(*args, sv, dh_w, carries)[0]
+
+    def plain(dt):
+        x = [t.to(dt) for t in args]
+        return ss_.slstm_backward_plain(*x, [t.to(dt) for t in sv],
+                                        dh_w.to(dt),
+                                        tuple(t.to(dt) for t in carries))[0]
+
+    chk = ss_.grad_check((got,), (plain(torch.float32),),
+                         (plain(torch.float64),))
+    text, within, err, share = _grad_line(chk)
+    print(f"slstm {name}, one position at a time ({rows} rows of two "
+          f"positions): {text}; within {within} (at most {share:.3g} of a "
+          f"bar) {'ok' if within else 'FAIL'}", flush=True)
+    if not within:
+        _fail(f"the sLSTM backward kernel disagrees one position at a time "
+              f"({name})")
+    return dict(err=err, share=share)
+
+
+def _mlstm_bwd_bound(b, s, nh, hd):
+    """(bound ms, bound_by, GB, GFLOP) of the mLSTM backward: q, k, v, h,
+    dh read and dq, dk, dv written, the saved C boundaries read (nch hd^2
+    a row and head), the gates and saved n, n . q; the chunk products,
+    dC^T k~ and the carried update (the dv pass), C dnum and dC v (the
+    dq / dk pass), 2 hd^2 each a position, row and head, in float32 at
+    67 TFLOP/s (the in-chunk pair terms, 2 hd a pair, beside them)."""
+    nch = -(-s // 16)
+    pairs = sum(min(16, s - c) * (min(16, s - c) + 1) // 2
+                for c in range(0, s, 16))
+    gb = (8 * b * s * nh * hd + b * nh * nch * (hd * hd + hd)
+          + 6 * b * s * nh) * 4 / 1e9
+    flops = b * nh * (8 * s * hd * hd + 8 * pairs * hd)
+    t_bytes = gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", gb, flops / 1e9)
+
+
+def _slstm_bwd_bound(b, s, nh, hd):
+    """(bound ms, bound_by, GB, GFLOP) of the sLSTM backward kernel: r
+    read once, the output gradient, the saved pre-activations and state
+    read, dwx written; the recurrent products, 2 B S nh hd 4hd, in
+    float32 at 67 TFLOP/s (d r_gates, a plain product after the kernel,
+    is not the kernel's)."""
+    d = nh * hd
+    gb = (nh * hd * 4 * hd + b * s * (d + 4 * d + 3 * d + 4 * d)
+          + 3 * b * d) * 4 / 1e9
+    flops = 2 * b * s * nh * hd * 4 * hd
+    t_bytes = gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", gb, flops / 1e9)
+
+
+def _bwd_timing(name, kernel, plain, bound, flush, iters=10) -> dict:
+    ms = _time(kernel, iters, flush)
+    dev_ms, how, names = _device_ms(kernel, iters, flush)
+    plain_ms = _time(plain, 2, flush)
+    bound_ms, bound_by, gb, gflop = bound
+    print(f"{name}: kernel {ms:.4f} ms a call (events), {dev_ms:.4f} ms on "
+          f"the device ({how}: {_ms_list(names)}); plain backward "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{gb:.4f} GB at 3.35 TB/s, {gflop:.3f} GFLOP at 67 TFLOP/s) -> "
+          f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device; no "
+          "single PyTorch call computes it (library_ms null)", flush=True)
+    return dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_backward(ms_, ss_) -> dict:
+    """Phase 47: the mLSTM and sLSTM backward kernels against their plain
+    versions at xlstm-1.3b's width and at the reduced config's, then
+    their timing at phase 48's shape (B = 4, S = 256)."""
+    print("== phase 47: the mLSTM and sLSTM backward kernels vs their "
+          "plain versions on the card, and their timing (xlstm-1.3b's "
+          "training shape)", flush=True)
+    counted = {k: c.launches for k, c in _counters(ms_, ss_).items()}
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    res = {"mlstm": {}, "slstm": {}}
+    full = {}
+    for carried in (False, True):
+        state = "a carried state" if carried else "the zero state"
+        full[carried] = _mlstm_bwd_case(
+            ms_, f"B={b} S={s} 4 heads of {MLSTM_HD} from {state}", b, s,
+            MLSTM_HD, SEED + 470 + carried, carried)
+        _mlstm_bwd_case(ms_, f"reduced B={b} S={BWD_REDUCED_S} 4 heads of "
+                        f"{MLSTM_REDUCED_HD} from {state}", b, BWD_REDUCED_S,
+                        MLSTM_REDUCED_HD, SEED + 472 + carried, carried)
+    res["mlstm"]["max_abs_err"] = max(c["err"] for c in full.values())
+    seq = {}
+    for carried in (False, True):
+        state = "a carried state" if carried else "the zero state"
+        seq[carried] = _slstm_bwd_case(
+            ss_, f"B={b} S={s} 4 heads of {SLSTM_HD} from {state}, r_gates "
+            f"fan-in hd (phase 48's; the whole sequence)", b, s, SLSTM_HD,
+            SEED + 475 + carried, SLSTM_HD, carried)
+        _slstm_bwd_case(ss_, f"reduced B={b} S={BWD_REDUCED_S} 4 heads of "
+                        f"{SLSTM_REDUCED_HD} from {state}, r_gates fan-in "
+                        "nh (the reference's init; the whole sequence)", b,
+                        BWD_REDUCED_S, SLSTM_REDUCED_HD, SEED + 477 + carried,
+                        SLSTM_FAN_IN_REF, carried)
+    win = _slstm_windows(ss_, f"B={b} S={s} 4 heads of {SLSTM_HD}, r_gates "
+                         "fan-in nh (the reference's init)", b, s, SLSTM_HD,
+                         SEED + 479)
+    res["slstm"]["max_abs_err"] = max(win["err"], *(c["err"] for c in
+                                                     seq.values()))
+    calm = seq[False]
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    case = full[False]
+    q, k, v, i, f, _, _, m0 = case["args"]
+    mb = (q, k, v, i, f, m0, case["h"], case["dh"], case["saves"])
+    fwd = {key: _time(lambda: _mlstm_forward_saved(ms_, case["args"], key),
+                      10, flush) for key in (False, True)}
+    print(f"mlstm forward B={b} S={s}: {fwd[False]:.4f} ms a call without "
+          f"the saves, {fwd[True]:.4f} ms with them (C and n before each of "
+          f"{-(-s // 16)} chunks: "
+          f"{case['saves'][0].numel() * 4 / 1e9:.3f} GB)", flush=True)
+    res["mlstm"].update(_bwd_timing(
+        f"mlstm backward B={b} S={s} 4 heads of {MLSTM_HD}",
+        lambda: ms_.mlstm_scan_backward(*mb),
+        lambda: ms_.mlstm_backward_plain(*mb),
+        _mlstm_bwd_bound(b, s, MLSTM_NH, MLSTM_HD), flush))
+    res["mlstm"].update(forward_ms=fwd[False], forward_saves_ms=fwd[True],
+                        saves_gb=case["saves"][0].numel() * 4 / 1e9)
+    # the route training took before: autograd of the per-position loop
+    sl = MLSTM_LOOP_S
+    cut = lambda t: t[:, :sl].contiguous() if t.dim() > 2 and \
+        t.shape[1] == s else t
+    args = [cut(t) for t in case["args"]]
+    loop = []
+    for _ in range(3):
+        ins = [t.clone().requires_grad_(j < 5) for j, t in enumerate(args)]
+        _, _, _, hl = ms_.mlstm_loop(ins[5], ins[6], ins[7], *ins[:5])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        hl.backward(case["dh"][:, :sl])
+        ev[1].record()
+        torch.cuda.synchronize()
+        loop.append(ev[0].elapsed_time(ev[1]))
+        del ins, hl
+    kern = _time(lambda: ms_.mlstm_scan_backward(
+        *[cut(t) for t in mb[:8]], _mlstm_forward_saved(ms_, args, True)[4]),
+        5, flush)
+    print(f"  at S={sl}: autograd of the per-position loop (the route "
+          f"training took before) {np.median(loop[1:]):.3f} ms a backward, "
+          f"the backward kernel with the forward that saves for it "
+          f"{kern:.4f} ms", flush=True)
+    res["mlstm"].update(loop_autograd_ms=float(np.median(loop[1:])),
+                        loop_s=sl)
+    sb = (calm["wx"], calm["r"], *calm["st"], calm["h"], calm["saves"],
+          calm["dh"])
+    res["slstm"].update(_bwd_timing(
+        f"slstm backward B={b} S={s} 4 heads of {SLSTM_HD}",
+        lambda: ss_.slstm_scan_backward(*sb),
+        lambda: ss_.slstm_backward_plain(*sb),
+        _slstm_bwd_bound(b, s, SLSTM_NH, SLSTM_HD), flush))
+    for key, c in _counters(ms_, ss_).items():
+        c.launches = counted[key]       # checks and timing not counted
+    del full, seq, calm, case, mb, sb, flush
+    _check_freed(torch.cuda.memory_allocated())
+    return res
+
+
+# ---------------------------------------------------------------------------
 # routed MoE: the routed-expert kernel, olmoe-1b-7b
 # ---------------------------------------------------------------------------
 
@@ -4530,7 +4937,7 @@ def _leaf_sums(params) -> dict:
 
 
 def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
-                moe_active=1.0, mesh=None, mesh_fwd=None):
+                moe_active=1.0, mesh=None, mesh_fwd=None, prepare=None):
     """Train ``cfg`` from a seeded init through ``make_train_step`` on
     ``batches`` (indices of ``batch_at``): every loss and gradient norm
     finite, the second step's loss (the first batch again) below the
@@ -4538,11 +4945,14 @@ def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
     steps, then one more step split into ``_grads`` and ``optim.update``
     timed on CUDA events.  With a ``mesh`` the state and the step are the
     mesh step's (DTensors; ``mesh_fwd`` maps the parameters to
-    ``forward``'s mesh arguments for the split step).  Returns the
-    cell's numbers."""
+    ``forward``'s mesh arguments for the split step; ``prepare``
+    changes the initialised parameters in place).  Returns the cell's
+    numbers."""
     torch.cuda.reset_peak_memory_stats()
     state = TS.init_state(cfg, ocfg, seed=SEED, device=DEV, mesh=mesh)
     params = state["params"]
+    if prepare is not None:
+        prepare(params)
     n = sum(p.numel() for p in params.parameters())
     n_expert = sum(p.numel() for nm, p in params.named_parameters()
                    if nm.split(".")[-1] in ("wi_gate", "wi_up", "wo")
@@ -4642,6 +5052,44 @@ def phase_train_olmoe(C, TS, TO, data):
                        moe_active=cfg.moe.top_k / cfg.moe.num_experts)
 
 
+# phase 48's AdamW state: float32 (weights, gradients, m and v: 4 x 13.88
+# GB = 55.5 GB of 80), reckoned to leave room for one repeat's mLSTM saves
+# (7 layers x 1.07 GB at B = 4, S = 256) and the step's activations
+XLSTM_TRAIN_STATE = "float32"
+
+
+def _slstm_fan_in_hd(params) -> None:
+    """Redraw every sLSTM cell's r_gates from N(0, 1 / hd), seeded (the
+    reference's fan-in nh makes the backward leave float32's range:
+    ``SLSTM_FAN_IN_REF``)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 48)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.endswith("r_gates"):
+                p.normal_(0.0, p.shape[-2] ** -0.5, generator=g)
+
+
+def phase_train_xlstm(C, TS, TO, data, ms_, ss_):
+    print("== phase 48: full-width, full-depth xlstm-1.3b training (remat, "
+          f"{XLSTM_TRAIN_STATE} AdamW state; the mLSTM and sLSTM through "
+          "their backward kernels)", flush=True)
+    counters = _counters(ms_, ss_)
+    for c in counters.values():
+        c.launches = 0
+    out = _train_cell(TS, TO, data, "xlstm-1.3b", C.get("xlstm-1.3b"),
+                      TO.OptConfig(**FULL_OPT, state_dtype=XLSTM_TRAIN_STATE),
+                      accum=1, batches=[0, 0, 1, 2, 3, 4],
+                      prepare=_slstm_fan_in_hd)
+    out.pop("leaf_sums")
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    print(f"xlstm-1.3b: kernel launches over its 7 steps (6 and the timed "
+          f"one): {out['launches']}", flush=True)
+    if not all(out["launches"].values()):
+        _fail(f"xlstm-1.3b training did not run every recurrence kernel: "
+              f"{out['launches']}")
+    return out
+
+
 def _params_on_card(mdl, params, cfg):
     """A copy of the CPU parameters ``params`` on the card."""
     card = mdl.Transformer(cfg, DEV)
@@ -4651,7 +5099,7 @@ def _params_on_card(mdl, params, cfg):
     return card
 
 
-def phase_train_parity(C, mdl, TS, TO, data):
+def phase_train_parity(C, mdl, TS, TO, data, counters):
     print("== phase 39: the train step on the card vs the CPU (every "
           "reduced architecture; int8 state on olmoe-1b-7b)", flush=True)
     out = {}
@@ -4668,7 +5116,14 @@ def phase_train_parity(C, mdl, TS, TO, data):
                                               seq_len=16), cfg, 0)
         step = TS.make_train_step(cfg, ocfg)
         cpu, mc = step(cpu, batch)
+        before = {k: c.launches for k, c in counters.items()}
         card, mg = step(card, batch)
+        ran = {k: c.launches - before[k] for k, c in counters.items()}
+        # the xLSTM's recurrences through their kernels, forward and
+        # backward; no other config launches a recurrence kernel
+        if (not all(ran.values()) if name == "xlstm-1.3b"
+                else any(ran.values())):
+            _fail(f"{name}: recurrence kernel launches {ran}")
         lr = float(mc["lr"])
         loss_d = abs(float(mg["loss"]) - float(mc["loss"]))
         gn_d = abs(float(mg["grad_norm"]) - float(mc["grad_norm"]))
@@ -4704,6 +5159,7 @@ def phase_train_parity(C, mdl, TS, TO, data):
             _fail(f"{name}: int8 codes parted: {same} of {n_codes}")
         out[f"{name} {dtype}"] = dict(
             loss=float(mg["loss"]), loss_delta=loss_d, grad_norm_delta=gn_d,
+            **({"launches": ran} if any(ran.values()) else {}),
             worst_param_delta_of_step=worst, beyond_fine=far,
             **({"codes_equal": {k: v / n_codes for k, v in same.items()}}
                if dtype == "int8" else {}))
@@ -5062,6 +5518,8 @@ def main() -> int:
                    S, memtier, cori, telemetry, kernels)
     mlstm = timed("mlstm_scan check and timing", phase_mlstm, ms_)
     slstm = timed("slstm_scan check and timing", phase_slstm, ss_)
+    bwd = timed("backward kernels check and timing", phase_backward, ms_,
+                ss_)
     xlstm = timed("xlstm serving", phase_xlstm, C, mdl, pa, ms_, ss_, S,
                   memtier, cori, telemetry, kernels)
     timed("recurrent parity", phase_recurrent_parity, C, mdl, S, memtier,
@@ -5097,25 +5555,35 @@ def main() -> int:
     # the dry-run traces on the CPU beside the training phases (phase 42)
     dryrun_proc = start_dryrun(src)
     try:
-        # training runs none of the hand-written kernels (the reference's
-        # training path reaches no pallas_call): the counts stay 0
+        # training reaches no pallas_call in the reference: phases 37, 38,
+        # 40 and 41 launch none of the hand-written kernels (the counts
+        # stay 0); only the xLSTM's recurrences have backward kernels of
+        # the port's own (phases 39 and 48 count them)
+        def none_launched(what):
+            launched = {k: fn.launches for k, fn in
+                        _wrappers(kernels).items()}
+            if any(launched.values()):
+                _fail(f"{what} launched a kernel: {launched}")
+
         _reset_counts(kernels)
         train = {
             "paligemma-3b": timed("paligemma training",
                                   phase_train_paligemma, C, TS, TO, data),
             "olmoe-1b-7b": timed("olmoe training", phase_train_olmoe, C, TS,
-                                 TO, data),
-            "parity": timed("train parity", phase_train_parity, C, mdl, TS,
-                            TO, data),
-            "drill": timed("restart drill", phase_restart_drill, src,
-                           launch_train, supervisor)}
+                                 TO, data)}
+        none_launched("phases 37-38")
+        train["parity"] = timed("train parity", phase_train_parity, C, mdl,
+                                TS, TO, data, _counters(ms_, ss_))
+        _reset_counts(kernels)
+        train["drill"] = timed("restart drill", phase_restart_drill, src,
+                               launch_train, supervisor)
         train["mesh"] = timed("mesh step", phase_train_mesh, C, mdl, TS, TO,
                               SH, LM, data, card, train["paligemma-3b"])
         train["paligemma-3b"].pop("leaf_sums")
         train["olmoe-1b-7b"].pop("leaf_sums")
-        launched = {k.NAME: getattr(k, k.NAME).launches for k in kernels}
-        if any(launched.values()):
-            _fail(f"the training phases launched a kernel: {launched}")
+        none_launched("phases 40-41")
+        train["xlstm-1.3b"] = timed("xlstm training", phase_train_xlstm, C,
+                                    TS, TO, data, ms_, ss_)
         dry = timed("dry-run", phase_dryrun, dryrun_proc, D, card,
                     train["mesh"])
     finally:
@@ -5131,7 +5599,8 @@ def main() -> int:
           f"chunked {gpiped}; traffic "
           f"{traffic}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
-          f"{xlstm}; mlstm_scan {mlstm}; slstm_scan {slstm}; rglru_scan "
+          f"{xlstm}; mlstm_scan {mlstm}; slstm_scan {slstm}; backward "
+          f"kernels {bwd}; rglru_scan "
           f"{rglru}; olmoe {olmoe}; musicgen "
           f"{musicgen}; nemotron "
           f"{nemotron}; paligemma {paligemma}; training {train}; batcher "
@@ -5270,7 +5739,31 @@ def main() -> int:
              also={"recurrentgemma-2b decode B=4 S=1 (phase 46)":
                    rglru["decode"],
                    "recurrentgemma-2b eager route (phase 18)": dict(
-                       launches=rgemma["eager"]["rglru_launches"])})]}),
+                       launches=rgemma["eager"]["rglru_launches"])}),
+        dict(name="mlstm_scan_backward", route="cuda",
+             source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+             replaces="src/repro/models/recurrent.py:140",
+             note="no Pallas kernel: jax.grad of mlstm_apply's lax.scan "
+             "(:140) over _mlstm_cell (:85-99)",
+             launches=train["xlstm-1.3b"]["launches"]["mlstm_scan_backward"],
+             **bwd["mlstm"],
+             shape=f"xlstm-1.3b training: B={TRAIN_BATCH}, "
+             f"S={TRAIN_SEQ}, 4 heads of {MLSTM_HD} (phases 47, 48; "
+             "launches: phase 48's 7 steps, 4 a layer and step; "
+             "max_abs_err: the largest gradient distance from the float64 "
+             "plain run)"),
+        dict(name="slstm_scan_backward", route="cuda",
+             source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+             replaces="src/repro/models/recurrent.py:237",
+             note="no Pallas kernel: jax.grad of slstm_apply's lax.scan "
+             "(:237) over _slstm_cell (:204-221)",
+             launches=train["xlstm-1.3b"]["launches"]["slstm_scan_backward"],
+             **bwd["slstm"],
+             shape=f"xlstm-1.3b training: B={TRAIN_BATCH}, "
+             f"S={TRAIN_SEQ}, 4 heads of {SLSTM_HD} (phases 47, 48; "
+             "launches: phase 48's 7 steps, 1 a layer and step; "
+             "max_abs_err: the largest gradient distance from the float64 "
+             "plain run)")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

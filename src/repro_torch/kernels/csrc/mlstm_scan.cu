@@ -575,8 +575,9 @@ mlstm_scan_chunk_kernel(
     const int64_t* __restrict__ dst1_rows, int64_t dst1_stride, float* dst2,
     const int64_t* __restrict__ dst2_rows, int64_t dst2_stride,
     float* __restrict__ h, float* __restrict__ n_out,
-    float* __restrict__ m_out, const float* __restrict__ qk, int seq, int nh,
-    int hd, float sqrt_hd) {
+    float* __restrict__ m_out, const float* __restrict__ qk,
+    float* __restrict__ c_save, float* __restrict__ n_save,
+    float* __restrict__ d_save, int seq, int nh, int hd, float sqrt_hd) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* full_q = reinterpret_cast<uint64_t*>(smem_raw);  // q and v in
   uint64_t* full_k = full_q + 1;                      // [2]: k in
@@ -713,6 +714,31 @@ mlstm_scan_chunk_kernel(
     }
     const float* kc = k_s + cur * kL * lq;
     const float* vc = v_s + cur * kL * kVld;
+    if (c_save != nullptr) {
+      // the saves for the backward: C and n before this chunk
+      float* cb = c_save + (bh * nch + ch) * mat + col0;
+#pragma unroll
+      for (int s = 0; s < kMaxSteps; ++s) {
+        if (s < steps) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 8 * (ks0 + s) + 2 * tq + (e & 1);
+              const int cc = 16 * mt + gq + 8 * (e >> 1);
+              cb[static_cast<size_t>(r) * hd + cc] = c[s][mt][e];
+            }
+          }
+        }
+      }
+      if (strip == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = r0 + lane + 32 * j;
+          if (r < r1) n_save[(bh * nch + ch) * hd + r] = nr[j];
+        }
+      }
+    }
 
     // this chunk's q . k (the pre-pass's), for the sums after the loop
     const float qk_tj =
@@ -808,7 +834,12 @@ mlstm_scan_chunk_kernel(
 #pragma unroll
         for (int w = 1; w < kWarps; ++w)
           nq = __fadd_rn(nq, nq_s[w * kL + t]);
-        den_s[t] = fmaxf(fabsf(__fadd_rn(d, __fmul_rn(gc[t], nq))), 1.f);
+        const float dq = __fadd_rn(d, __fmul_rn(gc[t], nq));
+        den_s[t] = fmaxf(fabsf(dq), 1.f);
+        // the save for the backward: n . q a position, signed
+        if (d_save != nullptr && strip == 0 && t < lc)
+          d_save[(static_cast<size_t>(b) * seq + ch * kL + t) * nh + head] =
+              dq;
       }
     }
     for (int e = tid; e < kTv * kL; e += kThreads) {
@@ -982,8 +1013,11 @@ cudaError_t opt_in_smem() {
 
 // The chunkwise form, for S > 1: the same arguments as mlstm_scan_launch,
 // and qk, float32 scratch of B nh ceil(S / 16) 256 floats; two launches
-// (q . k a chunk, then the chunkwise kernel).  Returns the first launch
-// error, or 0.
+// (q . k a chunk, then the chunkwise kernel).  c_save, n_save and d_save
+// (all null, or all set: the saves for the backward) take C [B, nh, nch,
+// hd, hd] and n [B, nh, nch, hd] before each chunk and n . q [B, S, nh]
+// (signed) a position; they change nothing else.  Returns the first
+// launch error, or 0.
 extern "C" int mlstm_scan_chunk_launch(
     const void* q, const void* k, const void* v, const void* ig,
     const void* fg, const void* n0, const void* m0, const void* src,
@@ -991,9 +1025,10 @@ extern "C" int mlstm_scan_chunk_launch(
     const void* dst1_rows, int64_t dst1_stride, void* dst2,
     const void* dst2_rows, int64_t dst2_stride, void* h, void* n_out,
     void* m_out, int batch, int seq, int nh, int hd, float sqrt_hd,
-    void* qk, void* stream_ptr) {
+    void* qk, void* c_save, void* n_save, void* d_save, void* stream_ptr) {
   if (hd % kTv != 0 || hd > kMaxHd || hd <= 0 || seq <= 0 || batch <= 0 ||
-      qk == nullptr)
+      qk == nullptr || (c_save == nullptr) != (n_save == nullptr) ||
+      (c_save == nullptr) != (d_save == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = opt_in_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1015,7 +1050,698 @@ extern "C" int mlstm_scan_chunk_launch(
       dst1_stride, static_cast<float*>(dst2),
       static_cast<const int64_t*>(dst2_rows), dst2_stride,
       static_cast<float*>(h), static_cast<float*>(n_out),
-      static_cast<float*>(m_out), static_cast<const float*>(qk), seq, nh, hd,
-      sqrt_hd);
+      static_cast<float*>(m_out), static_cast<const float*>(qk),
+      static_cast<float*>(c_save), static_cast<float*>(n_save),
+      static_cast<float*>(d_save), seq, nh, hd, sqrt_hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The backward of the chunkwise form (S >= 1), under autograd
+// ---------------------------------------------------------------------------
+//
+// The reference differentiates its lax.scan with jax.grad, which XLA
+// compiles to one reverse loop that keeps every position's C.  Here the
+// forward saved C and n before each chunk (csave, nsave) and n . q a
+// position (dsave), and the backward runs the chunkwise form in reverse.
+// With dnum_t = dh_t / den_t, dd_t the gradient of n . q_t (through the
+// clamp max(|n . q|, 1): zero where the clamp binds), and in a chunk the
+// gradient dCe of the C after it (the later chunks' share), D, g and A as
+// in the forward (k~ = k / sqrt(hd)):
+//
+//   dv_j  = D_Lj (dCe^T k~_j) + sum_{t>=j} D_tj (q_t . k~_j) dnum_t
+//   dq_t  = g_t (Cb dnum_t + dd_t nb) + sum_{j<=t} D_tj P_tj k~_j
+//   dk~_j = D_Lj (dCe v_j + dne) + sum_{t>=j} D_tj P_tj q_t
+//   dCb   = g_L dCe + sum_t g_t q_t dnum_t^T
+//   dnb   = g_L dne + sum_t g_t dd_t q_t
+//
+// with P_tj = dnum_t . v_j + dd_t (n is C's column of ones), Cb, nb the
+// state before the chunk and L its last position.  The gates: the
+// gradient of b_t = i_t - m_t is K_t = k~_t . dk~_t, and of a_t = f_t +
+// m_{t-1} - m_t (the log of f_p) da_t = Q_t - K_t + da_{t+1} (Q_t = dh_t
+// . h_t where the clamp binds, else 0: <dC_t, C_t> + dn_t . n_t less the
+// new term's share), zero where f_p = exp(a_t) is 0 (the plain version's
+// f_p * df_p); then the m chain in reverse: m_t = max(f_t + m_{t-1}, i_t)
+// hands the gradient of m_t (the next position's, less da_t and db_t) to
+// the larger side, half each at a tie (as PyTorch's and JAX's maximum).
+// The initial state carries no gradient (the wrapper refuses one that
+// asks for it).
+//
+// Four launches, each counted: the prep (grid chunks x nh x B: the m chain
+// up to the chunk, a and b a position, den, dd, Q, and the chunk's q . k~
+// and P from float32 dot products on the CUDA cores), the dv pass (grid
+// hd / 32 strips of v columns x nh x B, 16 warps: dCe's strip in
+// registers [hd, 32], carried from the last chunk to the first, written
+// at each boundary for the next pass), the dq / dk pass (grid hd / 32
+// strips of hd rows x nh x
+// B: Cb dnum and dCe v over all hd columns from the saved and written
+// boundaries, dne carried in reverse, K's partial over the strip's rows)
+// and the gate pass (one warp a row and head, the serial chain).  Every
+// sum runs in a fixed order and no float atomics are used: two runs give
+// the same bits.
+//
+// What bounds it on an H100: the dq / dk pass reads every boundary C and
+// dC once, 2 nch hd^2 floats a head and row (2.1 GB at B = 4, S = 256, 4
+// heads of 1024: 0.64 ms at 3.35 TB/s); the products are 2 x 4 L hd^2 a
+// chunk, head and row (17 GFLOP over both passes: 0.26 ms at 67 TFLOP/s
+// in float32).  A simple form on the CUDA cores: 5.74 ms on an H100 at
+// that shape (PERF.md: the dv pass 3.39, 16 warps with 400 bytes of
+// spills; the dq / dk pass 2.15), 9% of the bound; wgmma and 3xTF32 for
+// the four products are later work.
+namespace {
+
+constexpr int kBwdTile = 64;                 // hd columns a prep tile
+constexpr int kGateTile = 256;               // positions a gate-pass tile
+constexpr int kSc = 8;  // a, b, m, den, dd, Q, K and a spare, a position
+
+// the chunk's A_t (double, clamped as the forward), g_t and D_tj from a_s
+// and b_s (rows past lc give 0), by the block's threads
+__device__ __forceinline__ void bwd_decay(const float* a_s, const float* b_s,
+                                          int lc, double* A_s, float* g_s,
+                                          float* D_s, int tid) {
+  if (tid < kL) {
+    double acc = 0.0;
+    for (int p = 0; p <= tid && p < lc; ++p)
+      acc += fmax(static_cast<double>(a_s[p]), kClampA);
+    A_s[tid] = acc;
+    g_s[tid] = tid < lc ? expf(static_cast<float>(acc)) : 0.f;
+  }
+  __syncthreads();
+  if (tid < kL * kL) {
+    const int t = tid >> 4, j = tid & 15;
+    D_s[tid] = (j <= t && t < lc)
+                   ? expf(static_cast<float>(static_cast<double>(b_s[j]) +
+                                             (A_s[t] - A_s[j])))
+                   : 0.f;
+  }
+}
+
+// the prep: grid (nch, nh, B), 256 threads
+__global__ void __launch_bounds__(kThreads)
+mlstm_bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ ig,
+                      const float* __restrict__ fg,
+                      const float* __restrict__ m0,
+                      const float* __restrict__ h,
+                      const float* __restrict__ dh,
+                      const float* __restrict__ dsave, float* __restrict__ sc,
+                      float* __restrict__ qk, float* __restrict__ pp, int seq,
+                      int nh, int hd, float sqrt_hd) {
+  __shared__ float gi_s[kGateTile], gf_s[kGateTile];
+  // rows padded by one word: thread (t, j) reads row j of k and v
+  __shared__ float q_s[kL][kBwdTile + 1], k_s[kL][kBwdTile + 1];
+  __shared__ float v_s[kL][kBwdTile + 1], dn_s[kL][kBwdTile + 1];
+  __shared__ float den_s[kL], dd_s[kL], hh_s[kL];
+  const int ch = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nch = (seq + kL - 1) / kL;
+  const int c0 = ch * kL, lc = min(kL, seq - c0);
+  const size_t bh = static_cast<size_t>(b) * nh + head;
+  auto row = [&](int pos) {
+    return ((static_cast<size_t>(b) * seq + pos) * nh + head) * hd;
+  };
+  auto gate = [&](int pos) { return (static_cast<size_t>(b) * seq + pos) * nh
+                                    + head; };
+  float* scb = sc + bh * seq * kSc;
+
+  // the m chain from position 0 through this chunk, in the forward's
+  // rounding (m bit-equal), in tiles of gates staged in shared memory
+  float m = m0[bh];
+  for (int t0 = 0; t0 < c0 + lc; t0 += kGateTile) {
+    const int nt = min(kGateTile, c0 + lc - t0);
+    __syncthreads();
+    for (int e = tid; e < nt; e += kThreads) {
+      gi_s[e] = ig[gate(t0 + e)];
+      gf_s[e] = fg[gate(t0 + e)];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int e = 0; e < nt; ++e) {
+        const float fm = __fadd_rn(gf_s[e], m);
+        const float mn = fmaxf(fm, gi_s[e]);
+        const int pos = t0 + e;
+        if (pos >= c0) {
+          scb[pos * kSc + 0] = __fsub_rn(fm, mn);
+          scb[pos * kSc + 1] = __fsub_rn(gi_s[e], mn);
+          scb[pos * kSc + 2] = mn;
+        }
+        m = mn;
+      }
+    }
+  }
+  // den and dh . h a position (a warp two positions)
+  for (int t = 2 * warp; t < 2 * warp + 2; ++t) {
+    float s = 0.f;
+    if (t < lc) {
+      const float* hr = h + row(c0 + t);
+      const float* dr = dh + row(c0 + t);
+      for (int e = lane; e < hd; e += 32) s = __fmaf_rn(dr[e], hr[e], s);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    if (lane == 0) {
+      const float d = t < lc ? dsave[gate(c0 + t)] : 0.f;
+      const float den = fmaxf(fabsf(d), 1.f);
+      const bool open = fabsf(d) >= 1.f;   // the clamp passes the gradient
+      den_s[t] = den;
+      hh_s[t] = s;
+      // d(den) = -(dh . h) / den, through |d| where the clamp is open
+      const float dden = -__fdiv_rn(s, den);
+      dd_s[t] = t < lc && open ? (d > 0.f ? dden : (d < 0.f ? -dden : 0.f))
+                               : 0.f;
+    }
+  }
+  __syncthreads();
+  if (tid < lc) {
+    const float d = dsave[gate(c0 + tid)];
+    scb[(c0 + tid) * kSc + 3] = den_s[tid];
+    scb[(c0 + tid) * kSc + 4] = dd_s[tid];
+    scb[(c0 + tid) * kSc + 5] = fabsf(d) >= 1.f ? 0.f : hh_s[tid];
+  }
+
+  // q . k~ and dnum . v over tiles of hd columns: thread (t, j)
+  const int t = tid >> 4, j = tid & 15;
+  float sqk = 0.f, spv = 0.f;
+  for (int x0 = 0; x0 < hd; x0 += kBwdTile) {
+    __syncthreads();
+    for (int e = tid; e < kL * kBwdTile; e += kThreads) {
+      const int r = e / kBwdTile, cl = e % kBwdTile, x = x0 + cl;
+      const bool in = r < lc && x < hd;
+      const size_t at = row(c0 + (r < lc ? r : 0)) + x;
+      q_s[r][cl] = in ? q[at] : 0.f;
+      k_s[r][cl] = in ? __fdiv_rn(k[at], sqrt_hd) : 0.f;
+      v_s[r][cl] = in ? v[at] : 0.f;
+      dn_s[r][cl] = in ? __fdiv_rn(dh[at], den_s[r]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int cl = 0; cl < kBwdTile; ++cl) {
+      sqk = __fmaf_rn(q_s[t][cl], k_s[j][cl], sqk);
+      spv = __fmaf_rn(dn_s[t][cl], v_s[j][cl], spv);
+    }
+  }
+  const size_t pair = (bh * nch + ch) * kL * kL + tid;
+  qk[pair] = sqk;
+  pp[pair] = __fadd_rn(spv, dd_s[t]);
+}
+
+// the dv pass: grid (hd / 32 strips of v columns, nh, B), 512 threads;
+// thread (warp w, lane l) holds column strip * 32 + l of dC over the
+// warp's hd / 16 rows
+constexpr int kDvWarps = 16;
+constexpr int kDvThreads = kDvWarps * 32;
+constexpr int kDvRows = kMaxHd / kDvWarps;   // rows of the strip a thread
+
+constexpr size_t dv_smem_bytes(int hd) {
+  return sizeof(double) * kL +
+         sizeof(float) * (2 * static_cast<size_t>(kL) * hd + 2 * kL * kTv +
+                          kDvWarps * kL * kTv + 2 * kL * kL + 3 * kL);
+}
+static_assert(dv_smem_bytes(kMaxHd) <= 232448, "the dv pass's shared memory");
+
+// a chunk's rows of q and k~ into shared memory, four floats a load, the
+// loads of a thread all in flight
+__device__ __forceinline__ void load_rows(const float* __restrict__ q,
+                                          const float* __restrict__ k,
+                                          float* q_s, float* k_s,
+                                          size_t base, size_t pos_stride,
+                                          int lc, int hd, float sqrt_hd,
+                                          int tid, int threads) {
+  const int w4 = hd / 4;
+#pragma unroll 4
+  for (int e = tid; e < kL * w4; e += threads) {
+    const int r = e / w4, x = (e - r * w4) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+    if (r < lc) {
+      const size_t at = base + r * pos_stride + x;
+      a = *reinterpret_cast<const float4*>(q + at);
+      c = *reinterpret_cast<const float4*>(k + at);
+      c = make_float4(__fdiv_rn(c.x, sqrt_hd), __fdiv_rn(c.y, sqrt_hd),
+                      __fdiv_rn(c.z, sqrt_hd), __fdiv_rn(c.w, sqrt_hd));
+    }
+    *reinterpret_cast<float4*>(q_s + r * hd + x) = a;
+    *reinterpret_cast<float4*>(k_s + r * hd + x) = c;
+  }
+}
+
+__global__ void __launch_bounds__(kDvThreads, 1)
+mlstm_bwd_dv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dh,
+                    const float* __restrict__ sc,
+                    const float* __restrict__ qk,
+                    const float* __restrict__ dc_end, float* __restrict__ dce,
+                    float* __restrict__ dv, int seq, int nh, int hd,
+                    float sqrt_hd) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* A_s = reinterpret_cast<double*>(smem_raw);     // [kL]
+  float* q_s = reinterpret_cast<float*>(A_s + kL);       // [kL][hd]
+  float* k_s = q_s + kL * hd;                            // [kL][hd] k~
+  float* dn_s = k_s + kL * hd;                           // [kL][kTv]
+  float* v_s = dn_s + kL * kTv;                          // [kL][kTv]
+  float* red = v_s + kL * kTv;                         // [kDvWarps][kL][kTv]
+  float* D_s = red + kDvWarps * kL * kTv;                // [kL][kL]
+  float* qk_s = D_s + kL * kL;                           // [kL][kL]
+  float* g_s = qk_s + kL * kL;                           // [kL]
+  float* a_s = g_s + kL;                                 // [kL]
+  float* b_s = a_s + kL;                                 // [kL]
+
+  const int strip = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = hd / kDvWarps, row0 = warp * rows;   // rows: even
+  const int col = strip * kTv + lane;
+  const int nch = (seq + kL - 1) / kL;
+  const size_t bh = static_cast<size_t>(b) * nh + head;
+  const size_t mat = static_cast<size_t>(hd) * hd;
+  const size_t pos_stride = static_cast<size_t>(nh) * hd;
+  const float* scb = sc + bh * seq * kSc;
+  auto row = [&](int pos) {
+    return ((static_cast<size_t>(b) * seq + pos) * nh + head) * hd;
+  };
+
+  float dc[kDvRows];
+#pragma unroll
+  for (int i = 0; i < kDvRows; ++i)
+    dc[i] = (i < rows && dc_end != nullptr)
+                ? dc_end[bh * mat + static_cast<size_t>(row0 + i) * hd + col]
+                : 0.f;
+
+  for (int ch = nch - 1; ch >= 0; --ch) {
+    const int c0 = ch * kL, lc = min(kL, seq - c0);
+    __syncthreads();                 // the last chunk's reads are done
+    load_rows(q, k, q_s, k_s, row(c0), pos_stride, lc, hd, sqrt_hd, tid,
+              kDvThreads);
+    {
+      const int r = tid / kTv, cl = tid % kTv;   // kL x kTv = the block
+      const bool in = r < lc;
+      const size_t at = row(c0 + (in ? r : 0)) + strip * kTv + cl;
+      dn_s[tid] = in ? __fdiv_rn(dh[at], scb[(c0 + r) * kSc + 3]) : 0.f;
+      v_s[tid] = in ? v[at] : 0.f;
+    }
+    if (tid < kL * kL) qk_s[tid] = qk[(bh * nch + ch) * kL * kL + tid];
+    if (tid < kL) {
+      a_s[tid] = tid < lc ? scb[(c0 + tid) * kSc + 0] : 0.f;
+      b_s[tid] = tid < lc ? scb[(c0 + tid) * kSc + 1] : 0.f;
+    }
+    __syncthreads();
+    bwd_decay(a_s, b_s, lc, A_s, g_s, D_s, tid);
+
+    // dCe at this boundary, for the dq / dk pass
+    float* de = dce + (bh * nch + ch) * mat + static_cast<size_t>(row0) * hd +
+                col;
+#pragma unroll
+    for (int i = 0; i < kDvRows; ++i)
+      if (i < rows) de[static_cast<size_t>(i) * hd] = dc[i];
+
+    // dCe^T k~_j over this warp's rows, for the 16 positions
+    float x[kL];
+#pragma unroll
+    for (int jj = 0; jj < kL; ++jj) x[jj] = 0.f;
+#pragma unroll
+    for (int i2 = 0; i2 < kDvRows / 2; ++i2) {
+      if (2 * i2 < rows) {
+#pragma unroll
+        for (int jj = 0; jj < kL; ++jj) {
+          const float2 kk =
+              *reinterpret_cast<const float2*>(k_s + jj * hd + row0 + 2 * i2);
+          x[jj] = __fmaf_rn(dc[2 * i2], kk.x, x[jj]);
+          x[jj] = __fmaf_rn(dc[2 * i2 + 1], kk.y, x[jj]);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kL; ++jj) red[(warp * kL + jj) * kTv + lane] = x[jj];
+    __syncthreads();                 // partials, D and g in
+
+    // dv: thread (j, column)
+    {
+      const int jj = tid >> 5, cl = lane;
+      float xs = red[jj * kTv + cl];
+#pragma unroll
+      for (int w = 1; w < kDvWarps; ++w)
+        xs = __fadd_rn(xs, red[(w * kL + jj) * kTv + cl]);
+      float sv = __fmul_rn(D_s[(lc - 1) * kL + jj], xs);
+      for (int t = jj; t < lc; ++t)
+        sv = __fmaf_rn(__fmul_rn(D_s[t * kL + jj], qk_s[t * kL + jj]),
+                       dn_s[t * kTv + cl], sv);
+      if (jj < lc) dv[row(c0 + jj) + strip * kTv + cl] = sv;
+    }
+
+    // dC before the chunk: g_L dCe + sum_t g_t q_t dnum_t^T
+    {
+      const float gl = g_s[lc - 1];
+      float wt[kL];
+#pragma unroll
+      for (int t = 0; t < kL; ++t)
+        wt[t] = __fmul_rn(g_s[t], dn_s[t * kTv + lane]);
+#pragma unroll
+      for (int i2 = 0; i2 < kDvRows / 2; ++i2) {
+        if (2 * i2 < rows) {
+          float a0 = __fmul_rn(gl, dc[2 * i2]);
+          float a1 = __fmul_rn(gl, dc[2 * i2 + 1]);
+#pragma unroll
+          for (int t = 0; t < kL; ++t) {
+            const float2 qq =
+                *reinterpret_cast<const float2*>(q_s + t * hd + row0 + 2 * i2);
+            a0 = __fmaf_rn(wt[t], qq.x, a0);
+            a1 = __fmaf_rn(wt[t], qq.y, a1);
+          }
+          dc[2 * i2] = a0;
+          dc[2 * i2 + 1] = a1;
+        }
+      }
+    }
+  }
+}
+
+// one step of summing a lane's first N partials (of the A in x) across the
+// warp: lanes whose bit M is set keep the upper half, the others the
+// lower, each added to its partner's; after N = A .. 8, M = 16 .. 1, lane
+// l holds the sums A/32 l .. A/32 l + A/32 - 1
+template <int N, int M, int A>
+__device__ __forceinline__ void fold(float (&x)[A], int lane) {
+  const bool up = lane & M;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = up ? x[i] : x[i + N / 2];
+    const float keep = up ? x[i + N / 2] : x[i];
+    x[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, M));
+  }
+}
+
+constexpr int kRowsW = 4;                    // rows a warp
+constexpr int kRowsB = kWarps * kRowsW;      // rows a block (32)
+
+// sum_c m[u][c] tile[t][c] for a warp's kRowsW rows u of the hd-wide
+// rows at m (global) and the kL rows of tile (shared): each lane over the
+// columns lane + 32 i, four columns' loads issued before their products,
+// the lanes' partials summed across the warp (``fold``) into out[u][t]
+__device__ __forceinline__ void rows_dot(const float* __restrict__ m,
+                                         const float* tile, int hd, int lane,
+                                         float* out) {
+  float x[kRowsW * kL];
+#pragma unroll
+  for (int e = 0; e < kRowsW * kL; ++e) x[e] = 0.f;
+  for (int c0 = lane; c0 < hd; c0 += 4 * 32) {
+    float w[4][kRowsW];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + 32 * j;
+#pragma unroll
+      for (int u = 0; u < kRowsW; ++u)
+        w[j][u] = c < hd ? m[static_cast<size_t>(u) * hd + c] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + 32 * j;
+      if (c < hd) {
+#pragma unroll
+        for (int t = 0; t < kL; ++t) {
+          const float y = tile[t * hd + c];
+#pragma unroll
+          for (int u = 0; u < kRowsW; ++u)
+            x[u * kL + t] = __fmaf_rn(w[j][u], y, x[u * kL + t]);
+        }
+      }
+    }
+  }
+  fold<64, 16>(x, lane);
+  fold<32, 8>(x, lane);
+  fold<16, 4>(x, lane);
+  fold<8, 2>(x, lane);
+  fold<4, 1>(x, lane);
+  // lane l holds the sums 2 l, 2 l + 1: (row u, position t)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) out[2 * lane + i] = x[i];
+}
+
+// the dq / dk pass: grid (hd / 32 strips of rows, nh, B), 256 threads;
+// warp w the strip's rows 4 w .. 4 w + 3, its lanes over the hd columns
+
+constexpr size_t dqk_smem_bytes(int hd) {
+  return sizeof(double) * kL +
+         sizeof(float) * (2 * static_cast<size_t>(kL) * hd +
+                          2 * kL * kRowsB + 2 * kRowsB * kL + 3 * kL * kL +
+                          5 * kL + 2 * kRowsB + kL * kRowsB);
+}
+static_assert(dqk_smem_bytes(kMaxHd) <= 232448,
+              "the dq / dk pass's shared memory");
+
+__global__ void __launch_bounds__(kThreads, 1)
+mlstm_bwd_dqk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dh,
+                     const float* __restrict__ sc,
+                     const float* __restrict__ pp,
+                     const float* __restrict__ csave,
+                     const float* __restrict__ nsave,
+                     const float* __restrict__ dce,
+                     const float* __restrict__ dn_end,
+                     float* __restrict__ dq, float* __restrict__ dk,
+                     float* __restrict__ kpart, int seq, int nh, int hd,
+                     float sqrt_hd) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* A_s = reinterpret_cast<double*>(smem_raw);     // [kL]
+  float* dn_s = reinterpret_cast<float*>(A_s + kL);      // [kL][hd] dnum
+  float* v_s = dn_s + kL * hd;                           // [kL][hd]
+  float* qr_s = v_s + kL * hd;                           // [kL][kRowsB]
+  float* kr_s = qr_s + kL * kRowsB;                      // [kL][kRowsB] k~
+  float* x1_s = kr_s + kL * kRowsB;                      // [kRowsB][kL]
+  float* x2_s = x1_s + kRowsB * kL;                      // [kRowsB][kL]
+  float* D_s = x2_s + kRowsB * kL;                       // [kL][kL]
+  float* pp_s = D_s + kL * kL;                           // [kL][kL]
+  float* w_s = pp_s + kL * kL;                           // [kL][kL] D P
+  float* g_s = w_s + kL * kL;                            // [kL]
+  float* a_s = g_s + kL;                                 // [kL]
+  float* b_s = a_s + kL;                                 // [kL]
+  float* dd_s = b_s + kL;                                // [kL]
+  float* den_s = dd_s + kL;                              // [kL]
+  float* nb_s = den_s + kL;                              // [kRowsB]
+  float* dne_s = nb_s + kRowsB;                          // [kRowsB]
+  float* kp_s = dne_s + kRowsB;                          // [kL][kRowsB]
+
+  const int rs = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nch = (seq + kL - 1) / kL, nrs = hd / kRowsB;
+  const int r0 = rs * kRowsB;
+  const size_t bh = static_cast<size_t>(b) * nh + head;
+  const size_t mat = static_cast<size_t>(hd) * hd;
+  const float* scb = sc + bh * seq * kSc;
+  auto row = [&](int pos) {
+    return ((static_cast<size_t>(b) * seq + pos) * nh + head) * hd;
+  };
+  if (tid < kRowsB)
+    dne_s[tid] = dn_end != nullptr ? dn_end[bh * hd + r0 + tid] : 0.f;
+
+  for (int ch = nch - 1; ch >= 0; --ch) {
+    const int c0 = ch * kL, lc = min(kL, seq - c0);
+    __syncthreads();                 // the last chunk's reads are done
+    if (tid < kL) {
+      const bool in = tid < lc;
+      a_s[tid] = in ? scb[(c0 + tid) * kSc + 0] : 0.f;
+      b_s[tid] = in ? scb[(c0 + tid) * kSc + 1] : 0.f;
+      den_s[tid] = in ? scb[(c0 + tid) * kSc + 3] : 1.f;
+      dd_s[tid] = in ? scb[(c0 + tid) * kSc + 4] : 0.f;
+    }
+    __syncthreads();
+    const int w4 = hd / 4;
+#pragma unroll 4
+    for (int e = tid; e < kL * w4; e += kThreads) {
+      const int r = e / w4, x = (e - r * w4) * 4;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+      if (r < lc) {
+        const size_t at = row(c0 + r) + x;
+        a = *reinterpret_cast<const float4*>(dh + at);
+        c = *reinterpret_cast<const float4*>(v + at);
+        const float dn = den_s[r];
+        a = make_float4(__fdiv_rn(a.x, dn), __fdiv_rn(a.y, dn),
+                        __fdiv_rn(a.z, dn), __fdiv_rn(a.w, dn));
+      }
+      *reinterpret_cast<float4*>(dn_s + r * hd + x) = a;
+      *reinterpret_cast<float4*>(v_s + r * hd + x) = c;
+    }
+    for (int e = tid; e < kL * kRowsB; e += kThreads) {
+      const int r = e / kRowsB, x = e % kRowsB;
+      const bool in = r < lc;
+      const size_t at = row(c0 + (in ? r : 0)) + r0 + x;
+      qr_s[e] = in ? q[at] : 0.f;
+      kr_s[e] = in ? __fdiv_rn(k[at], sqrt_hd) : 0.f;
+    }
+    pp_s[tid] = pp[(bh * nch + ch) * kL * kL + tid];
+    if (tid < kRowsB) nb_s[tid] = nsave[(bh * nch + ch) * hd + r0 + tid];
+    bwd_decay(a_s, b_s, lc, A_s, g_s, D_s, tid);
+    __syncthreads();                 // D, g and the rows in
+    w_s[tid] = __fmul_rn(D_s[tid], pp_s[tid]);
+
+    // Cb dnum_t, then dCe v_j, for the warp's 4 rows: each lane over the
+    // columns lane + 32 i (four columns' loads in flight), then summed
+    // across the warp
+    const size_t base = (bh * nch + ch) * mat +
+                        static_cast<size_t>(r0 + kRowsW * warp) * hd;
+    rows_dot(csave + base, dn_s, hd, lane, x1_s + kRowsW * warp * kL);
+    rows_dot(dce + base, v_s, hd, lane, x2_s + kRowsW * warp * kL);
+    __syncthreads();                 // the sums and D P in
+
+    // dq and dk: thread (row rl, positions tg and tg + 8)
+    {
+      const int rl = tid >> 3, tg = tid & 7;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = tg + 8 * u;
+        if (t >= lc) continue;
+        float sq = __fmul_rn(g_s[t], __fmaf_rn(dd_s[t], nb_s[rl],
+                                               x1_s[rl * kL + t]));
+        for (int j = 0; j <= t; ++j)
+          sq = __fmaf_rn(w_s[t * kL + j], kr_s[j * kRowsB + rl], sq);
+        const float dl = D_s[(lc - 1) * kL + t];
+        float sk = __fmul_rn(dl, __fadd_rn(x2_s[rl * kL + t], dne_s[rl]));
+        for (int p = t; p < lc; ++p)
+          sk = __fmaf_rn(w_s[p * kL + t], qr_s[p * kRowsB + rl], sk);
+        dq[row(c0 + t) + r0 + rl] = sq;
+        dk[row(c0 + t) + r0 + rl] = __fdiv_rn(sk, sqrt_hd);
+        kp_s[t * kRowsB + rl] = __fmul_rn(kr_s[t * kRowsB + rl], sk);
+      }
+    }
+    __syncthreads();                 // dne read, K's products in
+    if (tid < kL && tid < lc) {
+      float s = kp_s[tid * kRowsB];
+      for (int r = 1; r < kRowsB; ++r) s = __fadd_rn(s, kp_s[tid * kRowsB + r]);
+      kpart[(bh * nrs + rs) * seq + c0 + tid] = s;
+    }
+    if (tid < kRowsB) {
+      float s = __fmul_rn(g_s[lc - 1], dne_s[tid]);
+      for (int p = 0; p < lc; ++p)
+        s = __fmaf_rn(__fmul_rn(g_s[p], dd_s[p]), qr_s[p * kRowsB + tid], s);
+      dne_s[tid] = s;
+    }
+  }
+}
+
+// the gate pass: grid (nh, B), one warp; K_t summed over the row strips in
+// order, then the serial chain (double) from the last position to the
+// first, in tiles staged in shared memory
+__global__ void __launch_bounds__(32)
+mlstm_bwd_gate_kernel(const float* __restrict__ ig,
+                      const float* __restrict__ fg,
+                      const float* __restrict__ m0, float* __restrict__ sc,
+                      const float* __restrict__ kpart,
+                      const float* __restrict__ e_end,
+                      const float* __restrict__ dm_end,
+                      float* __restrict__ di, float* __restrict__ df,
+                      int seq, int nh, int hd) {
+  __shared__ float st_s[kGateTile][kSc + 2];
+  const int head = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  const int nrs = hd / kRowsB;
+  const size_t bh = static_cast<size_t>(b) * nh + head;
+  float* scb = sc + bh * seq * kSc;
+  auto gate = [&](int pos) { return (static_cast<size_t>(b) * seq + pos) * nh
+                                    + head; };
+  double da = e_end != nullptr ? static_cast<double>(e_end[bh]) : 0.0;
+  double dmf = dm_end != nullptr ? static_cast<double>(dm_end[bh]) : 0.0;
+  for (int hi = seq; hi > 0; hi -= kGateTile) {
+    const int lo = max(0, hi - kGateTile);
+    __syncwarp();
+    for (int e = lane; e < hi - lo; e += 32) {
+      const int pos = lo + e;
+      float kk = kpart[bh * nrs * seq + pos];
+      for (int r = 1; r < nrs; ++r)
+        kk = __fadd_rn(kk, kpart[(bh * nrs + r) * seq + pos]);
+#pragma unroll
+      for (int x = 0; x < kSc; ++x) st_s[e][x] = scb[pos * kSc + x];
+      st_s[e][6] = kk;
+      st_s[e][kSc] = ig[gate(pos)];
+      st_s[e][kSc + 1] = fg[gate(pos)];
+    }
+    // m before the tile's first position
+    const float m_lo = lo > 0 ? scb[(lo - 1) * kSc + 2] : m0[bh];
+    __syncwarp();
+    if (lane == 0) {
+      for (int e = hi - lo - 1; e >= 0; --e) {
+        const float a = st_s[e][0], kk = st_s[e][6], qq = st_s[e][5];
+        const float it = st_s[e][kSc], ft = st_s[e][kSc + 1];
+        const float mp = e > 0 ? st_s[e - 1][2] : m_lo;
+        da = expf(a) == 0.f ? 0.0
+                            : static_cast<double>(qq) - kk + da;
+        const double db = kk;
+        const float fm = __fadd_rn(ft, mp);
+        const double dm = dmf - da - db;
+        double dfm = da, dit = db;
+        if (fm > it) dfm += dm;
+        else if (it > fm) dit += dm;
+        else { dfm += 0.5 * dm; dit += 0.5 * dm; }
+        df[gate(lo + e)] = static_cast<float>(dfm);
+        di[gate(lo + e)] = static_cast<float>(dit);
+        dmf = dfm;
+      }
+    }
+  }
+}
+
+cudaError_t opt_in_bwd_smem() {
+  static bool opted[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && !opted[device]) {
+    err = cudaFuncSetAttribute(mlstm_bwd_dv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dv_smem_bytes(kMaxHd)));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(mlstm_bwd_dqk_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dqk_smem_bytes(kMaxHd)));
+    if (err != cudaSuccess) return err;
+    opted[device] = true;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The backward of the chunkwise form: q, k, v, h, dh f32 [B, S, nh, hd];
+// ig, fg f32 [B, S, nh]; m0 f32 [B, nh]; csave, nsave, dsave the forward's
+// saves; dc_end [B, nh, hd, hd], dn_end [B, nh, hd], e_end [B, nh] (the
+// final C's and n's gradients dotted with the final C and n) and dm_end
+// [B, nh], each null for none; scratch: sc [B, nh, S, 8], qk and pp [B,
+// nh, nch, 16, 16], dce [B, nh, nch, hd, hd], kpart [B, nh, hd / 32, S];
+// out: dq, dk, dv as q, di and df as ig.  Four launches; returns the
+// first launch error, or 0.
+extern "C" int mlstm_scan_bwd_launch(
+    const void* q, const void* k, const void* v, const void* ig,
+    const void* fg, const void* m0, const void* h, const void* dh,
+    const void* csave, const void* nsave, const void* dsave,
+    const void* dc_end, const void* dn_end, const void* e_end,
+    const void* dm_end, void* sc, void* qk, void* pp, void* dce, void* kpart,
+    void* dq, void* dk, void* dv, void* di, void* df, int batch, int seq,
+    int nh, int hd, float sqrt_hd, void* stream_ptr) {
+  if (hd % kTv != 0 || hd > kMaxHd || hd <= 0 || seq <= 0 || batch <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = opt_in_bwd_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int nch = (seq + kL - 1) / kL;
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  auto W = [](void* p) { return static_cast<float*>(p); };
+  mlstm_bwd_prep_kernel<<<dim3(nch, nh, batch), kThreads, 0, stream>>>(
+      F(q), F(k), F(v), F(ig), F(fg), F(m0), F(h), F(dh), F(dsave), W(sc),
+      W(qk), W(pp), seq, nh, hd, sqrt_hd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlstm_bwd_dv_kernel<<<dim3(hd / kTv, nh, batch), kDvThreads,
+                        dv_smem_bytes(hd), stream>>>(
+      F(q), F(k), F(v), F(dh), F(sc), F(qk), F(dc_end), W(dce), W(dv), seq,
+      nh, hd, sqrt_hd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlstm_bwd_dqk_kernel<<<dim3(hd / kRowsB, nh, batch), kThreads,
+                         dqk_smem_bytes(hd), stream>>>(
+      F(q), F(k), F(v), F(dh), F(sc), F(pp), F(csave), F(nsave), F(dce),
+      F(dn_end), W(dq), W(dk), W(kpart), seq, nh, hd, sqrt_hd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlstm_bwd_gate_kernel<<<dim3(nh, batch), 32, 0, stream>>>(
+      F(ig), F(fg), F(m0), W(sc), F(kpart), F(e_end), F(dm_end), W(di), W(df),
+      seq, nh, hd);
   return static_cast<int>(cudaGetLastError());
 }

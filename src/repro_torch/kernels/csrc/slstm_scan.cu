@@ -126,6 +126,8 @@ slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
                   const float* __restrict__ m0, const float* __restrict__ h0,
                   float* __restrict__ h, float* c_out, float* n_out,
                   float* m_out, float* h_out, unsigned long long* ring,
+                  float* __restrict__ g_save, float* __restrict__ c_save,
+                  float* __restrict__ n_save, float* __restrict__ m_save,
                   int batch, int seq, int nh, int hd) {
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                                   // [hd][kCols]
@@ -233,6 +235,16 @@ slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
         c_out[at] = c_new;
         n_out[at] = n_new;
         m_out[at] = m_new;
+        if (g_save != nullptr) {
+          // the saves for the backward: the pre-activations and the state
+          const size_t sg = (bt * nh + head) * gw + unit0 + u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) g_save[sg + q * hd] = g[q];
+          const size_t ss = (bt * nh + head) * hd + unit0 + u;
+          c_save[ss] = c_new;
+          n_save[ss] = n_new;
+          m_save[ss] = m_new;
+        }
         h[(bt * nh + head) * hd + unit0 + u] = h_new;
         if (t + 1 < seq)
           store_word(ring + (t & 1) * slot + at,
@@ -249,16 +261,24 @@ slstm_scan_kernel(const float* __restrict__ wx, const float* __restrict__ r,
 
 // wx f32 [B, S, nh, 4hd]; r f32 [nh, hd, 4hd]; c0, n0, m0, h0 f32
 // [B, nh, hd]; h f32 [B, S, nh, hd]; c_out, n_out, m_out, h_out as c0;
-// ring: 2 B nh hd 64-bit words (zeroed here), used only for S > 1.  hd a
-// multiple of 16, at most 512.  Returns the launch's CUDA error, or 0.
+// ring: 2 B nh hd 64-bit words (zeroed here), used only for S > 1.
+// g_save [B, S, nh, 4hd] and c_save, n_save, m_save [B, S, nh, hd] (all
+// null, or all set: the saves for the backward) take each position's
+// pre-activations and state; they change nothing else.  hd a multiple of
+// 16, at most 512.  Returns the launch's CUDA error, or 0.
 extern "C" int slstm_scan_launch(const void* wx, const void* r,
                                  const void* c0, const void* n0,
                                  const void* m0, const void* h0, void* h,
                                  void* c_out, void* n_out, void* m_out,
-                                 void* h_out, void* ring, int batch,
-                                 int seq, int nh, int hd, void* stream_ptr) {
+                                 void* h_out, void* ring, void* g_save,
+                                 void* c_save, void* n_save, void* m_save,
+                                 int batch, int seq, int nh, int hd,
+                                 void* stream_ptr) {
+  const bool save = g_save != nullptr;
   if (hd % kUnits != 0 || hd > kMaxHd || hd <= 0 || nh <= 0 || seq <= 0 ||
-      batch <= 0 || (seq > 1 && ring == nullptr))
+      batch <= 0 || (seq > 1 && ring == nullptr) ||
+      save != (c_save != nullptr) || save != (n_save != nullptr) ||
+      save != (m_save != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   // the opt-in above 48 KB of shared memory, once a device, for the
@@ -288,21 +308,335 @@ extern "C" int slstm_scan_launch(const void* wx, const void* r,
   auto* m_ = static_cast<float*>(m_out);
   auto* ho_ = static_cast<float*>(h_out);
   auto* rg = static_cast<unsigned long long*>(ring);
+  auto* gs_ = static_cast<float*>(g_save);
+  auto* cs_ = static_cast<float*>(c_save);
+  auto* ns_ = static_cast<float*>(n_save);
+  auto* ms_ = static_cast<float*>(m_save);
   if (seq == 1) {
     slstm_scan_kernel<<<grid, kThreads, smem, stream>>>(
-        wx_, r_, c0_, n0_, m0_, h0_, h_, c_, n_, m_, ho_, nullptr, batch,
-        seq, nh, hd);
+        wx_, r_, c0_, n0_, m0_, h0_, h_, c_, n_, m_, ho_, nullptr, gs_, cs_,
+        ns_, ms_, batch, seq, nh, hd);
     return static_cast<int>(cudaGetLastError());
   }
   err = cudaMemsetAsync(rg, 0,
                         sizeof(unsigned long long) * 2 * batch * nh * hd,
                         stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&wx_, &r_, &c0_, &n0_, &m0_, &h0_, &h_, &c_, &n_, &m_,
-                  &ho_, &rg, &batch, &seq, &nh, &hd};
+  void* args[] = {&wx_, &r_,  &c0_, &n0_, &m0_, &h0_, &h_,
+                  &c_,  &n_,  &m_,  &ho_, &rg,  &gs_, &cs_,
+                  &ns_, &ms_, &batch, &seq, &nh, &hd};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(slstm_scan_kernel), grid,
       dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The backward, under autograd
+// ---------------------------------------------------------------------------
+//
+// The reference differentiates its lax.scan with jax.grad.  Here the
+// forward saved each position's pre-activations g and state c, n, m, and
+// the backward runs the positions in reverse.  Per row, head and unit, at
+// position t, with dh the output's gradient plus the recurrent one
+// (sum_j r[head, u, j] dg_{t+1, j}: the next position's gate gradients of
+// the whole head) and the carried dc, dn, dm:
+//
+//   N = max(n, 1e-6);  d(oc) = dh / N;  dN = -d(oc) (o c) / N
+//   dc += d(oc) o;  dn += dN where n >= 1e-6;  do = d(oc) c
+//   df' = dc c_{t-1} + dn n_{t-1};  di' = dc z + dn;  dz = dc i'
+//   da = f' df';  db = i' di';  dM = dm - da - db (the gradient of m)
+//   m = max(f + m_{t-1}, g_i): dM to the larger side (half each at a tie)
+//   dg = [dz (1 - z^2), db + dM_i, (da + dM_f) sigmoid(-g_f), do o (1 - o)]
+//   carried: dc f', dn f', dm = da + dM_f
+//
+// Grid: nh x (hd / 16) blocks of 256 threads, as the forward, with the
+// partition transposed: a block owns 16 units' rows of r[head] ([16, 4 hd],
+// 128 KB at hd = 512, in shared memory, rows padded by 4 words), so at each
+// position it forms its units' recurrent gradient from all 4 hd gate
+// gradients of the head (16 slices of the 4 hd columns, summed in order),
+// runs the cell's backward for its units (16 threads a row) and publishes
+// their 64 gate gradients as tagged 64-bit words in a ring of two
+// positions, as the forward publishes h (the same argument makes two slots
+// enough).  Blocks that wait on each other must all be resident: a
+// cooperative launch.  d r_gates = sum_{b,t} h_{t-1} (x) dg_t is a plain
+// product the wrapper leaves to torch.matmul; d wx = dg.
+//
+// What bounds it on an H100: as the forward, the serial chain of
+// positions (each waits for the head's gate gradients of the position
+// after); its products are 2 B S nh hd 4hd (8.59 GFLOP at B = 4, S = 256,
+// 4 heads of 512: 0.128 ms at 67 TFLOP/s).  Measured (PERF.md): 2.23 ms
+// at that shape, 8.7 us a position, with the ring's words loaded eight a
+// thread at once (3.59 ms one at a time).
+namespace {
+
+__host__ __device__ constexpr int bwd_ld(int hd) { return 4 * hd + 4; }
+constexpr int kRing = 8;                     // ring words a thread in flight
+
+constexpr size_t bwd_smem_bytes(int hd) {
+  return sizeof(float) * (static_cast<size_t>(kUnits) * bwd_ld(hd) +
+                          static_cast<size_t>(kRows) * 4 * hd +
+                          kSlices * kRows * kUnits);
+}
+static_assert(bwd_smem_bytes(kMaxHd) <= 232448,
+              "the backward's shared memory at hd = 512");
+
+template <int NB>
+__device__ __forceinline__ void bwd_dots(const float* w_s, const float* g_s,
+                                         float* part, int hd, int uu,
+                                         int slice) {
+  const int span = hd / 4;                  // a sixteenth of the 4 hd
+  const int c0 = slice * span;
+  const int ld = bwd_ld(hd);
+  float acc[NB];
+#pragma unroll
+  for (int rb = 0; rb < NB; ++rb) acc[rb] = 0.f;
+#pragma unroll 2
+  for (int c = c0; c < c0 + span; c += 4) {
+    const float4 w = *reinterpret_cast<const float4*>(w_s + uu * ld + c);
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(g_s + rb * 4 * hd + c);
+      acc[rb] = __fmaf_rn(w.x, x.x, acc[rb]);
+      acc[rb] = __fmaf_rn(w.y, x.y, acc[rb]);
+      acc[rb] = __fmaf_rn(w.z, x.z, acc[rb]);
+      acc[rb] = __fmaf_rn(w.w, x.w, acc[rb]);
+    }
+  }
+#pragma unroll
+  for (int rb = 0; rb < NB; ++rb)
+    part[(slice * kRows + rb) * kUnits + uu] = acc[rb];
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+slstm_bwd_kernel(const float* __restrict__ r, const float* __restrict__ dhs,
+                 const float* __restrict__ gsave,
+                 const float* __restrict__ csave,
+                 const float* __restrict__ nsave,
+                 const float* __restrict__ msave,
+                 const float* __restrict__ c0, const float* __restrict__ n0,
+                 const float* __restrict__ m0, float* dcar, float* dncar,
+                 float* dmcar, float* __restrict__ dwx,
+                 unsigned long long* ring, int batch, int seq, int nh,
+                 int hd) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = bwd_ld(hd);
+  float* w_s = smem;                                      // [kUnits][ld]
+  float* g_s = w_s + static_cast<size_t>(kUnits) * ld;    // [kRows][4 hd]
+  float* part = g_s + static_cast<size_t>(kRows) * 4 * hd;  // [kSlices]
+                                                          // [kRows][kUnits]
+  const int per_head = hd / kUnits;
+  const int head = blockIdx.x / per_head;
+  const int unit0 = (blockIdx.x % per_head) * kUnits;
+  const int tid = threadIdx.x;
+  const int gw = 4 * hd;
+  const size_t d4 = static_cast<size_t>(nh) * gw;
+
+  // this block's 16 rows of r[head], 4 floats at a time
+  const float* rh = r + (static_cast<size_t>(head) * hd + unit0) * gw;
+  for (int e = tid; e < kUnits * hd; e += kThreads) {
+    const int u = e / hd, c = (e - u * hd) * 4;
+    *reinterpret_cast<float4*>(w_s + u * ld + c) =
+        *reinterpret_cast<const float4*>(rh + static_cast<size_t>(u) * gw + c);
+  }
+  const int uu = tid % kUnits, slice = tid / kUnits;
+
+  const size_t slot = static_cast<size_t>(batch) * d4;   // ring slot
+  for (int tau = 0; tau < seq; ++tau) {
+    const int t = seq - 1 - tau;
+    for (int b0 = 0; b0 < batch; b0 += kRows) {
+      const int nb = min(kRows, batch - b0);
+      const bool cell = tid < nb * kUnits;
+      const int rb = tid / kUnits, u = tid % kUnits;
+      const size_t at = (static_cast<size_t>(b0 + rb) * nh + head) * hd +
+                        unit0 + u;
+      const size_t bt = static_cast<size_t>(b0 + rb) * seq + t;
+      const size_t sat = (bt * nh + head) * hd + unit0 + u;
+      const size_t gat = (bt * nh + head) * gw + unit0 + u;
+      // the cell's saves and carries, loaded before the wait
+      float g[4] = {0.f, 0.f, 0.f, 0.f}, st[6] = {0.f, 0.f, 0.f, 0.f, 0.f,
+                                                 0.f};
+      float car[3] = {0.f, 0.f, 0.f}, dh = 0.f;
+      if (cell) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) g[q] = gsave[gat + q * hd];
+        st[0] = csave[sat];
+        st[1] = nsave[sat];
+        st[2] = msave[sat];
+        const size_t pat = sat - static_cast<size_t>(nh) * hd;
+        st[3] = t > 0 ? csave[pat] : c0[at];
+        st[4] = t > 0 ? nsave[pat] : n0[at];
+        st[5] = t > 0 ? msave[pat] : m0[at];
+        car[0] = dcar[at];
+        car[1] = dncar[at];
+        car[2] = dmcar[at];
+        dh = dhs[sat];
+      }
+      __syncthreads();               // w_s loaded; g_s / part free again
+      if (tau > 0) {
+        // the head's gate gradients of the position after, kRing words a
+        // thread in flight at once, each polled again until its tag is tau
+        const unsigned long long* prev = ring + ((tau - 1) & 1) * slot;
+        const size_t row0 = (static_cast<size_t>(b0) * nh + head) * gw;
+        const size_t rstride = static_cast<size_t>(nh) * gw;
+        for (int e0 = tid; e0 < nb * gw; e0 += kRing * kThreads) {
+          unsigned long long w[kRing];
+#pragma unroll
+          for (int j = 0; j < kRing; ++j) {
+            const int e = e0 + j * kThreads;
+            if (e < nb * gw)
+              w[j] = load_word(prev + row0 + (e / gw) * rstride + e % gw);
+          }
+#pragma unroll
+          for (int j = 0; j < kRing; ++j) {
+            const int e = e0 + j * kThreads;
+            if (e < nb * gw) {
+              const unsigned long long* at =
+                  prev + row0 + (e / gw) * rstride + e % gw;
+              while (static_cast<unsigned>(w[j] >> 32) !=
+                     static_cast<unsigned>(tau))
+                w[j] = load_word(at);
+              g_s[e] = __uint_as_float(static_cast<unsigned>(w[j]));
+            }
+          }
+        }
+        __syncthreads();
+        switch (nb) {
+          case 1: bwd_dots<1>(w_s, g_s, part, hd, uu, slice); break;
+          case 2: bwd_dots<2>(w_s, g_s, part, hd, uu, slice); break;
+          case 3: bwd_dots<3>(w_s, g_s, part, hd, uu, slice); break;
+          case 4: bwd_dots<4>(w_s, g_s, part, hd, uu, slice); break;
+          case 5: bwd_dots<5>(w_s, g_s, part, hd, uu, slice); break;
+          case 6: bwd_dots<6>(w_s, g_s, part, hd, uu, slice); break;
+          case 7: bwd_dots<7>(w_s, g_s, part, hd, uu, slice); break;
+          default: bwd_dots<8>(w_s, g_s, part, hd, uu, slice); break;
+        }
+        __syncthreads();
+      }
+      if (cell) {
+        if (tau > 0) {
+          float rec = 0.f;
+#pragma unroll
+          for (int s = 0; s < kSlices; ++s)
+            rec = __fadd_rn(rec, part[(s * kRows + rb) * kUnits + u]);
+          dh = __fadd_rn(dh, rec);
+        }
+        const float c = st[0], n = st[1], m = st[2];
+        const float cp = st[3], np = st[4], mp = st[5];
+        const float z = tanhf(g[0]);
+        const float o = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[3])));
+        const float fl = __fsub_rn(fminf(g[2], 0.f),
+                                   log1pf(expf(-fabsf(g[2]))));
+        const float sf = __fdiv_rn(1.f, __fadd_rn(1.f, expf(g[2])));
+        const float fm = __fadd_rn(fl, mp);
+        const float i_p = expf(__fsub_rn(g[1], m));
+        const float f_p = expf(__fsub_rn(fm, m));
+        const float big_n = fmaxf(n, 1e-6f);
+        const float doc = __fdiv_rn(dh, big_n);
+        const float oc = __fmul_rn(o, c);
+        const float dn_h = -__fdiv_rn(__fmul_rn(doc, oc), big_n);
+        const float dct = __fadd_rn(car[0], __fmul_rn(doc, o));
+        const float dnt = n >= 1e-6f ? __fadd_rn(car[1], dn_h) : car[1];
+        const float d_o = __fmul_rn(doc, c);
+        const float dfp = __fadd_rn(__fmul_rn(dct, cp), __fmul_rn(dnt, np));
+        const float dip = __fadd_rn(__fmul_rn(dct, z), dnt);
+        const float dz = __fmul_rn(dct, i_p);
+        const float da = __fmul_rn(f_p, dfp), db = __fmul_rn(i_p, dip);
+        const float dm = __fsub_rn(__fsub_rn(car[2], da), db);
+        float dfm = da, dgi = db;
+        if (fm > g[1]) dfm = __fadd_rn(dfm, dm);
+        else if (g[1] > fm) dgi = __fadd_rn(dgi, dm);
+        else {
+          dfm = __fadd_rn(dfm, 0.5f * dm);
+          dgi = __fadd_rn(dgi, 0.5f * dm);
+        }
+        float dg[4];
+        dg[0] = __fmul_rn(dz, __fsub_rn(1.f, __fmul_rn(z, z)));
+        dg[1] = dgi;
+        dg[2] = __fmul_rn(dfm, sf);
+        dg[3] = __fmul_rn(__fmul_rn(d_o, o), __fsub_rn(1.f, o));
+        dcar[at] = __fmul_rn(dct, f_p);
+        dncar[at] = __fmul_rn(dnt, f_p);
+        dmcar[at] = dfm;
+        const size_t wat = (static_cast<size_t>(b0 + rb) * nh + head) * gw +
+                           unit0 + u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dwx[bt * d4 + static_cast<size_t>(head) * gw + q * hd + unit0 + u] =
+              dg[q];
+          if (tau + 1 < seq)
+            store_word(ring + (tau & 1) * slot + wat + q * hd,
+                       (static_cast<unsigned long long>(tau + 1) << 32) |
+                           __float_as_uint(dg[q]));
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// The backward: r f32 [nh, hd, 4hd]; dhs f32 [B, S, nh, hd] (the outputs'
+// gradient, the final h's added at the last position); gsave, csave,
+// nsave, msave the forward's saves; c0, n0, m0 [B, nh, hd] the starting
+// state; dcar, dncar, dmcar [B, nh, hd]: in, the final state's gradients
+// (zeros for none), out, the starting state's; dwx f32 [B, S, nh, 4hd];
+// ring: 2 B nh 4hd 64-bit words (zeroed here), used only for S > 1.  A
+// cooperative launch for S > 1.  Returns the launch's CUDA error, or 0.
+extern "C" int slstm_scan_bwd_launch(
+    const void* r, const void* dhs, const void* gsave, const void* csave,
+    const void* nsave, const void* msave, const void* c0, const void* n0,
+    const void* m0, void* dcar, void* dncar, void* dmcar, void* dwx,
+    void* ring, int batch, int seq, int nh, int hd, void* stream_ptr) {
+  if (hd % kUnits != 0 || hd > kMaxHd || hd <= 0 || nh <= 0 || seq <= 0 ||
+      batch <= 0 || (seq > 1 && ring == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  static bool opted[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 64 && !opted[device]) {
+    err = cudaFuncSetAttribute(slstm_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bwd_smem_bytes(kMaxHd)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted[device] = true;
+  }
+  const dim3 grid(nh * (hd / kUnits));
+  const size_t smem = bwd_smem_bytes(hd);
+  auto* r_ = static_cast<const float*>(r);
+  auto* dhs_ = static_cast<const float*>(dhs);
+  auto* gs_ = static_cast<const float*>(gsave);
+  auto* cs_ = static_cast<const float*>(csave);
+  auto* ns_ = static_cast<const float*>(nsave);
+  auto* ms_ = static_cast<const float*>(msave);
+  auto* c0_ = static_cast<const float*>(c0);
+  auto* n0_ = static_cast<const float*>(n0);
+  auto* m0_ = static_cast<const float*>(m0);
+  auto* dc_ = static_cast<float*>(dcar);
+  auto* dn_ = static_cast<float*>(dncar);
+  auto* dm_ = static_cast<float*>(dmcar);
+  auto* dwx_ = static_cast<float*>(dwx);
+  auto* rg = static_cast<unsigned long long*>(ring);
+  if (seq == 1) {
+    slstm_bwd_kernel<<<grid, kThreads, smem, stream>>>(
+        r_, dhs_, gs_, cs_, ns_, ms_, c0_, n0_, m0_, dc_, dn_, dm_, dwx_,
+        nullptr, batch, seq, nh, hd);
+    return static_cast<int>(cudaGetLastError());
+  }
+  err = cudaMemsetAsync(rg, 0,
+                        sizeof(unsigned long long) * 2 * batch * nh * 4 * hd,
+                        stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&r_,  &dhs_, &gs_, &cs_, &ns_, &ms_,  &c0_,
+                  &n0_, &m0_,  &dc_, &dn_, &dm_, &dwx_, &rg,
+                  &batch, &seq, &nh, &hd};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(slstm_bwd_kernel), grid, dim3(kThreads),
+      args, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

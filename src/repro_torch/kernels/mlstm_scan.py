@@ -111,6 +111,39 @@ u = 2^-24:
   whose argument a_p is below -1e4 (a zero state's m = -1e30) zeroes
   every term it carries in both versions (exp underflows), and the
   kernel clamps it there so its double sums keep their precision.
+
+The backward.  The reference trains through ``jax.grad`` of its
+``lax.scan``; the kernels above have no gradient of their own, so the
+dense sequence form has an autograd Function, ``MlstmScanFunction``
+(``mlstm_scan_grad``), which ``models.recurrent`` takes under autograd.
+Its forward is the chunkwise kernel with the save option (``_launch(...,
+save=)``: C and n before each chunk of 16 positions, [B, nh, nch, hd,
+hd] -- 1.07 GB at B = 4, S = 256, 4 heads of 1024 -- and n . q a
+position; h, C, n and m bit-identical with the option on or off), its
+backward the backward kernel (``mlstm_scan_backward``, in
+``csrc/mlstm_scan.cu``: the chunkwise form in reverse, four launches
+each counted in ``mlstm_scan_backward.launches``).  On the CPU the
+Function runs ``mlstm_save_plain`` (``mlstm_loop``'s ops with the same
+saves) and ``mlstm_backward_plain``, the same decomposition in torch,
+which gives autograd of ``mlstm_loop``'s gradients exactly in float64: the
+m chain and the clamp max(|n . q|, 1) included (h depends on the
+stabiliser m only where the clamp binds, and there its gradient runs
+through exp(i - m), exp(f + m - m_new) and max(f + m, i), a tie split
+evenly as PyTorch's and JAX's maximum).  The starting state carries no
+gradient: the Function raises if C, n or m asks for one.  Head dims as
+the forward's (multiples of 32 up to ``MAX_HD``).
+
+Its bar (``grad_check``): each gradient's largest distance from a
+float64 run of the plain forward and backward is at most ``GRAD_MULT``
+times the float32 plain run's own (or than one float32 ulp of the
+largest element).  A measured bar, not a derived one: the backward's sums
+(products over hd, the reverse chains over positions, the gate
+gradients' cancelling sums da_t = Q_t - K_t + da_{t+1}) are many and
+long, and a summation bound over them says little; the float32 plain run
+makes the same sums in another order, so its distance from float64 is
+the scale of float32's error on these inputs, and a dropped term or a
+wrong chain (the m chain dropped: ``tests/test_torch_mlstm_grad.py``)
+misses it by orders of magnitude.
 """
 from __future__ import annotations
 
@@ -121,8 +154,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["CHUNK", "h_tolerance", "mlstm_cell", "mlstm_loop",
-           "mlstm_scan", "mlstm_scan_plain", "tolerances"]
+__all__ = ["CHUNK", "GRAD_MULT", "MlstmScanFunction", "grad_check",
+           "h_tolerance", "mlstm_backward_plain", "mlstm_cell",
+           "mlstm_loop", "mlstm_save_plain", "mlstm_scan",
+           "mlstm_scan_backward", "mlstm_scan_grad", "mlstm_scan_plain",
+           "tolerances"]
 
 NAME = "mlstm_scan"
 NVCC_FLAGS = _build.BASE_FLAGS
@@ -145,8 +181,11 @@ def _load():
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                 + [ctypes.c_float])
         lib.mlstm_scan_launch.argtypes = args + [ctypes.c_void_p]
-        lib.mlstm_scan_chunk_launch.argtypes = args + [ctypes.c_void_p] * 2
-        for fn in (lib.mlstm_scan_launch, lib.mlstm_scan_chunk_launch):
+        lib.mlstm_scan_chunk_launch.argtypes = args + [ctypes.c_void_p] * 5
+        lib.mlstm_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 25 \
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        for fn in (lib.mlstm_scan_launch, lib.mlstm_scan_chunk_launch,
+                   lib.mlstm_scan_bwd_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -236,12 +275,15 @@ def _check(q, k, v, i, f, n, m, src, src_rows, dsts) -> None:
         raise ValueError("mlstm_scan needs at least one position")
 
 
-def _launch(q, k, v, i, f, n, m, src, src_rows, dsts, chunked: bool):
+def _launch(q, k, v, i, f, n, m, src, src_rows, dsts, chunked: bool,
+            save=None):
     """The chunkwise form (``chunked``: the pre-pass, then the chunkwise
     kernel) or the strip kernel on checked inputs, each kernel launch
     counted: (h, n, m).  ``mlstm_scan`` picks the form by the route rule;
     the strip kernel over S > 1 is reachable only here, for a same-run
-    comparison."""
+    comparison.  ``save`` (the chunkwise form only): the backward's saves
+    (``_saves``), which the kernel fills and which change no other
+    output."""
     if not 1 <= len(dsts) <= 2:
         raise ValueError(f"one or two destinations, not {len(dsts)}")
     _check(q, k, v, i, f, n, m, src, src_rows, dsts)
@@ -266,8 +308,13 @@ def _launch(q, k, v, i, f, n, m, src, src_rows, dsts, chunked: bool):
         # each chunk's q . k [CHUNK, CHUNK], from the first of two launches
         qk = _build.scratch(_QK, b * nh * -(-s // CHUNK) * CHUNK * CHUNK,
                             q.device)
-        err = lib.mlstm_scan_chunk_launch(*args, qk.data_ptr(), stream)
+        saves = (None,) * 3 if save is None else \
+            tuple(t.data_ptr() for t in save)
+        err = lib.mlstm_scan_chunk_launch(*args, qk.data_ptr(), *saves,
+                                          stream)
     else:
+        if save is not None:
+            raise ValueError("the strip kernel saves nothing")
         err = lib.mlstm_scan_launch(*args, stream)
     if err != 0:
         raise RuntimeError(f"mlstm_scan kernel launch failed: CUDA error "
@@ -374,3 +421,303 @@ def h_tolerance(q, k, v, i, f, n, m, src, src_rows):
         out.append(2.02 * gamma * (big_a + h.abs() * big_b) / den
                    + 4 * u * h.abs())
     return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the backward (module docstring)
+# ---------------------------------------------------------------------------
+
+#: the gradients' bar (``grad_check``): each gradient's largest distance
+#: from a float64 run of the plain backward at most this many times the
+#: float32 plain backward's own (or than one float32 ulp of the largest
+#: element, where the float32 run is closer still)
+GRAD_MULT = 8.0
+#: the backward's gradients, in ``mlstm_scan_backward``'s order
+GRAD_NAMES = ("dq", "dk", "dv", "di", "df")
+
+
+def _n_chunks(s: int, chunk: int = CHUNK) -> int:
+    return -(-s // chunk)
+
+
+def mlstm_save_plain(q, k, v, i, f, C, n, m, chunk=CHUNK):
+    """``mlstm_loop`` (the same ops, the same bits) that also returns the
+    backward's saves: (C, n, m, h, (csave [B, nh, nch, hd, hd], nsave
+    [B, nh, nch, hd], dsave [B, S, nh])) -- C and n before each chunk of
+    ``chunk`` positions and n . q a position, signed."""
+    b, s, nh, hd = q.shape
+    nch = _n_chunks(s, chunk)
+    csave = q.new_empty((b, nh, nch, hd, hd))
+    nsave = q.new_empty((b, nh, nch, hd))
+    dsave = q.new_empty((b, s, nh))
+    hs = []
+    for t in range(s):
+        if t % chunk == 0:
+            csave[:, :, t // chunk] = C
+            nsave[:, :, t // chunk] = n
+        C, n, m, h = mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t], i[:, t],
+                                f[:, t])
+        dsave[:, t] = torch.einsum("bhk,bhk->bh", n, q[:, t])
+        hs.append(h)
+    return C, n, m, torch.stack(hs, dim=1), (csave, nsave, dsave)
+
+
+def _saves(q):
+    """Empty saves of a call on q (``mlstm_save_plain``'s shapes)."""
+    b, s, nh, hd = q.shape
+    nch = _n_chunks(s)
+    return (q.new_empty((b, nh, nch, hd, hd)), q.new_empty((b, nh, nch, hd)),
+            q.new_empty((b, s, nh)))
+
+
+def _chain(i, f, m0):
+    """The forward's m chain (its rounding: m bit-equal) a position: a =
+    (f + m) - m_new and b = i - m_new, the arguments of f_p and i_p, and
+    fm = f + m, each [B, S, nh]."""
+    m = m0
+    a, b, fm = [], [], []
+    for t in range(i.shape[1]):
+        x = f[:, t] + m
+        m_new = torch.maximum(x, i[:, t])
+        a.append(x - m_new)
+        b.append(i[:, t] - m_new)
+        fm.append(x)
+        m = m_new
+    return (torch.stack(a, dim=1), torch.stack(b, dim=1),
+            torch.stack(fm, dim=1))
+
+
+def _gate_grads(i, fm, a, K, Q, e_end, dm_end):
+    """di, df [B, S, nh] from K_t (the gradient of b_t) and Q_t (the
+    module docstring): da_t = Q_t - K_t + da_{t+1} (from the final state's
+    share ``e_end``), zero where f_p = exp(a_t) is 0; then the m chain in
+    reverse, m_t's gradient to the larger of f_t + m_{t-1} and i_t (half
+    each at a tie), in float64."""
+    dd = torch.float64
+    da = e_end.to(dd) if e_end is not None else \
+        torch.zeros(i.shape[0], i.shape[2], dtype=dd, device=i.device)
+    dmf = dm_end.to(dd) if dm_end is not None else torch.zeros_like(da)
+    cut = torch.exp(a) == 0
+    di, df = [], []
+    for t in range(i.shape[1] - 1, -1, -1):
+        db = K[:, t].to(dd)
+        da = torch.where(cut[:, t], torch.zeros_like(da),
+                         Q[:, t].to(dd) - db + da)
+        dm = dmf - da - db
+        x, it = fm[:, t], i[:, t]
+        to_f = torch.where(x > it, 1.0, torch.where(x < it, 0.0, 0.5)) \
+            .to(dd)
+        dfm = da + to_f * dm
+        di.append(db + (1 - to_f) * dm)
+        df.append(dfm)
+        dmf = dfm
+    return (torch.stack(di[::-1], dim=1).to(i.dtype),
+            torch.stack(df[::-1], dim=1).to(i.dtype))
+
+
+def _end_share(dC, dn, C_end, n_end):
+    """<dC, C_end> + dn . n_end [B, nh]: the final state's gradients'
+    share of da at the last position (None where neither is given)."""
+    if dC is None and dn is None:
+        return None
+    out = 0.0
+    if dC is not None:
+        out = out + (dC * C_end).sum((-1, -2))
+    if dn is not None:
+        out = out + (dn * n_end).sum(-1)
+    return out
+
+
+def _pos_scalars(h, dh, d):
+    """den, dd (the gradient of n . q, zero where the clamp binds) and Q
+    (dh . h where it binds, else 0), each [B, S, nh]."""
+    den = torch.clamp_min(d.abs(), 1.0)
+    hh = (dh * h).sum(-1)
+    open_ = d.abs() >= 1.0
+    dd = torch.where(open_, -(hh / den) * torch.sign(d),
+                     torch.zeros_like(hh))
+    return den, dd, torch.where(open_, torch.zeros_like(hh), hh)
+
+
+def mlstm_backward_plain(q, k, v, i, f, m0, h, dh, saves, dC=None, dn=None,
+                         dm=None, C_end=None, n_end=None, chunk=CHUNK):
+    """Plain PyTorch version of the backward kernel: the chunkwise form
+    in reverse (module docstring) from the forward's ``saves``, in the
+    inputs' dtype (float64 for the reference run).  ``dC``, ``dn``,
+    ``dm``: the final state's gradients (None: none), with the final
+    ``C_end``, ``n_end``.  Returns (dq, dk, dv, di, df).  The CPU route
+    runs it under autograd, and the smoke run compares the kernel with it
+    on the card."""
+    csave, nsave, dsave = saves
+    b, s, nh, hd = q.shape
+    sq = torch.full_like(k, math.sqrt(hd))
+    kt = k / sq
+    a, bg, fm = _chain(i, f, m0)
+    den, dd, Q = _pos_scalars(h, dh, dsave)
+    dnum = dh / den[..., None]
+    T = lambda x: x.transpose(1, 2)          # [B, L, nh, ..] -> [B, nh, L]
+    dq, dkt, dv = (torch.empty_like(q) for _ in range(3))
+    K = torch.empty_like(i)
+    dCe = dC if dC is not None else q.new_zeros((b, nh, hd, hd))
+    dne = dn if dn is not None else q.new_zeros((b, nh, hd))
+    for ch in range(_n_chunks(s, chunk) - 1, -1, -1):
+        P = slice(ch * chunk, min(s, (ch + 1) * chunk))
+        qc, kc, vc, dnc = T(q[:, P]), T(kt[:, P]), T(v[:, P]), T(dnum[:, P])
+        ddc = T(dd[:, P])
+        A = torch.cumsum(torch.clamp_min(T(a[:, P]).double(), -1e4), -1)
+        g = torch.exp(A.to(q.dtype))
+        D = torch.exp((T(bg[:, P]).double()[..., None, :]
+                       + (A[..., :, None] - A[..., None, :])).to(q.dtype))
+        D = torch.tril(D)
+        dl, gl = D[..., -1, :], g[..., -1]
+        W = D * (dnc @ vc.transpose(-1, -2) + ddc[..., :, None])
+        dv[:, P] = T(dl[..., None] * (kc @ dCe)
+                     + (D * (qc @ kc.transpose(-1, -2))).transpose(-1, -2)
+                     @ dnc)
+        x1 = (csave[:, :, ch] @ dnc.transpose(-1, -2)).transpose(-1, -2)
+        x2 = (dCe @ vc.transpose(-1, -2)).transpose(-1, -2)
+        dq[:, P] = T(g[..., None] * (x1 + ddc[..., None]
+                                     * nsave[:, :, ch][..., None, :])
+                     + W @ kc)
+        dk_c = dl[..., None] * (x2 + dne[..., None, :]) \
+            + W.transpose(-1, -2) @ qc
+        dkt[:, P] = T(dk_c)
+        K[:, P] = T((kc * dk_c).sum(-1))
+        dCe = gl[..., None, None] * dCe \
+            + (g[..., None] * qc).transpose(-1, -2) @ dnc
+        dne = gl[..., None] * dne + ((g * ddc)[..., None] * qc).sum(-2)
+    di, df = _gate_grads(i, fm, a, K, Q, _end_share(dC, dn, C_end, n_end),
+                         dm)
+    return dq, dkt / sq, dv, di, df
+
+
+def _bwd_check(q, k, v, i, f, m0, h, dh, saves):
+    ts = (q, k, v, i, f, m0, h, dh) + tuple(saves)
+    if any(t.device != q.device for t in ts):
+        raise ValueError("all inputs must be on one CUDA device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("the backward takes float32 inputs")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("the backward needs contiguous inputs")
+    b, s, nh, hd = q.shape
+    if hd % 32 or hd > MAX_HD:
+        raise ValueError(f"the backward kernel takes head dims that are "
+                         f"multiples of 32 up to {MAX_HD} (got {hd})")
+    if tuple(h.shape) != (b, s, nh, hd) or h.shape != dh.shape:
+        raise ValueError("h and dh must be [B, S, nh, hd] as q")
+
+
+def mlstm_scan_backward(q, k, v, i, f, m0, h, dh, saves, dC=None, dn=None,
+                        dm=None, C_end=None, n_end=None):
+    """(dq, dk, dv, di, df) of the chunkwise form (the module docstring's
+    backward).  CPU tensors take ``mlstm_backward_plain``; CUDA tensors
+    launch the backward kernel (four launches, each counted in
+    ``mlstm_scan_backward.launches``) or raise."""
+    if q.device.type == "cpu":
+        return mlstm_backward_plain(q, k, v, i, f, m0, h, dh, saves, dC, dn,
+                                    dm, C_end, n_end)
+    if q.device.type != "cuda":
+        raise ValueError(f"the backward runs on cpu or cuda, not {q.device}")
+    dh = dh.contiguous()
+    _bwd_check(q, k, v, i, f, m0, h, dh, saves)
+    b, s, nh, hd = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    di, df = torch.empty_like(i), torch.empty_like(i)
+    if b == 0:
+        return dq, dk, dv, di, df
+    nch = _n_chunks(s)
+    dev = q.device
+    sc = torch.empty((b, nh, s, 8), device=dev)
+    qk = torch.empty((b, nh, nch, CHUNK, CHUNK), device=dev)
+    pp = torch.empty_like(qk)
+    dce = torch.empty((b, nh, nch, hd, hd), device=dev)
+    kpart = torch.empty((b, nh, hd // 32, s), device=dev)
+    e_end = _end_share(dC, dn, C_end, n_end)
+    opt = lambda t: None if t is None else t.contiguous()
+    dC, dn, dm, e_end = opt(dC), opt(dn), opt(dm), opt(e_end)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _load().mlstm_scan_bwd_launch(
+        *(t.data_ptr() for t in (q, k, v, i, f, m0, h, dh, *saves)),
+        ptr(dC), ptr(dn), ptr(e_end), ptr(dm),
+        *(t.data_ptr() for t in (sc, qk, pp, dce, kpart, dq, dk, dv, di,
+                                 df)),
+        b, s, nh, hd, math.sqrt(hd), torch.cuda.current_stream(dev)
+        .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mlstm_scan backward launch failed: CUDA error "
+                           f"{err}")
+    for _ in range(4):     # the prep, the dv pass, the dq / dk pass, gates
+        _build.count_launch(mlstm_scan_backward)
+    return dq, dk, dv, di, df
+
+
+mlstm_scan_backward.launches = 0
+mlstm_scan_backward.captured = 0
+
+
+class MlstmScanFunction(torch.autograd.Function):
+    """The dense sequence form under autograd: q, k, v, i, f and the
+    starting C [B, nh, hd, hd], n, m -> (h, C, n, m).  On a card the
+    forward is the chunkwise kernel with its saves and the backward the
+    backward kernel; on the CPU ``mlstm_save_plain`` and
+    ``mlstm_backward_plain``.  The starting state carries no gradient:
+    it raises if C, n or m asks for one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i, f, C, n, m):
+        if any(ctx.needs_input_grad[5:]):
+            raise ValueError("the mLSTM backward gives no gradient to the "
+                             "starting state (C, n, m)")
+        if any(t.dtype != torch.float32 for t in (q, k, v, i, f, C, n, m)):
+            raise TypeError("the mLSTM recurrence takes float32 inputs")
+        if q.device.type == "cuda":
+            b, _, nh, hd = q.shape
+            rows = torch.arange(b, device=q.device)
+            out = torch.empty((b, nh * hd * hd), device=q.device)
+            saves = _saves(q)
+            h, n_out, m_out = _launch(
+                q, k, v, i, f, n, m, C.reshape(b, -1).contiguous(), rows,
+                [(out, rows)], chunked=True, save=saves)
+            C_out = out.view(b, nh, hd, hd)
+        elif q.device.type == "cpu":
+            C_out, n_out, m_out, h, saves = mlstm_save_plain(
+                q, k, v, i, f, C, n, m)
+        else:
+            raise ValueError(f"the mLSTM backward runs on cpu or cuda, not "
+                             f"{q.device}")
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, i, f, m, h, C_out, n_out, *saves)
+        return h, C_out, n_out, m_out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, i, f, m0, h, C_end, n_end, *saves = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        dq, dk, dv, di, df = mlstm_scan_backward(
+            q, k, v, i, f, m0, h, dh, saves, dC, dn, dm, C_end, n_end)
+        return dq, dk, dv, di, df, None, None, None
+
+
+def mlstm_scan_grad(q, k, v, i, f, C, n, m):
+    """(h, C, n, m) of the dense sequence form through
+    ``MlstmScanFunction`` (the route under autograd)."""
+    return MlstmScanFunction.apply(q, k, v, i, f, C, n, m)
+
+
+def grad_check(got, plain32, plain64, names=GRAD_NAMES,
+               mult=GRAD_MULT) -> dict:
+    """{name: (distance, bar)} of each gradient ``got`` from the float64
+    plain run, against ``mult`` times the float32 plain run's own distance
+    (at least one float32 ulp of the largest element): the backward's
+    bar (``slstm_scan`` holds its backward to it too).  A gradient passes
+    where distance <= bar."""
+    out = {}
+    for name, g, p32, p64 in zip(names, got, plain32, plain64):
+        ref = p64.to(g.device, torch.float64)
+        own = float((p32.double().to(g.device) - ref).abs().max())
+        ulp = float(ref.abs().max()) * 2.0 ** -24
+        out[name] = (float((g.double() - ref).abs().max()),
+                     mult * max(own, ulp))
+    return out

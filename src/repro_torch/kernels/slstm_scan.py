@@ -70,17 +70,51 @@ as one position from the plain version's state, each within the one-step
 bound), and the whole sequence within the carried bound, its deviation
 printed, beside the kernel's own sequence launch bit-identical to its
 one-position launches chained on its own state.
+
+The backward.  The reference trains through ``jax.grad`` of its
+``lax.scan``; under autograd ``models.recurrent`` takes the autograd
+Function ``SlstmScanFunction`` (``slstm_scan_grad``).  Its forward is the
+kernel with the save option (``_launch(..., save=)``: each position's
+pre-activations [B, S, nh, 4 hd] and c, n, m [B, S, nh, hd], 58.7 MB at
+B = 4, S = 256, 4 heads of 512; every other output bit-identical with the
+option on or off), its backward the backward kernel
+(``slstm_scan_backward``, in ``csrc/slstm_scan.cu``: the positions in
+reverse, a cooperative launch whose blocks own 16 units' rows of
+r_gates and pass each position's gate gradients to each other as tagged
+words, as the forward passes h; one launch, counted in
+``slstm_scan_backward.launches``), then d r_gates = sum_{b,t} h_{t-1} (x)
+dg_t as one plain product.  On the CPU the Function runs
+``slstm_save_plain`` (``slstm_scan_plain``'s ops with the same saves) and
+``slstm_backward_plain``, the same decomposition in torch (exact in
+float64 against autograd of ``slstm_scan_plain``).  The starting state
+carries no gradient: the Function raises if c, n, m or h asks for one.
+Head dims as the forward's (multiples of 16 up to ``MAX_HD``).
+
+Its bar (``grad_check``): ``mlstm_scan.grad_check``'s, each gradient's
+largest distance from a float64 run of the plain backward at most
+``mlstm_scan.GRAD_MULT`` times the float32 plain run's own.  The
+recurrence at the reference's init (r_gates fan-in nh) is chaotic at
+width, and so is its backward: over a sequence the float32 gradients
+leave float64's (and, at 4 heads of 512 over some 100 positions,
+float32's range), so at that init the backward is held one position
+at a time from the same saved state (two positions a row, the second's
+gradients seeded), and over a sequence only at a reduced width and S,
+or with r_gates at fan-in hd.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, mlstm_scan
 
-__all__ = ["slstm_cell", "slstm_scan", "slstm_scan_plain", "tolerance"]
+__all__ = ["SlstmScanFunction", "grad_check", "slstm_cell",
+           "slstm_backward_plain", "slstm_save_plain", "slstm_scan",
+           "slstm_scan_backward", "slstm_scan_grad", "slstm_scan_plain",
+           "tolerance"]
 
 NAME = "slstm_scan"
 NVCC_FLAGS = _build.BASE_FLAGS
@@ -102,7 +136,11 @@ def _load():
     if _lib is None:
         lib = _build.load(NAME, NVCC_FLAGS)
         fn = lib.slstm_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.slstm_scan_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -112,9 +150,14 @@ def _load():
 def slstm_cell(st, wx, r_gates):
     """One timestep.  ``st`` {c, n, m, h: [B, nh, hd]}, wx [B, nh, 4 hd],
     the input part of the gates; the recurrent part comes from st["h"]."""
-    c, n, m, h = st["c"], st["n"], st["m"], st["h"]
-    hd = h.shape[-1]
-    gates = wx + torch.einsum("bhk,hkg->bhg", h, r_gates)
+    return _cell_update(st, wx + torch.einsum("bhk,hkg->bhg", st["h"],
+                                              r_gates))
+
+
+def _cell_update(st, gates):
+    """``slstm_cell`` from its pre-activations ``gates`` [B, nh, 4 hd]."""
+    c, n, m = st["c"], st["n"], st["m"]
+    hd = c.shape[-1]
     z, i, f, o = gates.split(hd, dim=-1)
     z, o, f = torch.tanh(z), torch.sigmoid(o), F.logsigmoid(f)
     m_new = torch.maximum(f + m, i)
@@ -179,6 +222,13 @@ def slstm_scan(wx, r_gates, c, n, m, h):
         return slstm_scan_plain(wx, r_gates, c, n, m, h)
     if wx.device.type != "cuda":
         raise ValueError(f"slstm_scan runs on cpu or cuda, not {wx.device}")
+    return _launch(wx, r_gates, c, n, m, h)
+
+
+def _launch(wx, r_gates, c, n, m, h, save=None):
+    """The kernel on checked inputs, its launch counted: (h, c, n, m,
+    h).  ``save``: the backward's saves (``_saves``), which the kernel
+    fills and which change no other output."""
     _check(wx, r_gates, c, n, m, h)
     b, s, nh, _ = wx.shape
     hd = r_gates.shape[1]
@@ -194,8 +244,9 @@ def slstm_scan(wx, r_gates, c, n, m, h):
     err = _load().slstm_scan_launch(
         wx.data_ptr(), r_gates.data_ptr(), c.data_ptr(), n.data_ptr(),
         m.data_ptr(), h.data_ptr(), hs.data_ptr(),
-        *(t.data_ptr() for t in outs), ptr(ring), b, s, nh, hd,
-        torch.cuda.current_stream(wx.device).cuda_stream)
+        *(t.data_ptr() for t in outs), ptr(ring),
+        *((None,) * 4 if save is None else (t.data_ptr() for t in save)),
+        b, s, nh, hd, torch.cuda.current_stream(wx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error "
                            f"{err}")
@@ -284,3 +335,194 @@ def tolerance(wx, r_gates, c, n, m, h, carry=False):
         st = slstm_cell(st, wx[:, t], r_gates)
         out.append(dev["h"])
     return torch.stack(out, dim=1), {k: dev[k] for k in "cnm"}
+
+
+# ---------------------------------------------------------------------------
+# the backward (module docstring)
+# ---------------------------------------------------------------------------
+
+#: the backward's gradients, in ``slstm_scan_backward``'s order
+GRAD_NAMES = ("dwx", "dr")
+#: the gradients' bar: ``mlstm_scan.grad_check``'s, over these names
+grad_check = functools.partial(mlstm_scan.grad_check, names=GRAD_NAMES)
+_BWD_RINGS: dict = {}
+
+
+def _saves(wx):
+    """Empty saves of a call on wx: the pre-activations [B, S, nh, 4 hd]
+    and c, n, m [B, S, nh, hd] a position."""
+    b, s, nh, g = wx.shape
+    return (torch.empty_like(wx),) + tuple(
+        wx.new_empty((b, s, nh, g // 4)) for _ in range(3))
+
+
+def slstm_save_plain(wx, r_gates, c, n, m, h):
+    """``slstm_scan_plain`` (the same ops, the same bits) that also
+    returns the backward's saves (``_saves``'s): (h [B, S, nh, hd], c, n,
+    m, h, saves)."""
+    st, hs = {"c": c, "n": n, "m": m, "h": h}, []
+    saves = _saves(wx)
+    for t in range(wx.shape[1]):
+        gates = wx[:, t] + torch.einsum("bhk,hkg->bhg", st["h"], r_gates)
+        st = _cell_update(st, gates)
+        saves[0][:, t] = gates
+        for j, key in enumerate("cnm"):
+            saves[j + 1][:, t] = st[key]
+        hs.append(st["h"])
+    return (torch.stack(hs, dim=1), st["c"], st["n"], st["m"], st["h"],
+            saves)
+
+
+def _cell_backward(g, c, n, m, cp, np_, mp, dh, dc, dn, dm):
+    """One position's backward (the module docstring's): the gate
+    gradients [B, nh, 4 hd] and the carried dc, dn, dm, from the
+    pre-activations g, the state after (c, n, m) and before (cp, np_, mp)
+    the position, the h gradient dh and the carried gradients."""
+    hd = c.shape[-1]
+    gz, gi, gf, go = g.split(hd, dim=-1)
+    z, o, fl = torch.tanh(gz), torch.sigmoid(go), F.logsigmoid(gf)
+    fm = fl + mp
+    i_p, f_p = torch.exp(gi - m), torch.exp(fm - m)
+    big_n = torch.clamp_min(n, 1e-6)
+    doc = dh / big_n
+    dct = dc + doc * o
+    dnt = dn + torch.where(n >= 1e-6, -(doc * (o * c)) / big_n,
+                           torch.zeros_like(n))
+    d_o = doc * c
+    da = f_p * (dct * cp + dnt * np_)
+    db = i_p * (dct * z + dnt)
+    dmm = dm - da - db
+    to_f = torch.where(fm > gi, 1.0, torch.where(fm < gi, 0.0, 0.5)) \
+        .to(g.dtype)
+    dfm = da + to_f * dmm
+    dg = torch.cat([dct * i_p * (1 - z * z), db + (1 - to_f) * dmm,
+                    dfm * torch.sigmoid(-gf), d_o * o * (1 - o)], dim=-1)
+    return dg, dct * f_p, dnt * f_p, dfm
+
+
+def _carries(c0, carries):
+    """The final c, n, m gradients (``carries``, each None for zero, or
+    None for all three) as three tensors."""
+    return tuple(torch.zeros_like(c0) if x is None else x
+                 for x in (carries or (None,) * 3))
+
+
+def slstm_backward_plain(wx, r_gates, c0, n0, m0, h0, hs, saves, dhs,
+                         carries=None):
+    """Plain PyTorch version of the backward kernel: the positions in
+    reverse from the forward's ``saves`` (module docstring), in the
+    inputs' dtype.  ``dhs`` [B, S, nh, hd]: the outputs' h gradient (the
+    final h's added at the last position); ``carries``: the final c, n, m
+    gradients (None: zero).  Returns (dwx [B, S, nh, 4 hd], dr_gates
+    [nh, hd, 4 hd], (dc, dn, dm) at the starting state)."""
+    gs, cs, ns, ms = saves
+    dc, dn, dm = _carries(c0, carries)
+    dwx = torch.empty_like(wx)
+    rec = torch.zeros_like(h0)
+    for t in range(wx.shape[1] - 1, -1, -1):
+        dh = dhs[:, t] + rec
+        prev = (cs[:, t - 1], ns[:, t - 1], ms[:, t - 1]) if t > 0 \
+            else (c0, n0, m0)
+        dg, dc, dn, dm = _cell_backward(gs[:, t], cs[:, t], ns[:, t],
+                                        ms[:, t], *prev, dh, dc, dn, dm)
+        dwx[:, t] = dg
+        rec = torch.einsum("bhg,hkg->bhk", dg, r_gates)
+    return dwx, _dr(h0, hs, dwx), (dc, dn, dm)
+
+
+def _dr(h0, hs, dwx):
+    """d r_gates = sum over rows and positions of h_{t-1} (x) dg_t: one
+    plain product."""
+    hp = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+    return torch.einsum("bshk,bshg->hkg", hp, dwx)
+
+
+def slstm_scan_backward(wx, r_gates, c0, n0, m0, h0, hs, saves, dhs,
+                        carries=None):
+    """(dwx, dr_gates, (dc, dn, dm) at the starting state) of the
+    recurrence (the module docstring's backward).  CPU tensors take
+    ``slstm_backward_plain``; CUDA tensors launch the backward kernel (one
+    launch, counted in ``slstm_scan_backward.launches``; d r_gates is one
+    plain product after it) or raise."""
+    if wx.device.type == "cpu":
+        return slstm_backward_plain(wx, r_gates, c0, n0, m0, h0, hs, saves,
+                                    dhs, carries)
+    if wx.device.type != "cuda":
+        raise ValueError(f"the backward runs on cpu or cuda, not "
+                         f"{wx.device}")
+    _check(wx, r_gates, c0, n0, m0, h0)
+    dhs = dhs.contiguous()
+    ts = (hs, dhs) + tuple(saves)
+    if any(t.dtype != torch.float32 or t.device != wx.device
+           or not t.is_contiguous() for t in ts):
+        raise ValueError("the backward takes contiguous float32 h, dh and "
+                         "saves on the inputs' device")
+    b, s, nh, _ = wx.shape
+    hd = r_gates.shape[1]
+    dwx = torch.empty_like(wx)
+    # the kernel carries them in place: copies
+    dc, dn, dm = (x.clone().contiguous() for x in _carries(c0, carries))
+    if b == 0:
+        return dwx, torch.zeros_like(r_gates), (dc, dn, dm)
+    # the ring of tagged gate gradients: 2 B nh 4 hd 64-bit words
+    ring = _build.scratch(_BWD_RINGS, 16 * b * nh * hd, wx.device) \
+        if s > 1 else None
+    err = _load().slstm_scan_bwd_launch(
+        r_gates.data_ptr(), dhs.data_ptr(),
+        *(t.data_ptr() for t in saves), c0.data_ptr(), n0.data_ptr(),
+        m0.data_ptr(), dc.data_ptr(), dn.data_ptr(), dm.data_ptr(),
+        dwx.data_ptr(), None if ring is None else ring.data_ptr(), b, s, nh,
+        hd, torch.cuda.current_stream(wx.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"slstm_scan backward launch failed: CUDA error "
+                           f"{err}")
+    _build.count_launch(slstm_scan_backward)
+    return dwx, _dr(h0, hs, dwx), (dc, dn, dm)
+
+
+slstm_scan_backward.launches = 0
+slstm_scan_backward.captured = 0
+
+
+class SlstmScanFunction(torch.autograd.Function):
+    """The recurrence under autograd: wx, r_gates and the starting c, n,
+    m, h -> (h [B, S, nh, hd], c, n, m, h).  On a card the forward is the
+    kernel with its saves and the backward the backward kernel; on the
+    CPU ``slstm_save_plain`` and ``slstm_backward_plain``.  The starting
+    state carries no gradient: it raises if c, n, m or h asks for one."""
+
+    @staticmethod
+    def forward(ctx, wx, r_gates, c, n, m, h):
+        if any(ctx.needs_input_grad[2:]):
+            raise ValueError("the sLSTM backward gives no gradient to the "
+                             "starting state (c, n, m, h)")
+        if any(t.dtype != torch.float32 for t in (wx, r_gates, c, n, m, h)):
+            raise TypeError("the sLSTM recurrence takes float32 inputs")
+        if wx.device.type == "cuda":
+            saves = _saves(wx)
+            hs, *outs = _launch(wx, r_gates, c, n, m, h, save=saves)
+        elif wx.device.type == "cpu":
+            hs, *outs, saves = slstm_save_plain(wx, r_gates, c, n, m, h)
+        else:
+            raise ValueError(f"the sLSTM backward runs on cpu or cuda, not "
+                             f"{wx.device}")
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(wx, r_gates, c, n, m, h, hs, *saves)
+        return (hs, *outs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dhs, dc, dn, dm, dh):
+        wx, r_gates, c0, n0, m0, h0, hs, *saves = ctx.saved_tensors
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.clone()
+        if dh is not None:
+            dhs[:, -1] += dh
+        dwx, dr, _ = slstm_scan_backward(wx, r_gates, c0, n0, m0, h0, hs,
+                                         saves, dhs, (dc, dn, dm))
+        return dwx, dr, None, None, None, None
+
+
+def slstm_scan_grad(wx, r_gates, c, n, m, h):
+    """(h [B, S, nh, hd], c, n, m, h) through ``SlstmScanFunction`` (the
+    route under autograd)."""
+    return SlstmScanFunction.apply(wx, r_gates, c, n, m, h)

@@ -15,9 +15,15 @@ weights in shared memory across positions; ``kernels.rglru_scan`` fuses
 the RG-LRU's gates into a chunked linear scan.  On the CPU each wrapper
 takes its plain version (the per-position loops, and the RG-LRU's
 log-depth (Hillis-Steele) scan, whose sums run in another order than
-JAX's tree, so its states agree to float32 rounding); under autograd and
-on the meta device every cell takes its plain version on any device
-(``plain_route``).
+JAX's tree, so its states agree to float32 rounding).  Under autograd
+the mLSTM's dense sequence form and the sLSTM run through autograd
+Functions with backward kernels of their own
+(``mlstm_scan.MlstmScanFunction``, ``slstm_scan.SlstmScanFunction``:
+on a card the kernels with their saves, on the CPU the plain forward and
+the backward's plain version); the paged decode branch and the RG-LRU,
+which have no backward kernel, and everything on the meta device take
+their plain versions, which autograd differentiates (``plain_route``,
+``grad_route``).
 
 Parameters live in a ``Cell`` module per pattern slot, stacked ``[R, ...]``
 over the segment's repeats like every other leaf, under the reference's
@@ -33,16 +39,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.mlstm_scan import (mlstm_loop, mlstm_scan,
+                                             mlstm_scan_grad,
                                              mlstm_scan_plain)
 from repro_torch.kernels.rglru_scan import (RGLRU_C, rglru_scan,
                                              rglru_scan_plain)
-from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_plain
+from repro_torch.kernels.slstm_scan import (slstm_scan, slstm_scan_grad,
+                                             slstm_scan_plain)
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.layers import reshape, rms_norm
 
 __all__ = ["Cell", "causal_conv1d", "conv_step", "zero_state",
            "mlstm_zero_state", "mlstm_apply", "mlstm_step",
-           "plain_route",
+           "grad_route", "plain_route",
            "slstm_zero_state", "slstm_apply", "slstm_step",
            "rglru_zero_state", "rglru_apply", "rglru_step", "rglru_lambda",
            "apply", "step"]
@@ -217,17 +225,24 @@ def _mlstm_out(p, r: int, h, gate):
     return (rms_norm(h, p.out_norm[r]) * F.silu(gate)) @ p.w_down[r]
 
 
+def grad_route(*tensors) -> bool:
+    """Under autograd: gradients enabled and any input requiring grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def plain_route(*tensors) -> bool:
-    """The recurrences' route rule: under autograd -- gradients enabled
-    and any input requiring grad -- each runs as its plain version
-    (``mlstm_loop``, ``slstm_scan_plain``, ``rglru_scan_plain``), which
-    autograd differentiates: training takes this route on every device
-    (the kernels have no backward); so does a trace on the meta device
-    (``launch.dryrun``), where nothing runs.  Otherwise each runs through
-    its kernel's wrapper: the kernel on a card, its plain version on the
-    CPU."""
-    return any(t.is_meta for t in tensors) or (
-        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+    """The route rule of the recurrences without a backward kernel -- the
+    mLSTM's paged decode branch and the RG-LRU: under autograd
+    (``grad_route``) each runs as its plain version
+    (``mlstm_scan_plain``, ``rglru_scan_plain``), which autograd
+    differentiates, on every device; so does every recurrence on the meta
+    device (``launch.dryrun``), where nothing runs.  Otherwise each runs
+    through its kernel's wrapper: the kernel on a card, its plain version
+    on the CPU.  The mLSTM's dense sequence form and the sLSTM have
+    backward kernels: under autograd they take their autograd Functions
+    (the kernels on a card, or a raise; their plain versions on the CPU),
+    never this route, but on the meta device."""
+    return any(t.is_meta for t in tensors) or grad_route(*tensors)
 
 
 def _mlstm_scan(q, k, v, i, f, state, pages=None):
@@ -245,8 +260,12 @@ def _mlstm_scan(q, k, v, i, f, state, pages=None):
         return h, {"n": n, "m": m}
     b, _, nh, hd = q.shape
     C = state["C"]
-    if plain_route(q, k, v, i, f, C, n, m):
+    ts = (q, k, v, i, f, C, n, m)
+    if any(t.is_meta for t in ts):
         C, n, m, h = mlstm_loop(C, n, m, q, k, v, i, f)
+        return h, {"C": C, "n": n, "m": m}
+    if grad_route(*ts):
+        h, C, n, m = mlstm_scan_grad(q, k, v, i, f, C, n, m)
         return h, {"C": C, "n": n, "m": m}
     rows = torch.arange(b, device=q.device)
     out = torch.empty((b, nh * hd * hd), device=q.device)
@@ -301,7 +320,10 @@ def _slstm_scan(wx, r_gates, state):
     wx = reshape(wx, wx.shape[0], wx.shape[1], nh, 4 * hd)
     args = (wx.contiguous(), r_gates) + tuple(
         state[k].contiguous() for k in ("c", "n", "m", "h"))
-    scan = slstm_scan_plain if plain_route(*args) else slstm_scan
+    if any(t.is_meta for t in args):
+        scan = slstm_scan_plain
+    else:
+        scan = slstm_scan_grad if grad_route(*args) else slstm_scan
     hs, *st = scan(*args)
     return hs, dict(zip(("c", "n", "m", "h"), st))
 

@@ -1575,7 +1575,8 @@ def _card_and_cpu_states(name, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,dtype", [("qwen3-14b", "float32"),
                                         ("deepseek-v3-671b", "float32"),
-                                        ("olmoe-1b-7b", "int8")])
+                                        ("olmoe-1b-7b", "int8"),
+                                        ("xlstm-1.3b", "float32")])
 def test_train_step_on_card_matches_cpu(name, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (run: python -m pytest -m gpu)")
@@ -1814,3 +1815,196 @@ def test_rglru_scan_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         trg.rglru_scan(ra.transpose(0, 1).contiguous().transpose(0, 1), ia,
                        xc, lam, h0)
+
+
+# ---------------------------------------------------------------------------
+# the recurrences' backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _mlstm_grad_inputs(dev, b, s, nh, hd, scale, carried, seed):
+    """Seeded q, k ~ N(0, scale^2), v, i ~ N(0, 1), log f =
+    logsigmoid(N(2, 1)), the zero or a carried state, dh ~ N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    q, k = r(b, s, nh, hd).mul_(scale), r(b, s, nh, hd).mul_(scale)
+    v, i = r(b, s, nh, hd), r(b, s, nh)
+    f = torch.nn.functional.logsigmoid(r(b, s, nh) + 2.0)
+    if carried:
+        st = (r(b, nh, hd, hd).mul_(0.3), r(b, nh, hd).mul_(0.3), r(b, nh))
+    else:
+        st = (torch.zeros((b, nh, hd, hd), device=dev),
+              torch.zeros((b, nh, hd), device=dev),
+              torch.full((b, nh), -1e30, device=dev))
+    return (q, k, v, i, f) + st, r(b, s, nh, hd)
+
+
+def _mlstm_kernel_grads(tms, args, dh, calls=1):
+    """The chunkwise forward with its saves, then ``calls`` calls of the
+    backward kernel: (their gradients, the saves)."""
+    b, _, nh, hd = args[0].shape
+    saves = tms._saves(args[0])
+    rows = torch.arange(b, device=args[0].device)
+    out = torch.empty((b, nh * hd * hd), device=args[0].device)
+    h, _, _ = tms._launch(*args[:5], args[6], args[7],
+                          args[5].reshape(b, -1).contiguous(), rows,
+                          [(out, rows)], chunked=True, save=saves)
+    return [tms.mlstm_scan_backward(*args[:5], args[7], h, dh, saves)
+            for _ in range(calls)], saves
+
+
+def _mlstm_plain_grads(tms, args, dh, dt):
+    x = [t.to(dt) for t in args]
+    _, _, _, h, saves = tms.mlstm_save_plain(*x)
+    return tms.mlstm_backward_plain(*x[:5], x[7], h, dh.to(dt), saves)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,hd,scale,carried", [
+    (4, 16, 32, 1.0, False), (4, 16, 32, 1.0, True), (2, 37, 64, 0.1, True),
+    (1, 50, 256, 1.0, False), (2, 33, 1024, 1.0, True)])
+def test_mlstm_backward_kernel_matches_plain(b, s, hd, scale, carried):
+    """The mLSTM backward kernel on the card: each gradient within
+    ``grad_check``'s bar of the float64 plain backward (``GRAD_MULT``
+    times the float32 plain backward's own distance), four launches
+    counted a call, a second call bit-identical."""
+    from repro_torch.kernels import mlstm_scan as tms
+    dev = _card()
+    args, dh = _mlstm_grad_inputs(dev, b, s, 4, hd, scale, carried,
+                                  seed=s + hd)
+    before = tms.mlstm_scan_backward.launches
+    (got, again), _ = _mlstm_kernel_grads(tms, args, dh, calls=2)
+    torch.cuda.synchronize()
+    assert tms.mlstm_scan_backward.launches == before + 8
+    bits = lambda t: t.view(torch.int32)
+    assert all(torch.equal(bits(x), bits(y)) for x, y in zip(got, again))
+    chk = tms.grad_check(got, _mlstm_plain_grads(tms, args, dh,
+                                                 torch.float32),
+                         _mlstm_plain_grads(tms, args, dh, torch.float64))
+    for name, (dist, bar) in chk.items():
+        assert dist <= bar, (name, dist, bar)
+
+
+def _drop_m_chain(i, fm, a, K, Q, e_end, dm_end):
+    """``mlstm_scan._gate_grads`` without the m chain: each gate keeps its
+    own share and none of the stabiliser's."""
+    dd = torch.float64
+    da = torch.zeros(i.shape[0], i.shape[2], dtype=dd, device=i.device)
+    cut = torch.exp(a) == 0
+    di, df = [], []
+    for t in range(i.shape[1] - 1, -1, -1):
+        da = torch.where(cut[:, t], torch.zeros_like(da),
+                         Q[:, t].to(dd) - K[:, t].to(dd) + da)
+        di.append(K[:, t].to(dd))
+        df.append(da)
+    return (torch.stack(di[::-1], 1).to(i.dtype),
+            torch.stack(df[::-1], 1).to(i.dtype))
+
+
+@pytest.mark.gpu
+def test_mlstm_backward_without_the_m_chain_misses_the_bar(monkeypatch):
+    """Where the clamp max(|n . q|, 1) binds (q and k small), the kernel's
+    gate gradients are within the bar and a backward that drops the m
+    chain (the plain one, mutated, on the card) is not."""
+    from repro_torch.kernels import mlstm_scan as tms
+    dev = _card()
+    args, dh = _mlstm_grad_inputs(dev, 2, 40, 4, 64, 0.1, False, seed=5)
+    (got,), saves = _mlstm_kernel_grads(tms, args, dh)
+    assert bool((saves[2].abs() < 1).all())
+    p32 = _mlstm_plain_grads(tms, args, dh, torch.float32)
+    p64 = _mlstm_plain_grads(tms, args, dh, torch.float64)
+    chk = tms.grad_check(got, p32, p64)
+    assert all(d <= bar for d, bar in chk.values()), chk
+    monkeypatch.setattr(tms, "_gate_grads", _drop_m_chain)
+    bad = tms.grad_check(_mlstm_plain_grads(tms, args, dh, torch.float32),
+                         p32, p64)
+    assert bad["di"][0] > bad["di"][1] and bad["df"][0] > bad["df"][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nh,hd,fan_in", [(4, 16, 4, 16, "nh"),
+                                              (3, 20, 4, 64, "nh"),
+                                              (2, 64, 4, 512, "hd"),
+                                              (9, 5, 2, 128, "hd")])
+def test_slstm_backward_kernel_matches_plain(b, s, nh, hd, fan_in):
+    """The sLSTM backward kernel on the card over a sequence short enough
+    (or r_gates at fan-in hd) for float32 to follow float64: dwx and dr
+    within ``grad_check``'s bar, one launch counted a call, a second call
+    bit-identical."""
+    from repro_torch.kernels import slstm_scan as tsl
+    dev = _card()
+    wx, r, st = _slstm_inputs(dev, b, s, nh, hd, seed=hd + s)
+    if fan_in == "hd":
+        r.mul_((nh / hd) ** 0.5)
+    dh = torch.randn((b, s, nh, hd), generator=torch.Generator(
+        device=dev).manual_seed(s), device=dev)
+    saves = tsl._saves(wx)
+    hs = tsl._launch(wx, r, *st, save=saves)[0]
+    before = tsl.slstm_scan_backward.launches
+    runs = [tsl.slstm_scan_backward(wx, r, *st, hs, saves, dh)[:2]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tsl.slstm_scan_backward.launches == before + 2
+    bits = lambda t: t.view(torch.int32)
+    assert all(torch.equal(bits(x), bits(y)) for x, y in zip(*runs))
+
+    def plain(dt):
+        x = [t.to(dt) for t in (wx, r) + tuple(st)]
+        h, *_, sv = tsl.slstm_save_plain(*x)
+        return tsl.slstm_backward_plain(*x, h, sv, dh.to(dt))[:2]
+
+    chk = tsl.grad_check(runs[0], plain(torch.float32),
+                         plain(torch.float64))
+    for name, (dist, bar) in chk.items():
+        assert dist <= bar, (name, dist, bar)
+
+
+@pytest.mark.gpu
+def test_recurrent_route_rule_under_autograd_on_the_card():
+    """Under autograd on the card the mLSTM's dense form and the sLSTM
+    launch their forward kernels with the saves and, in the backward,
+    their backward kernels; the mLSTM's paged branch and the RG-LRU take
+    their plain versions (no launch); a head dim the kernels do not take
+    raises."""
+    from repro_torch.kernels import mlstm_scan as tms
+    from repro_torch.kernels import rglru_scan as trg
+    from repro_torch.kernels import slstm_scan as tsl
+    from repro_torch.models import recurrent as TR
+    dev = _card()
+    counters = (tms.mlstm_scan, tms.mlstm_scan_backward, tsl.slstm_scan,
+                tsl.slstm_scan_backward, trg.rglru_scan)
+    count = lambda: [c.launches for c in counters]
+    args, dh = _mlstm_grad_inputs(dev, 2, 20, 4, 32, 1.0, True, seed=1)
+    q = args[0].clone().requires_grad_()
+    state = dict(zip(("C", "n", "m"), args[5:]))
+    before = count()
+    h, _ = TR._mlstm_scan(q, *args[1:5], state)
+    h.backward(dh)
+    assert [x - y for x, y in zip(count(), before)] == [2, 4, 0, 0, 0]
+    src = args[5].reshape(2, -1).contiguous()
+    rows = torch.arange(2, device=dev)
+    before = count()
+    h, _ = TR._mlstm_scan(q, *args[1:5], state,
+                          (src, rows, [(torch.empty_like(src), rows)]))
+    h.sum().backward()
+    assert count() == before
+    wx, r, st = _slstm_inputs(dev, 2, 6, 4, 16, seed=2)
+    wg = wx.reshape(2, 6, -1).clone().requires_grad_()
+    before = count()
+    hs, _ = TR._slstm_scan(wg, r, dict(zip("cnmh", st)))
+    hs.sum().backward()
+    assert [x - y for x, y in zip(count(), before)] == [0, 0, 1, 1, 0]
+    xc = torch.randn((2, 5, 16), device=dev).requires_grad_()
+    w = lambda *shape: torch.randn(shape, device=dev) * 0.1
+    p = type("P", (), {})()
+    p.w_a, p.w_a2, p.w_i, p.w_i2 = [w(16, 2)], [w(2, 16)], [w(16, 2)], \
+        [w(2, 16)]
+    p.lam = [w(16)]
+    before = count()
+    TR._rglru_scan(p, 0, xc, torch.zeros((2, 16), device=dev)).sum() \
+        .backward()
+    assert count() == before
+    bad, _ = _mlstm_grad_inputs(dev, 1, 3, 4, 48, 1.0, False, seed=3)
+    with pytest.raises(ValueError, match="head dims"):
+        TR._mlstm_scan(bad[0].requires_grad_(), *bad[1:5],
+                       dict(zip(("C", "n", "m"), bad[5:])))

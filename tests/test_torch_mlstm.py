@@ -29,8 +29,9 @@ what the CUDA kernel is compared with on the card, and what surrounds it:
     sinks; dropped rows (a dead row, a live row whose state page is
     unmapped, a dead row whose clamped page is a live row's) write only
     the sinks;
-  * the route rule (``recurrent.plain_route``): under autograd the
-    plain loop, which autograd differentiates; otherwise the wrapper.
+  * the route rule: under autograd the autograd Function with its
+    backward (``recurrent.grad_route``; its own tests are
+    ``tests/test_torch_mlstm_grad.py``); otherwise the wrapper.
 
 Inputs are drawn with numpy from seeds."""
 import dataclasses
@@ -532,14 +533,18 @@ def test_paged_branch_is_bit_equal_to_the_old_one(case):
 def test_route_rule(monkeypatch):
     """Without autograd (no grad mode, or nothing requiring grad) the
     sequence form goes through the wrapper; under autograd through the
-    plain loop, which autograd differentiates, with the same bits; and
-    the wrapper takes only CPU and CUDA tensors."""
+    autograd Function with its backward (on the CPU the plain forward,
+    the backward's plain version), with the same bits; and the wrapper
+    takes only CPU and CUDA tensors."""
     _, _, cfg, params = _models()
     cell = params.segments[0][0].cell
-    calls = []
+    calls, grad_calls = [], []
     real = TR.mlstm_scan
     monkeypatch.setattr(TR, "mlstm_scan",
                         lambda *a: calls.append(1) or real(*a))
+    real_grad = TR.mlstm_scan_grad
+    monkeypatch.setattr(TR, "mlstm_scan_grad",
+                        lambda *a: grad_calls.append(1) or real_grad(*a))
     x = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (2, 4, cfg.d_model)).astype(np.float32))
     with torch.no_grad():
@@ -553,7 +558,7 @@ def test_route_rule(monkeypatch):
     with torch.no_grad():
         assert not TR.plain_route(xg)
     yg, stg = TR.mlstm_apply(cell, 0, cfg, xg)
-    assert calls == [1, 1]
+    assert calls == [1, 1] and grad_calls == [1]
     assert torch.equal(yg.detach(), y)
     assert all(torch.equal(stg[k].detach(), st[k]) for k in st)
     yg.square().sum().backward()

@@ -19,8 +19,10 @@ what the CUDA kernel is compared with on the card, and what surrounds it:
     carried bound; an emulation that reads a stale h or drops a slice
     fails; the plain version in float32 against itself in float64 lies
     within the same bounds;
-  * the route rule (``recurrent.plain_route``): under autograd and on
-    the meta device the loop; otherwise the wrapper;
+  * the route rule: under autograd the autograd Function with its
+    backward (``recurrent.grad_route``; its own tests are
+    ``tests/test_torch_slstm_grad.py``), on the meta device the loop
+    (``recurrent.plain_route``); otherwise the wrapper;
   * the wrapper's refusals (``_check``, and a device it does not run on).
 
 Inputs are drawn with numpy from seeds."""
@@ -318,14 +320,17 @@ def test_one_step_bound_is_tight_enough_to_see_a_row():
 
 def test_route_rule(monkeypatch):
     """Without autograd the cell goes through the wrapper; under autograd
-    through the plain loop, with the same bits and a gradient; a meta
-    tensor takes the plain route, and the wrapper takes only CPU and
-    CUDA tensors."""
+    through the autograd Function with its backward, with the same bits
+    and a gradient; a meta tensor takes the plain route, and the wrapper
+    takes only CPU and CUDA tensors."""
     _, _, cfg, cell = _cell()
-    calls = []
+    calls, grad_calls = [], []
     real = TR.slstm_scan
     monkeypatch.setattr(TR, "slstm_scan",
                         lambda *a: calls.append(1) or real(*a))
+    real_grad = TR.slstm_scan_grad
+    monkeypatch.setattr(TR, "slstm_scan_grad",
+                        lambda *a: grad_calls.append(1) or real_grad(*a))
     x = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (2, 4, cfg.d_model)).astype(np.float32))
     with torch.no_grad():
@@ -334,7 +339,7 @@ def test_route_rule(monkeypatch):
     assert calls == [1, 1]
     xg = x.clone().requires_grad_(True)
     yg, stg = TR.slstm_apply(cell, 0, cfg, xg)
-    assert calls == [1, 1]
+    assert calls == [1, 1] and grad_calls == [1]
     assert torch.equal(yg.detach(), y)
     assert all(torch.equal(stg[k].detach(), st[k]) for k in st)
     yg.square().sum().backward()
