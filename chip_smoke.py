@@ -3339,22 +3339,37 @@ def _slstm_windows(ss_, name, b, s, hd, seed) -> dict:
 
 
 def _mlstm_bwd_bound(b, s, nh, hd):
-    """(bound ms, bound_by, GB, GFLOP) of the mLSTM backward: q, k, v, h,
-    dh read and dq, dk, dv written, the saved C boundaries read (nch hd^2
-    a row and head), the gates and saved n, n . q; the chunk products,
-    dC^T k~ and the carried update (the dv pass), C dnum and dC v (the
-    dq / dk pass), 2 hd^2 each a position, row and head, in float32 at
-    67 TFLOP/s (the in-chunk pair terms, 2 hd a pair, beside them)."""
+    """The bounds of one mLSTM backward call, each (bound ms, bound_by,
+    GB, GFLOP): its bytes (q, k, v, h, dh read and dq, dk, dv written,
+    the saved C boundaries read, nch hd^2 a row and head, the gates and
+    saved n, n . q) at 3.35 TB/s against
+
+    * "cuda_cores": the chunk products, dC^T k~ and the carried update
+      (the dv pass), C dnum and dC v (the dq / dk pass), 2 hd^2 each a
+      position, row and head, and the in-chunk pair terms (2 hd each a
+      pair) in float32 at 67 TFLOP/s (the kernel's earlier form);
+    * "tensor_cores": the same operations times 3 for 3xTF32 at 495
+      TFLOP/s (the form the kernel runs);
+    * "two_pass": the tensor-core form with the dce scratch the dv pass
+      writes and the dq / dk pass reads (nch hd^2 a row and head, each
+      way) among its bytes: the floor of the two-pass design."""
     nch = -(-s // 16)
     pairs = sum(min(16, s - c) * (min(16, s - c) + 1) // 2
                 for c in range(0, s, 16))
     gb = (8 * b * s * nh * hd + b * nh * nch * (hd * hd + hd)
           + 6 * b * s * nh) * 4 / 1e9
+    scratch_gb = 2 * b * nh * nch * hd * hd * 4 / 1e9
     flops = b * nh * (8 * s * hd * hd + 8 * pairs * hd)
-    t_bytes = gb * 1e9 / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", gb, flops / 1e9)
+    forms = {"cuda_cores": (gb, flops, F32_FLOPS_PER_S),
+             "tensor_cores": (gb, 3 * flops, TF32_FLOPS_PER_S),
+             "two_pass": (gb + scratch_gb, 3 * flops, TF32_FLOPS_PER_S)}
+    out = {}
+    for key, (g, fl, rate) in forms.items():
+        t_bytes = g * 1e9 / HBM_BYTES_PER_S * 1e3
+        t_ops = fl / rate * 1e3
+        out[key] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+                    else "operations", g, fl / 1e9)
+    return out
 
 
 def _slstm_bwd_bound(b, s, nh, hd):
@@ -3373,7 +3388,11 @@ def _slstm_bwd_bound(b, s, nh, hd):
             else "operations", gb, flops / 1e9)
 
 
-def _bwd_timing(name, kernel, plain, bound, flush, iters=10) -> dict:
+def _bwd_timing(name, kernel, plain, bound, flush, iters=10, rate="67",
+                others=None) -> dict:
+    """A backward kernel's time a call and on the device (by kernel)
+    against ``bound`` (its operations at ``rate`` TFLOP/s), and against
+    each of ``others`` ({form: bound}, returned as ``<form>_bound_ms``)."""
     ms = _time(kernel, iters, flush)
     dev_ms, how, names = _device_ms(kernel, iters, flush)
     plain_ms = _time(plain, 2, flush)
@@ -3381,12 +3400,18 @@ def _bwd_timing(name, kernel, plain, bound, flush, iters=10) -> dict:
     print(f"{name}: kernel {ms:.4f} ms a call (events), {dev_ms:.4f} ms on "
           f"the device ({how}: {_ms_list(names)}); plain backward "
           f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{gb:.4f} GB at 3.35 TB/s, {gflop:.3f} GFLOP at 67 TFLOP/s) -> "
-          f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device; no "
+          f"{gb:.4f} GB at 3.35 TB/s, {gflop:.3f} GFLOP at {rate} TFLOP/s) "
+          f"-> {bound_ms / dev_ms * 100:.1f}% of the bound on the device; no "
           "single PyTorch call computes it (library_ms null)", flush=True)
-    return dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
-                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by)
+    out = dict(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+               bound_by=bound_by)
+    for form, (o_ms, o_by, o_gb, o_gflop) in (others or {}).items():
+        print(f"  against the {form} figure {o_ms:.4f} ms ({o_by}: "
+              f"{o_gb:.4f} GB, {o_gflop:.3f} GFLOP): "
+              f"{o_ms / dev_ms * 100:.1f}% of it on the device", flush=True)
+        out[f"{form}_bound_ms"] = o_ms
+    return out
 
 
 def phase_backward(ms_, ss_) -> dict:
@@ -3438,11 +3463,13 @@ def phase_backward(ms_, ss_) -> dict:
           f"the saves, {fwd[True]:.4f} ms with them (C and n before each of "
           f"{-(-s // 16)} chunks: "
           f"{case['saves'][0].numel() * 4 / 1e9:.3f} GB)", flush=True)
+    bounds = _mlstm_bwd_bound(b, s, MLSTM_NH, MLSTM_HD)
     res["mlstm"].update(_bwd_timing(
-        f"mlstm backward B={b} S={s} 4 heads of {MLSTM_HD}",
+        f"mlstm backward B={b} S={s} 4 heads of {MLSTM_HD} (3xTF32 form)",
         lambda: ms_.mlstm_scan_backward(*mb),
-        lambda: ms_.mlstm_backward_plain(*mb),
-        _mlstm_bwd_bound(b, s, MLSTM_NH, MLSTM_HD), flush))
+        lambda: ms_.mlstm_backward_plain(*mb), bounds["tensor_cores"], flush,
+        rate="3 x 495", others={"cuda_cores": bounds["cuda_cores"],
+                                "two_pass": bounds["two_pass"]}))
     res["mlstm"].update(forward_ms=fwd[False], forward_saves_ms=fwd[True],
                         saves_gb=case["saves"][0].numel() * 4 / 1e9)
     # the route training took before: autograd of the per-position loop

@@ -1087,32 +1087,65 @@ extern "C" int mlstm_scan_chunk_launch(
 // The initial state carries no gradient (the wrapper refuses one that
 // asks for it).
 //
-// Four launches, each counted: the prep (grid chunks x nh x B: the m chain
-// up to the chunk, a and b a position, den, dd, Q, and the chunk's q . k~
-// and P from float32 dot products on the CUDA cores), the dv pass (grid
-// hd / 32 strips of v columns x nh x B, 16 warps: dCe's strip in
-// registers [hd, 32], carried from the last chunk to the first, written
-// at each boundary for the next pass), the dq / dk pass (grid hd / 32
-// strips of hd rows x nh x
-// B: Cb dnum and dCe v over all hd columns from the saved and written
-// boundaries, dne carried in reverse, K's partial over the strip's rows)
-// and the gate pass (one warp a row and head, the serial chain).  Every
-// sum runs in a fixed order and no float atomics are used: two runs give
-// the same bits.
+// Four launches, each counted:
 //
-// What bounds it on an H100: the dq / dk pass reads every boundary C and
-// dC once, 2 nch hd^2 floats a head and row (2.1 GB at B = 4, S = 256, 4
-// heads of 1024: 0.64 ms at 3.35 TB/s); the products are 2 x 4 L hd^2 a
-// chunk, head and row (17 GFLOP over both passes: 0.26 ms at 67 TFLOP/s
-// in float32).  A simple form on the CUDA cores: 5.74 ms on an H100 at
-// that shape (PERF.md: the dv pass 3.39, 16 warps with 400 bytes of
-// spills; the dq / dk pass 2.15), 9% of the bound; wgmma and 3xTF32 for
-// the four products are later work.
+// * the prep (grid chunks x nh x B): the m chain up to the chunk (a, m
+//   and Q a position, for the gate pass), dnum = dh / den (for both
+//   passes) and the chunk's record: g_t, D_Lj, dd_t, D (q . k~) and W =
+//   D P, from float32 dot products on the CUDA cores;
+// * the dv pass (grid hd / 32 strips of dC's columns x nh x B, 8 warps,
+//   one block an SM), the forward's chunkwise kernel turned round: dC^T
+//   of the strip [32, hd] as mma.sync m16n8k8 accumulators laid out as the
+//   forward's C^T (a warp ceil(hd / 64) k-steps of 8 rows), carried from
+//   the last chunk to the first.  A chunk: dCe written to the boundary
+//   for the next pass (through shared memory, a row a float4 store a
+//   lane); dCe^T k [32, 16] (the forward's C^T q with k in q's place);
+//   then, onto g_L dCe, the update
+//   (g o dnum)^T [32, 16] . Q [16, hd] (the forward's, q in k's place);
+//   both 3xTF32 through split / mma3.  The in-chunk term of dv, [16, 16]
+//   . [16, 32], stays on the CUDA cores.  q, k and the strip of dnum come
+//   by bulk copies onto mbarriers, the previous chunk's in flight while
+//   this one's update runs (q and dnum double-buffered, k single: three
+//   buffers of L (hd + 8) floats are 198 KB at hd = 1024, and four do not
+//   fit the 227 KB a block may have).  One warp carries dn's 32 rows of
+//   the strip's index (dnb = g_L dne + sum_t g_t dd_t q_t) and writes dne
+//   at each boundary, so the next pass carries nothing;
+// * the dq / dk pass (grid hd / 32 strips of rows x chunks x B nh: every
+//   (strip, chunk) its own block, two an SM): X1 = Cb dnum^T and X2 = dCe
+//   V^T [32, 16] over the hd columns as 3xTF32 mma.sync, the columns split
+//   over the 8 warps (two k-steps of 8 each a tile) and the partials summed
+//   in warp order; Cb, dCe, dnum and v stream through two buffers of
+//   tiles of 128 columns, 16-byte cp.async pieces from every thread (the
+//   bulk copy engine took too long a 256-byte row), each boundary byte
+//   read once, the next tile in flight during the current one's
+//   products; then dq, dk and K's partial over the strip's rows on the
+//   CUDA cores;
+// * the gate pass (one warp a row and head, the serial chain).
+//
+// Every sum runs in a fixed order and no float atomics are used: two runs
+// give the same bits.
+//
+// What bounds it on an H100 at B = 4, S = 256, 4 heads of 1024: bytes,
+// 1.209 GB read or written once (0.361 ms at 3.35 TB/s), against 3 x
+// 34.645 GFLOP of 3xTF32 (0.210 ms at 495 TFLOP/s; 0.517 ms in float32
+// on the CUDA cores); the two passes also write and read the dce
+// scratch, 1.074 GB each way, so their own floor is ~1.0 ms.  Measured
+// there on an H100 (PERF.md): 1.78 ms on the device (dq / dk 0.89, dv
+// 0.68, prep 0.16, gates 0.05), 20% of the bound and 56% of the two
+// passes' floor; the same four passes in float32 on the CUDA cores took
+// 5.72 (the dv pass 3.38, with 400 bytes of spills).
 namespace {
 
 constexpr int kBwdTile = 64;                 // hd columns a prep tile
 constexpr int kGateTile = 256;               // positions a gate-pass tile
-constexpr int kSc = 8;  // a, b, m, den, dd, Q, K and a spare, a position
+constexpr int kSc = 3;  // a, m and Q a position, for the gate pass
+// a chunk's record (floats): D (q . k~) [L][L], then g, D_L, dd and a
+// spare [L] each, then W = D P [L][L]; the dv pass copies its first
+// kRecDv floats, the dq / dk pass the kRecQk from kRecG on
+constexpr int kRecG = kL * kL, kRecDl = kRecG + kL, kRecDd = kRecDl + kL;
+constexpr int kRecW = kRecDd + 2 * kL;
+constexpr int kRec = kRecW + kL * kL;
+constexpr int kRecDv = kRecW, kRecQk = kRec - kRecG;
 
 // the chunk's A_t (double, clamped as the forward), g_t and D_tj from a_s
 // and b_s (rows past lc give 0), by the block's threads
@@ -1146,13 +1179,15 @@ mlstm_bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ h,
                       const float* __restrict__ dh,
                       const float* __restrict__ dsave, float* __restrict__ sc,
-                      float* __restrict__ qk, float* __restrict__ pp, int seq,
-                      int nh, int hd, float sqrt_hd) {
+                      float* __restrict__ rec, float* __restrict__ dnum,
+                      int seq, int nh, int hd, float sqrt_hd) {
   __shared__ float gi_s[kGateTile], gf_s[kGateTile];
   // rows padded by one word: thread (t, j) reads row j of k and v
   __shared__ float q_s[kL][kBwdTile + 1], k_s[kL][kBwdTile + 1];
   __shared__ float v_s[kL][kBwdTile + 1], dn_s[kL][kBwdTile + 1];
   __shared__ float den_s[kL], dd_s[kL], hh_s[kL];
+  __shared__ double A_s[kL];
+  __shared__ float a_s[kL], b_s[kL], g_s[kL], D_s[kL * kL];
   const int ch = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nch = (seq + kL - 1) / kL;
@@ -1182,9 +1217,11 @@ mlstm_bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float mn = fmaxf(fm, gi_s[e]);
         const int pos = t0 + e;
         if (pos >= c0) {
-          scb[pos * kSc + 0] = __fsub_rn(fm, mn);
-          scb[pos * kSc + 1] = __fsub_rn(gi_s[e], mn);
-          scb[pos * kSc + 2] = mn;
+          const float a = __fsub_rn(fm, mn), bb = __fsub_rn(gi_s[e], mn);
+          scb[pos * kSc + 0] = a;
+          scb[pos * kSc + 1] = mn;
+          a_s[pos - c0] = a;
+          b_s[pos - c0] = bb;
         }
         m = mn;
       }
@@ -1216,12 +1253,12 @@ mlstm_bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   if (tid < lc) {
     const float d = dsave[gate(c0 + tid)];
-    scb[(c0 + tid) * kSc + 3] = den_s[tid];
-    scb[(c0 + tid) * kSc + 4] = dd_s[tid];
-    scb[(c0 + tid) * kSc + 5] = fabsf(d) >= 1.f ? 0.f : hh_s[tid];
+    scb[(c0 + tid) * kSc + 2] = fabsf(d) >= 1.f ? 0.f : hh_s[tid];
   }
+  bwd_decay(a_s, b_s, lc, A_s, g_s, D_s, tid);
 
-  // q . k~ and dnum . v over tiles of hd columns: thread (t, j)
+  // q . k~ and dnum . v over tiles of hd columns: thread (t, j); dnum
+  // written for both passes
   const int t = tid >> 4, j = tid & 15;
   float sqk = 0.f, spv = 0.f;
   for (int x0 = 0; x0 < hd; x0 += kBwdTile) {
@@ -1233,7 +1270,9 @@ mlstm_bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
       q_s[r][cl] = in ? q[at] : 0.f;
       k_s[r][cl] = in ? __fdiv_rn(k[at], sqrt_hd) : 0.f;
       v_s[r][cl] = in ? v[at] : 0.f;
-      dn_s[r][cl] = in ? __fdiv_rn(dh[at], den_s[r]) : 0.f;
+      const float dn = in ? __fdiv_rn(dh[at], den_s[r]) : 0.f;
+      dn_s[r][cl] = dn;
+      if (in) dnum[at] = dn;
     }
     __syncthreads();
 #pragma unroll 8
@@ -1242,379 +1281,564 @@ mlstm_bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
       spv = __fmaf_rn(dn_s[t][cl], v_s[j][cl], spv);
     }
   }
-  const size_t pair = (bh * nch + ch) * kL * kL + tid;
-  qk[pair] = sqk;
-  pp[pair] = __fadd_rn(spv, dd_s[t]);
+  // the record (rows and columns past lc: zeros)
+  float* rc = rec + (bh * nch + ch) * kRec;
+  const float d = D_s[tid];
+  rc[tid] = __fmul_rn(d, sqk);
+  rc[kRecW + tid] = __fmul_rn(d, __fadd_rn(spv, dd_s[t]));
+  if (tid < kL) {
+    rc[kRecG + tid] = g_s[tid];
+    rc[kRecDl + tid] = D_s[(lc - 1) * kL + tid];
+    rc[kRecDd + tid] = dd_s[tid];
+    rc[kRecDd + kL + tid] = 0.f;
+  }
 }
 
-// the dv pass: grid (hd / 32 strips of v columns, nh, B), 512 threads;
-// thread (warp w, lane l) holds column strip * 32 + l of dC over the
-// warp's hd / 16 rows
-constexpr int kDvWarps = 16;
-constexpr int kDvThreads = kDvWarps * 32;
-constexpr int kDvRows = kMaxHd / kDvWarps;   // rows of the strip a thread
-
+// the dv pass: grid (hd / 32 strips of dC's columns, nh, B), 256 threads,
+// one block an SM
 constexpr size_t dv_smem_bytes(int hd) {
-  return sizeof(double) * kL +
-         sizeof(float) * (2 * static_cast<size_t>(kL) * hd + 2 * kL * kTv +
-                          kDvWarps * kL * kTv + 2 * kL * kL + 3 * kL);
+  return 4 * sizeof(uint64_t) +
+         sizeof(float) * (static_cast<size_t>(3) * kL * ldq(hd) +
+                          2 * kL * kVld + 2 * kRecDv + kWarps * kTv * kL);
 }
 static_assert(dv_smem_bytes(kMaxHd) <= 232448, "the dv pass's shared memory");
 
-// a chunk's rows of q and k~ into shared memory, four floats a load, the
-// loads of a thread all in flight
-__device__ __forceinline__ void load_rows(const float* __restrict__ q,
-                                          const float* __restrict__ k,
-                                          float* q_s, float* k_s,
-                                          size_t base, size_t pos_stride,
-                                          int lc, int hd, float sqrt_hd,
-                                          int tid, int threads) {
-  const int w4 = hd / 4;
-#pragma unroll 4
-  for (int e = tid; e < kL * w4; e += threads) {
-    const int r = e / w4, x = (e - r * w4) * 4;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
-    if (r < lc) {
-      const size_t at = base + r * pos_stride + x;
-      a = *reinterpret_cast<const float4*>(q + at);
-      c = *reinterpret_cast<const float4*>(k + at);
-      c = make_float4(__fdiv_rn(c.x, sqrt_hd), __fdiv_rn(c.y, sqrt_hd),
-                      __fdiv_rn(c.z, sqrt_hd), __fdiv_rn(c.w, sqrt_hd));
-    }
-    *reinterpret_cast<float4*>(q_s + r * hd + x) = a;
-    *reinterpret_cast<float4*>(k_s + r * hd + x) = c;
-  }
-}
-
-__global__ void __launch_bounds__(kDvThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 mlstm_bwd_dv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dh,
-                    const float* __restrict__ sc,
-                    const float* __restrict__ qk,
-                    const float* __restrict__ dc_end, float* __restrict__ dce,
-                    float* __restrict__ dv, int seq, int nh, int hd,
-                    float sqrt_hd) {
+                    const float* __restrict__ dnum,
+                    const float* __restrict__ rec,
+                    const float* __restrict__ dc_end,
+                    const float* __restrict__ dn_end, float* __restrict__ dce,
+                    float* __restrict__ dne, float* __restrict__ dv, int seq,
+                    int nh, int hd, float sqrt_hd) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* A_s = reinterpret_cast<double*>(smem_raw);     // [kL]
-  float* q_s = reinterpret_cast<float*>(A_s + kL);       // [kL][hd]
-  float* k_s = q_s + kL * hd;                            // [kL][hd] k~
-  float* dn_s = k_s + kL * hd;                           // [kL][kTv]
-  float* v_s = dn_s + kL * kTv;                          // [kL][kTv]
-  float* red = v_s + kL * kTv;                         // [kDvWarps][kL][kTv]
-  float* D_s = red + kDvWarps * kL * kTv;                // [kL][kL]
-  float* qk_s = D_s + kL * kL;                           // [kL][kL]
-  float* g_s = qk_s + kL * kL;                           // [kL]
-  float* a_s = g_s + kL;                                 // [kL]
-  float* b_s = a_s + kL;                                 // [kL]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem_raw);  // k in
+  uint64_t* full_q = full_k + 1;              // [2]: q, dnum, the record in
+  const int lq = ldq(hd);
+  float* q_s = reinterpret_cast<float*>(full_k + 4);   // [2][kL][lq]
+  float* k_s = q_s + 2 * kL * lq;                      // [kL][lq]
+  float* dn_s = k_s + kL * lq;                         // [2][kL][kVld]
+  float* rc_s = dn_s + 2 * kL * kVld;                  // [2][kRecDv]
+  float* cq_s = rc_s + 2 * kRecDv;                     // [kWarps][kTv][kL]
 
   const int strip = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = hd / kDvWarps, row0 = warp * rows;   // rows: even
-  const int col = strip * kTv + lane;
+  const int gq = lane >> 2, tq = lane & 3;  // the mma fragments' group, thread
+  const int nks = (hd + 63) / 64;
+  const int ks0 = warp * nks;               // this warp's first k-step
+  const int steps = min(max(hd / 8 - ks0, 0), nks);
+  const int col0 = strip * kTv;
   const int nch = (seq + kL - 1) / kL;
   const size_t bh = static_cast<size_t>(b) * nh + head;
   const size_t mat = static_cast<size_t>(hd) * hd;
-  const size_t pos_stride = static_cast<size_t>(nh) * hd;
-  const float* scb = sc + bh * seq * kSc;
-  auto row = [&](int pos) {
+
+  auto row_off = [&](int pos) {
     return ((static_cast<size_t>(b) * seq + pos) * nh + head) * hd;
   };
-
-  float dc[kDvRows];
-#pragma unroll
-  for (int i = 0; i < kDvRows; ++i)
-    dc[i] = (i < rows && dc_end != nullptr)
-                ? dc_end[bh * mat + static_cast<size_t>(row0 + i) * hd + col]
-                : 0.f;
-
-  for (int ch = nch - 1; ch >= 0; --ch) {
-    const int c0 = ch * kL, lc = min(kL, seq - c0);
-    __syncthreads();                 // the last chunk's reads are done
-    load_rows(q, k, q_s, k_s, row(c0), pos_stride, lc, hd, sqrt_hd, tid,
-              kDvThreads);
-    {
-      const int r = tid / kTv, cl = tid % kTv;   // kL x kTv = the block
-      const bool in = r < lc;
-      const size_t at = row(c0 + (in ? r : 0)) + strip * kTv + cl;
-      dn_s[tid] = in ? __fdiv_rn(dh[at], scb[(c0 + r) * kSc + 3]) : 0.f;
-      v_s[tid] = in ? v[at] : 0.f;
+  auto rows_in = [&](int ch) { return min(kL, seq - ch * kL); };
+  // chunk ch's rows, issued by one warp (a lane a row): k to k_s; q, this
+  // strip of dnum and the record to buffer buf
+  auto load_k = [&](int ch) {
+    const int lc = rows_in(ch);
+    if (lane == 0) mbar_expect_tx(full_k, lc * hd * 4);
+    if (lane < lc)
+      bulk_row(k_s + lane * lq, k + row_off(ch * kL + lane), hd * 4, full_k);
+  };
+  auto load_q = [&](int ch, int buf) {
+    const int lc = rows_in(ch);
+    uint64_t* bar = full_q + buf;
+    if (lane == 0) mbar_expect_tx(bar, (lc * (hd + kTv) + kRecDv) * 4);
+    if (lane < lc) {
+      bulk_row(q_s + (buf * kL + lane) * lq, q + row_off(ch * kL + lane),
+               hd * 4, bar);
+      bulk_row(dn_s + (buf * kL + lane) * kVld,
+               dnum + row_off(ch * kL + lane) + col0, kTv * 4, bar);
     }
-    if (tid < kL * kL) qk_s[tid] = qk[(bh * nch + ch) * kL * kL + tid];
-    if (tid < kL) {
-      a_s[tid] = tid < lc ? scb[(c0 + tid) * kSc + 0] : 0.f;
-      b_s[tid] = tid < lc ? scb[(c0 + tid) * kSc + 1] : 0.f;
+    if (lane == 31)
+      bulk_row(rc_s + buf * kRecDv, rec + (bh * nch + ch) * kRec, kRecDv * 4,
+               bar);
+  };
+
+  if (tid == 0) {
+    mbar_init(full_k, 1);
+    mbar_init(full_q, 1);
+    mbar_init(full_q + 1, 1);
+    // the barriers' initialisation visible to the bulk copy engine
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the last chunk, the first taken, may hold fewer than kL rows: the
+  // rest of its buffers zero, not stale bytes (q and dnum meet the
+  // update's zero weights there), before any copy lands
+  const int lc_last = rows_in(nch - 1);
+  if (lc_last < kL) {
+    for (int e = tid; e < (kL - lc_last) * lq; e += kThreads) {
+      q_s[lc_last * lq + e] = 0.f;
+      k_s[lc_last * lq + e] = 0.f;
     }
-    __syncthreads();
-    bwd_decay(a_s, b_s, lc, A_s, g_s, D_s, tid);
+    for (int e = tid; e < (kL - lc_last) * kVld; e += kThreads)
+      dn_s[lc_last * kVld + e] = 0.f;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {
+    load_q(nch - 1, 0);
+    load_k(nch - 1);
+  }
 
-    // dCe at this boundary, for the dq / dk pass
-    float* de = dce + (bh * nch + ch) * mat + static_cast<size_t>(row0) * hd +
-                col;
+  // the strip of dC^T as accumulators, as the forward's C^T: c[s][mt] is
+  // the m16n8 tile of columns 16 mt .. 16 mt + 15 and hd rows 8 (ks0 + s)
+  // ..; element e is column 16 mt + gq + 8 (e >> 1), row 8 (ks0 + s) + 2
+  // tq + (e & 1).  dC after the last chunk: dc_end's strip, or zero.
+  const float* ce = dc_end != nullptr ? dc_end + bh * mat + col0 : nullptr;
+  float c[kMaxSteps][2][4];
 #pragma unroll
-    for (int i = 0; i < kDvRows; ++i)
-      if (i < rows) de[static_cast<size_t>(i) * hd] = dc[i];
-
-    // dCe^T k~_j over this warp's rows, for the 16 positions
-    float x[kL];
+  for (int s = 0; s < kMaxSteps; ++s) {
 #pragma unroll
-    for (int jj = 0; jj < kL; ++jj) x[jj] = 0.f;
+    for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int i2 = 0; i2 < kDvRows / 2; ++i2) {
-      if (2 * i2 < rows) {
-#pragma unroll
-        for (int jj = 0; jj < kL; ++jj) {
-          const float2 kk =
-              *reinterpret_cast<const float2*>(k_s + jj * hd + row0 + 2 * i2);
-          x[jj] = __fmaf_rn(dc[2 * i2], kk.x, x[jj]);
-          x[jj] = __fmaf_rn(dc[2 * i2 + 1], kk.y, x[jj]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * (ks0 + s) + 2 * tq + (e & 1);
+        const int cc = 16 * mt + gq + 8 * (e >> 1);
+        c[s][mt][e] = (s < steps && ce != nullptr)
+                          ? ce[static_cast<size_t>(r) * hd + cc]
+                          : 0.f;
       }
     }
-#pragma unroll
-    for (int jj = 0; jj < kL; ++jj) red[(warp * kL + jj) * kTv + lane] = x[jj];
-    __syncthreads();                 // partials, D and g in
+  }
+  // dn after the chunk, rows col0 + lane, carried by the chain warp
+  float dn_r = warp == kChainWarp && dn_end != nullptr
+                   ? dn_end[bh * hd + col0 + lane]
+                   : 0.f;
 
-    // dv: thread (j, column)
+  for (int it = 0; it < nch; ++it) {
+    const int ch = nch - 1 - it, buf = it & 1, lc = rows_in(ch);
+    const float* qc = q_s + buf * kL * lq;
+    const float* dnc = dn_s + buf * kL * kVld;
+    const float* rc = rc_s + buf * kRecDv;
+    // dCe, the gradient of the C after this chunk, to boundary ch for the
+    // dq / dk pass, before waiting (the stores go while the rows land):
+    // two k-steps' [8 rows, 32 columns] at a time through the warp's slot
+    // of cq_s (free until this chunk's partials; column c of row r at c
+    // XOR 8 (r / 2), free of bank conflicts both ways), then stored a row
+    // as eight float4 (a 4-byte store from the accumulators put 32 bytes
+    // in each of four rows, and the dv pass took 0.43 ms longer)
     {
-      const int jj = tid >> 5, cl = lane;
-      float xs = red[jj * kTv + cl];
+      float* sl = cq_s + warp * kTv * kL;
+      const size_t step = static_cast<size_t>(8) * hd;   // a k-step's rows
+      const int rr = lane >> 3, c4 = 4 * (lane & 7);
+      float* dp = dce + (bh * nch + ch) * mat +
+                  static_cast<size_t>(8 * ks0 + rr) * hd + col0 + c4;
 #pragma unroll
-      for (int w = 1; w < kDvWarps; ++w)
-        xs = __fadd_rn(xs, red[(w * kL + jj) * kTv + cl]);
-      float sv = __fmul_rn(D_s[(lc - 1) * kL + jj], xs);
-      for (int t = jj; t < lc; ++t)
-        sv = __fmaf_rn(__fmul_rn(D_s[t * kL + jj], qk_s[t * kL + jj]),
-                       dn_s[t * kTv + cl], sv);
-      if (jj < lc) dv[row(c0 + jj) + strip * kTv + cl] = sv;
-    }
-
-    // dC before the chunk: g_L dCe + sum_t g_t q_t dnum_t^T
-    {
-      const float gl = g_s[lc - 1];
-      float wt[kL];
+      for (int s2 = 0; s2 < kMaxSteps; s2 += 2) {
+        if (s2 < steps) {
 #pragma unroll
-      for (int t = 0; t < kL; ++t)
-        wt[t] = __fmul_rn(g_s[t], dn_s[t * kTv + lane]);
+          for (int u = 0; u < 2; ++u) {
+            if (s2 + u < steps) {
 #pragma unroll
-      for (int i2 = 0; i2 < kDvRows / 2; ++i2) {
-        if (2 * i2 < rows) {
-          float a0 = __fmul_rn(gl, dc[2 * i2]);
-          float a1 = __fmul_rn(gl, dc[2 * i2 + 1]);
+              for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-          for (int t = 0; t < kL; ++t) {
-            const float2 qq =
-                *reinterpret_cast<const float2*>(q_s + t * hd + row0 + 2 * i2);
-            a0 = __fmaf_rn(wt[t], qq.x, a0);
-            a1 = __fmaf_rn(wt[t], qq.y, a1);
+                for (int e = 0; e < 4; ++e) {
+                  const int cc = 16 * mt + gq + 8 * (e >> 1);
+                  sl[u * 256 + (2 * tq + (e & 1)) * kTv + (cc ^ (8 * tq))] =
+                      c[s2 + u][mt][e];
+                }
+              }
+            }
           }
-          dc[2 * i2] = a0;
-          dc[2 * i2 + 1] = a1;
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int u = i >> 1, r = rr + 4 * (i & 1);
+            if (s2 + u < steps)
+              *reinterpret_cast<float4*>(dp + u * step + 4 * (i & 1) * hd) =
+                  *reinterpret_cast<const float4*>(
+                      sl + u * 256 + r * kTv + (c4 ^ (8 * (r >> 1))));
+          }
+          __syncwarp();
+          dp += 2 * step;
+        }
+      }
+    }
+    mbar_wait(full_q + buf, (it >> 1) & 1);
+    mbar_wait(full_k, it & 1);
+
+    // this warp's rows of dCe^T k [32, L] (k~'s 1 / sqrt(hd) applied to
+    // the sum), the forward's C^T q with k in q's place
+    float xa[2][2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      xa[0][0][e] = xa[0][1][e] = xa[1][0][e] = xa[1][1][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSteps; ++s) {
+      if (s < steps) {
+        const int col = 8 * (ks0 + s) + 2 * tq;
+        const float2 x0 =
+            *reinterpret_cast<const float2*>(k_s + gq * lq + col);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(k_s + (gq + 8) * lq + col);
+        uint32_t kh[4], kl[4];
+        split(x0.x, kh[0], kl[0]);
+        split(x1.x, kh[1], kl[1]);
+        split(x0.y, kh[2], kl[2]);
+        split(x1.y, kh[3], kl[3]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          uint32_t ah[4], al[4];
+          split(c[s][mt][0], ah[0], al[0]);
+          split(c[s][mt][2], ah[1], al[1]);
+          split(c[s][mt][1], ah[2], al[2]);
+          split(c[s][mt][3], ah[3], al[3]);
+          mma3(xa[mt][0], ah, al, kh[0], kh[2], kl[0], kl[2]);
+          mma3(xa[mt][1], ah, al, kh[1], kh[3], kl[1], kl[3]);
+        }
+      }
+    }
+    {
+      float* cqw = cq_s + warp * kTv * kL;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int cl = 16 * mt + gq, t = 8 * nt + 2 * tq;
+          *reinterpret_cast<float2*>(cqw + cl * kL + t) =
+              make_float2(xa[mt][nt][0], xa[mt][nt][1]);
+          *reinterpret_cast<float2*>(cqw + (cl + 8) * kL + t) =
+              make_float2(xa[mt][nt][2], xa[mt][nt][3]);
+        }
+      }
+    }
+    __syncthreads();  // partials in; k_s free, and buffer buf ^ 1 since the
+                      // last chunk's update
+    // the previous chunk's rows, a warp each for k and for q, dnum and
+    // the record, while this chunk's dv and update run
+    if (ch > 0) {
+      if (warp == kLoadWarp)
+        load_k(ch - 1);
+      else if (warp == kLoadWarp + 1)
+        load_q(ch - 1, buf ^ 1);
+    }
+    if (warp == kChainWarp) {
+      // dne at boundary ch for the dq / dk pass, then dn before the chunk
+      dne[(bh * nch + ch) * hd + col0 + lane] = dn_r;
+      float sn = __fmul_rn(rc[kRecG + lc - 1], dn_r);
+      for (int p = 0; p < lc; ++p)
+        sn = __fmaf_rn(__fmul_rn(rc[kRecG + p], rc[kRecDd + p]),
+                       qc[p * lq + col0 + lane], sn);
+      dn_r = sn;
+    }
+    // dv: thread (column cl, position j), the warps' partials summed in
+    // order, then D_Lj x_j + sum_{t>=j} D_tj (q_t . k~_j) dnum_t
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int cl = (tid >> 4) + 16 * u, j = tid & 15;
+      float xs = cq_s[cl * kL + j];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w)
+        xs = __fadd_rn(xs, cq_s[(w * kTv + cl) * kL + j]);
+      float sv = __fmul_rn(rc[kRecDl + j], __fdiv_rn(xs, sqrt_hd));
+      for (int t = j; t < lc; ++t)
+        sv = __fmaf_rn(rc[t * kL + j], dnc[t * kVld + cl], sv);
+      if (j < lc) dv[row_off(ch * kL + j) + col0 + cl] = sv;
+    }
+    __syncthreads();  // the partials read
+
+    // dC before the chunk: g_L dCe + sum_t (g_t dnum_t) q_t^T, the
+    // chunk's products accumulated on the tensor cores onto g_L dCe (the
+    // forward's update with q in k~'s place and g o dnum in D v's); the
+    // first chunk's is not needed
+    if (ch > 0) {
+      const float g_last = rc[kRecG + lc - 1];
+      // a k-step (8 positions) at a time: its A fragments, then onto every
+      // k-step of rows (g_L applied with the first)
+#pragma unroll
+      for (int js = 0; js < 2; ++js) {
+        const int j0 = 8 * js + tq;
+        const float w0 = rc[kRecG + j0], w4 = rc[kRecG + j0 + 4];
+        uint32_t wh[2][4], wl[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int cl = 16 * mt + gq;
+          split(__fmul_rn(w0, dnc[j0 * kVld + cl]), wh[mt][0], wl[mt][0]);
+          split(__fmul_rn(w0, dnc[j0 * kVld + cl + 8]), wh[mt][1],
+                wl[mt][1]);
+          split(__fmul_rn(w4, dnc[(j0 + 4) * kVld + cl]), wh[mt][2],
+                wl[mt][2]);
+          split(__fmul_rn(w4, dnc[(j0 + 4) * kVld + cl + 8]), wh[mt][3],
+                wl[mt][3]);
+        }
+#pragma unroll
+        for (int s = 0; s < kMaxSteps; ++s) {
+          if (s < steps) {
+            const int r = 8 * (ks0 + s) + gq;
+            if (js == 0) {
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  c[s][mt][e] = __fmul_rn(g_last, c[s][mt][e]);
+              }
+            }
+            uint32_t bh0, bl0, bh1, bl1;
+            split(qc[j0 * lq + r], bh0, bl0);
+            split(qc[(j0 + 4) * lq + r], bh1, bl1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              mma3(c[s][mt], wh[mt], wl[mt], bh0, bh1, bl0, bl1);
+          }
         }
       }
     }
   }
 }
 
-// one step of summing a lane's first N partials (of the A in x) across the
-// warp: lanes whose bit M is set keep the upper half, the others the
-// lower, each added to its partner's; after N = A .. 8, M = 16 .. 1, lane
-// l holds the sums A/32 l .. A/32 l + A/32 - 1
-template <int N, int M, int A>
-__device__ __forceinline__ void fold(float (&x)[A], int lane) {
-  const bool up = lane & M;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const float send = up ? x[i] : x[i + N / 2];
-    const float keep = up ? x[i + N / 2] : x[i];
-    x[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, M));
-  }
+// 16 bytes global -> shared through the load / store unit, in the
+// thread's current group (cp.async: pieces of any row size, where the bulk
+// copy engine took its time a row: 256-byte rows ran the pass at 1.1 TB/s)
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
 }
 
-constexpr int kRowsW = 4;                    // rows a warp
-constexpr int kRowsB = kWarps * kRowsW;      // rows a block (32)
-
-// sum_c m[u][c] tile[t][c] for a warp's kRowsW rows u of the hd-wide
-// rows at m (global) and the kL rows of tile (shared): each lane over the
-// columns lane + 32 i, four columns' loads issued before their products,
-// the lanes' partials summed across the warp (``fold``) into out[u][t]
-__device__ __forceinline__ void rows_dot(const float* __restrict__ m,
-                                         const float* tile, int hd, int lane,
-                                         float* out) {
-  float x[kRowsW * kL];
-#pragma unroll
-  for (int e = 0; e < kRowsW * kL; ++e) x[e] = 0.f;
-  for (int c0 = lane; c0 < hd; c0 += 4 * 32) {
-    float w[4][kRowsW];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 32 * j;
-#pragma unroll
-      for (int u = 0; u < kRowsW; ++u)
-        w[j][u] = c < hd ? m[static_cast<size_t>(u) * hd + c] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 32 * j;
-      if (c < hd) {
-#pragma unroll
-        for (int t = 0; t < kL; ++t) {
-          const float y = tile[t * hd + c];
-#pragma unroll
-          for (int u = 0; u < kRowsW; ++u)
-            x[u * kL + t] = __fmaf_rn(w[j][u], y, x[u * kL + t]);
-        }
-      }
-    }
-  }
-  fold<64, 16>(x, lane);
-  fold<32, 8>(x, lane);
-  fold<16, 4>(x, lane);
-  fold<8, 2>(x, lane);
-  fold<4, 1>(x, lane);
-  // lane l holds the sums 2 l, 2 l + 1: (row u, position t)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) out[2 * lane + i] = x[i];
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// the dq / dk pass: grid (hd / 32 strips of rows, nh, B), 256 threads;
-// warp w the strip's rows 4 w .. 4 w + 3, its lanes over the hd columns
-
-constexpr size_t dqk_smem_bytes(int hd) {
-  return sizeof(double) * kL +
-         sizeof(float) * (2 * static_cast<size_t>(kL) * hd +
-                          2 * kL * kRowsB + 2 * kRowsB * kL + 3 * kL * kL +
-                          5 * kL + 2 * kRowsB + kL * kRowsB);
+// the thread's groups but the newest N complete
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-static_assert(dqk_smem_bytes(kMaxHd) <= 232448,
-              "the dq / dk pass's shared memory");
 
-__global__ void __launch_bounds__(kThreads, 1)
+// the dq / dk pass: grid (hd / 32 strips of rows, nch, B nh), 256
+// threads, two blocks an SM.  A ring of kStages tiles of kTk columns:
+// the strip's rows of Cb and dCe [32][kTk], the chunk's dnum and v
+// [16][kTk], rows padded to 8 words mod 32 (the float2 fragment loads at
+// (row g, column 2 t) are free of bank conflicts).  At B = 4, S = 256, 4
+// heads of 1024 on an H100, two tiles of 128 columns took 0.885 ms,
+// three of 64 0.92, four of 64 (one block an SM) 1.37.
+constexpr int kRowsB = 32;                   // rows a block
+constexpr int kTk = 128;                     // hd columns a tile
+constexpr int kTld = kTk + 8;
+constexpr int kStages = 2;
+constexpr int kStage = (2 * kRowsB + 2 * kL) * kTld;   // floats a stage
+
+constexpr size_t dqk_smem_bytes() {
+  return sizeof(float) * (kStages * kStage + kRecQk + 2 * kL * kRowsB +
+                          2 * kRowsB + kL * kRowsB);
+}
+static_assert(kTk % (8 * kWarps) == 0, "whole k-steps a warp a tile");
+static_assert(kWarps * 2 * kRowsB * kL <= kStages * kStage,
+              "the warps' partials fit the ring");
+static_assert(2 * (dqk_smem_bytes() + 1024) <= 233472,
+              "two dq / dk blocks an SM");
+
+__global__ void __launch_bounds__(kThreads, 2)
 mlstm_bwd_dqk_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
-                     const float* __restrict__ dh,
-                     const float* __restrict__ sc,
-                     const float* __restrict__ pp,
+                     const float* __restrict__ dnum,
+                     const float* __restrict__ rec,
                      const float* __restrict__ csave,
                      const float* __restrict__ nsave,
                      const float* __restrict__ dce,
-                     const float* __restrict__ dn_end,
+                     const float* __restrict__ dne,
                      float* __restrict__ dq, float* __restrict__ dk,
                      float* __restrict__ kpart, int seq, int nh, int hd,
                      float sqrt_hd) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* A_s = reinterpret_cast<double*>(smem_raw);     // [kL]
-  float* dn_s = reinterpret_cast<float*>(A_s + kL);      // [kL][hd] dnum
-  float* v_s = dn_s + kL * hd;                           // [kL][hd]
-  float* qr_s = v_s + kL * hd;                           // [kL][kRowsB]
-  float* kr_s = qr_s + kL * kRowsB;                      // [kL][kRowsB] k~
-  float* x1_s = kr_s + kL * kRowsB;                      // [kRowsB][kL]
-  float* x2_s = x1_s + kRowsB * kL;                      // [kRowsB][kL]
-  float* D_s = x2_s + kRowsB * kL;                       // [kL][kL]
-  float* pp_s = D_s + kL * kL;                           // [kL][kL]
-  float* w_s = pp_s + kL * kL;                           // [kL][kL] D P
-  float* g_s = w_s + kL * kL;                            // [kL]
-  float* a_s = g_s + kL;                                 // [kL]
-  float* b_s = a_s + kL;                                 // [kL]
-  float* dd_s = b_s + kL;                                // [kL]
-  float* den_s = dd_s + kL;                              // [kL]
-  float* nb_s = den_s + kL;                              // [kRowsB]
-  float* dne_s = nb_s + kRowsB;                          // [kRowsB]
-  float* kp_s = dne_s + kRowsB;                          // [kL][kRowsB]
+  float* st_s = reinterpret_cast<float*>(smem_raw);        // [kStages][kStage]
+  float* rc_s = st_s + kStages * kStage;                   // [kRecQk]
+  float* qr_s = rc_s + kRecQk;                             // [kL][kRowsB]
+  float* kr_s = qr_s + kL * kRowsB;                        // [kL][kRowsB] k~
+  float* nb_s = kr_s + kL * kRowsB;                        // [kRowsB]
+  float* dne_s = nb_s + kRowsB;                            // [kRowsB]
+  float* kp_s = dne_s + kRowsB;                            // [kL][kRowsB]
+  const float* g_s = rc_s;
+  const float* dl_s = rc_s + kL;
+  const float* dd_s = rc_s + 2 * kL;
+  const float* w_s = rc_s + (kRecW - kRecG);               // [kL][kL] D P
 
-  const int rs = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int rs = blockIdx.x, ch = blockIdx.y;
+  const int b = blockIdx.z / nh, head = blockIdx.z % nh;
+  const size_t bh = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
   const int nch = (seq + kL - 1) / kL, nrs = hd / kRowsB;
-  const int r0 = rs * kRowsB;
-  const size_t bh = static_cast<size_t>(b) * nh + head;
+  const int r0 = rs * kRowsB, c0 = ch * kL, lc = min(kL, seq - c0);
+  const int ntile = (hd + kTk - 1) / kTk;
+  const size_t bnd = bh * nch + ch;
   const size_t mat = static_cast<size_t>(hd) * hd;
-  const float* scb = sc + bh * seq * kSc;
+  const float* cb = csave + bnd * mat + static_cast<size_t>(r0) * hd;
+  const float* de = dce + bnd * mat + static_cast<size_t>(r0) * hd;
   auto row = [&](int pos) {
     return ((static_cast<size_t>(b) * seq + pos) * nh + head) * hd;
   };
-  if (tid < kRowsB)
-    dne_s[tid] = dn_end != nullptr ? dn_end[bh * hd + r0 + tid] : 0.f;
-
-  for (int ch = nch - 1; ch >= 0; --ch) {
-    const int c0 = ch * kL, lc = min(kL, seq - c0);
-    __syncthreads();                 // the last chunk's reads are done
-    if (tid < kL) {
-      const bool in = tid < lc;
-      a_s[tid] = in ? scb[(c0 + tid) * kSc + 0] : 0.f;
-      b_s[tid] = in ? scb[(c0 + tid) * kSc + 1] : 0.f;
-      den_s[tid] = in ? scb[(c0 + tid) * kSc + 3] : 1.f;
-      dd_s[tid] = in ? scb[(c0 + tid) * kSc + 4] : 0.f;
+  // tile t's 16-byte pieces, by every thread (consecutive threads along
+  // a row): the strip's rows of Cb and dCe, the chunk's positions of dnum
+  // and v; with tile 0 the block's small inputs (the strip's q and k
+  // rows, nb, dne, the record)
+  auto piece = [&](float* st, int x0, int r, int x) {
+    const float* src;
+    int dr = r;
+    if (r < kRowsB)
+      src = cb + static_cast<size_t>(r) * hd;
+    else if (r < 2 * kRowsB)
+      src = de + static_cast<size_t>(r - kRowsB) * hd;
+    else if (r < 2 * kRowsB + lc)
+      src = dnum + row(c0 + r - 2 * kRowsB);
+    else {
+      src = v + row(c0 + r - 2 * kRowsB - lc);
+      dr = r - lc + kL;
     }
-    __syncthreads();
-    const int w4 = hd / 4;
-#pragma unroll 4
-    for (int e = tid; e < kL * w4; e += kThreads) {
-      const int r = e / w4, x = (e - r * w4) * 4;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
-      if (r < lc) {
-        const size_t at = row(c0 + r) + x;
-        a = *reinterpret_cast<const float4*>(dh + at);
-        c = *reinterpret_cast<const float4*>(v + at);
-        const float dn = den_s[r];
-        a = make_float4(__fdiv_rn(a.x, dn), __fdiv_rn(a.y, dn),
-                        __fdiv_rn(a.z, dn), __fdiv_rn(a.w, dn));
+    cp16(st + dr * kTld + x, src + x0 + x);
+  };
+  auto issue = [&](int t) {
+    const int x0 = t * kTk, w4 = min(kTk, hd - x0) / 4;
+    float* st = st_s + (t % kStages) * kStage;
+    const int n = (2 * kRowsB + 2 * lc) * w4;
+    if (w4 == kTk / 4) {   // a whole tile: the row and column by shifts
+      for (int e = tid; e < n; e += kThreads)
+        piece(st, x0, e / (kTk / 4), 4 * (e % (kTk / 4)));
+    } else {
+      for (int e = tid; e < n; e += kThreads)
+        piece(st, x0, e / w4, 4 * (e % w4));
+    }
+    if (t == 0) {
+      const int nq = lc * kRowsB / 4;     // pieces of the q (and k) rows
+      for (int e = tid; e < 2 * nq + kRowsB / 2 + kRecQk / 4;
+           e += kThreads) {
+        if (e < 2 * nq) {
+          const int e2 = e < nq ? e : e - nq, p = e2 / (kRowsB / 4);
+          const int x = 4 * (e2 - p * (kRowsB / 4));
+          cp16((e < nq ? qr_s : kr_s) + 4 * e2,
+               (e < nq ? q : k) + row(c0 + p) + r0 + x);
+        } else if (e < 2 * nq + kRowsB / 4) {
+          const int e2 = e - 2 * nq;
+          cp16(nb_s + 4 * e2, nsave + bnd * hd + r0 + 4 * e2);
+        } else if (e < 2 * nq + kRowsB / 2) {
+          const int e2 = e - 2 * nq - kRowsB / 4;
+          cp16(dne_s + 4 * e2, dne + bnd * hd + r0 + 4 * e2);
+        } else {
+          const int e2 = e - 2 * nq - kRowsB / 2;
+          cp16(rc_s + 4 * e2, rec + bnd * kRec + kRecG + 4 * e2);
+        }
       }
-      *reinterpret_cast<float4*>(dn_s + r * hd + x) = a;
-      *reinterpret_cast<float4*>(v_s + r * hd + x) = c;
     }
-    for (int e = tid; e < kL * kRowsB; e += kThreads) {
-      const int r = e / kRowsB, x = e % kRowsB;
-      const bool in = r < lc;
-      const size_t at = row(c0 + (in ? r : 0)) + r0 + x;
-      qr_s[e] = in ? q[at] : 0.f;
-      kr_s[e] = in ? __fdiv_rn(k[at], sqrt_hd) : 0.f;
-    }
-    pp_s[tid] = pp[(bh * nch + ch) * kL * kL + tid];
-    if (tid < kRowsB) nb_s[tid] = nsave[(bh * nch + ch) * hd + r0 + tid];
-    bwd_decay(a_s, b_s, lc, A_s, g_s, D_s, tid);
-    __syncthreads();                 // D, g and the rows in
-    w_s[tid] = __fmul_rn(D_s[tid], pp_s[tid]);
+  };
 
-    // Cb dnum_t, then dCe v_j, for the warp's 4 rows: each lane over the
-    // columns lane + 32 i (four columns' loads in flight), then summed
-    // across the warp
-    const size_t base = (bh * nch + ch) * mat +
-                        static_cast<size_t>(r0 + kRowsW * warp) * hd;
-    rows_dot(csave + base, dn_s, hd, lane, x1_s + kRowsW * warp * kL);
-    rows_dot(dce + base, v_s, hd, lane, x2_s + kRowsW * warp * kL);
-    __syncthreads();                 // the sums and D P in
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntile) issue(t);
+    cp_commit();
+  }
 
-    // dq and dk: thread (row rl, positions tg and tg + 8)
-    {
-      const int rl = tid >> 3, tg = tid & 7;
+  // X1 = Cb dnum^T and X2 = dCe V^T [32 rows, L positions]: xa[p][mt][nt]
+  // the m16n8 tile of rows 16 mt .. and positions 8 nt .., over this
+  // warp's k-steps of each tile (positions past lc: unused columns)
+  float xa[2][2][2][4];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int t = tg + 8 * u;
-        if (t >= lc) continue;
-        float sq = __fmul_rn(g_s[t], __fmaf_rn(dd_s[t], nb_s[rl],
-                                               x1_s[rl * kL + t]));
-        for (int j = 0; j <= t; ++j)
-          sq = __fmaf_rn(w_s[t * kL + j], kr_s[j * kRowsB + rl], sq);
-        const float dl = D_s[(lc - 1) * kL + t];
-        float sk = __fmul_rn(dl, __fadd_rn(x2_s[rl * kL + t], dne_s[rl]));
-        for (int p = t; p < lc; ++p)
-          sk = __fmaf_rn(w_s[p * kL + t], qr_s[p * kRowsB + rl], sk);
-        dq[row(c0 + t) + r0 + rl] = sq;
-        dk[row(c0 + t) + r0 + rl] = __fdiv_rn(sk, sqrt_hd);
-        kp_s[t * kRowsB + rl] = __fmul_rn(kr_s[t * kRowsB + rl], sk);
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xa[p][mt][nt][e] = 0.f;
+  for (int t = 0; t < ntile; ++t) {
+    const int w = min(kTk, hd - t * kTk);
+    cp_wait<kStages - 2>();
+    __syncthreads();   // tile t in; the stage tile t - 1 took is free
+    if (t + kStages - 1 < ntile) issue(t + kStages - 1);
+    cp_commit();
+    if (t == 0)        // k~ of the strip's rows, in place
+      for (int e = tid; e < lc * kRowsB; e += kThreads)
+        kr_s[e] = __fdiv_rn(kr_s[e], sqrt_hd);
+    const float* st = st_s + (t % kStages) * kStage;
+#pragma unroll
+    for (int i = 0; i < kTk / (8 * kWarps); ++i) {
+      const int ks = warp + kWarps * i;        // this warp's k-step
+      if (8 * ks >= w) break;
+      const int col = 8 * ks + 2 * tq;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float* am = st + p * kRowsB * kTld;          // Cb or dCe
+        const float* bm = st + (2 * kRowsB + p * kL) * kTld;  // dnum or v
+        const float2 y0 = *reinterpret_cast<const float2*>(bm + gq * kTld +
+                                                           col);
+        const float2 y1 = *reinterpret_cast<const float2*>(
+            bm + (gq + 8) * kTld + col);
+        uint32_t yh[4], yl[4];
+        split(y0.x, yh[0], yl[0]);
+        split(y1.x, yh[1], yl[1]);
+        split(y0.y, yh[2], yl[2]);
+        split(y1.y, yh[3], yl[3]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float2 a0 = *reinterpret_cast<const float2*>(
+              am + (16 * mt + gq) * kTld + col);
+          const float2 a1 = *reinterpret_cast<const float2*>(
+              am + (16 * mt + gq + 8) * kTld + col);
+          uint32_t ah[4], al[4];
+          split(a0.x, ah[0], al[0]);
+          split(a1.x, ah[1], al[1]);
+          split(a0.y, ah[2], al[2]);
+          split(a1.y, ah[3], al[3]);
+          mma3(xa[p][mt][0], ah, al, yh[0], yh[2], yl[0], yl[2]);
+          mma3(xa[p][mt][1], ah, al, yh[1], yh[3], yl[1], yl[3]);
+        }
       }
     }
-    __syncthreads();                 // dne read, K's products in
-    if (tid < kL && tid < lc) {
-      float s = kp_s[tid * kRowsB];
-      for (int r = 1; r < kRowsB; ++r) s = __fadd_rn(s, kp_s[tid * kRowsB + r]);
-      kpart[(bh * nrs + rs) * seq + c0 + tid] = s;
+  }
+  __syncthreads();     // every warp done with the ring
+
+  // the warps' partials, in the ring's space: part[w][p][row][position]
+  float* part = st_s;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int rr = 16 * mt + gq, tt = 8 * nt + 2 * tq;
+        float* pw = part + (warp * 2 + p) * kRowsB * kL;
+        *reinterpret_cast<float2*>(pw + rr * kL + tt) =
+            make_float2(xa[p][mt][nt][0], xa[p][mt][nt][1]);
+        *reinterpret_cast<float2*>(pw + (rr + 8) * kL + tt) =
+            make_float2(xa[p][mt][nt][2], xa[p][mt][nt][3]);
+      }
     }
-    if (tid < kRowsB) {
-      float s = __fmul_rn(g_s[lc - 1], dne_s[tid]);
-      for (int p = 0; p < lc; ++p)
-        s = __fmaf_rn(__fmul_rn(g_s[p], dd_s[p]), qr_s[p * kRowsB + tid], s);
-      dne_s[tid] = s;
+  }
+  __syncthreads();
+
+  // dq and dk: thread (row rl, positions tg and tg + 8)
+  {
+    const int rl = tid >> 3, tg = tid & 7;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = tg + 8 * u;
+      if (t >= lc) continue;
+      float x1 = part[rl * kL + t], x2 = part[(kRowsB + rl) * kL + t];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        x1 = __fadd_rn(x1, part[((2 * w) * kRowsB + rl) * kL + t]);
+        x2 = __fadd_rn(x2, part[((2 * w + 1) * kRowsB + rl) * kL + t]);
+      }
+      float sq = __fmul_rn(g_s[t], __fmaf_rn(dd_s[t], nb_s[rl], x1));
+      for (int j = 0; j <= t; ++j)
+        sq = __fmaf_rn(w_s[t * kL + j], kr_s[j * kRowsB + rl], sq);
+      float sk = __fmul_rn(dl_s[t], __fadd_rn(x2, dne_s[rl]));
+      for (int p = t; p < lc; ++p)
+        sk = __fmaf_rn(w_s[p * kL + t], qr_s[p * kRowsB + rl], sk);
+      dq[row(c0 + t) + r0 + rl] = sq;
+      dk[row(c0 + t) + r0 + rl] = __fdiv_rn(sk, sqrt_hd);
+      kp_s[t * kRowsB + rl] = __fmul_rn(kr_s[t * kRowsB + rl], sk);
     }
+  }
+  __syncthreads();                 // K's products in
+  if (tid < lc) {
+    float s = kp_s[tid * kRowsB];
+    for (int r = 1; r < kRowsB; ++r) s = __fadd_rn(s, kp_s[tid * kRowsB + r]);
+    kpart[(bh * nrs + rs) * seq + c0 + tid] = s;
   }
 }
 
@@ -1630,7 +1854,7 @@ mlstm_bwd_gate_kernel(const float* __restrict__ ig,
                       const float* __restrict__ dm_end,
                       float* __restrict__ di, float* __restrict__ df,
                       int seq, int nh, int hd) {
-  __shared__ float st_s[kGateTile][kSc + 2];
+  __shared__ float st_s[kGateTile][kSc + 3];   // and K, i, f
   const int head = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
   const int nrs = hd / kRowsB;
   const size_t bh = static_cast<size_t>(b) * nh + head;
@@ -1649,18 +1873,18 @@ mlstm_bwd_gate_kernel(const float* __restrict__ ig,
         kk = __fadd_rn(kk, kpart[(bh * nrs + r) * seq + pos]);
 #pragma unroll
       for (int x = 0; x < kSc; ++x) st_s[e][x] = scb[pos * kSc + x];
-      st_s[e][6] = kk;
-      st_s[e][kSc] = ig[gate(pos)];
-      st_s[e][kSc + 1] = fg[gate(pos)];
+      st_s[e][kSc] = kk;
+      st_s[e][kSc + 1] = ig[gate(pos)];
+      st_s[e][kSc + 2] = fg[gate(pos)];
     }
     // m before the tile's first position
-    const float m_lo = lo > 0 ? scb[(lo - 1) * kSc + 2] : m0[bh];
+    const float m_lo = lo > 0 ? scb[(lo - 1) * kSc + 1] : m0[bh];
     __syncwarp();
     if (lane == 0) {
       for (int e = hi - lo - 1; e >= 0; --e) {
-        const float a = st_s[e][0], kk = st_s[e][6], qq = st_s[e][5];
-        const float it = st_s[e][kSc], ft = st_s[e][kSc + 1];
-        const float mp = e > 0 ? st_s[e - 1][2] : m_lo;
+        const float a = st_s[e][0], kk = st_s[e][kSc], qq = st_s[e][2];
+        const float it = st_s[e][kSc + 1], ft = st_s[e][kSc + 2];
+        const float mp = e > 0 ? st_s[e - 1][1] : m_lo;
         da = expf(a) == 0.f ? 0.0
                             : static_cast<double>(qq) - kk + da;
         const double db = kk;
@@ -1690,7 +1914,12 @@ cudaError_t opt_in_bwd_smem() {
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(mlstm_bwd_dqk_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dqk_smem_bytes(kMaxHd)));
+                               static_cast<int>(dqk_smem_bytes()));
+    if (err != cudaSuccess) return err;
+    // the largest carveout, so that two dq / dk blocks share an SM
+    err = cudaFuncSetAttribute(mlstm_bwd_dqk_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
     if (err != cudaSuccess) return err;
     opted[device] = true;
   }
@@ -1703,41 +1932,42 @@ cudaError_t opt_in_bwd_smem() {
 // ig, fg f32 [B, S, nh]; m0 f32 [B, nh]; csave, nsave, dsave the forward's
 // saves; dc_end [B, nh, hd, hd], dn_end [B, nh, hd], e_end [B, nh] (the
 // final C's and n's gradients dotted with the final C and n) and dm_end
-// [B, nh], each null for none; scratch: sc [B, nh, S, 8], qk and pp [B,
-// nh, nch, 16, 16], dce [B, nh, nch, hd, hd], kpart [B, nh, hd / 32, S];
-// out: dq, dk, dv as q, di and df as ig.  Four launches; returns the
-// first launch error, or 0.
+// [B, nh], each null for none; scratch: sc [B, nh, S, 3], rec [B, nh,
+// nch, 576], dnum as q, dce [B, nh, nch, hd, hd], dne [B, nh, nch, hd],
+// kpart [B, nh, hd / 32, S]; out: dq, dk, dv as q, di and df as ig.  Four
+// launches; returns the first launch error, or 0.
 extern "C" int mlstm_scan_bwd_launch(
     const void* q, const void* k, const void* v, const void* ig,
     const void* fg, const void* m0, const void* h, const void* dh,
     const void* csave, const void* nsave, const void* dsave,
     const void* dc_end, const void* dn_end, const void* e_end,
-    const void* dm_end, void* sc, void* qk, void* pp, void* dce, void* kpart,
-    void* dq, void* dk, void* dv, void* di, void* df, int batch, int seq,
-    int nh, int hd, float sqrt_hd, void* stream_ptr) {
-  if (hd % kTv != 0 || hd > kMaxHd || hd <= 0 || seq <= 0 || batch <= 0)
+    const void* dm_end, void* sc, void* rec, void* dnum, void* dce,
+    void* dne, void* kpart, void* dq, void* dk, void* dv, void* di, void* df,
+    int batch, int seq, int nh, int hd, float sqrt_hd, void* stream_ptr) {
+  const int nch = (seq + kL - 1) / kL;
+  if (hd % kTv != 0 || hd > kMaxHd || hd <= 0 || seq <= 0 || batch <= 0 ||
+      nch > 65535 || batch * nh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = opt_in_bwd_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int nch = (seq + kL - 1) / kL;
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto W = [](void* p) { return static_cast<float*>(p); };
   mlstm_bwd_prep_kernel<<<dim3(nch, nh, batch), kThreads, 0, stream>>>(
       F(q), F(k), F(v), F(ig), F(fg), F(m0), F(h), F(dh), F(dsave), W(sc),
-      W(qk), W(pp), seq, nh, hd, sqrt_hd);
+      W(rec), W(dnum), seq, nh, hd, sqrt_hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_bwd_dv_kernel<<<dim3(hd / kTv, nh, batch), kDvThreads,
+  mlstm_bwd_dv_kernel<<<dim3(hd / kTv, nh, batch), kThreads,
                         dv_smem_bytes(hd), stream>>>(
-      F(q), F(k), F(v), F(dh), F(sc), F(qk), F(dc_end), W(dce), W(dv), seq,
-      nh, hd, sqrt_hd);
+      F(q), F(k), F(dnum), F(rec), F(dc_end), F(dn_end), W(dce), W(dne),
+      W(dv), seq, nh, hd, sqrt_hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_bwd_dqk_kernel<<<dim3(hd / kRowsB, nh, batch), kThreads,
-                         dqk_smem_bytes(hd), stream>>>(
-      F(q), F(k), F(v), F(dh), F(sc), F(pp), F(csave), F(nsave), F(dce),
-      F(dn_end), W(dq), W(dk), W(kpart), seq, nh, hd, sqrt_hd);
+  mlstm_bwd_dqk_kernel<<<dim3(hd / kRowsB, nch, batch * nh), kThreads,
+                         dqk_smem_bytes(), stream>>>(
+      F(q), F(k), F(v), F(dnum), F(rec), F(csave), F(nsave), F(dce), F(dne),
+      W(dq), W(dk), W(kpart), seq, nh, hd, sqrt_hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   mlstm_bwd_gate_kernel<<<dim3(nh, batch), 32, 0, stream>>>(

@@ -182,7 +182,7 @@ def _load():
                 + [ctypes.c_float])
         lib.mlstm_scan_launch.argtypes = args + [ctypes.c_void_p]
         lib.mlstm_scan_chunk_launch.argtypes = args + [ctypes.c_void_p] * 5
-        lib.mlstm_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 25 \
+        lib.mlstm_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 26 \
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         for fn in (lib.mlstm_scan_launch, lib.mlstm_scan_chunk_launch,
                    lib.mlstm_scan_bwd_launch):
@@ -434,6 +434,9 @@ def h_tolerance(q, k, v, i, f, n, m, src, src_rows):
 GRAD_MULT = 8.0
 #: the backward's gradients, in ``mlstm_scan_backward``'s order
 GRAD_NAMES = ("dq", "dk", "dv", "di", "df")
+#: floats of the backward's record a chunk (``csrc/mlstm_scan.cu``: D q .
+#: k~, g, D_L, dd, a spare and D P)
+_BWD_RECORD = 2 * CHUNK * CHUNK + 4 * CHUNK
 
 
 def _n_chunks(s: int, chunk: int = CHUNK) -> int:
@@ -627,10 +630,11 @@ def mlstm_scan_backward(q, k, v, i, f, m0, h, dh, saves, dC=None, dn=None,
         return dq, dk, dv, di, df
     nch = _n_chunks(s)
     dev = q.device
-    sc = torch.empty((b, nh, s, 8), device=dev)
-    qk = torch.empty((b, nh, nch, CHUNK, CHUNK), device=dev)
-    pp = torch.empty_like(qk)
+    sc = torch.empty((b, nh, s, 3), device=dev)
+    rec = torch.empty((b, nh, nch, _BWD_RECORD), device=dev)
+    dnum = torch.empty_like(q)
     dce = torch.empty((b, nh, nch, hd, hd), device=dev)
+    dne = torch.empty((b, nh, nch, hd), device=dev)
     kpart = torch.empty((b, nh, hd // 32, s), device=dev)
     e_end = _end_share(dC, dn, C_end, n_end)
     opt = lambda t: None if t is None else t.contiguous()
@@ -639,8 +643,8 @@ def mlstm_scan_backward(q, k, v, i, f, m0, h, dh, saves, dC=None, dn=None,
     err = _load().mlstm_scan_bwd_launch(
         *(t.data_ptr() for t in (q, k, v, i, f, m0, h, dh, *saves)),
         ptr(dC), ptr(dn), ptr(e_end), ptr(dm),
-        *(t.data_ptr() for t in (sc, qk, pp, dce, kpart, dq, dk, dv, di,
-                                 df)),
+        *(t.data_ptr() for t in (sc, rec, dnum, dce, dne, kpart, dq, dk,
+                                 dv, di, df)),
         b, s, nh, hd, math.sqrt(hd), torch.cuda.current_stream(dev)
         .cuda_stream)
     if err != 0:

@@ -1839,35 +1839,44 @@ def _mlstm_grad_inputs(dev, b, s, nh, hd, scale, carried, seed):
     return (q, k, v, i, f) + st, r(b, s, nh, hd)
 
 
-def _mlstm_kernel_grads(tms, args, dh, calls=1):
+def _mlstm_kernel_grads(tms, args, dh, calls=1, ends=None):
     """The chunkwise forward with its saves, then ``calls`` calls of the
-    backward kernel: (their gradients, the saves)."""
+    backward kernel: (their gradients, the saves).  ``ends``: the final
+    state's gradients (dC, dn, dm), or None."""
     b, _, nh, hd = args[0].shape
     saves = tms._saves(args[0])
     rows = torch.arange(b, device=args[0].device)
     out = torch.empty((b, nh * hd * hd), device=args[0].device)
-    h, _, _ = tms._launch(*args[:5], args[6], args[7],
-                          args[5].reshape(b, -1).contiguous(), rows,
-                          [(out, rows)], chunked=True, save=saves)
-    return [tms.mlstm_scan_backward(*args[:5], args[7], h, dh, saves)
+    h, n1, _ = tms._launch(*args[:5], args[6], args[7],
+                           args[5].reshape(b, -1).contiguous(), rows,
+                           [(out, rows)], chunked=True, save=saves)
+    extra = () if ends is None else (*ends, out.view(b, nh, hd, hd), n1)
+    return [tms.mlstm_scan_backward(*args[:5], args[7], h, dh, saves,
+                                    *extra)
             for _ in range(calls)], saves
 
 
-def _mlstm_plain_grads(tms, args, dh, dt):
+def _mlstm_plain_grads(tms, args, dh, dt, ends=None):
     x = [t.to(dt) for t in args]
-    _, _, _, h, saves = tms.mlstm_save_plain(*x)
-    return tms.mlstm_backward_plain(*x[:5], x[7], h, dh.to(dt), saves)
+    C, n, _, h, saves = tms.mlstm_save_plain(*x)
+    extra = () if ends is None else (*(e.to(dt) for e in ends), C, n)
+    return tms.mlstm_backward_plain(*x[:5], x[7], h, dh.to(dt), saves,
+                                    *extra)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,hd,scale,carried", [
     (4, 16, 32, 1.0, False), (4, 16, 32, 1.0, True), (2, 37, 64, 0.1, True),
-    (1, 50, 256, 1.0, False), (2, 33, 1024, 1.0, True)])
+    (1, 50, 256, 1.0, False), (2, 33, 1024, 1.0, True),
+    (2, 17, 96, 1.0, True), (3, 1, 128, 1.0, True), (1, 17, 1024, 1.0, False)])
 def test_mlstm_backward_kernel_matches_plain(b, s, hd, scale, carried):
     """The mLSTM backward kernel on the card: each gradient within
     ``grad_check``'s bar of the float64 plain backward (``GRAD_MULT``
     times the float32 plain backward's own distance), four launches
-    counted a call, a second call bit-identical."""
+    counted a call, a second call bit-identical.  The layout's edges: hd
+    = 96 (12 k-steps of 8 rows: warps 6 and 7 own none in the dv pass,
+    the last dq / dk tile is 32 columns), S = 1, and S = 17 (a last
+    chunk of one position, the first the dv pass takes)."""
     from repro_torch.kernels import mlstm_scan as tms
     dev = _card()
     args, dh = _mlstm_grad_inputs(dev, b, s, 4, hd, scale, carried,
@@ -1881,6 +1890,27 @@ def test_mlstm_backward_kernel_matches_plain(b, s, hd, scale, carried):
     chk = tms.grad_check(got, _mlstm_plain_grads(tms, args, dh,
                                                  torch.float32),
                          _mlstm_plain_grads(tms, args, dh, torch.float64))
+    for name, (dist, bar) in chk.items():
+        assert dist <= bar, (name, dist, bar)
+
+
+@pytest.mark.gpu
+def test_mlstm_backward_kernel_with_final_state_gradients():
+    """The backward kernel given the final state's gradients (dC, dn, dm):
+    each gradient within ``grad_check``'s bar of the float64 plain
+    backward given the same."""
+    from repro_torch.kernels import mlstm_scan as tms
+    dev = _card()
+    args, dh = _mlstm_grad_inputs(dev, 2, 37, 4, 64, 1.0, True, seed=77)
+    b, _, nh, hd = args[0].shape
+    g = torch.Generator(device=dev).manual_seed(78)
+    ends = tuple(torch.randn(shape, generator=g, device=dev) for shape in
+                 ((b, nh, hd, hd), (b, nh, hd), (b, nh)))
+    (got,), _ = _mlstm_kernel_grads(tms, args, dh, ends=ends)
+    chk = tms.grad_check(got, _mlstm_plain_grads(tms, args, dh,
+                                                 torch.float32, ends),
+                         _mlstm_plain_grads(tms, args, dh, torch.float64,
+                                            ends))
     for name, (dist, bar) in chk.items():
         assert dist <= bar, (name, dist, bar)
 

@@ -56,12 +56,14 @@ B, S, NH, HD = 2, 37, 2, 32
 EXACT = 1e-9
 
 
-def _inputs(scale, carried, seed, aligned=False):
-    """numpy float32: q, k ~ N(0, scale^2) (``aligned``: every k of a head
-    scale (w + N(0, 0.1^2)) about one w ~ N(0, 1), and q = k + N(0, 0.1^2),
-    so that every term of n . q is positive and n . q large), v, i ~ N(0,
-    1), log f = logsigmoid(N(1, 1)), the zero or a carried state (C, n ~
-    N(0, 0.3^2), m ~ N(0, 1)) and the output gradient dh ~ N(0, 1)."""
+def _inputs(scale, carried, seed, aligned=False, shape=(B, S, NH, HD)):
+    """numpy float32 of ``shape`` (B, S, nh, hd): q, k ~ N(0, scale^2)
+    (``aligned``: every k of a head scale (w + N(0, 0.1^2)) about one w ~
+    N(0, 1), and q = k + N(0, 0.1^2), so that every term of n . q is
+    positive and n . q large), v, i ~ N(0, 1), log f = logsigmoid(N(1,
+    1)), the zero or a carried state (C, n ~ N(0, 0.3^2), m ~ N(0, 1)) and
+    the output gradient dh ~ N(0, 1)."""
+    B, S, NH, HD = shape
     rng = np.random.default_rng(seed)
     n = lambda *shape: rng.standard_normal(shape).astype(np.float32)
     if aligned:
@@ -148,6 +150,23 @@ def test_plain_backward_matches_autograd_and_the_reference(scale, binds,
     _assert_within(MS.grad_check(plain32, loop32, loop64))
     # the reference's float32 gradients within the same bar of the float64
     # loop's: both lie within it of the exact gradient
+    _assert_within(MS.grad_check(_jax_grads(a), loop32, loop64))
+
+
+def test_plain_backward_at_the_kernel_layouts_edges():
+    """hd = 96 (12 k-steps of 8 rows: two of the backward kernel's dv
+    warps own none, its last dq / dk tile is 32 columns) over S = 17 (a
+    last chunk of one position, the first the backward takes), from a
+    carried state: the plain backward exact against autograd of the loop
+    in float64 and within the bar in float32, the reference's gradients
+    within the bar."""
+    a = _inputs(1.0, True, seed=41, shape=(1, 17, 2, 96))
+    loop64, loop32 = _loop_grads(a, torch.float64), \
+        _loop_grads(a, torch.float32)
+    for p, w in zip(_plain_grads(a, torch.float64), loop64):
+        assert float((p - w).abs().max()) <= EXACT * float(w.abs().max())
+    _assert_within(MS.grad_check(_plain_grads(a, torch.float32), loop32,
+                                 loop64))
     _assert_within(MS.grad_check(_jax_grads(a), loop32, loop64))
 
 
