@@ -3414,6 +3414,39 @@ def _bwd_timing(name, kernel, plain, bound, flush, iters=10, rate="67",
     return out
 
 
+def _slstm_chain(ss_, case, bwd, flush) -> dict:
+    """The sLSTM's serial chain at phase 48's shape: the forward kernel on
+    ``case``'s inputs timed a call with and without its saves and on the
+    device, beside the backward kernel alone on the device (``bwd``:
+    ``_bwd_timing``'s), each in us a position."""
+    wx, r, st = case["wx"], case["r"], case["st"]
+    b, s = wx.shape[:2]
+    out = {}
+    for key in (False, True):
+        fn = lambda: _slstm_fwd_saved(ss_, wx, r, st, key)
+        tag = "forward_saves" if key else "forward"
+        out[f"{tag}_ms"] = _time(fn, 10, flush)
+        dev_ms, _, names = _device_ms(fn, 10, flush)
+        out[f"{tag}_device_ms"] = names.get("slstm_scan_kernel", dev_ms)
+    bwd_ms = bwd["device_kernels_ms"].get("slstm_bwd_kernel",
+                                          bwd["device_ms"])
+    out.update(kernel_device_ms=bwd_ms,
+               forward_us_per_position=out["forward_device_ms"] / s * 1e3,
+               us_per_position=bwd_ms / s * 1e3)
+    print(f"slstm forward B={b} S={s}: {out['forward_ms']:.4f} ms a call "
+          f"without the saves, {out['forward_saves_ms']:.4f} ms with them "
+          f"(pre-activations and c, n, m a position: "
+          f"{sum(t.numel() for t in case['saves']) * 4 / 1e9:.4f} GB); the "
+          f"kernel on the device {out['forward_device_ms']:.4f} / "
+          f"{out['forward_saves_device_ms']:.4f} ms", flush=True)
+    print(f"slstm chain B={b} S={s}, us a position on the device: forward "
+          f"{out['forward_us_per_position']:.3f} (with saves "
+          f"{out['forward_saves_device_ms'] / s * 1e3:.3f}), backward "
+          f"kernel {out['us_per_position']:.3f} ({bwd_ms:.4f} ms)",
+          flush=True)
+    return out
+
+
 def phase_backward(ms_, ss_) -> dict:
     """Phase 47: the mLSTM and sLSTM backward kernels against their plain
     versions at xlstm-1.3b's width and at the reduced config's, then
@@ -3505,6 +3538,7 @@ def phase_backward(ms_, ss_) -> dict:
         lambda: ss_.slstm_scan_backward(*sb),
         lambda: ss_.slstm_backward_plain(*sb),
         _slstm_bwd_bound(b, s, SLSTM_NH, SLSTM_HD), flush))
+    res["slstm"].update(_slstm_chain(ss_, calm, res["slstm"], flush))
     for key, c in _counters(ms_, ss_).items():
         c.launches = counted[key]       # checks and timing not counted
     del full, seq, calm, case, mb, sb, flush
@@ -5783,14 +5817,18 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/slstm_scan.cu",
              replaces="src/repro/models/recurrent.py:237",
              note="no Pallas kernel: jax.grad of slstm_apply's lax.scan "
-             "(:237) over _slstm_cell (:204-221)",
+             "(:237) over _slstm_cell (:204-221); a block a head's 16 "
+             "units' 64 gate columns of r_gates, partial recurrent "
+             "gradients exchanged as tagged words, one round of reads a "
+             "position",
              launches=train["xlstm-1.3b"]["launches"]["slstm_scan_backward"],
              **bwd["slstm"],
              shape=f"xlstm-1.3b training: B={TRAIN_BATCH}, "
              f"S={TRAIN_SEQ}, 4 heads of {SLSTM_HD} (phases 47, 48; "
              "launches: phase 48's 7 steps, 1 a layer and step; "
              "max_abs_err: the largest gradient distance from the float64 "
-             "plain run)")]}),
+             "plain run; kernel_device_ms and us_per_position: the kernel "
+             "alone, beside the forward's on the same inputs)")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -351,63 +351,113 @@ extern "C" int slstm_scan_launch(const void* wx, const void* r,
 //   dg = [dz (1 - z^2), db + dM_i, (da + dM_f) sigmoid(-g_f), do o (1 - o)]
 //   carried: dc f', dn f', dm = da + dM_f
 //
-// Grid: nh x (hd / 16) blocks of 256 threads, as the forward, with the
-// partition transposed: a block owns 16 units' rows of r[head] ([16, 4 hd],
-// 128 KB at hd = 512, in shared memory, rows padded by 4 words), so at each
-// position it forms its units' recurrent gradient from all 4 hd gate
-// gradients of the head (16 slices of the 4 hd columns, summed in order),
-// runs the cell's backward for its units (16 threads a row) and publishes
-// their 64 gate gradients as tagged 64-bit words in a ring of two
-// positions, as the forward publishes h (the same argument makes two slots
-// enough).  Blocks that wait on each other must all be resident: a
-// cooperative launch.  d r_gates = sum_{b,t} h_{t-1} (x) dg_t is a plain
-// product the wrapper leaves to torch.matmul; d wx = dg.
+// Grid: nh x (hd / 16) blocks of 256 threads, the forward's partition: a
+// block owns 16 units of one head and their 64 gate columns of r[head]
+// ([hd][64], 128 KB at hd = 512).  Each thread keeps two rows k of them in
+// registers for the whole launch (128 floats), so a position's product
+// reads nothing but the gate gradients from shared memory, as a broadcast
+// (the rows in shared memory, read again at every position, took 15% more
+// time: PERF.md).  Every gate gradient a block's cells produce meets its
+// own columns, and at each position, for each pass of up to 8 rows, it
+//
+//   1. reads its units' recurrent gradient: the hd / 16 partials of each
+//      (row, unit) that the head's blocks published a position before,
+//      all of a thread's words (8 at B = 4, hd = 512; 16 above 4 rows) in
+//      flight before any is polled again, and sums them in source order,
+//      a fixed tree: four lanes of hd / 64 consecutive sources each,
+//      summed in order, then (l0 + l1) + (l2 + l3) -- no float atomics,
+//      two calls agree bit for bit;
+//   2. adds the output's gradient and runs the cell's backward for its
+//      16 units x nb rows (16 threads a row; dc, dn, dm carried in place);
+//   3. writes dwx and keeps its 64 gate gradients in shared memory;
+//   4. forms its partial of the head's recurrent gradient,
+//      p[b, k] = sum over its 64 columns j of r[head, k, j] dg_t[b, j]
+//      for all hd rows k (two rows k a thread, its nb rows: 512 fused
+//      multiply-adds a thread at B = 4), and publishes it as 64-bit words
+//      (value, tag tau + 1) in a ring [2][B][nh][hd / 16 source
+//      blocks][hd] (zeroed before the launch: 4 MB at B = 4, 4 heads of
+//      512).
+//
+// Two ring slots suffice.  A block writes position tau + 1's partials
+// into the slot that held tau - 1's only after it has read all hd / 16
+// partials of position tau, one from every block of its head; each of
+// those blocks published tau only after it had read all of tau - 1's.
+// So no block overwrites a slot while another still needs it.  The
+// argument needs every block to read from every block of its head, which
+// the partition gives: each (row, unit) takes a partial from each block.
+// Blocks that wait on each other must all be resident: a cooperative
+// launch.  S = 1 reads and publishes nothing: a plain launch.
+// d r_gates = sum_{b,t} h_{t-1} (x) dg_t is a plain product the wrapper
+// leaves to torch.matmul; d wx = dg.
 //
 // What bounds it on an H100: as the forward, the serial chain of
-// positions (each waits for the head's gate gradients of the position
-// after); its products are 2 B S nh hd 4hd (8.59 GFLOP at B = 4, S = 256,
-// 4 heads of 512: 0.128 ms at 67 TFLOP/s).  Measured (PERF.md): 2.23 ms
-// at that shape, 8.7 us a position, with the ring's words loaded eight a
-// thread at once (3.59 ms one at a time).
+// positions (each waits for the head's partials of the position after);
+// its products are 2 B S nh hd 4hd (8.59 GFLOP at B = 4, S = 256, 4 heads
+// of 512: 0.128 ms at 67 TFLOP/s).  A position exchanges 2 MB through L2
+// each way across the grid, one round trip a block.  Measured at that
+// shape (PERF.md; NVIDIA H100 80GB HBM3, 700 W): 0.77-0.92 ms on the
+// device, 3.0-3.6 us a position, where the earlier partition (a block a
+// head's 16 units' rows of r[head], reading the head's 4 hd gate
+// gradients of each row: 8 MB a position, four rounds of loads) took
+// 2.23-2.51 ms in the same processes.  clock64() stamps split a position
+// of 3.4 us into 1.3 us waiting for and summing the partials, 0.5 us the
+// cell and 1.4 us the product and its stores.  The kernel sits at the
+// register limit (255, 12 bytes spilled): forms that kept more live (the
+// cell's dh-free part computed while the words travel) or polled the two
+// rounds of reads one after the other ran 23-38% slower.
 namespace {
 
-__host__ __device__ constexpr int bwd_ld(int hd) { return 4 * hd + 4; }
-constexpr int kRing = 8;                     // ring words a thread in flight
+constexpr int kLanes = 4;                    // threads a (row, unit) sum
+constexpr int kLaneSrc = kMaxHd / kUnits / kLanes;  // sources a lane
+constexpr int kOutSpan = kThreads / kLanes;  // (row, unit)s a lane round
+constexpr int kOutRounds = kRows * kUnits / kOutSpan;
+constexpr int kRowsPer = 2;                  // rows k of r a thread
+static_assert(kRowsPer * kThreads >= kMaxHd, "two rows k a thread");
 
-constexpr size_t bwd_smem_bytes(int hd) {
-  return sizeof(float) * (static_cast<size_t>(kUnits) * bwd_ld(hd) +
-                          static_cast<size_t>(kRows) * 4 * hd +
-                          kSlices * kRows * kUnits);
-}
-static_assert(bwd_smem_bytes(kMaxHd) <= 232448,
-              "the backward's shared memory at hd = 512");
+// shared memory: the gate gradients dg_s [kRows][kCols] and the lanes'
+// sums red_s [kLanes][kRows kUnits]
+constexpr size_t kBwdSmem = sizeof(float) * (kRows * kCols +
+                                             kLanes * kRows * kUnits);
 
+// the block's partial of the head's recurrent gradient for this thread's
+// rows k of r[head] (tid + i kThreads; their 64 columns in registers, wv)
+// and the pass's NB batch rows, from the gate gradients dg_s, as ring
+// words tagged ``tag``: out + rb * rstride + k
 template <int NB>
-__device__ __forceinline__ void bwd_dots(const float* w_s, const float* g_s,
-                                         float* part, int hd, int uu,
-                                         int slice) {
-  const int span = hd / 4;                  // a sixteenth of the 4 hd
-  const int c0 = slice * span;
-  const int ld = bwd_ld(hd);
-  float acc[NB];
+__device__ __forceinline__ void bwd_partials(
+    const float4 (&wv)[kRowsPer][kGroups], const float* dg_s,
+    unsigned long long* out, size_t rstride, int hd, unsigned tag) {
+  const int tid = threadIdx.x;
+  if (tid >= hd) return;
+  float acc[kRowsPer][NB];
 #pragma unroll
-  for (int rb = 0; rb < NB; ++rb) acc[rb] = 0.f;
-#pragma unroll 2
-  for (int c = c0; c < c0 + span; c += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(w_s + uu * ld + c);
+  for (int i = 0; i < kRowsPer; ++i) {
 #pragma unroll
-    for (int rb = 0; rb < NB; ++rb) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(g_s + rb * 4 * hd + c);
-      acc[rb] = __fmaf_rn(w.x, x.x, acc[rb]);
-      acc[rb] = __fmaf_rn(w.y, x.y, acc[rb]);
-      acc[rb] = __fmaf_rn(w.z, x.z, acc[rb]);
-      acc[rb] = __fmaf_rn(w.w, x.w, acc[rb]);
-    }
+    for (int rb = 0; rb < NB; ++rb) acc[i][rb] = 0.f;
   }
 #pragma unroll
-  for (int rb = 0; rb < NB; ++rb)
-    part[(slice * kRows + rb) * kUnits + uu] = acc[rb];
+  for (int j = 0; j < kGroups; ++j) {
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb) {
+      const float4 g = reinterpret_cast<const float4*>(dg_s + rb * kCols)[j];
+#pragma unroll
+      for (int i = 0; i < kRowsPer; ++i) {
+        acc[i][rb] = __fmaf_rn(wv[i][j].x, g.x, acc[i][rb]);
+        acc[i][rb] = __fmaf_rn(wv[i][j].y, g.y, acc[i][rb]);
+        acc[i][rb] = __fmaf_rn(wv[i][j].z, g.z, acc[i][rb]);
+        acc[i][rb] = __fmaf_rn(wv[i][j].w, g.w, acc[i][rb]);
+      }
+    }
+  }
+  const unsigned long long hi = static_cast<unsigned long long>(tag) << 32;
+#pragma unroll
+  for (int i = 0; i < kRowsPer; ++i) {
+    const int k = tid + i * kThreads;
+    if (k >= hd) continue;
+#pragma unroll
+    for (int rb = 0; rb < NB; ++rb)
+      store_word(out + rb * rstride + k, hi | __float_as_uint(acc[i][rb]));
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -422,28 +472,41 @@ slstm_bwd_kernel(const float* __restrict__ r, const float* __restrict__ dhs,
                  unsigned long long* ring, int batch, int seq, int nh,
                  int hd) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = bwd_ld(hd);
-  float* w_s = smem;                                      // [kUnits][ld]
-  float* g_s = w_s + static_cast<size_t>(kUnits) * ld;    // [kRows][4 hd]
-  float* part = g_s + static_cast<size_t>(kRows) * 4 * hd;  // [kSlices]
-                                                          // [kRows][kUnits]
-  const int per_head = hd / kUnits;
+  float* dg_s = smem;                    // [kRows][kCols]
+  float* red_s = dg_s + kRows * kCols;   // [kLanes][kRows * kUnits]
+  const int per_head = hd / kUnits;      // source blocks a head
   const int head = blockIdx.x / per_head;
-  const int unit0 = (blockIdx.x % per_head) * kUnits;
+  const int src = blockIdx.x % per_head;
+  const int unit0 = src * kUnits;
   const int tid = threadIdx.x;
   const int gw = 4 * hd;
   const size_t d4 = static_cast<size_t>(nh) * gw;
 
-  // this block's 16 rows of r[head], 4 floats at a time
-  const float* rh = r + (static_cast<size_t>(head) * hd + unit0) * gw;
-  for (int e = tid; e < kUnits * hd; e += kThreads) {
-    const int u = e / hd, c = (e - u * hd) * 4;
-    *reinterpret_cast<float4*>(w_s + u * ld + c) =
-        *reinterpret_cast<const float4*>(rh + static_cast<size_t>(u) * gw + c);
+  // this block's 64 columns of r[head] (column j: gate j / 16 of unit
+  // unit0 + j % 16), this thread's rows k of them in registers for every
+  // position (a row past hd takes row hd - 1 and stores nothing)
+  const float* rh = r + static_cast<size_t>(head) * hd * gw + unit0;
+  float4 wv[kRowsPer][kGroups];
+#pragma unroll
+  for (int i = 0; i < kRowsPer; ++i) {
+    const size_t k = min(tid + i * kThreads, hd - 1);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+      wv[i][j] = *reinterpret_cast<const float4*>(
+          rh + k * gw + (j * 4 / kUnits) * hd + j * 4 % kUnits);
   }
-  const int uu = tid % kUnits, slice = tid / kUnits;
 
-  const size_t slot = static_cast<size_t>(batch) * d4;   // ring slot
+  // the ring: word (slot, b, head, source, k); a row b's words are
+  // rstride apart
+  const size_t rstride = static_cast<size_t>(nh) * per_head * hd;
+  const size_t slot = static_cast<size_t>(batch) * rstride;
+  const size_t mine = (static_cast<size_t>(head) * per_head + src) * hd;
+  const size_t theirs = static_cast<size_t>(head) * per_head * hd + unit0;
+  // the reads: lane ``lane`` sums sources [lane q, lane q + q) of the
+  // (row, unit)s o = oo + kOutSpan i
+  const int q = (per_head + kLanes - 1) / kLanes;
+  const int lane = tid / kOutSpan, oo = tid % kOutSpan;
+
   for (int tau = 0; tau < seq; ++tau) {
     const int t = seq - 1 - tau;
     for (int b0 = 0; b0 < batch; b0 += kRows) {
@@ -461,7 +524,7 @@ slstm_bwd_kernel(const float* __restrict__ r, const float* __restrict__ dhs,
       float car[3] = {0.f, 0.f, 0.f}, dh = 0.f;
       if (cell) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) g[q] = gsave[gat + q * hd];
+        for (int qq = 0; qq < 4; ++qq) g[qq] = gsave[gat + qq * hd];
         st[0] = csave[sat];
         st[1] = nsave[sat];
         st[2] = msave[sat];
@@ -474,53 +537,54 @@ slstm_bwd_kernel(const float* __restrict__ r, const float* __restrict__ dhs,
         car[2] = dmcar[at];
         dh = dhs[sat];
       }
-      __syncthreads();               // w_s loaded; g_s / part free again
       if (tau > 0) {
-        // the head's gate gradients of the position after, kRing words a
-        // thread in flight at once, each polled again until its tag is tau
-        const unsigned long long* prev = ring + ((tau - 1) & 1) * slot;
-        const size_t row0 = (static_cast<size_t>(b0) * nh + head) * gw;
-        const size_t rstride = static_cast<size_t>(nh) * gw;
-        for (int e0 = tid; e0 < nb * gw; e0 += kRing * kThreads) {
-          unsigned long long w[kRing];
+        // the partials of position tau - 1 (tag tau), every word of this
+        // thread's in flight at once, each polled again until its tag is
+        // tau; a lane's sources summed in order
+        const unsigned long long* prev =
+            ring + ((tau - 1) & 1) * slot + b0 * rstride + theirs;
+        unsigned long long w[kOutRounds][kLaneSrc];
 #pragma unroll
-          for (int j = 0; j < kRing; ++j) {
-            const int e = e0 + j * kThreads;
-            if (e < nb * gw)
-              w[j] = load_word(prev + row0 + (e / gw) * rstride + e % gw);
+        for (int i = 0; i < kOutRounds; ++i) {
+          const int o = oo + i * kOutSpan;
+#pragma unroll
+          for (int j = 0; j < kLaneSrc; ++j) {
+            const int s = lane * q + j;
+            if (o < nb * kUnits && j < q && s < per_head)
+              w[i][j] = load_word(prev + (o / kUnits) * rstride +
+                                  static_cast<size_t>(s) * hd + o % kUnits);
           }
+        }
 #pragma unroll
-          for (int j = 0; j < kRing; ++j) {
-            const int e = e0 + j * kThreads;
-            if (e < nb * gw) {
-              const unsigned long long* at =
-                  prev + row0 + (e / gw) * rstride + e % gw;
-              while (static_cast<unsigned>(w[j] >> 32) !=
+        for (int i = 0; i < kOutRounds; ++i) {
+          const int o = oo + i * kOutSpan;
+          if (o >= nb * kUnits) continue;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < kLaneSrc; ++j) {
+            const int s = lane * q + j;
+            if (j < q && s < per_head) {
+              const unsigned long long* p = prev + (o / kUnits) * rstride +
+                                            static_cast<size_t>(s) * hd +
+                                            o % kUnits;
+              while (static_cast<unsigned>(w[i][j] >> 32) !=
                      static_cast<unsigned>(tau))
-                w[j] = load_word(at);
-              g_s[e] = __uint_as_float(static_cast<unsigned>(w[j]));
+                w[i][j] = load_word(p);
+              sum = __fadd_rn(sum,
+                              __uint_as_float(static_cast<unsigned>(w[i][j])));
             }
           }
+          red_s[lane * (kRows * kUnits) + o] = sum;
         }
-        __syncthreads();
-        switch (nb) {
-          case 1: bwd_dots<1>(w_s, g_s, part, hd, uu, slice); break;
-          case 2: bwd_dots<2>(w_s, g_s, part, hd, uu, slice); break;
-          case 3: bwd_dots<3>(w_s, g_s, part, hd, uu, slice); break;
-          case 4: bwd_dots<4>(w_s, g_s, part, hd, uu, slice); break;
-          case 5: bwd_dots<5>(w_s, g_s, part, hd, uu, slice); break;
-          case 6: bwd_dots<6>(w_s, g_s, part, hd, uu, slice); break;
-          case 7: bwd_dots<7>(w_s, g_s, part, hd, uu, slice); break;
-          default: bwd_dots<8>(w_s, g_s, part, hd, uu, slice); break;
-        }
-        __syncthreads();
       }
+      __syncthreads();          // red_s filled; dg_s free again
       if (cell) {
         if (tau > 0) {
-          float rec = 0.f;
-#pragma unroll
-          for (int s = 0; s < kSlices; ++s)
-            rec = __fadd_rn(rec, part[(s * kRows + rb) * kUnits + u]);
+          constexpr int n = kRows * kUnits;
+          const int o = tid;
+          const float rec = __fadd_rn(__fadd_rn(red_s[o], red_s[n + o]),
+                                      __fadd_rn(red_s[2 * n + o],
+                                                red_s[3 * n + o]));
           dh = __fadd_rn(dh, rec);
         }
         const float c = st[0], n = st[1], m = st[2];
@@ -560,16 +624,27 @@ slstm_bwd_kernel(const float* __restrict__ r, const float* __restrict__ dhs,
         dcar[at] = __fmul_rn(dct, f_p);
         dncar[at] = __fmul_rn(dnt, f_p);
         dmcar[at] = dfm;
-        const size_t wat = (static_cast<size_t>(b0 + rb) * nh + head) * gw +
-                           unit0 + u;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          dwx[bt * d4 + static_cast<size_t>(head) * gw + q * hd + unit0 + u] =
-              dg[q];
-          if (tau + 1 < seq)
-            store_word(ring + (tau & 1) * slot + wat + q * hd,
-                       (static_cast<unsigned long long>(tau + 1) << 32) |
-                           __float_as_uint(dg[q]));
+        for (int qq = 0; qq < 4; ++qq) {
+          dwx[bt * d4 + static_cast<size_t>(head) * gw + qq * hd + unit0 + u] =
+              dg[qq];
+          dg_s[rb * kCols + qq * kUnits + u] = dg[qq];
+        }
+      }
+      __syncthreads();          // dg_s filled; red_s free again
+      if (tau + 1 < seq) {
+        unsigned long long* out =
+            ring + (tau & 1) * slot + b0 * rstride + mine;
+        const unsigned tag = static_cast<unsigned>(tau + 1);
+        switch (nb) {
+          case 1: bwd_partials<1>(wv, dg_s, out, rstride, hd, tag); break;
+          case 2: bwd_partials<2>(wv, dg_s, out, rstride, hd, tag); break;
+          case 3: bwd_partials<3>(wv, dg_s, out, rstride, hd, tag); break;
+          case 4: bwd_partials<4>(wv, dg_s, out, rstride, hd, tag); break;
+          case 5: bwd_partials<5>(wv, dg_s, out, rstride, hd, tag); break;
+          case 6: bwd_partials<6>(wv, dg_s, out, rstride, hd, tag); break;
+          case 7: bwd_partials<7>(wv, dg_s, out, rstride, hd, tag); break;
+          default: bwd_partials<8>(wv, dg_s, out, rstride, hd, tag); break;
         }
       }
     }
@@ -583,8 +658,9 @@ slstm_bwd_kernel(const float* __restrict__ r, const float* __restrict__ dhs,
 // nsave, msave the forward's saves; c0, n0, m0 [B, nh, hd] the starting
 // state; dcar, dncar, dmcar [B, nh, hd]: in, the final state's gradients
 // (zeros for none), out, the starting state's; dwx f32 [B, S, nh, 4hd];
-// ring: 2 B nh 4hd 64-bit words (zeroed here), used only for S > 1.  A
-// cooperative launch for S > 1.  Returns the launch's CUDA error, or 0.
+// ring: 2 B nh (hd / 16) hd 64-bit words (zeroed here), used only for
+// S > 1.  A cooperative launch for S > 1.  Returns the launch's CUDA
+// error, or 0.
 extern "C" int slstm_scan_bwd_launch(
     const void* r, const void* dhs, const void* gsave, const void* csave,
     const void* nsave, const void* msave, const void* c0, const void* n0,
@@ -594,19 +670,8 @@ extern "C" int slstm_scan_bwd_launch(
       batch <= 0 || (seq > 1 && ring == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  static bool opted[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device < 64 && !opted[device]) {
-    err = cudaFuncSetAttribute(slstm_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bwd_smem_bytes(kMaxHd)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted[device] = true;
-  }
   const dim3 grid(nh * (hd / kUnits));
-  const size_t smem = bwd_smem_bytes(hd);
+  const size_t smem = kBwdSmem;
   auto* r_ = static_cast<const float*>(r);
   auto* dhs_ = static_cast<const float*>(dhs);
   auto* gs_ = static_cast<const float*>(gsave);
@@ -627,9 +692,9 @@ extern "C" int slstm_scan_bwd_launch(
         nullptr, batch, seq, nh, hd);
     return static_cast<int>(cudaGetLastError());
   }
-  err = cudaMemsetAsync(rg, 0,
-                        sizeof(unsigned long long) * 2 * batch * nh * 4 * hd,
-                        stream);
+  cudaError_t err = cudaMemsetAsync(
+      rg, 0, sizeof(unsigned long long) * 2 * batch * nh * (hd / kUnits) * hd,
+      stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&r_,  &dhs_, &gs_, &cs_, &ns_, &ms_,  &c0_,
                   &n0_, &m0_,  &dc_, &dn_, &dm_, &dwx_, &rg,

@@ -79,14 +79,18 @@ pre-activations [B, S, nh, 4 hd] and c, n, m [B, S, nh, hd], 58.7 MB at
 B = 4, S = 256, 4 heads of 512; every other output bit-identical with the
 option on or off), its backward the backward kernel
 (``slstm_scan_backward``, in ``csrc/slstm_scan.cu``: the positions in
-reverse, a cooperative launch whose blocks own 16 units' rows of
-r_gates and pass each position's gate gradients to each other as tagged
-words, as the forward passes h; one launch, counted in
-``slstm_scan_backward.launches``), then d r_gates = sum_{b,t} h_{t-1} (x)
-dg_t as one plain product.  On the CPU the Function runs
-``slstm_save_plain`` (``slstm_scan_plain``'s ops with the same saves) and
-``slstm_backward_plain``, the same decomposition in torch (exact in
-float64 against autograd of ``slstm_scan_plain``).  The starting state
+reverse, a cooperative launch whose blocks own the forward's share of
+r_gates, 16 units' 64 gate columns; at each position a block runs its
+units' cell backward, forms its partial of the head's recurrent gradient
+(its 64 columns' share of r_gates dg_t for every row of the head) and
+publishes it as tagged words, and each block sums the hd / 16 partials
+of its units in source order, a fixed tree, one round of reads a
+position; one launch, counted in ``slstm_scan_backward.launches``), then
+d r_gates = sum_{b,t} h_{t-1} (x) dg_t as one plain product.  On the
+CPU the Function runs ``slstm_save_plain`` (``slstm_scan_plain``'s ops
+with the same saves) and ``slstm_backward_plain``, the same
+decomposition in torch (exact in float64 against autograd of
+``slstm_scan_plain``).  The starting state
 carries no gradient: the Function raises if c, n, m or h asks for one.
 Head dims as the forward's (multiples of 16 up to ``MAX_HD``).
 
@@ -345,7 +349,6 @@ def tolerance(wx, r_gates, c, n, m, h, carry=False):
 GRAD_NAMES = ("dwx", "dr")
 #: the gradients' bar: ``mlstm_scan.grad_check``'s, over these names
 grad_check = functools.partial(mlstm_scan.grad_check, names=GRAD_NAMES)
-_BWD_RINGS: dict = {}
 
 
 def _saves(wx):
@@ -464,9 +467,13 @@ def slstm_scan_backward(wx, r_gates, c0, n0, m0, h0, hs, saves, dhs,
     dc, dn, dm = (x.clone().contiguous() for x in _carries(c0, carries))
     if b == 0:
         return dwx, torch.zeros_like(r_gates), (dc, dn, dm)
-    # the ring of tagged gate gradients: 2 B nh 4 hd 64-bit words
-    ring = _build.scratch(_BWD_RINGS, 16 * b * nh * hd, wx.device) \
-        if s > 1 else None
+    # the ring of tagged partial recurrent gradients: 2 B nh (hd / UNITS)
+    # hd 64-bit words, a partial a source block (4 MB at B = 4, 4 heads of
+    # 512).  Its own allocation a call, not a cached scratch: it grows as
+    # B hd^2 (1.07 GB at B = 1020), and a cache would hold the largest
+    # call's for the process's life.
+    ring = torch.empty(4 * b * nh * (hd // UNITS) * hd, dtype=torch.float32,
+                       device=wx.device) if s > 1 else None
     err = _load().slstm_scan_bwd_launch(
         r_gates.data_ptr(), dhs.data_ptr(),
         *(t.data_ptr() for t in saves), c0.data_ptr(), n0.data_ptr(),

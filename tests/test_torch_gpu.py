@@ -1955,12 +1955,17 @@ def test_mlstm_backward_without_the_m_chain_misses_the_bar(monkeypatch):
 @pytest.mark.parametrize("b,s,nh,hd,fan_in", [(4, 16, 4, 16, "nh"),
                                               (3, 20, 4, 64, "nh"),
                                               (2, 64, 4, 512, "hd"),
-                                              (9, 5, 2, 128, "hd")])
+                                              (9, 5, 2, 128, "hd"),
+                                              (4, 256, 4, 512, "hd"),
+                                              (9, 5, 4, 512, "hd"),
+                                              (3, 33, 1, 16, "hd")])
 def test_slstm_backward_kernel_matches_plain(b, s, nh, hd, fan_in):
     """The sLSTM backward kernel on the card over a sequence short enough
     (or r_gates at fan-in hd) for float32 to follow float64: dwx and dr
     within ``grad_check``'s bar, one launch counted a call, a second call
-    bit-identical."""
+    bit-identical.  Among the cases phase 48's shape; nine rows at full
+    width (two row passes through one ring); one block of hd = 16, whose
+    units' recurrent gradient is a single partial."""
     from repro_torch.kernels import slstm_scan as tsl
     dev = _card()
     wx, r, st = _slstm_inputs(dev, b, s, nh, hd, seed=hd + s)

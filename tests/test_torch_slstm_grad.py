@@ -21,6 +21,10 @@ card:
     sequence is held at the reduced width (4 heads of 16) over 24
     positions at that init, and at 4 heads of 64 over 64 positions with
     r_gates at fan-in hd;
+  * the CUDA kernel's summation order on the CPU: each recurrent gradient
+    formed as hd / 16 partials, one a block of 16 units' 64 gate columns,
+    summed in source order as the kernel's fixed tree, within the bar
+    against float64 (a sum that drops one partial misses it);
   * the Function refusing a starting state that asks for a gradient, and
     a non-float32 input;
   * the route rule under autograd: through the Function (its outputs
@@ -170,6 +174,63 @@ def test_one_position_backward_matches_autograd_of_the_cell(seed):
     p64 = plain(torch.float64)
     assert float((p64 - a64).abs().max()) <= 1e-12 * float(a64.abs().max())
     _assert_within(SS.grad_check((plain(torch.float32),), (a32,), (a64,)))
+
+
+def _blocked_rec(dg, r, drop=None):
+    """The recurrent gradient sum_j r[h, k, j] dg[b, h, j] as the CUDA
+    backward forms it: a partial a source block s (its units 16 s ..
+    16 s + 15, their four gate columns each), the hd / 16 partials summed
+    in four lanes of consecutive sources, each in order, then
+    (l0 + l1) + (l2 + l3).  ``drop``: a source left out (a mutant)."""
+    b, nh, g = dg.shape
+    hd = g // 4
+    src = hd // SS.UNITS
+    part = torch.einsum("hkqsu,bhqsu->bhsk",
+                        r.reshape(nh, hd, 4, src, SS.UNITS),
+                        dg.reshape(b, nh, 4, src, SS.UNITS))
+    per = -(-src // 4)
+    lanes = []
+    for lane in range(4):
+        acc = torch.zeros_like(part[:, :, 0])
+        for s in range(lane * per, min(lane * per + per, src)):
+            if s != drop:
+                acc = acc + part[:, :, s]
+        lanes.append(acc)
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def _blocked_backward(a, drop=None):
+    """float32: ``slstm_backward_plain``'s positions in reverse with each
+    recurrent gradient from ``_blocked_rec``: (dwx, dr)."""
+    x = [_t(a, k, torch.float32) for k in ("wx", "r", "c", "n", "m", "h")]
+    wx, r, c0, n0, m0, h0 = x
+    hs, *_, (gs, cs, ns, ms) = SS.slstm_save_plain(*x)
+    dhs = _t(a, "dh", torch.float32).clone()
+    dhs[:, -1] += _t(a, "wh", torch.float32)
+    dc, dn, dm = (_t(a, k, torch.float32) for k in ("wc", "wn", "wm"))
+    dwx = torch.empty_like(wx)
+    rec = torch.zeros_like(h0)
+    for t in range(wx.shape[1] - 1, -1, -1):
+        prev = (cs[:, t - 1], ns[:, t - 1], ms[:, t - 1]) if t > 0 \
+            else (c0, n0, m0)
+        dwx[:, t], dc, dn, dm = SS._cell_backward(
+            gs[:, t], cs[:, t], ns[:, t], ms[:, t], *prev, dhs[:, t] + rec,
+            dc, dn, dm)
+        rec = _blocked_rec(dwx[:, t], r, drop)
+    return dwx, SS._dr(h0, hs, dwx)
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_blocked_summation_order_within_the_bar(carried):
+    """The kernel's partials and their fixed tree over 64 positions at 4
+    heads of 64 (4 partials a sum), r_gates at fan-in hd: dwx and dr
+    within ``grad_check``'s bar against float64 ``slstm_backward_plain``;
+    dropping one partial misses it."""
+    a = _inputs(2, 64, 4, 64, 64, carried, seed=11 + carried)
+    plain32, plain64 = _plain(a, torch.float32), _plain(a, torch.float64)
+    _assert_within(SS.grad_check(_blocked_backward(a), plain32, plain64))
+    bad = SS.grad_check(_blocked_backward(a, drop=3), plain32, plain64)
+    assert all(dist > bar for dist, bar in bad.values()), bad
 
 
 def test_function_refuses_a_starting_state_with_a_gradient():
