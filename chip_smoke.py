@@ -3547,6 +3547,135 @@ def phase_backward(ms_, ss_) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the RG-LRU's backward kernel, at recurrentgemma-2b's training shape
+# ---------------------------------------------------------------------------
+
+# phase 49's cases (B, S, from a carried h) at lru_width 2560: phase 50's
+# batch (B = 4, S = 256) from the zero state and a carried h, one chunk
+# (the short kernel) and a ragged S (not a multiple of 64)
+RGLRU_BWD_CASES = ((4, 256, False), (4, 256, True), (4, 40, True),
+                   (2, 300, True))
+# the backward's float32 operations an element, counted from
+# ``grad_factors`` and the scan in csrc/rglru_scan.cu: the gates 14 (two
+# sigmoids of 3 each with their exp, log a, 2 log a, exp, 1 - e2, the max,
+# sqrt, exp), the factors 14 (gx, 1 - a^2 and its test, gx e2 / beta,
+# a h_{t-1} and the difference, kl, kr's 3, kx, ki's 3), the scan 8 (g,
+# three outputs, dlam's product and sum, u)
+RGLRU_BWD_OPS = 36
+
+
+def _rglru_counters(rg_) -> dict:
+    """The two wrappers the RG-LRU's training path counts in."""
+    return {"rglru_scan": rg_.rglru_scan,
+            "rglru_scan_backward": rg_.rglru_scan_backward}
+
+
+def _rglru_bwd_case(rg_, name, b, s, carried, seed) -> dict:
+    """The backward kernel from the forward kernel's h on one case: the
+    five gradients within ``grad_check``'s bar, a second call and the call
+    captured in a CUDA graph and replayed twice bit-identical to the
+    first.  Returns the case's tensors and its largest distance."""
+    args = list(_rglru_data(b, s, RGLRU_W, seed))
+    if not carried:
+        args[4].zero_()
+    dh = torch.randn((b, s, RGLRU_W), device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(seed))
+    h = rg_.rglru_scan(*args)
+    runs = [rg_.rglru_scan_backward(*args, h, dh) for _ in range(2)]
+    torch.cuda.synchronize()
+    again = all(_bits(x, y) for x, y in zip(*runs))
+    captured = rg_.rglru_scan_backward.captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rg_.rglru_scan_backward(*args, h, dh)
+    rg_.rglru_scan_backward.captured = captured
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(all(_bits(x, y) for x, y in zip(out, runs[0])))
+    del graph, out
+    text, within, err, share = _grad_line(
+        rg_.grad_check(runs[0], *args, dh))
+    ok = within and again and all(replays)
+    print(f"{name}: {text}; at most {share:.3g} of the bar; repeat "
+          f"bit-identical {again}; graph replays bit-identical {replays} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        _fail(f"rglru_scan_backward disagrees with float64 or with itself "
+              f"({name})")
+    return dict(args=args, h=h, dh=dh, err=err, share=share)
+
+
+def phase_rglru_backward(rg_) -> dict:
+    """Phase 49: the RG-LRU backward kernel against float64 at
+    recurrentgemma-2b's width (``RGLRU_BWD_CASES``), then its timing at
+    phase 50's shape beside its bound, its plain version, and autograd of
+    the plain scan (the route training took before the kernel)."""
+    print("== phase 49: rglru_scan_backward vs float64 on the card, and "
+          "its timing (recurrentgemma-2b's training shape)", flush=True)
+    counted = {k: c.launches for k, c in _rglru_counters(rg_).items()}
+    cases = []
+    for i, (b, s, carried) in enumerate(RGLRU_BWD_CASES):
+        state = "a carried h" if carried else "the zero state"
+        cases.append(_rglru_bwd_case(rg_, f"B={b} S={s} w={RGLRU_W} from "
+                                     f"{state}", b, s, carried,
+                                     SEED + 490 + i))
+    res = dict(max_abs_err=max(c["err"] for c in cases),
+               max_share_of_bar=max(c["share"] for c in cases))
+    case = cases[0]
+    args, h, dh = case["args"], case["h"], case["dh"]
+    del cases
+    b, s, w = h.shape
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    kernel = lambda: rg_.rglru_scan_backward(*args, h, dh)
+    ms = _time(kernel, 30, flush)
+    dev_ms, how, names = _device_ms(kernel, 30, flush)
+    fwd_ms, _, _ = _device_ms(lambda: rg_.rglru_scan(*args), 30, flush)
+    plain_ms = _time(lambda: rg_.rglru_backward_plain(*args, h, dh), 5,
+                     flush)
+
+    def autograd_plain():
+        x = [t.detach().requires_grad_() for t in args]
+        rg_.rglru_scan_plain(*x).backward(dh)
+
+    def kernels():
+        rg_.rglru_scan_backward(*args, rg_.rglru_scan(*args), dh)
+
+    auto_ms = _time(autograd_plain, 5, flush)
+    both_ms = _time(kernels, 10, flush)
+    # ra, ia, xc, h and dh read, dra, dia and dxc written; lam, h0 read,
+    # dlam and dh0 written
+    gb = (8 * b * s * w + 2 * w + 2 * b * w) * 4 / 1e9
+    t_bytes = gb * 1e9 / HBM_BYTES_PER_S * 1e3
+    gflop = RGLRU_BWD_OPS * b * s * w / 1e9
+    t_ops = gflop * 1e9 / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"rglru backward B={b} S={s} w={w}: kernel {ms:.4f} ms a call "
+          f"(events), {dev_ms:.4f} ms on the device ({how}: "
+          f"{_ms_list(names)}); plain backward {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {gb:.4f} GB at 3.35 TB/s; "
+          f"{gflop:.4f} GFLOP at 67 TFLOP/s take {t_ops:.4f}) -> "
+          f"{bound_ms / dev_ms * 100:.1f}% of the bound on the device, "
+          f"{bound_ms / ms * 100:.1f}% a call; no single PyTorch call "
+          "computes it (library_ms null)", flush=True)
+    print(f"  forward + backward: the two kernels {both_ms:.4f} ms a call "
+          f"(the forward {fwd_ms:.4f} ms on the device); autograd of the "
+          f"plain scan (the route training took before) {auto_ms:.4f} ms "
+          f"-> {auto_ms / both_ms:.1f}x", flush=True)
+    res.update(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+               bound_by=bound_by, forward_device_ms=fwd_ms,
+               kernel_fwd_bwd_ms=both_ms, autograd_plain_fwd_bwd_ms=auto_ms)
+    for key, c in _rglru_counters(rg_).items():
+        c.launches = counted[key]       # checks and timing not counted
+    del case, args, h, dh, flush
+    _check_freed(torch.cuda.memory_allocated())
+    return res
+
+
+# ---------------------------------------------------------------------------
 # routed MoE: the routed-expert kernel, olmoe-1b-7b
 # ---------------------------------------------------------------------------
 
@@ -4998,7 +5127,8 @@ def _leaf_sums(params) -> dict:
 
 
 def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
-                moe_active=1.0, mesh=None, mesh_fwd=None, prepare=None):
+                moe_active=1.0, mesh=None, mesh_fwd=None, prepare=None,
+                after=None):
     """Train ``cfg`` from a seeded init through ``make_train_step`` on
     ``batches`` (indices of ``batch_at``): every loss and gradient norm
     finite, the second step's loss (the first batch again) below the
@@ -5007,8 +5137,9 @@ def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
     timed on CUDA events.  With a ``mesh`` the state and the step are the
     mesh step's (DTensors; ``mesh_fwd`` maps the parameters to
     ``forward``'s mesh arguments for the split step; ``prepare``
-    changes the initialised parameters in place).  Returns the cell's
-    numbers."""
+    changes the initialised parameters in place; ``after(state, cfg,
+    batch)`` runs on the split step's batch before the state is freed and
+    returns numbers to add).  Returns the cell's numbers."""
     torch.cuda.reset_peak_memory_stats()
     state = TS.init_state(cfg, ocfg, seed=SEED, device=DEV, mesh=mesh)
     params = state["params"]
@@ -5083,6 +5214,8 @@ def _train_cell(TS, TO, data, name, cfg, ocfg, *, accum, batches,
                peak_bytes=torch.cuda.max_memory_allocated(),
                f32_share=flops / p50 / F32_FLOPS_PER_S)
     print(f"{name}: {out}", flush=True)
+    if after is not None:
+        out.update(after(state, cfg, batch))
     out["leaf_sums"] = sums
     held = torch.cuda.memory_allocated()
     del state, params, step
@@ -5151,6 +5284,110 @@ def phase_train_xlstm(C, TS, TO, data, ms_, ss_):
     return out
 
 
+# phase 50's AdamW state: float32 (weights, gradients, m and v: 4 x 10.87
+# GB = 43.5 GB of 80); the step's largest activations are the tied
+# 256000-entry vocabulary's logits, their log-sum-exp and their gradient
+# (4 x 256 x 256000 float32: 1.05 GB each)
+RGEMMA_TRAIN_STATE = "float32"
+
+
+def _rglru_route_ab(TS, TO, R, rg_, ocfg):
+    """``_train_cell``'s ``after`` for phase 50: the split step's forward +
+    backward timed on CUDA events with the RG-LRU through its kernels and
+    on the route before the backward kernel (``R.rglru_scan_grad``
+    swapped for ``rglru_scan_plain``, which autograd differentiates), in
+    turns (kernels, plain, plain, kernels); then what sets the peak: the
+    peak of a forward+backward, the memory its gradients hold, and the
+    peak of an optimizer update on them.  The launch counts are left as
+    they were before it."""
+    def run(state, cfg, batch):
+        params = state["params"]
+        counters = _rglru_counters(rg_)
+        counted = {k: c.launches for k, c in counters.items()}
+        times = {"kernels": [], "plain": []}
+        for route in ("kernels", "plain", "plain", "kernels"):
+            if route == "plain":
+                R.rglru_scan_grad = rg_.rglru_scan_plain
+            try:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda.synchronize()
+                ev[0].record()
+                grads, _ = TS._grads(params, cfg, batch, 1, False)
+                ev[1].record()
+                torch.cuda.synchronize()
+                del grads
+            finally:
+                R.rglru_scan_grad = rg_.rglru_scan_grad
+            times[route].append(ev[0].elapsed_time(ev[1]))
+        print(f"recurrentgemma-2b forward+backward in turns (kernels, "
+              f"plain, plain, kernels): RG-LRU kernels {times['kernels']} "
+              f"ms, autograd of the plain scan {times['plain']} ms",
+              flush=True)
+        gb = lambda fn: fn() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        mem = dict(state=gb(torch.cuda.memory_allocated))
+        grads, _ = TS._grads(params, cfg, batch, 1, False)
+        torch.cuda.synchronize()
+        mem.update(fwd_bwd_peak=gb(torch.cuda.max_memory_allocated),
+                   with_grads=gb(torch.cuda.memory_allocated))
+        torch.cuda.reset_peak_memory_stats()
+        TO.update(grads, state["opt"], params, ocfg)
+        torch.cuda.synchronize()
+        mem["optimizer_peak"] = gb(torch.cuda.max_memory_allocated)
+        del grads
+        for key, c in counters.items():
+            c.launches = counted[key]
+        print(f"recurrentgemma-2b memory, GB: {mem}", flush=True)
+        return dict(route_ab_fwd_bwd_ms=times, memory_gb=mem)
+    return run
+
+
+def phase_train_rgemma(C, TS, TO, data, rg_, R, rglru_bwd):
+    print("== phase 50: full-width, full-depth recurrentgemma-2b training "
+          f"(remat, {RGEMMA_TRAIN_STATE} AdamW state; the RG-LRU through its "
+          "forward and backward kernels)", flush=True)
+    counters = _rglru_counters(rg_)
+    for c in counters.values():
+        c.launches = 0
+    cfg = C.get("recurrentgemma-2b")
+    ocfg = TO.OptConfig(**FULL_OPT, state_dtype=RGEMMA_TRAIN_STATE)
+    out = _train_cell(TS, TO, data, "recurrentgemma-2b", cfg, ocfg, accum=1,
+                      batches=[0, 0, 1, 2, 3, 4],
+                      after=_rglru_route_ab(TS, TO, R, rg_, ocfg))
+    out.pop("leaf_sums")
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    print(f"recurrentgemma-2b: kernel launches over its 7 steps (6 and the "
+          f"timed one): {out['launches']}", flush=True)
+    if not all(out["launches"].values()):
+        _fail(f"recurrentgemma-2b training did not run both RG-LRU kernels: "
+              f"{out['launches']}")
+    # the RG-LRU's share of a step: its kernels' device time reckoned from
+    # phase 49's times and this run's launches a step (two forwards a
+    # layer under remat); the plain route's, that time plus what the
+    # forward+backward took longer on it (measured in turns)
+    layers = sum(rep * sum(k == "rglru" for k in pat)
+                 for pat, rep in cfg.segments)
+    steps = len(out["step_walls_s"]) + 1
+    fwd, bwd = (out["launches"][k] / steps for k in
+                ("rglru_scan", "rglru_scan_backward"))
+    rglru_ms = fwd * rglru_bwd["forward_device_ms"] + \
+        bwd * rglru_bwd["device_ms"]
+    step_ms = out["step_wall_p50_s"] * 1e3
+    ab = out["route_ab_fwd_bwd_ms"]
+    extra = float(np.mean(ab["plain"])) - float(np.mean(ab["kernels"]))
+    out.update(rglru_layers=layers, rglru_launches_per_step=[fwd, bwd],
+               rglru_ms_per_step=rglru_ms, rglru_share=rglru_ms / step_ms,
+               plain_route_extra_ms=extra,
+               plain_route_share=(rglru_ms + extra) / (step_ms + extra))
+    print(f"recurrentgemma-2b: {layers} RG-LRU layers, {fwd:g} forward and "
+          f"{bwd:g} backward launches a step: {rglru_ms:.3f} ms of a "
+          f"{step_ms:.1f} ms step ({out['rglru_share'] * 100:.2f}%, "
+          f"reckoned from phase 49's device times); the plain route's "
+          f"forward+backward {extra:.1f} ms longer (in turns), its RG-LRU "
+          f"share {out['plain_route_share'] * 100:.2f}%", flush=True)
+    return out
+
+
 def _params_on_card(mdl, params, cfg):
     """A copy of the CPU parameters ``params`` on the card."""
     card = mdl.Transformer(cfg, DEV)
@@ -5160,7 +5397,7 @@ def _params_on_card(mdl, params, cfg):
     return card
 
 
-def phase_train_parity(C, mdl, TS, TO, data, counters):
+def phase_train_parity(C, mdl, TS, TO, data, counters, expect):
     print("== phase 39: the train step on the card vs the CPU (every "
           "reduced architecture; int8 state on olmoe-1b-7b)", flush=True)
     out = {}
@@ -5180,10 +5417,11 @@ def phase_train_parity(C, mdl, TS, TO, data, counters):
         before = {k: c.launches for k, c in counters.items()}
         card, mg = step(card, batch)
         ran = {k: c.launches - before[k] for k, c in counters.items()}
-        # the xLSTM's recurrences through their kernels, forward and
-        # backward; no other config launches a recurrence kernel
-        if (not all(ran.values()) if name == "xlstm-1.3b"
-                else any(ran.values())):
+        # the recurrent configs' recurrences through their kernels, forward
+        # and backward (``expect``: the counters each config must move);
+        # no other counter moves
+        want = expect.get(name, ())
+        if any(bool(n) != (k in want) for k, n in ran.items()):
             _fail(f"{name}: recurrence kernel launches {ran}")
         lr = float(mc["lr"])
         loss_d = abs(float(mg["loss"]) - float(mc["loss"]))
@@ -5502,6 +5740,7 @@ def main() -> int:
     from repro_torch.kernels import slstm_scan as ss_
     from repro_torch.models import model as mdl
     from repro_torch.models import moe
+    from repro_torch.models import recurrent as R
     from repro_torch.obs import telemetry
     from repro_torch.serve import engine
     from repro_torch.serve import sched as S
@@ -5618,8 +5857,9 @@ def main() -> int:
     try:
         # training reaches no pallas_call in the reference: phases 37, 38,
         # 40 and 41 launch none of the hand-written kernels (the counts
-        # stay 0); only the xLSTM's recurrences have backward kernels of
-        # the port's own (phases 39 and 48 count them)
+        # stay 0); only the recurrences have backward kernels of the
+        # port's own (phase 39 counts them, 48 the xLSTM's, 50 the
+        # RG-LRU's)
         def none_launched(what):
             launched = {k: fn.launches for k, fn in
                         _wrappers(kernels).items()}
@@ -5633,8 +5873,11 @@ def main() -> int:
             "olmoe-1b-7b": timed("olmoe training", phase_train_olmoe, C, TS,
                                  TO, data)}
         none_launched("phases 37-38")
-        train["parity"] = timed("train parity", phase_train_parity, C, mdl,
-                                TS, TO, data, _counters(ms_, ss_))
+        train["parity"] = timed(
+            "train parity", phase_train_parity, C, mdl, TS, TO, data,
+            {**_counters(ms_, ss_), **_rglru_counters(rg_)},
+            {"xlstm-1.3b": set(_counters(ms_, ss_)),
+             "recurrentgemma-2b": set(_rglru_counters(rg_))})
         _reset_counts(kernels)
         train["drill"] = timed("restart drill", phase_restart_drill, src,
                                launch_train, supervisor)
@@ -5645,6 +5888,11 @@ def main() -> int:
         none_launched("phases 40-41")
         train["xlstm-1.3b"] = timed("xlstm training", phase_train_xlstm, C,
                                     TS, TO, data, ms_, ss_)
+        rglru_bwd = timed("rglru_scan_backward check and timing",
+                          phase_rglru_backward, rg_)
+        train["recurrentgemma-2b"] = timed(
+            "recurrentgemma training", phase_train_rgemma, C, TS, TO, data,
+            rg_, R, rglru_bwd)
         dry = timed("dry-run", phase_dryrun, dryrun_proc, D, card,
                     train["mesh"])
     finally:
@@ -5662,7 +5910,8 @@ def main() -> int:
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
           f"{xlstm}; mlstm_scan {mlstm}; slstm_scan {slstm}; backward "
           f"kernels {bwd}; rglru_scan "
-          f"{rglru}; olmoe {olmoe}; musicgen "
+          f"{rglru}; rglru_scan_backward {rglru_bwd}; olmoe {olmoe}; "
+          f"musicgen "
           f"{musicgen}; nemotron "
           f"{nemotron}; paligemma {paligemma}; training {train}; batcher "
           f"options {options}; dry-run {dry}; flash "
@@ -5800,7 +6049,12 @@ def main() -> int:
              also={"recurrentgemma-2b decode B=4 S=1 (phase 46)":
                    rglru["decode"],
                    "recurrentgemma-2b eager route (phase 18)": dict(
-                       launches=rgemma["eager"]["rglru_launches"])}),
+                       launches=rgemma["eager"]["rglru_launches"]),
+                   "recurrentgemma-2b training B=4 S=256 (phase 50; 2 a "
+                   "RG-LRU layer and step under remat)": dict(
+                       launches=train["recurrentgemma-2b"]["launches"][
+                           "rglru_scan"],
+                       device_ms=rglru_bwd["forward_device_ms"])}),
         dict(name="mlstm_scan_backward", route="cuda",
              source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
              replaces="src/repro/models/recurrent.py:140",
@@ -5828,7 +6082,22 @@ def main() -> int:
              "launches: phase 48's 7 steps, 1 a layer and step; "
              "max_abs_err: the largest gradient distance from the float64 "
              "plain run; kernel_device_ms and us_per_position: the kernel "
-             "alone, beside the forward's on the same inputs)")]}),
+             "alone, beside the forward's on the same inputs)"),
+        dict(name="rglru_scan_backward", route="cuda",
+             source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+             replaces="src/repro/models/recurrent.py:326",
+             note="no Pallas kernel: jax.grad of rglru_apply's "
+             "lax.associative_scan (:326) over _rglru_gates (:296-306); one "
+             "pass, the forward's turned round, dlam's partials reduced in "
+             "a fixed order by the last tile of a strip",
+             launches=train["recurrentgemma-2b"]["launches"][
+                 "rglru_scan_backward"],
+             **{k: v for k, v in rglru_bwd.items()
+                if k != "max_share_of_bar"},
+             shape=f"recurrentgemma-2b training: B={TRAIN_BATCH}, "
+             f"S={TRAIN_SEQ}, w={RGLRU_W} (phases 49, 50; launches: phase "
+             "50's 7 steps, 1 a RG-LRU layer and step; max_abs_err: the "
+             "largest gradient distance from the float64 plain run)")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,24 @@
 // each tile's serial tail after it (the scans, and the carry's rounds of
 // L2 loads), and the 2.07 waves that B = 1, S = 2600 makes: the last
 // tiles run almost alone.
+//
+// The backward (rglru_scan_bwd_launch; rglru_scan.py's module docstring):
+// no kernel stands behind it either -- the reference trains through
+// jax.grad of the associative scan.  With u_t = a_t g_t, the gradient
+// g_t = dh_t + u_{t+1} runs in reverse, and every gradient is g_t times a
+// factor of the position's gates, inputs and h_{t-1} (grad_factors, on
+// the forward's gate_parts), so one pass computes them all: S <= kChunk
+// rglru_bwd_short_kernel (a thread a (row, channel), the positions in
+// reverse); S > kChunk rglru_bwd_kernel, the one pass above turned round
+// (tiles taken in reverse chunk order, (prod a, local u) published for
+// the earlier chunks, the carry folded from the last chunk down).  dlam
+// sums over rows and positions: each tile writes its channels' partial,
+// and the last tile of a strip to arrive (a tagged counter) sums the
+// strip's partials in (row, chunk) order -- no float atomics, the same
+// bits every call.  Bound: bytes, ra, ia, xc, h and dh read and dra, dia
+// and dxc written once (8 x 10.49 MB at B = 4, S = 256, w = 2560: 25 us
+// at 3.35 TB/s).  The tile keeps six arrays in shared memory (96 KB: two
+// blocks an SM), the first form; PERF.md has its time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,6 +92,12 @@ struct Gates {
   float a, b;
 };
 
+// a position's gate values: sigmoid(ra), sigmoid(ia), exp(2 log a), beta
+// and a
+struct GateParts {
+  float rg, ig, e2, beta, a;
+};
+
 // -8 softplus(lam), as F.softplus (threshold 20) and the plain version's
 // product order
 __device__ __forceinline__ float neg_c_softplus(float lam) {
@@ -81,14 +105,20 @@ __device__ __forceinline__ float neg_c_softplus(float lam) {
   return __fmul_rn(-8.f, sp);
 }
 
-__device__ __forceinline__ Gates gates(float ra, float ia, float xc,
-                                       float ncs) {
+__device__ __forceinline__ GateParts gate_parts(float ra, float ia,
+                                               float ncs) {
   const float rg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-ra)));
   const float ig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-ia)));
   const float log_a = __fmul_rn(ncs, rg);
-  const float beta =
-      sqrtf(fmaxf(__fsub_rn(1.f, expf(__fmul_rn(2.f, log_a))), 1e-6f));
-  return {expf(log_a), __fmul_rn(beta, __fmul_rn(ig, xc))};
+  const float e2 = expf(__fmul_rn(2.f, log_a));
+  const float beta = sqrtf(fmaxf(__fsub_rn(1.f, e2), 1e-6f));
+  return {rg, ig, e2, beta, expf(log_a)};
+}
+
+__device__ __forceinline__ Gates gates(float ra, float ia, float xc,
+                                       float ncs) {
+  const GateParts q = gate_parts(ra, ia, ncs);
+  return {q.a, __fmul_rn(q.beta, __fmul_rn(q.ig, xc))};
 }
 
 // a published word: the value in the low half, the call's tag in the high
@@ -296,6 +326,294 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// ---------------------------------------------------------------------------
+// the backward
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdArrays = 6;                // a, dh, kr, ki, kx, kl
+constexpr int kBwdSmem = kBwdArrays * kChunk * kStrip * sizeof(float);
+constexpr int kBwdBlocksPerSm = 232448 / (kBwdSmem + 1024);
+
+// what g_t multiplies at a position (rglru_scan.py, ``_grad_factors``): a,
+// and the factors of dra, dia, dxc and dlam's summand
+struct GradFactors {
+  float a, kr, ki, kx, kl;
+};
+
+__device__ __forceinline__ GradFactors grad_factors(float ra, float ia,
+                                                    float xc, float hp,
+                                                    float ncs) {
+  const GateParts q = gate_parts(ra, ia, ncs);
+  const float gx = __fmul_rn(q.ig, xc);
+  // d log a per unit of g: through a, and through beta where the clamp
+  // passes it (its tie included, as torch.clamp_min's gradient)
+  const float via_beta = __fsub_rn(1.f, q.e2) >= 1e-6f
+                             ? __fdiv_rn(__fmul_rn(gx, q.e2), q.beta)
+                             : 0.f;
+  const float k1 = __fsub_rn(__fmul_rn(q.a, hp), via_beta);
+  const float kl = __fmul_rn(k1, q.rg);
+  const float kx = __fmul_rn(q.beta, q.ig);
+  return {q.a, __fmul_rn(__fmul_rn(kl, ncs), __fsub_rn(1.f, q.rg)),
+          __fmul_rn(__fmul_rn(kx, xc), __fsub_rn(1.f, q.ig)), kx, kl};
+}
+
+// The block's ticket and this call's tag (thread 0): the forward's scheme.
+// The last block to take a ticket resets the ticket and advances the epoch
+// for the next launch on the stream.
+__device__ __forceinline__ void take_ticket(unsigned* ctrl, unsigned blocks,
+                                            unsigned* tile, unsigned* tag) {
+  const unsigned t = atomicAdd(&ctrl[0], 1u);
+  const unsigned epoch = *reinterpret_cast<volatile unsigned*>(&ctrl[2]);
+  __threadfence();
+  if (atomicAdd(&ctrl[1], 1u) == blocks - 1) {
+    __threadfence();
+    ctrl[0] = 0;
+    ctrl[1] = 0;
+    ctrl[2] = epoch + 1;
+  }
+  *tile = t;
+  *tag = 2u * epoch + 1u;
+}
+
+// One arrival at a strip's counter, a tagged 64-bit word (tag, count): a
+// word of an earlier call (or of the scratch's other layout) carries
+// another tag and counts as 0.  True for the n-th arrival of this call.
+__device__ __forceinline__ bool last_arrival(unsigned long long* ctr,
+                                             unsigned tag, unsigned n) {
+  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(
+      ctr);
+  while (true) {
+    const unsigned cnt =
+        static_cast<unsigned>(old >> 32) == tag
+            ? static_cast<unsigned>(old) + 1u
+            : 1u;
+    const unsigned long long prev =
+        atomicCAS(ctr, old, (static_cast<unsigned long long>(tag) << 32) |
+                                cnt);
+    if (prev == old) return cnt == n;
+    old = prev;
+  }
+}
+
+// dlam of channel c: its n partials (row-major over (row, chunk)) summed
+// in order, times -8 softplus'(lam) (1 above softplus's threshold)
+__device__ __forceinline__ void reduce_dlam(const float* __restrict__ lam,
+                                            const float* parts, float* dlam,
+                                            int n, int w, int c) {
+  float sum = 0.f;
+#pragma unroll 8
+  for (int p = 0; p < n; ++p)
+    sum = __fadd_rn(sum, __ldcg(parts + static_cast<size_t>(p) * w + c));
+  const float l = lam[c];
+  const float dsp = l > 20.f ? 1.f : __fdiv_rn(1.f, __fadd_rn(1.f, expf(-l)));
+  dlam[c] = __fmul_rn(__fmul_rn(-8.f, dsp), sum);
+}
+
+// S <= kChunk: a thread a (row, channel) runs the positions in reverse from
+// g = 0, a block a (row, strip).  The last block of a strip sums its B
+// partials of dlam.
+__global__ void __launch_bounds__(kStrip)
+rglru_bwd_short_kernel(const float* __restrict__ ra,
+                       const float* __restrict__ ia,
+                       const float* __restrict__ xc,
+                       const float* __restrict__ lam,
+                       const float* __restrict__ h0,
+                       const float* __restrict__ hs,
+                       const float* __restrict__ dhs, float* __restrict__ dra,
+                       float* __restrict__ dia, float* __restrict__ dxc,
+                       float* __restrict__ dlam, float* __restrict__ dh0,
+                       unsigned* __restrict__ ctrl,
+                       unsigned long long* __restrict__ ctrs,
+                       float* __restrict__ parts, int seq, int w) {
+  __shared__ unsigned s_tile, s_tag;
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  if (tid == 0) take_ticket(ctrl, gridDim.x * gridDim.y, &s_tile, &s_tag);
+  __syncthreads();
+  const int b = blockIdx.y;
+  const int c = blockIdx.x * kStrip + tid;
+  if (c < w) {
+    const float ncs = neg_c_softplus(lam[c]);
+    const size_t base = static_cast<size_t>(b) * seq * w + c;
+    float u = 0.f, acc = 0.f;
+    for (int t = seq - 1; t >= 0; --t) {
+      const size_t at = base + static_cast<size_t>(t) * w;
+      const float hp = t > 0 ? hs[at - w] : h0[static_cast<size_t>(b) * w + c];
+      const GradFactors f = grad_factors(ra[at], ia[at], xc[at], hp, ncs);
+      const float g = __fadd_rn(dhs[at], u);
+      dra[at] = __fmul_rn(g, f.kr);
+      dia[at] = __fmul_rn(g, f.ki);
+      dxc[at] = __fmul_rn(g, f.kx);
+      acc = __fadd_rn(acc, __fmul_rn(g, f.kl));
+      u = __fmul_rn(f.a, g);
+    }
+    parts[static_cast<size_t>(b) * w + c] = acc;
+    dh0[static_cast<size_t>(b) * w + c] = u;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) s_last = last_arrival(ctrs + blockIdx.x, s_tag, gridDim.y);
+  __syncthreads();
+  if (s_last) {
+    __threadfence();
+    if (c < w) reduce_dlam(lam, parts, dlam, gridDim.y, w, c);
+  }
+}
+
+// S > kChunk: the forward's one pass turned round.  A block of 128 threads
+// a tile (row, kStrip channels, chunk), from the ticket in reverse chunk
+// order:
+//   1. the tile's factors (a, kr, ki, kx, kl) and dh into shared memory
+//      (96 KB: two blocks an SM), ra, ia, xc, dh and h_{t-1} read once;
+//   2. warps 0-1, a thread a channel: the chunk's (prod a, local u) from
+//      u = 0 in reverse (u_t = a_t g_t, g_t = dh_t + u_{t+1}), published
+//      for the earlier chunks as two tagged words (chunk 0's is never
+//      read);
+//   3. warps 2-3 meanwhile: the carry into the chunk, from u = 0 through
+//      the pairs of every later chunk from the last, each polled through
+//      L2 until its tag is this call's; then the chunk in reverse from it,
+//      writing dra, dia, dxc, dlam's partial and, in chunk 0, dh0 = u_0.
+// The last tile of a strip sums the strip's B x chunks partials in order.
+template <int V>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+rglru_bwd_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
+                 const float* __restrict__ xc, const float* __restrict__ lam,
+                 const float* __restrict__ h0, const float* __restrict__ hs,
+                 const float* __restrict__ dhs, float* __restrict__ dra,
+                 float* __restrict__ dia, float* __restrict__ dxc,
+                 float* __restrict__ dlam, float* __restrict__ dh0,
+                 unsigned* __restrict__ ctrl,
+                 unsigned long long* __restrict__ words,
+                 unsigned long long* __restrict__ ctrs,
+                 float* __restrict__ parts, int batch, int seq, int w) {
+  extern __shared__ float smem[];
+  constexpr int kTile = kChunk * kStrip;
+  float* s_a = smem;
+  float* s_dh = smem + kTile;
+  float* s_kr = smem + 2 * kTile;
+  float* s_ki = smem + 3 * kTile;
+  float* s_kx = smem + 4 * kTile;
+  float* s_kl = smem + 5 * kTile;
+  __shared__ unsigned s_tile, s_tag;
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  if (tid == 0) take_ticket(ctrl, gridDim.x, &s_tile, &s_tag);
+  __syncthreads();
+  const int strips = (w + kStrip - 1) / kStrip;
+  const int chunks = (seq + kChunk - 1) / kChunk;
+  const int per_chunk = batch * strips;
+  const int tile = static_cast<int>(s_tile);
+  const unsigned tag = s_tag;
+  const int k = tile / per_chunk;
+  const int chunk = chunks - 1 - k;
+  const int b = (tile - k * per_chunk) / strips;
+  const int strip = tile - k * per_chunk - b * strips;
+  const int c0 = strip * kStrip;
+  const int t0 = chunk * kChunk;
+  const int len = min(kChunk, seq - t0);
+  const size_t row0 = (static_cast<size_t>(b) * seq + t0) * w;
+
+  // 1. the tile's factors, once
+  constexpr int kCols = kStrip / V;
+  constexpr int kRows = kThreads / kCols;
+  const int col = tid % kCols;
+  const int ch = c0 + col * V;
+  if (ch < w) {
+    float ncs[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) ncs[v] = neg_c_softplus(lam[ch + v]);
+    for (int t = tid / kCols; t < len; t += kRows) {
+      const size_t at = row0 + static_cast<size_t>(t) * w + ch;
+      float r[V], i[V], x[V], d[V], hp[V];
+      load_inputs<V>(ra, ia, xc, at, r, i, x);
+      load_vec<V>(dhs + at, d);
+      load_vec<V>(t0 + t > 0 ? hs + at - w
+                             : h0 + static_cast<size_t>(b) * w + ch,
+                  hp);
+      float a[V], kr[V], ki[V], kx[V], kl[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const GradFactors f = grad_factors(r[v], i[v], x[v], hp[v], ncs[v]);
+        a[v] = f.a, kr[v] = f.kr, ki[v] = f.ki, kx[v] = f.kx, kl[v] = f.kl;
+      }
+      const int at_s = t * kStrip + col * V;
+      store_vec<V>(s_a + at_s, a);
+      store_vec<V>(s_dh + at_s, d);
+      store_vec<V>(s_kr + at_s, kr);
+      store_vec<V>(s_ki + at_s, ki);
+      store_vec<V>(s_kx + at_s, kx);
+      store_vec<V>(s_kl + at_s, kl);
+    }
+  }
+  __syncthreads();
+
+  const int lane = tid % kStrip;
+  const int c = c0 + lane;
+  // chunk j's pair (j >= 1) of this (row, channel)
+  unsigned long long* col_words =
+      words + 2 * (static_cast<size_t>(b) * (chunks - 1) * w + c);
+  const size_t chunk_words = 2 * static_cast<size_t>(w);
+  if (c < w && tid < kStrip) {
+    // 2. the chunk's (prod a, local u) from u = 0
+    if (chunk > 0) {
+      float prod = 1.f, u = 0.f;
+#pragma unroll 16
+      for (int t = len - 1; t >= 0; --t) {
+        const float a = s_a[t * kStrip + lane];
+        u = __fmul_rn(a, __fadd_rn(s_dh[t * kStrip + lane], u));
+        prod = __fmul_rn(prod, a);
+      }
+      store_pair(col_words + (chunk - 1) * chunk_words, tagged(prod, tag),
+                 tagged(u, tag));
+    }
+  } else if (c < w) {
+    // 3. the carry from every later chunk, the last first, then the chunk
+    float u = 0.f;
+    for (int j0 = chunks - 1; j0 > chunk; j0 -= kBatch) {
+      ulonglong2 p[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q)
+        if (j0 - q > chunk)
+          p[q] = load_pair(col_words + (j0 - q - 1) * chunk_words);
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        if (j0 - q > chunk) {
+          while (!ready(p[q], tag))
+            p[q] = load_pair(col_words + (j0 - q - 1) * chunk_words);
+          u = __fadd_rn(
+              __fmul_rn(__uint_as_float(static_cast<unsigned>(p[q].x)), u),
+              __uint_as_float(static_cast<unsigned>(p[q].y)));
+        }
+      }
+    }
+    float acc = 0.f;
+#pragma unroll 4
+    for (int t = len - 1; t >= 0; --t) {
+      const int at_s = t * kStrip + lane;
+      const size_t at = row0 + static_cast<size_t>(t) * w + c;
+      const float g = __fadd_rn(s_dh[at_s], u);
+      dra[at] = __fmul_rn(g, s_kr[at_s]);
+      dia[at] = __fmul_rn(g, s_ki[at_s]);
+      dxc[at] = __fmul_rn(g, s_kx[at_s]);
+      acc = __fadd_rn(acc, __fmul_rn(g, s_kl[at_s]));
+      u = __fmul_rn(s_a[at_s], g);
+    }
+    parts[(static_cast<size_t>(b) * chunks + chunk) * w + c] = acc;
+    if (chunk == 0) dh0[static_cast<size_t>(b) * w + c] = u;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    s_last = last_arrival(ctrs + strip, tag,
+                          static_cast<unsigned>(batch * chunks));
+  __syncthreads();
+  if (s_last) {
+    __threadfence();
+    if (tid < kStrip && c < w) reduce_dlam(lam, parts, dlam, batch * chunks,
+                                           w, c);
+  }
+}
+
 }  // namespace
 
 // ra, ia, xc f32 [B, S, w]; lam f32 [w]; h0 f32 [B, w]; hs f32 [B, S, w];
@@ -340,5 +658,52 @@ extern "C" int rglru_scan_launch(const void* ra, const void* ia,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(tiles), kThreads, kSmem, stream>>>(
       ra_, ia_, xc_, lam_, h0_, hs_, ctrl, words, batch, seq, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// The backward.  ra, ia, xc, h (the forward's output) and dh f32
+// [B, S, w]; lam f32 [w]; h0 f32 [B, w]; dra, dia, dxc f32 [B, S, w],
+// dlam f32 [w] and dh0 f32 [B, w] written.  scratch: 16 bytes of control
+// words, a pair of tagged 64-bit words a (row, chunk but the first,
+// channel), then a tagged 64-bit counter a strip of 64 channels: 4 +
+// 4 B (ceil(S / 64) - 1) w + 2 ceil(w / 64) floats, zeroed when allocated
+// and kept between calls on one stream; parts: B ceil(S / 64) w floats,
+// dlam's per-tile partials.  Returns the launch's CUDA error, or 0.
+extern "C" int rglru_scan_bwd_launch(
+    const void* ra, const void* ia, const void* xc, const void* lam,
+    const void* h0, const void* hs, const void* dhs, void* dra, void* dia,
+    void* dxc, void* dlam, void* dh0, void* scratch, void* parts, int batch,
+    int seq, int w, void* stream_ptr) {
+  if (batch <= 0 || seq <= 0 || w <= 0 || scratch == nullptr ||
+      parts == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (seq + kChunk - 1) / kChunk;
+  const int strips = (w + kStrip - 1) / kStrip;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  auto* ctrl = static_cast<unsigned*>(scratch);
+  auto* words = reinterpret_cast<unsigned long long*>(ctrl + 4);
+  auto* ctrs = words + 2 * static_cast<size_t>(batch) * (chunks - 1) * w;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  if (chunks == 1) {
+    if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    rglru_bwd_short_kernel<<<dim3(strips, batch), kStrip, 0, stream>>>(
+        f(ra), f(ia), f(xc), f(lam), f(h0), f(hs), f(dhs), o(dra), o(dia),
+        o(dxc), o(dlam), o(dh0), ctrl, ctrs, o(parts), seq, w);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long tiles = static_cast<long long>(batch) * strips * chunks;
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = w % 4 == 0 && aligned16(ra) && aligned16(ia) &&
+                   aligned16(xc) && aligned16(hs) && aligned16(dhs) &&
+                   aligned16(h0);
+  auto kernel = vec ? rglru_bwd_kernel<4> : rglru_bwd_kernel<1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(tiles), kThreads, kBwdSmem, stream>>>(
+      f(ra), f(ia), f(xc), f(lam), f(h0), f(hs), f(dhs), o(dra), o(dia),
+      o(dxc), o(dlam), o(dh0), ctrl, words, ctrs, o(parts), batch, seq, w);
   return static_cast<int>(cudaGetLastError());
 }

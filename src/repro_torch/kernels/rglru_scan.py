@@ -55,6 +55,44 @@ the square root halves it): with da_t and db_t those moves, the
 deviations they cause obey P_t = (a_t + da_t) P_{t-1} + da_t |h_{t-1}| +
 db_t, and the bound is their sum plus 4 u |h_t|.  Since every a_t < 1, M,
 T and P do not grow with S: the error does not either.
+
+The backward (training).  With g_t the gradient of the loss in h_t
+through every later position, g_t = dh_t + a_{t+1} g_{t+1} (g_S = 0), and
+log a = ncs sigmoid(ra) (ncs = -8 softplus(lam)), 1 - a^2 = 1 -
+exp(2 log a), beta = sqrt(max(1 - a^2, 1e-6)), b = beta sigmoid(ia) xc:
+
+  db_t = g_t,  da_t = g_t h_{t-1} (h_{-1} = h0),  dh0 = a_0 g_0,
+  d log a_t = a_t da_t + db_t (sigmoid(ia) xc) (-a^2 / beta), the second
+      term only where 1 - a^2 >= 1e-6 (at the tie the gradient goes
+      through 1 - a^2, as ``torch.clamp_min``'s does; ``jnp.maximum``,
+      the reference's, splits a tie in halves),
+  dra = d log a ncs sigmoid'(ra),  dia = db beta xc sigmoid'(ia),
+  dxc = db beta sigmoid(ia),
+  dlam = sum over rows and positions of d log a sigmoid(ra) times -8
+      softplus'(lam) (1 above softplus's threshold of 20).
+
+Each is g_t times a factor of the position's inputs and h_{t-1}
+(``_grad_factors``: kr, ki, kx and kl, dlam's summand).
+``rglru_backward_plain`` recomputes the gates, runs the reverse
+recurrence as ``linear_scan`` over the flipped sequence and forms the
+factors; ``rglru_scan_backward`` launches the hand-written backward in
+``csrc/rglru_scan.cu`` on a card (one launch a call, counted in
+``rglru_scan_backward.launches``: the forward's one-pass design turned
+round, a tile publishing its chunk's (prod a, local u) for the earlier
+chunks; dlam per-tile partials reduced in a fixed order by the last tile
+of each strip of channels).  ``RglruScanFunction`` (``rglru_scan_grad``)
+is the recurrence under autograd: ``rglru_scan`` forward, saving its
+inputs and h (the backward recomputes the gates), the backward through
+``rglru_scan_backward``; it gives all five inputs their gradients.
+
+The backward's bar (``grad_tolerance``, ``grad_check``):
+``mlstm_scan.grad_check``'s, as the sLSTM's -- each gradient's largest
+distance from float64's at most ``GRAD_MULT`` times the largest distance
+of float32 autograd of ``rglru_scan_plain`` (the route training took
+before the backward kernel) from the same float64 gradients.  Both the
+kernel's order and the log-depth scan's sit at 1-2.4 times that distance
+over the shapes of ``tests/test_torch_rglru_grad.py``: the gates' and
+h's float32 rounding, common to every order, set it.
 """
 from __future__ import annotations
 
@@ -64,10 +102,13 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, mlstm_scan
 
-__all__ = ["CHUNK", "RGLRU_C", "STRIP", "h_tolerance", "launch_plan",
-           "linear_scan", "rglru_gates", "rglru_scan", "rglru_scan_plain"]
+__all__ = ["CHUNK", "GRAD_MULT", "GRAD_NAMES", "RGLRU_C", "STRIP",
+           "RglruScanFunction", "backward_plan", "grad_check",
+           "grad_tolerance", "h_tolerance", "launch_plan", "linear_scan",
+           "rglru_backward_plain", "rglru_gates", "rglru_scan",
+           "rglru_scan_backward", "rglru_scan_grad", "rglru_scan_plain"]
 
 NAME = "rglru_scan"
 NVCC_FLAGS = _build.BASE_FLAGS
@@ -79,8 +120,16 @@ CHUNK = 64
 STRIP = 64
 #: the scratch's control words (ticket, blocks that took one, epoch, pad)
 _CTRL = 4
+#: the backward's gradients, in the order it returns them
+GRAD_NAMES = ("ra", "ia", "xc", "lam", "h0")
+#: the backward's bar: this many times float32 autograd's own distance
+GRAD_MULT = mlstm_scan.GRAD_MULT
 _lib = None
 _SCRATCH: dict = {}
+# the backward's: the control words, tagged pairs and strip counters
+# (zeroed), and dlam's per-tile partials (overwritten each call)
+_BWD_SCRATCH: dict = {}
+_BWD_PARTS: dict = {}
 
 
 def _load():
@@ -91,17 +140,30 @@ def _load():
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        bwd = lib.rglru_scan_bwd_launch
+        bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _gate_parts(ra, ia, lam):
+    """sigmoid(ra), sigmoid(ia), -8 softplus(lam), exp(2 log a), beta and a
+    of each position (the forward's gates, and the backward's factors)."""
+    rg, ig = torch.sigmoid(ra), torch.sigmoid(ia)
+    ncs = -RGLRU_C * F.softplus(lam)
+    log_a = ncs * rg
+    e2 = torch.exp(2.0 * log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - e2, 1e-6))
+    return rg, ig, ncs, e2, beta, torch.exp(log_a)
 
 
 def rglru_gates(ra, ia, xc, lam):
     """a and the gated input b of each position [..., w] from the gate
     products before their sigmoid."""
-    rg, ig = torch.sigmoid(ra), torch.sigmoid(ia)
-    log_a = -RGLRU_C * F.softplus(lam) * rg
-    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
-    return torch.exp(log_a), beta * (ig * xc)
+    _, ig, _, _, beta, a = _gate_parts(ra, ia, lam)
+    return a, beta * (ig * xc)
 
 
 def linear_scan(a, b):
@@ -236,3 +298,172 @@ def h_tolerance(ra, ia, xc, lam, h0):
     tri = linear_scan(a, mag)
     adds = -(-s // CHUNK) + math.ceil(math.log2(max(s, 1))) + 3
     return p + 1.01 * u * (3 * tri + adds * mag) + 4 * u * h.abs()
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+
+def _grad_factors(ra, ia, xc, lam, h0, h):
+    """a [B, S, w], the factors kr, ki, kx, kl [B, S, w] that g_t
+    multiplies into dra, dia, dxc and dlam's summand (the module
+    docstring's backward), and -8 softplus'(lam) [w], in the CUDA
+    kernel's order of operations."""
+    rg, ig, ncs, e2, beta, a = _gate_parts(ra, ia, lam)
+    one_m = 1.0 - e2
+    gx = ig * xc
+    h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+    # d log a per unit of g: through a, and through beta where the clamp
+    # passes it (its tie included)
+    k1 = a * h_prev - torch.where(one_m >= 1e-6, gx * e2 / beta,
+                                  torch.zeros_like(a))
+    kl = k1 * rg
+    kr = (kl * ncs) * (1.0 - rg)
+    kx = beta * ig
+    ki = (kx * xc) * (1.0 - ig)
+    dsp = torch.where(lam > 20.0, torch.ones_like(lam), torch.sigmoid(lam))
+    return a, kr, ki, kx, kl, -RGLRU_C * dsp
+
+
+def rglru_backward_plain(ra, ia, xc, lam, h0, h, dh):
+    """Plain PyTorch version of the backward kernel: (dra, dia, dxc
+    [B, S, w], dlam [w], dh0 [B, w]) from the forward's inputs, its h
+    and the gradient dh [B, S, w] of h (the module docstring's
+    backward), in the inputs' dtype.  The gates are recomputed; g_t =
+    dh_t + a_{t+1} g_{t+1} runs as ``linear_scan`` over the flipped
+    sequence."""
+    a, kr, ki, kx, kl, dsp = _grad_factors(ra, ia, xc, lam, h0, h)
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    g = linear_scan(a_next.flip(1), dh.flip(1)).flip(1)
+    return (g * kr, g * ki, g * kx, dsp * (g * kl).sum((0, 1)),
+            a[:, 0] * g[:, 0])
+
+
+def _autograd_plain(args, dh):
+    """The five gradients by autograd of ``rglru_scan_plain``."""
+    x = [t.detach().clone().requires_grad_() for t in args]
+    rglru_scan_plain(*x).backward(dh)
+    return tuple(t.grad for t in x)
+
+
+def grad_tolerance(ra, ia, xc, lam, h0, dh) -> dict:
+    """{name: (float64 gradient, bar)} of the five gradients (the module
+    docstring's bar): ``rglru_backward_plain`` on the inputs and dh in
+    float64 (h from the float64 forward), and each one's bar, ``GRAD_MULT``
+    times float32 autograd of ``rglru_scan_plain``'s largest distance from
+    it, at least one float32 ulp of its largest element."""
+    args = (ra, ia, xc, lam, h0)
+    a64 = [t.double() for t in args]
+    want = rglru_backward_plain(*a64, rglru_scan_plain(*a64), dh.double())
+    own = _autograd_plain(args, dh)
+    chk = mlstm_scan.grad_check(own, own, want, names=GRAD_NAMES,
+                                mult=GRAD_MULT)
+    return {name: (w, chk[name][1]) for name, w in zip(GRAD_NAMES, want)}
+
+
+def grad_check(got, ra, ia, xc, lam, h0, dh) -> dict:
+    """{name: (distance, bar)} of the gradients ``got`` (dra, dia, dxc,
+    dlam, dh0) against ``grad_tolerance``'s; a gradient passes where
+    distance <= bar."""
+    tol = grad_tolerance(ra, ia, xc, lam, h0, dh)
+    return {name: (float((g.double() - w.to(g.device)).abs().max()), bar)
+            for g, (name, (w, bar)) in zip(got, tol.items())}
+
+
+def backward_plan(b: int, s: int, w: int) -> dict:
+    """What the backward's wrapper computes on the host at [B, S, w]:
+    ``chunks`` of ``CHUNK`` positions; ``blocks``, the launch's blocks,
+    each of which takes a ticket (S <= ``CHUNK``: a block a (row, strip of
+    ``STRIP`` channels); above, a tile a (row, strip, chunk)); ``words``,
+    the tagged 64-bit words: a (prod a, local g) pair a (row, chunk but the
+    first, channel), then a counter a strip; ``scratch``, the zeroed
+    float32 scratch: the four control words, then the words; ``partials``,
+    the float32 elements of dlam's per-tile partials, one a (row, chunk,
+    channel).  Raises where the blocks would pass the grid's limits."""
+    chunks = -(-s // CHUNK)
+    strips = -(-w // STRIP)
+    blocks = b * strips * chunks
+    if chunks > 1 and blocks >= 2 ** 31:
+        raise ValueError(f"the rglru_scan backward takes fewer than 2^31 "
+                         f"tiles of ({STRIP} channels, {CHUNK} positions) "
+                         f"(got {blocks})")
+    if chunks <= 1 and b > 65535:
+        raise ValueError(f"the rglru_scan backward takes at most 65535 rows "
+                         f"at S <= {CHUNK} (got {b})")
+    words = 2 * b * (chunks - 1) * w + strips
+    return dict(chunks=chunks, blocks=blocks, words=words,
+                scratch=_CTRL + 2 * words, partials=b * chunks * w)
+
+
+def rglru_scan_backward(ra, ia, xc, lam, h0, h, dh):
+    """(dra, dia, dxc, dlam, dh0) of the recurrence (the module
+    docstring's backward) from its inputs, its output h and dh.  CPU
+    tensors take ``rglru_backward_plain``; CUDA tensors launch the
+    backward kernel (one launch, counted in
+    ``rglru_scan_backward.launches``) or raise."""
+    if ra.device.type == "cpu":
+        return rglru_backward_plain(ra, ia, xc, lam, h0, h, dh)
+    if ra.device.type != "cuda":
+        raise ValueError(f"the rglru_scan backward runs on cpu or cuda, not "
+                         f"{ra.device}")
+    _check(ra, ia, xc, lam, h0)
+    dh = dh.contiguous()
+    if any(t.dtype != torch.float32 or t.device != ra.device
+           or t.shape != ra.shape or not t.is_contiguous() for t in (h, dh)):
+        raise ValueError("the rglru_scan backward takes contiguous float32 "
+                         "h and dh [B, S, w] on the inputs' device")
+    b, s, w = ra.shape
+    dra, dia, dxc = (torch.empty_like(ra) for _ in range(3))
+    dlam, dh0 = torch.empty_like(lam), torch.empty_like(h0)
+    if b == 0 or w == 0:
+        return dra, dia, dxc, dlam.zero_(), dh0
+    plan = backward_plan(b, s, w)
+    # zeroed when allocated; the kernel leaves it ready for the next call
+    scratch = _build.scratch(_BWD_SCRATCH, plan["scratch"], ra.device,
+                             zero=True)
+    parts = _build.scratch(_BWD_PARTS, plan["partials"], ra.device)
+    err = _load().rglru_scan_bwd_launch(
+        ra.data_ptr(), ia.data_ptr(), xc.data_ptr(), lam.data_ptr(),
+        h0.data_ptr(), h.data_ptr(), dh.data_ptr(), dra.data_ptr(),
+        dia.data_ptr(), dxc.data_ptr(), dlam.data_ptr(), dh0.data_ptr(),
+        scratch.data_ptr(), parts.data_ptr(), b, s, w,
+        torch.cuda.current_stream(ra.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan backward launch failed: CUDA error "
+                           f"{err}")
+    _build.count_launch(rglru_scan_backward)
+    return dra, dia, dxc, dlam, dh0
+
+
+rglru_scan_backward.launches = 0
+rglru_scan_backward.captured = 0
+
+
+class RglruScanFunction(torch.autograd.Function):
+    """The recurrence under autograd: (ra, ia, xc, lam, h0) -> h
+    [B, S, w].  The forward is ``rglru_scan`` (the kernel on a card, the
+    plain version on the CPU), saving its five inputs and h; the backward
+    is ``rglru_scan_backward``, which recomputes the gates and gives every
+    input its gradient, h0's included."""
+
+    @staticmethod
+    def forward(ctx, ra, ia, xc, lam, h0):
+        ts = (ra, ia, xc, lam, h0)
+        if any(t.dtype != torch.float32 for t in ts):
+            raise TypeError("the RG-LRU recurrence takes float32 inputs "
+                            f"(got {[str(t.dtype) for t in ts]})")
+        h = rglru_scan(*ts)
+        ctx.save_for_backward(*ts, h)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh):
+        return rglru_scan_backward(*ctx.saved_tensors, dh)
+
+
+def rglru_scan_grad(ra, ia, xc, lam, h0):
+    """h [B, S, w] through ``RglruScanFunction`` (the route under
+    autograd)."""
+    return RglruScanFunction.apply(ra, ia, xc, lam, h0)

@@ -16,14 +16,14 @@ the RG-LRU's gates into a chunked linear scan.  On the CPU each wrapper
 takes its plain version (the per-position loops, and the RG-LRU's
 log-depth (Hillis-Steele) scan, whose sums run in another order than
 JAX's tree, so its states agree to float32 rounding).  Under autograd
-the mLSTM's dense sequence form and the sLSTM run through autograd
-Functions with backward kernels of their own
-(``mlstm_scan.MlstmScanFunction``, ``slstm_scan.SlstmScanFunction``:
-on a card the kernels with their saves, on the CPU the plain forward and
-the backward's plain version); the paged decode branch and the RG-LRU,
-which have no backward kernel, and everything on the meta device take
-their plain versions, which autograd differentiates (``plain_route``,
-``grad_route``).
+(``grad_route``) the mLSTM's dense sequence form, the sLSTM and the
+RG-LRU run through autograd Functions with backward kernels of their own
+(``mlstm_scan.MlstmScanFunction``, ``slstm_scan.SlstmScanFunction``,
+``rglru_scan.RglruScanFunction``: on a card the kernels, on the CPU the
+plain forward and the backward's plain version); only the mLSTM's paged
+decode branch, which has no backward kernel and never runs under
+autograd, and everything on the meta device take their plain versions
+(``plain_route``).
 
 Parameters live in a ``Cell`` module per pattern slot, stacked ``[R, ...]``
 over the segment's repeats like every other leaf, under the reference's
@@ -42,6 +42,7 @@ from repro_torch.kernels.mlstm_scan import (mlstm_loop, mlstm_scan,
                                              mlstm_scan_grad,
                                              mlstm_scan_plain)
 from repro_torch.kernels.rglru_scan import (RGLRU_C, rglru_scan,
+                                             rglru_scan_grad,
                                              rglru_scan_plain)
 from repro_torch.kernels.slstm_scan import (slstm_scan, slstm_scan_grad,
                                              slstm_scan_plain)
@@ -231,17 +232,17 @@ def grad_route(*tensors) -> bool:
 
 
 def plain_route(*tensors) -> bool:
-    """The route rule of the recurrences without a backward kernel -- the
-    mLSTM's paged decode branch and the RG-LRU: under autograd
-    (``grad_route``) each runs as its plain version
-    (``mlstm_scan_plain``, ``rglru_scan_plain``), which autograd
-    differentiates, on every device; so does every recurrence on the meta
-    device (``launch.dryrun``), where nothing runs.  Otherwise each runs
-    through its kernel's wrapper: the kernel on a card, its plain version
-    on the CPU.  The mLSTM's dense sequence form and the sLSTM have
-    backward kernels: under autograd they take their autograd Functions
-    (the kernels on a card, or a raise; their plain versions on the CPU),
-    never this route, but on the meta device."""
+    """The route rule of the one recurrence form without a backward
+    kernel, the mLSTM's paged decode branch (decode never runs under
+    autograd): under autograd (``grad_route``) it runs as
+    ``mlstm_scan_plain``, which autograd differentiates, on every device;
+    so does every recurrence on the meta device (``launch.dryrun``), where
+    nothing runs.  Otherwise it runs through its kernel's wrapper: the
+    kernel on a card, its plain version on the CPU.  The mLSTM's dense
+    sequence form, the sLSTM and the RG-LRU have backward kernels: under
+    autograd they take their autograd Functions (the kernels on a card, or
+    a raise; their plain versions on the CPU), never this route, but on
+    the meta device."""
     return any(t.is_meta for t in tensors) or grad_route(*tensors)
 
 
@@ -369,7 +370,10 @@ def _rglru_scan(p, r: int, xc, h0):
     ra = (xc @ p.w_a[r]) @ p.w_a2[r]
     ia = (xc @ p.w_i[r]) @ p.w_i2[r]
     args = (ra, ia, xc.contiguous(), p.lam[r], h0.contiguous())
-    scan = rglru_scan_plain if plain_route(*args) else rglru_scan
+    if any(t.is_meta for t in args):
+        scan = rglru_scan_plain
+    else:
+        scan = rglru_scan_grad if grad_route(*args) else rglru_scan
     return scan(*args)
 
 

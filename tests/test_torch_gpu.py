@@ -19,9 +19,10 @@ chunkwise kernel), m bit-equal, C, n and h within ``tolerances``;
 ``slstm_scan`` each position within the one-step
 bound of its plain cell (``tolerance``) and its sequence launch
 bit-identical to chained one-position launches; ``rglru_scan`` within
-``h_tolerance``; ``routed_experts`` within 1e-5 of the largest output
-magnitude (float32 sums of up to 7168 products in another order) and
-repeats bit-identical; ``page_hist`` and ``sim_scan`` are
+``h_tolerance``; the recurrences' backward kernels (``rglru_scan``'s
+too) within ``grad_check``'s bars; ``routed_experts`` within 1e-5 of the
+largest output magnitude (float32 sums of up to 7168 products in another
+order) and repeats bit-identical; ``page_hist`` and ``sim_scan`` are
 bit-equal to their plain versions (the kernels round where the plain
 versions round), ``sim_scan`` at every run length of pages a thread it
 instantiates and in one launch over candidates of different lengths."""
@@ -1576,7 +1577,8 @@ def _card_and_cpu_states(name, dtype):
 @pytest.mark.parametrize("name,dtype", [("qwen3-14b", "float32"),
                                         ("deepseek-v3-671b", "float32"),
                                         ("olmoe-1b-7b", "int8"),
-                                        ("xlstm-1.3b", "float32")])
+                                        ("xlstm-1.3b", "float32"),
+                                        ("recurrentgemma-2b", "float32")])
 def test_train_step_on_card_matches_cpu(name, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (run: python -m pytest -m gpu)")
@@ -1803,6 +1805,37 @@ def test_rglru_scan_kernel_matches_plain(b, s, w):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,w,carried", [(4, 256, 2560, False),
+                                           (4, 256, 2560, True),
+                                           (2, 5, 64, True),
+                                           (1, 64, 2560, True),
+                                           (3, 130, 100, True),
+                                           (2, 200, 130, False),
+                                           (1, 1000, 256, True)])
+def test_rglru_backward_kernel_matches_plain(b, s, w, carried):
+    """The RG-LRU backward kernel on the card within ``grad_check``'s bar
+    (from the forward kernel's h), one launch counted a call, a second
+    call bit-identical; among the cases phase 50's shape, S <= 64 (the
+    short kernel), ragged S and w (the scalar loads)."""
+    from repro_torch.kernels import rglru_scan as trg
+    dev = _card()
+    args = list(_rglru_inputs(dev, b, s, w, seed=s + w + carried))
+    if not carried:
+        args[4].zero_()
+    dh = torch.randn((b, s, w), generator=torch.Generator(
+        device=dev).manual_seed(s), device=dev)
+    h = trg.rglru_scan(*args)
+    before = trg.rglru_scan_backward.launches
+    runs = [trg.rglru_scan_backward(*args, h, dh) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert trg.rglru_scan_backward.launches == before + 2
+    bits = lambda t: t.view(torch.int32)
+    assert all(torch.equal(bits(x), bits(y)) for x, y in zip(*runs))
+    for name, (dist, bar) in trg.grad_check(runs[0], *args, dh).items():
+        assert dist <= bar, (name, dist, bar)
+
+
+@pytest.mark.gpu
 def test_rglru_scan_kernel_rejects_what_it_does_not_take():
     from repro_torch.kernels import rglru_scan as trg
     dev = _card()
@@ -1998,16 +2031,17 @@ def test_slstm_backward_kernel_matches_plain(b, s, nh, hd, fan_in):
 def test_recurrent_route_rule_under_autograd_on_the_card():
     """Under autograd on the card the mLSTM's dense form and the sLSTM
     launch their forward kernels with the saves and, in the backward,
-    their backward kernels; the mLSTM's paged branch and the RG-LRU take
-    their plain versions (no launch); a head dim the kernels do not take
-    raises."""
+    their backward kernels, and the RG-LRU its forward and backward
+    kernels; the mLSTM's paged branch takes its plain version (no launch);
+    a head dim the kernels do not take raises."""
     from repro_torch.kernels import mlstm_scan as tms
     from repro_torch.kernels import rglru_scan as trg
     from repro_torch.kernels import slstm_scan as tsl
     from repro_torch.models import recurrent as TR
     dev = _card()
     counters = (tms.mlstm_scan, tms.mlstm_scan_backward, tsl.slstm_scan,
-                tsl.slstm_scan_backward, trg.rglru_scan)
+                tsl.slstm_scan_backward, trg.rglru_scan,
+                trg.rglru_scan_backward)
     count = lambda: [c.launches for c in counters]
     args, dh = _mlstm_grad_inputs(dev, 2, 20, 4, 32, 1.0, True, seed=1)
     q = args[0].clone().requires_grad_()
@@ -2015,7 +2049,7 @@ def test_recurrent_route_rule_under_autograd_on_the_card():
     before = count()
     h, _ = TR._mlstm_scan(q, *args[1:5], state)
     h.backward(dh)
-    assert [x - y for x, y in zip(count(), before)] == [2, 4, 0, 0, 0]
+    assert [x - y for x, y in zip(count(), before)] == [2, 4, 0, 0, 0, 0]
     src = args[5].reshape(2, -1).contiguous()
     rows = torch.arange(2, device=dev)
     before = count()
@@ -2028,7 +2062,7 @@ def test_recurrent_route_rule_under_autograd_on_the_card():
     before = count()
     hs, _ = TR._slstm_scan(wg, r, dict(zip("cnmh", st)))
     hs.sum().backward()
-    assert [x - y for x, y in zip(count(), before)] == [0, 0, 1, 1, 0]
+    assert [x - y for x, y in zip(count(), before)] == [0, 0, 1, 1, 0, 0]
     xc = torch.randn((2, 5, 16), device=dev).requires_grad_()
     w = lambda *shape: torch.randn(shape, device=dev) * 0.1
     p = type("P", (), {})()
@@ -2038,7 +2072,7 @@ def test_recurrent_route_rule_under_autograd_on_the_card():
     before = count()
     TR._rglru_scan(p, 0, xc, torch.zeros((2, 16), device=dev)).sum() \
         .backward()
-    assert count() == before
+    assert [x - y for x, y in zip(count(), before)] == [0, 0, 0, 0, 1, 1]
     bad, _ = _mlstm_grad_inputs(dev, 1, 3, 4, 48, 1.0, False, seed=3)
     with pytest.raises(ValueError, match="head dims"):
         TR._mlstm_scan(bad[0].requires_grad_(), *bad[1:5],

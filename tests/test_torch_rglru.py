@@ -22,8 +22,10 @@ what the CUDA kernel is compared with on the card, and what surrounds it:
   * the launch's host side (``launch_plan``): chunks, tiles (the
     ticket's range), published words and scratch at S = 1, 64, 65 and
     2600, B = 1 and 4;
-  * the route rule (``recurrent.plain_route``): under autograd and on
-    the meta device the plain version; otherwise the wrapper;
+  * the route rule: under autograd ``RglruScanFunction`` (the wrapper's
+    bits, the backward through ``rglru_scan_backward``), on the meta
+    device the plain version (``recurrent.plain_route``); otherwise the
+    wrapper;
   * the wrapper's refusals (``_check``, and a device it does not run on).
 
 Inputs are drawn with numpy from seeds."""
@@ -293,30 +295,43 @@ def test_launch_plan_refuses_a_ticket_past_the_grid():
 
 def test_route_rule(monkeypatch):
     """Without autograd the cell goes through the wrapper; under autograd
-    through the plain version, with the same bits and a gradient; a meta
-    tensor takes the plain route, and the wrapper takes only CPU and
-    CUDA tensors."""
+    through ``RglruScanFunction`` (``rglru_scan_grad``), with the
+    wrapper's bits and a gradient from ``rglru_scan_backward``; a meta
+    tensor takes the plain route, under autograd too, and the wrapper
+    takes only CPU and CUDA tensors."""
     _, _, cfg, cell = _cell()
     calls = []
-    real = TR.rglru_scan
-    monkeypatch.setattr(TR, "rglru_scan",
-                        lambda *a: calls.append(1) or real(*a))
+    for name in ("rglru_scan", "rglru_scan_grad", "rglru_scan_plain"):
+        real = getattr(TR, name)
+        monkeypatch.setattr(TR, name, lambda *a, _n=name, _f=real:
+                            calls.append(_n) or _f(*a))
+    real_bwd = RS.rglru_scan_backward
+    monkeypatch.setattr(RS, "rglru_scan_backward", lambda *a:
+                        calls.append("backward") or real_bwd(*a))
     x = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (2, 4, cfg.d_model)).astype(np.float32))
     with torch.no_grad():
         y, st = TR.rglru_apply(cell, 0, cfg, x)
         TR.rglru_step(cell, 0, cfg, x[:, :1], st)
-    assert calls == [1, 1]
+    assert calls == ["rglru_scan"] * 2
     xg = x.clone().requires_grad_(True)
     yg, stg = TR.rglru_apply(cell, 0, cfg, xg)
-    assert calls == [1, 1]
+    assert calls[2:] == ["rglru_scan_grad"]
     assert torch.equal(yg.detach(), y)
     assert all(torch.equal(stg[k].detach(), st[k]) for k in st)
     yg.square().sum().backward()
+    assert calls[3:] == ["backward"]
     assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
     assert float(xg.grad.abs().sum()) > 0
     meta = torch.empty((1, 2, 8), device="meta")
     assert TR.plain_route(meta)
+    p = type("P", (), {})()
+    p.w_a = p.w_i = [torch.empty((8, 1), device="meta")]
+    p.w_a2 = p.w_i2 = [torch.empty((1, 8), device="meta")]
+    p.lam = [torch.empty(8, device="meta")]
+    TR._rglru_scan(p, 0, meta.requires_grad_(),
+                   torch.empty((1, 8), device="meta"))
+    assert calls[4:] == ["rglru_scan_plain"]
     with pytest.raises(ValueError, match="cpu or cuda"):
         RS.rglru_scan(meta, meta, meta, torch.empty(8, device="meta"),
                       torch.empty((1, 8), device="meta"))
