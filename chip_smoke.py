@@ -3611,7 +3611,9 @@ def phase_rglru_backward(rg_) -> dict:
     """Phase 49: the RG-LRU backward kernel against float64 at
     recurrentgemma-2b's width (``RGLRU_BWD_CASES``), then its timing at
     phase 50's shape beside its bound, its plain version, and autograd of
-    the plain scan (the route training took before the kernel)."""
+    the plain scan (the route training took before the kernel); and the
+    tiles an SM the card holds of it (failing below what it is built
+    for) with the waves phase 50's tiles take."""
     print("== phase 49: rglru_scan_backward vs float64 on the card, and "
           "its timing (recurrentgemma-2b's training shape)", flush=True)
     counted = {k: c.launches for k, c in _rglru_counters(rg_).items()}
@@ -3664,10 +3666,22 @@ def phase_rglru_backward(rg_) -> dict:
           f"(the forward {fwd_ms:.4f} ms on the device); autograd of the "
           f"plain scan (the route training took before) {auto_ms:.4f} ms "
           f"-> {auto_ms / both_ms:.1f}x", flush=True)
+    plan = rg_.backward_plan(b, s, w)
+    per_sm = rg_.backward_blocks_per_sm()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = -(-plan["blocks"] // (per_sm * sms))
+    print(f"  tiles an SM: {per_sm} as the card computes them (built for "
+          f"{plan['per_sm']}, {plan['smem']} bytes of shared memory a "
+          f"tile): {plan['blocks']} tiles on {sms} SMs take {waves} "
+          f"wave(s)", flush=True)
+    if per_sm < plan["per_sm"]:
+        _fail(f"rglru_scan_backward holds {per_sm} tiles an SM, not the "
+              f"{plan['per_sm']} it is built for")
     res.update(ms=ms, device_ms=dev_ms, device_kernels_ms=names,
                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                bound_by=bound_by, forward_device_ms=fwd_ms,
-               kernel_fwd_bwd_ms=both_ms, autograd_plain_fwd_bwd_ms=auto_ms)
+               kernel_fwd_bwd_ms=both_ms, autograd_plain_fwd_bwd_ms=auto_ms,
+               blocks_per_sm=per_sm, waves=waves)
     for key, c in _rglru_counters(rg_).items():
         c.launches = counted[key]       # checks and timing not counted
     del case, args, h, dh, flush
@@ -6088,8 +6102,12 @@ def main() -> int:
              replaces="src/repro/models/recurrent.py:326",
              note="no Pallas kernel: jax.grad of rglru_apply's "
              "lax.associative_scan (:326) over _rglru_gates (:296-306); one "
-             "pass, the forward's turned round, dlam's partials reduced in "
-             "a fixed order by the last tile of a strip",
+             "pass, the forward's turned round: a tile keeps only a and dh "
+             "in shared memory (32 KB, six tiles an SM: phase 50's 640 "
+             "tiles in one wave), its scan writes g over dh, then all four "
+             "warps form the factors from the inputs read again and write "
+             "every gradient; dlam's partials reduced in a fixed order by "
+             "the last tile of a strip",
              launches=train["recurrentgemma-2b"]["launches"][
                  "rglru_scan_backward"],
              **{k: v for k, v in rglru_bwd.items()

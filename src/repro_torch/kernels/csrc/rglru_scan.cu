@@ -73,8 +73,16 @@
 // strip's partials in (row, chunk) order -- no float atomics, the same
 // bits every call.  Bound: bytes, ra, ia, xc, h and dh read and dra, dia
 // and dxc written once (8 x 10.49 MB at B = 4, S = 256, w = 2560: 25 us
-// at 3.35 TB/s).  The tile keeps six arrays in shared memory (96 KB: two
-// blocks an SM), the first form; PERF.md has its time.
+// at 3.35 TB/s); the factors take some 130 instructions an element, about
+// half that time at the full instruction rate.  A tile keeps in shared
+// memory only what its serial scan reads, a and dh (32 KB, the forward's
+// budget: six tiles an SM, so the 640 tiles of recurrentgemma-2b's
+// training shape run in one wave); the scan writes g over dh, an add and
+// a multiply a step, and all four warps then form the factors from ra
+// (read again, from L2), ia, xc and h_{t-1} with 16-byte loads and
+// stores.  A form that kept the five factors and dh (96 KB, two tiles an
+// SM: 2.42 waves) took 1.4 x as long with the same bits; PERF.md has the
+// times.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -330,7 +338,7 @@ bool aligned16(const void* p) {
 // the backward
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdArrays = 6;                // a, dh, kr, ki, kx, kl
+constexpr int kBwdArrays = 2;                // a; dh, then g, then g kl
 constexpr int kBwdSmem = kBwdArrays * kChunk * kStrip * sizeof(float);
 constexpr int kBwdBlocksPerSm = 232448 / (kBwdSmem + 1024);
 
@@ -355,6 +363,34 @@ __device__ __forceinline__ GradFactors grad_factors(float ra, float ia,
   const float kx = __fmul_rn(q.beta, q.ig);
   return {q.a, __fmul_rn(__fmul_rn(kl, ncs), __fsub_rn(1.f, q.rg)),
           __fmul_rn(__fmul_rn(kx, xc), __fsub_rn(1.f, q.ig)), kx, kl};
+}
+
+// a of a position: gate_parts's a, by its operations in its order
+__device__ __forceinline__ float decay(float ra, float ncs) {
+  const float rg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-ra)));
+  return expf(__fmul_rn(ncs, rg));
+}
+
+// ra, ia, xc and h_{t-1} of position t of a tile (h0 before position 0)
+template <int V>
+__device__ __forceinline__ void load_bwd_inputs(
+    const float* ra, const float* ia, const float* xc, const float* hs,
+    const float* h0_row, size_t row0, int t0, int t, int w, int ch, float* r,
+    float* i, float* x, float* hp) {
+  const size_t at = row0 + static_cast<size_t>(t) * w + ch;
+  load_inputs<V>(ra, ia, xc, at, r, i, x);
+  load_vec<V>(t0 + t > 0 ? hs + at - w : h0_row, hp);
+}
+
+// Barrier 1 of the backward's tile: warps 0-1 arrive once they have read
+// the chunk's dh, and warps 2-3 wait for them before writing g over it
+// (the unaligned form: a warp may reach it diverged)
+__device__ __forceinline__ void dh_read_arrive() {
+  asm volatile("barrier.arrive 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void dh_read_wait() {
+  asm volatile("barrier.sync 1, %0;\n" ::"n"(kThreads) : "memory");
 }
 
 // The block's ticket and this call's tag (thread 0): the forward's scheme.
@@ -462,18 +498,28 @@ rglru_bwd_short_kernel(const float* __restrict__ ra,
 
 // S > kChunk: the forward's one pass turned round.  A block of 128 threads
 // a tile (row, kStrip channels, chunk), from the ticket in reverse chunk
-// order:
-//   1. the tile's factors (a, kr, ki, kx, kl) and dh into shared memory
-//      (96 KB: two blocks an SM), ra, ia, xc, dh and h_{t-1} read once;
+// order; shared memory holds a and dh alone (32 KB: six blocks an SM, so
+// recurrentgemma-2b's 640 training tiles run in one wave):
+//   1. the tile's a (decay) and dh into shared memory, 16-byte loads, the
+//      next position's in flight while a position's a computes;
 //   2. warps 0-1, a thread a channel: the chunk's (prod a, local u) from
 //      u = 0 in reverse (u_t = a_t g_t, g_t = dh_t + u_{t+1}), published
 //      for the earlier chunks as two tagged words (chunk 0's is never
-//      read);
+//      read), then an arrival at barrier 1: the chunk's dh is read;
 //   3. warps 2-3 meanwhile: the carry into the chunk, from u = 0 through
 //      the pairs of every later chunk from the last, each polled through
-//      L2 until its tag is this call's; then the chunk in reverse from it,
-//      writing dra, dia, dxc, dlam's partial and, in chunk 0, dh0 = u_0.
-// The last tile of a strip sums the strip's B x chunks partials in order.
+//      L2 until its tag is this call's; then (barrier 1) the chunk in
+//      reverse from it, g_t over dh_t, an add and a multiply a step; in
+//      chunk 0, dh0 = u_0;
+//   4. all four warps, the elements as in 1 (the first position's inputs
+//      loaded before the scan): grad_factors from ra (again, from L2), ia,
+//      xc and h_{t-1}, dra, dia and dxc stored 16 bytes at a time, g kl
+//      over g;
+//   5. a thread a channel: dlam's partial, the column of g kl summed in
+//      reverse position order.
+// Every gradient is the arithmetic of the six-array form in its order, so
+// the bits are the same.  The last tile of a strip sums the
+// strip's B x chunks partials in order.
 template <int V>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
 rglru_bwd_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
@@ -487,13 +533,8 @@ rglru_bwd_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
                  unsigned long long* __restrict__ ctrs,
                  float* __restrict__ parts, int batch, int seq, int w) {
   extern __shared__ float smem[];
-  constexpr int kTile = kChunk * kStrip;
   float* s_a = smem;
-  float* s_dh = smem + kTile;
-  float* s_kr = smem + 2 * kTile;
-  float* s_ki = smem + 3 * kTile;
-  float* s_kx = smem + 4 * kTile;
-  float* s_kl = smem + 5 * kTile;
+  float* s_g = smem + kChunk * kStrip;         // dh, then g, then g kl
   __shared__ unsigned s_tile, s_tag;
   __shared__ bool s_last;
   const int tid = threadIdx.x;
@@ -513,93 +554,138 @@ rglru_bwd_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
   const int len = min(kChunk, seq - t0);
   const size_t row0 = (static_cast<size_t>(b) * seq + t0) * w;
 
-  // 1. the tile's factors, once
+  // 1. a and dh of the tile
   constexpr int kCols = kStrip / V;
   constexpr int kRows = kThreads / kCols;
   const int col = tid % kCols;
   const int ch = c0 + col * V;
+  const int t_first = tid / kCols;
+  const float* h0_row = h0 + static_cast<size_t>(b) * w + ch;
+  float ncs[V], r[V], i[V], x[V], hp[V];
   if (ch < w) {
-    float ncs[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) ncs[v] = neg_c_softplus(lam[ch + v]);
-    for (int t = tid / kCols; t < len; t += kRows) {
+    float d[V];
+    int t = t_first;
+    if (t < len) {
       const size_t at = row0 + static_cast<size_t>(t) * w + ch;
-      float r[V], i[V], x[V], d[V], hp[V];
-      load_inputs<V>(ra, ia, xc, at, r, i, x);
+      load_vec<V>(ra + at, r);
       load_vec<V>(dhs + at, d);
-      load_vec<V>(t0 + t > 0 ? hs + at - w
-                             : h0 + static_cast<size_t>(b) * w + ch,
-                  hp);
-      float a[V], kr[V], ki[V], kx[V], kl[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const GradFactors f = grad_factors(r[v], i[v], x[v], hp[v], ncs[v]);
-        a[v] = f.a, kr[v] = f.kr, ki[v] = f.ki, kx[v] = f.kx, kl[v] = f.kl;
-      }
-      const int at_s = t * kStrip + col * V;
-      store_vec<V>(s_a + at_s, a);
-      store_vec<V>(s_dh + at_s, d);
-      store_vec<V>(s_kr + at_s, kr);
-      store_vec<V>(s_ki + at_s, ki);
-      store_vec<V>(s_kx + at_s, kx);
-      store_vec<V>(s_kl + at_s, kl);
     }
+    for (; t < len; t += kRows) {
+      float rn[V], dn[V], a[V];
+      if (t + kRows < len) {
+        const size_t at = row0 + static_cast<size_t>(t + kRows) * w + ch;
+        load_vec<V>(ra + at, rn);
+        load_vec<V>(dhs + at, dn);
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) a[v] = decay(r[v], ncs[v]);
+      store_vec<V>(s_a + t * kStrip + col * V, a);
+      store_vec<V>(s_g + t * kStrip + col * V, d);
+#pragma unroll
+      for (int v = 0; v < V; ++v) r[v] = rn[v], d[v] = dn[v];
+    }
+    // step 4's first position loads across the scan
+    if (t_first < len)
+      load_bwd_inputs<V>(ra, ia, xc, hs, h0_row, row0, t0, t_first, w, ch, r,
+                         i, x, hp);
   }
   __syncthreads();
 
   const int lane = tid % kStrip;
   const int c = c0 + lane;
-  // chunk j's pair (j >= 1) of this (row, channel)
-  unsigned long long* col_words =
-      words + 2 * (static_cast<size_t>(b) * (chunks - 1) * w + c);
-  const size_t chunk_words = 2 * static_cast<size_t>(w);
-  if (c < w && tid < kStrip) {
+  if (tid < kStrip) {
     // 2. the chunk's (prod a, local u) from u = 0
-    if (chunk > 0) {
+    if (c < w && chunk > 0) {
+      unsigned long long* col_words =
+          words + 2 * (static_cast<size_t>(b) * (chunks - 1) * w + c);
       float prod = 1.f, u = 0.f;
 #pragma unroll 16
       for (int t = len - 1; t >= 0; --t) {
         const float a = s_a[t * kStrip + lane];
-        u = __fmul_rn(a, __fadd_rn(s_dh[t * kStrip + lane], u));
+        u = __fmul_rn(a, __fadd_rn(s_g[t * kStrip + lane], u));
         prod = __fmul_rn(prod, a);
       }
-      store_pair(col_words + (chunk - 1) * chunk_words, tagged(prod, tag),
-                 tagged(u, tag));
+      store_pair(col_words + (chunk - 1) * 2 * static_cast<size_t>(w),
+                 tagged(prod, tag), tagged(u, tag));
     }
-  } else if (c < w) {
-    // 3. the carry from every later chunk, the last first, then the chunk
+    dh_read_arrive();
+  } else {
+    // 3. the carry from every later chunk, the last first, then g
     float u = 0.f;
-    for (int j0 = chunks - 1; j0 > chunk; j0 -= kBatch) {
-      ulonglong2 p[kBatch];
+    if (c < w) {
+      // chunk j's pair (j >= 1) of this (row, channel)
+      const unsigned long long* col_words =
+          words + 2 * (static_cast<size_t>(b) * (chunks - 1) * w + c);
+      const size_t chunk_words = 2 * static_cast<size_t>(w);
+      for (int j0 = chunks - 1; j0 > chunk; j0 -= kBatch) {
+        ulonglong2 p[kBatch];
 #pragma unroll
-      for (int q = 0; q < kBatch; ++q)
-        if (j0 - q > chunk)
-          p[q] = load_pair(col_words + (j0 - q - 1) * chunk_words);
-#pragma unroll
-      for (int q = 0; q < kBatch; ++q) {
-        if (j0 - q > chunk) {
-          while (!ready(p[q], tag))
+        for (int q = 0; q < kBatch; ++q)
+          if (j0 - q > chunk)
             p[q] = load_pair(col_words + (j0 - q - 1) * chunk_words);
-          u = __fadd_rn(
-              __fmul_rn(__uint_as_float(static_cast<unsigned>(p[q].x)), u),
-              __uint_as_float(static_cast<unsigned>(p[q].y)));
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          if (j0 - q > chunk) {
+            while (!ready(p[q], tag))
+              p[q] = load_pair(col_words + (j0 - q - 1) * chunk_words);
+            u = __fadd_rn(
+                __fmul_rn(__uint_as_float(static_cast<unsigned>(p[q].x)), u),
+                __uint_as_float(static_cast<unsigned>(p[q].y)));
+          }
         }
       }
     }
-    float acc = 0.f;
-#pragma unroll 4
-    for (int t = len - 1; t >= 0; --t) {
-      const int at_s = t * kStrip + lane;
-      const size_t at = row0 + static_cast<size_t>(t) * w + c;
-      const float g = __fadd_rn(s_dh[at_s], u);
-      dra[at] = __fmul_rn(g, s_kr[at_s]);
-      dia[at] = __fmul_rn(g, s_ki[at_s]);
-      dxc[at] = __fmul_rn(g, s_kx[at_s]);
-      acc = __fadd_rn(acc, __fmul_rn(g, s_kl[at_s]));
-      u = __fmul_rn(s_a[at_s], g);
+    dh_read_wait();
+    if (c < w) {
+#pragma unroll 16
+      for (int t = len - 1; t >= 0; --t) {
+        const int at_s = t * kStrip + lane;
+        const float g = __fadd_rn(s_g[at_s], u);
+        s_g[at_s] = g;
+        u = __fmul_rn(s_a[at_s], g);
+      }
+      if (chunk == 0) dh0[static_cast<size_t>(b) * w + c] = u;
     }
+  }
+  __syncthreads();
+
+  // 4. every element's gradients from its g
+  if (ch < w) {
+    for (int t = t_first; t < len; t += kRows) {
+      float rn[V], in[V], xn[V], hn[V];
+      if (t + kRows < len)
+        load_bwd_inputs<V>(ra, ia, xc, hs, h0_row, row0, t0, t + kRows, w,
+                           ch, rn, in, xn, hn);
+      float* g_at = s_g + t * kStrip + col * V;
+      float g[V], dr[V], di[V], dx[V];
+      load_vec<V>(g_at, g);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const GradFactors f = grad_factors(r[v], i[v], x[v], hp[v], ncs[v]);
+        dr[v] = __fmul_rn(g[v], f.kr);
+        di[v] = __fmul_rn(g[v], f.ki);
+        dx[v] = __fmul_rn(g[v], f.kx);
+        g[v] = __fmul_rn(g[v], f.kl);
+        r[v] = rn[v], i[v] = in[v], x[v] = xn[v], hp[v] = hn[v];
+      }
+      const size_t at = row0 + static_cast<size_t>(t) * w + ch;
+      store_vec<V>(dra + at, dr);
+      store_vec<V>(dia + at, di);
+      store_vec<V>(dxc + at, dx);
+      store_vec<V>(g_at, g);
+    }
+  }
+  __syncthreads();
+
+  // 5. dlam's partial of the tile
+  if (tid < kStrip && c < w) {
+    float acc = 0.f;
+#pragma unroll 16
+    for (int t = len - 1; t >= 0; --t)
+      acc = __fadd_rn(acc, s_g[t * kStrip + lane]);
     parts[(static_cast<size_t>(b) * chunks + chunk) * w + c] = acc;
-    if (chunk == 0) dh0[static_cast<size_t>(b) * w + c] = u;
     __threadfence();
   }
   __syncthreads();
@@ -612,6 +698,18 @@ rglru_bwd_kernel(const float* __restrict__ ra, const float* __restrict__ ia,
     if (tid < kStrip && c < w) reduce_dlam(lam, parts, dlam, batch * chunks,
                                            w, c);
   }
+}
+
+// the S > kChunk backward's shared memory: kBwdSmem of dynamic memory, the
+// carveout at its largest so that kBwdBlocksPerSm tiles fit an SM
+template <typename Kernel>
+cudaError_t bwd_attributes(Kernel kernel) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
@@ -697,13 +795,26 @@ extern "C" int rglru_scan_bwd_launch(
   if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = w % 4 == 0 && aligned16(ra) && aligned16(ia) &&
                    aligned16(xc) && aligned16(hs) && aligned16(dhs) &&
-                   aligned16(h0);
+                   aligned16(h0) && aligned16(dra) && aligned16(dia) &&
+                   aligned16(dxc);
   auto kernel = vec ? rglru_bwd_kernel<4> : rglru_bwd_kernel<1>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  cudaError_t err = bwd_attributes(kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(tiles), kThreads, kBwdSmem, stream>>>(
       f(ra), f(ia), f(xc), f(lam), f(h0), f(hs), f(dhs), o(dra), o(dia),
       o(dxc), o(dlam), o(dh0), ctrl, words, ctrs, o(parts), batch, seq, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tiles of the S > 64 backward (vec: its 16-byte form) that one SM
+// holds at once, as the card computes them from the kernel's registers
+// and shared memory; -1 on a CUDA error.
+extern "C" int rglru_scan_bwd_blocks_per_sm(int vec) {
+  auto kernel = vec ? rglru_bwd_kernel<4> : rglru_bwd_kernel<1>;
+  int n = 0;
+  if (bwd_attributes(kernel) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                    kBwdSmem) != cudaSuccess)
+    return -1;
+  return n;
 }

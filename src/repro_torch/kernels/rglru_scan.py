@@ -80,7 +80,14 @@ factors; ``rglru_scan_backward`` launches the hand-written backward in
 ``rglru_scan_backward.launches``: the forward's one-pass design turned
 round, a tile publishing its chunk's (prod a, local u) for the earlier
 chunks; dlam per-tile partials reduced in a fixed order by the last tile
-of each strip of channels).  ``RglruScanFunction`` (``rglru_scan_grad``)
+of each strip of channels).  A tile keeps only a and dh in shared memory
+(``BWD_SMEM``, 32 KB: ``BWD_PER_SM`` tiles an SM, so recurrentgemma-2b's
+640 training tiles at B = 4, S = 256 run in one wave,
+``backward_plan``'s ``waves``); its scan writes g over dh, then all its
+warps form the factors from the inputs read again and write every
+gradient, and dlam's partial is the column of g kl summed in reverse.
+Bound: bytes, ra, ia, xc, h and dh read and dra, dia, dxc written once
+(83.9 MB there: 25 us at 3.35 TB/s).  ``RglruScanFunction`` (``rglru_scan_grad``)
 is the recurrence under autograd: ``rglru_scan`` forward, saving its
 inputs and h (the backward recomputes the gates), the backward through
 ``rglru_scan_backward``; it gives all five inputs their gradients.
@@ -104,8 +111,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build, mlstm_scan
 
-__all__ = ["CHUNK", "GRAD_MULT", "GRAD_NAMES", "RGLRU_C", "STRIP",
-           "RglruScanFunction", "backward_plan", "grad_check",
+__all__ = ["BWD_PER_SM", "BWD_SMEM", "CHUNK", "GRAD_MULT", "GRAD_NAMES",
+           "H100_SMS", "RGLRU_C", "STRIP", "RglruScanFunction",
+           "backward_blocks_per_sm", "backward_plan", "grad_check",
            "grad_tolerance", "h_tolerance", "launch_plan", "linear_scan",
            "rglru_backward_plain", "rglru_gates", "rglru_scan",
            "rglru_scan_backward", "rglru_scan_grad", "rglru_scan_plain"]
@@ -120,6 +128,14 @@ CHUNK = 64
 STRIP = 64
 #: the scratch's control words (ticket, blocks that took one, epoch, pad)
 _CTRL = 4
+#: the S > CHUNK backward's shared memory a tile (csrc/rglru_scan.cu's
+#: kBwdSmem: a and g, float32) and the tiles an SM it is built for
+#: (kBwdBlocksPerSm: an SM's 232448 bytes over a tile's and the 1 KB the
+#: card reserves a block)
+BWD_SMEM = 2 * CHUNK * STRIP * 4
+BWD_PER_SM = 232448 // (BWD_SMEM + 1024)
+#: an H100 SXM's streaming multiprocessors
+H100_SMS = 132
 #: the backward's gradients, in the order it returns them
 GRAD_NAMES = ("ra", "ia", "xc", "lam", "h0")
 #: the backward's bar: this many times float32 autograd's own distance
@@ -144,6 +160,8 @@ def _load():
         bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
+        lib.rglru_scan_bwd_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.rglru_scan_bwd_blocks_per_sm.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -380,7 +398,12 @@ def backward_plan(b: int, s: int, w: int) -> dict:
     first, channel), then a counter a strip; ``scratch``, the zeroed
     float32 scratch: the four control words, then the words; ``partials``,
     the float32 elements of dlam's per-tile partials, one a (row, chunk,
-    channel).  Raises where the blocks would pass the grid's limits."""
+    channel); above ``CHUNK``, ``smem``, a tile's shared bytes
+    (``BWD_SMEM``), ``per_sm``, the tiles an SM the kernel is built for
+    (``BWD_PER_SM``), and ``waves``, the rounds of tiles an H100's
+    ``H100_SMS`` SMs take (0, None, None at S <= ``CHUNK``: the short
+    kernel keeps nothing in shared memory).  Raises where the blocks
+    would pass the grid's limits."""
     chunks = -(-s // CHUNK)
     strips = -(-w // STRIP)
     blocks = b * strips * chunks
@@ -392,8 +415,25 @@ def backward_plan(b: int, s: int, w: int) -> dict:
         raise ValueError(f"the rglru_scan backward takes at most 65535 rows "
                          f"at S <= {CHUNK} (got {b})")
     words = 2 * b * (chunks - 1) * w + strips
+    tiles = chunks > 1
     return dict(chunks=chunks, blocks=blocks, words=words,
-                scratch=_CTRL + 2 * words, partials=b * chunks * w)
+                scratch=_CTRL + 2 * words, partials=b * chunks * w,
+                smem=BWD_SMEM if tiles else 0,
+                per_sm=BWD_PER_SM if tiles else None,
+                waves=-(-blocks // (BWD_PER_SM * H100_SMS)) if tiles
+                else None)
+
+
+def backward_blocks_per_sm(vec: bool = True) -> int:
+    """The tiles of the S > ``CHUNK`` backward (``vec``: its 16-byte form)
+    that one SM of the current card holds at once, as the card computes
+    them from the built kernel's registers and shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = _load().rglru_scan_bwd_blocks_per_sm(int(vec))
+    if n < 0:
+        raise RuntimeError("the rglru_scan backward's occupancy query "
+                           "failed")
+    return n
 
 
 def rglru_scan_backward(ra, ia, xc, lam, h0, h, dh):

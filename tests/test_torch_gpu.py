@@ -1836,6 +1836,20 @@ def test_rglru_backward_kernel_matches_plain(b, s, w, carried):
 
 
 @pytest.mark.gpu
+def test_rglru_backward_holds_its_tiles_an_sm():
+    """The card holds as many tiles of the S > 64 backward an SM as the
+    kernel is built for (both forms), so phase 50's 640 tiles run in one
+    wave."""
+    from repro_torch.kernels import rglru_scan as trg
+    _card()
+    plan = trg.backward_plan(4, 256, 2560)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for vec in (True, False):
+        assert trg.backward_blocks_per_sm(vec) >= plan["per_sm"] >= 5
+    assert plan["blocks"] <= plan["per_sm"] * sms
+
+
+@pytest.mark.gpu
 def test_rglru_scan_kernel_rejects_what_it_does_not_take():
     from repro_torch.kernels import rglru_scan as trg
     dev = _card()

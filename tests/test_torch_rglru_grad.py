@@ -23,7 +23,10 @@ kernel is compared with on the card:
     the last chunk down through every later chunk's pair, the chunk in
     reverse from it; dlam as per-tile partials summed in (row, chunk)
     order -- within the bar against float64; a carry that drops one
-    chunk's pair misses it;
+    chunk's pair misses it; the kernel's present order (g scanned over dh
+    first, the factors and products after, dlam's column of g kl summed
+    in reverse) ``torch.equal`` to the six-array order it replaced, and
+    a column summed in position order not;
   * the host side of the launch (``backward_plan``), the Function's
     refusal of a non-float32 input, and ``launch.train`` on reduced
     recurrentgemma-2b going through the backward.
@@ -160,35 +163,48 @@ def test_function_matches_the_reference_vjp(carried, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _emulated_kernel(ra, ia, xc, lam, h0, h, dh, drop=None):
-    """The CUDA backward in torch, over every (row, channel) at once, in
-    float32: the factors once (``_grad_factors``, the kernel's order of
-    operations); each chunk but the first's (prod a, local u) from u = 0
-    in reverse (u_t = a_t (dh_t + u_{t+1})), as a tile publishes it; the
-    carry into a chunk from u = 0 through the pairs of every later chunk,
-    the last first (``drop``: leaving chunk ``drop``'s out); the chunk in
-    reverse from it, dlam's partial a (row, chunk) summed in reverse
-    position order; the partials summed in (row, chunk) order."""
-    a, kr, ki, kx, kl, dsp = RS._grad_factors(ra, ia, xc, lam, h0, h)
-    b, s, w = a.shape
+def _chunk_carries(a, dh, drop=None):
+    """The kernel's chunks: [(t0, t1, carry)] a chunk, the carry into it
+    from u = 0 through the (prod a, local u) pairs of every later chunk,
+    the last first (``drop``: leaving chunk ``drop``'s out); each chunk
+    but the first's pair from u = 0 in reverse (u_t = a_t (dh_t +
+    u_{t+1})), as a tile publishes it."""
+    s = a.shape[1]
     starts = list(range(0, s, RS.CHUNK))
     pairs = {}
     for c in range(1, len(starts)):
         t0, t1 = starts[c], min(s, starts[c] + RS.CHUNK)
-        prod, u = torch.ones_like(h0), torch.zeros_like(h0)
+        prod, u = torch.ones_like(a[:, 0]), torch.zeros_like(a[:, 0])
         for t in range(t1 - 1, t0 - 1, -1):
             u = a[:, t] * (dh[:, t] + u)
             prod = prod * a[:, t]
         pairs[c] = (prod, u)
-    dra, dia, dxc = (torch.empty_like(a) for _ in range(3))
-    parts = torch.empty((b, len(starts), w))
+    out = []
     for c, t0 in enumerate(starts):
-        u = torch.zeros_like(h0)
+        u = torch.zeros_like(a[:, 0])
         for j in range(len(starts) - 1, c, -1):
             if j != drop:
                 u = pairs[j][0] * u + pairs[j][1]
+        out.append((t0, min(s, t0 + RS.CHUNK), u))
+    return out
+
+
+def _emulated_kernel(ra, ia, xc, lam, h0, h, dh, drop=None):
+    """The CUDA backward in torch as its six-array form ran it, over
+    every (row, channel) at once, in float32: the factors once
+    (``_grad_factors``, the kernel's order of operations); the chunks'
+    carries (``_chunk_carries``); each chunk in reverse from its carry,
+    every gradient g_t times its factor, dlam's partial a (row, chunk)
+    summed in reverse position order; the partials summed in (row,
+    chunk) order."""
+    a, kr, ki, kx, kl, dsp = RS._grad_factors(ra, ia, xc, lam, h0, h)
+    b, s, w = a.shape
+    dra, dia, dxc = (torch.empty_like(a) for _ in range(3))
+    carries = _chunk_carries(a, dh, drop)
+    parts = torch.empty((b, len(carries), w))
+    for c, (t0, t1, u) in enumerate(carries):
         acc = torch.zeros_like(h0)
-        for t in range(min(s, t0 + RS.CHUNK) - 1, t0 - 1, -1):
+        for t in range(t1 - 1, t0 - 1, -1):
             g = dh[:, t] + u
             dra[:, t], dia[:, t], dxc[:, t] = g * kr[:, t], g * ki[:, t], \
                 g * kx[:, t]
@@ -201,6 +217,56 @@ def _emulated_kernel(ra, ia, xc, lam, h0, h, dh, drop=None):
     for p in parts.reshape(-1, w):
         total = total + p
     return dra, dia, dxc, dsp * total, dh0
+
+
+def _emulated_two_pass(ra, ia, xc, lam, h0, h, dh, forward_sum=False):
+    """The CUDA backward as it runs now, in torch: a alone before the scan
+    (the decay, ``_gate_parts``'s); each chunk in reverse from its carry
+    (``_chunk_carries``), g_t kept over dh_t; then every element's factors
+    (``_grad_factors``) and products, g_t kl_t kept over g_t; dlam's
+    partial a (row, chunk) the column of g kl summed in reverse position
+    order (``forward_sum``: in position order), the partials in (row,
+    chunk) order."""
+    a = RS._gate_parts(ra, ia, lam)[5]
+    b, s, w = a.shape
+    g = torch.empty_like(a)
+    carries = _chunk_carries(a, dh)
+    for c, (t0, t1, u) in enumerate(carries):
+        for t in range(t1 - 1, t0 - 1, -1):
+            g[:, t] = dh[:, t] + u
+            u = a[:, t] * g[:, t]
+        if c == 0:
+            dh0 = u
+    _, kr, ki, kx, kl, dsp = RS._grad_factors(ra, ia, xc, lam, h0, h)
+    gl = g * kl
+    parts = torch.empty((b, len(carries), w))
+    for c, (t0, t1, _) in enumerate(carries):
+        acc = torch.zeros_like(h0)
+        for t in (range(t0, t1) if forward_sum
+                  else range(t1 - 1, t0 - 1, -1)):
+            acc = acc + gl[:, t]
+        parts[:, c] = acc
+    total = torch.zeros_like(lam)
+    for p in parts.reshape(-1, w):
+        total = total + p
+    return g * kr, g * ki, g * kx, dsp * total, dh0
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 5, 16), (2, 130, 64), (1, 300, 32)])
+def test_two_pass_order_is_bit_identical(b, s, w):
+    """The kernel's order (a and dh in shared memory, the scan writing g,
+    the factors after it, dlam's column of g kl summed in reverse) gives
+    the six-array form's bits in all five gradients; summing dlam's
+    column in position order does not."""
+    args, dh = _inputs(b, s, w, seed=b + s + w)
+    h = RS.rglru_scan_plain(*args)
+    want = _emulated_kernel(*args, h, dh)
+    got = _emulated_two_pass(*args, h, dh)
+    for name, x, y in zip(RS.GRAD_NAMES, got, want):
+        assert torch.equal(x, y), name
+    if s > RS.CHUNK:
+        other = _emulated_two_pass(*args, h, dh, forward_sum=True)
+        assert not torch.equal(other[3], want[3])
 
 
 @pytest.mark.parametrize("b,s,w", [(2, 5, 16), (2, 130, 64), (1, 300, 32)])
@@ -223,15 +289,27 @@ def test_backward_plan(b, s, w):
     """A block a (row, strip) at S <= ``CHUNK``, a tile a (row, strip,
     chunk) above; a pair of words a (row, chunk but the first, channel)
     and a counter a strip after four control floats; a partial a (row,
-    chunk, channel)."""
+    chunk, channel); above ``CHUNK`` a tile's shared memory (a and g),
+    the tiles an SM and the waves on an H100.  At phase 50's shape the
+    640 tiles hold at most 45 KB of shared memory each, at least five
+    fit an SM, and they run in one wave."""
     plan = RS.backward_plan(b, s, w)
     chunks, strips = -(-s // RS.CHUNK), -(-w // RS.STRIP)
-    assert plan == dict(chunks=chunks, blocks=b * strips * chunks,
+    blocks = b * strips * chunks
+    tiles = chunks > 1
+    assert plan == dict(chunks=chunks, blocks=blocks,
                         words=2 * b * (chunks - 1) * w + strips,
                         scratch=4 + 2 * (2 * b * (chunks - 1) * w + strips),
-                        partials=b * chunks * w)
+                        partials=b * chunks * w,
+                        smem=2 * RS.CHUNK * RS.STRIP * 4 if tiles else 0,
+                        per_sm=232448 // (2 * RS.CHUNK * RS.STRIP * 4 + 1024)
+                        if tiles else None,
+                        waves=-(-blocks // (plan["per_sm"] * 132)) if tiles
+                        else None)
     if (b, s, w) == (4, 256, 2560):
         assert plan["blocks"] == 640 and plan["partials"] == 40960
+        assert plan["smem"] <= 45 * 1024 and plan["per_sm"] >= 5
+        assert plan["waves"] == 1
 
 
 def test_backward_plan_refuses_grids_past_the_limits():
