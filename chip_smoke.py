@@ -46,12 +46,13 @@ non-zero):
   5. parity on the card: on a reduced GQA config, the batcher's greedy
      streams (macro and per-token) equal ``generate``'s (dense attention,
      no kernel);
-  6. paged kernel timing at the seven served decode shapes (qwen3-14b's,
+  6. paged kernel timing at the eight served decode shapes (qwen3-14b's,
      gemma3-12b's with window 1024, recurrentgemma-2b's with 10/1
      heads and window 2048, olmoe-1b-7b's with 16/16 heads,
      musicgen-large's with 32/32 heads of 64, nemotron-4-340b's with
-     96/8 heads of 192 and paligemma-3b's with 8/1 heads of 256 and 16
-     shared columns, read once in its bound), split as the wrapper
+     96/8 heads of 192, paligemma-3b's with 8/1 heads of 256 and 16
+     shared columns, read once in its bound, and stablelm-12b's with 32/8
+     heads of 160), split as the wrapper
      plans it (head groups
      counted): per call (CUDA events) and on
      the device alone (profiler kernel durations), L2 flushed before each
@@ -106,13 +107,15 @@ non-zero):
      beat a call) and its bound: operations as 3xTF32 at 495 TFLOP/s, with
      the ``mma.sync`` floor and the 67 TFLOP/s CUDA-core figure beside it;
  14. the flash kernel ``flash_attention`` vs its plain version on the
-     card: float32 and bfloat16, GQA 4/4, 4/2, 8/1, 16/8 and 40/8, D 16,
-     32, 64, 128 and 256, causal, window 64, window 1024 and non-causal,
-     S = T in {1, 37, 256, 2048}, plus the shapes phase 15 gives it (B = 4
-     and 2, S = T = 2048, 16/8 heads, D 256, causal and window 1024) and
-     phase 24 gives it (B = 4, 2 and 1, S = T = 512, 32/32 heads, D 64,
-     causal) in float32 and bfloat16, with stated tolerances (bfloat16
-     also each output row within ``BF16_ROW_TOL`` of its norm);
+     card: float32 and bfloat16, GQA 4/4, 4/2, 8/1, 16/8 and 40/8, every
+     head dim it takes (``HEAD_DIMS``: 16 and the multiples of 32 up to
+     256), causal, window 64, window 1024 and non-causal, S = T in {1, 37,
+     256, 2048}, plus the shapes phase 15 gives it (B = 4 and 2, S = T =
+     2048, 16/8 heads, D 256, causal and window 1024), phase 24 gives it
+     (B = 4, 2 and 1, S = T = 512, 32/32 heads, D 64, causal), phase 51
+     gives it (the same B and S, 32/8 heads of 160) and phase 25 gives it
+     (96/8 heads of 192) in float32 and bfloat16, with stated tolerances
+     (bfloat16 also each output row within ``BF16_ROW_TOL`` of its norm);
  15. full-width, full-depth gemma3-12b (48 layers, 40 of them sliding
      window 1024; float32 weights from a seeded init) with
      ``attention_impl="pallas"``, served by the macro-step batcher after
@@ -135,10 +138,13 @@ non-zero):
      first at 1e-4 in float32, 2e-2 and ``BF16_ROW_TOL`` in bfloat16), one
      SDPA call and the bound of the route the kernel takes: operations at
      3 x TF32's 495 TFLOP/s in float32 (3xTF32; the 67 TFLOP/s CUDA-core
-     figure printed beside it), at 989 TFLOP/s in bfloat16; and in float32
+     figure printed beside it), at 989 TFLOP/s in bfloat16; in float32
      at musicgen-large's prefill shape (B=4, S=T=512, 32/32 heads, D=64,
-     causal).  The float32 kernel must beat SDPA a call (the yardstick);
-     in bfloat16 the two are recorded side by side;
+     causal); and in float32 and bfloat16 at stablelm-12b's (32/8 heads of
+     160) and nemotron-4-340b's (96/8 heads of 192) prefill shapes (B=4,
+     S=T=512, causal).  The float32 kernel must beat SDPA a call at the
+     main-path shape (the yardstick); elsewhere the two are recorded side
+     by side;
  18. full-width, full-depth recurrentgemma-2b (26 layers: 18 RG-LRU, 8
      local attention of window 2048 with 10 query heads over 1 KV head of
      256; float32 weights from a seeded init, every conv tap drawn from
@@ -213,9 +219,12 @@ non-zero):
  25. nemotron-4-340b at full width (d_model 18432, 96/8 heads of 192, a
      squared-ReLU MLP of 73728, vocabulary 256000, untied), depth cut
      from 96 layers to ``NEMOTRON_LAYERS`` (16.35 B float32 parameters,
-     65.4 GB, on an otherwise empty card), served with phase 4's pools and
-     mix by both routes; the paged kernel's launches must equal the
-     layers x the device steps;
+     65.4 GB, on an otherwise empty card) under
+     ``attention_impl="pallas"``, served with phase 4's pools and mix by
+     both routes; the paged kernel's launches must equal the layers x the
+     device steps and the flash kernel's the layers x the admissions (its
+     GQA group of 12 does not divide the kernel's 128 rows: one head a
+     block);
  26. parity on the card: on reduced musicgen-large (its conditioning
      given to both, ``attention_impl="pallas"``) and nemotron-4-340b, the
      batcher's greedy streams (macro and per-token) equal ``generate``'s
@@ -424,7 +433,25 @@ non-zero):
      batch 0 again, every sLSTM's r_gates redrawn at fan-in hd
      (``SLSTM_FAN_IN_REF``: at the reference's the backward overflows
      float32); phase 37's bars and numbers, and each recurrence kernel's
-     launches over its seven steps (each must be > 0).
+     launches over its seven steps (each must be > 0);
+ 49. (right after phase 48) the RG-LRU backward kernel
+     ``rglru_scan_backward`` vs float64 at recurrentgemma-2b's width, and
+     its time at phase 50's shape beside its bound and its plain version;
+ 50. full-width, full-depth recurrentgemma-2b trained as phase 37, the
+     RG-LRU through its forward and backward kernels;
+ 51. (right after phase 25) full-width, full-depth stablelm-12b (40
+     layers, 32/8 heads of 160, a SwiGLU MLP of 13824, vocabulary 100352,
+     untied; float32 weights from a seeded init, 48.6 GB) with
+     ``attention_impl="pallas"``, served with phase 4's pools and mix by
+     the graph route and then the eager route, as phase 4: the paged
+     kernel's launches must equal 40 x the device steps, the flash
+     kernel's 40 x the admissions, and the Cori loop must act (hits
+     counted, the tuner out of its profile window);
+ 52. parity on the card: reduced stablelm-12b at head dim 160 and reduced
+     nemotron-4-340b at 192, each under both ``attention_impl`` settings:
+     the batcher's greedy streams (macro and per-token) equal
+     ``generate``'s, the flash kernel launched, and ``generate``'s streams
+     the same under both settings.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -1152,9 +1179,10 @@ def _ms_list(named):
 # the paged kernel's served decode shapes (float32): qwen3-14b's (phase 4),
 # gemma3-12b's sliding-window layers (phase 15, 40 of its 48 launches a
 # step), recurrentgemma-2b's local layers (phase 18), olmoe-1b-7b's (phase
-# 23), musicgen-large's (phase 24), nemotron-4-340b's (phase 25) and
+# 23), musicgen-large's (phase 24), nemotron-4-340b's (phase 25),
 # paligemma-3b's (phase 27: 8/1 heads of 256, the first 16 columns of
-# every row the shared prefix pages; full rows, 8.4 MB of k/v)
+# every row the shared prefix pages; full rows, 8.4 MB of k/v) and
+# stablelm-12b's (phase 51: 32/8 heads of 160)
 PAGED_SHAPES = {
     "qwen3-14b": dict(b=4, h=40, kv=8, d=128, page=16, n=64, p_phys=256,
                       lengths=[1024, 777, 513, 301]),
@@ -1170,6 +1198,8 @@ PAGED_SHAPES = {
                             p_phys=256, lengths=[1024, 777, 513, 301]),
     "paligemma-3b": dict(b=4, h=8, kv=1, d=256, page=16, n=64, p_phys=256,
                          shared=16, lengths=[1024, 1024, 1024, 1024]),
+    "stablelm-12b": dict(b=4, h=32, kv=8, d=160, page=16, n=64, p_phys=256,
+                         lengths=[1024, 777, 513, 301]),
 }
 
 
@@ -1858,6 +1888,10 @@ FLASH_MAIN = dict(b=4, s=2048, h=16, kv=8, d=256)
 # musicgen-large's prefill (phase 24): an admission packs up to 4 prompts of
 # 128-512 tokens into 512 positions, 32 query heads over 32 KV heads of 64
 MUSICGEN_PREFILL = dict(b=4, s=512, h=32, kv=32, d=64)
+# stablelm-12b's (phase 51) and nemotron-4-340b's (phase 25): the same
+# packing, 32 query heads over 8 KV heads of 160 and 96 over 8 of 192
+STABLELM_PREFILL = dict(b=4, s=512, h=32, kv=8, d=160)
+NEMOTRON_PREFILL = dict(b=4, s=512, h=96, kv=8, d=192)
 # the served cell's access threshold: under near-uniform attention (random
 # weights) a page inside the 1024-token window draws about (40/48)/64 +
 # (8/48)/n ~ 0.015 of its row's layer-averaged mass and a page outside it
@@ -1919,7 +1953,7 @@ def phase_flash_check(fa) -> float:
                  masks=((True, 0), (True, 64), (True, 1024), (False, 0)))
             for dtype in (torch.float32, torch.bfloat16)
             for h, kv in ((4, 4), (4, 2), (8, 1), (16, 8), (40, 8))
-            for d in (16, 32, 64, 128, 256) for s in (1, 37, 256, 2048)]
+            for d in fa.HEAD_DIMS for s in (1, 37, 256, 2048)]
     # the shapes the served path gives the kernel: phase 15's admissions
     # pack 4 and then 2 gemma3-12b prompts into 2048 positions (float32;
     # bfloat16 as item 13b's residual stream will)
@@ -1927,8 +1961,10 @@ def phase_flash_check(fa) -> float:
                   masks=((True, 0), (True, 1024)))
              for dtype in (torch.float32, torch.bfloat16)
              for b in (FLASH_MAIN["b"], 2)]
-    # and phase 24's: musicgen-large's admissions of 4, 2 and 1 prompts
-    grid += [dict(MUSICGEN_PREFILL, b=b, dtype=dtype, masks=((True, 0),))
+    # and phases 24, 51 and 25's: musicgen-large's, stablelm-12b's and
+    # nemotron-4-340b's admissions of 4, 2 and 1 prompts
+    grid += [dict(c, b=b, dtype=dtype, masks=((True, 0),))
+             for c in (MUSICGEN_PREFILL, STABLELM_PREFILL, NEMOTRON_PREFILL)
              for dtype in (torch.float32, torch.bfloat16) for b in (4, 2, 1)]
     worst, worst_f32, worst_row, n_cases = {}, 0.0, {}, 0
     for c in grid:
@@ -1996,13 +2032,13 @@ def phase_flash_check(fa) -> float:
                           f"with its plain version: {str(dtype)[6:]} S={s} "
                           f"T={t} window={window}: err {err:.3g} (tol "
                           f"{tol(dtype, t)}), row err {row:.3g}")
-    print(f"{n_cases} cases (GQA 4/4, 4/2, 8/1, 16/8, 40/8; D 16, 32, 64, "
-          f"128, 256; causal, window 64, window 1024, non-causal; and the "
-          f"served shapes B=4 and 2, S=T=2048, 16/8 heads, D=256, float32 "
-          f"and bfloat16, causal and window 1024, and B=4, 2 and 1, "
-          f"S=T=512, 32/32 heads, D=64, causal; and the chunk shapes with "
-          f"a query offset): worst float32 error {worst_f32:.3g}",
-          flush=True)
+    print(f"{n_cases} cases (GQA 4/4, 4/2, 8/1, 16/8, 40/8; D "
+          f"{', '.join(map(str, fa.HEAD_DIMS))}; causal, window 64, window "
+          f"1024, non-causal; and the served shapes B=4 and 2, S=T=2048, "
+          f"16/8 heads, D=256, float32 and bfloat16, causal and window "
+          f"1024, and B=4, 2 and 1, S=T=512, causal, 32/32 heads of 64, "
+          f"32/8 of 160 and 96/8 of 192; and the chunk shapes with a query "
+          f"offset): worst float32 error {worst_f32:.3g}", flush=True)
     return worst_f32
 
 
@@ -2019,6 +2055,28 @@ def _check_flash_launches(fa, cfg, result) -> int:
         _fail(f"the flash kernel's launches do not match "
               f"{cfg.num_layers} x the admissions")
     return launches
+
+
+def _check_cori_acted(b) -> None:
+    """The Cori loop acted in a served mix: hits counted and the tuner out
+    of its profile window."""
+    mgr, tuner = b.monitor.manager, b.monitor.tuner
+    if mgr.hits <= 0 or tuner.dominant_reuse is None:
+        _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
+              f"reuse {tuner.dominant_reuse} (the tuner never left "
+              "profile)")
+
+
+def _flash_route_check(fa, pa, cfg):
+    """A ``_serve_routes`` check for a config served under
+    ``attention_impl="pallas"``: the flash kernel's launches one a layer
+    an admission, the paged kernel's one a layer a device step."""
+    def check(b, result, eager):
+        result["flash_launches"] = _check_flash_launches(fa, cfg, result)
+        result["launches"] = pa.paged_attention.launches
+        _check_launches("paged_attention", result["launches"],
+                        cfg.num_layers, b, eager)
+    return check
 
 
 def _first_admission(S, reqs, joiners):
@@ -2062,11 +2120,7 @@ def phase_gemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
                         cfg.num_layers, b, eager)
         if not eager:
             streams.update((r.rid, list(r.tokens)) for r in b.completed)
-        mgr, tuner = b.monitor.manager, b.monitor.tuner
-        if mgr.hits <= 0 or tuner.dominant_reuse is None:
-            _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
-                  f"reuse {tuner.dominant_reuse} (the tuner never left "
-                  "profile)")
+        _check_cori_acted(b)
 
     results, reqs = _serve_routes(
         params, cfg, S, memtier, cori, telemetry, kernels, check,
@@ -2133,13 +2187,15 @@ def phase_flash_timing(fa):
     beside its plain version, one SDPA call and the bound of the route it
     takes (float32: 3xTF32, three TF32 passes at 495 TFLOP/s, with the 67
     TFLOP/s CUDA-core figure beside it; bfloat16: one pass at 989
-    TFLOP/s); then musicgen-large's prefill shape in float32, causal.
-    Fails when the float32 kernel is not faster than SDPA a call at the
-    main-path shape; in bfloat16, and at musicgen's shape, the two are
-    recorded side by side (in bfloat16 SDPA may take PyTorch's own flash
-    backend)."""
+    TFLOP/s); then musicgen-large's prefill shape in float32, causal, and
+    stablelm-12b's and nemotron-4-340b's (head dims 160 and 192) in both
+    dtypes, causal.  Fails when the float32 kernel is not faster than
+    SDPA a call at the main-path shape; in bfloat16, and at the prefill
+    shapes, the two are recorded side by side (in bfloat16 SDPA may take
+    PyTorch's own flash backend)."""
     print("== phase 17: flash_attention timing at the main-path shape and "
-          "musicgen-large's prefill", flush=True)
+          "the musicgen-large, stablelm-12b and nemotron-4-340b prefills",
+          flush=True)
     import torch.nn.functional as F
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
     before = fa.flash_attention.launches
@@ -2150,6 +2206,10 @@ def phase_flash_timing(fa):
              (torch.float32, torch.bfloat16)]
     cases.append((MUSICGEN_PREFILL, torch.float32, (0,),
                   "musicgen-large prefill "))
+    cases += [(c, dtype, (0,), f"{name} prefill ")
+              for name, c in (("stablelm-12b", STABLELM_PREFILL),
+                              ("nemotron-4-340b", NEMOTRON_PREFILL))
+              for dtype in (torch.float32, torch.bfloat16)]
     for c, dtype, windows, prefix in cases:
         b, s, h, kv, d = c["b"], c["s"], c["h"], c["kv"], c["d"]
         pos = torch.arange(s, device=DEV)
@@ -2199,6 +2259,13 @@ def phase_flash_timing(fa):
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             route = ("3xTF32: 3 x the flops at 495 TFLOP/s" if f32
                      else "bf16: one pass at 989 TFLOP/s")
+            # the kernel's grid: a block takes the whole GQA group where it
+            # divides the block's rows, else one head (each K/V tile then
+            # staged once a head of the group)
+            plan = fa.block_plan(b, s, s, h, kv)
+            print(f"B={b} S=T={s} H={h} KV={kv} D={d} {name}: {len(plan)} "
+                  f"blocks of {len(plan[0][2])} head(s) x "
+                  f"{len(plan[0][1])} positions", flush=True)
             print(f"B={b} S=T={s} H={h} KV={kv} D={d} {name} (err "
                   f"{err:.3g} vs plain, tol {tol}"
                   f"{'' if f32 else f'; row err {row:.3g}'}): kernel {ms:.4f} ms a "
@@ -2312,11 +2379,7 @@ def phase_rgemma(C, mdl, pa, rg_, S, memtier, cori, telemetry, kernels):
                         eager)
         _check_cell_launches("rglru_scan", result["rglru_launches"], n_rglru,
                              b, result)
-        mgr, tuner = b.monitor.manager, b.monitor.tuner
-        if mgr.hits <= 0 or tuner.dominant_reuse is None:
-            _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
-                  f"reuse {tuner.dominant_reuse} (the tuner never left "
-                  "profile)")
+        _check_cori_acted(b)
 
     results, _ = _serve_routes(
         params, cfg, S, memtier, cori, telemetry, kernels, check,
@@ -4017,14 +4080,9 @@ def phase_musicgen(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
     print(f"conditioning {tuple(cond.shape)} drawn N(0, 1) from the seed, "
           f"attended by every layer's cross-attention", flush=True)
 
-    def check(b, result, eager):
-        result["flash_launches"] = _check_flash_launches(fa, cfg, result)
-        result["launches"] = pa.paged_attention.launches
-        _check_launches("paged_attention", result["launches"],
-                        cfg.num_layers, b, eager)
-
     results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
-                               kernels, check, cond=cond)
+                               kernels, _flash_route_check(fa, pa, cfg),
+                               cond=cond)
     results["graph"]["cross_kv"] = _cross_kv_ms(
         params, cond, 4, results["graph"]["profile"]["ms_per_step"])
     held = torch.cuda.memory_allocated()
@@ -4035,11 +4093,11 @@ def phase_musicgen(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
 
 def phase_nemotron(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
     print("== phase 25: nemotron-4-340b at full width serving (96/8 heads of "
-          "192, squared-ReLU MLP, depth cut, macro-step batcher)",
-          flush=True)
+          "192, squared-ReLU MLP, depth cut, flash prefill, macro-step "
+          "batcher)", flush=True)
     full = C.get("nemotron-4-340b")
     cfg, params = _init_full(C, mdl, "nemotron-4-340b", segments=(
-        (("attn",), NEMOTRON_LAYERS),))
+        (("attn",), NEMOTRON_LAYERS),), attention_impl="pallas")
     layer = sum(p.numel() for p in params.segments.parameters())
     print(f"reduced: depth {full.num_layers} -> {cfg.num_layers} layers "
           f"(segments {cfg.segments}), widths unchanged: "
@@ -4047,13 +4105,25 @@ def phase_nemotron(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
           f"untied embedding and unembedding "
           f"{cfg.vocab_size * cfg.d_model / 1e9:.3f} B each", flush=True)
 
+    results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
+                               kernels, _flash_route_check(fa, pa, cfg))
+    held = torch.cuda.memory_allocated()
+    del params
+    _check_freed(held)
+    return results
+
+
+def phase_stablelm(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
+    print("== phase 51: full-width, full-depth stablelm-12b serving (32/8 "
+          "heads of 160, SwiGLU MLP, flash prefill, macro-step batcher)",
+          flush=True)
+    cfg, params = _init_full(C, mdl, "stablelm-12b", attention_impl="pallas")
+
+    launches = _flash_route_check(fa, pa, cfg)
+
     def check(b, result, eager):
-        result["launches"] = pa.paged_attention.launches
-        _check_launches("paged_attention", result["launches"],
-                        cfg.num_layers, b, eager)
-        if fa.flash_attention.launches:
-            _fail("nemotron-4-340b (head dim 192, attention_impl "
-                  "'reference') launched the flash kernel")
+        launches(b, result, eager)
+        _check_cori_acted(b)
 
     results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
                                kernels, check)
@@ -4073,6 +4143,32 @@ def phase_cond_parity(C, mdl, S, memtier, cori, engine):
         _parity(dataclasses.replace(C.reduced(name), dtype="float32",
                                     attention_impl=impl), mdl, S, memtier,
                 cori, engine)
+
+
+def phase_flash_parity(C, mdl, S, memtier, cori, engine, fa):
+    print("== phase 52: parity on the card (reduced stablelm-12b at head "
+          "dim 160 and nemotron-4-340b at 192, float32)", flush=True)
+    for name, hd in (("stablelm-12b", 160), ("nemotron-4-340b", 192)):
+        streams = {}
+        for impl in ("pallas", "reference"):
+            print(f"reduced {name}, head dim {hd}, attention_impl {impl}:",
+                  flush=True)
+            fa.flash_attention.launches = 0
+            streams[impl] = _parity(dataclasses.replace(
+                C.reduced(name), head_dim=hd, dtype="float32",
+                attention_impl=impl), mdl, S, memtier, cori, engine)
+            launches = fa.flash_attention.launches
+            print(f"flash_attention launches {launches}", flush=True)
+            if (launches > 0) != (impl == "pallas"):
+                _fail(f"reduced {name} under {impl}: {launches} flash "
+                      "launches")
+        same = streams["pallas"] == streams["reference"]
+        print(f"generate's greedy streams, pallas == reference: {same}",
+              flush=True)
+        if not same:
+            _fail(f"reduced {name}: the flash route's streams "
+                  f"{streams['pallas']} differ from the reference route's "
+                  f"{streams['reference']}")
 
 
 # ---------------------------------------------------------------------------
@@ -4111,11 +4207,7 @@ def phase_paligemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
         if fa.flash_attention.launches:
             _fail("paligemma-3b (attention_impl 'reference': the flash "
                   "kernel has no prefix-LM mask) launched the flash kernel")
-        mgr, tuner = b.monitor.manager, b.monitor.tuner
-        if mgr.hits <= 0 or tuner.dominant_reuse is None:
-            _fail(f"the Cori loop did not act: {mgr.hits} hits, dominant "
-                  f"reuse {tuner.dominant_reuse} (the tuner never left "
-                  "profile)")
+        _check_cori_acted(b)
 
     results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
                                kernels, check, n_logical=512,
@@ -5852,8 +5944,12 @@ def main() -> int:
                      memtier, cori, telemetry, kernels)
     nemotron = timed("nemotron serving", phase_nemotron, C, mdl, pa, fa, S,
                      memtier, cori, telemetry, kernels)
+    stablelm = timed("stablelm serving", phase_stablelm, C, mdl, pa, fa, S,
+                     memtier, cori, telemetry, kernels)
     timed("conditioning parity", phase_cond_parity, C, mdl, S, memtier, cori,
           engine)
+    timed("flash parity at head dims 160 and 192", phase_flash_parity, C,
+          mdl, S, memtier, cori, engine, fa)
     pcfg, params, ex, paligemma = timed(
         "paligemma serving", phase_paligemma, C, mdl, pa, fa, S, memtier,
         cori, telemetry, kernels)
@@ -5915,6 +6011,19 @@ def main() -> int:
             dryrun_proc.communicate()
     main_case = flash_timing.pop("float32 window 1024")
     musicgen_flash = flash_timing.pop("musicgen-large prefill float32 causal")
+    # the new head dims' prefill shapes, each with the launches of the phase
+    # that serves it (float32)
+    served = {"stablelm-12b": (STABLELM_PREFILL, stablelm, 51),
+              "nemotron-4-340b": (NEMOTRON_PREFILL, nemotron, 25)}
+    wide_flash = {}
+    for name, (c, res, ph) in served.items():
+        for dt in ("float32", "bfloat16"):
+            key = (f"{name} prefill B={c['b']} S=T={c['s']} {c['h']}/"
+                   f"{c['kv']} heads D={c['d']} {dt} causal (phase 17"
+                   + (f", {ph})" if dt == "float32" else ")"))
+            wide_flash[key] = flash_timing.pop(f"{name} prefill {dt} causal")
+            if dt == "float32":
+                wide_flash[key]["launches"] = res["graph"]["flash_launches"]
     main_routed = routed.pop("deepseek-v3-671b")
     chunk_timing = gpiped.pop("chunk_timing")
     print(f"card: {card}; serving {serve}; dense {dense}; pipelined "
@@ -5927,7 +6036,8 @@ def main() -> int:
           f"{rglru}; rglru_scan_backward {rglru_bwd}; olmoe {olmoe}; "
           f"musicgen "
           f"{musicgen}; nemotron "
-          f"{nemotron}; paligemma {paligemma}; training {train}; batcher "
+          f"{nemotron}; stablelm {stablelm}; paligemma {paligemma}; "
+          f"training {train}; batcher "
           f"options {options}; dry-run {dry}; flash "
           f"timing beside float32 "
           f"window "
@@ -5956,6 +6066,9 @@ def main() -> int:
                  "nemotron-4-340b decode (phase 25)": dict(
                  timing["nemotron-4-340b"],
                  launches=nemotron["graph"]["launches"]),
+                 "stablelm-12b decode (phase 51)": dict(
+                 timing["stablelm-12b"],
+                 launches=stablelm["graph"]["launches"]),
                  "paligemma-3b decode (phase 27)": dict(
                  timing["paligemma-3b"],
                  launches=paligemma["graph"]["launches"]),
@@ -5996,7 +6109,8 @@ def main() -> int:
                  "musicgen-large prefill B=4 S=T=512 32/32 heads D=64 "
                  "float32 causal (phases 17, 24)": dict(
                      musicgen_flash,
-                     launches=musicgen["graph"]["flash_launches"])}, **{
+                     launches=musicgen["graph"]["flash_launches"])},
+                 **wide_flash, **{
                  f"gemma3-12b admission chunk B=1 S=512 q_offset={k[6:]} "
                  "16/8 heads D=256 float32 window 1024 (phase 33; launches: "
                  "every chunk of the run)": dict(

@@ -63,15 +63,19 @@
 //     and a v tile, in q's dtype, laid out so that every fragment load is
 //     free of bank conflicts: float32 q and k rows unpadded with their
 //     16-byte chunks swizzled by row parity, v rows padded to 4 words mod
-//     32; bfloat16 rows padded (q and k 64 bytes mod 128, v an odd number
-//     of 16-byte units for ldmatrix) -- 229,888 B in float32 at D = 256;
-//   * 16-byte cp.async copies.  Where two k/v buffers fit (bfloat16, and
-//     float32 up to D = 128) the next tile is copied during this one, with
-//     one barrier a tile (11-14% faster than one buffer of each in
-//     bfloat16, 2-3% in float32 at D = 128; PERF.md).  float32 at D = 256
-//     has room for one of each: v of this tile is copied during q . k and
-//     softmax, k of the next tile during p v, with two barriers a tile.
-//     Rows past S or T are zero-filled;
+//     32; bfloat16 rows 64 bytes mod 128 (q and k, padded where 2D is 0
+//     mod 128) and v an odd number of 16-byte units for ldmatrix --
+//     229,888 B in float32 at D = 256;
+//   * 16-byte cp.async copies, a tile's (row, 16-byte chunk) pairs walked
+//     row-major by the block's 256 threads (for_chunks: a row's chunks
+//     need not divide 256, 40 at D = 160 in float32).  Where two k/v
+//     buffers fit (bfloat16, and float32 up to D = 160: 205,824 B there)
+//     the next tile is copied during this one, with one barrier a tile
+//     (11-14% faster than one buffer of each in bfloat16, 2-3% in float32
+//     at D = 128; PERF.md).  float32 at D = 192, 224 and 256 has room
+//     for one of each (172,544, 201,216 and 229,888 B): v of this tile is
+//     copied during q . k and softmax, k of the next tile during p v,
+//     with two barriers a tile.  Rows past S or T are zero-filled;
 //   * only kv tiles that hold an attended key of the block are visited
 //     (mirrored by kernels/flash_attention.py::block_plan); a warp none of
 //     whose rows attends a key of the tile skips its products, and the
@@ -80,7 +84,8 @@
 //     bit-identical.
 //
 // The wrapper guarantees contiguous inputs, 16-byte aligned pointers and
-// D in {16, 32, 64, 128, 256}.
+// D in {16, 32, 64, 96, 128, 160, 192, 224, 256}: 16 and every multiple of
+// 32 up to 256, the TPU kernel's registered head dims among them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -104,9 +109,11 @@ template <typename T, int D>
 struct Layout {
   static constexpr bool kF32 = std::is_same<T, float>::value;
   // q and k: float32 rows unpadded, their 16-byte chunks swizzled
-  // (swz_qk); bfloat16 64 bytes mod 128 for the 16-byte loads (D >= 32),
-  // 32 bytes for D = 16's 8-byte ones
-  static constexpr int kLDQ = kF32 ? D : (D >= 64 ? D + 32 : D);
+  // (swz_qk); bfloat16 rows 64 bytes mod 128 for the 16-byte loads (D >=
+  // 32: 2D is 64 mod 128 as it is at D = 32, 96, 160 and 224, and is
+  // padded by 32 elements where it is 0 mod 128), 32 bytes for D = 16's
+  // 8-byte ones
+  static constexpr int kLDQ = (kF32 || D % 64) ? D : D + 32;
   // v: 4 words mod 32 (float32), an odd number of 16-byte units (bf16)
   static constexpr int kLDV = kF32 ? (D % 32 ? D + 20 : D + 4) : D + 8;
   static constexpr size_t kQ = (size_t)kRows * kLDQ;             // elements
@@ -145,23 +152,41 @@ __device__ __forceinline__ void wait_async_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Walk this thread's (row, chunk) pairs of a tile of `rows` rows of
+// kChunks 16-byte chunks: the pairs in row-major order, thread i taking
+// pairs i, i + 256, ...  Where kChunks divides 256 (D a power of two) a
+// thread keeps one chunk column and the carry below compiles away; at D =
+// 96, 160, 192 and 224 it does not.
+template <int kChunks, typename F>
+__device__ __forceinline__ void for_chunks(int rows, F f) {
+  constexpr int kStep = kThreads / kChunks;   // whole rows a pass
+  constexpr int kRem = kThreads % kChunks;    // and chunks beyond them
+  int cc = threadIdx.x % kChunks;
+  for (int r = threadIdx.x / kChunks; r < rows; r += kStep) {
+    f(r, cc);
+    if constexpr (kRem != 0) {
+      cc += kRem;
+      if (cc >= kChunks) {
+        cc -= kChunks;
+        ++r;
+      }
+    }
+  }
+}
+
 // Copy `rows` rows of D elements into a shared tile of row stride LD with
-// 16-byte cp.async; thread i copies chunk i % C of rows i / C + j 256 / C
-// (C chunks a row), float32 q and k rows swizzled (kSwz).  `src(r, ok)`
-// gives row r's source and whether it exists; rows that do not are
-// zero-filled (src-size 0 reads nothing).
+// 16-byte cp.async (for_chunks' pairs), float32 q and k rows swizzled
+// (kSwz).  `src(r, ok)` gives row r's source and whether it exists; rows
+// that do not are zero-filled (src-size 0 reads nothing).
 template <typename T, int D, int LD, bool kSwz, typename Src>
 __device__ __forceinline__ void stage(T* dst, int rows, Src src) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;          // divides kThreads
-  constexpr int kStep = kThreads / kChunks;  // rows a pass
-  const int cc = threadIdx.x % kChunks;
-  for (int r = threadIdx.x / kChunks; r < rows; r += kStep) {
+  for_chunks<D / kVec>(rows, [&](int r, int cc) {
     bool ok;
     const T* s = src(r, ok);
     const int pc = kSwz ? swz_qk<D>(r, cc) : cc;
     cp_async16(dst + r * LD + pc * kVec, s + cc * kVec, ok ? 16 : 0);
-  }
+  });
 }
 
 // TF32 rounding as cvt.rna.tf32.f32 (to nearest, ties away from zero, to
@@ -188,15 +213,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Split a float32 k tile that this thread staged (stage's chunks) in
-// place, once a block instead of once a warp: hi over the copy, lo into
-// `lo` at the same offsets.
+// Split a float32 k tile that this thread staged (stage's pairs: its own
+// cp.async copies are the ones it waited for) in place, once a block
+// instead of once a warp: hi over the copy, lo into `lo` at the same
+// offsets.
 template <int D>
 __device__ __forceinline__ void split_tile(float* hi, float* lo) {
-  constexpr int kChunks = D / 4;
-  constexpr int kStep = kThreads / kChunks;
-  const int cc = threadIdx.x % kChunks;
-  for (int r = threadIdx.x / kChunks; r < kBKV; r += kStep) {
+  for_chunks<D / 4>(kBKV, [&](int r, int cc) {
     const int off = r * D + 4 * swz_qk<D>(r, cc);
     const float4 x = *reinterpret_cast<const float4*>(hi + off);
     uint4 h, l;
@@ -206,7 +229,7 @@ __device__ __forceinline__ void split_tile(float* hi, float* lo) {
     split(x.w, h.w, l.w);
     *reinterpret_cast<uint4*>(hi + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
-  }
+  });
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -691,25 +714,24 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      void* out, int B, int S, int T_len, int H, int KV,
                      float scale, int causal, int window, int q_off,
                      cudaStream_t stream) {
+#define FLASH_CASE(d)                                                       \
+  case d:                                                                   \
+    return launch<T, d>(q, k, v, out, B, S, T_len, H, KV, scale, causal,    \
+                        window, q_off, stream);
   switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                           window, q_off, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                           window, q_off, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                           window, q_off, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                            window, q_off, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, out, B, S, T_len, H, KV, scale, causal,
-                            window, q_off, stream);
+    FLASH_CASE(16)
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(96)
+    FLASH_CASE(128)
+    FLASH_CASE(160)
+    FLASH_CASE(192)
+    FLASH_CASE(224)
+    FLASH_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
+#undef FLASH_CASE
 }
 
 }  // namespace

@@ -18,7 +18,9 @@ to TF32; lo*hi + hi*lo + hi*hi), bfloat16 in one pass.
 Semantics (shared by the kernel and the plain version, those of the TPU
 kernel with its query positions shifted by ``q_offset``): q [B, S, H, D];
 k/v [B, T, KV, D] with KV dividing H (query head h reads KV head
-h // (H // KV)) and ``q_offset + S <= T``; D in {16, 32, 64, 128, 256}.
+h // (H // KV)) and ``q_offset + S <= T``; D in ``HEAD_DIMS``: 16 and every
+multiple of 32 up to 256 (the TPU kernel takes any D; these cover its
+registered configs' head dims, 160 and 192 among them).
 Query i sits at position ``q_offset + i`` and key j at j: query i attends
 key j when ``j <= q_offset + i`` (``causal``) and ``j > q_offset + i -
 window`` (``window > 0``).  ``q_offset`` is a prefill chunk's start (its
@@ -43,7 +45,7 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 
 NAME = "flash_attention"
 NVCC_FLAGS = _build.BASE_FLAGS
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 224, 256)
 NEG = -1e30     # masked logits, as the TPU kernel
 BLOCK_ROWS = 128    # query rows a block owns: 8 warps x 16
 KV_TILE = 32        # keys a kv tile holds

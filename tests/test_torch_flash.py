@@ -8,15 +8,17 @@ itself is held against the plain version on the card by
 
 Inputs come from a numpy seed.  The Pallas kernel needs tiles that divide
 S and T, so lengths that no tile divides (S = 1, 37, 200) and D = 256 are
-held to the oracles only.  Tolerances: 2e-5 absolute in float32 (the
-implementations reduce in different orders) and 2e-2 for bfloat16 inputs,
-those of ``tests/test_kernels.py``'s flash tests.
+held to the oracles only; the head dims that are no power of two (160,
+192) go through the Pallas kernel too.  Tolerances: 2e-5 absolute in
+float32 (the implementations reduce in different orders) and 2e-2 for
+bfloat16 inputs, those of ``tests/test_kernels.py``'s flash tests.
 
 The CUDA kernel's own arithmetic is checked here where it can be: its
 3xTF32 products, emulated in torch, meet the float32 tolerances it is
 held to on the card (2e-5 up to 512 keys, 1e-4 at 2048) while one TF32
-pass misses them, and its grid (``block_plan``) visits every attended
-(query, key) pair exactly once."""
+pass misses them, its grid (``block_plan``) visits every attended
+(query, key) pair exactly once, and its copy walk stages every 16-byte
+chunk of a tile once at every head dim it takes."""
 import numpy as np
 import pytest
 import torch
@@ -83,6 +85,20 @@ def test_plain_and_oracle_match_pallas(s, h, kv, d, dtype):
     _check(args, TOL[dtype], pallas_tiles=128)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("h", [4, 12])
+@pytest.mark.parametrize("d", [160, 192])
+def test_head_dims_that_are_no_power_of_two_match_pallas(d, h, window,
+                                                         dtype):
+    """stablelm-12b's head dim (160) and nemotron-4-340b's (192), with
+    their GQA groups of 4 and 12 query heads a KV head (12 does not divide
+    the kernel's 128 rows: one head a block), causal and windowed, at S =
+    128 in tiles of 64."""
+    args = _inputs(d + h + window, 1, 128, h, 1, d, dtype)
+    _check(args, TOL[dtype], pallas_tiles=64, window=window)
+
+
 def test_sliding_window_matches_pallas():
     args = _inputs(3, 1, 256, 4, 4, 64)
     _check(args, TOL["float32"], pallas_tiles=64, window=64)
@@ -129,7 +145,7 @@ def test_output_dtypes_follow_the_reference():
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
-    """A soft-cap, a head dim outside 16/32/64/128/256, S > T and a tensor
+    """A soft-cap, a head dim outside ``HEAD_DIMS`` (48), S > T and a tensor
     that is neither on the CPU nor on a CUDA card raise on every device
     (the plain version would take the middle two; the kernel does not)."""
     q, k, v = (_t(a) for a in _inputs(0, 1, 8, 2, 2, 16))
@@ -225,13 +241,13 @@ _SPLIT_CASES = [(2, 1, 16, 8, True, 0), (2, 37, 16, 8, True, 0),
                 (2, 200, 16, 8, False, 0), (1, 2048, 2, 1, True, 1024)]
 
 
-@pytest.mark.parametrize("b,s,h,kv,causal,window", _SPLIT_CASES)
-def test_3xtf32_products_meet_the_float32_tolerances(b, s, h, kv, causal,
-                                                     window):
-    """q.k and p.v in 3xTF32 at D = 256 against ``flash_attention_plain``
-    and the JAX oracle: 2e-5 up to 512 keys, 1e-4 at 2048 (the kernel's
-    tolerances on the card)."""
-    q, k, v = _inputs(s + h, b, s, h, kv, 256)
+# stablelm-12b's head dim and GQA group (32/8 heads: 4 a KV head)
+_SPLIT_CASES_160 = [(2, 37, 4, 1, True, 0), (1, 256, 8, 2, True, 64),
+                    (1, 512, 4, 1, True, 0)]
+
+
+def _split_check(b, s, h, kv, causal, window, d):
+    q, k, v = _inputs(s + h, b, s, h, kv, d)
     kw = dict(causal=causal, window=window)
     ours = _emulated(*(_t(a) for a in (q, k, v)), passes=3, **kw)
     tol = 2e-5 if s <= 512 else 1e-4
@@ -242,18 +258,45 @@ def test_3xtf32_products_meet_the_float32_tolerances(b, s, h, kv, causal,
         np.testing.assert_allclose(_np(ours), _np(r), atol=tol, rtol=0)
 
 
+def _one_pass_check(b, s, h, kv, causal, window, d):
+    q, k, v = _inputs(s + h, b, s, h, kv, d)
+    kw = dict(causal=causal, window=window)
+    one = _emulated(*(_t(a) for a in (q, k, v)), passes=1, **kw)
+    plain = tfa.flash_attention_plain(*(_t(a) for a in (q, k, v)), **kw)
+    tol = 2e-5 if s <= 512 else 1e-4
+    assert float((one - plain).abs().max()) > tol
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,window", _SPLIT_CASES)
+def test_3xtf32_products_meet_the_float32_tolerances(b, s, h, kv, causal,
+                                                     window):
+    """q.k and p.v in 3xTF32 at D = 256 against ``flash_attention_plain``
+    and the JAX oracle: 2e-5 up to 512 keys, 1e-4 at 2048 (the kernel's
+    tolerances on the card)."""
+    _split_check(b, s, h, kv, causal, window, 256)
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,window", _SPLIT_CASES_160)
+def test_3xtf32_products_meet_the_float32_tolerances_at_d160(
+        b, s, h, kv, causal, window):
+    """The same bars at stablelm-12b's head dim, 160 (five 32-dim groups
+    a row, an odd count)."""
+    _split_check(b, s, h, kv, causal, window, 160)
+
+
 @pytest.mark.parametrize("b,s,h,kv,causal,window", _SPLIT_CASES)
 def test_one_tf32_pass_misses_the_float32_tolerances(b, s, h, kv, causal,
                                                      window):
     """Why the kernel splits: one TF32 pass (hi*hi) misses the same bars
     on the same inputs.  At S = 1 the output is v itself, rounded by
     ~2^-11 relative."""
-    q, k, v = _inputs(s + h, b, s, h, kv, 256)
-    kw = dict(causal=causal, window=window)
-    one = _emulated(*(_t(a) for a in (q, k, v)), passes=1, **kw)
-    plain = tfa.flash_attention_plain(*(_t(a) for a in (q, k, v)), **kw)
-    tol = 2e-5 if s <= 512 else 1e-4
-    assert float((one - plain).abs().max()) > tol
+    _one_pass_check(b, s, h, kv, causal, window, 256)
+
+
+@pytest.mark.parametrize("b,s,h,kv,causal,window", _SPLIT_CASES_160)
+def test_one_tf32_pass_misses_the_float32_tolerances_at_d160(
+        b, s, h, kv, causal, window):
+    _one_pass_check(b, s, h, kv, causal, window, 160)
 
 
 _PLAN_MASKS = [(300, 300, True, 0), (300, 300, True, 64),
@@ -264,14 +307,20 @@ _PLAN_MASKS = [(300, 300, True, 0), (300, 300, True, 64),
 @pytest.mark.parametrize("h,kv,s,t,causal,window", [
     (h, kv) + m for h, kv in ((4, 4), (4, 2), (10, 2), (16, 2), (128, 1))
     for m in _PLAN_MASKS] + [(4, 4, 1100, 1100, True, 1024),
-                             (4, 2, 1100, 1100, True, 1024)])
+                             (4, 2, 1100, 1100, True, 1024)]
+    # the served GQA groups at head dims 160 and 192: stablelm-12b's 32/8
+    # (rep 4) and nemotron-4-340b's 96/8 (rep 12, one head a block), over
+    # an admission of 512 positions
+    + [(h, kv, 512, 512, True, 0) for h, kv in ((32, 8), (96, 8))])
 def test_block_plan_visits_each_attended_pair_once(h, kv, s, t, causal,
                                                    window):
     """``block_plan`` (the kernel's grid): every (query, head) row in one
     block of at most ``BLOCK_ROWS`` rows, every attended (row, key) pair in
     exactly one visited tile of it, no visited tile without an attended
     pair, and the last query tile first (the heaviest under a plain causal
-    mask).  GQA rep 1, 2, 5 (one head a block), 8 and 128."""
+    mask).  GQA rep 1, 2, 5 (one head a block), 8 and 128, and the served
+    groups of 4 and 12 (one head a block).  The plan does not depend on
+    the head dim."""
     i = np.arange(s)[:, None]
     j = np.arange(t)[None, :]
     attended = np.ones((s, t), bool)
@@ -413,3 +462,47 @@ def test_block_plan_with_query_offset_visits_each_attended_pair_once(
                 += sub
     assert (owner == 1).all()
     np.testing.assert_array_equal(seen, np.broadcast_to(attended, seen.shape))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's copy walk (``for_chunks`` in csrc/flash_attention.cu): a
+# tile of ``rows`` rows of C 16-byte chunks, thread i of 256 taking pairs
+# i, i + 256, ... in row-major order; stepped as the kernel steps it (whole
+# rows a pass, then the chunks beyond them with a carry).
+
+
+def _chunk_walk(tid, rows, chunks, threads=256):
+    step, rem = divmod(threads, chunks)
+    r, cc = divmod(tid, chunks)
+    out = []
+    while r < rows:
+        out.append((r, cc))
+        if rem:
+            cc += rem
+            if cc >= chunks:
+                cc -= chunks
+                r += 1
+        r += step
+    return out
+
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_copy_walk_covers_every_chunk_once(d):
+    """At every head dim, float32 (D / 4 chunks a row) and bfloat16 (D /
+    8), for the k / v tiles (32 rows) and the q tile (128): the threads'
+    walks cover every (row, chunk) pair exactly once, each thread's pairs
+    those of tid + 256 j, and where the chunks divide 256 a thread keeps
+    one chunk column (the walk before the head dims that are no power of
+    two)."""
+    for chunks in (d // 4, d // 8):
+        for rows in (tfa.KV_TILE, tfa.BLOCK_ROWS):
+            seen = np.zeros((rows, chunks), np.int32)
+            for tid in range(256):
+                walk = _chunk_walk(tid, rows, chunks)
+                assert walk == [divmod(i, chunks) for i in
+                                range(tid, rows * chunks, 256)]
+                for r, cc in walk:
+                    seen[r, cc] += 1
+                if 256 % chunks == 0:
+                    assert len({cc for _, cc in walk}) <= 1
+            assert (seen == 1).all()

@@ -651,14 +651,20 @@ def _flash_inputs(dev, dt, b, s, t, h, kv, d, seed):
                                               True, 0),
     # D = 32; rep 5 (one head a block); S < T
     (2, 300, 300, 8, 2, 32, True, 64), (1, 333, 333, 40, 8, 256, True, 0),
-    (2, 70, 300, 16, 8, 256, True, 0), (1, 37, 100, 10, 2, 64, False, 16)])
+    (2, 70, 300, 16, 8, 256, True, 0), (1, 37, 100, 10, 2, 64, False, 16),
+    # head dims that are no power of two: stablelm-12b's admissions (32/8
+    # of 160), nemotron-4-340b's (96/8 of 192: rep 12, one head a block),
+    # 96 and 224
+    (4, 512, 512, 32, 8, 160, True, 0), (1, 333, 333, 32, 8, 160, True, 64),
+    (2, 300, 300, 96, 8, 192, True, 0), (1, 37, 100, 96, 8, 192, False, 16),
+    (2, 100, 100, 8, 2, 96, True, 33), (1, 200, 200, 4, 4, 224, True, 0)])
 def test_flash_kernel_matches_plain(dtype, b, s, t, h, kv, d, causal,
                                    window):
     """The CUDA flash kernel against its plain version on the card: GQA
-    (rep 1, 2, 5, 8), every head dim it takes, lengths no tile divides
-    (S = 1 included), S < T, causal, sliding-window and non-causal masks,
-    and the served shapes; the launch counter moves by one and the output
-    has q's dtype."""
+    (rep 1, 2, 4, 5, 8, 12), every head dim it takes, lengths no tile
+    divides (S = 1 included), S < T, causal, sliding-window and
+    non-causal masks, and the served shapes; the launch counter moves by
+    one and the output has q's dtype."""
     dev = _card()
     dt = getattr(torch, dtype)
     q, k, v = _flash_inputs(dev, dt, b, s, t, h, kv, d, s + h + d)

@@ -202,17 +202,34 @@ def test_other_geometries_raise_not_implemented(arch):
         TM.init(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("arch,head_dim", [("stablelm-12b", 160),
+                                           ("nemotron-4-340b", 192)])
+def test_flash_route_takes_the_registered_head_dims(arch, head_dim):
+    """The registered configs whose head dims are no power of two build
+    under ``attention_impl="pallas"`` at those head dims (reduced
+    widths otherwise), and their full-width configs pass the check."""
+    assert TC.get(arch).head_dim == head_dim
+    assert head_dim in TM.HEAD_DIMS
+    TM.check_supported(dataclasses.replace(TC.get(arch),
+                                           attention_impl="pallas"))
+    cfg = dataclasses.replace(TC.reduced(arch), head_dim=head_dim,
+                              attention_impl="pallas")
+    params = TM.init(cfg, device="cpu")
+    slot = params.segments[0][0]
+    assert slot.wq.shape[-1] == cfg.num_heads * head_dim
+
+
 @pytest.mark.parametrize("arch,change,match", [
     ("deepseek-v3-671b", {}, "MLA"),
     ("qwen3-14b", {"softcap": 30.0}, "softcap"),
-    ("qwen3-14b", {"head_dim": 160}, "head dim"),
-    ("qwen3-14b", {"head_dim": 192}, "head dim"),
+    ("qwen3-14b", {"head_dim": 80}, "head dim"),
+    ("qwen3-14b", {"head_dim": 288}, "head dim"),
     ("xlstm-1.3b", {}, None)])
 def test_flash_route_refuses_what_its_kernel_cannot_take(arch, change,
                                                          match):
     """``attention_impl="pallas"`` raises for MLA slots (d_qk != d_v), a
-    soft-cap and head dims outside ``HEAD_DIMS`` (stablelm-12b's 160,
-    nemotron-4-340b's 192), which the flash kernel cannot take; the same
+    soft-cap and head dims outside ``HEAD_DIMS`` (80: no multiple of 32;
+    288: above 256), which the flash kernel cannot take; the same
     configs build under ``"reference"``, and an unknown setting raises.
     A config without attention slots takes either setting (``match``
     None): full-width xlstm-1.3b, whose head dim of 512 no flash launch

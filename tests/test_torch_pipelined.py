@@ -11,14 +11,17 @@
     reference's on bridged weights for every batched-prefill
     architecture of the geometry matrix (qwen3, gemma3 with its window of
     8 split by chunks of 4 and 6, deepseek MLA + MoE, olmoe, musicgen
-    with its conditioning, nemotron, stablelm), under both
+    with its conditioning, nemotron, stablelm; nemotron and stablelm also
+    at their registered head dims, 192 and 160), under both
     ``attention_impl`` settings, and against the port's own
     ``prefill_batched``;
   * the pipelined ``ContinuousBatcher``, with and without
     ``admit_chunk_tokens``, against the reference's pipelined batcher on
     the same weights and staggered requests (reduced gemma3, qwen3,
     deepseek, musicgen): greedy streams rid for rid, migrations, hits,
-    misses and the tuner's history, every page returned; sampled streams
+    misses and the tuner's history, every page returned; the synchronous
+    batcher on reduced stablelm at head dim 160 through the flash route
+    against the reference's batcher; sampled streams
     held to the port's own parity (pipelined == synchronous == chunked ==
     ``generate``);
   * the table-upload counters and the closed set of pipeline stages, and
@@ -69,6 +72,8 @@ CHUNK_ARCHS = ["qwen3-14b", "gemma3-12b", "deepseek-v3-671b",
                "olmoe-1b-7b", "musicgen-large", "nemotron-4-340b",
                "stablelm-12b"]
 SERVED = ["gemma3-12b", "qwen3-14b", "deepseek-v3-671b", "musicgen-large"]
+# the registered configs whose head dims are no power of two
+FULL_HEAD_DIMS = [("stablelm-12b", 160), ("nemotron-4-340b", 192)]
 # qwen3 as tests/test_torch_serve.py serves it: GQA 4/2, two layers
 QWEN_KW = dict(num_kv_heads=2, segments=((("attn",), 2),))
 N_LOGICAL, HBM, PAGE = 48, 16, 4
@@ -79,9 +84,14 @@ ARRIVAL = (0, 0, 2, 2)             # two join mid-flight, into used rows
 _CACHE = {}
 
 
-def _models(arch):
-    if arch not in _CACHE:
+def _models(arch, head_dim=None):
+    """Bridged weights of reduced ``arch`` (``head_dim``: the registered
+    config's own head dim in place of the reduced 16)."""
+    key = (arch, head_dim)
+    if key not in _CACHE:
         kw = dict(QWEN_KW) if arch == "qwen3-14b" else {}
+        if head_dim is not None:
+            kw["head_dim"] = head_dim
         rcfg = dataclasses.replace(RC.reduced(arch), dtype="float32", **kw)
         tcfg = dataclasses.replace(TC.reduced(arch), dtype="float32", **kw)
         rp, _ = RM.init(jax.random.PRNGKey(0), rcfg)
@@ -95,9 +105,9 @@ def _models(arch):
             cond = rng.standard_normal(
                 (1, rcfg.cond_len, rcfg.cond_dim or rcfg.d_model)) \
                 .astype(np.float32)
-        _CACHE[arch] = dict(rcfg=rcfg, rp=rp, tcfg=tcfg, tp=tp,
-                            prompts=prompts, cond=cond)
-    return _CACHE[arch]
+        _CACHE[key] = dict(rcfg=rcfg, rp=rp, tcfg=tcfg, tp=tp,
+                           prompts=prompts, cond=cond)
+    return _CACHE[key]
 
 
 def _close(t, r, atol):
@@ -285,7 +295,20 @@ def test_prefill_chunk_matches_reference(arch, impl):
     the reference's ``chunk_past_extend``, and the final past and each
     row's last logits against the port's own ``prefill_batched``.  MLA
     (deepseek) cannot take the flash route: there the setting raises."""
-    m = _models(arch)
+    _check_prefill_chunk(_models(arch), impl)
+
+
+@pytest.mark.parametrize("impl", ["reference", "pallas"])
+@pytest.mark.parametrize("arch,head_dim", FULL_HEAD_DIMS)
+def test_prefill_chunk_at_the_registered_head_dim_matches_reference(
+        arch, head_dim, impl):
+    """The same at stablelm-12b's head dim (160) and nemotron-4-340b's
+    (192), which the flash route takes: the bridged weights at that head
+    dim, reduced widths otherwise."""
+    _check_prefill_chunk(_models(arch, head_dim), impl)
+
+
+def _check_prefill_chunk(m, impl):
     rcfg, rp, tp = m["rcfg"], m["rp"], m["tp"]
     tcfg = dataclasses.replace(m["tcfg"], attention_impl=impl)
     if impl == "pallas" and not _pallas_ok(tcfg):
@@ -400,11 +423,13 @@ def _stack(side):
                              TTuner(N_LOGICAL, **tune))
 
 
-def _drive(side, arch, *, pipeline, chunk=None, temps=(0.0,) * 4):
+def _drive(side, arch, *, pipeline, chunk=None, temps=(0.0,) * 4,
+           head_dim=None, impl=None):
     """One batcher over the staggered requests until drained: two rows,
-    requests 2 and 3 submitted after two steps into recycled rows.
-    Returns (rid -> tokens, monitor)."""
-    m = _models(arch)
+    requests 2 and 3 submitted after two steps into recycled rows
+    (``head_dim``: see ``_models``; ``impl``: the port's
+    ``attention_impl``).  Returns (rid -> tokens, monitor)."""
+    m = _models(arch, head_dim)
     mon = _stack(side)
     kw = dict(max_active=2, max_len=32, page_size=PAGE, monitor=mon,
               pipeline=pipeline, admit_chunk_tokens=chunk, cond=m["cond"])
@@ -414,7 +439,9 @@ def _drive(side, arch, *, pipeline, chunk=None, temps=(0.0,) * 4):
                                   max_new_tokens=NEW[i],
                                   key=jax.random.PRNGKey(0))
     else:
-        b = TS.ContinuousBatcher(m["tp"], m["tcfg"], device="cpu", **kw)
+        tcfg = m["tcfg"] if impl is None else dataclasses.replace(
+            m["tcfg"], attention_impl=impl)
+        b = TS.ContinuousBatcher(m["tp"], tcfg, device="cpu", **kw)
         mk = lambda i: TS.Request(rid=i, prompt=m["prompts"][i],
                                   max_new_tokens=NEW[i],
                                   temperature=temps[i], seed=100 + i)
@@ -445,6 +472,22 @@ def test_pipelined_greedy_streams_match_reference(arch, chunk):
     history."""
     ref, rmon = _drive("ref", arch, pipeline=True, chunk=chunk)
     port, tmon = _drive("port", arch, pipeline=True, chunk=chunk)
+    assert port == ref
+    for attr in ("migrations", "hits", "misses"):
+        assert getattr(tmon.manager, attr) == getattr(rmon.manager, attr), \
+            attr
+    assert tmon.tuner.history == rmon.tuner.history
+
+
+def test_flash_route_streams_at_head_dim_160_match_reference():
+    """The synchronous batcher on reduced stablelm-12b at its registered
+    head dim (160), every admission through the flash route
+    (``attention_impl="pallas"``), against the reference's batcher:
+    greedy streams rid for rid, migrations, hits, misses and the tuner's
+    history."""
+    kw = dict(pipeline=False, head_dim=160)
+    ref, rmon = _drive("ref", "stablelm-12b", **kw)
+    port, tmon = _drive("port", "stablelm-12b", impl="pallas", **kw)
     assert port == ref
     for attr in ("migrations", "hits", "misses"):
         assert getattr(tmon.manager, attr) == getattr(rmon.manager, attr), \
