@@ -116,13 +116,14 @@ non-zero):
      gives it (the same B and S, 32/8 heads of 160) and phase 25 gives it
      (96/8 heads of 192) in float32 and bfloat16, with stated tolerances
      (bfloat16 also each output row within ``BF16_ROW_TOL`` of its norm);
- 15. full-width, full-depth gemma3-12b (48 layers, 40 of them sliding
+ 15. full-width gemma3-12b, its depth cut from 48 layers to 24
+     (``GEMMA_REPEATS`` of its 5 local : 1 global block: 20 of them sliding
      window 1024; float32 weights from a seeded init) with
      ``attention_impl="pallas"``, served by the macro-step batcher after
      deepseek is freed: 6 requests with prompts of 1040-1600 tokens,
      longer than the window, by the graph route and then by the eager
      route, as phase 4 (both serve the whole mix).  The flash kernel's
-     launches must equal 48 x admissions and the paged kernel's 48 x the
+     launches must equal 24 x admissions and the paged kernel's 24 x the
      device steps, and the Cori loop must act: hits counted and the tuner
      out of its profile window (a page counts as accessed while inside
      the window, ``GEMMA_ACCESS_THRESHOLD``);
@@ -159,7 +160,15 @@ non-zero):
      counts as accessed while inside the window,
      ``RGEMMA_ACCESS_THRESHOLD``).  Prints one 2600-token prefill timed
      cell by cell (RG-LRU cells and the rest), and again with the RG-LRU
-     recurrence through its plain version (the before);
+     recurrence through its plain version (the before).  Then the same
+     mix on the same weights through the pipelined loop
+     (``pipeline=True``, graph route, ``_pipelined_route``): streams held
+     to the graph route's, the same launch checks, the pipeline's records
+     (``_check_pipeline``), every fresh admission's prefill run under
+     ``torch.cuda.set_sync_debug_mode("warn")`` (the host reads it makes
+     while a macro is in flight, counted by source line), tokens/s, macro
+     wall p50, decision wait p50 and admission stall beside the graph
+     route's, one pipelined macro profiled;
  19. full-width, full-depth xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM, no
      MLP sublayer; conv taps as phase 18): 8 requests with prompts of
      64-256 tokens over pools of 8 logical / 6 HBM pages, each page one
@@ -178,7 +187,8 @@ non-zero):
      timed cell by cell (mLSTM, sLSTM, the rest: the sLSTM's share), one
      mLSTM cell of it profiled alone (the kernel, the matrix products,
      the rest on the device, beside its wall), and the split again with
-     the sLSTM recurrence through its plain version (the before);
+     the sLSTM recurrence through its plain version (the before).  Then
+     the pipelined route as phase 18's, with its ``_Demoter``;
  20. parity on the card: on reduced recurrentgemma-2b and xlstm-1.3b with
      non-zero conv taps, the batcher's greedy streams (macro and
      per-token) equal ``generate``'s (dense decode; every recurrence
@@ -204,15 +214,16 @@ non-zero):
      route and then the eager route, as phase 4.  The paged kernel's
      launches must equal 16 x the device steps, and the routed-expert
      kernel's too;
- 24. full-width, full-depth musicgen-large (48 layers, each
-     self-attention 32/32 heads of 64, cross-attention to a conditioning
-     of 64 positions, a GELU MLP; float32 weights from a seeded init,
-     12.9 GB; the conditioning [1, 64, 2048] drawn N(0, 1) from the seed:
-     the EnCodec and T5 encoders are stubs) with
+ 24. full-width musicgen-large, its depth cut from 48 layers to
+     ``MUSICGEN_LAYERS`` = 16 (each self-attention 32/32 heads of 64,
+     cross-attention to a conditioning of 64 positions, a GELU MLP;
+     float32 weights from a seeded init; the conditioning [1, 64, 2048]
+     drawn N(0, 1) from the seed: the EnCodec and T5 encoders are stubs)
+     with
      ``attention_impl="pallas"``, served with phase 4's pools and request
      mix (ids below its vocabulary of 2048) by the graph route and then
      the eager route, as phase 4.  The paged kernel's launches must equal
-     48 x the device steps and the flash kernel's 48 x the admissions;
+     16 x the device steps and the flash kernel's 16 x the admissions;
      the cross-attention K/V projections, which every decode step
      recomputes from the conditioning as the reference does, are timed
      alone on the device beside the profiled step;
@@ -239,7 +250,9 @@ non-zero):
      read-only pages that every row's table maps; the paged kernel's
      launches must equal 18 x the device steps, no flash launch, the
      Cori loop must act (``PALIGEMMA_ACCESS_THRESHOLD``), and the
-     demand fetches of prefix pages are counted;
+     demand fetches of prefix pages are counted.  Then the pipelined
+     route as phase 18's (the prefix pages, owner -1, mapped by every
+     row while the decision worker's stale-by-one plan moves pages);
  28. the single-stream tiered path (``examples/serve_tiered.py``'s loop)
      at full width on phase 27's parameters: ``monitored_generate`` (4
      prompts of 16 tokens after the prefix, 48 steps, pages of 16, masses
@@ -287,7 +300,7 @@ non-zero):
      macro, a quiet boundary's tables reused, tokens/s beside phase 4's;
  33. (right after phase 16, on phase 15's parameters) phase 15's mix
      pipelined with ``admit_chunk_tokens=512``: every admission in
-     chunks, the flash kernel's launches 48 x the chunks, streams held to
+     chunks, the flash kernel's launches 24 x the chunks, streams held to
      phase 15's, the admission stall beside phase 15's admission wall;
  34. (right after phase 32, on phase 4's parameters) the degradation
      ladder: phase 4's mix plus three sacrificial submissions through the
@@ -451,7 +464,18 @@ non-zero):
      nemotron-4-340b at 192, each under both ``attention_impl`` settings:
      the batcher's greedy streams (macro and per-token) equal
      ``generate``'s, the flash kernel launched, and ``generate``'s streams
-     the same under both settings.
+     the same under both settings;
+ 53. (right after phase 19, on its weights) a capacity squeeze on
+     xlstm-1.3b through the pipelined loop: phase 19's mix under a
+     ``pool.squeeze`` to ``XLSTM_SQUEEZE`` HBM pages over scheduler steps
+     ``XLSTM_SQUEEZE_STEPS``, below the active rows' state pages.  Fails
+     unless a row is preempted and its 707.7 MB state page demoted and
+     fetched back at its thaw with the bytes it left with, every frozen
+     request thawed, one admission a request, every request completed
+     (typed statuses) within ``XLSTM_MAX_STEPS`` scheduler steps, both
+     recurrence kernels' launches as phase 19's, and the streams phase
+     19's.  The port's host tier is a device tensor, as the reference's:
+     every page move is HBM to HBM.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -474,6 +498,7 @@ import tempfile
 import threading
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -964,8 +989,7 @@ def phase_serve(C, mdl, pa, S, memtier, cori, telemetry, kernels):
         result["launches"] = pa.paged_attention.launches
         _check_launches("paged_attention", result["launches"],
                         cfg.num_layers, b, eager)
-        if not eager:
-            streams.update((r.rid, list(r.tokens)) for r in b.completed)
+        _keep_graph_streams(b, eager, streams)
 
     results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
                                kernels, check)
@@ -1177,7 +1201,7 @@ def _ms_list(named):
 
 
 # the paged kernel's served decode shapes (float32): qwen3-14b's (phase 4),
-# gemma3-12b's sliding-window layers (phase 15, 40 of its 48 launches a
+# gemma3-12b's sliding-window layers (phase 15, 20 of its 24 launches a
 # step), recurrentgemma-2b's local layers (phase 18), olmoe-1b-7b's (phase
 # 23), musicgen-large's (phase 24), nemotron-4-340b's (phase 25),
 # paligemma-3b's (phase 27: 8/1 heads of 256, the first 16 columns of
@@ -1901,8 +1925,20 @@ NEMOTRON_PREFILL = dict(b=4, s=512, h=96, kv=8, d=192)
 # reaches it.
 GEMMA_ACCESS_THRESHOLD = 0.01
 # full-width last-position logits, flash route vs reference route: float32
-# summation order over 48 layers
+# summation order over the layers
 GEMMA_LOGIT_TOL = 1e-3
+# phase 15's depth: 4 of gemma3-12b's 8 repeats of its 5 local : 1 global
+# block (24 of 48 layers), to keep the smoke inside its time limit
+GEMMA_REPEATS = 4
+
+
+def _gemma_cfg(C):
+    """Phases 15, 16 and 33's gemma3-12b: full width, ``GEMMA_REPEATS``
+    repeats of its block, the flash route."""
+    full = C.get("gemma3-12b")
+    return dataclasses.replace(
+        full, segments=((full.segments[0][0], GEMMA_REPEATS),),
+        attention_impl="pallas")
 # the flash kernel's bfloat16 outputs, beside the 2e-2 absolute bar: each
 # output row (b, i, h) within 2^-6 of its norm.  Rounding the output to
 # bfloat16 moves an element by at most one ulp, <= 2^-7 of it, and p rounded
@@ -2093,7 +2129,7 @@ def phase_gemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
     params, ``_first_admission``, the graph route's streams)."""
     print("== phase 15: full-width gemma3-12b serving (sliding window, "
           "flash prefill, macro-step batcher)", flush=True)
-    cfg = dataclasses.replace(C.get("gemma3-12b"), attention_impl="pallas")
+    cfg = _gemma_cfg(C)
     left = torch.cuda.memory_allocated()
     if left > 2e9:
         _fail(f"{left / 1e9:.2f} GB still allocated before gemma3's init")
@@ -2118,8 +2154,7 @@ def phase_gemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
         result["paged_launches"] = pa.paged_attention.launches
         _check_launches("paged_attention", result["paged_launches"],
                         cfg.num_layers, b, eager)
-        if not eager:
-            streams.update((r.rid, list(r.tokens)) for r in b.completed)
+        _keep_graph_streams(b, eager, streams)
         _check_cori_acted(b)
 
     results, reqs = _serve_routes(
@@ -2151,7 +2186,7 @@ def phase_gemma_parity(C, mdl, S, memtier, cori, engine, params, first):
         _fail(f"the flash route's streams {streams['pallas']} differ from "
               f"the reference route's {streams['reference']}")
 
-    cfg = C.get("gemma3-12b")
+    cfg = _gemma_cfg(C)
     toks, lens, rows = first
     last = {}
     with torch.no_grad():
@@ -2307,6 +2342,16 @@ XLSTM_DEMOTE_EVERY = 3
 # layers (the mLSTM recurrence runs through mlstm_scan, in place on the
 # state pages)
 XLSTM_REPEATS = 6
+# phase 19's mix (phase 53 squeezes the same): pools of 8 logical / 6 HBM
+# pages, one request's state page each
+XLSTM_MIX = dict(n_logical=8, hbm_pages=6, max_len=512, n_req=8,
+                 prompt=(64, 257), new=(32, 65))
+# phase 53: the squeeze to 2 HBM pages over scheduler steps 4-10 (phase
+# 19's mix takes ~15), below the state pages of its up to 4 active rows;
+# a run past XLSTM_MAX_STEPS steps is a hang
+XLSTM_SQUEEZE = 2
+XLSTM_SQUEEZE_STEPS = (4, 10)
+XLSTM_MAX_STEPS = 200
 
 
 def _perturb_conv(params, seed=SEED) -> None:
@@ -2371,6 +2416,7 @@ def phase_rgemma(C, mdl, pa, rg_, S, memtier, cori, telemetry, kernels):
     local = sum(r for _, _, r, w, _ in mdl.state_slot_meta(cfg) if w > 0)
     n_rglru = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
                   if k.base == "rglru")
+    streams = {}
 
     def check(b, result, eager):
         result["launches"] = pa.paged_attention.launches
@@ -2380,12 +2426,16 @@ def phase_rgemma(C, mdl, pa, rg_, S, memtier, cori, telemetry, kernels):
         _check_cell_launches("rglru_scan", result["rglru_launches"], n_rglru,
                              b, result)
         _check_cori_acted(b)
+        _keep_graph_streams(b, eager, streams)
 
+    mix = dict(n_logical=1024, hbm_pages=640, max_len=3072, n_req=6,
+               prompt=(2100, 2601), new=(32, 65),
+               access_threshold=RGEMMA_ACCESS_THRESHOLD)
     results, _ = _serve_routes(
-        params, cfg, S, memtier, cori, telemetry, kernels, check,
-        n_logical=1024, hbm_pages=640, max_len=3072, n_req=6,
-        prompt=(2100, 2601), new=(32, 65),
-        access_threshold=RGEMMA_ACCESS_THRESHOLD)
+        params, cfg, S, memtier, cori, telemetry, kernels, check, **mix)
+    results["pipelined"] = _pipelined_route(
+        mdl, S, memtier, cori, telemetry, kernels, cfg, params, streams,
+        results["graph"], check, **mix)
     results["prefill_split"] = _prefill_split(
         mdl, params, cfg, np.random.default_rng(SEED + 18),
         plen=RGEMMA_SPLIT_PLEN, plain=("rglru",))
@@ -2396,21 +2446,22 @@ def phase_rgemma(C, mdl, pa, rg_, S, memtier, cori, telemetry, kernels):
 
 
 class _Demoter:
-    """Every ``every`` scheduler steps, demote the state page of the
-    oldest active request (``SharedPagedPools.demote``, the step a
-    preemption takes) after keeping its HBM bytes; the pool's
-    ``migrate_slots`` is wrapped so that when the next macro fetches the
-    page back from the host tier, the fetched bytes are held to the kept
-    ones (they must be equal: the host copy is written through every
-    step)."""
+    """Every ``every`` scheduler steps (never with 0), demote the state
+    page of the oldest active request (``SharedPagedPools.demote``, the
+    step a preemption takes) after keeping its HBM bytes; with
+    ``preemptions``, also keep the state page of every row the batcher
+    preempts, before ``_preempt`` demotes it.  The pool's
+    ``migrate_slots`` is wrapped so that when a fetch brings a kept page
+    back from the host tier, the fetched bytes are held to the kept ones
+    (they must be equal: the host copy is written through every step)."""
 
-    def __init__(self, b, every: int):
+    def __init__(self, b, every: int, preemptions: bool = False):
         self.pools, self.every, self.steps = b.monitor.pools, every, 0
         self.kept, self.demoted, self.fetched = {}, 0, 0
         migrate = self.pools.migrate_slots
 
-        def checked(slots, logicals):
-            migrate(slots, logicals)
+        def checked(slots, logicals, **kw):
+            migrate(slots, logicals, **kw)
             for slot, gid in zip(np.asarray(slots).tolist(),
                                  np.asarray(logicals).tolist()):
                 if gid not in self.kept:
@@ -2421,20 +2472,35 @@ class _Demoter:
                               "tier with other bytes")
                 self.fetched += 1
         self.pools.migrate_slots = checked
+        if preemptions:
+            preempt = b._preempt
+
+            def kept_first(req):
+                self.keep(int(req.gids[-1]))
+                preempt(req)
+            b._preempt = kept_first
 
     def _leaves(self):
         return [t for t in self.pools.kv_layers["state_hbm"]
                 if t is not None]
 
+    def keep(self, gid: int) -> int:
+        """Keep resident page ``gid``'s HBM bytes; returns 1 if it was
+        resident, else 0."""
+        slot = int(self.pools.slot_of[gid])
+        if slot < 0:
+            return 0
+        self.kept[gid] = [t[:, slot].clone() for t in self._leaves()]
+        self.demoted += 1
+        return 1
+
     def __call__(self, b) -> None:
         self.steps += 1
-        if self.steps % self.every or not b.active:
+        if not self.every or self.steps % self.every or not b.active:
             return
         req = min(b.active.values(), key=lambda r: r.rid)
-        gid = int(req.gids[-1])
-        slot = int(self.pools.slot_of[gid])
-        self.kept[gid] = [t[:, slot].clone() for t in self._leaves()]
-        self.demoted += self.pools.demote(req.gids[-1:])
+        if self.keep(int(req.gids[-1])):
+            self.pools.demote(req.gids[-1:])
 
 
 def _profile_cell(R, apply, mdl, params, cfg, tokens) -> dict:
@@ -2578,13 +2644,14 @@ def phase_xlstm(C, mdl, pa, ms_, ss_, S, memtier, cori, telemetry,
                   if k.base == "mlstm")
     n_slstm = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
                   if k.base == "slstm")
-    demoters = []
+    demoters, streams = [], {}
 
     def between(b):
         demoters.append(_Demoter(b, XLSTM_DEMOTE_EVERY))
         return demoters[-1]
 
     def check(b, result, eager):
+        _keep_graph_streams(b, eager, streams)
         d = demoters.pop()        # it holds the pools: let them go with b
         result.update(launches=pa.paged_attention.launches,
                       mlstm_launches=ms_.mlstm_scan.launches,
@@ -2610,22 +2677,125 @@ def phase_xlstm(C, mdl, pa, ms_, ss_, S, memtier, cori, telemetry,
 
     results, _ = _serve_routes(
         params, cfg, S, memtier, cori, telemetry, kernels, check,
-        n_logical=8, hbm_pages=6, max_len=512, n_req=8, prompt=(64, 257),
-        new=(32, 65), between=between)
-    for res in results.values():
+        between=between, **XLSTM_MIX)
+    results["pipelined"] = _pipelined_route(
+        mdl, S, memtier, cori, telemetry, kernels, cfg, params, streams,
+        results["graph"], check, between=between, **XLSTM_MIX)
+    for name in ("graph", "eager"):
+        res = results[name]
         res["prefill_ms_per_request"] = sum(res["admit_wall_ms"]) \
             / max(1, res["prefills"])
-        print(f"{res['route']} route: admissions "
+        print(f"{name} route: admissions "
               f"{sum(res['admit_wall_ms']):.1f} ms for {res['prefills']} "
               f"prefills, {res['prefill_ms_per_request']:.1f} ms a request",
               flush=True)
     results["prefill_split"] = _prefill_split(
         mdl, params, cfg, np.random.default_rng(SEED + 19),
         plain=("slstm",))
+    # phase 53 squeezes the same mix on these parameters
+    return results, cfg, params, streams
+
+
+def phase_xlstm_squeeze(mdl, ms_, ss_, S, memtier, cori, telemetry, kernels,
+                        inject, cfg, params, want, sync):
+    """Phase 19's mix on its parameters through the pipelined loop under a
+    ``pool.squeeze`` to ``XLSTM_SQUEEZE`` HBM pages over scheduler steps
+    ``XLSTM_SQUEEZE_STEPS``: below the active rows' state pages, so rows
+    are preempted and thawed.  Fails unless a row is preempted with its
+    state page demoted and fetched back with the bytes it left with
+    (``_Demoter`` on the preemptions), every frozen request thawed, one
+    admission a request, every request completed within
+    ``XLSTM_MAX_STEPS`` scheduler steps, both recurrence kernels'
+    launches as phase 19's, and the streams phase 19's graph route's
+    (``want``).  ``sync``: phase 19's graph route's result."""
+    print("== phase 53: a capacity squeeze on xlstm-1.3b through the "
+          f"pipelined loop (to {XLSTM_SQUEEZE} HBM pages over scheduler "
+          f"steps {XLSTM_SQUEEZE_STEPS}; preempt and thaw of state pages)",
+          flush=True)
+    start, stop = XLSTM_SQUEEZE_STEPS
+    plan = inject.FaultPlan([inject.FaultPoint(
+        "pool.squeeze", start=start, stop=stop, value=XLSTM_SQUEEZE)],
+        seed=SEED)
+    page_bytes = sum(r * lv["state"][0] * 4
+                     for r, lv in mdl.slot_leaf_specs(cfg, 16))
+    n_mlstm = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
+                  if k.base == "mlstm")
+    n_slstm = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
+                  if k.base == "slstm")
+    watch = {"steps": 0}
+
+    def between(b):
+        watch["demoter"] = _Demoter(b, 0, preemptions=True)
+
+        def hook(b):
+            watch["steps"] += 1
+            if watch["steps"] > XLSTM_MAX_STEPS:
+                _fail(f"no drain after {XLSTM_MAX_STEPS} steps")
+        return hook
+
+    keep = {}
+    kept = torch.cuda.memory_allocated()
+    b, res, same, _, reqs = _serve_mix(
+        params, cfg, S, memtier, cori, telemetry, kernels, keep=keep,
+        between=between, pipeline=True, fault_plan=plan, **XLSTM_MIX)
+    rec = keep.pop("recorder")
+    counters = rec.summary()["counters"]
+    if b.route != "graph":
+        _fail(f"the squeezed run took the {b.route} route")
+    res.update(mlstm_launches=ms_.mlstm_scan.launches,
+               slstm_launches=ss_.slstm_scan.launches)
+    _check_cell_launches("mlstm_scan", res["mlstm_launches"], n_mlstm, b,
+                         res, per_prefill=2)
+    _check_cell_launches("slstm_scan", res["slstm_launches"], n_slstm, b,
+                         res)
+    d = watch.pop("demoter")     # it holds the pools: let them go with b
+    preempts = [(e["step"], e["rid"], e["pages"], e["hbm_need"])
+                for e in rec.events("serve.preempt")]
+    thawed = int(counters.get("serve.thawed", 0))
+    admitted = int(counters.get("serve.admitted", 0))
+    statuses = {r.rid: r.status for r in b.completed}
+    mgr = b.monitor.manager
+    print(f"preemptions {b.preemptions} (step, rid, pages released, need "
+          f"after): {preempts}; thawed {thawed}; admitted {admitted} of "
+          f"{len(reqs)}; scheduler steps {watch['steps']}; statuses "
+          f"{statuses}", flush=True)
+    print(f"state pages demoted by a preemption {d.demoted} "
+          f"({d.demoted * page_bytes / 1e6:.1f} MB released; the host copy "
+          f"is written through, so no byte moves), fetched back at a thaw "
+          f"with the bytes they left with {d.fetched} "
+          f"({d.fetched * page_bytes / 1e6:.1f} MB copied from the host "
+          f"tier; the port's host tier is a device tensor, as the "
+          f"reference's: HBM to HBM); tier migrations {mgr.migrations}, "
+          f"pages moved {mgr.data_moved_pages}, misses {mgr.misses} "
+          f"(phase 19's graph route: {sync['misses']})", flush=True)
+    if b.preemptions < 1 or thawed != b.preemptions:
+        _fail(f"{b.preemptions} preemptions, {thawed} thawed")
+    if admitted != len(reqs):
+        _fail(f"{admitted} admissions for {len(reqs)} requests")
+    if set(statuses.values()) != {"completed"}:
+        _fail(f"statuses {statuses}")
+    if d.demoted < 1 or d.fetched != d.demoted or d.kept:
+        _fail(f"state pages: {d.demoted} demoted by a preemption, "
+              f"{d.fetched} fetched back, {len(d.kept)} never came back")
+    _compare_streams(mdl, cfg, params, reqs, same["streams"], want,
+                     "xlstm squeezed", ref="phase 19's")
+    exact = sorted(r for r in want if same["streams"][r] == want[r])
+    res.update(preemptions=b.preemptions, preempts=preempts, thawed=thawed,
+               steps=watch["steps"], state_pages_demoted=d.demoted,
+               state_pages_fetched=d.fetched,
+               bytes_fetched=d.fetched * page_bytes, exact_streams=exact,
+               migrations=same["migrations"], hits=same["hits"],
+               misses=same["misses"], tuner_history=same["tuner_history"])
+    print(f"xlstm-1.3b squeezed: streams == phase 19's for requests {exact} "
+          f"of {sorted(want)}; {res['tokens_per_s']:.2f} tokens/s (phase "
+          f"19's graph route in this run: {sync['tokens_per_s']:.2f}), wall "
+          f"{res['wall_s']:.2f} s, macro wall p50 {res['macro_p50_ms']:.1f} "
+          f"ms (phase 19: {sync['macro_p50_ms']:.1f})", flush=True)
+    b.close()
     held = torch.cuda.memory_allocated()
-    del params
-    _check_freed(held)
-    return results
+    del b, d
+    _check_freed(held, kept)
+    return res
 
 
 def phase_recurrent_parity(C, mdl, S, memtier, cori, engine):
@@ -3926,8 +4096,7 @@ def phase_olmoe(C, mdl, pa, re_, S, memtier, cori, telemetry, kernels):
                         cfg.num_layers, b, eager)
         _check_launches("routed_experts", result["routed_launches"],
                         moe_layers, b, eager)
-        if not eager:
-            streams.update((r.rid, list(r.tokens)) for r in b.completed)
+        _keep_graph_streams(b, eager, streams)
 
     results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
                                kernels, check)
@@ -4012,6 +4181,9 @@ def _olmoe_pipelined(mdl, pa, re_, S, memtier, cori, telemetry, kernels,
 # musicgen-large, nemotron-4-340b
 # ---------------------------------------------------------------------------
 
+# phase 24's depth: 16 of musicgen-large's 48 layers, to keep the smoke
+# inside its time limit
+MUSICGEN_LAYERS = 16
 # nemotron-4-340b's depth on one 80 GB card: 2 of its 96 layers (3.454 B
 # parameters each) beside its untied embedding and unembedding (4.719 B
 # each) are 16.35 B float32 parameters, 65.4 GB
@@ -4074,8 +4246,9 @@ def phase_musicgen(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
     print("== phase 24: full-width musicgen-large serving (cross-attention "
           "conditioning, GELU MLP, flash prefill, macro-step batcher)",
           flush=True)
-    cfg, params = _init_full(C, mdl, "musicgen-large",
-                             attention_impl="pallas")
+    full = C.get("musicgen-large")
+    cfg, params = _init_full(C, mdl, "musicgen-large", segments=(
+        (full.segments[0][0], MUSICGEN_LAYERS),), attention_impl="pallas")
     cond = _session_cond(cfg)
     print(f"conditioning {tuple(cond.shape)} drawn N(0, 1) from the seed, "
           f"attended by every layer's cross-attention", flush=True)
@@ -4200,6 +4373,8 @@ def phase_paligemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
           f"{cfg.num_layers} layers; tied embedding "
           f"{cfg.vocab_size * cfg.d_model * 4 / 1e9:.2f} GB", flush=True)
 
+    streams = {}
+
     def check(b, result, eager):
         result["launches"] = pa.paged_attention.launches
         _check_launches("paged_attention", result["launches"],
@@ -4208,11 +4383,15 @@ def phase_paligemma(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
             _fail("paligemma-3b (attention_impl 'reference': the flash "
                   "kernel has no prefix-LM mask) launched the flash kernel")
         _check_cori_acted(b)
+        _keep_graph_streams(b, eager, streams)
 
+    mix = dict(n_logical=512, access_threshold=PALIGEMMA_ACCESS_THRESHOLD,
+               extra_embeds=ex)
     results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
-                               kernels, check, n_logical=512,
-                               access_threshold=PALIGEMMA_ACCESS_THRESHOLD,
-                               extra_embeds=ex)
+                               kernels, check, **mix)
+    results["pipelined"] = _pipelined_route(
+        mdl, S, memtier, cori, telemetry, kernels, cfg, params, streams,
+        results["graph"], check, **mix)
     return cfg, params, ex, results
 
 
@@ -4472,7 +4651,7 @@ SAMPLED_FLIP_TOL = 1e-6
 
 
 def _compare_streams(mdl, cfg, params, reqs, got, want, what,
-                     ref="phase 4's") -> None:
+                     ref="phase 4's", extra_embeds=None) -> None:
     """Fail unless ``got`` equals ``want`` request for request, but for at
     most one sampled stream that parts from ``want`` where the draw lands
     on a boundary: at the first token t where they differ, the next-token
@@ -4484,7 +4663,9 @@ def _compare_streams(mdl, cfg, params, reqs, got, want, what,
     rounding, and a near-uniform 151936-way draw then lands on the other
     side of a boundary; past that token the two streams are different
     samples, so only their lengths are held.  Greedy streams are held
-    exactly, and a second parted stream fails."""
+    exactly, and a second parted stream fails.  ``extra_embeds``: the
+    batcher's shared prefix (``prefix_len`` configs), given to that
+    ``prefill``."""
     parted = []
     for r in reqs:
         a, b = got[r.rid], want[r.rid]
@@ -4500,7 +4681,8 @@ def _compare_streams(mdl, cfg, params, reqs, got, want, what,
         t = next(i for i in range(len(a)) if a[i] != b[i])
         toks = np.concatenate([r.prompt, np.asarray(a[:t], np.int32)])
         logits, _ = mdl.prefill(params, cfg,
-                                torch.as_tensor(toks, device=DEV)[None])
+                                torch.as_tensor(toks, device=DEV)[None],
+                                extra_embeds=extra_embeds)
         cdf = torch.softmax(logits[0, 0].float() / r.temperature, dim=-1) \
             .cumsum(dim=-1)
         u = mdl.uniform(torch.tensor([r.seed], device=DEV),
@@ -4786,52 +4968,132 @@ def _check_pipeline(name, b, st) -> None:
         _fail(f"{name}: stages {sorted(st['stage_p50_ms'])}")
 
 
-def phase_pipelined(mdl, pa, S, memtier, cori, telemetry, kernels, cfg,
-                    params, want, serve):
-    """Phase 4's mix through ``ContinuousBatcher(pipeline=True)`` on phase
-    4's parameters, pools, tiering and tuner (the graph route): streams
-    held to phase 4's graph route's (``_compare_streams``), the drain,
-    kernel 1's launches, the pipeline's records, and tokens/s beside phase
-    4's in this run; one pipelined macro profiled."""
-    print("== phase 32: the pipelined macro loop at full width (qwen3-14b, "
-          "pipeline=True, graph route)", flush=True)
-    keep = {}
-    b, res, same, rng, reqs = _serve_mix(params, cfg, S, memtier, cori,
-                                         telemetry, kernels, keep=keep,
-                                         pipeline=True)
-    res["launches"] = pa.paged_attention.launches
-    _check_launches("paged_attention", res["launches"], cfg.num_layers, b,
-                    False)
+def _keep_graph_streams(b, eager, streams) -> None:
+    """A served phase's ``check``: keep the synchronous graph route's
+    streams (what the pipelined route is held to)."""
+    if not eager and not b.pipeline:
+        streams.update((r.rid, list(r.tokens)) for r in b.completed)
+
+
+class _SyncWatch:
+    """Run a pipelined batcher's ``_admit_prefill_fresh`` -- the prefill of
+    the fresh reservations, queued in the overlap window behind the macro
+    in flight -- under ``torch.cuda.set_sync_debug_mode("warn")``: each
+    admission's synchronizing calls (a host read waits for the macro in
+    flight) are counted, by the source line that made them, beside its
+    host wall."""
+
+    def __init__(self, b):
+        self.syncs, self.wall_ms, self.where = [], [], {}
+        fresh = b._admit_prefill_fresh
+
+        def watched():
+            if not any(not p.ready and not p.chunked and p.logits is None
+                       for p in b._pending_admits):
+                return fresh()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.monotonic()
+                try:
+                    fresh()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                self.wall_ms.append((time.monotonic() - t0) * 1e3)
+            hits = [w for w in seen if "synchroniz" in str(w.message)]
+            self.syncs.append(len(hits))
+            for w in hits:
+                key = f"{pathlib.Path(w.filename).name}:{w.lineno}"
+                self.where[key] = self.where.get(key, 0) + 1
+        b._admit_prefill_fresh = watched
+
+
+def _pipelined_route(mdl, S, memtier, cori, telemetry, kernels, cfg, params,
+                     want, sync, check, *, between=None, **mix) -> dict:
+    """A served phase's mix on its weights through the pipelined loop
+    (``pipeline=True``, graph route): ``check(b, result, False)`` (the
+    phase's launch checks), streams held to the phase's graph route's
+    (``want``, ``_compare_streams``), the pipeline's records
+    (``_check_pipeline``), every fresh admission's prefill under
+    ``_SyncWatch``; prints tokens/s, macro wall p50, decision wait p50 and
+    the admission stall beside the graph route's (``sync``), and one
+    profiled pipelined macro's busy share.  ``between``: as
+    ``_serve_mix``'s."""
+    name = cfg.name
+    print(f"-- the pipelined route ({name}, pipeline=True)", flush=True)
+    keep, watch = {}, {}
+
+    def hook(b):
+        watch["sync"] = _SyncWatch(b)
+        return between(b) if between else None
+
+    b, res, same, rng, reqs = _serve_mix(
+        params, cfg, S, memtier, cori, telemetry, kernels, keep=keep,
+        between=hook, pipeline=True, **mix)
+    check(b, res, False)
     _compare_streams(mdl, cfg, params, reqs, same["streams"], want,
-                     "pipelined")
-    print(f"pipelined streams == phase 4's graph-route streams: requests "
-          f"{sorted(r for r in want if same['streams'][r] == want[r])} of "
-          f"{sorted(want)}", flush=True)
-    st = _pipeline_stats(keep.pop("recorder"))
-    _check_pipeline("pipelined", b, st)
-    res.update(st, migrations=same["migrations"], hits=same["hits"],
+                     f"{name} pipelined", ref="the graph route's",
+                     extra_embeds=mix.get("extra_embeds"))
+    exact = sorted(r for r in want if same["streams"][r] == want[r])
+    print(f"{name} pipelined streams == the graph route's: requests "
+          f"{exact} of {sorted(want)}", flush=True)
+    rec = keep.pop("recorder")
+    st = _pipeline_stats(rec)
+    _check_pipeline(f"{name} pipelined", b, st)
+    sw = watch["sync"]
+    stall = [e["stall_ms"] for e in rec.events("serve.admit")]
+    res.update(st, stall_ms=stall, exact_streams=exact,
+               fresh_admissions=len(sw.syncs), fresh_syncs=sw.syncs,
+               fresh_sync_sites=sw.where, fresh_wall_ms=sw.wall_ms,
+               migrations=same["migrations"], hits=same["hits"],
                misses=same["misses"], tuner_history=same["tuner_history"])
+    print(f"{name} pipelined: fresh admissions {len(sw.syncs)}, "
+          f"synchronizing calls in each (set_sync_debug_mode 'warn') "
+          f"{sw.syncs}, by source line {sw.where}; their host wall p50 "
+          f"{float(np.median(sw.wall_ms)):.1f} ms (max "
+          f"{max(sw.wall_ms):.1f})", flush=True)
     res["profile"] = _profile_macro(b, S, cfg, rng)
     b.close()
     prof = res["profile"]
     busy = ("busy/idle not measured" if prof["busy_pct"] is None else
             f"busy {prof['busy_pct']:.1f}% / idle {prof['idle_pct']:.1f}%")
-    print(f"qwen3-14b pipelined: {res['tokens_per_s']:.2f} tokens/s "
-          f"(phase 4's graph route in this run: "
-          f"{serve['graph']['tokens_per_s']:.2f}), macro wall p50 "
-          f"{res['macro_p50_ms']:.1f} ms (phase 4: "
-          f"{serve['graph']['macro_p50_ms']:.1f}), decision wait p50 "
-          f"{st['decision_wait_p50_ms']:.3f} ms, one profiled pipelined "
-          f"macro {prof['ms_per_step']:.1f} ms/step, {busy}; tiering "
+    print(f"{name} pipelined: {res['tokens_per_s']:.2f} tokens/s (the graph "
+          f"route in this run: {sync['tokens_per_s']:.2f}), macro wall p50 "
+          f"{res['macro_p50_ms']:.1f} ms (graph: {sync['macro_p50_ms']:.1f})"
+          f", decision wait p50 {st['decision_wait_p50_ms']:.3f} ms, "
+          f"admission stall (reservation to activation) p50 "
+          f"{float(np.median(stall)):.1f} ms, max {max(stall):.1f} ms over "
+          f"{len(stall)} activations (the graph route's admissions wall p50 "
+          f"{float(np.median(sync['admit_wall_ms'])):.1f} ms, max "
+          f"{max(sync['admit_wall_ms']):.1f} ms over "
+          f"{len(sync['admit_wall_ms'])}); one profiled pipelined macro "
+          f"{prof['ms_per_step']:.1f} ms/step, {busy}; tiering "
           f"{same['migrations']} migrations, {same['hits']} hits, "
-          f"{same['misses']} misses (phase 4: "
-          f"{serve['graph']['migrations']}, {serve['graph']['hits']}, "
-          f"{serve['graph']['misses']}); tuner history "
+          f"{same['misses']} misses (graph: {sync['migrations']}, "
+          f"{sync['hits']}, {sync['misses']}); tuner history "
           f"{same['tuner_history']}", flush=True)
     del b
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def phase_pipelined(mdl, pa, S, memtier, cori, telemetry, kernels, cfg,
+                    params, want, serve):
+    """Phase 4's mix through ``ContinuousBatcher(pipeline=True)`` on phase
+    4's parameters, pools, tiering and tuner (``_pipelined_route``):
+    streams held to phase 4's graph route's, kernel 1's launches, the
+    pipeline's records, tokens/s beside phase 4's in this run."""
+    print("== phase 32: the pipelined macro loop at full width (qwen3-14b, "
+          "pipeline=True, graph route)", flush=True)
+
+    def check(b, result, eager):
+        result["launches"] = pa.paged_attention.launches
+        _check_launches("paged_attention", result["launches"],
+                        cfg.num_layers, b, eager)
+
+    return _pipelined_route(mdl, S, memtier, cori, telemetry, kernels, cfg,
+                            params, want, serve["graph"], check)
 
 
 # the degradation ladder at full width (phases 34-35): windows in
@@ -5115,7 +5377,7 @@ def phase_gemma_pipelined(C, mdl, pa, fa, S, memtier, cori, telemetry,
     print("== phase 33: the pipelined loop with chunked admission at full "
           "width (gemma3-12b, pipeline=True, admit_chunk_tokens=512, flash "
           "prefill with a query offset)", flush=True)
-    cfg = dataclasses.replace(C.get("gemma3-12b"), attention_impl="pallas")
+    cfg = _gemma_cfg(C)
     keep = {}
     retries = torch.cuda.memory_stats()["num_alloc_retries"]
     b, res, same, rng, reqs = _serve_mix(
@@ -5926,8 +6188,16 @@ def main() -> int:
     slstm = timed("slstm_scan check and timing", phase_slstm, ss_)
     bwd = timed("backward kernels check and timing", phase_backward, ms_,
                 ss_)
-    xlstm = timed("xlstm serving", phase_xlstm, C, mdl, pa, ms_, ss_, S,
-                  memtier, cori, telemetry, kernels)
+    xlstm, xcfg, params, xstreams = timed(
+        "xlstm serving", phase_xlstm, C, mdl, pa, ms_, ss_, S, memtier, cori,
+        telemetry, kernels)
+    xlstm["squeeze"] = timed(
+        "xlstm squeeze", phase_xlstm_squeeze, mdl, ms_, ss_, S, memtier,
+        cori, telemetry, kernels, inject, xcfg, params, xstreams,
+        xlstm["graph"])
+    held = torch.cuda.memory_allocated()
+    del params
+    _check_freed(held)
     timed("recurrent parity", phase_recurrent_parity, C, mdl, S, memtier,
           cori, engine)
     weights = {model: _routed_weights(shape, SEED + i)
@@ -6057,6 +6327,8 @@ def main() -> int:
                  "recurrentgemma-2b decode (phase 18)": dict(
                  timing["recurrentgemma-2b"],
                  launches=rgemma["graph"]["launches"]),
+                 "recurrentgemma-2b decode, pipelined (phase 18)": dict(
+                 launches=rgemma["pipelined"]["launches"]),
                  "olmoe-1b-7b decode (phase 23)": dict(
                  timing["olmoe-1b-7b"],
                  launches=olmoe["graph"]["launches"]),
@@ -6072,6 +6344,8 @@ def main() -> int:
                  "paligemma-3b decode (phase 27)": dict(
                  timing["paligemma-3b"],
                  launches=paligemma["graph"]["launches"]),
+                 "paligemma-3b decode, pipelined (phase 27)": dict(
+                 launches=paligemma["pipelined"]["launches"]),
                  "qwen3-14b paged_context over the mirrored single-layer "
                  "pool, B=1 (phase 30)": dense["probe"],
                  "qwen3-14b decode, pipelined under the chaos plan "
@@ -6147,7 +6421,11 @@ def main() -> int:
                    "strip_device_ms the strip kernel on the same call)":
                    mlstm["prefill"],
                    "xlstm-1.3b eager route (phase 19)": dict(
-                       launches=xlstm["eager"]["mlstm_launches"])}),
+                       launches=xlstm["eager"]["mlstm_launches"]),
+                   "xlstm-1.3b pipelined route (phase 19)": dict(
+                       launches=xlstm["pipelined"]["mlstm_launches"]),
+                   "xlstm-1.3b pipelined under a squeeze (phase 53)": dict(
+                       launches=xlstm["squeeze"]["mlstm_launches"])}),
         dict(name="slstm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/slstm_scan.cu",
              replaces="src/repro/models/recurrent.py:237",
@@ -6163,7 +6441,11 @@ def main() -> int:
              "sequence_max_dev: the whole sequence, a chaotic recurrence)",
              also={"xlstm-1.3b decode B=4 S=1 (phase 45)": slstm["decode"],
                    "xlstm-1.3b eager route (phase 19)": dict(
-                       launches=xlstm["eager"]["slstm_launches"])}),
+                       launches=xlstm["eager"]["slstm_launches"]),
+                   "xlstm-1.3b pipelined route (phase 19)": dict(
+                       launches=xlstm["pipelined"]["slstm_launches"]),
+                   "xlstm-1.3b pipelined under a squeeze (phase 53)": dict(
+                       launches=xlstm["squeeze"]["slstm_launches"])}),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/rglru_scan.cu",
              replaces="src/repro/models/recurrent.py:326",
@@ -6178,6 +6460,8 @@ def main() -> int:
                    rglru["decode"],
                    "recurrentgemma-2b eager route (phase 18)": dict(
                        launches=rgemma["eager"]["rglru_launches"]),
+                   "recurrentgemma-2b pipelined route (phase 18)": dict(
+                       launches=rgemma["pipelined"]["rglru_launches"]),
                    "recurrentgemma-2b training B=4 S=256 (phase 50; 2 a "
                    "RG-LRU layer and step under remat)": dict(
                        launches=train["recurrentgemma-2b"]["launches"][

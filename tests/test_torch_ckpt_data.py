@@ -1,6 +1,6 @@
-"""The port's data pipeline, checkpoints, training driver and restart
-drill against the reference's (``tests/test_substrate.py`` case for case),
-and the new subpackages' imports.
+"""The port's data pipeline and checkpoints against the reference's
+(``tests/test_substrate.py`` case for case), and the new subpackages'
+imports.
 
 Batches: tokens and targets bit-equal to the reference's ``batch_at`` for
 every seed, index and shard count tried.  The reference seeds a batch's
@@ -9,8 +9,9 @@ image prefix and conditioning with negative words that numpy refuses
 musicgen-large; the port draws them from non-negative keys
 (``data/pipeline.py``), and their tokens are held to the reference's on
 the same config without the prefix / conditioning.  Checkpoints restore
-bit for bit; the restart drill's resumed losses equal an uninterrupted
-run's bit for bit (the CPU step is deterministic)."""
+bit for bit.  The training launcher and the restart drill (its resumed
+losses equal an uninterrupted run's bit for bit: the CPU step is
+deterministic) are held in ``tests/test_torch_ckpt_restart.py``."""
 import dataclasses
 import json
 import os
@@ -37,7 +38,6 @@ import repro_torch.configs as TC
 from repro_torch import bridge
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.data.pipeline import DataConfig, DataPipeline, batch_at
-from repro_torch.launch import train as launch_train
 from repro_torch.train import optim as TO
 from repro_torch.train import step as TS
 
@@ -238,7 +238,7 @@ def test_reference_checkpoint_loads_into_port(tmp_path, dtype):
 
 
 # ---------------------------------------------------------------------------
-# the training driver and the restart drill
+# the training launcher's environment, and the new subpackages' imports
 # ---------------------------------------------------------------------------
 
 
@@ -247,51 +247,6 @@ def _env(**kw):
     env.pop("REPRO_FAIL_AT_STEP", None)
     env.update(kw)
     return env
-
-
-def _train_cmd(tmp, metrics, extra=()):
-    return [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            "olmoe-1b-7b", "--reduced", "--device", "cpu", "--steps", "12",
-            "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp),
-            "--ckpt-every", "4", "--metrics-out", str(metrics), *extra]
-
-
-def test_supervised_restart_resumes_training(tmp_path):
-    """The reference's drill on the port: an injected crash at step 8, the
-    supervisor's relaunch, the resume from the step-8 checkpoint, exactly
-    one restart; the resumed losses equal an uninterrupted run's."""
-    from repro_torch.ft.supervisor import SupervisorConfig, supervise
-    run = tmp_path / "run"
-    metrics = tmp_path / "m.json"
-    rep = supervise(_train_cmd(run, metrics), workdir=run,
-                    cfg=SupervisorConfig(max_restarts=2),
-                    env=_env(REPRO_FAIL_AT_STEP="8"))
-    assert rep.exit_code == 0
-    assert rep.restarts == 1
-    rpt = json.loads(metrics.read_text())
-    assert rpt["start"] == 8
-    assert rpt["steps_run"] == 4
-    whole = tmp_path / "whole.json"
-    r = subprocess.run(_train_cmd(tmp_path / "whole", whole), env=_env(),
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
-    assert json.loads(whole.read_text())["losses"][8:] == rpt["losses"]
-
-
-def test_launch_needs_a_card_or_the_cpu(monkeypatch):
-    """Without ``--device cpu`` the driver runs on the card, and raises
-    with none visible; a mesh above 1 (one process a rank) is refused
-    without the process group's environment."""
-    if torch.cuda.is_available():
-        pytest.skip("a card is visible: the default device is fine")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        launch_train.main(["--arch", "qwen3-14b", "--reduced", "--steps",
-                           "1"])
-    for k in ("RANK", "WORLD_SIZE"):
-        monkeypatch.delenv(k, raising=False)
-    with pytest.raises(RuntimeError, match="torchrun"):
-        launch_train.main(["--arch", "qwen3-14b", "--reduced", "--device",
-                           "cpu", "--data-mesh", "2"])
 
 
 def test_new_subpackages_import_no_jax():

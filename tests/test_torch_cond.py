@@ -17,13 +17,12 @@ packages:
   * forward logits, batched prefill caches, prefill + dense decode, and
     the fully-paged decode step (logits, page mass, write-through into
     both tiers; the conditioning adds nothing to the mass);
-  * the ``ContinuousBatcher``'s greedy streams (macro and per-token) equal
-    the reference batcher's rid for rid, with the same migrations, hits,
-    misses and tuner history, and equal the reference's ``generate``;
-    sampled rows agree across the port's ``generate`` (the dense cache),
-    per-token paged and macro paths;
-  * musicgen under ``attention_impl="pallas"`` (prefill self-attention
-    through ``ops.flash_attention``, its plain version on the CPU).
+  * musicgen's ``decode_body`` with ``cond`` under a host-read detector.
+
+The ``ContinuousBatcher``'s streams against the reference batcher's
+(``tests/test_torch_cond_batcher.py``) and against ``generate``, and
+musicgen under ``attention_impl="pallas"``
+(``tests/test_torch_cond_streams.py``), run on this file's models.
 
 Tolerances: 1e-4 absolute on logits, 1e-5 on page masses, layer outputs
 and caches (float32, different reduction orders)."""
@@ -48,7 +47,6 @@ from repro.memtier.tiering import TieringManager as RManager
 from repro.models import layers as RL
 from repro.models import model as RM
 from repro.serve import sched as RS
-from repro.serve.engine import generate as r_generate
 
 import repro_torch.configs as TC
 from repro_torch import bridge
@@ -59,7 +57,6 @@ from repro_torch.memtier.tiering import TieringManager as TManager
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.serve import sched as TS
-from repro_torch.serve.engine import generate as t_generate
 
 ARCHS = ["musicgen-large", "nemotron-4-340b", "stablelm-12b"]
 LOGIT_TOL, TOL = 1e-4, 1e-5
@@ -442,96 +439,8 @@ def _serve(arch, side, macro, temps=(0.0, 0.0, 0.0, 0.0),
     return got, mon
 
 
-@pytest.mark.parametrize("macro", [True, False])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_batcher_greedy_streams_match_reference(arch, macro):
-    """Greedy streams rid for rid, migrations, hits, misses and the
-    tuner's history equal the reference batcher's; the pools hold k/v
-    pages only (the conditioning is not paged)."""
-    ref, ref_mon = _serve(arch, "ref", macro)
-    port, port_mon = _serve(arch, "port", macro)
-    assert port == ref
-    for key in ("migrations", "data_moved_pages", "hits", "misses"):
-        assert getattr(port_mon.manager, key) \
-            == getattr(ref_mon.manager, key), key
-    assert port_mon.tuner.history == ref_mon.tuner.history
-    assert {k.rsplit("_", 1)[0] for k in port_mon.pools.kv_layers} \
-        == {"k", "v"}
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_batcher_streams_match_generate(arch):
-    """Four-way parity: greedy rows equal the reference's ``generate``;
-    a sampled row draws the same tokens on the port's ``generate`` (the
-    dense cache), per-token paged path and macro path."""
-    m = _models(arch)
-    temps = (0.0, 0.8, 0.0, 0.8)
-    per_token, _ = _serve(arch, "port", False, temps)
-    macro, _ = _serve(arch, "port", True, temps)
-    assert per_token == macro
-    for i, p in enumerate(m["prompts"]):
-        got = t_generate(m["tp"], m["tcfg"], p[None], steps=NEW[i],
-                         temperature=temps[i], seed=100 + i, cond=m["cond"],
-                         device="cpu")[0].tolist()
-        assert macro[i] == got, i
-        if temps[i] == 0:
-            ref = np.asarray(r_generate(
-                m["rp"], m["rcfg"], jnp.asarray(p[None]), steps=NEW[i],
-                cond=None if m["cond"] is None
-                else jnp.asarray(m["cond"])))[0].tolist()
-            assert got == ref, i
-
-
 # ---------------------------------------------------------------------------
 # musicgen through the flash route
 # ---------------------------------------------------------------------------
 
 
-def test_musicgen_flash_prefill_matches_reference():
-    """``attention_impl="pallas"``: forward logits, batched-prefill logits
-    and caches, and prefill + decode match the reference's, conditioned."""
-    m = _models("musicgen-large")
-    rcfg, rp, tp = m["rcfg"], m["rp"], m["tp"]
-    tcfg = dataclasses.replace(m["tcfg"], attention_impl="pallas")
-    toks = np.random.default_rng(5).integers(0, rcfg.vocab_size, (2, 11)) \
-        .astype(np.int32)
-    tt = torch.from_numpy(toks).long()
-    rc, tc = _cond_rows(m, 2)
-    _close(TM.forward(tp, tcfg, tt, cond=tc)[0],
-           RM.forward(rp, rcfg, toks, cond=rc)[0], LOGIT_TOL)
-    lengths = np.asarray([11, 6], np.int32)
-    rl, rcache = RM.prefill_batched(rp, rcfg, jnp.asarray(toks),
-                                    jnp.asarray(lengths), cond=rc)
-    tl, tcache = TM.prefill_batched(tp, tcfg, tt, torch.from_numpy(lengths),
-                                    cond=tc)
-    _close(tl, rl, LOGIT_TOL)
-    for name, a in tcache["segments"][0][0].items():
-        np.testing.assert_allclose(
-            a.numpy(), np.asarray(rcache["segments"][0][0][name]), atol=TOL,
-            rtol=F32_RTOL)
-    rl, rcache = RM.prefill(rp, rcfg, jnp.asarray(toks), cond=rc)
-    tl, tcache = TM.prefill(tp, tcfg, tt, cond=tc)
-    _close(tl, rl, LOGIT_TOL)
-    rcache = RM.pad_cache(rcache, rcfg, 16)
-    tcache = TM.pad_cache(tcache, tcfg, 16)
-    pos, tok = np.full((2,), 11, np.int32), toks[:, -1:]
-    for _ in range(3):
-        rl, rcache = RM.decode_step(rp, rcfg, rcache, jnp.asarray(tok),
-                                    jnp.asarray(pos), cond=rc)
-        tl, tcache = TM.decode_step(tp, tcfg, tcache,
-                                    torch.from_numpy(tok).long(),
-                                    torch.from_numpy(pos).long(), cond=tc)
-        _close(tl, rl, LOGIT_TOL)
-        tok, pos = np.asarray(rl).argmax(-1).astype(np.int32), pos + 1
-
-
-@pytest.mark.parametrize("macro", [True, False])
-def test_musicgen_flash_batcher_streams_match_reference(macro):
-    """``attention_impl="pallas"``: the batcher's greedy streams,
-    migrations and tuner history equal the reference batcher's."""
-    ref, ref_mon = _serve("musicgen-large", "ref", macro)
-    port, port_mon = _serve("musicgen-large", "port", macro,
-                            attention_impl="pallas")
-    assert port == ref
-    assert port_mon.manager.migrations == ref_mon.manager.migrations
-    assert port_mon.tuner.history == ref_mon.tuner.history

@@ -1,42 +1,31 @@
 """The port's MLA, MoE, sliding-window and recurrent geometries against
-the JAX reference.
+the JAX reference: the models and the checks the family files share.
 
-Reduced ``deepseek-v3-671b`` (every layer MLA; one dense-MLP segment and
-one MoE segment with a shared expert), reduced ``olmoe-1b-7b`` (k/v
-attention with qk-norm, every layer MoE without a shared expert) and
-reduced ``gemma3-12b`` (five sliding-window layers of window 8 and one
-global layer, qk-norm, SwiGLU, tied embeddings; the prompts of 9 and 11
-tokens are longer than the window and 11 % 8 = 3 exercises the ring's
-roll), reduced ``recurrentgemma-2b`` (RG-LRU, RG-LRU, local attention
-of window 8, then two RG-LRU: the prompts pass the window too) and
-reduced ``xlstm-1.3b`` (seven mLSTM and one sLSTM, no MLP sublayer, no
-token pages), all float32, with the reference's parameters carried over
-through ``repro_torch.bridge``.  The reference initialises every
-recurrent cell's conv taps to zero, and with them all three cells output
-exactly zero and keep zero states (``tests/test_torch_recurrent.py``
-shows it): these tests draw the taps from N(0, 0.5) in numpy from the
-seed and set them in the reference's parameters before the bridge, so
-the cells' arithmetic is what they compare.
+The cases live in files of a family each, of at most seven tests, so
+that ``--dist loadfile`` spreads them over workers:
+``test_torch_geometry_mla.py`` and ``test_torch_geometry_mla_serve.py``
+(reduced ``deepseek-v3-671b``: every layer MLA; one dense-MLP segment and
+one MoE segment with a shared expert), ``test_torch_geometry_moe.py``
+(reduced ``olmoe-1b-7b``: k/v attention with qk-norm, every layer MoE
+without a shared expert), ``test_torch_geometry_window.py`` and
+``test_torch_geometry_window_serve.py`` (reduced ``gemma3-12b``: five
+sliding-window layers of window 8 and one global layer, qk-norm, SwiGLU,
+tied embeddings; the prompts of 9 and 11 tokens are longer than the
+window and 11 % 8 = 3 exercises the ring's roll),
+``test_torch_geometry_rglru.py`` (reduced ``recurrentgemma-2b``: RG-LRU,
+RG-LRU, local attention of window 8, then two RG-LRU: the prompts pass
+the window too) and ``test_torch_geometry_xlstm.py`` (reduced
+``xlstm-1.3b``: seven mLSTM and one sLSTM, no MLP sublayer, no token
+pages).  This file holds the bridged models, the serving loop, the checks
+a case runs on one arch, and the pools over mixed geometries.
 
-  * the routed MoE against ``moe_apply_dense`` (outputs and aux loss) and
-    the routing's tie order against ``lax.top_k``;
-  * ``mla_apply``, ``mla_decode`` against the reference's layers;
-  * forward (logits and aux), batched prefill caches, prefill + dense
-    decode, and the fully-paged decode step (logits, page mass,
-    write-through into both tiers);
-  * the ``ContinuousBatcher``'s greedy streams (macro and per-token) equal
-    the reference batcher's rid for rid, with the same migrations and
-    tuner history, and equal the reference's ``generate``; sampled rows
-    agree across the port's own generate, per-token and macro paths;
-  * pools over k/v and MLA slots side by side, as the reference's;
-  * gemma3 with ``attention_impl="pallas"`` (prefill self-attention
-    through ``ops.flash_attention``, its plain version on the CPU): the
-    reference's logits and caches, and the reference batcher's streams,
-    migrations and tuner history;
-  * the recurrent configs: prefill's final cell states, dense decode,
-    the paged step over state pages (``state_cols``), and the batcher
-    (state page at the last table column, one prefill per request) with
-    the reference batcher's hits and misses too.
+All float32, with the reference's parameters carried over through
+``repro_torch.bridge``.  The reference initialises every recurrent cell's
+conv taps to zero, and with them all three cells output exactly zero and
+keep zero states (``tests/test_torch_recurrent.py`` shows it): these
+tests draw the taps from N(0, 0.5) in numpy from the seed and set them in
+the reference's parameters before the bridge, so the cells' arithmetic
+is what they compare.
 
 On the CPU the paged layers run the kernels' plain versions.  Tolerances:
 1e-4 absolute on logits, 1e-5 on page masses, MoE outputs and caches
@@ -59,7 +48,6 @@ from repro.core.cori import OnlineTuner as RTuner
 from repro.memtier.tiering import SharedPagedPools as RPools
 from repro.memtier.tiering import TierConfig as RTierConfig
 from repro.memtier.tiering import TieringManager as RManager
-from repro.models import layers as RL
 from repro.models import model as RM
 from repro.models import moe as RMoE
 from repro.serve import sched as RS
@@ -71,10 +59,11 @@ from repro_torch.core.cori import OnlineTuner as TTuner
 from repro_torch.memtier.tiering import SharedPagedPools as TPools
 from repro_torch.memtier.tiering import TierConfig as TTierConfig
 from repro_torch.memtier.tiering import TieringManager as TManager
-from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
 from repro_torch.serve import sched as TS
+from repro_torch.serve.engine import generate as t_generate
+
 from repro_torch.serve.engine import generate as t_generate
 
 MOE_ARCHS = ["deepseek-v3-671b", "olmoe-1b-7b"]
@@ -89,7 +78,7 @@ N_LOGICAL, HBM, PAGE = 48, 10, 4
 PROMPT_LENS = (6, 9, 5, 11)
 NEW = (6, 4, 9, 7)
 
-_CACHE = {}
+_CACHE, _REF_RUNS = {}, {}
 
 
 def _models(arch):
@@ -138,13 +127,13 @@ def _moe_segment(arch):
     return 1 if arch == "deepseek-v3-671b" else 0
 
 
+
 # ---------------------------------------------------------------------------
-# MoE
+# the checks a case runs on one arch
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_matches_dense_reference(arch):
+def _check_moe_dense(arch):
     """Routed MoE == the reference's dense oracle: outputs (shared expert
     included for deepseek) and the load-balance aux loss."""
     m = _models(arch)
@@ -157,73 +146,9 @@ def test_moe_matches_dense_reference(arch):
     assert abs(float(taux) - float(raux)) < TOL
 
 
-def test_route_breaks_ties_like_lax_top_k():
-    """Tied router probabilities pick the lowest expert ids, as
-    ``lax.top_k`` does: a zero row ties every expert, a half-zero router
-    ties groups of experts."""
-    m = _models("deepseek-v3-671b")
-    cfg = m["rcfg"]
-    rng = np.random.default_rng(2)
-    x = rng.standard_normal((5, cfg.d_model)).astype(np.float32)
-    x[0] = 0.0
-    router = rng.standard_normal((cfg.d_model, cfg.moe.num_experts)) \
-        .astype(np.float32)
-    router[:, 4:] = router[:, :4]             # experts 4-7 tie with 0-3
-    rw, ri, rp = RMoE._route(jnp.asarray(x), jnp.asarray(router),
-                             cfg.moe.top_k)
-    tw, ti, tp = TMoE.route(torch.from_numpy(x), torch.from_numpy(router),
-                            cfg.moe.top_k)
-    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
-    _close(tw, rw, TOL)
-    _close(tp, rp, TOL)
-
-
-# ---------------------------------------------------------------------------
-# MLA layers
-# ---------------------------------------------------------------------------
-
-
-def test_mla_layers_match_reference():
-    """``mla_apply`` (prefill: output and compressed cache rows) and
-    ``mla_decode`` (absorbed-matrix decode over a cache with an empty
-    slot) against the reference's layers."""
-    m = _models("deepseek-v3-671b")
-    rcfg, tcfg = m["rcfg"], m["tcfg"]
-    ref, slot = _slot(m, 0)
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal((2, 6, rcfg.d_model)).astype(np.float32)
-    pos = np.arange(6)[None]
-    mask = np.tril(np.ones((6, 6), bool))[None]
-    ro, (rc, rk) = RL.mla_apply(ref["attn"], rcfg, jnp.asarray(x),
-                                jnp.asarray(pos), jnp.asarray(mask))
-    to, (tc, tk) = TL.mla_apply(slot, 0, tcfg, torch.from_numpy(x),
-                                torch.from_numpy(pos), torch.from_numpy(mask))
-    for t, r in ((to, ro), (tc, rc), (tk, rk)):
-        _close(t, r, TOL)
-
-    xd = rng.standard_normal((2, 1, rcfg.d_model)).astype(np.float32)
-    ckv = np.array(rc)
-    krope = np.array(rk)
-    cpos = np.tile(np.arange(6), (2, 1))
-    cpos[1, 4:] = -1                                   # empty slots
-    cur = np.asarray([6, 4], np.int32)
-    rd = RL.mla_decode(ref["attn"], rcfg, jnp.asarray(xd), jnp.asarray(ckv),
-                       jnp.asarray(krope), jnp.asarray(cpos),
-                       jnp.asarray(cur))
-    td = TL.mla_decode(slot, 0, tcfg, torch.from_numpy(xd),
-                       torch.from_numpy(ckv), torch.from_numpy(krope),
-                       torch.from_numpy(cpos), torch.from_numpy(cur).long())
-    for t, r in zip(td, rd):
-        _close(t, r, TOL)
-
-
-# ---------------------------------------------------------------------------
-# the model
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", SERVED)
-def test_forward_prefill_decode_match(arch):
+def _check_forward_prefill_decode(arch):
+    """Forward (logits and aux), batched prefill (refused by a recurrent
+    config), prefill caches and three dense decode steps."""
     m = _models(arch)
     rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
     toks = np.random.default_rng(0).integers(0, rcfg.vocab_size, (2, 11)) \
@@ -281,28 +206,7 @@ def test_forward_prefill_decode_match(arch):
         pos = pos + 1
 
 
-def test_decode_from_empty_cache_matches():
-    """Token-by-token ``decode_step`` from an empty MLA ``init_cache``."""
-    m = _models("deepseek-v3-671b")
-    rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
-    toks = np.random.default_rng(3).integers(0, rcfg.vocab_size, (2, 5)) \
-        .astype(np.int32)
-    rcache = RM.init_cache(rcfg, 2, 8, dtype=jnp.float32)
-    tcache = TM.init_cache(tcfg, 2, 8, device="cpu")
-    assert set(tcache["segments"][0][0]) == {"ckv", "krope", "pos"}
-    for i in range(toks.shape[1]):
-        pos = np.full((2,), i, np.int32)
-        rl, rcache = RM.decode_step(rp, rcfg, rcache,
-                                    jnp.asarray(toks[:, i:i + 1]),
-                                    jnp.asarray(pos))
-        tl, tcache = TM.decode_step(tp, tcfg, tcache,
-                                    torch.from_numpy(toks[:, i:i + 1]).long(),
-                                    torch.from_numpy(pos).long())
-        _close(tl, rl, LOGIT_TOL)
-
-
-@pytest.mark.parametrize("arch", SERVED)
-def test_decode_step_paged_matches(arch):
+def _check_decode_step_paged(arch):
     """Identical pools and tables: logits, layer-averaged page mass and
     the write-through into both tiers (ckv/krope for MLA, the packed
     state page for a recurrent cell, at its ``state_cols`` column) agree;
@@ -376,8 +280,7 @@ def test_decode_step_paged_matches(arch):
                                            atol=TOL, rtol=F32_RTOL)
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_init_is_seeded_and_at_reference_scales(arch):
+def _check_init_scales(arch):
     """Seeded init; each MLA / MoE leaf at N(0, 1/fan_in) with the
     reference's fan-in (``shape[0]`` of the unstacked leaf)."""
     cfg = TC.get(arch)
@@ -402,6 +305,7 @@ def test_init_is_seeded_and_at_reference_scales(arch):
         assert abs(float(t.std()) / fan ** -0.5 - 1) < 0.1, (t.shape, fan)
 
 
+
 # ---------------------------------------------------------------------------
 # the serving loop
 # ---------------------------------------------------------------------------
@@ -422,7 +326,11 @@ def _stack(side):
 def _serve(arch, side, macro, temps=(0.0, 0.0, 0.0, 0.0),
            attention_impl="reference"):
     """Serve the four requests with two rows: two submitted up front, the
-    others joining mid-flight (staggered, recycled rows)."""
+    others joining mid-flight (staggered, recycled rows).  The reference's
+    run of an (arch, macro) pair (greedy, whatever ``temps`` says) is made
+    once and shared."""
+    if side == "ref" and (arch, macro) in _REF_RUNS:
+        return _REF_RUNS[arch, macro]
     m = _models(arch)
     tcfg = dataclasses.replace(m["tcfg"], attention_impl=attention_impl)
     mon = _stack(side)
@@ -451,6 +359,8 @@ def _serve(arch, side, macro, temps=(0.0, 0.0, 0.0, 0.0),
     got = {r.rid: list(r.tokens) for r in b.completed}
     assert sorted(got) == [0, 1, 2, 3]
     assert mon.pools.free_pages == N_LOGICAL
+    if side == "ref":
+        _REF_RUNS[arch, macro] = got, mon
     return got, mon
 
 
@@ -458,9 +368,8 @@ LEAVES = {"deepseek-v3-671b": {"ckv", "krope"},
           "recurrentgemma-2b": {"k", "v", "state"}, "xlstm-1.3b": {"state"}}
 
 
-@pytest.mark.parametrize("macro", [True, False])
-@pytest.mark.parametrize("arch", SERVED)
-def test_batcher_greedy_streams_match_reference(arch, macro):
+
+def _check_batcher_greedy(arch, macro):
     """Greedy streams rid for rid, migrations, hits, misses and the
     tuner's history equal the reference batcher's; the pools carry the
     slots' own leaves (two planes per migrated page with k/v or ckv/krope
@@ -478,8 +387,7 @@ def test_batcher_greedy_streams_match_reference(arch, macro):
         == (1 if arch == "xlstm-1.3b" else 2)
 
 
-@pytest.mark.parametrize("arch", SERVED)
-def test_batcher_streams_match_generate(arch):
+def _check_batcher_generate(arch):
     """Greedy rows equal the reference's ``generate``; a sampled row draws
     the same tokens on the port's per-token path, macro path and
     ``generate``."""
@@ -498,6 +406,12 @@ def test_batcher_streams_match_generate(arch):
                                         jnp.asarray(p[None]),
                                         steps=NEW[i]))[0].tolist()
             assert got == ref, i
+
+
+
+# ---------------------------------------------------------------------------
+# pools over mixed geometries
+# ---------------------------------------------------------------------------
 
 
 def test_mixed_geometry_pools_hold_none_and_migrate():
@@ -527,99 +441,3 @@ def test_mixed_geometry_pools_hold_none_and_migrate():
             if hbm is not None:
                 assert torch.equal(hbm[:, [4, 1]], host[:, [7, 2]])
 
-
-# ---------------------------------------------------------------------------
-# sliding window (gemma3-12b)
-# ---------------------------------------------------------------------------
-
-
-def test_gemma_decode_from_empty_ring_cache_matches():
-    """Token-by-token ``decode_step`` from an empty ``init_cache``: local
-    slots are rings of ``window`` rows written at ``pos % window`` (10
-    tokens wrap the ring of 8), the global slot ``max_len`` rows."""
-    m = _models("gemma3-12b")
-    rcfg, rp, tcfg, tp = m["rcfg"], m["rp"], m["tcfg"], m["tp"]
-    toks = np.random.default_rng(4).integers(0, rcfg.vocab_size, (2, 10)) \
-        .astype(np.int32)
-    rcache = RM.init_cache(rcfg, 2, 16, dtype=jnp.float32)
-    tcache = TM.init_cache(tcfg, 2, 16, device="cpu")
-    slots = tcache["segments"][0]
-    assert [c["pos"].shape[2] for c in slots] == [8] * 5 + [16]
-    for i in range(toks.shape[1]):
-        pos = np.full((2,), i, np.int32)
-        rl, rcache = RM.decode_step(rp, rcfg, rcache,
-                                    jnp.asarray(toks[:, i:i + 1]),
-                                    jnp.asarray(pos))
-        tl, tcache = TM.decode_step(tp, tcfg, tcache,
-                                    torch.from_numpy(toks[:, i:i + 1]).long(),
-                                    torch.from_numpy(pos).long())
-        _close(tl, rl, LOGIT_TOL)
-    for t, r in zip(tcache["segments"][0], rcache["segments"][0]):
-        np.testing.assert_array_equal(t["pos"].numpy(), np.asarray(r["pos"]))
-
-
-def test_gemma_init_is_seeded_and_at_reference_scales():
-    """Seeded init; attention and MLP leaves at N(0, 1/fan_in) with the
-    reference's fan-in, norms one; the full config's geometry."""
-    cfg = TC.get("gemma3-12b")
-    assert (cfg.num_layers, cfg.window_size, cfg.head_dim) == (48, 1024, 256)
-    assert [w for *_, w, _ in TM.state_slot_meta(cfg)] == [1024] * 5 + [0]
-    tcfg = dataclasses.replace(TC.reduced("gemma3-12b"), dtype="float32")
-    a = TM.init(tcfg, seed=3, device="cpu")
-    b = TM.init(tcfg, seed=3, device="cpu")
-    for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
-        assert torch.equal(x, y), n
-    slot = a.segments[0][0]
-    for t, fan in ((slot.wq, tcfg.d_model), (slot.wo, tcfg.num_heads),
-                   (slot.wi_gate, tcfg.d_model), (slot.w_down, tcfg.d_ff)):
-        assert abs(float(t.std()) / fan ** -0.5 - 1) < 0.1, (t.shape, fan)
-    assert torch.all(slot.q_norm == 1) and torch.all(slot.k_norm == 1)
-    assert not hasattr(a, "unembed")                  # tied embeddings
-
-
-def test_gemma_flash_prefill_matches_reference():
-    """``attention_impl="pallas"``: forward logits, batched-prefill logits
-    and caches, and prefill + ring decode match the reference's."""
-    m = _models("gemma3-12b")
-    rcfg, rp, tp = m["rcfg"], m["rp"], m["tp"]
-    tcfg = dataclasses.replace(m["tcfg"], attention_impl="pallas")
-    toks = np.random.default_rng(5).integers(0, rcfg.vocab_size, (2, 11)) \
-        .astype(np.int32)
-    tt = torch.from_numpy(toks).long()
-    _close(TM.forward(tp, tcfg, tt)[0], RM.forward(rp, rcfg, toks)[0],
-           LOGIT_TOL)
-    lengths = np.asarray([11, 6], np.int32)
-    rl, rc = RM.prefill_batched(rp, rcfg, jnp.asarray(toks),
-                                jnp.asarray(lengths))
-    tl, tc = TM.prefill_batched(tp, tcfg, tt, torch.from_numpy(lengths))
-    _close(tl, rl, LOGIT_TOL)
-    for t, r in zip(tc["segments"][0], rc["segments"][0]):
-        for name, a in t.items():
-            np.testing.assert_allclose(a.numpy(), np.asarray(r[name]),
-                                       atol=TOL, rtol=F32_RTOL)
-    rl, rcache = RM.prefill(rp, rcfg, jnp.asarray(toks))
-    tl, tcache = TM.prefill(tp, tcfg, tt)
-    _close(tl, rl, LOGIT_TOL)
-    rcache = RM.pad_cache(rcache, rcfg, 16)
-    tcache = TM.pad_cache(tcache, tcfg, 16)
-    pos, tok = np.full((2,), 11, np.int32), toks[:, -1:]
-    for _ in range(3):
-        rl, rcache = RM.decode_step(rp, rcfg, rcache, jnp.asarray(tok),
-                                    jnp.asarray(pos))
-        tl, tcache = TM.decode_step(tp, tcfg, tcache,
-                                    torch.from_numpy(tok).long(),
-                                    torch.from_numpy(pos).long())
-        _close(tl, rl, LOGIT_TOL)
-        tok, pos = np.asarray(rl).argmax(-1).astype(np.int32), pos + 1
-
-
-@pytest.mark.parametrize("macro", [True, False])
-def test_gemma_flash_batcher_streams_match_reference(macro):
-    """``attention_impl="pallas"``: the batcher's greedy streams,
-    migrations and tuner history equal the reference batcher's."""
-    ref, ref_mon = _serve("gemma3-12b", "ref", macro)
-    port, port_mon = _serve("gemma3-12b", "port", macro,
-                            attention_impl="pallas")
-    assert port == ref
-    assert port_mon.manager.migrations == ref_mon.manager.migrations
-    assert port_mon.tuner.history == ref_mon.tuner.history

@@ -1,4 +1,5 @@
-"""The port's pipelined macro loop against the JAX reference.
+"""The port's pipelined macro loop against the JAX reference: the models,
+the drive loop and the checks its files share, and the loop's parts.
 
   * ``serve.pipeline.DecisionWorker`` under the reference's hand-off
     tests (ordered generations, exceptions published to ``wait``, close
@@ -7,25 +8,14 @@
     reference's on one seeded stream of masses and snapshots (period,
     plan, modeled time, misses, ``slot_of``), and equal to the port's own
     ``on_macro_step``;
-  * ``model.prefill_chunk`` + ``chunk_past_extend`` against the
-    reference's on bridged weights for every batched-prefill
-    architecture of the geometry matrix (qwen3, gemma3 with its window of
-    8 split by chunks of 4 and 6, deepseek MLA + MoE, olmoe, musicgen
-    with its conditioning, nemotron, stablelm; nemotron and stablelm also
-    at their registered head dims, 192 and 160), under both
-    ``attention_impl`` settings, and against the port's own
-    ``prefill_batched``;
-  * the pipelined ``ContinuousBatcher``, with and without
-    ``admit_chunk_tokens``, against the reference's pipelined batcher on
-    the same weights and staggered requests (reduced gemma3, qwen3,
-    deepseek, musicgen): greedy streams rid for rid, migrations, hits,
-    misses and the tuner's history, every page returned; the synchronous
-    batcher on reduced stablelm at head dim 160 through the flash route
-    against the reference's batcher; sampled streams
-    held to the port's own parity (pipelined == synchronous == chunked ==
-    ``generate``);
-  * the table-upload counters and the closed set of pipeline stages, and
-    a worker exception surfacing from ``step()``.
+  * the pipelined batcher's argument checks.
+
+The pipelined ``ContinuousBatcher`` against the reference's pipelined
+batcher is held in ``tests/test_torch_pipelined_serve.py`` and
+``tests/test_torch_pipelined_serve_more.py``, ``model.prefill_chunk`` in
+``tests/test_torch_pipelined_chunk*.py``, and the recurrent and prefix
+configs in ``tests/test_torch_pipelined_state.py`` and
+``tests/test_torch_pipelined_squeeze.py``.
 
 float32 on the CPU (the kernels' plain versions).  Tolerances: 1e-4
 absolute on logits and 1e-5 on caches (the bars of
@@ -43,7 +33,6 @@ import torch
 torch.set_num_threads(1)
 
 import jax
-import jax.numpy as jnp
 
 import repro.configs as RC
 from repro.core.cori import OnlineTuner as RTuner
@@ -59,10 +48,7 @@ from repro_torch.core.cori import OnlineTuner as TTuner
 from repro_torch.memtier.tiering import SharedPagedPools as TPools
 from repro_torch.memtier.tiering import TierConfig as TTierConfig
 from repro_torch.memtier.tiering import TieringManager as TManager
-from repro_torch.models import model as TM
-from repro_torch.obs import telemetry as T_obs
 from repro_torch.serve import sched as TS
-from repro_torch.serve.engine import generate as t_generate
 from repro_torch.serve.pipeline import DecisionWorker
 
 LOGIT_TOL, TOL = 1e-4, 1e-5
@@ -273,140 +259,6 @@ def test_plan_step_accounts_like_on_macro_step():
 
 
 # ---------------------------------------------------------------------------
-# chunked prefill
-# ---------------------------------------------------------------------------
-
-
-def _pallas_ok(tcfg) -> bool:
-    try:
-        TM.check_supported(tcfg)
-        return True
-    except NotImplementedError:
-        return False
-
-
-@pytest.mark.parametrize("impl", ["reference", "pallas"])
-@pytest.mark.parametrize("arch", CHUNK_ARCHS)
-def test_prefill_chunk_matches_reference(arch, impl):
-    """Three rows of 14, 9 and 3 tokens in chunks of 4 (and of 6, which
-    with gemma3's window of 8 puts a window edge inside a chunk): every
-    chunk's logits and cache rows against the reference's
-    ``prefill_chunk`` over the same past, the accumulated past against
-    the reference's ``chunk_past_extend``, and the final past and each
-    row's last logits against the port's own ``prefill_batched``.  MLA
-    (deepseek) cannot take the flash route: there the setting raises."""
-    _check_prefill_chunk(_models(arch), impl)
-
-
-@pytest.mark.parametrize("impl", ["reference", "pallas"])
-@pytest.mark.parametrize("arch,head_dim", FULL_HEAD_DIMS)
-def test_prefill_chunk_at_the_registered_head_dim_matches_reference(
-        arch, head_dim, impl):
-    """The same at stablelm-12b's head dim (160) and nemotron-4-340b's
-    (192), which the flash route takes: the bridged weights at that head
-    dim, reduced widths otherwise."""
-    _check_prefill_chunk(_models(arch, head_dim), impl)
-
-
-def _check_prefill_chunk(m, impl):
-    rcfg, rp, tp = m["rcfg"], m["rp"], m["tp"]
-    tcfg = dataclasses.replace(m["tcfg"], attention_impl=impl)
-    if impl == "pallas" and not _pallas_ok(tcfg):
-        with pytest.raises(NotImplementedError, match="MLA"):
-            TM.check_supported(tcfg)
-        return
-    rng = np.random.default_rng(3)
-    lengths = np.asarray([14, 9, 3], np.int64)
-    toks = rng.integers(0, rcfg.vocab_size, (3, 16)).astype(np.int32)
-    rcond = tcond = None
-    if m["cond"] is not None:
-        c = np.ascontiguousarray(np.broadcast_to(m["cond"], (3,)
-                                                 + m["cond"].shape[1:]))
-        rcond, tcond = jnp.asarray(c), torch.from_numpy(c)
-    bl, bc = TM.prefill_batched(tp, tcfg, torch.from_numpy(toks).long(),
-                                torch.from_numpy(lengths), cond=tcond)
-    for width in (4, 6):
-        rpast = tpast = None
-        last = {}
-        for lo in range(0, 16, width):
-            hi = min(lo + width, 16)
-            rl, rc = RM.prefill_chunk(rp, rcfg, jnp.asarray(toks[:, lo:hi]),
-                                      jnp.asarray(lengths, jnp.int32), rpast,
-                                      start=lo, cond=rcond)
-            tl, tc = TM.prefill_chunk(
-                tp, tcfg, torch.from_numpy(toks[:, lo:hi]).long(),
-                torch.from_numpy(lengths), tpast, start=lo, cond=tcond)
-            assert tl.shape == (3, 1, rcfg.vocab_size)
-            _close(tl.numpy(), rl, LOGIT_TOL)
-            for tseg, rseg in zip(tc["segments"], rc["segments"]):
-                for t, r in zip(tseg, rseg):
-                    assert sorted(t) == sorted(r)
-                    for name, a in t.items():
-                        _close(a.numpy(), r[name], TOL)
-            for b in range(3):
-                if lo <= lengths[b] - 1 < hi:
-                    last[b] = tl[b]
-            rpast = RM.chunk_past_extend(rpast, rc)
-            tpast = TM.chunk_past_extend(tpast, tc)
-            for tseg, rseg in zip(tpast["segments"], rpast["segments"]):
-                for t, r in zip(tseg, rseg):
-                    assert sorted(t) == sorted(r) and "pos" not in t
-                    for name, a in t.items():
-                        assert a.shape[2] == hi
-                        _close(a.numpy(), r[name], TOL)
-        _close(torch.stack([last[b] for b in range(3)]).numpy(),
-               bl.numpy(), LOGIT_TOL)
-        for tseg, bseg in zip(tpast["segments"], bc["segments"]):
-            for t, b in zip(tseg, bseg):
-                for name, a in t.items():
-                    _close(a.numpy(), b[name].numpy(), TOL)
-
-
-def test_prefill_chunk_refuses_recurrent_configs():
-    for name in ("recurrentgemma-2b", "xlstm-1.3b"):
-        cfg = dataclasses.replace(TC.reduced(name), dtype="float32")
-        tp = TM.init(cfg, seed=0, device="cpu")
-        with pytest.raises(ValueError, match="chunked prefill"):
-            TM.prefill_chunk(tp, cfg, torch.zeros((1, 4), dtype=torch.long),
-                             torch.tensor([4]), start=0)
-
-
-def test_flash_route_takes_the_past_length_as_query_offset(monkeypatch):
-    """On the flash route a chunk's attention is one
-    ``ops.flash_attention`` call a layer with ``q_offset`` = the chunk's
-    start over ``past ++ own`` keys; key positions that are not
-    ``arange(start + S)`` are refused."""
-    m = _models("gemma3-12b")
-    tcfg = dataclasses.replace(m["tcfg"], attention_impl="pallas")
-    from repro_torch.kernels import ops
-    seen = []
-    real = ops.flash_attention
-
-    def spy(q, k, v, **kw):
-        seen.append((q.shape[1], k.shape[1], kw["q_offset"], kw["window"]))
-        return real(q, k, v, **kw)
-
-    monkeypatch.setattr(ops, "flash_attention", spy)
-    toks = torch.arange(8, dtype=torch.long)[None] % tcfg.vocab_size
-    _, c0 = TM.prefill_chunk(m["tp"], tcfg, toks[:, :4], torch.tensor([8]),
-                             start=0)
-    TM.prefill_chunk(m["tp"], tcfg, toks[:, 4:], torch.tensor([8]),
-                     TM.chunk_past_extend(None, c0), start=4)
-    layers = tcfg.num_layers
-    assert seen[:layers] == [(4, 4, 0, w) for w in
-                             [8, 8, 8, 8, 8, 0]]
-    assert seen[layers:] == [(4, 8, 4, w) for w in [8, 8, 8, 8, 8, 0]]
-    from repro_torch.models import layers as TL
-    slot = m["tp"].segments[0][0]
-    x = torch.zeros((1, 4, tcfg.d_model))
-    with pytest.raises(ValueError, match="start"):
-        TL.attention_apply(slot, 0, tcfg, x, torch.arange(4)[None] + 4,
-                           past=(torch.zeros(1, 4, tcfg.num_kv_heads,
-                                             tcfg.head_dim),) * 2,
-                           k_positions=torch.arange(4)[None])
-
-
-# ---------------------------------------------------------------------------
 # the pipelined batcher
 # ---------------------------------------------------------------------------
 
@@ -462,9 +314,7 @@ def _drive(side, arch, *, pipeline, chunk=None, temps=(0.0,) * 4,
     return got, mon
 
 
-@pytest.mark.parametrize("chunk", [None, 4])
-@pytest.mark.parametrize("arch", SERVED)
-def test_pipelined_greedy_streams_match_reference(arch, chunk):
+def _check_pipelined_greedy(arch, chunk):
     """The port's pipelined batcher (lazy same-boundary admission, the
     decision worker, the overlap prefetch; with ``chunk`` every prompt in
     chunks of 4 positions) against the reference's pipelined batcher:
@@ -477,102 +327,6 @@ def test_pipelined_greedy_streams_match_reference(arch, chunk):
         assert getattr(tmon.manager, attr) == getattr(rmon.manager, attr), \
             attr
     assert tmon.tuner.history == rmon.tuner.history
-
-
-def test_flash_route_streams_at_head_dim_160_match_reference():
-    """The synchronous batcher on reduced stablelm-12b at its registered
-    head dim (160), every admission through the flash route
-    (``attention_impl="pallas"``), against the reference's batcher:
-    greedy streams rid for rid, migrations, hits, misses and the tuner's
-    history."""
-    kw = dict(pipeline=False, head_dim=160)
-    ref, rmon = _drive("ref", "stablelm-12b", **kw)
-    port, tmon = _drive("port", "stablelm-12b", impl="pallas", **kw)
-    assert port == ref
-    for attr in ("migrations", "hits", "misses"):
-        assert getattr(tmon.manager, attr) == getattr(rmon.manager, attr), \
-            attr
-    assert tmon.tuner.history == rmon.tuner.history
-
-
-def test_sampled_streams_pipelined_sync_chunked_generate():
-    """Sampled rows draw ``(seed, iteration)`` on the device: the
-    pipelined loop, the synchronous loop, chunked admission and
-    ``generate`` emit the same streams."""
-    arch = "gemma3-12b"
-    temps = (0.0, 0.7, 0.7, 0.0)
-    runs = {name: _drive("port", arch, temps=temps, **kw)[0]
-            for name, kw in (("sync", dict(pipeline=False)),
-                             ("pipelined", dict(pipeline=True)),
-                             ("chunked", dict(pipeline=True, chunk=4)))}
-    assert runs["pipelined"] == runs["sync"]
-    assert runs["chunked"] == runs["sync"]
-    m = _models(arch)
-    for i in range(4):
-        ref = t_generate(m["tp"], m["tcfg"],
-                         torch.from_numpy(m["prompts"][i]).long()[None],
-                         steps=NEW[i], temperature=temps[i], seed=100 + i,
-                         device="cpu")
-        assert runs["sync"][i] == ref[0].tolist(), i
-
-
-def test_pipelined_table_counters_and_stages():
-    """Boundaries where nothing re-slotted and no row changed skip the
-    table upload (counted), and a chunked pipelined run emits the closed
-    set of stages, its decisions and its chunks: one decision a completed
-    macro."""
-    m = _models("gemma3-12b")
-    rec = T_obs.install(T_obs.Recorder(enabled=True))
-    try:
-        mon = _stack("port")
-        b = TS.ContinuousBatcher(m["tp"], m["tcfg"], max_active=2,
-                                 max_len=32, page_size=PAGE, monitor=mon,
-                                 pipeline=True, admit_chunk_tokens=4,
-                                 device="cpu")
-        rng = np.random.default_rng(1)
-        for i, n in enumerate((6, 14)):
-            b.submit(TS.Request(
-                rid=i, max_new_tokens=6,
-                prompt=rng.integers(0, m["tcfg"].vocab_size,
-                                    size=n).astype(np.int32)))
-        b.run(max_steps=60)
-        b.close()
-        assert b.idle
-        counters = rec.summary()["counters"]
-        assert counters.get("pool.table_upload.performed", 0) >= 1
-        assert counters.get("pool.table_upload.skipped", 0) >= 1, \
-            "quiet boundaries must reuse the staged tables"
-        types = {e["type"] for e in rec.events()}
-        assert {"serve.pipeline.stage", "serve.pipeline.decision",
-                "serve.pipeline.admit_chunk"} <= types
-        stages = {e["stage"] for e in rec.events("serve.pipeline.stage")}
-        assert stages == {"decision_wait", "prefetch", "tables", "admit"}
-        assert len(rec.events("serve.pipeline.decision")) \
-            == len(rec.events("serve.macro"))
-        assert all(e["stall_ms"] >= 0 for e in rec.events("serve.admit"))
-    finally:
-        T_obs.install(T_obs.Recorder())
-
-
-def test_worker_exception_surfaces_from_step():
-    """Without a watchdog a decision that raises re-raises from
-    ``step()``; ``close()`` still tears down."""
-    m = _models("qwen3-14b")
-    mon = _stack("port")
-    b = TS.ContinuousBatcher(m["tp"], m["tcfg"], max_active=2, max_len=32,
-                             page_size=PAGE, monitor=mon, pipeline=True,
-                             device="cpu")
-
-    def boom(**kw):
-        raise RuntimeError("decision failed")
-
-    mon.plan_step = boom
-    b.submit(TS.Request(rid=0, prompt=m["prompts"][0], max_new_tokens=6))
-    b.step()                          # launches the first macro
-    with pytest.raises(RuntimeError, match="decision failed"):
-        b.step()                      # completes it: its decision raises
-    b.close()
-    b.close()
 
 
 def test_pipeline_arguments_are_checked():

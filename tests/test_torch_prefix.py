@@ -13,15 +13,13 @@ N(0, 1) in numpy from a seed, given to both packages:
   * prefill + dense decode, and ``generate``'s greedy tokens;
   * the fully-paged decode step with two rows mapping the same prefix
     pages (logits, page mass, write-through);
-  * the ``ContinuousBatcher``'s greedy streams (macro and per-token) equal
-    the reference batcher's rid for rid, with the same migrations, hits,
-    misses and tuner history; sampled rows agree across the port's
-    ``generate``, per-token and macro paths; every owned page comes back
-    after a drain while the prefix stays mapped;
-  * the batcher's refusals, and two behaviours of the reference the port
-    keeps (ROADMAP Queue 3): the prefix pages, owned by no request, are
-    never ranked into the working set and are the first evicted; every
-    admission's forward runs over the prefix again.
+  * the prefix pages written once, and the batcher's refusals.
+
+The ``ContinuousBatcher``'s streams, and two behaviours of the reference
+the port keeps (ROADMAP Queue 3: the prefix pages, owned by no request,
+are never ranked into the working set and are the first evicted; every
+admission's forward runs over the prefix again), are held in
+``tests/test_torch_prefix_serve.py`` on this file's model.
 
 Tolerances: 1e-4 absolute on logits, 1e-5 on page masses and caches
 (float32, different reduction orders)."""
@@ -331,43 +329,6 @@ def _serve(side, macro, temps=(0.0, 0.0, 0.0, 0.0), mon=None, hook=None):
     return got, mon
 
 
-@pytest.mark.parametrize("macro", [True, False])
-def test_batcher_greedy_streams_match_reference(macro):
-    """Greedy streams rid for rid, migrations, hits, misses and the
-    tuner's history equal the reference batcher's."""
-    ref, ref_mon = _serve("ref", macro)
-    port, port_mon = _serve("port", macro)
-    assert port == ref
-    for key in ("migrations", "data_moved_pages", "hits", "misses"):
-        assert getattr(port_mon.manager, key) \
-            == getattr(ref_mon.manager, key), key
-    assert port_mon.tuner.history == ref_mon.tuner.history
-    np.testing.assert_array_equal(port_mon.pools.slot_of,
-                                  ref_mon.pools.slot_of)
-
-
-def test_batcher_streams_match_generate():
-    """Four-way parity with the prefix: greedy rows equal the reference's
-    ``generate``; a sampled row draws the same tokens on the port's
-    ``generate`` (the dense cache), per-token paged path and macro
-    path."""
-    m = _models()
-    temps = (0.0, 0.8, 0.0, 0.8)
-    per_token, _ = _serve("port", False, temps)
-    macro, _ = _serve("port", True, temps)
-    assert per_token == macro
-    for i, p in enumerate(m["prompts"]):
-        got = t_generate(m["tp"], m["tcfg"], p[None], steps=NEW[i],
-                         temperature=temps[i], seed=100 + i,
-                         extra_embeds=m["ex"], device="cpu")[0].tolist()
-        assert macro[i] == got, i
-        if temps[i] == 0:
-            ref = np.asarray(r_generate(
-                m["rp"], m["rcfg"], jnp.asarray(p[None]), steps=NEW[i],
-                extra_embeds=jnp.asarray(m["ex"])))[0].tolist()
-            assert got == ref, i
-
-
 def test_prefix_pages_written_once_at_construction():
     """The construction writes the prefix's k/v rows into the first two
     logical pages, both tiers, equal to a plain prefill's first 8 cache
@@ -445,72 +406,3 @@ def test_check_supported_refuses_a_prefix_it_cannot_serve(arch, change):
 # ---------------------------------------------------------------------------
 
 
-def test_prefix_pages_never_ranked_and_evicted_first():
-    """The prefix pages are allocated to owner -1, so ``allocated_mask``
-    (what ``maybe_tier`` ranks) leaves them out although every row's
-    table maps them; ``_plan_swaps`` evicts in page-id order, and they
-    hold the lowest ids, so the first tier with evictions takes them and
-    the next launch fetches them back.  Both packages do so alike: the
-    same evictions, and the same prefix re-fetches, counted on each."""
-    pp = _models()["rcfg"].prefix_len // PAGE
-    seen = {}
-    for side in ("ref", "port"):
-        evicts, fetched = [], []
-
-        def hook(b, evicts=evicts, fetched=fetched):
-            mgr, pools = b.monitor.manager, b.monitor.pools
-            apply_plan, ensure = mgr.apply_plan, pools.ensure_resident
-
-            def plan(pools_, bring, evict):
-                assert not pools.allocated_mask[:pp].any()
-                evicts.append(np.asarray(evict).tolist())
-                return apply_plan(pools_, bring, evict)
-
-            def fetch(gids):
-                pre = np.asarray(gids)[np.asarray(gids) < pp]
-                fetched.append(int((pools.slot_of[pre] < 0).sum()))
-                return ensure(gids)
-            mgr.apply_plan, pools.ensure_resident = plan, fetch
-
-        _serve(side, True, mon=_stack(side, hbm=7), hook=hook)
-        seen[side] = (evicts, fetched)
-        first = next(e for e in evicts if e)
-        n = min(pp, len(first))
-        assert first[:n] == list(range(n)), first
-        assert sum(fetched) > 0
-    assert seen["port"] == seen["ref"]
-
-
-def test_each_admission_runs_the_prefix_again(monkeypatch):
-    """Every admission's packed forward takes the prefix embeddings again
-    (P = 8 positions ahead of each joiner's prompt), in both packages,
-    though the prefix's pages were written once at construction."""
-    p = _models()["rcfg"].prefix_len
-    seen = {"ref": [], "port": []}
-
-    def note(side, ex, toks, lens):
-        seen[side].append((ex.shape[1], toks.shape[1],
-                           np.asarray(lens).tolist()))
-
-    def hook(b):
-        fn = b._prefill_fn
-
-        def wrapped(toks, lens, **kw):
-            note("ref", kw["extra_embeds"], toks, lens)
-            return fn(toks, lens, **kw)
-        b._prefill_fn = wrapped
-
-    fn = TM.prefill_batched
-
-    def port_prefill(params, cfg, toks, lens, **kw):
-        note("port", kw["extra_embeds"], toks, lens)
-        return fn(params, cfg, toks, lens, **kw)
-
-    monkeypatch.setattr(TM, "prefill_batched", port_prefill)
-    _serve("ref", True, hook=hook)
-    _serve("port", True)
-    assert seen["port"] == seen["ref"]
-    assert len(seen["port"]) >= 3          # the up-front pair, 2 joiners
-    for ex_len, _, lens in seen["port"]:
-        assert ex_len == p
-        assert all(n == 1 or n > p for n in lens)

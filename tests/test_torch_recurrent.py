@@ -5,15 +5,17 @@ Reduced ``recurrentgemma-2b`` (RG-LRU cells, lru_width 64) and reduced
 of 16), float32, with the reference's parameters carried over through
 ``repro_torch.bridge``:
 
-  * each cell's sequence form (``*_apply``, from the zero state and from
-    a carried one) and one-token form (``*_step``) against the
-    reference's, outputs and every state leaf;
   * ``pack_state`` bit-equal to the reference's (the pages' bytes, leaf
     order included), ``unpack_state`` its exact inverse, ``state_dim``,
     the zero states and ``write_state_pages`` as the reference's;
-  * the paging predicates of every registered config, the full configs'
-    state pages, dense decode from an empty cache, and a demoted state
-    page fetched back from the host tier bit for bit.
+  * the paging predicates of every registered config and the full
+    configs' state pages.
+
+Each cell's sequence and one-token forms against the reference's are
+held in ``tests/test_torch_recurrent_cells.py``, and the models' seeded
+init, dense decode from an empty cache and a demoted state page fetched
+back from the host tier in ``tests/test_torch_recurrent_model.py``, on
+this file's cells and models.
 
 The reference initialises every cell's conv taps to zero
 (``repro/models/recurrent.py:62``, ``:181``, ``:277``), and with them all
@@ -44,12 +46,10 @@ from repro.models import recurrent as RR
 
 import repro_torch.configs as TC
 from repro_torch import bridge
-from repro_torch.core.cori import OnlineTuner
 from repro_torch.memtier import tiering as TT
 from repro_torch.models import model as TM
 from repro_torch.models import recurrent as TR
 from repro_torch.models.config import parse_kind
-from repro_torch.serve import sched as TS
 
 TOL, LOGIT_TOL = 1e-5, 1e-4
 # float32 relative term: two frameworks' summation orders on different CPUs
@@ -151,49 +151,6 @@ def test_zero_conv_taps_make_every_cell_an_identity(kind):
 
 
 @pytest.mark.parametrize("kind", sorted(CELLS))
-def test_cell_apply_matches_reference(kind):
-    """The sequence form from the zero state over 5 tokens, then from the
-    carried state over 4 more (the previous state folded into the first
-    step): outputs and every state leaf."""
-    apply = REF_FNS[kind][0]
-    rcfg, ref, tcfg, cell = _cell(kind)
-    x = _x(rcfg, 2, 9, seed=2)
-    ry1, rst1 = apply(ref, rcfg, jnp.asarray(x[:, :5]))
-    ty1, tst1 = TR.apply(cell, 0, tcfg, torch.from_numpy(x[:, :5]))
-    _close(ty1, ry1)
-    _close_state(tst1, rst1)
-    ry2, rst2 = apply(ref, rcfg, jnp.asarray(x[:, 5:]), rst1)
-    ty2, tst2 = TR.apply(cell, 0, tcfg, torch.from_numpy(x[:, 5:]),
-                         _to_torch(rst1))
-    _close(ty2, ry2)
-    _close_state(tst2, rst2)
-
-
-@pytest.mark.parametrize("kind", sorted(CELLS))
-def test_cell_step_matches_reference(kind):
-    """Three decode steps from a carried state against the reference's;
-    the port's steps also agree with its own sequence form over the same
-    tokens."""
-    apply, step, _ = REF_FNS[kind]
-    rcfg, ref, tcfg, cell = _cell(kind)
-    x = _x(rcfg, 3, 7, seed=3)
-    _, rst = apply(ref, rcfg, jnp.asarray(x[:, :4]))
-    tst = _to_torch(rst)
-    start = dict(tst)
-    for t in range(4, 7):
-        ry, rst = step(ref, rcfg, jnp.asarray(x[:, t:t + 1]), rst)
-        ty, tst = TR.step(cell, 0, tcfg, torch.from_numpy(x[:, t:t + 1]),
-                          tst)
-        assert ty.shape == (3, 1, tcfg.d_model)
-        _close(ty, ry)
-        _close_state(tst, rst)
-    ty_seq, tst_seq = TR.apply(cell, 0, tcfg, torch.from_numpy(x[:, 4:]),
-                               start)
-    _close(ty_seq[:, -1:], ty)
-    _close_state(tst_seq, {k: v.numpy() for k, v in tst.items()})
-
-
-@pytest.mark.parametrize("kind", sorted(CELLS))
 def test_zero_state_matches_reference(kind):
     rcfg, _, tcfg, _ = _cell(kind)
     ref = REF_FNS[kind][2](rcfg, 3)
@@ -284,110 +241,3 @@ def test_full_configs_state_pages():
     assert mdim == 4 * 1024 * 1024 + 3 * 4096 + 4 + 4 * 1024
     page = sum(r * lv["state"][0] * 4 for r, lv in TM.slot_leaf_specs(x, 16))
     assert 700e6 < page < 710e6, page
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_init_is_seeded_and_at_reference_scales(arch):
-    """Seeded init; cell leaves at N(0, 1/fan_in) with the reference's
-    fan-in, conv taps zero and out_norm one as the reference's, RG-LRU's
-    a = exp(-8 softplus(lambda)) in [0.9, 0.999]; xlstm's slots carry no
-    MLP sublayer (d_ff == 0)."""
-    tcfg = dataclasses.replace(TC.reduced(arch), dtype="float32")
-    a = TM.init(tcfg, seed=3, device="cpu")
-    b = TM.init(tcfg, seed=3, device="cpu")
-    for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
-        assert torch.equal(x, y), n
-    for seg in a.segments:
-        for slot in seg:
-            if not slot.kind.is_recurrent:
-                continue
-            cell = slot.cell
-            assert torch.all(cell.conv == 0)
-            for name, fan in cell.fan_in.items():
-                t = getattr(cell, name)
-                assert abs(float(t.std()) / fan ** -0.5 - 1) < 0.15, name
-            if slot.kind.base == "rglru":
-                decay = torch.exp(-TR.RGLRU_C * torch.nn.functional.softplus(
-                    cell.lam))
-                assert float(decay.min()) >= 0.9 - 1e-6
-                assert float(decay.max()) <= 0.999 + 1e-6
-            else:
-                assert torch.all(cell.out_norm == 1)
-            assert hasattr(slot, "wi_gate") == (tcfg.d_ff > 0)
-            assert hasattr(slot, "norm2") == (tcfg.d_ff > 0)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_decode_from_empty_cache_matches(arch):
-    """Token-by-token ``decode_step`` from an empty ``init_cache`` (zero
-    cell states, an empty window ring on recurrentgemma's local slot)
-    against the reference doing the same."""
-    rcfg, rp, tcfg, tp = _models(arch)
-    toks = np.random.default_rng(6).integers(0, rcfg.vocab_size, (2, 10)) \
-        .astype(np.int32)
-    rcache = RM.init_cache(rcfg, 2, 16, dtype=jnp.float32)
-    tcache = TM.init_cache(tcfg, 2, 16, device="cpu")
-    for i in range(toks.shape[1]):
-        pos = np.full((2,), i, np.int32)
-        rl, rcache = RM.decode_step(rp, rcfg, rcache,
-                                    jnp.asarray(toks[:, i:i + 1]),
-                                    jnp.asarray(pos))
-        tl, tcache = TM.decode_step(tp, tcfg, tcache,
-                                    torch.from_numpy(toks[:, i:i + 1]).long(),
-                                    torch.from_numpy(pos).long())
-        _close(tl, rl, LOGIT_TOL)
-    for tseg, rseg in zip(tcache["segments"], rcache["segments"]):
-        for t, r in zip(tseg, rseg):
-            for k, v in t.items():
-                np.testing.assert_allclose(v.numpy(), np.asarray(r[k]),
-                                           atol=TOL, rtol=F32_RTOL, err_msg=k)
-
-
-# ---------------------------------------------------------------------------
-# a state page through the host tier
-# ---------------------------------------------------------------------------
-
-
-def _serve(arch, demote_every=0):
-    """Serve four requests over two rows; every ``demote_every`` steps
-    (0 = never) demote the oldest active request's pages, as a
-    preemption does, so the next decode fetches its state page back from
-    the host tier.  Returns (streams, misses, demoted pages)."""
-    _, _, tcfg, tp = _models(arch)
-    n_logical, hbm = 48, 10
-    mon = TS.TrafficMonitor(
-        TT.SharedPagedPools.create(n_logical, hbm),
-        TT.TieringManager(n_logical, TT.TierConfig(page_size=4,
-                                                   hbm_pages=hbm,
-                                                   period_steps=2)),
-        OnlineTuner(n_logical, default_period=2, profile_steps=8,
-                    trial_steps=4))
-    b = TS.ContinuousBatcher(tp, tcfg, monitor=mon, max_active=2, max_len=32,
-                             page_size=4, device="cpu")
-    rng = np.random.default_rng(8)
-    for i, (n, new) in enumerate(((6, 9), (9, 7), (5, 8), (11, 6))):
-        b.submit(TS.Request(rid=i, prompt=rng.integers(
-            0, tcfg.vocab_size, n).astype(np.int32), max_new_tokens=new,
-            temperature=0.8 if i == 1 else 0.0, seed=i))
-    demoted, t = 0, 0
-    while not b.idle:
-        b.step()
-        t += 1
-        if demote_every and t % demote_every == 0 and b.active:
-            req = min(b.active.values(), key=lambda q: q.rid)
-            demoted += mon.pools.demote(req.gids)
-    return ({r.rid: r.tokens for r in b.completed}, mon.manager.misses,
-            demoted)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_demoted_state_page_is_fetched_back_exact(arch):
-    """Demoting a request's pages mid-decode moves no data (the host copy
-    is written through every step); the next macro fetches its state page
-    back from the host tier, and the streams equal a run without
-    demotions."""
-    want, misses, _ = _serve(arch)
-    got, misses_demoted, demoted = _serve(arch, demote_every=2)
-    assert demoted > 0
-    assert misses_demoted > misses
-    assert got == want

@@ -4,7 +4,7 @@ batcher's greedy streams rid for rid under staggered admission, with
 allclose merged page masses at every monitor feed; sampled streams must
 agree across the port's own three paths (``generate``, per-token paged,
 macro).  Also pins that running the port never imports JAX or the
-reference.
+reference.  ``macro_steps`` is held in ``tests/test_torch_serve_macro.py``.
 
 Reduced qwen3-14b with GQA 4/2 and a 2-repeat segment, float32, on the
 CPU (the kernel's plain version).  Mass tolerance: 1e-5 absolute."""
@@ -28,7 +28,6 @@ from repro.memtier.tiering import TierConfig as RTierConfig
 from repro.memtier.tiering import TieringManager as RManager
 from repro.core.cori import OnlineTuner as RTuner
 from repro.models import model as RM
-from repro.obs import telemetry as R_obs
 from repro.serve import sched as RS
 
 import repro_torch.configs as TC
@@ -37,7 +36,6 @@ from repro_torch.core.cori import OnlineTuner as TTuner
 from repro_torch.memtier.tiering import SharedPagedPools as TPools
 from repro_torch.memtier.tiering import TierConfig as TTierConfig
 from repro_torch.memtier.tiering import TieringManager as TManager
-from repro_torch.obs import telemetry as T_obs
 from repro_torch.serve import sched as TS
 from repro_torch.serve.engine import generate as t_generate
 
@@ -134,36 +132,6 @@ def test_batcher_greedy_streams_match_reference(macro):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
     assert port_mon.manager.migrations == ref_mon.manager.migrations
     assert port_mon.tuner.history == ref_mon.tuner.history
-
-
-@pytest.mark.parametrize("macro_steps", [1, 4, 8])
-def test_batcher_macro_steps_match_reference(macro_steps):
-    """``macro_steps`` (the reference's batcher option) pins the macro
-    length in place of the tuner's period: greedy streams, every merged
-    mass (1e-5), migrations, tuner history and each macro's length (the
-    flight recorder's ``serve.macro`` events) equal to the reference
-    batcher's with the same ``macro_steps``; no macro is longer, and one
-    runs for each monitor feed."""
-    res, lens = {}, {}
-    for side, obs in (("ref", R_obs), ("port", T_obs)):
-        prev = obs.RECORDER
-        rec = obs.install(obs.Recorder(enabled=True))
-        try:
-            res[side] = _serve(side, True, macro_steps=macro_steps)
-        finally:
-            obs.install(prev)
-        lens[side] = [e["n_steps"] for e in rec.events("serve.macro")]
-    (ref, ref_m, ref_mon), (port, port_m, port_mon) = res["ref"], \
-        res["port"]
-    assert port == ref
-    assert len(port_m) == len(ref_m)
-    for a, b in zip(port_m, ref_m):
-        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
-    assert port_mon.manager.migrations == ref_mon.manager.migrations
-    assert port_mon.tuner.history == ref_mon.tuner.history
-    assert lens["port"] == lens["ref"]
-    assert len(lens["port"]) == len(port_m)
-    assert max(lens["port"]) == macro_steps, lens
 
 
 def test_batcher_streams_match_generate():
