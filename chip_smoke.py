@@ -27,7 +27,11 @@ non-zero):
      first 16 columns the same shared prefix pages, whose mass must be
      positive in every live row), the edges of the kernel's split over
      pages
-     (``SPLIT_EDGES``) and a GQA / window / softcap grid, float32 and
+     (``SPLIT_EDGES``), the long rows of phases 54-55 (``LONG_PAGED``:
+     one row at 32768 tokens, 2048 pages, beside shorter ones, at
+     gemma3's 16/8 heads of 256 causal and with window 1024 and at
+     recurrentgemma's 10/1 heads with window 2048 and its state column)
+     and a GQA / window / softcap grid, float32 and
      bfloat16, with stated tolerances, each active row's mass summing to
      1, and two calls on the same inputs bit-identical;
   4. full-width qwen3-14b (all 40 layers, float32 weights from a seeded
@@ -114,8 +118,11 @@ non-zero):
      2048, 16/8 heads, D 256, causal and window 1024), phase 24 gives it
      (B = 4, 2 and 1, S = T = 512, 32/32 heads, D 64, causal), phase 51
      gives it (the same B and S, 32/8 heads of 160) and phase 25 gives it
-     (96/8 heads of 192) in float32 and bfloat16, with stated tolerances
-     (bfloat16 also each output row within ``BF16_ROW_TOL`` of its norm);
+     (96/8 heads of 192) in float32 and bfloat16, and with a query offset
+     at phase 33's chunks (B = 1, S = 512 at each served start) and at
+     phase 54's last chunk (S = 2048 at ``q_offset`` 30720 over T =
+     32768), causal and window 1024, with stated tolerances (bfloat16
+     also each output row within ``BF16_ROW_TOL`` of its norm);
  15. full-width gemma3-12b, its depth cut from 48 layers to 24
      (``GEMMA_REPEATS`` of its 5 local : 1 global block: 20 of them sliding
      window 1024; float32 weights from a seeded init) with
@@ -377,7 +384,9 @@ non-zero):
  44. (right before phase 19) the mLSTM recurrence kernel ``mlstm_scan``
      vs its plain version at xlstm-1.3b's full width (4 heads of 1024):
      a 256-position prefill from the zero state and from the state it
-     leaves, B = 2 at S = 1, 3 and 17 from a carried state, and a decode
+     leaves, B = 2 at S = 1, 3 and 17 from a carried state, a
+     32768-position prefill from a carried state (phase 56's), and a
+     decode
      step of B = 4 in place over pool pages of both tiers (one row
      dropped to the sinks, each HBM slot another host page).  S = 1 (the
      strip kernel): C, n and m bit-equal to the plain version (every byte
@@ -396,8 +405,11 @@ non-zero):
  45. (right after phase 44) the sLSTM recurrence kernel ``slstm_scan`` vs
      its plain version at xlstm-1.3b's full width (4 heads of 512): a
      256-position prefill from the zero state and from the state it
-     leaves, a decode step of B = 4 from a carried state, and a grid of
-     reduced shapes (4 heads of 16, 64 and 128; S 1, 7 and 256).  Each
+     leaves, a 32768-position prefill from a carried state (phase 56's;
+     position by position only: the whole sequence's carried bound is
+     vacuous that far into a chaotic recurrence), a decode step of B = 4
+     from a carried state, and a grid of reduced shapes (4 heads of 16, 64
+     and 128; S 1, 7 and 256).  Each
      case: every position run as one position from the plain version's
      state (teacher-forced; at S = 1 the one step) and from the kernel's
      own, within the one-step bound (``slstm_scan.tolerance``: the
@@ -412,8 +424,9 @@ non-zero):
  46. (right before phase 18) the RG-LRU kernel ``rglru_scan`` vs its
      plain version at recurrentgemma-2b's width (2560): B = 1, S = 2600
      from a carried h, B = 4 at S = 1, a grid around the kernel's chunk
-     of 64 positions and B = 4 at S = 4096 (more tiles than the card
-     holds at once); h within ``h_tolerance``, a second call
+     of 64 positions, B = 4 at S = 4096 (more tiles than the card
+     holds at once) and B = 1 at S = 32768 (phase 55's); h within
+     ``h_tolerance``, a second call
      bit-identical, also after a call on other data, and three CUDA
      graph replays of the call (on its data, on other data, on its data)
      each bit-identical to the eager call on the same data.  Then its
@@ -475,7 +488,39 @@ non-zero):
      (typed statuses) within ``XLSTM_MAX_STEPS`` scheduler steps, both
      recurrence kernels' launches as phase 19's, and the streams phase
      19's.  The port's host tier is a device tensor, as the reference's:
-     every page move is HBM to HBM.
+     every page move is HBM to HBM;
+ 54. (right after phase 33, phase 15's weights freed) long context on
+     full-width gemma3-12b, its depth cut to ``GEMMA_LONG_REPEATS`` = 2 of
+     its 8 blocks (12 layers, 14.8 GB; 24 would not fit beside the long
+     mix's pools and its prefill), ``attention_impl="pallas"``: the long
+     mix (``_long_mix``: one request of 32704 prompt + 64 new tokens =
+     ``LONG_MAX_LEN``, alone in its admission, then three of 256-1024 +
+     48-96 one scheduler step later, one sampled) over pools of 2560
+     logical / 2304 HBM pages (``LONG_POOLS``: the long row holds 2048),
+     by the graph route, the eager route (as phase 4) and the pipelined
+     loop with ``admit_chunk_tokens=LONG_CHUNK`` (16 chunks, streams held
+     to the graph route's).  The flash kernel's launches must equal 12 x
+     admissions (12 x (chunks + packed admissions) pipelined), the paged
+     kernel's 12 x the device steps, and the Cori loop must act; each run
+     prints tokens/s, the admission wall, the macro wall p50, the peak
+     and the first step's peak above the resident bytes, and one step
+     profiled in flight with the 32k row decoding (``_LongRun``).  Then
+     kernel 1 timed at the long rows (``LONG_PAGED``, gemma3's global and
+     local layers) and kernel 3 at the last chunk (``LONG_FLASH_CHUNK``),
+     causal and window 1024, beside their plain versions, SDPA and their
+     bounds;
+ 55. (right after phase 18, on its weights) the long mix on full-depth
+     recurrentgemma-2b (its registered ``attention_impl="reference"``:
+     the local layers' prefill through ``layers.sdpa``, 512 queries a
+     chunk) by both routes, as phase 54's synchronous routes, with phase
+     18's launch checks; fails unless the long admission's peak above the
+     resident bytes stays below one local layer's whole [10, S, S]
+     float32 logits (42.8 GB); then kernel 1 timed at its long row;
+ 56. (right after phase 53, on phase 19's weights) the long mix on
+     full-depth xlstm-1.3b by both routes over phase 19's pools of state
+     pages (a row's page does not grow with its context), with phase 19's
+     launch checks: ``mlstm_scan`` and ``slstm_scan`` through a
+     32704-position prefill.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -632,8 +677,10 @@ def phase_kernel_check(pa) -> float:
     # groups of two), every row's first 16 columns the shared prefix pages
     paligemma = dict(PAGED_SHAPES["paligemma-3b"],
                      lengths=[1024, 640, 257, 0])
+    # and the long rows of phases 54-55 (one row at 32768 tokens: 2048
+    # pages, 64 splits of 32 pages on gemma3's global layers)
     grid = [dict(main), olmoe, gemma, rgemma, musicgen, nemotron,
-            stablelm, paligemma] + SPLIT_EDGES
+            stablelm, paligemma] + SPLIT_EDGES + list(LONG_PAGED.values())
     for h, kv in ((4, 4), (8, 2), (8, 1)):
         for window, softcap in ((0, 0.0), (3, 0.0), (0, 5.0), (3, 5.0)):
             grid.append(dict(b=3, h=h, kv=kv, d=64, page=16, n=6, p_phys=32,
@@ -727,7 +774,7 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
                n_logical=256, hbm_pages=128, max_len=1024, n_req=8,
                prompt=(128, 513), new=(48, 97), access_threshold=0.05,
                eager=False, between=None, cond=None, extra_embeds=None,
-               keep=None, **batcher_kw):
+               keep=None, requests=None, **batcher_kw):
     """Serve a request mix with the macro-step batcher over
     ``SharedPagedPools`` + ``TieringManager`` + ``OnlineTuner`` until
     drained, with every kernel's launch count set to 0 just before:
@@ -745,7 +792,10 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
     ``batcher_kw`` goes to the batcher (``pipeline``,
     ``admit_chunk_tokens``, ``fault_plan``, ``max_queue``, ``watchdog_s``,
     ``max_worker_restarts``); ``keep``, a dict, receives the run's flight
-    recorder as ``keep["recorder"]``.  The streams are those of the
+    recorder as ``keep["recorder"]``.  ``requests``, if given, takes
+    (S, cfg, rng) and returns the mix as (arrival, request) pairs in
+    place of the drawn one: a request arriving at k is submitted after
+    the k-th scheduler step.  The streams are those of the
     requests that completed (a shed or expired submission has none).
     Prints and checks what every served model shares, and the merged
     page masses the monitor saw (the access threshold is set from them);
@@ -795,21 +845,31 @@ def _serve_mix(params, cfg, S, memtier, cori, telemetry, kernels, *,
           "page", flush=True)
 
     rng = np.random.default_rng(SEED)
-    reqs = _mix_requests(S, cfg, rng, n_req, prompt, new)
+    mix = ([(0, r) for r in _mix_requests(S, cfg, rng, n_req, prompt, new)]
+           if requests is None else
+           sorted(requests(S, cfg, rng), key=lambda x: x[0]))
+    reqs = [r for _, r in mix]
+    n_req = len(reqs)
 
     rec = telemetry.install(telemetry.Recorder())
-    for r in reqs:
+    for r in (r for at, r in mix if at <= 0):
         b.submit(r)
+    late = [x for x in mix if x[0] > 0]
     hook = between(b) if between else None
     _reset_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    if hook is None:
+    if hook is None and not late:
         b.run()
     else:
-        while not b.idle:
+        steps = 0
+        while not b.idle or late:
             b.step()
-            hook(b)
+            steps += 1
+            while late and late[0][0] <= steps:
+                b.submit(late.pop(0)[1])
+            if hook is not None:
+                hook(b)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     # the streams of the requests served (a fault plan's shed and expired
@@ -912,13 +972,14 @@ def _check_launches(name, launches, layers, b, eager) -> None:
 
 
 def _serve_routes(params, cfg, S, memtier, cori, telemetry, kernels, check,
-                  **mix):
+                  profile=True, **mix):
     """Serve the mix by the graph route (the main path), then by the eager
     route over fresh pools; ``check(b, result, eager)`` checks each
-    route's launches before one macro is profiled (``_profile_macro``)
-    and the batcher is freed.  Fails unless the two routes' streams,
-    migrations, hits, misses and tuner history are identical.  Returns
-    ({route: result}, requests)."""
+    route's launches before one macro is profiled (``_profile_macro``;
+    with ``profile=False`` the check puts a profile of its own in
+    ``result["profile"]``) and the batcher is freed.  Fails unless the
+    two routes' streams, migrations, hits, misses and tuner history are
+    identical.  Returns ({route: result}, requests)."""
     results, same = {}, {}
     for eager in (False, True):
         print(f"-- the {'eager' if eager else 'graph'} route", flush=True)
@@ -928,7 +989,8 @@ def _serve_routes(params, cfg, S, memtier, cori, telemetry, kernels, check,
         if b.route != ("eager" if eager else "graph"):
             _fail(f"{cfg.name}: the batcher took the {b.route} route")
         check(b, res, eager)
-        res["profile"] = _profile_macro(b, S, cfg, rng)
+        if profile:
+            res["profile"] = _profile_macro(b, S, cfg, rng)
         results[b.route] = res
         held = torch.cuda.memory_allocated()
         del b
@@ -1005,7 +1067,6 @@ def _profile_macro(b, S, cfg, rng) -> dict:
     the kernels that take the most of it; then drains the batcher.
     Returns ms/step (wall, per decode step), busy and idle percent (None
     when the profiler saw no device time) and each group's ms/step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(4):
         b.submit(S.Request(rid=100 + i, prompt=rng.integers(
@@ -1019,18 +1080,31 @@ def _profile_macro(b, S, cfg, rng) -> dict:
         b.step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    steps, dsteps = b.decode_steps - steps0, b.device_steps - dsteps0
+    out = _macro_groups(prof, b, wall_ms, b.decode_steps - steps0,
+                        b.device_steps - dsteps0)
+    b.run()
+    return out
+
+
+def _macro_groups(prof, b, wall_ms, steps, dsteps) -> dict:
+    """``_profile_macro``'s split of one profiled scheduler step of ``b``
+    (``steps`` decode steps, ``dsteps`` on the device, ``wall_ms`` on the
+    host clock): prints the busy share and each kernel group's ms a step
+    and returns them."""
+    from torch.autograd import DeviceType
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     groups = {"matmul (cuBLAS)": 0.0, "paged_attention (this repo)": 0.0,
               "routed_experts (this repo)": 0.0,
               "mlstm_scan (this repo)": 0.0, "slstm_scan (this repo)": 0.0,
-              "rglru_scan (this repo)": 0.0, "other": 0.0}
+              "rglru_scan (this repo)": 0.0,
+              "flash_attention (this repo)": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         key = ("paged_attention (this repo)"
                if "paged_attention" in name or "page_mass" in name
+               else "flash_attention (this repo)" if "flash_" in name
                else "routed_experts (this repo)" if "routed_" in name
                else "mlstm_scan (this repo)" if "mlstm_scan" in name
                else "slstm_scan (this repo)" if "slstm_scan" in name
@@ -1052,7 +1126,6 @@ def _profile_macro(b, S, cfg, rng) -> dict:
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
-    b.run()
     busy = dev_ms / wall_ms * 100 if dev_ms > 0 else None
     return dict(ms_per_step=wall_ms / max(1, steps), steps=steps,
                 device_steps=dsteps,
@@ -2035,11 +2108,12 @@ def phase_flash_check(fa) -> float:
         print(f"{dt} S=T={s}: worst err {err:.3g} (tol "
               f"{tol(getattr(torch, dt), s)}){row} ok", flush=True)
     # the query offset (phase 33's chunks): S=512 at each served start and
-    # at 496 (no multiple of the kernel's 32-key tile), and S=1 at the last
-    # position, causal and window 1024; the tolerance of T keys
+    # at 496 (no multiple of the kernel's 32-key tile), S=1 at the last
+    # position, and phase 54's last chunk (S=2048 at 30720, T=32768),
+    # causal and window 1024; the tolerance of T keys
     c = FLASH_CHUNK
     offsets = [(c["s"], st) for st in FLASH_CHUNK_STARTS + (496,)] \
-        + [(1, 2047)]
+        + [(1, 2047), LONG_FLASH_CHUNK]
     for dtype in (torch.float32, torch.bfloat16):
         for s, start in offsets:
             t = start + s
@@ -2439,10 +2513,8 @@ def phase_rgemma(C, mdl, pa, rg_, S, memtier, cori, telemetry, kernels):
     results["prefill_split"] = _prefill_split(
         mdl, params, cfg, np.random.default_rng(SEED + 18),
         plen=RGEMMA_SPLIT_PLEN, plain=("rglru",))
-    held = torch.cuda.memory_allocated()
-    del params
-    _check_freed(held)
-    return results
+    # phase 55 serves the long mix on these parameters
+    return results, cfg, params
 
 
 class _Demoter:
@@ -2990,6 +3062,11 @@ def phase_mlstm(ms_) -> dict:
         worst = max(worst, _mlstm_case(
             ms_, f"B=2 S={s} from a carried state", data, src, two,
             [(torch.zeros_like(src), two)]))
+    # phase 56's prefill length, from the carried state
+    worst = max(worst, _mlstm_case(
+        ms_, f"prefill B=1 S={LONG_MAX_LEN} from a carried state",
+        _mlstm_data(1, LONG_MAX_LEN, SEED + 47)[:5] + (n1, m1), carried, one,
+        [(torch.zeros((1, cols), device=DEV), one)]))
     # decode over pool pages: 6 HBM slots and 8 host pages of xlstm-1.3b's
     # state page, each tier's sink last; row 2 dropped (no source, the
     # sinks), the others in place, each HBM slot another host page
@@ -3088,32 +3165,41 @@ def _slstm_start(ss_, b, nh, hd, r, seed, carried):
 
 def _slstm_forced(ss_, wx, r, starts):
     """Every position run as one position from ``starts[t]`` (a state a
-    position), all in one launch of B S rows, against the plain cell from
-    the same states: (largest |h| error, within the one-step bound)."""
+    position), 4096 positions a launch of B x 4096 rows (the float64
+    bound of a 32768-position case at once would take ~30 GB), against
+    the plain cell from the same states: (largest |h| error, within the
+    one-step bound)."""
     b, s = wx.shape[:2]
-    rows = tuple(torch.cat([st[i] for st in starts]) for i in range(4))
-    wx_rows = wx.transpose(0, 1).reshape(s * b, 1, *wx.shape[2:])
-    got = ss_.slstm_scan(wx_rows, r, *rows)
-    want = ss_.slstm_scan_plain(wx_rows, r, *rows)
-    tol_h, tol_st = ss_.tolerance(wx_rows, r, *rows)
-    within = bool(((got[0] - want[0]).abs() <= tol_h).all()) and all(
-        bool(((got[i] - want[i]).abs() <= tol_st[k]).all())
-        for i, k in ((1, "c"), (2, "n"), (3, "m")))
-    return float((got[0] - want[0]).abs().max()), within
+    block = 4096
+    err, within = 0.0, True
+    for lo in range(0, s, block):
+        part = starts[lo: lo + block]
+        rows = tuple(torch.cat([st[i] for st in part]) for i in range(4))
+        wx_rows = wx[:, lo: lo + block].transpose(0, 1).reshape(
+            len(part) * b, 1, *wx.shape[2:])
+        got = ss_.slstm_scan(wx_rows, r, *rows)
+        want = ss_.slstm_scan_plain(wx_rows, r, *rows)
+        tol_h, tol_st = ss_.tolerance(wx_rows, r, *rows)
+        within &= bool(((got[0] - want[0]).abs() <= tol_h).all()) and all(
+            bool(((got[i] - want[i]).abs() <= tol_st[k]).all())
+            for i, k in ((1, "c"), (2, "n"), (3, "m")))
+        err = max(err, float((got[0] - want[0]).abs().max()))
+    return err, within
 
 
-def _slstm_case(ss_, name, wx, r, start) -> dict:
+def _slstm_case(ss_, name, wx, r, start, whole=True) -> dict:
     """The kernel against its plain version on one case (module
     docstring of ``kernels/slstm_scan.py``): teacher-forced (every
     position from the plain version's state; at S = 1 the one step) and
     kernel-forced (from the kernel's own states) within the one-step
     bound; the sequence launch bit-identical to one-position launches
-    chained on its own state, and to a second call; the whole sequence's
-    deviation from the plain version printed and held to the carried
-    bound.  Returns the errors."""
+    chained on its own state, and to a second call; with ``whole``, the
+    whole sequence's deviation from the plain version printed and held to
+    the carried bound (which the chaotic recurrence makes vacuous a few
+    positions in at full width: the long case leaves it out).  Returns
+    the errors."""
     s = wx.shape[1]
     bits = lambda x, y: torch.equal(x.view(torch.int32), y.view(torch.int32))
-    want = ss_.slstm_scan_plain(wx, r, *start)
     runs = [ss_.slstm_scan(wx, r, *start) for _ in range(2)]
     torch.cuda.synchronize()
     again = all(bits(x, y) for x, y in zip(*runs))
@@ -3132,26 +3218,30 @@ def _slstm_case(ss_, name, wx, r, start) -> dict:
         bits(x, y) for x, y in zip(k_st, got[1:]))
     teacher, teacher_ok = _slstm_forced(ss_, wx, r, plain_starts)
     own, own_ok = _slstm_forced(ss_, wx, r, kernel_starts)
-    dev = (got[0] - want[0]).abs()
-    tol = ss_.tolerance(wx, r, *start, carry=True)[0]
-    seq_ok = bool((dev <= tol).all())
-    per_pos = dev.amax(dim=(0, 2, 3))
-    apart = (per_pos > 1e-3).nonzero()
-    first = int(apart[0]) if apart.numel() else None
     finite = all(bool(torch.isfinite(x).all()) for x in got)
+    seq_ok, first, seq = True, None, None
+    text = "whole sequence not held (the carried bound is vacuous here)"
+    if whole:
+        want = ss_.slstm_scan_plain(wx, r, *start)
+        dev = (got[0] - want[0]).abs()
+        tol = ss_.tolerance(wx, r, *start, carry=True)[0]
+        seq_ok = bool((dev <= tol).all())
+        per_pos = dev.amax(dim=(0, 2, 3))
+        apart = (per_pos > 1e-3).nonzero()
+        first = int(apart[0]) if apart.numel() else None
+        seq = float(dev.max())
+        text = (f"whole sequence: h max deviation {seq:.3g} (first position "
+                f"past 1e-3: {first}), within the carried bound {seq_ok}")
     ok = again and chained and teacher_ok and own_ok and seq_ok and finite
     print(f"{name}: teacher-forced h max err {teacher:.3g} within the "
           f"one-step bound {teacher_ok}; kernel-forced {own:.3g} within "
           f"{own_ok}; sequence launch == chained one-position launches "
-          f"{chained}; repeat bit-identical {again}; whole sequence: h max "
-          f"deviation {float(dev.max()):.3g} (first position past 1e-3: "
-          f"{first}), within the carried bound {seq_ok} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{chained}; repeat bit-identical {again}; finite {finite}; "
+          f"{text} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         _fail(f"slstm_scan disagrees with its plain version or with itself "
               f"({name})")
-    return dict(forced=max(teacher, own), sequence=float(dev.max()),
-                first_apart=first)
+    return dict(forced=max(teacher, own), sequence=seq, first_apart=first)
 
 
 def _slstm_bound(b, s, nh, hd):
@@ -3184,6 +3274,12 @@ def phase_slstm(ss_) -> dict:
     wx2 = _slstm_data(1, SLSTM_PREFILL_S, nh, hd, SEED + 51)[0]
     errs.append(_slstm_case(ss_, f"prefill B=1 S={SLSTM_PREFILL_S} from a "
                             "carried state", wx2, r, carried))
+    # phase 56's prefill length, position by position
+    wx_long = _slstm_data(1, LONG_MAX_LEN, nh, hd, SEED + 54)[0]
+    errs.append(_slstm_case(ss_, f"prefill B=1 S={LONG_MAX_LEN} from a "
+                            "carried state", wx_long, r, carried,
+                            whole=False))
+    del wx_long
     wx4 = _slstm_data(4, 1, nh, hd, SEED + 52)[0]
     start4 = _slstm_start(ss_, 4, nh, hd, r, SEED + 53, carried=True)
     errs.append(_slstm_case(ss_, "decode B=4 S=1 from a carried state", wx4,
@@ -3221,7 +3317,8 @@ def phase_slstm(ss_) -> dict:
                         bound_by=bound_by)
     ss_.slstm_scan.launches = before     # checks and timing not counted
     res["max_abs_err"] = max(e["forced"] for e in errs)
-    res["sequence_max_dev"] = max(e["sequence"] for e in errs)
+    res["sequence_max_dev"] = max(e["sequence"] for e in errs
+                                  if e["sequence"] is not None)
     return res
 
 
@@ -3234,9 +3331,11 @@ def phase_slstm(ss_) -> dict:
 RGLRU_W = 2560
 RGLRU_PREFILL_S = 2600
 # (B, S, w): one position, a full chunk and one past it, several chunks,
-# and B = 4 at S = 4096, more tiles than the card holds at once (671 MB)
+# B = 4 at S = 4096, more tiles than the card holds at once (671 MB), and
+# phase 55's prefill length, 32768
 RGLRU_GRID = ((1, 1, 64), (3, 64, 64), (2, 65, 64), (2, 300, 64),
-              (2, 7, RGLRU_W), (1, 700, RGLRU_W), (4, 4096, RGLRU_W))
+              (2, 7, RGLRU_W), (1, 700, RGLRU_W), (4, 4096, RGLRU_W),
+              (1, 32768, RGLRU_W))
 
 
 def _rglru_data(b, s, w, seed):
@@ -5009,7 +5108,8 @@ class _SyncWatch:
 
 
 def _pipelined_route(mdl, S, memtier, cori, telemetry, kernels, cfg, params,
-                     want, sync, check, *, between=None, **mix) -> dict:
+                     want, sync, check, *, between=None, profile=True,
+                     **mix) -> dict:
     """A served phase's mix on its weights through the pipelined loop
     (``pipeline=True``, graph route): ``check(b, result, False)`` (the
     phase's launch checks), streams held to the phase's graph route's
@@ -5017,8 +5117,11 @@ def _pipelined_route(mdl, S, memtier, cori, telemetry, kernels, cfg, params,
     (``_check_pipeline``), every fresh admission's prefill under
     ``_SyncWatch``; prints tokens/s, macro wall p50, decision wait p50 and
     the admission stall beside the graph route's (``sync``), and one
-    profiled pipelined macro's busy share.  ``between``: as
-    ``_serve_mix``'s."""
+    profiled pipelined macro's busy share (``profile=False``: the check
+    puts its own in ``result["profile"]``).  ``between``: as
+    ``_serve_mix``'s.  The check sees the run's fresh admissions (packed
+    prefills) and admission chunks in ``result["fresh_admissions"]`` and
+    ``result["chunks"]``."""
     name = cfg.name
     print(f"-- the pipelined route ({name}, pipeline=True)", flush=True)
     keep, watch = {}, {}
@@ -5030,6 +5133,9 @@ def _pipelined_route(mdl, S, memtier, cori, telemetry, kernels, cfg, params,
     b, res, same, rng, reqs = _serve_mix(
         params, cfg, S, memtier, cori, telemetry, kernels, keep=keep,
         between=hook, pipeline=True, **mix)
+    rec = keep.pop("recorder")
+    res.update(fresh_admissions=len(watch["sync"].syncs),
+               chunks=len(rec.events("serve.pipeline.admit_chunk")))
     check(b, res, False)
     _compare_streams(mdl, cfg, params, reqs, same["streams"], want,
                      f"{name} pipelined", ref="the graph route's",
@@ -5037,7 +5143,6 @@ def _pipelined_route(mdl, S, memtier, cori, telemetry, kernels, cfg, params,
     exact = sorted(r for r in want if same["streams"][r] == want[r])
     print(f"{name} pipelined streams == the graph route's: requests "
           f"{exact} of {sorted(want)}", flush=True)
-    rec = keep.pop("recorder")
     st = _pipeline_stats(rec)
     _check_pipeline(f"{name} pipelined", b, st)
     sw = watch["sync"]
@@ -5052,7 +5157,8 @@ def _pipelined_route(mdl, S, memtier, cori, telemetry, kernels, cfg, params,
           f"{sw.syncs}, by source line {sw.where}; their host wall p50 "
           f"{float(np.median(sw.wall_ms)):.1f} ms (max "
           f"{max(sw.wall_ms):.1f})", flush=True)
-    res["profile"] = _profile_macro(b, S, cfg, rng)
+    if profile:
+        res["profile"] = _profile_macro(b, S, cfg, rng)
     b.close()
     prof = res["profile"]
     busy = ("busy/idle not measured" if prof["busy_pct"] is None else
@@ -5315,15 +5421,16 @@ def phase_squeeze(mdl, pa, S, memtier, cori, telemetry, kernels, inject,
     return res
 
 
-def _flash_chunk_timing(fa, start, window, flush) -> dict:
+def _flash_chunk_timing(fa, start, window, flush, s=None) -> dict:
     """The flash kernel at one admission chunk of phase 33 (float32, B=1,
     S=512 at ``q_offset`` = ``start`` over T = start + 512 keys, 16/8
-    heads of 256): per call (CUDA events) and on the device (profiler),
-    beside its plain version, one SDPA call over the same mask and the
-    3xTF32 bound."""
+    heads of 256; phase 54's: S = ``s`` = 2048): per call (CUDA events)
+    and on the device (profiler), beside its plain version, one SDPA call
+    over the same mask and the 3xTF32 bound."""
     import torch.nn.functional as F
     c = FLASH_CHUNK
-    b, s, h, kv, d = c["b"], c["s"], c["h"], c["kv"], c["d"]
+    b, h, kv, d = c["b"], c["h"], c["kv"], c["d"]
+    s = s or c["s"]
     t = start + s
     q, k, v = _flash_offset_case(b=b, s=s, t=t, h=h, kv=kv, d=d,
                                  dtype=torch.float32, seed=11)
@@ -5452,6 +5559,358 @@ def phase_gemma_pipelined(C, mdl, pa, fa, S, memtier, cori, telemetry,
         for start in (0, 1536)}
     fa.flash_attention.launches = before    # timing launches not counted
     return res
+
+
+# ---------------------------------------------------------------------------
+# long-context serving (phases 54-56): a 32k-token prompt on the three
+# configs that declare supports_long_context
+# ---------------------------------------------------------------------------
+
+# the long mix: one request of LONG_PROMPT prompt + LONG_NEW new tokens
+# (32768 positions, the row cap max_len) first and alone in its admission
+# -- packed admission pads every row of a batch to the longest prompt's
+# bucket, so a short row beside it would be padded to 32768 tokens --
+# then LONG_SHORTS short requests one scheduler step later, the second of
+# them sampled at temperature 0.8
+LONG_MAX_LEN = 32768
+LONG_PROMPT, LONG_NEW = 32704, 64
+LONG_SHORTS = dict(n=3, prompt=(256, 1025), new=(48, 97))
+# the pools of phases 54-55 (pages of 16): the long row allocates
+# bucket_pages(2048) = 2048 pages (capped at max_len / 16), a short row at
+# most 128, so 2560 logical pages hold every allocation; the admission
+# gate wants HBM slots for the in-flight rows' exact pages (2048 + 3 x at
+# most 70, and on recurrentgemma a state page each)
+LONG_POOLS = dict(n_logical=2560, hbm_pages=2304, max_len=LONG_MAX_LEN)
+# phase 56: an xlstm-1.3b row holds one state page whatever its context
+LONG_XLSTM_POOLS = dict(n_logical=8, hbm_pages=6, max_len=LONG_MAX_LEN)
+# phase 54's depth: 2 of gemma3-12b's 8 repeats of its 5 local : 1 global
+# block (12 of 48 layers).  At phase 15's 24 layers the float32 weights
+# (25.5 GB), the pools (4864 pages of 6.3 MB: 30.6 GB) and the 32k
+# prefill's cache rows (12.9 GB, which ``model._stack_cache`` copies once
+# more, as ``chunk_past_extend`` does a chunked admission's past) pass
+# the card's 80 GB
+GEMMA_LONG_REPEATS = 2
+# phase 54's pipelined admission: the long prompt in 16 chunks of 2048
+LONG_CHUNK = 2048
+# the scheduler step after which one step is profiled in flight: on the
+# synchronous routes the short rows joined at step 2, so the long row and
+# the short rows all decode
+LONG_PROFILE_STEP = 3
+# kernel 1 at the long rows (phases 3, 54, 55): one row at 32768 tokens
+# (2048 pages of 16) beside shorter ones: gemma3-12b's global and local
+# layers (16/8 heads of 256) and recurrentgemma-2b's local layers (10/1
+# heads, window 2048, its state page in column 2049); every row's pages
+# distinct, as in the pool
+LONG_PAGED = {
+    "gemma3-12b global": dict(b=4, h=16, kv=8, d=256, page=16, n=2048,
+                              p_phys=8192, lengths=[32768, 1100, 700, 0]),
+    "gemma3-12b local": dict(b=4, h=16, kv=8, d=256, page=16, n=2048,
+                             p_phys=8192, lengths=[32768, 1100, 700, 0],
+                             window=1024),
+    "recurrentgemma-2b local": dict(RGEMMA_DECODE, n=2049, p_phys=8200,
+                                    lengths=[32768, 1100, 700, 0]),
+}
+# kernel 3 at the last of phase 54's admission chunks: 2048 queries at
+# q_offset 30720 over 32768 keys
+LONG_FLASH_CHUNK = (2048, 30720)
+
+
+def _long_mix(S, cfg, rng):
+    """The long mix (``LONG_*``) as (arrival step, request) pairs: rid 0
+    the long request at step 0, the short ones at step 1 (rid 2
+    sampled)."""
+    mix = [(0, S.Request(rid=0, prompt=rng.integers(
+        0, cfg.vocab_size, LONG_PROMPT).astype(np.int32),
+        max_new_tokens=LONG_NEW, seed=SEED))]
+    c = LONG_SHORTS
+    for i in range(1, c["n"] + 1):
+        plen = int(rng.integers(*c["prompt"]))
+        mix.append((1, S.Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, plen).astype(
+                np.int32), max_new_tokens=int(rng.integers(*c["new"])),
+            temperature=0.8 if i == 2 else 0.0, seed=SEED + i)))
+    print("long mix (arrival step, prompt, new, temperature): "
+          + ", ".join(f"({at}, {len(r.prompt)}, {r.max_new_tokens}, "
+                      f"{r.temperature})" for at, r in mix), flush=True)
+    return mix
+
+
+class _LongRun:
+    """A long-context phase's ``_serve_mix`` hook: the device memory
+    resident when the run starts (weights, pools, a graph's buffers) and
+    the peak above it over the first scheduler step (the long request's
+    admission on the synchronous routes), and one scheduler step profiled
+    in flight, the one after step ``LONG_PROFILE_STEP``
+    (``_macro_groups``)."""
+
+    def __init__(self, b):
+        torch.cuda.synchronize()
+        self.resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        self.steps, self.first_peak = 0, None
+        self.prof = self.profile = None
+
+    def __call__(self, b):
+        from torch.profiler import ProfilerActivity, profile
+        self.steps += 1
+        if self.steps == 1:
+            torch.cuda.synchronize()
+            self.first_peak = torch.cuda.max_memory_allocated() \
+                - self.resident
+        if self.prof is not None:
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - self.t0) * 1e3
+            self.prof.__exit__(None, None, None)
+            self.profile = _macro_groups(
+                self.prof, b, wall_ms, b.decode_steps - self.at[0],
+                b.device_steps - self.at[1])
+            self.prof = None
+        elif self.steps == LONG_PROFILE_STEP and not b.idle:
+            torch.cuda.synchronize()
+            self.at = (b.decode_steps, b.device_steps)
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.monotonic()
+
+
+def _long_result(name, route, run, result) -> None:
+    """Put a long-context run's in-flight profile and its first step's
+    peak in ``result``, print the phase's numbers, and fail unless the
+    long request was admitted alone (the synchronous routes)."""
+    if run.profile is None:
+        _fail(f"{name} {route}: no step was profiled in flight")
+    result.update(profile=run.profile, resident_gb=run.resident / 1e9,
+                  first_step_peak_gb=run.first_peak / 1e9)
+    alone = route == "pipelined" or result["first_joiners"] == 1
+    print(f"{name} {route}: {result['tokens_per_s']:.2f} tokens/s, "
+          f"admission wall {[round(x, 1) for x in result['admit_wall_ms']]}"
+          f" ms, macro wall p50 {result['macro_p50_ms']:.1f} ms, peak "
+          f"{result['peak_gb']:.2f} GB; resident at the start "
+          f"{run.resident / 1e9:.2f} GB, the first step's peak above it "
+          f"{run.first_peak / 1e9:.2f} GB"
+          + ("" if route == "pipelined" else
+             f"; the long request alone in the first admission: {alone}"),
+          flush=True)
+    if not alone:
+        _fail(f"{name} {route}: the long request shared its admission "
+              f"({result['first_joiners']} joiners)")
+
+
+def _long_paged_timing(pa, names, launches) -> dict:
+    """Kernel 1 at ``LONG_PAGED``'s shapes ``names`` (float32), held to
+    its plain version first: ``_paged_timing``'s numbers, each with the
+    launches of the run that served it."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    before = pa.paged_attention.launches
+    res = {}
+    for name in names:
+        case = LONG_PAGED[name]
+        args = _kernel_case(pa, dtype=torch.float32, seed=13, **case)
+        out, mass = pa.paged_attention(**args)
+        ref_o, ref_m = pa.paged_attention_plain(**args)
+        err = max(float((out - ref_o).abs().max()),
+                  float((mass - ref_m).abs().max()))
+        if not err <= 1e-5:
+            _fail(f"paged_attention at the {name} long shape: err "
+                  f"{err:.3g} against its plain version (tol 1e-5)")
+        times, text = _paged_timing(pa, args, flush,
+                                    window=case.get("window", 0))
+        pps, splits, groups = _plan(pa, case)
+        print(f"{name} at 32k: B={case['b']} H={case['h']} KV={case['kv']} "
+              f"D={case['d']} n={case['n']} window={case.get('window', 0)} "
+              f"lengths {case['lengths']} float32, {pps} pages a split x "
+              f"{splits} splits x {groups} head group(s) (err {err:.3g} vs "
+              f"plain): {text}", flush=True)
+        res[name] = dict(times, max_abs_err=err, launches=launches)
+        del args
+    pa.paged_attention.launches = before      # timing launches not counted
+    return res
+
+
+def phase_gemma_long(C, mdl, pa, fa, S, memtier, cori, telemetry, kernels):
+    """Phase 54: gemma3-12b at full width, ``GEMMA_LONG_REPEATS`` repeats
+    of its block, flash prefill, serving the long mix by the graph, eager
+    and pipelined (``admit_chunk_tokens=LONG_CHUNK``) routes; then kernel
+    1 and kernel 3 timed at the long shapes."""
+    print(f"== phase 54: long context on gemma3-12b (a {LONG_PROMPT}-token "
+          f"prompt + {LONG_NEW} new, max_len {LONG_MAX_LEN}; full width, "
+          f"{GEMMA_LONG_REPEATS} of its 8 blocks; flash prefill; graph, "
+          "eager and pipelined routes)", flush=True)
+    pattern = C.get("gemma3-12b").segments[0][0]
+    cfg, params = _init_full(C, mdl, "gemma3-12b",
+                             segments=((pattern, GEMMA_LONG_REPEATS),),
+                             attention_impl="pallas")
+    print(f"access threshold {GEMMA_ACCESS_THRESHOLD} (phase 15's): a page "
+          f"of the long row inside the 1024-token window draws about "
+          f"(10/12)/64 + (2/12)/2048 ~ 0.013 of the row's layer-averaged "
+          f"mass under near-uniform attention, a page outside it (2/12)/"
+          f"2048 ~ 8e-5 (the default 0.05 counts no page of these rows)",
+          flush=True)
+    runs, streams = [], {}
+
+    def between(b):
+        runs.append(_LongRun(b))
+        return runs[-1]
+
+    def check(b, result, eager):
+        route = "eager" if eager else "graph"
+        result["launches"] = _check_flash_launches(fa, cfg, result)
+        result["paged_launches"] = pa.paged_attention.launches
+        _check_launches("paged_attention", result["paged_launches"],
+                        cfg.num_layers, b, eager)
+        _keep_graph_streams(b, eager, streams)
+        _check_cori_acted(b)
+        _long_result(cfg.name, route, runs.pop(), result)
+
+    mix = dict(LONG_POOLS, requests=_long_mix,
+               access_threshold=GEMMA_ACCESS_THRESHOLD, between=between)
+    results, _ = _serve_routes(params, cfg, S, memtier, cori, telemetry,
+                               kernels, check, profile=False, **mix)
+
+    def piped_check(b, result, eager):
+        want_chunks = -(-LONG_PROMPT // LONG_CHUNK)
+        flash = fa.flash_attention.launches
+        want = cfg.num_layers * (want_chunks + result["fresh_admissions"])
+        ok = result["chunks"] == want_chunks and flash == want
+        print(f"admission chunks {result['chunks']} (the long prompt in "
+              f"chunks of {LONG_CHUNK}: {want_chunks}), packed admissions "
+              f"{result['fresh_admissions']}; flash_attention launches "
+              f"{flash} = {cfg.num_layers} layers x ({want_chunks} chunks + "
+              f"{result['fresh_admissions']} packed) -> {ok}", flush=True)
+        if not ok:
+            _fail("the flash kernel's launches do not match the layers x "
+                  "(chunks + packed admissions)")
+        result.update(launches=flash,
+                      paged_launches=pa.paged_attention.launches)
+        _check_launches("paged_attention", result["paged_launches"],
+                        cfg.num_layers, b, False)
+        _check_cori_acted(b)
+        _long_result(cfg.name, "pipelined", runs.pop(), result)
+
+    mix.pop("between")
+    results["pipelined"] = _pipelined_route(
+        mdl, S, memtier, cori, telemetry, kernels, cfg, params, streams,
+        results["graph"], piped_check, between=between, profile=False,
+        admit_chunk_tokens=LONG_CHUNK, **mix)
+    results["paged_timing"] = _long_paged_timing(
+        pa, ("gemma3-12b global", "gemma3-12b local"),
+        results["graph"]["paged_launches"])
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=DEV)
+    before = fa.flash_attention.launches
+    s, start = LONG_FLASH_CHUNK
+    results["chunk_timing"] = {
+        f"window {w}" if w else "causal": dict(
+            _flash_chunk_timing(fa, start, w, flush, s=s),
+            launches=results["pipelined"]["launches"])
+        for w in (0, 1024)}
+    fa.flash_attention.launches = before    # timing launches not counted
+    held = torch.cuda.memory_allocated()
+    del params
+    _check_freed(held)
+    return results
+
+
+def phase_rgemma_long(mdl, pa, rg_, S, memtier, cori, telemetry, kernels,
+                      cfg, params):
+    """Phase 55: phase 18's recurrentgemma-2b (full depth, its registered
+    ``attention_impl="reference"``: the local layers' prefill through
+    ``layers.sdpa``, in query chunks) serving the long mix by both
+    routes; the admission's peak above the resident bytes must stay
+    below one local layer's whole [heads, S, S] float32 logits."""
+    print(f"== phase 55: long context on recurrentgemma-2b (a {LONG_PROMPT}"
+          f"-token prompt + {LONG_NEW} new, max_len {LONG_MAX_LEN}; full "
+          "depth; the local layers' prefill through the query-chunked "
+          "sdpa)", flush=True)
+    local = sum(r for _, _, r, w, _ in mdl.state_slot_meta(cfg) if w > 0)
+    n_rglru = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
+                  if k.base == "rglru")
+    whole = cfg.num_heads * LONG_PROMPT * LONG_PROMPT * 4
+    print(f"access threshold {RGEMMA_ACCESS_THRESHOLD} (phase 18's): a "
+          f"row's layer-averaged mass puts 18/26 on its state page and "
+          f"spreads 8/26 over the ~129 pages inside the 2048-token window "
+          f"(~0.0024 a page), 0 outside it; the bar on the admission's "
+          f"peak: one local layer's whole logits [{cfg.num_heads}, "
+          f"{LONG_PROMPT}, {LONG_PROMPT}] float32, {whole / 1e9:.2f} GB",
+          flush=True)
+    runs, streams = [], {}
+
+    def between(b):
+        runs.append(_LongRun(b))
+        return runs[-1]
+
+    def check(b, result, eager):
+        result["launches"] = pa.paged_attention.launches
+        result["rglru_launches"] = rg_.rglru_scan.launches
+        _check_launches("paged_attention", result["launches"], local, b,
+                        eager)
+        _check_cell_launches("rglru_scan", result["rglru_launches"],
+                             n_rglru, b, result)
+        _check_cori_acted(b)
+        _keep_graph_streams(b, eager, streams)
+        run = runs.pop()
+        _long_result(cfg.name, "eager" if eager else "graph", run, result)
+        result["logits_bar_gb"] = whole / 1e9
+        print(f"the admission's peak above the resident bytes "
+              f"{run.first_peak / 1e9:.2f} GB against one local layer's "
+              f"whole logits {whole / 1e9:.2f} GB -> "
+              f"{run.first_peak < whole}", flush=True)
+        if not run.first_peak < whole:
+            _fail("recurrentgemma-2b's long admission reached one local "
+                  "layer's unchunked logits")
+
+    results, _ = _serve_routes(
+        params, cfg, S, memtier, cori, telemetry, kernels, check,
+        profile=False, requests=_long_mix, between=between,
+        access_threshold=RGEMMA_ACCESS_THRESHOLD, **LONG_POOLS)
+    results["paged_timing"] = _long_paged_timing(
+        pa, ("recurrentgemma-2b local",), results["graph"]["launches"])
+    return results
+
+
+def phase_xlstm_long(mdl, pa, ms_, ss_, S, memtier, cori, telemetry,
+                     kernels, cfg, params):
+    """Phase 56: phase 19's xlstm-1.3b (full depth) serving the long mix
+    by both routes: the mLSTM and sLSTM kernels through a 32704-position
+    prefill; the state pages do not grow with the context."""
+    print(f"== phase 56: long context on xlstm-1.3b (a {LONG_PROMPT}-token "
+          f"prompt + {LONG_NEW} new, max_len {LONG_MAX_LEN}; full depth; one "
+          "state page a row)", flush=True)
+    n_mlstm = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
+                  if k.base == "mlstm")
+    n_slstm = sum(r for _, _, r, _, k in mdl.state_slot_meta(cfg)
+                  if k.base == "slstm")
+    print("access threshold 0.05 (the default): a row's only page is its "
+          "state page, which every layer touches (mass 1)", flush=True)
+    runs, streams = [], {}
+
+    def between(b):
+        runs.append(_LongRun(b))
+        return runs[-1]
+
+    def check(b, result, eager):
+        result.update(launches=pa.paged_attention.launches,
+                      mlstm_launches=ms_.mlstm_scan.launches,
+                      slstm_launches=ss_.slstm_scan.launches)
+        if result["launches"]:
+            _fail("xlstm-1.3b launched the paged kernel")
+        _check_cell_launches("mlstm_scan", result["mlstm_launches"],
+                             n_mlstm, b, result, per_prefill=2)
+        _check_cell_launches("slstm_scan", result["slstm_launches"],
+                             n_slstm, b, result)
+        if eager and b.device_steps != b.decode_steps:
+            _fail(f"the eager route ran {b.device_steps} device steps for "
+                  f"{b.decode_steps} decode steps")
+        _check_cori_acted(b)
+        _keep_graph_streams(b, eager, streams)
+        _long_result(cfg.name, "eager" if eager else "graph", runs.pop(),
+                     result)
+
+    results, _ = _serve_routes(
+        params, cfg, S, memtier, cori, telemetry, kernels, check,
+        profile=False, requests=_long_mix, between=between,
+        **LONG_XLSTM_POOLS)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -6180,10 +6639,18 @@ def main() -> int:
     held = torch.cuda.memory_allocated()
     del params
     _check_freed(held)
+    glong = timed("gemma3 long context", phase_gemma_long, C, mdl, pa, fa,
+                  S, memtier, cori, telemetry, kernels)
     flash_timing = timed("flash_attention timing", phase_flash_timing, fa)
     rglru = timed("rglru_scan check and timing", phase_rglru, rg_)
-    rgemma = timed("recurrentgemma serving", phase_rgemma, C, mdl, pa, rg_,
-                   S, memtier, cori, telemetry, kernels)
+    rgemma, rcfg, params = timed(
+        "recurrentgemma serving", phase_rgemma, C, mdl, pa, rg_, S, memtier,
+        cori, telemetry, kernels)
+    rlong = timed("recurrentgemma long context", phase_rgemma_long, mdl, pa,
+                  rg_, S, memtier, cori, telemetry, kernels, rcfg, params)
+    held = torch.cuda.memory_allocated()
+    del params
+    _check_freed(held)
     mlstm = timed("mlstm_scan check and timing", phase_mlstm, ms_)
     slstm = timed("slstm_scan check and timing", phase_slstm, ss_)
     bwd = timed("backward kernels check and timing", phase_backward, ms_,
@@ -6195,6 +6662,8 @@ def main() -> int:
         "xlstm squeeze", phase_xlstm_squeeze, mdl, ms_, ss_, S, memtier,
         cori, telemetry, kernels, inject, xcfg, params, xstreams,
         xlstm["graph"])
+    xlong = timed("xlstm long context", phase_xlstm_long, mdl, pa, ms_, ss_,
+                  S, memtier, cori, telemetry, kernels, xcfg, params)
     held = torch.cuda.memory_allocated()
     del params
     _check_freed(held)
@@ -6296,10 +6765,16 @@ def main() -> int:
                 wide_flash[key]["launches"] = res["graph"]["flash_launches"]
     main_routed = routed.pop("deepseek-v3-671b")
     chunk_timing = gpiped.pop("chunk_timing")
+    long_chunk = glong.pop("chunk_timing")
+    long_paged = {**glong.pop("paged_timing"), **rlong.pop("paged_timing")}
+    long_launches = lambda res, key: {
+        route: res[route][key] for route in ("graph", "eager", "pipelined")
+        if route in res}
     print(f"card: {card}; serving {serve}; dense {dense}; pipelined "
           f"{piped}; chaos {chaos}; squeeze {squeeze}; gemma3 pipelined "
           f"chunked {gpiped}; traffic "
-          f"{traffic}; offline {offline}; deepseek "
+          f"{traffic}; long context: gemma3 {glong}, recurrentgemma "
+          f"{rlong}, xlstm {xlong}; offline {offline}; deepseek "
           f"{deepseek}; gemma3 {gemma}; recurrentgemma {rgemma}; xlstm "
           f"{xlstm}; mlstm_scan {mlstm}; slstm_scan {slstm}; backward "
           f"kernels {bwd}; rglru_scan "
@@ -6355,7 +6830,15 @@ def main() -> int:
                  "olmoe-1b-7b decode, pipelined, packed and chunked "
                  "admission (phase 36)": dict(launches=[
                      olmoe["pipelined"][k]["launches"]
-                     for k in ("packed", "chunked")])}),
+                     for k in ("packed", "chunked")]),
+                 **{f"{name} decode, one row at 32768 tokens (phases 3, "
+                    f"{54 if name.startswith('gemma') else 55}; launches: "
+                    "the graph route's)": v
+                    for name, v in long_paged.items()},
+                 "gemma3-12b long context by route (phase 54)": dict(
+                     launches=long_launches(glong, "paged_launches")),
+                 "recurrentgemma-2b long context by route (phase 55)": dict(
+                     launches=long_launches(rlong, "launches"))}),
         dict(name="page_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/page_hist.cu",
              replaces="src/repro/kernels/page_hist.py:45",
@@ -6389,7 +6872,14 @@ def main() -> int:
                  "16/8 heads D=256 float32 window 1024 (phase 33; launches: "
                  "every chunk of the run)": dict(
                      v, launches=gpiped["launches"])
-                 for k, v in chunk_timing.items()})),
+                 for k, v in chunk_timing.items()}, **{
+                 f"gemma3-12b long admission chunk B=1 S="
+                 f"{LONG_FLASH_CHUNK[0]} q_offset={LONG_FLASH_CHUNK[1]} "
+                 f"T={LONG_MAX_LEN} 16/8 heads D=256 float32 {k} (phases "
+                 "14, 54; launches: the pipelined run's, every chunk and "
+                 "packed admission)": v for k, v in long_chunk.items()},
+                 **{"gemma3-12b long context by route (phase 54)": dict(
+                     launches=long_launches(glong, "launches"))})),
         dict(name="routed_experts", route="cuda",
              source="src/repro_torch/kernels/csrc/routed_experts.cu",
              replaces="src/repro/models/moe.py:85",
@@ -6425,7 +6915,11 @@ def main() -> int:
                    "xlstm-1.3b pipelined route (phase 19)": dict(
                        launches=xlstm["pipelined"]["mlstm_launches"]),
                    "xlstm-1.3b pipelined under a squeeze (phase 53)": dict(
-                       launches=xlstm["squeeze"]["mlstm_launches"])}),
+                       launches=xlstm["squeeze"]["mlstm_launches"]),
+                   "xlstm-1.3b long context by route (phase 56; a "
+                   f"{LONG_PROMPT}-position prefill: phase 44's S="
+                   f"{LONG_MAX_LEN} case)": dict(
+                       launches=long_launches(xlong, "mlstm_launches"))}),
         dict(name="slstm_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/slstm_scan.cu",
              replaces="src/repro/models/recurrent.py:237",
@@ -6445,7 +6939,10 @@ def main() -> int:
                    "xlstm-1.3b pipelined route (phase 19)": dict(
                        launches=xlstm["pipelined"]["slstm_launches"]),
                    "xlstm-1.3b pipelined under a squeeze (phase 53)": dict(
-                       launches=xlstm["squeeze"]["slstm_launches"])}),
+                       launches=xlstm["squeeze"]["slstm_launches"]),
+                   "xlstm-1.3b long context by route (phase 56; phase 45's "
+                   f"S={LONG_MAX_LEN} case)": dict(
+                       launches=long_launches(xlong, "slstm_launches"))}),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/rglru_scan.cu",
              replaces="src/repro/models/recurrent.py:326",
@@ -6462,6 +6959,9 @@ def main() -> int:
                        launches=rgemma["eager"]["rglru_launches"]),
                    "recurrentgemma-2b pipelined route (phase 18)": dict(
                        launches=rgemma["pipelined"]["rglru_launches"]),
+                   "recurrentgemma-2b long context by route (phase 55; "
+                   f"phase 46's S={LONG_MAX_LEN} case)": dict(
+                       launches=long_launches(rlong, "rglru_launches")),
                    "recurrentgemma-2b training B=4 S=256 (phase 50; 2 a "
                    "RG-LRU layer and step under remat)": dict(
                        launches=train["recurrentgemma-2b"]["launches"][

@@ -32,6 +32,10 @@ __all__ = ["gather_rows", "rows_gathered", "dense", "reshape", "dense_init", "rm
            "mla_apply", "mla_decode", "mla_scale", "embed", "unembed"]
 
 NEG = -1e30     # masked logits, as the reference (not -inf)
+#: queries a chunk of ``sdpa``'s softmax: the reference's ``_sdpa_chunked``
+#: takes ``q_chunk=512`` (``repro/models/layers.py:152``), so a chunk's
+#: logits are [B, H, 512, T] however long the prompt
+SDPA_Q_CHUNK = 512
 
 
 def _even_reshape(t, shape):
@@ -175,20 +179,34 @@ def sdpa(q, k, v, mask, softcap: float):
     broadcastable to [B,S,T].  The query heads of one KV head attend it as
     a group (GQA without materialising repeated keys).  Returns
     [B,S,H,Dv].  DTensor inputs (the mesh step) attend shard by shard
-    (``_sdpa_sharded``)."""
+    (``_sdpa_sharded``).
+
+    The softmax runs ``SDPA_Q_CHUNK`` queries at a time (the mask's query
+    rows sliced with them), so the float32 logits are never larger than
+    [B, H, SDPA_Q_CHUNK, T], as the reference's ``_sdpa_chunked``; a
+    query's row sums over the same keys either way.  Every S past one
+    chunk is chunked, the ragged last chunk too, where the reference
+    takes S % 512 != 0 in one piece (a difference of memory alone)."""
     if isinstance(q, DTensor):
         return _sdpa_sharded(q, k, v, mask, softcap)
     b, s, h, d = q.shape
-    kvh = k.shape[2]
-    qg = reshape(q, b, s, kvh, h // kvh, d)
-    logits = torch.einsum("bsgrd,btgd->bgrst", qg.float(), k.float()) \
-        * (1.0 / math.sqrt(d))
-    if softcap > 0:
-        logits = torch.tanh(logits / softcap) * softcap
-    m = torch.broadcast_to(mask, (b, s, k.shape[1]))[:, None, None]
-    logits = torch.where(m, logits, torch.full_like(logits, NEG))
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bgrst,btgd->bsgrd", w, v.to(q.dtype))
+    t, kvh = k.shape[1], k.shape[2]
+    kf, vq = k.float(), v.to(q.dtype)
+    # a mask whose query dim is 1 (a decode step's) broadcasts to every row
+    rows = mask.dim() >= 2 and mask.shape[-2] != 1
+    outs = []
+    for lo in range(0, s, SDPA_Q_CHUNK):
+        hi = min(s, lo + SDPA_Q_CHUNK)
+        qg = reshape(q[:, lo:hi], b, hi - lo, kvh, h // kvh, d)
+        logits = torch.einsum("bsgrd,btgd->bgrst", qg.float(), kf) \
+            * (1.0 / math.sqrt(d))
+        if softcap > 0:
+            logits = torch.tanh(logits / softcap) * softcap
+        mc = mask[..., lo:hi, :] if rows else mask
+        m = torch.broadcast_to(mc, (b, hi - lo, t))[:, None, None]
+        w = torch.softmax(logits.masked_fill(~m, NEG), dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bgrst,btgd->bsgrd", w, vq))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return reshape(out, b, s, h, v.shape[-1])
 
 

@@ -189,9 +189,11 @@ def conv_step(state, x_t, w):
 
 def _conv_seq(state_conv, u, w):
     """The sequence form's conv over ``state_conv ++ u``: (conv output
-    [B, S, D], the new conv state [B, K-1, D])."""
+    [B, S, D], the new conv state [B, K-1, D]).  The state is a copy: a
+    view would keep the whole [B, S + 3, D] input alive as long as the
+    state lives (a prefill holds every layer's state until it returns)."""
     conv_in = torch.cat([state_conv, u], dim=1)
-    return causal_conv1d(conv_in, w)[:, 3:], conv_in[:, -3:]
+    return causal_conv1d(conv_in, w)[:, 3:], conv_in[:, -3:].clone()
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +387,8 @@ def rglru_apply(p, r: int, cfg: ModelConfig, x, state=None):
     gate = F.gelu(x @ p.w_gate[r], approximate="tanh")
     xc, conv = _conv_seq(state["conv"], x @ p.w_x[r], p.conv[r])
     h = _rglru_scan(p, r, xc, state["h"])
-    return (h * gate) @ p.w_out[r], {"h": h[:, -1], "conv": conv}
+    # the state a copy, as ``_conv_seq``'s: not a view that keeps h alive
+    return (h * gate) @ p.w_out[r], {"h": h[:, -1].clone(), "conv": conv}
 
 
 def rglru_step(p, r: int, cfg: ModelConfig, x, state):
